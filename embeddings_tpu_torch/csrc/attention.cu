@@ -1,0 +1,232 @@
+// Prefix-masked multi-head self-attention over the fused QKV projection
+// (kernel K2 of the PyTorch port), for sm_90a.
+//
+// Replaces: embeddings_tpu/ops/attention.py:_attn_kernel (its bf16 branch),
+// the Pallas TPU kernel behind fused_attention(). For each sequence b,
+// head h and query i, with q, k, v read as column slices of the fused
+// qkv buffer [B*L, 3E] (q at h*D, k at E + h*D, v at 2E + h*D):
+//     qs  = bf16(q * log2(e)/sqrt(D))
+//     s   = clamp(qs . k_j, -100, 127 - ceil(log2 L))        (f32)
+//     p_j = bf16(exp2(s)) if j < len[b] else 0
+//     out = (sum_j p_j v_j) / max(sum_j p_j, 1e-30)           (f32 sums)
+// written as bf16 to ctx [B*L, E] at column h*D. There is no
+// max-subtraction: the clamp keeps exp2 and the sum finite for any row
+// length, as in the TPU kernel, so key tiles only ADD into the output and
+// the denominator; nothing is rescaled. A row with len 0 gives exactly 0.
+//
+// What bounds it on the H100: at B=128, L=256, H=12, D=64 the function
+// moves ~201 MB (qkv in, context out) for ~26 GFLOP, so it is bound by
+// device memory, not by the tensor cores. The design reads q, k and v in
+// place from the fused projection (no transpose pass through memory), and
+// keeps scores and probabilities in shared memory and registers: one
+// block per (64-query tile, head, sequence), 4 warps of 16 query rows,
+// 64-key tiles of K and V staged in shared memory, both products on the
+// tensor cores (WMMA bf16, f32 accumulators). Not yet used: cp.async/TMA
+// double buffering of the key tiles, and skipping key tiles past len[b].
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <mma.h>
+#include <stdint.h>
+
+using namespace nvcuda;
+
+namespace {
+
+constexpr int QT = 64;        // query rows per block
+constexpr int KT = 64;        // keys per tile
+constexpr int THREADS = 128;  // 4 warps x 16 query rows
+constexpr int SP = KT + 4;    // f32 score staging row stride
+constexpr int PP = KT + 8;    // bf16 probability row stride
+
+template <int D>
+struct Layout {
+  static constexpr int DP = D + 8;                  // bf16 q/k/v row stride
+  static constexpr int OP = D + 4;                  // f32 output staging
+  static constexpr int F = 16 * (SP > OP ? SP : OP);  // f32 per warp
+  static constexpr size_t qkv_bytes = 3ull * 64 * DP * sizeof(__nv_bfloat16);
+  static constexpr size_t f_bytes = 4ull * F * sizeof(float);
+  static constexpr size_t p_bytes = 4ull * 16 * PP * sizeof(__nv_bfloat16);
+  static constexpr size_t smem = qkv_bytes + f_bytes + p_bytes;
+};
+
+template <int D>
+__global__ void __launch_bounds__(THREADS) attn_kernel(
+    const __nv_bfloat16* __restrict__ qkv, const int* __restrict__ lengths,
+    __nv_bfloat16* __restrict__ out, int L, int H, float s2, float hi) {
+  using Lay = Layout<D>;
+  constexpr int DP = Lay::DP;
+  constexpr int OP = Lay::OP;
+  constexpr int F = Lay::F;
+  constexpr int DV = D / 8;  // 16-byte vectors per head row
+
+  extern __shared__ __align__(128) unsigned char smem[];
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem);  // [QT][DP]
+  __nv_bfloat16* ks = qs + QT * DP;                              // [KT][DP]
+  __nv_bfloat16* vs = ks + KT * DP;                              // [KT][DP]
+  float* fbase = reinterpret_cast<float*>(smem + Lay::qkv_bytes);
+  __nv_bfloat16* pbase =
+      reinterpret_cast<__nv_bfloat16*>(smem + Lay::qkv_bytes + Lay::f_bytes);
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int q0 = blockIdx.x * QT;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int E = H * D;
+  const size_t ld = 3 * (size_t)E;
+  const int len = lengths[b];
+  const __nv_bfloat16* rows = qkv + (size_t)b * L * ld;
+  float* fsc = fbase + warp * F;
+  __nv_bfloat16* ps = pbase + warp * 16 * PP;
+
+  // q tile, pre-scaled by log2(e)/sqrt(D) and rounded to bf16
+  for (int v = tid; v < QT * DV; v += THREADS) {
+    const int r = v / DV;
+    const int c = (v % DV) * 8;
+    float f[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+    if (q0 + r < L) {
+      const uint4 u = *reinterpret_cast<const uint4*>(
+          rows + (size_t)(q0 + r) * ld + h * D + c);
+      const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&u);
+      for (int i = 0; i < 4; ++i) {
+        const float2 t = __bfloat1622float2(p[i]);
+        f[2 * i] = t.x * s2;
+        f[2 * i + 1] = t.y * s2;
+      }
+    }
+    uint4 o;
+    __nv_bfloat162 t;
+    t = __floats2bfloat162_rn(f[0], f[1]); o.x = *reinterpret_cast<uint32_t*>(&t);
+    t = __floats2bfloat162_rn(f[2], f[3]); o.y = *reinterpret_cast<uint32_t*>(&t);
+    t = __floats2bfloat162_rn(f[4], f[5]); o.z = *reinterpret_cast<uint32_t*>(&t);
+    t = __floats2bfloat162_rn(f[6], f[7]); o.w = *reinterpret_cast<uint32_t*>(&t);
+    *reinterpret_cast<uint4*>(qs + r * DP + c) = o;
+  }
+  __syncthreads();
+
+  wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major>
+      qa[D / 16];
+  for (int d = 0; d < D / 16; ++d)
+    wmma::load_matrix_sync(qa[d], qs + warp * 16 * DP + d * 16, DP);
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[D / 16];
+  for (int d = 0; d < D / 16; ++d) wmma::fill_fragment(acc[d], 0.0f);
+  float rowsum = 0.f;
+
+  const int r = lane >> 1;          // this lane's query row in the warp
+  const int c0 = (lane & 1) * 32;   // and its half of the key tile
+  for (int k0 = 0; k0 < L; k0 += KT) {
+    __syncthreads();  // every warp is done with the previous K/V tile
+    for (int v = tid; v < KT * DV; v += THREADS) {
+      const int kr = v / DV;
+      const int c = (v % DV) * 8;
+      uint4 kv = make_uint4(0, 0, 0, 0), vv = make_uint4(0, 0, 0, 0);
+      if (k0 + kr < L) {
+        const __nv_bfloat16* src = rows + (size_t)(k0 + kr) * ld + h * D + c;
+        kv = *reinterpret_cast<const uint4*>(src + E);
+        vv = *reinterpret_cast<const uint4*>(src + 2 * E);
+      }
+      *reinterpret_cast<uint4*>(ks + kr * DP + c) = kv;
+      *reinterpret_cast<uint4*>(vs + kr * DP + c) = vv;
+    }
+    __syncthreads();
+
+    // scores for this warp's 16 queries x 64 keys
+    for (int n = 0; n < KT / 16; ++n) {
+      wmma::fragment<wmma::accumulator, 16, 16, 16, float> s;
+      wmma::fill_fragment(s, 0.0f);
+      for (int d = 0; d < D / 16; ++d) {
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
+                       wmma::col_major> kb;
+        wmma::load_matrix_sync(kb, ks + n * 16 * DP + d * 16, DP);
+        wmma::mma_sync(s, qa[d], kb, s);
+      }
+      wmma::store_matrix_sync(fsc + n * 16, s, SP, wmma::mem_row_major);
+    }
+    __syncwarp();
+    for (int c = c0; c < c0 + 32; ++c) {
+      const float sc = fminf(fmaxf(fsc[r * SP + c], -100.0f), hi);
+      const float p = (k0 + c < len) ? exp2f(sc) : 0.0f;
+      const __nv_bfloat16 pb = __float2bfloat16_rn(p);
+      ps[r * PP + c] = pb;
+      rowsum += __bfloat162float(pb);
+    }
+    __syncwarp();
+
+    // acc += P V
+    for (int kc = 0; kc < KT / 16; ++kc) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
+                     wmma::row_major> pa;
+      wmma::load_matrix_sync(pa, ps + kc * 16, PP);
+      for (int d = 0; d < D / 16; ++d) {
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
+                       wmma::row_major> vb;
+        wmma::load_matrix_sync(vb, vs + kc * 16 * DP + d * 16, DP);
+        wmma::mma_sync(acc[d], pa, vb, acc[d]);
+      }
+    }
+  }
+
+  rowsum += __shfl_xor_sync(0xffffffffu, rowsum, 1);
+  __syncwarp();
+  for (int d = 0; d < D / 16; ++d)
+    wmma::store_matrix_sync(fsc + d * 16, acc[d], OP, wmma::mem_row_major);
+  __syncwarp();
+  const int qrow = q0 + warp * 16 + r;
+  if (qrow < L) {
+    const float inv = 1.0f / fmaxf(rowsum, 1e-30f);
+    __nv_bfloat16* dst = out + ((size_t)b * L + qrow) * E + h * D;
+    for (int c = (lane & 1) * (D / 2); c < (lane & 1) * (D / 2) + D / 2;
+         c += 8) {
+      float f[8];
+      for (int e = 0; e < 8; ++e) f[e] = fsc[r * OP + c + e] * inv;
+      uint4 o;
+      __nv_bfloat162 t;
+      t = __floats2bfloat162_rn(f[0], f[1]); o.x = *reinterpret_cast<uint32_t*>(&t);
+      t = __floats2bfloat162_rn(f[2], f[3]); o.y = *reinterpret_cast<uint32_t*>(&t);
+      t = __floats2bfloat162_rn(f[4], f[5]); o.z = *reinterpret_cast<uint32_t*>(&t);
+      t = __floats2bfloat162_rn(f[6], f[7]); o.w = *reinterpret_cast<uint32_t*>(&t);
+      *reinterpret_cast<uint4*>(dst + c) = o;
+    }
+  }
+}
+
+template <int D>
+cudaError_t launch(const void* qkv, const void* lengths, void* out, int B,
+                   int L, int H, float s2, float hi, cudaStream_t stream) {
+  const size_t smem = Layout<D>::smem;
+  cudaError_t err = cudaFuncSetAttribute(
+      attn_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid((L + QT - 1) / QT, H, B);
+  attn_kernel<D><<<grid, THREADS, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(qkv), static_cast<const int*>(lengths),
+      static_cast<__nv_bfloat16*>(out), L, H, s2, hi);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// qkv [B*L, 3*H*D] bf16, lengths [B] int32, out [B*L, H*D] bf16 (device
+// pointers). s2 = log2(e)/sqrt(D) as f32; hi = the score clamp bound
+// 127 - ceil(log2 L). D must be 32, 64 or 128. Returns a cudaError_t.
+int attn_launch(const void* qkv, const void* lengths, void* out, int B,
+                int L, int H, int D, float s2, float hi, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 32: return launch<32>(qkv, lengths, out, B, L, H, s2, hi, st);
+    case 64: return launch<64>(qkv, lengths, out, B, L, H, s2, hi, st);
+    case 128: return launch<128>(qkv, lengths, out, B, L, H, s2, hi, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+const char* attn_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+}  // extern "C"

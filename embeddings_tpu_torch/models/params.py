@@ -1,0 +1,472 @@
+"""Parameter trees of the PyTorch port: random init, the numpy handoff from
+the JAX package, quantization, packing, q/k/v fusion, HF import and the
+native ``.npz`` checkpoint — the port of ``embeddings_tpu/models/params.py``
+for the plain (post-LN, absolute-position) BERT family.
+
+The tree has the JAX package's layout, with torch tensors as leaves and
+every linear stored [in, out] so the forward computes ``x @ w``. Layer
+weights are stacked on a leading axis [num_layers, ...]:
+
+  params = {
+    "embeddings": {"word": [V,E]|QT, "position": [P,E], "token_type": [T,E],
+                   "ln": {"scale": [E], "bias": [E]}},
+    "layers": {
+      "attn": {"q"/"k"/"v"/"o": {"w": [E,E]|QT, "b": [E]}  (or "qkv"),
+               "ln": {"scale", "bias"}},
+      "mlp":  {"up": {"w": [E,F]|QT, "b": [F]}, "down": {"w": [F,E]|QT,
+               "b": [E]}, "ln": {"scale", "bias"}},
+    },
+    "st_dense": {"0": {"w", "b"}, ...}   (SentenceTransformers Dense, opt.)
+  }
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+from pathlib import Path
+from typing import Any, Callable
+
+import numpy as np
+import torch
+
+from ..config import BertConfig
+from ..ops.quant import QuantizedTensor, pack_q4, quantize
+
+Params = dict[str, Any]
+
+DENSE_KINDS = ("f32", "f16", "bf16")
+QUANT_KINDS = ("q4_0", "q4_1", "q8_0", "nf4")
+_TORCH_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16,
+                 "f16": torch.float16}
+
+
+def check_supported(config: BertConfig) -> None:
+    """Raise for model families this slice of the port does not run yet
+    (it runs the plain post-LN BERT encoder with learned positions)."""
+    unsupported = {
+        "embedding_size": config.embedding_size is not None,
+        "shared_layers": config.shared_layers,
+        "relative_attention_num_buckets":
+            bool(config.relative_attention_num_buckets),
+        "position_embedding_type":
+            config.position_embedding_type != "absolute",
+        "gated_mlp": config.gated_mlp,
+        "norm_style": config.norm_style != "post",
+        "norm_type": config.norm_type != "layernorm",
+        "num_key_value_heads": config.num_key_value_heads not in (
+            None, config.num_attention_heads),
+        "causal": config.causal,
+        "num_experts": bool(config.num_experts),
+    }
+    bad = [k for k, v in unsupported.items() if v]
+    if bad:
+        raise NotImplementedError(
+            f"the PyTorch port runs plain post-LN BERT encoders; this "
+            f"config sets {', '.join(bad)}")
+
+
+def map_tree(fn: Callable, tree):
+    """Apply ``fn`` to every tensor leaf (QuantizedTensor parts included)."""
+    if isinstance(tree, QuantizedTensor):
+        return tree.map(fn)
+    if isinstance(tree, dict):
+        return {k: map_tree(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def to_device(params: Params, device) -> Params:
+    """The tree with every tensor moved to ``device`` (dtypes kept)."""
+    return map_tree(lambda t: t.to(device), params)
+
+
+def layer(params: Params, i: int) -> Params:
+    """Layer ``i`` of the stacked layer tree (views, no copies)."""
+    return map_tree(lambda t: t[i], params["layers"])
+
+
+def _ln(scale, bias) -> Params:
+    return {"scale": torch.as_tensor(np.asarray(scale, np.float32)),
+            "bias": torch.as_tensor(np.asarray(bias, np.float32))}
+
+
+def init_params(config: BertConfig, generator: np.random.Generator | int = 0,
+                dtype=torch.float32) -> Params:
+    """Random init (tests and benchmarks without a checkpoint): normal
+    weights with std 0.02 from a numpy generator, zero biases, unit
+    LayerNorms — the JAX package's init, with numpy randomness."""
+    check_supported(config)
+    rng = (np.random.default_rng(generator) if isinstance(generator, int)
+           else generator)
+    E, F = config.hidden_size, config.intermediate_size
+    NL = config.num_hidden_layers
+
+    def mat(*shape):
+        w = rng.standard_normal(shape, dtype=np.float32) * np.float32(0.02)
+        return torch.from_numpy(w).to(dtype)
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=dtype)
+
+    def lin(k, n):
+        return {"w": mat(NL, k, n), "b": zeros(NL, n)}
+
+    def ln_stack():
+        return {"scale": torch.ones(NL, E), "bias": torch.zeros(NL, E)}
+
+    emb = {"word": mat(config.vocab_size, E),
+           "position": mat(config.max_position_embeddings, E),
+           "token_type": mat(config.type_vocab_size, E),
+           "ln": _ln(np.ones(E), np.zeros(E))}
+    layers = {
+        "attn": {"q": lin(E, E), "k": lin(E, E), "v": lin(E, E),
+                 "o": lin(E, E), "ln": ln_stack()},
+        "mlp": {"up": lin(E, F), "down": lin(F, E), "ln": ln_stack()},
+    }
+    return {"embeddings": emb, "layers": layers}
+
+
+# ---------------------------------------------------------------------------
+# Handoff from the JAX package (numpy only: nothing of it is imported here)
+# ---------------------------------------------------------------------------
+
+def _tensor(a) -> torch.Tensor:
+    """numpy-convertible array -> torch tensor (bf16 arrays, which numpy
+    only knows through an extension dtype, arrive as torch bf16)."""
+    arr = np.asarray(a)
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.astype(np.float32)).to(torch.bfloat16)
+    return torch.from_numpy(np.array(arr, copy=True))
+
+
+def from_jax_params(tree, device="cpu") -> Params:
+    """The JAX package's parameter tree -> the port's tree on ``device``.
+
+    Leaves are arrays (anything ``np.asarray`` takes) or quantized weights:
+    any object with ``.codes/.scales/.mins/.kind/.block_axis/.packed``
+    (duck-typed, so no JAX type is imported)."""
+    if all(hasattr(tree, a) for a in ("codes", "scales", "mins", "kind",
+                                       "block_axis", "packed")):
+        return QuantizedTensor(
+            _tensor(tree.codes).to(device), _tensor(tree.scales).to(device),
+            None if tree.mins is None else _tensor(tree.mins).to(device),
+            str(tree.kind), int(tree.block_axis), bool(tree.packed))
+    if isinstance(tree, dict):
+        return {k: from_jax_params(v, device) for k, v in tree.items()}
+    return _tensor(tree).to(device)
+
+
+# ---------------------------------------------------------------------------
+# Quantization, packing and fusion over the tree
+# ---------------------------------------------------------------------------
+
+def pack_q4_params(params: Params) -> Params:
+    """Pack every int8-coded q4 weight to the 4-bit group-64 layout
+    (no-op for other leaves)."""
+    if isinstance(params, QuantizedTensor):
+        return pack_q4(params)
+    if isinstance(params, dict):
+        return {k: pack_q4_params(v) for k, v in params.items()}
+    return params
+
+
+def cast_params(params: Params, kind: str) -> Params:
+    """Matmul weights and embedding tables (tensors of 2+ dims outside
+    LayerNorms) to f32/bf16/f16; LayerNorms and biases stay f32."""
+    from ..ops.quant import dequantize
+    target = _TORCH_DTYPES[kind]
+
+    def cast(path: str, x):
+        if isinstance(x, QuantizedTensor):
+            x = dequantize(x)
+        if isinstance(x, dict):
+            return {k: cast(f"{path}/{k}", v) for k, v in x.items()}
+        if x.ndim >= 2 and "ln" not in path.split("/"):
+            return x.to(target)
+        return x
+
+    return cast("", params)
+
+
+def quantize_params(params: Params, kind: str, *,
+                    quantize_embeddings: bool = True,
+                    pack4: bool = False) -> Params:
+    """Quantize every layer matmul weight (and the word-embedding table,
+    blocked along E); biases, LayerNorms and the position / token-type
+    tables stay dense. Same selection and codes as the JAX package."""
+    from ..ops.quant import dequantize
+    if kind in DENSE_KINDS:
+        return cast_params(params, kind)
+    if kind not in QUANT_KINDS:
+        raise ValueError(f"unknown dtype {kind!r}")
+
+    def qt(x, block_axis=-2):
+        if isinstance(x, QuantizedTensor):
+            x = dequantize(x)  # re-quantization goes through dense f32
+        return quantize(x.float().cpu().numpy(), kind,
+                        block_axis=block_axis, pack4=pack4).map(
+            lambda t: t.to(x.device))
+
+    out = dict(params)
+    emb = dict(params["embeddings"])
+    if quantize_embeddings:
+        emb["word"] = qt(emb["word"], block_axis=-1)
+    out["embeddings"] = emb
+
+    def quantize_linears(d):
+        return {k: ({"w": qt(v["w"]), "b": v["b"]}
+                    if isinstance(v, dict) and "w" in v else v)
+                for k, v in d.items()}
+
+    out["layers"] = {"attn": quantize_linears(params["layers"]["attn"]),
+                     "mlp": quantize_linears(params["layers"]["mlp"])}
+    return out
+
+
+def fuse_qkv(params: Params) -> Params:
+    """Merge the q/k/v projections into one [E, 3E] matmul whose output
+    columns are [q | k | v] (each E wide, heads contiguous)."""
+    attn = params["layers"]["attn"]
+    if "qkv" in attn:
+        return params
+    q, k, v = attn["q"], attn["k"], attn["v"]
+
+    def cat(xs):
+        if isinstance(xs[0], QuantizedTensor):
+            if len({x.packed for x in xs}) != 1:
+                raise ValueError("q/k/v weights differ in packing")
+            return QuantizedTensor(
+                torch.cat([x.codes for x in xs], -1),
+                torch.cat([x.scales for x in xs], -1),
+                (torch.cat([x.mins for x in xs], -1)
+                 if xs[0].mins is not None else None),
+                xs[0].kind, xs[0].block_axis, xs[0].packed)
+        return torch.cat(xs, -1)
+
+    new_attn = {n: x for n, x in attn.items() if n not in ("q", "k", "v")}
+    new_attn["qkv"] = {"w": cat([q["w"], k["w"], v["w"]]),
+                       "b": torch.cat([q["b"], k["b"], v["b"]], -1)}
+    out = dict(params)
+    out["layers"] = {"attn": new_attn, "mlp": params["layers"]["mlp"]}
+    return out
+
+
+# ---------------------------------------------------------------------------
+# HF import
+# ---------------------------------------------------------------------------
+
+_ST_DTYPES = {"F64": np.float64, "F32": np.float32, "F16": np.float16,
+              "I64": np.int64, "I32": np.int32, "I16": np.int16,
+              "I8": np.int8, "U8": np.uint8, "BOOL": np.bool_}
+
+
+def read_safetensors(path: str | Path) -> dict[str, np.ndarray]:
+    """A ``.safetensors`` file -> {name: numpy array}: an 8-byte
+    little-endian header length, a JSON header of name -> {dtype, shape,
+    data_offsets}, then the raw little-endian data. BF16 tensors come
+    back as float32 (numpy has no bf16)."""
+    raw = Path(path).read_bytes()
+    n = int.from_bytes(raw[:8], "little")
+    header = json.loads(raw[8:8 + n])
+    data = memoryview(raw)[8 + n:]
+    out = {}
+    for name, meta in header.items():
+        if name == "__metadata__":
+            continue
+        begin, end = meta["data_offsets"]
+        buf = data[begin:end]
+        if meta["dtype"] == "BF16":
+            bits = np.frombuffer(buf, "<u2").astype(np.uint32) << 16
+            arr = bits.view(np.float32)
+        else:
+            arr = np.frombuffer(buf, np.dtype(_ST_DTYPES[meta["dtype"]])
+                                .newbyteorder("<"))
+        out[name] = arr.reshape(meta["shape"]).copy()
+    return out
+
+
+def _read_sd(d: Path) -> dict[str, np.ndarray]:
+    """One checkpoint dir -> numpy state dict (safetensors or
+    pytorch_model.bin)."""
+    st, pt = d / "model.safetensors", d / "pytorch_model.bin"
+    if st.exists():
+        return read_safetensors(st)
+    if pt.exists():
+        return {k: v.float().numpy()
+                for k, v in torch.load(pt, map_location="cpu",
+                                       weights_only=True).items()}
+    raise FileNotFoundError(f"no checkpoint in {d}")
+
+
+def _strip_prefix(sd: dict[str, np.ndarray]) -> dict[str, np.ndarray]:
+    """Drop the 'bert.' / '0.auto_model.' style prefixes HF checkpoints use."""
+    for prefix in ("bert.", "model.", "0.auto_model."):
+        if any(k.startswith(prefix + "embeddings") for k in sd):
+            return {k[len(prefix):]: v for k, v in sd.items()
+                    if k.startswith(prefix)}
+    return sd
+
+
+def from_hf_state_dict(sd: dict[str, np.ndarray], config: BertConfig,
+                       dtype=torch.float32) -> Params:
+    """Map a HF BERT state dict to the port's tree (position_ids and the
+    pooler are dropped, as the reference's converter does)."""
+    check_supported(config)
+    sd = _strip_prefix({k: np.asarray(v) for k, v in sd.items()})
+    NL = config.num_hidden_layers
+
+    def t(a, dt=dtype):
+        return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dt)
+
+    def stack_lin(fmt: str) -> Params:
+        # HF Linear stores [out, in]; the tree stores [in, out]
+        return {"w": t(np.stack([sd[fmt.format(i) + ".weight"].T
+                                 for i in range(NL)])),
+                "b": t(np.stack([sd[fmt.format(i) + ".bias"]
+                                 for i in range(NL)]))}
+
+    def stack_ln(fmt: str) -> Params:
+        return {"scale": t(np.stack([sd[fmt.format(i) + ".weight"]
+                                     for i in range(NL)]), torch.float32),
+                "bias": t(np.stack([sd[fmt.format(i) + ".bias"]
+                                    for i in range(NL)]), torch.float32)}
+
+    emb = {"word": t(sd["embeddings.word_embeddings.weight"]),
+           "position": t(sd["embeddings.position_embeddings.weight"]),
+           "token_type": t(sd["embeddings.token_type_embeddings.weight"]),
+           "ln": _ln(sd["embeddings.LayerNorm.weight"],
+                     sd["embeddings.LayerNorm.bias"])}
+    pre = "encoder.layer.{}."
+    layers = {
+        "attn": {"q": stack_lin(pre + "attention.self.query"),
+                 "k": stack_lin(pre + "attention.self.key"),
+                 "v": stack_lin(pre + "attention.self.value"),
+                 "o": stack_lin(pre + "attention.output.dense"),
+                 "ln": stack_ln(pre + "attention.output.LayerNorm")},
+        "mlp": {"up": stack_lin(pre + "intermediate.dense"),
+                "down": stack_lin(pre + "output.dense"),
+                "ln": stack_ln(pre + "output.LayerNorm")},
+    }
+    return {"embeddings": emb, "layers": layers}
+
+
+def _load_st_modules(model_dir: Path, params: Params,
+                     config: BertConfig) -> tuple[Params, BertConfig]:
+    """Attach SentenceTransformers Dense modules (modules.json) as
+    params["st_dense"]; a pipeline without a Normalize module turns
+    embedding normalization off."""
+    mj = model_dir / "modules.json"
+    if not mj.exists():
+        return params, config
+    dense, acts, has_norm = {}, [], False
+    for m in json.loads(mj.read_text()):
+        kind = m.get("type", "")
+        if kind.endswith(".Transformer") or kind.endswith(".Pooling"):
+            continue
+        if kind.endswith(".Normalize"):
+            has_norm = True
+            continue
+        if not kind.endswith(".Dense"):
+            raise ValueError(
+                f"unsupported sentence-transformers module type {kind!r} "
+                f"in {mj} (supported: Transformer, Pooling, Dense, "
+                f"Normalize)")
+        d = model_dir / m["path"]
+        cfg = json.loads((d / "config.json").read_text())
+        sd = _read_sd(d)
+        entry = {"w": torch.from_numpy(np.ascontiguousarray(
+            np.asarray(sd["linear.weight"], np.float32).T))}
+        if cfg.get("bias", True) and "linear.bias" in sd:
+            entry["b"] = torch.from_numpy(
+                np.asarray(sd["linear.bias"], np.float32).copy())
+        act = cfg.get("activation_function", "")
+        acts.append("tanh" if act.endswith("Tanh") else "none")
+        dense[str(len(dense))] = entry
+    if not dense:
+        return params, config
+    params = {**params, "st_dense": dense}
+    config = dataclasses.replace(config, st_dense_acts=tuple(acts),
+                                 normalize_embeddings=has_norm)
+    return params, config
+
+
+def load_hf_dir(model_dir: str | Path, dtype=torch.float32,
+                config: BertConfig | None = None
+                ) -> tuple[Params, BertConfig]:
+    """Load an HF model directory (config.json + model.safetensors or
+    pytorch_model.bin) with its SentenceTransformers Dense/Normalize
+    modules, on the CPU."""
+    model_dir = Path(model_dir)
+    if config is None:
+        config = BertConfig.from_json(model_dir / "config.json")
+    params = from_hf_state_dict(_read_sd(model_dir), config, dtype)
+    return _load_st_modules(model_dir, params, config)
+
+
+# ---------------------------------------------------------------------------
+# Native checkpoint (.npz): the JAX package's format — flat dotted names,
+# each QuantizedTensor expanded into .codes/.scales/.mins plus a
+# .__quant__ record [kind, block_axis, packed], the config as JSON bytes.
+# ---------------------------------------------------------------------------
+
+def save_native(path: str | Path, params: Params, config: BertConfig) -> None:
+    flat: dict[str, np.ndarray] = {}
+
+    def arr(t: torch.Tensor) -> np.ndarray:
+        t = t.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+    def visit(prefix: str, node) -> None:
+        if isinstance(node, QuantizedTensor):
+            flat[prefix + ".__quant__"] = np.array(
+                [node.kind, str(node.block_axis),
+                 "1" if node.packed else "0"], dtype=object)
+            flat[prefix + ".codes"] = arr(node.codes)
+            flat[prefix + ".scales"] = arr(node.scales)
+            if node.mins is not None:
+                flat[prefix + ".mins"] = arr(node.mins)
+        elif isinstance(node, dict):
+            for k, v in node.items():
+                visit(f"{prefix}.{k}" if prefix else k, v)
+        else:
+            flat[prefix] = arr(node)
+
+    visit("", params)
+    flat["__config__"] = np.frombuffer(
+        json.dumps(config.to_dict()).encode(), dtype=np.uint8)
+    np.savez(path, **flat)
+
+
+def load_native(path: str | Path) -> tuple[Params, BertConfig]:
+    """A native ``.npz`` (from either package) -> (CPU tree, config)."""
+    data = np.load(path, allow_pickle=True)
+    config = BertConfig(**json.loads(bytes(data["__config__"]).decode()))
+    tree: dict[str, Any] = {}
+    quants: dict[str, dict] = {}
+    for key in data.files:
+        if key == "__config__":
+            continue
+        if key.endswith(".__quant__"):
+            rec = list(data[key])
+            q = quants.setdefault(key[: -len(".__quant__")], {})
+            q["kind"], q["block_axis"] = str(rec[0]), int(rec[1])
+            q["packed"] = len(rec) > 2 and str(rec[2]) == "1"
+            continue
+        for suffix in (".codes", ".scales", ".mins"):
+            if key.endswith(suffix):
+                quants.setdefault(key[: -len(suffix)], {})[suffix[1:]] = \
+                    torch.from_numpy(data[key].copy())
+                break
+        else:
+            _set_path(tree, key.split("."), torch.from_numpy(data[key].copy()))
+    for base, q in quants.items():
+        _set_path(tree, base.split("."), QuantizedTensor(
+            q["codes"], q["scales"], q.get("mins"), q["kind"],
+            q["block_axis"], q.get("packed", False)))
+    return tree, config
+
+
+def _set_path(tree: dict, path: list[str], value) -> None:
+    for p in path[:-1]:
+        tree = tree.setdefault(p, {})
+    tree[path[-1]] = value

@@ -1,0 +1,305 @@
+"""Blockwise weight-only quantization (Q4_0 / Q4_1 / Q8_0 / NF4), ggml
+semantics — the PyTorch port of ``embeddings_tpu/ops/quant.py``.
+
+The numpy codecs are copies of the JAX package's (bit-identical codes and
+scales); ``QuantizedTensor`` holds torch tensors, and ``dequantize`` /
+``gather_rows`` are torch.
+
+Layout: for a weight W[K, N] used as ``x @ W`` (K = contraction axis),
+``codes`` is int8 [K, N] (int4-valued for Q4), ``scales``/``mins`` are
+f32 [K//32, N]. q4 codes can be stored two per byte (group-64 nibble
+layout, ``pack_codes_g64``) for the true 4-bit footprint; the CUDA
+dequant-matmul kernel (ops/qmatmul.py) unpacks them in shared memory.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+QK = 32  # ggml block size
+
+# 4-bit NormalFloat (QLoRA): quantiles of N(0, 1) normalized to [-1, 1].
+NF4_TABLE = np.asarray([
+    -1.0, -0.6961928009986877, -0.5250730514526367, -0.39491748809814453,
+    -0.28444138169288635, -0.18477343022823334, -0.09105003625154495, 0.0,
+    0.07958029955625534, 0.16093020141124725, 0.24611230194568634,
+    0.33791524171829224, 0.44070982933044434, 0.5626170039176941,
+    0.7229568362236023, 1.0], dtype=np.float32)
+# decision boundaries (midpoints) for nearest-level encoding
+_NF4_EDGES = (NF4_TABLE[1:] + NF4_TABLE[:-1]) / 2.0
+
+# kinds whose 4-bit codes can nibble-pack (group-64 layout)
+PACK4_KINDS = ("q4_0", "q4_1", "nf4")
+
+
+class QuantizedTensor:
+    """A quantized 2-D weight (plus optional leading layer-stack dims).
+
+    Logical value = dequant(codes, scales, mins). ``block_axis`` -2: a
+    matmul weight [K, N] blocked along K; -1: an embedding table [V, E]
+    blocked along E. ``packed``: q4 codes stored two per byte as uint8
+    [..., K/2, N] (or [..., V, E/2] for a table) in the group-64 layout.
+    """
+
+    def __init__(self, codes: torch.Tensor, scales: torch.Tensor,
+                 mins: torch.Tensor | None, kind: str, block_axis: int = -2,
+                 packed: bool = False):
+        self.codes = codes
+        self.scales = scales
+        self.mins = mins
+        self.kind = kind
+        self.block_axis = block_axis
+        self.packed = packed
+
+    @property
+    def shape(self) -> tuple[int, ...]:
+        s = tuple(self.codes.shape)
+        if self.packed:
+            if self.block_axis == -2:
+                return (*s[:-2], s[-2] * 2, s[-1])
+            return (*s[:-1], s[-1] * 2)
+        return s
+
+    def map(self, fn) -> "QuantizedTensor":
+        """Apply ``fn`` to codes, scales and mins (e.g. ``.to(device)`` or
+        a layer index)."""
+        return QuantizedTensor(fn(self.codes), fn(self.scales),
+                               None if self.mins is None else fn(self.mins),
+                               self.kind, self.block_axis, self.packed)
+
+    def __repr__(self) -> str:
+        return (f"QuantizedTensor(kind={self.kind}, shape={self.shape}, "
+                f"codes={self.codes.dtype}, packed={self.packed})")
+
+
+# ---------------------------------------------------------------------------
+# Group-64 nibble packing: within each group of 64 weight rows, byte row r
+# holds weight row r (low nibble) and r+32 (high nibble) of the group.
+# ---------------------------------------------------------------------------
+
+def pack_codes_g64(codes: np.ndarray) -> np.ndarray:
+    """int8 [..., K, N] in [-8, 7] -> uint8 [..., K/2, N]."""
+    *lead, K, N = codes.shape
+    if K % 64:
+        raise ValueError(f"group-64 packing needs K % 64 == 0, got {K}")
+    u = (np.asarray(codes).astype(np.int16) + 8).astype(np.uint8)
+    g = u.reshape(*lead, K // 64, 2, 32, N)
+    return (g[..., 0, :, :] | (g[..., 1, :, :] << 4)).reshape(
+        *lead, K // 2, N)
+
+
+def unpack_codes_g64(packed: np.ndarray) -> np.ndarray:
+    """uint8 [..., K/2, N] -> int8 [..., K, N] in [-8, 7]."""
+    p = np.asarray(packed)
+    *lead, Kh, N = p.shape
+    g = p.reshape(*lead, Kh // 32, 32, N)
+    out = np.empty((*lead, Kh // 32, 2, 32, N), np.int8)
+    out[..., 0, :, :] = (g & 0x0F).astype(np.int8) - 8
+    out[..., 1, :, :] = (g >> 4).astype(np.int8) - 8
+    return out.reshape(*lead, Kh * 2, N)
+
+
+def pack_q4(qt: QuantizedTensor) -> QuantizedTensor:
+    """Pack an int8-coded q4 weight to the 4-bit layout (no-op for other
+    kinds or when the block axis is not a multiple of 64), along its own
+    block axis so scales stay aligned."""
+    if qt.packed or qt.kind not in PACK4_KINDS:
+        return qt
+    codes = qt.codes.cpu().numpy()
+    if qt.block_axis == -2:
+        if codes.shape[-2] % 64 != 0:
+            return qt
+        packed = pack_codes_g64(codes)
+    else:
+        if codes.shape[-1] % 64 != 0:
+            return qt
+        packed = np.swapaxes(
+            pack_codes_g64(np.swapaxes(codes, -1, -2)), -1, -2)
+    return QuantizedTensor(
+        torch.from_numpy(np.ascontiguousarray(packed)).to(qt.codes.device),
+        qt.scales, qt.mins, qt.kind, qt.block_axis, packed=True)
+
+
+def _check_shape(w: np.ndarray) -> None:
+    if w.shape[-2] % QK != 0:
+        raise ValueError(
+            f"contraction dim {w.shape[-2]} not a multiple of QK={QK} "
+            f"(the reference requires ne[0] % 64 == 0, bert.cpp:730)")
+
+
+def quantize_q4_0(w: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """ggml Q4_0: d = signed-absmax / -8; q = clamp(x/d + 8.5, 0, 15).
+    Returns (codes int8 [..., K, N] in [-8, 7], scales f32 [..., K//32, N])."""
+    _check_shape(w)
+    *lead, K, N = w.shape
+    blocks = w.reshape(*lead, K // QK, QK, N).astype(np.float32)
+    idx = np.abs(blocks).argmax(axis=-2, keepdims=True)
+    maxv = np.take_along_axis(blocks, idx, axis=-2)  # signed value of absmax
+    d = maxv / -8.0
+    inv = np.where(d != 0.0, 1.0 / np.where(d == 0.0, 1.0, d), 0.0)
+    q = np.clip(np.floor(blocks * inv + 8.5), 0.0, 15.0).astype(np.int8) - 8
+    return (q.reshape(*lead, K, N),
+            d.squeeze(-2).astype(np.float32))
+
+
+def quantize_q4_1(w: np.ndarray) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """ggml Q4_1 (affine): d=(max-min)/15, q=clamp((x-min)/d+.5, 0, 15)."""
+    _check_shape(w)
+    *lead, K, N = w.shape
+    blocks = w.reshape(*lead, K // QK, QK, N).astype(np.float32)
+    mn = blocks.min(axis=-2, keepdims=True)
+    mx = blocks.max(axis=-2, keepdims=True)
+    d = (mx - mn) / 15.0
+    inv = np.where(d != 0.0, 1.0 / np.where(d == 0.0, 1.0, d), 0.0)
+    q = np.clip(np.floor((blocks - mn) * inv + 0.5), 0.0, 15.0).astype(np.int8)
+    return (q.reshape(*lead, K, N),
+            d.squeeze(-2).astype(np.float32),
+            mn.squeeze(-2).astype(np.float32))
+
+
+def quantize_nf4(w: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """4-bit NormalFloat with a per-block MSE-searched scale over a small
+    absmax-relative grid. Returns (codes int8 [..., K, N] in [-8, 7],
+    scales f32 [..., K//32, N]); dequant = NF4_TABLE[codes + 8] * d."""
+    _check_shape(w)
+    *lead, K, N = w.shape
+    blocks = w.reshape(*lead, K // QK, QK, N).astype(np.float32)
+    amax = np.abs(blocks).max(axis=-2, keepdims=True)
+    base = np.maximum(amax, 1e-30)
+    best_err = np.full(base.shape, np.inf, np.float32)
+    best_q = np.zeros(blocks.shape, np.int8)
+    best_d = base.copy()
+    for f in np.linspace(0.72, 1.04, 9, dtype=np.float32):
+        d = base * f
+        x = np.clip(blocks / d, -1.0, 1.0)
+        q = np.searchsorted(_NF4_EDGES, x.ravel()).reshape(
+            x.shape).astype(np.int8)
+        err = ((NF4_TABLE[q] * d - blocks) ** 2).sum(-2, keepdims=True)
+        better = err < best_err
+        best_err = np.where(better, err, best_err)
+        best_q = np.where(better, q, best_q)
+        best_d = np.where(better, d, best_d)
+    return ((best_q - 8).reshape(*lead, K, N),
+            np.where(amax > 0, best_d, 0.0).squeeze(-2).astype(np.float32))
+
+
+def quantize_q8_0(w: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """ggml Q8_0: d = absmax/127, q = roundf(x/d) int8 (half away from
+    zero, like C roundf)."""
+    _check_shape(w)
+    *lead, K, N = w.shape
+    blocks = w.reshape(*lead, K // QK, QK, N).astype(np.float32)
+    amax = np.abs(blocks).max(axis=-2, keepdims=True)
+    d = amax / 127.0
+    inv = np.where(d != 0.0, 1.0 / np.where(d == 0.0, 1.0, d), 0.0)
+    v = blocks * inv
+    q = (np.sign(v) * np.floor(np.abs(v) + 0.5)).astype(np.int8)
+    return q.reshape(*lead, K, N), d.squeeze(-2).astype(np.float32)
+
+
+def quantize(w: np.ndarray, kind: str, *, block_axis: int = -2,
+             pack4: bool = False) -> QuantizedTensor:
+    """Quantize a weight array to a QuantizedTensor (CPU torch tensors).
+
+    block_axis=-2: blocks along the contraction axis of an [K, N] matmul
+    weight. block_axis=-1: blocks along the feature axis of an embedding
+    table [V, E]."""
+    w = np.asarray(w)
+    if block_axis not in (-2, -1):
+        raise ValueError("block_axis must be -2 or -1")
+    if block_axis == -1:
+        w = np.swapaxes(w, -1, -2)
+    mins = None
+    if kind == "q4_0":
+        q, d = quantize_q4_0(w)
+    elif kind == "q4_1":
+        q, d, mins = quantize_q4_1(w)
+        # Center codes to [-8, 7] and fold the shift into mins:
+        # q*d + m == (q-8)*d + (m + 8d).
+        q = q - 8
+        mins = mins + 8.0 * d
+    elif kind == "q8_0":
+        q, d = quantize_q8_0(w)
+    elif kind == "nf4":
+        q, d = quantize_nf4(w)
+    else:
+        raise ValueError(f"unknown quant kind: {kind}")
+    if block_axis == -1:
+        q = np.swapaxes(q, -1, -2)
+        d = np.swapaxes(d, -1, -2)
+        if mins is not None:
+            mins = np.swapaxes(mins, -1, -2)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a))
+
+    qt = QuantizedTensor(t(q), t(d), None if mins is None else t(mins),
+                         kind, block_axis)
+    return pack_q4(qt) if pack4 else qt
+
+
+def _unpack_g64(packed: torch.Tensor) -> torch.Tensor:
+    """torch group-64 unpack along axis -2: uint8 [..., K/2, N] -> int8."""
+    *lead, Kh, N = packed.shape
+    g = packed.reshape(*lead, Kh // 32, 1, 32, N).to(torch.int32)
+    lo = (g & 0x0F) - 8
+    hi = (g >> 4) - 8
+    return torch.cat([lo, hi], dim=-3).reshape(*lead, Kh * 2, N).to(
+        torch.int8)
+
+
+def _unpack_g64_last(packed: torch.Tensor) -> torch.Tensor:
+    """Group-64 unpack along the LAST axis (embedding-table layout)."""
+    *lead, Eh = packed.shape
+    g = packed.reshape(*lead, Eh // 32, 1, 32).to(torch.int32)
+    lo = (g & 0x0F) - 8
+    hi = (g >> 4) - 8
+    return torch.cat([lo, hi], dim=-2).reshape(*lead, Eh * 2).to(torch.int8)
+
+
+def _levels(codes: torch.Tensor, kind: str) -> torch.Tensor:
+    """int codes -> f32 level values (NF4 table lookup for nf4)."""
+    if kind == "nf4":
+        table = torch.from_numpy(NF4_TABLE).to(codes.device)
+        return table[codes.to(torch.int64) + 8]
+    return codes.to(torch.float32)
+
+
+def dequantize(qt: QuantizedTensor) -> torch.Tensor:
+    """Plain (non-fused) dequantization to f32."""
+    codes, scales, mins = qt.codes, qt.scales, qt.mins
+    if qt.packed:
+        codes = (_unpack_g64(codes) if qt.block_axis == -2
+                 else _unpack_g64_last(codes))
+    if qt.block_axis == -1:
+        codes = codes.transpose(-1, -2)
+        scales = scales.transpose(-1, -2)
+        mins = None if mins is None else mins.transpose(-1, -2)
+    *lead, K, N = codes.shape
+    c = _levels(codes, qt.kind).reshape(*lead, K // QK, QK, N)
+    w = c * scales.to(torch.float32)[..., :, None, :]
+    if qt.kind == "q4_1":
+        w = w + mins.to(torch.float32)[..., :, None, :]
+    w = w.reshape(*lead, K, N)
+    if qt.block_axis == -1:
+        w = w.transpose(-1, -2)
+    return w.contiguous()
+
+
+def gather_rows(qt: QuantizedTensor, ids: torch.Tensor) -> torch.Tensor:
+    """Dequantizing row gather for a block_axis=-1 embedding table [V, E]:
+    gathers the codes and per-row-block scales for ``ids`` and
+    dequantizes only those rows (f32)."""
+    if qt.block_axis != -1:
+        raise ValueError("gather_rows expects an embedding-layout table")
+    c = qt.codes[ids]                  # [..., E] or packed [..., E/2]
+    if qt.packed:
+        c = _unpack_g64_last(c)
+    c = _levels(c, qt.kind)
+    s = qt.scales[ids].to(torch.float32)          # [..., E//QK]
+    E = c.shape[-1]
+    w = c.reshape(*c.shape[:-1], E // QK, QK) * s[..., None]
+    if qt.kind == "q4_1":
+        w = w + qt.mins[ids].to(torch.float32)[..., None]
+    return w.reshape(*w.shape[:-2], E)

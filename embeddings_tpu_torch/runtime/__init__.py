@@ -1,0 +1,8 @@
+"""Runtime of the PyTorch port: batch planning, the Engine, the batching
+service with its TCP front-end, and the TCP client."""
+
+from .batching import BatchPlan, pad_batch, pick_bucket, plan_batches
+from .engine import Engine, load_model
+
+__all__ = ["Engine", "load_model", "BatchPlan", "pad_batch", "pick_bucket",
+           "plan_batches"]

@@ -1,0 +1,80 @@
+"""The port's fused attention (kernel K2) against the JAX package.
+
+``fused_attention_ref`` (the plain PyTorch version the port runs on a CPU
+tensor) is held against ``embeddings_tpu.ops.attention.fused_attention``
+in Pallas interpret mode on the same numpy-seeded qkv and lengths, lengths
+that include 0 (an all-pad row) and the full row. E is a multiple of 128,
+as the JAX ``supported`` rule needs. f32: both compute the same
+expression, differing by f32 summation order (1e-5). bf16: both round q·s2
+and p to bf16 at the same points, so the output agrees to about one bf16
+ulp; a probability whose f32 value sits on a bf16 rounding boundary can
+round the other way, hence 2^-6 relative plus 2e-3 absolute.
+"""
+
+import numpy as np
+import pytest
+
+import jax.numpy as jnp
+import torch
+
+from embeddings_tpu.ops import attention as jattn
+
+from embeddings_tpu_torch.ops import attention as tattn
+
+CASES = [(3, 16, 2, 64), (2, 32, 4, 32), (2, 24, 1, 128), (2, 64, 2, 64)]
+
+
+def _inputs(B, L, H, D, seed):
+    rng = np.random.default_rng(seed)
+    qkv = rng.standard_normal((B * L, 3 * H * D), dtype=np.float32)
+    lengths = rng.integers(1, L + 1, B).astype(np.int32)
+    lengths[0] = 0
+    lengths[-1] = L
+    return qkv, lengths
+
+
+@pytest.mark.parametrize("B,L,H,D", CASES)
+def test_fused_attention_ref_matches_jax_f32(B, L, H, D):
+    qkv, lengths = _inputs(B, L, H, D, seed=L + H)
+    ref = np.asarray(jattn.fused_attention(
+        jnp.asarray(qkv), jnp.asarray(lengths), B=B, L=L, H=H, D=D,
+        interpret=True))
+    got = tattn.fused_attention_ref(torch.from_numpy(qkv),
+                                    torch.from_numpy(lengths),
+                                    B=B, L=L, H=H, D=D)
+    np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=1e-5)
+    # the all-pad row is exactly zero and finite
+    assert np.all(got.numpy().reshape(B, L, -1)[0] == 0)
+
+
+@pytest.mark.parametrize("B,L,H,D", CASES[:2])
+def test_fused_attention_ref_matches_jax_bf16(B, L, H, D):
+    qkv, lengths = _inputs(B, L, H, D, seed=7)
+    ref = np.asarray(jattn.fused_attention(
+        jnp.asarray(qkv, jnp.bfloat16), jnp.asarray(lengths), B=B, L=L,
+        H=H, D=D, interpret=True).astype(jnp.float32))
+    got = tattn.fused_attention(torch.from_numpy(qkv).to(torch.bfloat16),
+                                torch.from_numpy(lengths), B=B, L=L, H=H,
+                                D=D)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), ref, rtol=2 ** -6,
+                               atol=2e-3)
+
+
+def test_clamp_and_supported_match_jax():
+    for n in (2, 16, 100, 256, 512, 1024):
+        assert tattn._clamp_hi(n) == jattn._clamp_hi(n)
+    for L, H, D in [(16, 2, 64), (24, 1, 128), (20, 2, 64), (16, 1, 64),
+                    (1024, 12, 64), (520, 12, 64)]:
+        assert tattn.supported(L, H, D) == jattn.supported(L, H, D)
+
+
+def test_fused_attention_rejects_bad_shapes():
+    qkv = torch.zeros(2 * 16, 3 * 128)
+    with pytest.raises(ValueError):
+        tattn.fused_attention(qkv, torch.zeros(2, dtype=torch.int32),
+                              B=2, L=16, H=2, D=32)   # E mismatch
+    with pytest.raises(ValueError):
+        tattn.fused_attention(torch.zeros(2 * 20, 3 * 128),
+                              torch.zeros(2, dtype=torch.int32),
+                              B=2, L=20, H=2, D=64)   # L % 8 != 0
