@@ -1,10 +1,12 @@
 """Smoke test of the PyTorch/CUDA port on one GPU: builds the hand-written
-kernels, holds each against its plain PyTorch version on the card, drives
-the bge-base q4_0 encode path (Engine -> encode_batch -> BatchingService
--> TCP), and times the kernels and the forward.
+kernels (K1-K5), holds each against its plain PyTorch version on the card,
+drives bge-base q4_0 through the port's three paths — the bf16 encode
+path, the int8 compute mode and token-packed serving (Engine ->
+encode_batch / encode_batch_packed -> BatchingService -> TCP) — checking
+each path's kernel launch counts, and times the kernels and the forwards.
 
     python3 chip_smoke.py              # every phase, needs one CUDA device
-    python3 chip_smoke.py --phases device,build,k1,k2
+    python3 chip_smoke.py --phases device,build,k1,k2,k3,k4k5
 
 Each phase prints one JSON line. The last two lines are the kernel table
 and ``{"ok": true, "device": {...}}``; any failure exits non-zero before
@@ -29,8 +31,9 @@ ROOT = Path(__file__).resolve().parent
 FIXTURE = ROOT / "benchmarks" / "fixtures" / "tiny_trained"
 OUT_DIR = ROOT / "chiprun_out"
 
-# H100 SXM data-sheet peaks (dense): bf16 tensor cores and HBM3
+# H100 SXM data-sheet peaks (dense): bf16 and int8 tensor cores, HBM3
 PEAK_BF16_FLOPS = 989e12
+PEAK_INT8_OPS = 1979e12
 PEAK_BYTES = 3.35e12
 
 # bge-base at the timing shape
@@ -44,6 +47,15 @@ K1_SHAPES = {"qkv": (E, 3 * E, "bias"),
 K1_REPLACES = "embeddings_tpu/ops/qmatmul.py:153 (_qmm_kernel via qmatmul :446)"
 K2_REPLACES = ("embeddings_tpu/ops/attention.py:73 (_attn_kernel via "
                "fused_attention :1039)")
+K3_REPLACES = ("embeddings_tpu/ops/qmatmul.py:309 (_qmm_int8 via qmatmul "
+               ":446, int8_compute)")
+K4_REPLACES = ("embeddings_tpu/ops/attention.py:294 (_attn_kernel_segmented "
+               "via fused_attention_segmented :490)")
+K5_REPLACES = ("embeddings_tpu/ops/attention.py:337 (_attn_kernel_seg_window "
+               "via fused_attention_segmented_blockskip :425)")
+# packed shapes: K4 at the default row_len 128 (256 rows), K5 at 1024
+PACK_SHORT = (256, 128)
+PACK_LONG = (32, 1024)
 
 # tolerances (kernel vs plain version on the same inputs, bf16 outputs):
 # both round the same bf16 operands and accumulate in f32 in different
@@ -54,8 +66,13 @@ K2_REPLACES = ("embeddings_tpu/ops/attention.py:73 (_attn_kernel via "
 # flips reach the output through the p.v sum.
 K1_RTOL, K1_ATOL_RMS = 2.0 ** -7, 1e-3
 K2_RTOL, K2_ATOL_RMS = 2.0 ** -6, 1e-2
+# K3 as K1: its int8 operands equal the plain version's bit for bit and
+# its s32 sums are exact, so only the activation's last f32 bits and the
+# bf16 rounding of the output differ. K4 and K5 as K2.
+K3_RTOL, K3_ATOL_RMS = K1_RTOL, K1_ATOL_RMS
 
-RESULTS: dict = {}
+RESULTS: dict = {}   # one JSON line per phase, dumped at the end
+STATE: dict = {}     # engines, parameters, launch counts, inputs
 
 
 def emit(phase: str, **fields) -> None:
@@ -94,8 +111,9 @@ def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(flops: float, nbytes: float) -> tuple[float, str]:
-    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+def bound_ms(flops: float, nbytes: float,
+             peak: float = PEAK_BF16_FLOPS) -> tuple[float, str]:
+    t_ops = flops / peak * 1e3
     t_mem = nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_mem else (t_mem, "bytes")
 
@@ -151,6 +169,54 @@ def k1_cost(Mx, K, N, epilogue) -> tuple[float, float]:
     return 2.0 * Mx * K * N, float(nbytes)
 
 
+def counters() -> dict:
+    """The kernel wrappers, whose ``launches`` count their launches."""
+    from embeddings_tpu_torch.ops import attention as A, qmatmul as Q
+    return {"K1": Q.qmatmul, "K2": A.fused_attention, "K3": Q.qmatmul_int8,
+            "K4": A.fused_attention_segmented,
+            "K5": A.fused_attention_segmented_blockskip}
+
+
+def reset_counts() -> None:
+    for f in counters().values():
+        f.launches = 0
+        if hasattr(f, "shapes"):
+            f.shapes.clear()
+
+
+def read_counts() -> dict:
+    return {k: f.launches for k, f in counters().items()}
+
+
+def packed_tables(rows: int, row_len: int):
+    """Token-packed device arrays from the STS fixture: up to rows - 1
+    packed rows (the last row stays all pad), built by the port's
+    planner. Returns (ids, seg, pos, pool) numpy arrays and the bucketed
+    block-skip window."""
+    from embeddings_tpu_torch.runtime.engine import _bucket_window
+    from embeddings_tpu_torch.runtime.packing import materialize, \
+        max_block_span, plan_packing
+    from embeddings_tpu_torch.tokenizer import tokenizer_from_dir
+    tok = tokenizer_from_dir(FIXTURE / "model")
+    toks = [tok.encode(t, max_len=row_len) for t in _sts_sentences(2400)]
+    b = plan_packing([len(t) for t in toks], row_len, rows - 1,
+                     max_segs=max(2, row_len // 8))[0]
+    b.batch = rows
+    ids, seg, pos, pool, _ = materialize(b, toks, tok.pad_id, "cls")
+    w = max_block_span(seg) if row_len > 128 else 0
+    return (ids, seg, pos, pool), _bucket_window(w, row_len)
+
+
+def seg_flops(seg: np.ndarray) -> float:
+    """Operations that segment-masked attention needs on this data: the
+    two products over same-segment (query, key) pairs only."""
+    pairs = 0
+    for row in seg:
+        _, n = np.unique(row[row >= 0], return_counts=True)
+        pairs += int((n.astype(np.int64) ** 2).sum())
+    return 4.0 * H * D * pairs
+
+
 # ---------------------------------------------------------------------------
 # phases
 # ---------------------------------------------------------------------------
@@ -173,7 +239,7 @@ def phase_device():
 def phase_build():
     from embeddings_tpu_torch.ops import _cuda
     t0 = time.perf_counter()
-    seconds = _cuda.build("qmatmul", "attention")
+    seconds = _cuda.build("qmatmul", "attention")  # one nvcc each, together
     emit("build", seconds=time.perf_counter() - t0, per_source=seconds)
 
 
@@ -246,6 +312,85 @@ def phase_k2():
          L256=r256, L512=r512)
 
 
+def phase_k3():
+    import torch
+    from embeddings_tpu_torch.ops.qmatmul import EPILOGUES, qmatmul, \
+        qmatmul_int8, qmatmul_int8_ref
+    rng = np.random.default_rng(4)
+    dev = torch.device("cuda")
+    main = {}
+    for name, (K, N, epi) in K1_SHAPES.items():
+        args, kw, _ = k1_inputs(rng, M, K, N, "q4_0", True, epi, dev)
+        # through qmatmul(int8_compute=True), the route the engine takes
+        got = qmatmul(*args.values(), int8_compute=True, **kw)
+        ref = qmatmul_int8_ref(*args.values(), **kw)
+        torch.cuda.synchronize()
+        main[name] = compare(got, ref, K3_RTOL, K3_ATOL_RMS)
+        check(main[name]["ok"], f"K3 {name} disagrees: {main[name]}")
+    small, worst = {}, 0.0
+    for kind, packed in (("q4_0", False), ("q4_0", True), ("q4_1", False),
+                         ("q4_1", True), ("q8_0", False), ("nf4", False),
+                         ("nf4", True)):
+        for epi in EPILOGUES:
+            # ragged M and N (128 + 8): K3 takes any N % 8 == 0
+            args, kw, _ = k1_inputs(rng, 40, 128, 136, kind, packed, epi, dev)
+            got = qmatmul_int8(*args.values(), **kw)
+            ref = qmatmul_int8_ref(*args.values(), **kw)
+            r = compare(got, ref, K3_RTOL, K3_ATOL_RMS)
+            key = f"{kind}{'_packed' if packed else ''}/{epi}"
+            small[key] = r
+            worst = max(worst, r["max_abs_err"])
+            check(r["ok"], f"K3 {key} disagrees: {r}")
+    emit("k3_parity", tolerance=f"|err| <= {K3_RTOL}*|ref| + "
+         f"{K3_ATOL_RMS}*rms(ref)", main=main, small_cases=len(small),
+         small_worst_max_abs_err=worst)
+    RESULTS["k3_small"] = small
+
+
+def phase_k4k5():
+    import torch
+    from embeddings_tpu_torch.ops import attention as A
+    rng = np.random.default_rng(5)
+    dev = torch.device("cuda")
+    out = {}
+    for name, (Bx, Lx) in (("K4", PACK_SHORT), ("K5", PACK_LONG)):
+        arrays, W = packed_tables(Bx, Lx)
+        seg = torch.from_numpy(arrays[1]).to(dev)
+        qkv = torch.from_numpy(rng.standard_normal(
+            (Bx * Lx, 3 * E), dtype=np.float32)).to(dev, torch.bfloat16)
+        kw = dict(B=Bx, L=Lx, H=H, D=D)
+        if name == "K4":
+            got = A.fused_attention_segmented(qkv, seg, **kw)
+            ref = A.fused_attention_segmented_ref(qkv, seg, **kw)
+        else:
+            check(W == 3, f"K5 window {W} at row_len {Lx}, expected 3")
+            got = A.fused_attention_segmented_blockskip(qkv, seg, window=W,
+                                                        **kw)
+            ref = A.fused_attention_segmented_blockskip_ref(
+                qkv, seg, window=W, **kw)
+        torch.cuda.synchronize()
+        r = compare(got, ref, K2_RTOL, K2_ATOL_RMS)
+        pad = (seg.reshape(-1) < 0)
+        r.update(rows=Bx, row_len=Lx, window=W,
+                 pad_rows_exact_zero=bool((got[pad] == 0).all()),
+                 all_pad_rows=int((seg < 0).all(1).sum()),
+                 segments=int(sum(len(np.unique(s[s >= 0]))
+                                  for s in arrays[1])))
+        if name == "K5":
+            # the window drops nothing here: K5 equals the full K4 math
+            full = A.fused_attention_segmented_ref(qkv, seg, **kw)
+            r["vs_full_segmented"] = compare(got, full, K2_RTOL,
+                                             K2_ATOL_RMS)
+            check(r["vs_full_segmented"]["ok"], "K5 differs from the full "
+                  f"segmented attention: {r['vs_full_segmented']}")
+        check(r["ok"] and r["pad_rows_exact_zero"] and r["all_pad_rows"],
+              f"{name} disagrees: {r}")
+        out[name] = r
+        STATE[name] = (qkv, seg, arrays, W)
+    emit("k4k5_parity", tolerance=f"|err| <= {K2_RTOL}*|ref| + "
+         f"{K2_ATOL_RMS}*rms(ref); pad query rows exactly 0", **out)
+
+
 def _sts_sentences(n: int) -> list[str]:
     rows = (FIXTURE / "sts-test.tsv").read_text().splitlines()
     out = []
@@ -254,20 +399,30 @@ def _sts_sentences(n: int) -> list[str]:
     return out[:n]
 
 
+def n_bucketed_forwards(eng, texts) -> int:
+    """Device batches ``Engine.encode_batch`` runs for these texts."""
+    from embeddings_tpu_torch.runtime.batching import extend_buckets, \
+        plan_batches
+    bs = eng.engine_config.batch_size
+    return len(plan_batches(
+        [len(eng.tokenize(t)) for t in texts], bs, eng._seq_buckets(),
+        extend_buckets(eng.engine_config.batch_buckets, bs)))
+
+
 def _bge_base_engine(**ec):
     import torch
     from embeddings_tpu_torch import BertConfig, EngineConfig, KNOWN_MODELS
     from embeddings_tpu_torch.models import params as P
     from embeddings_tpu_torch.runtime.engine import Engine
     from embeddings_tpu_torch.tokenizer import tokenizer_from_dir
-    if "params" not in RESULTS:
+    if "params" not in STATE:
         cfg = BertConfig(**{**KNOWN_MODELS["bge-base-en-v1.5"],
                             "vocab_size": 30528})
         t0 = time.perf_counter()
         params = P.fuse_qkv(P.pack_q4_params(P.quantize_params(
             P.init_params(cfg, np.random.default_rng(0)), "q4_0")))
-        RESULTS["params"] = (cfg, params, time.perf_counter() - t0)
-    cfg, params, _ = RESULTS["params"]
+        STATE["params"] = (cfg, params, time.perf_counter() - t0)
+    cfg, params, _ = STATE["params"]
     tok = tokenizer_from_dir(FIXTURE / "model")
     return Engine(params, cfg, tok, EngineConfig(batch_size=128, **ec),
                   device=torch.device("cuda"))
@@ -275,27 +430,20 @@ def _bge_base_engine(**ec):
 
 def phase_main_path():
     import torch
-    from embeddings_tpu_torch.ops.attention import fused_attention
     from embeddings_tpu_torch.ops.qmatmul import qmatmul
-    from embeddings_tpu_torch.runtime.batching import extend_buckets, \
-        plan_batches
     eng = _bge_base_engine()
     texts = _sts_sentences(300)
     texts += texts[:8]  # identical sentences: cosine 1.0
-    toks = [eng.tokenize(t) for t in texts]
-    n_forwards = len(plan_batches(
-        [len(t) for t in toks], 128, eng._seq_buckets(),
-        extend_buckets(eng.engine_config.batch_buckets, 128)))
-    qmatmul.launches = 0
-    qmatmul.shapes.clear()
-    fused_attention.launches = 0
+    n_forwards = n_bucketed_forwards(eng, texts)
+    reset_counts()
     t0 = time.perf_counter()
     emb = eng.encode_batch(texts)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    k1, k2 = qmatmul.launches, fused_attention.launches
-    RESULTS["launches"] = {"qmatmul": dict(qmatmul.shapes),
-                           "fused_attention": k2}
+    counts = read_counts()
+    k1, k2 = counts["K1"], counts["K2"]
+    STATE.setdefault("launches", {}).update(
+        qmatmul=dict(qmatmul.shapes), fused_attention=k2)
     norms = np.linalg.norm(emb, axis=1)
     dup = (emb[:8] * emb[-8:]).sum(-1)
     plain = _bge_base_engine(use_pallas="never", compute_dtype="float32")
@@ -305,7 +453,7 @@ def phase_main_path():
     emit("main_path", model="bge-base-en-v1.5 (random init, numpy seed 0, "
          "vocab 30528) q4_0 packed + fused qkv", sentences=len(texts),
          forwards=n_forwards, wall_s=wall,
-         init_quantize_s=RESULTS["params"][2],
+         init_quantize_s=STATE["params"][2],
          k1_launches=k1, k2_launches=k2,
          k1_per_forward=k1 / n_forwards, k2_per_forward=k2 / n_forwards,
          norm_min=float(norms.min()), norm_max=float(norms.max()),
@@ -314,12 +462,13 @@ def phase_main_path():
          finite=bool(np.isfinite(emb).all()))
     check(np.isfinite(emb).all() and emb.shape == (len(texts), E),
           "main path output not finite / wrong shape")
-    check(k1 == 48 * n_forwards and k2 == 12 * n_forwards,
-          f"launches {k1} K1 / {k2} K2 over {n_forwards} forwards")
+    check(k1 == 48 * n_forwards and k2 == 12 * n_forwards
+          and counts["K3"] == counts["K4"] == counts["K5"] == 0,
+          f"launches {counts} over {n_forwards} forwards")
     check(np.abs(norms - 1).max() < 1e-3, "embeddings are not unit norm")
     check(dup.min() >= 1 - 1e-6, "identical sentences differ")
     check(cos.min() >= 0.999, f"kernel path vs plain f32: {cos.min()}")
-    RESULTS["engine"] = eng
+    STATE["engine"], STATE["main_emb"] = eng, emb
 
 
 def phase_trained():
@@ -341,9 +490,14 @@ def phase_trained():
 
 
 def phase_server():
+    _check_tcp("server", STATE["engine"])
+
+
+def _check_tcp(phase: str, eng, **extra) -> None:
+    """Six texts through serve_tcp, one connection: answers equal
+    Engine.encode."""
     from embeddings_tpu_torch.runtime.client import TcpClient
     from embeddings_tpu_torch.runtime.server import serve_tcp
-    eng = RESULTS["engine"]
     texts = _sts_sentences(6)
 
     async def run():
@@ -363,37 +517,199 @@ def phase_server():
     n_embd, answers = asyncio.run(run())
     direct = [eng.encode(t) for t in texts]
     diff = max(float(np.abs(a - d).max()) for a, d in zip(answers, direct))
-    emit("server", requests=len(texts), n_embd=n_embd,
-         max_abs_diff_vs_encode=diff)
-    check(n_embd == E and diff <= 1e-6, f"TCP answers differ by {diff}")
+    emit(phase, requests=len(texts), n_embd=n_embd,
+         max_abs_diff_vs_encode=diff, **extra)
+    check(n_embd == E and diff <= 1e-6, f"{phase}: TCP answers differ by "
+          f"{diff}")
+
+
+def phase_int8_path():
+    """The int8 compute mode end to end: every quantized matmul through
+    K3, attention through K2."""
+    import torch
+    from embeddings_tpu_torch.ops.qmatmul import qmatmul_int8
+    eng8 = _bge_base_engine(int8_compute=True)
+    texts = _sts_sentences(300)
+    texts += texts[:8]
+    n_forwards = n_bucketed_forwards(eng8, texts)
+    reset_counts()
+    t0 = time.perf_counter()
+    emb = eng8.encode_batch(texts)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    STATE.setdefault("launches", {})["qmatmul_int8"] = dict(
+        qmatmul_int8.shapes)
+    if "main_emb" not in STATE:
+        STATE["main_emb"] = _bge_base_engine().encode_batch(texts)
+    bf16 = STATE["main_emb"]
+    cos = (emb * bf16).sum(-1) / (np.linalg.norm(emb, axis=1)
+                                  * np.linalg.norm(bf16, axis=1))
+    norms = np.linalg.norm(emb, axis=1)
+    dup = (emb[:8] * emb[-8:]).sum(-1)
+    emit("int8_path", sentences=len(texts), forwards=n_forwards,
+         wall_s=wall, launches=counts,
+         k3_per_forward=counts["K3"] / n_forwards,
+         k2_per_forward=counts["K2"] / n_forwards,
+         int8_vs_bf16_min_cos=float(cos.min()),
+         int8_vs_bf16_mean_cos=float(cos.mean()),
+         norm_min=float(norms.min()), norm_max=float(norms.max()),
+         identical_min_cos=float(dup.min()))
+    check(np.isfinite(emb).all() and emb.shape == (len(texts), E),
+          "int8 path output not finite / wrong shape")
+    check(counts == {"K1": 0, "K2": 12 * n_forwards, "K3": 48 * n_forwards,
+                     "K4": 0, "K5": 0},
+          f"int8 launches {counts} over {n_forwards} forwards")
+    check(np.abs(norms - 1).max() < 1e-3, "int8: not unit norm")
+    check(dup.min() >= 1 - 1e-6, "int8: identical sentences differ")
+    check(cos.min() >= 0.99, f"int8 vs bf16 kernel path: {cos.min()}")
+    STATE["engine8"] = eng8
+    _check_tcp("int8_server", eng8)
+
+
+def phase_packed_path():
+    """Token-packed encode: K4 at the default row_len 128, K5 (window 3)
+    at row_len 1024, sentences past row_len handed to the bucketed path,
+    and BatchingService(packed=True) over TCP."""
+    import torch
+    eng = STATE.get("engine") or _bge_base_engine()
+    short = _sts_sentences(2400)
+    # at row_len 128, two texts longer than 128 tokens go to the bucketed
+    # path (at 1024 they would widen the window past 3 key blocks)
+    texts = short + [" ".join(short[i:i + 30]) for i in (0, 100)]
+    ref = eng.encode_batch(texts)
+    windows = []
+    run = eng._forward_packed
+
+    def spy(ids, seg, pos, pool, attn_window=0):
+        windows.append((list(ids.shape), attn_window))
+        return run(ids, seg, pos, pool, attn_window)
+
+    eng._forward_packed = spy
+    out = {}
+    try:
+        for name, row_len, rows, txt in (("row128", 128, None, texts),
+                                         ("row1024", 1024, 32, short)):
+            windows.clear()
+            long_txt = [t for t in txt if len(eng.tokenize(t)) > row_len]
+            n_long = n_bucketed_forwards(eng, long_txt) if long_txt else 0
+            reset_counts()
+            t0 = time.perf_counter()
+            emb = eng.encode_batch_packed(txt, row_len=row_len,
+                                          batch_rows=rows)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = read_counts()
+            n = len(windows)
+            cos = (emb * ref[:len(txt)]).sum(-1)
+            out[name] = dict(
+                sentences=len(txt), packed_forwards=n,
+                shapes=[w[0] for w in windows],
+                windows=[w[1] for w in windows], bucketed_forwards=n_long,
+                launches=counts, wall_s=wall,
+                packed_vs_bucketed_min_cos=float(cos.min()))
+            kattn = "K4" if row_len == 128 else "K5"
+            STATE.setdefault("launches", {})[kattn] = counts[kattn]
+            want = {"K1": 48 * (n + n_long), "K2": 12 * n_long, "K3": 0,
+                    "K4": 12 * n if kattn == "K4" else 0,
+                    "K5": 12 * n if kattn == "K5" else 0}
+            check(n >= 1 and counts == want,
+                  f"packed {name}: launches {counts}, expected {want}")
+            if kattn == "K5":
+                check(all(w[1] == 3 for w in windows),
+                      f"packed row1024 windows {windows}, expected 3")
+            check(np.isfinite(emb).all() and cos.min() >= 0.999,
+                  f"packed {name} vs bucketed: min cos {cos.min()}")
+    finally:
+        del eng._forward_packed  # back to the class method
+    out["tcp"] = _packed_tcp(eng, texts[:16], ref[:16])
+    emit("packed_path", **out)
+
+
+def _packed_tcp(eng, texts, ref) -> dict:
+    """16 concurrent connections to serve_tcp over
+    BatchingService(packed=True): one batch of 8 or more runs packed."""
+    import concurrent.futures
+    from embeddings_tpu_torch.runtime.client import TcpClient
+    from embeddings_tpu_torch.runtime.server import BatchingService, \
+        serve_tcp
+
+    async def run():
+        service = BatchingService(eng, packed=True, max_wait_ms=500)
+        server, _ = await serve_tcp(service, "127.0.0.1", 0)
+        port = server.sockets[0].getsockname()[1]
+
+        def one(t):
+            with TcpClient("127.0.0.1", port, timeout=120) as c:
+                return c.embed(t)
+
+        def clients():
+            with concurrent.futures.ThreadPoolExecutor(len(texts)) as ex:
+                return list(ex.map(one, texts))
+        try:
+            return await asyncio.to_thread(clients), service.stats.as_dict()
+        finally:
+            server.close()
+            await server.wait_closed()
+            await service.stop()
+
+    reset_counts()
+    answers, stats = asyncio.run(run())
+    counts = read_counts()
+    cos = (np.stack(answers) * ref).sum(-1)
+    r = dict(requests=len(texts), batches=stats["batches"], launches=counts,
+             min_cos_vs_bucketed=float(cos.min()))
+    check(counts["K4"] > 0 and cos.min() >= 0.999,
+          f"packed TCP: {r} (no packed batch ran, or answers differ)")
+    return r
 
 
 def phase_timing():
     import torch
-    import torch.nn.functional as Fn
-    from embeddings_tpu_torch.ops.attention import fused_attention, \
-        fused_attention_ref
+    from embeddings_tpu_torch.ops import attention as A
     from embeddings_tpu_torch.ops.qmatmul import dequantize_bf16, qmatmul, \
-        qmatmul_ref
+        qmatmul_int8, qmatmul_int8_ref, qmatmul_ref, quantize_rows, \
+        requantize_weight
     dev = torch.device("cuda")
     rng = np.random.default_rng(3)
-    eng = RESULTS["engine"]
+    saved = read_counts()  # timing launches are not main-path launches
+    launches = STATE.get("launches", {})
+    eng = STATE["engine"]
     ids = rng.integers(1000, 30000, (B, L)).astype(np.int32)
     mask = np.ones((B, L), np.int32)
-    fwd_ms = cuda_ms(lambda: eng._forward(ids, mask), iters=5)
-    kernels, saved = [], (qmatmul.launches, fused_attention.launches)
-    launches = RESULTS.get("launches", {"qmatmul": {}, "fused_attention": 0})
+    # forward -> (call, its matmul kernels, its attention kernel's mode)
+    runs = {"bf16": (lambda: eng._forward(ids, mask), ("qmm_kernel",), 0)}
+    if "engine8" in STATE:
+        runs["int8"] = (lambda: STATE["engine8"]._forward(ids, mask),
+                        ("qmm_int8_kernel", "requant_kernel",
+                         "quant_rows_kernel"), 0)
+    for name, mode in (("K4", 1), ("K5", 2)):
+        if name in STATE:
+            arrays, W = STATE[name][2], STATE[name][3]
+            runs[name] = (lambda a=arrays, w=W: eng._forward_packed(*a, w),
+                          ("qmm_kernel",), mode)
+    fwd = {k: cuda_ms(r[0], iters=5) for k, r in runs.items()}
+    profiles = {k: device_profile(k, *r) for k, r in runs.items()}
+    packed_fwd = {}
+    for name in ("K4", "K5"):
+        if name in fwd:
+            arrays, W = STATE[name][2], STATE[name][3]
+            tokens = int((arrays[1] >= 0).sum())
+            packed_fwd[name] = {"shape": list(arrays[0].shape), "window": W,
+                                "tokens": tokens, "forward_ms": fwd[name],
+                                "tokens_per_s": tokens / fwd[name] * 1e3}
+
+    kernels = []
     for name, (K, N, epi) in K1_SHAPES.items():
         args, kw, qt = k1_inputs(rng, M, K, N, "q4_0", True, epi, dev)
         a = list(args.values())
         w_bf16 = dequantize_bf16(qt.codes, qt.scales, qt.mins, "q4_0", True)
-        flops, nbytes = k1_cost(M, K, N, epi)
-        bms, by = bound_ms(flops, nbytes)
+        bms, by = bound_ms(*k1_cost(M, K, N, epi))
         kernels.append({
             "name": f"qmatmul[{name} {K}x{N} {epi}]", "route": "cuda",
             "source": "embeddings_tpu_torch/csrc/qmatmul.cu",
             "replaces": K1_REPLACES,
-            "launches": launches["qmatmul"].get((K, N, epi), 0),
+            "launches": launches.get("qmatmul", {}).get((K, N, epi), 0),
             "max_abs_err": RESULTS["k1_parity"]["main"][name]["max_abs_err"],
             "ms": cuda_ms(lambda: qmatmul(*a, **kw)),
             "plain_ms": cuda_ms(lambda: qmatmul_ref(*a, **kw), iters=3),
@@ -403,46 +719,175 @@ def phase_timing():
     qkv = torch.from_numpy(rng.standard_normal(
         (M, 3 * E), dtype=np.float32)).to(dev, torch.bfloat16)
     lens = torch.full((B,), L, dtype=torch.int32, device=dev)
-    q, k, v = (qkv.reshape(B, L, 3, H, D)[:, :, i].transpose(1, 2)
-               .contiguous() for i in range(3))
     keymask = (torch.arange(L, device=dev)[None, :]
                < lens[:, None])[:, None, None, :]
-    flops = 4.0 * B * H * L * L * D
-    bms, by = bound_ms(flops, M * 3 * E * 2 + M * E * 2 + B * 4)
+    bms, by = bound_ms(4.0 * B * H * L * L * D,
+                       M * 3 * E * 2 + M * E * 2 + B * 4)
     kernels.append({
         "name": f"fused_attention[B{B} L{L} H{H} D{D}]", "route": "cuda",
         "source": "embeddings_tpu_torch/csrc/attention.cu",
         "replaces": K2_REPLACES,
-        "launches": launches["fused_attention"],
+        "launches": launches.get("fused_attention", 0),
         "max_abs_err": RESULTS["k2_parity"]["L256"]["max_abs_err"],
-        "ms": cuda_ms(lambda: fused_attention(qkv, lens, B=B, L=L, H=H,
-                                              D=D)),
-        "plain_ms": cuda_ms(lambda: fused_attention_ref(
+        "ms": cuda_ms(lambda: A.fused_attention(qkv, lens, B=B, L=L, H=H,
+                                                D=D)),
+        "plain_ms": cuda_ms(lambda: A.fused_attention_ref(
             qkv, lens, B=B, L=L, H=H, D=D), iters=3),
         "bound_ms": bms, "bound_by": by,
-        "library_ms": cuda_ms(lambda: Fn.scaled_dot_product_attention(
-            q, k, v, attn_mask=keymask)),
+        "library_ms": sdpa_ms(qkv, B, L, keymask),
         "shape": [B, L, H, D]})
-    # timing launches are not main-path launches
-    qmatmul.launches, fused_attention.launches = saved
-    per_layer_bound = sum(kk["bound_ms"] for kk in kernels)
-    emit("timing", batch=[B, L], forward_ms=fwd_ms,
-         sentences_per_s=B / fwd_ms * 1e3,
+    if "k3_parity" in RESULTS:
+        for name, (K, N, epi) in K1_SHAPES.items():
+            args, kw, qt = k1_inputs(rng, M, K, N, "q4_0", True, epi, dev)
+            a = list(args.values())
+            # the library yardstick: cuBLAS s8 x s8 -> s32 on operands
+            # quantized beforehand (no dequantization, rescale, epilogue)
+            q8, _ = quantize_rows(a[0])
+            w8, _ = requantize_weight(qt.codes, qt.scales, qt.mins, "q4_0",
+                                      True)
+            w8t = w8.t().contiguous()
+            bms, by = bound_ms(*k1_cost(M, K, N, epi), peak=PEAK_INT8_OPS)
+            kernels.append({
+                "name": f"qmatmul_int8[{name} {K}x{N} {epi}]",
+                "route": "cuda",
+                "source": "embeddings_tpu_torch/csrc/qmatmul.cu",
+                "replaces": K3_REPLACES,
+                "launches": launches.get("qmatmul_int8", {}).get(
+                    (K, N, epi), 0),
+                "max_abs_err":
+                    RESULTS["k3_parity"]["main"][name]["max_abs_err"],
+                "ms": cuda_ms(lambda: qmatmul_int8(*a, **kw)),
+                "plain_ms": cuda_ms(lambda: qmatmul_int8_ref(*a, **kw),
+                                    iters=3),
+                "bound_ms": bms, "bound_by": by,
+                "library_ms": cuda_ms(lambda: torch._int_mm(q8, w8t.t())),
+                "shape": [M, K, N]})
+    for name, fn, replaces in (
+            ("K4", "fused_attention_segmented", K4_REPLACES),
+            ("K5", "fused_attention_segmented_blockskip", K5_REPLACES)):
+        if name not in STATE:
+            continue
+        qkv, seg, arrays, W = STATE[name]
+        Bx, Lx = seg.shape
+        kw = dict(B=Bx, L=Lx, H=H, D=D)
+        kernel_kw = kw
+        if name == "K5":
+            kw["window"] = W
+            # as the forward calls it: ranges computed once, outside
+            kernel_kw = dict(kw, ranges=A.block_ranges(seg, Lx))
+        kernel, plain = getattr(A, fn), getattr(A, fn + "_ref")
+        same = (seg[:, :, None] == seg[:, None, :]) & (seg >= 0)[:, None, :]
+        bms, by = bound_ms(seg_flops(arrays[1]),
+                           Bx * Lx * (3 * E * 2 + E * 2 + 4))
+        kernels.append({
+            "name": f"{fn}[B{Bx} L{Lx} H{H} D{D}"
+                    + (f" W{W}]" if name == "K5" else "]"),
+            "route": "cuda",
+            "source": "embeddings_tpu_torch/csrc/attention.cu",
+            "replaces": replaces,
+            "launches": launches.get(name, 0),
+            "max_abs_err": RESULTS["k4k5_parity"][name]["max_abs_err"],
+            "ms": cuda_ms(lambda: kernel(qkv, seg, **kernel_kw)),
+            "plain_ms": cuda_ms(lambda: plain(qkv, seg, **kw), iters=3),
+            "bound_ms": bms, "bound_by": by,
+            "library_ms": sdpa_ms(qkv, Bx, Lx, same[:, None]),
+            "shape": [Bx, Lx, H, D]})
+    for name, f in counters().items():
+        f.launches = saved[name]
+    per_layer_bound = sum(kk["bound_ms"] for kk in kernels[:5])
+    emit("timing", batch=[B, L], forward_ms=fwd["bf16"],
+         sentences_per_s=B / fwd["bf16"] * 1e3,
+         int8_forward_ms=fwd.get("int8"),
+         int8_sentences_per_s=(B / fwd["int8"] * 1e3 if "int8" in fwd
+                               else None),
+         packed_forward=packed_fwd,
          forward_bound_ms=NL * per_layer_bound,
-         kernel_ms_per_forward=NL * sum(kk["ms"] for kk in kernels))
+         kernel_ms_per_forward=NL * sum(kk["ms"] for kk in kernels[:5]),
+         profile=profiles)
     RESULTS["kernels"] = kernels
 
 
+def device_profile(name: str, fn, matmuls, mode: int) -> dict:
+    """Device time by kernel over one forward (torch.profiler, CUDA
+    activity). The idle share is the gaps between the forward's first
+    kernel start and last kernel end (the profiler slows the host, so its
+    wall time says nothing of idleness). Checks that the trace holds
+    4 * NL launches of each matmul kernel and NL of the attention kernel
+    in its mode."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+    # one warm-up step: without it the tracer can miss the first kernels
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        for _ in range(2):
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+    kinds = ("qmm_int8_kernel", "requant_kernel", "quant_rows_kernel",
+             "qmm_kernel", "attn_kernel")
+    by_kind: dict = {}
+    torch_ops: dict = {}  # the library's own kernels, by name
+    spans = []
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA \
+                or e.name.startswith("ProfilerStep"):  # the step's range
+            continue
+        kind = next((k for k in kinds if k in e.name), "torch ops")
+        if kind == "attn_kernel":  # attn_kernel<D, mode>
+            kind += "<" + e.name.split("attn_kernel<")[-1].split(">")[0] \
+                + ">"
+        ms = e.time_range.elapsed_us() / 1e3
+        tally(by_kind, kind, ms)
+        if kind == "torch ops":
+            tally(torch_ops, e.name[:80], ms)
+        spans.append((e.time_range.start, e.time_range.end))
+    busy = sum(v[0] for v in by_kind.values())
+    span = (max(b for _, b in spans) - min(a for a, _ in spans)) / 1e3 \
+        if spans else 0.0
+    seen = {k: v[1] for k, v in by_kind.items()}
+    want = {**{k: 4 * NL for k in matmuls}, f"attn_kernel<{D}, {mode}>": NL}
+    check(busy > 0 and all(seen.get(k) == n for k, n in want.items()),
+          f"profile {name}: launches {seen}, want {want}")
+    return {
+        "device_busy_ms": busy, "device_span_ms": span,
+        "idle_share": 1 - busy / span,
+        "by_kernel": {k: {"ms": v[0], "launches": v[1], "share": v[0] / busy}
+                      for k, v in sorted(by_kind.items(),
+                                         key=lambda kv: -kv[1][0])},
+        "torch_ops_top": [[k, v[0], v[1]] for k, v in sorted(
+            torch_ops.items(), key=lambda kv: -kv[1][0])[:6]]}
+
+
+def tally(table: dict, key: str, ms: float) -> None:
+    """Add one kernel's ms (and one launch) under key."""
+    t = table.setdefault(key, [0.0, 0])
+    t[0] += ms
+    t[1] += 1
+
+
+def sdpa_ms(qkv, Bx: int, Lx: int, mask) -> float:
+    """The library yardstick for K2/K4/K5: F.scaled_dot_product_attention
+    on [B, H, L, D] copies of q, k, v with the equivalent boolean mask."""
+    import torch.nn.functional as Fn
+    q, k, v = (qkv.reshape(Bx, Lx, 3, H, D)[:, :, i].transpose(1, 2)
+               .contiguous() for i in range(3))
+    return cuda_ms(lambda: Fn.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask))
+
+
 PHASES = {"device": phase_device, "build": phase_build, "k1": phase_k1,
-          "k2": phase_k2, "main": phase_main_path,
-          "trained": phase_trained, "server": phase_server,
-          "timing": phase_timing}
+          "k2": phase_k2, "k3": phase_k3, "k4k5": phase_k4k5,
+          "main": phase_main_path, "trained": phase_trained,
+          "server": phase_server, "int8_path": phase_int8_path,
+          "packed_path": phase_packed_path, "timing": phase_timing}
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES),
-                    help="comma-separated subset of " + ",".join(PHASES))
+                    help="comma-separated subset of " + ",".join(PHASES)
+                    + " (default: all)")
     phases = ap.parse_args().phases.split(",")
     import torch
     if not torch.cuda.is_available():
@@ -456,10 +901,8 @@ def main() -> int:
     for name in phases:
         PHASES[name]()
     OUT_DIR.mkdir(exist_ok=True)
-    (OUT_DIR / "chip_smoke.json").write_text(json.dumps(
-        {k: v for k, v in RESULTS.items()
-         if k not in ("engine", "params", "launches")}, indent=1,
-        default=str))
+    (OUT_DIR / "chip_smoke.json").write_text(json.dumps(RESULTS, indent=1,
+                                                        default=str))
     print(json.dumps({"kernels": RESULTS.get("kernels", [])}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -364,8 +364,10 @@ class EngineConfig:
     # "never": the plain f32 reference math (dequantize + matmul, exact-erf
     # GELU, additive-mask attention), as the JAX package's XLA fallback
     use_pallas: str = "auto"
-    # int8 tensor-core compute for quantized matmuls. Not ported yet: the
-    # engine raises rather than silently running bf16.
+    # int8 tensor-core compute for quantized matmuls (kernel K3 on the
+    # card: s8 x s8 -> s32 over per-column requantized weights and per-row
+    # quantized activations); shapes the JAX package's rule does not
+    # engage run bf16 with a warning
     int8_compute: bool = False
     # max device batches dispatched ahead of result read-back: keeps the
     # host/device pipeline full while bounding live output buffers (a

@@ -1,28 +1,44 @@
-// Prefix-masked multi-head self-attention over the fused QKV projection
-// (kernel K2 of the PyTorch port), for sm_90a.
+// Fused multi-head self-attention over the fused QKV projection, for
+// sm_90a: kernels K2, K4 and K5 of the PyTorch port, as three mask modes
+// of one kernel.
 //
-// Replaces: embeddings_tpu/ops/attention.py:_attn_kernel (its bf16 branch),
-// the Pallas TPU kernel behind fused_attention(). For each sequence b,
-// head h and query i, with q, k, v read as column slices of the fused
-// qkv buffer [B*L, 3E] (q at h*D, k at E + h*D, v at 2E + h*D):
-//     qs  = bf16(q * log2(e)/sqrt(D))
-//     s   = clamp(qs . k_j, -100, 127 - ceil(log2 L))        (f32)
-//     p_j = bf16(exp2(s)) if j < len[b] else 0
-//     out = (sum_j p_j v_j) / max(sum_j p_j, 1e-30)           (f32 sums)
-// written as bf16 to ctx [B*L, E] at column h*D. There is no
-// max-subtraction: the clamp keeps exp2 and the sum finite for any row
-// length, as in the TPU kernel, so key tiles only ADD into the output and
-// the denominator; nothing is rescaled. A row with len 0 gives exactly 0.
+// Replaces (embeddings_tpu/ops/attention.py, the Pallas TPU kernels):
+//   mode 0, K2: _attn_kernel (its bf16 branch), behind fused_attention();
+//   mode 1, K4: _attn_kernel_segmented, behind fused_attention_segmented();
+//   mode 2, K5: _attn_kernel_seg_window, behind
+//               fused_attention_segmented_blockskip().
+// For each sequence (packed row) b, head h and query i, with q, k, v read
+// as column slices of the fused qkv buffer [B*L, 3E] (q at h*D, k at
+// E + h*D, v at 2E + h*D):
+//   mode 0: s = clamp(bf16(q * s2) . k_j, -100, hi), key j valid iff
+//           j < len[b];
+//   mode 1: s = clamp((q . k_j) * s2, -100, hi) (scaled after the dot, in
+//           f32, as the TPU's segmented kernels do), key j valid iff
+//           seg[b,i] == seg[b,j] and seg[b,j] >= 0;
+//   mode 2: mode 1, over key blocks kbs .. min(kbs + W - 1, kbe) of the
+//           query's 128-row block only (block_ranges); blocks past the cap
+//           W are dropped, every other key block is skipped unread.
+//   p_j = bf16(exp2(s)) if valid else 0
+//   out = (sum_j p_j v_j) / max(sum_j p_j, 1e-30)           (f32 sums)
+// written as bf16 to ctx [B*L, E] at column h*D. s2 = log2(e)/sqrt(D); hi
+// = 127 - ceil(log2 n) for n = L keys (n = min(W*128, L) in mode 2). There
+// is no max-subtraction: the clamp keeps exp2 and the sum finite for any
+// row length, as in the TPU kernels, so key tiles only ADD into the
+// output and the denominator; nothing is rescaled. A row with no valid
+// key (len 0, or a pad query) gives exactly 0.
 //
-// What bounds it on the H100: at B=128, L=256, H=12, D=64 the function
-// moves ~201 MB (qkv in, context out) for ~26 GFLOP, so it is bound by
-// device memory, not by the tensor cores. The design reads q, k and v in
-// place from the fused projection (no transpose pass through memory), and
-// keeps scores and probabilities in shared memory and registers: one
-// block per (64-query tile, head, sequence), 4 warps of 16 query rows,
-// 64-key tiles of K and V staged in shared memory, both products on the
-// tensor cores (WMMA bf16, f32 accumulators). Not yet used: cp.async/TMA
-// double buffering of the key tiles, and skipping key tiles past len[b].
+// What bounds it on the H100: at B=128, L=256, H=12, D=64 (mode 0), or
+// 32,768 packed tokens (modes 1 and 2), the function moves ~201 MB (qkv
+// in, context out) for ~26 GFLOP (mode 2 at L=1024, W=3: ~19 GFLOP), so
+// it is bound by device memory, not by the tensor cores. The design reads
+// q, k and v in place from the fused projection (no transpose pass through
+// memory), and keeps scores and probabilities in shared memory and
+// registers: one block per (64-query tile, head, sequence), 4 warps of 16
+// query rows, 64-key tiles of K and V (and their segment ids) staged in
+// shared memory, both products on the tensor cores (WMMA bf16, f32
+// accumulators). Not yet used: cp.async/TMA double buffering of the key
+// tiles, and skipping key tiles past len[b] or outside a K4 row's
+// segments.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -38,6 +54,9 @@ constexpr int KT = 64;        // keys per tile
 constexpr int THREADS = 128;  // 4 warps x 16 query rows
 constexpr int SP = KT + 4;    // f32 score staging row stride
 constexpr int PP = KT + 8;    // bf16 probability row stride
+constexpr int BQ = 128;       // query/key block of mode 2 (block_ranges)
+
+enum Mode { PREFIX = 0, SEGMENT = 1, WINDOW = 2 };
 
 template <int D>
 struct Layout {
@@ -50,10 +69,12 @@ struct Layout {
   static constexpr size_t smem = qkv_bytes + f_bytes + p_bytes;
 };
 
-template <int D>
+template <int D, int MODE>
 __global__ void __launch_bounds__(THREADS) attn_kernel(
     const __nv_bfloat16* __restrict__ qkv, const int* __restrict__ lengths,
-    __nv_bfloat16* __restrict__ out, int L, int H, float s2, float hi) {
+    const int* __restrict__ seg, const int* __restrict__ kbs,
+    const int* __restrict__ kbe, __nv_bfloat16* __restrict__ out, int L,
+    int H, int W, float s2, float hi) {
   using Lay = Layout<D>;
   constexpr int DP = Lay::DP;
   constexpr int OP = Lay::OP;
@@ -61,6 +82,7 @@ __global__ void __launch_bounds__(THREADS) attn_kernel(
   constexpr int DV = D / 8;  // 16-byte vectors per head row
 
   extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ int segk[KT];  // the key tile's segment ids (modes 1, 2)
   __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem);  // [QT][DP]
   __nv_bfloat16* ks = qs + QT * DP;                              // [KT][DP]
   __nv_bfloat16* vs = ks + KT * DP;                              // [KT][DP]
@@ -76,12 +98,14 @@ __global__ void __launch_bounds__(THREADS) attn_kernel(
   const int b = blockIdx.z;
   const int E = H * D;
   const size_t ld = 3 * (size_t)E;
-  const int len = lengths[b];
+  const int len = MODE == PREFIX ? lengths[b] : 0;
   const __nv_bfloat16* rows = qkv + (size_t)b * L * ld;
   float* fsc = fbase + warp * F;
   __nv_bfloat16* ps = pbase + warp * 16 * PP;
 
-  // q tile, pre-scaled by log2(e)/sqrt(D) and rounded to bf16
+  // q tile; mode 0 pre-scales it by s2 and rounds to bf16 (the TPU's K2
+  // rounding), modes 1 and 2 scale the f32 scores instead
+  const float qscale = MODE == PREFIX ? s2 : 1.0f;
   for (int v = tid; v < QT * DV; v += THREADS) {
     const int r = v / DV;
     const int c = (v % DV) * 8;
@@ -92,8 +116,8 @@ __global__ void __launch_bounds__(THREADS) attn_kernel(
       const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&u);
       for (int i = 0; i < 4; ++i) {
         const float2 t = __bfloat1622float2(p[i]);
-        f[2 * i] = t.x * s2;
-        f[2 * i + 1] = t.y * s2;
+        f[2 * i] = t.x * qscale;
+        f[2 * i + 1] = t.y * qscale;
       }
     }
     uint4 o;
@@ -116,8 +140,22 @@ __global__ void __launch_bounds__(THREADS) attn_kernel(
 
   const int r = lane >> 1;          // this lane's query row in the warp
   const int c0 = (lane & 1) * 32;   // and its half of the key tile
-  for (int k0 = 0; k0 < L; k0 += KT) {
+  const int qrow = q0 + warp * 16 + r;
+  const int sq = (MODE != PREFIX && qrow < L) ? seg[(size_t)b * L + qrow] : -1;
+  int k_begin = 0, k_end = L;
+  if (MODE == WINDOW) {
+    // key blocks kbs .. min(kbs + W - 1, kbe) of this 128-query block
+    const int nQ = L / BQ;
+    const int qb = q0 / BQ;
+    const int lo = kbs[b * nQ + qb];
+    const int last = min(lo + W - 1, kbe[b * nQ + qb]);
+    k_begin = lo * BQ;
+    k_end = last >= lo ? (last + 1) * BQ : k_begin;
+  }
+  for (int k0 = k_begin; k0 < k_end; k0 += KT) {
     __syncthreads();  // every warp is done with the previous K/V tile
+    if (MODE != PREFIX && tid < KT)
+      segk[tid] = k0 + tid < L ? seg[(size_t)b * L + k0 + tid] : -1;
     for (int v = tid; v < KT * DV; v += THREADS) {
       const int kr = v / DV;
       const int c = (v % DV) * 8;
@@ -146,8 +184,11 @@ __global__ void __launch_bounds__(THREADS) attn_kernel(
     }
     __syncwarp();
     for (int c = c0; c < c0 + 32; ++c) {
-      const float sc = fminf(fmaxf(fsc[r * SP + c], -100.0f), hi);
-      const float p = (k0 + c < len) ? exp2f(sc) : 0.0f;
+      const float raw = MODE == PREFIX ? fsc[r * SP + c] : fsc[r * SP + c] * s2;
+      const float sc = fminf(fmaxf(raw, -100.0f), hi);
+      const bool ok = MODE == PREFIX ? k0 + c < len
+                                     : segk[c] == sq && segk[c] >= 0;
+      const float p = ok ? exp2f(sc) : 0.0f;
       const __nv_bfloat16 pb = __float2bfloat16_rn(p);
       ps[r * PP + c] = pb;
       rowsum += __bfloat162float(pb);
@@ -173,7 +214,6 @@ __global__ void __launch_bounds__(THREADS) attn_kernel(
   for (int d = 0; d < D / 16; ++d)
     wmma::store_matrix_sync(fsc + d * 16, acc[d], OP, wmma::mem_row_major);
   __syncwarp();
-  const int qrow = q0 + warp * 16 + r;
   if (qrow < L) {
     const float inv = 1.0f / fmaxf(rowsum, 1e-30f);
     __nv_bfloat16* dst = out + ((size_t)b * L + qrow) * E + h * D;
@@ -192,37 +232,63 @@ __global__ void __launch_bounds__(THREADS) attn_kernel(
   }
 }
 
-template <int D>
-cudaError_t launch(const void* qkv, const void* lengths, void* out, int B,
-                   int L, int H, float s2, float hi, cudaStream_t stream) {
+template <int D, int MODE>
+cudaError_t launch(const void* qkv, const void* lengths, const void* seg,
+                   const void* kbs, const void* kbe, void* out, int B, int L,
+                   int H, int W, float s2, float hi, cudaStream_t stream) {
   const size_t smem = Layout<D>::smem;
+  auto kern = attn_kernel<D, MODE>;
   cudaError_t err = cudaFuncSetAttribute(
-      attn_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid((L + QT - 1) / QT, H, B);
-  attn_kernel<D><<<grid, THREADS, smem, stream>>>(
+  kern<<<grid, THREADS, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(qkv), static_cast<const int*>(lengths),
-      static_cast<__nv_bfloat16*>(out), L, H, s2, hi);
+      static_cast<const int*>(seg), static_cast<const int*>(kbs),
+      static_cast<const int*>(kbe), static_cast<__nv_bfloat16*>(out), L, H,
+      W, s2, hi);
   return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_mode(int mode, const void* qkv, const void* lengths,
+                        const void* seg, const void* kbs, const void* kbe,
+                        void* out, int B, int L, int H, int W, float s2,
+                        float hi, cudaStream_t stream) {
+#define ATTN_ARGS qkv, lengths, seg, kbs, kbe, out, B, L, H, W, s2, hi, stream
+  switch (mode) {
+    case PREFIX: return launch<D, PREFIX>(ATTN_ARGS);
+    case SEGMENT: return launch<D, SEGMENT>(ATTN_ARGS);
+    case WINDOW:
+      if (L % BQ) return cudaErrorInvalidValue;
+      return launch<D, WINDOW>(ATTN_ARGS);
+    default: return cudaErrorInvalidValue;
+  }
+#undef ATTN_ARGS
 }
 
 }  // namespace
 
 extern "C" {
 
-// qkv [B*L, 3*H*D] bf16, lengths [B] int32, out [B*L, H*D] bf16 (device
-// pointers). s2 = log2(e)/sqrt(D) as f32; hi = the score clamp bound
-// 127 - ceil(log2 L). D must be 32, 64 or 128. Returns a cudaError_t.
-int attn_launch(const void* qkv, const void* lengths, void* out, int B,
-                int L, int H, int D, float s2, float hi, void* stream) {
+// qkv [B*L, 3*H*D] bf16 and out [B*L, H*D] bf16 (device pointers). mode 0
+// reads lengths [B] int32; modes 1 and 2 read seg [B, L] int32 (-1 on
+// pads); mode 2 also kbs, kbe [B, L/128] int32 and the block cap W (L %
+// 128 == 0). Unused pointers may be null. s2 = log2(e)/sqrt(D) as f32; hi
+// = the score clamp bound. D must be 32, 64 or 128. Returns a cudaError_t.
+int attn_launch(const void* qkv, const void* lengths, const void* seg,
+                const void* kbs, const void* kbe, void* out, int mode, int B,
+                int L, int H, int D, int W, float s2, float hi,
+                void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define ATTN_ARGS mode, qkv, lengths, seg, kbs, kbe, out, B, L, H, W, s2, hi, st
   switch (D) {
-    case 32: return launch<32>(qkv, lengths, out, B, L, H, s2, hi, st);
-    case 64: return launch<64>(qkv, lengths, out, B, L, H, s2, hi, st);
-    case 128: return launch<128>(qkv, lengths, out, B, L, H, s2, hi, st);
+    case 32: return launch_mode<32>(ATTN_ARGS);
+    case 64: return launch_mode<64>(ATTN_ARGS);
+    case 128: return launch_mode<128>(ATTN_ARGS);
     default: return cudaErrorInvalidValue;
   }
+#undef ATTN_ARGS
 }
 
 const char* attn_error_string(int err) {

@@ -125,6 +125,54 @@ __device__ __forceinline__ float4 ld4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
 
+// The residual + LayerNorm epilogue over a block's BM full output rows,
+// parked as f32 in shared memory (row stride ldr): y = row (+ bias) + res,
+// LayerNorm over N in f32, one bf16 store. One warp per row. bias may be
+// null (K3 adds it in its rescale).
+template <int BM>
+__device__ __forceinline__ void ln_rows(
+    float* rowbuf, int ldr, const float* __restrict__ bias,
+    const __nv_bfloat16* __restrict__ res, const float* __restrict__ lns,
+    const float* __restrict__ lnb, __nv_bfloat16* __restrict__ out, int m0,
+    int M, int N, float eps) {
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  for (int r = warp; r < BM; r += blockDim.x / 32) {
+    const int gr = m0 + r;
+    if (gr >= M) continue;
+    float* row = rowbuf + r * ldr;
+    float sum = 0.f;
+    for (int c = lane * 8; c < N; c += 256) {
+      float rv[8];
+      unpack8(*reinterpret_cast<const uint4*>(res + (size_t)gr * N + c), rv);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const float y = (bias ? row[c + e] + bias[c + e] : row[c + e]) + rv[e];
+        row[c + e] = y;
+        sum += y;
+      }
+    }
+    for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
+    const float mean = sum / N;
+    float sq = 0.f;
+    for (int c = lane * 8; c < N; c += 256)
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const float d = row[c + e] - mean;
+        sq += d * d;
+      }
+    for (int o = 16; o > 0; o >>= 1) sq += __shfl_xor_sync(0xffffffffu, sq, o);
+    const float inv = rsqrtf(sq / N + eps);
+    for (int c = lane * 8; c < N; c += 256) {
+      float v[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        v[e] = (row[c + e] - mean) * inv * lns[c + e] + lnb[c + e];
+      *reinterpret_cast<uint4*>(out + (size_t)gr * N + c) = pack8(v);
+    }
+  }
+}
+
 // What one thread holds of one K-chunk of the weight tile before it is
 // dequantized into shared memory: the code words of its 4 columns and
 // their bf16-rounded scales (and mins). Columns past N load scale 0 (and
@@ -374,40 +422,7 @@ __global__ void __launch_bounds__(THREADS, LN ? 1 : 2) qmm_kernel(
   }
 
   __syncthreads();
-  for (int r = warp; r < BM; r += THREADS / 32) {
-    const int gr = m0 + r;
-    if (gr >= M) continue;
-    float* row = rowbuf + r * ldr;
-    float sum = 0.f;
-    for (int c = lane * 8; c < N; c += 256) {
-      float rv[8];
-      unpack8(*reinterpret_cast<const uint4*>(res + (size_t)gr * N + c), rv);
-#pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        const float y = row[c + e] + bias[c + e] + rv[e];
-        row[c + e] = y;
-        sum += y;
-      }
-    }
-    for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
-    const float mean = sum / N;
-    float sq = 0.f;
-    for (int c = lane * 8; c < N; c += 256)
-#pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        const float d = row[c + e] - mean;
-        sq += d * d;
-      }
-    for (int o = 16; o > 0; o >>= 1) sq += __shfl_xor_sync(0xffffffffu, sq, o);
-    const float inv = rsqrtf(sq / N + eps);
-    for (int c = lane * 8; c < N; c += 256) {
-      float v[8];
-#pragma unroll
-      for (int e = 0; e < 8; ++e)
-        v[e] = (row[c + e] - mean) * inv * lns[c + e] + lnb[c + e];
-      *reinterpret_cast<uint4*>(out + (size_t)gr * N + c) = pack8(v);
-    }
-  }
+  ln_rows<BM>(rowbuf, ldr, bias, res, lns, lnb, out, m0, M, N, eps);
 }
 
 template <int KIND, bool PACKED, int BM, bool LN, int STAGES>
@@ -455,6 +470,358 @@ cudaError_t dispatch_tile(const void* x, const void* codes,
   return cudaErrorInvalidValue;  // row too wide for shared memory
 }
 
+
+// ---------------------------------------------------------------------------
+// K3: the int8 tensor-core mode
+//
+// Replaces: embeddings_tpu/ops/qmatmul.py:_qmm_int8, the Pallas TPU
+// kernel behind qmatmul(int8_compute=True). Computes the TPU kernel's
+// result, not its block structure:
+//     w   = level * scale (+ min)                          (f32)
+//     cs  = max(max_k |w|, 1e-12) * (1/127)   per column n
+//     w8  = rint(w * (1/cs))                               (int8)
+//     sx  = max(max_k |x|, 1e-12) * (1/127)   per row m
+//     q   = rint(x * (1/sx))                               (int8)
+//     acc = sum_k q * w8                                   (s32)
+//     out = epilogue((float(acc) * cs) * sx + bias)        (f32, one bf16 store)
+// rint rounds half to even, like the TPU's round(); the reciprocals are
+// IEEE divisions (no fast math), and the products whose rounding the TPU
+// keeps separate are written with __fmul_rn / __fadd_rn, so the int8
+// operands equal the TPU's bit for bit.
+//
+// What bounds it on the H100: the product, at 2 * M * N * K int8
+// operations (1,979 TOPS dense), at the main-path shapes. The TPU grid
+// runs in order and requantizes each weight N-tile once for all M-tiles;
+// CUDA blocks run in parallel, so one block redoing the column absmax
+// over all of K would spend more time on scalar dequantization than on
+// its products. The design splits the work into three launches on one
+// stream: (1) the weight's per-column requantization, written transposed
+// as w8t [N, K] so both tensor-core operands are K-contiguous; (2) the
+// rows' quantization into q [M, K]; (3) the s8 x s8 -> s32 product on
+// the tensor cores (mma.sync m16n8k32), cp.async double-buffered
+// 128 x 128 x 64 tiles, with the rescale and K1's epilogues (residual +
+// LayerNorm through the same full-row shared buffer). Not yet used:
+// wgmma, TMA, and a w8 cached across calls.
+// ---------------------------------------------------------------------------
+
+constexpr float INV127 = (float)(1.0 / 127.0);
+constexpr int I8_BK = 64;            // K bytes per chunk
+constexpr int I8_LD = I8_BK + 16;    // smem row stride (bytes): no conflicts
+
+// one dequantized weight value w[k][n], f32, TPU rounding (no contraction)
+template <int KIND, bool PACKED>
+__device__ __forceinline__ float wval(const uint8_t* __restrict__ codes,
+                                      const float* __restrict__ scales,
+                                      const float* __restrict__ mins, int N,
+                                      int k, int n) {
+  float lv;
+  if (PACKED) {
+    const int r = k % 64;
+    const uint32_t b = codes[(size_t)((k / 64) * 32 + (r & 31)) * N + n];
+    const uint32_t nib = r < 32 ? (b & 15u) : (b >> 4);
+    lv = KIND == NF4 ? kNF4[nib] : (float)((int)nib - 8);
+  } else {
+    const int c = (int)static_cast<int8_t>(codes[(size_t)k * N + n]);
+    lv = KIND == NF4 ? kNF4[c + 8] : (float)c;
+  }
+  const size_t s = (size_t)(k / 32) * N + n;
+  float w = __fmul_rn(lv, scales[s]);
+  if (KIND == Q4_1) w = __fadd_rn(w, mins[s]);
+  return w;
+}
+
+// (1) per-column requantization: block = 32 columns x 8 row groups
+template <int KIND, bool PACKED>
+__global__ void __launch_bounds__(256) requant_kernel(
+    const uint8_t* __restrict__ codes, const float* __restrict__ scales,
+    const float* __restrict__ mins, int8_t* __restrict__ w8t,
+    float* __restrict__ cs, int N, int K) {
+  __shared__ float red[8][32];
+  __shared__ float inv[32];
+  __shared__ __align__(16) int8_t tile[32][I8_BK + 4];
+  const int cg = threadIdx.x % 32;
+  const int rg = threadIdx.x / 32;
+  const int n0 = blockIdx.x * 32;
+  const int n = n0 + cg;
+  const bool ok = n < N;
+  float m = 0.f;
+  if (ok)
+    for (int k = rg; k < K; k += 8)
+      m = fmaxf(m, fabsf(wval<KIND, PACKED>(codes, scales, mins, N, k, n)));
+  red[rg][cg] = m;
+  __syncthreads();
+  if (rg == 0) {
+    for (int i = 1; i < 8; ++i) m = fmaxf(m, red[i][cg]);
+    const float c = fmaxf(m, 1e-12f) * INV127;
+    inv[cg] = 1.0f / c;
+    if (ok) cs[n] = c;
+  }
+  __syncthreads();
+  const int ncols = min(32, N - n0);
+  for (int k0 = 0; k0 < K; k0 += I8_BK) {
+    if (ok)
+      for (int kk = rg; kk < I8_BK && k0 + kk < K; kk += 8)
+        tile[cg][kk] = static_cast<int8_t>(__float2int_rn(
+            wval<KIND, PACKED>(codes, scales, mins, N, k0 + kk, n) *
+            inv[cg]));
+    __syncthreads();
+    // transposed write-out: column c's 64 bytes as 16 words, K-contiguous
+    for (int wi = threadIdx.x; wi < 32 * (I8_BK / 4); wi += 256) {
+      const int c = wi / (I8_BK / 4);
+      const int kw = (wi % (I8_BK / 4)) * 4;
+      if (c < ncols && k0 + kw < K)
+        *reinterpret_cast<uint32_t*>(w8t + (size_t)(n0 + c) * K + k0 + kw) =
+            *reinterpret_cast<const uint32_t*>(&tile[c][kw]);
+    }
+    __syncthreads();
+  }
+}
+
+// (2) per-row activation quantization: one warp per row, 8 rows a block
+__global__ void __launch_bounds__(256) quant_rows_kernel(
+    const __nv_bfloat16* __restrict__ x, int8_t* __restrict__ q,
+    float* __restrict__ sx, int M, int K) {
+  const int row = blockIdx.x * 8 + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (row >= M) return;
+  const __nv_bfloat16* xr = x + (size_t)row * K;
+  float m = 0.f;
+  for (int c = lane * 8; c < K; c += 256) {
+    float v[8];
+    unpack8(*reinterpret_cast<const uint4*>(xr + c), v);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) m = fmaxf(m, fabsf(v[e]));
+  }
+  for (int o = 16; o > 0; o >>= 1)
+    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+  const float s = fmaxf(m, 1e-12f) * INV127;
+  const float inv = 1.0f / s;
+  if (lane == 0) sx[row] = s;
+  for (int c = lane * 8; c < K; c += 256) {
+    float v[8];
+    unpack8(*reinterpret_cast<const uint4*>(xr + c), v);
+    uint32_t w[2] = {0u, 0u};
+#pragma unroll
+    for (int e = 0; e < 8; ++e)
+      w[e / 4] |= (uint32_t)(__float2int_rn(v[e] * inv) & 0xff) << (8 * (e % 4));
+    *reinterpret_cast<uint2*>(q + (size_t)row * K + c) = make_uint2(w[0], w[1]);
+  }
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
+                                           bool pred) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(pred ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+__device__ __forceinline__ void cp_async_wait1() {
+  asm volatile("cp.async.wait_group 1;\n" ::);
+}
+
+__device__ __forceinline__ void mma_s8(int* c, const uint32_t* a,
+                                       uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// the rescale of one accumulator: (float(acc) * cs) * sx (+ bias)
+__device__ __forceinline__ float rescale(int acc, float c, float s, float b,
+                                         bool add_bias) {
+  const float v = __fmul_rn(__fmul_rn((float)acc, c), s);
+  return add_bias ? __fadd_rn(v, b) : v;
+}
+
+// (3) q [M, K] x w8t [N, K]^T on the tensor cores, rescale, epilogue.
+// BM output rows per block; LN: the block walks all N-tiles of its rows
+// and applies residual + LayerNorm at the end (else one BM x 128 tile).
+template <int BM, bool LN>
+__global__ void __launch_bounds__(THREADS, LN ? 1 : 2) qmm_int8_kernel(
+    const int8_t* __restrict__ q, const float* __restrict__ sx,
+    const int8_t* __restrict__ w8t, const float* __restrict__ cs,
+    const float* __restrict__ bias, const __nv_bfloat16* __restrict__ res,
+    const float* __restrict__ lns, const float* __restrict__ lnb,
+    __nv_bfloat16* __restrict__ out, int M, int N, int K, int epi,
+    float eps) {
+  constexpr int WARPS_M = BM >= 64 ? 4 : 2;
+  constexpr int WARPS_N = 8 / WARPS_M;
+  constexpr int WTM = BM / WARPS_M;
+  constexpr int WTN = BN / WARPS_N;
+  constexpr int FM = WTM / 16;
+  constexpr int FN = WTN / 8;
+  constexpr int STAGE = (BM + BN) * I8_LD;        // bytes per stage
+  constexpr int CH = I8_BK / 16;                   // 16-byte chunks a row
+
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* rowbuf = reinterpret_cast<float*>(smem + 2 * STAGE);  // LN only
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int g = lane / 4;          // mma groupID
+  const int t4 = lane % 4;         // mma threadID_in_group
+  const int wm = warp / WARPS_N;
+  const int wn = warp % WARPS_N;
+  const int m0 = blockIdx.x * BM;
+  const int n_begin = LN ? 0 : blockIdx.y * BN;
+  const int ntiles = LN ? (N + BN - 1) / BN : 1;
+  const int nchunks = (K + I8_BK - 1) / I8_BK;
+  const int total = ntiles * nchunks;
+  const int ldr = ((N + BN - 1) / BN) * BN + 4;
+  const bool add_bias = epi != EPI_NONE;
+
+  auto load = [&](int t) {
+    unsigned char* a = smem + (t & 1) * STAGE;
+    unsigned char* b = a + BM * I8_LD;
+    const int k0 = (t % nchunks) * I8_BK;
+    const int n0 = n_begin + (t / nchunks) * BN;
+    for (int i = tid; i < (BM + BN) * CH; i += THREADS) {
+      const int r = i / CH;
+      const int kc = k0 + (i % CH) * 16;
+      if (r < BM) {
+        const bool p = m0 + r < M && kc < K;
+        cp_async16(a + r * I8_LD + (i % CH) * 16,
+                   p ? q + (size_t)(m0 + r) * K + kc : q, p);
+      } else {
+        const int rn = r - BM;
+        const bool p = n0 + rn < N && kc < K;
+        cp_async16(b + rn * I8_LD + (i % CH) * 16,
+                   p ? w8t + (size_t)(n0 + rn) * K + kc : w8t, p);
+      }
+    }
+  };
+
+  int acc[FM][FN][4];
+#pragma unroll
+  for (int i = 0; i < FM; ++i)
+#pragma unroll
+    for (int j = 0; j < FN; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
+
+  load(0);
+  cp_async_commit();
+  for (int t = 0; t < total; ++t) {
+    if (t + 1 < total) load(t + 1);
+    cp_async_commit();
+    cp_async_wait1();  // chunk t has landed
+    __syncthreads();
+    const unsigned char* a = smem + (t & 1) * STAGE;
+    const unsigned char* b = a + BM * I8_LD;
+#pragma unroll
+    for (int ks = 0; ks < I8_BK; ks += 32) {
+      uint32_t af[FM][4];
+#pragma unroll
+      for (int i = 0; i < FM; ++i) {
+        const unsigned char* p = a + (wm * WTM + i * 16 + g) * I8_LD + ks +
+                                 t4 * 4;
+        af[i][0] = *reinterpret_cast<const uint32_t*>(p);
+        af[i][1] = *reinterpret_cast<const uint32_t*>(p + 8 * I8_LD);
+        af[i][2] = *reinterpret_cast<const uint32_t*>(p + 16);
+        af[i][3] = *reinterpret_cast<const uint32_t*>(p + 8 * I8_LD + 16);
+      }
+#pragma unroll
+      for (int j = 0; j < FN; ++j) {
+        const unsigned char* p = b + (wn * WTN + j * 8 + g) * I8_LD + ks +
+                                 t4 * 4;
+        const uint32_t b0 = *reinterpret_cast<const uint32_t*>(p);
+        const uint32_t b1 = *reinterpret_cast<const uint32_t*>(p + 16);
+#pragma unroll
+        for (int i = 0; i < FM; ++i) mma_s8(acc[i][j], af[i], b0, b1);
+      }
+    }
+    __syncthreads();  // this stage is refilled by the load of chunk t + 2
+
+    if (LN && t % nchunks == nchunks - 1) {
+      // park this N-tile's rescaled results (bias included) as f32 rows
+      const int n0 = (t / nchunks) * BN;
+#pragma unroll
+      for (int i = 0; i < FM; ++i)
+#pragma unroll
+        for (int j = 0; j < FN; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int rr = wm * WTM + i * 16 + g + (e / 2) * 8;
+            const int cc = n0 + wn * WTN + j * 8 + t4 * 2 + (e % 2);
+            const bool ok = m0 + rr < M && cc < N;
+            rowbuf[rr * ldr + cc] =
+                ok ? rescale(acc[i][j][e], cs[cc], sx[m0 + rr], bias[cc], true)
+                   : 0.f;
+            acc[i][j][e] = 0;
+          }
+    }
+  }
+
+  if (!LN) {
+#pragma unroll
+    for (int i = 0; i < FM; ++i)
+#pragma unroll
+      for (int j = 0; j < FN; ++j) {
+        const int cc = n_begin + wn * WTN + j * 8 + t4 * 2;
+        if (cc >= N) continue;  // N % 8 == 0: the pair is whole or absent
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int gr = m0 + wm * WTM + i * 16 + g + h * 8;
+          if (gr >= M) continue;
+          const float s = sx[gr];
+          const float v0 = activate(
+              rescale(acc[i][j][2 * h], cs[cc], s, bias[cc], add_bias), epi);
+          const float v1 = activate(
+              rescale(acc[i][j][2 * h + 1], cs[cc + 1], s, bias[cc + 1],
+                      add_bias),
+              epi);
+          *reinterpret_cast<uint32_t*>(out + (size_t)gr * N + cc) =
+              pack2(v0, v1);
+        }
+      }
+    return;
+  }
+  __syncthreads();
+  ln_rows<BM>(rowbuf, ldr, nullptr, res, lns, lnb, out, m0, M, N, eps);
+}
+
+template <int BM, bool LN>
+size_t int8_smem_bytes(int N) {
+  size_t bytes = 2ull * (BM + BN) * I8_LD;
+  if (LN) bytes += (size_t)BM * (((N + BN - 1) / BN) * BN + 4) * 4;
+  return bytes;
+}
+
+template <int BM, bool LN>
+cudaError_t launch_int8(const int8_t* q, const float* sx, const int8_t* w8t,
+                        const float* cs, const void* bias, const void* res,
+                        const void* lns, const void* lnb, void* out, int M,
+                        int N, int K, int epi, float eps,
+                        cudaStream_t stream) {
+  auto kern = qmm_int8_kernel<BM, LN>;
+  const size_t smem = int8_smem_bytes<BM, LN>(N);
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid((M + BM - 1) / BM, LN ? 1 : (N + BN - 1) / BN);
+  kern<<<grid, THREADS, smem, stream>>>(
+      q, sx, w8t, cs, static_cast<const float*>(bias),
+      static_cast<const __nv_bfloat16*>(res), static_cast<const float*>(lns),
+      static_cast<const float*>(lnb), static_cast<__nv_bfloat16*>(out), M, N,
+      K, epi, eps);
+  return cudaGetLastError();
+}
+
+template <int KIND, bool PACKED>
+cudaError_t requant(const void* codes, const void* scales, const void* mins,
+                    int8_t* w8t, float* cs, int N, int K,
+                    cudaStream_t stream) {
+  requant_kernel<KIND, PACKED><<<(N + 31) / 32, 256, 0, stream>>>(
+      static_cast<const uint8_t*>(codes), static_cast<const float*>(scales),
+      static_cast<const float*>(mins), w8t, cs, N, K);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -484,6 +851,50 @@ int qmm_launch(const void* x, const void* codes, const void* scales,
     default: return cudaErrorInvalidValue;
   }
 #undef QMM_ARGS
+}
+
+// K3, the int8 mode: three launches on `stream` (weight requantization
+// into w8t [N, K] int8 + cs [N] f32, row quantization into q [M, K] int8 +
+// sx [M] f32, then the int8 product with the rescale and the epilogue).
+// Pointers and shapes as qmm_launch; w8t, cs, q, sx are device scratch of
+// those shapes. Requires N % 8 == 0, K % 32 == 0 (K % 64 == 0 packed).
+// Returns a cudaError_t.
+int qmm_int8_launch(const void* x, const void* codes, const void* scales,
+                    const void* mins, const void* bias, const void* res,
+                    const void* lns, const void* lnb, void* w8t, void* cs,
+                    void* q, void* sx, void* out, int M, int N, int K,
+                    int kind, int packed, int epi, float eps, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int8_t* w8 = static_cast<int8_t*>(w8t);
+  float* c = static_cast<float*>(cs);
+  cudaError_t err;
+#define RQ_ARGS codes, scales, mins, w8, c, N, K, st
+  switch (kind * 2 + (packed ? 1 : 0)) {
+    case Q4_0 * 2: err = requant<Q4_0, false>(RQ_ARGS); break;
+    case Q4_0 * 2 + 1: err = requant<Q4_0, true>(RQ_ARGS); break;
+    case Q4_1 * 2: err = requant<Q4_1, false>(RQ_ARGS); break;
+    case Q4_1 * 2 + 1: err = requant<Q4_1, true>(RQ_ARGS); break;
+    case Q8_0 * 2: err = requant<Q8_0, false>(RQ_ARGS); break;
+    case NF4 * 2: err = requant<NF4, false>(RQ_ARGS); break;
+    case NF4 * 2 + 1: err = requant<NF4, true>(RQ_ARGS); break;
+    default: return cudaErrorInvalidValue;
+  }
+#undef RQ_ARGS
+  if (err != cudaSuccess) return err;
+  int8_t* q8 = static_cast<int8_t*>(q);
+  float* s = static_cast<float*>(sx);
+  quant_rows_kernel<<<(M + 7) / 8, 256, 0, st>>>(
+      static_cast<const __nv_bfloat16*>(x), q8, s, M, K);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+#define I8_ARGS q8, s, w8, c, bias, res, lns, lnb, out, M, N, K, epi, eps, st
+  if (epi != EPI_RES_LN) return launch_int8<128, false>(I8_ARGS);
+  if (int8_smem_bytes<64, true>(N) <= MAX_SMEM)
+    return launch_int8<64, true>(I8_ARGS);
+  if (int8_smem_bytes<32, true>(N) <= MAX_SMEM)
+    return launch_int8<32, true>(I8_ARGS);
+#undef I8_ARGS
+  return cudaErrorInvalidValue;  // row too wide for shared memory
 }
 
 const char* qmm_error_string(int err) {

@@ -1,3 +1,5 @@
 """Operators of the PyTorch port: quantization codecs, the quantized
 linear dispatch, and the hand-written CUDA kernels (``qmatmul`` K1,
-``fused_attention`` K2) with their plain PyTorch versions."""
+``qmatmul_int8`` K3, ``fused_attention`` K2,
+``fused_attention_segmented`` K4, ``fused_attention_segmented_blockskip``
+K5) with their plain PyTorch versions."""

@@ -1,17 +1,20 @@
-"""Prefix-masked fused multi-head attention over the fused QKV projection
-— the PyTorch port of ``embeddings_tpu/ops/attention.py:fused_attention``.
+"""Fused multi-head attention over the fused QKV projection — the
+PyTorch port of ``embeddings_tpu/ops/attention.py``: the prefix-masked
+``fused_attention`` (K2) and, for token-packed rows, the segment-masked
+``fused_attention_segmented`` (K4) and its block-skipping variant
+``fused_attention_segmented_blockskip`` (K5).
 
-``fused_attention`` is the wrapper: on a CUDA tensor it launches the
-hand-written kernel ``csrc/attention.cu`` (K2) or raises; on a CPU tensor
-it runs ``fused_attention_ref``, the plain PyTorch version that repeats
-the kernel's arithmetic step by step (q pre-scaled by log2(e)/sqrt(D) and
-rounded to the compute dtype, exp2 of the clamped scores with no
-max-subtraction, probabilities rounded to the compute dtype before both
-the PV product and the denominator, 1e-30 floor on the denominator).
+Each wrapper launches its mask mode of the hand-written kernel
+``csrc/attention.cu`` on a CUDA tensor, or raises; on a CPU tensor it runs
+its plain PyTorch version, which repeats the kernel's arithmetic step by
+step: exp2 of the clamped scores with no max-subtraction, probabilities
+rounded to the compute dtype before both the PV product and the
+denominator, 1e-30 floor on the denominator (pad query rows stay finite).
+K2 pre-scales q by log2(e)/sqrt(D) and rounds it to the compute dtype;
+K4 and K5 scale the f32 scores after the dot, as their TPU kernels do.
 
-The segmented, block-skipping, streamed, biased and context-parallel
-kernels (K4-K8b), and the int8-score and emission options, are not
-ported yet.
+The streamed, biased and context-parallel kernels (K6-K8b), and the
+int8-score and emission options, are not ported yet.
 """
 
 from __future__ import annotations
@@ -23,7 +26,9 @@ import torch
 
 LANE = 128
 LOG2E = 1.4426950408889634
-BQ = 128  # query rows per block of the JAX kernel past 512 (shape rule)
+# query rows per block of the JAX kernel past 512 (shape rule), and the
+# query/key block of the block-skipping kernel K5
+BQ = 128
 _CLAMP_LO = -100.0
 # head dims the CUDA kernel is instantiated for
 KERNEL_HEAD_DIMS = (32, 64, 128)
@@ -47,13 +52,26 @@ def _scale(D: int) -> float:
     return (1.0 / (D ** 0.5)) * LOG2E
 
 
+def _split_heads(qkv, B, L, H, D):
+    """qkv [B*L, 3*H*D] -> q, k, v views [B, H, L, D]."""
+    x = qkv.reshape(B, L, 3, H, D).permute(2, 0, 3, 1, 4)  # 3,B,H,L,D
+    return x[0], x[1], x[2]
+
+
+def _merge_heads(o, p_sum, dt, B, L, H, D):
+    """o [B, H, L, D] / max(p_sum, 1e-30) (the f32 reciprocal, as the
+    kernels) -> context [B*L, H*D] in dt."""
+    denom = p_sum.clamp_min(1e-30)
+    return (o * (1.0 / denom)).to(dt).permute(0, 2, 1, 3).reshape(
+        B * L, H * D)
+
+
 def fused_attention_ref(qkv: torch.Tensor, lengths: torch.Tensor, *,
                         B: int, L: int, H: int, D: int) -> torch.Tensor:
     """The plain PyTorch version of K2 (same arguments as
     ``fused_attention``)."""
     dt = qkv.dtype
-    x = qkv.reshape(B, L, 3, H, D).permute(2, 0, 3, 1, 4)  # 3,B,H,L,D
-    q, k, v = x[0], x[1], x[2]
+    q, k, v = _split_heads(qkv, B, L, H, D)
     qs = (q.float() * _scale(D)).to(dt)
     s = qs.float() @ k.float().transpose(-1, -2)           # [B,H,L,L] f32
     s = s.clamp(_CLAMP_LO, _clamp_hi(L))
@@ -61,10 +79,8 @@ def fused_attention_ref(qkv: torch.Tensor, lengths: torch.Tensor, *,
               < lengths.to(qkv.device)[:, None])           # [B, L]
     p = torch.where(key_ok[:, None, None, :], torch.exp2(s),
                     torch.zeros((), device=qkv.device)).to(dt).float()
-    o = p @ v.float()
-    denom = p.sum(-1, keepdim=True).clamp_min(1e-30)
-    out = (o * (1.0 / denom)).to(dt)
-    return out.permute(0, 2, 1, 3).reshape(B * L, H * D)
+    return _merge_heads(p @ v.float(), p.sum(-1, keepdim=True), dt,
+                        B, L, H, D)
 
 
 def fused_attention(qkv: torch.Tensor, lengths: torch.Tensor, *, B: int,
@@ -85,35 +101,202 @@ def fused_attention(qkv: torch.Tensor, lengths: torch.Tensor, *, B: int,
         raise ValueError(f"lengths must be [B]={B}, got {tuple(lengths.shape)}")
     if qkv.device.type == "cpu":
         return fused_attention_ref(qkv, lengths, B=B, L=L, H=H, D=D)
-    if qkv.device.type != "cuda":
-        raise ValueError(f"fused_attention runs on cuda or cpu, not "
-                         f"{qkv.device}")
-    if qkv.dtype != torch.bfloat16:
-        raise TypeError(f"the CUDA fused_attention takes bf16, got "
-                        f"{qkv.dtype}")
-    if lengths.dtype != torch.int32 or lengths.device != qkv.device:
-        raise TypeError("lengths must be int32 on qkv's device")
-    if not (qkv.is_contiguous() and lengths.is_contiguous()) \
-            or qkv.data_ptr() % 16:
-        raise ValueError("qkv and lengths must be contiguous (qkv 16-byte "
-                         "aligned)")
+    _check_cuda(qkv, lengths)
     out = torch.empty((B * L, E), dtype=qkv.dtype, device=qkv.device)
     if B == 0:
         return out
-    lib = _lib()
-    status = lib.attn_launch(
-        qkv.data_ptr(), lengths.data_ptr(), out.data_ptr(), B, L, H, D,
-        _scale(D), _clamp_hi(L),
-        torch.cuda.current_stream(qkv.device).cuda_stream)
-    from ._cuda import check
-    check(status, lib.attn_error_string, "fused_attention")
+    _launch("fused_attention", MODE_PREFIX, qkv, out, B, L, H, D,
+            _clamp_hi(L), lengths=lengths)
     fused_attention.launches += 1
     return out
 
 
-# launch counter: every successful K2 launch adds one; callers reset it
-# to 0 around the run they measure
+# mask modes of csrc/attention.cu
+MODE_PREFIX, MODE_SEGMENT, MODE_WINDOW = 0, 1, 2
+
+
+def _launch(what, mode, qkv, out, B, L, H, D, hi, *, lengths=None,
+            seg=None, kbs=None, kbe=None, W=0) -> None:
+    lib = _lib()
+    ptr = [None if t is None else t.data_ptr()
+           for t in (lengths, seg, kbs, kbe)]
+    status = lib.attn_launch(
+        qkv.data_ptr(), *ptr, out.data_ptr(), mode, B, L, H, D, W,
+        _scale(D), hi, torch.cuda.current_stream(qkv.device).cuda_stream)
+    from ._cuda import check
+    check(status, lib.attn_error_string, what)
+
+
+def _check_segments(qkv, seg_ids, B, L, H, D) -> None:
+    E = H * D
+    if tuple(qkv.shape) != (B * L, 3 * E):
+        raise ValueError(f"qkv {tuple(qkv.shape)} != {(B * L, 3 * E)}")
+    if tuple(seg_ids.shape) != (B, L):
+        raise ValueError(f"seg_ids must be [B, L]={(B, L)}, got "
+                         f"{tuple(seg_ids.shape)}")
+    if not supported(L, H, D):
+        raise ValueError(f"segmented attention does not take L={L} H={H} "
+                         f"D={D}")
+
+
+def _check_cuda(qkv, *ints) -> None:
+    """The CUDA wrappers' operand rules: bf16 qkv, int32 tables on the
+    same device, all contiguous (qkv 16-byte aligned)."""
+    if qkv.device.type != "cuda":
+        raise ValueError(f"attention runs on cuda or cpu, not {qkv.device}")
+    if qkv.dtype != torch.bfloat16:
+        raise TypeError(f"the CUDA attention takes bf16, got {qkv.dtype}")
+    for t in ints:
+        if t.dtype != torch.int32 or t.device != qkv.device:
+            raise TypeError("index tables must be int32 on qkv's device")
+    if not all(t.is_contiguous() for t in (qkv, *ints)) \
+            or qkv.data_ptr() % 16:
+        raise ValueError("qkv and the index tables must be contiguous "
+                         "(qkv 16-byte aligned)")
+
+
+def _segment_probs(q, k, seg_q, seg_k, s2, hi, dt):
+    """Scores of one query block against one key block, scaled after the
+    dot in f32, clamped, exp2, masked to same-segment non-pad keys, and
+    rounded to the compute dtype. q [B,H,Lq,D], k [B,H,Lk,D], seg_q
+    [B,Lq], seg_k [B,Lk] -> p [B,H,Lq,Lk] (f32 holding dt values)."""
+    s = (q.float() @ k.float().transpose(-1, -2)) * s2
+    s = s.clamp(_CLAMP_LO, hi)
+    ok = (seg_q[:, :, None] == seg_k[:, None, :]) & (seg_k >= 0)[:, None, :]
+    return torch.where(ok[:, None], torch.exp2(s),
+                       torch.zeros((), device=q.device)).to(dt).float()
+
+
+def fused_attention_segmented_ref(qkv: torch.Tensor, seg_ids: torch.Tensor,
+                                  *, B: int, L: int, H: int,
+                                  D: int) -> torch.Tensor:
+    """The plain PyTorch version of K4 (same arguments as
+    ``fused_attention_segmented``)."""
+    q, k, v = _split_heads(qkv, B, L, H, D)
+    seg = seg_ids.to(qkv.device)
+    p = _segment_probs(q, k, seg, seg, _scale(D), _clamp_hi(L), qkv.dtype)
+    return _merge_heads(p @ v.float(), p.sum(-1, keepdim=True), qkv.dtype,
+                        B, L, H, D)
+
+
+def fused_attention_segmented(qkv: torch.Tensor, seg_ids: torch.Tensor, *,
+                              B: int, L: int, H: int, D: int) -> torch.Tensor:
+    """Segment-masked attention for token-packed rows: qkv [B*L, 3*H*D] as
+    in ``fused_attention``, seg_ids int32 [B, L] (-1 on pads). Query i
+    attends key j iff seg[i] == seg[j] and seg[j] >= 0; a pad query row
+    gives 0. A CUDA tensor launches K4 (``csrc/attention.cu``, segment
+    mode); a CPU tensor runs ``fused_attention_segmented_ref``."""
+    _check_segments(qkv, seg_ids, B, L, H, D)
+    if qkv.device.type == "cpu":
+        return fused_attention_segmented_ref(qkv, seg_ids, B=B, L=L, H=H,
+                                             D=D)
+    _check_cuda(qkv, seg_ids)
+    out = torch.empty((B * L, H * D), dtype=qkv.dtype, device=qkv.device)
+    if B == 0:
+        return out
+    _launch("fused_attention_segmented", MODE_SEGMENT, qkv, out, B, L, H,
+            D, _clamp_hi(L), seg=seg_ids)
+    fused_attention_segmented.launches += 1
+    return out
+
+
+def block_ranges(seg_ids: torch.Tensor, L: int):
+    """[B, L] segment ids -> (kbs, kbe) int32 [B, L/BQ]: the first and last
+    (inclusive) key block overlapping each query block's segment span.
+    All-pad query blocks get (nK, -1), an empty range."""
+    B = seg_ids.shape[0]
+    nQ = L // BQ
+    seg = seg_ids.to(torch.int64)
+    segb = seg.reshape(B, nQ, BQ)
+    valid = segb >= 0
+    smin = torch.where(valid, segb, 1 << 30).amin(-1)         # [B, nQ]
+    smax = torch.where(valid, segb, -1).amax(-1)
+    s = seg[:, None, :]                                        # [B, 1, L]
+    in_span = (s >= smin[..., None]) & (s <= smax[..., None]) & (s >= 0)
+    pos = torch.arange(L, device=seg.device)[None, None, :]
+    first = torch.where(in_span, pos, L).amin(-1)             # [B, nQ]
+    last = torch.where(in_span, pos, -1).amax(-1)
+    # floor division: an all-pad block's last = -1 gives kbe = -1
+    return ((first // BQ).to(torch.int32).contiguous(),
+            (last // BQ).to(torch.int32).contiguous())
+
+
+def _window(L: int, window: int) -> int:
+    """The key-block cap W: the window when 0 < window <= L/BQ, else the
+    full row (the JAX package's rule)."""
+    nK = L // BQ
+    return window if 0 < window <= nK else nK
+
+
+def fused_attention_segmented_blockskip_ref(
+        qkv: torch.Tensor, seg_ids: torch.Tensor, *, B: int, L: int, H: int,
+        D: int, window: int = 0) -> torch.Tensor:
+    """The plain PyTorch version of K5 (same arguments as
+    ``fused_attention_segmented_blockskip``): each 128-query block visits
+    key blocks kbs .. min(kbs + W - 1, kbe) only; blocks past the cap W
+    are dropped, not widened."""
+    nK = L // BQ
+    W = _window(L, window)
+    hi = _clamp_hi(min(W * BQ, L))
+    q, k, v = _split_heads(qkv, B, L, H, D)
+    seg = seg_ids.to(qkv.device)
+    kbs, kbe = block_ranges(seg, L)
+    o = torch.zeros(B, H, L, D, device=qkv.device)
+    den = torch.zeros(B, H, L, 1, device=qkv.device)
+    for qb in range(nK):
+        qs = slice(qb * BQ, (qb + 1) * BQ)
+        for w in range(W):
+            kb = torch.clamp(kbs[:, qb] + w, max=nK - 1)        # [B]
+            live = (kbs[:, qb] + w <= kbe[:, qb])               # [B]
+            idx = (kb[:, None] * BQ
+                   + torch.arange(BQ, device=qkv.device)).long()  # [B, BQ]
+            kk = torch.take_along_dim(k, idx[:, None, :, None], dim=2)
+            vv = torch.take_along_dim(v, idx[:, None, :, None], dim=2)
+            sk = torch.take_along_dim(seg, idx, dim=1)
+            sk = torch.where(live[:, None], sk, -1)  # a step past kbe: no keys
+            p = _segment_probs(q[:, :, qs], kk, seg[:, qs], sk, _scale(D),
+                               hi, qkv.dtype)
+            o[:, :, qs] += p @ vv.float()
+            den[:, :, qs] += p.sum(-1, keepdim=True)
+    return _merge_heads(o, den, qkv.dtype, B, L, H, D)
+
+
+def fused_attention_segmented_blockskip(
+        qkv: torch.Tensor, seg_ids: torch.Tensor, *, B: int, L: int, H: int,
+        D: int, window: int = 0, ranges=None) -> torch.Tensor:
+    """Block-skipping ``fused_attention_segmented`` for packed rows with
+    L % 128 == 0: each 128-query block attends only key blocks kbs ..
+    min(kbs + W - 1, kbe) (``block_ranges``), W = window when 0 < window
+    <= L/128, else L/128; the score clamp is sized to min(W*128, L) keys.
+    Attention cost is O(L * W*128) instead of O(L^2). ``ranges``: the
+    (kbs, kbe) of ``block_ranges(seg_ids, L)`` when the caller already has
+    them (a model computes them once for all its layers). A CUDA tensor
+    launches K5 (``csrc/attention.cu``, window mode); a CPU tensor runs
+    ``fused_attention_segmented_blockskip_ref``."""
+    _check_segments(qkv, seg_ids, B, L, H, D)
+    if L % BQ:
+        raise ValueError(f"the block-skipping kernel needs L % {BQ} == 0")
+    if qkv.device.type == "cpu":
+        return fused_attention_segmented_blockskip_ref(
+            qkv, seg_ids, B=B, L=L, H=H, D=D, window=window)
+    kbs, kbe = ranges if ranges is not None else block_ranges(seg_ids, L)
+    _check_cuda(qkv, seg_ids, kbs, kbe)
+    out = torch.empty((B * L, H * D), dtype=qkv.dtype, device=qkv.device)
+    if B == 0:
+        return out
+    W = _window(L, window)
+    _launch("fused_attention_segmented_blockskip", MODE_WINDOW, qkv, out, B,
+            L, H, D, _clamp_hi(min(W * BQ, L)), seg=seg_ids, kbs=kbs,
+            kbe=kbe, W=W)
+    fused_attention_segmented_blockskip.launches += 1
+    return out
+
+
+# launch counters: every successful K2 / K4 / K5 launch adds one; callers
+# reset them to 0 around the run they measure
 fused_attention.launches = 0
+fused_attention_segmented.launches = 0
+fused_attention_segmented_blockskip.launches = 0
 
 
 def _lib() -> ctypes.CDLL:
@@ -121,7 +304,7 @@ def _lib() -> ctypes.CDLL:
     lib = _cuda.load("attention")
     if not getattr(lib, "_typed", False):
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.attn_launch.argtypes = [p, p, p, i, i, i, i, f, f, p]
+        lib.attn_launch.argtypes = [p] * 6 + [i] * 6 + [f, f, p]
         lib.attn_launch.restype = i
         lib.attn_error_string.argtypes = [i]
         lib.attn_error_string.restype = ctypes.c_char_p

@@ -1,6 +1,6 @@
 """The Engine of the PyTorch port: tokenizer + parameters on one device +
-the bucketed batch scheduler — the port of
-``embeddings_tpu/runtime/engine.py`` (single device, bucketed path).
+the bucketed and the token-packed batch schedulers — the port of
+``embeddings_tpu/runtime/engine.py`` (single device).
 
   reference                      engine
   ---------------------------   -------------------------------------
@@ -12,9 +12,10 @@ the bucketed batch scheduler — the port of
   bert_n_max_tokens             Engine.max_seq_len
 
 The forward runs eagerly, one Python loop over the layers; on a CUDA device
-every quantized matmul and the prefix-masked attention launch the port's
-hand-written kernels. ``device=None`` means "cuda", and a missing CUDA
-device raises: the engine never carries on on the CPU unless asked to.
+every quantized matmul (K1, or K3 with ``EngineConfig.int8_compute``) and
+the attention (K2 on padded batches, K4/K5 on packed rows) launch the
+port's hand-written kernels. ``device=None`` means "cuda", and a missing
+CUDA device raises: the engine never carries on on the CPU unless asked to.
 """
 
 from __future__ import annotations
@@ -29,8 +30,29 @@ import torch
 
 from ..config import BertConfig, EngineConfig
 from ..models import bert, params as P
+from ..ops.attention import BQ
 from ..tokenizer import WordPieceTokenizer
-from .batching import extend_buckets, pad_batch, plan_batches
+from .batching import extend_buckets, pad_batch, pick_bucket, plan_batches
+from .packing import materialize, max_block_span, plan_packing
+
+
+def _bucket_window(w: int, row_len: int) -> int:
+    """Quantize the packed attention window to a small fixed set, so a
+    varied corpus runs a handful of window values per row_len instead of
+    one per distinct span (1..row_len/128). Values past the block-skip
+    threshold (row_len/128 - 2, ``models.bert.attention_route``) select
+    the full segmented kernel and ignore the window, so they collapse to
+    one sentinel. Rounding a span up only widens the window: always
+    correct, occasionally a block of extra work."""
+    if w <= 0:
+        return 0
+    nk = row_len // BQ  # key blocks of the kernel's size
+    usable = [b for b in (3, 4, 6, 8, 12, 16, 24, 32) if w <= b <= nk - 2]
+    if usable:
+        return usable[0]
+    # between the largest fitting bucket and the dispatch threshold:
+    # widen to the threshold (still block-skip)
+    return nk - 2 if w <= nk - 2 else nk
 
 
 def resolve_device(device=None) -> torch.device:
@@ -57,14 +79,11 @@ class Engine:
         # private copy: a caller-shared EngineConfig must not drift
         self.engine_config = ec = dataclasses.replace(
             engine_config or EngineConfig())
-        if ec.int8_compute:
-            raise NotImplementedError(
-                "int8_compute (kernel K3) is not ported yet; the engine "
-                "does not fall back to bf16 silently")
         if ec.use_pallas not in ("auto", "always", "never"):
             raise ValueError(f"use_pallas must be auto|always|never, got "
                              f"{ec.use_pallas!r}")
         self._use_kernels = ec.use_pallas != "never"
+        self._int8 = bool(ec.int8_compute)
         cd = ec.compute_dtype
         if cd is None:
             cd = "bfloat16" if self.device.type == "cuda" else "float32"
@@ -108,7 +127,7 @@ class Engine:
                 torch.from_numpy(np.ascontiguousarray(mask)).to(self.device),
                 mask_value=self.engine_config.mask_value,
                 compute_dtype=self._compute_dtype,
-                use_kernels=self._use_kernels)
+                use_kernels=self._use_kernels, int8=self._int8)
 
     def forward(self, ids: np.ndarray, mask: np.ndarray) -> np.ndarray:
         return self._forward(ids, mask).cpu().numpy()
@@ -166,6 +185,76 @@ class Engine:
         while pending:
             scatter(*pending.popleft())
 
+    # -- token-packed encode ------------------------------------------------
+    def encode_batch_packed(self, texts: Sequence[str],
+                            row_len: int | None = None,
+                            batch_rows: int | None = None) -> np.ndarray:
+        """Token-packed encode: several sentences per device row
+        (``runtime/packing.py``). Faster than bucketed padding when
+        sentences are short against the row. Needs mean, cls or lasttoken
+        pooling."""
+        return self.encode_toks_packed([self.tokenize(t) for t in texts],
+                                       row_len, batch_rows)
+
+    def encode_toks_packed(self, toks: list[list[int]],
+                           row_len: int | None = None,
+                           batch_rows: int | None = None) -> np.ndarray:
+        """Token-packed encode of pre-tokenized inputs. row_len stays fixed
+        across calls (default 128, one stable shape family); sentences
+        longer than row_len take the bucketed path (``encode_toks``).
+        batch_rows defaults to the larger of batch_size and 32768/row_len
+        rows (about 32K tokens a forward)."""
+        if self.config.pooling not in ("mean", "cls", "lasttoken"):
+            raise ValueError("packing supports mean/cls/lasttoken pooling")
+        ec = self.engine_config
+        row_len = row_len or min(128, self.max_seq_len)
+        batch_rows = batch_rows or max(ec.batch_size, 32768 // row_len)
+        out = np.empty((len(toks), self.n_embd), np.float32)
+        short = [i for i, t in enumerate(toks) if len(t) <= row_len]
+        long_idx = [i for i, t in enumerate(toks) if len(t) > row_len]
+        if long_idx:
+            out[long_idx] = self.encode_toks([toks[i] for i in long_idx])
+        if not short:
+            return out
+        stoks = [toks[i] for i in short]
+        # a fixed segments-per-row cap keeps one stable shape family
+        batches = plan_packing([len(t) for t in stoks], row_len, batch_rows,
+                               max_segs=max(2, row_len // 8))
+        bb = extend_buckets(ec.batch_buckets, batch_rows)
+
+        def dispatch():
+            for b in batches:
+                b.batch = pick_bucket(len(b.rows), bb)  # pad the row count
+                ids, seg, pos, pool, mapping = materialize(
+                    b, stoks, self.tokenizer.pad_id, self.config.pooling)
+                # the block-skip window (host-side; only rows longer than
+                # one 128-block can skip), bucketed
+                w = max_block_span(seg) if row_len > 128 else 0
+                yield mapping, self._forward_packed(
+                    ids, seg, pos, pool, _bucket_window(w, row_len))
+
+        def scatter(mapping, pooled):
+            pooled = pooled.cpu().numpy()
+            for r, s, i in mapping:
+                out[short[i]] = pooled[r, s]
+
+        self._windowed_drain(dispatch(), scatter)
+        return out
+
+    def _forward_packed(self, ids, seg, pos, pool,
+                        attn_window: int = 0) -> torch.Tensor:
+        """Enqueue one packed batch; returns the pooled [B, S, E'] on the
+        device."""
+        def dev(a):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+        with torch.inference_mode():
+            return bert.encode_packed(
+                self.params, self.config, dev(ids), dev(seg), dev(pos),
+                dev(pool), mask_value=self.engine_config.mask_value,
+                compute_dtype=self._compute_dtype, attn_window=attn_window,
+                use_kernels=self._use_kernels, int8=self._int8)
+
     # -- shape warmup -------------------------------------------------------
     def warmup(self, batch_sizes: Sequence[int] | None = None,
                seq_lens: Sequence[int] | None = None) -> int:
@@ -180,6 +269,34 @@ class Engine:
                 mask[:, 0] = 1
                 self.forward(ids, mask)
                 n += 1
+        return n
+
+    def warmup_packed(self, row_len: int | None = None,
+                      batch_rows: int | None = None,
+                      segs_per_row: Sequence[int] = (4, 8, 16)) -> int:
+        """Run the token-packed shape family once (one dispatch per
+        segs-per-row value at the serving row/batch shape, then the
+        smaller row-count buckets partial serving batches land on), so a
+        packed server builds its kernels and warms the allocator before
+        the first request. Returns the number of dispatches run."""
+        if self.config.pooling not in ("mean", "cls", "lasttoken"):
+            return 0
+        row_len = row_len or min(128, self.max_seq_len)
+        batch_rows = batch_rows or max(self.engine_config.batch_size,
+                                       32768 // row_len)
+        tok = max(1, self.tokenizer.pad_id + 1)
+        n = 0
+        for spr in segs_per_row:
+            sents = [[tok] * max(1, row_len // spr)] * (batch_rows * spr)
+            self.encode_toks_packed(sents, row_len, batch_rows)
+            n += 1
+        for rb in extend_buckets(self.engine_config.batch_buckets,
+                                 batch_rows):
+            if rb >= batch_rows:
+                break
+            sents = [[tok] * max(1, row_len // 8)] * (rb * 8)
+            self.encode_toks_packed(sents, row_len, rb)
+            n += 1
         return n
 
     def _seq_buckets(self) -> tuple[int, ...]:
@@ -201,7 +318,9 @@ def load_model(path: str | Path, *, dtype: str = "f32",
     Engine on ``device`` (None = cuda).
 
     dtype: f32 | bf16 | f16 | q4_0 | q4_1 | q8_0 | nf4 — quantize or cast
-    on load; the q4 kinds are then packed to the 4-bit layout."""
+    on load; the q4 kinds are then packed to the 4-bit layout.
+    int8_compute: run the quantized matmuls in the int8 tensor-core mode
+    (K3) while keeping the model-aware EngineConfig defaults."""
     device = resolve_device(device)
     path = Path(path)
     if path.is_dir():

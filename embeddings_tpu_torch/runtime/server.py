@@ -6,7 +6,8 @@ and the reference-compatible (v1) TCP front-end — the port of
 - ``BatchingService``: requests from any number of connections land in one
   queue; a scheduler drains up to ``max_batch`` requests (waiting at most
   ``max_wait_ms`` for stragglers), runs them as one bucket-padded device
-  batch in a worker thread, and resolves their futures.
+  batch in a worker thread (``packed=True``: token-packed rows once a
+  batch holds 8 or more texts), and resolves their futures.
 - ``serve_tcp``: the reference's wire protocol (its server.cpp:100-118):
   the server greets with int32 n_embd, then answers each received text
   (one recv == one message, up to 32 KiB) with n_embd float32s.
@@ -71,11 +72,18 @@ class BatchingService:
 
     def __init__(self, engine: Engine, *, max_batch: int | None = None,
                  max_wait_ms: float = 2.0,
-                 request_timeout_s: float | None = None):
+                 request_timeout_s: float | None = None,
+                 packed: bool = False):
         self.engine = engine
         self.max_batch = max_batch or engine.engine_config.batch_size
         self.max_wait_ms = max_wait_ms
         self.request_timeout_s = request_timeout_s
+        # token-level packing for the device batches (short-text speedup)
+        if packed and engine.config.pooling not in ("mean", "cls"):
+            raise ValueError(
+                f"packed=True requires mean/cls pooling, engine has "
+                f"{engine.config.pooling!r}")
+        self.packed = packed
         self.stats = ServiceStats()
         self._queue: asyncio.Queue = asyncio.Queue()
         self._task: asyncio.Task | None = None
@@ -177,8 +185,12 @@ class BatchingService:
         """Tokenize once (worker thread), encode, and return (embeddings,
         per-text token counts)."""
         toks = [self.engine.tokenize(t) for t in texts]
-        return self.engine.encode_toks(toks, len(texts)), \
-            [len(t) for t in toks]
+        counts = [len(t) for t in toks]
+        # packing pays off once a batch fills a useful part of the packed
+        # row grid; micro-batches (light load) stay bucketed
+        if self.packed and len(texts) >= 8:
+            return self.engine.encode_toks_packed(toks), counts
+        return self.engine.encode_toks(toks, len(texts)), counts
 
     async def _run_batch(self, batch: list) -> None:
         texts = [t for t, _ in batch]
@@ -252,12 +264,14 @@ async def _handle_tcp(service: BatchingService, reader: asyncio.StreamReader,
 
 
 async def serve_tcp(engine_or_service, host: str = "0.0.0.0",
-                    port: int = 8080):
+                    port: int = 8080, *, packed: bool = False):
     """Start the reference-protocol TCP server; returns (server, service).
-    port=0 binds an ephemeral port (read it from server.sockets)."""
+    port=0 binds an ephemeral port (read it from server.sockets). Given an
+    Engine, the server makes its own BatchingService (``packed`` as
+    there); given a service, it serves that one."""
     service = (engine_or_service
                if isinstance(engine_or_service, BatchingService)
-               else BatchingService(engine_or_service))
+               else BatchingService(engine_or_service, packed=packed))
     await service.start()
     server = await asyncio.start_server(
         lambda r, w: _handle_tcp(service, r, w), host, port)

@@ -8,16 +8,20 @@ Tolerances as in chip_smoke.py: kernel and plain version round the same
 bf16 operands and accumulate in f32 in different orders, so outputs
 differ by bf16 rounding flips (K1: 2^-7 relative + 1e-3 of the output
 RMS; K2, whose probabilities are also rounded to bf16: 2^-6 + 1e-2).
+K3 as K1: its int8 operands equal the plain version's bit for bit and
+its s32 sums are exact, so only the last f32 bits of the activation and
+the bf16 rounding of the output differ. K4 and K5 as K2.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from embeddings_tpu_torch.ops import attention as A
 from embeddings_tpu_torch.ops.attention import (fused_attention,
                                                 fused_attention_ref)
 from embeddings_tpu_torch.ops.qmatmul import EPILOGUES, qmatmul, \
-    qmatmul_ref
+    qmatmul_int8, qmatmul_int8_ref, qmatmul_ref
 from embeddings_tpu_torch.ops.quant import quantize
 
 pytestmark = pytest.mark.cuda
@@ -66,6 +70,113 @@ def test_qmatmul_kernel_matches_plain(cuda, kind, packed, epilogue, M, K, N):
     _close(got, qmatmul_ref(*args, **kw), 2 ** -7, 1e-3)
 
 
+@pytest.mark.parametrize("epilogue", EPILOGUES)
+@pytest.mark.parametrize("kind,packed", [
+    ("q4_0", False), ("q4_0", True), ("q4_1", True), ("q8_0", False),
+    ("nf4", True)])
+@pytest.mark.parametrize("M,K,N", [(40, 128, 136), (300, 768, 768),
+                                   (70, 256, 1024)])
+def test_qmatmul_int8_kernel_matches_plain(cuda, kind, packed, epilogue, M,
+                                           K, N):
+    rng = np.random.default_rng(M + K + 1)
+    w = rng.standard_normal((K, N), dtype=np.float32) * np.float32(0.02)
+    qt = quantize(w, kind, pack4=packed).map(lambda t: t.to(cuda))
+
+    def f32(*shape, scale=1.0):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)
+                                * np.float32(scale)).to(cuda)
+
+    x = f32(M, K).to(torch.bfloat16)
+    kw = dict(kind=kind, epilogue=epilogue, packed=packed)
+    if epilogue == "bias_residual_ln":
+        kw.update(residual=f32(M, N).to(torch.bfloat16),
+                  ln_scale=1 + f32(N, scale=0.1), ln_bias=f32(N, scale=0.1))
+    args = (x, qt.codes, qt.scales, qt.mins, f32(N, scale=0.1))
+    before = qmatmul_int8.launches
+    got = qmatmul_int8(*args, **kw)
+    assert qmatmul_int8.launches == before + 1
+    _close(got, qmatmul_int8_ref(*args, **kw), 2 ** -7, 1e-3)
+
+
+@pytest.mark.parametrize("kind", ["q4_0", "q8_0", "nf4"])
+def test_qmatmul_int8_kernel_k_tail(cuda, kind):
+    """K = 96: the last 64-byte chunk of K is half empty (K % 32 == 0 is
+    all the unpacked int8 mode needs)."""
+    rng = np.random.default_rng(96)
+    w = rng.standard_normal((96, 256), dtype=np.float32) * np.float32(0.02)
+    qt = quantize(w, kind).map(lambda t: t.to(cuda))
+    x = torch.from_numpy(rng.standard_normal(
+        (50, 96), dtype=np.float32)).to(cuda, torch.bfloat16)
+    bias = torch.from_numpy(rng.standard_normal(256, dtype=np.float32)).to(
+        cuda)
+    args = (x, qt.codes, qt.scales, qt.mins, bias)
+    kw = dict(kind=kind, epilogue="bias_gelu")
+    _close(qmatmul(*args, int8_compute=True, **kw),
+           qmatmul_int8_ref(*args, **kw), 2 ** -7, 1e-3)
+
+
+def test_qmatmul_int8_ragged_lanes_run_k1(cuda):
+    """N = 136 is not lane-aligned: int8_compute runs K1, as the JAX
+    package falls back to bf16 compute."""
+    rng = np.random.default_rng(136)
+    w = rng.standard_normal((128, 136), dtype=np.float32) * np.float32(0.02)
+    qt = quantize(w, "q4_0", pack4=True).map(lambda t: t.to(cuda))
+    x = torch.from_numpy(rng.standard_normal(
+        (24, 128), dtype=np.float32)).to(cuda, torch.bfloat16)
+    k1, k3 = qmatmul.launches, qmatmul_int8.launches
+    got = qmatmul(x, qt.codes, qt.scales, packed=True, int8_compute=True)
+    assert (qmatmul.launches, qmatmul_int8.launches) == (k1 + 1, k3)
+    _close(got, qmatmul_ref(x, qt.codes, qt.scales, packed=True), 2 ** -7,
+           1e-3)
+
+
+def _segments(B, L, rng):
+    """Packed rows: random segment lengths (some past a 128-block), the
+    tail of each row pad, and one all-pad row."""
+    seg = np.full((B, L), -1, np.int32)
+    for b in range(B - 1):
+        pos, s = 0, 0
+        while True:
+            n = int(rng.integers(1, 100))
+            if pos + n > L - int(rng.integers(0, 20)):
+                break
+            seg[b, pos:pos + n] = s
+            pos, s = pos + n, s + 1
+    return seg
+
+
+@pytest.mark.parametrize("B,L,H,D", [(3, 128, 12, 64), (2, 72, 4, 32),
+                                     (2, 256, 2, 128), (2, 640, 12, 64)])
+def test_segmented_attention_kernel_matches_plain(cuda, B, L, H, D):
+    rng = np.random.default_rng(L + 1)
+    qkv = torch.from_numpy(rng.standard_normal(
+        (B * L, 3 * H * D), dtype=np.float32)).to(cuda, torch.bfloat16)
+    seg = torch.from_numpy(_segments(B, L, rng)).to(cuda)
+    before = A.fused_attention_segmented.launches
+    got = A.fused_attention_segmented(qkv, seg, B=B, L=L, H=H, D=D)
+    assert A.fused_attention_segmented.launches == before + 1
+    _close(got, A.fused_attention_segmented_ref(qkv, seg, B=B, L=L, H=H,
+                                                D=D), 2 ** -6, 1e-2)
+    assert (got[seg.reshape(-1) < 0] == 0).all()
+
+
+@pytest.mark.parametrize("window", [0, 1, 3])
+@pytest.mark.parametrize("B,L,H,D", [(3, 256, 2, 64), (2, 640, 12, 64),
+                                     (2, 384, 4, 32)])
+def test_blockskip_attention_kernel_matches_plain(cuda, B, L, H, D, window):
+    rng = np.random.default_rng(L + window)
+    qkv = torch.from_numpy(rng.standard_normal(
+        (B * L, 3 * H * D), dtype=np.float32)).to(cuda, torch.bfloat16)
+    seg = torch.from_numpy(_segments(B, L, rng)).to(cuda)
+    kw = dict(B=B, L=L, H=H, D=D, window=window)
+    before = A.fused_attention_segmented_blockskip.launches
+    got = A.fused_attention_segmented_blockskip(qkv, seg, **kw)
+    assert A.fused_attention_segmented_blockskip.launches == before + 1
+    _close(got, A.fused_attention_segmented_blockskip_ref(qkv, seg, **kw),
+           2 ** -6, 1e-2)
+    assert (got[seg.reshape(-1) < 0] == 0).all()
+
+
 @pytest.mark.parametrize("B,L,H,D", [(3, 16, 12, 64), (2, 72, 4, 32),
                                      (2, 128, 2, 128), (4, 512, 12, 64)])
 def test_fused_attention_kernel_matches_plain(cuda, B, L, H, D):
@@ -92,3 +203,10 @@ def test_kernels_raise_on_wrong_dtype(cuda):
         fused_attention(torch.zeros(16, 384, device=cuda),
                         torch.ones(1, dtype=torch.int32, device=cuda),
                         B=1, L=16, H=2, D=64)
+    with pytest.raises(TypeError):
+        qmatmul_int8(torch.zeros(8, 64, device=cuda), qt.codes, qt.scales)
+    with pytest.raises(TypeError):
+        A.fused_attention_segmented(
+            torch.zeros(16, 384, device=cuda, dtype=torch.bfloat16),
+            torch.zeros(1, 16, dtype=torch.int64, device=cuda),
+            B=1, L=16, H=2, D=64)

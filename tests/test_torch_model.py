@@ -168,8 +168,11 @@ def test_engine_device_and_unported_modes():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             Engine(tp, cfg, tok)  # device=None means cuda
-    with pytest.raises(NotImplementedError):
-        Engine(tp, cfg, tok, EngineConfig(int8_compute=True), device="cpu")
+    # the int8 mode is ported: the engine runs it (K3's plain version here)
+    eng8 = Engine(tp, cfg, tok, EngineConfig(int8_compute=True),
+                  device="cpu")
+    emb8 = eng8.encode("a")
+    assert eng8._int8 and emb8.shape == (128,) and np.isfinite(emb8).all()
     with pytest.raises(NotImplementedError):
         Engine(tp, dataclasses.replace(cfg, gated_mlp=True), tok,
                device="cpu")

@@ -96,11 +96,18 @@ def test_qmatmul_wrapper_routes_cpu_to_ref():
 @pytest.mark.parametrize("opt", [dict(int8_compute=True),
                                  dict(emit_quantized="both")])
 def test_qmatmul_unported_modes_raise(opt):
+    """The int8 mode is ported: it runs K3's plain version on a CPU
+    tensor. The quantized-output emission is not, and still raises."""
     x, qt, bias, _ = _inputs("q4_0", False, "bias")
     tq = from_jax_params(qt)
+    args = (torch.from_numpy(x), tq.codes, tq.scales, None,
+            torch.from_numpy(bias))
+    if "int8_compute" in opt:
+        from embeddings_tpu_torch.ops.qmatmul import qmatmul_int8_ref
+        assert torch.equal(qmatmul(*args, **opt), qmatmul_int8_ref(*args))
+        return
     with pytest.raises(NotImplementedError):
-        qmatmul(torch.from_numpy(x), tq.codes, tq.scales, None,
-                torch.from_numpy(bias), **opt)
+        qmatmul(*args, **opt)
 
 
 @pytest.mark.parametrize("act", [None, "gelu", "relu"])
