@@ -1,12 +1,23 @@
 """Smoke test of the PyTorch/CUDA port on one GPU: builds the hand-written
-kernels (K1-K5), holds each against its plain PyTorch version on the card,
-drives bge-base q4_0 through the port's three paths — the bf16 encode
-path, the int8 compute mode and token-packed serving (Engine ->
-encode_batch / encode_batch_packed -> BatchingService -> TCP) — checking
-each path's kernel launch counts, and times the kernels and the forwards.
+kernels (K1-K7), holds each against its plain PyTorch version on the card,
+and drives the port's paths through Engine -> encode_batch (or
+encode_batch_packed) -> BatchingService -> TCP, checking each path's
+kernel launch counts:
+
+- bge-base q4_0: the bf16 encode path (K1 + K2), the int8 compute mode
+  (K3 + K2) and token-packed serving (K1 + K4 or K5);
+- a bge-base-shaped BERT with 2,048 positions on rows past the whole-row
+  rule (K1 + K6 plain);
+- all-mpnet-base-v2 q4_0 (K1 + K7 with the relative-position bias);
+- jina-embeddings-v2-base-en q4_0 (GeGLU: 5 K1 a layer; K6 with in-kernel
+  ALiBi at L=8192, K7 with the ALiBi bias at L=1024), and the trained
+  tiny ALiBi fixture;
+
+then times the kernels and the forwards, with a device-time profile of
+each forward by kernel.
 
     python3 chip_smoke.py              # every phase, needs one CUDA device
-    python3 chip_smoke.py --phases device,build,k1,k2,k3,k4k5
+    python3 chip_smoke.py --phases device,build,k1,k2,k3,k4k5,k6k7
 
 Each phase prints one JSON line. The last two lines are the kernel table
 and ``{"ok": true, "device": {...}}``; any failure exits non-zero before
@@ -19,6 +30,7 @@ from __future__ import annotations
 
 import argparse
 import asyncio
+import functools
 import json
 import subprocess
 import sys
@@ -29,6 +41,7 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 FIXTURE = ROOT / "benchmarks" / "fixtures" / "tiny_trained"
+ALIBI_FIXTURE = ROOT / "benchmarks" / "fixtures" / "tiny_trained_alibi"
 OUT_DIR = ROOT / "chiprun_out"
 
 # H100 SXM data-sheet peaks (dense): bf16 and int8 tensor cores, HBM3
@@ -53,9 +66,20 @@ K4_REPLACES = ("embeddings_tpu/ops/attention.py:294 (_attn_kernel_segmented "
                "via fused_attention_segmented :490)")
 K5_REPLACES = ("embeddings_tpu/ops/attention.py:337 (_attn_kernel_seg_window "
                "via fused_attention_segmented_blockskip :425)")
+K6_REPLACES = ("embeddings_tpu/ops/attention.py:661 (_attn_kernel_stream "
+               "via _stream_call :842, fused_attention_stream :900)")
+K7_REPLACES = ("embeddings_tpu/ops/attention.py:180 (_attn_kernel_bias via "
+               "fused_attention_bias :240)")
 # packed shapes: K4 at the default row_len 128 (256 rows), K5 at 1024
 PACK_SHORT = (256, 128)
 PACK_LONG = (32, 1024)
+# the logit-bias families' shapes (B, L): MPNet's timing batch, jina's
+# long rows (K6 ALiBi) and short rows (K7 ALiBi), and the long-row BERT
+# (K6 plain)
+MPNET_SHAPE = (128, 256)
+JINA_LONG = (4, 8192)
+JINA_SHORT = (32, 1024)
+BERT_LONG = (2, 2048)
 
 # tolerances (kernel vs plain version on the same inputs, bf16 outputs):
 # both round the same bf16 operands and accumulate in f32 in different
@@ -68,7 +92,7 @@ K1_RTOL, K1_ATOL_RMS = 2.0 ** -7, 1e-3
 K2_RTOL, K2_ATOL_RMS = 2.0 ** -6, 1e-2
 # K3 as K1: its int8 operands equal the plain version's bit for bit and
 # its s32 sums are exact, so only the activation's last f32 bits and the
-# bf16 rounding of the output differ. K4 and K5 as K2.
+# bf16 rounding of the output differ. K4-K7 as K2.
 K3_RTOL, K3_ATOL_RMS = K1_RTOL, K1_ATOL_RMS
 
 RESULTS: dict = {}   # one JSON line per phase, dumped at the end
@@ -174,7 +198,8 @@ def counters() -> dict:
     from embeddings_tpu_torch.ops import attention as A, qmatmul as Q
     return {"K1": Q.qmatmul, "K2": A.fused_attention, "K3": Q.qmatmul_int8,
             "K4": A.fused_attention_segmented,
-            "K5": A.fused_attention_segmented_blockskip}
+            "K5": A.fused_attention_segmented_blockskip,
+            "K6": A.fused_attention_stream, "K7": A.fused_attention_bias}
 
 
 def reset_counts() -> None:
@@ -186,6 +211,12 @@ def reset_counts() -> None:
 
 def read_counts() -> dict:
     return {k: f.launches for k, f in counters().items()}
+
+
+def only(**launches) -> dict:
+    """The launch counts of a run that launched these kernels, and no
+    other."""
+    return {k: launches.get(k, 0) for k in counters()}
 
 
 def packed_tables(rows: int, row_len: int):
@@ -228,10 +259,16 @@ def phase_device():
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip().splitlines()
     print(smi[0] if smi else "nvidia-smi: no output", flush=True)
+    clock = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60).stdout.split()
+    STATE["sm_clock_mhz"] = float(clock[0]) if clock else None
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     emit("device", name=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count(), nvidia_smi=smi[0] if smi else None,
+         max_sm_clock_mhz=STATE["sm_clock_mhz"],
          torch=torch.__version__, cuda=torch.version.cuda,
          python=sys.version.split()[0])
 
@@ -462,8 +499,7 @@ def phase_main_path():
          finite=bool(np.isfinite(emb).all()))
     check(np.isfinite(emb).all() and emb.shape == (len(texts), E),
           "main path output not finite / wrong shape")
-    check(k1 == 48 * n_forwards and k2 == 12 * n_forwards
-          and counts["K3"] == counts["K4"] == counts["K5"] == 0,
+    check(counts == only(K1=48 * n_forwards, K2=12 * n_forwards),
           f"launches {counts} over {n_forwards} forwards")
     check(np.abs(norms - 1).max() < 1e-3, "embeddings are not unit norm")
     check(dup.min() >= 1 - 1e-6, "identical sentences differ")
@@ -557,8 +593,7 @@ def phase_int8_path():
          identical_min_cos=float(dup.min()))
     check(np.isfinite(emb).all() and emb.shape == (len(texts), E),
           "int8 path output not finite / wrong shape")
-    check(counts == {"K1": 0, "K2": 12 * n_forwards, "K3": 48 * n_forwards,
-                     "K4": 0, "K5": 0},
+    check(counts == only(K2=12 * n_forwards, K3=48 * n_forwards),
           f"int8 launches {counts} over {n_forwards} forwards")
     check(np.abs(norms - 1).max() < 1e-3, "int8: not unit norm")
     check(dup.min() >= 1 - 1e-6, "int8: identical sentences differ")
@@ -610,9 +645,8 @@ def phase_packed_path():
                 packed_vs_bucketed_min_cos=float(cos.min()))
             kattn = "K4" if row_len == 128 else "K5"
             STATE.setdefault("launches", {})[kattn] = counts[kattn]
-            want = {"K1": 48 * (n + n_long), "K2": 12 * n_long, "K3": 0,
-                    "K4": 12 * n if kattn == "K4" else 0,
-                    "K5": 12 * n if kattn == "K5" else 0}
+            want = only(K1=48 * (n + n_long), K2=12 * n_long,
+                        **{kattn: 12 * n})
             check(n >= 1 and counts == want,
                   f"packed {name}: launches {counts}, expected {want}")
             if kattn == "K5":
@@ -664,6 +698,263 @@ def _packed_tcp(eng, texts, ref) -> dict:
     return r
 
 
+# ---------------------------------------------------------------------------
+# the logit-bias families (K6, K7)
+# ---------------------------------------------------------------------------
+
+def _attn_qkv(rng, Bx: int, Lx: int, dev, ragged: bool = True):
+    """Unit-normal bf16 qkv [Bx*Lx, 3E] and int32 lengths: ragged (an
+    all-pad row first, a full row last) or every row full."""
+    import torch
+    qkv = torch.from_numpy(rng.standard_normal(
+        (Bx * Lx, 3 * E), dtype=np.float32)).to(dev, torch.bfloat16)
+    lens = np.full(Bx, Lx)
+    if ragged:
+        lens = rng.integers(1, Lx + 1, Bx)
+        lens[0], lens[-1] = 0, Lx
+    return qkv, torch.tensor(lens.tolist(), dtype=torch.int32, device=dev)
+
+
+def _family_bias(family: str, Lx: int, dev):
+    """The [1, H, L, L] f32 logit bias of the family at 0..L-1: MPNet's
+    bucketed table (random, numpy seed 6, unit scale) or ALiBi."""
+    import torch
+    from embeddings_tpu_torch import BertConfig
+    from embeddings_tpu_torch.models import bert
+    from embeddings_tpu_torch.ops.alibi import alibi_slopes
+    pos = torch.arange(Lx, device=dev)[None]
+    if family == "mpnet":
+        table = torch.from_numpy(np.random.default_rng(6).standard_normal(
+            (32, H), dtype=np.float32)).to(dev)
+        return bert.relative_attention_bias(
+            table, pos, BertConfig(relative_attention_num_buckets=32))
+    return bert.alibi_attention_bias(
+        torch.tensor(alibi_slopes(H), dtype=torch.float32, device=dev), pos)
+
+
+def _slopes(dev):
+    import torch
+    from embeddings_tpu_torch.ops.alibi import alibi_slopes
+    return torch.tensor(alibi_slopes(H), dtype=torch.float32, device=dev)
+
+
+def phase_k6k7():
+    """K7 at the MPNet shape (table bias) and at jina's L=1024 (ALiBi
+    bias); K6 plain at L=2048 and with in-kernel ALiBi at B=4, L=8192;
+    each against its plain version on the same inputs."""
+    import torch
+    from embeddings_tpu_torch.ops import attention as A
+    rng = np.random.default_rng(7)
+    dev = torch.device("cuda")
+    out = {}
+    for name, family, (Bx, Lx) in (("K7_mpnet", "mpnet", MPNET_SHAPE),
+                                   ("K7_alibi", "jina", JINA_SHORT)):
+        qkv, lens = _attn_qkv(rng, Bx, Lx, dev)
+        bias = A.prepare_attention_bias(_family_bias(family, Lx, dev), Lx)
+        kw = dict(B=Bx, L=Lx, H=H, D=D)
+        got = A.fused_attention_bias(qkv, lens, bias, **kw)
+        ref = A.fused_attention_bias_ref(qkv, lens, bias, **kw)
+        torch.cuda.synchronize()
+        out[name] = dict(compare(got, ref, K2_RTOL, K2_ATOL_RMS),
+                         shape=[Bx, Lx, H, D])
+        del ref
+    for name, slopes, (Bx, Lx) in (("K6_plain", None, BERT_LONG),
+                                   ("K6_alibi", _slopes(dev), JINA_LONG)):
+        qkv, lens = _attn_qkv(rng, Bx, Lx, dev)
+        kw = dict(B=Bx, L=Lx, H=H, D=D, BK=A.pick_bk(Lx), alibi_slopes=slopes)
+        got = A.fused_attention_stream(qkv, lens, **kw)
+        ref = A.fused_attention_stream_ref(qkv, lens, **kw)
+        torch.cuda.synchronize()
+        out[name] = dict(compare(got, ref, K2_RTOL, K2_ATOL_RMS),
+                         shape=[Bx, Lx, H, D], BK=kw["BK"])
+        del ref
+    for name, r in out.items():
+        check(r["ok"], f"{name} disagrees: {r}")
+    emit("k6k7_parity", tolerance=f"|err| <= {K2_RTOL}*|ref| + "
+         f"{K2_ATOL_RMS}*rms(ref)", **out)
+
+
+def _family_engine(family: str, **ec):
+    """all-mpnet-base-v2, jina-embeddings-v2-base-en or a bge-base-shaped
+    BERT with 2,048 positions ("bert_long") at full width and depth, q4_0
+    packed + fused qkv, random weights from numpy seed 0, on the card."""
+    import torch
+    from embeddings_tpu_torch import BertConfig, EngineConfig, KNOWN_MODELS
+    from embeddings_tpu_torch.models import params as P
+    from embeddings_tpu_torch.runtime.engine import Engine
+    from embeddings_tpu_torch.tokenizer import tokenizer_from_dir
+    key = family + "_params"
+    if key not in STATE:
+        kw = {"mpnet": dict(KNOWN_MODELS["all-mpnet-base-v2"],
+                            vocab_size=30527, max_position_embeddings=514),
+              "jina": dict(KNOWN_MODELS["jina-embeddings-v2-base-en"]),
+              "bert_long": dict(KNOWN_MODELS["bge-base-en-v1.5"],
+                                vocab_size=30528,
+                                max_position_embeddings=2048)}[family]
+        cfg = BertConfig(**{"pooling": "mean", **kw})
+        t0 = time.perf_counter()
+        params = P.fuse_qkv(P.pack_q4_params(P.quantize_params(
+            P.init_params(cfg, np.random.default_rng(0)), "q4_0")))
+        STATE[key] = (cfg, params, time.perf_counter() - t0)
+    cfg, params, _ = STATE[key]
+    tok = tokenizer_from_dir(FIXTURE / "model")
+    ec = {"batch_size": 128, "max_seq_len": cfg.max_position_embeddings,
+          **ec}
+    return Engine(params, cfg, tok, EngineConfig(**ec),
+                  device=torch.device("cuda"))
+
+
+def _run_counted(eng, texts):
+    """encode_batch with the launch counts of that run alone."""
+    import torch
+    n = n_bucketed_forwards(eng, texts)
+    reset_counts()
+    t0 = time.perf_counter()
+    emb = eng.encode_batch(texts)
+    torch.cuda.synchronize()
+    return emb, read_counts(), n, time.perf_counter() - t0
+
+
+def _row_cos(a, b) -> np.ndarray:
+    return (a * b).sum(-1) / (np.linalg.norm(a, axis=1)
+                              * np.linalg.norm(b, axis=1))
+
+
+def _joined(start: int, n: int) -> str:
+    """STS sentences start .. start+n-1 joined into one long text."""
+    return " ".join(_sts_sentences(2400)[start:start + n])
+
+
+def phase_long_path():
+    """A bge-base-shaped BERT with 2,048 positions on rows of 2,048: past
+    the whole-row rule, so every layer runs K6 plain (the JAX package's
+    route; K2 never sees these rows)."""
+    eng = _family_engine("bert_long", batch_size=BERT_LONG[0])
+    texts = [_joined(i * 250, 250) for i in range(BERT_LONG[0])]
+    check(all(len(eng.tokenize(t)) == BERT_LONG[1] for t in texts),
+          f"long-row texts do not fill L={BERT_LONG[1]}")
+    emb, counts, n, wall = _run_counted(eng, texts)
+    plain = _family_engine("bert_long", batch_size=BERT_LONG[0],
+                           use_pallas="never", compute_dtype="float32")
+    cos = _row_cos(emb, plain.encode_batch(texts))
+    emit("long_path", model="bge-base-en-v1.5 shape with 2048 positions "
+         "(random init, numpy seed 0) q4_0 packed + fused qkv",
+         batch=list(BERT_LONG), forwards=n, launches=counts, wall_s=wall,
+         kernel_vs_plain_f32_min_cos=float(cos.min()))
+    check(n == 1 and counts == only(K1=48, K6=12),
+          f"long-row launches {counts} over {n} forwards")
+    check(np.isfinite(emb).all() and cos.min() >= 0.999,
+          f"long rows vs plain f32: {cos.min()}")
+    STATE["launches_K6_plain"] = counts["K6"]
+    STATE["bert_long_engine"] = eng
+
+
+def phase_mpnet_path():
+    """all-mpnet-base-v2 q4_0 through Engine.encode_batch (every layer:
+    4 K1 + K7 with the relative-position bias, no K2) and the TCP
+    server; one forward at the timing shape B=128, L=256."""
+    import torch
+    eng = _family_engine("mpnet")
+    texts = _sts_sentences(300)
+    texts += texts[:8]  # identical sentences: cosine 1.0
+    emb, counts, n, wall = _run_counted(eng, texts)
+    plain = _family_engine("mpnet", use_pallas="never",
+                           compute_dtype="float32")
+    cos = _row_cos(emb, plain.encode_batch(texts))
+    norms = np.linalg.norm(emb, axis=1)
+    dup = (emb[:8] * emb[-8:]).sum(-1)
+    rng = np.random.default_rng(8)
+    ids = rng.integers(1000, 30000, MPNET_SHAPE).astype(np.int32)
+    reset_counts()
+    eng._forward(ids, np.ones(MPNET_SHAPE, np.int32))
+    torch.cuda.synchronize()
+    one = read_counts()
+    emit("mpnet_path", model="all-mpnet-base-v2 (random init, numpy seed 0, "
+         "vocab 30527) q4_0 packed + fused qkv",
+         init_quantize_s=STATE["mpnet_params"][2], sentences=len(texts),
+         forwards=n, wall_s=wall, launches=counts,
+         k1_per_forward=counts["K1"] / n, k7_per_forward=counts["K7"] / n,
+         launches_at_B128_L256=one, norm_min=float(norms.min()),
+         norm_max=float(norms.max()), identical_min_cos=float(dup.min()),
+         kernel_vs_plain_f32_min_cos=float(cos.min()))
+    check(np.isfinite(emb).all() and emb.shape == (len(texts), E),
+          "mpnet output not finite / wrong shape")
+    check(counts == only(K1=48 * n, K7=12 * n),
+          f"mpnet launches {counts} over {n} forwards")
+    check(one == only(K1=48, K7=12), f"mpnet at B=128 L=256: {one}")
+    check(np.abs(norms - 1).max() < 1e-3, "mpnet: not unit norm")
+    check(dup.min() >= 1 - 1e-6, "mpnet: identical sentences differ")
+    check(cos.min() >= 0.999, f"mpnet kernel path vs plain f32: {cos.min()}")
+    STATE["launches_K7_mpnet"] = counts["K7"]
+    STATE["mpnet_engine"] = eng
+    _check_tcp("mpnet_server", eng)
+
+
+def phase_jina_path():
+    """jina-embeddings-v2-base-en q4_0 (GeGLU: 5 K1 a layer): B=4 rows of
+    8,192 tokens take K6 with in-kernel ALiBi, B=32 rows of 1,024 take K7
+    with the ALiBi bias; one or two sequences of each against the plain
+    f32 path (whose [B, H, L, L] f32 arrays take 3.2 GB per sequence at
+    L=8192); the trained tiny ALiBi fixture's long texts against its
+    plain path; the TCP server."""
+    eng = _family_engine("jina", batch_size=JINA_SHORT[0])
+    plain = _family_engine("jina", batch_size=JINA_SHORT[0],
+                           use_pallas="never", compute_dtype="float32")
+    long_texts = [_joined(i * 350, 1000) for i in range(JINA_LONG[0])]
+    short_texts = [_joined(i * 70, 70) for i in range(JINA_SHORT[0])]
+    check(all(len(eng.tokenize(t)) == JINA_LONG[1] for t in long_texts),
+          f"long texts do not fill L={JINA_LONG[1]}")
+    lens = [len(eng.tokenize(t)) for t in short_texts]
+    check(JINA_SHORT[1] // 2 < min(lens) and max(lens) <= JINA_SHORT[1],
+          f"short texts outside the L=1024 bucket: {min(lens)}..{max(lens)}")
+    out = {}
+    for name, texts, attn, shape in (("long", long_texts, "K6", JINA_LONG),
+                                     ("short", short_texts, "K7",
+                                      JINA_SHORT)):
+        emb, counts, n, wall = _run_counted(eng, texts)
+        cos = _row_cos(emb[:1], plain.encode_batch(texts[:1]))
+        out[name] = dict(batch=list(shape),
+                         forwards=n, launches=counts, wall_s=wall,
+                         kernel_vs_plain_f32_cos=float(cos.min()))
+        check(np.isfinite(emb).all() and emb.shape == (len(texts), E),
+              f"jina {name}: output not finite / wrong shape")
+        check(n == 1 and counts == only(K1=60, **{attn: 12}),
+              f"jina {name}: launches {counts} over {n} forwards")
+        check(cos.min() >= 0.999, f"jina {name} vs plain f32: {cos.min()}")
+        STATE[f"launches_{attn}_jina"] = counts[attn]
+    out["trained_fixture"] = _trained_alibi()
+    emit("jina_path", model="jina-embeddings-v2-base-en (random init, numpy "
+         "seed 0) q4_0 packed + fused qkv",
+         init_quantize_s=STATE["jina_params"][2], **out)
+    STATE["jina_engine"] = eng
+    _check_tcp("jina_server", eng)
+
+
+def _trained_alibi() -> dict:
+    """tiny_trained_alibi's long STS texts (about 800 tokens: K7 at
+    L=1024) through Engine on the card against its plain f32 path."""
+    import torch
+    from embeddings_tpu_torch import EngineConfig, load_model
+    rows = (ALIBI_FIXTURE / "sts-test-long.tsv").read_text().splitlines()
+    texts = [c for r in rows[:8] for c in r.split("\t")[1:3]]
+    model = ALIBI_FIXTURE / "model"
+    q4 = load_model(model, dtype="q4_0", device=torch.device("cuda"))
+    plain = load_model(model, dtype="q4_0", device=torch.device("cuda"),
+                       engine_config=EngineConfig(
+                           use_pallas="never", compute_dtype="float32",
+                           max_seq_len=2048))
+    emb, counts, n, _ = _run_counted(q4, texts)
+    cos = _row_cos(emb, plain.encode_batch(texts))
+    r = dict(model=str(model.relative_to(ROOT)), texts=len(texts),
+             forwards=n, launches=counts,
+             kernel_vs_plain_f32_min_cos=float(cos.min()))
+    NLt = q4.config.num_hidden_layers
+    check(counts == only(K1=5 * NLt * n, K7=NLt * n),
+          f"tiny ALiBi fixture: launches {counts} over {n} forwards")
+    check(cos.min() >= 0.999, f"tiny ALiBi fixture vs plain: {cos.min()}")
+    return r
+
+
 def phase_timing():
     import torch
     from embeddings_tpu_torch.ops import attention as A
@@ -688,6 +979,17 @@ def phase_timing():
             arrays, W = STATE[name][2], STATE[name][3]
             runs[name] = (lambda a=arrays, w=W: eng._forward_packed(*a, w),
                           ("qmm_kernel",), mode)
+    # the families' forwards: name -> (engine, shape, attention mode, K1
+    # launches a layer)
+    families = {"mpnet": ("mpnet_engine", MPNET_SHAPE, 3, 4),
+                "jina_long": ("jina_engine", JINA_LONG, 5, 5),
+                "jina_short": ("jina_engine", JINA_SHORT, 3, 5),
+                "bert_long": ("bert_long_engine", BERT_LONG, 4, 4)}
+    for name, (key, shape, mode, per_layer) in families.items():
+        if key in STATE:
+            fids = rng.integers(1000, 30000, shape).astype(np.int32)
+            runs[name] = (lambda e=STATE[key], i=fids: e._forward(
+                i, np.ones_like(i)), ("qmm_kernel",), mode, per_layer)
     fwd = {k: cuda_ms(r[0], iters=5) for k, r in runs.items()}
     profiles = {k: device_profile(k, *r) for k, r in runs.items()}
     packed_fwd = {}
@@ -698,6 +1000,12 @@ def phase_timing():
             packed_fwd[name] = {"shape": list(arrays[0].shape), "window": W,
                                 "tokens": tokens, "forward_ms": fwd[name],
                                 "tokens_per_s": tokens / fwd[name] * 1e3}
+    family_fwd = {}
+    for name, (_, (Bx, Lx), _, _) in families.items():
+        if name in fwd:
+            family_fwd[name] = {"shape": [Bx, Lx], "forward_ms": fwd[name],
+                                "sentences_per_s": Bx / fwd[name] * 1e3,
+                                "tokens_per_s": Bx * Lx / fwd[name] * 1e3}
 
     kernels = []
     for name, (K, N, epi) in K1_SHAPES.items():
@@ -792,6 +1100,7 @@ def phase_timing():
             "bound_ms": bms, "bound_by": by,
             "library_ms": sdpa_ms(qkv, Bx, Lx, same[:, None]),
             "shape": [Bx, Lx, H, D]})
+    kernels += bias_stream_rows(rng, dev)
     for name, f in counters().items():
         f.launches = saved[name]
     per_layer_bound = sum(kk["bound_ms"] for kk in kernels[:5])
@@ -800,20 +1109,21 @@ def phase_timing():
          int8_forward_ms=fwd.get("int8"),
          int8_sentences_per_s=(B / fwd["int8"] * 1e3 if "int8" in fwd
                                else None),
-         packed_forward=packed_fwd,
+         packed_forward=packed_fwd, family_forward=family_fwd,
          forward_bound_ms=NL * per_layer_bound,
          kernel_ms_per_forward=NL * sum(kk["ms"] for kk in kernels[:5]),
          profile=profiles)
     RESULTS["kernels"] = kernels
 
 
-def device_profile(name: str, fn, matmuls, mode: int) -> dict:
+def device_profile(name: str, fn, matmuls, mode: int,
+                   per_layer: int = 4) -> dict:
     """Device time by kernel over one forward (torch.profiler, CUDA
     activity). The idle share is the gaps between the forward's first
     kernel start and last kernel end (the profiler slows the host, so its
     wall time says nothing of idleness). Checks that the trace holds
-    4 * NL launches of each matmul kernel and NL of the attention kernel
-    in its mode."""
+    per_layer * NL launches of each matmul kernel (5 a layer with a gated
+    MLP) and NL of the attention kernel in its mode."""
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
     # one warm-up step: without it the tracer can miss the first kernels
@@ -846,7 +1156,8 @@ def device_profile(name: str, fn, matmuls, mode: int) -> dict:
     span = (max(b for _, b in spans) - min(a for a, _ in spans)) / 1e3 \
         if spans else 0.0
     seen = {k: v[1] for k, v in by_kind.items()}
-    want = {**{k: 4 * NL for k in matmuls}, f"attn_kernel<{D}, {mode}>": NL}
+    want = {**{k: per_layer * NL for k in matmuls},
+            f"attn_kernel<{D}, {mode}>": NL}
     check(busy > 0 and all(seen.get(k) == n for k, n in want.items()),
           f"profile {name}: launches {seen}, want {want}")
     return {
@@ -867,8 +1178,10 @@ def tally(table: dict, key: str, ms: float) -> None:
 
 
 def sdpa_ms(qkv, Bx: int, Lx: int, mask) -> float:
-    """The library yardstick for K2/K4/K5: F.scaled_dot_product_attention
-    on [B, H, L, D] copies of q, k, v with the equivalent boolean mask."""
+    """The library yardstick for the attention kernels:
+    F.scaled_dot_product_attention on [B, H, L, D] copies of q, k, v with
+    the equivalent mask (boolean for K2/K4/K5; the family bias as a bf16
+    float mask for K6/K7, None for K6 plain on full rows)."""
     import torch.nn.functional as Fn
     q, k, v = (qkv.reshape(Bx, Lx, 3, H, D)[:, :, i].transpose(1, 2)
                .contiguous() for i in range(3))
@@ -876,11 +1189,69 @@ def sdpa_ms(qkv, Bx: int, Lx: int, mask) -> float:
         q, k, v, attn_mask=mask))
 
 
+def bias_stream_rows(rng, dev) -> list:
+    """K7 and K6 rows of the kernel table at the families' shapes, every
+    row full (so the library's float mask broadcasts over the batch).
+    ``exp2_floor_ms``: the B*H*L^2 exp2 alone at 16 a clock per SM on 132
+    SMs at the card's maximum SM clock, a second floor beside the
+    tensor-core one."""
+    import torch
+    from embeddings_tpu_torch.ops import attention as A
+    out = []
+    for kname, family, (Bx, Lx), parity, launch_key in (
+            ("K7", "mpnet", MPNET_SHAPE, "K7_mpnet", "launches_K7_mpnet"),
+            ("K7", "jina", JINA_SHORT, "K7_alibi", "launches_K7_jina"),
+            ("K6", None, BERT_LONG, "K6_plain", "launches_K6_plain"),
+            ("K6", "jina", JINA_LONG, "K6_alibi", "launches_K6_jina")):
+        qkv, lens = _attn_qkv(rng, Bx, Lx, dev, ragged=False)
+        kw = dict(B=Bx, L=Lx, H=H, D=D)
+        bias = _family_bias(family, Lx, dev) if family else None
+        nbytes = Bx * Lx * 4 * E * 2 + Bx * 4
+        if kname == "K7":
+            op = A.prepare_attention_bias(bias, Lx)
+            kernel = functools.partial(A.fused_attention_bias, qkv, lens, op,
+                                       **kw)
+            plain = functools.partial(A.fused_attention_bias_ref, qkv, lens,
+                                      op, **kw)
+            nbytes += H * Lx * Lx * 4
+            fn, what = "fused_attention_bias", f"{family} bias"
+        else:
+            kw.update(BK=A.pick_bk(Lx),
+                      alibi_slopes=_slopes(dev) if family else None)
+            kernel = functools.partial(A.fused_attention_stream, qkv, lens,
+                                       **kw)
+            plain = functools.partial(A.fused_attention_stream_ref, qkv,
+                                      lens, **kw)
+            fn, what = "fused_attention_stream", \
+                "ALiBi" if family else "plain"
+        flops = 4.0 * Bx * H * Lx * Lx * D
+        bms, by = bound_ms(flops, nbytes)
+        clock = STATE.get("sm_clock_mhz")
+        mask = None if bias is None else bias.to(torch.bfloat16)
+        out.append({
+            "name": f"{fn}[{what} B{Bx} L{Lx} H{H} D{D}]", "route": "cuda",
+            "source": "embeddings_tpu_torch/csrc/attention.cu",
+            "replaces": K7_REPLACES if kname == "K7" else K6_REPLACES,
+            "launches": STATE.get(launch_key, 0),
+            "max_abs_err": RESULTS["k6k7_parity"][parity]["max_abs_err"],
+            "ms": cuda_ms(kernel, iters=5),
+            "plain_ms": cuda_ms(plain, iters=2, warmup=1),
+            "bound_ms": bms, "bound_by": by,
+            "library_ms": sdpa_ms(qkv, Bx, Lx, mask),
+            "exp2_floor_ms": (Bx * H * Lx * Lx / (16 * 132 * clock * 1e6)
+                              * 1e3 if clock else None),
+            "shape": [Bx, Lx, H, D]})
+        del mask, bias
+    return out
+
+
 PHASES = {"device": phase_device, "build": phase_build, "k1": phase_k1,
           "k2": phase_k2, "k3": phase_k3, "k4k5": phase_k4k5,
-          "main": phase_main_path, "trained": phase_trained,
-          "server": phase_server, "int8_path": phase_int8_path,
-          "packed_path": phase_packed_path, "timing": phase_timing}
+          "k6k7": phase_k6k7, "main": phase_main_path,
+          "trained": phase_trained, "server": phase_server,
+          "int8_path": phase_int8_path, "packed_path": phase_packed_path,
+          "long_path": phase_long_path, "mpnet_path": phase_mpnet_path,
+          "jina_path": phase_jina_path, "timing": phase_timing}
 
 
 def main() -> int:

@@ -1,44 +1,65 @@
 // Fused multi-head self-attention over the fused QKV projection, for
-// sm_90a: kernels K2, K4 and K5 of the PyTorch port, as three mask modes
-// of one kernel.
+// sm_90a: kernels K2, K4, K5, K6 and K7 of the PyTorch port, as six mask
+// modes of one kernel.
 //
 // Replaces (embeddings_tpu/ops/attention.py, the Pallas TPU kernels):
 //   mode 0, K2: _attn_kernel (its bf16 branch), behind fused_attention();
 //   mode 1, K4: _attn_kernel_segmented, behind fused_attention_segmented();
 //   mode 2, K5: _attn_kernel_seg_window, behind
-//               fused_attention_segmented_blockskip().
+//               fused_attention_segmented_blockskip();
+//   mode 3, K7: _attn_kernel_bias, behind fused_attention_bias();
+//   modes 4, 5, K6: _attn_kernel_stream in its plain and ALiBi modes,
+//               behind fused_attention_stream() (its causal and banded
+//               modes are not ported yet).
 // For each sequence (packed row) b, head h and query i, with q, k, v read
 // as column slices of the fused qkv buffer [B*L, 3E] (q at h*D, k at
-// E + h*D, v at 2E + h*D):
-//   mode 0: s = clamp(bf16(q * s2) . k_j, -100, hi), key j valid iff
-//           j < len[b];
-//   mode 1: s = clamp((q . k_j) * s2, -100, hi) (scaled after the dot, in
-//           f32, as the TPU's segmented kernels do), key j valid iff
-//           seg[b,i] == seg[b,j] and seg[b,j] >= 0;
+// E + h*D, v at 2E + h*D), and d = q . k_j accumulated in f32:
+//   mode 0: s = clamp(bf16(q * s2) . k_j, -100, hi) (q pre-scaled and
+//           rounded, the TPU's K2 rounding), key j valid iff j < len[b];
+//   mode 1: s = clamp(d * s2, -100, hi) (scaled after the dot, in f32, as
+//           the TPU's other kernels do), key j valid iff seg[b,i] ==
+//           seg[b,j] and seg[b,j] >= 0;
 //   mode 2: mode 1, over key blocks kbs .. min(kbs + W - 1, kbe) of the
 //           query's 128-row block only (block_ranges); blocks past the cap
-//           W are dropped, every other key block is skipped unread.
+//           W are dropped, every other key block is skipped unread;
+//   mode 3: s = clamp(d * s2 + bias[h, i, j], -100, hi) (bias f32 [H, L,
+//           L], log2-scaled), key j valid iff j < len[b];
+//   mode 4: s = clamp(d * s2, -100, hi), key j valid iff j < len[b];
+//   mode 5: s = clamp(d * s2 - slope[h] * (f32(|i - j|) * log2(e)), -100,
+//           hi), key j valid iff j < len[b] (jina-bert-v2's ALiBi from
+//           positions, no bias array).
 //   p_j = bf16(exp2(s)) if valid else 0
 //   out = (sum_j p_j v_j) / max(sum_j p_j, 1e-30)           (f32 sums)
 // written as bf16 to ctx [B*L, E] at column h*D. s2 = log2(e)/sqrt(D); hi
 // = 127 - ceil(log2 n) for n = L keys (n = min(W*128, L) in mode 2). There
 // is no max-subtraction: the clamp keeps exp2 and the sum finite for any
 // row length, as in the TPU kernels, so key tiles only ADD into the
-// output and the denominator; nothing is rescaled. A row with no valid
-// key (len 0, or a pad query) gives exactly 0.
+// output and the denominator; nothing is rescaled. That also makes every
+// mode a streaming kernel: no state beyond one 64-key tile and the
+// running sums, so K6's long rows need nothing K2 does not have. A row
+// with no valid key (len 0, or a pad query) gives exactly 0. Prefix modes
+// stop at the first 64-key tile past len[b] (those tiles add exact
+// zeros); ALiBi tiles far from the diagonal clamp at -100 and still add
+// exp2(-100), so they are not skipped. The multiply-adds the plain
+// version rounds separately are written __fmul_rn / __fadd_rn /
+// __fsub_rn, so nvcc's FMA contraction cannot change a score.
 //
-// What bounds it on the H100: at B=128, L=256, H=12, D=64 (mode 0), or
-// 32,768 packed tokens (modes 1 and 2), the function moves ~201 MB (qkv
-// in, context out) for ~26 GFLOP (mode 2 at L=1024, W=3: ~19 GFLOP), so
-// it is bound by device memory, not by the tensor cores. The design reads
-// q, k and v in place from the fused projection (no transpose pass through
-// memory), and keeps scores and probabilities in shared memory and
-// registers: one block per (64-query tile, head, sequence), 4 warps of 16
-// query rows, 64-key tiles of K and V (and their segment ids) staged in
-// shared memory, both products on the tensor cores (WMMA bf16, f32
-// accumulators). Not yet used: cp.async/TMA double buffering of the key
-// tiles, and skipping key tiles past len[b] or outside a K4 row's
-// segments.
+// What bounds it on the H100: at B=128, L=256, H=12, D=64 (modes 0, 3),
+// or 32,768 packed tokens (modes 1 and 2), the function moves ~201 MB
+// (qkv in, context out; mode 3 adds the 3.1 MB bias, which stays in the
+// 50 MB L2 across the batch) for ~26 GFLOP (mode 2 at L=1024, W=3: ~19
+// GFLOP), so it is bound by device memory, not by the tensor cores. At
+// K6's L=8192 (B=4) the same 201 MB carries ~825 GFLOP of products and
+// 3.2 G exp2: there it is bound by operations (tensor cores, then the
+// exp2 unit). The design reads q, k and v in place from the fused
+// projection (no transpose pass through memory), and keeps scores and
+// probabilities in shared memory and registers: one block per (64-query
+// tile, head, sequence), 4 warps of 16 query rows, 64-key tiles of K and
+// V (and their segment ids) staged in shared memory, both products on the
+// tensor cores (WMMA bf16, f32 accumulators). The bias of mode 3 is read
+// in place from device memory (L2), four scores to a 16-byte load. Not
+// yet used: cp.async/TMA double buffering of the key tiles, wgmma, and
+// skipping key tiles outside a K4 row's segments.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -55,8 +76,15 @@ constexpr int THREADS = 128;  // 4 warps x 16 query rows
 constexpr int SP = KT + 4;    // f32 score staging row stride
 constexpr int PP = KT + 8;    // bf16 probability row stride
 constexpr int BQ = 128;       // query/key block of mode 2 (block_ranges)
+constexpr float LOG2E_F = 1.4426950408889634f;
 
-enum Mode { PREFIX = 0, SEGMENT = 1, WINDOW = 2 };
+enum Mode { PREFIX = 0, SEGMENT = 1, WINDOW = 2, BIAS = 3, STREAM = 4,
+            ALIBI = 5 };
+
+// modes whose key mask is the prefix j < len[b]
+__host__ __device__ constexpr bool prefix_masked(int mode) {
+  return mode == PREFIX || mode >= BIAS;
+}
 
 template <int D>
 struct Layout {
@@ -73,8 +101,9 @@ template <int D, int MODE>
 __global__ void __launch_bounds__(THREADS) attn_kernel(
     const __nv_bfloat16* __restrict__ qkv, const int* __restrict__ lengths,
     const int* __restrict__ seg, const int* __restrict__ kbs,
-    const int* __restrict__ kbe, __nv_bfloat16* __restrict__ out, int L,
-    int H, int W, float s2, float hi) {
+    const int* __restrict__ kbe, const float* __restrict__ bias,
+    const float* __restrict__ slopes, __nv_bfloat16* __restrict__ out,
+    int L, int H, int W, float s2, float hi) {
   using Lay = Layout<D>;
   constexpr int DP = Lay::DP;
   constexpr int OP = Lay::OP;
@@ -98,7 +127,7 @@ __global__ void __launch_bounds__(THREADS) attn_kernel(
   const int b = blockIdx.z;
   const int E = H * D;
   const size_t ld = 3 * (size_t)E;
-  const int len = MODE == PREFIX ? lengths[b] : 0;
+  const int len = prefix_masked(MODE) ? lengths[b] : 0;
   const __nv_bfloat16* rows = qkv + (size_t)b * L * ld;
   float* fsc = fbase + warp * F;
   __nv_bfloat16* ps = pbase + warp * 16 * PP;
@@ -141,8 +170,18 @@ __global__ void __launch_bounds__(THREADS) attn_kernel(
   const int r = lane >> 1;          // this lane's query row in the warp
   const int c0 = (lane & 1) * 32;   // and its half of the key tile
   const int qrow = q0 + warp * 16 + r;
-  const int sq = (MODE != PREFIX && qrow < L) ? seg[(size_t)b * L + qrow] : -1;
+  const int sq = (!prefix_masked(MODE) && qrow < L)
+                     ? seg[(size_t)b * L + qrow] : -1;
+  // mode 3: this query's bias row (rows past L, never written, read row
+  // L - 1); mode 5: this head's slope
+  const float* brow =
+      MODE == BIAS ? bias + ((size_t)h * L + min(qrow, L - 1)) * L : nullptr;
+  const float slope = MODE == ALIBI ? slopes[h] : 0.0f;
   int k_begin = 0, k_end = L;
+  if (prefix_masked(MODE)) {
+    // key tiles wholly past len[b] would add exact zeros: stop before them
+    k_end = min(L, (len + KT - 1) / KT * KT);
+  }
   if (MODE == WINDOW) {
     // key blocks kbs .. min(kbs + W - 1, kbe) of this 128-query block
     const int nQ = L / BQ;
@@ -154,7 +193,7 @@ __global__ void __launch_bounds__(THREADS) attn_kernel(
   }
   for (int k0 = k_begin; k0 < k_end; k0 += KT) {
     __syncthreads();  // every warp is done with the previous K/V tile
-    if (MODE != PREFIX && tid < KT)
+    if (!prefix_masked(MODE) && tid < KT)
       segk[tid] = k0 + tid < L ? seg[(size_t)b * L + k0 + tid] : -1;
     for (int v = tid; v < KT * DV; v += THREADS) {
       const int kr = v / DV;
@@ -183,15 +222,34 @@ __global__ void __launch_bounds__(THREADS) attn_kernel(
       wmma::store_matrix_sync(fsc + n * 16, s, SP, wmma::mem_row_major);
     }
     __syncwarp();
-    for (int c = c0; c < c0 + 32; ++c) {
-      const float raw = MODE == PREFIX ? fsc[r * SP + c] : fsc[r * SP + c] * s2;
-      const float sc = fminf(fmaxf(raw, -100.0f), hi);
-      const bool ok = MODE == PREFIX ? k0 + c < len
-                                     : segk[c] == sq && segk[c] >= 0;
-      const float p = ok ? exp2f(sc) : 0.0f;
-      const __nv_bfloat16 pb = __float2bfloat16_rn(p);
-      ps[r * PP + c] = pb;
-      rowsum += __bfloat162float(pb);
+    for (int c4 = c0; c4 < c0 + 32; c4 += 4) {
+      // mode 3: four bias values in one 16-byte load (L % 8 == 0 and
+      // k0 + c4 < len <= L keep it in the row and aligned)
+      float4 bv = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if constexpr (MODE == BIAS) {
+        if (k0 + c4 < len) bv = *reinterpret_cast<const float4*>(brow + k0 + c4);
+      }
+      const float bias4[4] = {bv.x, bv.y, bv.z, bv.w};
+      for (int e = 0; e < 4; ++e) {
+        const int c = c4 + e;
+        const int kj = k0 + c;
+        const bool ok = prefix_masked(MODE) ? kj < len
+                                            : segk[c] == sq && segk[c] >= 0;
+        float raw = fsc[r * SP + c];
+        if constexpr (MODE == BIAS) {
+          raw = __fadd_rn(__fmul_rn(raw, s2), bias4[e]);
+        } else if constexpr (MODE == ALIBI) {
+          const float dist = __fmul_rn((float)abs(qrow - kj), LOG2E_F);
+          raw = __fsub_rn(__fmul_rn(raw, s2), __fmul_rn(slope, dist));
+        } else if constexpr (MODE != PREFIX) {
+          raw = raw * s2;
+        }
+        const float sc = fminf(fmaxf(raw, -100.0f), hi);
+        const float p = ok ? exp2f(sc) : 0.0f;
+        const __nv_bfloat16 pb = __float2bfloat16_rn(p);
+        ps[r * PP + c] = pb;
+        rowsum += __bfloat162float(pb);
+      }
     }
     __syncwarp();
 
@@ -234,8 +292,9 @@ __global__ void __launch_bounds__(THREADS) attn_kernel(
 
 template <int D, int MODE>
 cudaError_t launch(const void* qkv, const void* lengths, const void* seg,
-                   const void* kbs, const void* kbe, void* out, int B, int L,
-                   int H, int W, float s2, float hi, cudaStream_t stream) {
+                   const void* kbs, const void* kbe, const void* bias,
+                   const void* slopes, void* out, int B, int L, int H, int W,
+                   float s2, float hi, cudaStream_t stream) {
   const size_t smem = Layout<D>::smem;
   auto kern = attn_kernel<D, MODE>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -245,23 +304,33 @@ cudaError_t launch(const void* qkv, const void* lengths, const void* seg,
   kern<<<grid, THREADS, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(qkv), static_cast<const int*>(lengths),
       static_cast<const int*>(seg), static_cast<const int*>(kbs),
-      static_cast<const int*>(kbe), static_cast<__nv_bfloat16*>(out), L, H,
-      W, s2, hi);
+      static_cast<const int*>(kbe), static_cast<const float*>(bias),
+      static_cast<const float*>(slopes), static_cast<__nv_bfloat16*>(out), L,
+      H, W, s2, hi);
   return cudaGetLastError();
 }
 
 template <int D>
 cudaError_t launch_mode(int mode, const void* qkv, const void* lengths,
                         const void* seg, const void* kbs, const void* kbe,
-                        void* out, int B, int L, int H, int W, float s2,
-                        float hi, cudaStream_t stream) {
-#define ATTN_ARGS qkv, lengths, seg, kbs, kbe, out, B, L, H, W, s2, hi, stream
+                        const void* bias, const void* slopes, void* out,
+                        int B, int L, int H, int W, float s2, float hi,
+                        cudaStream_t stream) {
+#define ATTN_ARGS \
+  qkv, lengths, seg, kbs, kbe, bias, slopes, out, B, L, H, W, s2, hi, stream
   switch (mode) {
     case PREFIX: return launch<D, PREFIX>(ATTN_ARGS);
     case SEGMENT: return launch<D, SEGMENT>(ATTN_ARGS);
     case WINDOW:
       if (L % BQ) return cudaErrorInvalidValue;
       return launch<D, WINDOW>(ATTN_ARGS);
+    case BIAS:
+      if (bias == nullptr) return cudaErrorInvalidValue;
+      return launch<D, BIAS>(ATTN_ARGS);
+    case STREAM: return launch<D, STREAM>(ATTN_ARGS);
+    case ALIBI:
+      if (slopes == nullptr) return cudaErrorInvalidValue;
+      return launch<D, ALIBI>(ATTN_ARGS);
     default: return cudaErrorInvalidValue;
   }
 #undef ATTN_ARGS
@@ -271,17 +340,20 @@ cudaError_t launch_mode(int mode, const void* qkv, const void* lengths,
 
 extern "C" {
 
-// qkv [B*L, 3*H*D] bf16 and out [B*L, H*D] bf16 (device pointers). mode 0
-// reads lengths [B] int32; modes 1 and 2 read seg [B, L] int32 (-1 on
-// pads); mode 2 also kbs, kbe [B, L/128] int32 and the block cap W (L %
-// 128 == 0). Unused pointers may be null. s2 = log2(e)/sqrt(D) as f32; hi
-// = the score clamp bound. D must be 32, 64 or 128. Returns a cudaError_t.
+// qkv [B*L, 3*H*D] bf16 and out [B*L, H*D] bf16 (device pointers). Modes
+// 0, 3, 4 and 5 read lengths [B] int32; modes 1 and 2 read seg [B, L]
+// int32 (-1 on pads); mode 2 also kbs, kbe [B, L/128] int32 and the block
+// cap W (L % 128 == 0); mode 3 reads bias [H, L, L] f32 (log2-scaled);
+// mode 5 reads slopes [H] f32. Unused pointers may be null. s2 =
+// log2(e)/sqrt(D) as f32; hi = the score clamp bound. D must be 32, 64 or
+// 128. Returns a cudaError_t.
 int attn_launch(const void* qkv, const void* lengths, const void* seg,
-                const void* kbs, const void* kbe, void* out, int mode, int B,
-                int L, int H, int D, int W, float s2, float hi,
-                void* stream) {
+                const void* kbs, const void* kbe, const void* bias,
+                const void* slopes, void* out, int mode, int B, int L, int H,
+                int D, int W, float s2, float hi, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define ATTN_ARGS mode, qkv, lengths, seg, kbs, kbe, out, B, L, H, W, s2, hi, st
+#define ATTN_ARGS \
+  mode, qkv, lengths, seg, kbs, kbe, bias, slopes, out, B, L, H, W, s2, hi, st
   switch (D) {
     case 32: return launch_mode<32>(ATTN_ARGS);
     case 64: return launch_mode<64>(ATTN_ARGS);

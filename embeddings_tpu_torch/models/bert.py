@@ -1,9 +1,10 @@
 """BERT encoder forward of the PyTorch port — the port of
-``embeddings_tpu/models/bert.py`` for the plain post-LN BERT family:
-embedding sum + LayerNorm, N layers of {prefix-masked multi-head
-self-attention, residual + LN, GELU FFN, residual + LN}, pooling
-(cls / mean / max / lasttoken), SentenceTransformers Dense layers and the
-L2 norm.
+``embeddings_tpu/models/bert.py`` for the post-LN BERT families (plain
+BERT, MPNet with its relative-position bias, jina-bert-v2 with ALiBi and
+a GeGLU MLP): embedding sum + LayerNorm, N layers of {prefix-masked
+multi-head self-attention, residual + LN, GELU or gated FFN, residual +
+LN}, pooling (cls / mean / max / lasttoken), SentenceTransformers Dense
+layers and the L2 norm.
 
 ``encode_tokens`` runs right-padded batches; ``encode_packed`` runs
 token-packed rows (``runtime/packing.py``: several sentences per row,
@@ -12,12 +13,15 @@ segment ids, per-segment positions, a pooling matrix).
 The JAX package scans one compiled layer body over stacked parameters;
 here a Python loop walks the layers eagerly. ``use_kernels`` picks the
 path: True runs quantized matmuls through ``ops.qmatmul.qmatmul`` (K1, or
-K3 with ``int8``) and attention through the fused kernels —
-prefix-masked K2 for padded batches, segment-masked K4 or its
-block-skipping K5 for packed rows — on a CUDA tensor, their plain versions
-on a CPU tensor; False runs the plain f32 reference math (dequantize +
-matmul, the int8 emulation with ``int8``, exact-erf GELU, additive-mask
-einsum attention), the JAX package's XLA fallback. ``int8`` is
+K3 with ``int8``) and attention through the fused kernels the JAX
+package's route rule picks (``attention_route_name``) — prefix-masked K2
+for padded batches, K7 with a family's logit bias, K6 for long rows and
+ALiBi past K7's cap, segment-masked K4 or its block-skipping K5 for
+packed rows — on a CUDA tensor, their plain versions on a CPU tensor;
+False runs the plain f32 reference math (dequantize + matmul, the int8
+emulation with ``int8``, exact-erf GELU, additive-mask einsum attention
+with the family bias folded into the mask), the JAX package's XLA
+fallback. ``int8`` is
 ``EngineConfig.int8_compute``, passed down explicitly; the chained-int8
 links (emission epilogues) are not ported, which is the JAX package's
 default of no links.
@@ -55,7 +59,8 @@ def embed(params: Params, config: BertConfig, token_ids: torch.Tensor,
     """word + token-type + position embedding sum, then LayerNorm. A
     quantized word table dequantizes only the gathered rows.
     position_ids [B, L] overrides the default 0..L-1 (token-packed rows
-    restart positions at each segment)."""
+    restart positions at each segment). ALiBi models have no position
+    table."""
     L = token_ids.shape[1]
     emb = params["embeddings"]
     ids = token_ids.long()
@@ -67,48 +72,141 @@ def embed(params: Params, config: BertConfig, token_ids: torch.Tensor,
         x = x + emb["token_type"][0]
     else:
         x = x + emb["token_type"][type_ids.long()]
-    off = config.position_offset
-    if position_ids is None:
-        x = x + emb["position"][off:off + L]
-    else:
-        x = x + emb["position"][position_ids.long() + off]
+    if "position" in emb:
+        off = config.position_offset
+        if position_ids is None:
+            x = x + emb["position"][off:off + L]
+        else:
+            x = x + emb["position"][position_ids.long() + off]
     return layer_norm(x, emb["ln"]["scale"], emb["ln"]["bias"],
                       config.layer_norm_eps)
 
 
-def attention_route(L: int, segmented: bool, attn_window: int) -> str:
-    """The fused kernel ``_fused_attn_dispatch`` picks: "segmented_blockskip"
-    (K5) for packed rows longer than one 128-block whose window skips at
-    least two key blocks, "segmented" (K4) for other packed rows,
-    "prefix" (K2) for padded batches — the JAX package's rule."""
-    if not segmented:
-        return "prefix"
-    nK = L // attn_ops.BQ
-    if L > attn_ops.BQ and L % attn_ops.BQ == 0 and 0 < attn_window <= nK - 2:
-        return "segmented_blockskip"
-    return "segmented"
+def _relative_position_bucket(rel: torch.Tensor, num_buckets: int,
+                              max_distance: int) -> torch.Tensor:
+    """T5/MPNet bidirectional relative-position bucketing, the JAX
+    package's f32 arithmetic step for step: half the buckets for each
+    sign; within a sign, exact buckets up to num_buckets/4, then
+    log-spaced out to max_distance. Where the exact value is an integer
+    one f32 ulp moves a pair into the next bucket, so the f32 operations
+    keep the JAX package's order, and the divisors are tensors: CUDA
+    turns a division by a Python scalar into a reciprocal multiply."""
+    n = -rel
+    half = num_buckets // 2
+    ret = torch.where(n < 0, half, 0)
+    n = n.abs()
+    max_exact = half // 2
+    f32 = dict(dtype=torch.float32, device=rel.device)
+    x = torch.log(n.clamp_min(1).to(torch.float32)
+                  / torch.tensor(float(max_exact), **f32))
+    x = x / torch.tensor(math.log(max_distance / max_exact), **f32)
+    x = x * torch.tensor(float(half - max_exact), **f32)
+    val_if_large = (max_exact + x.to(torch.int32)).clamp_max(half - 1)
+    return ret + torch.where(n < max_exact, n, val_if_large)
+
+
+def relative_attention_bias(table: torch.Tensor, position_ids: torch.Tensor,
+                            config: BertConfig) -> torch.Tensor:
+    """MPNet relative position bias: [num_buckets, H] table -> additive
+    [B, H, Lq, Lk] f32 attention-logit bias (position_ids [B, L], or
+    [1, L] for 0..L-1). The bucket of every distance in [-(P-1), P-1], P
+    the largest position + 1, is computed once on the CPU (the arithmetic
+    the tests hold to the JAX package's) and gathered on the table's
+    device."""
+    P = int(position_ids.max()) + 1
+    buckets = _relative_position_bucket(
+        torch.arange(-(P - 1), P), config.relative_attention_num_buckets,
+        config.relative_attention_max_distance).to(table.device)
+    pos = position_ids.to(table.device).long()
+    rel = pos[:, None, :] - pos[:, :, None]              # [B, L, L]
+    values = table.float()[buckets[rel + (P - 1)]]       # [B, L, L, H]
+    return values.permute(0, 3, 1, 2)
+
+
+def alibi_attention_bias(slopes: torch.Tensor,
+                         position_ids: torch.Tensor) -> torch.Tensor:
+    """Symmetric (encoder) ALiBi: additive [B, H, Lq, Lk] f32 bias
+    ``-slope_h * |pos_i - pos_j|`` (position_ids [B, L] or [1, L])."""
+    pos = position_ids.to(slopes.device).long()
+    dist = (pos[:, None, :] - pos[:, :, None]).abs()      # [B, L, L]
+    return (-slopes.float()[None, :, None, None]
+            * dist[:, None].to(torch.float32))
+
+
+def _logit_bias(params: Params, config: BertConfig,
+                position_ids: torch.Tensor) -> torch.Tensor | None:
+    """The family's additive attention-logit bias ([B|1, H, L, L] f32),
+    or None: MPNet's bucketed relative-position table or jina-bert-v2's
+    ALiBi penalty. Both depend on positions only, so callers compute it
+    once per forward for all layers."""
+    rel = params.get("rel_bias")
+    if rel is not None:
+        return relative_attention_bias(rel, position_ids, config)
+    slopes = params.get("alibi_slopes")
+    if slopes is not None:
+        return alibi_attention_bias(slopes, position_ids)
+    return None
+
+
+def attention_route_name(L: int, E: int, *, segmented: bool = False,
+                         attn_window: int = 0, bias: bool = False,
+                         alibi: bool = False) -> str:
+    """The fused kernel ``_fused_attn_dispatch`` picks — the JAX
+    package's ``attention_route_name`` for the routes the port has:
+    "fused_bias" (K7) with a logit-bias operand; for packed rows
+    "segmented_blockskip" (K5) when the window skips at least two key
+    blocks, else "segmented" (K4); "stream_alibi" (K6, in-kernel ALiBi);
+    "stream" (K6) for rows whose whole K/V would not fit the TPU's VMEM
+    (``whole_row_fits``: L >= 1920 at E=768); else "whole_row" (K2)."""
+    if bias:
+        return "fused_bias"
+    if segmented:
+        nK = L // attn_ops.BQ
+        if (L > attn_ops.BQ and L % attn_ops.BQ == 0
+                and 0 < attn_window <= nK - 2):
+            return "segmented_blockskip"
+        return "segmented"
+    if alibi:
+        return "stream_alibi"
+    if not attn_ops.whole_row_fits(L, E):
+        return "stream"
+    return "whole_row"
 
 
 def _fused_attn_dispatch(qkv2d, lengths, segments, B, L, H, D,
-                         attn_window=0, ranges=None):
-    route = attention_route(L, segments is not None, attn_window)
+                         attn_window=0, ranges=None, bias=None, alibi=None):
+    route = attention_route_name(L, H * D, segmented=segments is not None,
+                                 attn_window=attn_window,
+                                 bias=bias is not None,
+                                 alibi=alibi is not None)
+    kw = dict(B=B, L=L, H=H, D=D)
+    if route == "fused_bias":
+        # the family bias (MPNet relative positions, ALiBi on short rows)
+        return attn_ops.fused_attention_bias(qkv2d, lengths, bias, **kw)
     if route == "segmented_blockskip":
         # long packed rows with a known small window: only key blocks
         # sharing a segment with the query block are computed
         return attn_ops.fused_attention_segmented_blockskip(
-            qkv2d, segments, B=B, L=L, H=H, D=D, window=attn_window,
-            ranges=ranges)
+            qkv2d, segments, window=attn_window, ranges=ranges, **kw)
     if route == "segmented":
-        return attn_ops.fused_attention_segmented(qkv2d, segments, B=B, L=L,
-                                                  H=H, D=D)
-    return attn_ops.fused_attention(qkv2d, lengths, B=B, L=L, H=H, D=D)
+        return attn_ops.fused_attention_segmented(qkv2d, segments, **kw)
+    if route in ("stream_alibi", "stream"):
+        return attn_ops.fused_attention_stream(
+            qkv2d, lengths, BK=attn_ops.pick_bk(L), alibi_slopes=alibi, **kw)
+    return attn_ops.fused_attention(qkv2d, lengths, **kw)
 
 
 def fused_attention_ok(L: int, H: int, D: int, use_kernels: bool,
-                       lengths, segments) -> bool:
-    """Does attention take a fused kernel (else the einsum path)?"""
-    return (use_kernels and (lengths is not None or segments is not None)
-            and attn_ops.supported(L, H, D))
+                       lengths, segments, alibi=None) -> bool:
+    """Does attention take a fused kernel (else the einsum path)? The
+    JAX package's ``_attn_kernels_ok`` for the port's routes."""
+    if not use_kernels or (lengths is None and segments is None):
+        return False
+    if segments is not None:
+        return attn_ops.supported(L, H, D)
+    if alibi is not None or not attn_ops.whole_row_fits(L, H * D):
+        return attn_ops.stream_supported(L, H, D, attn_ops.pick_bk(L))
+    return attn_ops.supported(L, H, D)
 
 
 def attention_context(layer: Params, config: BertConfig, x: torch.Tensor,
@@ -116,15 +214,19 @@ def attention_context(layer: Params, config: BertConfig, x: torch.Tensor,
                       lengths: torch.Tensor | None = None, *,
                       segments: torch.Tensor | None = None,
                       attn_window: int = 0, ranges=None,
+                      bias: torch.Tensor | None = None,
+                      alibi: torch.Tensor | None = None,
                       use_kernels: bool = True,
                       int8: bool = False) -> torch.Tensor:
     """Masked multi-head self-attention up to (not including) the output
     projection: [B, L, E] -> [B, L, E] context. With prefix ``lengths``
-    (or packed ``segments``), ``use_kernels`` and a shape ``supported`` by
-    the fused kernels, attention reads the fused qkv projection in place
-    (K2, or K4/K5; ``ranges`` is K5's ``block_ranges``, computed once per
-    forward); otherwise the additive-mask einsum path, with ``mask_bias``
-    [B, 1, 1 or L, L]."""
+    (or packed ``segments``), ``use_kernels`` and a shape the fused
+    kernels take, attention reads the fused qkv projection in place (the
+    kernel ``attention_route_name`` picks: ``bias`` is K7's
+    ``prepare_attention_bias`` operand, ``alibi`` K6's slopes, ``ranges``
+    K5's ``block_ranges``, each computed once per forward); otherwise the
+    additive-mask einsum path, with ``mask_bias`` [B, 1 or H, 1 or L, L]
+    (the family bias already folded in)."""
     B, L, _ = x.shape
     D = config.head_dim
     a = layer["attn"]
@@ -137,9 +239,10 @@ def attention_context(layer: Params, config: BertConfig, x: torch.Tensor,
                          for n in ("q", "k", "v")], -1)
     El = qkv.shape[-1] // 3
     H = El // D
-    if fused_attention_ok(L, H, D, use_kernels, lengths, segments):
+    if fused_attention_ok(L, H, D, use_kernels, lengths, segments, alibi):
         ctx = _fused_attn_dispatch(qkv.reshape(B * L, 3 * El), lengths,
-                                   segments, B, L, H, D, attn_window, ranges)
+                                   segments, B, L, H, D, attn_window, ranges,
+                                   bias, alibi)
         return ctx.reshape(B, L, El)
     q = qkv[..., :El].reshape(B, L, H, D)
     k = qkv[..., El:2 * El].reshape(B, L, H, D)
@@ -153,11 +256,16 @@ def attention_context(layer: Params, config: BertConfig, x: torch.Tensor,
 
 def _ffn_hidden(m: Params, x: torch.Tensor, config: BertConfig, *,
                 use_kernels: bool = True, int8: bool = False) -> torch.Tensor:
-    """act(up(x)), the activation fused into the up-projection's kernel."""
+    """act(up(x)), or act(gate(x)) * up(x) for a gated MLP (jina's
+    GeGLU): the activation fused into the up (gate) projection's kernel
+    epilogue, the product a torch multiply in the compute dtype."""
     act = {"gelu_tanh": "gelu_tanh", "silu": "silu", "relu": "relu"}.get(
         config.hidden_act, "gelu")
-    return linear(x, m["up"]["w"], m["up"]["b"], act=act,
-                  use_kernels=use_kernels, int8=int8)
+    mode = dict(use_kernels=use_kernels, int8=int8)
+    if "gate" in m:
+        return (linear(x, m["gate"]["w"], m["gate"]["b"], act=act, **mode)
+                * linear(x, m["up"]["w"], m["up"]["b"], **mode))
+    return linear(x, m["up"]["w"], m["up"]["b"], act=act, **mode)
 
 
 def encoder_layer(layer: Params, config: BertConfig, x: torch.Tensor,
@@ -165,6 +273,8 @@ def encoder_layer(layer: Params, config: BertConfig, x: torch.Tensor,
                   lengths: torch.Tensor | None = None, *,
                   segments: torch.Tensor | None = None,
                   attn_window: int = 0, ranges=None,
+                  bias: torch.Tensor | None = None,
+                  alibi: torch.Tensor | None = None,
                   use_kernels: bool = True,
                   int8: bool = False) -> torch.Tensor:
     """One post-LN encoder block. The two residual + LayerNorm steps run
@@ -176,7 +286,7 @@ def encoder_layer(layer: Params, config: BertConfig, x: torch.Tensor,
     mode = dict(use_kernels=use_kernels, int8=int8)
     ctx = attention_context(layer, config, x, mask_bias, lengths,
                             segments=segments, attn_window=attn_window,
-                            ranges=ranges, **mode)
+                            ranges=ranges, bias=bias, alibi=alibi, **mode)
     x = linear_residual_ln(ctx, a["o"]["w"], a["o"]["b"], x,
                            a["ln"]["scale"], a["ln"]["bias"], eps, **mode)
     h = _ffn_hidden(m, x, config, **mode)
@@ -203,7 +313,10 @@ def encode_tokens(params: Params, config: BertConfig,
     attention kernel then masks by row length; pass False for other masks
     to take the additive-mask einsum path. compute_dtype: the activation
     dtype inside the encoder (None keeps the embedding dtype, f32).
-    int8: quantized matmuls in the int8 mode.
+    int8: quantized matmuls in the int8 mode. A family logit bias (MPNet,
+    ALiBi) is computed once here and shared by all layers: as K7's
+    operand while it takes the shape, as K6's in-kernel ALiBi past that,
+    else folded into the einsum path's mask.
     Returns [B, E'] float32 (or the [B, L, E] hidden states)."""
     check_supported(config)
     pooling = pooling or config.pooling
@@ -217,9 +330,30 @@ def encode_tokens(params: Params, config: BertConfig,
         x = x.to(compute_dtype)
     lengths = (attention_mask.sum(1, dtype=torch.int32)
                if prefix_mask else None)
+
+    bias = alibi = None
+    L = token_ids.shape[1]
+    if "alibi_slopes" in params or params.get("rel_bias") is not None:
+        H, D = config.num_attention_heads, config.head_dim
+        if ("alibi_slopes" in params and prefix_mask and use_kernels
+                and not attn_ops.bias_supported(L, H, D)
+                and attn_ops.stream_supported(L, H, D, attn_ops.pick_bk(L))):
+            # ALiBi past K7's cap: K6 computes the penalty from positions,
+            # so no O(L^2) bias array exists
+            alibi = params["alibi_slopes"]
+        else:
+            fb = _logit_bias(params, config,
+                             torch.arange(L, device=token_ids.device)[None])
+            if (prefix_mask and use_kernels
+                    and attn_ops.bias_supported(L, H, D)):
+                bias = attn_ops.prepare_attention_bias(fb, L)
+            else:
+                mask_bias = mask_bias + fb  # [B, H, L, L], einsum path
+                lengths = None
     for i in range(config.num_hidden_layers):
         x = encoder_layer(layer_params(params, i), config, x, mask_bias,
-                          lengths, use_kernels=use_kernels, int8=int8)
+                          lengths, bias=bias, alibi=alibi,
+                          use_kernels=use_kernels, int8=int8)
     if return_hidden:
         return x.float()
 
@@ -257,6 +391,9 @@ def encode_packed(params: Params, config: BertConfig,
                   pooling row per segment slot; all-zero for empty slots.
     attn_window:  the static key-block window for K5
                   (``packing.max_block_span``); 0 means the full row.
+    A family logit bias (MPNet, ALiBi) comes from the per-segment
+    positions and is folded into the einsum path's mask, as the JAX
+    package does: the segmented kernels have no bias operand.
     Returns [B, S, E'] float32, one embedding per (row, segment slot);
     empty slots stay zero vectors."""
     check_supported(config)
@@ -264,21 +401,27 @@ def encode_packed(params: Params, config: BertConfig,
                  else normalize)
     B, L = token_ids.shape
     seg = seg_ids.to(torch.int32).contiguous()
+    bias = _logit_bias(params, config, position_ids)
+    segments = seg if bias is None else None
     mask_bias = ranges = None
     if not fused_attention_ok(L, config.num_attention_heads,
-                              config.head_dim, use_kernels, None, seg):
+                              config.head_dim, use_kernels, None, segments):
         # within-segment attention for the einsum path: [B, 1, L, L]
         same = seg[:, :, None] == seg[:, None, :]
         mask_bias = torch.where(same & (seg >= 0)[:, None, :], 0.0,
                                 mask_value).float()[:, None]
-    elif attention_route(L, True, attn_window) == "segmented_blockskip":
+        if bias is not None:  # cross-segment pairs are masked anyway
+            mask_bias = mask_bias + bias
+    elif attention_route_name(L, config.hidden_size, segmented=True,
+                              attn_window=attn_window) \
+            == "segmented_blockskip":
         ranges = attn_ops.block_ranges(seg, L)  # the same for every layer
     x = embed(params, config, token_ids, position_ids=position_ids)
     if compute_dtype is not None:
         x = x.to(compute_dtype)
     for i in range(config.num_hidden_layers):
         x = encoder_layer(layer_params(params, i), config, x, mask_bias,
-                          segments=seg, attn_window=attn_window,
+                          segments=segments, attn_window=attn_window,
                           ranges=ranges, use_kernels=use_kernels, int8=int8)
     pooled = torch.einsum("bsl,ble->bse", pool_weights.float(), x.float())
     return _finish(params, config, pooled, normalize)

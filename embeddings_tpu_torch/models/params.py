@@ -1,7 +1,8 @@
 """Parameter trees of the PyTorch port: random init, the numpy handoff from
 the JAX package, quantization, packing, q/k/v fusion, HF import and the
 native ``.npz`` checkpoint — the port of ``embeddings_tpu/models/params.py``
-for the plain (post-LN, absolute-position) BERT family.
+for the post-LN BERT families: plain BERT (learned positions), MPNet
+(relative-position bias) and jina-bert-v2 (ALiBi, GeGLU MLP).
 
 The tree has the JAX package's layout, with torch tensors as leaves and
 every linear stored [in, out] so the forward computes ``x @ w``. Layer
@@ -14,10 +15,16 @@ weights are stacked on a leading axis [num_layers, ...]:
       "attn": {"q"/"k"/"v"/"o": {"w": [E,E]|QT, "b": [E]}  (or "qkv"),
                "ln": {"scale", "bias"}},
       "mlp":  {"up": {"w": [E,F]|QT, "b": [F]}, "down": {"w": [F,E]|QT,
-               "b": [E]}, "ln": {"scale", "bias"}},
+               "b": [E]}, "ln": {"scale", "bias"},
+               "gate": {"w": [E,F]|QT, "b": [F]}  (gated MLPs only)},
     },
+    "rel_bias": [num_buckets, H] f32       (MPNet only)
+    "alibi_slopes": [H] f32                (ALiBi only; no "position")
     "st_dense": {"0": {"w", "b"}, ...}   (SentenceTransformers Dense, opt.)
   }
+
+``rel_bias`` and ``alibi_slopes`` stay f32 through every cast and are
+never quantized; ``gate`` is quantized like ``up``.
 """
 
 from __future__ import annotations
@@ -42,16 +49,14 @@ _TORCH_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16,
 
 
 def check_supported(config: BertConfig) -> None:
-    """Raise for model families this slice of the port does not run yet
-    (it runs the plain post-LN BERT encoder with learned positions)."""
+    """Raise for model families the port does not run yet (it runs the
+    post-LN BERT encoder with learned positions, MPNet's relative-position
+    bias or ALiBi, and a plain or gated MLP)."""
     unsupported = {
         "embedding_size": config.embedding_size is not None,
         "shared_layers": config.shared_layers,
-        "relative_attention_num_buckets":
-            bool(config.relative_attention_num_buckets),
         "position_embedding_type":
-            config.position_embedding_type != "absolute",
-        "gated_mlp": config.gated_mlp,
+            config.position_embedding_type not in ("absolute", "alibi"),
         "norm_style": config.norm_style != "post",
         "norm_type": config.norm_type != "layernorm",
         "num_key_value_heads": config.num_key_value_heads not in (
@@ -62,8 +67,8 @@ def check_supported(config: BertConfig) -> None:
     bad = [k for k, v in unsupported.items() if v]
     if bad:
         raise NotImplementedError(
-            f"the PyTorch port runs plain post-LN BERT encoders; this "
-            f"config sets {', '.join(bad)}")
+            f"the PyTorch port runs post-LN BERT, MPNet and jina-bert-v2 "
+            f"encoders; this config sets {', '.join(bad)}")
 
 
 def map_tree(fn: Callable, tree):
@@ -94,7 +99,9 @@ def init_params(config: BertConfig, generator: np.random.Generator | int = 0,
                 dtype=torch.float32) -> Params:
     """Random init (tests and benchmarks without a checkpoint): normal
     weights with std 0.02 from a numpy generator, zero biases, unit
-    LayerNorms — the JAX package's init, with numpy randomness."""
+    LayerNorms — the JAX package's init, with numpy randomness. Gated
+    MLPs add a gate stack, MPNet a [num_buckets, H] relative-bias table;
+    ALiBi models carry their slopes and no position table."""
     check_supported(config)
     rng = (np.random.default_rng(generator) if isinstance(generator, int)
            else generator)
@@ -114,16 +121,33 @@ def init_params(config: BertConfig, generator: np.random.Generator | int = 0,
     def ln_stack():
         return {"scale": torch.ones(NL, E), "bias": torch.zeros(NL, E)}
 
-    emb = {"word": mat(config.vocab_size, E),
-           "position": mat(config.max_position_embeddings, E),
-           "token_type": mat(config.type_vocab_size, E),
-           "ln": _ln(np.ones(E), np.zeros(E))}
+    emb = {"word": mat(config.vocab_size, E)}
+    if config.position_embedding_type == "absolute":
+        emb["position"] = mat(config.max_position_embeddings, E)
+    emb["token_type"] = mat(config.type_vocab_size, E)
+    emb["ln"] = _ln(np.ones(E), np.zeros(E))
     layers = {
         "attn": {"q": lin(E, E), "k": lin(E, E), "v": lin(E, E),
                  "o": lin(E, E), "ln": ln_stack()},
         "mlp": {"up": lin(E, F), "down": lin(F, E), "ln": ln_stack()},
     }
-    return {"embeddings": emb, "layers": layers}
+    if config.gated_mlp:
+        layers["mlp"]["gate"] = lin(E, F)
+    out: Params = {"embeddings": emb, "layers": layers}
+    if config.relative_attention_num_buckets:
+        out["rel_bias"] = mat(config.relative_attention_num_buckets,
+                              config.num_attention_heads).float()
+    if config.position_embedding_type == "alibi":
+        out["alibi_slopes"] = _slopes(config)
+    return out
+
+
+def _slopes(config: BertConfig) -> torch.Tensor:
+    """The ALiBi slopes leaf: derived from the head count (checkpoints
+    do not store it), f32."""
+    from ..ops.alibi import alibi_slopes
+    return torch.tensor(alibi_slopes(config.num_attention_heads),
+                        dtype=torch.float32)
 
 
 # ---------------------------------------------------------------------------
@@ -172,7 +196,8 @@ def pack_q4_params(params: Params) -> Params:
 
 def cast_params(params: Params, kind: str) -> Params:
     """Matmul weights and embedding tables (tensors of 2+ dims outside
-    LayerNorms) to f32/bf16/f16; LayerNorms and biases stay f32."""
+    LayerNorms) to f32/bf16/f16; LayerNorms, biases and the relative-bias
+    table stay f32."""
     from ..ops.quant import dequantize
     target = _TORCH_DTYPES[kind]
 
@@ -181,7 +206,8 @@ def cast_params(params: Params, kind: str) -> Params:
             x = dequantize(x)
         if isinstance(x, dict):
             return {k: cast(f"{path}/{k}", v) for k, v in x.items()}
-        if x.ndim >= 2 and "ln" not in path.split("/"):
+        parts = path.split("/")
+        if x.ndim >= 2 and "ln" not in parts and "rel_bias" not in parts:
             return x.to(target)
         return x
 
@@ -299,18 +325,102 @@ def _read_sd(d: Path) -> dict[str, np.ndarray]:
 
 
 def _strip_prefix(sd: dict[str, np.ndarray]) -> dict[str, np.ndarray]:
-    """Drop the 'bert.' / '0.auto_model.' style prefixes HF checkpoints use."""
-    for prefix in ("bert.", "model.", "0.auto_model."):
+    """Drop the 'bert.' / 'mpnet.' / '0.auto_model.' style prefixes HF
+    checkpoints use, then rewrite MPNet and jina-bert-v2 names into BERT
+    naming."""
+    for prefix in ("bert.", "mpnet.", "model.", "0.auto_model."):
         if any(k.startswith(prefix + "embeddings") for k in sd):
-            return {k[len(prefix):]: v for k, v in sd.items()
-                    if k.startswith(prefix)}
-    return sd
+            sd = {k[len(prefix):]: v for k, v in sd.items()
+                  if k.startswith(prefix)}
+            break
+    return _translate_jina(_translate_mpnet(sd))
+
+
+# MPNet layer-tensor names -> BERT names (same post-LN block; the shared
+# relative-attention-bias table is carried as the top-level "rel_bias")
+_MPNET_LAYER_MAP = {
+    "attention.attn.q": "attention.self.query",
+    "attention.attn.k": "attention.self.key",
+    "attention.attn.v": "attention.self.value",
+    "attention.attn.o": "attention.output.dense",
+    "attention.LayerNorm": "attention.output.LayerNorm",
+    "intermediate.dense": "intermediate.dense",
+    "output.dense": "output.dense",
+    "output.LayerNorm": "output.LayerNorm",
+}
+
+
+def _translate_mpnet(sd: dict[str, np.ndarray]) -> dict[str, np.ndarray]:
+    """Rewrite an MPNet state dict into BERT naming (+ the relative
+    position bias table as "rel_bias"); no-op otherwise."""
+    if not any(".attention.attn.q." in k for k in sd):
+        return sd
+    out: dict[str, np.ndarray] = {}
+    for k, v in sd.items():
+        if k.startswith("encoder.layer."):
+            _, _, i, rest = k.split(".", 3)
+            stem, _, leaf = rest.rpartition(".")
+            mapped = _MPNET_LAYER_MAP.get(stem)
+            if mapped is not None:
+                out[f"encoder.layer.{i}.{mapped}.{leaf}"] = v
+        elif k == "encoder.relative_attention_bias.weight":
+            out["rel_bias"] = v  # [num_buckets, num_heads]
+        else:
+            out[k] = v  # embeddings.* names already match BERT's
+    emb = out.get("embeddings.word_embeddings.weight")
+    if emb is not None:
+        # MPNet has no token-type table; a zeros row keeps embed() shared
+        out.setdefault("embeddings.token_type_embeddings.weight",
+                       np.zeros((1, emb.shape[1]), np.float32))
+    return out
+
+
+def _translate_jina(sd: dict[str, np.ndarray]) -> dict[str, np.ndarray]:
+    """Rewrite a jina-bert-v2 state dict into BERT naming; no-op
+    otherwise. The GLU MLP maps as gate/up/down: ``mlp.gated_layers``
+    [2I, E] (no bias) splits row-wise into gate (first I rows) | up (last
+    I rows); later jina revisions ship the halves pre-split as
+    ``gated_layers_w`` / ``gated_layers_v``. ``mlp.wo`` is the down
+    projection and ``mlp.layernorm`` the block's output LayerNorm."""
+    if not any(".mlp.wo." in k for k in sd):
+        return sd
+    out: dict[str, np.ndarray] = {}
+    leaf_map = {"wo": "output.dense", "layernorm": "output.LayerNorm",
+                "gated_layers_w": "intermediate.gate",
+                "gated_layers_v": "intermediate.dense",
+                # non-GLU jina variants (feed_forward_type "original")
+                "up_layer": "intermediate.dense",
+                "down_layer": "output.dense"}
+    for k, v in sd.items():
+        if k.startswith("encoder.layer.") and ".mlp." in k:
+            _, _, i, rest = k.split(".", 3)
+            stem, _, leaf = rest.rpartition(".")
+            name = stem.removeprefix("mlp.")
+            if name == "gated_layers":
+                half = v.shape[0] // 2
+                out[f"encoder.layer.{i}.intermediate.gate.{leaf}"] = v[:half]
+                out[f"encoder.layer.{i}.intermediate.dense.{leaf}"] = v[half:]
+                continue
+            mapped = leaf_map.get(name)
+            if mapped is not None:
+                out[f"encoder.layer.{i}.{mapped}.{leaf}"] = v
+        else:
+            out[k] = v  # embeddings.* / attention.* names match BERT's
+    # gated_layers has no bias: zeros keep the linear stacks uniform (HF
+    # Linear weights are [out, in], so the bias length is shape[0])
+    for k in list(out):
+        if k.endswith((".intermediate.gate.weight",
+                       ".intermediate.dense.weight")):
+            out.setdefault(k[:-len("weight")] + "bias",
+                           np.zeros(out[k].shape[0], np.float32))
+    return out
 
 
 def from_hf_state_dict(sd: dict[str, np.ndarray], config: BertConfig,
                        dtype=torch.float32) -> Params:
-    """Map a HF BERT state dict to the port's tree (position_ids and the
-    pooler are dropped, as the reference's converter does)."""
+    """Map a HF BERT, MPNet or jina-bert-v2 state dict to the port's tree
+    (position_ids and the pooler are dropped, as the reference's
+    converter does)."""
     check_supported(config)
     sd = _strip_prefix({k: np.asarray(v) for k, v in sd.items()})
     NL = config.num_hidden_layers
@@ -331,11 +441,12 @@ def from_hf_state_dict(sd: dict[str, np.ndarray], config: BertConfig,
                 "bias": t(np.stack([sd[fmt.format(i) + ".bias"]
                                     for i in range(NL)]), torch.float32)}
 
-    emb = {"word": t(sd["embeddings.word_embeddings.weight"]),
-           "position": t(sd["embeddings.position_embeddings.weight"]),
-           "token_type": t(sd["embeddings.token_type_embeddings.weight"]),
-           "ln": _ln(sd["embeddings.LayerNorm.weight"],
-                     sd["embeddings.LayerNorm.bias"])}
+    emb = {"word": t(sd["embeddings.word_embeddings.weight"])}
+    if config.position_embedding_type == "absolute":
+        emb["position"] = t(sd["embeddings.position_embeddings.weight"])
+    emb["token_type"] = t(sd["embeddings.token_type_embeddings.weight"])
+    emb["ln"] = _ln(sd["embeddings.LayerNorm.weight"],
+                    sd["embeddings.LayerNorm.bias"])
     pre = "encoder.layer.{}."
     layers = {
         "attn": {"q": stack_lin(pre + "attention.self.query"),
@@ -347,7 +458,16 @@ def from_hf_state_dict(sd: dict[str, np.ndarray], config: BertConfig,
                 "down": stack_lin(pre + "output.dense"),
                 "ln": stack_ln(pre + "output.LayerNorm")},
     }
-    return {"embeddings": emb, "layers": layers}
+    if "encoder.layer.0.intermediate.gate.weight" in sd:
+        # gated MLP: down(act(gate(x)) * up(x))
+        layers["mlp"]["gate"] = stack_lin(pre + "intermediate.gate")
+    out: Params = {"embeddings": emb, "layers": layers}
+    if "rel_bias" in sd:
+        # MPNet's shared [buckets, heads] table: f32, added to f32 logits
+        out["rel_bias"] = t(sd["rel_bias"], torch.float32)
+    if config.position_embedding_type == "alibi":
+        out["alibi_slopes"] = _slopes(config)
+    return out
 
 
 def _load_st_modules(model_dir: Path, params: Params,

@@ -1,8 +1,11 @@
 """Fused multi-head attention over the fused QKV projection — the
 PyTorch port of ``embeddings_tpu/ops/attention.py``: the prefix-masked
-``fused_attention`` (K2) and, for token-packed rows, the segment-masked
-``fused_attention_segmented`` (K4) and its block-skipping variant
-``fused_attention_segmented_blockskip`` (K5).
+``fused_attention`` (K2), its logit-biased variant
+``fused_attention_bias`` (K7: MPNet's relative-position bias, ALiBi on
+short rows) and its key-streamed variant ``fused_attention_stream`` (K6:
+long rows, in-kernel ALiBi), and, for token-packed rows, the
+segment-masked ``fused_attention_segmented`` (K4) and its block-skipping
+variant ``fused_attention_segmented_blockskip`` (K5).
 
 Each wrapper launches its mask mode of the hand-written kernel
 ``csrc/attention.cu`` on a CUDA tensor, or raises; on a CPU tensor it runs
@@ -11,10 +14,11 @@ step: exp2 of the clamped scores with no max-subtraction, probabilities
 rounded to the compute dtype before both the PV product and the
 denominator, 1e-30 floor on the denominator (pad query rows stay finite).
 K2 pre-scales q by log2(e)/sqrt(D) and rounds it to the compute dtype;
-K4 and K5 scale the f32 scores after the dot, as their TPU kernels do.
+K4-K7 scale the f32 scores after the dot, as their TPU kernels do.
 
-The streamed, biased and context-parallel kernels (K6-K8b), and the
-int8-score and emission options, are not ported yet.
+Not ported yet: K6's causal and banded modes (``fused_attention_window``),
+the context-parallel kernels (K8a, K8b), and the int8-score and emission
+options.
 """
 
 from __future__ import annotations
@@ -66,6 +70,17 @@ def _merge_heads(o, p_sum, dt, B, L, H, D):
         B * L, H * D)
 
 
+def _prefix_probs(s, lengths, k0, hi, dt):
+    """Clamped scores s [B, H, Lq, Lk] of keys k0 .. k0+Lk-1 -> exp2,
+    keys j >= lengths[b] set to exactly 0, rounded to the compute dtype
+    (f32 holding dt values)."""
+    s = s.clamp(_CLAMP_LO, hi)
+    kpos = k0 + torch.arange(s.shape[-1], device=s.device)
+    key_ok = kpos[None, :] < lengths.to(s.device)[:, None]    # [B, Lk]
+    return torch.where(key_ok[:, None, None, :], torch.exp2(s),
+                       torch.zeros((), device=s.device)).to(dt).float()
+
+
 def fused_attention_ref(qkv: torch.Tensor, lengths: torch.Tensor, *,
                         B: int, L: int, H: int, D: int) -> torch.Tensor:
     """The plain PyTorch version of K2 (same arguments as
@@ -74,11 +89,7 @@ def fused_attention_ref(qkv: torch.Tensor, lengths: torch.Tensor, *,
     q, k, v = _split_heads(qkv, B, L, H, D)
     qs = (q.float() * _scale(D)).to(dt)
     s = qs.float() @ k.float().transpose(-1, -2)           # [B,H,L,L] f32
-    s = s.clamp(_CLAMP_LO, _clamp_hi(L))
-    key_ok = (torch.arange(L, device=qkv.device)[None, :]
-              < lengths.to(qkv.device)[:, None])           # [B, L]
-    p = torch.where(key_ok[:, None, None, :], torch.exp2(s),
-                    torch.zeros((), device=qkv.device)).to(dt).float()
+    p = _prefix_probs(s, lengths, 0, _clamp_hi(L), dt)
     return _merge_heads(p @ v.float(), p.sum(-1, keepdim=True), dt,
                         B, L, H, D)
 
@@ -92,17 +103,12 @@ def fused_attention(qkv: torch.Tensor, lengths: torch.Tensor, *, B: int,
     A CUDA tensor launches K2 (``csrc/attention.cu``; bf16 qkv, int32
     lengths on the same device). A CPU tensor runs ``fused_attention_ref``.
     """
-    E = H * D
-    if tuple(qkv.shape) != (B * L, 3 * E):
-        raise ValueError(f"qkv {tuple(qkv.shape)} != {(B * L, 3 * E)}")
-    if not supported(L, H, D):
-        raise ValueError(f"fused_attention does not take L={L} H={H} D={D}")
-    if tuple(lengths.shape) != (B,):
-        raise ValueError(f"lengths must be [B]={B}, got {tuple(lengths.shape)}")
+    _check_prefix("fused_attention", supported(L, H, D), qkv, lengths, B,
+                  L, H, D)
     if qkv.device.type == "cpu":
         return fused_attention_ref(qkv, lengths, B=B, L=L, H=H, D=D)
     _check_cuda(qkv, lengths)
-    out = torch.empty((B * L, E), dtype=qkv.dtype, device=qkv.device)
+    out = torch.empty((B * L, H * D), dtype=qkv.dtype, device=qkv.device)
     if B == 0:
         return out
     _launch("fused_attention", MODE_PREFIX, qkv, out, B, L, H, D,
@@ -111,20 +117,211 @@ def fused_attention(qkv: torch.Tensor, lengths: torch.Tensor, *, B: int,
     return out
 
 
+# ---------------------------------------------------------------------------
+# K7: prefix-masked attention with an additive logit bias
+# ---------------------------------------------------------------------------
+
+def _query_block_bias(L: int) -> int:
+    """The JAX bias kernel's query rows per grid step (kept for
+    ``bias_supported``'s rule)."""
+    return L if L <= 256 else BQ
+
+
+def bias_supported(L: int, H: int, D: int) -> bool:
+    """``supported`` + the JAX package's cap on its bias tile: [H, Lq, L]
+    f32 at most 8 MB. The cap is the TPU's VMEM budget, kept so the port
+    routes as the JAX package does (L <= 1280 at H=12); the CUDA kernel
+    reads the bias from device memory and has no such limit."""
+    return (supported(L, H, D)
+            and H * _query_block_bias(L) * L * 4 <= 8 * 1024 * 1024)
+
+
+def prepare_attention_bias(bias: torch.Tensor, L: int) -> torch.Tensor:
+    """[1, H, L, L] additive logit bias -> K7's operand: [H, L, L] f32,
+    contiguous, pre-scaled by log2(e) (the kernel's exponent is base-2).
+    Batch-independent, so a forward computes it once for all its layers.
+    (The TPU kernel takes a block-major [nQ, H, Lq, L] layout for its
+    grid; a CUDA block reads its query rows of [H, L, L] in place.)"""
+    if bias.dim() != 4 or bias.shape[0] != 1 \
+            or tuple(bias.shape[2:]) != (L, L):
+        raise ValueError(f"bias must be [1, H, {L}, {L}], got "
+                         f"{tuple(bias.shape)}")
+    return (bias[0].float() * LOG2E).contiguous()
+
+
+def fused_attention_bias_ref(qkv: torch.Tensor, lengths: torch.Tensor,
+                             bias: torch.Tensor, *, B: int, L: int, H: int,
+                             D: int) -> torch.Tensor:
+    """The plain PyTorch version of K7 (same arguments as
+    ``fused_attention_bias``): s = (q.k) * s2 + bias in f32 (q not
+    pre-rounded), clamped after the bias add."""
+    dt = qkv.dtype
+    q, k, v = _split_heads(qkv, B, L, H, D)
+    s = (q.float() @ k.float().transpose(-1, -2)) * _scale(D)
+    s = s + bias.to(qkv.device)[None]
+    p = _prefix_probs(s, lengths, 0, _clamp_hi(L), dt)
+    return _merge_heads(p @ v.float(), p.sum(-1, keepdim=True), dt,
+                        B, L, H, D)
+
+
+def fused_attention_bias(qkv: torch.Tensor, lengths: torch.Tensor,
+                         bias: torch.Tensor, *, B: int, L: int, H: int,
+                         D: int) -> torch.Tensor:
+    """``fused_attention`` + an additive attention-logit bias (MPNet's
+    relative-position table, jina-bert-v2's ALiBi on short rows). bias:
+    [H, L, L] f32 from ``prepare_attention_bias`` (log2-scaled,
+    batch-independent). A CUDA tensor launches K7 (``csrc/attention.cu``,
+    bias mode); a CPU tensor runs ``fused_attention_bias_ref``."""
+    _check_prefix("fused_attention_bias", bias_supported(L, H, D), qkv,
+                  lengths, B, L, H, D)
+    if tuple(bias.shape) != (H, L, L) or bias.dtype != torch.float32:
+        raise ValueError(f"bias must be f32 [H, L, L]={(H, L, L)}, got "
+                         f"{bias.dtype} {tuple(bias.shape)}")
+    if qkv.device.type == "cpu":
+        return fused_attention_bias_ref(qkv, lengths, bias, B=B, L=L, H=H,
+                                        D=D)
+    _check_cuda(qkv, lengths)
+    if bias.device != qkv.device or not bias.is_contiguous() \
+            or bias.data_ptr() % 16:
+        raise ValueError("bias must be contiguous on qkv's device (16-byte "
+                         "aligned)")
+    out = torch.empty((B * L, H * D), dtype=qkv.dtype, device=qkv.device)
+    if B == 0:
+        return out
+    _launch("fused_attention_bias", MODE_BIAS, qkv, out, B, L, H, D,
+            _clamp_hi(L), lengths=lengths, bias=bias)
+    fused_attention_bias.launches += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K6: prefix-masked attention streamed over key blocks (plain and ALiBi)
+# ---------------------------------------------------------------------------
+
+def stream_supported(L: int, H: int, D: int, BK: int = 512) -> bool:
+    """Shapes the streaming kernel carries (the JAX package's rule:
+    128-row query blocks, key blocks of BK, lane-tiled E; restricted to
+    the head dims the CUDA kernel is built for)."""
+    return (D in KERNEL_HEAD_DIMS and (H * D) % LANE == 0
+            and L % BQ == 0 and L % BK == 0)
+
+
+def pick_bk(L: int) -> int:
+    """The JAX package's key-block size: the largest of 512, 256, 128
+    dividing L."""
+    for bk in (512, 256, 128):
+        if L % bk == 0:
+            return bk
+    return BQ
+
+
+def whole_row_fits(L: int, E: int) -> bool:
+    """The JAX package's rule for when whole-row bf16 K/V fits the TPU's
+    VMEM (double-buffered k and v plus 4 MB of tiles within 15 MB; past it,
+    L > 1877 at E=768, dispatch streams key blocks). It is the TPU's
+    budget, kept only so the port picks the same route and numerics as
+    the JAX package: the CUDA kernels stream 64-key tiles at every
+    length."""
+    return 4 * L * E * 2 + 4 * 1024 * 1024 <= 15 * 1024 * 1024
+
+
+def fused_attention_stream_ref(qkv: torch.Tensor, lengths: torch.Tensor,
+                               *, B: int, L: int, H: int, D: int,
+                               BK: int = 512,
+                               alibi_slopes=None) -> torch.Tensor:
+    """The plain PyTorch version of K6 (same arguments as
+    ``fused_attention_stream``). It walks key blocks of BK as the TPU
+    grid does, so its scores take O(L * BK) memory, not O(L^2):
+    s = (q.k) * s2 in f32, minus slope_h * (|i-j| * log2(e)) with ALiBi,
+    clamped with the bound sized to all L keys; block sums add up with no
+    rescaling."""
+    dt = qkv.dtype
+    q, k, v = _split_heads(qkv, B, L, H, D)
+    dev = qkv.device
+    hi = _clamp_hi(L)
+    slopes = None
+    if alibi_slopes is not None:
+        slopes = torch.as_tensor(alibi_slopes, dtype=torch.float32,
+                                 device=dev)[None, :, None, None]
+    qf = q.float()
+    pos = torch.arange(L, device=dev)
+    o = torch.zeros(B, H, L, D, device=dev)
+    den = torch.zeros(B, H, L, 1, device=dev)
+    for k0 in range(0, L, BK):
+        ks = slice(k0, k0 + BK)
+        s = (qf @ k[:, :, ks].float().transpose(-1, -2)) * _scale(D)
+        if slopes is not None:
+            dist = (pos[:, None] - pos[None, ks]).abs().float() * LOG2E
+            s = s - slopes * dist
+        p = _prefix_probs(s, lengths, k0, hi, dt)
+        o += p @ v[:, :, ks].float()
+        den += p.sum(-1, keepdim=True)
+    return _merge_heads(o, den, dt, B, L, H, D)
+
+
+def fused_attention_stream(qkv: torch.Tensor, lengths: torch.Tensor, *,
+                           B: int, L: int, H: int, D: int, BK: int = 512,
+                           alibi_slopes=None) -> torch.Tensor:
+    """Prefix-masked attention for long rows, as ``fused_attention`` but
+    with the scores scaled after the dot (q not pre-rounded) and the
+    clamp sized to L keys; ``alibi_slopes`` ([H] f32 tensor or floats)
+    adds jina-bert-v2's -slope_h * |i-j| from positions inside the
+    kernel, so no O(L^2) bias array exists. BK is the JAX kernel's key
+    block (``pick_bk``): it fixes the shapes taken and the plain
+    version's walk. A CUDA tensor launches K6 (``csrc/attention.cu``,
+    stream or ALiBi mode); a CPU tensor runs
+    ``fused_attention_stream_ref``."""
+    _check_prefix(f"fused_attention_stream (BK={BK})",
+                  stream_supported(L, H, D, BK), qkv, lengths, B, L, H, D)
+    if alibi_slopes is not None and len(alibi_slopes) != H:
+        raise ValueError(f"{len(alibi_slopes)} ALiBi slopes for {H} heads")
+    if qkv.device.type == "cpu":
+        return fused_attention_stream_ref(qkv, lengths, B=B, L=L, H=H, D=D,
+                                          BK=BK, alibi_slopes=alibi_slopes)
+    _check_cuda(qkv, lengths)
+    slopes = None
+    if alibi_slopes is not None:
+        slopes = torch.as_tensor(alibi_slopes, dtype=torch.float32,
+                                 device=qkv.device).contiguous()
+    out = torch.empty((B * L, H * D), dtype=qkv.dtype, device=qkv.device)
+    if B == 0:
+        return out
+    _launch("fused_attention_stream",
+            MODE_STREAM if slopes is None else MODE_ALIBI, qkv, out, B, L,
+            H, D, _clamp_hi(L), lengths=lengths, slopes=slopes)
+    fused_attention_stream.launches += 1
+    return out
+
+
 # mask modes of csrc/attention.cu
 MODE_PREFIX, MODE_SEGMENT, MODE_WINDOW = 0, 1, 2
+MODE_BIAS, MODE_STREAM, MODE_ALIBI = 3, 4, 5
 
 
 def _launch(what, mode, qkv, out, B, L, H, D, hi, *, lengths=None,
-            seg=None, kbs=None, kbe=None, W=0) -> None:
+            seg=None, kbs=None, kbe=None, bias=None, slopes=None,
+            W=0) -> None:
     lib = _lib()
     ptr = [None if t is None else t.data_ptr()
-           for t in (lengths, seg, kbs, kbe)]
+           for t in (lengths, seg, kbs, kbe, bias, slopes)]
     status = lib.attn_launch(
         qkv.data_ptr(), *ptr, out.data_ptr(), mode, B, L, H, D, W,
         _scale(D), hi, torch.cuda.current_stream(qkv.device).cuda_stream)
     from ._cuda import check
     check(status, lib.attn_error_string, what)
+
+
+def _check_prefix(what, takes, qkv, lengths, B, L, H, D) -> None:
+    """The prefix-masked wrappers' operand shapes (K2, K6, K7): qkv
+    [B*L, 3*H*D], lengths [B]; ``takes``: the kernel's shape rule."""
+    E = H * D
+    if tuple(qkv.shape) != (B * L, 3 * E):
+        raise ValueError(f"qkv {tuple(qkv.shape)} != {(B * L, 3 * E)}")
+    if not takes:
+        raise ValueError(f"{what} does not take L={L} H={H} D={D}")
+    if tuple(lengths.shape) != (B,):
+        raise ValueError(f"lengths must be [B]={B}, got "
+                         f"{tuple(lengths.shape)}")
 
 
 def _check_segments(qkv, seg_ids, B, L, H, D) -> None:
@@ -292,9 +489,11 @@ def fused_attention_segmented_blockskip(
     return out
 
 
-# launch counters: every successful K2 / K4 / K5 launch adds one; callers
-# reset them to 0 around the run they measure
+# launch counters: every successful K2 / K4 / K5 / K6 / K7 launch adds
+# one; callers reset them to 0 around the run they measure
 fused_attention.launches = 0
+fused_attention_bias.launches = 0
+fused_attention_stream.launches = 0
 fused_attention_segmented.launches = 0
 fused_attention_segmented_blockskip.launches = 0
 
@@ -304,7 +503,7 @@ def _lib() -> ctypes.CDLL:
     lib = _cuda.load("attention")
     if not getattr(lib, "_typed", False):
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.attn_launch.argtypes = [p] * 6 + [i] * 6 + [f, f, p]
+        lib.attn_launch.argtypes = [p] * 8 + [i] * 6 + [f, f, p]
         lib.attn_launch.restype = i
         lib.attn_error_string.argtypes = [i]
         lib.attn_error_string.restype = ctypes.c_char_p

@@ -13,8 +13,9 @@ the bucketed and the token-packed batch schedulers — the port of
 
 The forward runs eagerly, one Python loop over the layers; on a CUDA device
 every quantized matmul (K1, or K3 with ``EngineConfig.int8_compute``) and
-the attention (K2 on padded batches, K4/K5 on packed rows) launch the
-port's hand-written kernels. ``device=None`` means "cuda", and a missing
+the attention (K2 on padded batches, K7 with MPNet's or short rows' ALiBi
+bias, K6 on long rows and long ALiBi rows, K4/K5 on packed rows) launch
+the port's hand-written kernels. ``device=None`` means "cuda", and a missing
 CUDA device raises: the engine never carries on on the CPU unless asked to.
 """
 
@@ -40,7 +41,7 @@ def _bucket_window(w: int, row_len: int) -> int:
     """Quantize the packed attention window to a small fixed set, so a
     varied corpus runs a handful of window values per row_len instead of
     one per distinct span (1..row_len/128). Values past the block-skip
-    threshold (row_len/128 - 2, ``models.bert.attention_route``) select
+    threshold (row_len/128 - 2, ``models.bert.attention_route_name``) select
     the full segmented kernel and ignore the window, so they collapse to
     one sentinel. Rounding a span up only widens the window: always
     correct, occasionally a block of extra work."""

@@ -10,7 +10,7 @@ differ by bf16 rounding flips (K1: 2^-7 relative + 1e-3 of the output
 RMS; K2, whose probabilities are also rounded to bf16: 2^-6 + 1e-2).
 K3 as K1: its int8 operands equal the plain version's bit for bit and
 its s32 sums are exact, so only the last f32 bits of the activation and
-the bf16 rounding of the output differ. K4 and K5 as K2.
+the bf16 rounding of the output differ. K4-K7 as K2.
 """
 
 import numpy as np
@@ -194,6 +194,63 @@ def test_fused_attention_kernel_matches_plain(cuda, B, L, H, D):
     assert (got.reshape(B, L, -1)[0] == 0).all()
 
 
+def _bias(kind, L, H, rng, dev):
+    """[1, H, L, L] f32 logit bias: a random table-like one or ALiBi."""
+    from embeddings_tpu_torch.models.bert import alibi_attention_bias
+    from embeddings_tpu_torch.ops.alibi import alibi_slopes
+    if kind == "table":
+        return torch.from_numpy(rng.standard_normal(
+            (1, H, L, L), dtype=np.float32) * np.float32(2.0)).to(dev)
+    slopes = torch.tensor(alibi_slopes(H), dtype=torch.float32, device=dev)
+    return alibi_attention_bias(slopes, torch.arange(L, device=dev)[None])
+
+
+def _ragged(rng, B, L, dev):
+    lengths = rng.integers(1, L + 1, B)
+    lengths[0], lengths[-1] = 0, L
+    return torch.from_numpy(lengths.astype(np.int32)).to(dev)
+
+
+@pytest.mark.parametrize("kind", ["table", "alibi"])
+@pytest.mark.parametrize("B,L,H,D", [(3, 16, 12, 64), (2, 72, 4, 32),
+                                     (2, 128, 2, 128), (4, 256, 12, 64),
+                                     (2, 1024, 12, 64)])
+def test_bias_attention_kernel_matches_plain(cuda, B, L, H, D, kind):
+    rng = np.random.default_rng(L + H)
+    qkv = torch.from_numpy(rng.standard_normal(
+        (B * L, 3 * H * D), dtype=np.float32)).to(cuda, torch.bfloat16)
+    lens = _ragged(rng, B, L, cuda)
+    bias = A.prepare_attention_bias(_bias(kind, L, H, rng, cuda), L)
+    kw = dict(B=B, L=L, H=H, D=D)
+    before = A.fused_attention_bias.launches
+    got = A.fused_attention_bias(qkv, lens, bias, **kw)
+    assert A.fused_attention_bias.launches == before + 1
+    _close(got, A.fused_attention_bias_ref(qkv, lens, bias, **kw), 2 ** -6,
+           1e-2)
+    assert (got.reshape(B, L, -1)[0] == 0).all()
+
+
+@pytest.mark.parametrize("alibi", [False, True])
+@pytest.mark.parametrize("B,L,H,D,BK", [(2, 256, 4, 32, 128),
+                                        (2, 384, 2, 128, 128),
+                                        (3, 512, 12, 64, 512),
+                                        (2, 2048, 12, 64, 512)])
+def test_stream_attention_kernel_matches_plain(cuda, B, L, H, D, BK, alibi):
+    from embeddings_tpu_torch.ops.alibi import alibi_slopes
+    rng = np.random.default_rng(L + BK)
+    qkv = torch.from_numpy(rng.standard_normal(
+        (B * L, 3 * H * D), dtype=np.float32)).to(cuda, torch.bfloat16)
+    lens = _ragged(rng, B, L, cuda)
+    slopes = (torch.tensor(alibi_slopes(H), dtype=torch.float32,
+                           device=cuda) if alibi else None)
+    kw = dict(B=B, L=L, H=H, D=D, BK=BK, alibi_slopes=slopes)
+    before = A.fused_attention_stream.launches
+    got = A.fused_attention_stream(qkv, lens, **kw)
+    assert A.fused_attention_stream.launches == before + 1
+    _close(got, A.fused_attention_stream_ref(qkv, lens, **kw), 2 ** -6, 1e-2)
+    assert (got.reshape(B, L, -1)[0] == 0).all()
+
+
 def test_kernels_raise_on_wrong_dtype(cuda):
     qt = quantize(np.zeros((64, 64), np.float32), "q4_0").map(
         lambda t: t.to(cuda))
@@ -210,3 +267,15 @@ def test_kernels_raise_on_wrong_dtype(cuda):
             torch.zeros(16, 384, device=cuda, dtype=torch.bfloat16),
             torch.zeros(1, 16, dtype=torch.int64, device=cuda),
             B=1, L=16, H=2, D=64)
+    qkv = torch.zeros(128, 384, device=cuda)
+    lens = torch.ones(1, dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError):
+        A.fused_attention_bias(qkv, lens, torch.zeros(2, 128, 128,
+                                                      device=cuda),
+                               B=1, L=128, H=2, D=64)
+    with pytest.raises(TypeError):
+        A.fused_attention_stream(qkv, lens, B=1, L=128, H=2, D=64, BK=128)
+    with pytest.raises(ValueError):  # the bias on the host
+        A.fused_attention_bias(qkv.to(torch.bfloat16), lens,
+                               torch.zeros(2, 128, 128), B=1, L=128, H=2,
+                               D=64)

@@ -154,8 +154,9 @@ def test_attention_route_matches_jax():
                       (1024, True, 15), (256, False, 0), (520, True, 2)]:
         want = jbert.attention_route_name(L, 2, 64, 128, seg, w, False,
                                           False, False, False)
-        got = tbert.attention_route(L, seg, w)
-        assert {"whole_row": "prefix"}.get(want, want) == got, (L, seg, w)
+        got = tbert.attention_route_name(L, 128, segmented=seg,
+                                         attn_window=w)
+        assert want == got, (L, seg, w)
 
 
 # ---------------------------------------------------------------------------
