@@ -1,5 +1,5 @@
 """Smoke test of the PyTorch/CUDA port on one GPU: builds the hand-written
-kernels (K1-K7), holds each against its plain PyTorch version on the card,
+kernels (K1-K7 and K6w), holds each against its plain PyTorch version on the card,
 and drives the port's paths through Engine -> encode_batch (or
 encode_batch_packed) -> BatchingService -> TCP, checking each path's
 kernel launch counts:
@@ -12,12 +12,14 @@ kernel launch counts:
 - jina-embeddings-v2-base-en q4_0 (GeGLU: 5 K1 a layer; K6 with in-kernel
   ALiBi at L=8192, K7 with the ALiBi bias at L=1024), and the trained
   tiny ALiBi fixture;
+- gte-modernbert-base q4_0 (pre-norm, RoPE, GeGLU, 22 layers: 8 global
+  on K2 at L=1024 or K6 plain at L=8192, 14 local on the banded K6w);
 
 then times the kernels and the forwards, with a device-time profile of
 each forward by kernel.
 
     python3 chip_smoke.py              # every phase, needs one CUDA device
-    python3 chip_smoke.py --phases device,build,k1,k2,k3,k4k5,k6k7
+    python3 chip_smoke.py --phases device,build,k1,k2,k3,k4k5,k6k7,k6w
 
 Each phase prints one JSON line. The last two lines are the kernel table
 and ``{"ok": true, "device": {...}}``; any failure exits non-zero before
@@ -70,6 +72,8 @@ K6_REPLACES = ("embeddings_tpu/ops/attention.py:661 (_attn_kernel_stream "
                "via _stream_call :842, fused_attention_stream :900)")
 K7_REPLACES = ("embeddings_tpu/ops/attention.py:180 (_attn_kernel_bias via "
                "fused_attention_bias :240)")
+K6W_REPLACES = ("embeddings_tpu/ops/attention.py:661 (_attn_kernel_stream, "
+                "span + window mode, via fused_attention_window :920)")
 # packed shapes: K4 at the default row_len 128 (256 rows), K5 at 1024
 PACK_SHORT = (256, 128)
 PACK_LONG = (32, 1024)
@@ -80,6 +84,16 @@ MPNET_SHAPE = (128, 256)
 JINA_LONG = (4, 8192)
 JINA_SHORT = (32, 1024)
 BERT_LONG = (2, 2048)
+# gte-modernbert-base: 22 layers, every 3rd global, a 128-token window on
+# the others; the same two shapes as jina's (K2 or K6 on global layers)
+MB_LONG, MB_SHORT, MB_WINDOW = (4, 8192), (32, 1024), 128
+MB_NL, MB_GLOBAL, MB_LOCAL, MB_F = 22, 8, 14, 1152
+# its matmuls beside bge's: o-proj and down with a plain bias epilogue
+# (the residual adds are outside, in the pre-norm block), GeGLU gate | up
+MB_K1_SHAPES = {"mb_o_proj": (E, E, "bias"),
+                "mb_gate": (E, MB_F, "bias_gelu"),
+                "mb_up": (E, MB_F, "bias"),
+                "mb_down": (MB_F, E, "bias")}
 
 # tolerances (kernel vs plain version on the same inputs, bf16 outputs):
 # both round the same bf16 operands and accumulate in f32 in different
@@ -199,7 +213,8 @@ def counters() -> dict:
     return {"K1": Q.qmatmul, "K2": A.fused_attention, "K3": Q.qmatmul_int8,
             "K4": A.fused_attention_segmented,
             "K5": A.fused_attention_segmented_blockskip,
-            "K6": A.fused_attention_stream, "K7": A.fused_attention_bias}
+            "K6": A.fused_attention_stream, "K7": A.fused_attention_bias,
+            "K6w": A.fused_attention_window}
 
 
 def reset_counts() -> None:
@@ -287,7 +302,7 @@ def phase_k1():
     rng = np.random.default_rng(1)
     dev = torch.device("cuda")
     main = {}
-    for name, (K, N, epi) in K1_SHAPES.items():
+    for name, (K, N, epi) in {**K1_SHAPES, **MB_K1_SHAPES}.items():
         args, kw, _ = k1_inputs(rng, M, K, N, "q4_0", True, epi, dev)
         got = qmatmul(*args.values(), **kw)
         ref = qmatmul_ref(*args.values(), **kw)
@@ -774,10 +789,70 @@ def phase_k6k7():
          f"{K2_ATOL_RMS}*rms(ref)", **out)
 
 
+def band_pairs(lengths, Lx: int, window: int) -> int:
+    """(query, key) pairs banded attention needs on this data: both
+    inside the row's length and |i - j| <= window // 2."""
+    w = window // 2
+    total = 0
+    for n in lengths:
+        i = np.arange(int(n))
+        total += int((np.minimum(i + w, n - 1) - np.maximum(i - w, 0)
+                      + 1).sum())
+    return total
+
+
+def phase_k6w():
+    """K6w (banded attention, ModernBERT's local layers) at the path's two
+    shapes with window 128, and at small shapes around its walk's edges
+    (a window of 8, the band covering the row, L=384 where the TPU walks
+    every key block): ragged rows with an all-pad row first, against its
+    plain version on the same inputs, at K2's tolerance on the query rows
+    the model reads."""
+    import torch
+    from embeddings_tpu_torch.ops import attention as A
+    rng = np.random.default_rng(9)
+    dev = torch.device("cuda")
+    out = {}
+    for name, (Bx, Lx), window in (("short", MB_SHORT, MB_WINDOW),
+                                   ("long", MB_LONG, MB_WINDOW),
+                                   ("L384_w128", (4, 384), MB_WINDOW),
+                                   ("L512_w8", (4, 512), 8),
+                                   ("L256_w1024", (4, 256), 1024)):
+        qkv, lens = _attn_qkv(rng, Bx, Lx, dev)
+        kw = dict(B=Bx, L=Lx, H=H, D=D, window=window)
+        got = A.fused_attention_window(qkv, lens, **kw)
+        ref = A.fused_attention_window_ref(qkv, lens, **kw)
+        torch.cuda.synchronize()
+        # query rows i < len[b] carry the model; a pad query attends the
+        # few keys in [i - w/2, len[b]) and is never read, and there one
+        # bf16 flip of a probability (the two sum the scores in other
+        # orders) moves the output by up to 2^-8 of a key's value
+        i = torch.arange(Lx, device=dev)[None, :]
+        real = (i < lens[:, None]).reshape(-1)
+        none = (i >= lens[:, None] + window // 2).reshape(-1)
+        r = dict(compare(got[real], ref[real], K2_RTOL, K2_ATOL_RMS),
+                 shape=[Bx, Lx, H, D], window=window,
+                 pad_rows_max_abs_err=(got[~real].float()
+                                       - ref[~real].float()).abs().max()
+                 .item(),
+                 out_of_reach_rows_exact_zero=bool((got[none] == 0).all()),
+                 zero_row_exact=bool((got.reshape(Bx, Lx, E)[0] == 0).all()))
+        check(r["ok"] and r["zero_row_exact"]
+              and r["out_of_reach_rows_exact_zero"]
+              and bool(torch.isfinite(got).all()),
+              f"K6w {name} disagrees: {r}")
+        out[name] = r
+        del ref
+    emit("k6w_parity", tolerance=f"|err| <= {K2_RTOL}*|ref| + "
+         f"{K2_ATOL_RMS}*rms(ref) on query rows i < len; pad query rows "
+         f"finite, exactly 0 past len + window/2 and on len-0 rows", **out)
+
+
 def _family_engine(family: str, **ec):
-    """all-mpnet-base-v2, jina-embeddings-v2-base-en or a bge-base-shaped
-    BERT with 2,048 positions ("bert_long") at full width and depth, q4_0
-    packed + fused qkv, random weights from numpy seed 0, on the card."""
+    """all-mpnet-base-v2, jina-embeddings-v2-base-en, gte-modernbert-base
+    or a bge-base-shaped BERT with 2,048 positions ("bert_long") at full
+    width and depth, q4_0 packed + fused qkv, random weights from numpy
+    seed 0, on the card."""
     import torch
     from embeddings_tpu_torch import BertConfig, EngineConfig, KNOWN_MODELS
     from embeddings_tpu_torch.models import params as P
@@ -788,6 +863,7 @@ def _family_engine(family: str, **ec):
         kw = {"mpnet": dict(KNOWN_MODELS["all-mpnet-base-v2"],
                             vocab_size=30527, max_position_embeddings=514),
               "jina": dict(KNOWN_MODELS["jina-embeddings-v2-base-en"]),
+              "modernbert": dict(KNOWN_MODELS["gte-modernbert-base"]),
               "bert_long": dict(KNOWN_MODELS["bge-base-en-v1.5"],
                                 vocab_size=30528,
                                 max_position_embeddings=2048)}[family]
@@ -955,12 +1031,63 @@ def _trained_alibi() -> dict:
     return r
 
 
+def phase_modernbert_path():
+    """gte-modernbert-base q4_0 at full width and depth (22 layers, CLS
+    pooling) through Engine.encode_batch: B=32 rows of 1,024 tokens run
+    110 K1 + 8 K2 (global layers) + 14 K6w (local layers) a forward, B=4
+    rows of 8,192 run 110 K1 + 8 K6 plain + 14 K6w; no einsum attention.
+    One or two sequences of each against the plain f32 path; the TCP
+    server."""
+    eng = _family_engine("modernbert", batch_size=MB_SHORT[0])
+    plain = _family_engine("modernbert", batch_size=MB_SHORT[0],
+                           use_pallas="never", compute_dtype="float32")
+    long_texts = [_joined(i * 350, 1000) for i in range(MB_LONG[0])]
+    short_texts = [_joined(i * 70, 70) for i in range(MB_SHORT[0])]
+    check(all(len(eng.tokenize(t)) == MB_LONG[1] for t in long_texts),
+          f"long texts do not fill L={MB_LONG[1]}")
+    lens = [len(eng.tokenize(t)) for t in short_texts]
+    check(MB_SHORT[1] // 2 < min(lens) and max(lens) <= MB_SHORT[1],
+          f"short texts outside the L=1024 bucket: {min(lens)}..{max(lens)}")
+    from embeddings_tpu_torch.ops.qmatmul import qmatmul
+    out, k1_shapes = {}, {}
+    for name, texts, glob, shape, n_plain in (
+            ("long", long_texts, "K6", MB_LONG, 1),
+            ("short", short_texts, "K2", MB_SHORT, 2)):
+        emb, counts, n, wall = _run_counted(eng, texts)
+        for key, c in qmatmul.shapes.items():
+            k1_shapes[key] = k1_shapes.get(key, 0) + c
+        cos = _row_cos(emb[:n_plain], plain.encode_batch(texts[:n_plain]))
+        norms = np.linalg.norm(emb, axis=1)
+        out[name] = dict(batch=list(shape), forwards=n, launches=counts,
+                         wall_s=wall, norm_min=float(norms.min()),
+                         norm_max=float(norms.max()),
+                         kernel_vs_plain_f32_min_cos=float(cos.min()),
+                         plain_rows=n_plain)
+        check(np.isfinite(emb).all() and emb.shape == (len(texts), E),
+              f"modernbert {name}: output not finite / wrong shape")
+        want = only(K1=5 * MB_NL, K6w=MB_LOCAL, **{glob: MB_GLOBAL})
+        check(n == 1 and counts == want,
+              f"modernbert {name}: launches {counts} over {n} forwards, "
+              f"expected {want}")
+        check(np.abs(norms - 1).max() < 1e-3,
+              f"modernbert {name}: not unit norm")
+        check(cos.min() >= 0.999,
+              f"modernbert {name} vs plain f32: {cos.min()}")
+        STATE[f"launches_K6w_modernbert_{name}"] = counts["K6w"]
+        STATE[f"launches_{glob}_modernbert"] = counts[glob]
+    STATE.setdefault("launches", {})["qmatmul_modernbert"] = k1_shapes
+    emit("modernbert_path", model="gte-modernbert-base (random init, numpy "
+         "seed 0) q4_0 packed + fused qkv, CLS pooling",
+         init_quantize_s=STATE["modernbert_params"][2], **out)
+    STATE["modernbert_engine"] = eng
+    _check_tcp("modernbert_server", eng)
+
+
 def phase_timing():
     import torch
     from embeddings_tpu_torch.ops import attention as A
-    from embeddings_tpu_torch.ops.qmatmul import dequantize_bf16, qmatmul, \
-        qmatmul_int8, qmatmul_int8_ref, qmatmul_ref, quantize_rows, \
-        requantize_weight
+    from embeddings_tpu_torch.ops.qmatmul import qmatmul_int8, \
+        qmatmul_int8_ref, quantize_rows, requantize_weight
     dev = torch.device("cuda")
     rng = np.random.default_rng(3)
     saved = read_counts()  # timing launches are not main-path launches
@@ -968,28 +1095,36 @@ def phase_timing():
     eng = STATE["engine"]
     ids = rng.integers(1000, 30000, (B, L)).astype(np.int32)
     mask = np.ones((B, L), np.int32)
-    # forward -> (call, its matmul kernels, its attention kernel's mode)
-    runs = {"bf16": (lambda: eng._forward(ids, mask), ("qmm_kernel",), 0)}
+    # forward -> (call, the kernels one forward launches)
+    bge = {0: NL}  # K2 on every layer
+    runs = {"bf16": (lambda: eng._forward(ids, mask),
+                     launches_want(("qmm_kernel",), 4 * NL, bge))}
     if "engine8" in STATE:
         runs["int8"] = (lambda: STATE["engine8"]._forward(ids, mask),
-                        ("qmm_int8_kernel", "requant_kernel",
-                         "quant_rows_kernel"), 0)
+                        launches_want(("qmm_int8_kernel", "requant_kernel",
+                                       "quant_rows_kernel"), 4 * NL, bge))
     for name, mode in (("K4", 1), ("K5", 2)):
         if name in STATE:
             arrays, W = STATE[name][2], STATE[name][3]
             runs[name] = (lambda a=arrays, w=W: eng._forward_packed(*a, w),
-                          ("qmm_kernel",), mode)
-    # the families' forwards: name -> (engine, shape, attention mode, K1
-    # launches a layer)
-    families = {"mpnet": ("mpnet_engine", MPNET_SHAPE, 3, 4),
-                "jina_long": ("jina_engine", JINA_LONG, 5, 5),
-                "jina_short": ("jina_engine", JINA_SHORT, 3, 5),
-                "bert_long": ("bert_long_engine", BERT_LONG, 4, 4)}
-    for name, (key, shape, mode, per_layer) in families.items():
+                          launches_want(("qmm_kernel",), 4 * NL, {mode: NL}))
+    # the families' forwards: name -> (engine, shape, K1 launches a
+    # forward, {attention mode: launches a forward})
+    mb_k1 = 5 * MB_NL
+    families = {"mpnet": ("mpnet_engine", MPNET_SHAPE, 4 * NL, {3: NL}),
+                "jina_long": ("jina_engine", JINA_LONG, 5 * NL, {5: NL}),
+                "jina_short": ("jina_engine", JINA_SHORT, 5 * NL, {3: NL}),
+                "bert_long": ("bert_long_engine", BERT_LONG, 4 * NL,
+                              {4: NL}),
+                "modernbert_long": ("modernbert_engine", MB_LONG, mb_k1,
+                                    {4: MB_GLOBAL, 6: MB_LOCAL}),
+                "modernbert_short": ("modernbert_engine", MB_SHORT, mb_k1,
+                                     {0: MB_GLOBAL, 6: MB_LOCAL})}
+    for name, (key, shape, k1, attn) in families.items():
         if key in STATE:
             fids = rng.integers(1000, 30000, shape).astype(np.int32)
             runs[name] = (lambda e=STATE[key], i=fids: e._forward(
-                i, np.ones_like(i)), ("qmm_kernel",), mode, per_layer)
+                i, np.ones_like(i)), launches_want(("qmm_kernel",), k1, attn))
     fwd = {k: cuda_ms(r[0], iters=5) for k, r in runs.items()}
     profiles = {k: device_profile(k, *r) for k, r in runs.items()}
     packed_fwd = {}
@@ -1007,23 +1142,9 @@ def phase_timing():
                                 "sentences_per_s": Bx / fwd[name] * 1e3,
                                 "tokens_per_s": Bx * Lx / fwd[name] * 1e3}
 
-    kernels = []
-    for name, (K, N, epi) in K1_SHAPES.items():
-        args, kw, qt = k1_inputs(rng, M, K, N, "q4_0", True, epi, dev)
-        a = list(args.values())
-        w_bf16 = dequantize_bf16(qt.codes, qt.scales, qt.mins, "q4_0", True)
-        bms, by = bound_ms(*k1_cost(M, K, N, epi))
-        kernels.append({
-            "name": f"qmatmul[{name} {K}x{N} {epi}]", "route": "cuda",
-            "source": "embeddings_tpu_torch/csrc/qmatmul.cu",
-            "replaces": K1_REPLACES,
-            "launches": launches.get("qmatmul", {}).get((K, N, epi), 0),
-            "max_abs_err": RESULTS["k1_parity"]["main"][name]["max_abs_err"],
-            "ms": cuda_ms(lambda: qmatmul(*a, **kw)),
-            "plain_ms": cuda_ms(lambda: qmatmul_ref(*a, **kw), iters=3),
-            "bound_ms": bms, "bound_by": by,
-            "library_ms": cuda_ms(lambda: torch.matmul(a[0], w_bf16)),
-            "shape": [M, K, N]})
+    kernels = [k1_row(rng, dev, name, shape,
+                      launches.get("qmatmul", {}))
+               for name, shape in K1_SHAPES.items()]
     qkv = torch.from_numpy(rng.standard_normal(
         (M, 3 * E), dtype=np.float32)).to(dev, torch.bfloat16)
     lens = torch.full((B,), L, dtype=torch.int32, device=dev)
@@ -1101,6 +1222,10 @@ def phase_timing():
             "library_ms": sdpa_ms(qkv, Bx, Lx, same[:, None]),
             "shape": [Bx, Lx, H, D]})
     kernels += bias_stream_rows(rng, dev)
+    kernels += [k1_row(rng, dev, name, shape,
+                       launches.get("qmatmul_modernbert", {}))
+                for name, shape in MB_K1_SHAPES.items()]
+    kernels += window_rows(rng, dev)
     for name, f in counters().items():
         f.launches = saved[name]
     per_layer_bound = sum(kk["bound_ms"] for kk in kernels[:5])
@@ -1116,14 +1241,78 @@ def phase_timing():
     RESULTS["kernels"] = kernels
 
 
-def device_profile(name: str, fn, matmuls, mode: int,
-                   per_layer: int = 4) -> dict:
+def launches_want(matmuls, per_forward: int, attn: dict) -> dict:
+    """The launches one forward makes, by the profiler's kernel names:
+    per_forward of each matmul kernel, and of attn_kernel<D, mode> the
+    count {mode: count} gives."""
+    return {**{k: per_forward for k in matmuls},
+            **{f"attn_kernel<{D}, {m}>": n for m, n in attn.items()}}
+
+
+def k1_row(rng, dev, name: str, shape, launches: dict) -> dict:
+    """K1's row of the kernel table at M = 32,768 tokens and one (K, N,
+    epilogue) of a main path; ``launches``: that path's counts by shape.
+    The library yardstick is a bf16 matmul on the dequantized weight."""
+    import torch
+    from embeddings_tpu_torch.ops.qmatmul import dequantize_bf16, qmatmul, \
+        qmatmul_ref
+    K, N, epi = shape
+    args, kw, qt = k1_inputs(rng, M, K, N, "q4_0", True, epi, dev)
+    a = list(args.values())
+    w_bf16 = dequantize_bf16(qt.codes, qt.scales, qt.mins, "q4_0", True)
+    bms, by = bound_ms(*k1_cost(M, K, N, epi))
+    return {
+        "name": f"qmatmul[{name} {K}x{N} {epi}]", "route": "cuda",
+        "source": "embeddings_tpu_torch/csrc/qmatmul.cu",
+        "replaces": K1_REPLACES, "launches": launches.get(shape, 0),
+        "max_abs_err": RESULTS["k1_parity"]["main"][name]["max_abs_err"],
+        "ms": cuda_ms(lambda: qmatmul(*a, **kw)),
+        "plain_ms": cuda_ms(lambda: qmatmul_ref(*a, **kw), iters=3),
+        "bound_ms": bms, "bound_by": by,
+        "library_ms": cuda_ms(lambda: torch.matmul(a[0], w_bf16)),
+        "shape": [M, K, N]}
+
+
+def window_rows(rng, dev) -> list:
+    """K6w's rows of the kernel table at ModernBERT's two shapes, every row
+    full. The bound counts the band's (query, key) pairs, not the tiles
+    the kernel walks; the library yardstick is SDPA with the boolean
+    band mask (prefix and band in one [L, L] mask, as the rows are
+    full)."""
+    import torch
+    from embeddings_tpu_torch.ops import attention as A
+    out = []
+    for name, (Bx, Lx) in (("short", MB_SHORT), ("long", MB_LONG)):
+        qkv, lens = _attn_qkv(rng, Bx, Lx, dev, ragged=False)
+        kw = dict(B=Bx, L=Lx, H=H, D=D, window=MB_WINDOW)
+        pairs = band_pairs(lens.tolist(), Lx, MB_WINDOW)
+        bms, by = bound_ms(4.0 * H * D * pairs,
+                           Bx * Lx * (3 * E * 2 + E * 2) + Bx * 4)
+        i = torch.arange(Lx, device=dev)
+        band = ((i[:, None] - i[None, :]).abs() <= MB_WINDOW // 2)
+        out.append({
+            "name": f"fused_attention_window[B{Bx} L{Lx} H{H} D{D} "
+                    f"w{MB_WINDOW}]", "route": "cuda",
+            "source": "embeddings_tpu_torch/csrc/attention.cu",
+            "replaces": K6W_REPLACES,
+            "launches": STATE.get(f"launches_K6w_modernbert_{name}", 0),
+            "max_abs_err": RESULTS["k6w_parity"][name]["max_abs_err"],
+            "ms": cuda_ms(lambda: A.fused_attention_window(qkv, lens, **kw)),
+            "plain_ms": cuda_ms(lambda: A.fused_attention_window_ref(
+                qkv, lens, **kw), iters=3),
+            "bound_ms": bms, "bound_by": by,
+            "library_ms": sdpa_ms(qkv, Bx, Lx, band[None, None]),
+            "band_pairs": pairs, "shape": [Bx, Lx, H, D]})
+        del band
+    return out
+
+
+def device_profile(name: str, fn, want: dict) -> dict:
     """Device time by kernel over one forward (torch.profiler, CUDA
     activity). The idle share is the gaps between the forward's first
     kernel start and last kernel end (the profiler slows the host, so its
-    wall time says nothing of idleness). Checks that the trace holds
-    per_layer * NL launches of each matmul kernel (5 a layer with a gated
-    MLP) and NL of the attention kernel in its mode."""
+    wall time says nothing of idleness). Checks that the trace holds the
+    launches ``want`` names (``launches_want``)."""
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
     # one warm-up step: without it the tracer can miss the first kernels
@@ -1156,8 +1345,6 @@ def device_profile(name: str, fn, matmuls, mode: int,
     span = (max(b for _, b in spans) - min(a for a, _ in spans)) / 1e3 \
         if spans else 0.0
     seen = {k: v[1] for k, v in by_kind.items()}
-    want = {**{k: per_layer * NL for k in matmuls},
-            f"attn_kernel<{D}, {mode}>": NL}
     check(busy > 0 and all(seen.get(k) == n for k, n in want.items()),
           f"profile {name}: launches {seen}, want {want}")
     return {
@@ -1247,11 +1434,12 @@ def bias_stream_rows(rng, dev) -> list:
 
 PHASES = {"device": phase_device, "build": phase_build, "k1": phase_k1,
           "k2": phase_k2, "k3": phase_k3, "k4k5": phase_k4k5,
-          "k6k7": phase_k6k7, "main": phase_main_path,
+          "k6k7": phase_k6k7, "k6w": phase_k6w, "main": phase_main_path,
           "trained": phase_trained, "server": phase_server,
           "int8_path": phase_int8_path, "packed_path": phase_packed_path,
           "long_path": phase_long_path, "mpnet_path": phase_mpnet_path,
-          "jina_path": phase_jina_path, "timing": phase_timing}
+          "jina_path": phase_jina_path,
+          "modernbert_path": phase_modernbert_path, "timing": phase_timing}
 
 
 def main() -> int:

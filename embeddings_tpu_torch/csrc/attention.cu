@@ -1,6 +1,6 @@
 // Fused multi-head self-attention over the fused QKV projection, for
-// sm_90a: kernels K2, K4, K5, K6 and K7 of the PyTorch port, as six mask
-// modes of one kernel.
+// sm_90a: kernels K2, K4, K5, K6 (with its banded mode K6w) and K7 of the
+// PyTorch port, as seven mask modes of one kernel.
 //
 // Replaces (embeddings_tpu/ops/attention.py, the Pallas TPU kernels):
 //   mode 0, K2: _attn_kernel (its bf16 branch), behind fused_attention();
@@ -9,8 +9,11 @@
 //               fused_attention_segmented_blockskip();
 //   mode 3, K7: _attn_kernel_bias, behind fused_attention_bias();
 //   modes 4, 5, K6: _attn_kernel_stream in its plain and ALiBi modes,
-//               behind fused_attention_stream() (its causal and banded
-//               modes are not ported yet).
+//               behind fused_attention_stream() (its causal mode is not
+//               ported yet);
+//   mode 6, K6w: _attn_kernel_stream in its span + window (banded) mode,
+//               behind fused_attention_window() (ModernBERT's local
+//               layers).
 // For each sequence (packed row) b, head h and query i, with q, k, v read
 // as column slices of the fused qkv buffer [B*L, 3E] (q at h*D, k at
 // E + h*D, v at 2E + h*D), and d = q . k_j accumulated in f32:
@@ -27,11 +30,16 @@
 //   mode 4: s = clamp(d * s2, -100, hi), key j valid iff j < len[b];
 //   mode 5: s = clamp(d * s2 - slope[h] * (f32(|i - j|) * log2(e)), -100,
 //           hi), key j valid iff j < len[b] (jina-bert-v2's ALiBi from
-//           positions, no bias array).
+//           positions, no bias array);
+//   mode 6: s = clamp(d * s2, -100, hi), key j valid iff j < len[b] and
+//           |i - j| <= W (W = window // 2), over the 64-key tiles that
+//           meet [q0 - W, q_last + W] only: O(L * window) work.
 //   p_j = bf16(exp2(s)) if valid else 0
 //   out = (sum_j p_j v_j) / max(sum_j p_j, 1e-30)           (f32 sums)
 // written as bf16 to ctx [B*L, E] at column h*D. s2 = log2(e)/sqrt(D); hi
-// = 127 - ceil(log2 n) for n = L keys (n = min(W*128, L) in mode 2). There
+// = 127 - ceil(log2 n) for n = L keys (n = min(W*128, L) in mode 2; in
+// mode 6 n is the whole row L, as the TPU's _stream_call sizes it, not
+// the band). There
 // is no max-subtraction: the clamp keeps exp2 and the sum finite for any
 // row length, as in the TPU kernels, so key tiles only ADD into the
 // output and the denominator; nothing is rescaled. That also makes every
@@ -40,7 +48,9 @@
 // with no valid key (len 0, or a pad query) gives exactly 0. Prefix modes
 // stop at the first 64-key tile past len[b] (those tiles add exact
 // zeros); ALiBi tiles far from the diagonal clamp at -100 and still add
-// exp2(-100), so they are not skipped. The multiply-adds the plain
+// exp2(-100), so they are not skipped. Mode 6 skips the tiles outside the
+// band for the same reason as the prefix stop: every p there is an exact
+// zero. The multiply-adds the plain
 // version rounds separately are written __fmul_rn / __fadd_rn /
 // __fsub_rn, so nvcc's FMA contraction cannot change a score.
 //
@@ -51,7 +61,9 @@
 // GFLOP), so it is bound by device memory, not by the tensor cores. At
 // K6's L=8192 (B=4) the same 201 MB carries ~825 GFLOP of products and
 // 3.2 G exp2: there it is bound by operations (tensor cores, then the
-// exp2 unit). The design reads q, k and v in place from the fused
+// exp2 unit). Mode 6 at 32,768 tokens and window 128 needs ~13 GFLOP for
+// the same 201 MB: bound by bytes; a 64-query block walks 3 key tiles
+// (129 keys of the band, at most 192 visited). The design reads q, k and v in place from the fused
 // projection (no transpose pass through memory), and keeps scores and
 // probabilities in shared memory and registers: one block per (64-query
 // tile, head, sequence), 4 warps of 16 query rows, 64-key tiles of K and
@@ -79,7 +91,7 @@ constexpr int BQ = 128;       // query/key block of mode 2 (block_ranges)
 constexpr float LOG2E_F = 1.4426950408889634f;
 
 enum Mode { PREFIX = 0, SEGMENT = 1, WINDOW = 2, BIAS = 3, STREAM = 4,
-            ALIBI = 5 };
+            ALIBI = 5, BAND = 6 };
 
 // modes whose key mask is the prefix j < len[b]
 __host__ __device__ constexpr bool prefix_masked(int mode) {
@@ -191,6 +203,12 @@ __global__ void __launch_bounds__(THREADS) attn_kernel(
     k_begin = lo * BQ;
     k_end = last >= lo ? (last + 1) * BQ : k_begin;
   }
+  if (MODE == BAND) {
+    // the 64-key tiles that meet [q0 - W, q0 + QT - 1 + W] (W = window //
+    // 2); the prefix stop above still applies
+    k_begin = max(0, q0 - W) / KT * KT;
+    k_end = min(k_end, (q0 + QT - 1 + W) / KT * KT + KT);
+  }
   for (int k0 = k_begin; k0 < k_end; k0 += KT) {
     __syncthreads();  // every warp is done with the previous K/V tile
     if (!prefix_masked(MODE) && tid < KT)
@@ -233,8 +251,9 @@ __global__ void __launch_bounds__(THREADS) attn_kernel(
       for (int e = 0; e < 4; ++e) {
         const int c = c4 + e;
         const int kj = k0 + c;
-        const bool ok = prefix_masked(MODE) ? kj < len
-                                            : segk[c] == sq && segk[c] >= 0;
+        bool ok = prefix_masked(MODE) ? kj < len
+                                      : segk[c] == sq && segk[c] >= 0;
+        if constexpr (MODE == BAND) ok = ok && abs(qrow - kj) <= W;
         float raw = fsc[r * SP + c];
         if constexpr (MODE == BIAS) {
           raw = __fadd_rn(__fmul_rn(raw, s2), bias4[e]);
@@ -331,6 +350,9 @@ cudaError_t launch_mode(int mode, const void* qkv, const void* lengths,
     case ALIBI:
       if (slopes == nullptr) return cudaErrorInvalidValue;
       return launch<D, ALIBI>(ATTN_ARGS);
+    case BAND:
+      if (W < 0) return cudaErrorInvalidValue;
+      return launch<D, BAND>(ATTN_ARGS);
     default: return cudaErrorInvalidValue;
   }
 #undef ATTN_ARGS
@@ -341,10 +363,11 @@ cudaError_t launch_mode(int mode, const void* qkv, const void* lengths,
 extern "C" {
 
 // qkv [B*L, 3*H*D] bf16 and out [B*L, H*D] bf16 (device pointers). Modes
-// 0, 3, 4 and 5 read lengths [B] int32; modes 1 and 2 read seg [B, L]
+// 0, 3, 4, 5 and 6 read lengths [B] int32; modes 1 and 2 read seg [B, L]
 // int32 (-1 on pads); mode 2 also kbs, kbe [B, L/128] int32 and the block
 // cap W (L % 128 == 0); mode 3 reads bias [H, L, L] f32 (log2-scaled);
-// mode 5 reads slopes [H] f32. Unused pointers may be null. s2 =
+// mode 5 reads slopes [H] f32; mode 6 takes the half window W =
+// window // 2. Unused pointers may be null. s2 =
 // log2(e)/sqrt(D) as f32; hi = the score clamp bound. D must be 32, 64 or
 // 128. Returns a cudaError_t.
 int attn_launch(const void* qkv, const void* lengths, const void* seg,

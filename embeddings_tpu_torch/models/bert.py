@@ -1,10 +1,13 @@
 """BERT encoder forward of the PyTorch port — the port of
 ``embeddings_tpu/models/bert.py`` for the post-LN BERT families (plain
 BERT, MPNet with its relative-position bias, jina-bert-v2 with ALiBi and
-a GeGLU MLP): embedding sum + LayerNorm, N layers of {prefix-masked
-multi-head self-attention, residual + LN, GELU or gated FFN, residual +
-LN}, pooling (cls / mean / max / lasttoken), SentenceTransformers Dense
-layers and the L2 norm.
+a GeGLU MLP, nomic-bert with RoPE and SwiGLU): embedding sum + LayerNorm,
+N layers of {prefix-masked multi-head self-attention, residual + LN,
+GELU or gated FFN, residual + LN}; and for the pre-norm ModernBERT stack
+(``encoder_layer_pre``: RoPE with a global and a local theta, global
+attention every n-th layer and a sliding window on the others, GeGLU, a
+final norm); then pooling (cls / mean / max / lasttoken),
+SentenceTransformers Dense layers and the L2 norm.
 
 ``encode_tokens`` runs right-padded batches; ``encode_packed`` runs
 token-packed rows (``runtime/packing.py``: several sentences per row,
@@ -16,8 +19,9 @@ path: True runs quantized matmuls through ``ops.qmatmul.qmatmul`` (K1, or
 K3 with ``int8``) and attention through the fused kernels the JAX
 package's route rule picks (``attention_route_name``) — prefix-masked K2
 for padded batches, K7 with a family's logit bias, K6 for long rows and
-ALiBi past K7's cap, segment-masked K4 or its block-skipping K5 for
-packed rows — on a CUDA tensor, their plain versions on a CPU tensor;
+ALiBi past K7's cap, the banded K6w on ModernBERT's local layers,
+segment-masked K4 or its block-skipping K5 for packed rows — on a CUDA
+tensor, their plain versions on a CPU tensor;
 False runs the plain f32 reference math (dequantize + matmul, the int8
 emulation with ``int8``, exact-erf GELU, additive-mask einsum attention
 with the family bias folded into the mask), the JAX package's XLA
@@ -38,6 +42,7 @@ from ..config import BertConfig
 from ..ops import attention as attn_ops
 from ..ops.linear import linear, linear_residual_ln
 from ..ops.quant import QuantizedTensor, gather_rows
+from ..ops.rotary import apply_rotary_qkv, rope_tables, rope_tables_for
 from .params import check_supported, layer as layer_params
 
 Params = dict[str, Any]
@@ -59,8 +64,9 @@ def embed(params: Params, config: BertConfig, token_ids: torch.Tensor,
     """word + token-type + position embedding sum, then LayerNorm. A
     quantized word table dequantizes only the gathered rows.
     position_ids [B, L] overrides the default 0..L-1 (token-packed rows
-    restart positions at each segment). ALiBi models have no position
-    table."""
+    restart positions at each segment). ALiBi and rotary models have no
+    position table; a tree without an embedding norm returns the bare
+    sum."""
     L = token_ids.shape[1]
     emb = params["embeddings"]
     ids = token_ids.long()
@@ -78,6 +84,8 @@ def embed(params: Params, config: BertConfig, token_ids: torch.Tensor,
             x = x + emb["position"][off:off + L]
         else:
             x = x + emb["position"][position_ids.long() + off]
+    if "ln" not in emb:
+        return x
     return layer_norm(x, emb["ln"]["scale"], emb["ln"]["bias"],
                       config.layer_norm_eps)
 
@@ -150,14 +158,19 @@ def _logit_bias(params: Params, config: BertConfig,
 
 def attention_route_name(L: int, E: int, *, segmented: bool = False,
                          attn_window: int = 0, bias: bool = False,
-                         alibi: bool = False) -> str:
+                         alibi: bool = False,
+                         local_window: bool = False) -> str:
     """The fused kernel ``_fused_attn_dispatch`` picks — the JAX
     package's ``attention_route_name`` for the routes the port has:
-    "fused_bias" (K7) with a logit-bias operand; for packed rows
-    "segmented_blockskip" (K5) when the window skips at least two key
-    blocks, else "segmented" (K4); "stream_alibi" (K6, in-kernel ALiBi);
-    "stream" (K6) for rows whose whole K/V would not fit the TPU's VMEM
-    (``whole_row_fits``: L >= 1920 at E=768); else "whole_row" (K2)."""
+    "cond(stream|windowed)" for ModernBERT's alternating layers (a local
+    layer takes K6w, a global one the route below); "fused_bias" (K7)
+    with a logit-bias operand; for packed rows "segmented_blockskip" (K5)
+    when the window skips at least two key blocks, else "segmented" (K4);
+    "stream_alibi" (K6, in-kernel ALiBi); "stream" (K6) for rows whose
+    whole K/V would not fit the TPU's VMEM (``whole_row_fits``: L >= 1920
+    at E=768); else "whole_row" (K2)."""
+    if local_window:
+        return "cond(stream|windowed)"
     if bias:
         return "fused_bias"
     if segmented:
@@ -174,12 +187,21 @@ def attention_route_name(L: int, E: int, *, segmented: bool = False,
 
 
 def _fused_attn_dispatch(qkv2d, lengths, segments, B, L, H, D,
-                         attn_window=0, ranges=None, bias=None, alibi=None):
+                         attn_window=0, ranges=None, bias=None, alibi=None,
+                         local_window=None):
+    kw = dict(B=B, L=L, H=H, D=D)
+    if local_window is not None:
+        # ModernBERT's alternating layers, picked per layer here where the
+        # JAX package runs a lax.cond: a local layer takes the banded
+        # kernel, a global one falls through to the global route
+        is_global, window = local_window
+        if not is_global:
+            return attn_ops.fused_attention_window(qkv2d, lengths,
+                                                   window=window, **kw)
     route = attention_route_name(L, H * D, segmented=segments is not None,
                                  attn_window=attn_window,
                                  bias=bias is not None,
                                  alibi=alibi is not None)
-    kw = dict(B=B, L=L, H=H, D=D)
     if route == "fused_bias":
         # the family bias (MPNet relative positions, ALiBi on short rows)
         return attn_ops.fused_attention_bias(qkv2d, lengths, bias, **kw)
@@ -197,13 +219,18 @@ def _fused_attn_dispatch(qkv2d, lengths, segments, B, L, H, D,
 
 
 def fused_attention_ok(L: int, H: int, D: int, use_kernels: bool,
-                       lengths, segments, alibi=None) -> bool:
+                       lengths, segments, alibi=None,
+                       local_window=None) -> bool:
     """Does attention take a fused kernel (else the einsum path)? The
-    JAX package's ``_attn_kernels_ok`` for the port's routes."""
+    JAX package's ``_attn_kernels_ok`` for the port's routes; with a
+    ``local_window`` both of its kernels must take the shape (the banded
+    one's rule, 128-key blocks, covers the global route's)."""
     if not use_kernels or (lengths is None and segments is None):
         return False
     if segments is not None:
         return attn_ops.supported(L, H, D)
+    if local_window is not None:
+        return attn_ops.stream_supported(L, H, D, attn_ops.BQ)
     if alibi is not None or not attn_ops.whole_row_fits(L, H * D):
         return attn_ops.stream_supported(L, H, D, attn_ops.pick_bk(L))
     return attn_ops.supported(L, H, D)
@@ -216,6 +243,8 @@ def attention_context(layer: Params, config: BertConfig, x: torch.Tensor,
                       attn_window: int = 0, ranges=None,
                       bias: torch.Tensor | None = None,
                       alibi: torch.Tensor | None = None,
+                      rope: tuple[torch.Tensor, torch.Tensor] | None = None,
+                      local_window: tuple[bool, int] | None = None,
                       use_kernels: bool = True,
                       int8: bool = False) -> torch.Tensor:
     """Masked multi-head self-attention up to (not including) the output
@@ -224,9 +253,12 @@ def attention_context(layer: Params, config: BertConfig, x: torch.Tensor,
     kernels take, attention reads the fused qkv projection in place (the
     kernel ``attention_route_name`` picks: ``bias`` is K7's
     ``prepare_attention_bias`` operand, ``alibi`` K6's slopes, ``ranges``
-    K5's ``block_ranges``, each computed once per forward); otherwise the
-    additive-mask einsum path, with ``mask_bias`` [B, 1 or H, 1 or L, L]
-    (the family bias already folded in)."""
+    K5's ``block_ranges``, each computed once per forward;
+    ``local_window`` = (is_global, window) picks K6w on ModernBERT's local
+    layers); otherwise the additive-mask einsum path, with ``mask_bias``
+    [B, 1 or H, 1 or L, L] (the family bias or the sliding window already
+    folded in). ``rope`` = (cos, sin) rotates q and k before either
+    path."""
     B, L, _ = x.shape
     D = config.head_dim
     a = layer["attn"]
@@ -239,10 +271,14 @@ def attention_context(layer: Params, config: BertConfig, x: torch.Tensor,
                          for n in ("q", "k", "v")], -1)
     El = qkv.shape[-1] // 3
     H = El // D
-    if fused_attention_ok(L, H, D, use_kernels, lengths, segments, alibi):
+    if rope is not None:
+        qkv = apply_rotary_qkv(qkv, *rope, H=H, D=D,
+                               interleaved=config.rotary_interleaved)
+    if fused_attention_ok(L, H, D, use_kernels, lengths, segments, alibi,
+                          local_window):
         ctx = _fused_attn_dispatch(qkv.reshape(B * L, 3 * El), lengths,
                                    segments, B, L, H, D, attn_window, ranges,
-                                   bias, alibi)
+                                   bias, alibi, local_window)
         return ctx.reshape(B, L, El)
     q = qkv[..., :El].reshape(B, L, H, D)
     k = qkv[..., El:2 * El].reshape(B, L, H, D)
@@ -275,23 +311,130 @@ def encoder_layer(layer: Params, config: BertConfig, x: torch.Tensor,
                   attn_window: int = 0, ranges=None,
                   bias: torch.Tensor | None = None,
                   alibi: torch.Tensor | None = None,
+                  rope: tuple[torch.Tensor, torch.Tensor] | None = None,
                   use_kernels: bool = True,
                   int8: bool = False) -> torch.Tensor:
     """One post-LN encoder block. The two residual + LayerNorm steps run
     in the o-proj and FFN-down matmuls' epilogue (``linear_residual_ln``).
     ``int8``: every quantized matmul in the int8 mode; each consumer
-    quantizes its own input rows (no chained links)."""
+    quantizes its own input rows (no chained links). ``rope``: the rotary
+    families' (cos, sin) tables (nomic-bert, RoFormer)."""
     a, m = layer["attn"], layer["mlp"]
     eps = config.layer_norm_eps
     mode = dict(use_kernels=use_kernels, int8=int8)
     ctx = attention_context(layer, config, x, mask_bias, lengths,
                             segments=segments, attn_window=attn_window,
-                            ranges=ranges, bias=bias, alibi=alibi, **mode)
+                            ranges=ranges, bias=bias, alibi=alibi, rope=rope,
+                            **mode)
     x = linear_residual_ln(ctx, a["o"]["w"], a["o"]["b"], x,
                            a["ln"]["scale"], a["ln"]["bias"], eps, **mode)
     h = _ffn_hidden(m, x, config, **mode)
     return linear_residual_ln(h, m["down"]["w"], m["down"]["b"], x,
                               m["ln"]["scale"], m["ln"]["bias"], eps, **mode)
+
+
+def _rope(positions: torch.Tensor, dim: int, base: float):
+    """(cos, sin) on the positions' device: for 0 .. L-1 ([L] positions)
+    built once per (L, base) on the CPU; per packed row ([B, L]) built
+    for this call."""
+    if positions.dim() == 1:
+        return rope_tables_for(positions.shape[0], dim, base,
+                               positions.device)
+    return tuple(t.to(positions.device)
+                 for t in rope_tables(positions, dim, base))
+
+
+def _prenorm_scan_args(config: BertConfig, positions: torch.Tensor):
+    """The pre-norm (ModernBERT) stack's per-layer flags and local RoPE
+    tables: ([(is_global, ln_apply)] per layer, rope_l, windowed). rope_l
+    is None when the local theta equals the global one (the caller reuses
+    the global tables); windowed says whether any layer is local. Layer
+    0's attention norm is ModernBERT's identity (the embedding LayerNorm
+    precedes it). positions: [L], or [B, L] for packed rows."""
+    NL = config.num_hidden_layers
+    n = max(1, config.global_attn_every_n_layers)
+    skip0 = 1 if config.first_attn_norm_identity else 0
+    flags = [(i % n == 0, i >= skip0) for i in range(NL)]
+    rope_l = None
+    if (config.position_embedding_type == "rotary"
+            and config.local_rotary_base
+            and config.local_rotary_base != config.rotary_base):
+        rope_l = _rope(positions, config.head_dim, config.local_rotary_base)
+    windowed = config.local_attention_window > 0 and n > 1 and NL > 1
+    return flags, rope_l, windowed
+
+
+def _window_bias(positions: torch.Tensor, window: int,
+                 mask_value: float) -> torch.Tensor:
+    """The einsum path's sliding-window mask: 0 where |i - j| <= window
+    // 2, else mask_value; [B|1, 1, L, L] f32 (positions [L] or [B, L])."""
+    p = positions if positions.dim() == 2 else positions[None]
+    dist = (p[:, None, :] - p[:, :, None]).abs()
+    return torch.where(dist <= window // 2, 0.0,
+                       mask_value).float()[:, None]
+
+
+def _norm(config: BertConfig, x: torch.Tensor, ln: Params) -> torch.Tensor:
+    """The config's normalization (LayerNorm; ``check_supported`` refuses
+    RMSNorm, Qwen2's)."""
+    return layer_norm(x, ln["scale"], ln["bias"], config.layer_norm_eps)
+
+
+def encoder_layer_pre(layer: Params, config: BertConfig, x: torch.Tensor,
+                      mask_bias: torch.Tensor | None,
+                      lengths: torch.Tensor | None = None, *,
+                      ln_apply: bool = True,
+                      rope: tuple[torch.Tensor, torch.Tensor] | None = None,
+                      local_window: tuple[bool, int] | None = None,
+                      use_kernels: bool = True,
+                      int8: bool = False) -> torch.Tensor:
+    """One pre-norm encoder block (ModernBERT): x += Wo attn(norm(x));
+    x += Wdown glu(norm(x)). ``ln_apply`` False skips layer 0's identity
+    attention norm; ``local_window`` = (is_global, window) routes the
+    attention (K6w on a local layer) when the kernels take the shape,
+    else ``mask_bias`` carries the window. The residual adds stay outside
+    the matmuls, in the activation dtype, as in the JAX package (no post-LN
+    to fuse into an epilogue): o-proj and down run K1 with its plain
+    ``bias`` epilogue."""
+    a, m = layer["attn"], layer["mlp"]
+    mode = dict(use_kernels=use_kernels, int8=int8)
+    xn = _norm(config, x, a["ln"]) if ln_apply else x
+    ctx = attention_context(layer, config, xn, mask_bias, lengths, rope=rope,
+                            local_window=local_window, **mode)
+    x = x + linear(ctx, a["o"]["w"], a["o"]["b"], **mode)
+    hn = _norm(config, x, m["ln"])
+    return x + linear(_ffn_hidden(m, hn, config, **mode), m["down"]["w"],
+                      m["down"]["b"], **mode)
+
+
+def _prenorm_stack(params: Params, config: BertConfig, x: torch.Tensor,
+                   mask_bias: torch.Tensor, lengths, rope, positions,
+                   mask_value: float, **mode) -> torch.Tensor:
+    """The pre-norm layers: with prefix ``lengths`` and a shape the
+    kernels take, each local layer runs K6w and each global one the
+    global route (the JAX package's ``window_kernel`` gate); otherwise
+    every layer, global ones too, takes the einsum path with the window
+    folded into a local layer's mask."""
+    flags, rope_l, windowed = _prenorm_scan_args(config, positions)
+    rope_l = rope if rope_l is None else rope_l
+    L = x.shape[1]
+    window = config.local_attention_window
+    window_kernel = windowed and fused_attention_ok(
+        L, config.num_attention_heads, config.head_dim,
+        mode["use_kernels"], lengths, None, local_window=(True, window))
+    mb_local = mask_bias
+    if windowed and not window_kernel:
+        mb_local = mask_bias + _window_bias(positions.to(x.device), window,
+                                            mask_value)
+        lengths = None
+    for i, (is_global, ln_apply) in enumerate(flags):
+        x = encoder_layer_pre(
+            layer_params(params, i), config, x,
+            mask_bias if is_global else mb_local, lengths,
+            ln_apply=ln_apply, rope=rope if is_global else rope_l,
+            local_window=(is_global, window) if window_kernel else None,
+            **mode)
+    return x
 
 
 def encode_tokens(params: Params, config: BertConfig,
@@ -350,10 +493,22 @@ def encode_tokens(params: Params, config: BertConfig,
             else:
                 mask_bias = mask_bias + fb  # [B, H, L, L], einsum path
                 lengths = None
-    for i in range(config.num_hidden_layers):
-        x = encoder_layer(layer_params(params, i), config, x, mask_bias,
-                          lengths, bias=bias, alibi=alibi,
-                          use_kernels=use_kernels, int8=int8)
+    positions = torch.arange(L, device=token_ids.device)
+    rope = None
+    if config.position_embedding_type == "rotary":
+        # position-only: computed once, shared by every layer
+        rope = _rope(positions, config.head_dim, config.rotary_base)
+    mode = dict(use_kernels=use_kernels, int8=int8)
+    if config.norm_style == "pre":
+        x = _prenorm_stack(params, config, x, mask_bias, lengths, rope,
+                           positions, mask_value, **mode)
+    else:
+        for i in range(config.num_hidden_layers):
+            x = encoder_layer(layer_params(params, i), config, x, mask_bias,
+                              lengths, bias=bias, alibi=alibi, rope=rope,
+                              **mode)
+    if "final_ln" in params:  # ModernBERT's post-stack norm
+        x = _norm(config, x, params["final_ln"])
     if return_hidden:
         return x.float()
 
@@ -402,7 +557,9 @@ def encode_packed(params: Params, config: BertConfig,
     B, L = token_ids.shape
     seg = seg_ids.to(torch.int32).contiguous()
     bias = _logit_bias(params, config, position_ids)
-    segments = seg if bias is None else None
+    prenorm = config.norm_style == "pre"
+    # the pre-norm stack runs packed rows on the einsum path, as in JAX
+    segments = seg if bias is None and not prenorm else None
     mask_bias = ranges = None
     if not fused_attention_ok(L, config.num_attention_heads,
                               config.head_dim, use_kernels, None, segments):
@@ -419,10 +576,21 @@ def encode_packed(params: Params, config: BertConfig,
     x = embed(params, config, token_ids, position_ids=position_ids)
     if compute_dtype is not None:
         x = x.to(compute_dtype)
-    for i in range(config.num_hidden_layers):
-        x = encoder_layer(layer_params(params, i), config, x, mask_bias,
-                          segments=segments, attn_window=attn_window,
-                          ranges=ranges, use_kernels=use_kernels, int8=int8)
+    rope = None
+    if config.position_embedding_type == "rotary":
+        # per-row tables: positions restart at each segment
+        rope = _rope(position_ids, config.head_dim, config.rotary_base)
+    mode = dict(use_kernels=use_kernels, int8=int8)
+    if prenorm:
+        x = _prenorm_stack(params, config, x, mask_bias, None, rope,
+                           position_ids, mask_value, **mode)
+    else:
+        for i in range(config.num_hidden_layers):
+            x = encoder_layer(layer_params(params, i), config, x, mask_bias,
+                              segments=segments, attn_window=attn_window,
+                              ranges=ranges, rope=rope, **mode)
+    if "final_ln" in params:
+        x = _norm(config, x, params["final_ln"])
     pooled = torch.einsum("bsl,ble->bse", pool_weights.float(), x.float())
     return _finish(params, config, pooled, normalize)
 

@@ -2,7 +2,8 @@
 the JAX package, quantization, packing, q/k/v fusion, HF import and the
 native ``.npz`` checkpoint — the port of ``embeddings_tpu/models/params.py``
 for the post-LN BERT families: plain BERT (learned positions), MPNet
-(relative-position bias) and jina-bert-v2 (ALiBi, GeGLU MLP).
+(relative-position bias), jina-bert-v2 (ALiBi, GeGLU MLP) and nomic-bert
+(RoPE, SwiGLU); and for the pre-norm ModernBERT.
 
 The tree has the JAX package's layout, with torch tensors as leaves and
 every linear stored [in, out] so the forward computes ``x @ w``. Layer
@@ -20,8 +21,14 @@ weights are stacked on a leading axis [num_layers, ...]:
     },
     "rel_bias": [num_buckets, H] f32       (MPNet only)
     "alibi_slopes": [H] f32                (ALiBi only; no "position")
+    "final_ln": {"scale", "bias"}          (pre-norm ModernBERT only)
     "st_dense": {"0": {"w", "b"}, ...}   (SentenceTransformers Dense, opt.)
   }
+
+Rotary models (nomic-bert, ModernBERT) have no "position" table. In a
+pre-norm tree the layer norms are the pre-attention ("attn/ln") and
+pre-MLP ("mlp/ln") norms; ModernBERT's layer-0 attention norm is an
+identity and its slot holds ones and zeros.
 
 ``rel_bias`` and ``alibi_slopes`` stay f32 through every cast and are
 never quantized; ``gate`` is quantized like ``up``.
@@ -49,26 +56,35 @@ _TORCH_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16,
 
 
 def check_supported(config: BertConfig) -> None:
-    """Raise for model families the port does not run yet (it runs the
+    """Raise for model families the port does not run yet. It runs the
     post-LN BERT encoder with learned positions, MPNet's relative-position
-    bias or ALiBi, and a plain or gated MLP)."""
-    unsupported = {
-        "embedding_size": config.embedding_size is not None,
-        "shared_layers": config.shared_layers,
-        "position_embedding_type":
-            config.position_embedding_type not in ("absolute", "alibi"),
-        "norm_style": config.norm_style != "post",
+    bias, ALiBi or RoPE, a plain or gated MLP, and ModernBERT's pre-norm
+    LayerNorm stack with its sliding window. Qwen2's decoder block
+    (RMSNorm, grouped-query and causal attention) is the next slice."""
+    qwen2 = {
         "norm_type": config.norm_type != "layernorm",
         "num_key_value_heads": config.num_key_value_heads not in (
             None, config.num_attention_heads),
         "causal": config.causal,
+    }
+    unsupported = {
+        "embedding_size": config.embedding_size is not None,
+        "shared_layers": config.shared_layers,
+        "position_embedding_type": config.position_embedding_type not in (
+            "absolute", "alibi", "rotary"),
+        "norm_style": config.norm_style not in ("post", "pre"),
         "num_experts": bool(config.num_experts),
+        **qwen2,
     }
     bad = [k for k, v in unsupported.items() if v]
     if bad:
+        hint = (" (Qwen2's decoder block: RMSNorm, grouped-query and "
+                "causal attention are not ported yet)"
+                if any(qwen2.values()) else "")
         raise NotImplementedError(
-            f"the PyTorch port runs post-LN BERT, MPNet and jina-bert-v2 "
-            f"encoders; this config sets {', '.join(bad)}")
+            f"the PyTorch port runs post-LN BERT, MPNet, jina-bert-v2, "
+            f"nomic-bert and ModernBERT encoders; this config sets "
+            f"{', '.join(bad)}{hint}")
 
 
 def map_tree(fn: Callable, tree):
@@ -101,7 +117,8 @@ def init_params(config: BertConfig, generator: np.random.Generator | int = 0,
     weights with std 0.02 from a numpy generator, zero biases, unit
     LayerNorms — the JAX package's init, with numpy randomness. Gated
     MLPs add a gate stack, MPNet a [num_buckets, H] relative-bias table;
-    ALiBi models carry their slopes and no position table."""
+    ALiBi models carry their slopes and no position table, rotary models
+    no position table; pre-norm models add the final norm."""
     check_supported(config)
     rng = (np.random.default_rng(generator) if isinstance(generator, int)
            else generator)
@@ -139,6 +156,8 @@ def init_params(config: BertConfig, generator: np.random.Generator | int = 0,
                               config.num_attention_heads).float()
     if config.position_embedding_type == "alibi":
         out["alibi_slopes"] = _slopes(config)
+    if config.norm_style == "pre":
+        out["final_ln"] = _ln(np.ones(E), np.zeros(E))
     return out
 
 
@@ -326,14 +345,15 @@ def _read_sd(d: Path) -> dict[str, np.ndarray]:
 
 def _strip_prefix(sd: dict[str, np.ndarray]) -> dict[str, np.ndarray]:
     """Drop the 'bert.' / 'mpnet.' / '0.auto_model.' style prefixes HF
-    checkpoints use, then rewrite MPNet and jina-bert-v2 names into BERT
-    naming."""
+    checkpoints use, then rewrite MPNet, nomic-bert, jina-bert-v2 and
+    ModernBERT names into BERT naming."""
     for prefix in ("bert.", "mpnet.", "model.", "0.auto_model."):
         if any(k.startswith(prefix + "embeddings") for k in sd):
             sd = {k[len(prefix):]: v for k, v in sd.items()
                   if k.startswith(prefix)}
             break
-    return _translate_jina(_translate_mpnet(sd))
+    return _translate_modernbert(_translate_jina(_translate_nomic(
+        _translate_mpnet(sd))))
 
 
 # MPNet layer-tensor names -> BERT names (same post-LN block; the shared
@@ -372,6 +392,108 @@ def _translate_mpnet(sd: dict[str, np.ndarray]) -> dict[str, np.ndarray]:
         # MPNet has no token-type table; a zeros row keeps embed() shared
         out.setdefault("embeddings.token_type_embeddings.weight",
                        np.zeros((1, emb.shape[1]), np.float32))
+    return out
+
+
+# nomic-bert-2048 layer-tensor names -> BERT names (same post-LN block;
+# fc11/fc12 are the gated MLP's gate/up: nomic's forward is
+# fc2(act(fc11(x)) * fc12(x)))
+_NOMIC_LAYER_MAP = {
+    "attn.out_proj": "attention.output.dense",
+    "norm1": "attention.output.LayerNorm",
+    "norm2": "output.LayerNorm",
+    "mlp.fc11": "intermediate.gate",
+    "mlp.fc12": "intermediate.dense",
+    "mlp.fc1": "intermediate.dense",
+    "mlp.fc2": "output.dense",
+}
+
+
+def _translate_nomic(sd: dict[str, np.ndarray]) -> dict[str, np.ndarray]:
+    """Rewrite a nomic-bert-2048 state dict into BERT naming; no-op
+    otherwise. The fused [3E, in] Wqkv splits row-wise into query | key |
+    value. (The MoE variant's router and expert tensors are not carried:
+    ``check_supported`` refuses MoE configs.)"""
+    if not any(".attn.Wqkv." in k for k in sd):
+        return sd
+    out: dict[str, np.ndarray] = {}
+    for k, v in sd.items():
+        if k.startswith("encoder.layers."):
+            _, _, i, rest = k.split(".", 3)
+            stem, _, leaf = rest.rpartition(".")
+            if stem == "attn.Wqkv":
+                E3 = v.shape[0]
+                for j, name in enumerate(("query", "key", "value")):
+                    out[f"encoder.layer.{i}.attention.self.{name}.{leaf}"] \
+                        = v[j * E3 // 3:(j + 1) * E3 // 3]
+                continue
+            mapped = _NOMIC_LAYER_MAP.get(stem)
+            if mapped is not None:
+                out[f"encoder.layer.{i}.{mapped}.{leaf}"] = v
+        elif k.startswith("emb_ln."):
+            out["embeddings.LayerNorm." + k.split(".", 1)[1]] = v
+        else:
+            out[k] = v  # embeddings.* names already match BERT's
+    return out
+
+
+def _translate_modernbert(sd: dict[str, np.ndarray]
+                          ) -> dict[str, np.ndarray]:
+    """Rewrite a ModernBERT state dict into BERT naming; no-op otherwise.
+
+    ModernBERT is biasless throughout: zero biases are synthesized so the
+    stacks stay uniform. Wqkv [3E, E] splits row-wise q | k | v; the GeGLU
+    Wi [2I, E] splits into the activated half (rows 0..I, "gate") and the
+    multiplier half (rows I.., "up"), HF's ``act(input) * gate`` order.
+    Layer 0's attention norm is an identity: ones/zeros placeholders fill
+    its slot (the forward skips it). The final norm lands as
+    "final_ln"."""
+    if not any(k.startswith("layers.") and ".attn.Wqkv." in k for k in sd):
+        return sd
+    out: dict[str, np.ndarray] = {}
+    E = sd["embeddings.tok_embeddings.weight"].shape[1]
+    norm_map = {"attn_norm": "attention.output.LayerNorm",
+                "mlp_norm": "output.LayerNorm"}
+    n_layers = 1 + max(int(k.split(".")[1]) for k in sd
+                       if k.startswith("layers."))
+    for k, v in sd.items():
+        if k.startswith("layers."):
+            _, i, rest = k.split(".", 2)
+            stem, _, leaf = rest.rpartition(".")
+            p = f"encoder.layer.{i}."
+            if stem == "attn.Wqkv":
+                for j, name in enumerate(("query", "key", "value")):
+                    out[p + f"attention.self.{name}.{leaf}"] \
+                        = v[j * v.shape[0] // 3:(j + 1) * v.shape[0] // 3]
+            elif stem == "attn.Wo":
+                out[p + f"attention.output.dense.{leaf}"] = v
+            elif stem == "mlp.Wi":
+                I = v.shape[0] // 2
+                out[p + f"intermediate.gate.{leaf}"] = v[:I]
+                out[p + f"intermediate.dense.{leaf}"] = v[I:]
+            elif stem == "mlp.Wo":
+                out[p + f"output.dense.{leaf}"] = v
+            elif stem in norm_map:
+                out[p + f"{norm_map[stem]}.{leaf}"] = v
+        elif k == "embeddings.tok_embeddings.weight":
+            out["embeddings.word_embeddings.weight"] = v
+        elif k.startswith("embeddings.norm."):
+            out["embeddings.LayerNorm." + k.rsplit(".", 1)[1]] = v
+        elif k.startswith("final_norm."):
+            out["final_ln." + k.rsplit(".", 1)[1]] = v
+        else:
+            out[k] = v
+    out.setdefault("embeddings.token_type_embeddings.weight",
+                   np.zeros((1, E), np.float32))
+    # HF weights are [out, in] and norms [out]: the bias length is shape[0]
+    for k in list(out):
+        if k.endswith(".weight") and not k.endswith("_embeddings.weight"):
+            out.setdefault(k[:-len("weight")] + "bias",
+                           np.zeros(out[k].shape[0], np.float32))
+    for i in range(n_layers):
+        p = f"encoder.layer.{i}.attention.output.LayerNorm."
+        out.setdefault(p + "weight", np.ones(E, np.float32))
+        out.setdefault(p + "bias", np.zeros(E, np.float32))
     return out
 
 
@@ -418,9 +540,9 @@ def _translate_jina(sd: dict[str, np.ndarray]) -> dict[str, np.ndarray]:
 
 def from_hf_state_dict(sd: dict[str, np.ndarray], config: BertConfig,
                        dtype=torch.float32) -> Params:
-    """Map a HF BERT, MPNet or jina-bert-v2 state dict to the port's tree
-    (position_ids and the pooler are dropped, as the reference's
-    converter does)."""
+    """Map a HF BERT, MPNet, jina-bert-v2, nomic-bert or ModernBERT state
+    dict to the port's tree (position_ids and the pooler are dropped, as
+    the reference's converter does)."""
     check_supported(config)
     sd = _strip_prefix({k: np.asarray(v) for k, v in sd.items()})
     NL = config.num_hidden_layers
@@ -467,6 +589,8 @@ def from_hf_state_dict(sd: dict[str, np.ndarray], config: BertConfig,
         out["rel_bias"] = t(sd["rel_bias"], torch.float32)
     if config.position_embedding_type == "alibi":
         out["alibi_slopes"] = _slopes(config)
+    if "final_ln.weight" in sd:  # ModernBERT's post-stack norm
+        out["final_ln"] = _ln(sd["final_ln.weight"], sd["final_ln.bias"])
     return out
 
 

@@ -3,7 +3,8 @@ PyTorch port of ``embeddings_tpu/ops/attention.py``: the prefix-masked
 ``fused_attention`` (K2), its logit-biased variant
 ``fused_attention_bias`` (K7: MPNet's relative-position bias, ALiBi on
 short rows) and its key-streamed variant ``fused_attention_stream`` (K6:
-long rows, in-kernel ALiBi), and, for token-packed rows, the
+long rows, in-kernel ALiBi) with its banded mode ``fused_attention_window``
+(K6w: ModernBERT's sliding-window layers), and, for token-packed rows, the
 segment-masked ``fused_attention_segmented`` (K4) and its block-skipping
 variant ``fused_attention_segmented_blockskip`` (K5).
 
@@ -16,9 +17,8 @@ denominator, 1e-30 floor on the denominator (pad query rows stay finite).
 K2 pre-scales q by log2(e)/sqrt(D) and rounds it to the compute dtype;
 K4-K7 scale the f32 scores after the dot, as their TPU kernels do.
 
-Not ported yet: K6's causal and banded modes (``fused_attention_window``),
-the context-parallel kernels (K8a, K8b), and the int8-score and emission
-options.
+Not ported yet: K6's causal mode, the context-parallel kernels (K8a,
+K8b), and the int8-score and emission options.
 """
 
 from __future__ import annotations
@@ -293,9 +293,92 @@ def fused_attention_stream(qkv: torch.Tensor, lengths: torch.Tensor, *,
     return out
 
 
+# ---------------------------------------------------------------------------
+# K6w: banded (sliding-window) attention, K6's span + window mode
+# ---------------------------------------------------------------------------
+
+def window_span(window: int) -> int:
+    """128-key blocks the JAX grid walks on each side of a query block:
+    ceil((window // 2) / 128)."""
+    return -(-(window // 2) // BQ)
+
+
+def fused_attention_window_ref(qkv: torch.Tensor, lengths: torch.Tensor, *,
+                               B: int, L: int, H: int, D: int,
+                               window: int) -> torch.Tensor:
+    """The plain PyTorch version of K6w (same arguments as
+    ``fused_attention_window``). It walks the JAX grid: each 128-row query
+    block visits its 2*span+1 key blocks of 128 (steps past either end
+    clamp to a valid block and mask to zero), all query blocks of a step
+    at once, so no [B, H, L, L] array exists. When the band covers every
+    key block the JAX package walks them all and keeps the |i-j| mask,
+    and drops that mask when window // 2 >= L - 1 (the same sum).
+    s = (q.k) * s2 in f32, clamp sized to all L keys."""
+    dt, dev = qkv.dtype, qkv.device
+    nQ = L // BQ
+    span = window_span(window)
+    W = min(2 * span + 1, nQ)
+    banded = W < nQ
+    half = window // 2
+    use_mask = banded or half < L - 1
+    q, k, v = _split_heads(qkv, B, L, H, D)
+    qb = q.float().reshape(B, H, nQ, BQ, D)
+    kb, vb = k.reshape(B, H, nQ, BQ, D), v.reshape(B, H, nQ, BQ, D)
+    hi = _clamp_hi(L)
+    lens = lengths.to(dev)[:, None, None, None, None]
+    iq = torch.arange(nQ, device=dev)
+    r = torch.arange(BQ, device=dev)
+    qpos = (iq[:, None] * BQ + r)[:, :, None]               # [nQ, BQ, 1]
+    o = torch.zeros(B, H, nQ, BQ, D, device=dev)
+    den = torch.zeros(B, H, nQ, BQ, 1, device=dev)
+    for step in range(W):
+        raw = iq - span + step if banded else torch.full_like(iq, step)
+        blk = raw.clamp(0, nQ - 1)                            # [nQ]
+        kpos = (blk[:, None] * BQ + r)[:, None, :]            # [nQ, 1, BQ]
+        ok = (kpos < lens) & ((raw >= 0) & (raw < nQ))[:, None, None]
+        if use_mask:
+            ok = ok & ((qpos - kpos).abs() <= half)
+        kk, vv = kb[:, :, blk].float(), vb[:, :, blk].float()
+        s = (qb @ kk.transpose(-1, -2)) * _scale(D)
+        p = torch.where(ok, torch.exp2(s.clamp(_CLAMP_LO, hi)),
+                        torch.zeros((), device=dev)).to(dt).float()
+        o += p @ vv
+        den += p.sum(-1, keepdim=True)
+    return _merge_heads(o.reshape(B, H, L, D), den.reshape(B, H, L, 1), dt,
+                        B, L, H, D)
+
+
+def fused_attention_window(qkv: torch.Tensor, lengths: torch.Tensor, *,
+                           B: int, L: int, H: int, D: int,
+                           window: int) -> torch.Tensor:
+    """Banded (sliding-window) prefix-masked attention, ModernBERT's local
+    layers: query i attends key j iff j < lengths[b] and |i - j| <=
+    window // 2; scores scaled after the dot, clamp sized to L keys (as
+    ``fused_attention_stream``). Work is O(L * window), not O(L^2). Takes
+    the shapes of the JAX package's ``fused_attention_window``
+    (``stream_supported(L, H, D, 128)``). A CUDA tensor launches K6w
+    (``csrc/attention.cu``, band mode); a CPU tensor runs
+    ``fused_attention_window_ref``."""
+    if window <= 0:
+        raise ValueError(f"window must be positive, got {window}")
+    _check_prefix("fused_attention_window", stream_supported(L, H, D, BQ),
+                  qkv, lengths, B, L, H, D)
+    if qkv.device.type == "cpu":
+        return fused_attention_window_ref(qkv, lengths, B=B, L=L, H=H, D=D,
+                                          window=window)
+    _check_cuda(qkv, lengths)
+    out = torch.empty((B * L, H * D), dtype=qkv.dtype, device=qkv.device)
+    if B == 0:
+        return out
+    _launch("fused_attention_window", MODE_BAND, qkv, out, B, L, H, D,
+            _clamp_hi(L), lengths=lengths, W=window // 2)
+    fused_attention_window.launches += 1
+    return out
+
+
 # mask modes of csrc/attention.cu
 MODE_PREFIX, MODE_SEGMENT, MODE_WINDOW = 0, 1, 2
-MODE_BIAS, MODE_STREAM, MODE_ALIBI = 3, 4, 5
+MODE_BIAS, MODE_STREAM, MODE_ALIBI, MODE_BAND = 3, 4, 5, 6
 
 
 def _launch(what, mode, qkv, out, B, L, H, D, hi, *, lengths=None,
@@ -489,11 +572,12 @@ def fused_attention_segmented_blockskip(
     return out
 
 
-# launch counters: every successful K2 / K4 / K5 / K6 / K7 launch adds
-# one; callers reset them to 0 around the run they measure
+# launch counters: every successful K2 / K4 / K5 / K6 / K6w / K7 launch
+# adds one; callers reset them to 0 around the run they measure
 fused_attention.launches = 0
 fused_attention_bias.launches = 0
 fused_attention_stream.launches = 0
+fused_attention_window.launches = 0
 fused_attention_segmented.launches = 0
 fused_attention_segmented_blockskip.launches = 0
 

@@ -10,7 +10,7 @@ differ by bf16 rounding flips (K1: 2^-7 relative + 1e-3 of the output
 RMS; K2, whose probabilities are also rounded to bf16: 2^-6 + 1e-2).
 K3 as K1: its int8 operands equal the plain version's bit for bit and
 its s32 sums are exact, so only the last f32 bits of the activation and
-the bf16 rounding of the output differ. K4-K7 as K2.
+the bf16 rounding of the output differ. K4-K7 and K6w as K2.
 """
 
 import numpy as np
@@ -251,6 +251,27 @@ def test_stream_attention_kernel_matches_plain(cuda, B, L, H, D, BK, alibi):
     assert (got.reshape(B, L, -1)[0] == 0).all()
 
 
+@pytest.mark.parametrize("B,L,H,D,window", [(2, 128, 4, 32, 8),
+                                            (2, 256, 2, 64, 128),
+                                            (3, 384, 12, 64, 128),
+                                            (2, 512, 2, 128, 8),
+                                            (1, 1024, 12, 64, 384),
+                                            (4, 1024, 12, 64, 128),
+                                            (2, 512, 12, 64, 2048)])
+def test_window_attention_kernel_matches_plain(cuda, B, L, H, D, window):
+    rng = np.random.default_rng(L + window)
+    qkv = torch.from_numpy(rng.standard_normal(
+        (B * L, 3 * H * D), dtype=np.float32)).to(cuda, torch.bfloat16)
+    lens = _ragged(rng, B, L, cuda)
+    kw = dict(B=B, L=L, H=H, D=D, window=window)
+    before = A.fused_attention_window.launches
+    got = A.fused_attention_window(qkv, lens, **kw)
+    assert A.fused_attention_window.launches == before + 1
+    _close(got, A.fused_attention_window_ref(qkv, lens, **kw), 2 ** -6, 1e-2)
+    if B > 1:
+        assert (got.reshape(B, L, -1)[0] == 0).all()
+
+
 def test_kernels_raise_on_wrong_dtype(cuda):
     qt = quantize(np.zeros((64, 64), np.float32), "q4_0").map(
         lambda t: t.to(cuda))
@@ -275,6 +296,8 @@ def test_kernels_raise_on_wrong_dtype(cuda):
                                B=1, L=128, H=2, D=64)
     with pytest.raises(TypeError):
         A.fused_attention_stream(qkv, lens, B=1, L=128, H=2, D=64, BK=128)
+    with pytest.raises(TypeError):
+        A.fused_attention_window(qkv, lens, B=1, L=128, H=2, D=64, window=8)
     with pytest.raises(ValueError):  # the bias on the host
         A.fused_attention_bias(qkv.to(torch.bfloat16), lens,
                                torch.zeros(2, 128, 128), B=1, L=128, H=2,
