@@ -1,5 +1,5 @@
 """Smoke test of the PyTorch/CUDA port on one GPU: builds the hand-written
-kernels (K1-K7 and K6w), holds each against its plain PyTorch version on the card,
+kernels (K1-K7, K6w and K6c), holds each against its plain PyTorch version on the card,
 and drives the port's paths through Engine -> encode_batch (or
 encode_batch_packed) -> BatchingService -> TCP, checking each path's
 kernel launch counts:
@@ -14,12 +14,16 @@ kernel launch counts:
   tiny ALiBi fixture;
 - gte-modernbert-base q4_0 (pre-norm, RoPE, GeGLU, 22 layers: 8 global
   on K2 at L=1024 or K6 plain at L=8192, 14 local on the banded K6w);
+- gte-Qwen2-1.5B-instruct q4_0 (RMSNorm, grouped-query attention, SwiGLU,
+  28 layers, last-token pooling; one weight tree for both forms): causal
+  on K6c at L=512 and L=4096, bidirectional (as published) on K2 at L=512
+  and K6 plain at L=4096, 7 K1 a layer;
 
 then times the kernels and the forwards, with a device-time profile of
 each forward by kernel.
 
     python3 chip_smoke.py              # every phase, needs one CUDA device
-    python3 chip_smoke.py --phases device,build,k1,k2,k3,k4k5,k6k7,k6w
+    python3 chip_smoke.py --phases device,build,k1,k2,k3,k4k5,k6k7,k6w,k6c
 
 Each phase prints one JSON line. The last two lines are the kernel table
 and ``{"ok": true, "device": {...}}``; any failure exits non-zero before
@@ -32,6 +36,7 @@ from __future__ import annotations
 
 import argparse
 import asyncio
+import dataclasses
 import functools
 import json
 import subprocess
@@ -74,6 +79,8 @@ K7_REPLACES = ("embeddings_tpu/ops/attention.py:180 (_attn_kernel_bias via "
                "fused_attention_bias :240)")
 K6W_REPLACES = ("embeddings_tpu/ops/attention.py:661 (_attn_kernel_stream, "
                 "span + window mode, via fused_attention_window :920)")
+K6C_REPLACES = ("embeddings_tpu/ops/attention.py:661 (_attn_kernel_stream, "
+                "causal mode, via fused_attention_stream(causal=True) :900)")
 # packed shapes: K4 at the default row_len 128 (256 rows), K5 at 1024
 PACK_SHORT = (256, 128)
 PACK_LONG = (32, 1024)
@@ -94,6 +101,21 @@ MB_K1_SHAPES = {"mb_o_proj": (E, E, "bias"),
                 "mb_gate": (E, MB_F, "bias_gelu"),
                 "mb_up": (E, MB_F, "bias"),
                 "mb_down": (MB_F, E, "bias")}
+# gte-Qwen2-1.5B-instruct: 28 layers, 12 query heads of 128, 2 K/V heads,
+# SwiGLU FFN 8,960; two shapes of 16,384 token slots on both sides of the
+# whole-row rule (K2 up to 896 tokens at E=1,536, K6 beyond; causal rows
+# take K6c at both)
+QW_SHORT, QW_LONG = (32, 512), (4, 4096)
+QW_NL, QW_E, QW_H, QW_D, QW_F, QW_KV = 28, 1536, 12, 128, 8960, 256
+QW_M = 16384
+QW_K1 = 7 * QW_NL  # q, k, v, o, gate, up, down a layer
+# its matmuls (q and o share a shape, k and v another): plain bias
+# epilogues, the gate's SiLU in K1's epilogue
+QW_K1_SHAPES = {"qw_q_o": (QW_E, QW_E, "bias"),
+                "qw_k_v": (QW_E, QW_KV, "bias"),
+                "qw_gate": (QW_E, QW_F, "bias_silu"),
+                "qw_up": (QW_E, QW_F, "bias"),
+                "qw_down": (QW_F, QW_E, "bias")}
 
 # tolerances (kernel vs plain version on the same inputs, bf16 outputs):
 # both round the same bf16 operands and accumulate in f32 in different
@@ -208,24 +230,35 @@ def k1_cost(Mx, K, N, epilogue) -> tuple[float, float]:
 
 
 def counters() -> dict:
-    """The kernel wrappers, whose ``launches`` count their launches."""
+    """The kernels' launch counters: name -> (wrapper, attribute). K6c
+    counts apart from K6 on the same wrapper."""
     from embeddings_tpu_torch.ops import attention as A, qmatmul as Q
-    return {"K1": Q.qmatmul, "K2": A.fused_attention, "K3": Q.qmatmul_int8,
-            "K4": A.fused_attention_segmented,
-            "K5": A.fused_attention_segmented_blockskip,
-            "K6": A.fused_attention_stream, "K7": A.fused_attention_bias,
-            "K6w": A.fused_attention_window}
+    stream = A.fused_attention_stream
+    return {"K1": (Q.qmatmul, "launches"),
+            "K2": (A.fused_attention, "launches"),
+            "K3": (Q.qmatmul_int8, "launches"),
+            "K4": (A.fused_attention_segmented, "launches"),
+            "K5": (A.fused_attention_segmented_blockskip, "launches"),
+            "K6": (stream, "launches"),
+            "K7": (A.fused_attention_bias, "launches"),
+            "K6w": (A.fused_attention_window, "launches"),
+            "K6c": (stream, "causal_launches")}
 
 
 def reset_counts() -> None:
-    for f in counters().values():
-        f.launches = 0
+    set_counts(dict.fromkeys(counters(), 0))
+    for f, _ in counters().values():
         if hasattr(f, "shapes"):
             f.shapes.clear()
 
 
+def set_counts(counts: dict) -> None:
+    for k, (f, attr) in counters().items():
+        setattr(f, attr, counts[k])
+
+
 def read_counts() -> dict:
-    return {k: f.launches for k, f in counters().items()}
+    return {k: getattr(f, attr) for k, (f, attr) in counters().items()}
 
 
 def only(**launches) -> dict:
@@ -302,8 +335,10 @@ def phase_k1():
     rng = np.random.default_rng(1)
     dev = torch.device("cuda")
     main = {}
-    for name, (K, N, epi) in {**K1_SHAPES, **MB_K1_SHAPES}.items():
-        args, kw, _ = k1_inputs(rng, M, K, N, "q4_0", True, epi, dev)
+    for name, (K, N, epi) in {**K1_SHAPES, **MB_K1_SHAPES,
+                              **QW_K1_SHAPES}.items():
+        Mx = QW_M if name in QW_K1_SHAPES else M
+        args, kw, _ = k1_inputs(rng, Mx, K, N, "q4_0", True, epi, dev)
         got = qmatmul(*args.values(), **kw)
         ref = qmatmul_ref(*args.values(), **kw)
         torch.cuda.synchronize()
@@ -329,20 +364,21 @@ def phase_k1():
     RESULTS["k1_small"] = small
 
 
-def _k2_case(rng, Bx, Lx, lengths, dev):
+def _k2_case(rng, Bx, Lx, lengths, dev, Hx=H, Dx=D):
     import torch
     from embeddings_tpu_torch.ops.attention import fused_attention, \
         fused_attention_ref
+    Ex = Hx * Dx
     qkv = torch.from_numpy(rng.standard_normal(
-        (Bx * Lx, 3 * E), dtype=np.float32)).to(dev, torch.bfloat16)
+        (Bx * Lx, 3 * Ex), dtype=np.float32)).to(dev, torch.bfloat16)
     lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
-    got = fused_attention(qkv, lens, B=Bx, L=Lx, H=H, D=D)
-    ref = fused_attention_ref(qkv, lens, B=Bx, L=Lx, H=H, D=D)
+    got = fused_attention(qkv, lens, B=Bx, L=Lx, H=Hx, D=Dx)
+    ref = fused_attention_ref(qkv, lens, B=Bx, L=Lx, H=Hx, D=Dx)
     torch.cuda.synchronize()
     r = compare(got, ref, K2_RTOL, K2_ATOL_RMS)
     zero_rows = [b for b, n in enumerate(lengths) if n == 0]
     r["zero_rows_exact"] = all(
-        bool((got.reshape(Bx, Lx, E)[b] == 0).all()) for b in zero_rows)
+        bool((got.reshape(Bx, Lx, Ex)[b] == 0).all()) for b in zero_rows)
     return r
 
 
@@ -356,12 +392,16 @@ def phase_k2():
     lens512 = rng.integers(1, 513, 16)
     lens512[0], lens512[1] = 0, 512
     r512 = _k2_case(rng, 16, 512, lens512.tolist(), dev)
-    for name, r in (("L256", r256), ("L512", r512)):
+    # Qwen2's bidirectional short rows: D=128 at B=32, L=512
+    lensq = rng.integers(1, QW_SHORT[1] + 1, QW_SHORT[0])
+    lensq[0], lensq[1] = 0, QW_SHORT[1]
+    rq = _k2_case(rng, *QW_SHORT, lensq.tolist(), dev, QW_H, QW_D)
+    for name, r in (("L256", r256), ("L512", r512), ("L512_D128", rq)):
         check(r["ok"] and r["zero_rows_exact"],
               f"K2 {name} disagrees: {r}")
     emit("k2_parity", tolerance=f"|err| <= {K2_RTOL}*|ref| + "
          f"{K2_ATOL_RMS}*rms(ref); len-0 rows exactly 0",
-         L256=r256, L512=r512)
+         L256=r256, L512=r512, L512_D128=rq)
 
 
 def phase_k3():
@@ -570,8 +610,8 @@ def _check_tcp(phase: str, eng, **extra) -> None:
     diff = max(float(np.abs(a - d).max()) for a, d in zip(answers, direct))
     emit(phase, requests=len(texts), n_embd=n_embd,
          max_abs_diff_vs_encode=diff, **extra)
-    check(n_embd == E and diff <= 1e-6, f"{phase}: TCP answers differ by "
-          f"{diff}")
+    check(n_embd == eng.config.hidden_size and diff <= 1e-6,
+          f"{phase}: n_embd {n_embd}, TCP answers differ by {diff}")
 
 
 def phase_int8_path():
@@ -717,12 +757,13 @@ def _packed_tcp(eng, texts, ref) -> dict:
 # the logit-bias families (K6, K7)
 # ---------------------------------------------------------------------------
 
-def _attn_qkv(rng, Bx: int, Lx: int, dev, ragged: bool = True):
-    """Unit-normal bf16 qkv [Bx*Lx, 3E] and int32 lengths: ragged (an
+def _attn_qkv(rng, Bx: int, Lx: int, dev, ragged: bool = True,
+              Ex: int = E):
+    """Unit-normal bf16 qkv [Bx*Lx, 3Ex] and int32 lengths: ragged (an
     all-pad row first, a full row last) or every row full."""
     import torch
     qkv = torch.from_numpy(rng.standard_normal(
-        (Bx * Lx, 3 * E), dtype=np.float32)).to(dev, torch.bfloat16)
+        (Bx * Lx, 3 * Ex), dtype=np.float32)).to(dev, torch.bfloat16)
     lens = np.full(Bx, Lx)
     if ragged:
         lens = rng.integers(1, Lx + 1, Bx)
@@ -755,8 +796,9 @@ def _slopes(dev):
 
 def phase_k6k7():
     """K7 at the MPNet shape (table bias) and at jina's L=1024 (ALiBi
-    bias); K6 plain at L=2048 and with in-kernel ALiBi at B=4, L=8192;
-    each against its plain version on the same inputs."""
+    bias); K6 plain at L=2048, with in-kernel ALiBi at B=4, L=8192, and
+    plain at Qwen2's D=128, B=4, L=4096; each against its plain version
+    on the same inputs."""
     import torch
     from embeddings_tpu_torch.ops import attention as A
     rng = np.random.default_rng(7)
@@ -773,15 +815,18 @@ def phase_k6k7():
         out[name] = dict(compare(got, ref, K2_RTOL, K2_ATOL_RMS),
                          shape=[Bx, Lx, H, D])
         del ref
-    for name, slopes, (Bx, Lx) in (("K6_plain", None, BERT_LONG),
-                                   ("K6_alibi", _slopes(dev), JINA_LONG)):
-        qkv, lens = _attn_qkv(rng, Bx, Lx, dev)
-        kw = dict(B=Bx, L=Lx, H=H, D=D, BK=A.pick_bk(Lx), alibi_slopes=slopes)
+    for name, slopes, (Bx, Lx), (Hx, Dx) in (
+            ("K6_plain", None, BERT_LONG, (H, D)),
+            ("K6_alibi", _slopes(dev), JINA_LONG, (H, D)),
+            ("K6_plain_D128", None, QW_LONG, (QW_H, QW_D))):
+        qkv, lens = _attn_qkv(rng, Bx, Lx, dev, Ex=Hx * Dx)
+        kw = dict(B=Bx, L=Lx, H=Hx, D=Dx, BK=A.pick_bk(Lx),
+                  alibi_slopes=slopes)
         got = A.fused_attention_stream(qkv, lens, **kw)
         ref = A.fused_attention_stream_ref(qkv, lens, **kw)
         torch.cuda.synchronize()
         out[name] = dict(compare(got, ref, K2_RTOL, K2_ATOL_RMS),
-                         shape=[Bx, Lx, H, D], BK=kw["BK"])
+                         shape=[Bx, Lx, Hx, Dx], BK=kw["BK"])
         del ref
     for name, r in out.items():
         check(r["ok"], f"{name} disagrees: {r}")
@@ -846,6 +891,78 @@ def phase_k6w():
     emit("k6w_parity", tolerance=f"|err| <= {K2_RTOL}*|ref| + "
          f"{K2_ATOL_RMS}*rms(ref) on query rows i < len; pad query rows "
          f"finite, exactly 0 past len + window/2 and on len-0 rows", **out)
+
+
+def causal_compare(got, ref, qkv, lens, Bx, Lx, Hx, Dx) -> dict:
+    """K6c against its plain version. Query row i of sequence b sees
+    min(i + 1, len[b]) keys. Rows that see 64 keys or more: K2's
+    tolerance. Rows that see 1-63 (the first rows of every sequence, read
+    by the next layer): K2's tolerance plus one bf16 flip of one
+    probability p_j, which moves the output by at most 2^-7 * p_j / sum(p)
+    * |v_j - out| <= 2^-6 * max|v| over those keys (an output near a
+    bf16 rounding boundary of exp2 in one version and not the other; the
+    two sum the scores in other orders). Rows that see no key: exactly
+    0."""
+    import torch
+    i = torch.arange(Lx, device=got.device)
+    nkeys = torch.minimum(i[None, :] + 1, lens[:, None].long()).reshape(-1)
+    vmax = qkv.float().reshape(Bx, Lx, 3, Hx, Dx)[:, :64, 2].abs().amax(
+        dim=(1, 3))                                              # [B, H]
+    flip = (2.0 ** -6 * vmax)[:, None, :, None].expand(
+        Bx, Lx, Hx, Dx).reshape(Bx * Lx, Hx * Dx)
+    g, r = got.float(), ref.float()
+    err = (g - r).abs()
+    tol = K2_RTOL * r.abs() + K2_ATOL_RMS * r.square().mean().sqrt()
+    few = (nkeys > 0) & (nkeys < 64)
+    many = nkeys >= 64
+    beyond_k2 = (err[few] > tol[few]).any(-1)
+    out = {
+        "max_abs_err": err.max().item(),
+        "max_abs_err_64plus_keys": err[many].max().item()
+        if many.any() else 0.0,
+        "max_abs_err_few_keys": err[few].max().item() if few.any() else 0.0,
+        "few_key_rows": int(few.sum()),
+        "few_key_rows_past_k2_tolerance": int(beyond_k2.sum()),
+        "zero_rows_exact": bool((got[nkeys == 0] == 0).all()),
+        "ok": bool(torch.isfinite(g).all()
+                   and (err[many] <= tol[many]).all()
+                   and (err[few] <= tol[few] + flip[few]).all())}
+    return out
+
+
+def phase_k6c():
+    """K6c (causal attention, the Qwen2 decoder embedders) against its
+    plain version: Qwen2's two shapes (D=128: B=4, L=4096 with full and
+    partial rows, B=32, L=512 ragged with an all-pad row), a short shape
+    with len-0 and len-1 rows, and D=64 (``causal_compare``'s
+    tolerance)."""
+    import torch
+    from embeddings_tpu_torch.ops import attention as A
+    rng = np.random.default_rng(10)
+    dev = torch.device("cuda")
+    out = {}
+    for name, (Bx, Lx), (Hx, Dx), lengths in (
+            ("qwen2_long", QW_LONG, (QW_H, QW_D),
+             [4096, 4096 - 37, 1000, 4096]),
+            ("qwen2_short", QW_SHORT, (QW_H, QW_D), None),
+            ("short_len0", (4, 256), (QW_H, QW_D), [256, 219, 1, 0]),
+            ("D64", (4, 1024), (H, D), [1024, 987, 1, 0])):
+        qkv, lens = _attn_qkv(rng, Bx, Lx, dev, Ex=Hx * Dx)
+        if lengths is not None:
+            lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+        kw = dict(B=Bx, L=Lx, H=Hx, D=Dx, BK=A.pick_bk(Lx), causal=True)
+        got = A.fused_attention_stream(qkv, lens, **kw)
+        ref = A.fused_attention_stream_ref(qkv, lens, **kw)
+        torch.cuda.synchronize()
+        r = dict(causal_compare(got, ref, qkv, lens, Bx, Lx, Hx, Dx),
+                 shape=[Bx, Lx, Hx, Dx], BK=kw["BK"])
+        check(r["ok"] and r["zero_rows_exact"], f"K6c {name} disagrees: {r}")
+        out[name] = r
+        del ref
+    emit("k6c_parity", tolerance=f"|err| <= {K2_RTOL}*|ref| + "
+         f"{K2_ATOL_RMS}*rms(ref) on query rows that see >= 64 keys; "
+         f"+ 2^-6 * max|v| of the keys on rows that see 1-63; rows that "
+         f"see none exactly 0", **out)
 
 
 def _family_engine(family: str, **ec):
@@ -1083,6 +1200,127 @@ def phase_modernbert_path():
     _check_tcp("modernbert_server", eng)
 
 
+def _qwen2_engine(causal: bool, **ec):
+    """gte-Qwen2-1.5B-instruct at full width and depth, q4_0 packed (q, k,
+    v apart: grouped-query attention), random weights from numpy seed 0.
+    The tree is built once, moved to the card once and shared by every
+    engine (causal or bidirectional, kernel or plain f32 path): they
+    differ only in ``config.causal`` and the engine config."""
+    import torch
+    from embeddings_tpu_torch import BertConfig, EngineConfig, KNOWN_MODELS
+    from embeddings_tpu_torch.models import params as P
+    from embeddings_tpu_torch.runtime.engine import Engine
+    from embeddings_tpu_torch.tokenizer import tokenizer_from_dir
+    dev = torch.device("cuda")
+    if "qwen2_params" not in STATE:
+        cfg = BertConfig(**KNOWN_MODELS["gte-Qwen2-1.5B-instruct"])
+        t0 = time.perf_counter()
+        params = P.to_device(P.fuse_qkv(P.pack_q4_params(P.quantize_params(
+            P.init_params(cfg, np.random.default_rng(0)), "q4_0"))), dev)
+        torch.cuda.synchronize()
+        STATE["qwen2_params"] = (cfg, params, time.perf_counter() - t0)
+    cfg, params, _ = STATE["qwen2_params"]
+    tok = tokenizer_from_dir(FIXTURE / "model")
+    ec = {"batch_size": QW_SHORT[0], "max_seq_len": QW_LONG[1], **ec}
+    return Engine(params, dataclasses.replace(cfg, causal=causal), tok,
+                  EngineConfig(**ec), device=dev)
+
+
+def phase_qwen2_path():
+    """gte-Qwen2-1.5B-instruct q4_0 at full width and depth (28 layers,
+    last-token pooling) through Engine.encode_batch, four forwards of
+    16,384 token slots: causal at B=32, L=512 and B=4, L=4096 (196 K1 +
+    28 K6c each), bidirectional at B=32, L=512 (196 K1 + 28 K2) and B=4,
+    L=4096 (196 K1 + 28 K6 plain); no einsum attention. One or two
+    sequences of each against the plain f32 path on the same tree; the
+    causal and bidirectional forms must differ; the TCP server for
+    both."""
+    from embeddings_tpu_torch.ops.qmatmul import qmatmul
+    engines = {"causal": _qwen2_engine(True),
+               "bidirectional": _qwen2_engine(False)}
+    plain = {form: _qwen2_engine(form == "causal", use_pallas="never",
+                                 compute_dtype="float32")
+             for form in engines}
+    eng = engines["causal"]
+    long_texts = [_joined(i * 350, 1000) for i in range(QW_LONG[0])]
+    short_texts = [_joined(i * 40, 30) for i in range(QW_SHORT[0])]
+    check(all(len(eng.tokenize(t)) == QW_LONG[1] for t in long_texts),
+          f"long texts do not fill L={QW_LONG[1]}")
+    lens = [len(eng.tokenize(t)) for t in short_texts]
+    check(QW_SHORT[1] // 2 < min(lens) and max(lens) <= QW_SHORT[1],
+          f"short texts outside the L=512 bucket: {min(lens)}..{max(lens)}")
+    out, k1_shapes, embs = {}, {}, {}
+    for form, e in engines.items():
+        for name, texts, shape, n_plain in (
+                ("short", short_texts, QW_SHORT, 2),
+                ("long", long_texts, QW_LONG, 1)):
+            attn = ("K6c" if form == "causal" else
+                    "K2" if name == "short" else "K6")
+            emb, counts, n, wall = _run_counted(e, texts)
+            for key, c in qmatmul.shapes.items():
+                k1_shapes[key] = k1_shapes.get(key, 0) + c
+            cos = _row_cos(emb[:n_plain],
+                           plain[form].encode_batch(texts[:n_plain]))
+            norms = np.linalg.norm(emb, axis=1)
+            out[f"{form}_{name}"] = dict(
+                batch=list(shape), forwards=n, launches=counts, wall_s=wall,
+                norm_min=float(norms.min()), norm_max=float(norms.max()),
+                kernel_vs_plain_f32_min_cos=float(cos.min()),
+                plain_rows=n_plain)
+            check(np.isfinite(emb).all() and emb.shape == (len(texts), QW_E),
+                  f"qwen2 {form} {name}: output not finite / wrong shape")
+            want = only(K1=QW_K1, **{attn: QW_NL})
+            check(n == 1 and counts == want,
+                  f"qwen2 {form} {name}: launches {counts} over {n} "
+                  f"forwards, expected {want}")
+            check(np.abs(norms - 1).max() < 1e-3,
+                  f"qwen2 {form} {name}: not unit norm")
+            check(cos.min() >= 0.999,
+                  f"qwen2 {form} {name} vs plain f32: {cos.min()}")
+            STATE[f"launches_{attn}_qwen2_{name}"] = counts[attn]
+            embs[form, name] = emb
+    # the causal mask is live: a row's first hidden states differ between
+    # the two forms (the last token, pooled, sees every key in both)
+    form_cos = {name: float(_row_cos(embs["causal", name],
+                                     embs["bidirectional", name]).min())
+                for name in ("short", "long")}
+    first = _first_positions_cos(engines, short_texts[0])
+    check(first < 0.999, f"qwen2: causal and bidirectional hidden states "
+          f"agree on the first 64 positions (min cos {first})")
+    STATE.setdefault("launches", {})["qmatmul_qwen2"] = k1_shapes
+    emit("qwen2_path", model="gte-Qwen2-1.5B-instruct (random init, numpy "
+         "seed 0) q4_0 packed, q/k/v apart (GQA), last-token pooling",
+         init_quantize_s=STATE["qwen2_params"][2],
+         causal_vs_bidirectional_pooled_min_cos=form_cos,
+         causal_vs_bidirectional_first64_hidden_min_cos=first, **out)
+    STATE["qwen2_causal_engine"] = engines["causal"]
+    STATE["qwen2_bidir_engine"] = engines["bidirectional"]
+    _check_tcp("qwen2_server_causal", engines["causal"])
+    _check_tcp("qwen2_server_bidirectional", engines["bidirectional"])
+
+
+def _first_positions_cos(engines, text: str) -> float:
+    """Min cosine between the causal and the bidirectional hidden states
+    of one text's first 64 positions, through the kernels (the row padded
+    to L=512: K6c and K2)."""
+    import torch
+    from embeddings_tpu_torch.models import bert
+    from embeddings_tpu_torch.runtime.batching import pad_batch
+    eng = engines["causal"]
+    ids, mask = pad_batch([eng.tokenize(text)], 1, QW_SHORT[1],
+                          eng.tokenizer.pad_id)
+    h = {}
+    with torch.inference_mode():
+        for form, e in engines.items():
+            h[form] = bert.encode_tokens(
+                e.params, e.config, torch.from_numpy(ids).to(e.device),
+                torch.from_numpy(mask).to(e.device),
+                compute_dtype=e._compute_dtype, return_hidden=True)[0, :64]
+    cos = torch.nn.functional.cosine_similarity(h["causal"],
+                                                h["bidirectional"], dim=-1)
+    return float(cos.min())
+
+
 def phase_timing():
     import torch
     from embeddings_tpu_torch.ops import attention as A
@@ -1109,22 +1347,32 @@ def phase_timing():
             runs[name] = (lambda a=arrays, w=W: eng._forward_packed(*a, w),
                           launches_want(("qmm_kernel",), 4 * NL, {mode: NL}))
     # the families' forwards: name -> (engine, shape, K1 launches a
-    # forward, {attention mode: launches a forward})
+    # forward, {attention mode: launches a forward}, head dim)
     mb_k1 = 5 * MB_NL
-    families = {"mpnet": ("mpnet_engine", MPNET_SHAPE, 4 * NL, {3: NL}),
-                "jina_long": ("jina_engine", JINA_LONG, 5 * NL, {5: NL}),
-                "jina_short": ("jina_engine", JINA_SHORT, 5 * NL, {3: NL}),
+    families = {"mpnet": ("mpnet_engine", MPNET_SHAPE, 4 * NL, {3: NL}, D),
+                "jina_long": ("jina_engine", JINA_LONG, 5 * NL, {5: NL}, D),
+                "jina_short": ("jina_engine", JINA_SHORT, 5 * NL, {3: NL},
+                               D),
                 "bert_long": ("bert_long_engine", BERT_LONG, 4 * NL,
-                              {4: NL}),
+                              {4: NL}, D),
                 "modernbert_long": ("modernbert_engine", MB_LONG, mb_k1,
-                                    {4: MB_GLOBAL, 6: MB_LOCAL}),
+                                    {4: MB_GLOBAL, 6: MB_LOCAL}, D),
                 "modernbert_short": ("modernbert_engine", MB_SHORT, mb_k1,
-                                     {0: MB_GLOBAL, 6: MB_LOCAL})}
-    for name, (key, shape, k1, attn) in families.items():
+                                     {0: MB_GLOBAL, 6: MB_LOCAL}, D),
+                "qwen2_causal_short": ("qwen2_causal_engine", QW_SHORT,
+                                       QW_K1, {7: QW_NL}, QW_D),
+                "qwen2_causal_long": ("qwen2_causal_engine", QW_LONG,
+                                      QW_K1, {7: QW_NL}, QW_D),
+                "qwen2_bidir_short": ("qwen2_bidir_engine", QW_SHORT,
+                                      QW_K1, {0: QW_NL}, QW_D),
+                "qwen2_bidir_long": ("qwen2_bidir_engine", QW_LONG,
+                                     QW_K1, {4: QW_NL}, QW_D)}
+    for name, (key, shape, k1, attn, dh) in families.items():
         if key in STATE:
             fids = rng.integers(1000, 30000, shape).astype(np.int32)
             runs[name] = (lambda e=STATE[key], i=fids: e._forward(
-                i, np.ones_like(i)), launches_want(("qmm_kernel",), k1, attn))
+                i, np.ones_like(i)),
+                launches_want(("qmm_kernel",), k1, attn, dh))
     fwd = {k: cuda_ms(r[0], iters=5) for k, r in runs.items()}
     profiles = {k: device_profile(k, *r) for k, r in runs.items()}
     packed_fwd = {}
@@ -1136,7 +1384,7 @@ def phase_timing():
                                 "tokens": tokens, "forward_ms": fwd[name],
                                 "tokens_per_s": tokens / fwd[name] * 1e3}
     family_fwd = {}
-    for name, (_, (Bx, Lx), _, _) in families.items():
+    for name, (_, (Bx, Lx), _, _, _) in families.items():
         if name in fwd:
             family_fwd[name] = {"shape": [Bx, Lx], "forward_ms": fwd[name],
                                 "sentences_per_s": Bx / fwd[name] * 1e3,
@@ -1226,8 +1474,12 @@ def phase_timing():
                        launches.get("qmatmul_modernbert", {}))
                 for name, shape in MB_K1_SHAPES.items()]
     kernels += window_rows(rng, dev)
-    for name, f in counters().items():
-        f.launches = saved[name]
+    if "qwen2_path" in RESULTS:
+        kernels += [k1_row(rng, dev, name, shape,
+                           launches.get("qmatmul_qwen2", {}), QW_M)
+                    for name, shape in QW_K1_SHAPES.items()]
+        kernels += qwen2_attention_rows(rng, dev)
+    set_counts(saved)
     per_layer_bound = sum(kk["bound_ms"] for kk in kernels[:5])
     emit("timing", batch=[B, L], forward_ms=fwd["bf16"],
          sentences_per_s=B / fwd["bf16"] * 1e3,
@@ -1241,26 +1493,28 @@ def phase_timing():
     RESULTS["kernels"] = kernels
 
 
-def launches_want(matmuls, per_forward: int, attn: dict) -> dict:
+def launches_want(matmuls, per_forward: int, attn: dict,
+                  dh: int = D) -> dict:
     """The launches one forward makes, by the profiler's kernel names:
-    per_forward of each matmul kernel, and of attn_kernel<D, mode> the
+    per_forward of each matmul kernel, and of attn_kernel<dh, mode> the
     count {mode: count} gives."""
     return {**{k: per_forward for k in matmuls},
-            **{f"attn_kernel<{D}, {m}>": n for m, n in attn.items()}}
+            **{f"attn_kernel<{dh}, {m}>": n for m, n in attn.items()}}
 
 
-def k1_row(rng, dev, name: str, shape, launches: dict) -> dict:
-    """K1's row of the kernel table at M = 32,768 tokens and one (K, N,
-    epilogue) of a main path; ``launches``: that path's counts by shape.
-    The library yardstick is a bf16 matmul on the dequantized weight."""
+def k1_row(rng, dev, name: str, shape, launches: dict, Mx: int = M) -> dict:
+    """K1's row of the kernel table at Mx tokens (32,768; Qwen2's
+    forwards 16,384) and one (K, N, epilogue) of a main path;
+    ``launches``: that path's counts by shape. The library yardstick is a
+    bf16 matmul on the dequantized weight."""
     import torch
     from embeddings_tpu_torch.ops.qmatmul import dequantize_bf16, qmatmul, \
         qmatmul_ref
     K, N, epi = shape
-    args, kw, qt = k1_inputs(rng, M, K, N, "q4_0", True, epi, dev)
+    args, kw, qt = k1_inputs(rng, Mx, K, N, "q4_0", True, epi, dev)
     a = list(args.values())
     w_bf16 = dequantize_bf16(qt.codes, qt.scales, qt.mins, "q4_0", True)
-    bms, by = bound_ms(*k1_cost(M, K, N, epi))
+    bms, by = bound_ms(*k1_cost(Mx, K, N, epi))
     return {
         "name": f"qmatmul[{name} {K}x{N} {epi}]", "route": "cuda",
         "source": "embeddings_tpu_torch/csrc/qmatmul.cu",
@@ -1270,7 +1524,7 @@ def k1_row(rng, dev, name: str, shape, launches: dict) -> dict:
         "plain_ms": cuda_ms(lambda: qmatmul_ref(*a, **kw), iters=3),
         "bound_ms": bms, "bound_by": by,
         "library_ms": cuda_ms(lambda: torch.matmul(a[0], w_bf16)),
-        "shape": [M, K, N]}
+        "shape": [Mx, K, N]}
 
 
 def window_rows(rng, dev) -> list:
@@ -1364,16 +1618,82 @@ def tally(table: dict, key: str, ms: float) -> None:
     t[1] += 1
 
 
-def sdpa_ms(qkv, Bx: int, Lx: int, mask) -> float:
+def sdpa_ms(qkv, Bx: int, Lx: int, mask, Hx: int = H, Dx: int = D,
+            is_causal: bool = False) -> float:
     """The library yardstick for the attention kernels:
     F.scaled_dot_product_attention on [B, H, L, D] copies of q, k, v with
     the equivalent mask (boolean for K2/K4/K5; the family bias as a bf16
-    float mask for K6/K7, None for K6 plain on full rows)."""
+    float mask for K6/K7, None for K6 plain on full rows, is_causal for
+    K6c on full rows)."""
     import torch.nn.functional as Fn
-    q, k, v = (qkv.reshape(Bx, Lx, 3, H, D)[:, :, i].transpose(1, 2)
+    q, k, v = (qkv.reshape(Bx, Lx, 3, Hx, Dx)[:, :, i].transpose(1, 2)
                .contiguous() for i in range(3))
     return cuda_ms(lambda: Fn.scaled_dot_product_attention(
-        q, k, v, attn_mask=mask))
+        q, k, v, attn_mask=mask, is_causal=is_causal))
+
+
+def qwen2_attention_rows(rng, dev) -> list:
+    """Qwen2's attention rows of the kernel table (D=128, every row full):
+    K6c at both shapes, K2 at B=32, L=512 and K6 plain at B=4, L=4096
+    (the bidirectional form). K6c's bound counts the causal pairs (L(L+1)/2
+    a row), not the tiles it walks; its library yardstick is SDPA with
+    is_causal=True (the rows are full, so the length mask is empty), and
+    ``library_bool_mask_ms`` SDPA with the causal and length mask as one
+    boolean [B, 1, L, L] mask."""
+    import torch
+    from embeddings_tpu_torch.ops import attention as A
+    out = []
+    Ex = QW_H * QW_D
+    for kname, (Bx, Lx) in (("K6c", QW_SHORT), ("K6c", QW_LONG),
+                            ("K2", QW_SHORT), ("K6", QW_LONG)):
+        qkv, lens = _attn_qkv(rng, Bx, Lx, dev, ragged=False, Ex=Ex)
+        kw = dict(B=Bx, L=Lx, H=QW_H, D=QW_D)
+        pairs = Bx * Lx * Lx if kname != "K6c" else Bx * Lx * (Lx + 1) // 2
+        bms, by = bound_ms(4.0 * QW_H * QW_D * pairs,
+                           Bx * Lx * (3 * Ex * 2 + Ex * 2) + Bx * 4)
+        extra = {}
+        if kname == "K2":
+            kernel = functools.partial(A.fused_attention, qkv, lens, **kw)
+            plain = functools.partial(A.fused_attention_ref, qkv, lens, **kw)
+            fn, replaces = "fused_attention", K2_REPLACES
+            parity = RESULTS["k2_parity"]["L512_D128"]
+            lib = sdpa_ms(qkv, Bx, Lx, None, QW_H, QW_D)
+            key = "launches_K2_qwen2_short"
+        else:
+            kw.update(BK=A.pick_bk(Lx), causal=kname == "K6c")
+            kernel = functools.partial(A.fused_attention_stream, qkv, lens,
+                                       **kw)
+            plain = functools.partial(A.fused_attention_stream_ref, qkv,
+                                      lens, **kw)
+            if kname == "K6c":
+                fn, replaces = "fused_attention_stream causal", K6C_REPLACES
+                parity = RESULTS["k6c_parity"][
+                    "qwen2_short" if Lx == QW_SHORT[1] else "qwen2_long"]
+                lib = sdpa_ms(qkv, Bx, Lx, None, QW_H, QW_D, is_causal=True)
+                i = torch.arange(Lx, device=dev)
+                mask = ((i[None, :] <= i[:, None])[None]
+                        & (i[None, None, :] < lens[:, None, None]))[:, None]
+                extra["library_bool_mask_ms"] = sdpa_ms(qkv, Bx, Lx, mask,
+                                                        QW_H, QW_D)
+                extra["causal_pairs"] = pairs
+                del mask
+                key = ("launches_K6c_qwen2_short" if Lx == QW_SHORT[1]
+                       else "launches_K6c_qwen2_long")
+            else:
+                fn, replaces = "fused_attention_stream plain", K6_REPLACES
+                parity = RESULTS["k6k7_parity"]["K6_plain_D128"]
+                lib = sdpa_ms(qkv, Bx, Lx, None, QW_H, QW_D)
+                key = "launches_K6_qwen2_long"
+        out.append({
+            "name": f"{fn}[B{Bx} L{Lx} H{QW_H} D{QW_D}]", "route": "cuda",
+            "source": "embeddings_tpu_torch/csrc/attention.cu",
+            "replaces": replaces, "launches": STATE.get(key, 0),
+            "max_abs_err": parity["max_abs_err"],
+            "ms": cuda_ms(kernel, iters=5),
+            "plain_ms": cuda_ms(plain, iters=2, warmup=1),
+            "bound_ms": bms, "bound_by": by, "library_ms": lib,
+            **extra, "shape": [Bx, Lx, QW_H, QW_D]})
+    return out
 
 
 def bias_stream_rows(rng, dev) -> list:
@@ -1434,12 +1754,14 @@ def bias_stream_rows(rng, dev) -> list:
 
 PHASES = {"device": phase_device, "build": phase_build, "k1": phase_k1,
           "k2": phase_k2, "k3": phase_k3, "k4k5": phase_k4k5,
-          "k6k7": phase_k6k7, "k6w": phase_k6w, "main": phase_main_path,
+          "k6k7": phase_k6k7, "k6w": phase_k6w, "k6c": phase_k6c,
+          "main": phase_main_path,
           "trained": phase_trained, "server": phase_server,
           "int8_path": phase_int8_path, "packed_path": phase_packed_path,
           "long_path": phase_long_path, "mpnet_path": phase_mpnet_path,
           "jina_path": phase_jina_path,
-          "modernbert_path": phase_modernbert_path, "timing": phase_timing}
+          "modernbert_path": phase_modernbert_path,
+          "qwen2_path": phase_qwen2_path, "timing": phase_timing}
 
 
 def main() -> int:

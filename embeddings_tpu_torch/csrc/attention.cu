@@ -1,6 +1,6 @@
 // Fused multi-head self-attention over the fused QKV projection, for
-// sm_90a: kernels K2, K4, K5, K6 (with its banded mode K6w) and K7 of the
-// PyTorch port, as seven mask modes of one kernel.
+// sm_90a: kernels K2, K4, K5, K6 (with its banded mode K6w and its causal
+// mode K6c) and K7 of the PyTorch port, as eight mask modes of one kernel.
 //
 // Replaces (embeddings_tpu/ops/attention.py, the Pallas TPU kernels):
 //   mode 0, K2: _attn_kernel (its bf16 branch), behind fused_attention();
@@ -9,11 +9,13 @@
 //               fused_attention_segmented_blockskip();
 //   mode 3, K7: _attn_kernel_bias, behind fused_attention_bias();
 //   modes 4, 5, K6: _attn_kernel_stream in its plain and ALiBi modes,
-//               behind fused_attention_stream() (its causal mode is not
-//               ported yet);
+//               behind fused_attention_stream();
 //   mode 6, K6w: _attn_kernel_stream in its span + window (banded) mode,
 //               behind fused_attention_window() (ModernBERT's local
-//               layers).
+//               layers);
+//   mode 7, K6c: _attn_kernel_stream in its causal mode, behind
+//               fused_attention_stream(causal=True) (the Qwen2 decoder
+//               embedders).
 // For each sequence (packed row) b, head h and query i, with q, k, v read
 // as column slices of the fused qkv buffer [B*L, 3E] (q at h*D, k at
 // E + h*D, v at 2E + h*D), and d = q . k_j accumulated in f32:
@@ -33,13 +35,16 @@
 //           positions, no bias array);
 //   mode 6: s = clamp(d * s2, -100, hi), key j valid iff j < len[b] and
 //           |i - j| <= W (W = window // 2), over the 64-key tiles that
-//           meet [q0 - W, q_last + W] only: O(L * window) work.
+//           meet [q0 - W, q_last + W] only: O(L * window) work;
+//   mode 7: s = clamp(d * s2, -100, hi), key j valid iff j < len[b] and
+//           j <= i, over the 64-key tiles up to the block's last query
+//           row only: about half of mode 4's work.
 //   p_j = bf16(exp2(s)) if valid else 0
 //   out = (sum_j p_j v_j) / max(sum_j p_j, 1e-30)           (f32 sums)
 // written as bf16 to ctx [B*L, E] at column h*D. s2 = log2(e)/sqrt(D); hi
 // = 127 - ceil(log2 n) for n = L keys (n = min(W*128, L) in mode 2; in
-// mode 6 n is the whole row L, as the TPU's _stream_call sizes it, not
-// the band). There
+// modes 6 and 7 n is the whole row L, as the TPU's _stream_call sizes
+// it, not the band or the causal prefix). There
 // is no max-subtraction: the clamp keeps exp2 and the sum finite for any
 // row length, as in the TPU kernels, so key tiles only ADD into the
 // output and the denominator; nothing is rescaled. That also makes every
@@ -49,8 +54,10 @@
 // stop at the first 64-key tile past len[b] (those tiles add exact
 // zeros); ALiBi tiles far from the diagonal clamp at -100 and still add
 // exp2(-100), so they are not skipped. Mode 6 skips the tiles outside the
-// band for the same reason as the prefix stop: every p there is an exact
-// zero. The multiply-adds the plain
+// band, and mode 7 the tiles past the block's last query row, for the
+// same reason as the prefix stop: every p there is an exact zero (keys at
+// or below the diagonal that the mask drops still cost their dot: only
+// whole tiles are skipped). The multiply-adds the plain
 // version rounds separately are written __fmul_rn / __fadd_rn /
 // __fsub_rn, so nvcc's FMA contraction cannot change a score.
 //
@@ -63,8 +70,11 @@
 // 3.2 G exp2: there it is bound by operations (tensor cores, then the
 // exp2 unit). Mode 6 at 32,768 tokens and window 128 needs ~13 GFLOP for
 // the same 201 MB: bound by bytes; a 64-query block walks 3 key tiles
-// (129 keys of the band, at most 192 visited). The design reads q, k and v in place from the fused
-// projection (no transpose pass through memory), and keeps scores and
+// (129 keys of the band, at most 192 visited). Mode 7 at Qwen2's B=4,
+// L=4,096, H=12, D=128 needs ~206 GFLOP for ~201 MB: bound by
+// operations, as K6 plain is at that length; its blocks near the end of
+// a row walk 64 key tiles, those at its start one. The design reads q, k
+// and v in place from the fused projection (no transpose pass through memory), and keeps scores and
 // probabilities in shared memory and registers: one block per (64-query
 // tile, head, sequence), 4 warps of 16 query rows, 64-key tiles of K and
 // V (and their segment ids) staged in shared memory, both products on the
@@ -89,9 +99,10 @@ constexpr int SP = KT + 4;    // f32 score staging row stride
 constexpr int PP = KT + 8;    // bf16 probability row stride
 constexpr int BQ = 128;       // query/key block of mode 2 (block_ranges)
 constexpr float LOG2E_F = 1.4426950408889634f;
+static_assert(QT == KT, "mode 7's diagonal stop needs QT == KT");
 
 enum Mode { PREFIX = 0, SEGMENT = 1, WINDOW = 2, BIAS = 3, STREAM = 4,
-            ALIBI = 5, BAND = 6 };
+            ALIBI = 5, BAND = 6, CAUSAL = 7 };
 
 // modes whose key mask is the prefix j < len[b]
 __host__ __device__ constexpr bool prefix_masked(int mode) {
@@ -209,6 +220,12 @@ __global__ void __launch_bounds__(THREADS) attn_kernel(
     k_begin = max(0, q0 - W) / KT * KT;
     k_end = min(k_end, (q0 + QT - 1 + W) / KT * KT + KT);
   }
+  if (MODE == CAUSAL) {
+    // no query row of this block sees a key past q0 + QT - 1: stop at
+    // the tile after the diagonal (QT == KT); the prefix stop still
+    // applies
+    k_end = min(k_end, q0 + QT);
+  }
   for (int k0 = k_begin; k0 < k_end; k0 += KT) {
     __syncthreads();  // every warp is done with the previous K/V tile
     if (!prefix_masked(MODE) && tid < KT)
@@ -254,6 +271,7 @@ __global__ void __launch_bounds__(THREADS) attn_kernel(
         bool ok = prefix_masked(MODE) ? kj < len
                                       : segk[c] == sq && segk[c] >= 0;
         if constexpr (MODE == BAND) ok = ok && abs(qrow - kj) <= W;
+        if constexpr (MODE == CAUSAL) ok = ok && kj <= qrow;
         float raw = fsc[r * SP + c];
         if constexpr (MODE == BIAS) {
           raw = __fadd_rn(__fmul_rn(raw, s2), bias4[e]);
@@ -353,6 +371,7 @@ cudaError_t launch_mode(int mode, const void* qkv, const void* lengths,
     case BAND:
       if (W < 0) return cudaErrorInvalidValue;
       return launch<D, BAND>(ATTN_ARGS);
+    case CAUSAL: return launch<D, CAUSAL>(ATTN_ARGS);
     default: return cudaErrorInvalidValue;
   }
 #undef ATTN_ARGS
@@ -363,7 +382,7 @@ cudaError_t launch_mode(int mode, const void* qkv, const void* lengths,
 extern "C" {
 
 // qkv [B*L, 3*H*D] bf16 and out [B*L, H*D] bf16 (device pointers). Modes
-// 0, 3, 4, 5 and 6 read lengths [B] int32; modes 1 and 2 read seg [B, L]
+// 0 and 3-7 read lengths [B] int32; modes 1 and 2 read seg [B, L]
 // int32 (-1 on pads); mode 2 also kbs, kbe [B, L/128] int32 and the block
 // cap W (L % 128 == 0); mode 3 reads bias [H, L, L] f32 (log2-scaled);
 // mode 5 reads slopes [H] f32; mode 6 takes the half window W =

@@ -6,8 +6,10 @@ N layers of {prefix-masked multi-head self-attention, residual + LN,
 GELU or gated FFN, residual + LN}; and for the pre-norm ModernBERT stack
 (``encoder_layer_pre``: RoPE with a global and a local theta, global
 attention every n-th layer and a sliding window on the others, GeGLU, a
-final norm); then pooling (cls / mean / max / lasttoken),
-SentenceTransformers Dense layers and the L2 norm.
+final norm) and the Qwen2 decoder embedders on the same pre-norm stack
+(RMSNorm, grouped-query attention, SwiGLU, causal or bidirectional
+attention, last-token pooling); then pooling (cls / mean / max /
+lasttoken), SentenceTransformers Dense layers and the L2 norm.
 
 ``encode_tokens`` runs right-padded batches; ``encode_packed`` runs
 token-packed rows (``runtime/packing.py``: several sentences per row,
@@ -19,13 +21,14 @@ path: True runs quantized matmuls through ``ops.qmatmul.qmatmul`` (K1, or
 K3 with ``int8``) and attention through the fused kernels the JAX
 package's route rule picks (``attention_route_name``) — prefix-masked K2
 for padded batches, K7 with a family's logit bias, K6 for long rows and
-ALiBi past K7's cap, the banded K6w on ModernBERT's local layers,
-segment-masked K4 or its block-skipping K5 for packed rows — on a CUDA
+ALiBi past K7's cap, the banded K6w on ModernBERT's local layers, the
+causal K6c on causal Qwen2 rows, segment-masked K4 or its block-skipping
+K5 for packed rows — on a CUDA
 tensor, their plain versions on a CPU tensor;
 False runs the plain f32 reference math (dequantize + matmul, the int8
 emulation with ``int8``, exact-erf GELU, additive-mask einsum attention
-with the family bias folded into the mask), the JAX package's XLA
-fallback. ``int8`` is
+with the family bias and the causal triangle folded into the mask), the
+JAX package's XLA fallback. ``int8`` is
 ``EngineConfig.int8_compute``, passed down explicitly; the chained-int8
 links (emission epilogues) are not ported, which is the JAX package's
 default of no links.
@@ -56,6 +59,15 @@ def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     var = (xf - mean).square().mean(-1, keepdim=True)
     y = (xf - mean) * torch.rsqrt(var + eps)
     return (y * scale.float() + bias.float()).to(x.dtype)
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor,
+             eps: float) -> torch.Tensor:
+    """RMSNorm over the last axis (no mean subtraction, no bias), computed
+    in f32 — the Qwen2 decoder block's norm."""
+    xf = x.float()
+    y = xf * torch.rsqrt(xf.square().mean(-1, keepdim=True) + eps)
+    return (y * scale.float()).to(x.dtype)
 
 
 def embed(params: Params, config: BertConfig, token_ids: torch.Tensor,
@@ -158,17 +170,18 @@ def _logit_bias(params: Params, config: BertConfig,
 
 def attention_route_name(L: int, E: int, *, segmented: bool = False,
                          attn_window: int = 0, bias: bool = False,
-                         alibi: bool = False,
-                         local_window: bool = False) -> str:
+                         alibi: bool = False, local_window: bool = False,
+                         causal: bool = False) -> str:
     """The fused kernel ``_fused_attn_dispatch`` picks — the JAX
     package's ``attention_route_name`` for the routes the port has:
     "cond(stream|windowed)" for ModernBERT's alternating layers (a local
     layer takes K6w, a global one the route below); "fused_bias" (K7)
     with a logit-bias operand; for packed rows "segmented_blockskip" (K5)
     when the window skips at least two key blocks, else "segmented" (K4);
-    "stream_alibi" (K6, in-kernel ALiBi); "stream" (K6) for rows whose
-    whole K/V would not fit the TPU's VMEM (``whole_row_fits``: L >= 1920
-    at E=768); else "whole_row" (K2)."""
+    "stream_alibi" (K6, in-kernel ALiBi); "stream_causal" (K6c, at every
+    length); "stream" (K6) for rows whose whole K/V would not fit the
+    TPU's VMEM (``whole_row_fits``: L >= 1920 at E=768, L >= 1024 at
+    E=1536); else "whole_row" (K2)."""
     if local_window:
         return "cond(stream|windowed)"
     if bias:
@@ -181,6 +194,8 @@ def attention_route_name(L: int, E: int, *, segmented: bool = False,
         return "segmented"
     if alibi:
         return "stream_alibi"
+    if causal:
+        return "stream_causal"
     if not attn_ops.whole_row_fits(L, E):
         return "stream"
     return "whole_row"
@@ -188,7 +203,7 @@ def attention_route_name(L: int, E: int, *, segmented: bool = False,
 
 def _fused_attn_dispatch(qkv2d, lengths, segments, B, L, H, D,
                          attn_window=0, ranges=None, bias=None, alibi=None,
-                         local_window=None):
+                         local_window=None, causal=False):
     kw = dict(B=B, L=L, H=H, D=D)
     if local_window is not None:
         # ModernBERT's alternating layers, picked per layer here where the
@@ -201,7 +216,7 @@ def _fused_attn_dispatch(qkv2d, lengths, segments, B, L, H, D,
     route = attention_route_name(L, H * D, segmented=segments is not None,
                                  attn_window=attn_window,
                                  bias=bias is not None,
-                                 alibi=alibi is not None)
+                                 alibi=alibi is not None, causal=causal)
     if route == "fused_bias":
         # the family bias (MPNet relative positions, ALiBi on short rows)
         return attn_ops.fused_attention_bias(qkv2d, lengths, bias, **kw)
@@ -212,15 +227,18 @@ def _fused_attn_dispatch(qkv2d, lengths, segments, B, L, H, D,
             qkv2d, segments, window=attn_window, ranges=ranges, **kw)
     if route == "segmented":
         return attn_ops.fused_attention_segmented(qkv2d, segments, **kw)
-    if route in ("stream_alibi", "stream"):
+    if route in ("stream_alibi", "stream_causal", "stream"):
+        # the streaming kernel's mask modes: in-kernel ALiBi, causal (the
+        # decoder embedders: K6c), or plain
         return attn_ops.fused_attention_stream(
-            qkv2d, lengths, BK=attn_ops.pick_bk(L), alibi_slopes=alibi, **kw)
+            qkv2d, lengths, BK=attn_ops.pick_bk(L), alibi_slopes=alibi,
+            causal=causal, **kw)
     return attn_ops.fused_attention(qkv2d, lengths, **kw)
 
 
 def fused_attention_ok(L: int, H: int, D: int, use_kernels: bool,
                        lengths, segments, alibi=None,
-                       local_window=None) -> bool:
+                       local_window=None, causal: bool = False) -> bool:
     """Does attention take a fused kernel (else the einsum path)? The
     JAX package's ``_attn_kernels_ok`` for the port's routes; with a
     ``local_window`` both of its kernels must take the shape (the banded
@@ -231,7 +249,8 @@ def fused_attention_ok(L: int, H: int, D: int, use_kernels: bool,
         return attn_ops.supported(L, H, D)
     if local_window is not None:
         return attn_ops.stream_supported(L, H, D, attn_ops.BQ)
-    if alibi is not None or not attn_ops.whole_row_fits(L, H * D):
+    if (alibi is not None or causal
+            or not attn_ops.whole_row_fits(L, H * D)):
         return attn_ops.stream_supported(L, H, D, attn_ops.pick_bk(L))
     return attn_ops.supported(L, H, D)
 
@@ -245,6 +264,7 @@ def attention_context(layer: Params, config: BertConfig, x: torch.Tensor,
                       alibi: torch.Tensor | None = None,
                       rope: tuple[torch.Tensor, torch.Tensor] | None = None,
                       local_window: tuple[bool, int] | None = None,
+                      causal: bool = False,
                       use_kernels: bool = True,
                       int8: bool = False) -> torch.Tensor:
     """Masked multi-head self-attention up to (not including) the output
@@ -255,30 +275,38 @@ def attention_context(layer: Params, config: BertConfig, x: torch.Tensor,
     ``prepare_attention_bias`` operand, ``alibi`` K6's slopes, ``ranges``
     K5's ``block_ranges``, each computed once per forward;
     ``local_window`` = (is_global, window) picks K6w on ModernBERT's local
-    layers); otherwise the additive-mask einsum path, with ``mask_bias``
-    [B, 1 or H, 1 or L, L] (the family bias or the sliding window already
-    folded in). ``rope`` = (cos, sin) rotates q and k before either
-    path."""
+    layers; ``causal`` K6c); otherwise the additive-mask einsum path,
+    with ``mask_bias`` [B, 1 or H, 1 or L, L] (the family bias, the
+    sliding window or the causal triangle already folded in). ``rope`` =
+    (cos, sin) rotates q and k before either path. With grouped-query
+    attention (k/v narrower than q, never fused) each K/V head is
+    repeated over its group of query heads before the concat, so the
+    kernels read the [B*L, 3E] layout they always do."""
     B, L, _ = x.shape
     D = config.head_dim
     a = layer["attn"]
+    mode = dict(use_kernels=use_kernels, int8=int8)
     if "qkv" in a:
-        qkv = linear(x, a["qkv"]["w"], a["qkv"]["b"],
-                     use_kernels=use_kernels, int8=int8)  # [B, L, 3E]
+        qkv = linear(x, a["qkv"]["w"], a["qkv"]["b"], **mode)  # [B, L, 3E]
     else:
-        qkv = torch.cat([linear(x, a[n]["w"], a[n]["b"],
-                                use_kernels=use_kernels, int8=int8)
-                         for n in ("q", "k", "v")], -1)
+        q, k, v = (linear(x, a[n]["w"], a[n]["b"], **mode)
+                   for n in ("q", "k", "v"))
+        if k.shape[-1] != q.shape[-1]:
+            # HF repeat_kv order: query head h reads K/V head h // rep
+            rep = q.shape[-1] // k.shape[-1]
+            k, v = (t.reshape(B, L, -1, D).repeat_interleave(rep, dim=2)
+                    .reshape(B, L, -1) for t in (k, v))
+        qkv = torch.cat([q, k, v], -1)
     El = qkv.shape[-1] // 3
     H = El // D
     if rope is not None:
         qkv = apply_rotary_qkv(qkv, *rope, H=H, D=D,
                                interleaved=config.rotary_interleaved)
     if fused_attention_ok(L, H, D, use_kernels, lengths, segments, alibi,
-                          local_window):
+                          local_window, causal):
         ctx = _fused_attn_dispatch(qkv.reshape(B * L, 3 * El), lengths,
                                    segments, B, L, H, D, attn_window, ranges,
-                                   bias, alibi, local_window)
+                                   bias, alibi, local_window, causal)
         return ctx.reshape(B, L, El)
     q = qkv[..., :El].reshape(B, L, H, D)
     k = qkv[..., El:2 * El].reshape(B, L, H, D)
@@ -375,8 +403,10 @@ def _window_bias(positions: torch.Tensor, window: int,
 
 
 def _norm(config: BertConfig, x: torch.Tensor, ln: Params) -> torch.Tensor:
-    """The config's normalization (LayerNorm; ``check_supported`` refuses
-    RMSNorm, Qwen2's)."""
+    """The config's normalization: RMSNorm (Qwen2; the slot's bias is
+    zeros and unread) or LayerNorm."""
+    if config.norm_type == "rmsnorm":
+        return rms_norm(x, ln["scale"], config.layer_norm_eps)
     return layer_norm(x, ln["scale"], ln["bias"], config.layer_norm_eps)
 
 
@@ -388,19 +418,22 @@ def encoder_layer_pre(layer: Params, config: BertConfig, x: torch.Tensor,
                       local_window: tuple[bool, int] | None = None,
                       use_kernels: bool = True,
                       int8: bool = False) -> torch.Tensor:
-    """One pre-norm encoder block (ModernBERT): x += Wo attn(norm(x));
-    x += Wdown glu(norm(x)). ``ln_apply`` False skips layer 0's identity
-    attention norm; ``local_window`` = (is_global, window) routes the
-    attention (K6w on a local layer) when the kernels take the shape,
-    else ``mask_bias`` carries the window. The residual adds stay outside
-    the matmuls, in the activation dtype, as in the JAX package (no post-LN
-    to fuse into an epilogue): o-proj and down run K1 with its plain
-    ``bias`` epilogue."""
+    """One pre-norm block (ModernBERT, Qwen2): x += Wo attn(norm(x));
+    x += Wdown glu(norm(x)), the norms RMSNorm for Qwen2. ``ln_apply``
+    False skips ModernBERT's layer-0 identity attention norm;
+    ``local_window`` = (is_global, window) routes the attention (K6w on a
+    local layer) when the kernels take the shape, else ``mask_bias``
+    carries the window; a causal config's attention takes K6c, or the
+    einsum path with the triangle in ``mask_bias``. The residual adds stay
+    outside the matmuls, in the activation dtype, as in the JAX package
+    (no post-LN to fuse into an epilogue): o-proj and down run K1 with its
+    plain ``bias`` epilogue."""
     a, m = layer["attn"], layer["mlp"]
     mode = dict(use_kernels=use_kernels, int8=int8)
     xn = _norm(config, x, a["ln"]) if ln_apply else x
     ctx = attention_context(layer, config, xn, mask_bias, lengths, rope=rope,
-                            local_window=local_window, **mode)
+                            local_window=local_window, causal=config.causal,
+                            **mode)
     x = x + linear(ctx, a["o"]["w"], a["o"]["b"], **mode)
     hn = _norm(config, x, m["ln"])
     return x + linear(_ffn_hidden(m, hn, config, **mode), m["down"]["w"],
@@ -459,7 +492,9 @@ def encode_tokens(params: Params, config: BertConfig,
     int8: quantized matmuls in the int8 mode. A family logit bias (MPNet,
     ALiBi) is computed once here and shared by all layers: as K7's
     operand while it takes the shape, as K6's in-kernel ALiBi past that,
-    else folded into the einsum path's mask.
+    else folded into the einsum path's mask. A causal config (Qwen2)
+    attends j <= i: in K6c, or with the triangle folded into the einsum
+    path's mask.
     Returns [B, E'] float32 (or the [B, L, E] hidden states)."""
     check_supported(config)
     pooling = pooling or config.pooling
@@ -493,6 +528,11 @@ def encode_tokens(params: Params, config: BertConfig,
             else:
                 mask_bias = mask_bias + fb  # [B, H, L, L], einsum path
                 lengths = None
+    if config.causal and not fused_attention_ok(
+            L, config.num_attention_heads, config.head_dim, use_kernels,
+            lengths, None, causal=True):
+        # the einsum path's triangle (K6c masks in-kernel)
+        mask_bias = mask_bias + _causal_bias(L, mask_value, token_ids.device)
     positions = torch.arange(L, device=token_ids.device)
     rope = None
     if config.position_embedding_type == "rotary":
@@ -507,7 +547,7 @@ def encode_tokens(params: Params, config: BertConfig,
             x = encoder_layer(layer_params(params, i), config, x, mask_bias,
                               lengths, bias=bias, alibi=alibi, rope=rope,
                               **mode)
-    if "final_ln" in params:  # ModernBERT's post-stack norm
+    if "final_ln" in params:  # ModernBERT's and Qwen2's final norm
         x = _norm(config, x, params["final_ln"])
     if return_hidden:
         return x.float()
@@ -548,7 +588,9 @@ def encode_packed(params: Params, config: BertConfig,
                   (``packing.max_block_span``); 0 means the full row.
     A family logit bias (MPNet, ALiBi) comes from the per-segment
     positions and is folded into the einsum path's mask, as the JAX
-    package does: the segmented kernels have no bias operand.
+    package does: the segmented kernels have no bias operand. Causal rows
+    (Qwen2) fold the row-global triangle into that mask too: segments are
+    contiguous and ascending, so it is each segment's own causal mask.
     Returns [B, S, E'] float32, one embedding per (row, segment slot);
     empty slots stay zero vectors."""
     check_supported(config)
@@ -558,8 +600,10 @@ def encode_packed(params: Params, config: BertConfig,
     seg = seg_ids.to(torch.int32).contiguous()
     bias = _logit_bias(params, config, position_ids)
     prenorm = config.norm_style == "pre"
-    # the pre-norm stack runs packed rows on the einsum path, as in JAX
-    segments = seg if bias is None and not prenorm else None
+    # the pre-norm stack and causal rows run packed rows on the einsum
+    # path, as in JAX (the segmented kernels have no causal mode)
+    segments = (seg if bias is None and not prenorm and not config.causal
+                else None)
     mask_bias = ranges = None
     if not fused_attention_ok(L, config.num_attention_heads,
                               config.head_dim, use_kernels, None, segments):
@@ -569,6 +613,8 @@ def encode_packed(params: Params, config: BertConfig,
                                 mask_value).float()[:, None]
         if bias is not None:  # cross-segment pairs are masked anyway
             mask_bias = mask_bias + bias
+        if config.causal:
+            mask_bias = mask_bias + _causal_bias(L, mask_value, seg.device)
     elif attention_route_name(L, config.hidden_size, segmented=True,
                               attn_window=attn_window) \
             == "segmented_blockskip":
@@ -593,6 +639,13 @@ def encode_packed(params: Params, config: BertConfig,
         x = _norm(config, x, params["final_ln"])
     pooled = torch.einsum("bsl,ble->bse", pool_weights.float(), x.float())
     return _finish(params, config, pooled, normalize)
+
+
+def _causal_bias(L: int, mask_value: float, device) -> torch.Tensor:
+    """[1, 1, L, L] f32: 0 where key j <= query i, else mask_value."""
+    i = torch.arange(L, device=device)
+    return torch.where(i[None, :] <= i[:, None], 0.0,
+                       mask_value).float()[None, None]
 
 
 def _finish(params: Params, config: BertConfig, pooled: torch.Tensor,

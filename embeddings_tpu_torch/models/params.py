@@ -3,7 +3,8 @@ the JAX package, quantization, packing, q/k/v fusion, HF import and the
 native ``.npz`` checkpoint — the port of ``embeddings_tpu/models/params.py``
 for the post-LN BERT families: plain BERT (learned positions), MPNet
 (relative-position bias), jina-bert-v2 (ALiBi, GeGLU MLP) and nomic-bert
-(RoPE, SwiGLU); and for the pre-norm ModernBERT.
+(RoPE, SwiGLU); and for the pre-norm ModernBERT and Qwen2 (RMSNorm,
+grouped-query attention).
 
 The tree has the JAX package's layout, with torch tensors as leaves and
 every linear stored [in, out] so the forward computes ``x @ w``. Layer
@@ -13,7 +14,8 @@ weights are stacked on a leading axis [num_layers, ...]:
     "embeddings": {"word": [V,E]|QT, "position": [P,E], "token_type": [T,E],
                    "ln": {"scale": [E], "bias": [E]}},
     "layers": {
-      "attn": {"q"/"k"/"v"/"o": {"w": [E,E]|QT, "b": [E]}  (or "qkv"),
+      "attn": {"q"/"k"/"v"/"o": {"w": [E,E]|QT, "b": [E]}  (or "qkv";
+               k/v [E,Ekv] with grouped-query attention),
                "ln": {"scale", "bias"}},
       "mlp":  {"up": {"w": [E,F]|QT, "b": [F]}, "down": {"w": [F,E]|QT,
                "b": [E]}, "ln": {"scale", "bias"},
@@ -21,14 +23,17 @@ weights are stacked on a leading axis [num_layers, ...]:
     },
     "rel_bias": [num_buckets, H] f32       (MPNet only)
     "alibi_slopes": [H] f32                (ALiBi only; no "position")
-    "final_ln": {"scale", "bias"}          (pre-norm ModernBERT only)
+    "final_ln": {"scale", "bias"}          (pre-norm models only)
     "st_dense": {"0": {"w", "b"}, ...}   (SentenceTransformers Dense, opt.)
   }
 
-Rotary models (nomic-bert, ModernBERT) have no "position" table. In a
-pre-norm tree the layer norms are the pre-attention ("attn/ln") and
+Rotary models (nomic-bert, ModernBERT, Qwen2) have no "position" table.
+In a pre-norm tree the layer norms are the pre-attention ("attn/ln") and
 pre-MLP ("mlp/ln") norms; ModernBERT's layer-0 attention norm is an
-identity and its slot holds ones and zeros.
+identity and its slot holds ones and zeros. Qwen2 (``norm_type``
+"rmsnorm") keeps RMSNorm scales in those slots with zero biases, has no
+embedding norm, and keeps its K/V projections ``num_key_value_heads *
+head_dim`` (Ekv) wide, so ``fuse_qkv`` leaves them apart.
 
 ``rel_bias`` and ``alibi_slopes`` stay f32 through every cast and are
 never quantized; ``gate`` is quantized like ``up``.
@@ -56,35 +61,31 @@ _TORCH_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16,
 
 
 def check_supported(config: BertConfig) -> None:
-    """Raise for model families the port does not run yet. It runs the
+    """Raise for model families the port does not run. It runs the
     post-LN BERT encoder with learned positions, MPNet's relative-position
-    bias, ALiBi or RoPE, a plain or gated MLP, and ModernBERT's pre-norm
-    LayerNorm stack with its sliding window. Qwen2's decoder block
-    (RMSNorm, grouped-query and causal attention) is the next slice."""
-    qwen2 = {
-        "norm_type": config.norm_type != "layernorm",
-        "num_key_value_heads": config.num_key_value_heads not in (
-            None, config.num_attention_heads),
-        "causal": config.causal,
-    }
+    bias, ALiBi or RoPE, a plain or gated MLP, ModernBERT's pre-norm
+    LayerNorm stack with its sliding window, and Qwen2's pre-norm decoder
+    block (RMSNorm, grouped-query attention, causal or bidirectional).
+    Mixture-of-experts layers, shared layers (ALBERT) and factorized
+    embeddings are not ported."""
+    H = config.num_attention_heads
+    kv = config.num_key_value_heads or H
     unsupported = {
         "embedding_size": config.embedding_size is not None,
         "shared_layers": config.shared_layers,
         "position_embedding_type": config.position_embedding_type not in (
             "absolute", "alibi", "rotary"),
         "norm_style": config.norm_style not in ("post", "pre"),
+        "norm_type": config.norm_type not in ("layernorm", "rmsnorm"),
+        "num_key_value_heads": H % kv != 0,
         "num_experts": bool(config.num_experts),
-        **qwen2,
     }
     bad = [k for k, v in unsupported.items() if v]
     if bad:
-        hint = (" (Qwen2's decoder block: RMSNorm, grouped-query and "
-                "causal attention are not ported yet)"
-                if any(qwen2.values()) else "")
         raise NotImplementedError(
             f"the PyTorch port runs post-LN BERT, MPNet, jina-bert-v2, "
-            f"nomic-bert and ModernBERT encoders; this config sets "
-            f"{', '.join(bad)}{hint}")
+            f"nomic-bert, ModernBERT and Qwen2 models; this config sets "
+            f"{', '.join(bad)}")
 
 
 def map_tree(fn: Callable, tree):
@@ -118,7 +119,9 @@ def init_params(config: BertConfig, generator: np.random.Generator | int = 0,
     LayerNorms — the JAX package's init, with numpy randomness. Gated
     MLPs add a gate stack, MPNet a [num_buckets, H] relative-bias table;
     ALiBi models carry their slopes and no position table, rotary models
-    no position table; pre-norm models add the final norm."""
+    no position table; pre-norm models add the final norm; grouped-query
+    attention makes k/v Ekv wide; RMSNorm models have no embedding
+    norm."""
     check_supported(config)
     rng = (np.random.default_rng(generator) if isinstance(generator, int)
            else generator)
@@ -142,9 +145,12 @@ def init_params(config: BertConfig, generator: np.random.Generator | int = 0,
     if config.position_embedding_type == "absolute":
         emb["position"] = mat(config.max_position_embeddings, E)
     emb["token_type"] = mat(config.type_vocab_size, E)
-    emb["ln"] = _ln(np.ones(E), np.zeros(E))
+    if config.norm_type != "rmsnorm":  # Qwen2: bare token embedding
+        emb["ln"] = _ln(np.ones(E), np.zeros(E))
+    Ekv = ((config.num_key_value_heads or config.num_attention_heads)
+           * config.head_dim)
     layers = {
-        "attn": {"q": lin(E, E), "k": lin(E, E), "v": lin(E, E),
+        "attn": {"q": lin(E, E), "k": lin(E, Ekv), "v": lin(E, Ekv),
                  "o": lin(E, E), "ln": ln_stack()},
         "mlp": {"up": lin(E, F), "down": lin(F, E), "ln": ln_stack()},
     }
@@ -270,11 +276,16 @@ def quantize_params(params: Params, kind: str, *,
 
 def fuse_qkv(params: Params) -> Params:
     """Merge the q/k/v projections into one [E, 3E] matmul whose output
-    columns are [q | k | v] (each E wide, heads contiguous)."""
+    columns are [q | k | v] (each E wide, heads contiguous). A
+    grouped-query tree (k/v narrower than q) is returned unchanged, as
+    the JAX package does: the forward splits a fused projection in
+    thirds."""
     attn = params["layers"]["attn"]
     if "qkv" in attn:
         return params
     q, k, v = attn["q"], attn["k"], attn["v"]
+    if k["b"].shape[-1] != q["b"].shape[-1]:
+        return params
 
     def cat(xs):
         if isinstance(xs[0], QuantizedTensor):
@@ -345,15 +356,15 @@ def _read_sd(d: Path) -> dict[str, np.ndarray]:
 
 def _strip_prefix(sd: dict[str, np.ndarray]) -> dict[str, np.ndarray]:
     """Drop the 'bert.' / 'mpnet.' / '0.auto_model.' style prefixes HF
-    checkpoints use, then rewrite MPNet, nomic-bert, jina-bert-v2 and
-    ModernBERT names into BERT naming."""
+    checkpoints use, then rewrite MPNet, nomic-bert, jina-bert-v2,
+    ModernBERT and Qwen2 names into BERT naming."""
     for prefix in ("bert.", "mpnet.", "model.", "0.auto_model."):
         if any(k.startswith(prefix + "embeddings") for k in sd):
             sd = {k[len(prefix):]: v for k, v in sd.items()
                   if k.startswith(prefix)}
             break
-    return _translate_modernbert(_translate_jina(_translate_nomic(
-        _translate_mpnet(sd))))
+    return _translate_qwen2(_translate_modernbert(_translate_jina(
+        _translate_nomic(_translate_mpnet(sd)))))
 
 
 # MPNet layer-tensor names -> BERT names (same post-LN block; the shared
@@ -483,17 +494,69 @@ def _translate_modernbert(sd: dict[str, np.ndarray]
             out["final_ln." + k.rsplit(".", 1)[1]] = v
         else:
             out[k] = v
-    out.setdefault("embeddings.token_type_embeddings.weight",
-                   np.zeros((1, E), np.float32))
-    # HF weights are [out, in] and norms [out]: the bias length is shape[0]
-    for k in list(out):
-        if k.endswith(".weight") and not k.endswith("_embeddings.weight"):
-            out.setdefault(k[:-len("weight")] + "bias",
-                           np.zeros(out[k].shape[0], np.float32))
+    _zero_fill(out)
     for i in range(n_layers):
         p = f"encoder.layer.{i}.attention.output.LayerNorm."
         out.setdefault(p + "weight", np.ones(E, np.float32))
         out.setdefault(p + "bias", np.zeros(E, np.float32))
+    return out
+
+
+# Qwen2 layer-tensor names -> BERT names; the two RMSNorms land in the
+# pre-norm slots
+_QWEN2_LAYER_MAP = {
+    "self_attn.q_proj": "attention.self.query",
+    "self_attn.k_proj": "attention.self.key",
+    "self_attn.v_proj": "attention.self.value",
+    "self_attn.o_proj": "attention.output.dense",
+    "input_layernorm": "attention.output.LayerNorm",   # pre-attention
+    "post_attention_layernorm": "output.LayerNorm",    # pre-MLP
+    "mlp.gate_proj": "intermediate.gate",
+    "mlp.up_proj": "intermediate.dense",
+    "mlp.down_proj": "output.dense",
+}
+
+
+def _translate_qwen2(sd: dict[str, np.ndarray]) -> dict[str, np.ndarray]:
+    """Rewrite a Qwen2 state dict (``Qwen2Model``, or the ``model.``-
+    prefixed ``Qwen2ForCausalLM`` dump) into BERT naming; no-op
+    otherwise. K/V keep their grouped-query width; zero biases are
+    synthesized where Qwen2 has none (o-proj, MLP, the norms), and a
+    zeros token-type row; no position table, no embedding norm; the
+    final RMSNorm lands as "final_ln". lm_head and rotary buffers are
+    dropped."""
+    if not any("self_attn.q_proj" in k for k in sd):
+        return sd
+    if any(k.startswith("model.") for k in sd):
+        sd = {k[len("model."):]: v for k, v in sd.items()
+              if k.startswith("model.")}
+    out: dict[str, np.ndarray] = {}
+    for k, v in sd.items():
+        if k.startswith("layers."):
+            _, i, rest = k.split(".", 2)
+            stem, _, leaf = rest.rpartition(".")
+            mapped = _QWEN2_LAYER_MAP.get(stem)
+            if mapped is not None:
+                out[f"encoder.layer.{i}.{mapped}.{leaf}"] = v
+        elif k == "embed_tokens.weight":
+            out["embeddings.word_embeddings.weight"] = v
+        elif k == "norm.weight":
+            out["final_ln.weight"] = v
+    return _zero_fill(out)
+
+
+def _zero_fill(out: dict[str, np.ndarray]) -> dict[str, np.ndarray]:
+    """Synthesize, in place, what a biasless checkpoint (ModernBERT,
+    Qwen2) lacks so the stacks stay uniform: a zeros token-type row and a
+    zero bias beside every linear and norm weight (HF weights are [out,
+    in] and norms [out]: the bias length is shape[0])."""
+    E = out["embeddings.word_embeddings.weight"].shape[1]
+    out.setdefault("embeddings.token_type_embeddings.weight",
+                   np.zeros((1, E), np.float32))
+    for k in list(out):
+        if k.endswith(".weight") and not k.endswith("_embeddings.weight"):
+            out.setdefault(k[:-len("weight")] + "bias",
+                           np.zeros(out[k].shape[0], np.float32))
     return out
 
 
@@ -540,9 +603,9 @@ def _translate_jina(sd: dict[str, np.ndarray]) -> dict[str, np.ndarray]:
 
 def from_hf_state_dict(sd: dict[str, np.ndarray], config: BertConfig,
                        dtype=torch.float32) -> Params:
-    """Map a HF BERT, MPNet, jina-bert-v2, nomic-bert or ModernBERT state
-    dict to the port's tree (position_ids and the pooler are dropped, as
-    the reference's converter does)."""
+    """Map a HF BERT, MPNet, jina-bert-v2, nomic-bert, ModernBERT or Qwen2
+    state dict to the port's tree (position_ids and the pooler are
+    dropped, as the reference's converter does)."""
     check_supported(config)
     sd = _strip_prefix({k: np.asarray(v) for k, v in sd.items()})
     NL = config.num_hidden_layers
@@ -567,8 +630,9 @@ def from_hf_state_dict(sd: dict[str, np.ndarray], config: BertConfig,
     if config.position_embedding_type == "absolute":
         emb["position"] = t(sd["embeddings.position_embeddings.weight"])
     emb["token_type"] = t(sd["embeddings.token_type_embeddings.weight"])
-    emb["ln"] = _ln(sd["embeddings.LayerNorm.weight"],
-                    sd["embeddings.LayerNorm.bias"])
+    if "embeddings.LayerNorm.weight" in sd:  # absent for Qwen2
+        emb["ln"] = _ln(sd["embeddings.LayerNorm.weight"],
+                        sd["embeddings.LayerNorm.bias"])
     pre = "encoder.layer.{}."
     layers = {
         "attn": {"q": stack_lin(pre + "attention.self.query"),
@@ -589,7 +653,7 @@ def from_hf_state_dict(sd: dict[str, np.ndarray], config: BertConfig,
         out["rel_bias"] = t(sd["rel_bias"], torch.float32)
     if config.position_embedding_type == "alibi":
         out["alibi_slopes"] = _slopes(config)
-    if "final_ln.weight" in sd:  # ModernBERT's post-stack norm
+    if "final_ln.weight" in sd:  # ModernBERT's and Qwen2's final norm
         out["final_ln"] = _ln(sd["final_ln.weight"], sd["final_ln.bias"])
     return out
 

@@ -3,8 +3,9 @@ PyTorch port of ``embeddings_tpu/ops/attention.py``: the prefix-masked
 ``fused_attention`` (K2), its logit-biased variant
 ``fused_attention_bias`` (K7: MPNet's relative-position bias, ALiBi on
 short rows) and its key-streamed variant ``fused_attention_stream`` (K6:
-long rows, in-kernel ALiBi) with its banded mode ``fused_attention_window``
-(K6w: ModernBERT's sliding-window layers), and, for token-packed rows, the
+long rows, in-kernel ALiBi; with ``causal=True`` K6c, the Qwen2 decoder
+embedders) with its banded mode ``fused_attention_window`` (K6w:
+ModernBERT's sliding-window layers), and, for token-packed rows, the
 segment-masked ``fused_attention_segmented`` (K4) and its block-skipping
 variant ``fused_attention_segmented_blockskip`` (K5).
 
@@ -17,8 +18,8 @@ denominator, 1e-30 floor on the denominator (pad query rows stay finite).
 K2 pre-scales q by log2(e)/sqrt(D) and rounds it to the compute dtype;
 K4-K7 scale the f32 scores after the dot, as their TPU kernels do.
 
-Not ported yet: K6's causal mode, the context-parallel kernels (K8a,
-K8b), and the int8-score and emission options.
+Not ported yet: the context-parallel kernels (K8a, K8b), and the
+int8-score and emission options.
 """
 
 from __future__ import annotations
@@ -70,14 +71,18 @@ def _merge_heads(o, p_sum, dt, B, L, H, D):
         B * L, H * D)
 
 
-def _prefix_probs(s, lengths, k0, hi, dt):
-    """Clamped scores s [B, H, Lq, Lk] of keys k0 .. k0+Lk-1 -> exp2,
-    keys j >= lengths[b] set to exactly 0, rounded to the compute dtype
-    (f32 holding dt values)."""
+def _prefix_probs(s, lengths, k0, hi, dt, causal=False):
+    """Clamped scores s [B, H, L, Lk] of keys k0 .. k0+Lk-1 -> exp2,
+    keys j >= lengths[b] (and, with ``causal``, keys j > i for query row
+    i) set to exactly 0, rounded to the compute dtype (f32 holding dt
+    values)."""
     s = s.clamp(_CLAMP_LO, hi)
     kpos = k0 + torch.arange(s.shape[-1], device=s.device)
-    key_ok = kpos[None, :] < lengths.to(s.device)[:, None]    # [B, Lk]
-    return torch.where(key_ok[:, None, None, :], torch.exp2(s),
+    ok = (kpos[None, :] < lengths.to(s.device)[:, None])[:, None, None, :]
+    if causal:
+        qpos = torch.arange(s.shape[-2], device=s.device)
+        ok = ok & (kpos[None, :] <= qpos[:, None])             # [L, Lk]
+    return torch.where(ok, torch.exp2(s),
                        torch.zeros((), device=s.device)).to(dt).float()
 
 
@@ -227,13 +232,14 @@ def whole_row_fits(L: int, E: int) -> bool:
 
 def fused_attention_stream_ref(qkv: torch.Tensor, lengths: torch.Tensor,
                                *, B: int, L: int, H: int, D: int,
-                               BK: int = 512,
-                               alibi_slopes=None) -> torch.Tensor:
-    """The plain PyTorch version of K6 (same arguments as
-    ``fused_attention_stream``). It walks key blocks of BK as the TPU
-    grid does, so its scores take O(L * BK) memory, not O(L^2):
-    s = (q.k) * s2 in f32, minus slope_h * (|i-j| * log2(e)) with ALiBi,
-    clamped with the bound sized to all L keys; block sums add up with no
+                               BK: int = 512, alibi_slopes=None,
+                               causal: bool = False) -> torch.Tensor:
+    """The plain PyTorch version of K6 and K6c (same arguments as
+    ``fused_attention_stream``). It walks every key block of BK as the TPU
+    grid does (the causal walk too), so its scores take O(L * BK) memory,
+    not O(L^2): s = (q.k) * s2 in f32, minus slope_h * (|i-j| * log2(e))
+    with ALiBi, clamped with the bound sized to all L keys; with
+    ``causal`` keys j > i add exact zeros; block sums add up with no
     rescaling."""
     dt = qkv.dtype
     q, k, v = _split_heads(qkv, B, L, H, D)
@@ -253,7 +259,7 @@ def fused_attention_stream_ref(qkv: torch.Tensor, lengths: torch.Tensor,
         if slopes is not None:
             dist = (pos[:, None] - pos[None, ks]).abs().float() * LOG2E
             s = s - slopes * dist
-        p = _prefix_probs(s, lengths, k0, hi, dt)
+        p = _prefix_probs(s, lengths, k0, hi, dt, causal)
         o += p @ v[:, :, ks].float()
         den += p.sum(-1, keepdim=True)
     return _merge_heads(o, den, dt, B, L, H, D)
@@ -261,23 +267,30 @@ def fused_attention_stream_ref(qkv: torch.Tensor, lengths: torch.Tensor,
 
 def fused_attention_stream(qkv: torch.Tensor, lengths: torch.Tensor, *,
                            B: int, L: int, H: int, D: int, BK: int = 512,
-                           alibi_slopes=None) -> torch.Tensor:
+                           alibi_slopes=None,
+                           causal: bool = False) -> torch.Tensor:
     """Prefix-masked attention for long rows, as ``fused_attention`` but
     with the scores scaled after the dot (q not pre-rounded) and the
     clamp sized to L keys; ``alibi_slopes`` ([H] f32 tensor or floats)
     adds jina-bert-v2's -slope_h * |i-j| from positions inside the
-    kernel, so no O(L^2) bias array exists. BK is the JAX kernel's key
-    block (``pick_bk``): it fixes the shapes taken and the plain
-    version's walk. A CUDA tensor launches K6 (``csrc/attention.cu``,
-    stream or ALiBi mode); a CPU tensor runs
-    ``fused_attention_stream_ref``."""
+    kernel, so no O(L^2) bias array exists; ``causal`` also drops keys
+    j > i (the decoder embedders; the clamp stays sized to L keys). BK
+    is the JAX kernel's key block (``pick_bk``): it fixes the shapes
+    taken and the plain version's walk. A CUDA tensor launches K6
+    (``csrc/attention.cu``, stream or ALiBi mode) or, with ``causal``,
+    K6c (causal mode), counted apart in ``causal_launches``; a CPU tensor
+    runs ``fused_attention_stream_ref``. No family is causal with ALiBi:
+    the two together raise."""
     _check_prefix(f"fused_attention_stream (BK={BK})",
                   stream_supported(L, H, D, BK), qkv, lengths, B, L, H, D)
     if alibi_slopes is not None and len(alibi_slopes) != H:
         raise ValueError(f"{len(alibi_slopes)} ALiBi slopes for {H} heads")
+    if causal and alibi_slopes is not None:
+        raise NotImplementedError("causal attention with ALiBi")
     if qkv.device.type == "cpu":
         return fused_attention_stream_ref(qkv, lengths, B=B, L=L, H=H, D=D,
-                                          BK=BK, alibi_slopes=alibi_slopes)
+                                          BK=BK, alibi_slopes=alibi_slopes,
+                                          causal=causal)
     _check_cuda(qkv, lengths)
     slopes = None
     if alibi_slopes is not None:
@@ -286,10 +299,14 @@ def fused_attention_stream(qkv: torch.Tensor, lengths: torch.Tensor, *,
     out = torch.empty((B * L, H * D), dtype=qkv.dtype, device=qkv.device)
     if B == 0:
         return out
-    _launch("fused_attention_stream",
-            MODE_STREAM if slopes is None else MODE_ALIBI, qkv, out, B, L,
-            H, D, _clamp_hi(L), lengths=lengths, slopes=slopes)
-    fused_attention_stream.launches += 1
+    mode = (MODE_CAUSAL if causal else MODE_STREAM if slopes is None
+            else MODE_ALIBI)
+    _launch("fused_attention_stream", mode, qkv, out, B, L, H, D,
+            _clamp_hi(L), lengths=lengths, slopes=slopes)
+    if causal:
+        fused_attention_stream.causal_launches += 1
+    else:
+        fused_attention_stream.launches += 1
     return out
 
 
@@ -378,7 +395,7 @@ def fused_attention_window(qkv: torch.Tensor, lengths: torch.Tensor, *,
 
 # mask modes of csrc/attention.cu
 MODE_PREFIX, MODE_SEGMENT, MODE_WINDOW = 0, 1, 2
-MODE_BIAS, MODE_STREAM, MODE_ALIBI, MODE_BAND = 3, 4, 5, 6
+MODE_BIAS, MODE_STREAM, MODE_ALIBI, MODE_BAND, MODE_CAUSAL = 3, 4, 5, 6, 7
 
 
 def _launch(what, mode, qkv, out, B, L, H, D, hi, *, lengths=None,
@@ -573,10 +590,12 @@ def fused_attention_segmented_blockskip(
 
 
 # launch counters: every successful K2 / K4 / K5 / K6 / K6w / K7 launch
-# adds one; callers reset them to 0 around the run they measure
+# adds one (K6c to fused_attention_stream.causal_launches); callers reset
+# them to 0 around the run they measure
 fused_attention.launches = 0
 fused_attention_bias.launches = 0
 fused_attention_stream.launches = 0
+fused_attention_stream.causal_launches = 0
 fused_attention_window.launches = 0
 fused_attention_segmented.launches = 0
 fused_attention_segmented_blockskip.launches = 0

@@ -14,8 +14,9 @@ the bucketed and the token-packed batch schedulers — the port of
 The forward runs eagerly, one Python loop over the layers; on a CUDA device
 every quantized matmul (K1, or K3 with ``EngineConfig.int8_compute``) and
 the attention (K2 on padded batches, K7 with MPNet's or short rows' ALiBi
-bias, K6 on long rows and long ALiBi rows, K4/K5 on packed rows) launch
-the port's hand-written kernels. ``device=None`` means "cuda", and a missing
+bias, K6 on long rows and long ALiBi rows, K6w on ModernBERT's local
+layers, K6c on causal Qwen2 rows, K4/K5 on packed rows) launch the port's
+hand-written kernels. ``device=None`` means "cuda", and a missing
 CUDA device raises: the engine never carries on on the CPU unless asked to.
 """
 
@@ -350,6 +351,11 @@ def load_model(path: str | Path, *, dtype: str = "f32",
                     f"to {path}") from None
     if pooling is not None:
         config = dataclasses.replace(config, pooling=pooling)
+    if (config.norm_type == "rmsnorm"
+            and getattr(tokenizer, "special_style", None) == "cls_sep"):
+        # decoder embedders (Qwen2) take bare tokens + eos, not a
+        # <s> ... </s> wrap
+        tokenizer.special_style = "eos_only"
     from ..ops.quant import PACK4_KINDS, QuantizedTensor
     already_quant = isinstance(params["layers"]["mlp"]["up"]["w"],
                                QuantizedTensor)

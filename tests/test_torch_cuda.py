@@ -10,7 +10,11 @@ differ by bf16 rounding flips (K1: 2^-7 relative + 1e-3 of the output
 RMS; K2, whose probabilities are also rounded to bf16: 2^-6 + 1e-2).
 K3 as K1: its int8 operands equal the plain version's bit for bit and
 its s32 sums are exact, so only the last f32 bits of the activation and
-the bf16 rounding of the output differ. K4-K7 and K6w as K2.
+the bf16 rounding of the output differ. K4-K7, K6w and K6c as K2; K6c's
+query rows that see fewer than 64 keys (the first rows of every
+sequence) also allow one bf16 flip of a probability, which moves an
+output by at most 2^-6 of the largest |v| among those keys
+(``_causal_close``).
 """
 
 import numpy as np
@@ -178,7 +182,8 @@ def test_blockskip_attention_kernel_matches_plain(cuda, B, L, H, D, window):
 
 
 @pytest.mark.parametrize("B,L,H,D", [(3, 16, 12, 64), (2, 72, 4, 32),
-                                     (2, 128, 2, 128), (4, 512, 12, 64)])
+                                     (2, 128, 2, 128), (4, 512, 12, 64),
+                                     (3, 512, 12, 128)])
 def test_fused_attention_kernel_matches_plain(cuda, B, L, H, D):
     rng = np.random.default_rng(L)
     qkv = torch.from_numpy(rng.standard_normal(
@@ -234,7 +239,8 @@ def test_bias_attention_kernel_matches_plain(cuda, B, L, H, D, kind):
 @pytest.mark.parametrize("B,L,H,D,BK", [(2, 256, 4, 32, 128),
                                         (2, 384, 2, 128, 128),
                                         (3, 512, 12, 64, 512),
-                                        (2, 2048, 12, 64, 512)])
+                                        (2, 2048, 12, 64, 512),
+                                        (2, 1024, 12, 128, 512)])
 def test_stream_attention_kernel_matches_plain(cuda, B, L, H, D, BK, alibi):
     from embeddings_tpu_torch.ops.alibi import alibi_slopes
     rng = np.random.default_rng(L + BK)
@@ -272,6 +278,45 @@ def test_window_attention_kernel_matches_plain(cuda, B, L, H, D, window):
         assert (got.reshape(B, L, -1)[0] == 0).all()
 
 
+def _causal_close(got, ref, qkv, lens, B, L, H, D):
+    """K2's tolerance, plus one bf16 probability flip on the query rows
+    that see 1-63 keys; rows that see no key exactly 0."""
+    i = torch.arange(L, device=got.device)
+    nkeys = torch.minimum(i[None, :] + 1, lens[:, None].long())  # [B, L]
+    v = qkv.float().reshape(B, L, 3, H, D)[:, :64, 2]
+    vmax = v.abs().amax(dim=(1, 3))                              # [B, H]
+    few = ((nkeys > 0) & (nkeys < 64)).float()
+    extra = (few[:, :, None] * vmax[:, None, :])[..., None].expand(
+        B, L, H, D).reshape(B * L, H * D)
+    g, r = got.float(), ref.float()
+    rms = r.square().mean().sqrt()
+    assert torch.isfinite(g).all()
+    assert ((g - r).abs() <= 2 ** -6 * r.abs() + 1e-2 * rms
+            + 2 ** -6 * extra).all(), (g - r).abs().max().item()
+    assert (got[(nkeys == 0).reshape(-1)] == 0).all()
+
+
+@pytest.mark.parametrize("B,L,H,D,BK", [(4, 256, 4, 32, 256),
+                                        (4, 512, 12, 64, 512),
+                                        (4, 384, 2, 128, 128),
+                                        (4, 1024, 12, 128, 512),
+                                        (2, 4096, 12, 128, 512)])
+def test_causal_attention_kernel_matches_plain(cuda, B, L, H, D, BK):
+    rng = np.random.default_rng(L + D)
+    qkv = torch.from_numpy(rng.standard_normal(
+        (B * L, 3 * H * D), dtype=np.float32)).to(cuda, torch.bfloat16)
+    lens = torch.tensor([L, L - 37, 1, 0] if B == 4 else [L, 0],
+                        dtype=torch.int32, device=cuda)
+    kw = dict(B=B, L=L, H=H, D=D, BK=BK, causal=True)
+    plain = A.fused_attention_stream.launches
+    before = A.fused_attention_stream.causal_launches
+    got = A.fused_attention_stream(qkv, lens, **kw)
+    assert A.fused_attention_stream.causal_launches == before + 1
+    assert A.fused_attention_stream.launches == plain
+    _causal_close(got, A.fused_attention_stream_ref(qkv, lens, **kw), qkv,
+                  lens, B, L, H, D)
+
+
 def test_kernels_raise_on_wrong_dtype(cuda):
     qt = quantize(np.zeros((64, 64), np.float32), "q4_0").map(
         lambda t: t.to(cuda))
@@ -298,6 +343,9 @@ def test_kernels_raise_on_wrong_dtype(cuda):
         A.fused_attention_stream(qkv, lens, B=1, L=128, H=2, D=64, BK=128)
     with pytest.raises(TypeError):
         A.fused_attention_window(qkv, lens, B=1, L=128, H=2, D=64, window=8)
+    with pytest.raises(TypeError):
+        A.fused_attention_stream(qkv, lens, B=1, L=128, H=2, D=64, BK=128,
+                                 causal=True)
     with pytest.raises(ValueError):  # the bias on the host
         A.fused_attention_bias(qkv.to(torch.bfloat16), lens,
                                torch.zeros(2, 128, 128), B=1, L=128, H=2,

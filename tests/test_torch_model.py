@@ -173,9 +173,8 @@ def test_engine_device_and_unported_modes():
                   device="cpu")
     emb8 = eng8.encode("a")
     assert eng8._int8 and emb8.shape == (128,) and np.isfinite(emb8).all()
-    with pytest.raises(NotImplementedError, match="Qwen2"):  # RMSNorm block
-        Engine(tp, dataclasses.replace(cfg, norm_style="pre",
-                                       norm_type="rmsnorm"), tok,
+    with pytest.raises(NotImplementedError, match="num_experts"):  # MoE
+        Engine(tp, dataclasses.replace(cfg, num_experts=4), tok,
                device="cpu")
     eng = Engine(tp, cfg, tok, device="cpu")
     assert eng._compute_dtype == torch.float32 and eng.n_embd == 128

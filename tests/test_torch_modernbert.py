@@ -27,8 +27,9 @@ package, on the CPU.
     in both packages and encodes the same vectors (f32, q4_0), matching
     HF's hidden states.
 (g) The port's byte-level BPE gives JAX's ids.
-(h) ``check_supported`` takes ModernBERT and nomic-bert and refuses
-    Qwen2's RMSNorm, GQA and causal attention.
+(h) ``check_supported`` takes ModernBERT, nomic-bert and Qwen2's RMSNorm,
+    GQA and causal attention, and refuses mixture-of-experts layers and a
+    K/V head count that does not divide the query heads.
 (i) The trained rotary fixture (nomic-bert: post-LN, RoPE, SwiGLU) in both
     packages on its long STS texts, f32 and q4_0.
 """
@@ -593,11 +594,11 @@ def test_check_supported():
     base = BertConfig(**TINY)
     for over in (dict(norm_type="rmsnorm"), dict(num_key_value_heads=1),
                  dict(causal=True)):
-        with pytest.raises(NotImplementedError, match="Qwen2"):
-            P.check_supported(dataclasses.replace(base, **over))
-    with pytest.raises(NotImplementedError, match="Qwen2"):
-        P.check_supported(BertConfig(
-            **KNOWN_MODELS["gte-Qwen2-1.5B-instruct"]))
+        P.check_supported(dataclasses.replace(base, **over))
+    P.check_supported(BertConfig(**KNOWN_MODELS["gte-Qwen2-1.5B-instruct"]))
+    with pytest.raises(NotImplementedError, match="num_key_value_heads"):
+        P.check_supported(dataclasses.replace(base, num_attention_heads=3,
+                                              num_key_value_heads=2))
     with pytest.raises(NotImplementedError):
         P.check_supported(BertConfig(
             **KNOWN_MODELS["nomic-embed-text-v2-moe"]))
