@@ -1,11 +1,14 @@
 """Smoke test of the PyTorch/CUDA port on one GPU: builds the hand-written
-kernels (K1-K7, K6w and K6c), holds each against its plain PyTorch version on the card,
+kernels (K1-K7, K6w and K6c, and the chained-int8 modes K1e, K3e, K3x,
+K2e, K4e and K2i8), holds each against its plain PyTorch version on the card,
 and drives the port's paths through Engine -> encode_batch (or
 encode_batch_packed) -> BatchingService -> TCP, checking each path's
 kernel launch counts:
 
 - bge-base q4_0: the bf16 encode path (K1 + K2), the int8 compute mode
-  (K3 + K2) and token-packed serving (K1 + K4 or K5);
+  (K3 + K2), the chained int8 path under each of the 8 link subsets with
+  int8 scores off and on (K3 with K3x / K3e, K2 with K2e / K2i8, packed
+  K4e), and token-packed serving (K1 + K4 or K5);
 - a bge-base-shaped BERT with 2,048 positions on rows past the whole-row
   rule (K1 + K6 plain);
 - all-mpnet-base-v2 q4_0 (K1 + K7 with the relative-position bias);
@@ -23,7 +26,8 @@ then times the kernels and the forwards, with a device-time profile of
 each forward by kernel.
 
     python3 chip_smoke.py              # every phase, needs one CUDA device
-    python3 chip_smoke.py --phases device,build,k1,k2,k3,k4k5,k6k7,k6w,k6c
+    python3 chip_smoke.py --phases device,build,k1,k2,k3,k4k5,k6k7,k6w,k6c,\
+        emit,attn_emit
 
 Each phase prints one JSON line. The last two lines are the kernel table
 and ``{"ok": true, "device": {...}}``; any failure exits non-zero before
@@ -81,6 +85,28 @@ K6W_REPLACES = ("embeddings_tpu/ops/attention.py:661 (_attn_kernel_stream, "
                 "span + window mode, via fused_attention_window :920)")
 K6C_REPLACES = ("embeddings_tpu/ops/attention.py:661 (_attn_kernel_stream, "
                 "causal mode, via fused_attention_stream(causal=True) :900)")
+EMIT_REPLACES = ("embeddings_tpu/ops/qmatmul.py:262 (_emit via qmatmul :446, "
+                 "emit_quantized)")
+K3X_REPLACES = ("embeddings_tpu/ops/qmatmul.py:386 (_qmm_int8's sx_ref path "
+                "via qmatmul :446, int8 x + x_scale)")
+K2E_REPLACES = ("embeddings_tpu/ops/attention.py:61 (_emit_int8_rows from "
+                "_attn_kernel :160 via fused_attention :1039, emit_quantized)")
+K4E_REPLACES = ("embeddings_tpu/ops/attention.py:61 (_emit_int8_rows from "
+                "_attn_kernel_segmented :330 via fused_attention_segmented "
+                ":490)")
+K2I8_REPLACES = ("embeddings_tpu/ops/attention.py:109 (_attn_kernel's "
+                 "int8_scores branch via fused_attention :1039)")
+# the chained links' emitting calls at bge's shapes (K1e / K3e): name ->
+# (K, N, epilogue, emit), and one N = 4,096 case (bge-large's FFN)
+EMIT_SHAPES = {"o_proj_both": (E, E, "bias_residual_ln", "both"),
+               "ffn_down_both": (F, E, "bias_residual_ln", "both"),
+               "ffn_up_only": (E, F, "bias_gelu", "only"),
+               "up4096_only": (1024, 4096, "bias_gelu", "only")}
+# K2i8 beyond 512 tokens (K2's blocked-query route in JAX)
+I8S_LONG = (16, 1024)
+# the link subsets of the chained int8 path, as sorted tuples
+LINK_SUBSETS = [(), ("attn",), ("ln",), ("ffn",), ("attn", "ln"),
+                ("attn", "ffn"), ("ffn", "ln"), ("attn", "ffn", "ln")]
 # packed shapes: K4 at the default row_len 128 (256 rows), K5 at 1024
 PACK_SHORT = (256, 128)
 PACK_LONG = (32, 1024)
@@ -130,6 +156,11 @@ K2_RTOL, K2_ATOL_RMS = 2.0 ** -6, 1e-2
 # its s32 sums are exact, so only the activation's last f32 bits and the
 # bf16 rounding of the output differ. K4-K7 as K2.
 K3_RTOL, K3_ATOL_RMS = K1_RTOL, K1_ATOL_RMS
+# emission (K1e / K3e): the int8 codes of the f32 epilogue output may
+# differ by one step where the kernel's f32 value and the plain version's
+# straddle a rounding midpoint (LayerNorm sums, K1's product order), and
+# the row scales by those values' last bits
+EMIT_CODE_STEPS, EMIT_SCALE_RTOL = 1, 1e-4
 
 RESULTS: dict = {}   # one JSON line per phase, dumped at the end
 STATE: dict = {}     # engines, parameters, launch counts, inputs
@@ -231,18 +262,34 @@ def k1_cost(Mx, K, N, epilogue) -> tuple[float, float]:
 
 def counters() -> dict:
     """The kernels' launch counters: name -> (wrapper, attribute). K6c
-    counts apart from K6 on the same wrapper."""
-    from embeddings_tpu_torch.ops import attention as A, qmatmul as Q
+    counts apart from K6 on the same wrapper; the chained-int8 modes on
+    theirs: K3x (int8 x, no row quantization), K1e / K3e / K2e / K4e by
+    emission mode, K2i8; "quantize_act" counts the plain quantization of
+    an activation (the embedding output under the "ln" link)."""
+    from embeddings_tpu_torch.ops import attention as A, linear as Lin, \
+        qmatmul as Q
     stream = A.fused_attention_stream
+    fa, seg = A.fused_attention, A.fused_attention_segmented
     return {"K1": (Q.qmatmul, "launches"),
-            "K2": (A.fused_attention, "launches"),
+            "K2": (fa, "launches"),
             "K3": (Q.qmatmul_int8, "launches"),
-            "K4": (A.fused_attention_segmented, "launches"),
+            "K4": (seg, "launches"),
             "K5": (A.fused_attention_segmented_blockskip, "launches"),
             "K6": (stream, "launches"),
             "K7": (A.fused_attention_bias, "launches"),
             "K6w": (A.fused_attention_window, "launches"),
-            "K6c": (stream, "causal_launches")}
+            "K6c": (stream, "causal_launches"),
+            "K1e_both": (Q.qmatmul, "both_launches"),
+            "K1e_only": (Q.qmatmul, "only_launches"),
+            "K3x": (Q.qmatmul_int8, "x8_launches"),
+            "K3e_both": (Q.qmatmul_int8, "both_launches"),
+            "K3e_only": (Q.qmatmul_int8, "only_launches"),
+            "K2e_both": (fa, "both_launches"),
+            "K2e_only": (fa, "only_launches"),
+            "K2i8": (fa, "i8s_launches"),
+            "K4e_both": (seg, "both_launches"),
+            "K4e_only": (seg, "only_launches"),
+            "quantize_act": (Lin.quantize_act, "calls")}
 
 
 def reset_counts() -> None:
@@ -250,6 +297,7 @@ def reset_counts() -> None:
     for f, _ in counters().values():
         if hasattr(f, "shapes"):
             f.shapes.clear()
+            f.modes.clear()
 
 
 def set_counts(counts: dict) -> None:
@@ -653,8 +701,130 @@ def phase_int8_path():
     check(np.abs(norms - 1).max() < 1e-3, "int8: not unit norm")
     check(dup.min() >= 1 - 1e-6, "int8: identical sentences differ")
     check(cos.min() >= 0.99, f"int8 vs bf16 kernel path: {cos.min()}")
-    STATE["engine8"] = eng8
+    STATE["engine8"], STATE["int8_emb"] = eng8, (texts, emb)
     _check_tcp("int8_server", eng8)
+
+
+def chain_want(links, scores: bool, n: int) -> dict:
+    """The launches of n bge-base int8 forwards (NL layers) under a link
+    subset: 4 K3 and one K2 a layer as unchained; K3x on qkv and up with
+    "ln", on o-proj with "attn", on down with "ffn"; K3e "both" on o-proj
+    and down with "ln", "only" on up with "ffn"; K2e "only" with "attn";
+    K2i8 with int8 scores; one quantize_act (the embedding output) with
+    "ln"."""
+    ln, attn, ffn = ("ln" in links), ("attn" in links), ("ffn" in links)
+    per = {"K3": 4 * NL, "K2": NL, "K3x": NL * (2 * ln + attn + ffn),
+           "K3e_both": 2 * NL * ln, "K3e_only": NL * ffn,
+           "K2e_only": NL * attn, "K2i8": NL * scores,
+           "quantize_act": int(ln)}
+    return only(**{k: v * n for k, v in per.items()})
+
+
+def phase_int8_chain_path():
+    """The chained int8 forward of bge-base (int8_compute) through
+    Engine.encode_batch under each of the 8 link subsets, with int8
+    scores off and on: exact launch counts per subset (chain_want), unit
+    norms, cosine >= 0.999 against the unchained int8 path (the JAX
+    package's bar for the chain); TCP answers equal Engine.encode with
+    every link on; the packed int8 forward with the "attn" link (12 K4e
+    a forward). The defaults stay off: no links, scores "off"."""
+    import torch
+    from embeddings_tpu_torch.ops.attention import int8_scores_mode
+    from embeddings_tpu_torch.ops.linear import active_chain_links, \
+        chain_links
+    from embeddings_tpu_torch.ops.qmatmul import qmatmul_int8
+    check(active_chain_links() == frozenset(), "chain links on by default")
+    eng8 = STATE.setdefault("engine8", STATE.get("engine8")
+                            or _bge_base_engine(int8_compute=True))
+    if "int8_emb" not in STATE:
+        texts = _sts_sentences(300)
+        STATE["int8_emb"] = (texts + texts[:8],
+                             eng8.encode_batch(texts + texts[:8]))
+    texts, base = STATE["int8_emb"]
+    n = n_bucketed_forwards(eng8, texts)
+    out = {}
+    for links in LINK_SUBSETS:
+        for scores in (False, True):
+            with chain_links(links), \
+                    int8_scores_mode("on" if scores else "off"):
+                reset_counts()
+                t0 = time.perf_counter()
+                emb = eng8.encode_batch(texts)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                counts = read_counts()
+            cos = _row_cos(emb, base)
+            norms = np.linalg.norm(emb, axis=1)
+            key = "+".join(links) or "none"
+            key += "/scores_on" if scores else ""
+            want = chain_want(links, scores, n)
+            out[key] = dict(launches=counts, wall_s=wall,
+                            vs_unchained_min_cos=float(cos.min()),
+                            norm_min=float(norms.min()),
+                            norm_max=float(norms.max()))
+            check(np.isfinite(emb).all() and emb.shape == (len(texts), E),
+                  f"chain {key}: output not finite / wrong shape")
+            check(counts == want, f"chain {key}: launches {counts}, "
+                  f"expected {want}")
+            check(np.abs(norms - 1).max() < 1e-3, f"chain {key}: not unit "
+                  f"norm")
+            check(cos.min() >= 0.999, f"chain {key} vs unchained int8: "
+                  f"{cos.min()}")
+            if scores and not links:
+                STATE["launches_K2i8"] = counts["K2i8"] // n
+            if links == LINK_SUBSETS[-1] and not scores:
+                # the kernel table's launches: this run's, per forward
+                modes = {k: v / n for k, v in qmatmul_int8.modes.items()}
+                want_modes = {(E, 3 * E, "bias", "no", True): NL,
+                              (E, E, "bias_residual_ln", "both", True): NL,
+                              (E, F, "bias_gelu", "only", True): NL,
+                              (F, E, "bias_residual_ln", "both", True): NL}
+                check(modes == want_modes, f"chain {key}: K3 launches by "
+                      f"shape and mode {modes}, expected {want_modes}")
+                STATE["chain_all"] = (
+                    {k: v // n for k, v in counts.items()},
+                    {k: int(v) for k, v in modes.items()})
+    with chain_links(("attn", "ln", "ffn")):
+        _check_tcp("int8_chain_server", eng8)
+    out["packed_attn"] = _packed_chain(eng8)
+    emit("int8_chain_path", forwards_per_run=n, sentences=len(texts),
+         subsets=out)
+
+
+def _packed_chain(eng8) -> dict:
+    """The packed int8 forward (256 rows of 128 tokens) with the "attn"
+    link: 48 K3 (12 of them K3x, the o-projection) and 12 K4 emitting
+    "only" a forward (bge's 12 layers), against the same forward
+    unchained."""
+    import torch
+    from embeddings_tpu_torch.ops.linear import chain_links
+    texts = _sts_sentences(2400)
+    base = eng8.encode_batch_packed(texts, row_len=PACK_SHORT[1])
+    calls = []
+    run = eng8._forward_packed
+
+    def spy(*a, **k):
+        calls.append(1)
+        return run(*a, **k)
+    eng8._forward_packed = spy
+    try:
+        with chain_links(("attn",)):
+            reset_counts()
+            emb = eng8.encode_batch_packed(texts, row_len=PACK_SHORT[1])
+            torch.cuda.synchronize()
+            counts = read_counts()
+    finally:
+        del eng8._forward_packed
+    n = len(calls)
+    cos = _row_cos(emb, base)
+    want = only(K3=4 * NL * n, K3x=NL * n, K4=NL * n, K4e_only=NL * n)
+    check(n >= 1 and counts == want, f"packed chain: launches {counts}, "
+          f"expected {want}")
+    check(np.isfinite(emb).all() and cos.min() >= 0.999,
+          f"packed chain vs unchained: {cos.min()}")
+    STATE["launches_K4e"] = counts["K4e_only"] // n
+    return dict(packed_forwards=n, launches=counts,
+                vs_unchained_min_cos=float(cos.min()))
 
 
 def phase_packed_path():
@@ -963,6 +1133,197 @@ def phase_k6c():
          f"{K2_ATOL_RMS}*rms(ref) on query rows that see >= 64 keys; "
          f"+ 2^-6 * max|v| of the keys on rows that see 1-63; rows that "
          f"see none exactly 0", **out)
+
+
+def emit_compare(got, ref, emit: str) -> dict:
+    """A matmul emission (K1e / K3e) against its plain version: the bf16
+    output (with "both") at K1's tolerance, the codes within
+    EMIT_CODE_STEPS (the count of codes one step off stated), the row
+    scales within EMIT_SCALE_RTOL."""
+    import torch
+    torch.cuda.synchronize()
+    out, o8, so = got if emit == "both" else (None, *got)
+    rout, ro8, rso = ref if emit == "both" else (None, *ref)
+    d = (o8.int() - ro8.int()).abs()
+    srel = ((so - rso).abs() / rso).max().item()
+    r = {"max_code_diff": int(d.max()), "codes_one_step_off": int((d == 1)
+                                                                  .sum()),
+         "codes": d.numel(), "scale_max_rel_err": srel,
+         "scales_finite": bool(torch.isfinite(so).all())}
+    ok = (r["max_code_diff"] <= EMIT_CODE_STEPS and srel <= EMIT_SCALE_RTOL
+          and r["scales_finite"] and tuple(so.shape) == (o8.shape[0], 1))
+    if out is not None:
+        r["out"] = compare(out, rout, K1_RTOL, K1_ATOL_RMS)
+        ok = ok and r["out"]["ok"]
+        r["max_abs_err"] = r["out"]["max_abs_err"]
+    else:
+        r["max_abs_err"] = (o8.float() * so - ro8.float() * rso).abs().max() \
+            .item()
+    r["ok"] = ok
+    return r
+
+
+def phase_emit():
+    """K1e and K3e (the emission epilogue) at the chained links' shapes —
+    o-proj and FFN-down with residual + LayerNorm emitting "both", FFN-up
+    with GELU emitting "only" at N=3,072 and at N=4,096 — and K3x (int8 x
+    with its row scales, no row quantization) at bge's four shapes and
+    with emission, each against its plain version on the same inputs;
+    then small ragged-M cases over the kinds and epilogues."""
+    import torch
+    from embeddings_tpu_torch.ops.qmatmul import EPILOGUES, qmatmul, \
+        qmatmul_int8_ref, qmatmul_ref, quantize_rows
+    rng = np.random.default_rng(11)
+    dev = torch.device("cuda")
+    out = {}
+    for name, (K, N, epi, how) in EMIT_SHAPES.items():
+        args, kw, _ = k1_inputs(rng, M, K, N, "q4_0", True, epi, dev)
+        a = list(args.values())
+        k1e = emit_compare(qmatmul(*a, emit_quantized=how, **kw),
+                                qmatmul_ref(*a, emit_quantized=how, **kw),
+                                how)
+        k3e = emit_compare(
+            qmatmul(*a, int8_compute=True, emit_quantized=how, **kw),
+            qmatmul_int8_ref(*a, emit_quantized=how, **kw), how)
+        q8, sx = quantize_rows(a[0])
+        x8 = [q8] + a[1:]
+        k3xe = emit_compare(
+            qmatmul(*x8, int8_compute=True, x_scale=sx.reshape(M),
+                    emit_quantized=how, **kw),
+            qmatmul_int8_ref(*x8, x_scale=sx, emit_quantized=how, **kw),
+            how)
+        out[name] = {"K1e": k1e, "K3e": k3e, "K3x_K3e": k3xe}
+        for k, r in out[name].items():
+            check(r["ok"], f"{k} {name} disagrees: {r}")
+    for name, (K, N, epi) in K1_SHAPES.items():
+        args, kw, _ = k1_inputs(rng, M, K, N, "q4_0", True, epi, dev)
+        a = list(args.values())
+        q8, sx = quantize_rows(a[0])
+        got = qmatmul(q8, *a[1:], int8_compute=True, x_scale=sx.reshape(M),
+                      **kw)
+        ref = qmatmul_int8_ref(q8, *a[1:], x_scale=sx, **kw)
+        torch.cuda.synchronize()
+        r = compare(got, ref, K3_RTOL, K3_ATOL_RMS)
+        check(r["ok"], f"K3x {name} disagrees: {r}")
+        out[f"K3x_{name}"] = r
+    worst, n_small = 0.0, 0
+    for kind, packed in (("q4_0", False), ("q4_1", True), ("q8_0", False),
+                         ("nf4", True)):
+        for epi in EPILOGUES:
+            for how in ("both", "only"):
+                # ragged M, N = 256 (two column tiles), K = 128
+                args, kw, _ = k1_inputs(rng, 40, 128, 256, kind, packed, epi,
+                                        dev)
+                a = list(args.values())
+                for mode, ref_fn in ((False, qmatmul_ref),
+                                     (True, qmatmul_int8_ref)):
+                    r = emit_compare(
+                        qmatmul(*a, int8_compute=mode, emit_quantized=how,
+                                **kw),
+                        ref_fn(*a, emit_quantized=how, **kw), how)
+                    check(r["ok"], f"emission {kind}/{epi}/{how} "
+                          f"int8={mode} disagrees: {r}")
+                    worst = max(worst, r["max_abs_err"])
+                    n_small += 1
+    emit("emit_parity", tolerance=f"bf16 output as K1; codes within "
+         f"{EMIT_CODE_STEPS} step; scales rtol {EMIT_SCALE_RTOL}; K3x as K3",
+         small_cases=n_small, small_worst_max_abs_err=worst, **out)
+
+
+def attn_emit_compare(got, ref, emit: str) -> dict:
+    """An attention emission (K2e / K4e, also with K2i8) against its plain
+    version: the bf16 context (with "both") at K2's tolerance; the codes
+    dequantized (o8 * so) within K2's tolerance of the plain version's
+    plus one step of each, since the two contexts already differ by K2's
+    tolerance before they are quantized; the scales at K2's tolerance."""
+    import torch
+    out, o8, so = got if emit == "both" else (None, *got)
+    rout, ro8, rso = ref if emit == "both" else (None, *ref)
+    deq, rdeq = o8.float() * so, ro8.float() * rso
+    err = (deq - rdeq).abs()
+    rms = rdeq.square().mean().sqrt()
+    tol = K2_RTOL * rdeq.abs() + K2_ATOL_RMS * rms + so + rso
+    d = (o8.int() - ro8.int()).abs()
+    r = {"max_code_diff": int(d.max()),
+         "codes_off": int((d > 0).sum()), "codes": d.numel(),
+         "dequant_max_abs_err": err.max().item(),
+         "scales": compare(so, rso, K2_RTOL, K2_ATOL_RMS)}
+    ok = bool((err <= tol).all()) and r["scales"]["ok"]
+    if out is not None:
+        r["out"] = compare(out, rout, K2_RTOL, K2_ATOL_RMS)
+        ok = ok and r["out"]["ok"]
+    r["max_abs_err"] = (r["out"] if out is not None else r)[
+        "max_abs_err" if out is not None else "dequant_max_abs_err"]
+    r["ok"] = ok
+    return r
+
+
+def phase_attn_emit():
+    """K2e and K4e (attention emission, "both" and "only") at the main
+    path's shapes (B=128, L=256 with a len-0 and a full row; 256 packed
+    rows of 128), K2i8 (int8 scores) at B=128, L=256 and at B=16,
+    L=1,024, without and with "only" emission, each against its plain
+    version; len-0 rows finite (K2i8 gives them the mean of v)."""
+    import torch
+    from embeddings_tpu_torch.ops import attention as A
+    rng = np.random.default_rng(12)
+    dev = torch.device("cuda")
+    out = {}
+    qkv, lens = _attn_qkv(rng, B, L, dev, Ex=E)
+    kw = dict(B=B, L=L, H=H, D=D)
+    for how in ("both", "only"):
+        r = attn_emit_compare(
+            A.fused_attention(qkv, lens, emit_quantized=how, **kw),
+            A.fused_attention_ref(qkv, lens, emit_quantized=how, **kw),
+            how)
+        check(r["ok"], f"K2e {how} disagrees: {r}")
+        out[f"K2e_{how}"] = r
+    if "K4" not in STATE:
+        phase_k4k5()
+    pqkv, seg = STATE["K4"][0], STATE["K4"][1]
+    pkw = dict(B=PACK_SHORT[0], L=PACK_SHORT[1], H=H, D=D)
+    for how in ("both", "only"):
+        r = attn_emit_compare(
+            A.fused_attention_segmented(pqkv, seg, emit_quantized=how,
+                                        **pkw),
+            A.fused_attention_segmented_ref(pqkv, seg, emit_quantized=how,
+                                            **pkw), how)
+        check(r["ok"], f"K4e {how} disagrees: {r}")
+        out[f"K4e_{how}"] = r
+    for name, (Bx, Lx) in (("L256", (B, L)), ("L1024", I8S_LONG)):
+        q2, l2 = ((qkv, lens) if Lx == L
+                  else _attn_qkv(rng, Bx, Lx, dev, Ex=E))
+        k2 = dict(B=Bx, L=Lx, H=H, D=D, int8_scores=True)
+        got = A.fused_attention(q2, l2, **k2)
+        ref = A.fused_attention_ref(q2, l2, **k2)
+        torch.cuda.synchronize()
+        r = compare(got, ref, K2_RTOL, K2_ATOL_RMS)
+        r["len0_rows_finite"] = bool(torch.isfinite(
+            got.reshape(Bx, Lx, E)[0]).all())
+        # the control: K2's bf16 softmax on the same rows must fail the
+        # same check, or the check could not tell K2i8 from plain K2 (the
+        # len-0 rows, 0 in K2 and the mean of v in K2i8, are left out)
+        bf16 = A.fused_attention(q2, l2, B=Bx, L=Lx, H=H, D=D)
+        seen = (l2 > 0).repeat_interleave(Lx)
+        r["control_bf16_k2"] = compare(bf16[seen], ref[seen], K2_RTOL,
+                                       K2_ATOL_RMS)
+        r["vs_bf16_kernel_min_row_cos"] = compare(got, bf16, 0.0,
+                                                  0.0)["min_row_cos"]
+        check(r["ok"] and r["len0_rows_finite"],
+              f"K2i8 {name} disagrees: {r}")
+        check(not r["control_bf16_k2"]["ok"], f"K2i8 {name}: the bf16 K2 "
+              f"output passes the int8-scores check too: {r}")
+        out[f"K2i8_{name}"] = r
+        e = attn_emit_compare(
+            A.fused_attention(q2, l2, emit_quantized="only", **k2),
+            A.fused_attention_ref(q2, l2, emit_quantized="only", **k2),
+            "only")
+        check(e["ok"], f"K2i8 + K2e only {name} disagrees: {e}")
+        out[f"K2i8_K2e_only_{name}"] = e
+    STATE["attn_emit_inputs"] = (qkv, lens)
+    emit("attn_emit_parity", tolerance=f"|err| <= {K2_RTOL}*|ref| + "
+         f"{K2_ATOL_RMS}*rms(ref); codes dequantized within that plus one "
+         f"step of each side", **out)
 
 
 def _family_engine(family: str, **ec):
@@ -1375,6 +1736,9 @@ def phase_timing():
                 launches_want(("qmm_kernel",), k1, attn, dh))
     fwd = {k: cuda_ms(r[0], iters=5) for k, r in runs.items()}
     profiles = {k: device_profile(k, *r) for k, r in runs.items()}
+    chain_fwd = {}
+    if "int8_chain_path" in RESULTS:
+        chain_fwd, profiles["int8_chain_all"] = chain_timing(ids, mask)
     packed_fwd = {}
     for name in ("K4", "K5"):
         if name in fwd:
@@ -1479,6 +1843,8 @@ def phase_timing():
                            launches.get("qmatmul_qwen2", {}), QW_M)
                     for name, shape in QW_K1_SHAPES.items()]
         kernels += qwen2_attention_rows(rng, dev)
+    if "emit_parity" in RESULTS and "attn_emit_parity" in RESULTS:
+        kernels += chain_rows(rng, dev)
     set_counts(saved)
     per_layer_bound = sum(kk["bound_ms"] for kk in kernels[:5])
     emit("timing", batch=[B, L], forward_ms=fwd["bf16"],
@@ -1489,17 +1855,203 @@ def phase_timing():
          packed_forward=packed_fwd, family_forward=family_fwd,
          forward_bound_ms=NL * per_layer_bound,
          kernel_ms_per_forward=NL * sum(kk["ms"] for kk in kernels[:5]),
-         profile=profiles)
+         int8_chain_forward_ms=chain_fwd, profile=profiles)
     RESULTS["kernels"] = kernels
 
 
 def launches_want(matmuls, per_forward: int, attn: dict,
                   dh: int = D) -> dict:
     """The launches one forward makes, by the profiler's kernel names:
-    per_forward of each matmul kernel, and of attn_kernel<dh, mode> the
-    count {mode: count} gives."""
+    per_forward of each matmul kernel, and of attn_kernel<dh, mode, 0> (no
+    emission) the count {mode: count} gives; a key that is a string names
+    the kernel itself."""
     return {**{k: per_forward for k in matmuls},
-            **{f"attn_kernel<{dh}, {m}>": n for m, n in attn.items()}}
+            **{m if isinstance(m, str) else f"attn_kernel<{dh}, {m}, 0>": n
+               for m, n in attn.items()}}
+
+
+def chain_timing(ids, mask, rounds: int = 5):
+    """The int8 forward at B=128, L=256 under each link subset with int8
+    scores off, and with them on under no links and all links: CUDA
+    events over 5 forwards, in ``rounds`` rounds that walk the settings
+    in turn (every other round backwards), so slow drift of the card
+    lands on all of them; the median of the rounds, and their range. Then
+    the device profile of the all-links forward: 48 K3 GEMMs and weight
+    requantizations, 12 emit_rows (FFN-up "only"), 12 K2e ("only"), no
+    row quantization."""
+    from embeddings_tpu_torch.ops.attention import int8_scores_mode
+    from embeddings_tpu_torch.ops.linear import chain_links
+    e8 = STATE["engine8"]
+    settings = [(links, scores) for links in LINK_SUBSETS
+                for scores in (False, True)
+                if not scores or links in ((), LINK_SUBSETS[-1])]
+    samples = {s: [] for s in settings}
+    for r in range(rounds):
+        for links, scores in settings[::-1] if r % 2 else settings:
+            with chain_links(links), \
+                    int8_scores_mode("on" if scores else "off"):
+                samples[links, scores].append(
+                    cuda_ms(lambda: e8._forward(ids, mask), iters=5))
+    out = {("+".join(links) or "none") + ("/scores_on" if scores else ""):
+           {"median_ms": float(np.median(v)), "min_ms": min(v),
+            "max_ms": max(v)}
+           for (links, scores), v in samples.items()}
+    want = launches_want(("qmm_int8_kernel", "requant_kernel"), 4 * NL,
+                         {"emit_rows_kernel": NL,
+                          f"attn_kernel<{D}, 0, 2>": NL})
+    with chain_links(LINK_SUBSETS[-1]):
+        prof = device_profile("int8_chain_all",
+                              lambda: e8._forward(ids, mask), want)
+    check("quant_rows_kernel" not in prof["by_kernel"],
+          "all links: a K3 still quantized its rows")
+    return out, prof
+
+
+def k3_cost(Mx, K, N, epilogue, emit="no", x8=False) -> tuple[float, float]:
+    """(ops, bytes) of one K3 call: as k1_cost, with an int8 x read at one
+    byte an element plus its f32 row scales, and an emission writing M*N
+    codes and M f32 scales (the bf16 output only with "both")."""
+    ops, nbytes = k1_cost(Mx, K, N, epilogue)
+    if x8:
+        nbytes += -Mx * K + 4 * Mx
+    if emit != "no":
+        nbytes += Mx * N + 4 * Mx - (Mx * N * 2 if emit == "only" else 0)
+    return ops, nbytes
+
+
+def chain_rows(rng, dev) -> list:
+    """The kernel table's rows of the chained-int8 modes at bge's shapes,
+    as the all-links forward calls them, with the launches a forward that
+    its scores-off run in int8_chain_path counted: K3x + K3e on o-proj and
+    down ("both") and up ("only"), K3x alone on qkv; K1e (bf16 compute, the
+    emission where int8 does not engage: no launch on this path); K2e and
+    K4e ("only"); K2i8 at B=128, L=256 and B=16, L=1,024. Library
+    yardsticks: torch._int_mm on operands quantized beforehand (K3), a
+    bf16 matmul on the dequantized weight (K1e), SDPA with the boolean
+    mask, writing bf16 (K2e, K4e); none computes K2i8's int8 softmax."""
+    import torch
+    from embeddings_tpu_torch.ops import attention as A
+    from embeddings_tpu_torch.ops.qmatmul import dequantize_bf16, qmatmul, \
+        qmatmul_int8_ref, qmatmul_ref, quantize_rows, requantize_weight
+    counts, modes = STATE.get("chain_all", ({}, {}))
+    par = RESULTS["emit_parity"]
+    out = []
+    for name, (K, N, epi, how) in (
+            ("qkv", (E, 3 * E, "bias", "no")),
+            ("o_proj", (E, E, "bias_residual_ln", "both")),
+            ("ffn_up", (E, F, "bias_gelu", "only")),
+            ("ffn_down", (F, E, "bias_residual_ln", "both"))):
+        args, kw, qt = k1_inputs(rng, M, K, N, "q4_0", True, epi, dev)
+        a = list(args.values())
+        q8, sx = quantize_rows(a[0])
+        x8 = [q8] + a[1:]
+        w8, _ = requantize_weight(qt.codes, qt.scales, qt.mins, "q4_0", True)
+        w8t = w8.t().contiguous()
+        bms, by = bound_ms(*k3_cost(M, K, N, epi, how, True),
+                           peak=PEAK_INT8_OPS)
+        emit_key = f"{name}_{how}" if how != "no" else None
+        err = (par[f"K3x_{name}"]["max_abs_err"] if emit_key is None
+               else par[emit_key]["K3x_K3e"]["max_abs_err"])
+        out.append({
+            "name": f"qmatmul_int8[{name} {K}x{N} {epi} int8 x"
+                    + (f", emit {how}]" if how != "no" else "]"),
+            "route": "cuda", "source": "embeddings_tpu_torch/csrc/qmatmul.cu",
+            "replaces": EMIT_REPLACES if how != "no" else K3X_REPLACES,
+            "launches": modes.get((K, N, epi, how, True), 0),
+            "max_abs_err": err,
+            "ms": cuda_ms(lambda: qmatmul(
+                *x8, int8_compute=True, x_scale=sx.reshape(M),
+                emit_quantized=how, **kw)),
+            "plain_ms": cuda_ms(lambda: qmatmul_int8_ref(
+                *x8, x_scale=sx, emit_quantized=how, **kw), iters=3),
+            "bound_ms": bms, "bound_by": by,
+            "library_ms": cuda_ms(lambda: torch._int_mm(q8, w8t.t())),
+            "shape": [M, K, N]})
+    # K1e: FFN-up's "only" in bf16 compute
+    K, N, epi, how = EMIT_SHAPES["ffn_up_only"]
+    args, kw, qt = k1_inputs(rng, M, K, N, "q4_0", True, epi, dev)
+    a = list(args.values())
+    w_bf16 = dequantize_bf16(qt.codes, qt.scales, qt.mins, "q4_0", True)
+    bms, by = bound_ms(*k3_cost(M, K, N, epi, how))
+    out.append({
+        "name": f"qmatmul[ffn_up {K}x{N} {epi}, emit {how}]", "route": "cuda",
+        "source": "embeddings_tpu_torch/csrc/qmatmul.cu",
+        "replaces": EMIT_REPLACES, "launches": 0,
+        "max_abs_err": par["ffn_up_only"]["K1e"]["max_abs_err"],
+        "ms": cuda_ms(lambda: qmatmul(*a, emit_quantized=how, **kw)),
+        "plain_ms": cuda_ms(lambda: qmatmul_ref(*a, emit_quantized=how,
+                                                **kw), iters=3),
+        "bound_ms": bms, "bound_by": by,
+        "library_ms": cuda_ms(lambda: torch.matmul(a[0], w_bf16)),
+        "shape": [M, K, N]})
+    apar = RESULTS["attn_emit_parity"]
+    qkv, lens = _attn_qkv(rng, B, L, dev, ragged=False, Ex=E)
+    keymask = torch.ones((1, 1, 1, L), dtype=torch.bool, device=dev)
+    flops = 4.0 * B * H * L * L * D
+    kw = dict(B=B, L=L, H=H, D=D)
+    rows = [("K2e", "fused_attention", K2E_REPLACES, dict(emit_quantized=
+                                                          "only"),
+             M * 3 * E * 2 + M * E + 4 * M + B * 4, PEAK_BF16_FLOPS,
+             counts.get("K2e_only", 0), apar["K2e_only"]["max_abs_err"]),
+            ("K2i8", "fused_attention", K2I8_REPLACES,
+             dict(int8_scores=True), M * 3 * E * 2 + M * E * 2 + B * 4,
+             PEAK_INT8_OPS, STATE.get("launches_K2i8", 0),
+             apar["K2i8_L256"]["max_abs_err"])]
+    for kname, fn, replaces, opt, nbytes, peak, launches, err in rows:
+        bms, by = bound_ms(flops, nbytes, peak=peak)
+        out.append({
+            "name": f"{fn}[{kname} B{B} L{L} H{H} D{D} "
+                    + ("emit only]" if kname == "K2e" else "int8 scores]"),
+            "route": "cuda",
+            "source": "embeddings_tpu_torch/csrc/attention.cu",
+            "replaces": replaces, "launches": launches, "max_abs_err": err,
+            "ms": cuda_ms(lambda: A.fused_attention(qkv, lens, **opt, **kw)),
+            "plain_ms": cuda_ms(lambda: A.fused_attention_ref(
+                qkv, lens, **opt, **kw), iters=3),
+            "bound_ms": bms, "bound_by": by,
+            "library_ms": (sdpa_ms(qkv, B, L, keymask, H, D) if kname == "K2e"
+                           else None),
+            "shape": [B, L, H, D]})
+    Bx, Lx = I8S_LONG
+    q2, l2 = _attn_qkv(rng, Bx, Lx, dev, ragged=False, Ex=E)
+    k2 = dict(B=Bx, L=Lx, H=H, D=D, int8_scores=True)
+    bms, by = bound_ms(4.0 * Bx * H * Lx * Lx * D,
+                       Bx * Lx * (3 * E * 2 + E * 2) + Bx * 4,
+                       peak=PEAK_INT8_OPS)
+    out.append({
+        "name": f"fused_attention[K2i8 B{Bx} L{Lx} H{H} D{D}]",
+        "route": "cuda", "source": "embeddings_tpu_torch/csrc/attention.cu",
+        "replaces": K2I8_REPLACES, "launches": 0,
+        "max_abs_err": apar["K2i8_L1024"]["max_abs_err"],
+        "ms": cuda_ms(lambda: A.fused_attention(q2, l2, **k2), iters=5),
+        "plain_ms": cuda_ms(lambda: A.fused_attention_ref(q2, l2, **k2),
+                            iters=2, warmup=1),
+        "bound_ms": bms, "bound_by": by, "library_ms": None,
+        "bf16_kernel_ms": cuda_ms(lambda: A.fused_attention(
+            q2, l2, B=Bx, L=Lx, H=H, D=D), iters=5),
+        "shape": [Bx, Lx, H, D]})
+    if "K4" in STATE:
+        pqkv, seg, arrays, _ = STATE["K4"]
+        Bx, Lx = seg.shape
+        kw = dict(B=Bx, L=Lx, H=H, D=D, emit_quantized="only")
+        same = (seg[:, :, None] == seg[:, None, :]) & (seg >= 0)[:, None, :]
+        bms, by = bound_ms(seg_flops(arrays[1]),
+                           Bx * Lx * (3 * E * 2 + E + 4 + 4))
+        out.append({
+            "name": f"fused_attention_segmented[K4e B{Bx} L{Lx} H{H} D{D} "
+                    f"emit only]", "route": "cuda",
+            "source": "embeddings_tpu_torch/csrc/attention.cu",
+            "replaces": K4E_REPLACES,
+            "launches": STATE.get("launches_K4e", 0),
+            "max_abs_err": apar["K4e_only"]["max_abs_err"],
+            "ms": cuda_ms(lambda: A.fused_attention_segmented(pqkv, seg,
+                                                              **kw)),
+            "plain_ms": cuda_ms(lambda: A.fused_attention_segmented_ref(
+                pqkv, seg, **kw), iters=3),
+            "bound_ms": bms, "bound_by": by,
+            "library_ms": sdpa_ms(pqkv, Bx, Lx, same[:, None], H, D),
+            "shape": [Bx, Lx, H, D]})
+    return out
 
 
 def k1_row(rng, dev, name: str, shape, launches: dict, Mx: int = M) -> dict:
@@ -1578,7 +2130,8 @@ def device_profile(name: str, fn, want: dict) -> dict:
             torch.cuda.synchronize()
             prof.step()
     kinds = ("qmm_int8_kernel", "requant_kernel", "quant_rows_kernel",
-             "qmm_kernel", "attn_kernel")
+             "emit_rows_kernel", "qmm_kernel", "attn_i8_kernel",
+             "attn_kernel")
     by_kind: dict = {}
     torch_ops: dict = {}  # the library's own kernels, by name
     spans = []
@@ -1587,9 +2140,8 @@ def device_profile(name: str, fn, want: dict) -> dict:
                 or e.name.startswith("ProfilerStep"):  # the step's range
             continue
         kind = next((k for k in kinds if k in e.name), "torch ops")
-        if kind == "attn_kernel":  # attn_kernel<D, mode>
-            kind += "<" + e.name.split("attn_kernel<")[-1].split(">")[0] \
-                + ">"
+        if kind.startswith("attn_"):  # attn_kernel<D, mode, emit>
+            kind += "<" + e.name.split(kind + "<")[-1].split(">")[0] + ">"
         ms = e.time_range.elapsed_us() / 1e3
         tally(by_kind, kind, ms)
         if kind == "torch ops":
@@ -1757,7 +2309,10 @@ PHASES = {"device": phase_device, "build": phase_build, "k1": phase_k1,
           "k6k7": phase_k6k7, "k6w": phase_k6w, "k6c": phase_k6c,
           "main": phase_main_path,
           "trained": phase_trained, "server": phase_server,
-          "int8_path": phase_int8_path, "packed_path": phase_packed_path,
+          "emit": phase_emit, "attn_emit": phase_attn_emit,
+          "int8_path": phase_int8_path,
+          "int8_chain_path": phase_int8_chain_path,
+          "packed_path": phase_packed_path,
           "long_path": phase_long_path, "mpnet_path": phase_mpnet_path,
           "jina_path": phase_jina_path,
           "modernbert_path": phase_modernbert_path,

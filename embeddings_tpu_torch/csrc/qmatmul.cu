@@ -34,11 +34,28 @@
 // residual add and the normalization never round-trip through device
 // memory; that row buffer leaves room for one shared stage only. Not yet
 // used: wgmma, TMA and persistent scheduling.
+//
+// K1e / K3e, the emission epilogue (replaces embeddings_tpu/ops/
+// qmatmul.py:_emit, reached through qmatmul(emit_quantized=)): the f32
+// epilogue output is also ("both") or instead ("only") written per-row
+// symmetric int8, so = max(max_n |acc|, 1e-12) * (1/127), o8 = rint(acc *
+// (1/so)), with the row scales so [M]. The row absmax needs the whole
+// output row. The LayerNorm epilogue already holds a block's full f32
+// rows in shared memory: it quantizes there, after the normalization, at
+// no extra traffic. The other epilogues tile N by 128 columns and the
+// whole row of an FFN (N = 3,072 or 4,096) fits no block's shared memory
+// at a useful BM, so each tile writes its f32 results to a global staging
+// buffer [M, N] and its per-row partial absmax to part [N/128, M], and a
+// second launch (emit_rows_kernel, one warp a row) reduces the partials
+// and quantizes the staged row. It takes every N % 8 == 0 and costs one
+// f32 write and read of the output beyond the product.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
 #include <stdint.h>
+
+#include "int8_rows.cuh"
 
 using namespace nvcuda;
 
@@ -125,15 +142,24 @@ __device__ __forceinline__ float4 ld4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
 
+__device__ __forceinline__ float warp_max(float m) {
+  for (int o = 16; o > 0; o >>= 1)
+    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+  return m;
+}
+
 // The residual + LayerNorm epilogue over a block's BM full output rows,
 // parked as f32 in shared memory (row stride ldr): y = row (+ bias) + res,
-// LayerNorm over N in f32, one bf16 store. One warp per row. bias may be
-// null (K3 adds it in its rescale).
+// LayerNorm over N in f32, one bf16 store (none with EMIT_ONLY). One warp
+// per row. bias may be null (K3 adds it in its rescale). With emission
+// the normalized row goes back into the buffer, its absmax gives the row
+// scale, and the codes go to o8 [M, N], the scales to os [M].
 template <int BM>
 __device__ __forceinline__ void ln_rows(
     float* rowbuf, int ldr, const float* __restrict__ bias,
     const __nv_bfloat16* __restrict__ res, const float* __restrict__ lns,
-    const float* __restrict__ lnb, __nv_bfloat16* __restrict__ out, int m0,
+    const float* __restrict__ lnb, __nv_bfloat16* __restrict__ out,
+    int8_t* __restrict__ o8, float* __restrict__ os, int emit, int m0,
     int M, int N, float eps) {
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
@@ -163,14 +189,67 @@ __device__ __forceinline__ void ln_rows(
       }
     for (int o = 16; o > 0; o >>= 1) sq += __shfl_xor_sync(0xffffffffu, sq, o);
     const float inv = rsqrtf(sq / N + eps);
+    float amax = 0.f;
     for (int c = lane * 8; c < N; c += 256) {
       float v[8];
 #pragma unroll
-      for (int e = 0; e < 8; ++e)
+      for (int e = 0; e < 8; ++e) {
         v[e] = (row[c + e] - mean) * inv * lns[c + e] + lnb[c + e];
-      *reinterpret_cast<uint4*>(out + (size_t)gr * N + c) = pack8(v);
+        row[c + e] = v[e];
+        amax = fmaxf(amax, fabsf(v[e]));
+      }
+      if (emit != EMIT_ONLY)
+        *reinterpret_cast<uint4*>(out + (size_t)gr * N + c) = pack8(v);
     }
+    if (emit == EMIT_NO) continue;
+    // the row scale, then the codes from the normalized row (each lane
+    // rereads the columns it wrote)
+    const float so = fmaxf(warp_max(amax), 1e-12f) * INV127;
+    const float rs = 1.0f / so;
+    if (lane == 0) os[gr] = so;
+    for (int c = lane * 8; c < N; c += 256)
+      *reinterpret_cast<uint2*>(o8 + (size_t)gr * N + c) = codes8(row + c, rs);
   }
+}
+
+// K1e / K3e's second launch for the tiled epilogues: one warp per row
+// reduces the row's ntiles partial absmaxes (part [ntiles, M]), writes the
+// scale and quantizes the staged f32 row (stg [M, N]) into o8.
+__global__ void __launch_bounds__(256) emit_rows_kernel(
+    const float* __restrict__ stg, const float* __restrict__ part,
+    int ntiles, int8_t* __restrict__ o8, float* __restrict__ os, int M,
+    int N) {
+  const int row = blockIdx.x * 8 + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (row >= M) return;
+  float m = 0.f;
+  for (int t = lane; t < ntiles; t += 32)
+    m = fmaxf(m, part[(size_t)t * M + row]);
+  const float so = fmaxf(warp_max(m), 1e-12f) * INV127;
+  const float rs = 1.0f / so;
+  if (lane == 0) os[row] = so;
+  const float* sr = stg + (size_t)row * N;
+  for (int c = lane * 8; c < N; c += 256) {
+    const float4 a = *reinterpret_cast<const float4*>(sr + c);
+    const float4 b = *reinterpret_cast<const float4*>(sr + c + 4);
+    const float v[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+    *reinterpret_cast<uint2*>(o8 + (size_t)row * N + c) = codes8(v, rs);
+  }
+}
+
+// a tiled epilogue's emission of one f32 value pair / 8-vector: stage it
+// for emit_rows_kernel and fold its absmax into the block's row maxima
+// (non-negative floats order as their bit patterns)
+__device__ __forceinline__ void stage_emit(float* __restrict__ stg,
+                                           unsigned* rmax, int lr,
+                                           size_t off, const float* v,
+                                           int n) {
+  float m = 0.f;
+  for (int e = 0; e < n; ++e) {
+    stg[off + e] = v[e];
+    m = fmaxf(m, fabsf(v[e]));
+  }
+  atomicMax(rmax + lr, __float_as_uint(m));
 }
 
 // What one thread holds of one K-chunk of the weight tile before it is
@@ -285,7 +364,9 @@ __global__ void __launch_bounds__(THREADS, LN ? 1 : 2) qmm_kernel(
     const float* __restrict__ scales, const float* __restrict__ mins,
     const float* __restrict__ bias, const __nv_bfloat16* __restrict__ res,
     const float* __restrict__ lns, const float* __restrict__ lnb,
-    __nv_bfloat16* __restrict__ out, int M, int N, int K, int epi,
+    __nv_bfloat16* __restrict__ out, int8_t* __restrict__ o8,
+    float* __restrict__ os, float* __restrict__ stg,
+    float* __restrict__ part, int M, int N, int K, int epi, int emit,
     float eps) {
   constexpr int WARPS_M = BM >= 64 ? 4 : 2;
   constexpr int WARPS_N = 8 / WARPS_M;
@@ -300,6 +381,7 @@ __global__ void __launch_bounds__(THREADS, LN ? 1 : 2) qmm_kernel(
   __nv_bfloat16* stages = reinterpret_cast<__nv_bfloat16*>(smem);
   float* rowbuf = reinterpret_cast<float*>(stages + STAGES * STAGE);  // LN
   __shared__ float nf4[16];
+  __shared__ unsigned rmax[BM];  // the tile's row absmax bits (emission)
 
   const int tid = threadIdx.x;
   const int warp = tid / 32;
@@ -308,6 +390,7 @@ __global__ void __launch_bounds__(THREADS, LN ? 1 : 2) qmm_kernel(
   const int wn = warp % WARPS_N;
   const int m0 = blockIdx.x * BM;
   if (tid < 16) nf4[tid] = bf16r(kNF4[tid]);
+  for (int i = tid; i < BM; i += THREADS) rmax[i] = 0u;
 
   const int n_begin = LN ? 0 : blockIdx.y * BN;
   const int ntiles = LN ? (N + BN - 1) / BN : 1;
@@ -403,7 +486,8 @@ __global__ void __launch_bounds__(THREADS, LN ? 1 : 2) qmm_kernel(
       for (int j = 0; j < FN; ++j) {
         wmma::store_matrix_sync(stage, acc[i][j], SLD, wmma::mem_row_major);
         __syncwarp();
-        const int gr = m0 + wm * WTM + i * 16 + r;
+        const int lr = wm * WTM + i * 16 + r;
+        const int gr = m0 + lr;
         const int gc = n_begin + wn * WTN + j * 16 + c;
         if (gr < M && gc < N) {
           float v[8];
@@ -413,16 +497,25 @@ __global__ void __launch_bounds__(THREADS, LN ? 1 : 2) qmm_kernel(
             if (epi != EPI_NONE) v[e] += bias[gc + e];
             v[e] = activate(v[e], epi);
           }
-          *reinterpret_cast<uint4*>(out + (size_t)gr * N + gc) = pack8(v);
+          if (emit != EMIT_ONLY)
+            *reinterpret_cast<uint4*>(out + (size_t)gr * N + gc) = pack8(v);
+          if (emit != EMIT_NO)
+            stage_emit(stg, rmax, lr, (size_t)gr * N + gc, v, 8);
         }
         __syncwarp();
       }
+    }
+    if (emit != EMIT_NO) {
+      __syncthreads();
+      for (int i = tid; i < BM && m0 + i < M; i += THREADS)
+        part[(size_t)blockIdx.y * M + m0 + i] = __uint_as_float(rmax[i]);
     }
     return;
   }
 
   __syncthreads();
-  ln_rows<BM>(rowbuf, ldr, bias, res, lns, lnb, out, m0, M, N, eps);
+  ln_rows<BM>(rowbuf, ldr, bias, res, lns, lnb, out, o8, os, emit, m0, M, N,
+              eps);
 }
 
 template <int KIND, bool PACKED, int BM, bool LN, int STAGES>
@@ -432,11 +525,30 @@ size_t smem_bytes(int N) {
   return bytes;
 }
 
+// the emission outputs and scratch of one call (all null without one)
+struct EmitArgs {
+  void* o8;     // int8 [M, N]
+  void* os;     // f32 [M]
+  void* stg;    // f32 [M, N], tiled epilogues only
+  void* part;   // f32 [ceil(N/128), M], tiled epilogues only
+  int emit;
+};
+
+// the tiled epilogues' second launch (see emit_rows_kernel)
+cudaError_t emit_rows(const EmitArgs& em, int M, int N, cudaStream_t stream) {
+  emit_rows_kernel<<<(M + 7) / 8, 256, 0, stream>>>(
+      static_cast<const float*>(em.stg), static_cast<const float*>(em.part),
+      (N + BN - 1) / BN, static_cast<int8_t*>(em.o8),
+      static_cast<float*>(em.os), M, N);
+  return cudaGetLastError();
+}
+
 template <int KIND, bool PACKED, int BM, bool LN, int STAGES>
 cudaError_t launch(const void* x, const void* codes, const void* scales,
                    const void* mins, const void* bias, const void* res,
-                   const void* lns, const void* lnb, void* out, int M, int N,
-                   int K, int epi, float eps, cudaStream_t stream) {
+                   const void* lns, const void* lnb, void* out,
+                   const EmitArgs& em, int M, int N, int K, int epi,
+                   float eps, cudaStream_t stream) {
   auto kern = qmm_kernel<KIND, PACKED, BM, LN, STAGES>;
   const size_t smem = smem_bytes<KIND, PACKED, BM, LN, STAGES>(N);
   cudaError_t err = cudaFuncSetAttribute(
@@ -448,18 +560,23 @@ cudaError_t launch(const void* x, const void* codes, const void* scales,
       static_cast<const float*>(scales), static_cast<const float*>(mins),
       static_cast<const float*>(bias), static_cast<const __nv_bfloat16*>(res),
       static_cast<const float*>(lns), static_cast<const float*>(lnb),
-      static_cast<__nv_bfloat16*>(out), M, N, K, epi, eps);
-  return cudaGetLastError();
+      static_cast<__nv_bfloat16*>(out), static_cast<int8_t*>(em.o8),
+      static_cast<float*>(em.os), static_cast<float*>(em.stg),
+      static_cast<float*>(em.part), M, N, K, epi, em.emit, eps);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || LN || em.emit == EMIT_NO) return err;
+  return emit_rows(em, M, N, stream);
 }
 
 template <int KIND, bool PACKED>
 cudaError_t dispatch_tile(const void* x, const void* codes,
                           const void* scales, const void* mins,
                           const void* bias, const void* res, const void* lns,
-                          const void* lnb, void* out, int M, int N, int K,
-                          int epi, float eps, cudaStream_t stream) {
-#define QMM_ARGS x, codes, scales, mins, bias, res, lns, lnb, out, M, N, K, \
-                 epi, eps, stream
+                          const void* lnb, void* out, const EmitArgs& em,
+                          int M, int N, int K, int epi, float eps,
+                          cudaStream_t stream) {
+#define QMM_ARGS x, codes, scales, mins, bias, res, lns, lnb, out, em, M, N, \
+                 K, epi, eps, stream
   if (epi != EPI_RES_LN)
     return launch<KIND, PACKED, 128, false, 2>(QMM_ARGS);
   if (smem_bytes<KIND, PACKED, 64, true, 1>(N) <= MAX_SMEM)
@@ -502,10 +619,14 @@ cudaError_t dispatch_tile(const void* x, const void* codes,
 // 128 x 128 x 64 tiles, with the rescale and K1's epilogues (residual +
 // LayerNorm through the same full-row shared buffer). Not yet used:
 // wgmma, TMA, and a w8 cached across calls.
+//
+// K3x, pre-quantized input (replaces _qmm_int8's sx_ref path): the caller
+// hands q [M, K] int8 and sx [M] f32 (an emission of the previous layer,
+// or quantize_act), launch (2) is skipped and (3) reads them as they are:
+// the x read is half the bf16 bytes and no row absmax is recomputed.
 // ---------------------------------------------------------------------------
 
-constexpr float INV127 = (float)(1.0 / 127.0);
-constexpr int I8_BK = 64;            // K bytes per chunk
+constexpr int I8_BK = 64;           // K bytes per chunk
 constexpr int I8_LD = I8_BK + 16;    // smem row stride (bytes): no conflicts
 
 // one dequantized weight value w[k][n], f32, TPU rounding (no contraction)
@@ -646,7 +767,9 @@ __global__ void __launch_bounds__(THREADS, LN ? 1 : 2) qmm_int8_kernel(
     const int8_t* __restrict__ w8t, const float* __restrict__ cs,
     const float* __restrict__ bias, const __nv_bfloat16* __restrict__ res,
     const float* __restrict__ lns, const float* __restrict__ lnb,
-    __nv_bfloat16* __restrict__ out, int M, int N, int K, int epi,
+    __nv_bfloat16* __restrict__ out, int8_t* __restrict__ o8,
+    float* __restrict__ os, float* __restrict__ stg,
+    float* __restrict__ part, int M, int N, int K, int epi, int emit,
     float eps) {
   constexpr int WARPS_M = BM >= 64 ? 4 : 2;
   constexpr int WARPS_N = 8 / WARPS_M;
@@ -659,6 +782,8 @@ __global__ void __launch_bounds__(THREADS, LN ? 1 : 2) qmm_int8_kernel(
 
   extern __shared__ __align__(128) unsigned char smem[];
   float* rowbuf = reinterpret_cast<float*>(smem + 2 * STAGE);  // LN only
+  __shared__ unsigned rmax[BM];  // the tile's row absmax bits (emission)
+  for (int i = threadIdx.x; i < BM; i += THREADS) rmax[i] = 0u;
 
   const int tid = threadIdx.x;
   const int warp = tid / 32;
@@ -766,23 +891,32 @@ __global__ void __launch_bounds__(THREADS, LN ? 1 : 2) qmm_int8_kernel(
         if (cc >= N) continue;  // N % 8 == 0: the pair is whole or absent
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
-          const int gr = m0 + wm * WTM + i * 16 + g + h * 8;
+          const int lr = wm * WTM + i * 16 + g + h * 8;
+          const int gr = m0 + lr;
           if (gr >= M) continue;
           const float s = sx[gr];
-          const float v0 = activate(
-              rescale(acc[i][j][2 * h], cs[cc], s, bias[cc], add_bias), epi);
-          const float v1 = activate(
-              rescale(acc[i][j][2 * h + 1], cs[cc + 1], s, bias[cc + 1],
-                      add_bias),
-              epi);
-          *reinterpret_cast<uint32_t*>(out + (size_t)gr * N + cc) =
-              pack2(v0, v1);
+          const float v[2] = {
+              activate(rescale(acc[i][j][2 * h], cs[cc], s, bias[cc],
+                               add_bias), epi),
+              activate(rescale(acc[i][j][2 * h + 1], cs[cc + 1], s,
+                               bias[cc + 1], add_bias), epi)};
+          if (emit != EMIT_ONLY)
+            *reinterpret_cast<uint32_t*>(out + (size_t)gr * N + cc) =
+                pack2(v[0], v[1]);
+          if (emit != EMIT_NO)
+            stage_emit(stg, rmax, lr, (size_t)gr * N + cc, v, 2);
         }
       }
+    if (emit != EMIT_NO) {
+      __syncthreads();
+      for (int i = threadIdx.x; i < BM && m0 + i < M; i += THREADS)
+        part[(size_t)blockIdx.y * M + m0 + i] = __uint_as_float(rmax[i]);
+    }
     return;
   }
   __syncthreads();
-  ln_rows<BM>(rowbuf, ldr, nullptr, res, lns, lnb, out, m0, M, N, eps);
+  ln_rows<BM>(rowbuf, ldr, nullptr, res, lns, lnb, out, o8, os, emit, m0, M,
+              N, eps);
 }
 
 template <int BM, bool LN>
@@ -795,9 +929,9 @@ size_t int8_smem_bytes(int N) {
 template <int BM, bool LN>
 cudaError_t launch_int8(const int8_t* q, const float* sx, const int8_t* w8t,
                         const float* cs, const void* bias, const void* res,
-                        const void* lns, const void* lnb, void* out, int M,
-                        int N, int K, int epi, float eps,
-                        cudaStream_t stream) {
+                        const void* lns, const void* lnb, void* out,
+                        const EmitArgs& em, int M, int N, int K, int epi,
+                        float eps, cudaStream_t stream) {
   auto kern = qmm_int8_kernel<BM, LN>;
   const size_t smem = int8_smem_bytes<BM, LN>(N);
   cudaError_t err = cudaFuncSetAttribute(
@@ -807,9 +941,13 @@ cudaError_t launch_int8(const int8_t* q, const float* sx, const int8_t* w8t,
   kern<<<grid, THREADS, smem, stream>>>(
       q, sx, w8t, cs, static_cast<const float*>(bias),
       static_cast<const __nv_bfloat16*>(res), static_cast<const float*>(lns),
-      static_cast<const float*>(lnb), static_cast<__nv_bfloat16*>(out), M, N,
-      K, epi, eps);
-  return cudaGetLastError();
+      static_cast<const float*>(lnb), static_cast<__nv_bfloat16*>(out),
+      static_cast<int8_t*>(em.o8), static_cast<float*>(em.os),
+      static_cast<float*>(em.stg), static_cast<float*>(em.part), M, N, K,
+      epi, em.emit, eps);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || LN || em.emit == EMIT_NO) return err;
+  return emit_rows(em, M, N, stream);
 }
 
 template <int KIND, bool PACKED>
@@ -829,17 +967,22 @@ extern "C" {
 // All pointers are device pointers; mins, bias, res, lns, lnb may be null
 // where the kind / epilogue does not read them. Shapes: x [M, K] bf16,
 // codes [K, N] int8 or [K/2, N] uint8 (packed), scales/mins [K/32, N] f32,
-// bias/lns/lnb [N] f32, res/out [M, N] bf16. Requires N % 8 == 0,
-// K % 32 == 0 (K % 64 == 0 when packed), 16-byte aligned pointers.
-// Returns a cudaError_t.
+// bias/lns/lnb [N] f32, res/out [M, N] bf16. emit: 0 none, 1 both (out
+// and o8 [M, N] int8 + os [M] f32), 2 only (o8 and os; out may be null);
+// with emission and an epilogue other than residual + LayerNorm, stg f32
+// [M, N] and part f32 [ceil(N/128), M] are scratch (else may be null).
+// Requires N % 8 == 0, K % 32 == 0 (K % 64 == 0 when packed), 16-byte
+// aligned pointers. Returns a cudaError_t.
 int qmm_launch(const void* x, const void* codes, const void* scales,
                const void* mins, const void* bias, const void* res,
-               const void* lns, const void* lnb, void* out, int M, int N,
-               int K, int kind, int packed, int epi, float eps,
+               const void* lns, const void* lnb, void* out, void* o8,
+               void* os, void* stg, void* part, int M, int N, int K,
+               int kind, int packed, int epi, int emit, float eps,
                void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define QMM_ARGS x, codes, scales, mins, bias, res, lns, lnb, out, M, N, K, \
-                 epi, eps, st
+  const EmitArgs em{o8, os, stg, part, emit};
+#define QMM_ARGS x, codes, scales, mins, bias, res, lns, lnb, out, em, M, N, \
+                 K, epi, eps, st
   switch (kind * 2 + (packed ? 1 : 0)) {
     case Q4_0 * 2: return dispatch_tile<Q4_0, false>(QMM_ARGS);
     case Q4_0 * 2 + 1: return dispatch_tile<Q4_0, true>(QMM_ARGS);
@@ -857,14 +1000,19 @@ int qmm_launch(const void* x, const void* codes, const void* scales,
 // into w8t [N, K] int8 + cs [N] f32, row quantization into q [M, K] int8 +
 // sx [M] f32, then the int8 product with the rescale and the epilogue).
 // Pointers and shapes as qmm_launch; w8t, cs, q, sx are device scratch of
-// those shapes. Requires N % 8 == 0, K % 32 == 0 (K % 64 == 0 packed).
-// Returns a cudaError_t.
+// those shapes. x_int8 (K3x): q and sx are the caller's pre-quantized rows
+// and row scales, x is not read and the row quantization is skipped.
+// emit, o8, os, stg, part as qmm_launch (K3e). Requires N % 8 == 0,
+// K % 32 == 0 (K % 64 == 0 packed). Returns a cudaError_t.
 int qmm_int8_launch(const void* x, const void* codes, const void* scales,
                     const void* mins, const void* bias, const void* res,
                     const void* lns, const void* lnb, void* w8t, void* cs,
-                    void* q, void* sx, void* out, int M, int N, int K,
-                    int kind, int packed, int epi, float eps, void* stream) {
+                    void* q, void* sx, void* out, void* o8, void* os,
+                    void* stg, void* part, int M, int N, int K, int kind,
+                    int packed, int epi, int emit, int x_int8, float eps,
+                    void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const EmitArgs em{o8, os, stg, part, emit};
   int8_t* w8 = static_cast<int8_t*>(w8t);
   float* c = static_cast<float*>(cs);
   cudaError_t err;
@@ -883,11 +1031,14 @@ int qmm_int8_launch(const void* x, const void* codes, const void* scales,
   if (err != cudaSuccess) return err;
   int8_t* q8 = static_cast<int8_t*>(q);
   float* s = static_cast<float*>(sx);
-  quant_rows_kernel<<<(M + 7) / 8, 256, 0, st>>>(
-      static_cast<const __nv_bfloat16*>(x), q8, s, M, K);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-#define I8_ARGS q8, s, w8, c, bias, res, lns, lnb, out, M, N, K, epi, eps, st
+  if (!x_int8) {
+    quant_rows_kernel<<<(M + 7) / 8, 256, 0, st>>>(
+        static_cast<const __nv_bfloat16*>(x), q8, s, M, K);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+#define I8_ARGS q8, s, w8, c, bias, res, lns, lnb, out, em, M, N, K, epi, \
+                eps, st
   if (epi != EPI_RES_LN) return launch_int8<128, false>(I8_ARGS);
   if (int8_smem_bytes<64, true>(N) <= MAX_SMEM)
     return launch_int8<64, true>(I8_ARGS);

@@ -29,9 +29,18 @@ False runs the plain f32 reference math (dequantize + matmul, the int8
 emulation with ``int8``, exact-erf GELU, additive-mask einsum attention
 with the family bias and the causal triangle folded into the mask), the
 JAX package's XLA fallback. ``int8`` is
-``EngineConfig.int8_compute``, passed down explicitly; the chained-int8
-links (emission epilogues) are not ported, which is the JAX package's
-default of no links.
+``EngineConfig.int8_compute``, passed down explicitly.
+
+Chained int8 (``_int8_chain_ok``: int8 with the kernels, a post-LN
+encoder with fused qkv, a plain MLP and four quantized weights): the
+link set of ``ops.linear.chain_links`` makes producers emit int8 rows
+that the next matmul reads as they are — "attn" the whole-row (K2e) or
+segmented (K4e) attention, "ln" the two residual-LN matmuls (the layer
+then carries (x, xq)), "ffn" the FFN-up matmul. The int8-scores switch
+(``ops.attention.int8_scores_mode``) puts K2 on its int8 branch (K2i8).
+``encode_tokens`` / ``encode_packed`` read both switches once at entry
+and pass them down as arguments; by default (no links, scores "off") the
+forward is the unchained one.
 """
 
 from __future__ import annotations
@@ -43,7 +52,8 @@ import torch
 
 from ..config import BertConfig
 from ..ops import attention as attn_ops
-from ..ops.linear import linear, linear_residual_ln
+from ..ops.linear import ActQ, _reshape_actq, active_chain_links, linear, \
+    linear_residual_ln, quantize_act
 from ..ops.quant import QuantizedTensor, gather_rows
 from ..ops.rotary import apply_rotary_qkv, rope_tables, rope_tables_for
 from .params import check_supported, layer as layer_params
@@ -203,8 +213,15 @@ def attention_route_name(L: int, E: int, *, segmented: bool = False,
 
 def _fused_attn_dispatch(qkv2d, lengths, segments, B, L, H, D,
                          attn_window=0, ranges=None, bias=None, alibi=None,
-                         local_window=None, causal=False):
+                         local_window=None, causal=False, emit_int8=False,
+                         int8_scores=False):
+    """The route's kernel on qkv2d. ``emit_int8``: the whole-row (K2) and
+    segmented (K4) routes return the context as an ActQ, quantized in the
+    kernel (where ``emit_supported``); other routes return it in the
+    compute dtype, and the o-projection quantizes its rows itself.
+    ``int8_scores``: K2 runs its int8 branch (the whole-row route only)."""
     kw = dict(B=B, L=L, H=H, D=D)
+    emit = "only" if emit_int8 and attn_ops.emit_supported(H) else "no"
     if local_window is not None:
         # ModernBERT's alternating layers, picked per layer here where the
         # JAX package runs a lax.cond: a local layer takes the banded
@@ -226,14 +243,18 @@ def _fused_attn_dispatch(qkv2d, lengths, segments, B, L, H, D,
         return attn_ops.fused_attention_segmented_blockskip(
             qkv2d, segments, window=attn_window, ranges=ranges, **kw)
     if route == "segmented":
-        return attn_ops.fused_attention_segmented(qkv2d, segments, **kw)
+        out = attn_ops.fused_attention_segmented(qkv2d, segments,
+                                                 emit_quantized=emit, **kw)
+        return ActQ(*out) if emit == "only" else out
     if route in ("stream_alibi", "stream_causal", "stream"):
         # the streaming kernel's mask modes: in-kernel ALiBi, causal (the
         # decoder embedders: K6c), or plain
         return attn_ops.fused_attention_stream(
             qkv2d, lengths, BK=attn_ops.pick_bk(L), alibi_slopes=alibi,
             causal=causal, **kw)
-    return attn_ops.fused_attention(qkv2d, lengths, **kw)
+    out = attn_ops.fused_attention(qkv2d, lengths, emit_quantized=emit,
+                                   int8_scores=int8_scores, **kw)
+    return ActQ(*out) if emit == "only" else out
 
 
 def fused_attention_ok(L: int, H: int, D: int, use_kernels: bool,
@@ -266,7 +287,9 @@ def attention_context(layer: Params, config: BertConfig, x: torch.Tensor,
                       local_window: tuple[bool, int] | None = None,
                       causal: bool = False,
                       use_kernels: bool = True,
-                      int8: bool = False) -> torch.Tensor:
+                      int8: bool = False, xq: ActQ | None = None,
+                      emit_int8: bool = False,
+                      int8_scores: bool = False) -> torch.Tensor | ActQ:
     """Masked multi-head self-attention up to (not including) the output
     projection: [B, L, E] -> [B, L, E] context. With prefix ``lengths``
     (or packed ``segments``), ``use_kernels`` and a shape the fused
@@ -281,13 +304,18 @@ def attention_context(layer: Params, config: BertConfig, x: torch.Tensor,
     (cos, sin) rotates q and k before either path. With grouped-query
     attention (k/v narrower than q, never fused) each K/V head is
     repeated over its group of query heads before the concat, so the
-    kernels read the [B*L, 3E] layout they always do."""
+    kernels read the [B*L, 3E] layout they always do. Chained int8: ``xq``
+    (x's int8 rows) feeds the fused qkv projection in place of x, and
+    ``emit_int8`` returns the context as an ActQ where the route's kernel
+    emits (``_fused_attn_dispatch``); ``int8_scores`` runs K2's int8
+    branch."""
     B, L, _ = x.shape
     D = config.head_dim
     a = layer["attn"]
     mode = dict(use_kernels=use_kernels, int8=int8)
     if "qkv" in a:
-        qkv = linear(x, a["qkv"]["w"], a["qkv"]["b"], **mode)  # [B, L, 3E]
+        qkv = linear(xq if xq is not None else x, a["qkv"]["w"],
+                     a["qkv"]["b"], **mode)                 # [B, L, 3E]
     else:
         q, k, v = (linear(x, a[n]["w"], a[n]["b"], **mode)
                    for n in ("q", "k", "v"))
@@ -306,7 +334,10 @@ def attention_context(layer: Params, config: BertConfig, x: torch.Tensor,
                           local_window, causal):
         ctx = _fused_attn_dispatch(qkv.reshape(B * L, 3 * El), lengths,
                                    segments, B, L, H, D, attn_window, ranges,
-                                   bias, alibi, local_window, causal)
+                                   bias, alibi, local_window, causal,
+                                   emit_int8, int8_scores)
+        if isinstance(ctx, ActQ):
+            return _reshape_actq(ctx, B, L)
         return ctx.reshape(B, L, El)
     q = qkv[..., :El].reshape(B, L, H, D)
     k = qkv[..., El:2 * El].reshape(B, L, H, D)
@@ -318,18 +349,23 @@ def attention_context(layer: Params, config: BertConfig, x: torch.Tensor,
     return ctx.to(x.dtype).reshape(B, L, El)
 
 
-def _ffn_hidden(m: Params, x: torch.Tensor, config: BertConfig, *,
-                use_kernels: bool = True, int8: bool = False) -> torch.Tensor:
+def _ffn_hidden(m: Params, x: torch.Tensor | ActQ, config: BertConfig, *,
+                use_kernels: bool = True, int8: bool = False,
+                emit: str = "no"):
     """act(up(x)), or act(gate(x)) * up(x) for a gated MLP (jina's
     GeGLU): the activation fused into the up (gate) projection's kernel
-    epilogue, the product a torch multiply in the compute dtype."""
+    epilogue, the product a torch multiply in the compute dtype. x may be
+    an ActQ; emit="only" returns the hidden as an ActQ quantized in the up
+    projection's epilogue (plain MLPs only)."""
     act = {"gelu_tanh": "gelu_tanh", "silu": "silu", "relu": "relu"}.get(
         config.hidden_act, "gelu")
     mode = dict(use_kernels=use_kernels, int8=int8)
     if "gate" in m:
+        if emit != "no":
+            raise ValueError("a gated MLP does not chain int8 emission")
         return (linear(x, m["gate"]["w"], m["gate"]["b"], act=act, **mode)
                 * linear(x, m["up"]["w"], m["up"]["b"], **mode))
-    return linear(x, m["up"]["w"], m["up"]["b"], act=act, **mode)
+    return linear(x, m["up"]["w"], m["up"]["b"], act=act, emit=emit, **mode)
 
 
 def encoder_layer(layer: Params, config: BertConfig, x: torch.Tensor,
@@ -341,24 +377,77 @@ def encoder_layer(layer: Params, config: BertConfig, x: torch.Tensor,
                   alibi: torch.Tensor | None = None,
                   rope: tuple[torch.Tensor, torch.Tensor] | None = None,
                   use_kernels: bool = True,
-                  int8: bool = False) -> torch.Tensor:
+                  int8: bool = False, xq: ActQ | None = None,
+                  links: frozenset = frozenset(),
+                  int8_scores: bool = False):
     """One post-LN encoder block. The two residual + LayerNorm steps run
     in the o-proj and FFN-down matmuls' epilogue (``linear_residual_ln``).
-    ``int8``: every quantized matmul in the int8 mode; each consumer
-    quantizes its own input rows (no chained links). ``rope``: the rotary
-    families' (cos, sin) tables (nomic-bert, RoFormer)."""
+    ``int8``: every quantized matmul in the int8 mode; with no ``links``
+    each consumer quantizes its own input rows. ``links`` (chained int8,
+    only where ``_int8_chain_ok``): "attn" — the attention emits the
+    context int8-only for the o-projection; "ln" — both residual-LN
+    matmuls also emit their output, ``xq`` carries x's int8 rows into the
+    qkv and up projections, and the block returns (x, xq); "ffn" — FFN-up
+    emits int8-only for FFN-down. ``rope``: the rotary families' (cos,
+    sin) tables (nomic-bert, RoFormer)."""
     a, m = layer["attn"], layer["mlp"]
     eps = config.layer_norm_eps
     mode = dict(use_kernels=use_kernels, int8=int8)
+    ln_emit = "both" if "ln" in links else "no"
     ctx = attention_context(layer, config, x, mask_bias, lengths,
                             segments=segments, attn_window=attn_window,
                             ranges=ranges, bias=bias, alibi=alibi, rope=rope,
-                            **mode)
-    x = linear_residual_ln(ctx, a["o"]["w"], a["o"]["b"], x,
-                           a["ln"]["scale"], a["ln"]["bias"], eps, **mode)
-    h = _ffn_hidden(m, x, config, **mode)
+                            xq=xq, emit_int8="attn" in links,
+                            int8_scores=int8_scores, **mode)
+    out = linear_residual_ln(ctx, a["o"]["w"], a["o"]["b"], x,
+                             a["ln"]["scale"], a["ln"]["bias"], eps,
+                             emit=ln_emit, **mode)
+    x, xq = out if ln_emit == "both" else (out, None)
+    h = _ffn_hidden(m, xq if xq is not None else x, config,
+                    emit="only" if "ffn" in links else "no", **mode)
     return linear_residual_ln(h, m["down"]["w"], m["down"]["b"], x,
-                              m["ln"]["scale"], m["ln"]["bias"], eps, **mode)
+                              m["ln"]["scale"], m["ln"]["bias"], eps,
+                              emit=ln_emit, **mode)
+
+
+def _int8_chain_ok(params: Params, config: BertConfig, *,
+                   use_kernels: bool, int8: bool) -> bool:
+    """The JAX package's gate for the chained int8 path: the int8 mode
+    with the kernels, a post-LN encoder with fused qkv and a plain MLP
+    (no gate, no experts), and all four matmul weights quantized. Shapes
+    are not checked here: the linear ops dequantize an ActQ where int8
+    does not engage."""
+    if not (int8 and use_kernels) or config.norm_style == "pre":
+        return False
+    if not isinstance(params.get("layers"), dict) \
+            or config.num_hidden_layers < 1:
+        return False
+    lay = layer_params(params, 0)
+    a, m = lay.get("attn", {}), lay.get("mlp", {})
+    if "qkv" not in a or "gate" in m or "router" in m:
+        return False
+    try:
+        ws = (a["qkv"]["w"], a["o"]["w"], m["up"]["w"], m["down"]["w"])
+    except KeyError:
+        return False
+    return all(isinstance(w, QuantizedTensor) for w in ws)
+
+
+def _post_ln_stack(params: Params, config: BertConfig, x: torch.Tensor,
+                   mask_bias, lengths, links: frozenset, **kw) -> torch.Tensor:
+    """The post-LN layers; with the "ln" link each layer reads and
+    returns (x, xq), the first xq ``quantize_act`` of the embedding
+    output."""
+    if "ln" not in links:
+        for i in range(config.num_hidden_layers):
+            x = encoder_layer(layer_params(params, i), config, x, mask_bias,
+                              lengths, links=links, **kw)
+        return x
+    xq = quantize_act(x)
+    for i in range(config.num_hidden_layers):
+        x, xq = encoder_layer(layer_params(params, i), config, x, mask_bias,
+                              lengths, xq=xq, links=links, **kw)
+    return x
 
 
 def _rope(positions: torch.Tensor, dim: int, base: float):
@@ -417,7 +506,8 @@ def encoder_layer_pre(layer: Params, config: BertConfig, x: torch.Tensor,
                       rope: tuple[torch.Tensor, torch.Tensor] | None = None,
                       local_window: tuple[bool, int] | None = None,
                       use_kernels: bool = True,
-                      int8: bool = False) -> torch.Tensor:
+                      int8: bool = False,
+                      int8_scores: bool = False) -> torch.Tensor:
     """One pre-norm block (ModernBERT, Qwen2): x += Wo attn(norm(x));
     x += Wdown glu(norm(x)), the norms RMSNorm for Qwen2. ``ln_apply``
     False skips ModernBERT's layer-0 identity attention norm;
@@ -433,7 +523,7 @@ def encoder_layer_pre(layer: Params, config: BertConfig, x: torch.Tensor,
     xn = _norm(config, x, a["ln"]) if ln_apply else x
     ctx = attention_context(layer, config, xn, mask_bias, lengths, rope=rope,
                             local_window=local_window, causal=config.causal,
-                            **mode)
+                            int8_scores=int8_scores, **mode)
     x = x + linear(ctx, a["o"]["w"], a["o"]["b"], **mode)
     hn = _norm(config, x, m["ln"])
     return x + linear(_ffn_hidden(m, hn, config, **mode), m["down"]["w"],
@@ -442,7 +532,8 @@ def encoder_layer_pre(layer: Params, config: BertConfig, x: torch.Tensor,
 
 def _prenorm_stack(params: Params, config: BertConfig, x: torch.Tensor,
                    mask_bias: torch.Tensor, lengths, rope, positions,
-                   mask_value: float, **mode) -> torch.Tensor:
+                   mask_value: float, int8_scores: bool = False,
+                   **mode) -> torch.Tensor:
     """The pre-norm layers: with prefix ``lengths`` and a shape the
     kernels take, each local layer runs K6w and each global one the
     global route (the JAX package's ``window_kernel`` gate); otherwise
@@ -466,7 +557,7 @@ def _prenorm_stack(params: Params, config: BertConfig, x: torch.Tensor,
             mask_bias if is_global else mb_local, lengths,
             ln_apply=ln_apply, rope=rope if is_global else rope_l,
             local_window=(is_global, window) if window_kernel else None,
-            **mode)
+            int8_scores=int8_scores, **mode)
     return x
 
 
@@ -494,7 +585,8 @@ def encode_tokens(params: Params, config: BertConfig,
     operand while it takes the shape, as K6's in-kernel ALiBi past that,
     else folded into the einsum path's mask. A causal config (Qwen2)
     attends j <= i: in K6c, or with the triangle folded into the einsum
-    path's mask.
+    path's mask. The chained-int8 links and the int8-scores mode are read
+    here, once (see the module docstring).
     Returns [B, E'] float32 (or the [B, L, E] hidden states)."""
     check_supported(config)
     pooling = pooling or config.pooling
@@ -539,14 +631,14 @@ def encode_tokens(params: Params, config: BertConfig,
         # position-only: computed once, shared by every layer
         rope = _rope(positions, config.head_dim, config.rotary_base)
     mode = dict(use_kernels=use_kernels, int8=int8)
+    i8s = attn_ops.use_int8_scores(int8)
     if config.norm_style == "pre":
         x = _prenorm_stack(params, config, x, mask_bias, lengths, rope,
-                           positions, mask_value, **mode)
+                           positions, mask_value, int8_scores=i8s, **mode)
     else:
-        for i in range(config.num_hidden_layers):
-            x = encoder_layer(layer_params(params, i), config, x, mask_bias,
-                              lengths, bias=bias, alibi=alibi, rope=rope,
-                              **mode)
+        x = _post_ln_stack(params, config, x, mask_bias, lengths,
+                           _links(params, config, mode), bias=bias,
+                           alibi=alibi, rope=rope, int8_scores=i8s, **mode)
     if "final_ln" in params:  # ModernBERT's and Qwen2's final norm
         x = _norm(config, x, params["final_ln"])
     if return_hidden:
@@ -631,14 +723,22 @@ def encode_packed(params: Params, config: BertConfig,
         x = _prenorm_stack(params, config, x, mask_bias, None, rope,
                            position_ids, mask_value, **mode)
     else:
-        for i in range(config.num_hidden_layers):
-            x = encoder_layer(layer_params(params, i), config, x, mask_bias,
-                              segments=segments, attn_window=attn_window,
-                              ranges=ranges, rope=rope, **mode)
+        x = _post_ln_stack(params, config, x, mask_bias, None,
+                           _links(params, config, mode), segments=segments,
+                           attn_window=attn_window, ranges=ranges, rope=rope,
+                           **mode)
     if "final_ln" in params:
         x = _norm(config, x, params["final_ln"])
     pooled = torch.einsum("bsl,ble->bse", pool_weights.float(), x.float())
     return _finish(params, config, pooled, normalize)
+
+
+def _links(params: Params, config: BertConfig, mode: dict) -> frozenset:
+    """The chained-int8 links this forward runs: the switch's set where
+    ``_int8_chain_ok``, else none."""
+    if not _int8_chain_ok(params, config, **mode):
+        return frozenset()
+    return active_chain_links()
 
 
 def _causal_bias(L: int, mask_value: float, device) -> torch.Tensor:

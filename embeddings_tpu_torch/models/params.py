@@ -354,10 +354,34 @@ def _read_sd(d: Path) -> dict[str, np.ndarray]:
     raise FileNotFoundError(f"no checkpoint in {d}")
 
 
+# state-dict markers of the families the port cannot map yet: the
+# backbone prefixes of RoBERTa, ALBERT, DistilBERT and RoFormer
+# checkpoints, and DistilBERT's and ALBERT's own layer names
+_UNMAPPED_PREFIXES = {"roberta.": "RoBERTa", "albert.": "ALBERT",
+                      "distilbert.": "DistilBERT", "roformer.": "RoFormer"}
+_UNMAPPED_LAYERS = {"transformer.layer.": "DistilBERT",
+                    "encoder.albert_layer_groups.": "ALBERT"}
+
+
+def _refuse_unmapped(sd: dict[str, np.ndarray]) -> None:
+    """Raise NotImplementedError, naming the family, for a state dict whose
+    tensors the port has no mapping for (the JAX package maps them)."""
+    for marks, where in ((_UNMAPPED_PREFIXES, "prefix"),
+                         (_UNMAPPED_LAYERS, "layer names")):
+        for mark, family in marks.items():
+            if any(k.startswith(mark) or f".{mark}" in k for k in sd):
+                raise NotImplementedError(
+                    f"{family} checkpoints ({where} {mark!r}) are not "
+                    f"ported to the PyTorch package yet")
+
+
 def _strip_prefix(sd: dict[str, np.ndarray]) -> dict[str, np.ndarray]:
     """Drop the 'bert.' / 'mpnet.' / '0.auto_model.' style prefixes HF
     checkpoints use, then rewrite MPNet, nomic-bert, jina-bert-v2,
-    ModernBERT and Qwen2 names into BERT naming."""
+    ModernBERT and Qwen2 names into BERT naming. A RoBERTa, ALBERT,
+    DistilBERT or RoFormer tree that needs a mapping the port does not
+    have raises NotImplementedError."""
+    _refuse_unmapped(sd)
     for prefix in ("bert.", "mpnet.", "model.", "0.auto_model."):
         if any(k.startswith(prefix + "embeddings") for k in sd):
             sd = {k[len(prefix):]: v for k, v in sd.items()

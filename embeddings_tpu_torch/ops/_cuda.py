@@ -3,7 +3,8 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled on
 first use by ``nvcc`` for ``sm_90a`` into a shared library under
 ``embeddings_tpu_torch/_build/`` (git-ignored), then loaded with ctypes.
-The library name carries a hash of its source, so an edited kernel
+The library name carries a hash of its source and of the shared headers
+(``csrc/*.cuh``), so an edited kernel
 rebuilds and a stale build is never loaded. Nothing here runs at import.
 """
 
@@ -38,9 +39,10 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):  # the shared headers
+        h.update(header.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def build(*names: str) -> dict[str, float]:

@@ -18,16 +18,26 @@ denominator, 1e-30 floor on the denominator (pad query rows stay finite).
 K2 pre-scales q by log2(e)/sqrt(D) and rounds it to the compute dtype;
 K4-K7 scale the f32 scores after the dot, as their TPU kernels do.
 
-Not ported yet: the context-parallel kernels (K8a, K8b), and the
-int8-score and emission options.
+K2 and K4 also emit the context per-row quantized to int8
+(``emit_quantized``, K2e / K4e: the TPU's ``_emit_int8_rows``, floor
+1e-30; "both" quantizes the compute-dtype context it returns, "only" the
+f32 one), and K2 runs its int8-scores branch (``int8_scores``, K2i8),
+switched by ``set_int8_scores_mode`` / ``int8_scores_mode`` as in the JAX
+package ("auto" follows the int8 compute mode, ``use_int8_scores``).
+
+Not ported yet: the context-parallel kernels (K8a, K8b).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import math
 
 import torch
+
+from .quant import EMITS, count_launch as _count, emit_result as \
+    _emit_result, quantize_sym
 
 LANE = 128
 LOG2E = 1.4426950408889634
@@ -66,9 +76,7 @@ def _split_heads(qkv, B, L, H, D):
 def _merge_heads(o, p_sum, dt, B, L, H, D):
     """o [B, H, L, D] / max(p_sum, 1e-30) (the f32 reciprocal, as the
     kernels) -> context [B*L, H*D] in dt."""
-    denom = p_sum.clamp_min(1e-30)
-    return (o * (1.0 / denom)).to(dt).permute(0, 2, 1, 3).reshape(
-        B * L, H * D)
+    return _merge_f32(o, p_sum, B, L, H, D).to(dt)
 
 
 def _prefix_probs(s, lengths, k0, hi, dt, causal=False):
@@ -86,40 +94,174 @@ def _prefix_probs(s, lengths, k0, hi, dt, causal=False):
                        torch.zeros((), device=s.device)).to(dt).float()
 
 
+# heads one query tile's cluster can hold: the CUDA emission shares the
+# row absmax across the H blocks of a thread-block cluster (H100: 16)
+EMIT_MAX_HEADS = 16
+LOG2_127 = 6.9886846867721655
+
+# int8 attention scores: "auto" follows the int8 compute mode, "on" /
+# "off" force it. The JAX package's switch and default ("off"); encode
+# reads it once per forward (``use_int8_scores``).
+_INT8_SCORES = "off"
+
+
+def set_int8_scores_mode(mode: str) -> None:
+    global _INT8_SCORES
+    if mode not in ("auto", "on", "off"):
+        raise ValueError(f"int8 scores mode must be auto, on or off, got "
+                         f"{mode!r}")
+    _INT8_SCORES = mode
+
+
+@contextlib.contextmanager
+def int8_scores_mode(mode: str):
+    """Scoped override of the int8-scores mode."""
+    global _INT8_SCORES
+    prev = _INT8_SCORES
+    set_int8_scores_mode(mode)
+    try:
+        yield
+    finally:
+        _INT8_SCORES = prev
+
+
+def use_int8_scores(int8: bool) -> bool:
+    """Does K2 run its int8-scores branch? "auto" follows ``int8`` (the
+    forward's int8 compute mode, ``EngineConfig.int8_compute``)."""
+    if _INT8_SCORES != "auto":
+        return _INT8_SCORES == "on"
+    return bool(int8)
+
+
+def emit_supported(H: int) -> bool:
+    """Can the attention kernels emit at H heads? The port's rule: the
+    row absmax crosses the H blocks of one thread-block cluster, at most
+    16 on the H100. (The plain versions follow the same rule.)"""
+    return H <= EMIT_MAX_HEADS
+
+
+def _emit_int8_rows(ctx: torch.Tensor):
+    """The TPU's ``_emit_int8_rows``: per-row symmetric int8 of a full
+    [M, E] context, so = max(max|row|, 1e-30) * (1/127), o8 = round(ctx *
+    (1/so)). Returns (o8 int8 [M, E], so f32 [M, 1])."""
+    return quantize_sym(ctx, -1, 1e-30)
+
+
+def _emit_ctx(ctx: torch.Tensor, dt, emit: str):
+    """The context (f32 values) as the kernels return it: ``dt`` alone,
+    or with its emission ("both": of the dt-rounded context, as the TPU
+    quantizes its output block; "only": of the f32 context, its staging
+    scratch)."""
+    if emit == "no":
+        return ctx.to(dt)
+    if emit == "only":
+        return _emit_int8_rows(ctx.float())
+    out = ctx.to(dt)
+    return (out, *_emit_int8_rows(out.float()))
+
+
+def _merge_f32(o, p_sum, B, L, H, D):
+    """o [B, H, L, D] / max(p_sum, 1e-30) -> f32 context [B*L, H*D]
+    (``_merge_heads`` before its cast)."""
+    denom = p_sum.clamp_min(1e-30)
+    return (o * (1.0 / denom)).permute(0, 2, 1, 3).reshape(B * L, H * D)
+
+
+def _int8_scores_ctx(qkv, lengths, B, L, H, D):
+    """The TPU's int8-scores branch of ``_attn_kernel`` (f32 context):
+    q, k per row and v per column (all L rows, pads included) symmetric
+    int8 with the floor 1e-30; s = (s32 * (sq * s2)) * sk, masked keys
+    -1e30; p8 = round(exp2(s - m + log2 127)), m the row max; out = (acc *
+    sv) * (127 / max(127 * sum p8, 1)). Integer products exact (f64)."""
+    q, k, v = (t.float() for t in _split_heads(qkv, B, L, H, D))
+    (q8, sq), (k8, sk), (v8, sv) = (quantize_sym(q, -1, 1e-30),
+                                    quantize_sym(k, -1, 1e-30),
+                                    quantize_sym(v, -2, 1e-30))
+    s32 = (q8.double() @ k8.double().transpose(-1, -2)).float()
+    s = (s32 * (sq * _scale(D))) * sk.transpose(-1, -2)
+    kpos = torch.arange(L, device=qkv.device)
+    ok = (kpos[None, :] < lengths.to(qkv.device)[:, None])[:, None, None, :]
+    s = torch.where(ok, s, torch.full((), -1e30, device=qkv.device))
+    m = s.amax(-1, keepdim=True)
+    p8 = torch.round(torch.exp2((s - m) + LOG2_127))
+    acc = (p8.double() @ v8.double()).float()
+    den = (p8.double().sum(-1, keepdim=True) * 127).float().clamp_min(1.0)
+    o = (acc * sv) * (127.0 / den)
+    return o.permute(0, 2, 1, 3).reshape(B * L, H * D)
+
+
 def fused_attention_ref(qkv: torch.Tensor, lengths: torch.Tensor, *,
-                        B: int, L: int, H: int, D: int) -> torch.Tensor:
-    """The plain PyTorch version of K2 (same arguments as
+                        B: int, L: int, H: int, D: int,
+                        emit_quantized: str = "no",
+                        int8_scores: bool = False):
+    """The plain PyTorch version of K2, K2e and K2i8 (same arguments as
     ``fused_attention``)."""
     dt = qkv.dtype
+    if int8_scores:
+        return _emit_ctx(_int8_scores_ctx(qkv, lengths, B, L, H, D), dt,
+                         emit_quantized)
     q, k, v = _split_heads(qkv, B, L, H, D)
     qs = (q.float() * _scale(D)).to(dt)
     s = qs.float() @ k.float().transpose(-1, -2)           # [B,H,L,L] f32
     p = _prefix_probs(s, lengths, 0, _clamp_hi(L), dt)
-    return _merge_heads(p @ v.float(), p.sum(-1, keepdim=True), dt,
-                        B, L, H, D)
+    return _emit_ctx(_merge_f32(p @ v.float(), p.sum(-1, keepdim=True),
+                                B, L, H, D), dt, emit_quantized)
 
 
 def fused_attention(qkv: torch.Tensor, lengths: torch.Tensor, *, B: int,
-                    L: int, H: int, D: int) -> torch.Tensor:
+                    L: int, H: int, D: int, emit_quantized: str = "no",
+                    int8_scores: bool = False):
     """qkv [B*L, 3*H*D] (columns [q | k | v], heads contiguous), lengths
     [B] int32 -> context [B*L, H*D] in qkv's dtype. Keys at positions
     >= lengths[b] get probability exactly 0; a row with length 0 gives 0.
 
+    emit_quantized: "no" | "both" | "only" (K2e, where ``emit_supported``)
+    — also, or instead, return the context per-row quantized: ``(ctx, o8,
+    so)`` or ``(o8, so)``, o8 int8 [B*L, H*D], so f32 [B*L, 1].
+    int8_scores: both products in int8 (K2i8; see ``_int8_scores_ctx``).
+
     A CUDA tensor launches K2 (``csrc/attention.cu``; bf16 qkv, int32
-    lengths on the same device). A CPU tensor runs ``fused_attention_ref``.
-    """
+    lengths on the same device); counted in ``launches``, and apart in
+    ``both_launches`` / ``only_launches`` (emission) and ``i8s_launches``
+    (int8 scores). A CPU tensor runs ``fused_attention_ref``."""
     _check_prefix("fused_attention", supported(L, H, D), qkv, lengths, B,
                   L, H, D)
+    _check_emit(emit_quantized, H)
+    kw = dict(B=B, L=L, H=H, D=D, emit_quantized=emit_quantized,
+              int8_scores=int8_scores)
     if qkv.device.type == "cpu":
-        return fused_attention_ref(qkv, lengths, B=B, L=L, H=H, D=D)
+        return fused_attention_ref(qkv, lengths, **kw)
     _check_cuda(qkv, lengths)
-    out = torch.empty((B * L, H * D), dtype=qkv.dtype, device=qkv.device)
-    if B == 0:
-        return out
-    _launch("fused_attention", MODE_PREFIX, qkv, out, B, L, H, D,
-            _clamp_hi(L), lengths=lengths)
-    fused_attention.launches += 1
-    return out
+    out, o8, os = _outputs(qkv, B * L, H * D, emit_quantized)
+    if B:
+        _launch("fused_attention", MODE_PREFIX, qkv, out, B, L, H, D,
+                _clamp_hi(L), lengths=lengths, o8=o8, os=os,
+                emit=emit_quantized, i8s=int8_scores)
+        _count(fused_attention, emit_quantized)
+        if int8_scores:
+            fused_attention.i8s_launches += 1
+    return _emit_result(out, o8, os, emit_quantized)
+
+
+def _check_emit(emit: str, H: int) -> None:
+    if emit not in EMITS:
+        raise ValueError(f"emit_quantized must be one of {EMITS}, got "
+                         f"{emit!r}")
+    if emit != "no" and not emit_supported(H):
+        raise ValueError(f"attention emission takes at most "
+                         f"{EMIT_MAX_HEADS} heads, got {H}")
+
+
+def _outputs(qkv, M, E, emit):
+    """A CUDA call's outputs: the context (none with "only"), and with
+    emission o8 int8 [M, E] and os f32 [M, 1]."""
+    dev = qkv.device
+    out = (None if emit == "only" else
+           torch.empty((M, E), dtype=qkv.dtype, device=dev))
+    if emit == "no":
+        return out, None, None
+    return (out, torch.empty((M, E), dtype=torch.int8, device=dev),
+            torch.empty((M, 1), dtype=torch.float32, device=dev))
 
 
 # ---------------------------------------------------------------------------
@@ -400,13 +542,14 @@ MODE_BIAS, MODE_STREAM, MODE_ALIBI, MODE_BAND, MODE_CAUSAL = 3, 4, 5, 6, 7
 
 def _launch(what, mode, qkv, out, B, L, H, D, hi, *, lengths=None,
             seg=None, kbs=None, kbe=None, bias=None, slopes=None,
-            W=0) -> None:
+            W=0, o8=None, os=None, emit="no", i8s=False) -> None:
     lib = _lib()
     ptr = [None if t is None else t.data_ptr()
-           for t in (lengths, seg, kbs, kbe, bias, slopes)]
+           for t in (lengths, seg, kbs, kbe, bias, slopes, out, o8, os)]
     status = lib.attn_launch(
-        qkv.data_ptr(), *ptr, out.data_ptr(), mode, B, L, H, D, W,
-        _scale(D), hi, torch.cuda.current_stream(qkv.device).cuda_stream)
+        qkv.data_ptr(), *ptr, mode, EMITS.index(emit), int(i8s), B, L, H,
+        D, W, _scale(D), hi,
+        torch.cuda.current_stream(qkv.device).cuda_stream)
     from ._cuda import check
     check(status, lib.attn_error_string, what)
 
@@ -465,36 +608,40 @@ def _segment_probs(q, k, seg_q, seg_k, s2, hi, dt):
 
 
 def fused_attention_segmented_ref(qkv: torch.Tensor, seg_ids: torch.Tensor,
-                                  *, B: int, L: int, H: int,
-                                  D: int) -> torch.Tensor:
-    """The plain PyTorch version of K4 (same arguments as
+                                  *, B: int, L: int, H: int, D: int,
+                                  emit_quantized: str = "no"):
+    """The plain PyTorch version of K4 and K4e (same arguments as
     ``fused_attention_segmented``)."""
     q, k, v = _split_heads(qkv, B, L, H, D)
     seg = seg_ids.to(qkv.device)
     p = _segment_probs(q, k, seg, seg, _scale(D), _clamp_hi(L), qkv.dtype)
-    return _merge_heads(p @ v.float(), p.sum(-1, keepdim=True), qkv.dtype,
-                        B, L, H, D)
+    return _emit_ctx(_merge_f32(p @ v.float(), p.sum(-1, keepdim=True),
+                                B, L, H, D), qkv.dtype, emit_quantized)
 
 
 def fused_attention_segmented(qkv: torch.Tensor, seg_ids: torch.Tensor, *,
-                              B: int, L: int, H: int, D: int) -> torch.Tensor:
+                              B: int, L: int, H: int, D: int,
+                              emit_quantized: str = "no"):
     """Segment-masked attention for token-packed rows: qkv [B*L, 3*H*D] as
     in ``fused_attention``, seg_ids int32 [B, L] (-1 on pads). Query i
     attends key j iff seg[i] == seg[j] and seg[j] >= 0; a pad query row
-    gives 0. A CUDA tensor launches K4 (``csrc/attention.cu``, segment
-    mode); a CPU tensor runs ``fused_attention_segmented_ref``."""
+    gives 0. ``emit_quantized`` as in ``fused_attention`` (K4e). A CUDA
+    tensor launches K4 (``csrc/attention.cu``, segment mode; counted as
+    K2 is); a CPU tensor runs ``fused_attention_segmented_ref``."""
     _check_segments(qkv, seg_ids, B, L, H, D)
+    _check_emit(emit_quantized, H)
     if qkv.device.type == "cpu":
         return fused_attention_segmented_ref(qkv, seg_ids, B=B, L=L, H=H,
-                                             D=D)
+                                             D=D,
+                                             emit_quantized=emit_quantized)
     _check_cuda(qkv, seg_ids)
-    out = torch.empty((B * L, H * D), dtype=qkv.dtype, device=qkv.device)
-    if B == 0:
-        return out
-    _launch("fused_attention_segmented", MODE_SEGMENT, qkv, out, B, L, H,
-            D, _clamp_hi(L), seg=seg_ids)
-    fused_attention_segmented.launches += 1
-    return out
+    out, o8, os = _outputs(qkv, B * L, H * D, emit_quantized)
+    if B:
+        _launch("fused_attention_segmented", MODE_SEGMENT, qkv, out, B, L,
+                H, D, _clamp_hi(L), seg=seg_ids, o8=o8, os=os,
+                emit=emit_quantized)
+        _count(fused_attention_segmented, emit_quantized)
+    return _emit_result(out, o8, os, emit_quantized)
 
 
 def block_ranges(seg_ids: torch.Tensor, L: int):
@@ -590,9 +737,15 @@ def fused_attention_segmented_blockskip(
 
 
 # launch counters: every successful K2 / K4 / K5 / K6 / K6w / K7 launch
-# adds one (K6c to fused_attention_stream.causal_launches); callers reset
-# them to 0 around the run they measure
+# adds one (K6c to fused_attention_stream.causal_launches); K2 and K4 also
+# count their emitting launches (K2e / K4e) in both_launches and
+# only_launches, K2 its int8-scores launches (K2i8) in i8s_launches;
+# callers reset them to 0 around the run they measure
 fused_attention.launches = 0
+fused_attention.both_launches = fused_attention.only_launches = 0
+fused_attention.i8s_launches = 0
+fused_attention_segmented.both_launches = 0
+fused_attention_segmented.only_launches = 0
 fused_attention_bias.launches = 0
 fused_attention_stream.launches = 0
 fused_attention_stream.causal_launches = 0
@@ -606,7 +759,7 @@ def _lib() -> ctypes.CDLL:
     lib = _cuda.load("attention")
     if not getattr(lib, "_typed", False):
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.attn_launch.argtypes = [p] * 8 + [i] * 6 + [f, f, p]
+        lib.attn_launch.argtypes = [p] * 10 + [i] * 8 + [f, f, p]
         lib.attn_launch.restype = i
         lib.attn_error_string.argtypes = [i]
         lib.attn_error_string.restype = ctypes.c_char_p

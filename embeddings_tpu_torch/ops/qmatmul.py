@@ -1,6 +1,6 @@
 """Fused dequantize + matmul + epilogue for blockwise-quantized weights —
 the PyTorch port of ``embeddings_tpu/ops/qmatmul.py`` (bf16 and int8
-modes).
+modes, pre-quantized input, quantized-output emission).
 
 ``qmatmul`` is the wrapper: on a CUDA tensor it launches a hand-written
 kernel from ``csrc/qmatmul.cu`` or raises; on a CPU tensor it runs the
@@ -24,13 +24,20 @@ version ``qmatmul_int8_ref``, the arithmetic of the TPU's ``_qmm_int8``:
   requantized per column: ``cs = max(colmax, 1e-12) * (1/127)``,
   ``w8 = round(w * (1/cs))`` (``requantize_weight``);
 - x, as given (not first rounded to bf16), is quantized per row the same
-  way (``quantize_rows``);
+  way (``quantize_rows``) — or, pre-quantized (K3x), x is int8 with its
+  row scales ``x_scale`` [M] and is read as it is;
 - s8 x s8 -> s32 product, then ``acc * cs``, then ``acc * sx + bias``,
   then K1's epilogues without a second bias add.
 
+Emission (``emit_quantized``, K1e / K3e, the TPU's ``_emit``): "both"
+also returns the f32 epilogue output quantized per row, ``so =
+max(max|acc_row|, 1e-12) * (1/127)``, ``o8 = round(acc * (1/so))``, as
+``(out, o8 [M, N] int8, so [M, 1] f32)``; "only" returns ``(o8, so)``.
+
 int8 engages only where the JAX package's kernel engages it
-(``int8_engages``); elsewhere the call runs K1 with JAX's warning. The
-quantized-output emission (``emit_quantized``) is not ported yet.
+(``int8_engages``); elsewhere the call runs K1 with JAX's warning, and an
+int8 x there is refused (JAX asserts). Emission takes every shape the
+kernels take (``emit_fits``), in either mode.
 """
 
 from __future__ import annotations
@@ -41,8 +48,8 @@ import logging
 
 import torch
 
-from .quant import NF4_TABLE, PACK4_KINDS, QK, QuantizedTensor, \
-    _unpack_g64, dequantize
+from .quant import EMITS, NF4_TABLE, PACK4_KINDS, QK, QuantizedTensor, \
+    _unpack_g64, count_launch, dequantize, emit_result, quantize_sym
 
 EPILOGUES = ("none", "bias", "bias_gelu", "bias_gelu_tanh", "bias_silu",
              "bias_residual_ln")
@@ -52,11 +59,11 @@ log = logging.getLogger("embeddings_tpu_torch.qmatmul")
 
 
 def _resolve(x, codes, scales, mins, bias, kind, epilogue, residual,
-             ln_scale, ln_bias, packed, emit_quantized):
+             ln_scale, ln_bias, packed, emit_quantized, x_scale=None):
     """Validate the call (both paths) and return (M, K, N, epilogue)."""
-    if emit_quantized != "no":
-        raise NotImplementedError(
-            "emit_quantized (the int8 emission epilogue) is not ported yet")
+    if emit_quantized not in EMITS:
+        raise ValueError(f"emit_quantized must be one of {EMITS}, got "
+                         f"{emit_quantized!r}")
     if kind not in _KIND_ID:
         raise ValueError(f"unknown quant kind {kind!r}")
     if packed and kind not in PACK4_KINDS:
@@ -81,6 +88,15 @@ def _resolve(x, codes, scales, mins, bias, kind, epilogue, residual,
             or tuple(residual.shape) != (M, N)):
         raise ValueError("bias_residual_ln needs residual [M, N], ln_scale "
                          "and ln_bias")
+    if (x.dtype == torch.int8) != (x_scale is not None):
+        raise ValueError("an int8 x comes with its row scales x_scale [M], "
+                         "and only an int8 x does")
+    if x_scale is not None and x_scale.numel() != M:
+        raise ValueError(f"x_scale must hold {M} row scales, got "
+                         f"{tuple(x_scale.shape)}")
+    if emit_quantized != "no" and not emit_fits(K, N, packed):
+        raise ValueError(f"emission does not take K={K} N={N} "
+                         f"(packed={packed}): see emit_fits")
     return M, K, N, epilogue
 
 
@@ -117,17 +133,19 @@ def qmatmul_ref(x: torch.Tensor, codes: torch.Tensor, scales: torch.Tensor,
                 residual: torch.Tensor | None = None,
                 ln_scale: torch.Tensor | None = None,
                 ln_bias: torch.Tensor | None = None, ln_eps: float = 1e-12,
-                packed: bool = False, out_dtype=None) -> torch.Tensor:
-    """The plain PyTorch version of K1 (same arguments as ``qmatmul``)."""
+                packed: bool = False, out_dtype=None,
+                emit_quantized: str = "no"):
+    """The plain PyTorch version of K1 and K1e (same arguments as
+    ``qmatmul``)."""
     _, _, N, epilogue = _resolve(x, codes, scales, mins, bias, kind,
                                  epilogue, residual, ln_scale, ln_bias,
-                                 packed, "no")
+                                 packed, emit_quantized)
     w = dequantize_bf16(codes, scales, mins, kind, packed)
     acc = x.to(torch.bfloat16).float() @ w.float()
     if epilogue != "none" and bias is not None:
         acc = acc + bias.float()
-    return _epilogue(acc, epilogue, residual, ln_scale, ln_bias,
-                     ln_eps).to(out_dtype or x.dtype)
+    acc = _epilogue(acc, epilogue, residual, ln_scale, ln_bias, ln_eps)
+    return _emit(acc, emit_quantized, out_dtype or x.dtype)
 
 
 def _epilogue(acc, epilogue, residual, ln_scale, ln_bias, ln_eps):
@@ -146,6 +164,18 @@ def _epilogue(acc, epilogue, residual, ln_scale, ln_bias, ln_eps):
     return acc
 
 
+def _emit(acc: torch.Tensor, emit: str, out_dtype):
+    """The TPU's ``_emit``: the f32 epilogue output as ``out_dtype``,
+    and/or its per-row int8 quantization (``quantize_rows``) with the
+    [M, 1] f32 row scales."""
+    if emit == "no":
+        return acc.to(out_dtype)
+    o8, so = quantize_rows(acc)
+    if emit == "only":
+        return o8, so
+    return acc.to(out_dtype), o8, so
+
+
 def int8_engages(K: int, N: int, packed: bool = False) -> bool:
     """Does the int8 mode run at this weight shape? The JAX package's rule
     (its ``int8_engages`` and the lane check in ``qmatmul``) without the
@@ -154,19 +184,21 @@ def int8_engages(K: int, N: int, packed: bool = False) -> bool:
     return N % 128 == 0 and K % 32 == 0 and (not packed or K % 64 == 0)
 
 
-def _quantize_f32(v: torch.Tensor, dim: int):
-    """Symmetric int8 over ``dim``: scale = max(absmax, 1e-12) * (1/127),
-    q = round(v * (1/scale)), half to even (|v| <= absmax, so q lands in
-    [-127, 127] without a clip). Returns (q int8, scale f32 with ``dim``
-    kept)."""
-    s = v.abs().amax(dim, keepdim=True).clamp_min(1e-12) * (1.0 / 127.0)
-    return torch.round(v * (1.0 / s)).to(torch.int8), s
+def emit_fits(K: int, N: int, packed: bool = False) -> bool:
+    """Can the kernels emit the output quantized at this weight shape?
+    The port's own rule: every shape K1 and K3 take (N % 8 == 0, K % 32
+    == 0, K % 64 == 0 when the codes are packed) — the residual-LayerNorm
+    epilogue quantizes in its full-row walk, the others through an f32
+    staging buffer and a second launch. The JAX package's rule also asks
+    N % 128 == 0 and its VMEM budget; where int8 does not engage, the
+    port emits from K1 (K1e)."""
+    return N % 8 == 0 and K % 32 == 0 and (not packed or K % 64 == 0)
 
 
 def quantize_rows(x: torch.Tensor):
     """x [..., K] (any float dtype, used as given) -> (q int8 [..., K],
     row scales f32 [..., 1])."""
-    return _quantize_f32(x.float(), -1)
+    return quantize_sym(x.float(), -1)
 
 
 def requantize_weight(codes: torch.Tensor, scales: torch.Tensor,
@@ -175,7 +207,7 @@ def requantize_weight(codes: torch.Tensor, scales: torch.Tensor,
     f32, requantized to per-column symmetric int8 (the TPU kernel's
     two-pass requantization of its weight tile)."""
     w = dequantize(QuantizedTensor(codes, scales, mins, kind, -2, packed))
-    return _quantize_f32(w, 0)
+    return quantize_sym(w, 0)
 
 
 def int_dot(q: torch.Tensor, w8: torch.Tensor) -> torch.Tensor:
@@ -193,20 +225,27 @@ def qmatmul_int8_ref(x: torch.Tensor, codes: torch.Tensor,
                      ln_scale: torch.Tensor | None = None,
                      ln_bias: torch.Tensor | None = None,
                      ln_eps: float = 1e-12, packed: bool = False,
-                     out_dtype=None) -> torch.Tensor:
-    """The plain PyTorch version of K3 (same arguments as ``qmatmul``)."""
-    _, _, _, epilogue = _resolve(x, codes, scales, mins, bias, kind,
+                     out_dtype=None, x_scale: torch.Tensor | None = None,
+                     emit_quantized: str = "no"):
+    """The plain PyTorch version of K3, K3x and K3e (same arguments as
+    ``qmatmul``; an int8 x comes with ``x_scale`` and writes bf16 by
+    default, as in the JAX package)."""
+    M, _, _, epilogue = _resolve(x, codes, scales, mins, bias, kind,
                                  epilogue, residual, ln_scale, ln_bias,
-                                 packed, "no")
+                                 packed, emit_quantized, x_scale)
     w8, cs = requantize_weight(codes, scales, mins, kind, packed)
-    q, sx = quantize_rows(x)
+    if x_scale is not None:
+        q, sx = x, x_scale.reshape(M, 1).float()
+        out_dtype = out_dtype or torch.bfloat16
+    else:
+        q, sx = quantize_rows(x)
     acc = int_dot(q, w8) * cs
     if epilogue != "none" and bias is not None:
         acc = acc * sx + bias.float()
     else:
         acc = acc * sx
-    return _epilogue(acc, epilogue, residual, ln_scale, ln_bias,
-                     ln_eps).to(out_dtype or x.dtype)
+    acc = _epilogue(acc, epilogue, residual, ln_scale, ln_bias, ln_eps)
+    return _emit(acc, emit_quantized, out_dtype or x.dtype)
 
 
 def qmatmul(x: torch.Tensor, codes: torch.Tensor, scales: torch.Tensor,
@@ -217,8 +256,8 @@ def qmatmul(x: torch.Tensor, codes: torch.Tensor, scales: torch.Tensor,
             ln_scale: torch.Tensor | None = None,
             ln_bias: torch.Tensor | None = None, ln_eps: float = 1e-12,
             packed: bool = False, out_dtype=None,
-            int8_compute: bool = False,
-            emit_quantized: str = "no") -> torch.Tensor:
+            int8_compute: bool = False, x_scale: torch.Tensor | None = None,
+            emit_quantized: str = "no"):
     """x [M, K] @ dequant(codes [K, N] | packed [K/2, N], scales [K//32, N])
     -> epilogue -> [M, N] in out_dtype (x.dtype by default).
 
@@ -232,16 +271,31 @@ def qmatmul(x: torch.Tensor, codes: torch.Tensor, scales: torch.Tensor,
 
     int8_compute: the int8 tensor-core mode, ``qmatmul_int8`` (K3, or
     ``qmatmul_int8_ref`` on a CPU tensor), where ``int8_engages``; other
-    shapes run the bf16 mode with a warning, as in the JAX package."""
+    shapes run the bf16 mode with a warning, as in the JAX package. x may
+    then be int8 with its row scales ``x_scale`` [M] (pre-quantized, K3x;
+    the output is bf16 unless ``out_dtype`` says otherwise); an int8 x at a
+    shape where int8 does not engage raises.
+
+    emit_quantized: "no" | "both" | "only" (K1e / K3e, where
+    ``emit_fits``): also, or instead, return the epilogue output
+    quantized per row — ``(out, o8, so)`` or ``(o8, so)``, o8 int8
+    [M, N], so f32 [M, 1]."""
     M, K, N, epilogue = _resolve(x, codes, scales, mins, bias, kind,
                                  epilogue, residual, ln_scale, ln_bias,
-                                 packed, emit_quantized)
+                                 packed, emit_quantized, x_scale)
     kw = dict(kind=kind, epilogue=epilogue, residual=residual,
               ln_scale=ln_scale, ln_bias=ln_bias, ln_eps=ln_eps,
-              packed=packed, out_dtype=out_dtype)
+              packed=packed, out_dtype=out_dtype,
+              emit_quantized=emit_quantized)
+    if x.dtype == torch.int8 and not (int8_compute
+                                      and int8_engages(K, N, packed)):
+        raise ValueError(f"a pre-quantized int8 x needs int8_compute at a "
+                         f"shape where it engages (K={K}, N={N}); "
+                         f"dequantize it first")
     if int8_compute:
         if int8_engages(K, N, packed):
-            return qmatmul_int8(x, codes, scales, mins, bias, **kw)
+            return qmatmul_int8(x, codes, scales, mins, bias,
+                                x_scale=x_scale, **kw)
         log.warning("int8_compute requested but (K=%d, N=%d) has a ragged "
                     "lane count - falling back to bf16 compute for this "
                     "matmul", K, N)
@@ -249,20 +303,20 @@ def qmatmul(x: torch.Tensor, codes: torch.Tensor, scales: torch.Tensor,
         return qmatmul_ref(x, codes, scales, mins, bias, **kw)
     ptr, out = _cuda_operands("qmatmul", x, codes, scales, mins, bias, M, N,
                               **kw)
+    em = _emit_operands(x.device, M, N, epilogue, emit_quantized)
     if M == 0:
-        return out
+        return _emit_result(out, em, emit_quantized)
     lib = _lib()
     status = lib.qmm_launch(
         ptr["x"], ptr["codes"], ptr["scales"], ptr.get("mins"), ptr["bias"],
         ptr.get("residual"), ptr.get("ln_scale"), ptr.get("ln_bias"),
-        out.data_ptr(), M, N, K, _KIND_ID[kind], int(packed),
-        EPILOGUES.index(epilogue), float(ln_eps),
-        torch.cuda.current_stream(x.device).cuda_stream)
+        _ptr(out), *_emit_ptrs(em), M, N, K, _KIND_ID[kind], int(packed),
+        EPILOGUES.index(epilogue), EMITS.index(emit_quantized),
+        float(ln_eps), torch.cuda.current_stream(x.device).cuda_stream)
     from ._cuda import check
     check(status, lib.qmm_error_string, "qmatmul")
-    qmatmul.launches += 1
-    qmatmul.shapes[(K, N, epilogue)] += 1
-    return out
+    _count(qmatmul, (K, N, epilogue), emit_quantized)
+    return _emit_result(out, em, emit_quantized)
 
 
 def qmatmul_int8(x: torch.Tensor, codes: torch.Tensor, scales: torch.Tensor,
@@ -272,71 +326,133 @@ def qmatmul_int8(x: torch.Tensor, codes: torch.Tensor, scales: torch.Tensor,
                  residual: torch.Tensor | None = None,
                  ln_scale: torch.Tensor | None = None,
                  ln_bias: torch.Tensor | None = None, ln_eps: float = 1e-12,
-                 packed: bool = False, out_dtype=None) -> torch.Tensor:
+                 packed: bool = False, out_dtype=None,
+                 x_scale: torch.Tensor | None = None,
+                 emit_quantized: str = "no"):
     """The int8 mode of ``qmatmul`` (same arguments and tensor types).
 
     A CUDA tensor launches K3 (``csrc/qmatmul.cu``): three kernels on the
     current stream — the weight's per-column requantization into an int8
-    [N, K] scratch, the rows' quantization into an int8 [M, K] scratch,
-    and the s8 x s8 -> s32 tensor-core product with the rescale and the
-    epilogue. A CPU tensor runs ``qmatmul_int8_ref``."""
+    [N, K] scratch, the rows' quantization into an int8 [M, K] scratch
+    (skipped for an int8 x with ``x_scale``: K3x), and the s8 x s8 -> s32
+    tensor-core product with the rescale and the epilogue (with its
+    emission, K3e: in the LayerNorm walk, or through ``emit_rows_kernel``
+    after the others). A CPU tensor runs ``qmatmul_int8_ref``."""
     M, K, N, epilogue = _resolve(x, codes, scales, mins, bias, kind,
                                  epilogue, residual, ln_scale, ln_bias,
-                                 packed, "no")
+                                 packed, emit_quantized, x_scale)
     kw = dict(kind=kind, epilogue=epilogue, residual=residual,
               ln_scale=ln_scale, ln_bias=ln_bias, ln_eps=ln_eps,
-              packed=packed, out_dtype=out_dtype)
+              packed=packed, out_dtype=out_dtype,
+              emit_quantized=emit_quantized)
     if x.device.type == "cpu":
-        return qmatmul_int8_ref(x, codes, scales, mins, bias, **kw)
+        return qmatmul_int8_ref(x, codes, scales, mins, bias,
+                                x_scale=x_scale, **kw)
+    prequant = x_scale is not None
     ptr, out = _cuda_operands("qmatmul_int8", x, codes, scales, mins, bias,
                               M, N, **kw)
+    em = _emit_operands(x.device, M, N, epilogue, emit_quantized)
     if M == 0:
-        return out
+        return _emit_result(out, em, emit_quantized)
     dev = x.device
     w8t = torch.empty((N, K), dtype=torch.int8, device=dev)
-    q = torch.empty((M, K), dtype=torch.int8, device=dev)
     cs = torch.empty(N, dtype=torch.float32, device=dev)
-    sx = torch.empty(M, dtype=torch.float32, device=dev)
+    if prequant:
+        sx = x_scale.reshape(M)
+        if sx.dtype != torch.float32 or sx.device != dev \
+                or not sx.is_contiguous():
+            raise TypeError("x_scale must be contiguous f32 on x's device")
+        q = x
+    else:
+        q = torch.empty((M, K), dtype=torch.int8, device=dev)
+        sx = torch.empty(M, dtype=torch.float32, device=dev)
     lib = _lib()
     status = lib.qmm_int8_launch(
         ptr["x"], ptr["codes"], ptr["scales"], ptr.get("mins"), ptr["bias"],
         ptr.get("residual"), ptr.get("ln_scale"), ptr.get("ln_bias"),
         w8t.data_ptr(), cs.data_ptr(), q.data_ptr(), sx.data_ptr(),
-        out.data_ptr(), M, N, K, _KIND_ID[kind], int(packed),
-        EPILOGUES.index(epilogue), float(ln_eps),
-        torch.cuda.current_stream(dev).cuda_stream)
+        _ptr(out), *_emit_ptrs(em), M, N, K, _KIND_ID[kind], int(packed),
+        EPILOGUES.index(epilogue), EMITS.index(emit_quantized),
+        int(prequant), float(ln_eps), torch.cuda.current_stream(dev).cuda_stream)
     from ._cuda import check
     check(status, lib.qmm_error_string, "qmatmul_int8")
-    qmatmul_int8.launches += 1
-    qmatmul_int8.shapes[(K, N, epilogue)] += 1
-    return out
+    _count(qmatmul_int8, (K, N, epilogue), emit_quantized, prequant)
+    if prequant:
+        qmatmul_int8.x8_launches += 1
+    return _emit_result(out, em, emit_quantized)
 
 
-# launch counters: every successful K1 (K3) launch adds one, in total and
-# per (K, N, epilogue); callers reset them to 0 around the run they measure
+def _count(fn, shape, emit: str, x8: bool = False) -> None:
+    count_launch(fn, emit)
+    fn.shapes[shape] += 1
+    fn.modes[(*shape, emit, x8)] += 1
+
+
+# launch counters: every successful K1 (K3) launch adds one, in total,
+# per (K, N, epilogue) in ``shapes`` and per (K, N, epilogue, emit, int8
+# x) in ``modes``, and one to both_launches / only_launches when it emits
+# (K1e / K3e); K3's x8_launches counts the launches on a pre-quantized
+# int8 x (K3x, no row quantization). Callers reset them to 0 around the
+# run they measure.
 qmatmul.launches = 0
 qmatmul.shapes = collections.Counter()
+qmatmul.modes = collections.Counter()
+qmatmul.both_launches = qmatmul.only_launches = 0
 qmatmul_int8.launches = 0
 qmatmul_int8.shapes = collections.Counter()
+qmatmul_int8.modes = collections.Counter()
+qmatmul_int8.both_launches = qmatmul_int8.only_launches = 0
+qmatmul_int8.x8_launches = 0
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _emit_operands(dev, M, N, epilogue, emit) -> dict:
+    """The emission outputs (o8 int8 [M, N], os f32 [M]) and, for the
+    tiled epilogues, the f32 staging [M, N] and partial row maxima
+    [ceil(N/128), M] of a CUDA call; empty without emission."""
+    if emit == "no":
+        return {}
+    em = {"o8": torch.empty((M, N), dtype=torch.int8, device=dev),
+          "os": torch.empty((M, 1), dtype=torch.float32, device=dev)}
+    if epilogue != "bias_residual_ln":
+        em["stg"] = torch.empty((M, N), dtype=torch.float32, device=dev)
+        em["part"] = torch.empty((-(-N // 128), M), dtype=torch.float32,
+                                 device=dev)
+    return em
+
+
+def _emit_ptrs(em: dict) -> list:
+    return [_ptr(em.get(k)) for k in ("o8", "os", "stg", "part")]
+
+
+def _emit_result(out, em: dict, emit: str):
+    return emit_result(out, em.get("o8"), em.get("os"), emit)
 
 
 def _cuda_operands(what, x, codes, scales, mins, bias, M, N, *, kind,
                    epilogue, residual, ln_scale, ln_bias, ln_eps, packed,
-                   out_dtype):
+                   out_dtype, emit_quantized):
     """Check a CUDA call's tensors (device, dtype, shape, contiguity,
-    alignment) and allocate its bf16 output. Returns (pointers, out)."""
+    alignment) and allocate its bf16 output (none with emission "only").
+    Returns (pointers, out)."""
     if x.device.type != "cuda":
         raise ValueError(f"{what} runs on cuda or cpu, not {x.device}")
-    out_dtype = out_dtype or x.dtype
-    if x.dtype != torch.bfloat16 or out_dtype != torch.bfloat16:
-        raise TypeError(f"the CUDA {what} takes bf16 x and writes bf16 "
-                        f"(got x {x.dtype}, out {out_dtype})")
+    prequant = x.dtype == torch.int8
+    out_dtype = out_dtype or (torch.bfloat16 if prequant else x.dtype)
+    if x.dtype not in (torch.bfloat16, torch.int8) \
+            or out_dtype != torch.bfloat16:
+        raise TypeError(f"the CUDA {what} takes bf16 (or pre-quantized "
+                        f"int8) x and writes bf16 (got x {x.dtype}, out "
+                        f"{out_dtype})")
     if N % 8:
         raise ValueError(f"the CUDA {what} needs N % 8 == 0, got N={N}")
     want = torch.uint8 if packed else torch.int8
     if bias is None:
         bias = torch.zeros(N, dtype=torch.float32, device=x.device)
-    tensors = {"x": (x, torch.bfloat16), "codes": (codes, want),
+    tensors = {"x": (x, x.dtype), "codes": (codes, want),
                "scales": (scales, torch.float32), "bias": (bias, torch.float32)}
     if kind == "q4_1":
         tensors["mins"] = (mins, torch.float32)
@@ -355,7 +471,9 @@ def _cuda_operands(what, x, codes, scales, mins, bias, M, N, *, kind,
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
     ptr = {name: t.data_ptr() for name, (t, _) in tensors.items()}
-    return ptr, torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
+    out = (None if emit_quantized == "only" else
+           torch.empty((M, N), dtype=torch.bfloat16, device=x.device))
+    return ptr, out
 
 
 def _lib() -> ctypes.CDLL:
@@ -363,9 +481,9 @@ def _lib() -> ctypes.CDLL:
     lib = _cuda.load("qmatmul")
     if not getattr(lib, "_typed", False):
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.qmm_launch.argtypes = [p] * 9 + [i] * 6 + [f, p]
+        lib.qmm_launch.argtypes = [p] * 13 + [i] * 7 + [f, p]
         lib.qmm_launch.restype = i
-        lib.qmm_int8_launch.argtypes = [p] * 13 + [i] * 6 + [f, p]
+        lib.qmm_int8_launch.argtypes = [p] * 17 + [i] * 8 + [f, p]
         lib.qmm_int8_launch.restype = i
         lib.qmm_error_string.argtypes = [i]
         lib.qmm_error_string.restype = ctypes.c_char_p

@@ -303,3 +303,36 @@ def gather_rows(qt: QuantizedTensor, ids: torch.Tensor) -> torch.Tensor:
     if qt.kind == "q4_1":
         w = w + qt.mins[ids].to(torch.float32)[..., None]
     return w.reshape(*w.shape[:-2], E)
+
+
+# ---------------------------------------------------------------------------
+# symmetric per-row (per-column) int8, and the emission helpers shared by
+# the matmul (K1e / K3e) and attention (K2e / K4e) wrappers
+# ---------------------------------------------------------------------------
+
+EMITS = ("no", "both", "only")
+
+
+def quantize_sym(v: torch.Tensor, dim: int, floor: float = 1e-12):
+    """Symmetric int8 of f32 ``v`` over ``dim``: scale = max(absmax,
+    floor) * (1/127), q = round(v * (1/scale)), half to even (|v| <=
+    absmax, so q lands in [-127, 127] without a clip). Returns (q int8,
+    scale f32 with ``dim`` kept)."""
+    s = v.abs().amax(dim, keepdim=True).clamp_min(floor) * (1.0 / 127.0)
+    return torch.round(v * (1.0 / s)).to(torch.int8), s
+
+
+def emit_result(out, o8, os, emit: str):
+    """A wrapper's result in emit mode ``emit``: ``out``, ``(out, o8,
+    os)`` ("both") or ``(o8, os)`` ("only")."""
+    if emit == "no":
+        return out
+    return (o8, os) if emit == "only" else (out, o8, os)
+
+
+def count_launch(fn, emit: str) -> None:
+    """One launch of ``fn``'s kernel: adds one to ``fn.launches`` and, when
+    it emits, to ``fn.both_launches`` or ``fn.only_launches``."""
+    fn.launches += 1
+    if emit != "no":
+        setattr(fn, f"{emit}_launches", getattr(fn, f"{emit}_launches") + 1)

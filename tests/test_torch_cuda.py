@@ -350,3 +350,137 @@ def test_kernels_raise_on_wrong_dtype(cuda):
         A.fused_attention_bias(qkv.to(torch.bfloat16), lens,
                                torch.zeros(2, 128, 128), B=1, L=128, H=2,
                                D=64)
+
+
+# ---------------------------------------------------------------------------
+# the chained-int8 modes: K1e / K3e (emission), K3x (int8 x), K2e / K4e
+# (attention emission), K2i8 (int8 scores)
+# ---------------------------------------------------------------------------
+
+def _emit_close(got, ref, emit, rtol=2 ** -7, atol_rms=1e-3):
+    """Emission against its plain version: the bf16 output ("both") at
+    K1's tolerance, codes at most one step apart, row scales to 1e-4."""
+    if emit == "both":
+        _close(got[0], ref[0], rtol, atol_rms)
+        got, ref = got[1:], ref[1:]
+    assert got[0].dtype == torch.int8 and got[1].shape == (got[0].shape[0], 1)
+    assert (got[0].int() - ref[0].int()).abs().max() <= 1
+    assert ((got[1] - ref[1]).abs() <= 1e-4 * ref[1]).all()
+
+
+@pytest.mark.parametrize("emit", ["both", "only"])
+@pytest.mark.parametrize("epilogue", ["bias", "bias_gelu",
+                                      "bias_residual_ln"])
+@pytest.mark.parametrize("int8_x", [False, True])
+@pytest.mark.parametrize("M,K,N", [(40, 128, 256), (300, 768, 768),
+                                   (70, 256, 1024)])
+def test_qmatmul_emission_kernels_match_plain(cuda, M, K, N, int8_x,
+                                              epilogue, emit):
+    """K1e and K3e, and K3x + K3e with an int8 x and its row scales."""
+    from embeddings_tpu_torch.ops.qmatmul import quantize_rows
+    rng = np.random.default_rng(M + N)
+    w = rng.standard_normal((K, N), dtype=np.float32) * np.float32(0.02)
+    qt = quantize(w, "q4_0", pack4=True).map(lambda t: t.to(cuda))
+    x = torch.from_numpy(rng.standard_normal((M, K), dtype=np.float32)).to(
+        cuda, torch.bfloat16)
+    bias = torch.from_numpy(rng.standard_normal(N, dtype=np.float32)).to(cuda)
+    kw = dict(epilogue=epilogue, packed=True, emit_quantized=emit)
+    if epilogue == "bias_residual_ln":
+        kw.update(residual=torch.randn(M, N, device=cuda).to(torch.bfloat16),
+                  ln_scale=torch.ones(N, device=cuda),
+                  ln_bias=torch.zeros(N, device=cuda))
+    if int8_x:
+        q8, sx = quantize_rows(x)
+        args = (q8, qt.codes, qt.scales, None, bias)
+        before = qmatmul_int8.x8_launches
+        got = qmatmul(*args, int8_compute=True, x_scale=sx.reshape(M), **kw)
+        assert qmatmul_int8.x8_launches == before + 1
+        _emit_close(got, qmatmul_int8_ref(*args, x_scale=sx, **kw), emit)
+        return
+    args = (x, qt.codes, qt.scales, None, bias)
+    before = qmatmul.launches, getattr(qmatmul, f"{emit}_launches")
+    got = qmatmul(*args, **kw)
+    assert (qmatmul.launches, getattr(qmatmul, f"{emit}_launches")) == (
+        before[0] + 1, before[1] + 1)
+    _emit_close(got, qmatmul_ref(*args, **kw), emit)
+    _emit_close(qmatmul_int8(*args, **kw), qmatmul_int8_ref(*args, **kw),
+                emit)
+
+
+def _attn_emit_close(got, ref, emit):
+    """Attention emission: the context at K2's tolerance; codes
+    dequantized within K2's tolerance plus one step of each side."""
+    if emit == "both":
+        _close(got[0], ref[0], 2 ** -6, 1e-2)
+        got, ref = got[1:], ref[1:]
+    deq, rdeq = got[0].float() * got[1], ref[0].float() * ref[1]
+    tol = (2 ** -6 * rdeq.abs() + 1e-2 * rdeq.square().mean().sqrt()
+           + got[1] + ref[1])
+    assert ((deq - rdeq).abs() <= tol).all()
+
+
+@pytest.mark.parametrize("emit", ["both", "only"])
+@pytest.mark.parametrize("B,L,H,D", [(4, 256, 12, 64), (3, 72, 2, 64),
+                                     (2, 128, 4, 128), (2, 64, 16, 32)])
+def test_attention_emission_matches_plain(cuda, B, L, H, D, emit):
+    """K2e: the H blocks of a query tile share the row absmax as a
+    cluster (up to 16 heads); a len-0 row gives codes 0."""
+    rng = np.random.default_rng(L + H)
+    qkv = torch.from_numpy(rng.standard_normal(
+        (B * L, 3 * H * D), dtype=np.float32)).to(cuda, torch.bfloat16)
+    lens = torch.tensor([0] + [L] * (B - 1), dtype=torch.int32, device=cuda)
+    kw = dict(B=B, L=L, H=H, D=D, emit_quantized=emit)
+    before = getattr(fused_attention, f"{emit}_launches")
+    got = fused_attention(qkv, lens, **kw)
+    assert getattr(fused_attention, f"{emit}_launches") == before + 1
+    _attn_emit_close(got, fused_attention_ref(qkv, lens, **kw), emit)
+    o8 = got[-2].reshape(B, L, H * D)
+    assert (o8[0] == 0).all()
+
+
+@pytest.mark.parametrize("emit", ["both", "only"])
+def test_segmented_emission_matches_plain(cuda, emit):
+    """K4e on packed rows with pads."""
+    B, L, H, D = 3, 128, 12, 64
+    rng = np.random.default_rng(7)
+    qkv = torch.from_numpy(rng.standard_normal(
+        (B * L, 3 * H * D), dtype=np.float32)).to(cuda, torch.bfloat16)
+    seg = np.full((B, L), -1, np.int32)
+    seg[:, :40], seg[:, 40:100] = 0, 1
+    seg = torch.from_numpy(seg).to(cuda)
+    kw = dict(B=B, L=L, H=H, D=D, emit_quantized=emit)
+    got = A.fused_attention_segmented(qkv, seg, **kw)
+    _attn_emit_close(got, A.fused_attention_segmented_ref(qkv, seg, **kw),
+                     emit)
+
+
+@pytest.mark.parametrize("emit", ["no", "only"])
+@pytest.mark.parametrize("B,L,H,D", [(4, 256, 12, 64), (2, 1024, 12, 64),
+                                     (3, 72, 4, 32), (2, 192, 4, 128)])
+def test_int8_scores_match_plain(cuda, B, L, H, D, emit):
+    """K2i8: integer products and the same f32 steps, so it meets K2's
+    tolerance; a len-0 row (every key at p8 = 127) stays finite."""
+    rng = np.random.default_rng(L + D)
+    qkv = torch.from_numpy(rng.standard_normal(
+        (B * L, 3 * H * D), dtype=np.float32)).to(cuda, torch.bfloat16)
+    lens = torch.from_numpy(rng.integers(1, L + 1, B).astype(np.int32)).to(
+        cuda)
+    lens[0] = 0
+    kw = dict(B=B, L=L, H=H, D=D, int8_scores=True, emit_quantized=emit)
+    before = fused_attention.i8s_launches
+    got = fused_attention(qkv, lens, **kw)
+    assert fused_attention.i8s_launches == before + 1
+    ref = fused_attention_ref(qkv, lens, **kw)
+    if emit == "no":
+        _close(got, ref, 2 ** -6, 1e-2)
+        assert torch.isfinite(got).all()
+        # the control: K2's bf16 softmax fails that tolerance on the rows
+        # with keys, so the check tells K2i8 from plain K2
+        seen = (lens > 0).repeat_interleave(L)
+        plain = fused_attention(qkv, lens, B=B, L=L, H=H, D=D)[seen].float()
+        r = ref[seen].float()
+        assert not ((plain - r).abs()
+                    <= 2 ** -6 * r.abs() + 1e-2 * r.square().mean().sqrt()
+                    ).all()
+    else:
+        _attn_emit_close(got, ref, emit)

@@ -94,20 +94,27 @@ def test_qmatmul_wrapper_routes_cpu_to_ref():
 
 
 @pytest.mark.parametrize("opt", [dict(int8_compute=True),
-                                 dict(emit_quantized="both")])
+                                 dict(int8_compute=True,
+                                      emit_quantized="both")])
 def test_qmatmul_unported_modes_raise(opt):
-    """The int8 mode is ported: it runs K3's plain version on a CPU
-    tensor. The quantized-output emission is not, and still raises."""
+    """Both once-unported modes now run on a CPU tensor: the int8 mode
+    as K3's plain version, and the quantized-output emission as its
+    plain version (the output, its int8 rows and their scales)."""
+    from embeddings_tpu_torch.ops.qmatmul import qmatmul_int8_ref
     x, qt, bias, _ = _inputs("q4_0", False, "bias")
     tq = from_jax_params(qt)
     args = (torch.from_numpy(x), tq.codes, tq.scales, None,
             torch.from_numpy(bias))
-    if "int8_compute" in opt:
-        from embeddings_tpu_torch.ops.qmatmul import qmatmul_int8_ref
-        assert torch.equal(qmatmul(*args, **opt), qmatmul_int8_ref(*args))
+    emit = opt.get("emit_quantized", "no")
+    got = qmatmul(*args, **opt)
+    want = qmatmul_int8_ref(*args, emit_quantized=emit)
+    if emit == "no":
+        assert torch.equal(got, want)
         return
-    with pytest.raises(NotImplementedError):
-        qmatmul(*args, **opt)
+    assert len(got) == 3 and got[1].dtype == torch.int8
+    assert got[2].shape == (M, 1)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
 
 
 @pytest.mark.parametrize("act", [None, "gelu", "relu"])
