@@ -1,7 +1,8 @@
 """Smoke test of the PyTorch/CUDA port on one GPU: builds the hand-written
-kernels (K1-K7, K6w and K6c, and the chained-int8 modes K1e, K3e, K3x,
-K2e, K4e and K2i8), holds each against its plain PyTorch version on the card,
-and drives the port's paths through Engine -> encode_batch (or
+kernels (K1-K7, K6w and K6c, the chained-int8 modes K1e, K3e, K3x,
+K2e, K4e and K2i8, and the context-parallel K8a and K8b), holds each
+against its plain PyTorch version on the card, and drives the port's
+paths through Engine -> encode_batch (or
 encode_batch_packed) -> BatchingService -> TCP, checking each path's
 kernel launch counts:
 
@@ -21,13 +22,19 @@ kernel launch counts:
   28 layers, last-token pooling; one weight tree for both forms): causal
   on K6c at L=512 and L=4096, bidirectional (as published) on K2 at L=512
   and K6 plain at L=4096, 7 K1 a layer;
+- context parallelism on a (data, seq) mesh that names the one card once
+  per shard: bge-base on a 2 x 2 mesh (K1 + K8a, local queries against
+  the gathered K/V) and nomic-embed-text-v1 on a 1 x 4 mesh (RoPE,
+  SwiGLU: K1 + K8b), against the single-device Engine and the plain f32
+  CP forward;
 
 then times the kernels and the forwards, with a device-time profile of
 each forward by kernel.
 
     python3 chip_smoke.py              # every phase, needs one CUDA device
     python3 chip_smoke.py --phases device,build,k1,k2,k3,k4k5,k6k7,k6w,k6c,\
-        emit,attn_emit
+        emit,attn_emit,k8
+    python3 chip_smoke.py --phases device,build,k8,cp_path
 
 Each phase prints one JSON line. The last two lines are the kernel table
 and ``{"ok": true, "device": {...}}``; any failure exits non-zero before
@@ -96,6 +103,20 @@ K4E_REPLACES = ("embeddings_tpu/ops/attention.py:61 (_emit_int8_rows from "
                 ":490)")
 K2I8_REPLACES = ("embeddings_tpu/ops/attention.py:109 (_attn_kernel's "
                  "int8_scores branch via fused_attention :1039)")
+K8A_REPLACES = ("embeddings_tpu/ops/attention.py:580 (_attn_kernel_cp via "
+                "fused_attention_cp :610)")
+K8B_REPLACES = ("embeddings_tpu/ops/attention.py:936 (_attn_kernel_cp_stream "
+                "via fused_attention_cp_stream :985)")
+# the CP kernels' checks (B, Lc, L): K8a at bge's shard shape on the 2 x 2
+# mesh and at L=1,024; K8b at nomic's shard shape on the 1 x 4 mesh
+# (BK=512) and at L=8,192
+K8A_CASES = [(16, 256, 512), (8, 256, 1024)]
+K8B_CASES = [(4, 512, 2048), (1, 2048, 8192)]
+# the CP paths: bge-base at B=32, L=512 on dp=2 x sp=2 (a shard: B=16,
+# Lc=256: K8a), nomic-embed-text-v1 at B=4, L=2,048 on dp=1 x sp=4 (a
+# shard: B=4, Lc=512: K8b, past the whole-row rule)
+CP_BGE, CP_BGE_MESH = (32, 512), (2, 2)
+CP_NOMIC, CP_NOMIC_MESH = (4, 2048), (1, 4)
 # the chained links' emitting calls at bge's shapes (K1e / K3e): name ->
 # (K, N, epilogue, emit), and one N = 4,096 case (bge-large's FFN)
 EMIT_SHAPES = {"o_proj_both": (E, E, "bias_residual_ln", "both"),
@@ -289,6 +310,8 @@ def counters() -> dict:
             "K2i8": (fa, "i8s_launches"),
             "K4e_both": (seg, "both_launches"),
             "K4e_only": (seg, "only_launches"),
+            "K8a": (A.fused_attention_cp, "launches"),
+            "K8b": (A.fused_attention_cp_stream, "launches"),
             "quantize_act": (Lin.quantize_act, "calls")}
 
 
@@ -549,7 +572,7 @@ def n_bucketed_forwards(eng, texts) -> int:
         extend_buckets(eng.engine_config.batch_buckets, bs)))
 
 
-def _bge_base_engine(**ec):
+def _bge_base_engine(mesh=None, **ec):
     import torch
     from embeddings_tpu_torch import BertConfig, EngineConfig, KNOWN_MODELS
     from embeddings_tpu_torch.models import params as P
@@ -564,8 +587,8 @@ def _bge_base_engine(**ec):
         STATE["params"] = (cfg, params, time.perf_counter() - t0)
     cfg, params, _ = STATE["params"]
     tok = tokenizer_from_dir(FIXTURE / "model")
-    return Engine(params, cfg, tok, EngineConfig(batch_size=128, **ec),
-                  device=torch.device("cuda"))
+    return Engine(params, cfg, tok, EngineConfig(**{"batch_size": 128, **ec}),
+                  device=None if mesh else torch.device("cuda"), mesh=mesh)
 
 
 def phase_main_path():
@@ -1326,11 +1349,11 @@ def phase_attn_emit():
          f"step of each side", **out)
 
 
-def _family_engine(family: str, **ec):
-    """all-mpnet-base-v2, jina-embeddings-v2-base-en, gte-modernbert-base
-    or a bge-base-shaped BERT with 2,048 positions ("bert_long") at full
-    width and depth, q4_0 packed + fused qkv, random weights from numpy
-    seed 0, on the card."""
+def _family_engine(family: str, mesh=None, **ec):
+    """all-mpnet-base-v2, jina-embeddings-v2-base-en, gte-modernbert-base,
+    nomic-embed-text-v1 or a bge-base-shaped BERT with 2,048 positions
+    ("bert_long") at full width and depth, q4_0 packed + fused qkv, random
+    weights from numpy seed 0, on the card (or on a CP ``mesh`` of it)."""
     import torch
     from embeddings_tpu_torch import BertConfig, EngineConfig, KNOWN_MODELS
     from embeddings_tpu_torch.models import params as P
@@ -1342,6 +1365,7 @@ def _family_engine(family: str, **ec):
                             vocab_size=30527, max_position_embeddings=514),
               "jina": dict(KNOWN_MODELS["jina-embeddings-v2-base-en"]),
               "modernbert": dict(KNOWN_MODELS["gte-modernbert-base"]),
+              "nomic": dict(KNOWN_MODELS["nomic-embed-text-v1"]),
               "bert_long": dict(KNOWN_MODELS["bge-base-en-v1.5"],
                                 vocab_size=30528,
                                 max_position_embeddings=2048)}[family]
@@ -1355,7 +1379,7 @@ def _family_engine(family: str, **ec):
     ec = {"batch_size": 128, "max_seq_len": cfg.max_position_embeddings,
           **ec}
     return Engine(params, cfg, tok, EngineConfig(**ec),
-                  device=torch.device("cuda"))
+                  device=None if mesh else torch.device("cuda"), mesh=mesh)
 
 
 def _run_counted(eng, texts):
@@ -1660,6 +1684,152 @@ def phase_qwen2_path():
     _check_tcp("qwen2_server_bidirectional", engines["bidirectional"])
 
 
+def _cp_attn_inputs(rng, Bx: int, Lc: int, Lx: int, dev, ragged: bool = True,
+                    fused_q: bool = False):
+    """The CP kernels' operands: bf16 q [Bx*Lc, E] (with ``fused_q`` a
+    column view of a local projection [Bx*Lc, 3E], row stride 3E, read in
+    place as the fused tree's forward passes it), the gathered kv [Bx*Lx,
+    2E] and int32 lengths: ragged (a len-0 row first, a row shorter than
+    Lc second and a full row last; one row: a length past Lc short of Lx)
+    or every row full."""
+    import torch
+    src = torch.from_numpy(rng.standard_normal(
+        (Bx * Lc, 3 * E if fused_q else E), dtype=np.float32)).to(
+        dev, torch.bfloat16)
+    kv = torch.from_numpy(rng.standard_normal(
+        (Bx * Lx, 2 * E), dtype=np.float32)).to(dev, torch.bfloat16)
+    lens = np.full(Bx, Lx)
+    if ragged and Bx > 2:
+        lens = rng.integers(1, Lx + 1, Bx)
+        lens[0], lens[1], lens[-1] = 0, Lc // 2 + 3, Lx
+    elif ragged:
+        lens[0] = Lx - 777
+    return src[:, :E], kv, torch.tensor(lens.tolist(), dtype=torch.int32,
+                                        device=dev)
+
+
+def phase_k8():
+    """K8a and K8b (context parallelism: a shard's Lc local queries against
+    the L all-gathered keys, Lc < L) against their plain versions on the
+    card, with K6's tolerance; K8a reads q in place from a [B*Lc, 3E]
+    projection. The control: the same output held against the plain
+    version run on the local K/V chunk alone (no gather) must fail the
+    check, or the check could not see a missing gather."""
+    import torch
+    from embeddings_tpu_torch.ops import attention as A
+    rng = np.random.default_rng(12)
+    dev = torch.device("cuda")
+    saved = read_counts()  # comparison launches are not path launches
+    out = {}
+    for name, cases in (("K8a", K8A_CASES), ("K8b", K8B_CASES)):
+        for Bx, Lc, Lx in cases:
+            q, kv, lens = _cp_attn_inputs(rng, Bx, Lc, Lx, dev,
+                                          fused_q=name == "K8a")
+            kw = dict(B=Bx, Lc=Lc, L=Lx, H=H, D=D)
+            if name == "K8a":
+                kernel, plain = A.fused_attention_cp, A.fused_attention_cp_ref
+            else:
+                kw["BK"] = A.pick_bk(Lx)
+                kernel, plain = (A.fused_attention_cp_stream,
+                                 A.fused_attention_cp_stream_ref)
+            got = kernel(q, kv, lens, **kw)
+            ref = plain(q, kv, lens, **kw)
+            torch.cuda.synchronize()
+            r = compare(got, ref, K2_RTOL, K2_ATOL_RMS)
+            zero = [b for b, n in enumerate(lens.tolist()) if n == 0]
+            r["zero_rows_exact"] = all(bool(
+                (got.reshape(Bx, Lc, E)[b] == 0).all()) for b in zero)
+            local = kv.reshape(Bx, Lx, 2 * E)[:, :Lc].reshape(Bx * Lc, 2 * E)
+            ctl = A.fused_attention_cp_ref(q, local, lens.clamp(max=Lc),
+                                           B=Bx, Lc=Lc, L=Lc, H=H, D=D)
+            r["control_no_gather"] = compare(got, ctl, K2_RTOL, K2_ATOL_RMS)
+            out[f"{name}_B{Bx}_Lc{Lc}_L{Lx}"] = dict(
+                r, shape=[Bx, Lc, Lx, H, D], q_row_stride=q.stride(0),
+                lengths_head=lens.tolist()[:3], **(
+                    {"BK": kw["BK"]} if "BK" in kw else {}))
+            del ref, ctl
+    set_counts(saved)
+    for key, r in out.items():
+        check(r["ok"] and r["zero_rows_exact"], f"{key} disagrees: {r}")
+        check(not r["control_no_gather"]["ok"],
+              f"{key}: the control (no gather) passes the check")
+    emit("k8_parity", tolerance=f"|err| <= {K2_RTOL}*|ref| + "
+         f"{K2_ATOL_RMS}*rms(ref) (K6's); len-0 rows exactly 0; the "
+         f"control against the local chunk alone must fail", **out)
+
+
+def _cp_case(name: str, make, single, shape, mesh_shape, k1_layer: int,
+             kernel: str, single_want: dict, texts) -> dict:
+    """One CP path: ``make(mesh=..., **ec)`` builds the Engine on a mesh
+    naming the card once per shard; one forward through encode_batch with
+    exact launch counts (k1_layer K1 and one ``kernel`` a layer a shard,
+    nothing else), against the single-device Engine ``single`` (which
+    launches ``single_want``) and the plain f32 CP forward."""
+    import torch
+    from embeddings_tpu_torch.parallel import make_mesh_cp
+    Bx, Lx = shape
+    dp, sp = mesh_shape
+    mesh = make_mesh_cp(dp, sp, [torch.device("cuda")] * (dp * sp))
+    ec = dict(batch_size=Bx, max_seq_len=Lx)
+    eng = make(mesh=mesh, **ec)
+    check(all(len(eng.tokenize(t)) == Lx for t in texts),
+          f"{name}: texts do not fill L={Lx}")
+    emb, counts, n, wall = _run_counted(eng, texts)
+    nl, shards = eng.config.num_hidden_layers, dp * sp
+    want = only(K1=k1_layer * nl * shards, **{kernel: nl * shards})
+    check(n == 1 and counts == want,
+          f"{name}: launches {counts} over {n} forwards, want {want}")
+    emb_single, counts_single, _, _ = _run_counted(single, texts)
+    check(counts_single == single_want,
+          f"{name}: single-device launches {counts_single}")
+    plain = make(mesh=mesh, use_pallas="never", compute_dtype="float32",
+                 **ec)
+    cos_single = _row_cos(emb, emb_single)
+    cos_plain = _row_cos(emb, plain.encode_batch(texts))
+    norms = np.linalg.norm(emb, axis=1)
+    check(np.isfinite(emb).all() and emb.shape == (Bx, E),
+          f"{name}: output not finite / wrong shape")
+    check(np.abs(norms - 1).max() < 1e-3, f"{name}: not unit norm")
+    check(cos_single.min() >= 0.999 and cos_plain.min() >= 0.999,
+          f"{name}: CP vs single device {cos_single.min()}, vs plain f32 CP "
+          f"{cos_plain.min()}")
+    STATE[f"cp_{name}_engine"], STATE[f"cp_{name}_single"] = eng, single
+    STATE[f"launches_{kernel}"] = counts[kernel]
+    return dict(batch=[Bx, Lx], mesh={"data": dp, "seq": sp},
+                shard=[Bx // dp, Lx // sp], forwards=n, wall_s=wall,
+                launches=counts, single_device_launches=counts_single,
+                k1_per_layer_per_shard=k1_layer,
+                cp_vs_single_device_min_cos=float(cos_single.min()),
+                cp_vs_plain_f32_cp_min_cos=float(cos_plain.min()),
+                norm_min=float(norms.min()), norm_max=float(norms.max()))
+
+
+def phase_cp_path():
+    """Context parallelism through Engine(mesh=...).encode_batch at full
+    width and depth, q4_0 packed + fused qkv, random weights from numpy
+    seed 0: (a) bge-base-en-v1.5 on dp=2 x sp=2 at B=32, L=512 (every
+    layer of every shard takes K8a; 4 K1 a layer a shard: qkv, o, up,
+    down), (b) nomic-embed-text-v1 (RoPE, SwiGLU: 5 K1, gate and up apart)
+    on dp=1 x sp=4 at B=4, L=2,048 (K8b: the gathered row is past the
+    whole-row rule); then one TCP round trip through the bge CP Engine."""
+    bge = _cp_case(
+        "bge", _bge_base_engine, _bge_base_engine(batch_size=CP_BGE[0]),
+        CP_BGE, CP_BGE_MESH, 4, "K8a", only(K1=4 * NL, K2=NL),
+        [_joined(i * 60, 60) for i in range(CP_BGE[0])])
+    nomic = _cp_case(
+        "nomic", functools.partial(_family_engine, "nomic"),
+        _family_engine("nomic", batch_size=CP_NOMIC[0]), CP_NOMIC,
+        CP_NOMIC_MESH, 5, "K8b", only(K1=5 * NL, K6=NL),
+        [_joined(i * 250, 250) for i in range(CP_NOMIC[0])])
+    emit("cp_path", bge=dict(bge, model="bge-base-en-v1.5 (random init, "
+                             "numpy seed 0, vocab 30528) q4_0 packed + "
+                             "fused qkv"),
+         nomic=dict(nomic, model="nomic-embed-text-v1 (random init, numpy "
+                    "seed 0) q4_0 packed + fused qkv",
+                    init_quantize_s=STATE["nomic_params"][2]))
+    _check_tcp("cp_server", STATE["cp_bge_engine"])
+
+
 def _first_positions_cos(engines, text: str) -> float:
     """Min cosine between the causal and the bidirectional hidden states
     of one text's first 64 positions, through the kernels (the row padded
@@ -1727,7 +1897,17 @@ def phase_timing():
                 "qwen2_bidir_short": ("qwen2_bidir_engine", QW_SHORT,
                                       QW_K1, {0: QW_NL}, QW_D),
                 "qwen2_bidir_long": ("qwen2_bidir_engine", QW_LONG,
-                                     QW_K1, {4: QW_NL}, QW_D)}
+                                     QW_K1, {4: QW_NL}, QW_D),
+                # CP forwards (K8a / K8b are mode 4 of the kernel) and the
+                # single-device forwards at their shapes (K2; K6 plain)
+                "cp_bge": ("cp_bge_engine", CP_BGE, 4 * NL * 4,
+                           {4: NL * 4}, D),
+                "cp_bge_single": ("cp_bge_single", CP_BGE, 4 * NL, {0: NL},
+                                  D),
+                "cp_nomic": ("cp_nomic_engine", CP_NOMIC, 5 * NL * 4,
+                             {4: NL * 4}, D),
+                "cp_nomic_single": ("cp_nomic_single", CP_NOMIC, 5 * NL,
+                                    {4: NL}, D)}
     for name, (key, shape, k1, attn, dh) in families.items():
         if key in STATE:
             fids = rng.integers(1000, 30000, shape).astype(np.int32)
@@ -1845,6 +2025,12 @@ def phase_timing():
         kernels += qwen2_attention_rows(rng, dev)
     if "emit_parity" in RESULTS and "attn_emit_parity" in RESULTS:
         kernels += chain_rows(rng, dev)
+    if "k8_parity" in RESULTS:
+        kernels += cp_rows(rng, dev)
+    cp_fwd = {name: {"forward_ms": fwd[name],
+                     "single_device_ms": fwd[name + "_single"],
+                     "cp_over_single": fwd[name] / fwd[name + "_single"]}
+              for name in ("cp_bge", "cp_nomic") if name in fwd}
     set_counts(saved)
     per_layer_bound = sum(kk["bound_ms"] for kk in kernels[:5])
     emit("timing", batch=[B, L], forward_ms=fwd["bf16"],
@@ -1855,7 +2041,8 @@ def phase_timing():
          packed_forward=packed_fwd, family_forward=family_fwd,
          forward_bound_ms=NL * per_layer_bound,
          kernel_ms_per_forward=NL * sum(kk["ms"] for kk in kernels[:5]),
-         int8_chain_forward_ms=chain_fwd, profile=profiles)
+         int8_chain_forward_ms=chain_fwd, cp_forward=cp_fwd,
+         profile=profiles)
     RESULTS["kernels"] = kernels
 
 
@@ -2121,13 +2308,21 @@ def device_profile(name: str, fn, want: dict) -> dict:
     launches ``want`` names (``launches_want``)."""
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
-    # one warm-up step: without it the tracer can miss the first kernels
+    # one warm-up step: without it the tracer can miss the first kernels.
+    # The tracer keeps a kernel only if its device timestamp lies inside
+    # the recorded step's window on the host clock, and the two clocks
+    # can disagree by a fraction of a millisecond: kernels started just
+    # after the window opens were then dropped (a prefix of the forward).
+    # Idle gaps at both edges keep every kernel of the step inside it.
+    gap_s = 0.02
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  schedule=schedule(wait=0, warmup=1, active=1,
                                    repeat=1)) as prof:
         for _ in range(2):
+            time.sleep(gap_s)
             fn()
             torch.cuda.synchronize()
+            time.sleep(gap_s)
             prof.step()
     kinds = ("qmm_int8_kernel", "requant_kernel", "quant_rows_kernel",
              "emit_rows_kernel", "qmm_kernel", "attn_i8_kernel",
@@ -2304,6 +2499,53 @@ def bias_stream_rows(rng, dev) -> list:
     return out
 
 
+def cp_rows(rng, dev) -> list:
+    """K8a and K8b rows of the kernel table at the CP paths' shard shapes
+    (bge: B=16, Lc=256, L=512, q read in place at row stride 3E; nomic:
+    B=4, Lc=512, L=2,048), every row full. The bound: 4*B*H*Lc*L*D
+    products at the bf16 peak, or the bytes 2*(2*B*Lc*E + 2*B*L*E) (q in,
+    context out, gathered k and v in), whichever is larger. The library
+    yardstick: SDPA on [B, H, Lc, D] and [B, H, L, D] copies of q, k, v
+    with the boolean key-prefix mask [B, 1, 1, L]."""
+    import torch
+    import torch.nn.functional as Fn
+    from embeddings_tpu_torch.ops import attention as A
+    out = []
+    for kname, (Bx, Lx), (dp, sp) in (("K8a", CP_BGE, CP_BGE_MESH),
+                                      ("K8b", CP_NOMIC, CP_NOMIC_MESH)):
+        Bs, Lc = Bx // dp, Lx // sp
+        q, kv, lens = _cp_attn_inputs(rng, Bs, Lc, Lx, dev, ragged=False,
+                                      fused_q=kname == "K8a")
+        kw = dict(B=Bs, Lc=Lc, L=Lx, H=H, D=D)
+        if kname == "K8a":
+            fn, replaces = "fused_attention_cp", K8A_REPLACES
+        else:
+            kw["BK"] = A.pick_bk(Lx)
+            fn, replaces = "fused_attention_cp_stream", K8B_REPLACES
+        kernel = functools.partial(getattr(A, fn), q, kv, lens, **kw)
+        plain = functools.partial(getattr(A, fn + "_ref"), q, kv, lens, **kw)
+        bms, by = bound_ms(4.0 * Bs * H * Lc * Lx * D,
+                           2 * (2 * Bs * Lc * E + 2 * Bs * Lx * E) + Bs * 4)
+        qh = q.reshape(Bs, Lc, H, D).transpose(1, 2).contiguous()
+        kh, vh = (kv.reshape(Bs, Lx, 2, H, D)[:, :, i].transpose(1, 2)
+                  .contiguous() for i in range(2))
+        mask = (torch.arange(Lx, device=dev)[None, :]
+                < lens[:, None])[:, None, None, :]
+        out.append({
+            "name": f"{fn}[B{Bs} Lc{Lc} L{Lx} H{H} D{D}]", "route": "cuda",
+            "source": "embeddings_tpu_torch/csrc/attention.cu",
+            "replaces": replaces,
+            "launches": STATE.get(f"launches_{kname}", 0),
+            "max_abs_err": RESULTS["k8_parity"][
+                f"{kname}_B{Bs}_Lc{Lc}_L{Lx}"]["max_abs_err"],
+            "ms": cuda_ms(kernel), "plain_ms": cuda_ms(plain, iters=3),
+            "bound_ms": bms, "bound_by": by,
+            "library_ms": cuda_ms(lambda: Fn.scaled_dot_product_attention(
+                qh, kh, vh, attn_mask=mask)),
+            "shape": [Bs, Lc, Lx, H, D]})
+    return out
+
+
 PHASES = {"device": phase_device, "build": phase_build, "k1": phase_k1,
           "k2": phase_k2, "k3": phase_k3, "k4k5": phase_k4k5,
           "k6k7": phase_k6k7, "k6w": phase_k6w, "k6c": phase_k6c,
@@ -2316,7 +2558,8 @@ PHASES = {"device": phase_device, "build": phase_build, "k1": phase_k1,
           "long_path": phase_long_path, "mpnet_path": phase_mpnet_path,
           "jina_path": phase_jina_path,
           "modernbert_path": phase_modernbert_path,
-          "qwen2_path": phase_qwen2_path, "timing": phase_timing}
+          "qwen2_path": phase_qwen2_path, "k8": phase_k8,
+          "cp_path": phase_cp_path, "timing": phase_timing}
 
 
 def main() -> int:

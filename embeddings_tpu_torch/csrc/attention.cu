@@ -15,10 +15,23 @@
 //               layers);
 //   mode 7, K6c: _attn_kernel_stream in its causal mode, behind
 //               fused_attention_stream(causal=True) (the Qwen2 decoder
-//               embedders).
-// For each sequence (packed row) b, head h and query i, with q, k, v read
-// as column slices of the fused qkv buffer [B*L, 3E] (q at h*D, k at
-// E + h*D, v at 2E + h*D), and d = q . k_j accumulated in f32:
+//               embedders);
+//   mode 4 with the CP operand layout, K8a and K8b: _attn_kernel_cp and
+//               _attn_kernel_cp_stream, behind fused_attention_cp() and
+//               fused_attention_cp_stream() (context parallelism).
+// For each sequence (packed row) b, head h and query i, with q read from
+// rows of stride ldq (q at h*D), k and v from rows of stride ldkv (k at
+// h*D, v at E + h*D), and d = q . k_j accumulated in f32. Every mode but
+// the CP layout reads them as column slices of the fused qkv buffer
+// [B*L, 3E]: q = qkv, kv = qkv + E, ldq = ldkv = 3E, and Lq = L query
+// rows a sequence. The CP operand layout of mode 4 (K8a, K8b: this
+// shard's Lc local queries against the all-gathered keys) reads q [B*Lc,
+// E] with any row stride ldq (a column slice of the local fused
+// projection [B*Lc, 3E] is read in place, ldq = 3E; a rotated q has ldq =
+// E) and the gathered kv [B*L, 2E] (k | v, ldkv = 2E), runs Lq = Lc query
+// rows a sequence against the L gathered keys, and writes out [B*Lc, E].
+// K8a (whole row) and K8b (streamed in BK blocks) compute the same sums:
+// this kernel streams 64-key tiles in both, so one path serves both:
 //   mode 0: s = clamp(bf16(q * s2) . k_j, -100, hi) (q pre-scaled and
 //           rounded, the TPU's K2 rounding), key j valid iff j < len[b];
 //   mode 1: s = clamp(d * s2, -100, hi) (scaled after the dot, in f32, as
@@ -41,10 +54,11 @@
 //           row only: about half of mode 4's work.
 //   p_j = bf16(exp2(s)) if valid else 0
 //   out = (sum_j p_j v_j) / max(sum_j p_j, 1e-30)           (f32 sums)
-// written as bf16 to ctx [B*L, E] at column h*D. s2 = log2(e)/sqrt(D); hi
-// = 127 - ceil(log2 n) for n = L keys (n = min(W*128, L) in mode 2; in
+// written as bf16 to ctx [B*Lq, E] at column h*D. s2 = log2(e)/sqrt(D);
+// hi = 127 - ceil(log2 n) for n = L keys (n = min(W*128, L) in mode 2; in
 // modes 6 and 7 n is the whole row L, as the TPU's _stream_call sizes
-// it, not the band or the causal prefix). There
+// it, not the band or the causal prefix; in the CP layout n is the
+// gathered row L, not the local Lc). There
 // is no max-subtraction: the clamp keeps exp2 and the sum finite for any
 // row length, as in the TPU kernels, so key tiles only ADD into the
 // output and the denominator; nothing is rescaled. That also makes every
@@ -73,8 +87,13 @@
 // (129 keys of the band, at most 192 visited). Mode 7 at Qwen2's B=4,
 // L=4,096, H=12, D=128 needs ~206 GFLOP for ~201 MB: bound by
 // operations, as K6 plain is at that length; its blocks near the end of
-// a row walk 64 key tiles, those at its start one. The design reads q, k
-// and v in place from the fused projection (no transpose pass through memory), and keeps scores and
+// a row walk 64 key tiles, those at its start one. The CP layout at
+// bge's B=16, Lc=256, L=512 moves ~38 MB for ~6.4 GFLOP (bound by
+// bytes); at nomic's B=4, Lc=512, L=2,048 ~32 MB for ~12.9 GFLOP (bound
+// by operations). The design reads q, k
+// and v in place from the fused projection (no transpose pass through
+// memory; in the CP layout q from the local projection, k and v from the
+// gathered [B*L, 2E]), and keeps scores and
 // probabilities in shared memory and registers: one block per (64-query
 // tile, head, sequence), 4 warps of 16 query rows, 64-key tiles of K and
 // V (and their segment ids) staged in shared memory, both products on the
@@ -228,12 +247,13 @@ __device__ __forceinline__ void finish_rows(
 
 template <int D, int MODE, int EMIT>
 __global__ void __launch_bounds__(THREADS) attn_kernel(
-    const __nv_bfloat16* __restrict__ qkv, const int* __restrict__ lengths,
+    const __nv_bfloat16* __restrict__ qsrc,
+    const __nv_bfloat16* __restrict__ kv, const int* __restrict__ lengths,
     const int* __restrict__ seg, const int* __restrict__ kbs,
     const int* __restrict__ kbe, const float* __restrict__ bias,
     const float* __restrict__ slopes, __nv_bfloat16* __restrict__ out,
-    int8_t* __restrict__ o8, float* __restrict__ os, int L, int H, int W,
-    float s2, float hi) {
+    int8_t* __restrict__ o8, float* __restrict__ os, int L, int Lq, int H,
+    int W, int ldq, int ldkv, float s2, float hi) {
   using Lay = Layout<D>;
   constexpr int DP = Lay::DP;
   constexpr int OP = Lay::OP;
@@ -257,9 +277,9 @@ __global__ void __launch_bounds__(THREADS) attn_kernel(
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int E = H * D;
-  const size_t ld = 3 * (size_t)E;
   const int len = prefix_masked(MODE) ? lengths[b] : 0;
-  const __nv_bfloat16* rows = qkv + (size_t)b * L * ld;
+  const __nv_bfloat16* qrows = qsrc + (size_t)b * Lq * ldq;
+  const __nv_bfloat16* krows = kv + (size_t)b * L * ldkv;
   float* fsc = fbase + warp * F;
   __nv_bfloat16* ps = pbase + warp * 16 * PP;
 
@@ -270,9 +290,9 @@ __global__ void __launch_bounds__(THREADS) attn_kernel(
     const int r = v / DV;
     const int c = (v % DV) * 8;
     float f[8] = {0, 0, 0, 0, 0, 0, 0, 0};
-    if (q0 + r < L) {
+    if (q0 + r < Lq) {
       const uint4 u = *reinterpret_cast<const uint4*>(
-          rows + (size_t)(q0 + r) * ld + h * D + c);
+          qrows + (size_t)(q0 + r) * ldq + h * D + c);
       const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&u);
       for (int i = 0; i < 4; ++i) {
         const float2 t = __bfloat1622float2(p[i]);
@@ -341,13 +361,14 @@ __global__ void __launch_bounds__(THREADS) attn_kernel(
     for (int v = tid; v < KT * DV; v += THREADS) {
       const int kr = v / DV;
       const int c = (v % DV) * 8;
-      uint4 kv = make_uint4(0, 0, 0, 0), vv = make_uint4(0, 0, 0, 0);
+      uint4 kk = make_uint4(0, 0, 0, 0), vv = make_uint4(0, 0, 0, 0);
       if (k0 + kr < L) {
-        const __nv_bfloat16* src = rows + (size_t)(k0 + kr) * ld + h * D + c;
-        kv = *reinterpret_cast<const uint4*>(src + E);
-        vv = *reinterpret_cast<const uint4*>(src + 2 * E);
+        const __nv_bfloat16* src =
+            krows + (size_t)(k0 + kr) * ldkv + h * D + c;
+        kk = *reinterpret_cast<const uint4*>(src);
+        vv = *reinterpret_cast<const uint4*>(src + E);
       }
-      *reinterpret_cast<uint4*>(ks + kr * DP + c) = kv;
+      *reinterpret_cast<uint4*>(ks + kr * DP + c) = kk;
       *reinterpret_cast<uint4*>(vs + kr * DP + c) = vv;
     }
     __syncthreads();
@@ -417,8 +438,8 @@ __global__ void __launch_bounds__(THREADS) attn_kernel(
   for (int d = 0; d < D / 16; ++d)
     wmma::store_matrix_sync(fsc + d * 16, acc[d], OP, wmma::mem_row_major);
   __syncwarp();
-  finish_rows<D, EMIT>(fsc, 1.0f / fmaxf(rowsum, 1e-30f), qrow, L,
-                       (size_t)b * L + qrow, h, E, out, o8, os, crow);
+  finish_rows<D, EMIT>(fsc, 1.0f / fmaxf(rowsum, 1e-30f), qrow, Lq,
+                       (size_t)b * Lq + qrow, h, E, out, o8, os, crow);
 }
 
 // int8 scores (K2i8): the shared-memory layout of one block (bytes). q8
@@ -676,18 +697,19 @@ cudaError_t launch_cluster(Kern kern, dim3 grid, size_t smem, int H,
 }
 
 template <int D, int MODE, int EMIT>
-cudaError_t launch(const void* qkv, const void* lengths, const void* seg,
-                   const void* kbs, const void* kbe, const void* bias,
-                   const void* slopes, void* out, void* o8, void* os, int B,
-                   int L, int H, int W, float s2, float hi,
-                   cudaStream_t stream) {
+cudaError_t launch(const void* qsrc, const void* kvsrc, const void* lengths,
+                   const void* seg, const void* kbs, const void* kbe,
+                   const void* bias, const void* slopes, void* out, void* o8,
+                   void* os, int B, int L, int Lq, int H, int W, int ldq,
+                   int ldkv, float s2, float hi, cudaStream_t stream) {
   const size_t smem = Layout<D>::smem;
   auto kern = attn_kernel<D, MODE, EMIT>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  dim3 grid((L + QT - 1) / QT, H, B);
-  const auto* q = static_cast<const __nv_bfloat16*>(qkv);
+  dim3 grid((Lq + QT - 1) / QT, H, B);
+  const auto* q = static_cast<const __nv_bfloat16*>(qsrc);
+  const auto* kv = static_cast<const __nv_bfloat16*>(kvsrc);
   const auto* ln = static_cast<const int*>(lengths);
   const auto* sg = static_cast<const int*>(seg);
   const auto* ks = static_cast<const int*>(kbs);
@@ -698,10 +720,10 @@ cudaError_t launch(const void* qkv, const void* lengths, const void* seg,
   auto* c8 = static_cast<int8_t*>(o8);
   auto* cs = static_cast<float*>(os);
   if (EMIT != EMIT_NO)
-    return launch_cluster(kern, grid, smem, H, stream, q, ln, sg, ks, ke, bs,
-                          sl, o, c8, cs, L, H, W, s2, hi);
-  kern<<<grid, THREADS, smem, stream>>>(q, ln, sg, ks, ke, bs, sl, o, c8, cs,
-                                        L, H, W, s2, hi);
+    return launch_cluster(kern, grid, smem, H, stream, q, kv, ln, sg, ks, ke,
+                          bs, sl, o, c8, cs, L, Lq, H, W, ldq, ldkv, s2, hi);
+  kern<<<grid, THREADS, smem, stream>>>(q, kv, ln, sg, ks, ke, bs, sl, o, c8,
+                                        cs, L, Lq, H, W, ldq, ldkv, s2, hi);
   return cudaGetLastError();
 }
 
@@ -728,15 +750,21 @@ cudaError_t launch_i8(const void* qkv, const void* lengths, void* out,
 }
 
 template <int D>
-cudaError_t launch_mode(int mode, int emit, int i8s, const void* qkv,
-                        const void* lengths, const void* seg,
+cudaError_t launch_mode(int mode, int emit, int i8s, const void* q,
+                        const void* kv, const void* lengths, const void* seg,
                         const void* kbs, const void* kbe, const void* bias,
                         const void* slopes, void* out, void* o8, void* os,
-                        int B, int L, int H, int W, float s2, float hi,
-                        cudaStream_t stream) {
-#define ATTN_ARGS qkv, lengths, seg, kbs, kbe, bias, slopes, out, o8, os, B, \
-                  L, H, W, s2, hi, stream
-#define I8_ARGS qkv, lengths, out, o8, os, B, L, H, s2, stream
+                        int B, int L, int Lq, int H, int W, int ldq, int ldkv,
+                        float s2, float hi, cudaStream_t stream) {
+#define ATTN_ARGS q, kv, lengths, seg, kbs, kbe, bias, slopes, out, o8, os, \
+                  B, L, Lq, H, W, ldq, ldkv, s2, hi, stream
+#define I8_ARGS q, lengths, out, o8, os, B, L, H, s2, stream
+  const bool fused = Lq == L && ldq == 3 * H * D && ldkv == ldq &&
+                     kv == static_cast<const __nv_bfloat16*>(q) + H * D;
+  // only mode 4 takes the CP operand layout (K8a, K8b)
+  if (!fused && (mode != STREAM || emit != EMIT_NO || i8s))
+    return cudaErrorInvalidValue;
+  if (Lq < 0 || ldq % 8 || ldkv % 8) return cudaErrorInvalidValue;
   if (i8s) {  // K2i8: prefix mask only
     if (mode != PREFIX) return cudaErrorInvalidValue;
     switch (emit) {
@@ -782,7 +810,12 @@ cudaError_t launch_mode(int mode, int emit, int i8s, const void* qkv,
 
 extern "C" {
 
-// qkv [B*L, 3*H*D] bf16 and out [B*L, H*D] bf16 (device pointers). Modes
+// q, kv and out bf16 (device pointers): q rows [B*Lq] of stride ldq, kv
+// rows [B*L] of stride ldkv (k at column 0, v at H*D), out [B*Lq, H*D].
+// Every mode takes the fused layout (q = qkv [B*L, 3*H*D], kv = qkv +
+// H*D, ldq = ldkv = 3*H*D, Lq = L); mode 4 also the CP layout (K8a, K8b:
+// any Lq, ldq, ldkv; no emission). Strides are multiples of 8 and
+// pointers 16-byte aligned. Modes
 // 0 and 3-7 read lengths [B] int32; modes 1 and 2 read seg [B, L]
 // int32 (-1 on pads); mode 2 also kbs, kbe [B, L/128] int32 and the block
 // cap W (L % 128 == 0); mode 3 reads bias [H, L, L] f32 (log2-scaled);
@@ -792,14 +825,15 @@ extern "C" {
 // 128. emit (modes 0 and 1, H <= 16): 1 also writes o8 [B*L, E] int8 and
 // os [B*L] f32, 2 writes only those (out may be null). i8s (mode 0): the
 // int8-scores kernel (K2i8). Returns a cudaError_t.
-int attn_launch(const void* qkv, const void* lengths, const void* seg,
-                const void* kbs, const void* kbe, const void* bias,
-                const void* slopes, void* out, void* o8, void* os, int mode,
-                int emit, int i8s, int B, int L, int H, int D, int W,
-                float s2, float hi, void* stream) {
+int attn_launch(const void* q, const void* kv, const void* lengths,
+                const void* seg, const void* kbs, const void* kbe,
+                const void* bias, const void* slopes, void* out, void* o8,
+                void* os, int mode, int emit, int i8s, int B, int L, int Lq,
+                int H, int D, int W, int ldq, int ldkv, float s2, float hi,
+                void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define ATTN_ARGS mode, emit, i8s, qkv, lengths, seg, kbs, kbe, bias, \
-                  slopes, out, o8, os, B, L, H, W, s2, hi, st
+#define ATTN_ARGS mode, emit, i8s, q, kv, lengths, seg, kbs, kbe, bias, \
+                  slopes, out, o8, os, B, L, Lq, H, W, ldq, ldkv, s2, hi, st
   switch (D) {
     case 32: return launch_mode<32>(ATTN_ARGS);
     case 64: return launch_mode<64>(ATTN_ARGS);

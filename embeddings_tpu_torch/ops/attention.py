@@ -7,7 +7,11 @@ long rows, in-kernel ALiBi; with ``causal=True`` K6c, the Qwen2 decoder
 embedders) with its banded mode ``fused_attention_window`` (K6w:
 ModernBERT's sliding-window layers), and, for token-packed rows, the
 segment-masked ``fused_attention_segmented`` (K4) and its block-skipping
-variant ``fused_attention_segmented_blockskip`` (K5).
+variant ``fused_attention_segmented_blockskip`` (K5); and for context
+parallelism (``parallel/context.py``) the rectangular
+``fused_attention_cp`` (K8a: a shard's local queries against the
+all-gathered K/V) and its key-streamed variant
+``fused_attention_cp_stream`` (K8b).
 
 Each wrapper launches its mask mode of the hand-written kernel
 ``csrc/attention.cu`` on a CUDA tensor, or raises; on a CPU tensor it runs
@@ -24,8 +28,6 @@ K2 and K4 also emit the context per-row quantized to int8
 f32 one), and K2 runs its int8-scores branch (``int8_scores``, K2i8),
 switched by ``set_int8_scores_mode`` / ``int8_scores_mode`` as in the JAX
 package ("auto" follows the int8 compute mode, ``use_int8_scores``).
-
-Not ported yet: the context-parallel kernels (K8a, K8b).
 """
 
 from __future__ import annotations
@@ -535,6 +537,129 @@ def fused_attention_window(qkv: torch.Tensor, lengths: torch.Tensor, *,
     return out
 
 
+# ---------------------------------------------------------------------------
+# K8a, K8b: context parallelism's local queries against the gathered K/V
+# ---------------------------------------------------------------------------
+
+def _cp_heads(q, kv, B, Lc, L, H, D):
+    """q [B*Lc, H*D] and kv [B*L, 2*H*D] (k | v) -> q [B, H, Lc, D], k
+    and v [B, H, L, D] views."""
+    kvh = kv.reshape(B, L, 2, H, D).permute(2, 0, 3, 1, 4)
+    return q.reshape(B, Lc, H, D).transpose(1, 2), kvh[0], kvh[1]
+
+
+def fused_attention_cp_ref(q: torch.Tensor, kv: torch.Tensor,
+                           lengths: torch.Tensor, *, B: int, Lc: int, L: int,
+                           H: int, D: int) -> torch.Tensor:
+    """The plain PyTorch version of K8a (same arguments as
+    ``fused_attention_cp``): the whole [Lc, L] score row of each head in
+    one f32 product, as the TPU's ``_attn_kernel_cp`` does: s = (q.k) * s2,
+    clamped with the bound sized to the L gathered keys."""
+    dt = q.dtype
+    qh, k, v = _cp_heads(q, kv, B, Lc, L, H, D)
+    s = (qh.float() @ k.float().transpose(-1, -2)) * _scale(D)
+    p = _prefix_probs(s, lengths, 0, _clamp_hi(L), dt)
+    return _merge_heads(p @ v.float(), p.sum(-1, keepdim=True), dt, B, Lc,
+                        H, D)
+
+
+def fused_attention_cp_stream_ref(q: torch.Tensor, kv: torch.Tensor,
+                                  lengths: torch.Tensor, *, B: int, Lc: int,
+                                  L: int, H: int, D: int,
+                                  BK: int = 512) -> torch.Tensor:
+    """The plain PyTorch version of K8b (same arguments as
+    ``fused_attention_cp_stream``): K8a's sums taken over the gathered
+    keys in blocks of BK, as the TPU grid walks them (and as
+    ``fused_attention_stream_ref`` does), with no rescaling."""
+    dt = q.dtype
+    qh, k, v = _cp_heads(q, kv, B, Lc, L, H, D)
+    qf, hi = qh.float(), _clamp_hi(L)
+    o = torch.zeros(B, H, Lc, D, device=q.device)
+    den = torch.zeros(B, H, Lc, 1, device=q.device)
+    for k0 in range(0, L, BK):
+        ks = slice(k0, k0 + BK)
+        s = (qf @ k[:, :, ks].float().transpose(-1, -2)) * _scale(D)
+        p = _prefix_probs(s, lengths, k0, hi, dt)
+        o += p @ v[:, :, ks].float()
+        den += p.sum(-1, keepdim=True)
+    return _merge_heads(o, den, dt, B, Lc, H, D)
+
+
+def fused_attention_cp(q: torch.Tensor, kv: torch.Tensor,
+                       lengths: torch.Tensor, *, B: int, Lc: int, L: int,
+                       H: int, D: int) -> torch.Tensor:
+    """Context-parallel attention: q [B*Lc, H*D], this shard's Lc local
+    query rows of each sequence (a column slice of the local fused
+    projection is taken in place: any row stride, unit column stride), kv
+    [B*L, 2*H*D] the all-gathered [k | v] of the whole row, lengths [B]
+    int32 prefix lengths of the gathered row -> context [B*Lc, H*D] in q's
+    dtype. Scores scaled after the dot, clamp sized to the L gathered keys
+    (the TPU's ``_attn_kernel_cp``). Takes ``supported(L, H, D)`` and Lc %
+    8 == 0. A CUDA tensor launches K8a (``csrc/attention.cu``, mode 4 in
+    its CP operand layout), counted in ``launches``; a CPU tensor runs
+    ``fused_attention_cp_ref``."""
+    _check_cp("fused_attention_cp", supported(L, H, D) and Lc % 8 == 0, q,
+              kv, lengths, B, Lc, L, H, D)
+    if q.device.type == "cpu":
+        return fused_attention_cp_ref(q, kv, lengths, B=B, Lc=Lc, L=L, H=H,
+                                      D=D)
+    return _launch_cp(fused_attention_cp, q, kv, lengths, B, Lc, L, H, D)
+
+
+def fused_attention_cp_stream(q: torch.Tensor, kv: torch.Tensor,
+                              lengths: torch.Tensor, *, B: int, Lc: int,
+                              L: int, H: int, D: int,
+                              BK: int = 512) -> torch.Tensor:
+    """``fused_attention_cp`` past the whole-row rule: the same contract,
+    with the gathered K/V taken in key blocks of BK (the TPU's
+    ``_attn_kernel_cp_stream``; BK fixes the shapes taken, as in
+    ``fused_attention_stream``). Takes ``stream_supported(L, H, D, BK)``
+    and Lc % 128 == 0. A CUDA tensor launches K8b (the same CUDA path as
+    K8a: the kernel streams 64-key tiles at every length), counted in
+    ``launches``; a CPU tensor runs ``fused_attention_cp_stream_ref``."""
+    _check_cp(f"fused_attention_cp_stream (BK={BK})",
+              stream_supported(L, H, D, BK) and Lc % BQ == 0, q, kv,
+              lengths, B, Lc, L, H, D)
+    if q.device.type == "cpu":
+        return fused_attention_cp_stream_ref(q, kv, lengths, B=B, Lc=Lc, L=L,
+                                             H=H, D=D, BK=BK)
+    return _launch_cp(fused_attention_cp_stream, q, kv, lengths, B, Lc, L,
+                      H, D)
+
+
+def _check_cp(what, takes, q, kv, lengths, B, Lc, L, H, D) -> None:
+    """The CP wrappers' operand shapes: q [B*Lc, E], kv [B*L, 2E], lengths
+    [B]; ``takes``: the kernel's shape rule."""
+    E = H * D
+    if tuple(q.shape) != (B * Lc, E):
+        raise ValueError(f"q {tuple(q.shape)} != {(B * Lc, E)}")
+    if tuple(kv.shape) != (B * L, 2 * E):
+        raise ValueError(f"kv {tuple(kv.shape)} != {(B * L, 2 * E)}")
+    if not takes:
+        raise ValueError(f"{what} does not take Lc={Lc} L={L} H={H} D={D}")
+    if tuple(lengths.shape) != (B,):
+        raise ValueError(f"lengths must be [B]={B}, got "
+                         f"{tuple(lengths.shape)}")
+
+
+def _launch_cp(wrapper, q, kv, lengths, B, Lc, L, H, D) -> torch.Tensor:
+    """K8a / K8b on the card: bf16 q (unit column stride, row stride a
+    multiple of 8, 16-byte aligned) and kv (contiguous), int32 lengths,
+    all on one device; counted on ``wrapper``."""
+    _check_cuda(kv, lengths)
+    if q.device != kv.device or q.dtype != kv.dtype:
+        raise TypeError("q and kv must be bf16 on one device")
+    if q.stride(1) != 1 or q.stride(0) % 8 or q.data_ptr() % 16:
+        raise ValueError("q needs unit column stride, a row stride that is "
+                         "a multiple of 8 and 16-byte alignment")
+    out = torch.empty((B * Lc, H * D), dtype=q.dtype, device=q.device)
+    if B and Lc:
+        _launch(wrapper.__name__, MODE_STREAM, kv, out, B, L, H, D,
+                _clamp_hi(L), lengths=lengths, cp=(q, Lc))
+        wrapper.launches += 1
+    return out
+
+
 # mask modes of csrc/attention.cu
 MODE_PREFIX, MODE_SEGMENT, MODE_WINDOW = 0, 1, 2
 MODE_BIAS, MODE_STREAM, MODE_ALIBI, MODE_BAND, MODE_CAUSAL = 3, 4, 5, 6, 7
@@ -542,13 +667,26 @@ MODE_BIAS, MODE_STREAM, MODE_ALIBI, MODE_BAND, MODE_CAUSAL = 3, 4, 5, 6, 7
 
 def _launch(what, mode, qkv, out, B, L, H, D, hi, *, lengths=None,
             seg=None, kbs=None, kbe=None, bias=None, slopes=None,
-            W=0, o8=None, os=None, emit="no", i8s=False) -> None:
+            W=0, o8=None, os=None, emit="no", i8s=False, cp=None) -> None:
+    """One ``attn_launch``. The fused layout reads q, k and v as column
+    slices of qkv [B*L, 3E]; with ``cp`` = (q, Lc) mode 4 reads the CP
+    layout instead: q rows of q's stride and qkv as the gathered kv [B*L,
+    2E]."""
     lib = _lib()
+    E = H * D
+    if cp is None:
+        src, ld = qkv.data_ptr(), 3 * E
+        q_ptr, kv_ptr, ldq, ldkv, Lq = src, src + E * qkv.element_size(), \
+            ld, ld, L
+    else:
+        q, Lq = cp
+        q_ptr, kv_ptr, ldq, ldkv = (q.data_ptr(), qkv.data_ptr(),
+                                    q.stride(0), 2 * E)
     ptr = [None if t is None else t.data_ptr()
            for t in (lengths, seg, kbs, kbe, bias, slopes, out, o8, os)]
     status = lib.attn_launch(
-        qkv.data_ptr(), *ptr, mode, EMITS.index(emit), int(i8s), B, L, H,
-        D, W, _scale(D), hi,
+        q_ptr, kv_ptr, *ptr, mode, EMITS.index(emit), int(i8s), B, L, Lq, H,
+        D, W, ldq, ldkv, _scale(D), hi,
         torch.cuda.current_stream(qkv.device).cuda_stream)
     from ._cuda import check
     check(status, lib.attn_error_string, what)
@@ -736,8 +874,9 @@ def fused_attention_segmented_blockskip(
     return out
 
 
-# launch counters: every successful K2 / K4 / K5 / K6 / K6w / K7 launch
-# adds one (K6c to fused_attention_stream.causal_launches); K2 and K4 also
+# launch counters: every successful K2 / K4 / K5 / K6 / K6w / K7 / K8a /
+# K8b launch adds one (K6c to fused_attention_stream.causal_launches); K2
+# and K4 also
 # count their emitting launches (K2e / K4e) in both_launches and
 # only_launches, K2 its int8-scores launches (K2i8) in i8s_launches;
 # callers reset them to 0 around the run they measure
@@ -752,6 +891,8 @@ fused_attention_stream.causal_launches = 0
 fused_attention_window.launches = 0
 fused_attention_segmented.launches = 0
 fused_attention_segmented_blockskip.launches = 0
+fused_attention_cp.launches = 0
+fused_attention_cp_stream.launches = 0
 
 
 def _lib() -> ctypes.CDLL:
@@ -759,7 +900,7 @@ def _lib() -> ctypes.CDLL:
     lib = _cuda.load("attention")
     if not getattr(lib, "_typed", False):
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.attn_launch.argtypes = [p] * 10 + [i] * 8 + [f, f, p]
+        lib.attn_launch.argtypes = [p] * 11 + [i] * 11 + [f, f, p]
         lib.attn_launch.restype = i
         lib.attn_error_string.argtypes = [i]
         lib.attn_error_string.restype = ctypes.c_char_p

@@ -18,11 +18,21 @@ bias, K6 on long rows and long ALiBi rows, K6w on ModernBERT's local
 layers, K6c on causal Qwen2 rows, K4/K5 on packed rows) launch the port's
 hand-written kernels. ``device=None`` means "cuda", and a missing
 CUDA device raises: the engine never carries on on the CPU unless asked to.
+
+With ``mesh=`` (a ("data", "seq") mesh from ``parallel.make_mesh_cp``) the
+Engine runs context parallelism, as the JAX Engine's mesh branch does:
+batch sizes and buckets round to multiples of the data-axis size, seq
+buckets that the seq-axis size does not divide are dropped, the parameter
+tree is kept as given (not fused), the device is the mesh's first, and
+each forward is ``parallel.make_cp_forward``'s (K8a / K8b attention, K1
+matmuls: no int8 mode). Token packing falls back to bucketed encode under
+a CP mesh.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import logging
 from collections import deque
 from pathlib import Path
 from typing import Sequence
@@ -74,11 +84,20 @@ class Engine:
     def __init__(self, params: dict, config: BertConfig,
                  tokenizer: WordPieceTokenizer,
                  engine_config: EngineConfig | None = None, *,
-                 device=None):
+                 device=None, mesh=None):
+        if mesh is not None:
+            # the device is the mesh's (its first shard's)
+            first = mesh.devices[0, 0]
+            if device is not None and resolve_device(device) != first:
+                raise ValueError(f"device {device} is not the mesh's "
+                                 f"first device {first}")
+            device = first
         self.device = resolve_device(device)
         self.config = config
         self.tokenizer = tokenizer
-        # private copy: a caller-shared EngineConfig must not drift
+        self.mesh = mesh
+        # private copy: the mesh branch adjusts batch fields, and a
+        # caller-shared EngineConfig must not drift
         self.engine_config = ec = dataclasses.replace(
             engine_config or EngineConfig())
         if ec.use_pallas not in ("auto", "always", "never"):
@@ -97,8 +116,30 @@ class Engine:
                 "the CUDA kernels compute in bf16; use compute_dtype="
                 "'bfloat16' or use_pallas='never' for the plain f32 path")
         P.check_supported(config)
-        # single device: merge q/k/v into one matmul
-        self.params = P.to_device(P.fuse_qkv(params), self.device)
+        self._dp = 1
+        if mesh is None:
+            # single device: merge q/k/v into one matmul
+            self.params = P.to_device(P.fuse_qkv(params), self.device)
+            return
+        from ..parallel.context import SEQ_AXIS, make_cp_forward
+        from ..parallel.mesh import DATA_AXIS
+        if SEQ_AXIS not in mesh.shape:
+            raise NotImplementedError(
+                "the PyTorch port runs (data, seq) meshes (context "
+                "parallelism) only; data x model meshes are not ported")
+        # sharded batches must divide by the data-axis size
+        self._dp = dp = mesh.shape.get(DATA_AXIS, 1)
+        ec.batch_size = -(-ec.batch_size // dp) * dp
+        ec.batch_buckets = tuple(b for b in ec.batch_buckets
+                                 if b % dp == 0) or (dp,)
+        sp = mesh.shape[SEQ_AXIS]
+        ec.seq_buckets = tuple(b for b in ec.seq_buckets
+                               if b % sp == 0) or (sp,)
+        # the tree as given (the JAX CP branch does not fuse q/k/v)
+        self.params = P.to_device(params, self.device)
+        self._cp_forward = make_cp_forward(
+            config, mesh, compute_dtype=self._compute_dtype,
+            mask_value=ec.mask_value, use_kernels=self._use_kernels)
 
     # -- introspection ------------------------------------------------------
     @property
@@ -123,6 +164,8 @@ class Engine:
         """Enqueue one padded batch; returns the pooled embeddings on the
         device (the caller reads them back)."""
         with torch.inference_mode():
+            if self.mesh is not None:
+                return self._cp_forward(self.params, ids, mask)
             return bert.encode_tokens(
                 self.params, self.config,
                 torch.from_numpy(np.ascontiguousarray(ids)).to(self.device),
@@ -132,6 +175,11 @@ class Engine:
                 use_kernels=self._use_kernels, int8=self._int8)
 
     def forward(self, ids: np.ndarray, mask: np.ndarray) -> np.ndarray:
+        if self._dp > 1 and ids.shape[0] % self._dp:
+            raise ValueError(
+                f"batch size {ids.shape[0]} not divisible by the data-axis "
+                f"size {self._dp}; pad the batch (encode_batch does this "
+                f"automatically) or use a divisible batch")
         return self._forward(ids, mask).cpu().numpy()
 
     # -- encode (the primary API) -------------------------------------------
@@ -154,6 +202,8 @@ class Engine:
         """Bucketed encode of pre-tokenized inputs."""
         ec = self.engine_config
         batch_size = batch_size or ec.batch_size
+        # under a mesh, device batches must divide by the data-axis size
+        batch_size = -(-batch_size // self._dp) * self._dp
         out = np.empty((len(toks), self.n_embd), np.float32)
         # a caller-supplied batch_size may exceed the configured buckets
         bb = extend_buckets(ec.batch_buckets, batch_size)
@@ -205,7 +255,15 @@ class Engine:
         across calls (default 128, one stable shape family); sentences
         longer than row_len take the bucketed path (``encode_toks``).
         batch_rows defaults to the larger of batch_size and 32768/row_len
-        rows (about 32K tokens a forward)."""
+        rows (about 32K tokens a forward). A CP mesh falls back to
+        bucketed encode, as the JAX Engine does."""
+        if self.mesh is not None:
+            # context parallelism shards L itself — packed rows mix
+            # segments across the seq shards; out of scope
+            logging.getLogger("embeddings_tpu_torch.engine").warning(
+                "token packing is not implemented for seq-parallel (CP) "
+                "meshes; falling back to bucketed encode")
+            return self.encode_toks(toks)
         if self.config.pooling not in ("mean", "cls", "lasttoken"):
             raise ValueError("packing supports mean/cls/lasttoken pooling")
         ec = self.engine_config
@@ -315,15 +373,18 @@ def load_model(path: str | Path, *, dtype: str = "f32",
                engine_config: EngineConfig | None = None,
                tokenizer: WordPieceTokenizer | None = None,
                pooling: str | None = None,
-               int8_compute: bool = False, device=None) -> Engine:
+               int8_compute: bool = False, device=None,
+               mesh=None) -> Engine:
     """Load an HF model directory or a native ``.npz`` checkpoint into an
-    Engine on ``device`` (None = cuda).
+    Engine on ``device`` (None = cuda), or on a context-parallel ``mesh``
+    (``parallel.make_mesh_cp``; the device is then the mesh's).
 
     dtype: f32 | bf16 | f16 | q4_0 | q4_1 | q8_0 | nf4 — quantize or cast
     on load; the q4 kinds are then packed to the 4-bit layout.
     int8_compute: run the quantized matmuls in the int8 tensor-core mode
     (K3) while keeping the model-aware EngineConfig defaults."""
-    device = resolve_device(device)
+    if mesh is None:
+        device = resolve_device(device)
     path = Path(path)
     if path.is_dir():
         params, config = P.load_hf_dir(path)
@@ -374,4 +435,5 @@ def load_model(path: str | Path, *, dtype: str = "f32",
             - config.position_offset, int8_compute=int8_compute)
     elif int8_compute and not engine_config.int8_compute:
         engine_config = dataclasses.replace(engine_config, int8_compute=True)
-    return Engine(params, config, tokenizer, engine_config, device=device)
+    return Engine(params, config, tokenizer, engine_config, device=device,
+                  mesh=mesh)

@@ -484,3 +484,89 @@ def test_int8_scores_match_plain(cuda, B, L, H, D, emit):
                     ).all()
     else:
         _attn_emit_close(got, ref, emit)
+
+
+# ---------------------------------------------------------------------------
+# context parallelism: K8a / K8b and the CP forward
+# ---------------------------------------------------------------------------
+
+def _cp_operands(rng, B, Lc, L, H, D, dev, in_place):
+    """bf16 q [B*Lc, E] (``in_place``: a column view of a [B*Lc, 3E]
+    projection, row stride 3E), gathered kv [B*L, 2E], ragged lengths."""
+    E = H * D
+    src = torch.from_numpy(rng.standard_normal(
+        (B * Lc, 3 * E if in_place else E), dtype=np.float32)).to(
+        dev, torch.bfloat16)
+    kv = torch.from_numpy(rng.standard_normal(
+        (B * L, 2 * E), dtype=np.float32)).to(dev, torch.bfloat16)
+    return src[:, :E], kv, _ragged(rng, B, L, dev)
+
+
+@pytest.mark.parametrize("in_place", [False, True])
+@pytest.mark.parametrize("B,Lc,L,H,D", [(2, 16, 64, 2, 64), (3, 8, 32, 4, 32),
+                                        (4, 256, 512, 12, 64),
+                                        (2, 72, 144, 2, 128)])
+def test_cp_attention_kernel_matches_plain(cuda, B, Lc, L, H, D, in_place):
+    """K8a: local queries against gathered K/V (Lc < L), K2's tolerance;
+    a len-0 row gives exactly 0."""
+    rng = np.random.default_rng(L + Lc)
+    q, kv, lens = _cp_operands(rng, B, Lc, L, H, D, cuda, in_place)
+    kw = dict(B=B, Lc=Lc, L=L, H=H, D=D)
+    before = A.fused_attention_cp.launches
+    got = A.fused_attention_cp(q, kv, lens, **kw)
+    assert A.fused_attention_cp.launches == before + 1
+    _close(got, A.fused_attention_cp_ref(q, kv, lens, **kw), 2 ** -6, 1e-2)
+    assert (got.reshape(B, Lc, -1)[0] == 0).all()
+
+
+@pytest.mark.parametrize("B,Lc,L,H,D,BK", [(2, 128, 256, 4, 32, 128),
+                                           (2, 512, 2048, 12, 64, 512),
+                                           (1, 256, 1024, 2, 128, 512)])
+def test_cp_stream_attention_kernel_matches_plain(cuda, B, Lc, L, H, D, BK):
+    """K8b: the streamed CP kernel against its block-walking plain
+    version."""
+    rng = np.random.default_rng(L + BK)
+    q, kv, lens = _cp_operands(rng, B, Lc, L, H, D, cuda, False)
+    kw = dict(B=B, Lc=Lc, L=L, H=H, D=D, BK=BK)
+    before = A.fused_attention_cp_stream.launches
+    got = A.fused_attention_cp_stream(q, kv, lens, **kw)
+    assert A.fused_attention_cp_stream.launches == before + 1
+    _close(got, A.fused_attention_cp_stream_ref(q, kv, lens, **kw), 2 ** -6,
+           1e-2)
+
+
+def test_cp_attention_kernel_refuses_bad_operands(cuda):
+    lens = torch.ones(2, dtype=torch.int32, device=cuda)
+    kv = torch.zeros(2 * 64, 256, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(TypeError):
+        A.fused_attention_cp(torch.zeros(32, 128, device=cuda), kv, lens,
+                             B=2, Lc=16, L=64, H=2, D=64)
+    with pytest.raises(ValueError):  # a column stride that is not 1
+        q = torch.zeros(128, 32, device=cuda, dtype=torch.bfloat16).t()
+        A.fused_attention_cp(q, kv, lens, B=2, Lc=16, L=64, H=2, D=64)
+
+
+def test_cp_forward_matches_single_device(cuda):
+    """A small CP forward on a 2 x 2 mesh of the card (K8a on every layer
+    of every shard) against the single-device forward (K2), bf16."""
+    from embeddings_tpu_torch.config import BertConfig
+    from embeddings_tpu_torch.models import bert, params as P
+    from embeddings_tpu_torch.parallel import make_cp_forward, make_mesh_cp
+    cfg = BertConfig(vocab_size=512, hidden_size=256, num_hidden_layers=2,
+                     num_attention_heads=4, intermediate_size=512,
+                     max_position_embeddings=128, pooling="mean")
+    tree = P.to_device(P.pack_q4_params(P.quantize_params(
+        P.init_params(cfg, 0), "q4_0")), cuda)
+    rng = np.random.default_rng(1)
+    ids = torch.from_numpy(rng.integers(5, 512, (4, 128)).astype(np.int32))
+    mask = torch.ones(4, 128, dtype=torch.int32)
+    mask[1, 40:] = 0
+    fwd = make_cp_forward(cfg, make_mesh_cp(2, 2, [cuda] * 4),
+                          compute_dtype=torch.bfloat16)
+    before = A.fused_attention_cp.launches
+    got = fwd(tree, ids, mask)
+    assert A.fused_attention_cp.launches == before + 2 * 4
+    ref = bert.encode_tokens(P.fuse_qkv(tree), cfg, ids.to(cuda),
+                             mask.to(cuda), compute_dtype=torch.bfloat16)
+    cos = (got * ref).sum(-1)
+    assert cos.min() >= 0.999, cos
