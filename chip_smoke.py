@@ -1,5 +1,5 @@
 """Smoke test of the PyTorch/CUDA port on one GPU: builds the hand-written
-kernels (K1-K7, K6w and K6c, the chained-int8 modes K1e, K3e, K3x,
+kernels (K1-K7, K6w, K6c and K6ca, the chained-int8 modes K1e, K3e, K3x,
 K2e, K4e and K2i8, and the context-parallel K8a and K8b), holds each
 against its plain PyTorch version on the card, and drives the port's
 paths through Engine -> encode_batch (or
@@ -15,7 +15,8 @@ kernel launch counts:
 - all-mpnet-base-v2 q4_0 (K1 + K7 with the relative-position bias);
 - jina-embeddings-v2-base-en q4_0 (GeGLU: 5 K1 a layer; K6 with in-kernel
   ALiBi at L=8192, K7 with the ALiBi bias at L=1024), and the trained
-  tiny ALiBi fixture;
+  tiny ALiBi fixture; its weights in a causal config (K6ca: causal
+  attention with in-kernel ALiBi at L=8192);
 - gte-modernbert-base q4_0 (pre-norm, RoPE, GeGLU, 22 layers: 8 global
   on K2 at L=1024 or K6 plain at L=8192, 14 local on the banded K6w);
 - gte-Qwen2-1.5B-instruct q4_0 (RMSNorm, grouped-query attention, SwiGLU,
@@ -33,7 +34,8 @@ each forward by kernel.
 
     python3 chip_smoke.py              # every phase, needs one CUDA device
     python3 chip_smoke.py --phases device,build,k1,k2,k3,k4k5,k6k7,k6w,k6c,\
-        emit,attn_emit,k8
+        k6ca,emit,attn_emit,k8
+    python3 chip_smoke.py --phases device,build,k1      # K1 alone
     python3 chip_smoke.py --phases device,build,k8,cp_path
 
 Each phase prints one JSON line. The last two lines are the kernel table
@@ -92,6 +94,9 @@ K6W_REPLACES = ("embeddings_tpu/ops/attention.py:661 (_attn_kernel_stream, "
                 "span + window mode, via fused_attention_window :920)")
 K6C_REPLACES = ("embeddings_tpu/ops/attention.py:661 (_attn_kernel_stream, "
                 "causal mode, via fused_attention_stream(causal=True) :900)")
+K6CA_REPLACES = ("embeddings_tpu/ops/attention.py:713 (_attn_kernel_stream, "
+                 "causal with ALiBi, via fused_attention_stream(causal=True, "
+                 "alibi_slopes=) :900)")
 EMIT_REPLACES = ("embeddings_tpu/ops/qmatmul.py:262 (_emit via qmatmul :446, "
                  "emit_quantized)")
 K3X_REPLACES = ("embeddings_tpu/ops/qmatmul.py:386 (_qmm_int8's sx_ref path "
@@ -188,6 +193,11 @@ STATE: dict = {}     # engines, parameters, launch counts, inputs
 
 
 def emit(phase: str, **fields) -> None:
+    """Print a phase's JSON line, with the phase's K1 launches by tile
+    route (``qmatmul.routes``)."""
+    from embeddings_tpu_torch.ops.qmatmul import qmatmul
+    if qmatmul.routes and "routes" not in fields:
+        fields["k1_routes"] = dict(qmatmul.routes)
     line = {"phase": phase, **fields}
     RESULTS[phase] = line
     print(json.dumps(line), flush=True)
@@ -283,10 +293,11 @@ def k1_cost(Mx, K, N, epilogue) -> tuple[float, float]:
 
 def counters() -> dict:
     """The kernels' launch counters: name -> (wrapper, attribute). K6c
-    counts apart from K6 on the same wrapper; the chained-int8 modes on
-    theirs: K3x (int8 x, no row quantization), K1e / K3e / K2e / K4e by
-    emission mode, K2i8; "quantize_act" counts the plain quantization of
-    an activation (the embedding output under the "ln" link)."""
+    and K6ca count apart from K6 on the same wrapper; the chained-int8
+    modes on theirs: K3x (int8 x, no row quantization), K1e / K3e / K2e /
+    K4e by emission mode, K2i8; "quantize_act" counts the plain
+    quantization of an activation (the embedding output under the "ln"
+    link)."""
     from embeddings_tpu_torch.ops import attention as A, linear as Lin, \
         qmatmul as Q
     stream = A.fused_attention_stream
@@ -300,6 +311,7 @@ def counters() -> dict:
             "K7": (A.fused_attention_bias, "launches"),
             "K6w": (A.fused_attention_window, "launches"),
             "K6c": (stream, "causal_launches"),
+            "K6ca": (stream, "causal_alibi_launches"),
             "K1e_both": (Q.qmatmul, "both_launches"),
             "K1e_only": (Q.qmatmul, "only_launches"),
             "K3x": (Q.qmatmul_int8, "x8_launches"),
@@ -399,12 +411,40 @@ def phase_build():
     emit("build", seconds=time.perf_counter() - t0, per_source=seconds)
 
 
+def hgmma_count() -> int:
+    """HGMMA (wgmma) instructions in the built qmatmul library's SASS, as
+    ``cuobjdump --dump-sass`` lists them."""
+    from embeddings_tpu_torch.ops import _cuda
+    cuobjdump = Path(_cuda._nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "--dump-sass",
+                           str(_cuda._target("qmatmul"))],
+                          capture_output=True, text=True, timeout=300).stdout
+    return sass.count("HGMMA")
+
+
+# K1's cases beyond the main shapes (name -> M, K, N, epilogue, emit): the
+# LayerNorm cluster at 8 and 16 blocks, ragged M (32,768 + 40) at bge's
+# four shapes, the LayerNorm emission, and context parallelism's shard
+# (M = 4,096, where the tile is 128 rows) at the two LayerNorm shapes
+K1_EXTRA = {
+    "ln_N1024": (M, 1024, 1024, "bias_residual_ln", "no"),
+    "ln_N2048": (M, 1024, 2048, "bias_residual_ln", "no"),
+    **{f"ragged_{name}": (M + 40, K, N, epi, "no")
+       for name, (K, N, epi) in K1_SHAPES.items()},
+    "ln_emit_both": (M, E, E, "bias_residual_ln", "both"),
+    "ln_emit_only": (M, E, E, "bias_residual_ln", "only"),
+    "cp_o_proj": (4096, E, E, "bias_residual_ln", "no"),
+    "cp_ffn_down": (4096, F, E, "bias_residual_ln", "no")}
+
+
 def phase_k1():
     import torch
     from embeddings_tpu_torch.ops.qmatmul import EPILOGUES, qmatmul, \
         qmatmul_ref
     rng = np.random.default_rng(1)
     dev = torch.device("cuda")
+    hgmma = hgmma_count()
+    check(hgmma > 0, "K1's library holds no HGMMA (wgmma) instruction")
     main = {}
     for name, (K, N, epi) in {**K1_SHAPES, **MB_K1_SHAPES,
                               **QW_K1_SHAPES}.items():
@@ -415,6 +455,19 @@ def phase_k1():
         torch.cuda.synchronize()
         main[name] = compare(got, ref, K1_RTOL, K1_ATOL_RMS)
         check(main[name]["ok"], f"K1 {name} disagrees: {main[name]}")
+    extra = {}
+    for name, (Mx, K, N, epi, em) in K1_EXTRA.items():
+        args, kw, _ = k1_inputs(rng, Mx, K, N, "q4_0", True, epi, dev)
+        got = qmatmul(*args.values(), emit_quantized=em, **kw)
+        ref = qmatmul_ref(*args.values(), emit_quantized=em, **kw)
+        torch.cuda.synchronize()
+        if em == "no":
+            r = compare(got, ref, K1_RTOL, K1_ATOL_RMS)
+        else:
+            r = emit_compare(got, ref, em)
+        extra[name] = dict(r, shape=[Mx, K, N], epilogue=epi, emit=em)
+        check(r["ok"], f"K1 {name} disagrees: {r}")
+        del got, ref
     small, worst = {}, 0.0
     for kind, packed in (("q4_0", False), ("q4_0", True), ("q4_1", False),
                          ("q4_1", True), ("q8_0", False), ("nf4", False),
@@ -430,8 +483,11 @@ def phase_k1():
             worst = max(worst, r["max_abs_err"])
             check(r["ok"], f"K1 {key} disagrees: {r}")
     emit("k1_parity", tolerance=f"|err| <= {K1_RTOL}*|ref| + "
-         f"{K1_ATOL_RMS}*rms(ref)", main=main, small_cases=len(small),
-         small_worst_max_abs_err=worst)
+         f"{K1_ATOL_RMS}*rms(ref); emission: codes within "
+         f"{EMIT_CODE_STEPS} step, scales within {EMIT_SCALE_RTOL} "
+         f"relative", hgmma_in_sass=hgmma, main=main, extra=extra,
+         small_cases=len(small), small_worst_max_abs_err=worst,
+         routes=dict(qmatmul.routes))
     RESULTS["k1_small"] = small
 
 
@@ -1349,8 +1405,44 @@ def phase_attn_emit():
          f"step of each side", **out)
 
 
+def phase_k6ca():
+    """K6ca (causal attention with ALiBi: mode 8 of the streamed kernel, a
+    causal jina-bert-v2) against its plain version at the jina path's
+    shape (B=4, L=8,192, two rows full, two ragged) and at short ragged
+    rows (lengths 256, 219, 40, 1, 0: rows under one 64-key tile and an
+    empty one), with ``causal_compare``'s tolerance (rows that see 1-63
+    keys may carry one bf16 probability flip)."""
+    import torch
+    from embeddings_tpu_torch.ops import attention as A
+    rng = np.random.default_rng(12)
+    dev = torch.device("cuda")
+    out = {}
+    for name, (Bx, Lx), lengths in (
+            ("jina_long", JINA_LONG,
+             [JINA_LONG[1], JINA_LONG[1] - 37, JINA_LONG[1] // 3,
+              JINA_LONG[1]]),
+            ("short_ragged", (5, 256), [256, 219, 40, 1, 0])):
+        qkv, _ = _attn_qkv(rng, Bx, Lx, dev)
+        lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+        kw = dict(B=Bx, L=Lx, H=H, D=D, BK=A.pick_bk(Lx), causal=True,
+                  alibi_slopes=_slopes(dev))
+        got = A.fused_attention_stream(qkv, lens, **kw)
+        ref = A.fused_attention_stream_ref(qkv, lens, **kw)
+        torch.cuda.synchronize()
+        r = dict(causal_compare(got, ref, qkv, lens, Bx, Lx, H, D),
+                 shape=[Bx, Lx, H, D], BK=kw["BK"])
+        check(r["ok"] and r["zero_rows_exact"], f"K6ca {name} disagrees: {r}")
+        out[name] = r
+        del ref
+    emit("k6ca_parity", tolerance=f"|err| <= {K2_RTOL}*|ref| + "
+         f"{K2_ATOL_RMS}*rms(ref) on query rows that see >= 64 keys; "
+         f"+ 2^-6 * max|v| of the keys on rows that see 1-63; rows that "
+         f"see none exactly 0", **out)
+
+
 def _family_engine(family: str, mesh=None, **ec):
-    """all-mpnet-base-v2, jina-embeddings-v2-base-en, gte-modernbert-base,
+    """all-mpnet-base-v2, jina-embeddings-v2-base-en (and "jina_causal":
+    its weights in a causal config), gte-modernbert-base,
     nomic-embed-text-v1 or a bge-base-shaped BERT with 2,048 positions
     ("bert_long") at full width and depth, q4_0 packed + fused qkv, random
     weights from numpy seed 0, on the card (or on a CP ``mesh`` of it)."""
@@ -1359,6 +1451,9 @@ def _family_engine(family: str, mesh=None, **ec):
     from embeddings_tpu_torch.models import params as P
     from embeddings_tpu_torch.runtime.engine import Engine
     from embeddings_tpu_torch.tokenizer import tokenizer_from_dir
+    causal = family == "jina_causal"  # jina's weights, a causal config
+    if causal:
+        family = "jina"
     key = family + "_params"
     if key not in STATE:
         kw = {"mpnet": dict(KNOWN_MODELS["all-mpnet-base-v2"],
@@ -1375,6 +1470,8 @@ def _family_engine(family: str, mesh=None, **ec):
             P.init_params(cfg, np.random.default_rng(0)), "q4_0")))
         STATE[key] = (cfg, params, time.perf_counter() - t0)
     cfg, params, _ = STATE[key]
+    if causal:
+        cfg = dataclasses.replace(cfg, causal=True)
     tok = tokenizer_from_dir(FIXTURE / "model")
     ec = {"batch_size": 128, "max_seq_len": cfg.max_position_embeddings,
           **ec}
@@ -1531,6 +1628,38 @@ def _trained_alibi() -> dict:
           f"tiny ALiBi fixture: launches {counts} over {n} forwards")
     check(cos.min() >= 0.999, f"tiny ALiBi fixture vs plain: {cos.min()}")
     return r
+
+
+def phase_jina_causal_path():
+    """jina-embeddings-v2-base-en's weights in a causal config (the
+    ``BertConfig`` the JAX package takes with ``causal=True``) at full
+    width and depth, q4_0 packed: B=4 rows of 8,192 tokens take K6ca on
+    every layer (60 K1 + 12 K6ca a forward, nothing else); the first
+    sequence against the plain f32 path (ALiBi and the causal triangle
+    folded into the einsum path's mask)."""
+    eng = _family_engine("jina_causal", batch_size=JINA_LONG[0])
+    plain = _family_engine("jina_causal", batch_size=JINA_LONG[0],
+                           use_pallas="never", compute_dtype="float32")
+    texts = [_joined(i * 350 + 100, 1000) for i in range(JINA_LONG[0])]
+    check(all(len(eng.tokenize(t)) == JINA_LONG[1] for t in texts),
+          f"long texts do not fill L={JINA_LONG[1]}")
+    emb, counts, n, wall = _run_counted(eng, texts)
+    cos = _row_cos(emb[:1], plain.encode_batch(texts[:1]))
+    check(np.isfinite(emb).all() and emb.shape == (len(texts), E),
+          "jina causal: output not finite / wrong shape")
+    check(n == 1 and counts == only(K1=60, K6ca=12),
+          f"jina causal: launches {counts} over {n} forwards")
+    check(cos.min() >= 0.999, f"jina causal vs plain f32: {cos.min()}")
+    bidir = STATE["jina_engine"].encode_batch(texts[:1]) \
+        if "jina_engine" in STATE else None
+    STATE["launches_K6ca_jina"] = counts["K6ca"]
+    STATE["jina_causal_engine"] = eng
+    emit("jina_causal_path", model="jina-embeddings-v2-base-en weights "
+         "(random init, numpy seed 0), causal=True, q4_0 packed + fused qkv",
+         batch=list(JINA_LONG), forwards=n, launches=counts, wall_s=wall,
+         kernel_vs_plain_f32_cos=float(cos.min()),
+         causal_vs_bidirectional_cos=(float(_row_cos(emb[:1], bidir).min())
+                                      if bidir is not None else None))
 
 
 def phase_modernbert_path():
@@ -1867,7 +1996,7 @@ def phase_timing():
     # forward -> (call, the kernels one forward launches)
     bge = {0: NL}  # K2 on every layer
     runs = {"bf16": (lambda: eng._forward(ids, mask),
-                     launches_want(("qmm_kernel",), 4 * NL, bge))}
+                     launches_want(("qmm_wgmma_kernel",), 4 * NL, bge))}
     if "engine8" in STATE:
         runs["int8"] = (lambda: STATE["engine8"]._forward(ids, mask),
                         launches_want(("qmm_int8_kernel", "requant_kernel",
@@ -1876,7 +2005,7 @@ def phase_timing():
         if name in STATE:
             arrays, W = STATE[name][2], STATE[name][3]
             runs[name] = (lambda a=arrays, w=W: eng._forward_packed(*a, w),
-                          launches_want(("qmm_kernel",), 4 * NL, {mode: NL}))
+                          launches_want(("qmm_wgmma_kernel",), 4 * NL, {mode: NL}))
     # the families' forwards: name -> (engine, shape, K1 launches a
     # forward, {attention mode: launches a forward}, head dim)
     mb_k1 = 5 * MB_NL
@@ -1884,6 +2013,8 @@ def phase_timing():
                 "jina_long": ("jina_engine", JINA_LONG, 5 * NL, {5: NL}, D),
                 "jina_short": ("jina_engine", JINA_SHORT, 5 * NL, {3: NL},
                                D),
+                "jina_causal_long": ("jina_causal_engine", JINA_LONG,
+                                     5 * NL, {8: NL}, D),
                 "bert_long": ("bert_long_engine", BERT_LONG, 4 * NL,
                               {4: NL}, D),
                 "modernbert_long": ("modernbert_engine", MB_LONG, mb_k1,
@@ -1913,7 +2044,7 @@ def phase_timing():
             fids = rng.integers(1000, 30000, shape).astype(np.int32)
             runs[name] = (lambda e=STATE[key], i=fids: e._forward(
                 i, np.ones_like(i)),
-                launches_want(("qmm_kernel",), k1, attn, dh))
+                launches_want(("qmm_wgmma_kernel",), k1, attn, dh))
     fwd = {k: cuda_ms(r[0], iters=5) for k, r in runs.items()}
     profiles = {k: device_profile(k, *r) for k, r in runs.items()}
     chain_fwd = {}
@@ -2027,6 +2158,8 @@ def phase_timing():
         kernels += chain_rows(rng, dev)
     if "k8_parity" in RESULTS:
         kernels += cp_rows(rng, dev)
+    if "k6ca_parity" in RESULTS:
+        kernels.append(causal_alibi_row(rng, dev))
     cp_fwd = {name: {"forward_ms": fwd[name],
                      "single_device_ms": fwd[name + "_single"],
                      "cp_over_single": fwd[name] / fwd[name + "_single"]}
@@ -2325,7 +2458,7 @@ def device_profile(name: str, fn, want: dict) -> dict:
             time.sleep(gap_s)
             prof.step()
     kinds = ("qmm_int8_kernel", "requant_kernel", "quant_rows_kernel",
-             "emit_rows_kernel", "qmm_kernel", "attn_i8_kernel",
+             "emit_rows_kernel", "qmm_wgmma_kernel", "attn_i8_kernel",
              "attn_kernel")
     by_kind: dict = {}
     torch_ops: dict = {}  # the library's own kernels, by name
@@ -2499,6 +2632,43 @@ def bias_stream_rows(rng, dev) -> list:
     return out
 
 
+def causal_alibi_row(rng, dev) -> dict:
+    """K6ca's row of the kernel table at the jina causal path's shape
+    (B=4, L=8,192, every row full). The bound counts the causal pairs
+    (L(L+1)/2 a row); the library yardstick is SDPA with the equivalent
+    additive mask: the ALiBi bias with -inf above the diagonal, bf16 [1, H,
+    L, L]."""
+    import torch
+    from embeddings_tpu_torch.ops import attention as A
+    Bx, Lx = JINA_LONG
+    qkv, lens = _attn_qkv(rng, Bx, Lx, dev, ragged=False)
+    kw = dict(B=Bx, L=Lx, H=H, D=D, BK=A.pick_bk(Lx), causal=True,
+              alibi_slopes=_slopes(dev))
+    pairs = Bx * Lx * (Lx + 1) // 2
+    bms, by = bound_ms(4.0 * H * D * pairs,
+                       Bx * Lx * 4 * E * 2 + Bx * 4)
+    i = torch.arange(Lx, device=dev)
+    mask = _family_bias("jina", Lx, dev).masked_fill(
+        i[None, :] > i[:, None], float("-inf")).to(torch.bfloat16)
+    row = {
+        "name": f"fused_attention_stream[causal ALiBi B{Bx} L{Lx} H{H} "
+                f"D{D}]", "route": "cuda",
+        "source": "embeddings_tpu_torch/csrc/attention.cu",
+        "replaces": K6CA_REPLACES,
+        "launches": STATE.get("launches_K6ca_jina", 0),
+        "max_abs_err": RESULTS["k6ca_parity"]["jina_long"]["max_abs_err"],
+        "ms": cuda_ms(functools.partial(A.fused_attention_stream, qkv, lens,
+                                        **kw), iters=5),
+        "plain_ms": cuda_ms(functools.partial(
+            A.fused_attention_stream_ref, qkv, lens, **kw), iters=2,
+            warmup=1),
+        "bound_ms": bms, "bound_by": by,
+        "library_ms": sdpa_ms(qkv, Bx, Lx, mask),
+        "causal_pairs": pairs, "shape": [Bx, Lx, H, D]}
+    del mask
+    return row
+
+
 def cp_rows(rng, dev) -> list:
     """K8a and K8b rows of the kernel table at the CP paths' shard shapes
     (bge: B=16, Lc=256, L=512, q read in place at row stride 3E; nomic:
@@ -2549,6 +2719,7 @@ def cp_rows(rng, dev) -> list:
 PHASES = {"device": phase_device, "build": phase_build, "k1": phase_k1,
           "k2": phase_k2, "k3": phase_k3, "k4k5": phase_k4k5,
           "k6k7": phase_k6k7, "k6w": phase_k6w, "k6c": phase_k6c,
+          "k6ca": phase_k6ca,
           "main": phase_main_path,
           "trained": phase_trained, "server": phase_server,
           "emit": phase_emit, "attn_emit": phase_attn_emit,
@@ -2557,6 +2728,7 @@ PHASES = {"device": phase_device, "build": phase_build, "k1": phase_k1,
           "packed_path": phase_packed_path,
           "long_path": phase_long_path, "mpnet_path": phase_mpnet_path,
           "jina_path": phase_jina_path,
+          "jina_causal_path": phase_jina_causal_path,
           "modernbert_path": phase_modernbert_path,
           "qwen2_path": phase_qwen2_path, "k8": phase_k8,
           "cp_path": phase_cp_path, "timing": phase_timing}
@@ -2577,7 +2749,9 @@ def main() -> int:
     except ImportError as exc:
         fail(f"the embeddings_tpu_torch package is not beside this "
              f"script: {exc}")
+    from embeddings_tpu_torch.ops.qmatmul import qmatmul
     for name in phases:
+        qmatmul.routes.clear()  # each phase line shows its own K1 routes
         PHASES[name]()
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(RESULTS, indent=1,

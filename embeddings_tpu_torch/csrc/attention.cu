@@ -1,6 +1,7 @@
 // Fused multi-head self-attention over the fused QKV projection, for
-// sm_90a: kernels K2, K4, K5, K6 (with its banded mode K6w and its causal
-// mode K6c) and K7 of the PyTorch port, as eight mask modes of one kernel.
+// sm_90a: kernels K2, K4, K5, K6 (with its banded mode K6w, its causal
+// mode K6c and its causal ALiBi mode K6ca) and K7 of the PyTorch port, as
+// nine mask modes of one kernel.
 //
 // Replaces (embeddings_tpu/ops/attention.py, the Pallas TPU kernels):
 //   mode 0, K2: _attn_kernel (its bf16 branch), behind fused_attention();
@@ -16,6 +17,9 @@
 //   mode 7, K6c: _attn_kernel_stream in its causal mode, behind
 //               fused_attention_stream(causal=True) (the Qwen2 decoder
 //               embedders);
+//   mode 8, K6ca: _attn_kernel_stream with causal and ALiBi together,
+//               behind fused_attention_stream(causal=True, alibi_slopes=)
+//               (a causal jina-bert-v2 config);
 //   mode 4 with the CP operand layout, K8a and K8b: _attn_kernel_cp and
 //               _attn_kernel_cp_stream, behind fused_attention_cp() and
 //               fused_attention_cp_stream() (context parallelism).
@@ -51,12 +55,13 @@
 //           meet [q0 - W, q_last + W] only: O(L * window) work;
 //   mode 7: s = clamp(d * s2, -100, hi), key j valid iff j < len[b] and
 //           j <= i, over the 64-key tiles up to the block's last query
-//           row only: about half of mode 4's work.
+//           row only: about half of mode 4's work;
+//   mode 8: mode 5's score with mode 7's mask and tile stop.
 //   p_j = bf16(exp2(s)) if valid else 0
 //   out = (sum_j p_j v_j) / max(sum_j p_j, 1e-30)           (f32 sums)
 // written as bf16 to ctx [B*Lq, E] at column h*D. s2 = log2(e)/sqrt(D);
 // hi = 127 - ceil(log2 n) for n = L keys (n = min(W*128, L) in mode 2; in
-// modes 6 and 7 n is the whole row L, as the TPU's _stream_call sizes
+// modes 6-8 n is the whole row L, as the TPU's _stream_call sizes
 // it, not the band or the causal prefix; in the CP layout n is the
 // gathered row L, not the local Lc). There
 // is no max-subtraction: the clamp keeps exp2 and the sum finite for any
@@ -68,7 +73,7 @@
 // stop at the first 64-key tile past len[b] (those tiles add exact
 // zeros); ALiBi tiles far from the diagonal clamp at -100 and still add
 // exp2(-100), so they are not skipped. Mode 6 skips the tiles outside the
-// band, and mode 7 the tiles past the block's last query row, for the
+// band, and modes 7 and 8 the tiles past the block's last query row, for the
 // same reason as the prefix stop: every p there is an exact zero (keys at
 // or below the diagonal that the mask drops still cost their dot: only
 // whole tiles are skipped). The multiply-adds the plain
@@ -146,10 +151,18 @@ constexpr int SP = KT + 4;    // f32 score staging row stride
 constexpr int PP = KT + 8;    // bf16 probability row stride
 constexpr int BQ = 128;       // query/key block of mode 2 (block_ranges)
 constexpr float LOG2E_F = 1.4426950408889634f;
-static_assert(QT == KT, "mode 7's diagonal stop needs QT == KT");
+static_assert(QT == KT, "the causal modes' diagonal stop needs QT == KT");
 
 enum Mode { PREFIX = 0, SEGMENT = 1, WINDOW = 2, BIAS = 3, STREAM = 4,
-            ALIBI = 5, BAND = 6, CAUSAL = 7 };
+            ALIBI = 5, BAND = 6, CAUSAL = 7, CAUSAL_ALIBI = 8 };
+
+// modes with the causal mask j <= i, and with ALiBi's distance penalty
+__host__ __device__ constexpr bool causal_mode(int mode) {
+  return mode == CAUSAL || mode == CAUSAL_ALIBI;
+}
+__host__ __device__ constexpr bool alibi_mode(int mode) {
+  return mode == ALIBI || mode == CAUSAL_ALIBI;
+}
 constexpr float LOG2_127 = 6.9886846867721655f;
 constexpr int MAX_CLUSTER = 16;  // heads a cluster can hold (H100)
 constexpr float ABSENT = -3.0e38f;  // K2i8's score of a key past L
@@ -324,10 +337,10 @@ __global__ void __launch_bounds__(THREADS) attn_kernel(
   const int sq = (!prefix_masked(MODE) && qrow < L)
                      ? seg[(size_t)b * L + qrow] : -1;
   // mode 3: this query's bias row (rows past L, never written, read row
-  // L - 1); mode 5: this head's slope
+  // L - 1); modes 5 and 8: this head's slope
   const float* brow =
       MODE == BIAS ? bias + ((size_t)h * L + min(qrow, L - 1)) * L : nullptr;
-  const float slope = MODE == ALIBI ? slopes[h] : 0.0f;
+  const float slope = alibi_mode(MODE) ? slopes[h] : 0.0f;
   int k_begin = 0, k_end = L;
   if (prefix_masked(MODE)) {
     // key tiles wholly past len[b] would add exact zeros: stop before them
@@ -348,7 +361,7 @@ __global__ void __launch_bounds__(THREADS) attn_kernel(
     k_begin = max(0, q0 - W) / KT * KT;
     k_end = min(k_end, (q0 + QT - 1 + W) / KT * KT + KT);
   }
-  if (MODE == CAUSAL) {
+  if (causal_mode(MODE)) {
     // no query row of this block sees a key past q0 + QT - 1: stop at
     // the tile after the diagonal (QT == KT); the prefix stop still
     // applies
@@ -400,11 +413,11 @@ __global__ void __launch_bounds__(THREADS) attn_kernel(
         bool ok = prefix_masked(MODE) ? kj < len
                                       : segk[c] == sq && segk[c] >= 0;
         if constexpr (MODE == BAND) ok = ok && abs(qrow - kj) <= W;
-        if constexpr (MODE == CAUSAL) ok = ok && kj <= qrow;
+        if constexpr (causal_mode(MODE)) ok = ok && kj <= qrow;
         float raw = fsc[r * SP + c];
         if constexpr (MODE == BIAS) {
           raw = __fadd_rn(__fmul_rn(raw, s2), bias4[e]);
-        } else if constexpr (MODE == ALIBI) {
+        } else if constexpr (alibi_mode(MODE)) {
           const float dist = __fmul_rn((float)abs(qrow - kj), LOG2E_F);
           raw = __fsub_rn(__fmul_rn(raw, s2), __fmul_rn(slope, dist));
         } else if constexpr (MODE != PREFIX) {
@@ -800,6 +813,9 @@ cudaError_t launch_mode(int mode, int emit, int i8s, const void* q,
       if (W < 0) return cudaErrorInvalidValue;
       return launch<D, BAND, EMIT_NO>(ATTN_ARGS);
     case CAUSAL: return launch<D, CAUSAL, EMIT_NO>(ATTN_ARGS);
+    case CAUSAL_ALIBI:
+      if (slopes == nullptr) return cudaErrorInvalidValue;
+      return launch<D, CAUSAL_ALIBI, EMIT_NO>(ATTN_ARGS);
     default: return cudaErrorInvalidValue;
   }
 #undef I8_ARGS
@@ -816,10 +832,10 @@ extern "C" {
 // H*D, ldq = ldkv = 3*H*D, Lq = L); mode 4 also the CP layout (K8a, K8b:
 // any Lq, ldq, ldkv; no emission). Strides are multiples of 8 and
 // pointers 16-byte aligned. Modes
-// 0 and 3-7 read lengths [B] int32; modes 1 and 2 read seg [B, L]
+// 0 and 3-8 read lengths [B] int32; modes 1 and 2 read seg [B, L]
 // int32 (-1 on pads); mode 2 also kbs, kbe [B, L/128] int32 and the block
 // cap W (L % 128 == 0); mode 3 reads bias [H, L, L] f32 (log2-scaled);
-// mode 5 reads slopes [H] f32; mode 6 takes the half window W =
+// modes 5 and 8 read slopes [H] f32; mode 6 takes the half window W =
 // window // 2. Unused pointers may be null. s2 =
 // log2(e)/sqrt(D) as f32; hi = the score clamp bound. D must be 32, 64 or
 // 128. emit (modes 0 and 1, H <= 16): 1 also writes o8 [B*L, E] int8 and

@@ -14,50 +14,70 @@
 //
 // Epilogues (f32, then one bf16 store): 0 none, 1 bias, 2/3 bias + GELU
 // (both the tanh form, as in the TPU kernel), 4 bias + SiLU, 5 bias +
-// residual + LayerNorm over the full row.
+// residual + LayerNorm over the full row (two-pass: the mean, then the
+// mean of squared deviations).
 //
-// What bounds it on the H100: at the main-path shapes (M = 32768 tokens,
-// K, N in {768, 2304, 3072}) the product is compute-bound in bf16 (about
-// 2*K flops per weight byte read). The dequantization is the other cost:
-// a TPU grid runs in order and dequantizes a weight tile once per N-tile,
-// reusing it for every M-tile; here blocks run in parallel and each one
-// dequantizes its own K x 128 weight stripe. The design amortizes that
-// over a 128-row M tile (64 rows for the LayerNorm epilogue), so the
-// dequantization costs one shared-memory write per 128 (64) multiply-adds
-// of each weight value. The product runs on the tensor cores through WMMA
-// bf16 fragments with f32 accumulators. The K loop is software-pipelined
-// through registers: while the warps multiply chunk k out of shared
-// memory, each thread already holds chunk k+1's x vectors and code words
-// in flight from device memory, and the plain epilogues double-buffer the
-// shared tiles (one barrier per chunk). The LayerNorm epilogue keeps the
-// block's full output rows (BM x N f32) in dynamic shared memory, so the
-// residual add and the normalization never round-trip through device
-// memory; that row buffer leaves room for one shared stage only. Not yet
-// used: wgmma, TMA and persistent scheduling.
+// What bounds it on the H100: at the main-path shapes (M = 16,384-32,768
+// tokens, K, N in 256 .. 8,960) the product is compute-bound in bf16
+// (about 2*K flops per weight byte read). The dequantization is the other
+// cost: a TPU grid runs in order and dequantizes a weight tile once per
+// N-tile, reusing it for every M-tile; CUDA blocks run in parallel and
+// each dequantizes the weight stripe of its own tile. The design (Hopper):
+// - products on wgmma (m64n128k16, bf16 x bf16 -> f32 in registers), two
+//   consumer warpgroups of BM/2 rows each, tiles of BM = 256 (or 128,
+//   where 256 would leave SMs idle: the caller picks by shape) x BN = 128,
+//   so the dequantization is one shared-memory write per 256 (128)
+//   multiply-adds of each weight value;
+// - a producer warpgroup (setmaxnreg: it gives registers to the
+//   consumers) keeps a ring of 4 stages (3 with LayerNorm) in flight with
+//   mbarrier full / empty pairs: x tiles come by TMA into
+//   128-byte-swizzled shared memory, and the producer's threads fetch
+//   the raw codes and scales of the chunks ahead into registers (two
+//   ahead for packed q4_0 / nf4) while they dequantize the current one
+//   straight into the bf16 weight tile, in the same swizzled K-major
+//   layout that wgmma reads (so dequantization overlaps the products; the
+//   weight is not wgmma's register operand, as in CUTLASS's mixed-input
+//   GEMMs, because that would put the dequantization back on the
+//   consumers' issue slots). The producer bounds the main loop: at
+//   BM = 256 its dequantization of a chunk takes longer than the
+//   chunk's products;
+// - persistent blocks, one per SM, walk the output tiles; the tiled
+//   epilogues (bias, activation) stage each 64-row block's bf16 output in
+//   swizzled shared memory and store it by TMA, which runs on while the
+//   next tile's products start; the activation is compiled per epilogue
+//   (a runtime choice is if-converted into tanh, exp and a divide for
+//   every value);
+// - the residual + LayerNorm epilogue runs as a thread-block cluster of
+//   cs = ceil(N / 128) blocks along N (up to 16, non-portable beyond 8;
+//   256 rows up to 8 blocks, 128 beyond): each block prefetches its
+//   tile's residual into shared memory (cp.async at the tile's start,
+//   landing during the products), keeps its BM x 128 tile in registers,
+//   exchanges per-row partial sums with the other blocks through
+//   distributed shared memory (mbarrier signalled, so the producers never
+//   stop for the cluster), once for the mean and once for the squared
+//   deviations, normalizes its own columns in place of the residual and
+//   stores them by TMA. Rows wider than 16 x 128 are refused.
 //
 // K1e / K3e, the emission epilogue (replaces embeddings_tpu/ops/
 // qmatmul.py:_emit, reached through qmatmul(emit_quantized=)): the f32
 // epilogue output is also ("both") or instead ("only") written per-row
 // symmetric int8, so = max(max_n |acc|, 1e-12) * (1/127), o8 = rint(acc *
 // (1/so)), with the row scales so [M]. The row absmax needs the whole
-// output row. The LayerNorm epilogue already holds a block's full f32
-// rows in shared memory: it quantizes there, after the normalization, at
-// no extra traffic. The other epilogues tile N by 128 columns and the
-// whole row of an FFN (N = 3,072 or 4,096) fits no block's shared memory
-// at a useful BM, so each tile writes its f32 results to a global staging
-// buffer [M, N] and its per-row partial absmax to part [N/128, M], and a
-// second launch (emit_rows_kernel, one warp a row) reduces the partials
-// and quantizes the staged row. It takes every N % 8 == 0 and costs one
-// f32 write and read of the output beyond the product.
+// output row. K1's LayerNorm cluster takes it in a third exchange and
+// each block quantizes its own columns; K3's LayerNorm epilogue holds a
+// block's full f32 rows in shared memory and quantizes there. The other
+// epilogues tile N by 128 columns, so each tile writes its f32 results to
+// a global staging buffer [M, N] and its per-row partial absmax to part
+// [N/128, M], and a second launch (emit_rows_kernel, one warp a row)
+// reduces the partials and quantizes the staged row. It takes every N % 8
+// == 0 and costs one f32 write and read of the output beyond the product.
 
+#include <cuda.h>  // CUtensorMap (types only: the driver call is looked up)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include "int8_rows.cuh"
-
-using namespace nvcuda;
 
 namespace {
 
@@ -67,10 +87,7 @@ enum Epi { EPI_NONE = 0, EPI_BIAS = 1, EPI_GELU = 2, EPI_GELU_TANH = 3,
 
 constexpr int BN = 128;          // output columns per tile
 constexpr int BK = 64;           // K rows per chunk: one group-64 pack
-constexpr int THREADS = 256;     // 8 warps
-constexpr int XLD = BK + 8;      // x tile row stride (bf16), padded
-constexpr int WLD = BN + 8;      // weight tile row stride (bf16), padded
-constexpr int SLD = 16 + 4;      // per-warp f32 staging row stride
+constexpr int THREADS = 256;     // K3: 8 warps
 constexpr int MAX_SMEM = 232448 - 1024;  // H100 per-block opt-in limit
 
 __constant__ float kNF4[16] = {
@@ -80,34 +97,15 @@ __constant__ float kNF4[16] = {
     0.24611230194568634f, 0.33791524171829224f, 0.44070982933044434f,
     0.5626170039176941f, 0.7229568362236023f, 1.0f};
 
-__device__ __forceinline__ float bf16r(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
 // Type conversions run at 1/8 of the f32 multiply rate on sm_90, and
 // dequantization is the per-block work that is not amortized by the
 // tensor cores, so it avoids them: a code n in [0, 2^23) becomes a float
 // through the 2^23 magic number (n lands in the mantissa; the subtraction
-// is exact), and the bf16 roundings go two values per instruction.
+// is exact). The packed nibbles take the same route in bf16 (128 + n).
 __device__ __forceinline__ float magic_f32(uint32_t n, float offset) {
   return __uint_as_float(0x4B000000u | n) - offset;
 }
-constexpr float NIBBLE_OFFSET = 8388616.0f;   // 2^23 + 8: nibble -> n - 8
 constexpr float INT8_OFFSET = 8388736.0f;     // 2^23 + 128: (b ^ 0x80) -> b
-
-// two weight values of one row: levels -> bf16(level * scale) (+ bf16 min),
-// the TPU kernel's rounding (level and scale are bf16 values, so their
-// f32 product is exact and rounds once)
-template <int KIND>
-__device__ __forceinline__ uint32_t deq2(float l0, float l1, float s0,
-                                         float s1, float m0, float m1) {
-  __nv_bfloat162 w = __floats2bfloat162_rn(l0 * s0, l1 * s1);
-  if (KIND == Q4_1) {
-    const float2 f = __bfloat1622float2(w);
-    w = __floats2bfloat162_rn(f.x + m0, f.y + m1);
-  }
-  return *reinterpret_cast<uint32_t*>(&w);
-}
 
 __device__ __forceinline__ float activate(float v, int epi) {
   if (epi == EPI_GELU || epi == EPI_GELU_TANH) {
@@ -252,279 +250,6 @@ __device__ __forceinline__ void stage_emit(float* __restrict__ stg,
   atomicMax(rmax + lr, __float_as_uint(m));
 }
 
-// What one thread holds of one K-chunk of the weight tile before it is
-// dequantized into shared memory: the code words of its 4 columns and
-// their bf16-rounded scales (and mins). Columns past N load scale 0 (and
-// code 0), so they dequantize to 0.
-struct WChunk {
-  uint32_t w[8];   // packed: byte rows 4rg..4rg+3; else rows 8rg..8rg+7
-  float4 s0, s1, m0, m1;
-};
-
-__device__ __forceinline__ float4 bf16r4(float4 v) {
-  const float2 a = __bfloat1622float2(__floats2bfloat162_rn(v.x, v.y));
-  const float2 b = __bfloat1622float2(__floats2bfloat162_rn(v.z, v.w));
-  return make_float4(a.x, a.y, b.x, b.y);
-}
-
-// the 4 columns' levels of one code word -> 2 packed bf16 pairs
-template <int KIND>
-__device__ __forceinline__ uint2 deq4(const float* lv, float4 s, float4 m) {
-  return make_uint2(deq2<KIND>(lv[0], lv[1], s.x, s.y, m.x, m.y),
-                    deq2<KIND>(lv[2], lv[3], s.z, s.w, m.z, m.w));
-}
-
-template <int KIND, bool PACKED>
-__device__ __forceinline__ void fetch_w(
-    WChunk& r, const uint8_t* __restrict__ codes,
-    const float* __restrict__ scales, const float* __restrict__ mins,
-    int N, int K, int k0, int n0, int tid) {
-  const int cg = tid % 32;            // columns n0 + 4cg .. +3
-  const int rg = tid / 32;            // 8 row groups
-  const int n = n0 + 4 * cg;
-  const bool col_ok = n < N;          // N % 8 == 0: all four or none
-  const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
-  r.m0 = r.m1 = r.s1 = z;
-  if (PACKED) {
-    // packed rows 32g .. 32g+31 hold weight rows 64g .. 64g+63
-    const int g = k0 / 64;
-    r.s0 = col_ok ? bf16r4(ld4(scales + (size_t)(2 * g) * N + n)) : z;
-    r.s1 = col_ok ? bf16r4(ld4(scales + (size_t)(2 * g + 1) * N + n)) : z;
-    if (KIND == Q4_1) {
-      r.m0 = col_ok ? bf16r4(ld4(mins + (size_t)(2 * g) * N + n)) : z;
-      r.m1 = col_ok ? bf16r4(ld4(mins + (size_t)(2 * g + 1) * N + n)) : z;
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      r.w[i] = col_ok ? *reinterpret_cast<const uint32_t*>(
-                            codes + (size_t)(g * 32 + 4 * rg + i) * N + n)
-                      : 0u;
-  } else {
-    // int8 codes [K, N]: rows k0 + 8rg .. +7 share one 32-row scale block
-    const int kr = k0 + 8 * rg;
-    const bool ok = col_ok && kr < K;  // K % 32 == 0
-    const size_t srow = (size_t)(kr / 32) * N + n;
-    r.s0 = ok ? bf16r4(ld4(scales + srow)) : z;
-    if (KIND == Q4_1) r.m0 = ok ? bf16r4(ld4(mins + srow)) : z;
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-      r.w[i] = ok ? *reinterpret_cast<const uint32_t*>(
-                        codes + (size_t)(kr + i) * N + n)
-                  : 0u;
-  }
-}
-
-// Dequantize a fetched chunk into ws: weight rows [k0, k0 + 64) x columns
-// [n0, n0 + 128), bf16, row stride WLD.
-template <int KIND, bool PACKED>
-__device__ __forceinline__ void store_w(__nv_bfloat16* ws, const WChunk& r,
-                                        const float* nf4, int tid) {
-  const int cg = tid % 32;
-  const int rg = tid / 32;
-  if (PACKED) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float lo[4], hi[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const uint32_t nlo = (r.w[i] >> (8 * j)) & 15;      // code + 8
-        const uint32_t nhi = (r.w[i] >> (8 * j + 4)) & 15;
-        lo[j] = KIND == NF4 ? nf4[nlo] : magic_f32(nlo, NIBBLE_OFFSET);
-        hi[j] = KIND == NF4 ? nf4[nhi] : magic_f32(nhi, NIBBLE_OFFSET);
-      }
-      const int pr = 4 * rg + i;      // 0 .. 31
-      *reinterpret_cast<uint2*>(ws + pr * WLD + 4 * cg) =
-          deq4<KIND>(lo, r.s0, r.m0);
-      *reinterpret_cast<uint2*>(ws + (pr + 32) * WLD + 4 * cg) =
-          deq4<KIND>(hi, r.s1, r.m1);
-    }
-  } else {
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      float lv[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const uint32_t b = (r.w[i] >> (8 * j)) & 0xff;       // int8 code
-        lv[j] = KIND == NF4
-                    ? nf4[static_cast<int8_t>(b) + 8]
-                    : magic_f32(b ^ 0x80u, INT8_OFFSET);
-      }
-      *reinterpret_cast<uint2*>(ws + (8 * rg + i) * WLD + 4 * cg) =
-          deq4<KIND>(lv, r.s0, r.m0);
-    }
-  }
-}
-
-// BM output rows per block; LN: the block walks all N-tiles of its rows
-// and applies residual + LayerNorm at the end (else one BM x 128 tile).
-// STAGES: shared-memory buffers for the x / weight chunk (1 or 2).
-template <int KIND, bool PACKED, int BM, bool LN, int STAGES>
-__global__ void __launch_bounds__(THREADS, LN ? 1 : 2) qmm_kernel(
-    const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ codes,
-    const float* __restrict__ scales, const float* __restrict__ mins,
-    const float* __restrict__ bias, const __nv_bfloat16* __restrict__ res,
-    const float* __restrict__ lns, const float* __restrict__ lnb,
-    __nv_bfloat16* __restrict__ out, int8_t* __restrict__ o8,
-    float* __restrict__ os, float* __restrict__ stg,
-    float* __restrict__ part, int M, int N, int K, int epi, int emit,
-    float eps) {
-  constexpr int WARPS_M = BM >= 64 ? 4 : 2;
-  constexpr int WARPS_N = 8 / WARPS_M;
-  constexpr int WTM = BM / WARPS_M;
-  constexpr int WTN = BN / WARPS_N;
-  constexpr int FM = WTM / 16;
-  constexpr int FN = WTN / 16;
-  constexpr int XV = BM * (BK / 8) / THREADS;    // x vectors per thread
-  constexpr int STAGE = BM * XLD + BK * WLD;     // bf16 per stage
-
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* stages = reinterpret_cast<__nv_bfloat16*>(smem);
-  float* rowbuf = reinterpret_cast<float*>(stages + STAGES * STAGE);  // LN
-  __shared__ float nf4[16];
-  __shared__ unsigned rmax[BM];  // the tile's row absmax bits (emission)
-
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int wm = warp / WARPS_N;
-  const int wn = warp % WARPS_N;
-  const int m0 = blockIdx.x * BM;
-  if (tid < 16) nf4[tid] = bf16r(kNF4[tid]);
-  for (int i = tid; i < BM; i += THREADS) rmax[i] = 0u;
-
-  const int n_begin = LN ? 0 : blockIdx.y * BN;
-  const int ntiles = LN ? (N + BN - 1) / BN : 1;
-  const int nchunks = (K + BK - 1) / BK;
-  const int total = ntiles * nchunks;
-  const int ldr = ((N + BN - 1) / BN) * BN + 4;  // rowbuf row stride
-
-  uint4 xr[XV];
-  WChunk wr;
-  auto fetch = [&](int t) {
-    const int k0 = (t % nchunks) * BK;
-    const int n0 = n_begin + (t / nchunks) * BN;
-#pragma unroll
-    for (int v = 0; v < XV; ++v) {
-      const int idx = tid + v * THREADS;
-      const int gr = m0 + idx / (BK / 8);
-      const int gc = k0 + (idx % (BK / 8)) * 8;
-      xr[v] = (gr < M && gc < K)
-                  ? *reinterpret_cast<const uint4*>(x + (size_t)gr * K + gc)
-                  : make_uint4(0, 0, 0, 0);
-    }
-    fetch_w<KIND, PACKED>(wr, codes, scales, mins, N, K, k0, n0, tid);
-  };
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[FM][FN];
-#pragma unroll
-  for (int i = 0; i < FM; ++i)
-#pragma unroll
-    for (int j = 0; j < FN; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-
-  fetch(0);
-  __syncthreads();  // nf4 table ready
-  for (int t = 0; t < total; ++t) {
-    __nv_bfloat16* xs = stages + (STAGES == 2 ? (t & 1) : 0) * STAGE;
-    __nv_bfloat16* ws = xs + BM * XLD;
-    // one stage: every warp is done reading the previous chunk. Two: the
-    // buffer written here was last read two chunks ago, before the
-    // barrier of the previous chunk.
-    if (STAGES == 1) __syncthreads();
-#pragma unroll
-    for (int v = 0; v < XV; ++v) {
-      const int idx = tid + v * THREADS;
-      *reinterpret_cast<uint4*>(xs + (idx / (BK / 8)) * XLD +
-                                (idx % (BK / 8)) * 8) = xr[v];
-    }
-    store_w<KIND, PACKED>(ws, wr, nf4, tid);
-    __syncthreads();
-    if (t + 1 < total) fetch(t + 1);  // in flight during the products
-
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                     wmma::row_major> a[FM];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                     wmma::row_major> b[FN];
-#pragma unroll
-      for (int i = 0; i < FM; ++i)
-        wmma::load_matrix_sync(a[i], xs + (wm * WTM + i * 16) * XLD + kk,
-                               XLD);
-#pragma unroll
-      for (int j = 0; j < FN; ++j)
-        wmma::load_matrix_sync(b[j], ws + kk * WLD + wn * WTN + j * 16, WLD);
-#pragma unroll
-      for (int i = 0; i < FM; ++i)
-#pragma unroll
-        for (int j = 0; j < FN; ++j)
-          wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
-    }
-
-    if (LN && t % nchunks == nchunks - 1) {
-      // park this N-tile's f32 results in the block's row buffer
-      const int n0 = (t / nchunks) * BN;
-#pragma unroll
-      for (int i = 0; i < FM; ++i)
-#pragma unroll
-        for (int j = 0; j < FN; ++j) {
-          wmma::store_matrix_sync(
-              rowbuf + (wm * WTM + i * 16) * ldr + n0 + wn * WTN + j * 16,
-              acc[i][j], ldr, wmma::mem_row_major);
-          wmma::fill_fragment(acc[i][j], 0.0f);
-        }
-    }
-  }
-
-  if (!LN) {
-    __syncthreads();  // every warp is done with the stages: stage over them
-    float* stage = reinterpret_cast<float*>(smem) + warp * 16 * SLD;
-    const int r = lane / 2;
-    const int c = (lane % 2) * 8;
-#pragma unroll
-    for (int i = 0; i < FM; ++i) {
-#pragma unroll
-      for (int j = 0; j < FN; ++j) {
-        wmma::store_matrix_sync(stage, acc[i][j], SLD, wmma::mem_row_major);
-        __syncwarp();
-        const int lr = wm * WTM + i * 16 + r;
-        const int gr = m0 + lr;
-        const int gc = n_begin + wn * WTN + j * 16 + c;
-        if (gr < M && gc < N) {
-          float v[8];
-#pragma unroll
-          for (int e = 0; e < 8; ++e) {
-            v[e] = stage[r * SLD + c + e];
-            if (epi != EPI_NONE) v[e] += bias[gc + e];
-            v[e] = activate(v[e], epi);
-          }
-          if (emit != EMIT_ONLY)
-            *reinterpret_cast<uint4*>(out + (size_t)gr * N + gc) = pack8(v);
-          if (emit != EMIT_NO)
-            stage_emit(stg, rmax, lr, (size_t)gr * N + gc, v, 8);
-        }
-        __syncwarp();
-      }
-    }
-    if (emit != EMIT_NO) {
-      __syncthreads();
-      for (int i = tid; i < BM && m0 + i < M; i += THREADS)
-        part[(size_t)blockIdx.y * M + m0 + i] = __uint_as_float(rmax[i]);
-    }
-    return;
-  }
-
-  __syncthreads();
-  ln_rows<BM>(rowbuf, ldr, bias, res, lns, lnb, out, o8, os, emit, m0, M, N,
-              eps);
-}
-
-template <int KIND, bool PACKED, int BM, bool LN, int STAGES>
-size_t smem_bytes(int N) {
-  size_t bytes = (size_t)STAGES * (BM * XLD + BK * WLD) * 2;
-  if (LN) bytes += (size_t)BM * (((N + BN - 1) / BN) * BN + 4) * 4;
-  return bytes;
-}
-
 // the emission outputs and scratch of one call (all null without one)
 struct EmitArgs {
   void* o8;     // int8 [M, N]
@@ -543,48 +268,1013 @@ cudaError_t emit_rows(const EmitArgs& em, int M, int N, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <int KIND, bool PACKED, int BM, bool LN, int STAGES>
-cudaError_t launch(const void* x, const void* codes, const void* scales,
-                   const void* mins, const void* bias, const void* res,
-                   const void* lns, const void* lnb, void* out,
-                   const EmitArgs& em, int M, int N, int K, int epi,
-                   float eps, cudaStream_t stream) {
-  auto kern = qmm_kernel<KIND, PACKED, BM, LN, STAGES>;
-  const size_t smem = smem_bytes<KIND, PACKED, BM, LN, STAGES>(N);
+
+// ---------------------------------------------------------------------------
+// K1 on Hopper: a persistent, warp-specialized wgmma kernel
+// ---------------------------------------------------------------------------
+
+constexpr int K1_THREADS = 384;       // consumer warpgroups 0, 1; producer 2
+constexpr int K1_MAX_STAGES = 4;      // the shared-memory ring (3 with LN)
+constexpr int K1_CLUSTER_MAX = 16;    // LayerNorm rows up to 16 x BN wide
+constexpr int K1_PRODUCER_REGS = 96;  // setmaxnreg: 96 + 2 x 200 <= 3 x 168
+constexpr int K1_CONSUMER_REGS = 200;
+constexpr int B_TILE_BYTES = BN * BK * 2;  // the bf16 weight tile, 16 KB
+constexpr uint32_t BF2_ONE = 0x3F803F80u;      // bf16x2 (1, 1)
+constexpr uint32_t BF2_NEG136 = 0xC308C308u;   // bf16x2 (-136, -136)
+constexpr uint32_t BF2_NEG0 = 0x80008000u;     // bf16x2 (-0, -0)
+constexpr uint32_t BF2_128 = 0x43004300u;      // bf16x2 (128, 128)
+
+constexpr int OUT_STAGE_BYTES = 64 * BN * 2;  // a warpgroup's 64 output rows
+
+// Shared memory of one block, from a 1024-byte aligned base: the ring of
+// x tiles (stages x BM x 64 bf16, 128-byte swizzled, written by TMA) and
+// weight tiles (stages x BN x 64 bf16 in the same swizzled K-major
+// layout, written by the producer); then, with the LayerNorm epilogue,
+// the tile's residual prefetched by the consumers (BM x BN bf16 as two
+// 64-column halves in the 128-byte swizzle; the normalized output
+// replaces it in place for the TMA store) and two exchange buffers
+// [cs][BM] f32 that the cluster's blocks write into; else each consumer
+// warpgroup's staging of 64 bf16 output rows for the TMA store (two
+// 64-column halves); then the mbarriers: full[4], empty[4], exchange[2].
+// The LayerNorm ring has 3 stages, to leave room for the residual.
+__host__ __device__ constexpr int k1_stages(bool ln) { return ln ? 3 : 4; }
+__host__ __device__ constexpr size_t k1_a_bytes(int bm) {
+  return (size_t)bm * BK * 2;
+}
+__host__ __device__ constexpr size_t k1_region_off(int bm, bool ln) {
+  return k1_stages(ln) * (k1_a_bytes(bm) + B_TILE_BYTES);
+}
+__host__ __device__ constexpr size_t k1_res_bytes(int bm) {
+  return (size_t)bm * BN * 2;
+}
+__host__ __device__ constexpr size_t k1_bar_off(int bm, bool ln, int cs) {
+  return k1_region_off(bm, ln) + (ln ? k1_res_bytes(bm) + 2ull * cs * bm * 4
+                                     : 2ull * OUT_STAGE_BYTES);
+}
+__host__ __device__ constexpr size_t k1_smem_bytes(int bm, bool ln, int cs) {
+  return 1024 + k1_bar_off(bm, ln, cs) + (2 * K1_MAX_STAGES + 2) * 8;
+}
+// the widest LayerNorm cluster at 256 rows (wider ones take 128 rows)
+constexpr int K1_CLUSTER_BM256 = 8;
+// (the kernel's static shared memory: 3 x BN f32 of staged epilogue
+// parameters and the bf16 NF4 table)
+static_assert(k1_smem_bytes(256, true, K1_CLUSTER_BM256) + 3 * BN * 4 + 32
+                  <= 232448, "a LayerNorm cluster block of 256 rows");
+static_assert(k1_smem_bytes(128, true, K1_CLUSTER_MAX) + 3 * BN * 4 + 32
+                  <= 232448, "a LayerNorm cluster block of 128 rows");
+static_assert(k1_smem_bytes(256, false, 0) + 3 * BN * 4 + 32 <= 232448,
+              "a tiled block of 256 rows");
+
+struct K1Args {
+  const uint8_t* codes;
+  const float* scales;
+  const float* mins;
+  const float* bias;
+  const __nv_bfloat16* res;
+  const float* lns;
+  const float* lnb;
+  __nv_bfloat16* out;
+  int8_t* o8;
+  float* os;
+  float* stg;
+  float* part;
+  int M, N, K, epi, emit, cs;
+  float eps;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar), "r"(bytes) : "memory");
+}
+
+// wait until the phase of the given parity has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+}
+
+// the same, acquiring what other blocks of the cluster released into it
+__device__ __forceinline__ void mbar_wait_cluster(uint32_t bar,
+                                                  uint32_t parity) {
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
+        "%2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+}
+
+// a shared-memory address of this block -> the same address in block
+// `rank` of the cluster
+__device__ __forceinline__ uint32_t map_rank(uint32_t addr, int rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(out) : "r"(addr), "r"(rank));
+  return out;
+}
+
+__device__ __forceinline__ void arrive_cluster(uint32_t bar) {
+  asm volatile(
+      "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(
+          bar) : "memory");
+}
+
+__device__ __forceinline__ void cluster_sync_all() {
+  asm volatile("barrier.cluster.arrive.release;\n"
+               "barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const void* map,
+                                            int c0, int c1, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void st_shared16(uint32_t addr, uint4 v) {
+  asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr),
+               "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w) : "memory");
+}
+
+// d = a * b + c on bf16 pairs, rounded once (a * b + c is exact first)
+__device__ __forceinline__ uint32_t bf2_fma(uint32_t a, uint32_t b,
+                                            uint32_t c) {
+  uint32_t d;
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n" : "=r"(d) : "r"(a), "r"(b), "r"(c));
+  return d;
+}
+
+__device__ __forceinline__ uint32_t bf16_bits(float v) {
+  return __bfloat16_as_ushort(__float2bfloat16_rn(v));
+}
+
+// four f32 values -> their bf16 roundings, packed (columns 0, 1 | 2, 3)
+__device__ __forceinline__ uint2 bf16x4(float4 v) {
+  return make_uint2(pack2(v.x, v.y), pack2(v.z, v.w));
+}
+
+// column i's bf16 of a bf16x4, in both halves of a bf16x2
+__device__ __forceinline__ uint32_t bcast(uint2 w, int i) {
+  return __byte_perm(w.x, w.y, 2 * i * 0x1111u + 0x1010u);
+}
+
+// wgmma's shared-memory descriptor of a K-major tile in the 128-byte
+// swizzle (rows of 64 bf16, 8-row groups 1024 bytes apart)
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) |
+         (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// keeps the compiler from moving accumulator reads and writes across the
+// asynchronous wgmma instructions
+__device__ __forceinline__ void fence_acc(float* d) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d[64] (+)= A (64 x 16, descriptor da) . B (16 x 128, descriptor db);
+// scale_d = 0 starts the sum
+__device__ __forceinline__ void wgmma_m64n128k16(float* d, uint64_t da,
+                                                 uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "
+      "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "
+      "%57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// What one producer thread holds of one raw weight chunk (64 K rows x 128
+// columns) before it dequantizes it: the code words of 4 columns (packed:
+// byte rows 8rg .. 8rg+7 of the chunk's 32, which hold weight rows 8rg ..
+// and 32 + 8rg ..; else rows 16rg .. 16rg+15) and their scales (and mins)
+// for the 32-row groups those rows fall in. Columns past N, and rows past
+// K, load code 0 and scale 0, so they dequantize to 0.
+template <bool PACKED>
+struct RawChunk {
+  uint32_t w[PACKED ? 8 : 16];
+  float4 s0, s1, m0, m1;
+};
+
+template <int KIND, bool PACKED>
+__device__ __forceinline__ void fetch_raw(RawChunk<PACKED>& r,
+                                          const K1Args& a, int k0, int n0,
+                                          int cg, int rg) {
+  const int n = n0 + 4 * cg;
+  const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
+  r.s0 = r.s1 = r.m0 = r.m1 = z;
+#pragma unroll
+  for (int i = 0; i < (PACKED ? 8 : 16); ++i) r.w[i] = 0u;
+  if (n >= a.N) return;  // N % 8 == 0: all four columns or none
+  const size_t N = a.N;
+  if (PACKED) {
+    const int g = k0 / 64;
+    r.s0 = ld4(a.scales + (2 * g) * N + n);
+    r.s1 = ld4(a.scales + (2 * g + 1) * N + n);
+    if (KIND == Q4_1) {
+      r.m0 = ld4(a.mins + (2 * g) * N + n);
+      r.m1 = ld4(a.mins + (2 * g + 1) * N + n);
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      r.w[i] = *reinterpret_cast<const uint32_t*>(
+          a.codes + (size_t)(g * 32 + 8 * rg + i) * N + n);
+  } else {
+    const int kr = k0 + 16 * rg;  // K % 32 == 0: 16 rows in or all out
+    if (kr >= a.K) return;
+    r.s0 = ld4(a.scales + (size_t)(kr / 32) * N + n);
+    if (KIND == Q4_1) r.m0 = ld4(a.mins + (size_t)(kr / 32) * N + n);
+#pragma unroll
+    for (int i = 0; i < 16; ++i)
+      r.w[i] = *reinterpret_cast<const uint32_t*>(a.codes +
+                                                  (size_t)(kr + i) * N + n);
+  }
+}
+
+// the bf16 weight of two codes of one column (rows k, k+1 in bytes 0 and 2
+// of b: nibbles for packed codes, int8 otherwise) with the TPU kernel's
+// rounding: bf16(level * bf16(scale)) (+ bf16(min), rounded again)
+template <int KIND, bool PACKED>
+__device__ __forceinline__ uint32_t deq_pair(uint32_t b, int hi, uint32_t s2,
+                                             float sf, uint32_t m2,
+                                             const uint16_t* nf4) {
+  uint32_t w;
+  if (PACKED) {
+    const uint32_t nib = (hi ? b >> 4 : b) & 0x000F000Fu;
+    uint32_t lv;
+    if (KIND == NF4)
+      lv = nf4[nib & 15] | ((uint32_t)nf4[nib >> 16] << 16);
+    else  // (128 + n) - 136 = n - 8, exact in bf16
+      lv = bf2_fma(nib | BF2_128, BF2_ONE, BF2_NEG136);
+    w = bf2_fma(lv, s2, BF2_NEG0);
+  } else {
+    // int8 codes: levels and products exact in f32, one rounding to bf16
+    const uint32_t c0 = b & 0xff, c1 = (b >> 16) & 0xff;
+    float l0, l1;
+    if (KIND == NF4) {
+      l0 = __uint_as_float((uint32_t)nf4[(int)(int8_t)c0 + 8] << 16);
+      l1 = __uint_as_float((uint32_t)nf4[(int)(int8_t)c1 + 8] << 16);
+    } else {
+      l0 = magic_f32(c0 ^ 0x80u, INT8_OFFSET);
+      l1 = magic_f32(c1 ^ 0x80u, INT8_OFFSET);
+    }
+    w = pack2(l0 * sf, l1 * sf);
+  }
+  if (KIND == Q4_1) w = bf2_fma(w, BF2_ONE, m2);
+  return w;
+}
+
+// Dequantize a fetched chunk into the weight tile at bs: element (n, k)
+// of the 128 x 64 K-major tile at byte n*128 + ((k/8) ^ (n%8))*16 +
+// (k%8)*2, the layout TMA's 128-byte swizzle gives the x tile. Each store
+// is 8 k values of one column; a thread walks its 4 columns in a rotated
+// order so that the 8 threads of a store phase hit 8 different 16-byte
+// bank groups.
+template <int KIND, bool PACKED>
+__device__ __forceinline__ void store_b(const RawChunk<PACKED>& r,
+                                        uint32_t bs, int cg, int rg,
+                                        const uint16_t* nf4) {
+  // the 4 columns' scales (and mins) rounded to bf16 once; each column's
+  // is then one byte permute away
+  const uint2 s0 = bf16x4(r.s0), s1 = bf16x4(r.s1);
+  const uint2 m0 = KIND == Q4_1 ? bf16x4(r.m0) : make_uint2(0u, 0u);
+  const uint2 m1 = KIND == Q4_1 ? bf16x4(r.m1) : make_uint2(0u, 0u);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int jj = (j + (cg >> 1)) & 3;
+    const int n = 4 * cg + jj;
+    const uint32_t sel = jj * 0x1111u + 0x4400u;  // bytes jj of two words
+    const uint32_t row = bs + n * 128;
+    if (PACKED) {
+      const uint32_t s2lo = bcast(s0, jj), s2hi = bcast(s1, jj);
+      const uint32_t m2lo = KIND == Q4_1 ? bcast(m0, jj) : 0u;
+      const uint32_t m2hi = KIND == Q4_1 ? bcast(m1, jj) : 0u;
+      uint32_t lo[4], hi[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const uint32_t b = __byte_perm(r.w[2 * i], r.w[2 * i + 1], sel);
+        lo[i] = deq_pair<KIND, PACKED>(b, 0, s2lo, 0.f, m2lo, nf4);
+        hi[i] = deq_pair<KIND, PACKED>(b, 1, s2hi, 0.f, m2hi, nf4);
+      }
+      st_shared16(row + ((rg ^ (n & 7)) << 4),
+                  make_uint4(lo[0], lo[1], lo[2], lo[3]));
+      st_shared16(row + (((4 + rg) ^ (n & 7)) << 4),
+                  make_uint4(hi[0], hi[1], hi[2], hi[3]));
+    } else {
+      // the bf16 scale as an f32 (the upper half of its bf16x2)
+      const float sf = __uint_as_float(bcast(s0, jj) & 0xFFFF0000u);
+      const uint32_t m2 = KIND == Q4_1 ? bcast(m0, jj) : 0u;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        uint32_t v[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const uint32_t b = __byte_perm(r.w[8 * h + 2 * i],
+                                         r.w[8 * h + 2 * i + 1], sel);
+          v[i] = deq_pair<KIND, PACKED>(b, 0, 0u, sf, m2, nf4);
+        }
+        st_shared16(row + (((2 * rg + h) ^ (n & 7)) << 4),
+                    make_uint4(v[0], v[1], v[2], v[3]));
+      }
+    }
+  }
+}
+
+// the cluster exchange of the LayerNorm epilogue: this thread's values
+// for its 2 * MT rows (v, already reduced over the 4 lanes of each row)
+// go to every block's exchange buffer, one lane of each row quad writing
+// them as one vector to the quad's slot [rank][slot] (slot = warp * 8 +
+// lane / 4: the same rows in every block), one lane of each warp
+// arriving; after every block's warps have arrived, v becomes the sum (or
+// max) over the cs blocks, taken in rank order so every block computes
+// the same value
+template <int MT, bool MAX>
+__device__ __forceinline__ void exchange(float (&v)[2 * MT], float* xch,
+                                         uint32_t bar, int cs, int rank,
+                                         int BMr, uint32_t parity,
+                                         bool writer, int slot) {
+  const float* mine = xch + slot * 2 * MT;
+  if (writer) {
+    const uint32_t at = smem_u32(mine + rank * BMr);
+    for (int r = 0; r < cs; ++r) {
+      const uint32_t dst = map_rank(at, r);
+      if (MT == 2)
+        asm volatile("st.shared::cluster.v4.f32 [%0], {%1, %2, %3, %4};\n"
+                     ::"r"(dst), "f"(v[0]), "f"(v[1]), "f"(v[2 % (2 * MT)]),
+                     "f"(v[3 % (2 * MT)]) : "memory");
+      else
+        asm volatile("st.shared::cluster.v2.f32 [%0], {%1, %2};\n" ::"r"(dst),
+                     "f"(v[0]), "f"(v[1]) : "memory");
+    }
+  }
+  // the warp's writes are ordered before lane 0's release to each block
+  __syncwarp();
+  if ((threadIdx.x & 31) == 0)
+    for (int r = 0; r < cs; ++r) arrive_cluster(map_rank(bar, r));
+  mbar_wait_cluster(bar, parity);
+#pragma unroll
+  for (int i = 0; i < 2 * MT; ++i) {
+    float t = 0.f;
+    for (int r = 0; r < cs; ++r) {
+      const float x = mine[r * BMr + i];
+      t = MAX ? fmaxf(t, x) : t + x;
+    }
+    v[i] = t;
+  }
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+// 16 bytes global -> shared (a 32-bit shared address), zeros when !valid
+__device__ __forceinline__ void cp_async16_to(uint32_t dst, const void* src,
+                                              bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 16 : 0) : "memory");
+}
+
+__device__ __forceinline__ void named_bar(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+__device__ __forceinline__ void tma_store_2d(const void* map, uint32_t src,
+                                             int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], "
+      "[%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1) : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// the committed TMA stores have read their shared memory (.read) / are done
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// the activation of a tiled epilogue, resolved at compile time (a runtime
+// choice is if-converted: every value through tanh, exp and a divide).
+// GELU's tanh form as v * sigmoid(2u), u = sqrt(2/pi) (v + 0.044715 v^3),
+// which equals v * 0.5 (1 + tanh(u)); SiLU v * sigmoid(v); the sigmoid
+// through the fast exp2 and reciprocal, a few f32 ulps from the library
+// functions, far inside the bf16 output's rounding
+template <int EPI>
+__device__ __forceinline__ float act(float v) {
+  if (EPI == EPI_GELU) {
+    const float u = 0.7978845608028654f * (v + 0.044715f * (v * v * v));
+    return v * __fdividef(1.0f, 1.0f + __expf(-2.0f * u));
+  }
+  if (EPI == EPI_SILU) return v * __fdividef(1.0f, 1.0f + __expf(-v));
+  return v;
+}
+
+// The tiled epilogue of one consumer warpgroup (thread wt of 128, warp w4)
+// over its MT 64-row blocks of the tile: bias and activation in f32, then
+// each block's bf16 rows go through this warpgroup's staging (swizzled,
+// conflict-free) to one TMA store per 64-column half, which clips rows
+// past M and columns past N and runs on while the next tile's products
+// start. Emission stages the f32 values in global memory for
+// emit_rows_kernel and leaves each row's absmax over this tile's columns
+// in amax.
+template <int EPI, int MT>
+__device__ __forceinline__ void tiled_epilogue(
+    float (&acc)[MT][64], const K1Args& a, const CUtensorMap* omap,
+    uint32_t stage, float* sbias, int m_wg, int n0, int nj, int w4,
+    int lane, int wt, int wg, float (&amax)[2 * MT]) {
+  const int cq = 2 * (lane & 3);
+  // the tile's bias, one column a thread, in this warpgroup's shared row
+  // (its last readers passed the previous tile's final barrier)
+  sbias[wt] = (EPI != EPI_NONE && n0 + wt < a.N) ? a.bias[n0 + wt] : 0.f;
+  const bool out = a.emit != EMIT_ONLY;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    // the staging is free once the last store has read it
+    if (out && wt == 0) bulk_wait_read();
+    named_bar(2 + wg, 128);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = w4 * 16 + (lane >> 2) + 8 * h;  // row in the block
+      const int gr = m_wg + mt * 64 + r;
+      float m = 0.f;
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        if (j >= nj) break;  // N % 8 == 0: a column pair is whole
+        const float2 b = *reinterpret_cast<const float2*>(sbias + 8 * j + cq);
+        const float v0 = act<EPI>(acc[mt][4 * j + 2 * h] + b.x);
+        const float v1 = act<EPI>(acc[mt][4 * j + 2 * h + 1] + b.y);
+        if (out) {
+          const uint32_t addr = stage + (j >> 3) * (OUT_STAGE_BYTES / 2) +
+                                r * 128 + (((j & 7) ^ (r & 7)) << 4) +
+                                (cq << 1);
+          asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(addr),
+                       "r"(pack2(v0, v1)) : "memory");
+        }
+        if (a.emit != EMIT_NO && gr < a.M)
+          *reinterpret_cast<float2*>(a.stg + (size_t)gr * a.N + n0 + 8 * j +
+                                     cq) = make_float2(v0, v1);
+        m = fmaxf(m, fmaxf(fabsf(v0), fabsf(v1)));
+      }
+      amax[2 * mt + h] = m;
+    }
+    if (out) {
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      named_bar(2 + wg, 128);
+      if (wt == 0) {
+        const int row = m_wg + mt * 64;
+        tma_store_2d(omap, stage, n0, row);
+        if (n0 + 64 < a.N)
+          tma_store_2d(omap, stage + OUT_STAGE_BYTES / 2, n0 + 64, row);
+        bulk_commit();
+      }
+    }
+  }
+  // without a store, nothing else orders the bias reads before the next
+  // tile's bias writes
+  if (!out) named_bar(2 + wg, 128);
+}
+
+// K1. BM output rows x BN columns a tile. LN: the residual + LayerNorm
+// epilogue, launched as clusters of cs = ceil(N / BN) blocks along N
+// (block rank = blockIdx.x = its N tile), each cluster walking M tiles
+// blockIdx.y, + gridDim.y, ...; else the blocks walk the M x N tiles
+// blockIdx.x, + gridDim.x, ... (N tiles fastest).
+template <int KIND, bool PACKED, int BM, bool LN>
+__global__ void __launch_bounds__(K1_THREADS, 1) qmm_wgmma_kernel(
+    const __grid_constant__ CUtensorMap xmap,
+    const __grid_constant__ CUtensorMap omap, const K1Args a) {
+  constexpr int MT = BM / 128;  // m64 tiles per consumer warpgroup
+  constexpr int STAGES = k1_stages(LN);
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ uint16_t nf4[16];
+  __shared__ float lnp[3][BN];  // LN: bias, LN scale, LN bias
+  const uint32_t raw_base = smem_u32(smem_raw);
+  const uint32_t base = (raw_base + 1023) & ~1023u;
+  unsigned char* sbase = smem_raw + (base - raw_base);
+  const uint32_t a_tiles = base;
+  const uint32_t b_tiles = base + STAGES * (uint32_t)k1_a_bytes(BM);
+  // the region: LN's residual / output tile then its exchange buffers, or
+  // the tiled epilogue's output staging
+  const uint32_t region = base + (uint32_t)k1_region_off(BM, LN);
+  float* xch = reinterpret_cast<float*>(sbase + k1_region_off(BM, LN) +
+                                        k1_res_bytes(BM));
+  const uint32_t bars = base + (uint32_t)k1_bar_off(BM, LN, LN ? a.cs : 0);
+  auto full_bar = [&](int s) { return bars + 8 * s; };
+  auto empty_bar = [&](int s) { return bars + 8 * (K1_MAX_STAGES + s); };
+  auto xch_bar = [&](int b) { return bars + 8 * (2 * K1_MAX_STAGES + b); };
+
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full_bar(s), 1 + 128);  // the x bytes + the producer
+      mbar_init(empty_bar(s), 8);       // one lane per consumer warp
+    }
+    if (LN) {
+      mbar_init(xch_bar(0), 8 * a.cs);  // every consumer warp of the cluster
+      mbar_init(xch_bar(1), 8 * a.cs);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  if (tid < 16) nf4[tid] = (uint16_t)bf16_bits(kNF4[tid]);
+  if (LN)
+    cluster_sync_all();  // every block's barriers exist before any arrive
+  else
+    __syncthreads();
+
+  const int ntn = (a.N + BN - 1) / BN;
+  const int ntm = (a.M + BM - 1) / BM;
+  const int nk = (a.K + BK - 1) / BK;
+  const int t_first = LN ? blockIdx.y : blockIdx.x;
+  const int t_step = LN ? gridDim.y : gridDim.x;
+  const int t_count = LN ? ntm : ntm * ntn;
+  const int rank = LN ? blockIdx.x : 0;
+
+  if (tid >= 256) {
+    // ---- producer: x tiles by TMA, weight tiles dequantized ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
+        K1_PRODUCER_REGS));
+    const int pt = tid - 256;
+    const int cg = pt & 31;
+    const int rg = pt >> 5;
+    // The raw words of the next chunks are in flight while this one is
+    // dequantized: two chunks ahead for the packed 4-bit codes (three
+    // register sets fit the producer's registers), one for the rest.
+    constexpr bool DEEP = PACKED && KIND != Q4_1;
+    RawChunk<PACKED> cur, nxt, far;
+    auto n_of = [&](int tt) { return LN ? rank * BN : (tt % ntn) * BN; };
+    auto advance = [&](int& tt, int& kk) {
+      if (++kk == nk) {
+        kk = 0;
+        tt += t_step;
+      }
+    };
+    int t = t_first, kc = 0;     // the chunk dequantized now
+    int t1 = t, kc1 = kc;        // the next one
+    advance(t1, kc1);
+    int t2 = t1, kc2 = kc1;      // the one after
+    advance(t2, kc2);
+    if (t < t_count) fetch_raw<KIND, PACKED>(cur, a, 0, n_of(t), cg, rg);
+    if (DEEP && t1 < t_count)
+      fetch_raw<KIND, PACKED>(nxt, a, kc1 * BK, n_of(t1), cg, rg);
+    int stage = 0;
+    uint32_t phase = 0;
+    while (t < t_count) {
+      const int m0 = (LN ? t : t / ntn) * BM;
+      if (DEEP) {
+        if (t2 < t_count)
+          fetch_raw<KIND, PACKED>(far, a, kc2 * BK, n_of(t2), cg, rg);
+      } else if (t1 < t_count) {
+        fetch_raw<KIND, PACKED>(nxt, a, kc1 * BK, n_of(t1), cg, rg);
+      }
+      mbar_wait(empty_bar(stage), phase ^ 1);
+      if (pt == 0) {
+        mbar_expect_tx(full_bar(stage), (uint32_t)k1_a_bytes(BM));
+        tma_load_2d(a_tiles + stage * (uint32_t)k1_a_bytes(BM), &xmap,
+                    kc * BK, m0, full_bar(stage));
+      }
+      store_b<KIND, PACKED>(cur, b_tiles + stage * B_TILE_BYTES, cg, rg,
+                            nf4);
+      // the generic-proxy stores become visible to wgmma's async proxy
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      mbar_arrive(full_bar(stage));
+      cur = nxt;
+      if (DEEP) nxt = far;
+      t = t1;
+      kc = kc1;
+      t1 = t2;
+      kc1 = kc2;
+      advance(t2, kc2);
+      if (++stage == STAGES) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+    if (LN) cluster_sync_all();
+  } else {
+    // ---- consumers: wgmma on the ring, then the epilogue ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
+        K1_CONSUMER_REGS));
+    const int wg = tid / 128;
+    const int w4 = (tid % 128) / 32;
+    const int lane = tid % 32;
+    float acc[MT][64];
+    int stage = 0, prev = 0;
+    uint32_t phase = 0;
+    int xstep = 0;  // LayerNorm exchanges so far (buffer = xstep & 1)
+    // this thread's rows of the tile (block-local): [mt][half]
+    int rows[2 * MT];
+#pragma unroll
+    for (int i = 0; i < 2 * MT; ++i)
+      rows[i] = wg * (BM / 2) + (i / 2) * 64 + w4 * 16 + (lane >> 2) +
+                8 * (i % 2);
+    const int cq = 2 * (lane & 3);  // this thread's column pair in an 8
+    if (LN) {
+      // a LayerNorm block's N tile is its rank for the whole kernel: its
+      // bias, LN scale and LN bias (0 past N) go to shared memory once
+      for (int c = tid; c < BN; c += 256) {
+        const int gc = rank * BN + c;
+        const bool ok = gc < a.N;
+        lnp[0][c] = ok ? a.bias[gc] : 0.f;
+        lnp[1][c] = ok ? a.lns[gc] : 0.f;
+        lnp[2][c] = ok ? a.lnb[gc] : 0.f;
+      }
+      asm volatile("bar.sync 1, 256;\n" ::: "memory");  // consumers only
+    }
+
+    for (int t = t_first; t < t_count; t += t_step) {
+      const int m0 = (LN ? t : t / ntn) * BM;
+      const int n0 = LN ? rank * BN : (t % ntn) * BN;
+      if (LN) {
+        // the tile's residual rows go to shared memory while the products
+        // run (16-byte copies, zeros past M and N), once the last tile's
+        // output store has read the buffer
+        if (tid == 0) bulk_wait_read();
+        named_bar(1, 256);
+#pragma unroll
+        for (int k = 0; k < BM / 16; ++k) {
+          const int vi = tid + 256 * k;
+          const int r = vi >> 4, g = vi & 15;
+          const bool ok = m0 + r < a.M && n0 + 8 * g < a.N;
+          cp_async16_to(region + (g >> 3) * (BM * 128) + r * 128 +
+                            (((g & 7) ^ (r & 7)) << 4),
+                        ok ? a.res + (size_t)(m0 + r) * a.N + n0 + 8 * g
+                           : a.res,
+                        ok);
+        }
+        asm volatile("cp.async.commit_group;\n" ::: "memory");
+      }
+      for (int kc = 0; kc < nk; ++kc) {
+        mbar_wait(full_bar(stage), phase);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) fence_acc(acc[mt]);
+        wgmma_fence();
+        const uint32_t at = a_tiles + stage * (uint32_t)k1_a_bytes(BM) +
+                            (wg * MT) * 64 * 128;
+        const uint32_t bt = b_tiles + stage * B_TILE_BYTES;
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt)
+            wgmma_m64n128k16(acc[mt], sw128_desc(at + mt * 64 * 128 + kk * 32),
+                             sw128_desc(bt + kk * 32), (kc | kk) != 0);
+        wgmma_commit();
+        if (kc > 0) {  // the previous chunk's products are done: free it
+          wgmma_wait<1>();
+          if (lane == 0) mbar_arrive(empty_bar(prev));
+        }
+        prev = stage;
+        if (++stage == STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+      wgmma_wait<0>();
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) fence_acc(acc[mt]);
+      if (lane == 0) mbar_arrive(empty_bar(prev));
+
+      // the epilogues walk this thread's columns outermost (a column's
+      // bias and LayerNorm parameters load once, for all its rows) and
+      // its 2 * MT rows inside: acc[i / 2][4 * j + 2 * (i % 2) + e] is row
+      // rows[i], column n0 + 8 * j + cq + e
+      const int nj = min(BN / 8, (a.N - n0 + 7) / 8);  // 8-column groups < N
+      int grow[2 * MT];
+#pragma unroll
+      for (int i = 0; i < 2 * MT; ++i) grow[i] = m0 + rows[i];
+      float v[2 * MT];  // per row: partial sums, then absmax
+#pragma unroll
+      for (int i = 0; i < 2 * MT; ++i) v[i] = 0.f;
+
+      if (!LN) {
+        const uint32_t stage_wg = region + wg * OUT_STAGE_BYTES;
+        const int m_wg = m0 + wg * (BM / 2);
+        const int wt = tid % 128;
+#define K1_TILED(E)                                                       \
+  tiled_epilogue<E, MT>(acc, a, &omap, stage_wg, lnp[wg], m_wg, n0, nj,   \
+                        w4, lane, wt, wg, v)
+        switch (a.epi) {
+          case EPI_NONE: K1_TILED(EPI_NONE); break;
+          case EPI_BIAS: K1_TILED(EPI_BIAS); break;
+          case EPI_GELU:
+          case EPI_GELU_TANH: K1_TILED(EPI_GELU); break;
+          default: K1_TILED(EPI_SILU); break;
+        }
+#undef K1_TILED
+        if (a.emit != EMIT_NO) {
+#pragma unroll
+          for (int i = 0; i < 2 * MT; ++i) {
+            const float amax = quad_max(v[i]);
+            if ((lane & 3) == 0 && grow[i] < a.M)
+              a.part[(size_t)(n0 / BN) * a.M + grow[i]] = amax;
+          }
+        }
+        continue;
+      }
+
+      // residual + LayerNorm over the cluster's full rows: y = acc + bias
+      // + res kept in acc (0 past N), then two exchanges (sum, then the
+      // sum of squared deviations from the mean), normalize this block's
+      // columns
+      const bool writer = (lane & 3) == 0;
+      const float inv_n = 1.0f / a.N;
+      // the residual tile has landed (this thread's copies, then all's)
+      asm volatile("cp.async.wait_all;\n" ::: "memory");
+      named_bar(1, 256);
+      // (row rows[i], column pair 8j + cq) of the residual / output tile
+      auto res_addr = [&](int i, int j) {
+        return region + (j >> 3) * (BM * 128) + rows[i] * 128 +
+               (((j & 7) ^ (rows[i] & 7)) << 4) + (cq << 1);
+      };
+#pragma unroll
+      for (int i = 0; i < 2 * MT; ++i) {
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j) {
+          const int c = 8 * j + cq;
+          const bool ok = j < nj;
+          float* p = &acc[i / 2][4 * j + 2 * (i % 2)];
+          uint32_t rb;
+          asm volatile("ld.shared.b32 %0, [%1];\n" : "=r"(rb)
+                       : "r"(res_addr(i, j)));
+          const float2 rv =
+              __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&rb));
+          const float y0 = ok ? (p[0] + lnp[0][c]) + rv.x : 0.f;
+          const float y1 = ok ? (p[1] + lnp[0][c + 1]) + rv.y : 0.f;
+          p[0] = y0;
+          p[1] = y1;
+          v[i] += y0 + y1;
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 2 * MT; ++i) v[i] = quad_sum(v[i]);
+      exchange<MT, false>(v, xch + (xstep & 1) * a.cs * BM,
+                          xch_bar(xstep & 1), a.cs, rank, BM,
+                          (xstep >> 1) & 1, writer, tid / 32 * 8 + lane / 4);
+      ++xstep;
+      float mean[2 * MT];
+#pragma unroll
+      for (int i = 0; i < 2 * MT; ++i) {
+        mean[i] = v[i] * inv_n;
+        v[i] = 0.f;
+      }
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        if (j >= nj) break;
+#pragma unroll
+        for (int i = 0; i < 2 * MT; ++i) {
+          const float* p = &acc[i / 2][4 * j + 2 * (i % 2)];
+          const float d0 = p[0] - mean[i], d1 = p[1] - mean[i];
+          v[i] += d0 * d0 + d1 * d1;
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 2 * MT; ++i) v[i] = quad_sum(v[i]);
+      exchange<MT, false>(v, xch + (xstep & 1) * a.cs * BM,
+                          xch_bar(xstep & 1), a.cs, rank, BM,
+                          (xstep >> 1) & 1, writer, tid / 32 * 8 + lane / 4);
+      ++xstep;
+      float inv[2 * MT];
+#pragma unroll
+      for (int i = 0; i < 2 * MT; ++i) {
+        inv[i] = rsqrtf(v[i] * inv_n + a.eps);
+        v[i] = 0.f;
+      }
+#pragma unroll
+      for (int i = 0; i < 2 * MT; ++i) {
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j) {
+          if (j >= nj) break;
+          const int c = 8 * j + cq;
+          float* p = &acc[i / 2][4 * j + 2 * (i % 2)];
+          const float o0 = (p[0] - mean[i]) * inv[i] * lnp[1][c] + lnp[2][c];
+          const float o1 =
+              (p[1] - mean[i]) * inv[i] * lnp[1][c + 1] + lnp[2][c + 1];
+          p[0] = o0;
+          p[1] = o1;
+          // the output replaces the residual this thread read there
+          asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(res_addr(i, j)),
+                       "r"(pack2(o0, o1)) : "memory");
+          v[i] = fmaxf(v[i], fmaxf(fabsf(o0), fabsf(o1)));
+        }
+      }
+      if (a.emit != EMIT_ONLY) {
+        // the block's BM x BN output: one TMA store per 64-column half,
+        // clipped at M and N
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        named_bar(1, 256);
+        if (tid == 0) {
+          tma_store_2d(&omap, region, n0, m0);
+          if (n0 + 64 < a.N)
+            tma_store_2d(&omap, region + BM * 128, n0 + 64, m0);
+          bulk_commit();
+        }
+      }
+      if (a.emit == EMIT_NO) continue;
+      // K1e: a third exchange gives the row absmax; each block writes the
+      // codes of its own columns, rank 0 the row scale
+#pragma unroll
+      for (int i = 0; i < 2 * MT; ++i) v[i] = quad_max(v[i]);
+      exchange<MT, true>(v, xch + (xstep & 1) * a.cs * BM,
+                         xch_bar(xstep & 1), a.cs, rank, BM,
+                         (xstep >> 1) & 1, writer, tid / 32 * 8 + lane / 4);
+      ++xstep;
+#pragma unroll
+      for (int i = 0; i < 2 * MT; ++i) {
+        const float so = fmaxf(v[i], 1e-12f) * INV127;
+        v[i] = 1.0f / so;
+        if (rank == 0 && writer && grow[i] < a.M) a.os[grow[i]] = so;
+      }
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        if (j >= nj) break;
+        const int gc = n0 + 8 * j + cq;
+#pragma unroll
+        for (int i = 0; i < 2 * MT; ++i) {
+          if (grow[i] >= a.M) continue;
+          const float* p = &acc[i / 2][4 * j + 2 * (i % 2)];
+          const uint32_t c0 = __float2int_rn(p[0] * v[i]) & 0xff;
+          const uint32_t c1 = __float2int_rn(p[1] * v[i]) & 0xff;
+          *reinterpret_cast<uint16_t*>(a.o8 + (size_t)grow[i] * a.N + gc) =
+              (uint16_t)(c0 | (c1 << 8));
+        }
+      }
+    }
+    if (tid % 128 == 0) bulk_wait();  // the last output stores are done
+    if (LN) cluster_sync_all();
+  }
+}
+
+// cuTensorMapEncodeTiled from the driver, found through the runtime, so
+// the library links no libcuda of its own
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// a row-major bf16 [rows, cols] as TMA boxes of 64 columns x box_rows rows,
+// 128-byte swizzled (x: loads, rows past M and columns past K read as
+// zeros; out: stores, clipped at M and N)
+cudaError_t bf16_tensor_map(CUtensorMap* map, const void* p, int rows,
+                            int cols, int box_rows) {
+  EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
+  const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(p), dims,
+      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+int sm_count() {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+  }
+  return n;
+}
+
+template <int KIND, bool PACKED, int BM, bool LN>
+cudaError_t launch_k1(const CUtensorMap& xmap, const CUtensorMap& omap,
+                      const K1Args& a, cudaStream_t stream) {
+  auto kern = qmm_wgmma_kernel<KIND, PACKED, BM, LN>;
+  const size_t smem = k1_smem_bytes(BM, LN, LN ? a.cs : 0);
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  dim3 grid((M + BM - 1) / BM, LN ? 1 : (N + BN - 1) / BN);
-  kern<<<grid, THREADS, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const uint8_t*>(codes),
-      static_cast<const float*>(scales), static_cast<const float*>(mins),
-      static_cast<const float*>(bias), static_cast<const __nv_bfloat16*>(res),
-      static_cast<const float*>(lns), static_cast<const float*>(lnb),
-      static_cast<__nv_bfloat16*>(out), static_cast<int8_t*>(em.o8),
-      static_cast<float*>(em.os), static_cast<float*>(em.stg),
-      static_cast<float*>(em.part), M, N, K, epi, em.emit, eps);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || LN || em.emit == EMIT_NO) return err;
-  return emit_rows(em, M, N, stream);
+  const int ntm = (a.M + BM - 1) / BM;
+  const int ntn = (a.N + BN - 1) / BN;
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  cfg.blockDim = dim3(K1_THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  if (LN) {
+    // clusters of cs blocks along N; as many clusters as fit at once
+    // (persistent), each walking M tiles
+    err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return err;
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = a.cs;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    cfg.gridDim = dim3(a.cs, ntm);
+    static int fits[K1_CLUSTER_MAX + 1] = {};  // clusters at once, by cs
+    if (fits[a.cs] == 0) {
+      err = cudaOccupancyMaxActiveClusters(&fits[a.cs], kern, &cfg);
+      if (err != cudaSuccess) return err;
+      if (fits[a.cs] < 1) return cudaErrorInvalidConfiguration;
+    }
+    cfg.gridDim = dim3(a.cs, ntm < fits[a.cs] ? ntm : fits[a.cs]);
+  } else {
+    const int tiles = ntm * ntn;
+    cfg.gridDim = dim3(tiles < sm_count() ? tiles : sm_count());
+  }
+  void* args[] = {const_cast<CUtensorMap*>(&xmap),
+                  const_cast<CUtensorMap*>(&omap), const_cast<K1Args*>(&a)};
+  err = cudaLaunchKernelExC(&cfg, reinterpret_cast<const void*>(kern), args);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
 }
 
 template <int KIND, bool PACKED>
-cudaError_t dispatch_tile(const void* x, const void* codes,
-                          const void* scales, const void* mins,
-                          const void* bias, const void* res, const void* lns,
-                          const void* lnb, void* out, const EmitArgs& em,
-                          int M, int N, int K, int epi, float eps,
-                          cudaStream_t stream) {
-#define QMM_ARGS x, codes, scales, mins, bias, res, lns, lnb, out, em, M, N, \
-                 K, epi, eps, stream
-  if (epi != EPI_RES_LN)
-    return launch<KIND, PACKED, 128, false, 2>(QMM_ARGS);
-  if (smem_bytes<KIND, PACKED, 64, true, 1>(N) <= MAX_SMEM)
-    return launch<KIND, PACKED, 64, true, 1>(QMM_ARGS);
-  if (smem_bytes<KIND, PACKED, 32, true, 1>(N) <= MAX_SMEM)
-    return launch<KIND, PACKED, 32, true, 1>(QMM_ARGS);
-#undef QMM_ARGS
-  return cudaErrorInvalidValue;  // row too wide for shared memory
+cudaError_t dispatch_k1(const CUtensorMap& xmap, const CUtensorMap& omap,
+                        const K1Args& a, int bm, cudaStream_t stream) {
+  const bool ln = a.epi == EPI_RES_LN;
+  if (ln && bm == 256 && a.cs > K1_CLUSTER_BM256) return cudaErrorInvalidValue;
+  if (bm == 256)
+    return ln ? launch_k1<KIND, PACKED, 256, true>(xmap, omap, a, stream)
+              : launch_k1<KIND, PACKED, 256, false>(xmap, omap, a, stream);
+  if (bm == 128)
+    return ln ? launch_k1<KIND, PACKED, 128, true>(xmap, omap, a, stream)
+              : launch_k1<KIND, PACKED, 128, false>(xmap, omap, a, stream);
+  return cudaErrorInvalidValue;
 }
 
 
@@ -964,36 +1654,61 @@ cudaError_t requant(const void* codes, const void* scales, const void* mins,
 
 extern "C" {
 
-// All pointers are device pointers; mins, bias, res, lns, lnb may be null
-// where the kind / epilogue does not read them. Shapes: x [M, K] bf16,
-// codes [K, N] int8 or [K/2, N] uint8 (packed), scales/mins [K/32, N] f32,
-// bias/lns/lnb [N] f32, res/out [M, N] bf16. emit: 0 none, 1 both (out
-// and o8 [M, N] int8 + os [M] f32), 2 only (o8 and os; out may be null);
-// with emission and an epilogue other than residual + LayerNorm, stg f32
-// [M, N] and part f32 [ceil(N/128), M] are scratch (else may be null).
-// Requires N % 8 == 0, K % 32 == 0 (K % 64 == 0 when packed), 16-byte
-// aligned pointers. Returns a cudaError_t.
+// K1. All pointers are device pointers; mins, bias, res, lns, lnb may be
+// null where the kind / epilogue does not read them. Shapes: x [M, K]
+// bf16, codes [K, N] int8 or [K/2, N] uint8 (packed), scales/mins [K/32,
+// N] f32, bias/lns/lnb [N] f32, res/out [M, N] bf16. emit: 0 none, 1 both
+// (out and o8 [M, N] int8 + os [M] f32), 2 only (o8 and os; out may be
+// null); with emission and an epilogue other than residual + LayerNorm,
+// stg f32 [M, N] and part f32 [ceil(N/128), M] are scratch (else may be
+// null). bm: the tile's rows, 128 or 256 (the caller's choice by shape).
+// Requires N % 8 == 0, K % 32 == 0 (K % 64 == 0 when packed), N <= 16 *
+// 128 with residual + LayerNorm, 16-byte aligned pointers. Returns a
+// cudaError_t; a cluster the card cannot place is refused, not rerouted.
 int qmm_launch(const void* x, const void* codes, const void* scales,
                const void* mins, const void* bias, const void* res,
                const void* lns, const void* lnb, void* out, void* o8,
                void* os, void* stg, void* part, int M, int N, int K,
-               int kind, int packed, int epi, int emit, float eps,
+               int kind, int packed, int epi, int emit, int bm, float eps,
                void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const EmitArgs em{o8, os, stg, part, emit};
-#define QMM_ARGS x, codes, scales, mins, bias, res, lns, lnb, out, em, M, N, \
-                 K, epi, eps, st
+  const int cs = (N + BN - 1) / BN;
+  if (N % 8 || K % 32 || (packed && K % 64) || M < 1) return cudaErrorInvalidValue;
+  if (epi == EPI_RES_LN && cs > K1_CLUSTER_MAX) return cudaErrorInvalidValue;
+  CUtensorMap xmap, omap;
+  cudaError_t err = bf16_tensor_map(&xmap, x, M, K, bm);
+  if (err != cudaSuccess) return err;
+  // the output's TMA boxes: a warpgroup's 64 rows (tiled epilogues) or
+  // the block's bm rows (LayerNorm); with emission "only" there is no
+  // out and the map is never used
+  err = bf16_tensor_map(&omap, out ? out : x, M, out ? N : K,
+                        epi == EPI_RES_LN ? bm : 64);
+  if (err != cudaSuccess) return err;
+  const K1Args a{static_cast<const uint8_t*>(codes),
+                 static_cast<const float*>(scales),
+                 static_cast<const float*>(mins),
+                 static_cast<const float*>(bias),
+                 static_cast<const __nv_bfloat16*>(res),
+                 static_cast<const float*>(lns),
+                 static_cast<const float*>(lnb),
+                 static_cast<__nv_bfloat16*>(out),
+                 static_cast<int8_t*>(o8),
+                 static_cast<float*>(os),
+                 static_cast<float*>(stg),
+                 static_cast<float*>(part),
+                 M, N, K, epi, emit, epi == EPI_RES_LN ? cs : 0, eps};
   switch (kind * 2 + (packed ? 1 : 0)) {
-    case Q4_0 * 2: return dispatch_tile<Q4_0, false>(QMM_ARGS);
-    case Q4_0 * 2 + 1: return dispatch_tile<Q4_0, true>(QMM_ARGS);
-    case Q4_1 * 2: return dispatch_tile<Q4_1, false>(QMM_ARGS);
-    case Q4_1 * 2 + 1: return dispatch_tile<Q4_1, true>(QMM_ARGS);
-    case Q8_0 * 2: return dispatch_tile<Q8_0, false>(QMM_ARGS);
-    case NF4 * 2: return dispatch_tile<NF4, false>(QMM_ARGS);
-    case NF4 * 2 + 1: return dispatch_tile<NF4, true>(QMM_ARGS);
+    case Q4_0 * 2: err = dispatch_k1<Q4_0, false>(xmap, omap, a, bm, st); break;
+    case Q4_0 * 2 + 1: err = dispatch_k1<Q4_0, true>(xmap, omap, a, bm, st); break;
+    case Q4_1 * 2: err = dispatch_k1<Q4_1, false>(xmap, omap, a, bm, st); break;
+    case Q4_1 * 2 + 1: err = dispatch_k1<Q4_1, true>(xmap, omap, a, bm, st); break;
+    case Q8_0 * 2: err = dispatch_k1<Q8_0, false>(xmap, omap, a, bm, st); break;
+    case NF4 * 2: err = dispatch_k1<NF4, false>(xmap, omap, a, bm, st); break;
+    case NF4 * 2 + 1: err = dispatch_k1<NF4, true>(xmap, omap, a, bm, st); break;
     default: return cudaErrorInvalidValue;
   }
-#undef QMM_ARGS
+  if (err != cudaSuccess || epi == EPI_RES_LN || emit == EMIT_NO) return err;
+  return emit_rows(EmitArgs{o8, os, stg, part, emit}, M, N, st);
 }
 
 // K3, the int8 mode: three launches on `stream` (weight requantization

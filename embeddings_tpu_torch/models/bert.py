@@ -379,7 +379,7 @@ def encoder_layer(layer: Params, config: BertConfig, x: torch.Tensor,
                   use_kernels: bool = True,
                   int8: bool = False, xq: ActQ | None = None,
                   links: frozenset = frozenset(),
-                  int8_scores: bool = False):
+                  int8_scores: bool = False, causal: bool = False):
     """One post-LN encoder block. The two residual + LayerNorm steps run
     in the o-proj and FFN-down matmuls' epilogue (``linear_residual_ln``).
     ``int8``: every quantized matmul in the int8 mode; with no ``links``
@@ -389,7 +389,8 @@ def encoder_layer(layer: Params, config: BertConfig, x: torch.Tensor,
     matmuls also emit their output, ``xq`` carries x's int8 rows into the
     qkv and up projections, and the block returns (x, xq); "ffn" — FFN-up
     emits int8-only for FFN-down. ``rope``: the rotary families' (cos,
-    sin) tables (nomic-bert, RoFormer)."""
+    sin) tables (nomic-bert, RoFormer). ``causal``: attention attends j <=
+    i in the kernel (K6c, or K6ca with ``alibi``)."""
     a, m = layer["attn"], layer["mlp"]
     eps = config.layer_norm_eps
     mode = dict(use_kernels=use_kernels, int8=int8)
@@ -398,7 +399,7 @@ def encoder_layer(layer: Params, config: BertConfig, x: torch.Tensor,
                             segments=segments, attn_window=attn_window,
                             ranges=ranges, bias=bias, alibi=alibi, rope=rope,
                             xq=xq, emit_int8="attn" in links,
-                            int8_scores=int8_scores, **mode)
+                            int8_scores=int8_scores, causal=causal, **mode)
     out = linear_residual_ln(ctx, a["o"]["w"], a["o"]["b"], x,
                              a["ln"]["scale"], a["ln"]["bias"], eps,
                              emit=ln_emit, **mode)
@@ -585,7 +586,11 @@ def encode_tokens(params: Params, config: BertConfig,
     operand while it takes the shape, as K6's in-kernel ALiBi past that,
     else folded into the einsum path's mask. A causal config (Qwen2)
     attends j <= i: in K6c, or with the triangle folded into the einsum
-    path's mask. The chained-int8 links and the int8-scores mode are read
+    path's mask; a causal ALiBi config takes K6ca wherever the streamed
+    kernel takes the shape, else the einsum path with both folded in. The
+    post-LN stack hands ``causal`` to attention, where the JAX package's
+    does not: its kernel route would drop the triangle that its einsum
+    path applies. The chained-int8 links and the int8-scores mode are read
     here, once (see the module docstring).
     Returns [B, E'] float32 (or the [B, L, E] hidden states)."""
     check_supported(config)
@@ -606,15 +611,16 @@ def encode_tokens(params: Params, config: BertConfig,
     if "alibi_slopes" in params or params.get("rel_bias") is not None:
         H, D = config.num_attention_heads, config.head_dim
         if ("alibi_slopes" in params and prefix_mask and use_kernels
-                and not attn_ops.bias_supported(L, H, D)
+                and (config.causal or not attn_ops.bias_supported(L, H, D))
                 and attn_ops.stream_supported(L, H, D, attn_ops.pick_bk(L))):
-            # ALiBi past K7's cap: K6 computes the penalty from positions,
-            # so no O(L^2) bias array exists
+            # ALiBi past K7's cap, and causal ALiBi at every length (K7
+            # has no causal mode): K6 / K6ca compute the penalty from
+            # positions, so no O(L^2) bias array exists
             alibi = params["alibi_slopes"]
         else:
             fb = _logit_bias(params, config,
                              torch.arange(L, device=token_ids.device)[None])
-            if (prefix_mask and use_kernels
+            if (prefix_mask and use_kernels and not config.causal
                     and attn_ops.bias_supported(L, H, D)):
                 bias = attn_ops.prepare_attention_bias(fb, L)
             else:
@@ -638,7 +644,8 @@ def encode_tokens(params: Params, config: BertConfig,
     else:
         x = _post_ln_stack(params, config, x, mask_bias, lengths,
                            _links(params, config, mode), bias=bias,
-                           alibi=alibi, rope=rope, int8_scores=i8s, **mode)
+                           alibi=alibi, rope=rope, int8_scores=i8s,
+                           causal=config.causal, **mode)
     if "final_ln" in params:  # ModernBERT's and Qwen2's final norm
         x = _norm(config, x, params["final_ln"])
     if return_hidden:

@@ -378,7 +378,7 @@ def fused_attention_stream_ref(qkv: torch.Tensor, lengths: torch.Tensor,
                                *, B: int, L: int, H: int, D: int,
                                BK: int = 512, alibi_slopes=None,
                                causal: bool = False) -> torch.Tensor:
-    """The plain PyTorch version of K6 and K6c (same arguments as
+    """The plain PyTorch version of K6, K6c and K6ca (same arguments as
     ``fused_attention_stream``). It walks every key block of BK as the TPU
     grid does (the causal walk too), so its scores take O(L * BK) memory,
     not O(L^2): s = (q.k) * s2 in f32, minus slope_h * (|i-j| * log2(e))
@@ -422,15 +422,14 @@ def fused_attention_stream(qkv: torch.Tensor, lengths: torch.Tensor, *,
     is the JAX kernel's key block (``pick_bk``): it fixes the shapes
     taken and the plain version's walk. A CUDA tensor launches K6
     (``csrc/attention.cu``, stream or ALiBi mode) or, with ``causal``,
-    K6c (causal mode), counted apart in ``causal_launches``; a CPU tensor
-    runs ``fused_attention_stream_ref``. No family is causal with ALiBi:
-    the two together raise."""
+    K6c (causal mode), counted apart in ``causal_launches``, or with
+    ``causal`` and ``alibi_slopes`` together K6ca (causal ALiBi mode),
+    counted in ``causal_alibi_launches``; a CPU tensor runs
+    ``fused_attention_stream_ref``."""
     _check_prefix(f"fused_attention_stream (BK={BK})",
                   stream_supported(L, H, D, BK), qkv, lengths, B, L, H, D)
     if alibi_slopes is not None and len(alibi_slopes) != H:
         raise ValueError(f"{len(alibi_slopes)} ALiBi slopes for {H} heads")
-    if causal and alibi_slopes is not None:
-        raise NotImplementedError("causal attention with ALiBi")
     if qkv.device.type == "cpu":
         return fused_attention_stream_ref(qkv, lengths, B=B, L=L, H=H, D=D,
                                           BK=BK, alibi_slopes=alibi_slopes,
@@ -443,11 +442,15 @@ def fused_attention_stream(qkv: torch.Tensor, lengths: torch.Tensor, *,
     out = torch.empty((B * L, H * D), dtype=qkv.dtype, device=qkv.device)
     if B == 0:
         return out
-    mode = (MODE_CAUSAL if causal else MODE_STREAM if slopes is None
-            else MODE_ALIBI)
+    if causal:
+        mode = MODE_CAUSAL if slopes is None else MODE_CAUSAL_ALIBI
+    else:
+        mode = MODE_STREAM if slopes is None else MODE_ALIBI
     _launch("fused_attention_stream", mode, qkv, out, B, L, H, D,
             _clamp_hi(L), lengths=lengths, slopes=slopes)
-    if causal:
+    if causal and slopes is not None:
+        fused_attention_stream.causal_alibi_launches += 1
+    elif causal:
         fused_attention_stream.causal_launches += 1
     else:
         fused_attention_stream.launches += 1
@@ -663,6 +666,7 @@ def _launch_cp(wrapper, q, kv, lengths, B, Lc, L, H, D) -> torch.Tensor:
 # mask modes of csrc/attention.cu
 MODE_PREFIX, MODE_SEGMENT, MODE_WINDOW = 0, 1, 2
 MODE_BIAS, MODE_STREAM, MODE_ALIBI, MODE_BAND, MODE_CAUSAL = 3, 4, 5, 6, 7
+MODE_CAUSAL_ALIBI = 8
 
 
 def _launch(what, mode, qkv, out, B, L, H, D, hi, *, lengths=None,
@@ -875,10 +879,10 @@ def fused_attention_segmented_blockskip(
 
 
 # launch counters: every successful K2 / K4 / K5 / K6 / K6w / K7 / K8a /
-# K8b launch adds one (K6c to fused_attention_stream.causal_launches); K2
-# and K4 also
-# count their emitting launches (K2e / K4e) in both_launches and
-# only_launches, K2 its int8-scores launches (K2i8) in i8s_launches;
+# K8b launch adds one (K6c to fused_attention_stream.causal_launches, K6ca
+# to its causal_alibi_launches); K2 and K4 also count their emitting
+# launches (K2e / K4e) in both_launches and only_launches, K2 its
+# int8-scores launches (K2i8) in i8s_launches;
 # callers reset them to 0 around the run they measure
 fused_attention.launches = 0
 fused_attention.both_launches = fused_attention.only_launches = 0
@@ -888,6 +892,7 @@ fused_attention_segmented.only_launches = 0
 fused_attention_bias.launches = 0
 fused_attention_stream.launches = 0
 fused_attention_stream.causal_launches = 0
+fused_attention_stream.causal_alibi_launches = 0
 fused_attention_window.launches = 0
 fused_attention_segmented.launches = 0
 fused_attention_segmented_blockskip.launches = 0

@@ -44,6 +44,7 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import functools
 import logging
 
 import torch
@@ -54,6 +55,45 @@ from .quant import EMITS, NF4_TABLE, PACK4_KINDS, QK, QuantizedTensor, \
 EPILOGUES = ("none", "bias", "bias_gelu", "bias_gelu_tanh", "bias_silu",
              "bias_residual_ln")
 _KIND_ID = {"q4_0": 0, "q4_1": 1, "q8_0": 2, "nf4": 3}
+# K1's output tile: BN columns; BM rows of 256, or 128 where 256 would
+# leave SMs idle; the residual-LayerNorm epilogue runs ceil(N / BN) blocks
+# of one row tile as a thread-block cluster, at most K1_CLUSTER_MAX, and
+# 256 rows only up to K1_CLUSTER_BM256 blocks (shared memory)
+K1_BN, K1_CLUSTER_MAX, K1_CLUSTER_BM256 = 128, 16, 8
+
+
+def k1_tile(M: int, N: int, epilogue: str, num_sms: int) -> tuple[int, int]:
+    """K1's tile for an [M, K] x [K, N] call on a card of ``num_sms`` SMs:
+    (BM, cluster size). BM = 256 halves the weight dequantization per
+    multiply-add against 128, but where its tiles (row tiles of whole
+    clusters, for the LayerNorm epilogue) make fewer than two waves of
+    the card, BM = 128 fills it instead (context parallelism's shards).
+    The cluster is 1 except with the residual-LayerNorm epilogue, whose
+    rows are one cluster of ceil(N / 128) blocks; clusters of more than 8
+    blocks take 128 rows (a block of 256 would not fit shared memory), and
+    rows wider than 16 blocks are refused."""
+    n_tiles = -(-N // K1_BN)
+    if epilogue == "bias_residual_ln":
+        if n_tiles > K1_CLUSTER_MAX:
+            raise ValueError(
+                f"the CUDA qmatmul's residual-LayerNorm epilogue takes rows "
+                f"of at most {K1_CLUSTER_MAX * K1_BN} columns (one cluster "
+                f"of {K1_CLUSTER_MAX} blocks), got N={N}")
+        if n_tiles > K1_CLUSTER_BM256:
+            return 128, n_tiles
+        # row tiles of whole clusters, and the clusters the card holds
+        cs, units, slots = n_tiles, -(-M // 256), max(1, num_sms // n_tiles)
+    else:
+        cs, units, slots = 1, -(-M // 256) * n_tiles, num_sms
+    return (256 if units >= 2 * slots else 128), cs
+
+
+def k1_route(M: int, N: int, epilogue: str, num_sms: int) -> str:
+    """The name of K1's tile configuration for a call (``k1_tile``), as
+    counted in ``qmatmul.routes``."""
+    bm, cs = k1_tile(M, N, epilogue, num_sms)
+    return f"bm{bm}" + (f"_cluster{cs}" if epilogue == "bias_residual_ln"
+                        else "")
 
 log = logging.getLogger("embeddings_tpu_torch.qmatmul")
 
@@ -265,9 +305,11 @@ def qmatmul(x: torch.Tensor, codes: torch.Tensor, scales: torch.Tensor,
     "bias_silu" | "bias_residual_ln" (LayerNorm(residual + x@w + bias)
     over the full row); None picks "bias" when a bias is given.
 
-    A CUDA tensor launches K1 (``csrc/qmatmul.cu``): x, residual and the
-    output are bf16 there, codes int8/uint8, scales, mins, bias and the
-    LayerNorm parameters f32. A CPU tensor runs ``qmatmul_ref``.
+    A CUDA tensor launches K1 (``csrc/qmatmul.cu``, its tile by
+    ``k1_tile``): x, residual and the output are bf16 there, codes
+    int8/uint8, scales, mins, bias and the LayerNorm parameters f32; the
+    residual-LayerNorm epilogue takes N <= 2,048 there. A CPU tensor runs
+    ``qmatmul_ref``.
 
     int8_compute: the int8 tensor-core mode, ``qmatmul_int8`` (K3, or
     ``qmatmul_int8_ref`` on a CPU tensor), where ``int8_engages``; other
@@ -303,6 +345,7 @@ def qmatmul(x: torch.Tensor, codes: torch.Tensor, scales: torch.Tensor,
         return qmatmul_ref(x, codes, scales, mins, bias, **kw)
     ptr, out = _cuda_operands("qmatmul", x, codes, scales, mins, bias, M, N,
                               **kw)
+    bm, _ = k1_tile(M, N, epilogue, _sm_count(x.device))
     em = _emit_operands(x.device, M, N, epilogue, emit_quantized)
     if M == 0:
         return _emit_result(out, em, emit_quantized)
@@ -311,11 +354,12 @@ def qmatmul(x: torch.Tensor, codes: torch.Tensor, scales: torch.Tensor,
         ptr["x"], ptr["codes"], ptr["scales"], ptr.get("mins"), ptr["bias"],
         ptr.get("residual"), ptr.get("ln_scale"), ptr.get("ln_bias"),
         _ptr(out), *_emit_ptrs(em), M, N, K, _KIND_ID[kind], int(packed),
-        EPILOGUES.index(epilogue), EMITS.index(emit_quantized),
+        EPILOGUES.index(epilogue), EMITS.index(emit_quantized), bm,
         float(ln_eps), torch.cuda.current_stream(x.device).cuda_stream)
     from ._cuda import check
     check(status, lib.qmm_error_string, "qmatmul")
     _count(qmatmul, (K, N, epilogue), emit_quantized)
+    qmatmul.routes[k1_route(M, N, epilogue, _sm_count(x.device))] += 1
     return _emit_result(out, em, emit_quantized)
 
 
@@ -391,12 +435,14 @@ def _count(fn, shape, emit: str, x8: bool = False) -> None:
 # launch counters: every successful K1 (K3) launch adds one, in total,
 # per (K, N, epilogue) in ``shapes`` and per (K, N, epilogue, emit, int8
 # x) in ``modes``, and one to both_launches / only_launches when it emits
-# (K1e / K3e); K3's x8_launches counts the launches on a pre-quantized
+# (K1e / K3e); K1's ``routes`` counts its launches by tile configuration
+# (``k1_route``); K3's x8_launches counts the launches on a pre-quantized
 # int8 x (K3x, no row quantization). Callers reset them to 0 around the
 # run they measure.
 qmatmul.launches = 0
 qmatmul.shapes = collections.Counter()
 qmatmul.modes = collections.Counter()
+qmatmul.routes = collections.Counter()
 qmatmul.both_launches = qmatmul.only_launches = 0
 qmatmul_int8.launches = 0
 qmatmul_int8.shapes = collections.Counter()
@@ -476,12 +522,17 @@ def _cuda_operands(what, x, codes, scales, mins, bias, M, N, *, kind,
     return ptr, out
 
 
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def _lib() -> ctypes.CDLL:
     from . import _cuda
     lib = _cuda.load("qmatmul")
     if not getattr(lib, "_typed", False):
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.qmm_launch.argtypes = [p] * 13 + [i] * 7 + [f, p]
+        lib.qmm_launch.argtypes = [p] * 13 + [i] * 8 + [f, p]
         lib.qmm_launch.restype = i
         lib.qmm_int8_launch.argtypes = [p] * 17 + [i] * 8 + [f, p]
         lib.qmm_int8_launch.restype = i

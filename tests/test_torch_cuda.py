@@ -10,10 +10,10 @@ differ by bf16 rounding flips (K1: 2^-7 relative + 1e-3 of the output
 RMS; K2, whose probabilities are also rounded to bf16: 2^-6 + 1e-2).
 K3 as K1: its int8 operands equal the plain version's bit for bit and
 its s32 sums are exact, so only the last f32 bits of the activation and
-the bf16 rounding of the output differ. K4-K7, K6w and K6c as K2; K6c's
-query rows that see fewer than 64 keys (the first rows of every
-sequence) also allow one bf16 flip of a probability, which moves an
-output by at most 2^-6 of the largest |v| among those keys
+the bf16 rounding of the output differ. K4-K7, K6w, K6c and K6ca as K2;
+K6c's and K6ca's query rows that see fewer than 64 keys (the first rows
+of every sequence) also allow one bf16 flip of a probability, which
+moves an output by at most 2^-6 of the largest |v| among those keys
 (``_causal_close``).
 """
 
@@ -315,6 +315,95 @@ def test_causal_attention_kernel_matches_plain(cuda, B, L, H, D, BK):
     assert A.fused_attention_stream.launches == plain
     _causal_close(got, A.fused_attention_stream_ref(qkv, lens, **kw), qkv,
                   lens, B, L, H, D)
+
+
+@pytest.mark.parametrize("B,L,H,D,BK", [(4, 256, 4, 32, 256),
+                                        (4, 512, 12, 64, 512),
+                                        (4, 384, 2, 128, 128),
+                                        (2, 8192, 12, 64, 512)])
+def test_causal_alibi_attention_kernel_matches_plain(cuda, B, L, H, D, BK):
+    """K6ca (causal with ALiBi, mode 8) against its plain version, counted
+    apart from K6 and K6c."""
+    from embeddings_tpu_torch.ops.alibi import alibi_slopes
+    rng = np.random.default_rng(L + H)
+    qkv = torch.from_numpy(rng.standard_normal(
+        (B * L, 3 * H * D), dtype=np.float32)).to(cuda, torch.bfloat16)
+    lens = torch.tensor([L, L - 37, 40, 0] if B == 4 else [L, L - 37],
+                        dtype=torch.int32, device=cuda)
+    kw = dict(B=B, L=L, H=H, D=D, BK=BK, causal=True,
+              alibi_slopes=alibi_slopes(H))
+    counts = (A.fused_attention_stream.launches,
+              A.fused_attention_stream.causal_launches)
+    before = A.fused_attention_stream.causal_alibi_launches
+    got = A.fused_attention_stream(qkv, lens, **kw)
+    assert A.fused_attention_stream.causal_alibi_launches == before + 1
+    assert (A.fused_attention_stream.launches,
+            A.fused_attention_stream.causal_launches) == counts
+    _causal_close(got, A.fused_attention_stream_ref(qkv, lens, **kw), qkv,
+                  lens, B, L, H, D)
+
+
+@pytest.mark.parametrize("M,K,N,epilogue,emit", [
+    (32768, 768, 2304, "bias", "no"),
+    (32768 + 40, 768, 768, "bias_residual_ln", "no"),
+    (32768 + 40, 3072, 768, "bias_residual_ln", "no"),
+    (32768 + 40, 768, 3072, "bias_gelu", "no"),
+    (4096, 768, 768, "bias_residual_ln", "no"),
+    (8192, 1024, 2048, "bias_residual_ln", "no"),
+    (4096, 768, 768, "bias_residual_ln", "both"),
+    (300, 1024, 1024, "bias_residual_ln", "only"),
+    (4096, 768, 3072, "bias_gelu", "only")])
+def test_qmatmul_tiles_match_plain(cuda, M, K, N, epilogue, emit):
+    """K1's tile configurations (``k1_tile``: 256 or 128 rows, LayerNorm
+    clusters of 6, 8 and 16 blocks) at main-path sizes, ragged M, and the
+    emission modes, against the plain version; codes within one step,
+    scales within 1e-4 relative."""
+    from embeddings_tpu_torch.ops.qmatmul import k1_route
+    rng = np.random.default_rng(M + N)
+    w = rng.standard_normal((K, N), dtype=np.float32) * np.float32(0.02)
+    qt = quantize(w, "q4_0", pack4=True).map(lambda t: t.to(cuda))
+
+    def f32(*shape, scale=1.0):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)
+                                * np.float32(scale)).to(cuda)
+
+    kw = dict(kind="q4_0", epilogue=epilogue, packed=True,
+              emit_quantized=emit)
+    if epilogue == "bias_residual_ln":
+        kw.update(residual=f32(M, N).to(torch.bfloat16),
+                  ln_scale=1 + f32(N, scale=0.1), ln_bias=f32(N, scale=0.1))
+    args = (f32(M, K).to(torch.bfloat16), qt.codes, qt.scales, qt.mins,
+            f32(N, scale=0.1))
+    route = k1_route(M, N, epilogue, torch.cuda.get_device_properties(
+        cuda).multi_processor_count)
+    before = qmatmul.routes[route]
+    got = qmatmul(*args, **kw)
+    ref = qmatmul_ref(*args, **kw)
+    assert qmatmul.routes[route] == before + 1
+    if emit == "no":
+        _close(got, ref, 2 ** -7, 1e-3)
+        return
+    if emit == "both":
+        _close(got[0], ref[0], 2 ** -7, 1e-3)
+    assert (got[-2].int() - ref[-2].int()).abs().max() <= 1
+    assert ((got[-1] - ref[-1]).abs() / ref[-1]).max() <= 1e-4
+
+
+def test_qmatmul_refuses_too_wide_layernorm(cuda):
+    """A residual-LayerNorm row wider than one cluster of 16 x 128 columns
+    is refused by name, not sent to another kernel."""
+    rng = np.random.default_rng(0)
+    K, N = 128, 2176
+    qt = quantize(rng.standard_normal((K, N), dtype=np.float32),
+                  "q4_0", pack4=True).map(lambda t: t.to(cuda))
+    x = torch.zeros(8, K, dtype=torch.bfloat16, device=cuda)
+    kw = dict(kind="q4_0", epilogue="bias_residual_ln", packed=True,
+              residual=torch.zeros(8, N, dtype=torch.bfloat16, device=cuda),
+              ln_scale=torch.ones(N, device=cuda),
+              ln_bias=torch.zeros(N, device=cuda))
+    with pytest.raises(ValueError, match="at most 2048 columns"):
+        qmatmul(x, qt.codes, qt.scales, None,
+                torch.zeros(N, device=cuda), **kw)
 
 
 def test_kernels_raise_on_wrong_dtype(cuda):

@@ -149,3 +149,48 @@ def test_linear_residual_ln_matches_jax_interpret():
         torch.from_numpy(extra["ln_scale"]),
         torch.from_numpy(extra["ln_bias"]), 1e-12)
     np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=1e-5 * 4)
+
+
+# K1's tile (``k1_tile``) on an H100's 132 SMs at every K1 shape the
+# families' main paths launch: (M, N, epilogue) -> (BM, cluster size).
+# bge-base / MPNet / jina / packed at 32,768 tokens, ModernBERT's plain
+# epilogues, Qwen2 at 16,384 slots (k and v: N = 256, too few tiles for
+# 256 rows), bge-large's LayerNorm at N = 1,024, and context parallelism's
+# shards (bge: M = 16 x 256; nomic: M = 4 x 512), where BM = 128 fills the
+# card.
+K1_TILES = [
+    (32768, 2304, "bias", (256, 1)), (32768, 768, "bias_residual_ln",
+                                      (256, 6)),
+    (32768, 3072, "bias_gelu", (256, 1)), (32768, 3072, "bias", (256, 1)),
+    (32768, 1536, "bias_residual_ln", (128, 12)),
+    (32768, 768, "bias", (256, 1)), (32768, 1152, "bias_gelu", (256, 1)),
+    (32768, 1152, "bias", (256, 1)), (16384, 1536, "bias", (256, 1)),
+    (16384, 256, "bias", (128, 1)), (16384, 8960, "bias_silu", (256, 1)),
+    (16384, 8960, "bias", (256, 1)), (32768, 1024, "bias_residual_ln",
+                                      (256, 8)),
+    (4096, 2304, "bias", (256, 1)), (4096, 768, "bias_residual_ln", (128, 6)),
+    (4096, 3072, "bias_gelu", (256, 1)), (2048, 2304, "bias", (128, 1)),
+    (2048, 768, "bias_residual_ln", (128, 6)), (2048, 3072, "bias",
+                                                (128, 1)),
+    (40, 136, "bias_residual_ln", (128, 2)), (40, 136, "none", (128, 1))]
+
+
+@pytest.mark.parametrize("M,N,epilogue,want", K1_TILES)
+def test_k1_tile_choice(M, N, epilogue, want):
+    from embeddings_tpu_torch.ops.qmatmul import k1_route, k1_tile
+    assert k1_tile(M, N, epilogue, 132) == want
+    bm, cs = want
+    assert k1_route(M, N, epilogue, 132) == (
+        f"bm{bm}_cluster{cs}" if epilogue == "bias_residual_ln"
+        else f"bm{bm}")
+
+
+def test_k1_tile_refuses_rows_past_one_cluster():
+    """A residual-LayerNorm row over 16 x 128 columns is refused by name;
+    2,048 columns is one cluster of 16 blocks, of 128 rows (past 8 blocks
+    a block of 256 rows does not fit shared memory)."""
+    from embeddings_tpu_torch.ops.qmatmul import k1_tile
+    assert k1_tile(32768, 2048, "bias_residual_ln", 132) == (128, 16)
+    with pytest.raises(ValueError, match="at most 2048 columns"):
+        k1_tile(32768, 2056, "bias_residual_ln", 132)
+    assert k1_tile(32768, 2056, "bias", 132) == (256, 1)

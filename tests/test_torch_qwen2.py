@@ -7,7 +7,9 @@ last-token pooling) in the port against the JAX package, on the CPU.
     interpret mode, D=64 and 128, L=256 and 512, lengths {L, L-37, 1, 0}:
     f32 at atol 1e-5 with the len-0 row exactly 0 (the same expression in
     another f32 summation order), bf16 at rtol 2^-6 / atol 2e-3 (one
-    probability on a bf16 rounding boundary may flip), as K6's tests.
+    probability on a bf16 rounding boundary may flip), as K6's tests; the
+    triangular math directly, and with ALiBi slopes against JAX's
+    (``tests/test_torch_causal_alibi.py`` holds K6ca further).
 (b) ``rms_norm`` against JAX's (f32 at 1e-6; bf16 output within one ulp).
 (c) Grouped-query attention: ``attention_context`` with separate q/k/v of
     unequal width against JAX's, on the einsum path and on the kernel
@@ -164,9 +166,16 @@ def test_causal_ref_is_the_triangular_math():
     E = H * D
     np.testing.assert_allclose(got[0].numpy(), qkv[0, 2 * E:], rtol=0,
                                atol=1e-6)
-    with pytest.raises(NotImplementedError):  # no causal ALiBi family
-        tattn.fused_attention_stream(t, lens, B=4, L=L, H=H, D=D, BK=128,
-                                     causal=True, alibi_slopes=[0.5, 0.25])
+    # causal with ALiBi (K6ca's plain version) takes both masks, as the
+    # JAX package's kernel does
+    slopes = (0.5, 0.25)
+    got = tattn.fused_attention_stream(t, lens, B=4, L=L, H=H, D=D, BK=128,
+                                       causal=True, alibi_slopes=slopes)
+    ref = jattn.fused_attention_stream(
+        jnp.asarray(qkv), jnp.asarray(lengths), B=4, L=L, H=H, D=D, BK=128,
+        causal=True, alibi_slopes=slopes, interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=0,
+                               atol=1e-5)
 
 
 # ---------------------------------------------------------------------------
