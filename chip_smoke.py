@@ -1,10 +1,11 @@
 """Smoke test of the PyTorch/CUDA port on one GPU: builds the hand-written
 kernels (K1-K7, K6w, K6c and K6ca, the chained-int8 modes K1e, K3e, K3x,
-K2e, K4e and K2i8, and the context-parallel K8a and K8b), holds each
-against its plain PyTorch version on the card, and drives the port's
-paths through Engine -> encode_batch (or
-encode_batch_packed) -> BatchingService -> TCP, checking each path's
-kernel launch counts:
+K2e, K4e and K2i8, and the context-parallel K8a and K8b; K2, K6, K6c and
+K6ca on the Hopper attention kernel, the other attention modes on the
+WMMA one), holds each against its plain PyTorch version on the card,
+checks each profiled forward's attention launches by kernel, and drives
+the port's paths through Engine -> encode_batch (or encode_batch_packed)
+-> BatchingService -> TCP, checking each path's kernel launch counts:
 
 - bge-base q4_0: the bf16 encode path (K1 + K2), the int8 compute mode
   (K3 + K2), the chained int8 path under each of the 8 link subsets with
@@ -36,6 +37,7 @@ each forward by kernel.
     python3 chip_smoke.py --phases device,build,k1,k2,k3,k4k5,k6k7,k6w,k6c,\
         k6ca,emit,attn_emit,k8
     python3 chip_smoke.py --phases device,build,k1      # K1 alone
+    python3 chip_smoke.py --phases device,build,k2,k6k7,k6c,k6ca  # attention
     python3 chip_smoke.py --phases device,build,k8,cp_path
 
 Each phase prints one JSON line. The last two lines are the kernel table
@@ -80,6 +82,10 @@ K1_SHAPES = {"qkv": (E, 3 * E, "bias"),
 K1_REPLACES = "embeddings_tpu/ops/qmatmul.py:153 (_qmm_kernel via qmatmul :446)"
 K2_REPLACES = ("embeddings_tpu/ops/attention.py:73 (_attn_kernel via "
                "fused_attention :1039)")
+# the two attention libraries: K2 (no emission, no int8 scores), K6, K6c
+# and K6ca run on the Hopper kernel, the other modes on the WMMA one
+ATTN_SOURCE = "embeddings_tpu_torch/csrc/attention.cu"
+ATTN90_SOURCE = "embeddings_tpu_torch/csrc/attention_sm90.cu"
 K3_REPLACES = ("embeddings_tpu/ops/qmatmul.py:309 (_qmm_int8 via qmatmul "
                ":446, int8_compute)")
 K4_REPLACES = ("embeddings_tpu/ops/attention.py:294 (_attn_kernel_segmented "
@@ -404,22 +410,33 @@ def phase_device():
          python=sys.version.split()[0])
 
 
+SOURCES = ("qmatmul", "attention", "attention_sm90")
+
+
 def phase_build():
     from embeddings_tpu_torch.ops import _cuda
     t0 = time.perf_counter()
-    seconds = _cuda.build("qmatmul", "attention")  # one nvcc each, together
-    emit("build", seconds=time.perf_counter() - t0, per_source=seconds)
+    seconds = _cuda.build(*SOURCES)  # one nvcc each, all together
+    hgmma = {name: hgmma_count(name) for name in ("qmatmul",
+                                                   "attention_sm90")}
+    for name, n in hgmma.items():
+        check(n > 0, f"{name}'s library holds no HGMMA (wgmma) instruction")
+    check(hgmma_count("attention_sm90", "HMMA") == 0,
+          "attention_sm90's library holds WMMA (HMMA) instructions")
+    emit("build", seconds=time.perf_counter() - t0, per_source=seconds,
+         hgmma_in_sass=hgmma)
 
 
-def hgmma_count() -> int:
-    """HGMMA (wgmma) instructions in the built qmatmul library's SASS, as
+def hgmma_count(name: str, opcode: str = "HGMMA") -> int:
+    """HGMMA (wgmma) instructions, or those of another opcode (HMMA:
+    WMMA / mma.sync), in the built library ``name``'s SASS, as
     ``cuobjdump --dump-sass`` lists them."""
     from embeddings_tpu_torch.ops import _cuda
     cuobjdump = Path(_cuda._nvcc()).with_name("cuobjdump")
     sass = subprocess.run([str(cuobjdump), "--dump-sass",
-                           str(_cuda._target("qmatmul"))],
+                           str(_cuda._target(name))],
                           capture_output=True, text=True, timeout=300).stdout
-    return sass.count("HGMMA")
+    return sass.count(opcode)
 
 
 # K1's cases beyond the main shapes (name -> M, K, N, epilogue, emit): the
@@ -443,7 +460,7 @@ def phase_k1():
         qmatmul_ref
     rng = np.random.default_rng(1)
     dev = torch.device("cuda")
-    hgmma = hgmma_count()
+    hgmma = hgmma_count("qmatmul")
     check(hgmma > 0, "K1's library holds no HGMMA (wgmma) instruction")
     main = {}
     for name, (K, N, epi) in {**K1_SHAPES, **MB_K1_SHAPES,
@@ -509,6 +526,18 @@ def _k2_case(rng, Bx, Lx, lengths, dev, Hx=H, Dx=D):
     return r
 
 
+# lengths on the Hopper attention kernel's tile edges (64 queries, 128
+# keys), clipped to L in use
+TILE_EDGES = (0, 1, 63, 64, 65, 127, 128, 129)
+
+
+def fused_attention_routes() -> dict:
+    """K2's and K6's launches so far by kernel (``attention_kernel``)."""
+    from embeddings_tpu_torch.ops import attention as A
+    return {"fused_attention": dict(A.fused_attention.routes),
+            "fused_attention_stream": dict(A.fused_attention_stream.routes)}
+
+
 def phase_k2():
     import torch
     rng = np.random.default_rng(2)
@@ -523,12 +552,23 @@ def phase_k2():
     lensq = rng.integers(1, QW_SHORT[1] + 1, QW_SHORT[0])
     lensq[0], lensq[1] = 0, QW_SHORT[1]
     rq = _k2_case(rng, *QW_SHORT, lensq.tolist(), dev, QW_H, QW_D)
-    for name, r in (("L256", r256), ("L512", r512), ("L512_D128", rq)):
+    # ModernBERT's global layers at B=32, L=1,024 (blocked queries in JAX)
+    lensm = rng.integers(1, MB_SHORT[1] + 1, MB_SHORT[0])
+    lensm[0], lensm[1] = 0, MB_SHORT[1]
+    rm = _k2_case(rng, *MB_SHORT, lensm.tolist(), dev)
+    out = {"L256": r256, "L512": r512, "L512_D128": rq, "L1024": rm}
+    # lengths on the Hopper kernel's tile edges (64 queries, 128 keys), at
+    # a ragged L=200 and at L=512, D=64 and 128
+    for Lx, (Hx, Dx) in ((200, (H, D)), (512, (H, D)), (512, (QW_H, QW_D))):
+        lensx = [min(n, Lx) for n in TILE_EDGES] + [Lx]
+        out[f"edges_L{Lx}_D{Dx}"] = _k2_case(rng, len(lensx), Lx, lensx,
+                                             dev, Hx, Dx)
+    for name, r in out.items():
         check(r["ok"] and r["zero_rows_exact"],
               f"K2 {name} disagrees: {r}")
     emit("k2_parity", tolerance=f"|err| <= {K2_RTOL}*|ref| + "
          f"{K2_ATOL_RMS}*rms(ref); len-0 rows exactly 0",
-         L256=r256, L512=r512, L512_D128=rq)
+         routes=fused_attention_routes(), **out)
 
 
 def phase_k3():
@@ -1046,8 +1086,9 @@ def _slopes(dev):
 def phase_k6k7():
     """K7 at the MPNet shape (table bias) and at jina's L=1024 (ALiBi
     bias); K6 plain at L=2048, with in-kernel ALiBi at B=4, L=8192, and
-    plain at Qwen2's D=128, B=4, L=4096; each against its plain version
-    on the same inputs."""
+    plain at Qwen2's D=128, B=4, L=4096, and each K6 mode at L=384 with
+    lengths on the Hopper kernel's tile edges; each against its plain
+    version on the same inputs."""
     import torch
     from embeddings_tpu_torch.ops import attention as A
     rng = np.random.default_rng(7)
@@ -1064,11 +1105,19 @@ def phase_k6k7():
         out[name] = dict(compare(got, ref, K2_RTOL, K2_ATOL_RMS),
                          shape=[Bx, Lx, H, D])
         del ref
-    for name, slopes, (Bx, Lx), (Hx, Dx) in (
-            ("K6_plain", None, BERT_LONG, (H, D)),
-            ("K6_alibi", _slopes(dev), JINA_LONG, (H, D)),
-            ("K6_plain_D128", None, QW_LONG, (QW_H, QW_D))):
+    edges = [min(n, 384) for n in TILE_EDGES] + [384]
+    for name, slopes, (Bx, Lx), (Hx, Dx), lengths in (
+            ("K6_plain", None, BERT_LONG, (H, D), None),
+            ("K6_alibi", _slopes(dev), JINA_LONG, (H, D), None),
+            ("K6_plain_D128", None, QW_LONG, (QW_H, QW_D), None),
+            ("K6_plain_edges", None, (len(edges), 384), (H, D), edges),
+            ("K6_alibi_edges", _slopes(dev), (len(edges), 384), (H, D),
+             edges),
+            ("K6_plain_D128_edges", None, (len(edges), 384), (QW_H, QW_D),
+             edges)):
         qkv, lens = _attn_qkv(rng, Bx, Lx, dev, Ex=Hx * Dx)
+        if lengths is not None:
+            lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
         kw = dict(B=Bx, L=Lx, H=Hx, D=Dx, BK=A.pick_bk(Lx),
                   alibi_slopes=slopes)
         got = A.fused_attention_stream(qkv, lens, **kw)
@@ -1080,7 +1129,7 @@ def phase_k6k7():
     for name, r in out.items():
         check(r["ok"], f"{name} disagrees: {r}")
     emit("k6k7_parity", tolerance=f"|err| <= {K2_RTOL}*|ref| + "
-         f"{K2_ATOL_RMS}*rms(ref)", **out)
+         f"{K2_ATOL_RMS}*rms(ref)", routes=fused_attention_routes(), **out)
 
 
 def band_pairs(lengths, Lx: int, window: int) -> int:
@@ -1183,8 +1232,8 @@ def phase_k6c():
     """K6c (causal attention, the Qwen2 decoder embedders) against its
     plain version: Qwen2's two shapes (D=128: B=4, L=4096 with full and
     partial rows, B=32, L=512 ragged with an all-pad row), a short shape
-    with len-0 and len-1 rows, and D=64 (``causal_compare``'s
-    tolerance)."""
+    with len-0 and len-1 rows, D=64, and lengths on the Hopper kernel's
+    tile edges at L=384 (``causal_compare``'s tolerance)."""
     import torch
     from embeddings_tpu_torch.ops import attention as A
     rng = np.random.default_rng(10)
@@ -1195,7 +1244,9 @@ def phase_k6c():
              [4096, 4096 - 37, 1000, 4096]),
             ("qwen2_short", QW_SHORT, (QW_H, QW_D), None),
             ("short_len0", (4, 256), (QW_H, QW_D), [256, 219, 1, 0]),
-            ("D64", (4, 1024), (H, D), [1024, 987, 1, 0])):
+            ("D64", (4, 1024), (H, D), [1024, 987, 1, 0]),
+            ("edges_D128", (9, 384), (QW_H, QW_D), list(TILE_EDGES) + [384]),
+            ("edges_D64", (9, 384), (H, D), list(TILE_EDGES) + [384])):
         qkv, lens = _attn_qkv(rng, Bx, Lx, dev, Ex=Hx * Dx)
         if lengths is not None:
             lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
@@ -1208,7 +1259,8 @@ def phase_k6c():
         check(r["ok"] and r["zero_rows_exact"], f"K6c {name} disagrees: {r}")
         out[name] = r
         del ref
-    emit("k6c_parity", tolerance=f"|err| <= {K2_RTOL}*|ref| + "
+    emit("k6c_parity", routes=fused_attention_routes(),
+         tolerance=f"|err| <= {K2_RTOL}*|ref| + "
          f"{K2_ATOL_RMS}*rms(ref) on query rows that see >= 64 keys; "
          f"+ 2^-6 * max|v| of the keys on rows that see 1-63; rows that "
          f"see none exactly 0", **out)
@@ -1408,10 +1460,11 @@ def phase_attn_emit():
 def phase_k6ca():
     """K6ca (causal attention with ALiBi: mode 8 of the streamed kernel, a
     causal jina-bert-v2) against its plain version at the jina path's
-    shape (B=4, L=8,192, two rows full, two ragged) and at short ragged
+    shape (B=4, L=8,192, two rows full, two ragged), at short ragged
     rows (lengths 256, 219, 40, 1, 0: rows under one 64-key tile and an
-    empty one), with ``causal_compare``'s tolerance (rows that see 1-63
-    keys may carry one bf16 probability flip)."""
+    empty one) and at lengths on the Hopper kernel's tile edges (L=384),
+    with ``causal_compare``'s tolerance (rows that see 1-63 keys may carry
+    one bf16 probability flip)."""
     import torch
     from embeddings_tpu_torch.ops import attention as A
     rng = np.random.default_rng(12)
@@ -1421,7 +1474,8 @@ def phase_k6ca():
             ("jina_long", JINA_LONG,
              [JINA_LONG[1], JINA_LONG[1] - 37, JINA_LONG[1] // 3,
               JINA_LONG[1]]),
-            ("short_ragged", (5, 256), [256, 219, 40, 1, 0])):
+            ("short_ragged", (5, 256), [256, 219, 40, 1, 0]),
+            ("edges", (9, 384), list(TILE_EDGES) + [384])):
         qkv, _ = _attn_qkv(rng, Bx, Lx, dev)
         lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
         kw = dict(B=Bx, L=Lx, H=H, D=D, BK=A.pick_bk(Lx), causal=True,
@@ -1434,7 +1488,8 @@ def phase_k6ca():
         check(r["ok"] and r["zero_rows_exact"], f"K6ca {name} disagrees: {r}")
         out[name] = r
         del ref
-    emit("k6ca_parity", tolerance=f"|err| <= {K2_RTOL}*|ref| + "
+    emit("k6ca_parity", routes=fused_attention_routes(),
+         tolerance=f"|err| <= {K2_RTOL}*|ref| + "
          f"{K2_ATOL_RMS}*rms(ref) on query rows that see >= 64 keys; "
          f"+ 2^-6 * max|v| of the keys on rows that see 1-63; rows that "
          f"see none exactly 0", **out)
@@ -2032,11 +2087,11 @@ def phase_timing():
                 # CP forwards (K8a / K8b are mode 4 of the kernel) and the
                 # single-device forwards at their shapes (K2; K6 plain)
                 "cp_bge": ("cp_bge_engine", CP_BGE, 4 * NL * 4,
-                           {4: NL * 4}, D),
+                           {f"attn_kernel<{D}, 4, 0>": NL * 4}, D),
                 "cp_bge_single": ("cp_bge_single", CP_BGE, 4 * NL, {0: NL},
                                   D),
                 "cp_nomic": ("cp_nomic_engine", CP_NOMIC, 5 * NL * 4,
-                             {4: NL * 4}, D),
+                             {f"attn_kernel<{D}, 4, 0>": NL * 4}, D),
                 "cp_nomic_single": ("cp_nomic_single", CP_NOMIC, 5 * NL,
                                     {4: NL}, D)}
     for name, (key, shape, k1, attn, dh) in families.items():
@@ -2044,7 +2099,8 @@ def phase_timing():
             fids = rng.integers(1000, 30000, shape).astype(np.int32)
             runs[name] = (lambda e=STATE[key], i=fids: e._forward(
                 i, np.ones_like(i)),
-                launches_want(("qmm_wgmma_kernel",), k1, attn, dh))
+                launches_want(("qmm_wgmma_kernel",), k1, attn, dh,
+                              shape[1]))
     fwd = {k: cuda_ms(r[0], iters=5) for k, r in runs.items()}
     profiles = {k: device_profile(k, *r) for k, r in runs.items()}
     chain_fwd = {}
@@ -2068,26 +2124,12 @@ def phase_timing():
     kernels = [k1_row(rng, dev, name, shape,
                       launches.get("qmatmul", {}))
                for name, shape in K1_SHAPES.items()]
-    qkv = torch.from_numpy(rng.standard_normal(
-        (M, 3 * E), dtype=np.float32)).to(dev, torch.bfloat16)
-    lens = torch.full((B,), L, dtype=torch.int32, device=dev)
-    keymask = (torch.arange(L, device=dev)[None, :]
-               < lens[:, None])[:, None, None, :]
-    bms, by = bound_ms(4.0 * B * H * L * L * D,
-                       M * 3 * E * 2 + M * E * 2 + B * 4)
-    kernels.append({
-        "name": f"fused_attention[B{B} L{L} H{H} D{D}]", "route": "cuda",
-        "source": "embeddings_tpu_torch/csrc/attention.cu",
-        "replaces": K2_REPLACES,
-        "launches": launches.get("fused_attention", 0),
-        "max_abs_err": RESULTS["k2_parity"]["L256"]["max_abs_err"],
-        "ms": cuda_ms(lambda: A.fused_attention(qkv, lens, B=B, L=L, H=H,
-                                                D=D)),
-        "plain_ms": cuda_ms(lambda: A.fused_attention_ref(
-            qkv, lens, B=B, L=L, H=H, D=D), iters=3),
-        "bound_ms": bms, "bound_by": by,
-        "library_ms": sdpa_ms(qkv, B, L, keymask),
-        "shape": [B, L, H, D]})
+    kernels.append(k2_row(rng, dev, (B, L), (H, D),
+                          launches.get("fused_attention", 0), "L256"))
+    if "modernbert_path" in RESULTS:  # ModernBERT's global layers at L=1024
+        kernels.append(k2_row(rng, dev, MB_SHORT, (H, D),
+                              STATE.get("launches_K2_modernbert", 0),
+                              "L1024"))
     if "k3_parity" in RESULTS:
         for name, (K, N, epi) in K1_SHAPES.items():
             args, kw, qt = k1_inputs(rng, M, K, N, "q4_0", True, epi, dev)
@@ -2135,7 +2177,7 @@ def phase_timing():
             "name": f"{fn}[B{Bx} L{Lx} H{H} D{D}"
                     + (f" W{W}]" if name == "K5" else "]"),
             "route": "cuda",
-            "source": "embeddings_tpu_torch/csrc/attention.cu",
+            "source": ATTN_SOURCE,
             "replaces": replaces,
             "launches": launches.get(name, 0),
             "max_abs_err": RESULTS["k4k5_parity"][name]["max_abs_err"],
@@ -2179,15 +2221,55 @@ def phase_timing():
     RESULTS["kernels"] = kernels
 
 
+def k2_row(rng, dev, shape, heads, launches: int, parity: str) -> dict:
+    """K2's row of the kernel table at (B, L) and (H, D), every row full:
+    the bound counts the B*H*L^2 pairs' two products against reading qkv
+    and writing the context once; the library yardstick is SDPA with the
+    boolean key-prefix mask."""
+    import torch
+    from embeddings_tpu_torch.ops import attention as A
+    (Bx, Lx), (Hx, Dx) = shape, heads
+    Ex = Hx * Dx
+    qkv, lens = _attn_qkv(rng, Bx, Lx, dev, ragged=False, Ex=Ex)
+    keymask = (torch.arange(Lx, device=dev)[None, :]
+               < lens[:, None])[:, None, None, :]
+    bms, by = bound_ms(4.0 * Bx * Hx * Lx * Lx * Dx,
+                       Bx * Lx * (3 * Ex * 2 + Ex * 2) + Bx * 4)
+    kw = dict(B=Bx, L=Lx, H=Hx, D=Dx)
+    return {
+        "name": f"fused_attention[B{Bx} L{Lx} H{Hx} D{Dx}]", "route": "cuda",
+        "source": ATTN90_SOURCE, "replaces": K2_REPLACES,
+        "launches": launches,
+        "max_abs_err": RESULTS["k2_parity"][parity]["max_abs_err"],
+        "ms": cuda_ms(lambda: A.fused_attention(qkv, lens, **kw)),
+        "plain_ms": cuda_ms(lambda: A.fused_attention_ref(qkv, lens, **kw),
+                            iters=3),
+        "bound_ms": bms, "bound_by": by,
+        "library_ms": sdpa_ms(qkv, Bx, Lx, keymask, Hx, Dx),
+        "shape": [Bx, Lx, Hx, Dx]}
+
+
 def launches_want(matmuls, per_forward: int, attn: dict,
-                  dh: int = D) -> dict:
+                  dh: int = D, Lx: int = L) -> dict:
     """The launches one forward makes, by the profiler's kernel names:
-    per_forward of each matmul kernel, and of attn_kernel<dh, mode, 0> (no
-    emission) the count {mode: count} gives; a key that is a string names
-    the kernel itself."""
+    per_forward of each matmul kernel, and of each attention mode (no
+    emission, the fused layout) the count {mode: count} gives, on the
+    kernel its route names (``attention_kernel``):
+    attn_sm90_kernel<dh, mode, warpgroups at row length Lx> or
+    attn_kernel<dh, mode, 0>; a key that is a string names the kernel
+    itself (the CP layout's mode 4: attn_kernel<dh, 4, 0>)."""
+    from embeddings_tpu_torch.ops.attention import attention_kernel, \
+        sm90_warpgroups
+
+    def name(m):
+        if isinstance(m, str):
+            return m
+        if attention_kernel(m, dh) == "sm90":
+            return f"attn_sm90_kernel<{dh}, {m}, {sm90_warpgroups(Lx)}>"
+        return f"attn_kernel<{dh}, {m}, 0>"
+
     return {**{k: per_forward for k in matmuls},
-            **{m if isinstance(m, str) else f"attn_kernel<{dh}, {m}, 0>": n
-               for m, n in attn.items()}}
+            **{name(m): n for m, n in attn.items()}}
 
 
 def chain_timing(ids, mask, rounds: int = 5):
@@ -2323,7 +2405,7 @@ def chain_rows(rng, dev) -> list:
             "name": f"{fn}[{kname} B{B} L{L} H{H} D{D} "
                     + ("emit only]" if kname == "K2e" else "int8 scores]"),
             "route": "cuda",
-            "source": "embeddings_tpu_torch/csrc/attention.cu",
+            "source": ATTN_SOURCE,
             "replaces": replaces, "launches": launches, "max_abs_err": err,
             "ms": cuda_ms(lambda: A.fused_attention(qkv, lens, **opt, **kw)),
             "plain_ms": cuda_ms(lambda: A.fused_attention_ref(
@@ -2340,7 +2422,7 @@ def chain_rows(rng, dev) -> list:
                        peak=PEAK_INT8_OPS)
     out.append({
         "name": f"fused_attention[K2i8 B{Bx} L{Lx} H{H} D{D}]",
-        "route": "cuda", "source": "embeddings_tpu_torch/csrc/attention.cu",
+        "route": "cuda", "source": ATTN_SOURCE,
         "replaces": K2I8_REPLACES, "launches": 0,
         "max_abs_err": apar["K2i8_L1024"]["max_abs_err"],
         "ms": cuda_ms(lambda: A.fused_attention(q2, l2, **k2), iters=5),
@@ -2360,7 +2442,7 @@ def chain_rows(rng, dev) -> list:
         out.append({
             "name": f"fused_attention_segmented[K4e B{Bx} L{Lx} H{H} D{D} "
                     f"emit only]", "route": "cuda",
-            "source": "embeddings_tpu_torch/csrc/attention.cu",
+            "source": ATTN_SOURCE,
             "replaces": K4E_REPLACES,
             "launches": STATE.get("launches_K4e", 0),
             "max_abs_err": apar["K4e_only"]["max_abs_err"],
@@ -2419,7 +2501,7 @@ def window_rows(rng, dev) -> list:
         out.append({
             "name": f"fused_attention_window[B{Bx} L{Lx} H{H} D{D} "
                     f"w{MB_WINDOW}]", "route": "cuda",
-            "source": "embeddings_tpu_torch/csrc/attention.cu",
+            "source": ATTN_SOURCE,
             "replaces": K6W_REPLACES,
             "launches": STATE.get(f"launches_K6w_modernbert_{name}", 0),
             "max_abs_err": RESULTS["k6w_parity"][name]["max_abs_err"],
@@ -2438,7 +2520,8 @@ def device_profile(name: str, fn, want: dict) -> dict:
     activity). The idle share is the gaps between the forward's first
     kernel start and last kernel end (the profiler slows the host, so its
     wall time says nothing of idleness). Checks that the trace holds the
-    launches ``want`` names (``launches_want``)."""
+    launches ``want`` names (``launches_want``), and no attention kernel
+    it does not name."""
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
     # one warm-up step: without it the tracer can miss the first kernels.
@@ -2459,7 +2542,7 @@ def device_profile(name: str, fn, want: dict) -> dict:
             prof.step()
     kinds = ("qmm_int8_kernel", "requant_kernel", "quant_rows_kernel",
              "emit_rows_kernel", "qmm_wgmma_kernel", "attn_i8_kernel",
-             "attn_kernel")
+             "attn_sm90_kernel", "attn_kernel")
     by_kind: dict = {}
     torch_ops: dict = {}  # the library's own kernels, by name
     spans = []
@@ -2468,7 +2551,7 @@ def device_profile(name: str, fn, want: dict) -> dict:
                 or e.name.startswith("ProfilerStep"):  # the step's range
             continue
         kind = next((k for k in kinds if k in e.name), "torch ops")
-        if kind.startswith("attn_"):  # attn_kernel<D, mode, emit>
+        if kind.startswith("attn_"):  # attn_kernel<D, mode, emit>, ...
             kind += "<" + e.name.split(kind + "<")[-1].split(">")[0] + ">"
         ms = e.time_range.elapsed_us() / 1e3
         tally(by_kind, kind, ms)
@@ -2479,7 +2562,10 @@ def device_profile(name: str, fn, want: dict) -> dict:
     span = (max(b for _, b in spans) - min(a for a, _ in spans)) / 1e3 \
         if spans else 0.0
     seen = {k: v[1] for k, v in by_kind.items()}
-    check(busy > 0 and all(seen.get(k) == n for k, n in want.items()),
+    # every attention kernel the forward launched is one it should have
+    stray = [k for k in seen if k.startswith("attn_") and k not in want]
+    check(busy > 0 and not stray
+          and all(seen.get(k) == n for k, n in want.items()),
           f"profile {name}: launches {seen}, want {want}")
     return {
         "device_busy_ms": busy, "device_span_ms": span,
@@ -2566,7 +2652,7 @@ def qwen2_attention_rows(rng, dev) -> list:
                 key = "launches_K6_qwen2_long"
         out.append({
             "name": f"{fn}[B{Bx} L{Lx} H{QW_H} D{QW_D}]", "route": "cuda",
-            "source": "embeddings_tpu_torch/csrc/attention.cu",
+            "source": ATTN90_SOURCE,
             "replaces": replaces, "launches": STATE.get(key, 0),
             "max_abs_err": parity["max_abs_err"],
             "ms": cuda_ms(kernel, iters=5),
@@ -2617,7 +2703,7 @@ def bias_stream_rows(rng, dev) -> list:
         mask = None if bias is None else bias.to(torch.bfloat16)
         out.append({
             "name": f"{fn}[{what} B{Bx} L{Lx} H{H} D{D}]", "route": "cuda",
-            "source": "embeddings_tpu_torch/csrc/attention.cu",
+            "source": ATTN_SOURCE if kname == "K7" else ATTN90_SOURCE,
             "replaces": K7_REPLACES if kname == "K7" else K6_REPLACES,
             "launches": STATE.get(launch_key, 0),
             "max_abs_err": RESULTS["k6k7_parity"][parity]["max_abs_err"],
@@ -2653,7 +2739,7 @@ def causal_alibi_row(rng, dev) -> dict:
     row = {
         "name": f"fused_attention_stream[causal ALiBi B{Bx} L{Lx} H{H} "
                 f"D{D}]", "route": "cuda",
-        "source": "embeddings_tpu_torch/csrc/attention.cu",
+        "source": ATTN90_SOURCE,
         "replaces": K6CA_REPLACES,
         "launches": STATE.get("launches_K6ca_jina", 0),
         "max_abs_err": RESULTS["k6ca_parity"]["jina_long"]["max_abs_err"],
@@ -2703,7 +2789,7 @@ def cp_rows(rng, dev) -> list:
                 < lens[:, None])[:, None, None, :]
         out.append({
             "name": f"{fn}[B{Bs} Lc{Lc} L{Lx} H{H} D{D}]", "route": "cuda",
-            "source": "embeddings_tpu_torch/csrc/attention.cu",
+            "source": ATTN_SOURCE,
             "replaces": replaces,
             "launches": STATE.get(f"launches_{kname}", 0),
             "max_abs_err": RESULTS["k8_parity"][

@@ -1,25 +1,23 @@
 // Fused multi-head self-attention over the fused QKV projection, for
-// sm_90a: kernels K2, K4, K5, K6 (with its banded mode K6w, its causal
-// mode K6c and its causal ALiBi mode K6ca) and K7 of the PyTorch port, as
-// nine mask modes of one kernel.
+// sm_90a: kernels K4, K5, K6w and K7 of the PyTorch port, K2's emission
+// and int8-scores modes (K2e, K2i8), K4's emission (K4e) and the
+// context-parallel K8a and K8b, as mask modes of one WMMA kernel. K2
+// without emission or int8 scores, K6, K6c and K6ca (the fused-layout,
+// no-emission modes 0, 4, 5, 7 and 8) run on the Hopper kernel in
+// attention_sm90.cu (wgmma, a TMA ring); ops/attention.py:attention_kernel
+// routes, and this library refuses those modes.
 //
 // Replaces (embeddings_tpu/ops/attention.py, the Pallas TPU kernels):
-//   mode 0, K2: _attn_kernel (its bf16 branch), behind fused_attention();
-//   mode 1, K4: _attn_kernel_segmented, behind fused_attention_segmented();
+//   mode 0 with emission, K2e: _attn_kernel with _emit_int8_rows, behind
+//               fused_attention(emit_quantized=);
+//   mode 1, K4 (and K4e): _attn_kernel_segmented, behind
+//               fused_attention_segmented();
 //   mode 2, K5: _attn_kernel_seg_window, behind
 //               fused_attention_segmented_blockskip();
 //   mode 3, K7: _attn_kernel_bias, behind fused_attention_bias();
-//   modes 4, 5, K6: _attn_kernel_stream in its plain and ALiBi modes,
-//               behind fused_attention_stream();
 //   mode 6, K6w: _attn_kernel_stream in its span + window (banded) mode,
 //               behind fused_attention_window() (ModernBERT's local
 //               layers);
-//   mode 7, K6c: _attn_kernel_stream in its causal mode, behind
-//               fused_attention_stream(causal=True) (the Qwen2 decoder
-//               embedders);
-//   mode 8, K6ca: _attn_kernel_stream with causal and ALiBi together,
-//               behind fused_attention_stream(causal=True, alibi_slopes=)
-//               (a causal jina-bert-v2 config);
 //   mode 4 with the CP operand layout, K8a and K8b: _attn_kernel_cp and
 //               _attn_kernel_cp_stream, behind fused_attention_cp() and
 //               fused_attention_cp_stream() (context parallelism).
@@ -47,23 +45,16 @@
 //   mode 3: s = clamp(d * s2 + bias[h, i, j], -100, hi) (bias f32 [H, L,
 //           L], log2-scaled), key j valid iff j < len[b];
 //   mode 4: s = clamp(d * s2, -100, hi), key j valid iff j < len[b];
-//   mode 5: s = clamp(d * s2 - slope[h] * (f32(|i - j|) * log2(e)), -100,
-//           hi), key j valid iff j < len[b] (jina-bert-v2's ALiBi from
-//           positions, no bias array);
 //   mode 6: s = clamp(d * s2, -100, hi), key j valid iff j < len[b] and
 //           |i - j| <= W (W = window // 2), over the 64-key tiles that
 //           meet [q0 - W, q_last + W] only: O(L * window) work;
-//   mode 7: s = clamp(d * s2, -100, hi), key j valid iff j < len[b] and
-//           j <= i, over the 64-key tiles up to the block's last query
-//           row only: about half of mode 4's work;
-//   mode 8: mode 5's score with mode 7's mask and tile stop.
 //   p_j = bf16(exp2(s)) if valid else 0
 //   out = (sum_j p_j v_j) / max(sum_j p_j, 1e-30)           (f32 sums)
 // written as bf16 to ctx [B*Lq, E] at column h*D. s2 = log2(e)/sqrt(D);
 // hi = 127 - ceil(log2 n) for n = L keys (n = min(W*128, L) in mode 2; in
-// modes 6-8 n is the whole row L, as the TPU's _stream_call sizes
-// it, not the band or the causal prefix; in the CP layout n is the
-// gathered row L, not the local Lc). There
+// mode 6 n is the whole row L, as the TPU's _stream_call sizes it, not
+// the band; in the CP layout n is the gathered row L, not the local Lc).
+// There
 // is no max-subtraction: the clamp keeps exp2 and the sum finite for any
 // row length, as in the TPU kernels, so key tiles only ADD into the
 // output and the denominator; nothing is rescaled. That also makes every
@@ -71,28 +62,19 @@
 // running sums, so K6's long rows need nothing K2 does not have. A row
 // with no valid key (len 0, or a pad query) gives exactly 0. Prefix modes
 // stop at the first 64-key tile past len[b] (those tiles add exact
-// zeros); ALiBi tiles far from the diagonal clamp at -100 and still add
-// exp2(-100), so they are not skipped. Mode 6 skips the tiles outside the
-// band, and modes 7 and 8 the tiles past the block's last query row, for the
-// same reason as the prefix stop: every p there is an exact zero (keys at
-// or below the diagonal that the mask drops still cost their dot: only
-// whole tiles are skipped). The multiply-adds the plain
-// version rounds separately are written __fmul_rn / __fadd_rn /
-// __fsub_rn, so nvcc's FMA contraction cannot change a score.
+// zeros). Mode 6 skips the tiles outside the band for the same reason:
+// every p there is an exact zero. The multiply-adds the plain version
+// rounds separately are written __fmul_rn / __fadd_rn, so nvcc's FMA
+// contraction cannot change a score.
 //
 // What bounds it on the H100: at B=128, L=256, H=12, D=64 (modes 0, 3),
 // or 32,768 packed tokens (modes 1 and 2), the function moves ~201 MB
 // (qkv in, context out; mode 3 adds the 3.1 MB bias, which stays in the
 // 50 MB L2 across the batch) for ~26 GFLOP (mode 2 at L=1024, W=3: ~19
 // GFLOP), so it is bound by device memory, not by the tensor cores. At
-// K6's L=8192 (B=4) the same 201 MB carries ~825 GFLOP of products and
-// 3.2 G exp2: there it is bound by operations (tensor cores, then the
-// exp2 unit). Mode 6 at 32,768 tokens and window 128 needs ~13 GFLOP for
-// the same 201 MB: bound by bytes; a 64-query block walks 3 key tiles
-// (129 keys of the band, at most 192 visited). Mode 7 at Qwen2's B=4,
-// L=4,096, H=12, D=128 needs ~206 GFLOP for ~201 MB: bound by
-// operations, as K6 plain is at that length; its blocks near the end of
-// a row walk 64 key tiles, those at its start one. The CP layout at
+// K6w's (mode 6) 32,768 tokens and window 128 the same 201 MB carries
+// ~13 GFLOP: bound by bytes; a 64-query block walks 3 key tiles (129
+// keys of the band, at most 192 visited). The CP layout at
 // bge's B=16, Lc=256, L=512 moves ~38 MB for ~6.4 GFLOP (bound by
 // bytes); at nomic's B=4, Lc=512, L=2,048 ~32 MB for ~12.9 GFLOP (bound
 // by operations). The design reads q, k
@@ -104,8 +86,9 @@
 // V (and their segment ids) staged in shared memory, both products on the
 // tensor cores (WMMA bf16, f32 accumulators). The bias of mode 3 is read
 // in place from device memory (L2), four scores to a 16-byte load. Not
-// yet used: cp.async/TMA double buffering of the key tiles, wgmma, and
-// skipping key tiles outside a K4 row's segments.
+// yet used here: cp.async/TMA double buffering of the key tiles and
+// wgmma (attention_sm90.cu has both), and skipping key tiles outside a
+// K4 row's segments.
 //
 // K2e / K4e, the emission epilogue of modes 0 and 1 (replaces
 // embeddings_tpu/ops/attention.py:_emit_int8_rows, called from
@@ -150,19 +133,11 @@ constexpr int THREADS = 128;  // 4 warps x 16 query rows
 constexpr int SP = KT + 4;    // f32 score staging row stride
 constexpr int PP = KT + 8;    // bf16 probability row stride
 constexpr int BQ = 128;       // query/key block of mode 2 (block_ranges)
-constexpr float LOG2E_F = 1.4426950408889634f;
-static_assert(QT == KT, "the causal modes' diagonal stop needs QT == KT");
 
+// modes 5, 7 and 8, and mode 4 and mode 0 without emission in the fused
+// layout, are attention_sm90.cu's
 enum Mode { PREFIX = 0, SEGMENT = 1, WINDOW = 2, BIAS = 3, STREAM = 4,
-            ALIBI = 5, BAND = 6, CAUSAL = 7, CAUSAL_ALIBI = 8 };
-
-// modes with the causal mask j <= i, and with ALiBi's distance penalty
-__host__ __device__ constexpr bool causal_mode(int mode) {
-  return mode == CAUSAL || mode == CAUSAL_ALIBI;
-}
-__host__ __device__ constexpr bool alibi_mode(int mode) {
-  return mode == ALIBI || mode == CAUSAL_ALIBI;
-}
+            BAND = 6 };
 constexpr float LOG2_127 = 6.9886846867721655f;
 constexpr int MAX_CLUSTER = 16;  // heads a cluster can hold (H100)
 constexpr float ABSENT = -3.0e38f;  // K2i8's score of a key past L
@@ -264,7 +239,7 @@ __global__ void __launch_bounds__(THREADS) attn_kernel(
     const __nv_bfloat16* __restrict__ kv, const int* __restrict__ lengths,
     const int* __restrict__ seg, const int* __restrict__ kbs,
     const int* __restrict__ kbe, const float* __restrict__ bias,
-    const float* __restrict__ slopes, __nv_bfloat16* __restrict__ out,
+    __nv_bfloat16* __restrict__ out,
     int8_t* __restrict__ o8, float* __restrict__ os, int L, int Lq, int H,
     int W, int ldq, int ldkv, float s2, float hi) {
   using Lay = Layout<D>;
@@ -337,10 +312,9 @@ __global__ void __launch_bounds__(THREADS) attn_kernel(
   const int sq = (!prefix_masked(MODE) && qrow < L)
                      ? seg[(size_t)b * L + qrow] : -1;
   // mode 3: this query's bias row (rows past L, never written, read row
-  // L - 1); modes 5 and 8: this head's slope
+  // L - 1)
   const float* brow =
       MODE == BIAS ? bias + ((size_t)h * L + min(qrow, L - 1)) * L : nullptr;
-  const float slope = alibi_mode(MODE) ? slopes[h] : 0.0f;
   int k_begin = 0, k_end = L;
   if (prefix_masked(MODE)) {
     // key tiles wholly past len[b] would add exact zeros: stop before them
@@ -360,12 +334,6 @@ __global__ void __launch_bounds__(THREADS) attn_kernel(
     // 2); the prefix stop above still applies
     k_begin = max(0, q0 - W) / KT * KT;
     k_end = min(k_end, (q0 + QT - 1 + W) / KT * KT + KT);
-  }
-  if (causal_mode(MODE)) {
-    // no query row of this block sees a key past q0 + QT - 1: stop at
-    // the tile after the diagonal (QT == KT); the prefix stop still
-    // applies
-    k_end = min(k_end, q0 + QT);
   }
   for (int k0 = k_begin; k0 < k_end; k0 += KT) {
     __syncthreads();  // every warp is done with the previous K/V tile
@@ -413,13 +381,9 @@ __global__ void __launch_bounds__(THREADS) attn_kernel(
         bool ok = prefix_masked(MODE) ? kj < len
                                       : segk[c] == sq && segk[c] >= 0;
         if constexpr (MODE == BAND) ok = ok && abs(qrow - kj) <= W;
-        if constexpr (causal_mode(MODE)) ok = ok && kj <= qrow;
         float raw = fsc[r * SP + c];
         if constexpr (MODE == BIAS) {
           raw = __fadd_rn(__fmul_rn(raw, s2), bias4[e]);
-        } else if constexpr (alibi_mode(MODE)) {
-          const float dist = __fmul_rn((float)abs(qrow - kj), LOG2E_F);
-          raw = __fsub_rn(__fmul_rn(raw, s2), __fmul_rn(slope, dist));
         } else if constexpr (MODE != PREFIX) {
           raw = raw * s2;
         }
@@ -712,8 +676,8 @@ cudaError_t launch_cluster(Kern kern, dim3 grid, size_t smem, int H,
 template <int D, int MODE, int EMIT>
 cudaError_t launch(const void* qsrc, const void* kvsrc, const void* lengths,
                    const void* seg, const void* kbs, const void* kbe,
-                   const void* bias, const void* slopes, void* out, void* o8,
-                   void* os, int B, int L, int Lq, int H, int W, int ldq,
+                   const void* bias, void* out, void* o8, void* os, int B,
+                   int L, int Lq, int H, int W, int ldq,
                    int ldkv, float s2, float hi, cudaStream_t stream) {
   const size_t smem = Layout<D>::smem;
   auto kern = attn_kernel<D, MODE, EMIT>;
@@ -728,14 +692,13 @@ cudaError_t launch(const void* qsrc, const void* kvsrc, const void* lengths,
   const auto* ks = static_cast<const int*>(kbs);
   const auto* ke = static_cast<const int*>(kbe);
   const auto* bs = static_cast<const float*>(bias);
-  const auto* sl = static_cast<const float*>(slopes);
   auto* o = static_cast<__nv_bfloat16*>(out);
   auto* c8 = static_cast<int8_t*>(o8);
   auto* cs = static_cast<float*>(os);
   if (EMIT != EMIT_NO)
     return launch_cluster(kern, grid, smem, H, stream, q, kv, ln, sg, ks, ke,
-                          bs, sl, o, c8, cs, L, Lq, H, W, ldq, ldkv, s2, hi);
-  kern<<<grid, THREADS, smem, stream>>>(q, kv, ln, sg, ks, ke, bs, sl, o, c8,
+                          bs, o, c8, cs, L, Lq, H, W, ldq, ldkv, s2, hi);
+  kern<<<grid, THREADS, smem, stream>>>(q, kv, ln, sg, ks, ke, bs, o, c8,
                                         cs, L, Lq, H, W, ldq, ldkv, s2, hi);
   return cudaGetLastError();
 }
@@ -766,11 +729,11 @@ template <int D>
 cudaError_t launch_mode(int mode, int emit, int i8s, const void* q,
                         const void* kv, const void* lengths, const void* seg,
                         const void* kbs, const void* kbe, const void* bias,
-                        const void* slopes, void* out, void* o8, void* os,
-                        int B, int L, int Lq, int H, int W, int ldq, int ldkv,
-                        float s2, float hi, cudaStream_t stream) {
-#define ATTN_ARGS q, kv, lengths, seg, kbs, kbe, bias, slopes, out, o8, os, \
-                  B, L, Lq, H, W, ldq, ldkv, s2, hi, stream
+                        void* out, void* o8, void* os, int B, int L, int Lq,
+                        int H, int W, int ldq, int ldkv, float s2, float hi,
+                        cudaStream_t stream) {
+#define ATTN_ARGS q, kv, lengths, seg, kbs, kbe, bias, out, o8, os, B, L, \
+                  Lq, H, W, ldq, ldkv, s2, hi, stream
 #define I8_ARGS q, lengths, out, o8, os, B, L, H, s2, stream
   const bool fused = Lq == L && ldq == 3 * H * D && ldkv == ldq &&
                      kv == static_cast<const __nv_bfloat16*>(q) + H * D;
@@ -797,7 +760,6 @@ cudaError_t launch_mode(int mode, int emit, int i8s, const void* q,
     return cudaErrorInvalidValue;
   }
   switch (mode) {
-    case PREFIX: return launch<D, PREFIX, EMIT_NO>(ATTN_ARGS);
     case SEGMENT: return launch<D, SEGMENT, EMIT_NO>(ATTN_ARGS);
     case WINDOW:
       if (L % BQ) return cudaErrorInvalidValue;
@@ -805,18 +767,13 @@ cudaError_t launch_mode(int mode, int emit, int i8s, const void* q,
     case BIAS:
       if (bias == nullptr) return cudaErrorInvalidValue;
       return launch<D, BIAS, EMIT_NO>(ATTN_ARGS);
-    case STREAM: return launch<D, STREAM, EMIT_NO>(ATTN_ARGS);
-    case ALIBI:
-      if (slopes == nullptr) return cudaErrorInvalidValue;
-      return launch<D, ALIBI, EMIT_NO>(ATTN_ARGS);
+    case STREAM:  // the CP layout only (K8a, K8b)
+      if (fused) return cudaErrorInvalidValue;
+      return launch<D, STREAM, EMIT_NO>(ATTN_ARGS);
     case BAND:
       if (W < 0) return cudaErrorInvalidValue;
       return launch<D, BAND, EMIT_NO>(ATTN_ARGS);
-    case CAUSAL: return launch<D, CAUSAL, EMIT_NO>(ATTN_ARGS);
-    case CAUSAL_ALIBI:
-      if (slopes == nullptr) return cudaErrorInvalidValue;
-      return launch<D, CAUSAL_ALIBI, EMIT_NO>(ATTN_ARGS);
-    default: return cudaErrorInvalidValue;
+    default: return cudaErrorInvalidValue;  // 0, 5, 7, 8: attention_sm90.cu
   }
 #undef I8_ARGS
 #undef ATTN_ARGS
@@ -828,28 +785,28 @@ extern "C" {
 
 // q, kv and out bf16 (device pointers): q rows [B*Lq] of stride ldq, kv
 // rows [B*L] of stride ldkv (k at column 0, v at H*D), out [B*Lq, H*D].
-// Every mode takes the fused layout (q = qkv [B*L, 3*H*D], kv = qkv +
-// H*D, ldq = ldkv = 3*H*D, Lq = L); mode 4 also the CP layout (K8a, K8b:
-// any Lq, ldq, ldkv; no emission). Strides are multiples of 8 and
-// pointers 16-byte aligned. Modes
-// 0 and 3-8 read lengths [B] int32; modes 1 and 2 read seg [B, L]
-// int32 (-1 on pads); mode 2 also kbs, kbe [B, L/128] int32 and the block
-// cap W (L % 128 == 0); mode 3 reads bias [H, L, L] f32 (log2-scaled);
-// modes 5 and 8 read slopes [H] f32; mode 6 takes the half window W =
-// window // 2. Unused pointers may be null. s2 =
+// Modes 0 (with emission or i8s), 1, 2, 3 and 6 take the fused layout (q
+// = qkv [B*L, 3*H*D], kv = qkv + H*D, ldq = ldkv = 3*H*D, Lq = L); mode 4
+// takes only the CP layout (K8a, K8b: any Lq, ldq, ldkv; no emission);
+// the rest is attention_sm90.cu's. Strides are multiples of 8 and
+// pointers 16-byte aligned. Modes 0, 3, 4 and 6 read lengths [B] int32;
+// modes 1 and 2 read seg [B, L] int32 (-1 on pads); mode 2 also kbs, kbe
+// [B, L/128] int32 and the block cap W (L % 128 == 0); mode 3 reads bias
+// [H, L, L] f32 (log2-scaled); mode 6 takes the half window W = window //
+// 2. Unused pointers may be null. s2 =
 // log2(e)/sqrt(D) as f32; hi = the score clamp bound. D must be 32, 64 or
 // 128. emit (modes 0 and 1, H <= 16): 1 also writes o8 [B*L, E] int8 and
 // os [B*L] f32, 2 writes only those (out may be null). i8s (mode 0): the
 // int8-scores kernel (K2i8). Returns a cudaError_t.
 int attn_launch(const void* q, const void* kv, const void* lengths,
                 const void* seg, const void* kbs, const void* kbe,
-                const void* bias, const void* slopes, void* out, void* o8,
-                void* os, int mode, int emit, int i8s, int B, int L, int Lq,
+                const void* bias, void* out, void* o8, void* os, int mode,
+                int emit, int i8s, int B, int L, int Lq,
                 int H, int D, int W, int ldq, int ldkv, float s2, float hi,
                 void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define ATTN_ARGS mode, emit, i8s, q, kv, lengths, seg, kbs, kbe, bias, \
-                  slopes, out, o8, os, B, L, Lq, H, W, ldq, ldkv, s2, hi, st
+#define ATTN_ARGS mode, emit, i8s, q, kv, lengths, seg, kbs, kbe, bias, out, \
+                  o8, os, B, L, Lq, H, W, ldq, ldkv, s2, hi, st
   switch (D) {
     case 32: return launch_mode<32>(ATTN_ARGS);
     case 64: return launch_mode<64>(ATTN_ARGS);

@@ -1,0 +1,617 @@
+// Fused multi-head self-attention over the fused QKV projection, for
+// sm_90a, on Hopper's own instructions (wgmma, TMA, mbarriers, warp
+// specialization): kernel K2 and kernel K6 with its causal modes K6c and
+// K6ca of the PyTorch port, as five mask modes of one kernel.
+//
+// Replaces (embeddings_tpu/ops/attention.py, the Pallas TPU kernels):
+//   mode 0, K2: _attn_kernel (its bf16 branch, no emission), behind
+//               fused_attention();
+//   modes 4, 5, K6: _attn_kernel_stream in its plain and ALiBi modes,
+//               behind fused_attention_stream();
+//   mode 7, K6c: _attn_kernel_stream in its causal mode, behind
+//               fused_attention_stream(causal=True);
+//   mode 8, K6ca: _attn_kernel_stream with causal and ALiBi together,
+//               behind fused_attention_stream(causal=True, alibi_slopes=).
+// The other modes of those TPU kernels (K2's emission K2e and int8 scores
+// K2i8, the CP layout of mode 4: K8a, K8b) and K4, K5, K6w and K7 stay on
+// attention.cu's WMMA kernel; ops/attention.py:attention_kernel routes.
+//
+// For each sequence b, head h and query i, reading q, k and v as column
+// slices of the fused qkv [B*L, 3E] (q at h*D, k at E + h*D, v at 2E +
+// h*D), with d = q . k_j accumulated in f32:
+//   mode 0: s = clamp(bf16(q * s2) . k_j, -100, hi) (q pre-scaled and
+//           rounded, the TPU's K2 rounding);
+//   mode 4: s = clamp(d * s2, -100, hi);
+//   mode 5: s = clamp(d * s2 - slope[h] * (f32(|i - j|) * log2(e)), -100,
+//           hi) (jina-bert-v2's ALiBi from positions);
+//   mode 7: mode 4's score, key j also dropped where j > i;
+//   mode 8: mode 5's score with mode 7's mask;
+//   key j valid iff j < len[b] (and j <= i in modes 7, 8);
+//   p_j = bf16(exp2(s)) if valid else 0
+//   out = (sum_j p_j v_j) * (1 / max(sum_j p_j, 1e-30))  (f32 sums)
+// written as bf16 to out [B*L, E] at column h*D. s2 = log2(e)/sqrt(D);
+// hi = 127 - ceil(log2 L), sized to all L keys. The multiply-adds the
+// plain versions round separately are written __fmul_rn / __fsub_rn, so
+// nvcc's FMA contraction cannot change a score. There is no max
+// subtraction (the clamp keeps exp2 and the sums finite at any length),
+// so a key tile only adds into the output and the row sum: no running
+// max, no rescale of the output. Whole key tiles past len[b], or past a
+// causal block's last query row, add exact zeros and are skipped; ALiBi
+// tiles far from the diagonal add exp2(-100) and are not. A len-0 row
+// gives exactly 0; query rows >= L are never written.
+//
+// What bounds it on the H100: K6 at Qwen2's B=4, L=4,096, H=12, D=128
+// does ~206 GFLOP of products on ~201 MB (qkv in, context out): bound by
+// the tensor cores (0.21 ms at 989 TFLOP/s, twice that without the causal
+// half-skip). At D=64 (jina, ModernBERT, B=4, L=8,192) the products are
+// ~825 GFLOP and the B*H*L^2 = 3.2 G exp2 alone take 0.77 ms on the
+// SFUs (16 a clock per SM), close to the products' 0.83 ms: the score
+// pass has to run beside the products, not after them. K2 at bge's B=128,
+// L=256, D=64 moves the same ~201 MB for ~26 GFLOP: bound by bytes
+// (0.06 ms).
+//
+// The design:
+// - one block per (128 query rows, head, sequence): a producer
+//   warpgroup, one thread of which issues the TMA copies, and two
+//   consumer warpgroups of 64 query rows each (one where L <= 64, K2's
+//   short rows: chosen on the host); setmaxnreg gives the producer's
+//   registers to the consumers (24 / 240);
+// - the Q tile comes once by TMA; K and V tiles of 128 keys come through
+//   a ring (2 stages at D=128, 3 below) with separate full / empty
+//   mbarriers for K and V, so a stage's K is released as soon as its
+//   scores are done and its V once its product is. TMA reads 3-D boxes of
+//   qkv viewed as [B, L, 3E]: a box never reads another sequence's rows
+//   (rows past L read as zeros), and lands 128-byte swizzled (64-byte at
+//   D=32, whose rows are 64 bytes); at D=128 a tile row is two 64-column
+//   boxes. 128-key tiles: the S accumulator (64 f32 a thread) and the
+//   bf16 probabilities (32 registers) fit beside D=128's output (64) in
+//   the consumers' 240 registers, and half as many tiles halve the
+//   per-tile barrier and issue overhead of 64-key tiles;
+// - mode 0 scales and re-rounds each warpgroup's Q rows once, in shared
+//   memory, before the first product;
+// - S = Q . K^T on wgmma m64n128k16 with both operands in shared memory
+//   (K-major), f32 accumulators in registers;
+// - the score pass runs in registers, in place on S: scale or ALiBi,
+//   clamp, exp2 (one MUFU.EX2), the key mask only on tiles that need it
+//   (the tile holding len[b], the diagonal tiles), bf16 rounding and the
+//   row sum of the rounded p per thread (a quad shuffle at the end); with
+//   ALiBi at D <= 64, whose score pass bounds the kernel, the tensor
+//   cores take the row sums instead (P times a ones tile, ones_sum).
+//   wgmma's m64nN f32 accumulator layout is its k16 A-fragment layout, so
+//   S packs into the A operand of O += P . V in place (wgmma with A in
+//   registers, m64n{D}k16), with V read from shared memory as the MN-major
+//   B operand (the transpose bit): P never touches shared memory;
+// - in each iteration a warpgroup issues the scores of tile t and the
+//   product of tile t - 1 together and runs tile t's score pass while the
+//   product runs; the two warpgroups take turns issuing (named barriers),
+//   so one's exp2 pass also runs beside the other's products;
+// - ptxas serializes every wgmma of a kernel (a wait after each; its
+//   C75xx notes under -Xptxas -v) if a wgmma's registers are written
+//   between its fence and its wait, or it sits under a branch it cannot
+//   prove warp-uniform. So: the warpgroup index and len[b] are broadcast
+//   with a shuffle; the first and last tiles are peeled, so the loop
+//   issues both products unconditionally; the A fragments are written by
+//   the conversion itself after the product that reads them completes
+//   (register moves into them serialize); the descriptors are advanced
+//   from per-kernel bases;
+// - causal blocks are issued longest first (the query-block index runs
+//   backwards), so the short blocks fill the tail;
+// - the epilogue scales the f32 output rows by 1 / max(sum, 1e-30) and
+//   stores bf16 pairs straight from registers, guarded by L.
+
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "sm90.cuh"
+
+namespace {
+
+enum Mode { PREFIX = 0, STREAM = 4, ALIBI = 5, CAUSAL = 7, CAUSAL_ALIBI = 8 };
+
+__host__ __device__ constexpr bool causal_mode(int mode) {
+  return mode == CAUSAL || mode == CAUSAL_ALIBI;
+}
+__host__ __device__ constexpr bool alibi_mode(int mode) {
+  return mode == ALIBI || mode == CAUSAL_ALIBI;
+}
+
+constexpr int KT = 128;       // keys per tile
+constexpr int WG_ROWS = 64;   // query rows per consumer warpgroup
+constexpr int BOX_ROWS = 64;  // rows per TMA box
+constexpr int PRODUCER_REGS = 24;  // setmaxnreg: 24 + 2 x 240 = 3 x 168
+constexpr int CONSUMER_REGS = 240;
+constexpr int BAR_SCHED = 1;  // named barriers 1, 2: the warpgroups' turns
+constexpr int BAR_WG = 3;     // 3, 4: one warpgroup's threads
+constexpr float LOG2E_F = 1.4426950408889634f;
+
+// Per head dim: a tile row is NH blocks of CW columns (RB bytes, the
+// swizzle width: 128 bytes at D >= 64, 64 at D=32), each block a TMA box
+// column; wgmma's layout type for that swizzle; the ring's depth.
+template <int D>
+struct Cfg {
+  static constexpr int CW = D < 64 ? D : 64;
+  static constexpr int RB = CW * 2;
+  static constexpr int NH = D / CW;
+  static constexpr uint32_t LAYOUT = RB == 128 ? 1 : 2;
+  static constexpr int STAGES = D == 128 ? 2 : 3;
+  static constexpr uint32_t TILE_BYTES = KT * D * 2;  // one K or V tile
+};
+
+// The row sums of P on the tensor cores (P . a ones tile, an m64n8k16
+// beside each k16 step of O += P . V) where ALiBi's longer score pass
+// bounds the kernel at D <= 64 (2.01 against 2.42 ms at jina's B=4,
+// L=8,192 on an H100 at 700 W, tools/attention_ab.py); elsewhere in the
+// score pass, whose adds cost less there than the extra products (1.76
+// against 1.97 ms in the plain mode at that shape).
+__host__ __device__ constexpr bool ones_sum(int D, int mode) {
+  return D <= 64 && alibi_mode(mode);
+}
+
+// Shared memory from a 1024-byte aligned base: the Q tile (NC x 64 rows),
+// the K ring, the V ring, 1 KB of bf16 ones (the row sums' B operand),
+// then the mbarriers: q full, K full[STAGES], V full, K empty, V empty. A tile of R rows holds column block c at c * R *
+// RB and row r of it at r * RB (swizzled within 8-row groups).
+template <int D, int NC>
+struct Smem {
+  static constexpr int QB = NC * WG_ROWS;
+  static constexpr uint32_t q_bytes = QB * D * 2;
+  static constexpr uint32_t k_off = q_bytes;
+  static constexpr uint32_t v_off = k_off + Cfg<D>::STAGES * Cfg<D>::TILE_BYTES;
+  static constexpr uint32_t ones_off =
+      v_off + Cfg<D>::STAGES * Cfg<D>::TILE_BYTES;
+  static constexpr uint32_t bar_off = ones_off + 1024;
+  static constexpr size_t bytes =
+      1024 + bar_off + (1 + 4 * Cfg<D>::STAGES) * 8;
+};
+static_assert(Smem<128, 2>::bytes <= 232448, "D=128 block");
+static_assert(Smem<64, 2>::bytes <= 232448, "D=64 block");
+
+struct Args {
+  const int* lengths;   // [B] int32
+  const float* slopes;  // [H] f32 (modes 5, 8)
+  __nv_bfloat16* out;   // [B*L, E]
+  int L, H;
+  float s2, hi;
+};
+
+__device__ __forceinline__ uint32_t pack2(float a, float b) {
+  __nv_bfloat162 t = __floats2bfloat162_rn(a, b);
+  return *reinterpret_cast<uint32_t*>(&t);
+}
+
+// the two bf16 halves of a packed pair, as f32
+__device__ __forceinline__ float lo_bf16(uint32_t w) {
+  return __uint_as_float(w << 16);
+}
+__device__ __forceinline__ float hi_bf16(uint32_t w) {
+  return __uint_as_float(w & 0xFFFF0000u);
+}
+
+// One tile's score pass for this thread's two query rows (r0 and r0 + 8)
+// and 64 keys, in place: s[4j + e] is row e < 2 ? r0 : r0 + 8, key k0 + 2
+// * quad + 8j + (e & 1). fq[r]: f32(row - k0 - 2 * quad) (ALiBi's
+// distance, exact in f32); lim[r]: the row's valid keys end, minus k0 + 2
+// * quad. Leaves the probabilities in s: with ONES_SUM as they are (the
+// A-fragment conversion rounds them and the tensor cores sum them), else
+// rounded to bf16, and adds them to the row sums.
+template <int MODE, bool MASKED, bool ONES_SUM>
+__device__ __forceinline__ void score_pass(float* s, float* sum, float s2,
+                                           float hi, float slope,
+                                           const float* fq, const int* lim) {
+#pragma unroll
+  for (int j = 0; j < KT / 8; ++j) {
+    float v[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int c = 8 * j + (e & 1);
+      float raw = s[4 * j + e];
+      if constexpr (alibi_mode(MODE)) {
+        const float dist =
+            __fmul_rn(fabsf(__fsub_rn(fq[e >> 1], (float)c)), LOG2E_F);
+        raw = __fsub_rn(__fmul_rn(raw, s2), __fmul_rn(slope, dist));
+      } else if constexpr (MODE != PREFIX) {
+        raw = __fmul_rn(raw, s2);
+      }
+      float p = ex2(fminf(fmaxf(raw, -100.0f), hi));
+      if constexpr (MASKED) p = c < lim[e >> 1] ? p : 0.0f;
+      v[e] = p;
+    }
+    if constexpr (ONES_SUM) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[4 * j + e] = v[e];
+    } else {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const uint32_t w = pack2(v[2 * r], v[2 * r + 1]);
+        s[4 * j + 2 * r] = lo_bf16(w);
+        s[4 * j + 2 * r + 1] = hi_bf16(w);
+        sum[r] += s[4 * j + 2 * r];
+        sum[r] += s[4 * j + 2 * r + 1];
+      }
+    }
+  }
+}
+
+// the bf16 probabilities in s as wgmma's A fragments: the m64nN f32
+// accumulator layout is the k16 A-fragment layout, so p[2j] is row r0's
+// keys 8j.., p[2j + 1] row r0 + 8's, and k16 step kk reads p[4kk ..]
+__device__ __forceinline__ void to_fragments(const float* s, uint32_t* p) {
+#pragma unroll
+  for (int i = 0; i < KT / 4; ++i) p[i] = pack2(s[2 * i], s[2 * i + 1]);
+}
+
+// O += P . V for one 128-key tile: 8 k16 steps, A from registers; dv: the
+// V tile's descriptor. With ONES_SUM also rs += P . ones (d1: the ones
+// tile's descriptor), every column of rs a row sum.
+template <int D, bool ONES_SUM>
+__device__ __forceinline__ void pv_product(float* o, float* rs,
+                                           const uint32_t* p, uint64_t dv,
+                                           uint64_t d1) {
+  using C = Cfg<D>;
+#pragma unroll
+  for (int kk = 0; kk < KT / 16; ++kk) {
+    const uint64_t db = dv + ((kk * 16 * C::RB) >> 4);
+    if constexpr (D == 128)
+      wgmma_rs_m64n128k16(o, p + 4 * kk, db, 1);
+    else if constexpr (D == 64)
+      wgmma_rs_m64n64k16(o, p + 4 * kk, db, 1);
+    else
+      wgmma_rs_m64n32k16(o, p + 4 * kk, db, 1);
+    if constexpr (ONES_SUM) wgmma_rs_m64n8k16(rs, p + 4 * kk, d1, 1);
+  }
+}
+
+template <int D, int MODE, int NC>
+__global__ void __launch_bounds__(128 * (NC + 1), 1) attn_sm90_kernel(
+    const __grid_constant__ CUtensorMap map, const Args a) {
+  using C = Cfg<D>;
+  using S = Smem<D, NC>;
+  constexpr int QB = S::QB;
+  constexpr int STAGES = C::STAGES;
+  constexpr int RB = C::RB;
+  constexpr bool ONES = ones_sum(D, MODE);
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw_base = smem_u32(smem_raw);
+  const uint32_t base = (raw_base + 1023) & ~1023u;
+  unsigned char* sbase = smem_raw + (base - raw_base);
+  const uint32_t qs = base;
+  const uint32_t bars = base + S::bar_off;
+  const uint32_t q_full = bars;
+  auto k_full = [&](int s) { return bars + 8 * (1 + s); };
+  auto v_full = [&](int s) { return bars + 8 * (1 + STAGES + s); };
+  auto k_empty = [&](int s) { return bars + 8 * (1 + 2 * STAGES + s); };
+  auto v_empty = [&](int s) { return bars + 8 * (1 + 3 * STAGES + s); };
+
+  const int tid = threadIdx.x;
+  // the warpgroup, and below the row length, broadcast from lane 0: values
+  // the compiler can see are warp-uniform, so the branches on them are no
+  // divergent paths, which would make it serialize the wgmma instructions
+  const int role = __shfl_sync(0xffffffffu, tid / 128, 0);
+  // causal blocks run longest first: the last query block first
+  const int qb = causal_mode(MODE) ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
+  const int q0 = qb * QB;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int L = a.L;
+  const int E = a.H * D;
+  const int len = __shfl_sync(0xffffffffu, min(max(a.lengths[b], 0), L), 0);
+  // key tiles past len add exact zeros, and so do those past a causal
+  // block's last query row
+  int k_end = (len + KT - 1) / KT * KT;
+  if (causal_mode(MODE)) k_end = min(k_end, q0 + QB);
+  const int nt = (k_end + KT - 1) / KT;
+
+  if constexpr (ONES) {
+    for (int i = tid; i < 256; i += blockDim.x)
+      reinterpret_cast<uint32_t*>(sbase + S::ones_off)[i] = 0x3F803F80u;
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  }
+  if (tid == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(k_full(s), 1);
+      mbar_init(v_full(s), 1);
+      mbar_init(k_empty(s), 4 * NC);  // one lane per consumer warp
+      mbar_init(v_empty(s), 4 * NC);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (role >= NC) {
+    // ---- producer: Q once, then K and V tiles through the ring ----
+    if constexpr (NC == 2)
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
+          PRODUCER_REGS));
+    if (tid != 128 * NC) return;
+    mbar_expect_tx(q_full, S::q_bytes);
+#pragma unroll
+    for (int c = 0; c < C::NH; ++c)
+#pragma unroll
+      for (int rc = 0; rc < QB / BOX_ROWS; ++rc)
+        tma_load_3d(qs + (c * QB + rc * BOX_ROWS) * RB, &map,
+                    h * D + c * C::CW, q0 + rc * BOX_ROWS, b, q_full);
+    for (int t = 0; t < nt; ++t) {
+      const int s = t % STAGES;
+      const uint32_t ph = (t / STAGES) & 1;
+      const int k0 = t * KT;
+#pragma unroll
+      for (int kv = 0; kv < 2; ++kv) {  // K, then V
+        const uint32_t full = kv ? v_full(s) : k_full(s);
+        mbar_wait(kv ? v_empty(s) : k_empty(s), ph ^ 1);
+        mbar_expect_tx(full, C::TILE_BYTES);
+        const uint32_t tile =
+            base + (kv ? S::v_off : S::k_off) + s * C::TILE_BYTES;
+#pragma unroll
+        for (int c = 0; c < C::NH; ++c)
+#pragma unroll
+          for (int rc = 0; rc < KT / BOX_ROWS; ++rc)
+            tma_load_3d(tile + (c * KT + rc * BOX_ROWS) * RB, &map,
+                        (1 + kv) * E + h * D + c * C::CW, k0 + rc * BOX_ROWS,
+                        b, full);
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: warpgroup wg holds query rows q0 + 64 wg .. + 63 ----
+  if constexpr (NC == 2)
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
+        CONSUMER_REGS));
+  const int wg = role;
+  const int lane = tid % 32;
+  const int quad = lane & 3;
+  const int qw0 = q0 + wg * WG_ROWS;
+  const int row0 = qw0 + ((tid % 128) / 32) * 16 + (lane >> 2);
+  const float slope = alibi_mode(MODE) ? a.slopes[h] : 0.0f;
+
+  mbar_wait(q_full, 0);
+  if constexpr (MODE == PREFIX) {
+    // q * s2 rounded to bf16, in place (elementwise: the swizzle does not
+    // matter), then made visible to wgmma's async proxy
+    constexpr int VECS = WG_ROWS * RB / 16;  // 16-byte vectors a block
+#pragma unroll
+    for (int c = 0; c < C::NH; ++c)
+      for (int i = tid % 128; i < VECS; i += 128) {
+        uint4* ptr = reinterpret_cast<uint4*>(
+            sbase + (c * QB + wg * WG_ROWS) * RB + i * 16);
+        uint4 u = *ptr;
+        uint32_t* w = reinterpret_cast<uint32_t*>(&u);
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          w[k] = pack2(lo_bf16(w[k]) * a.s2, hi_bf16(w[k]) * a.s2);
+        *ptr = u;
+      }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    named_bar(BAR_WG + wg, 128);
+  }
+
+  float o[D / 2];
+  float s[KT / 2];
+  uint32_t p[KT / 4];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.0f;
+#pragma unroll
+  for (int i = 0; i < KT / 2; ++i) s[i] = 0.0f;
+#pragma unroll
+  for (int i = 0; i < KT / 4; ++i) p[i] = 0u;
+  float sum[2] = {0.0f, 0.0f};
+  float rs[4] = {0.0f, 0.0f, 0.0f, 0.0f};  // ONES: the row sums
+
+  // the descriptors of this warpgroup's Q rows and of ring stage 0's K and
+  // V tiles; a stage, a column block and a k16 step move the start address
+  // (the low 14 bits, in 16-byte units: no carry, shared memory is < 256 KB)
+  const uint64_t dq = smem_desc(qs + wg * WG_ROWS * RB, 16, 8 * RB,
+                                C::LAYOUT);
+  const uint64_t dk = smem_desc(base + S::k_off, 16, 8 * RB, C::LAYOUT);
+  const uint64_t dv = smem_desc(base + S::v_off, KT * RB, 8 * RB, C::LAYOUT);
+  // the ones tile, K-major without swizzle: 8 x 16-byte rows a core
+  // matrix, the two of a k16 step 128 bytes apart (all within the 1 KB)
+  const uint64_t d1 = smem_desc(base + S::ones_off, 128, 256, 0);
+  // S = Q . K^T for the K tile in ring stage st
+  auto issue_scores = [&](int st) {
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const int c = kk * 16 / C::CW;
+      const uint32_t off = (kk * 16 % C::CW) * 2;
+      wgmma_m64n128k16(s, dq + ((c * QB * RB + off) >> 4),
+                       dk + ((st * C::TILE_BYTES + c * KT * RB + off) >> 4),
+                       kk > 0);
+    }
+  };
+  // tile t's score pass, once its S is complete: in place, and the sums
+  auto score_tile = [&](int t) {
+    const int k0 = t * KT;
+    const int kq = k0 + 2 * quad;
+    const float fq[2] = {(float)(row0 - kq), (float)(row0 + 8 - kq)};
+    int lim[2] = {len - kq, len - kq};
+    if constexpr (causal_mode(MODE)) {
+      lim[0] = min(len, row0 + 1) - kq;
+      lim[1] = min(len, row0 + 9) - kq;
+    }
+    if (k0 + KT > len || (causal_mode(MODE) && k0 + KT - 1 > qw0))
+      score_pass<MODE, true, ONES>(s, sum, a.s2, a.hi, slope, fq,
+                                          lim);
+    else
+      score_pass<MODE, false, ONES>(s, sum, a.s2, a.hi, slope, fq,
+                                           lim);
+  };
+  // the warpgroups take turns issuing their products (warpgroup 0 first):
+  // each takes nt + 1 turns, and passes each but warpgroup 1's last
+  auto take_turn = [&]() {
+    if constexpr (NC == 2) named_bar(BAR_SCHED + wg, 256);
+  };
+  auto pass_turn = [&]() {
+    if constexpr (NC == 2) named_bar_arrive(BAR_SCHED + 1 - wg, 256);
+  };
+
+  if (nt > 0) {
+    if constexpr (NC == 2)
+      if (wg == 1) named_bar_arrive(BAR_SCHED, 256);
+    // tile 0: its scores alone
+    mbar_wait(k_full(0), 0);
+    take_turn();
+    fence_regs<KT / 2>(s);
+    wgmma_fence();
+    issue_scores(0);
+    wgmma_commit();
+    pass_turn();
+    wgmma_wait<0>();
+    fence_regs<KT / 2>(s);
+    if (lane == 0) mbar_arrive(k_empty(0));
+    score_tile(0);
+    to_fragments(s, p);
+    // tiles 1 .. nt - 1: the scores of tile t issued with the product of
+    // tile t - 1, and tile t's score pass run while that product runs
+    for (int t = 1; t < nt; ++t) {
+      const int sc = t % STAGES;
+      const int sp = (t - 1) % STAGES;
+      mbar_wait(k_full(sc), (t / STAGES) & 1);
+      mbar_wait(v_full(sp), ((t - 1) / STAGES) & 1);
+      take_turn();
+      fence_regs<KT / 2>(s);
+      fence_regs<D / 2>(o);
+      fence_regs<4>(rs);
+      fence_regs<KT / 4>(p);
+      wgmma_fence();
+      issue_scores(sc);
+      wgmma_commit();
+      pv_product<D, ONES>(o, rs, p, dv + ((sp * C::TILE_BYTES) >> 4), d1);
+      wgmma_commit();
+      pass_turn();
+      wgmma_wait<1>();
+      fence_regs<KT / 2>(s);
+      if (lane == 0) mbar_arrive(k_empty(sc));
+      score_tile(t);
+      wgmma_wait<0>();
+      fence_regs<D / 2>(o);
+      fence_regs<4>(rs);
+      fence_regs<KT / 4>(p);
+      if (lane == 0) mbar_arrive(v_empty(sp));
+      to_fragments(s, p);
+    }
+    // the last tile's product alone
+    const int sp = (nt - 1) % STAGES;
+    mbar_wait(v_full(sp), ((nt - 1) / STAGES) & 1);
+    take_turn();
+    fence_regs<D / 2>(o);
+    fence_regs<4>(rs);
+    fence_regs<KT / 4>(p);
+    wgmma_fence();
+    pv_product<D, ONES>(o, rs, p, dv + ((sp * C::TILE_BYTES) >> 4), d1);
+    wgmma_commit();
+    if (wg == 0) pass_turn();
+    wgmma_wait<0>();
+    fence_regs<D / 2>(o);
+    fence_regs<4>(rs);
+  }
+
+  if constexpr (ONES) {
+    sum[0] = rs[0];
+    sum[1] = rs[2];
+  } else {
+    sum[0] = quad_sum(sum[0]);
+    sum[1] = quad_sum(sum[1]);
+  }
+  const float inv[2] = {1.0f / fmaxf(sum[0], 1e-30f),
+                        1.0f / fmaxf(sum[1], 1e-30f)};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    if (row >= L) continue;
+    __nv_bfloat16* dst =
+        a.out + ((size_t)b * L + row) * E + h * D + 2 * quad;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<uint32_t*>(dst + 8 * j) =
+          pack2(o[4 * j + 2 * r] * inv[r], o[4 * j + 2 * r + 1] * inv[r]);
+  }
+}
+
+// qkv [B*L, 3E] bf16 as a 3-D tensor [B, L, 3E], read in boxes of CW
+// columns x 64 rows x 1 sequence, swizzled to the box row's width (rows
+// past L read as zeros)
+cudaError_t qkv_map(CUtensorMap* map, const void* qkv, int B, int L, int E3,
+                    int cw) {
+  EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {(cuuint64_t)E3, (cuuint64_t)L, (cuuint64_t)B};
+  const cuuint64_t strides[2] = {(cuuint64_t)E3 * 2,
+                                 (cuuint64_t)E3 * 2 * (cuuint64_t)L};
+  const cuuint32_t box[3] = {(cuuint32_t)cw, (cuuint32_t)BOX_ROWS, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(qkv), dims,
+      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      cw * 2 == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <int D, int MODE, int NC>
+cudaError_t launch(const void* qkv, const Args& a, int B,
+                   cudaStream_t stream) {
+  CUtensorMap map;
+  cudaError_t err = qkv_map(&map, qkv, B, a.L, 3 * a.H * D, Cfg<D>::CW);
+  if (err != cudaSuccess) return err;
+  auto kern = attn_sm90_kernel<D, MODE, NC>;
+  const size_t smem = Smem<D, NC>::bytes;
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.L + Smem<D, NC>::QB - 1) / Smem<D, NC>::QB, a.H, B);
+  kern<<<grid, 128 * (NC + 1), smem, stream>>>(map, a);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_mode(int mode, const void* qkv, const Args& a, int B,
+                        cudaStream_t stream) {
+  // one consumer warpgroup where a row fits in 64 queries (K2's short
+  // rows); the streamed modes take L % 128 == 0
+  if (mode == PREFIX)
+    return a.L <= WG_ROWS ? launch<D, PREFIX, 1>(qkv, a, B, stream)
+                          : launch<D, PREFIX, 2>(qkv, a, B, stream);
+  switch (mode) {
+    case STREAM: return launch<D, STREAM, 2>(qkv, a, B, stream);
+    case ALIBI: return launch<D, ALIBI, 2>(qkv, a, B, stream);
+    case CAUSAL: return launch<D, CAUSAL, 2>(qkv, a, B, stream);
+    case CAUSAL_ALIBI: return launch<D, CAUSAL_ALIBI, 2>(qkv, a, B, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+// qkv [B*L, 3*H*D] bf16 (16-byte aligned), lengths [B] int32, slopes [H]
+// f32 (modes 5 and 8; else may be null), out [B*L, H*D] bf16, all device
+// pointers. mode: 0 (K2), 4, 5 (K6 plain, ALiBi), 7 (K6c), 8 (K6ca). D:
+// 32, 64 or 128; L % 8 == 0. s2 = log2(e)/sqrt(D) as f32; hi = the score
+// clamp bound. Returns a cudaError_t.
+int attn90_launch(const void* qkv, const void* lengths, const void* slopes,
+                  void* out, int mode, int B, int L, int H, int D, float s2,
+                  float hi, void* stream) {
+  if (B < 0 || L <= 0 || L % 8 || H <= 0) return cudaErrorInvalidValue;
+  if (alibi_mode(mode) && slopes == nullptr) return cudaErrorInvalidValue;
+  if (B == 0) return cudaSuccess;
+  const Args a{static_cast<const int*>(lengths),
+               static_cast<const float*>(slopes),
+               static_cast<__nv_bfloat16*>(out), L, H, s2, hi};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 32: return launch_mode<32>(mode, qkv, a, B, st);
+    case 64: return launch_mode<64>(mode, qkv, a, B, st);
+    case 128: return launch_mode<128>(mode, qkv, a, B, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+const char* attn90_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+}  // extern "C"

@@ -13,8 +13,12 @@ parallelism (``parallel/context.py``) the rectangular
 all-gathered K/V) and its key-streamed variant
 ``fused_attention_cp_stream`` (K8b).
 
-Each wrapper launches its mask mode of the hand-written kernel
-``csrc/attention.cu`` on a CUDA tensor, or raises; on a CPU tensor it runs
+Each wrapper launches its mask mode of a hand-written kernel on a CUDA
+tensor, or raises: K2 (without emission or int8 scores), K6, K6c and K6ca
+run on the Hopper kernel ``csrc/attention_sm90.cu`` (wgmma, a TMA ring),
+every other mode on ``csrc/attention.cu`` (WMMA); ``attention_kernel``
+routes, and ``fused_attention.routes`` / ``fused_attention_stream.routes``
+count the launches by route. On a CPU tensor each wrapper runs
 its plain PyTorch version, which repeats the kernel's arithmetic step by
 step: exp2 of the clamped scores with no max-subtraction, probabilities
 rounded to the compute dtype before both the PV product and the
@@ -32,6 +36,7 @@ package ("auto" follows the int8 compute mode, ``use_int8_scores``).
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import ctypes
 import math
@@ -222,8 +227,10 @@ def fused_attention(qkv: torch.Tensor, lengths: torch.Tensor, *, B: int,
     so)`` or ``(o8, so)``, o8 int8 [B*L, H*D], so f32 [B*L, 1].
     int8_scores: both products in int8 (K2i8; see ``_int8_scores_ctx``).
 
-    A CUDA tensor launches K2 (``csrc/attention.cu``; bf16 qkv, int32
-    lengths on the same device); counted in ``launches``, and apart in
+    A CUDA tensor launches K2 (bf16 qkv, int32 lengths on the same
+    device): ``csrc/attention_sm90.cu``, or ``csrc/attention.cu`` with
+    emission or int8 scores (``attention_kernel``; counted by route in
+    ``routes``); counted in ``launches``, and apart in
     ``both_launches`` / ``only_launches`` (emission) and ``i8s_launches``
     (int8 scores). A CPU tensor runs ``fused_attention_ref``."""
     _check_prefix("fused_attention", supported(L, H, D), qkv, lengths, B,
@@ -236,10 +243,11 @@ def fused_attention(qkv: torch.Tensor, lengths: torch.Tensor, *, B: int,
     _check_cuda(qkv, lengths)
     out, o8, os = _outputs(qkv, B * L, H * D, emit_quantized)
     if B:
-        _launch("fused_attention", MODE_PREFIX, qkv, out, B, L, H, D,
-                _clamp_hi(L), lengths=lengths, o8=o8, os=os,
-                emit=emit_quantized, i8s=int8_scores)
+        route = _launch("fused_attention", MODE_PREFIX, qkv, out, B, L, H, D,
+                        _clamp_hi(L), lengths=lengths, o8=o8, os=os,
+                        emit=emit_quantized, i8s=int8_scores)
         _count(fused_attention, emit_quantized)
+        fused_attention.routes[route] += 1
         if int8_scores:
             fused_attention.i8s_launches += 1
     return _emit_result(out, o8, os, emit_quantized)
@@ -369,7 +377,7 @@ def whole_row_fits(L: int, E: int) -> bool:
     VMEM (double-buffered k and v plus 4 MB of tiles within 15 MB; past it,
     L > 1877 at E=768, dispatch streams key blocks). It is the TPU's
     budget, kept only so the port picks the same route and numerics as
-    the JAX package: the CUDA kernels stream 64-key tiles at every
+    the JAX package: the CUDA kernels stream key tiles at every
     length."""
     return 4 * L * E * 2 + 4 * 1024 * 1024 <= 15 * 1024 * 1024
 
@@ -421,7 +429,8 @@ def fused_attention_stream(qkv: torch.Tensor, lengths: torch.Tensor, *,
     j > i (the decoder embedders; the clamp stays sized to L keys). BK
     is the JAX kernel's key block (``pick_bk``): it fixes the shapes
     taken and the plain version's walk. A CUDA tensor launches K6
-    (``csrc/attention.cu``, stream or ALiBi mode) or, with ``causal``,
+    (``csrc/attention_sm90.cu``, stream or ALiBi mode; counted by route in
+    ``routes``) or, with ``causal``,
     K6c (causal mode), counted apart in ``causal_launches``, or with
     ``causal`` and ``alibi_slopes`` together K6ca (causal ALiBi mode),
     counted in ``causal_alibi_launches``; a CPU tensor runs
@@ -446,8 +455,9 @@ def fused_attention_stream(qkv: torch.Tensor, lengths: torch.Tensor, *,
         mode = MODE_CAUSAL if slopes is None else MODE_CAUSAL_ALIBI
     else:
         mode = MODE_STREAM if slopes is None else MODE_ALIBI
-    _launch("fused_attention_stream", mode, qkv, out, B, L, H, D,
-            _clamp_hi(L), lengths=lengths, slopes=slopes)
+    route = _launch("fused_attention_stream", mode, qkv, out, B, L, H, D,
+                    _clamp_hi(L), lengths=lengths, slopes=slopes)
+    fused_attention_stream.routes[route] += 1
     if causal and slopes is not None:
         fused_attention_stream.causal_alibi_launches += 1
     elif causal:
@@ -663,19 +673,61 @@ def _launch_cp(wrapper, q, kv, lengths, B, Lc, L, H, D) -> torch.Tensor:
     return out
 
 
-# mask modes of csrc/attention.cu
+# mask modes of csrc/attention.cu (and of csrc/attention_sm90.cu: 0, 4,
+# 5, 7, 8)
 MODE_PREFIX, MODE_SEGMENT, MODE_WINDOW = 0, 1, 2
 MODE_BIAS, MODE_STREAM, MODE_ALIBI, MODE_BAND, MODE_CAUSAL = 3, 4, 5, 6, 7
 MODE_CAUSAL_ALIBI = 8
+SM90_MODES = (MODE_PREFIX, MODE_STREAM, MODE_ALIBI, MODE_CAUSAL,
+              MODE_CAUSAL_ALIBI)
+
+
+def attention_kernel(mode: int, D: int, emit: str = "no", cp: bool = False,
+                     i8s: bool = False) -> str:
+    """The hand-written kernel an attention launch takes: "sm90"
+    (``csrc/attention_sm90.cu``: wgmma, a TMA ring, probabilities in
+    registers) for the fused-layout modes without emission or int8 scores,
+    0, 4, 5, 7 and 8 (K2, K6 plain and ALiBi, K6c, K6ca); "wmma"
+    (``csrc/attention.cu``) for every other: K4, K5, K6w, K7, the
+    emission modes K2e / K4e, K2i8, and mode 4 in the CP operand layout
+    (K8a, K8b). No fallback: a route's failed build or refused launch
+    raises."""
+    if mode not in range(9):
+        raise ValueError(f"no attention mode {mode}")
+    if D not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"the attention kernels take D in "
+                         f"{KERNEL_HEAD_DIMS}, got {D}")
+    if emit not in EMITS:
+        raise ValueError(f"emit must be one of {EMITS}, got {emit!r}")
+    sm90 = mode in SM90_MODES and emit == "no" and not cp and not i8s
+    return "sm90" if sm90 else "wmma"
+
+
+def sm90_warpgroups(L: int) -> int:
+    """Consumer warpgroups of a Hopper-kernel block (64 query rows each):
+    one where a row fits in 64 queries (K2's short rows), else two (the
+    kernel's host code makes the same choice)."""
+    return 1 if L <= 64 else 2
 
 
 def _launch(what, mode, qkv, out, B, L, H, D, hi, *, lengths=None,
             seg=None, kbs=None, kbe=None, bias=None, slopes=None,
-            W=0, o8=None, os=None, emit="no", i8s=False, cp=None) -> None:
-    """One ``attn_launch``. The fused layout reads q, k and v as column
-    slices of qkv [B*L, 3E]; with ``cp`` = (q, Lc) mode 4 reads the CP
-    layout instead: q rows of q's stride and qkv as the gathered kv [B*L,
-    2E]."""
+            W=0, o8=None, os=None, emit="no", i8s=False, cp=None) -> str:
+    """One attention launch on the route ``attention_kernel`` picks;
+    returns the route. The fused layout reads q, k and v as column slices
+    of qkv [B*L, 3E]; with ``cp`` = (q, Lc) mode 4 reads the CP layout
+    instead: q rows of q's stride and qkv as the gathered kv [B*L, 2E]."""
+    from ._cuda import check
+    route = attention_kernel(mode, D, emit, cp is not None, i8s)
+    stream = torch.cuda.current_stream(qkv.device).cuda_stream
+    if route == "sm90":
+        lib = _lib90()
+        status = lib.attn90_launch(
+            qkv.data_ptr(), lengths.data_ptr(),
+            None if slopes is None else slopes.data_ptr(), out.data_ptr(),
+            mode, B, L, H, D, _scale(D), hi, stream)
+        check(status, lib.attn90_error_string, what)
+        return route
     lib = _lib()
     E = H * D
     if cp is None:
@@ -687,13 +739,12 @@ def _launch(what, mode, qkv, out, B, L, H, D, hi, *, lengths=None,
         q_ptr, kv_ptr, ldq, ldkv = (q.data_ptr(), qkv.data_ptr(),
                                     q.stride(0), 2 * E)
     ptr = [None if t is None else t.data_ptr()
-           for t in (lengths, seg, kbs, kbe, bias, slopes, out, o8, os)]
+           for t in (lengths, seg, kbs, kbe, bias, out, o8, os)]
     status = lib.attn_launch(
         q_ptr, kv_ptr, *ptr, mode, EMITS.index(emit), int(i8s), B, L, Lq, H,
-        D, W, ldq, ldkv, _scale(D), hi,
-        torch.cuda.current_stream(qkv.device).cuda_stream)
-    from ._cuda import check
+        D, W, ldq, ldkv, _scale(D), hi, stream)
     check(status, lib.attn_error_string, what)
+    return route
 
 
 def _check_prefix(what, takes, qkv, lengths, B, L, H, D) -> None:
@@ -882,9 +933,12 @@ def fused_attention_segmented_blockskip(
 # K8b launch adds one (K6c to fused_attention_stream.causal_launches, K6ca
 # to its causal_alibi_launches); K2 and K4 also count their emitting
 # launches (K2e / K4e) in both_launches and only_launches, K2 its
-# int8-scores launches (K2i8) in i8s_launches;
+# int8-scores launches (K2i8) in i8s_launches; K2's and K6's launches
+# also count by kernel in ``routes`` ("sm90" / "wmma", attention_kernel);
 # callers reset them to 0 around the run they measure
 fused_attention.launches = 0
+fused_attention.routes = collections.Counter()
+fused_attention_stream.routes = collections.Counter()
 fused_attention.both_launches = fused_attention.only_launches = 0
 fused_attention.i8s_launches = 0
 fused_attention_segmented.both_launches = 0
@@ -900,12 +954,25 @@ fused_attention_cp.launches = 0
 fused_attention_cp_stream.launches = 0
 
 
+def _lib90() -> ctypes.CDLL:
+    from . import _cuda
+    lib = _cuda.load("attention_sm90")
+    if not getattr(lib, "_typed", False):
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.attn90_launch.argtypes = [p] * 4 + [i] * 5 + [f, f, p]
+        lib.attn90_launch.restype = i
+        lib.attn90_error_string.argtypes = [i]
+        lib.attn90_error_string.restype = ctypes.c_char_p
+        lib._typed = True
+    return lib
+
+
 def _lib() -> ctypes.CDLL:
     from . import _cuda
     lib = _cuda.load("attention")
     if not getattr(lib, "_typed", False):
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.attn_launch.argtypes = [p] * 11 + [i] * 11 + [f, f, p]
+        lib.attn_launch.argtypes = [p] * 10 + [i] * 11 + [f, f, p]
         lib.attn_launch.restype = i
         lib.attn_error_string.argtypes = [i]
         lib.attn_error_string.restype = ctypes.c_char_p

@@ -3,8 +3,10 @@
 ``fused_attention_ref`` (the plain PyTorch version the port runs on a CPU
 tensor) is held against ``embeddings_tpu.ops.attention.fused_attention``
 in Pallas interpret mode on the same numpy-seeded qkv and lengths, lengths
-that include 0 (an all-pad row) and the full row. E is a multiple of 128,
-as the JAX ``supported`` rule needs. f32: both compute the same
+that include 0 (an all-pad row) and the full row; at L=200 the lengths
+sit on the CUDA kernel's 64-query and 128-key tile edges ({0, 1, 63, 64,
+65, 127, 128, 129, L}). E is a multiple of 128, as the JAX ``supported``
+rule needs (so H=2 at D=32 is not a case). f32: both compute the same
 expression, differing by f32 summation order (1e-5). bf16: both round q·s2
 and p to bf16 at the same points, so the output agrees to about one bf16
 ulp; a probability whose f32 value sits on a bf16 rounding boundary can
@@ -21,12 +23,17 @@ from embeddings_tpu.ops import attention as jattn
 
 from embeddings_tpu_torch.ops import attention as tattn
 
-CASES = [(3, 16, 2, 64), (2, 32, 4, 32), (2, 24, 1, 128), (2, 64, 2, 64)]
+CASES = [(3, 16, 2, 64), (2, 32, 4, 32), (2, 24, 1, 128), (2, 64, 2, 64),
+         (9, 200, 4, 32), (9, 200, 2, 64)]
+# lengths on the Hopper kernel's tile edges (64 queries, 128 keys)
+EDGES = (0, 1, 63, 64, 65, 127, 128, 129)
 
 
 def _inputs(B, L, H, D, seed):
     rng = np.random.default_rng(seed)
     qkv = rng.standard_normal((B * L, 3 * H * D), dtype=np.float32)
+    if B == len(EDGES) + 1:
+        return qkv, np.array(EDGES + (L,), np.int32)
     lengths = rng.integers(1, L + 1, B).astype(np.int32)
     lengths[0] = 0
     lengths[-1] = L
@@ -47,7 +54,7 @@ def test_fused_attention_ref_matches_jax_f32(B, L, H, D):
     assert np.all(got.numpy().reshape(B, L, -1)[0] == 0)
 
 
-@pytest.mark.parametrize("B,L,H,D", CASES[:2])
+@pytest.mark.parametrize("B,L,H,D", CASES[:2] + CASES[4:])
 def test_fused_attention_ref_matches_jax_bf16(B, L, H, D):
     qkv, lengths = _inputs(B, L, H, D, seed=7)
     ref = np.asarray(jattn.fused_attention(
@@ -78,3 +85,35 @@ def test_fused_attention_rejects_bad_shapes():
         tattn.fused_attention(torch.zeros(2 * 20, 3 * 128),
                               torch.zeros(2, dtype=torch.int32),
                               B=2, L=20, H=2, D=64)   # L % 8 != 0
+
+
+# every (mode, emit, CP layout, int8 scores) a wrapper passes to _launch:
+# K2 with and without emission (K2e) and int8 scores (K2i8), K4 with and
+# without emission (K4e), K5, K7, K6 plain and ALiBi, K6w, K6c, K6ca, and
+# mode 4 in the CP layout (K8a, K8b)
+WRAPPER_LAUNCHES = (
+    [(0, emit, False, i8s) for emit in ("no", "both", "only")
+     for i8s in (False, True)]
+    + [(1, emit, False, False) for emit in ("no", "both", "only")]
+    + [(mode, "no", False, False) for mode in (2, 3, 4, 5, 6, 7, 8)]
+    + [(4, "no", True, False)])
+
+
+@pytest.mark.parametrize("D", tattn.KERNEL_HEAD_DIMS)
+@pytest.mark.parametrize("mode,emit,cp,i8s", WRAPPER_LAUNCHES)
+def test_attention_kernel_routes(mode, emit, cp, i8s, D):
+    """The Hopper kernel takes exactly the fused-layout modes without
+    emission or int8 scores (0, 4, 5, 7, 8); the WMMA kernel the rest."""
+    want = ("sm90" if mode in (0, 4, 5, 7, 8) and emit == "no" and not cp
+            and not i8s else "wmma")
+    assert tattn.attention_kernel(mode, D, emit, cp, i8s) == want
+    assert tattn.sm90_warpgroups(64) == 1 and tattn.sm90_warpgroups(72) == 2
+
+
+def test_attention_kernel_rejects_what_no_kernel_takes():
+    with pytest.raises(ValueError):
+        tattn.attention_kernel(9, 64)
+    with pytest.raises(ValueError):
+        tattn.attention_kernel(0, 16)
+    with pytest.raises(ValueError):
+        tattn.attention_kernel(0, 64, "half")

@@ -7,7 +7,8 @@ PyTorch versions the port runs on a CPU tensor) are held against
 ``fused_attention_stream`` in Pallas interpret mode on the same
 numpy-seeded qkv and lengths (an all-pad row, ragged rows, a full row).
 K7 takes an MPNet-like table bias and ALiBi's bias; K6 its plain and ALiBi
-modes at BK 128, 256 and 512. Each side builds its own bias operand from
+modes at BK 128, 256 and 512, and at L=384 with lengths on the CUDA
+kernel's 128-key tile edges ({0, 1, 63, 64, 65, 127, 128, 129, L}). Each side builds its own bias operand from
 the same [1, H, L, L] array (the port's layout is [H, L, L], the TPU's
 [nQ, H, Lq, L]): the outputs are compared, not the operand.
 
@@ -33,9 +34,15 @@ from embeddings_tpu_torch.ops import attention as tattn
 from embeddings_tpu_torch.ops.alibi import alibi_slopes
 
 
+# lengths on the Hopper kernel's tile edges (128 keys)
+EDGES = (0, 1, 63, 64, 65, 127, 128, 129)
+
+
 def _inputs(B, L, H, D, seed):
     rng = np.random.default_rng(seed)
     qkv = rng.standard_normal((B * L, 3 * H * D), dtype=np.float32)
+    if B == len(EDGES) + 1:
+        return qkv, np.array(EDGES + (L,), np.int32)
     lengths = rng.integers(1, L + 1, B).astype(np.int32)
     lengths[0] = 0
     lengths[-1] = L
@@ -115,7 +122,8 @@ def _port_stream(qkv, lengths, B, L, H, D, BK, alibi, dtype):
 
 K6_CASES = [(2, 512, 2, 64, 128), (2, 512, 2, 64, 256),
             (2, 512, 2, 64, 512), (3, 256, 4, 32, 128),
-            (2, 256, 1, 128, 256)]
+            (2, 256, 1, 128, 256), (9, 384, 4, 32, 128),
+            (9, 384, 2, 64, 128)]
 
 
 @pytest.mark.parametrize("alibi", [False, True])
@@ -129,7 +137,8 @@ def test_stream_ref_matches_jax_f32(B, L, H, D, BK, alibi):
 
 
 @pytest.mark.parametrize("alibi", [False, True])
-@pytest.mark.parametrize("B,L,H,D,BK", [K6_CASES[0], K6_CASES[3]])
+@pytest.mark.parametrize("B,L,H,D,BK", [K6_CASES[0], K6_CASES[3],
+                                        K6_CASES[6]])
 def test_stream_ref_matches_jax_bf16(B, L, H, D, BK, alibi):
     qkv, lengths = _inputs(B, L, H, D, seed=11)
     ref = _jax_stream(qkv, lengths, B, L, H, D, BK, alibi, jnp.bfloat16)

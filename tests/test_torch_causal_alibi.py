@@ -5,7 +5,9 @@ masks) in the port against the JAX package, on the CPU.
     plain version on a CPU tensor) against JAX's ``fused_attention_stream``
     with the same arguments in Pallas interpret mode: H = 2 and 4, BK =
     128 and 256, ragged lengths including rows shorter than one 64-key
-    tile and an empty row. f32 at atol 1e-5 with the len-0 row exactly 0
+    tile and an empty row, and at L=384 lengths on the CUDA kernel's
+    128-key tile edges ({0, 1, 63, 64, 65, 127, 128, 129, L}). f32 at
+    atol 1e-5 with the len-0 row exactly 0
     (the same expression, summed in another f32 order); bf16 at rtol
     2^-6 / atol 2e-3 (one probability on a bf16 rounding boundary may
     flip), as K6c's tests.
@@ -53,33 +55,39 @@ jbert = importlib.import_module("embeddings_tpu.models.bert")
 # ---------------------------------------------------------------------------
 
 B = 5
+# lengths on the Hopper kernel's tile edges (128 keys), at L=384
+EDGES = (0, 1, 63, 64, 65, 127, 128, 129)
 
 
 def _inputs(L, H, D, seed):
+    """qkv and lengths: full, ragged, shorter than one 64-key tile (40 and
+    1), empty; at L=384 the tile edges and L (B = len(lengths))."""
+    lengths = EDGES + (L,) if L == 384 else (L, L - 37, 40, 1, 0)
     rng = np.random.default_rng(seed)
-    qkv = rng.standard_normal((B * L, 3 * H * D), dtype=np.float32)
-    # full, ragged, shorter than one 64-key tile (40 and 1), empty
-    return qkv, np.array([L, L - 37, 40, 1, 0], np.int32)
+    qkv = rng.standard_normal((len(lengths) * L, 3 * H * D),
+                              dtype=np.float32)
+    return qkv, np.array(lengths, np.int32)
 
 
 def _jax(qkv, lengths, L, H, D, BK, dtype):
     out = jattn.fused_attention_stream(
-        jnp.asarray(qkv, dtype), jnp.asarray(lengths), B=B, L=L, H=H, D=D,
-        BK=BK, causal=True, alibi_slopes=tuple(alibi_slopes(H)),
+        jnp.asarray(qkv, dtype), jnp.asarray(lengths), B=len(lengths), L=L,
+        H=H, D=D, BK=BK, causal=True, alibi_slopes=tuple(alibi_slopes(H)),
         interpret=True)
     return np.asarray(out.astype(jnp.float32))
 
 
 def _port(qkv, lengths, L, H, D, BK, dtype):
     out = tattn.fused_attention_stream(
-        torch.from_numpy(qkv).to(dtype), torch.from_numpy(lengths), B=B, L=L,
-        H=H, D=D, BK=BK, causal=True, alibi_slopes=alibi_slopes(H))
+        torch.from_numpy(qkv).to(dtype), torch.from_numpy(lengths),
+        B=len(lengths), L=L, H=H, D=D, BK=BK, causal=True,
+        alibi_slopes=alibi_slopes(H))
     assert out.dtype == dtype
     return out.float().numpy()
 
 
 CASES = [(256, 2, 64, 128), (256, 2, 64, 256), (256, 4, 32, 128),
-         (512, 4, 32, 256)]
+         (512, 4, 32, 256), (384, 4, 32, 128), (384, 2, 64, 128)]
 
 
 @pytest.mark.parametrize("L,H,D,BK", CASES)
@@ -88,10 +96,11 @@ def test_causal_alibi_matches_jax_f32(L, H, D, BK):
     ref = _jax(qkv, lengths, L, H, D, BK, jnp.float32)
     got = _port(qkv, lengths, L, H, D, BK, torch.float32)
     np.testing.assert_allclose(got, ref, rtol=0, atol=1e-5)
-    assert np.all(got.reshape(B, L, -1)[4] == 0)  # the len-0 row
+    zero = list(lengths).index(0)
+    assert np.all(got.reshape(len(lengths), L, -1)[zero] == 0)  # len 0
 
 
-@pytest.mark.parametrize("L,H,D,BK", [CASES[0], CASES[2]])
+@pytest.mark.parametrize("L,H,D,BK", [CASES[0], CASES[2], CASES[5]])
 def test_causal_alibi_matches_jax_bf16(L, H, D, BK):
     qkv, lengths = _inputs(L, H, D, seed=7 * H)
     ref = _jax(qkv, lengths, L, H, D, BK, jnp.bfloat16)

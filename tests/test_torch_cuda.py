@@ -14,7 +14,10 @@ the bf16 rounding of the output differ. K4-K7, K6w, K6c and K6ca as K2;
 K6c's and K6ca's query rows that see fewer than 64 keys (the first rows
 of every sequence) also allow one bf16 flip of a probability, which
 moves an output by at most 2^-6 of the largest |v| among those keys
-(``_causal_close``).
+(``_causal_close``). K2, K6, K6c and K6ca run on the Hopper kernel
+(``csrc/attention_sm90.cu``): ``test_sm90_attention_matches_plain``
+holds each of its modes at lengths on its tile edges and checks the
+launches' route.
 """
 
 import numpy as np
@@ -341,6 +344,47 @@ def test_causal_alibi_attention_kernel_matches_plain(cuda, B, L, H, D, BK):
             A.fused_attention_stream.causal_launches) == counts
     _causal_close(got, A.fused_attention_stream_ref(qkv, lens, **kw), qkv,
                   lens, B, L, H, D)
+
+
+# lengths on the Hopper attention kernel's tile edges (64 queries, 128
+# keys), clipped to L, and a full row
+EDGES = (0, 1, 63, 64, 65, 127, 128, 129)
+SM90_CASES = [(0, 16), (0, 72), (0, 200), (0, 512), (4, 384), (5, 384),
+              (7, 384), (8, 384), (4, 512), (7, 512)]
+
+
+@pytest.mark.parametrize("H,D", [(4, 32), (2, 64), (16, 64), (12, 128)])
+@pytest.mark.parametrize("mode,L", SM90_CASES)
+def test_sm90_attention_matches_plain(cuda, mode, L, H, D):
+    """The Hopper kernel (csrc/attention_sm90.cu) in each of its modes, K2
+    (0), K6 plain (4) and ALiBi (5), K6c (7), K6ca (8), against its plain
+    version at lengths on its tile edges, counted on the "sm90" route."""
+    from embeddings_tpu_torch.ops.alibi import alibi_slopes
+    rng = np.random.default_rng(L + D + mode)
+    lengths = [min(n, L) for n in EDGES] + [L]
+    B = len(lengths)
+    qkv = torch.from_numpy(rng.standard_normal(
+        (B * L, 3 * H * D), dtype=np.float32)).to(cuda, torch.bfloat16)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    assert A.attention_kernel(mode, D) == "sm90"
+    if mode == 0:
+        wrapper, kw = fused_attention, dict(B=B, L=L, H=H, D=D)
+        plain = fused_attention_ref
+    else:
+        wrapper, plain = A.fused_attention_stream, \
+            A.fused_attention_stream_ref
+        kw = dict(B=B, L=L, H=H, D=D, BK=128, causal=mode in (7, 8),
+                  alibi_slopes=alibi_slopes(H) if mode in (5, 8) else None)
+    before = dict(wrapper.routes)
+    got = wrapper(qkv, lens, **kw)
+    assert wrapper.routes["sm90"] == before.get("sm90", 0) + 1
+    assert wrapper.routes["wmma"] == before.get("wmma", 0)
+    ref = plain(qkv, lens, **kw)
+    if mode in (7, 8):
+        _causal_close(got, ref, qkv, lens, B, L, H, D)
+    else:
+        _close(got, ref, 2 ** -6, 1e-2)
+        assert (got.reshape(B, L, -1)[0] == 0).all()
 
 
 @pytest.mark.parametrize("M,K,N,epilogue,emit", [

@@ -4,7 +4,9 @@ last-token pooling) in the port against the JAX package, on the CPU.
 
 (a) ``fused_attention_stream_ref(causal=True)`` (K6c's plain version)
     against JAX's ``fused_attention_stream(causal=True)`` in Pallas
-    interpret mode, D=64 and 128, L=256 and 512, lengths {L, L-37, 1, 0}:
+    interpret mode, D=64 and 128, L=256 and 512, lengths {L, L-37, 1, 0},
+    and D=32 and 64 at L=384 with lengths on the CUDA kernel's 128-key
+    tile edges ({0, 1, 63, 64, 65, 127, 128, 129, L}):
     f32 at atol 1e-5 with the len-0 row exactly 0 (the same expression in
     another f32 summation order), bf16 at rtol 2^-6 / atol 2e-3 (one
     probability on a bf16 rounding boundary may flip), as K6's tests; the
@@ -102,29 +104,37 @@ SHAPES = {"E64": {},
 # (a) K6c's plain version against the Pallas kernel
 # ---------------------------------------------------------------------------
 
+# lengths on the Hopper kernel's tile edges (128 keys), at L=384
+EDGES = (0, 1, 63, 64, 65, 127, 128, 129)
+
+
 def _causal_inputs(L, H, D, seed):
+    """qkv and lengths {L, L-37, 1, 0}, or at L=384 the tile edges and L
+    (B = len(lengths))."""
+    lengths = EDGES + (L,) if L == 384 else (L, L - 37, 1, 0)
     rng = np.random.default_rng(seed)
-    qkv = rng.standard_normal((4 * L, 3 * H * D), dtype=np.float32)
-    return qkv, np.array([L, L - 37, 1, 0], np.int32)
+    qkv = rng.standard_normal((len(lengths) * L, 3 * H * D),
+                              dtype=np.float32)
+    return qkv, np.array(lengths, np.int32)
 
 
 def _jax_causal(qkv, lengths, L, H, D, BK, dtype):
     out = jattn.fused_attention_stream(
-        jnp.asarray(qkv, dtype), jnp.asarray(lengths), B=4, L=L, H=H, D=D,
-        BK=BK, causal=True, interpret=True)
+        jnp.asarray(qkv, dtype), jnp.asarray(lengths), B=len(lengths), L=L,
+        H=H, D=D, BK=BK, causal=True, interpret=True)
     return np.asarray(out.astype(jnp.float32))
 
 
 def _port_causal(qkv, lengths, L, H, D, BK, dtype):
     out = tattn.fused_attention_stream(
-        torch.from_numpy(qkv).to(dtype), torch.from_numpy(lengths), B=4, L=L,
-        H=H, D=D, BK=BK, causal=True)
+        torch.from_numpy(qkv).to(dtype), torch.from_numpy(lengths),
+        B=len(lengths), L=L, H=H, D=D, BK=BK, causal=True)
     assert out.dtype == dtype
     return out.float().numpy()
 
 
 K6C_CASES = [(256, 2, 64, 256), (512, 2, 64, 512), (256, 1, 128, 256),
-             (512, 1, 128, 128)]
+             (512, 1, 128, 128), (384, 4, 32, 128), (384, 2, 64, 128)]
 
 
 @pytest.mark.parametrize("L,H,D,BK", K6C_CASES)
@@ -133,10 +143,12 @@ def test_causal_ref_matches_jax_f32(L, H, D, BK):
     ref = _jax_causal(qkv, lengths, L, H, D, BK, jnp.float32)
     got = _port_causal(qkv, lengths, L, H, D, BK, torch.float32)
     np.testing.assert_allclose(got, ref, rtol=0, atol=1e-5)
-    assert np.all(got.reshape(4, L, -1)[3] == 0)  # the len-0 row
+    zero = list(lengths).index(0)
+    assert np.all(got.reshape(len(lengths), L, -1)[zero] == 0)  # len 0
 
 
-@pytest.mark.parametrize("L,H,D,BK", [K6C_CASES[0], K6C_CASES[2]])
+@pytest.mark.parametrize("L,H,D,BK", [K6C_CASES[0], K6C_CASES[2],
+                                      K6C_CASES[5]])
 def test_causal_ref_matches_jax_bf16(L, H, D, BK):
     qkv, lengths = _causal_inputs(L, H, D, seed=11)
     ref = _jax_causal(qkv, lengths, L, H, D, BK, jnp.bfloat16)

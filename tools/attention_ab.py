@@ -1,0 +1,112 @@
+#!/usr/bin/env python3
+"""Time variants of the Hopper attention kernel against the checkout's, on
+one card, in turns: K2, K6 (plain and ALiBi), K6c and K6ca at the shapes
+the port's main paths give them (every row full).
+
+    python3 tools/attention_ab.py [VARIANT.cu ...]
+
+Each VARIANT.cu is a variant source of
+``embeddings_tpu_torch/csrc/attention_sm90.cu`` (same C interface); it is
+built with nvcc beside the checkout's build, under
+``embeddings_tpu_torch/_build/``. For each shape every library runs twice
+(CUDA events over 10 launches after 2 warm-ups), in the order checkout,
+variants, then reversed, and each variant's output is compared with the
+checkout's (max abs difference). Prints the card's name and power limit,
+then one JSON line per shape. Needs one CUDA device.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
+
+# name -> (B, L, H, D), mode: the main paths' attention shapes
+SHAPES = {"K2_bge": ((128, 256, 12, 64), 0),
+          "K2_qwen2": ((32, 512, 12, 128), 0),
+          "K2_modernbert": ((32, 1024, 12, 64), 0),
+          "K6_bert_long": ((2, 2048, 12, 64), 4),
+          "K6_qwen2": ((4, 4096, 12, 128), 4),
+          "K6_modernbert": ((4, 8192, 12, 64), 4),
+          "K6_alibi_jina": ((4, 8192, 12, 64), 5),
+          "K6c_qwen2_short": ((32, 512, 12, 128), 7),
+          "K6c_qwen2": ((4, 4096, 12, 128), 7),
+          "K6ca_jina": ((4, 8192, 12, 64), 8)}
+
+
+def build_variant(src: Path) -> ctypes.CDLL:
+    from embeddings_tpu_torch.ops import _cuda
+    _cuda.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out = _cuda.BUILD_DIR / f"ab_{src.parent.name}_{src.stem}.so"
+    subprocess.run([_cuda._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+                    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+                    "-I", str(_cuda.CSRC), "-o", str(out), str(src)],
+                   check=True)
+    lib = ctypes.CDLL(str(out))
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.attn90_launch.argtypes = [p] * 4 + [i] * 5 + [f, f, p]
+    lib.attn90_launch.restype = i
+    lib.attn90_error_string.argtypes = [i]
+    lib.attn90_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def main() -> int:
+    import numpy as np
+    import torch
+    if not torch.cuda.is_available():
+        print("no CUDA device", file=sys.stderr)
+        return 1
+    from chip_smoke import cuda_ms
+    from embeddings_tpu_torch.ops import attention as A
+    from embeddings_tpu_torch.ops.alibi import alibi_slopes
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip(), flush=True)
+    lib90 = A._lib90
+    libs = {"checkout": lib90()}
+    for src in sys.argv[1:]:
+        libs[src] = build_variant(Path(src))
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(1)
+    try:
+        for name, ((B, L, H, D), mode) in SHAPES.items():
+            qkv = torch.from_numpy(rng.standard_normal(
+                (B * L, 3 * H * D), dtype=np.float32)).to(dev, torch.bfloat16)
+            lens = torch.full((B,), L, dtype=torch.int32, device=dev)
+            if mode == 0:
+                kw = dict(B=B, L=L, H=H, D=D)
+
+                def fn():
+                    return A.fused_attention(qkv, lens, **kw)
+            else:
+                kw = dict(B=B, L=L, H=H, D=D, BK=A.pick_bk(L),
+                          causal=mode in (7, 8),
+                          alibi_slopes=alibi_slopes(H) if mode in (5, 8)
+                          else None)
+
+                def fn():
+                    return A.fused_attention_stream(qkv, lens, **kw)
+            ms, outs = {}, {}
+            for order in (list(libs), list(libs)[::-1]):
+                for key in order:
+                    A._lib90 = lambda key=key: libs[key]
+                    ms.setdefault(key, []).append(cuda_ms(fn, iters=10))
+                    outs.setdefault(key, fn().float())
+            diff = {k: (outs[k] - outs["checkout"]).abs().max().item()
+                    for k in libs if k != "checkout"}
+            print(json.dumps({"shape": name, "B_L_H_D": [B, L, H, D],
+                              "mode": mode, "ms": ms,
+                              "max_abs_diff_vs_checkout": diff}), flush=True)
+    finally:
+        A._lib90 = lib90
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
