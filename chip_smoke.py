@@ -1,14 +1,16 @@
 """Smoke test of the PyTorch/CUDA port on one GPU: builds the hand-written
 kernels (K1-K7, K6w, K6c and K6ca, the chained-int8 modes K1e, K3e, K3x,
-K2e, K4e and K2i8, and the context-parallel K8a and K8b; K2, K6, K6c and
-K6ca on the Hopper attention kernel, the other attention modes on the
-WMMA one), holds each against its plain PyTorch version on the card,
-checks each profiled forward's attention launches by kernel, and drives
+K2e, K4e and K2i8, and the context-parallel K8a and K8b; K1 and K3 on the
+wgmma matmul kernel, K2, K7, K6, K6c and K6ca on the Hopper attention
+kernel, the other attention modes on the WMMA one), holds each against its
+plain PyTorch version on the card, checks each profiled forward's matmul
+and attention launches by kernel, and drives
 the port's paths through Engine -> encode_batch (or encode_batch_packed)
 -> BatchingService -> TCP, checking each path's kernel launch counts:
 
 - bge-base q4_0: the bf16 encode path (K1 + K2), the int8 compute mode
-  (K3 + K2), the chained int8 path under each of the 8 link subsets with
+  (K3 + K2, the int8 weights requantized once when the Engine is built),
+  the chained int8 path under each of the 8 link subsets with
   int8 scores off and on (K3 with K3x / K3e, K2 with K2e / K2i8, packed
   K4e), and token-packed serving (K1 + K4 or K5);
 - a bge-base-shaped BERT with 2,048 positions on rows past the whole-row
@@ -301,9 +303,11 @@ def counters() -> dict:
     """The kernels' launch counters: name -> (wrapper, attribute). K6c
     and K6ca count apart from K6 on the same wrapper; the chained-int8
     modes on theirs: K3x (int8 x, no row quantization), K1e / K3e / K2e /
-    K4e by emission mode, K2i8; "quantize_act" counts the plain
-    quantization of an activation (the embedding output under the "ln"
-    link)."""
+    K4e by emission mode, K2i8; K3's own launches beside its product:
+    "K3_rows" its row quantization, "K3_requant" a weight's
+    requantization (none in a forward: the Engine keeps them);
+    "quantize_act" counts the plain quantization of an activation (the
+    embedding output under the "ln" link)."""
     from embeddings_tpu_torch.ops import attention as A, linear as Lin, \
         qmatmul as Q
     stream = A.fused_attention_stream
@@ -321,6 +325,8 @@ def counters() -> dict:
             "K1e_both": (Q.qmatmul, "both_launches"),
             "K1e_only": (Q.qmatmul, "only_launches"),
             "K3x": (Q.qmatmul_int8, "x8_launches"),
+            "K3_rows": (Q.quantize_rows_int8, "launches"),
+            "K3_requant": (Q.requantize_int8, "launches"),
             "K3e_both": (Q.qmatmul_int8, "both_launches"),
             "K3e_only": (Q.qmatmul_int8, "only_launches"),
             "K2e_both": (fa, "both_launches"),
@@ -334,11 +340,14 @@ def counters() -> dict:
 
 
 def reset_counts() -> None:
+    from embeddings_tpu_torch.ops import attention as A, qmatmul as Q
     set_counts(dict.fromkeys(counters(), 0))
     for f, _ in counters().values():
         if hasattr(f, "shapes"):
             f.shapes.clear()
             f.modes.clear()
+    Q.qmatmul_int8.routes.clear()
+    A.fused_attention_bias.routes.clear()
 
 
 def set_counts(counts: dict) -> None:
@@ -414,6 +423,10 @@ SOURCES = ("qmatmul", "attention", "attention_sm90")
 
 
 def phase_build():
+    """Build the three libraries; the wgmma ones hold wgmma and no
+    mma.sync: bf16 (HGMMA) in both, int8 (IGMMA, K3) in qmatmul's, and
+    neither HMMA (bf16 mma.sync / WMMA) nor IMMA (int8 mma.sync, the old
+    K3) in either."""
     from embeddings_tpu_torch.ops import _cuda
     t0 = time.perf_counter()
     seconds = _cuda.build(*SOURCES)  # one nvcc each, all together
@@ -421,16 +434,21 @@ def phase_build():
                                                    "attention_sm90")}
     for name, n in hgmma.items():
         check(n > 0, f"{name}'s library holds no HGMMA (wgmma) instruction")
-    check(hgmma_count("attention_sm90", "HMMA") == 0,
-          "attention_sm90's library holds WMMA (HMMA) instructions")
+    igmma = hgmma_count("qmatmul", "IGMMA")
+    check(igmma > 0, "qmatmul's library holds no IGMMA (int8 wgmma)")
+    for name in ("qmatmul", "attention_sm90"):
+        for op in ("HMMA", "IMMA"):
+            check(hgmma_count(name, op) == 0,
+                  f"{name}'s library holds mma.sync ({op}) instructions")
     emit("build", seconds=time.perf_counter() - t0, per_source=seconds,
-         hgmma_in_sass=hgmma)
+         hgmma_in_sass=hgmma, igmma_in_qmatmul=igmma)
 
 
 def hgmma_count(name: str, opcode: str = "HGMMA") -> int:
-    """HGMMA (wgmma) instructions, or those of another opcode (HMMA:
-    WMMA / mma.sync), in the built library ``name``'s SASS, as
-    ``cuobjdump --dump-sass`` lists them."""
+    """HGMMA (bf16 wgmma) instructions, or those of another opcode
+    (IGMMA: int8 wgmma; HMMA, IMMA: bf16 and int8 WMMA / mma.sync), in the
+    built library ``name``'s SASS, as ``cuobjdump --dump-sass`` lists
+    them."""
     from embeddings_tpu_torch.ops import _cuda
     cuobjdump = Path(_cuda._nvcc()).with_name("cuobjdump")
     sass = subprocess.run([str(cuobjdump), "--dump-sass",
@@ -532,7 +550,8 @@ TILE_EDGES = (0, 1, 63, 64, 65, 127, 128, 129)
 
 
 def fused_attention_routes() -> dict:
-    """K2's and K6's launches so far by kernel (``attention_kernel``)."""
+    """K2's and K6's launches so far by kernel (``attention_kernel``;
+    K7's: ``bias_routes``)."""
     from embeddings_tpu_torch.ops import attention as A
     return {"fused_attention": dict(A.fused_attention.routes),
             "fused_attention_stream": dict(A.fused_attention_stream.routes)}
@@ -571,38 +590,85 @@ def phase_k2():
          routes=fused_attention_routes(), **out)
 
 
+# K3's kinds and its tile edges: (M, K, N) with K not a multiple of its
+# 128-value chunk (96, 160; 192 packed), one partial N tile (136), M
+# ragged against both row tiles (40, 257), and LayerNorm clusters of 16
+# blocks (N = 2,048, 128-row tiles)
+K3_KINDS = (("q4_0", False), ("q4_0", True), ("q4_1", False), ("q4_1", True),
+            ("q8_0", False), ("nf4", False), ("nf4", True))
+K3_EDGES = ((40, 96, 136), (257, 160, 256), (40, 128, 2048))
+
+
 def phase_k3():
+    """K3 (K1's wgmma kernel on int8 operands): its int8 operands bit for
+    bit against the plain version's (the kept weight ``requantize_int8``
+    vs ``requantize_weight``, the rows ``quantize_rows_int8`` vs
+    ``quantize_rows``, every kind, packed and not); bge's four shapes at
+    full width through qmatmul(int8_compute=True) with the weight kept and
+    without it (a per-call requantization); every kind and epilogue at
+    the tile edges (K3_EDGES), with emission "no", "both" and "only"."""
     import torch
-    from embeddings_tpu_torch.ops.qmatmul import EPILOGUES, qmatmul, \
-        qmatmul_int8, qmatmul_int8_ref
+    from embeddings_tpu_torch.ops import qmatmul as Q
     rng = np.random.default_rng(4)
     dev = torch.device("cuda")
+    bits = {}
+    for kind, packed in K3_KINDS:
+        K = 192 if packed else 160
+        args, kw, qt = k1_inputs(rng, 257, K, 136, kind, packed, "bias", dev)
+        w8t, cs = Q.requantize_int8(qt.codes, qt.scales, qt.mins, kind=kind,
+                                    packed=packed)
+        w8, rcs = Q.requantize_weight(qt.codes, qt.scales, qt.mins, kind,
+                                      packed)
+        q8, sx = Q.quantize_rows_int8(args["x"])
+        rq8, rsx = Q.quantize_rows(args["x"])
+        torch.cuda.synchronize()
+        key = f"{kind}{'_packed' if packed else ''}"
+        bits[key] = {"w8": bool(torch.equal(w8t, w8.t())),
+                     "cs": bool(torch.equal(cs, rcs.reshape(-1))),
+                     "q": bool(torch.equal(q8, rq8)),
+                     "sx": bool(torch.equal(sx, rsx.reshape(-1)))}
+        check(all(bits[key].values()), f"K3 operands of {key} differ from "
+              f"the plain version's: {bits[key]}")
     main = {}
     for name, (K, N, epi) in K1_SHAPES.items():
-        args, kw, _ = k1_inputs(rng, M, K, N, "q4_0", True, epi, dev)
+        args, kw, qt = k1_inputs(rng, M, K, N, "q4_0", True, epi, dev)
+        kept = Q.keep_int8_weight(qt).int8
+        ref = Q.qmatmul_int8_ref(*args.values(), **kw)
         # through qmatmul(int8_compute=True), the route the engine takes
-        got = qmatmul(*args.values(), int8_compute=True, **kw)
-        ref = qmatmul_int8_ref(*args.values(), **kw)
+        got = Q.qmatmul(*args.values(), int8_compute=True, int8_weight=kept,
+                        **kw)
+        once = Q.qmatmul(*args.values(), int8_compute=True, **kw)
         torch.cuda.synchronize()
         main[name] = compare(got, ref, K3_RTOL, K3_ATOL_RMS)
-        check(main[name]["ok"], f"K3 {name} disagrees: {main[name]}")
+        main[name]["per_call_requant"] = compare(once, ref, K3_RTOL,
+                                                 K3_ATOL_RMS)
+        check(main[name]["ok"] and main[name]["per_call_requant"]["ok"],
+              f"K3 {name} disagrees: {main[name]}")
+        del got, once, ref
     small, worst = {}, 0.0
-    for kind, packed in (("q4_0", False), ("q4_0", True), ("q4_1", False),
-                         ("q4_1", True), ("q8_0", False), ("nf4", False),
-                         ("nf4", True)):
-        for epi in EPILOGUES:
-            # ragged M and N (128 + 8): K3 takes any N % 8 == 0
-            args, kw, _ = k1_inputs(rng, 40, 128, 136, kind, packed, epi, dev)
-            got = qmatmul_int8(*args.values(), **kw)
-            ref = qmatmul_int8_ref(*args.values(), **kw)
-            r = compare(got, ref, K3_RTOL, K3_ATOL_RMS)
-            key = f"{kind}{'_packed' if packed else ''}/{epi}"
-            small[key] = r
-            worst = max(worst, r["max_abs_err"])
-            check(r["ok"], f"K3 {key} disagrees: {r}")
+    for kind, packed in K3_KINDS:
+        for epi in Q.EPILOGUES:
+            for Mx, K, N in K3_EDGES:
+                K = K if not packed else -(-K // 64) * 64
+                for how in ("no", "both", "only"):
+                    args, kw, _ = k1_inputs(rng, Mx, K, N, kind, packed, epi,
+                                            dev)
+                    got = Q.qmatmul_int8(*args.values(), emit_quantized=how,
+                                         **kw)
+                    ref = Q.qmatmul_int8_ref(*args.values(),
+                                             emit_quantized=how, **kw)
+                    r = (compare(got, ref, K3_RTOL, K3_ATOL_RMS)
+                         if how == "no" else emit_compare(got, ref, how))
+                    key = (f"{kind}{'_packed' if packed else ''}/{epi}/"
+                           f"{Mx}x{K}x{N}/{how}")
+                    small[key] = r
+                    worst = max(worst, r["max_abs_err"])
+                    check(r["ok"], f"K3 {key} disagrees: {r}")
     emit("k3_parity", tolerance=f"|err| <= {K3_RTOL}*|ref| + "
-         f"{K3_ATOL_RMS}*rms(ref)", main=main, small_cases=len(small),
-         small_worst_max_abs_err=worst)
+         f"{K3_ATOL_RMS}*rms(ref); emission as K1e; int8 operands bit for "
+         f"bit", operands_bit_for_bit=bits, main=main,
+         small_cases=len(small), small_worst_max_abs_err=worst,
+         routes=dict(Q.qmatmul_int8.routes))
     RESULTS["k3_small"] = small
 
 
@@ -783,7 +849,8 @@ def _check_tcp(phase: str, eng, **extra) -> None:
 
 def phase_int8_path():
     """The int8 compute mode end to end: every quantized matmul through
-    K3, attention through K2."""
+    K3 (its rows quantized in a launch each, its weights kept from the
+    Engine's build: no requantization), attention through K2."""
     import torch
     from embeddings_tpu_torch.ops.qmatmul import qmatmul_int8
     eng8 = _bge_base_engine(int8_compute=True)
@@ -805,8 +872,9 @@ def phase_int8_path():
                                   * np.linalg.norm(bf16, axis=1))
     norms = np.linalg.norm(emb, axis=1)
     dup = (emb[:8] * emb[-8:]).sum(-1)
+    routes = dict(qmatmul_int8.routes)
     emit("int8_path", sentences=len(texts), forwards=n_forwards,
-         wall_s=wall, launches=counts,
+         wall_s=wall, launches=counts, k3_routes=routes,
          k3_per_forward=counts["K3"] / n_forwards,
          k2_per_forward=counts["K2"] / n_forwards,
          int8_vs_bf16_min_cos=float(cos.min()),
@@ -815,8 +883,11 @@ def phase_int8_path():
          identical_min_cos=float(dup.min()))
     check(np.isfinite(emb).all() and emb.shape == (len(texts), E),
           "int8 path output not finite / wrong shape")
-    check(counts == only(K2=12 * n_forwards, K3=48 * n_forwards),
+    check(counts == only(K2=12 * n_forwards, K3=48 * n_forwards,
+                         K3_rows=48 * n_forwards),
           f"int8 launches {counts} over {n_forwards} forwards")
+    check(sum(routes.values()) == 48 * n_forwards,
+          f"int8 K3 routes {routes} over {n_forwards} forwards")
     check(np.abs(norms - 1).max() < 1e-3, "int8: not unit norm")
     check(dup.min() >= 1 - 1e-6, "int8: identical sentences differ")
     check(cos.min() >= 0.99, f"int8 vs bf16 kernel path: {cos.min()}")
@@ -827,12 +898,13 @@ def phase_int8_path():
 def chain_want(links, scores: bool, n: int) -> dict:
     """The launches of n bge-base int8 forwards (NL layers) under a link
     subset: 4 K3 and one K2 a layer as unchained; K3x on qkv and up with
-    "ln", on o-proj with "attn", on down with "ffn"; K3e "both" on o-proj
-    and down with "ln", "only" on up with "ffn"; K2e "only" with "attn";
-    K2i8 with int8 scores; one quantize_act (the embedding output) with
-    "ln"."""
+    "ln", on o-proj with "attn", on down with "ffn", and a row
+    quantization on every other K3; K3e "both" on o-proj and down with
+    "ln", "only" on up with "ffn"; K2e "only" with "attn"; K2i8 with int8
+    scores; one quantize_act (the embedding output) with "ln"."""
     ln, attn, ffn = ("ln" in links), ("attn" in links), ("ffn" in links)
-    per = {"K3": 4 * NL, "K2": NL, "K3x": NL * (2 * ln + attn + ffn),
+    x8 = NL * (2 * ln + attn + ffn)
+    per = {"K3": 4 * NL, "K2": NL, "K3x": x8, "K3_rows": 4 * NL - x8,
            "K3e_both": 2 * NL * ln, "K3e_only": NL * ffn,
            "K2e_only": NL * attn, "K2i8": NL * scores,
            "quantize_act": int(ln)}
@@ -936,7 +1008,8 @@ def _packed_chain(eng8) -> dict:
         del eng8._forward_packed
     n = len(calls)
     cos = _row_cos(emb, base)
-    want = only(K3=4 * NL * n, K3x=NL * n, K4=NL * n, K4e_only=NL * n)
+    want = only(K3=4 * NL * n, K3x=NL * n, K3_rows=3 * NL * n, K4=NL * n,
+                K4e_only=NL * n)
     check(n >= 1 and counts == want, f"packed chain: launches {counts}, "
           f"expected {want}")
     check(np.isfinite(emb).all() and cos.min() >= 0.999,
@@ -1084,26 +1157,42 @@ def _slopes(dev):
 
 
 def phase_k6k7():
-    """K7 at the MPNet shape (table bias) and at jina's L=1024 (ALiBi
-    bias); K6 plain at L=2048, with in-kernel ALiBi at B=4, L=8192, and
-    plain at Qwen2's D=128, B=4, L=4096, and each K6 mode at L=384 with
-    lengths on the Hopper kernel's tile edges; each against its plain
-    version on the same inputs."""
+    """K7 (mode 3 of the Hopper kernel) at the MPNet shape (table bias)
+    and at jina's L=1024 (ALiBi bias), and at the Hopper tiles' edges:
+    L=200 (ragged, under two 128-row query blocks) and L=384, lengths
+    0, 1, 63, 64, 65, 127, 128, 129 and L, both biases, D = 32, 64 and
+    128, and one warpgroup's rows (L=48); K6 plain at L=2048, with
+    in-kernel ALiBi at B=4, L=8192, and plain at Qwen2's D=128, B=4,
+    L=4096, and each K6 mode at L=384 with lengths on the tile edges; each
+    against its plain version on the same inputs."""
     import torch
     from embeddings_tpu_torch.ops import attention as A
     rng = np.random.default_rng(7)
     dev = torch.device("cuda")
     out = {}
-    for name, family, (Bx, Lx) in (("K7_mpnet", "mpnet", MPNET_SHAPE),
-                                   ("K7_alibi", "jina", JINA_SHORT)):
-        qkv, lens = _attn_qkv(rng, Bx, Lx, dev)
+    k7_cases = [("K7_mpnet", "mpnet", MPNET_SHAPE, D, None),
+                ("K7_alibi", "jina", JINA_SHORT, D, None)]
+    for Lx in (200, 384, 48):
+        edges = [min(n, Lx) for n in TILE_EDGES] + [Lx]
+        for family in ("mpnet", "jina"):
+            for Dx in ((32, 64, 128) if Lx == 384 else (D,)):
+                k7_cases.append((f"K7_{family}_edges_L{Lx}_D{Dx}", family,
+                                 (len(edges), Lx), Dx, edges))
+    for name, family, (Bx, Lx), Dx, lengths in k7_cases:
+        qkv, lens = _attn_qkv(rng, Bx, Lx, dev, Ex=H * Dx)
+        if lengths is not None:
+            lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
         bias = A.prepare_attention_bias(_family_bias(family, Lx, dev), Lx)
-        kw = dict(B=Bx, L=Lx, H=H, D=D)
+        kw = dict(B=Bx, L=Lx, H=H, D=Dx)
         got = A.fused_attention_bias(qkv, lens, bias, **kw)
         ref = A.fused_attention_bias_ref(qkv, lens, bias, **kw)
         torch.cuda.synchronize()
         out[name] = dict(compare(got, ref, K2_RTOL, K2_ATOL_RMS),
-                         shape=[Bx, Lx, H, D])
+                         shape=[Bx, Lx, H, Dx])
+        zero = [b for b in range(Bx) if int(lens[b]) == 0]
+        out[name]["zero_rows_exact"] = all(
+            bool((got.reshape(Bx, Lx, -1)[b] == 0).all()) for b in zero)
+        check(out[name]["zero_rows_exact"], f"{name}: a len-0 row is not 0")
         del ref
     edges = [min(n, 384) for n in TILE_EDGES] + [384]
     for name, slopes, (Bx, Lx), (Hx, Dx), lengths in (
@@ -1129,7 +1218,8 @@ def phase_k6k7():
     for name, r in out.items():
         check(r["ok"], f"{name} disagrees: {r}")
     emit("k6k7_parity", tolerance=f"|err| <= {K2_RTOL}*|ref| + "
-         f"{K2_ATOL_RMS}*rms(ref)", routes=fused_attention_routes(), **out)
+         f"{K2_ATOL_RMS}*rms(ref)", routes=fused_attention_routes(),
+         k7_routes=bias_routes(), **out)
 
 
 def band_pairs(lengths, Lx: int, window: int) -> int:
@@ -1534,6 +1624,13 @@ def _family_engine(family: str, mesh=None, **ec):
                   device=None if mesh else torch.device("cuda"), mesh=mesh)
 
 
+def bias_routes() -> dict:
+    """K7's launches since the last reset_counts by kernel
+    (``attention_kernel``: "sm90")."""
+    from embeddings_tpu_torch.ops import attention as A
+    return dict(A.fused_attention_bias.routes)
+
+
 def _run_counted(eng, texts):
     """encode_batch with the launch counts of that run alone."""
     import torch
@@ -1588,6 +1685,7 @@ def phase_mpnet_path():
     texts = _sts_sentences(300)
     texts += texts[:8]  # identical sentences: cosine 1.0
     emb, counts, n, wall = _run_counted(eng, texts)
+    k7_routes = bias_routes()
     plain = _family_engine("mpnet", use_pallas="never",
                            compute_dtype="float32")
     cos = _row_cos(emb, plain.encode_batch(texts))
@@ -1604,13 +1702,15 @@ def phase_mpnet_path():
          init_quantize_s=STATE["mpnet_params"][2], sentences=len(texts),
          forwards=n, wall_s=wall, launches=counts,
          k1_per_forward=counts["K1"] / n, k7_per_forward=counts["K7"] / n,
-         launches_at_B128_L256=one, norm_min=float(norms.min()),
+         launches_at_B128_L256=one, k7_routes=k7_routes,
+         norm_min=float(norms.min()),
          norm_max=float(norms.max()), identical_min_cos=float(dup.min()),
          kernel_vs_plain_f32_min_cos=float(cos.min()))
     check(np.isfinite(emb).all() and emb.shape == (len(texts), E),
           "mpnet output not finite / wrong shape")
-    check(counts == only(K1=48 * n, K7=12 * n),
-          f"mpnet launches {counts} over {n} forwards")
+    check(counts == only(K1=48 * n, K7=12 * n)
+          and k7_routes == {"sm90": 12 * n},
+          f"mpnet launches {counts} (K7 {k7_routes}) over {n} forwards")
     check(one == only(K1=48, K7=12), f"mpnet at B=128 L=256: {one}")
     check(np.abs(norms - 1).max() < 1e-3, "mpnet: not unit norm")
     check(dup.min() >= 1 - 1e-6, "mpnet: identical sentences differ")
@@ -1642,14 +1742,18 @@ def phase_jina_path():
                                      ("short", short_texts, "K7",
                                       JINA_SHORT)):
         emb, counts, n, wall = _run_counted(eng, texts)
+        k7_routes = bias_routes()
         cos = _row_cos(emb[:1], plain.encode_batch(texts[:1]))
         out[name] = dict(batch=list(shape),
                          forwards=n, launches=counts, wall_s=wall,
+                         k7_routes=k7_routes,
                          kernel_vs_plain_f32_cos=float(cos.min()))
         check(np.isfinite(emb).all() and emb.shape == (len(texts), E),
               f"jina {name}: output not finite / wrong shape")
         check(n == 1 and counts == only(K1=60, **{attn: 12}),
               f"jina {name}: launches {counts} over {n} forwards")
+        check(attn != "K7" or k7_routes == {"sm90": 12},
+              f"jina {name}: K7 launches by kernel {k7_routes}")
         check(cos.min() >= 0.999, f"jina {name} vs plain f32: {cos.min()}")
         STATE[f"launches_{attn}_jina"] = counts[attn]
     out["trained_fixture"] = _trained_alibi()
@@ -2039,8 +2143,8 @@ def _first_positions_cos(engines, text: str) -> float:
 def phase_timing():
     import torch
     from embeddings_tpu_torch.ops import attention as A
-    from embeddings_tpu_torch.ops.qmatmul import qmatmul_int8, \
-        qmatmul_int8_ref, quantize_rows, requantize_weight
+    from embeddings_tpu_torch.ops.qmatmul import keep_int8_weight, \
+        qmatmul_int8, qmatmul_int8_ref, quantize_rows
     dev = torch.device("cuda")
     rng = np.random.default_rng(3)
     saved = read_counts()  # timing launches are not main-path launches
@@ -2051,16 +2155,18 @@ def phase_timing():
     # forward -> (call, the kernels one forward launches)
     bge = {0: NL}  # K2 on every layer
     runs = {"bf16": (lambda: eng._forward(ids, mask),
-                     launches_want(("qmm_wgmma_kernel",), 4 * NL, bge))}
+                     launches_want(4 * NL, bge))}
     if "engine8" in STATE:
+        # K3 on int8 operands, each matmul's rows quantized first; no
+        # requantization (the Engine keeps the int8 weights)
         runs["int8"] = (lambda: STATE["engine8"]._forward(ids, mask),
-                        launches_want(("qmm_int8_kernel", "requant_kernel",
-                                       "quant_rows_kernel"), 4 * NL, bge))
+                        launches_want(4 * NL, bge,
+                                      quant_rows_kernel=4 * NL))
     for name, mode in (("K4", 1), ("K5", 2)):
         if name in STATE:
             arrays, W = STATE[name][2], STATE[name][3]
             runs[name] = (lambda a=arrays, w=W: eng._forward_packed(*a, w),
-                          launches_want(("qmm_wgmma_kernel",), 4 * NL, {mode: NL}))
+                          launches_want(4 * NL, {mode: NL}))
     # the families' forwards: name -> (engine, shape, K1 launches a
     # forward, {attention mode: launches a forward}, head dim)
     mb_k1 = 5 * MB_NL
@@ -2099,8 +2205,7 @@ def phase_timing():
             fids = rng.integers(1000, 30000, shape).astype(np.int32)
             runs[name] = (lambda e=STATE[key], i=fids: e._forward(
                 i, np.ones_like(i)),
-                launches_want(("qmm_wgmma_kernel",), k1, attn, dh,
-                              shape[1]))
+                launches_want(k1, attn, dh, shape[1]))
     fwd = {k: cuda_ms(r[0], iters=5) for k, r in runs.items()}
     profiles = {k: device_profile(k, *r) for k, r in runs.items()}
     chain_fwd = {}
@@ -2134,13 +2239,17 @@ def phase_timing():
         for name, (K, N, epi) in K1_SHAPES.items():
             args, kw, qt = k1_inputs(rng, M, K, N, "q4_0", True, epi, dev)
             a = list(args.values())
+            kept = keep_int8_weight(qt).int8
             # the library yardstick: cuBLAS s8 x s8 -> s32 on operands
-            # quantized beforehand (no dequantization, rescale, epilogue)
+            # quantized beforehand (no rescale, no epilogue)
             q8, _ = quantize_rows(a[0])
-            w8, _ = requantize_weight(qt.codes, qt.scales, qt.mins, "q4_0",
-                                      True)
-            w8t = w8.t().contiguous()
-            bms, by = bound_ms(*k1_cost(M, K, N, epi), peak=PEAK_INT8_OPS)
+            w8t = kept[0]
+            bms, by = bound_ms(*k3_cost(M, K, N, epi), peak=PEAK_INT8_OPS)
+
+            def call():  # as the forward calls it: rows, then the product
+                return qmatmul_int8(*a, int8_weight=kept, **kw)
+            parts = profiled_ms(call, ("qmm_wgmma_kernel",
+                                       "quant_rows_kernel"))
             kernels.append({
                 "name": f"qmatmul_int8[{name} {K}x{N} {epi}]",
                 "route": "cuda",
@@ -2150,11 +2259,13 @@ def phase_timing():
                     (K, N, epi), 0),
                 "max_abs_err":
                     RESULTS["k3_parity"]["main"][name]["max_abs_err"],
-                "ms": cuda_ms(lambda: qmatmul_int8(*a, **kw)),
+                "ms": cuda_ms(call),
                 "plain_ms": cuda_ms(lambda: qmatmul_int8_ref(*a, **kw),
                                     iters=3),
                 "bound_ms": bms, "bound_by": by,
                 "library_ms": cuda_ms(lambda: torch._int_mm(q8, w8t.t())),
+                "kernel_ms": parts["qmm_wgmma_kernel"],
+                "rows_ms": parts["quant_rows_kernel"],
                 "shape": [M, K, N]})
     for name, fn, replaces in (
             ("K4", "fused_attention_segmented", K4_REPLACES),
@@ -2249,15 +2360,18 @@ def k2_row(rng, dev, shape, heads, launches: int, parity: str) -> dict:
         "shape": [Bx, Lx, Hx, Dx]}
 
 
-def launches_want(matmuls, per_forward: int, attn: dict,
-                  dh: int = D, Lx: int = L) -> dict:
+def launches_want(matmuls: int, attn: dict, dh: int = D, Lx: int = L,
+                  **others) -> dict:
     """The launches one forward makes, by the profiler's kernel names:
-    per_forward of each matmul kernel, and of each attention mode (no
-    emission, the fused layout) the count {mode: count} gives, on the
+    ``matmuls`` matmul launches in all (``device_profile`` names their
+    kernels from the routes the wrappers counted), of each attention mode
+    (no emission, the fused layout) the count {mode: count} gives, on the
     kernel its route names (``attention_kernel``):
     attn_sm90_kernel<dh, mode, warpgroups at row length Lx> or
     attn_kernel<dh, mode, 0>; a key that is a string names the kernel
-    itself (the CP layout's mode 4: attn_kernel<dh, 4, 0>)."""
+    itself (the CP layout's mode 4: attn_kernel<dh, 4, 0>); ``others``:
+    the counts of the other kernels by name (quant_rows_kernel,
+    emit_rows_kernel)."""
     from embeddings_tpu_torch.ops.attention import attention_kernel, \
         sm90_warpgroups
 
@@ -2268,8 +2382,19 @@ def launches_want(matmuls, per_forward: int, attn: dict,
             return f"attn_sm90_kernel<{dh}, {m}, {sm90_warpgroups(Lx)}>"
         return f"attn_kernel<{dh}, {m}, 0>"
 
-    return {**{k: per_forward for k in matmuls},
-            **{name(m): n for m, n in attn.items()}}
+    return {"matmuls": matmuls, **{name(m): n for m, n in attn.items()},
+            **others}
+
+
+def matmul_kernel(route: str, int8: bool) -> str:
+    """The kernel a K1 (q4_0 packed: every main path's weights) or K3
+    launch of tile route ``route`` (``k1_route`` / ``k3_route``) runs,
+    as the profile names it: qmm_wgmma_kernel<kind, packed, BM, LN>, K3
+    being kind 4 (S8) on int8 operands."""
+    bm = route.split("_")[0][2:]
+    ln = "true" if "cluster" in route else "false"
+    return f"qmm_wgmma_kernel<{'4, false' if int8 else '0, true'}, {bm}, " \
+        f"{ln}>"
 
 
 def chain_timing(ids, mask, rounds: int = 5):
@@ -2278,9 +2403,9 @@ def chain_timing(ids, mask, rounds: int = 5):
     events over 5 forwards, in ``rounds`` rounds that walk the settings
     in turn (every other round backwards), so slow drift of the card
     lands on all of them; the median of the rounds, and their range. Then
-    the device profile of the all-links forward: 48 K3 GEMMs and weight
-    requantizations, 12 emit_rows (FFN-up "only"), 12 K2e ("only"), no
-    row quantization."""
+    the device profile of the all-links forward: 48 K3, 12 emit_rows
+    (FFN-up "only"), 12 K2e ("only"), no row quantization and no weight
+    requantization."""
     from embeddings_tpu_torch.ops.attention import int8_scores_mode
     from embeddings_tpu_torch.ops.linear import chain_links
     e8 = STATE["engine8"]
@@ -2298,27 +2423,55 @@ def chain_timing(ids, mask, rounds: int = 5):
            {"median_ms": float(np.median(v)), "min_ms": min(v),
             "max_ms": max(v)}
            for (links, scores), v in samples.items()}
-    want = launches_want(("qmm_int8_kernel", "requant_kernel"), 4 * NL,
-                         {"emit_rows_kernel": NL,
-                          f"attn_kernel<{D}, 0, 2>": NL})
+    # every K3 reads int8 rows (no row quantization), FFN-up's "only"
+    # emission takes a second launch, the attention emits (K2e "only")
+    want = launches_want(4 * NL, {f"attn_kernel<{D}, 0, 2>": NL},
+                         emit_rows_kernel=NL)
     with chain_links(LINK_SUBSETS[-1]):
         prof = device_profile("int8_chain_all",
                               lambda: e8._forward(ids, mask), want)
-    check("quant_rows_kernel" not in prof["by_kernel"],
-          "all links: a K3 still quantized its rows")
     return out, prof
 
 
 def k3_cost(Mx, K, N, epilogue, emit="no", x8=False) -> tuple[float, float]:
-    """(ops, bytes) of one K3 call: as k1_cost, with an int8 x read at one
-    byte an element plus its f32 row scales, and an emission writing M*N
-    codes and M f32 scales (the bf16 output only with "both")."""
-    ops, nbytes = k1_cost(Mx, K, N, epilogue)
-    if x8:
-        nbytes += -Mx * K + 4 * Mx
+    """(ops, bytes) of one K3 call as the forward makes it: x read once
+    (bf16, or an int8 x at one byte an element plus its f32 row scales),
+    the kept int8 weight (K*N bytes) and its f32 column scales, the bias,
+    the output written once (bf16, and with emission M*N codes and M f32
+    scales; no bf16 output with "only"), with residual + LayerNorm the
+    residual and the LayerNorm parameters; 2*M*K*N int8 operations."""
+    nbytes = (Mx * K * (1 if x8 else 2) + (4 * Mx if x8 else 0) + K * N
+              + 4 * N + 4 * N + (0 if emit == "only" else Mx * N * 2))
+    if epilogue == "bias_residual_ln":
+        nbytes += Mx * N * 2 + 2 * N * 4
     if emit != "no":
-        nbytes += Mx * N + 4 * Mx - (Mx * N * 2 if emit == "only" else 0)
-    return ops, nbytes
+        nbytes += Mx * N + 4 * Mx
+    return 2.0 * Mx * K * N, float(nbytes)
+
+
+def profiled_ms(fn, parts, calls: int = 5) -> dict:
+    """Device ms per call of fn() spent in kernels whose names hold each
+    of ``parts`` (torch.profiler over ``calls`` calls after a warm-up,
+    with idle gaps at both edges as in ``device_profile``, or the tracer
+    drops kernels at the window's start)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(0.02)
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        time.sleep(0.02)
+    ms = dict.fromkeys(parts, 0.0)
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        for part in parts:
+            if part in e.name:
+                ms[part] += e.time_range.elapsed_us() / 1e3 / calls
+    return ms
 
 
 def chain_rows(rng, dev) -> list:
@@ -2327,14 +2480,18 @@ def chain_rows(rng, dev) -> list:
     its scores-off run in int8_chain_path counted: K3x + K3e on o-proj and
     down ("both") and up ("only"), K3x alone on qkv; K1e (bf16 compute, the
     emission where int8 does not engage: no launch on this path); K2e and
-    K4e ("only"); K2i8 at B=128, L=256 and B=16, L=1,024. Library
-    yardsticks: torch._int_mm on operands quantized beforehand (K3), a
-    bf16 matmul on the dequantized weight (K1e), SDPA with the boolean
-    mask, writing bf16 (K2e, K4e); none computes K2i8's int8 softmax."""
+    K4e ("only"); K2i8 at B=128, L=256 and B=16, L=1,024. The K3 rows
+    time the call as the forward makes it (the kept int8 weight, the int8
+    x as given: one launch, two with FFN-up's "only"), with the product
+    kernel's own profiled time beside it. Library yardsticks:
+    torch._int_mm on operands quantized beforehand (K3), a bf16 matmul
+    on the dequantized weight (K1e), SDPA with the boolean mask, writing
+    bf16 (K2e, K4e); none computes K2i8's int8 softmax."""
     import torch
     from embeddings_tpu_torch.ops import attention as A
-    from embeddings_tpu_torch.ops.qmatmul import dequantize_bf16, qmatmul, \
-        qmatmul_int8_ref, qmatmul_ref, quantize_rows, requantize_weight
+    from embeddings_tpu_torch.ops.qmatmul import dequantize_bf16, \
+        keep_int8_weight, qmatmul, qmatmul_int8_ref, qmatmul_ref, \
+        quantize_rows
     counts, modes = STATE.get("chain_all", ({}, {}))
     par = RESULTS["emit_parity"]
     out = []
@@ -2347,10 +2504,14 @@ def chain_rows(rng, dev) -> list:
         a = list(args.values())
         q8, sx = quantize_rows(a[0])
         x8 = [q8] + a[1:]
-        w8, _ = requantize_weight(qt.codes, qt.scales, qt.mins, "q4_0", True)
-        w8t = w8.t().contiguous()
+        kept = keep_int8_weight(qt).int8
+        w8t = kept[0]
         bms, by = bound_ms(*k3_cost(M, K, N, epi, how, True),
                            peak=PEAK_INT8_OPS)
+
+        def call():
+            return qmatmul(*x8, int8_compute=True, x_scale=sx.reshape(M),
+                           emit_quantized=how, int8_weight=kept, **kw)
         emit_key = f"{name}_{how}" if how != "no" else None
         err = (par[f"K3x_{name}"]["max_abs_err"] if emit_key is None
                else par[emit_key]["K3x_K3e"]["max_abs_err"])
@@ -2361,20 +2522,21 @@ def chain_rows(rng, dev) -> list:
             "replaces": EMIT_REPLACES if how != "no" else K3X_REPLACES,
             "launches": modes.get((K, N, epi, how, True), 0),
             "max_abs_err": err,
-            "ms": cuda_ms(lambda: qmatmul(
-                *x8, int8_compute=True, x_scale=sx.reshape(M),
-                emit_quantized=how, **kw)),
+            "ms": cuda_ms(call),
             "plain_ms": cuda_ms(lambda: qmatmul_int8_ref(
                 *x8, x_scale=sx, emit_quantized=how, **kw), iters=3),
             "bound_ms": bms, "bound_by": by,
             "library_ms": cuda_ms(lambda: torch._int_mm(q8, w8t.t())),
+            "kernel_ms": profiled_ms(call, ("qmm_wgmma_kernel",))[
+                "qmm_wgmma_kernel"],
             "shape": [M, K, N]})
     # K1e: FFN-up's "only" in bf16 compute
     K, N, epi, how = EMIT_SHAPES["ffn_up_only"]
     args, kw, qt = k1_inputs(rng, M, K, N, "q4_0", True, epi, dev)
     a = list(args.values())
     w_bf16 = dequantize_bf16(qt.codes, qt.scales, qt.mins, "q4_0", True)
-    bms, by = bound_ms(*k3_cost(M, K, N, epi, how))
+    ops, nbytes = k1_cost(M, K, N, epi)  # + the codes and scales, no out
+    bms, by = bound_ms(ops, nbytes + M * N + 4 * M - M * N * 2)
     out.append({
         "name": f"qmatmul[ffn_up {K}x{N} {epi}, emit {how}]", "route": "cuda",
         "source": "embeddings_tpu_torch/csrc/qmatmul.cu",
@@ -2520,10 +2682,15 @@ def device_profile(name: str, fn, want: dict) -> dict:
     activity). The idle share is the gaps between the forward's first
     kernel start and last kernel end (the profiler slows the host, so its
     wall time says nothing of idleness). Checks that the trace holds the
-    launches ``want`` names (``launches_want``), and no attention kernel
-    it does not name."""
+    launches ``want`` names (``launches_want``): its matmul kernels are
+    the ones the routes counted during the profiled calls name
+    (``matmul_kernel``), ``want["matmuls"]`` of them; and no matmul,
+    attention, requantization or row kernel it does not name."""
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
+    from embeddings_tpu_torch.ops import qmatmul as Q
+    Q.qmatmul.routes.clear()
+    Q.qmatmul_int8.routes.clear()
     # one warm-up step: without it the tracer can miss the first kernels.
     # The tracer keeps a kernel only if its device timestamp lies inside
     # the recorded step's window on the host clock, and the two clocks
@@ -2540,9 +2707,19 @@ def device_profile(name: str, fn, want: dict) -> dict:
             torch.cuda.synchronize()
             time.sleep(gap_s)
             prof.step()
-    kinds = ("qmm_int8_kernel", "requant_kernel", "quant_rows_kernel",
-             "emit_rows_kernel", "qmm_wgmma_kernel", "attn_i8_kernel",
-             "attn_sm90_kernel", "attn_kernel")
+    # the matmul kernels of one forward (two ran: the warm-up's, the step's)
+    want = dict(want)
+    n_mm = want.pop("matmuls")
+    for int8, routes in ((False, Q.qmatmul.routes),
+                         (True, Q.qmatmul_int8.routes)):
+        for route, n in routes.items():
+            k = matmul_kernel(route, int8)
+            want[k] = want.get(k, 0) + n // 2
+    check(sum(n for k, n in want.items() if k.startswith("qmm_")) == n_mm,
+          f"profile {name}: matmul routes {want}, want {n_mm} matmuls")
+    kinds = ("requant_kernel", "quant_rows_kernel", "emit_rows_kernel",
+             "qmm_wgmma_kernel", "attn_i8_kernel", "attn_sm90_kernel",
+             "attn_kernel")
     by_kind: dict = {}
     torch_ops: dict = {}  # the library's own kernels, by name
     spans = []
@@ -2551,7 +2728,7 @@ def device_profile(name: str, fn, want: dict) -> dict:
                 or e.name.startswith("ProfilerStep"):  # the step's range
             continue
         kind = next((k for k in kinds if k in e.name), "torch ops")
-        if kind.startswith("attn_"):  # attn_kernel<D, mode, emit>, ...
+        if kind.startswith(("attn_", "qmm_")):  # attn_kernel<D, mode, ...>
             kind += "<" + e.name.split(kind + "<")[-1].split(">")[0] + ">"
         ms = e.time_range.elapsed_us() / 1e3
         tally(by_kind, kind, ms)
@@ -2562,8 +2739,8 @@ def device_profile(name: str, fn, want: dict) -> dict:
     span = (max(b for _, b in spans) - min(a for a, _ in spans)) / 1e3 \
         if spans else 0.0
     seen = {k: v[1] for k, v in by_kind.items()}
-    # every attention kernel the forward launched is one it should have
-    stray = [k for k in seen if k.startswith("attn_") and k not in want]
+    # every kernel of the port the forward launched is one it should have
+    stray = [k for k in seen if k != "torch ops" and k not in want]
     check(busy > 0 and not stray
           and all(seen.get(k) == n for k, n in want.items()),
           f"profile {name}: launches {seen}, want {want}")
@@ -2703,7 +2880,7 @@ def bias_stream_rows(rng, dev) -> list:
         mask = None if bias is None else bias.to(torch.bfloat16)
         out.append({
             "name": f"{fn}[{what} B{Bx} L{Lx} H{H} D{D}]", "route": "cuda",
-            "source": ATTN_SOURCE if kname == "K7" else ATTN90_SOURCE,
+            "source": ATTN90_SOURCE,
             "replaces": K7_REPLACES if kname == "K7" else K6_REPLACES,
             "launches": STATE.get(launch_key, 0),
             "max_abs_err": RESULTS["k6k7_parity"][parity]["max_abs_err"],

@@ -1,11 +1,12 @@
 // Fused multi-head self-attention over the fused QKV projection, for
-// sm_90a: kernels K4, K5, K6w and K7 of the PyTorch port, K2's emission
-// and int8-scores modes (K2e, K2i8), K4's emission (K4e) and the
+// sm_90a: kernels K4, K5 and K6w of the PyTorch port, K2's emission and
+// int8-scores modes (K2e, K2i8), K4's emission (K4e) and the
 // context-parallel K8a and K8b, as mask modes of one WMMA kernel. K2
-// without emission or int8 scores, K6, K6c and K6ca (the fused-layout,
-// no-emission modes 0, 4, 5, 7 and 8) run on the Hopper kernel in
-// attention_sm90.cu (wgmma, a TMA ring); ops/attention.py:attention_kernel
-// routes, and this library refuses those modes.
+// without emission or int8 scores, K7, K6, K6c and K6ca (the
+// fused-layout, no-emission modes 0, 3, 4, 5, 7 and 8) run on the Hopper
+// kernel in attention_sm90.cu (wgmma, a TMA ring);
+// ops/attention.py:attention_kernel routes, and this library refuses
+// those modes.
 //
 // Replaces (embeddings_tpu/ops/attention.py, the Pallas TPU kernels):
 //   mode 0 with emission, K2e: _attn_kernel with _emit_int8_rows, behind
@@ -14,7 +15,6 @@
 //               fused_attention_segmented();
 //   mode 2, K5: _attn_kernel_seg_window, behind
 //               fused_attention_segmented_blockskip();
-//   mode 3, K7: _attn_kernel_bias, behind fused_attention_bias();
 //   mode 6, K6w: _attn_kernel_stream in its span + window (banded) mode,
 //               behind fused_attention_window() (ModernBERT's local
 //               layers);
@@ -42,8 +42,6 @@
 //   mode 2: mode 1, over key blocks kbs .. min(kbs + W - 1, kbe) of the
 //           query's 128-row block only (block_ranges); blocks past the cap
 //           W are dropped, every other key block is skipped unread;
-//   mode 3: s = clamp(d * s2 + bias[h, i, j], -100, hi) (bias f32 [H, L,
-//           L], log2-scaled), key j valid iff j < len[b];
 //   mode 4: s = clamp(d * s2, -100, hi), key j valid iff j < len[b];
 //   mode 6: s = clamp(d * s2, -100, hi), key j valid iff j < len[b] and
 //           |i - j| <= W (W = window // 2), over the 64-key tiles that
@@ -67,10 +65,9 @@
 // rounds separately are written __fmul_rn / __fadd_rn, so nvcc's FMA
 // contraction cannot change a score.
 //
-// What bounds it on the H100: at B=128, L=256, H=12, D=64 (modes 0, 3),
-// or 32,768 packed tokens (modes 1 and 2), the function moves ~201 MB
-// (qkv in, context out; mode 3 adds the 3.1 MB bias, which stays in the
-// 50 MB L2 across the batch) for ~26 GFLOP (mode 2 at L=1024, W=3: ~19
+// What bounds it on the H100: at B=128, L=256, H=12, D=64 (mode 0), or
+// 32,768 packed tokens (modes 1 and 2), the function moves ~201 MB (qkv
+// in, context out) for ~26 GFLOP (mode 2 at L=1024, W=3: ~19
 // GFLOP), so it is bound by device memory, not by the tensor cores. At
 // K6w's (mode 6) 32,768 tokens and window 128 the same 201 MB carries
 // ~13 GFLOP: bound by bytes; a 64-query block walks 3 key tiles (129
@@ -84,9 +81,7 @@
 // probabilities in shared memory and registers: one block per (64-query
 // tile, head, sequence), 4 warps of 16 query rows, 64-key tiles of K and
 // V (and their segment ids) staged in shared memory, both products on the
-// tensor cores (WMMA bf16, f32 accumulators). The bias of mode 3 is read
-// in place from device memory (L2), four scores to a 16-byte load. Not
-// yet used here: cp.async/TMA double buffering of the key tiles and
+// tensor cores (WMMA bf16, f32 accumulators). Not yet used here: cp.async/TMA double buffering of the key tiles and
 // wgmma (attention_sm90.cu has both), and skipping key tiles outside a
 // K4 row's segments.
 //
@@ -134,10 +129,9 @@ constexpr int SP = KT + 4;    // f32 score staging row stride
 constexpr int PP = KT + 8;    // bf16 probability row stride
 constexpr int BQ = 128;       // query/key block of mode 2 (block_ranges)
 
-// modes 5, 7 and 8, and mode 4 and mode 0 without emission in the fused
-// layout, are attention_sm90.cu's
-enum Mode { PREFIX = 0, SEGMENT = 1, WINDOW = 2, BIAS = 3, STREAM = 4,
-            BAND = 6 };
+// modes 3, 5, 7 and 8, and mode 4 and mode 0 without emission in the
+// fused layout, are attention_sm90.cu's
+enum Mode { PREFIX = 0, SEGMENT = 1, WINDOW = 2, STREAM = 4, BAND = 6 };
 constexpr float LOG2_127 = 6.9886846867721655f;
 constexpr int MAX_CLUSTER = 16;  // heads a cluster can hold (H100)
 constexpr float ABSENT = -3.0e38f;  // K2i8's score of a key past L
@@ -167,7 +161,7 @@ __device__ __forceinline__ float bf16r(float v) {
 
 // modes whose key mask is the prefix j < len[b]
 __host__ __device__ constexpr bool prefix_masked(int mode) {
-  return mode == PREFIX || mode >= BIAS;
+  return mode == PREFIX || mode >= STREAM;
 }
 
 template <int D>
@@ -238,8 +232,7 @@ __global__ void __launch_bounds__(THREADS) attn_kernel(
     const __nv_bfloat16* __restrict__ qsrc,
     const __nv_bfloat16* __restrict__ kv, const int* __restrict__ lengths,
     const int* __restrict__ seg, const int* __restrict__ kbs,
-    const int* __restrict__ kbe, const float* __restrict__ bias,
-    __nv_bfloat16* __restrict__ out,
+    const int* __restrict__ kbe, __nv_bfloat16* __restrict__ out,
     int8_t* __restrict__ o8, float* __restrict__ os, int L, int Lq, int H,
     int W, int ldq, int ldkv, float s2, float hi) {
   using Lay = Layout<D>;
@@ -311,10 +304,6 @@ __global__ void __launch_bounds__(THREADS) attn_kernel(
   const int qrow = q0 + warp * 16 + r;
   const int sq = (!prefix_masked(MODE) && qrow < L)
                      ? seg[(size_t)b * L + qrow] : -1;
-  // mode 3: this query's bias row (rows past L, never written, read row
-  // L - 1)
-  const float* brow =
-      MODE == BIAS ? bias + ((size_t)h * L + min(qrow, L - 1)) * L : nullptr;
   int k_begin = 0, k_end = L;
   if (prefix_masked(MODE)) {
     // key tiles wholly past len[b] would add exact zeros: stop before them
@@ -368,13 +357,6 @@ __global__ void __launch_bounds__(THREADS) attn_kernel(
     }
     __syncwarp();
     for (int c4 = c0; c4 < c0 + 32; c4 += 4) {
-      // mode 3: four bias values in one 16-byte load (L % 8 == 0 and
-      // k0 + c4 < len <= L keep it in the row and aligned)
-      float4 bv = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-      if constexpr (MODE == BIAS) {
-        if (k0 + c4 < len) bv = *reinterpret_cast<const float4*>(brow + k0 + c4);
-      }
-      const float bias4[4] = {bv.x, bv.y, bv.z, bv.w};
       for (int e = 0; e < 4; ++e) {
         const int c = c4 + e;
         const int kj = k0 + c;
@@ -382,9 +364,7 @@ __global__ void __launch_bounds__(THREADS) attn_kernel(
                                       : segk[c] == sq && segk[c] >= 0;
         if constexpr (MODE == BAND) ok = ok && abs(qrow - kj) <= W;
         float raw = fsc[r * SP + c];
-        if constexpr (MODE == BIAS) {
-          raw = __fadd_rn(__fmul_rn(raw, s2), bias4[e]);
-        } else if constexpr (MODE != PREFIX) {
+        if constexpr (MODE != PREFIX) {
           raw = raw * s2;
         }
         const float sc = fminf(fmaxf(raw, -100.0f), hi);
@@ -676,7 +656,7 @@ cudaError_t launch_cluster(Kern kern, dim3 grid, size_t smem, int H,
 template <int D, int MODE, int EMIT>
 cudaError_t launch(const void* qsrc, const void* kvsrc, const void* lengths,
                    const void* seg, const void* kbs, const void* kbe,
-                   const void* bias, void* out, void* o8, void* os, int B,
+                   void* out, void* o8, void* os, int B,
                    int L, int Lq, int H, int W, int ldq,
                    int ldkv, float s2, float hi, cudaStream_t stream) {
   const size_t smem = Layout<D>::smem;
@@ -691,15 +671,14 @@ cudaError_t launch(const void* qsrc, const void* kvsrc, const void* lengths,
   const auto* sg = static_cast<const int*>(seg);
   const auto* ks = static_cast<const int*>(kbs);
   const auto* ke = static_cast<const int*>(kbe);
-  const auto* bs = static_cast<const float*>(bias);
   auto* o = static_cast<__nv_bfloat16*>(out);
   auto* c8 = static_cast<int8_t*>(o8);
   auto* cs = static_cast<float*>(os);
   if (EMIT != EMIT_NO)
     return launch_cluster(kern, grid, smem, H, stream, q, kv, ln, sg, ks, ke,
-                          bs, o, c8, cs, L, Lq, H, W, ldq, ldkv, s2, hi);
-  kern<<<grid, THREADS, smem, stream>>>(q, kv, ln, sg, ks, ke, bs, o, c8,
-                                        cs, L, Lq, H, W, ldq, ldkv, s2, hi);
+                          o, c8, cs, L, Lq, H, W, ldq, ldkv, s2, hi);
+  kern<<<grid, THREADS, smem, stream>>>(q, kv, ln, sg, ks, ke, o, c8, cs, L,
+                                        Lq, H, W, ldq, ldkv, s2, hi);
   return cudaGetLastError();
 }
 
@@ -728,12 +707,12 @@ cudaError_t launch_i8(const void* qkv, const void* lengths, void* out,
 template <int D>
 cudaError_t launch_mode(int mode, int emit, int i8s, const void* q,
                         const void* kv, const void* lengths, const void* seg,
-                        const void* kbs, const void* kbe, const void* bias,
+                        const void* kbs, const void* kbe,
                         void* out, void* o8, void* os, int B, int L, int Lq,
                         int H, int W, int ldq, int ldkv, float s2, float hi,
                         cudaStream_t stream) {
-#define ATTN_ARGS q, kv, lengths, seg, kbs, kbe, bias, out, o8, os, B, L, \
-                  Lq, H, W, ldq, ldkv, s2, hi, stream
+#define ATTN_ARGS q, kv, lengths, seg, kbs, kbe, out, o8, os, B, L, Lq, H, \
+                  W, ldq, ldkv, s2, hi, stream
 #define I8_ARGS q, lengths, out, o8, os, B, L, H, s2, stream
   const bool fused = Lq == L && ldq == 3 * H * D && ldkv == ldq &&
                      kv == static_cast<const __nv_bfloat16*>(q) + H * D;
@@ -764,16 +743,13 @@ cudaError_t launch_mode(int mode, int emit, int i8s, const void* q,
     case WINDOW:
       if (L % BQ) return cudaErrorInvalidValue;
       return launch<D, WINDOW, EMIT_NO>(ATTN_ARGS);
-    case BIAS:
-      if (bias == nullptr) return cudaErrorInvalidValue;
-      return launch<D, BIAS, EMIT_NO>(ATTN_ARGS);
     case STREAM:  // the CP layout only (K8a, K8b)
       if (fused) return cudaErrorInvalidValue;
       return launch<D, STREAM, EMIT_NO>(ATTN_ARGS);
     case BAND:
       if (W < 0) return cudaErrorInvalidValue;
       return launch<D, BAND, EMIT_NO>(ATTN_ARGS);
-    default: return cudaErrorInvalidValue;  // 0, 5, 7, 8: attention_sm90.cu
+    default: return cudaErrorInvalidValue;  // 0, 3, 5, 7, 8: attention_sm90.cu
   }
 #undef I8_ARGS
 #undef ATTN_ARGS
@@ -785,28 +761,27 @@ extern "C" {
 
 // q, kv and out bf16 (device pointers): q rows [B*Lq] of stride ldq, kv
 // rows [B*L] of stride ldkv (k at column 0, v at H*D), out [B*Lq, H*D].
-// Modes 0 (with emission or i8s), 1, 2, 3 and 6 take the fused layout (q
-// = qkv [B*L, 3*H*D], kv = qkv + H*D, ldq = ldkv = 3*H*D, Lq = L); mode 4
+// Modes 0 (with emission or i8s), 1, 2 and 6 take the fused layout (q =
+// qkv [B*L, 3*H*D], kv = qkv + H*D, ldq = ldkv = 3*H*D, Lq = L); mode 4
 // takes only the CP layout (K8a, K8b: any Lq, ldq, ldkv; no emission);
 // the rest is attention_sm90.cu's. Strides are multiples of 8 and
-// pointers 16-byte aligned. Modes 0, 3, 4 and 6 read lengths [B] int32;
+// pointers 16-byte aligned. Modes 0, 4 and 6 read lengths [B] int32;
 // modes 1 and 2 read seg [B, L] int32 (-1 on pads); mode 2 also kbs, kbe
-// [B, L/128] int32 and the block cap W (L % 128 == 0); mode 3 reads bias
-// [H, L, L] f32 (log2-scaled); mode 6 takes the half window W = window //
-// 2. Unused pointers may be null. s2 =
+// [B, L/128] int32 and the block cap W (L % 128 == 0); mode 6 takes the
+// half window W = window // 2. Unused pointers may be null. s2 =
 // log2(e)/sqrt(D) as f32; hi = the score clamp bound. D must be 32, 64 or
 // 128. emit (modes 0 and 1, H <= 16): 1 also writes o8 [B*L, E] int8 and
 // os [B*L] f32, 2 writes only those (out may be null). i8s (mode 0): the
 // int8-scores kernel (K2i8). Returns a cudaError_t.
 int attn_launch(const void* q, const void* kv, const void* lengths,
                 const void* seg, const void* kbs, const void* kbe,
-                const void* bias, void* out, void* o8, void* os, int mode,
+                void* out, void* o8, void* os, int mode,
                 int emit, int i8s, int B, int L, int Lq,
                 int H, int D, int W, int ldq, int ldkv, float s2, float hi,
                 void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define ATTN_ARGS mode, emit, i8s, q, kv, lengths, seg, kbs, kbe, bias, out, \
-                  o8, os, B, L, Lq, H, W, ldq, ldkv, s2, hi, st
+#define ATTN_ARGS mode, emit, i8s, q, kv, lengths, seg, kbs, kbe, out, o8, \
+                  os, B, L, Lq, H, W, ldq, ldkv, s2, hi, st
   switch (D) {
     case 32: return launch_mode<32>(ATTN_ARGS);
     case 64: return launch_mode<64>(ATTN_ARGS);

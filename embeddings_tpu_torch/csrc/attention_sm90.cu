@@ -1,11 +1,14 @@
 // Fused multi-head self-attention over the fused QKV projection, for
 // sm_90a, on Hopper's own instructions (wgmma, TMA, mbarriers, warp
-// specialization): kernel K2 and kernel K6 with its causal modes K6c and
-// K6ca of the PyTorch port, as five mask modes of one kernel.
+// specialization): kernel K2, kernel K6 with its causal modes K6c and
+// K6ca, and kernel K7 of the PyTorch port, as six mask modes of one
+// kernel.
 //
 // Replaces (embeddings_tpu/ops/attention.py, the Pallas TPU kernels):
 //   mode 0, K2: _attn_kernel (its bf16 branch, no emission), behind
 //               fused_attention();
+//   mode 3, K7: _attn_kernel_bias, behind fused_attention_bias() (MPNet's
+//               relative-position bias, jina's ALiBi on short rows);
 //   modes 4, 5, K6: _attn_kernel_stream in its plain and ALiBi modes,
 //               behind fused_attention_stream();
 //   mode 7, K6c: _attn_kernel_stream in its causal mode, behind
@@ -13,7 +16,7 @@
 //   mode 8, K6ca: _attn_kernel_stream with causal and ALiBi together,
 //               behind fused_attention_stream(causal=True, alibi_slopes=).
 // The other modes of those TPU kernels (K2's emission K2e and int8 scores
-// K2i8, the CP layout of mode 4: K8a, K8b) and K4, K5, K6w and K7 stay on
+// K2i8, the CP layout of mode 4: K8a, K8b) and K4, K5 and K6w stay on
 // attention.cu's WMMA kernel; ops/attention.py:attention_kernel routes.
 //
 // For each sequence b, head h and query i, reading q, k and v as column
@@ -21,6 +24,8 @@
 // h*D), with d = q . k_j accumulated in f32:
 //   mode 0: s = clamp(bf16(q * s2) . k_j, -100, hi) (q pre-scaled and
 //           rounded, the TPU's K2 rounding);
+//   mode 3: s = clamp(d * s2 + bias[h, i, j], -100, hi) (bias f32 [H, L,
+//           L], log2-scaled; the clamp after the add);
 //   mode 4: s = clamp(d * s2, -100, hi);
 //   mode 5: s = clamp(d * s2 - slope[h] * (f32(|i - j|) * log2(e)), -100,
 //           hi) (jina-bert-v2's ALiBi from positions);
@@ -48,7 +53,10 @@
 // SFUs (16 a clock per SM), close to the products' 0.83 ms: the score
 // pass has to run beside the products, not after them. K2 at bge's B=128,
 // L=256, D=64 moves the same ~201 MB for ~26 GFLOP: bound by bytes
-// (0.06 ms).
+// (0.06 ms). K7 at jina's B=32, L=1,024 does ~103 GFLOP and 403 M exp2
+// (both ~0.10 ms) on ~201 MB of qkv and context plus the 50.3 MB bias
+// (0.075 ms of bytes): every batch row reads the whole bias again, which
+// is about the size of L2.
 //
 // The design:
 // - one block per (128 query rows, head, sequence): a producer
@@ -96,6 +104,18 @@
 //   from per-kernel bases;
 // - causal blocks are issued longest first (the query-block index runs
 //   backwards), so the short blocks fill the tail;
+// - mode 3's bias comes by TMA too, as a third ring (64-row x 32-key f32
+//   boxes, 128-byte swizzled: 64 KB a 128 x 128 tile, two stages at D <=
+//   64 beside a two-stage K/V ring, one at D=128), each thread reading
+//   its pairs of bias values from shared memory in the score pass. A bias
+//   larger than half of L2 runs its blocks with the sequence index
+//   fastest (grid (B, q-blocks, H)), so the B blocks that read one
+//   (query block, head) tile of it run together and it comes from HBM
+//   about once, not once a sequence (jina's 50.3 MB at L=1,024); a
+//   smaller one stays in L2 across the batch, and the query block
+//   fastest keeps each sequence's K/V tiles in L2 across its query
+//   blocks instead (MPNet's 3.1 MB at L=256; both orders timed with
+//   tools/attention_ab.py);
 // - the epilogue scales the f32 output rows by 1 / max(sum, 1e-30) and
 //   stores bf16 pairs straight from registers, guarded by L.
 
@@ -108,7 +128,8 @@
 
 namespace {
 
-enum Mode { PREFIX = 0, STREAM = 4, ALIBI = 5, CAUSAL = 7, CAUSAL_ALIBI = 8 };
+enum Mode { PREFIX = 0, BIAS = 3, STREAM = 4, ALIBI = 5, CAUSAL = 7,
+            CAUSAL_ALIBI = 8 };
 
 __host__ __device__ constexpr bool causal_mode(int mode) {
   return mode == CAUSAL || mode == CAUSAL_ALIBI;
@@ -125,17 +146,25 @@ constexpr int CONSUMER_REGS = 240;
 constexpr int BAR_SCHED = 1;  // named barriers 1, 2: the warpgroups' turns
 constexpr int BAR_WG = 3;     // 3, 4: one warpgroup's threads
 constexpr float LOG2E_F = 1.4426950408889634f;
+// mode 3's block order: a bias of more bytes than this (half of the
+// H100's 50 MB L2) runs the sequence index fastest, so the blocks that
+// share a (query block, head) tile of it run together; a smaller one the
+// query block fastest, as the other modes
+constexpr size_t BIAS_L2_BYTES = 25u << 20;
+constexpr int BIAS_COLS = 32;  // keys per bias box (128 bytes of f32)
 
-// Per head dim: a tile row is NH blocks of CW columns (RB bytes, the
-// swizzle width: 128 bytes at D >= 64, 64 at D=32), each block a TMA box
-// column; wgmma's layout type for that swizzle; the ring's depth.
-template <int D>
+// Per head dim and mode: a tile row is NH blocks of CW columns (RB
+// bytes, the swizzle width: 128 bytes at D >= 64, 64 at D=32), each block
+// a TMA box column; wgmma's layout type for that swizzle; the K/V ring's
+// depth and mode 3's bias ring's (shared memory: the bias tile is 64 KB).
+template <int D, int MODE>
 struct Cfg {
   static constexpr int CW = D < 64 ? D : 64;
   static constexpr int RB = CW * 2;
   static constexpr int NH = D / CW;
   static constexpr uint32_t LAYOUT = RB == 128 ? 1 : 2;
-  static constexpr int STAGES = D == 128 ? 2 : 3;
+  static constexpr int STAGES = D == 128 || (MODE == BIAS && D == 64) ? 2 : 3;
+  static constexpr int BSTAGES = MODE != BIAS ? 0 : D == 128 ? 1 : 2;
   static constexpr uint32_t TILE_BYTES = KT * D * 2;  // one K or V tile
 };
 
@@ -151,22 +180,30 @@ __host__ __device__ constexpr bool ones_sum(int D, int mode) {
 
 // Shared memory from a 1024-byte aligned base: the Q tile (NC x 64 rows),
 // the K ring, the V ring, 1 KB of bf16 ones (the row sums' B operand),
-// then the mbarriers: q full, K full[STAGES], V full, K empty, V empty. A tile of R rows holds column block c at c * R *
-// RB and row r of it at r * RB (swizzled within 8-row groups).
-template <int D, int NC>
+// mode 3's bias ring, then the mbarriers: q full, K full[STAGES], V
+// full, K empty, V empty, bias full[BSTAGES], bias empty. A tile of R
+// rows holds column block c at c * R * RB and row r of it at r * RB
+// (swizzled within 8-row groups); a bias tile holds warpgroup w's 64
+// rows at w * 32 KB, key block c (32 keys) of them at c * 8 KB, row r at
+// r * 128 (its 16-byte chunks swizzled within 8-row groups).
+template <int D, int NC, int MODE>
 struct Smem {
+  using C = Cfg<D, MODE>;
   static constexpr int QB = NC * WG_ROWS;
   static constexpr uint32_t q_bytes = QB * D * 2;
   static constexpr uint32_t k_off = q_bytes;
-  static constexpr uint32_t v_off = k_off + Cfg<D>::STAGES * Cfg<D>::TILE_BYTES;
-  static constexpr uint32_t ones_off =
-      v_off + Cfg<D>::STAGES * Cfg<D>::TILE_BYTES;
-  static constexpr uint32_t bar_off = ones_off + 1024;
+  static constexpr uint32_t v_off = k_off + C::STAGES * C::TILE_BYTES;
+  static constexpr uint32_t ones_off = v_off + C::STAGES * C::TILE_BYTES;
+  static constexpr uint32_t b_off = ones_off + 1024;
+  static constexpr uint32_t b_tile_bytes = QB * KT * 4;
+  static constexpr uint32_t bar_off = b_off + C::BSTAGES * b_tile_bytes;
   static constexpr size_t bytes =
-      1024 + bar_off + (1 + 4 * Cfg<D>::STAGES) * 8;
+      1024 + bar_off + (1 + 4 * C::STAGES + 2 * C::BSTAGES) * 8;
 };
-static_assert(Smem<128, 2>::bytes <= 232448, "D=128 block");
-static_assert(Smem<64, 2>::bytes <= 232448, "D=64 block");
+static_assert(Smem<128, 2, STREAM>::bytes <= 232448, "D=128 block");
+static_assert(Smem<64, 2, STREAM>::bytes <= 232448, "D=64 block");
+static_assert(Smem<128, 2, BIAS>::bytes <= 232448, "D=128 bias block");
+static_assert(Smem<64, 2, BIAS>::bytes <= 232448, "D=64 bias block");
 
 struct Args {
   const int* lengths;   // [B] int32
@@ -174,6 +211,7 @@ struct Args {
   __nv_bfloat16* out;   // [B*L, E]
   int L, H;
   float s2, hi;
+  int batch_fastest;    // mode 3: grid (B, q-blocks, H)
 };
 
 __device__ __forceinline__ uint32_t pack2(float a, float b) {
@@ -189,25 +227,48 @@ __device__ __forceinline__ float hi_bf16(uint32_t w) {
   return __uint_as_float(w & 0xFFFF0000u);
 }
 
+// two f32 from shared memory (8-byte aligned)
+__device__ __forceinline__ float2 ld_shared_f2(uint32_t addr) {
+  float2 v;
+  asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];\n"
+               : "=f"(v.x), "=f"(v.y) : "r"(addr) : "memory");
+  return v;
+}
+
 // One tile's score pass for this thread's two query rows (r0 and r0 + 8)
 // and 64 keys, in place: s[4j + e] is row e < 2 ? r0 : r0 + 8, key k0 + 2
 // * quad + 8j + (e & 1). fq[r]: f32(row - k0 - 2 * quad) (ALiBi's
 // distance, exact in f32); lim[r]: the row's valid keys end, minus k0 + 2
-// * quad. Leaves the probabilities in s: with ONES_SUM as they are (the
-// A-fragment conversion rounds them and the tensor cores sum them), else
-// rounded to bf16, and adds them to the row sums.
+// * quad. Mode 3: bq, the shared address of row r0's bias pair in key
+// block 0 of the tile's bias stage (row r0 + 8's is 1 KB on), boff[m] the
+// swizzled chunk offset of keys 8m.. within a 32-key block. Leaves the
+// probabilities in s: with ONES_SUM as they are (the A-fragment
+// conversion rounds them and the tensor cores sum them), else rounded to
+// bf16, and adds them to the row sums.
 template <int MODE, bool MASKED, bool ONES_SUM>
 __device__ __forceinline__ void score_pass(float* s, float* sum, float s2,
                                            float hi, float slope,
-                                           const float* fq, const int* lim) {
+                                           const float* fq, const int* lim,
+                                           uint32_t bq, const uint32_t* boff) {
 #pragma unroll
   for (int j = 0; j < KT / 8; ++j) {
     float v[4];
+    float bias[4];
+    if constexpr (MODE == BIAS) {
+      const uint32_t at = bq + (j / 4) * (BIAS_COLS * 64 * 4) + boff[j % 4];
+      const float2 b0 = ld_shared_f2(at), b1 = ld_shared_f2(at + 8 * 128);
+      bias[0] = b0.x;
+      bias[1] = b0.y;
+      bias[2] = b1.x;
+      bias[3] = b1.y;
+    }
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int c = 8 * j + (e & 1);
       float raw = s[4 * j + e];
-      if constexpr (alibi_mode(MODE)) {
+      if constexpr (MODE == BIAS) {
+        raw = __fadd_rn(__fmul_rn(raw, s2), bias[e]);
+      } else if constexpr (alibi_mode(MODE)) {
         const float dist =
             __fmul_rn(fabsf(__fsub_rn(fq[e >> 1], (float)c)), LOG2E_F);
         raw = __fsub_rn(__fmul_rn(raw, s2), __fmul_rn(slope, dist));
@@ -249,7 +310,7 @@ template <int D, bool ONES_SUM>
 __device__ __forceinline__ void pv_product(float* o, float* rs,
                                            const uint32_t* p, uint64_t dv,
                                            uint64_t d1) {
-  using C = Cfg<D>;
+  using C = Cfg<D, PREFIX>;  // (the row width does not depend on the mode)
 #pragma unroll
   for (int kk = 0; kk < KT / 16; ++kk) {
     const uint64_t db = dv + ((kk * 16 * C::RB) >> 4);
@@ -263,15 +324,19 @@ __device__ __forceinline__ void pv_product(float* o, float* rs,
   }
 }
 
+// bmap: mode 3's bias [H, L, L] (unused by the other modes)
 template <int D, int MODE, int NC>
 __global__ void __launch_bounds__(128 * (NC + 1), 1) attn_sm90_kernel(
-    const __grid_constant__ CUtensorMap map, const Args a) {
-  using C = Cfg<D>;
-  using S = Smem<D, NC>;
+    const __grid_constant__ CUtensorMap map,
+    const __grid_constant__ CUtensorMap bmap, const Args a) {
+  using C = Cfg<D, MODE>;
+  using S = Smem<D, NC, MODE>;
   constexpr int QB = S::QB;
   constexpr int STAGES = C::STAGES;
+  constexpr int BS = C::BSTAGES > 0 ? C::BSTAGES : 1;  // mode 3's bias ring
   constexpr int RB = C::RB;
   constexpr bool ONES = ones_sum(D, MODE);
+  const bool batch_fastest = MODE == BIAS && a.batch_fastest;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw_base = smem_u32(smem_raw);
   const uint32_t base = (raw_base + 1023) & ~1023u;
@@ -283,17 +348,23 @@ __global__ void __launch_bounds__(128 * (NC + 1), 1) attn_sm90_kernel(
   auto v_full = [&](int s) { return bars + 8 * (1 + STAGES + s); };
   auto k_empty = [&](int s) { return bars + 8 * (1 + 2 * STAGES + s); };
   auto v_empty = [&](int s) { return bars + 8 * (1 + 3 * STAGES + s); };
+  auto b_full = [&](int s) { return bars + 8 * (1 + 4 * STAGES + s); };
+  auto b_empty = [&](int s) { return bars + 8 * (1 + 4 * STAGES + BS + s); };
 
   const int tid = threadIdx.x;
   // the warpgroup, and below the row length, broadcast from lane 0: values
   // the compiler can see are warp-uniform, so the branches on them are no
   // divergent paths, which would make it serialize the wgmma instructions
   const int role = __shfl_sync(0xffffffffu, tid / 128, 0);
-  // causal blocks run longest first: the last query block first
-  const int qb = causal_mode(MODE) ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
+  // causal blocks run longest first: the last query block first; mode 3
+  // with a large bias runs the sequences of one (query block, head)
+  // together
+  const int qb = batch_fastest ? blockIdx.y
+                 : causal_mode(MODE) ? gridDim.x - 1 - blockIdx.x
+                                     : blockIdx.x;
   const int q0 = qb * QB;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
+  const int h = batch_fastest ? blockIdx.z : blockIdx.y;
+  const int b = batch_fastest ? blockIdx.x : blockIdx.z;
   const int L = a.L;
   const int E = a.H * D;
   const int len = __shfl_sync(0xffffffffu, min(max(a.lengths[b], 0), L), 0);
@@ -315,6 +386,10 @@ __global__ void __launch_bounds__(128 * (NC + 1), 1) attn_sm90_kernel(
       mbar_init(v_full(s), 1);
       mbar_init(k_empty(s), 4 * NC);  // one lane per consumer warp
       mbar_init(v_empty(s), 4 * NC);
+    }
+    for (int s = 0; s < C::BSTAGES; ++s) {
+      mbar_init(b_full(s), 1);
+      mbar_init(b_empty(s), 4 * NC);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
@@ -351,6 +426,25 @@ __global__ void __launch_bounds__(128 * (NC + 1), 1) attn_sm90_kernel(
             tma_load_3d(tile + (c * KT + rc * BOX_ROWS) * RB, &map,
                         (1 + kv) * E + h * D + c * C::CW, k0 + rc * BOX_ROWS,
                         b, full);
+        if constexpr (MODE == BIAS) {
+          if (kv == 0) {
+            // the tile's bias, needed with its K (V only a tile later):
+            // each warpgroup's 64 rows x 128 keys, in boxes of 32 keys
+            // (rows and keys past L read as zeros)
+            const int bs = t % BS;
+            mbar_wait(b_empty(bs), ((t / BS) & 1) ^ 1);
+            mbar_expect_tx(b_full(bs), S::b_tile_bytes);
+            const uint32_t bt = base + S::b_off + bs * S::b_tile_bytes;
+#pragma unroll
+            for (int w = 0; w < NC; ++w)
+#pragma unroll
+              for (int c = 0; c < KT / BIAS_COLS; ++c)
+                tma_load_3d(
+                    bt + (w * (KT / BIAS_COLS) + c) * (BIAS_COLS * 64 * 4),
+                    &bmap, k0 + c * BIAS_COLS, q0 + w * WG_ROWS, h,
+                    b_full(bs));
+          }
+        }
       }
     }
     return;
@@ -364,8 +458,16 @@ __global__ void __launch_bounds__(128 * (NC + 1), 1) attn_sm90_kernel(
   const int lane = tid % 32;
   const int quad = lane & 3;
   const int qw0 = q0 + wg * WG_ROWS;
-  const int row0 = qw0 + ((tid % 128) / 32) * 16 + (lane >> 2);
+  const int rw = ((tid % 128) / 32) * 16 + (lane >> 2);  // row in the wg
+  const int row0 = qw0 + rw;
   const float slope = alibi_mode(MODE) ? a.slopes[h] : 0.0f;
+  // mode 3: this thread's bias pairs in a bias stage (see score_pass)
+  const uint32_t bq = base + S::b_off + wg * (WG_ROWS * KT * 4) + rw * 128 +
+                      8 * (quad & 1);
+  uint32_t boff[4];
+#pragma unroll
+  for (int m = 0; m < 4; ++m)
+    boff[m] = ((2 * m + (quad >> 1)) ^ (rw & 7)) << 4;
 
   mbar_wait(q_full, 0);
   if constexpr (MODE == PREFIX) {
@@ -431,12 +533,22 @@ __global__ void __launch_bounds__(128 * (NC + 1), 1) attn_sm90_kernel(
       lim[0] = min(len, row0 + 1) - kq;
       lim[1] = min(len, row0 + 9) - kq;
     }
+    const uint32_t bt = bq + (t % BS) * S::b_tile_bytes;
     if (k0 + KT > len || (causal_mode(MODE) && k0 + KT - 1 > qw0))
-      score_pass<MODE, true, ONES>(s, sum, a.s2, a.hi, slope, fq,
-                                          lim);
+      score_pass<MODE, true, ONES>(s, sum, a.s2, a.hi, slope, fq, lim, bt,
+                                   boff);
     else
-      score_pass<MODE, false, ONES>(s, sum, a.s2, a.hi, slope, fq,
-                                           lim);
+      score_pass<MODE, false, ONES>(s, sum, a.s2, a.hi, slope, fq, lim, bt,
+                                    boff);
+    if constexpr (MODE == BIAS) {
+      // every lane's bias reads are done: the stage goes back
+      __syncwarp();
+      if (lane == 0) mbar_arrive(b_empty(t % BS));
+    }
+  };
+  // mode 3: tile t's bias has landed
+  auto wait_bias = [&](int t) {
+    if constexpr (MODE == BIAS) mbar_wait(b_full(t % BS), (t / BS) & 1);
   };
   // the warpgroups take turns issuing their products (warpgroup 0 first):
   // each takes nt + 1 turns, and passes each but warpgroup 1's last
@@ -452,6 +564,7 @@ __global__ void __launch_bounds__(128 * (NC + 1), 1) attn_sm90_kernel(
       if (wg == 1) named_bar_arrive(BAR_SCHED, 256);
     // tile 0: its scores alone
     mbar_wait(k_full(0), 0);
+    wait_bias(0);
     take_turn();
     fence_regs<KT / 2>(s);
     wgmma_fence();
@@ -470,6 +583,7 @@ __global__ void __launch_bounds__(128 * (NC + 1), 1) attn_sm90_kernel(
       const int sp = (t - 1) % STAGES;
       mbar_wait(k_full(sc), (t / STAGES) & 1);
       mbar_wait(v_full(sp), ((t - 1) / STAGES) & 1);
+      wait_bias(t);
       take_turn();
       fence_regs<KT / 2>(s);
       fence_regs<D / 2>(o);
@@ -550,35 +664,64 @@ cudaError_t qkv_map(CUtensorMap* map, const void* qkv, int B, int L, int E3,
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
+// mode 3's bias [H, L, L] f32 as boxes of 32 keys x 64 rows x 1 head,
+// 128-byte swizzled (rows and keys past L read as zeros)
+cudaError_t bias_map(CUtensorMap* map, const void* bias, int L, int H) {
+  EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {(cuuint64_t)L, (cuuint64_t)L, (cuuint64_t)H};
+  const cuuint64_t strides[2] = {(cuuint64_t)L * 4,
+                                 (cuuint64_t)L * 4 * (cuuint64_t)L};
+  const cuuint32_t box[3] = {BIAS_COLS, (cuuint32_t)WG_ROWS, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<void*>(bias), dims,
+      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
 template <int D, int MODE, int NC>
-cudaError_t launch(const void* qkv, const Args& a, int B,
+cudaError_t launch(const void* qkv, const void* bias, const Args& a, int B,
                    cudaStream_t stream) {
-  CUtensorMap map;
-  cudaError_t err = qkv_map(&map, qkv, B, a.L, 3 * a.H * D, Cfg<D>::CW);
+  using S = Smem<D, NC, MODE>;
+  CUtensorMap map, bmap;
+  cudaError_t err = qkv_map(&map, qkv, B, a.L, 3 * a.H * D, Cfg<D, MODE>::CW);
+  if (err != cudaSuccess) return err;
+  // (the other modes read no bias: the qkv map stands in for it)
+  err = MODE == BIAS ? bias_map(&bmap, bias, a.L, a.H)
+                     : qkv_map(&bmap, qkv, B, a.L, 3 * a.H * D,
+                               Cfg<D, MODE>::CW);
   if (err != cudaSuccess) return err;
   auto kern = attn_sm90_kernel<D, MODE, NC>;
-  const size_t smem = Smem<D, NC>::bytes;
   err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
+                             (int)S::bytes);
   if (err != cudaSuccess) return err;
-  const dim3 grid((a.L + Smem<D, NC>::QB - 1) / Smem<D, NC>::QB, a.H, B);
-  kern<<<grid, 128 * (NC + 1), smem, stream>>>(map, a);
+  const int nqb = (a.L + S::QB - 1) / S::QB;
+  const dim3 grid = MODE == BIAS && a.batch_fastest ? dim3(B, nqb, a.H)
+                                                    : dim3(nqb, a.H, B);
+  kern<<<grid, 128 * (NC + 1), S::bytes, stream>>>(map, bmap, a);
   return cudaGetLastError();
 }
 
 template <int D>
-cudaError_t launch_mode(int mode, const void* qkv, const Args& a, int B,
-                        cudaStream_t stream) {
-  // one consumer warpgroup where a row fits in 64 queries (K2's short
-  // rows); the streamed modes take L % 128 == 0
+cudaError_t launch_mode(int mode, const void* qkv, const void* bias,
+                        const Args& a, int B, cudaStream_t stream) {
+  // one consumer warpgroup where a row fits in 64 queries (K2's and K7's
+  // short rows); the streamed modes take L % 128 == 0
   if (mode == PREFIX)
-    return a.L <= WG_ROWS ? launch<D, PREFIX, 1>(qkv, a, B, stream)
-                          : launch<D, PREFIX, 2>(qkv, a, B, stream);
+    return a.L <= WG_ROWS ? launch<D, PREFIX, 1>(qkv, bias, a, B, stream)
+                          : launch<D, PREFIX, 2>(qkv, bias, a, B, stream);
+  if (mode == BIAS)
+    return a.L <= WG_ROWS ? launch<D, BIAS, 1>(qkv, bias, a, B, stream)
+                          : launch<D, BIAS, 2>(qkv, bias, a, B, stream);
   switch (mode) {
-    case STREAM: return launch<D, STREAM, 2>(qkv, a, B, stream);
-    case ALIBI: return launch<D, ALIBI, 2>(qkv, a, B, stream);
-    case CAUSAL: return launch<D, CAUSAL, 2>(qkv, a, B, stream);
-    case CAUSAL_ALIBI: return launch<D, CAUSAL_ALIBI, 2>(qkv, a, B, stream);
+    case STREAM: return launch<D, STREAM, 2>(qkv, bias, a, B, stream);
+    case ALIBI: return launch<D, ALIBI, 2>(qkv, bias, a, B, stream);
+    case CAUSAL: return launch<D, CAUSAL, 2>(qkv, bias, a, B, stream);
+    case CAUSAL_ALIBI:
+      return launch<D, CAUSAL_ALIBI, 2>(qkv, bias, a, B, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -588,24 +731,27 @@ cudaError_t launch_mode(int mode, const void* qkv, const Args& a, int B,
 extern "C" {
 
 // qkv [B*L, 3*H*D] bf16 (16-byte aligned), lengths [B] int32, slopes [H]
-// f32 (modes 5 and 8; else may be null), out [B*L, H*D] bf16, all device
-// pointers. mode: 0 (K2), 4, 5 (K6 plain, ALiBi), 7 (K6c), 8 (K6ca). D:
-// 32, 64 or 128; L % 8 == 0. s2 = log2(e)/sqrt(D) as f32; hi = the score
-// clamp bound. Returns a cudaError_t.
+// f32 (modes 5 and 8; else may be null), bias [H, L, L] f32 (mode 3,
+// log2-scaled, 16-byte aligned; else may be null), out [B*L, H*D] bf16,
+// all device pointers. mode: 0 (K2), 3 (K7), 4, 5 (K6 plain, ALiBi), 7
+// (K6c), 8 (K6ca). D: 32, 64 or 128; L % 8 == 0. s2 = log2(e)/sqrt(D) as
+// f32; hi = the score clamp bound. Returns a cudaError_t.
 int attn90_launch(const void* qkv, const void* lengths, const void* slopes,
-                  void* out, int mode, int B, int L, int H, int D, float s2,
-                  float hi, void* stream) {
+                  const void* bias, void* out, int mode, int B, int L, int H,
+                  int D, float s2, float hi, void* stream) {
   if (B < 0 || L <= 0 || L % 8 || H <= 0) return cudaErrorInvalidValue;
   if (alibi_mode(mode) && slopes == nullptr) return cudaErrorInvalidValue;
+  if (mode == BIAS && bias == nullptr) return cudaErrorInvalidValue;
   if (B == 0) return cudaSuccess;
   const Args a{static_cast<const int*>(lengths),
                static_cast<const float*>(slopes),
-               static_cast<__nv_bfloat16*>(out), L, H, s2, hi};
+               static_cast<__nv_bfloat16*>(out), L, H, s2, hi,
+               mode == BIAS && 4ull * H * L * L > BIAS_L2_BYTES};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 32: return launch_mode<32>(mode, qkv, a, B, st);
-    case 64: return launch_mode<64>(mode, qkv, a, B, st);
-    case 128: return launch_mode<128>(mode, qkv, a, B, st);
+    case 32: return launch_mode<32>(mode, qkv, bias, a, B, st);
+    case 64: return launch_mode<64>(mode, qkv, bias, a, B, st);
+    case 128: return launch_mode<128>(mode, qkv, bias, a, B, st);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -1,5 +1,7 @@
 // Fused dequantize + matmul + epilogue for blockwise-quantized weights
-// (kernel K1 of the PyTorch port), for sm_90a.
+// (kernel K1 of the PyTorch port) and its int8 tensor-core mode (K3, an
+// s8 instantiation of the same kernel: see the K3 section below), for
+// sm_90a.
 //
 // Replaces: embeddings_tpu/ops/qmatmul.py:_qmm_kernel (bf16 mode), the
 // Pallas TPU kernel behind qmatmul(). Computes
@@ -53,19 +55,21 @@
 //   tile's residual into shared memory (cp.async at the tile's start,
 //   landing during the products), keeps its BM x 128 tile in registers,
 //   exchanges per-row partial sums with the other blocks through
-//   distributed shared memory (mbarrier signalled, so the producers never
-//   stop for the cluster), once for the mean and once for the squared
-//   deviations, normalizes its own columns in place of the residual and
-//   stores them by TMA. Rows wider than 16 x 128 are refused.
+//   distributed shared memory (mbarrier signalled, one arrival a block,
+//   so the producers never stop for the cluster), once for the mean and
+//   once for the squared deviations, normalizes its own columns in place
+//   of the residual and stores them by TMA. Every exchange is a point
+//   where the cluster's blocks wait for each other, and it is these
+//   waits, not the arithmetic, that make the LayerNorm tiles slower than
+//   the tiled ones. Rows wider than 16 x 128 are refused.
 //
 // K1e / K3e, the emission epilogue (replaces embeddings_tpu/ops/
 // qmatmul.py:_emit, reached through qmatmul(emit_quantized=)): the f32
 // epilogue output is also ("both") or instead ("only") written per-row
 // symmetric int8, so = max(max_n |acc|, 1e-12) * (1/127), o8 = rint(acc *
 // (1/so)), with the row scales so [M]. The row absmax needs the whole
-// output row. K1's LayerNorm cluster takes it in a third exchange and
-// each block quantizes its own columns; K3's LayerNorm epilogue holds a
-// block's full f32 rows in shared memory and quantizes there. The other
+// output row. The LayerNorm cluster (K1's and K3's) takes it in a third
+// exchange and each block quantizes its own columns. The other
 // epilogues tile N by 128 columns, so each tile writes its f32 results to
 // a global staging buffer [M, N] and its per-row partial absmax to part
 // [N/128, M], and a second launch (emit_rows_kernel, one warp a row)
@@ -82,14 +86,14 @@
 
 namespace {
 
-enum Kind { Q4_0 = 0, Q4_1 = 1, Q8_0 = 2, NF4 = 3 };
+// the weight kinds K1 dequantizes, and S8: K3's operands, int8 q [M, K]
+// and the requantized weight w8t [N, K], both read as they are
+enum Kind { Q4_0 = 0, Q4_1 = 1, Q8_0 = 2, NF4 = 3, S8 = 4 };
 enum Epi { EPI_NONE = 0, EPI_BIAS = 1, EPI_GELU = 2, EPI_GELU_TANH = 3,
            EPI_SILU = 4, EPI_RES_LN = 5 };
 
 constexpr int BN = 128;          // output columns per tile
 constexpr int BK = 64;           // K rows per chunk: one group-64 pack
-constexpr int THREADS = 256;     // K3: 8 warps
-constexpr int MAX_SMEM = 232448 - 1024;  // H100 per-block opt-in limit
 
 __constant__ float kNF4[16] = {
     -1.0f, -0.6961928009986877f, -0.5250730514526367f,
@@ -108,23 +112,9 @@ __device__ __forceinline__ float magic_f32(uint32_t n, float offset) {
 }
 constexpr float INT8_OFFSET = 8388736.0f;     // 2^23 + 128: (b ^ 0x80) -> b
 
-__device__ __forceinline__ float activate(float v, int epi) {
-  if (epi == EPI_GELU || epi == EPI_GELU_TANH) {
-    const float c = 0.7978845608028654f;  // sqrt(2 / pi)
-    return v * (0.5f * (1.0f + tanhf(c * (v + 0.044715f * (v * v * v)))));
-  }
-  if (epi == EPI_SILU) return v * (1.0f / (1.0f + expf(-v)));
-  return v;
-}
-
 __device__ __forceinline__ uint32_t pack2(float a, float b) {
   __nv_bfloat162 t = __floats2bfloat162_rn(a, b);
   return *reinterpret_cast<uint32_t*>(&t);
-}
-
-__device__ __forceinline__ uint4 pack8(const float* v) {
-  return make_uint4(pack2(v[0], v[1]), pack2(v[2], v[3]), pack2(v[4], v[5]),
-                    pack2(v[6], v[7]));
 }
 
 __device__ __forceinline__ void unpack8(uint4 u, float* v) {
@@ -145,70 +135,6 @@ __device__ __forceinline__ float warp_max(float m) {
   for (int o = 16; o > 0; o >>= 1)
     m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
   return m;
-}
-
-// The residual + LayerNorm epilogue over a block's BM full output rows,
-// parked as f32 in shared memory (row stride ldr): y = row (+ bias) + res,
-// LayerNorm over N in f32, one bf16 store (none with EMIT_ONLY). One warp
-// per row. bias may be null (K3 adds it in its rescale). With emission
-// the normalized row goes back into the buffer, its absmax gives the row
-// scale, and the codes go to o8 [M, N], the scales to os [M].
-template <int BM>
-__device__ __forceinline__ void ln_rows(
-    float* rowbuf, int ldr, const float* __restrict__ bias,
-    const __nv_bfloat16* __restrict__ res, const float* __restrict__ lns,
-    const float* __restrict__ lnb, __nv_bfloat16* __restrict__ out,
-    int8_t* __restrict__ o8, float* __restrict__ os, int emit, int m0,
-    int M, int N, float eps) {
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  for (int r = warp; r < BM; r += blockDim.x / 32) {
-    const int gr = m0 + r;
-    if (gr >= M) continue;
-    float* row = rowbuf + r * ldr;
-    float sum = 0.f;
-    for (int c = lane * 8; c < N; c += 256) {
-      float rv[8];
-      unpack8(*reinterpret_cast<const uint4*>(res + (size_t)gr * N + c), rv);
-#pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        const float y = (bias ? row[c + e] + bias[c + e] : row[c + e]) + rv[e];
-        row[c + e] = y;
-        sum += y;
-      }
-    }
-    for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
-    const float mean = sum / N;
-    float sq = 0.f;
-    for (int c = lane * 8; c < N; c += 256)
-#pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        const float d = row[c + e] - mean;
-        sq += d * d;
-      }
-    for (int o = 16; o > 0; o >>= 1) sq += __shfl_xor_sync(0xffffffffu, sq, o);
-    const float inv = rsqrtf(sq / N + eps);
-    float amax = 0.f;
-    for (int c = lane * 8; c < N; c += 256) {
-      float v[8];
-#pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        v[e] = (row[c + e] - mean) * inv * lns[c + e] + lnb[c + e];
-        row[c + e] = v[e];
-        amax = fmaxf(amax, fabsf(v[e]));
-      }
-      if (emit != EMIT_ONLY)
-        *reinterpret_cast<uint4*>(out + (size_t)gr * N + c) = pack8(v);
-    }
-    if (emit == EMIT_NO) continue;
-    // the row scale, then the codes from the normalized row (each lane
-    // rereads the columns it wrote)
-    const float so = fmaxf(warp_max(amax), 1e-12f) * INV127;
-    const float rs = 1.0f / so;
-    if (lane == 0) os[gr] = so;
-    for (int c = lane * 8; c < N; c += 256)
-      *reinterpret_cast<uint2*>(o8 + (size_t)gr * N + c) = codes8(row + c, rs);
-  }
 }
 
 // K1e / K3e's second launch for the tiled epilogues: one warp per row
@@ -234,21 +160,6 @@ __global__ void __launch_bounds__(256) emit_rows_kernel(
     const float v[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
     *reinterpret_cast<uint2*>(o8 + (size_t)row * N + c) = codes8(v, rs);
   }
-}
-
-// a tiled epilogue's emission of one f32 value pair / 8-vector: stage it
-// for emit_rows_kernel and fold its absmax into the block's row maxima
-// (non-negative floats order as their bit patterns)
-__device__ __forceinline__ void stage_emit(float* __restrict__ stg,
-                                           unsigned* rmax, int lr,
-                                           size_t off, const float* v,
-                                           int n) {
-  float m = 0.f;
-  for (int e = 0; e < n; ++e) {
-    stg[off + e] = v[e];
-    m = fmaxf(m, fabsf(v[e]));
-  }
-  atomicMax(rmax + lr, __float_as_uint(m));
 }
 
 // the emission outputs and scratch of one call (all null without one)
@@ -340,6 +251,8 @@ struct K1Args {
   float* part;
   int M, N, K, epi, emit, cs;
   float eps;
+  const float* wscale;  // K3: the weight's column scales [N]
+  const float* xscale;  // K3: the rows' scales [M]
 };
 
 // d = a * b + c on bf16 pairs, rounded once (a * b + c is exact first)
@@ -504,10 +417,12 @@ __device__ __forceinline__ void store_b(const RawChunk<PACKED>& r,
 // for its 2 * MT rows (v, already reduced over the 4 lanes of each row)
 // go to every block's exchange buffer, one lane of each row quad writing
 // them as one vector to the quad's slot [rank][slot] (slot = warp * 8 +
-// lane / 4: the same rows in every block), one lane of each warp
-// arriving; after every block's warps have arrived, v becomes the sum (or
-// max) over the cs blocks, taken in rank order so every block computes
-// the same value
+// lane / 4: the same rows in every block); after a barrier of the
+// block's consumers one thread arrives on each block's barrier (one
+// remote arrival a block, not one a warp: the arrivals are on the
+// critical path of every exchange); once every block has arrived, v
+// becomes the sum (or max) over the cs blocks, taken in rank order so
+// every block computes the same value
 template <int MT, bool MAX>
 __device__ __forceinline__ void exchange(float (&v)[2 * MT], float* xch,
                                          uint32_t bar, int cs, int rank,
@@ -527,9 +442,9 @@ __device__ __forceinline__ void exchange(float (&v)[2 * MT], float* xch,
                      "f"(v[0]), "f"(v[1]) : "memory");
     }
   }
-  // the warp's writes are ordered before lane 0's release to each block
-  __syncwarp();
-  if ((threadIdx.x & 31) == 0)
+  // every consumer's writes are ordered before thread 0's release
+  named_bar(1, 256);
+  if (threadIdx.x == 0)
     for (int r = 0; r < cs; ++r) arrive_cluster(map_rank(bar, r));
   mbar_wait_cluster(bar, parity);
 #pragma unroll
@@ -566,8 +481,8 @@ __device__ __forceinline__ float act(float v) {
 // past M and columns past N and runs on while the next tile's products
 // start. Emission stages the f32 values in global memory for
 // emit_rows_kernel and leaves each row's absmax over this tile's columns
-// in amax.
-template <int EPI, int MT>
+// in amax. NO_BIAS: acc holds K3's rescaled values, bias already added.
+template <int EPI, int MT, bool NO_BIAS>
 __device__ __forceinline__ void tiled_epilogue(
     float (&acc)[MT][64], const K1Args& a, const CUtensorMap* omap,
     uint32_t stage, float* sbias, int m_wg, int n0, int nj, int w4,
@@ -575,7 +490,8 @@ __device__ __forceinline__ void tiled_epilogue(
   const int cq = 2 * (lane & 3);
   // the tile's bias, one column a thread, in this warpgroup's shared row
   // (its last readers passed the previous tile's final barrier)
-  sbias[wt] = (EPI != EPI_NONE && n0 + wt < a.N) ? a.bias[n0 + wt] : 0.f;
+  sbias[wt] = (EPI != EPI_NONE && !NO_BIAS && n0 + wt < a.N)
+                  ? a.bias[n0 + wt] : 0.f;
   const bool out = a.emit != EMIT_ONLY;
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt) {
@@ -624,17 +540,60 @@ __device__ __forceinline__ void tiled_epilogue(
   if (!out) named_bar(2 + wg, 128);
 }
 
-// K1. BM output rows x BN columns a tile. LN: the residual + LayerNorm
-// epilogue, launched as clusters of cs = ceil(N / BN) blocks along N
-// (block rank = blockIdx.x = its N tile), each cluster walking M tiles
-// blockIdx.y, + gridDim.y, ...; else the blocks walk the M x N tiles
-// blockIdx.x, + gridDim.x, ... (N tiles fastest).
+// K3's rescale in front of the epilogues: acc = (f32(s32) * cs[n]) *
+// sx[m] (+ bias[n] unless the epilogue is "none"), each step rounded on
+// its own as the plain version rounds it (no contraction into an FMA);
+// columns past N and rows past M give 0. grow: this thread's 2 * MT
+// global rows, cq its column pair in each group of 8.
+template <int MT>
+__device__ __forceinline__ void rescale_s8(const uint32_t (&iacc)[MT][64],
+                                           float (&acc)[MT][64],
+                                           const K1Args& a, const int* grow,
+                                           int n0, int nj, int cq) {
+  const bool bias = a.epi != EPI_NONE;
+  float sx[2 * MT];
+#pragma unroll
+  for (int i = 0; i < 2 * MT; ++i)
+    sx[i] = grow[i] < a.M ? a.xscale[grow[i]] : 0.f;
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    float2 c = make_float2(0.f, 0.f), b = make_float2(0.f, 0.f);
+    if (j < nj) {
+      c = *reinterpret_cast<const float2*>(a.wscale + n0 + 8 * j + cq);
+      if (bias) b = *reinterpret_cast<const float2*>(a.bias + n0 + 8 * j + cq);
+    }
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int k = 4 * j + 2 * h + e;
+          const float v = __fmul_rn(
+              __fmul_rn((float)(int)iacc[mt][k], e ? c.y : c.x),
+              sx[2 * mt + h]);
+          acc[mt][k] = bias ? __fadd_rn(v, e ? b.y : b.x) : v;
+        }
+  }
+}
+
+// K1 (KIND a weight kind) and K3 (KIND == S8). BM output rows x BN
+// columns a tile. LN: the residual + LayerNorm epilogue, launched as
+// clusters of cs = ceil(N / BN) blocks along N (block rank = blockIdx.x =
+// its N tile), each cluster walking M tiles blockIdx.y, + gridDim.y, ...;
+// else the blocks walk the M x N tiles blockIdx.x, + gridDim.x, ... (N
+// tiles fastest). wmap: K3's weight w8t [N, K] (unused by K1).
 template <int KIND, bool PACKED, int BM, bool LN>
 __global__ void __launch_bounds__(K1_THREADS, 1) qmm_wgmma_kernel(
     const __grid_constant__ CUtensorMap xmap,
+    const __grid_constant__ CUtensorMap wmap,
     const __grid_constant__ CUtensorMap omap, const K1Args a) {
   constexpr int MT = BM / 128;  // m64 tiles per consumer warpgroup
   constexpr int STAGES = k1_stages(LN);
+  // K3 (S8): both operands int8, a chunk is 128 K values (128 bytes, as
+  // K1's 64 bf16), both tiles come by TMA
+  constexpr bool I8 = KIND == S8;
+  constexpr int CK = I8 ? 128 : BK;  // K values per chunk
   extern __shared__ unsigned char smem_raw[];
   __shared__ uint16_t nf4[16];
   __shared__ float lnp[3][BN];  // LN: bias, LN scale, LN bias
@@ -656,12 +615,13 @@ __global__ void __launch_bounds__(K1_THREADS, 1) qmm_wgmma_kernel(
   const int tid = threadIdx.x;
   if (tid == 0) {
     for (int s = 0; s < STAGES; ++s) {
-      mbar_init(full_bar(s), 1 + 128);  // the x bytes + the producer
+      // the x (and K3's w8t) bytes, + K1's producer threads
+      mbar_init(full_bar(s), I8 ? 1 : 1 + 128);
       mbar_init(empty_bar(s), 8);       // one lane per consumer warp
     }
     if (LN) {
-      mbar_init(xch_bar(0), 8 * a.cs);  // every consumer warp of the cluster
-      mbar_init(xch_bar(1), 8 * a.cs);
+      mbar_init(xch_bar(0), a.cs);  // one arrival a block of the cluster
+      mbar_init(xch_bar(1), a.cs);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
@@ -673,72 +633,98 @@ __global__ void __launch_bounds__(K1_THREADS, 1) qmm_wgmma_kernel(
 
   const int ntn = (a.N + BN - 1) / BN;
   const int ntm = (a.M + BM - 1) / BM;
-  const int nk = (a.K + BK - 1) / BK;
+  const int nk = (a.K + CK - 1) / CK;
   const int t_first = LN ? blockIdx.y : blockIdx.x;
   const int t_step = LN ? gridDim.y : gridDim.x;
   const int t_count = LN ? ntm : ntm * ntn;
   const int rank = LN ? blockIdx.x : 0;
 
   if (tid >= 256) {
-    // ---- producer: x tiles by TMA, weight tiles dequantized ----
+    // ---- producer: x tiles by TMA, weight tiles dequantized (K1) or
+    // by TMA too (K3) ----
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
         K1_PRODUCER_REGS));
     const int pt = tid - 256;
-    const int cg = pt & 31;
-    const int rg = pt >> 5;
-    // The raw words of the next chunks are in flight while this one is
-    // dequantized: two chunks ahead for the packed 4-bit codes (three
-    // register sets fit the producer's registers), one for the rest.
-    constexpr bool DEEP = PACKED && KIND != Q4_1;
-    RawChunk<PACKED> cur, nxt, far;
-    auto n_of = [&](int tt) { return LN ? rank * BN : (tt % ntn) * BN; };
-    auto advance = [&](int& tt, int& kk) {
-      if (++kk == nk) {
-        kk = 0;
-        tt += t_step;
-      }
-    };
-    int t = t_first, kc = 0;     // the chunk dequantized now
-    int t1 = t, kc1 = kc;        // the next one
-    advance(t1, kc1);
-    int t2 = t1, kc2 = kc1;      // the one after
-    advance(t2, kc2);
-    if (t < t_count) fetch_raw<KIND, PACKED>(cur, a, 0, n_of(t), cg, rg);
-    if (DEEP && t1 < t_count)
-      fetch_raw<KIND, PACKED>(nxt, a, kc1 * BK, n_of(t1), cg, rg);
-    int stage = 0;
-    uint32_t phase = 0;
-    while (t < t_count) {
-      const int m0 = (LN ? t : t / ntn) * BM;
-      if (DEEP) {
-        if (t2 < t_count)
-          fetch_raw<KIND, PACKED>(far, a, kc2 * BK, n_of(t2), cg, rg);
-      } else if (t1 < t_count) {
-        fetch_raw<KIND, PACKED>(nxt, a, kc1 * BK, n_of(t1), cg, rg);
-      }
-      mbar_wait(empty_bar(stage), phase ^ 1);
+    if constexpr (I8) {
+      // K3: q's and w8t's tiles by TMA, one thread issuing
       if (pt == 0) {
-        mbar_expect_tx(full_bar(stage), (uint32_t)k1_a_bytes(BM));
-        tma_load_2d(a_tiles + stage * (uint32_t)k1_a_bytes(BM), &xmap,
-                    kc * BK, m0, full_bar(stage));
+        int stage = 0;
+        uint32_t phase = 0;
+        for (int t = t_first; t < t_count; t += t_step) {
+          const int m0 = (LN ? t : t / ntn) * BM;
+          const int n0 = LN ? rank * BN : (t % ntn) * BN;
+          for (int kc = 0; kc < nk; ++kc) {
+            mbar_wait(empty_bar(stage), phase ^ 1);
+            mbar_expect_tx(full_bar(stage),
+                           (uint32_t)k1_a_bytes(BM) + B_TILE_BYTES);
+            tma_load_2d(a_tiles + stage * (uint32_t)k1_a_bytes(BM), &xmap,
+                        kc * CK, m0, full_bar(stage));
+            tma_load_2d(b_tiles + stage * B_TILE_BYTES, &wmap, kc * CK, n0,
+                        full_bar(stage));
+            if (++stage == STAGES) {
+              stage = 0;
+              phase ^= 1;
+            }
+          }
+        }
       }
-      store_b<KIND, PACKED>(cur, b_tiles + stage * B_TILE_BYTES, cg, rg,
-                            nf4);
-      // the generic-proxy stores become visible to wgmma's async proxy
-      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-      mbar_arrive(full_bar(stage));
-      cur = nxt;
-      if (DEEP) nxt = far;
-      t = t1;
-      kc = kc1;
-      t1 = t2;
-      kc1 = kc2;
+    } else {
+      const int cg = pt & 31;
+      const int rg = pt >> 5;
+      // The raw words of the next chunks are in flight while this one is
+      // dequantized: two chunks ahead for the packed 4-bit codes (three
+      // register sets fit the producer's registers), one for the rest.
+      constexpr bool DEEP = PACKED && KIND != Q4_1;
+      RawChunk<PACKED> cur, nxt, far;
+      auto n_of = [&](int tt) { return LN ? rank * BN : (tt % ntn) * BN; };
+      auto advance = [&](int& tt, int& kk) {
+        if (++kk == nk) {
+          kk = 0;
+          tt += t_step;
+        }
+      };
+      int t = t_first, kc = 0;     // the chunk dequantized now
+      int t1 = t, kc1 = kc;        // the next one
+      advance(t1, kc1);
+      int t2 = t1, kc2 = kc1;      // the one after
       advance(t2, kc2);
-      if (++stage == STAGES) {
-        stage = 0;
-        phase ^= 1;
+      if (t < t_count) fetch_raw<KIND, PACKED>(cur, a, 0, n_of(t), cg, rg);
+      if (DEEP && t1 < t_count)
+        fetch_raw<KIND, PACKED>(nxt, a, kc1 * BK, n_of(t1), cg, rg);
+      int stage = 0;
+      uint32_t phase = 0;
+      while (t < t_count) {
+        const int m0 = (LN ? t : t / ntn) * BM;
+        if (DEEP) {
+          if (t2 < t_count)
+            fetch_raw<KIND, PACKED>(far, a, kc2 * BK, n_of(t2), cg, rg);
+        } else if (t1 < t_count) {
+          fetch_raw<KIND, PACKED>(nxt, a, kc1 * BK, n_of(t1), cg, rg);
+        }
+        mbar_wait(empty_bar(stage), phase ^ 1);
+        if (pt == 0) {
+          mbar_expect_tx(full_bar(stage), (uint32_t)k1_a_bytes(BM));
+          tma_load_2d(a_tiles + stage * (uint32_t)k1_a_bytes(BM), &xmap,
+                      kc * BK, m0, full_bar(stage));
+        }
+        store_b<KIND, PACKED>(cur, b_tiles + stage * B_TILE_BYTES, cg, rg,
+                              nf4);
+        // the generic-proxy stores become visible to wgmma's async proxy
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        mbar_arrive(full_bar(stage));
+        cur = nxt;
+        if (DEEP) nxt = far;
+        t = t1;
+        kc = kc1;
+        t1 = t2;
+        kc1 = kc2;
+        advance(t2, kc2);
+        if (++stage == STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
       }
-    }
+    }  // K1's producer
     if (LN) cluster_sync_all();
   } else {
     // ---- consumers: wgmma on the ring, then the epilogue ----
@@ -764,7 +750,7 @@ __global__ void __launch_bounds__(K1_THREADS, 1) qmm_wgmma_kernel(
       for (int c = tid; c < BN; c += 256) {
         const int gc = rank * BN + c;
         const bool ok = gc < a.N;
-        lnp[0][c] = ok ? a.bias[gc] : 0.f;
+        lnp[0][c] = ok && !I8 ? a.bias[gc] : 0.f;  // K3: in its rescale
         lnp[1][c] = ok ? a.lns[gc] : 0.f;
         lnp[2][c] = ok ? a.lnb[gc] : 0.f;
       }
@@ -793,20 +779,42 @@ __global__ void __launch_bounds__(K1_THREADS, 1) qmm_wgmma_kernel(
         }
         asm volatile("cp.async.commit_group;\n" ::: "memory");
       }
+      // K3's s32 sums, this tile's only: the rescale below is their last
+      // read, so they are not live beside acc through the epilogue (the
+      // wgmma operands are read-write, so sums declared for the whole
+      // walk would stay live into the next tile's first product)
+      uint32_t iacc[I8 ? MT : 1][64];
+      if constexpr (I8) {
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int i = 0; i < 64; ++i) iacc[mt][i] = 0u;
+      }
       for (int kc = 0; kc < nk; ++kc) {
         mbar_wait(full_bar(stage), phase);
 #pragma unroll
-        for (int mt = 0; mt < MT; ++mt) fence_acc(acc[mt]);
+        for (int mt = 0; mt < MT; ++mt) {
+          if constexpr (I8)
+            fence_regs<64>(iacc[mt]);
+          else
+            fence_acc(acc[mt]);
+        }
         wgmma_fence();
         const uint32_t at = a_tiles + stage * (uint32_t)k1_a_bytes(BM) +
                             (wg * MT) * 64 * 128;
         const uint32_t bt = b_tiles + stage * B_TILE_BYTES;
+        // 4 steps of 32 bytes along K: k16 in bf16, k32 in s8
 #pragma unroll
-        for (int kk = 0; kk < BK / 16; ++kk)
+        for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
-          for (int mt = 0; mt < MT; ++mt)
-            wgmma_m64n128k16(acc[mt], sw128_desc(at + mt * 64 * 128 + kk * 32),
-                             sw128_desc(bt + kk * 32), (kc | kk) != 0);
+          for (int mt = 0; mt < MT; ++mt) {
+            const uint64_t da = sw128_desc(at + mt * 64 * 128 + kk * 32);
+            const uint64_t db = sw128_desc(bt + kk * 32);
+            if constexpr (I8)
+              wgmma_s8_m64n128k32(iacc[mt], da, db, (kc | kk) != 0);
+            else
+              wgmma_m64n128k16(acc[mt], da, db, (kc | kk) != 0);
+          }
         wgmma_commit();
         if (kc > 0) {  // the previous chunk's products are done: free it
           wgmma_wait<1>();
@@ -820,7 +828,12 @@ __global__ void __launch_bounds__(K1_THREADS, 1) qmm_wgmma_kernel(
       }
       wgmma_wait<0>();
 #pragma unroll
-      for (int mt = 0; mt < MT; ++mt) fence_acc(acc[mt]);
+      for (int mt = 0; mt < MT; ++mt) {
+        if constexpr (I8)
+          fence_regs<64>(iacc[mt]);
+        else
+          fence_acc(acc[mt]);
+      }
       if (lane == 0) mbar_arrive(empty_bar(prev));
 
       // the epilogues walk this thread's columns outermost (a column's
@@ -831,6 +844,7 @@ __global__ void __launch_bounds__(K1_THREADS, 1) qmm_wgmma_kernel(
       int grow[2 * MT];
 #pragma unroll
       for (int i = 0; i < 2 * MT; ++i) grow[i] = m0 + rows[i];
+      if constexpr (I8) rescale_s8<MT>(iacc, acc, a, grow, n0, nj, cq);
       float v[2 * MT];  // per row: partial sums, then absmax
 #pragma unroll
       for (int i = 0; i < 2 * MT; ++i) v[i] = 0.f;
@@ -839,9 +853,9 @@ __global__ void __launch_bounds__(K1_THREADS, 1) qmm_wgmma_kernel(
         const uint32_t stage_wg = region + wg * OUT_STAGE_BYTES;
         const int m_wg = m0 + wg * (BM / 2);
         const int wt = tid % 128;
-#define K1_TILED(E)                                                       \
-  tiled_epilogue<E, MT>(acc, a, &omap, stage_wg, lnp[wg], m_wg, n0, nj,   \
-                        w4, lane, wt, wg, v)
+#define K1_TILED(E)                                                     \
+  tiled_epilogue<E, MT, I8>(acc, a, &omap, stage_wg, lnp[wg], m_wg, n0, \
+                            nj, w4, lane, wt, wg, v)
         switch (a.epi) {
           case EPI_NONE: K1_TILED(EPI_NONE); break;
           case EPI_BIAS: K1_TILED(EPI_BIAS); break;
@@ -993,22 +1007,24 @@ __global__ void __launch_bounds__(K1_THREADS, 1) qmm_wgmma_kernel(
   }
 }
 
-// a row-major bf16 [rows, cols] as TMA boxes of 64 columns x box_rows rows,
-// 128-byte swizzled (x: loads, rows past M and columns past K read as
-// zeros; out: stores, clipped at M and N)
-cudaError_t bf16_tensor_map(CUtensorMap* map, const void* p, int rows,
-                            int cols, int box_rows) {
+// a row-major [rows, cols] matrix of bf16 (esize 2: x, out) or int8
+// (esize 1: K3's q and w8t) as TMA boxes of 128 bytes of a row (64 bf16
+// or 128 int8 values) x box_rows rows, 128-byte swizzled (loads: rows and
+// columns past the matrix read as zeros; stores: clipped at its edges)
+cudaError_t tensor_map(CUtensorMap* map, const void* p, int rows, int cols,
+                       int esize, int box_rows) {
   EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
-  const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * esize};
+  const cuuint32_t box[2] = {(cuuint32_t)(128 / esize), (cuuint32_t)box_rows};
   const cuuint32_t elem[2] = {1, 1};
   const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(p), dims,
-      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+      map, esize == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                      : CU_TENSOR_MAP_DATA_TYPE_UINT8,
+      2, const_cast<void*>(p), dims, strides, box, elem,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
@@ -1023,8 +1039,9 @@ int sm_count() {
 }
 
 template <int KIND, bool PACKED, int BM, bool LN>
-cudaError_t launch_k1(const CUtensorMap& xmap, const CUtensorMap& omap,
-                      const K1Args& a, cudaStream_t stream) {
+cudaError_t launch_k1(const CUtensorMap& xmap, const CUtensorMap& wmap,
+                      const CUtensorMap& omap, const K1Args& a,
+                      cudaStream_t stream) {
   auto kern = qmm_wgmma_kernel<KIND, PACKED, BM, LN>;
   const size_t smem = k1_smem_bytes(BM, LN, LN ? a.cs : 0);
   cudaError_t err = cudaFuncSetAttribute(
@@ -1062,6 +1079,7 @@ cudaError_t launch_k1(const CUtensorMap& xmap, const CUtensorMap& omap,
     cfg.gridDim = dim3(tiles < sm_count() ? tiles : sm_count());
   }
   void* args[] = {const_cast<CUtensorMap*>(&xmap),
+                  const_cast<CUtensorMap*>(&wmap),
                   const_cast<CUtensorMap*>(&omap), const_cast<K1Args*>(&a)};
   err = cudaLaunchKernelExC(&cfg, reinterpret_cast<const void*>(kern), args);
   if (err != cudaSuccess) return err;
@@ -1069,59 +1087,63 @@ cudaError_t launch_k1(const CUtensorMap& xmap, const CUtensorMap& omap,
 }
 
 template <int KIND, bool PACKED>
-cudaError_t dispatch_k1(const CUtensorMap& xmap, const CUtensorMap& omap,
-                        const K1Args& a, int bm, cudaStream_t stream) {
+cudaError_t dispatch_k1(const CUtensorMap& xmap, const CUtensorMap& wmap,
+                        const CUtensorMap& omap, const K1Args& a, int bm,
+                        cudaStream_t stream) {
   const bool ln = a.epi == EPI_RES_LN;
   if (ln && bm == 256 && a.cs > K1_CLUSTER_BM256) return cudaErrorInvalidValue;
+#define K1_MAPS xmap, wmap, omap, a, stream
   if (bm == 256)
-    return ln ? launch_k1<KIND, PACKED, 256, true>(xmap, omap, a, stream)
-              : launch_k1<KIND, PACKED, 256, false>(xmap, omap, a, stream);
+    return ln ? launch_k1<KIND, PACKED, 256, true>(K1_MAPS)
+              : launch_k1<KIND, PACKED, 256, false>(K1_MAPS);
   if (bm == 128)
-    return ln ? launch_k1<KIND, PACKED, 128, true>(xmap, omap, a, stream)
-              : launch_k1<KIND, PACKED, 128, false>(xmap, omap, a, stream);
+    return ln ? launch_k1<KIND, PACKED, 128, true>(K1_MAPS)
+              : launch_k1<KIND, PACKED, 128, false>(K1_MAPS);
+#undef K1_MAPS
   return cudaErrorInvalidValue;
 }
 
 // ---------------------------------------------------------------------------
 // K3: the int8 tensor-core mode
 //
-// Replaces: embeddings_tpu/ops/qmatmul.py:_qmm_int8, the Pallas TPU
-// kernel behind qmatmul(int8_compute=True). Computes the TPU kernel's
-// result, not its block structure:
+// Replaces: embeddings_tpu/ops/qmatmul.py:_qmm_int8 (with its sx_ref path,
+// K3x, and _emit, K3e), the Pallas TPU kernel behind
+// qmatmul(int8_compute=True). Computes the TPU kernel's result, not its
+// block structure:
 //     w   = level * scale (+ min)                          (f32)
 //     cs  = max(max_k |w|, 1e-12) * (1/127)   per column n
 //     w8  = rint(w * (1/cs))                               (int8)
 //     sx  = max(max_k |x|, 1e-12) * (1/127)   per row m
 //     q   = rint(x * (1/sx))                               (int8)
 //     acc = sum_k q * w8                                   (s32)
-//     out = epilogue((float(acc) * cs) * sx + bias)        (f32, one bf16 store)
+//     out = epilogue((f32(acc) * cs) * sx + bias)          (f32, one bf16 store)
 // rint rounds half to even, like the TPU's round(); the reciprocals are
 // IEEE divisions (no fast math), and the products whose rounding the TPU
 // keeps separate are written with __fmul_rn / __fadd_rn, so the int8
 // operands equal the TPU's bit for bit.
 //
-// What bounds it on the H100: the product, at 2 * M * N * K int8
-// operations (1,979 TOPS dense), at the main-path shapes. The TPU grid
-// runs in order and requantizes each weight N-tile once for all M-tiles;
-// CUDA blocks run in parallel, so one block redoing the column absmax
-// over all of K would spend more time on scalar dequantization than on
-// its products. The design splits the work into three launches on one
-// stream: (1) the weight's per-column requantization, written transposed
-// as w8t [N, K] so both tensor-core operands are K-contiguous; (2) the
-// rows' quantization into q [M, K]; (3) the s8 x s8 -> s32 product on
-// the tensor cores (mma.sync m16n8k32), cp.async double-buffered
-// 128 x 128 x 64 tiles, with the rescale and K1's epilogues (residual +
-// LayerNorm through the same full-row shared buffer). Not yet used:
-// wgmma, TMA, and a w8 cached across calls.
-//
-// K3x, pre-quantized input (replaces _qmm_int8's sx_ref path): the caller
-// hands q [M, K] int8 and sx [M] f32 (an emission of the previous layer,
-// or quantize_act), launch (2) is skipped and (3) reads them as they are:
-// the x read is half the bf16 bytes and no row absmax is recomputed.
+// What bounds it on the H100: at the main-path shapes (M = 32,768 tokens,
+// K, N in 768 .. 3,072) the product, 2 * M * N * K int8 operations at
+// 1,979 TOP/s dense, or, at o-proj's 768 x 768, the bytes of x, the
+// residual and the output. The design:
+// - the weight is requantized once per weight, not once per call:
+//   requant_kernel writes w8t [N, K] (K-contiguous, as int8 wgmma reads
+//   both operands) and cs [N]; the wrapper keeps them with the weight
+//   (the TPU kernel requantizes each N-tile in VMEM on every call: the
+//   values are the same);
+// - the rows quantize in a launch of their own (quant_rows_kernel) into
+//   q [M, K] + sx [M], or arrive quantized (K3x: an emission of the
+//   previous layer, or quantize_act; no launch);
+// - the product is K1's kernel instantiated for S8: the same persistent
+//   tile walk, ring, consumer warpgroups and epilogues, with q and w8t
+//   both by TMA (int8 tensor maps, 128-byte swizzled chunks of 128 K
+//   values) issued by one producer thread, s8 x s8 -> s32 on wgmma
+//   m64n128k32, and the rescale (rescale_s8) in front of the epilogue;
+//   the residual-LayerNorm epilogue runs as K1's cluster along N, and
+//   K3e's emission is K1e's.
 // ---------------------------------------------------------------------------
 
-constexpr int I8_BK = 64;           // K bytes per chunk
-constexpr int I8_LD = I8_BK + 16;    // smem row stride (bytes): no conflicts
+constexpr int RQ_BK = 64;  // requant_kernel: K rows per staged tile
 
 // one dequantized weight value w[k][n], f32, TPU rounding (no contraction)
 template <int KIND, bool PACKED>
@@ -1145,7 +1167,8 @@ __device__ __forceinline__ float wval(const uint8_t* __restrict__ codes,
   return w;
 }
 
-// (1) per-column requantization: block = 32 columns x 8 row groups
+// the weight's per-column requantization into w8t [N, K] and cs [N]
+// (once per weight): block = 32 columns x 8 row groups
 template <int KIND, bool PACKED>
 __global__ void __launch_bounds__(256) requant_kernel(
     const uint8_t* __restrict__ codes, const float* __restrict__ scales,
@@ -1153,7 +1176,7 @@ __global__ void __launch_bounds__(256) requant_kernel(
     float* __restrict__ cs, int N, int K) {
   __shared__ float red[8][32];
   __shared__ float inv[32];
-  __shared__ __align__(16) int8_t tile[32][I8_BK + 4];
+  __shared__ __align__(16) int8_t tile[32][RQ_BK + 4];
   const int cg = threadIdx.x % 32;
   const int rg = threadIdx.x / 32;
   const int n0 = blockIdx.x * 32;
@@ -1173,17 +1196,17 @@ __global__ void __launch_bounds__(256) requant_kernel(
   }
   __syncthreads();
   const int ncols = min(32, N - n0);
-  for (int k0 = 0; k0 < K; k0 += I8_BK) {
+  for (int k0 = 0; k0 < K; k0 += RQ_BK) {
     if (ok)
-      for (int kk = rg; kk < I8_BK && k0 + kk < K; kk += 8)
+      for (int kk = rg; kk < RQ_BK && k0 + kk < K; kk += 8)
         tile[cg][kk] = static_cast<int8_t>(__float2int_rn(
             wval<KIND, PACKED>(codes, scales, mins, N, k0 + kk, n) *
             inv[cg]));
     __syncthreads();
     // transposed write-out: column c's 64 bytes as 16 words, K-contiguous
-    for (int wi = threadIdx.x; wi < 32 * (I8_BK / 4); wi += 256) {
-      const int c = wi / (I8_BK / 4);
-      const int kw = (wi % (I8_BK / 4)) * 4;
+    for (int wi = threadIdx.x; wi < 32 * (RQ_BK / 4); wi += 256) {
+      const int c = wi / (RQ_BK / 4);
+      const int kw = (wi % (RQ_BK / 4)) * 4;
       if (c < ncols && k0 + kw < K)
         *reinterpret_cast<uint32_t*>(w8t + (size_t)(n0 + c) * K + k0 + kw) =
             *reinterpret_cast<const uint32_t*>(&tile[c][kw]);
@@ -1192,7 +1215,11 @@ __global__ void __launch_bounds__(256) requant_kernel(
   }
 }
 
-// (2) per-row activation quantization: one warp per row, 8 rows a block
+// the rows' quantization into q [M, K] and sx [M]: one warp per row, 8
+// rows a block. NV > 0: the row is held in registers (NV 16-byte loads a
+// lane, K <= 256 * NV), so x is read once; NV == 0: any K, two passes
+// over the row (its second read mostly from cache)
+template <int NV>
 __global__ void __launch_bounds__(256) quant_rows_kernel(
     const __nv_bfloat16* __restrict__ x, int8_t* __restrict__ q,
     float* __restrict__ sx, int M, int K) {
@@ -1200,257 +1227,56 @@ __global__ void __launch_bounds__(256) quant_rows_kernel(
   const int lane = threadIdx.x % 32;
   if (row >= M) return;
   const __nv_bfloat16* xr = x + (size_t)row * K;
+  int8_t* qr = q + (size_t)row * K;
   float m = 0.f;
-  for (int c = lane * 8; c < K; c += 256) {
-    float v[8];
-    unpack8(*reinterpret_cast<const uint4*>(xr + c), v);
+  if constexpr (NV > 0) {
+    uint4 raw[NV];
 #pragma unroll
-    for (int e = 0; e < 8; ++e) m = fmaxf(m, fabsf(v[e]));
-  }
-  for (int o = 16; o > 0; o >>= 1)
-    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
-  const float s = fmaxf(m, 1e-12f) * INV127;
-  const float inv = 1.0f / s;
-  if (lane == 0) sx[row] = s;
-  for (int c = lane * 8; c < K; c += 256) {
-    float v[8];
-    unpack8(*reinterpret_cast<const uint4*>(xr + c), v);
-    uint32_t w[2] = {0u, 0u};
+    for (int i = 0; i < NV; ++i) {
+      const int c = (lane + 32 * i) * 8;
+      raw[i] = c < K ? *reinterpret_cast<const uint4*>(xr + c)
+                     : make_uint4(0u, 0u, 0u, 0u);
+      float v[8];
+      unpack8(raw[i], v);
 #pragma unroll
-    for (int e = 0; e < 8; ++e)
-      w[e / 4] |= (uint32_t)(__float2int_rn(v[e] * inv) & 0xff) << (8 * (e % 4));
-    *reinterpret_cast<uint2*>(q + (size_t)row * K + c) = make_uint2(w[0], w[1]);
-  }
-}
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           bool pred) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(pred ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-__device__ __forceinline__ void cp_async_wait1() {
-  asm volatile("cp.async.wait_group 1;\n" ::);
-}
-
-__device__ __forceinline__ void mma_s8(int* c, const uint32_t* a,
-                                       uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, "
-      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// the rescale of one accumulator: (float(acc) * cs) * sx (+ bias)
-__device__ __forceinline__ float rescale(int acc, float c, float s, float b,
-                                         bool add_bias) {
-  const float v = __fmul_rn(__fmul_rn((float)acc, c), s);
-  return add_bias ? __fadd_rn(v, b) : v;
-}
-
-// (3) q [M, K] x w8t [N, K]^T on the tensor cores, rescale, epilogue.
-// BM output rows per block; LN: the block walks all N-tiles of its rows
-// and applies residual + LayerNorm at the end (else one BM x 128 tile).
-template <int BM, bool LN>
-__global__ void __launch_bounds__(THREADS, LN ? 1 : 2) qmm_int8_kernel(
-    const int8_t* __restrict__ q, const float* __restrict__ sx,
-    const int8_t* __restrict__ w8t, const float* __restrict__ cs,
-    const float* __restrict__ bias, const __nv_bfloat16* __restrict__ res,
-    const float* __restrict__ lns, const float* __restrict__ lnb,
-    __nv_bfloat16* __restrict__ out, int8_t* __restrict__ o8,
-    float* __restrict__ os, float* __restrict__ stg,
-    float* __restrict__ part, int M, int N, int K, int epi, int emit,
-    float eps) {
-  constexpr int WARPS_M = BM >= 64 ? 4 : 2;
-  constexpr int WARPS_N = 8 / WARPS_M;
-  constexpr int WTM = BM / WARPS_M;
-  constexpr int WTN = BN / WARPS_N;
-  constexpr int FM = WTM / 16;
-  constexpr int FN = WTN / 8;
-  constexpr int STAGE = (BM + BN) * I8_LD;        // bytes per stage
-  constexpr int CH = I8_BK / 16;                   // 16-byte chunks a row
-
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* rowbuf = reinterpret_cast<float*>(smem + 2 * STAGE);  // LN only
-  __shared__ unsigned rmax[BM];  // the tile's row absmax bits (emission)
-  for (int i = threadIdx.x; i < BM; i += THREADS) rmax[i] = 0u;
-
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int g = lane / 4;          // mma groupID
-  const int t4 = lane % 4;         // mma threadID_in_group
-  const int wm = warp / WARPS_N;
-  const int wn = warp % WARPS_N;
-  const int m0 = blockIdx.x * BM;
-  const int n_begin = LN ? 0 : blockIdx.y * BN;
-  const int ntiles = LN ? (N + BN - 1) / BN : 1;
-  const int nchunks = (K + I8_BK - 1) / I8_BK;
-  const int total = ntiles * nchunks;
-  const int ldr = ((N + BN - 1) / BN) * BN + 4;
-  const bool add_bias = epi != EPI_NONE;
-
-  auto load = [&](int t) {
-    unsigned char* a = smem + (t & 1) * STAGE;
-    unsigned char* b = a + BM * I8_LD;
-    const int k0 = (t % nchunks) * I8_BK;
-    const int n0 = n_begin + (t / nchunks) * BN;
-    for (int i = tid; i < (BM + BN) * CH; i += THREADS) {
-      const int r = i / CH;
-      const int kc = k0 + (i % CH) * 16;
-      if (r < BM) {
-        const bool p = m0 + r < M && kc < K;
-        cp_async16(a + r * I8_LD + (i % CH) * 16,
-                   p ? q + (size_t)(m0 + r) * K + kc : q, p);
-      } else {
-        const int rn = r - BM;
-        const bool p = n0 + rn < N && kc < K;
-        cp_async16(b + rn * I8_LD + (i % CH) * 16,
-                   p ? w8t + (size_t)(n0 + rn) * K + kc : w8t, p);
-      }
+      for (int e = 0; e < 8; ++e) m = fmaxf(m, fabsf(v[e]));
     }
-  };
-
-  int acc[FM][FN][4];
+    const float s = fmaxf(warp_max(m), 1e-12f) * INV127;
+    const float inv = 1.0f / s;
+    if (lane == 0) sx[row] = s;
 #pragma unroll
-  for (int i = 0; i < FM; ++i)
-#pragma unroll
-    for (int j = 0; j < FN; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
-
-  load(0);
-  cp_async_commit();
-  for (int t = 0; t < total; ++t) {
-    if (t + 1 < total) load(t + 1);
-    cp_async_commit();
-    cp_async_wait1();  // chunk t has landed
-    __syncthreads();
-    const unsigned char* a = smem + (t & 1) * STAGE;
-    const unsigned char* b = a + BM * I8_LD;
-#pragma unroll
-    for (int ks = 0; ks < I8_BK; ks += 32) {
-      uint32_t af[FM][4];
-#pragma unroll
-      for (int i = 0; i < FM; ++i) {
-        const unsigned char* p = a + (wm * WTM + i * 16 + g) * I8_LD + ks +
-                                 t4 * 4;
-        af[i][0] = *reinterpret_cast<const uint32_t*>(p);
-        af[i][1] = *reinterpret_cast<const uint32_t*>(p + 8 * I8_LD);
-        af[i][2] = *reinterpret_cast<const uint32_t*>(p + 16);
-        af[i][3] = *reinterpret_cast<const uint32_t*>(p + 8 * I8_LD + 16);
-      }
-#pragma unroll
-      for (int j = 0; j < FN; ++j) {
-        const unsigned char* p = b + (wn * WTN + j * 8 + g) * I8_LD + ks +
-                                 t4 * 4;
-        const uint32_t b0 = *reinterpret_cast<const uint32_t*>(p);
-        const uint32_t b1 = *reinterpret_cast<const uint32_t*>(p + 16);
-#pragma unroll
-        for (int i = 0; i < FM; ++i) mma_s8(acc[i][j], af[i], b0, b1);
-      }
+    for (int i = 0; i < NV; ++i) {
+      const int c = (lane + 32 * i) * 8;
+      if (c >= K) break;
+      float v[8];
+      unpack8(raw[i], v);
+      *reinterpret_cast<uint2*>(qr + c) = codes8(v, inv);
     }
-    __syncthreads();  // this stage is refilled by the load of chunk t + 2
-
-    if (LN && t % nchunks == nchunks - 1) {
-      // park this N-tile's rescaled results (bias included) as f32 rows
-      const int n0 = (t / nchunks) * BN;
+  } else {
+    for (int c = lane * 8; c < K; c += 256) {
+      float v[8];
+      unpack8(*reinterpret_cast<const uint4*>(xr + c), v);
 #pragma unroll
-      for (int i = 0; i < FM; ++i)
-#pragma unroll
-        for (int j = 0; j < FN; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int rr = wm * WTM + i * 16 + g + (e / 2) * 8;
-            const int cc = n0 + wn * WTN + j * 8 + t4 * 2 + (e % 2);
-            const bool ok = m0 + rr < M && cc < N;
-            rowbuf[rr * ldr + cc] =
-                ok ? rescale(acc[i][j][e], cs[cc], sx[m0 + rr], bias[cc], true)
-                   : 0.f;
-            acc[i][j][e] = 0;
-          }
+      for (int e = 0; e < 8; ++e) m = fmaxf(m, fabsf(v[e]));
+    }
+    const float s = fmaxf(warp_max(m), 1e-12f) * INV127;
+    const float inv = 1.0f / s;
+    if (lane == 0) sx[row] = s;
+    for (int c = lane * 8; c < K; c += 256) {
+      float v[8];
+      unpack8(*reinterpret_cast<const uint4*>(xr + c), v);
+      *reinterpret_cast<uint2*>(qr + c) = codes8(v, inv);
     }
   }
-
-  if (!LN) {
-#pragma unroll
-    for (int i = 0; i < FM; ++i)
-#pragma unroll
-      for (int j = 0; j < FN; ++j) {
-        const int cc = n_begin + wn * WTN + j * 8 + t4 * 2;
-        if (cc >= N) continue;  // N % 8 == 0: the pair is whole or absent
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int lr = wm * WTM + i * 16 + g + h * 8;
-          const int gr = m0 + lr;
-          if (gr >= M) continue;
-          const float s = sx[gr];
-          const float v[2] = {
-              activate(rescale(acc[i][j][2 * h], cs[cc], s, bias[cc],
-                               add_bias), epi),
-              activate(rescale(acc[i][j][2 * h + 1], cs[cc + 1], s,
-                               bias[cc + 1], add_bias), epi)};
-          if (emit != EMIT_ONLY)
-            *reinterpret_cast<uint32_t*>(out + (size_t)gr * N + cc) =
-                pack2(v[0], v[1]);
-          if (emit != EMIT_NO)
-            stage_emit(stg, rmax, lr, (size_t)gr * N + cc, v, 2);
-        }
-      }
-    if (emit != EMIT_NO) {
-      __syncthreads();
-      for (int i = threadIdx.x; i < BM && m0 + i < M; i += THREADS)
-        part[(size_t)blockIdx.y * M + m0 + i] = __uint_as_float(rmax[i]);
-    }
-    return;
-  }
-  __syncthreads();
-  ln_rows<BM>(rowbuf, ldr, nullptr, res, lns, lnb, out, o8, os, emit, m0, M,
-              N, eps);
-}
-
-template <int BM, bool LN>
-size_t int8_smem_bytes(int N) {
-  size_t bytes = 2ull * (BM + BN) * I8_LD;
-  if (LN) bytes += (size_t)BM * (((N + BN - 1) / BN) * BN + 4) * 4;
-  return bytes;
-}
-
-template <int BM, bool LN>
-cudaError_t launch_int8(const int8_t* q, const float* sx, const int8_t* w8t,
-                        const float* cs, const void* bias, const void* res,
-                        const void* lns, const void* lnb, void* out,
-                        const EmitArgs& em, int M, int N, int K, int epi,
-                        float eps, cudaStream_t stream) {
-  auto kern = qmm_int8_kernel<BM, LN>;
-  const size_t smem = int8_smem_bytes<BM, LN>(N);
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid((M + BM - 1) / BM, LN ? 1 : (N + BN - 1) / BN);
-  kern<<<grid, THREADS, smem, stream>>>(
-      q, sx, w8t, cs, static_cast<const float*>(bias),
-      static_cast<const __nv_bfloat16*>(res), static_cast<const float*>(lns),
-      static_cast<const float*>(lnb), static_cast<__nv_bfloat16*>(out),
-      static_cast<int8_t*>(em.o8), static_cast<float*>(em.os),
-      static_cast<float*>(em.stg), static_cast<float*>(em.part), M, N, K,
-      epi, em.emit, eps);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || LN || em.emit == EMIT_NO) return err;
-  return emit_rows(em, M, N, stream);
 }
 
 template <int KIND, bool PACKED>
 cudaError_t requant(const void* codes, const void* scales, const void* mins,
-                    int8_t* w8t, float* cs, int N, int K,
-                    cudaStream_t stream) {
+                    void* w8t, void* cs, int N, int K, cudaStream_t stream) {
   requant_kernel<KIND, PACKED><<<(N + 31) / 32, 256, 0, stream>>>(
       static_cast<const uint8_t*>(codes), static_cast<const float*>(scales),
-      static_cast<const float*>(mins), w8t, cs, N, K);
+      static_cast<const float*>(mins), static_cast<int8_t*>(w8t),
+      static_cast<float*>(cs), N, K);
   return cudaGetLastError();
 }
 
@@ -1480,13 +1306,13 @@ int qmm_launch(const void* x, const void* codes, const void* scales,
   if (N % 8 || K % 32 || (packed && K % 64) || M < 1) return cudaErrorInvalidValue;
   if (epi == EPI_RES_LN && cs > K1_CLUSTER_MAX) return cudaErrorInvalidValue;
   CUtensorMap xmap, omap;
-  cudaError_t err = bf16_tensor_map(&xmap, x, M, K, bm);
+  cudaError_t err = tensor_map(&xmap, x, M, K, 2, bm);
   if (err != cudaSuccess) return err;
   // the output's TMA boxes: a warpgroup's 64 rows (tiled epilogues) or
   // the block's bm rows (LayerNorm); with emission "only" there is no
   // out and the map is never used
-  err = bf16_tensor_map(&omap, out ? out : x, M, out ? N : K,
-                        epi == EPI_RES_LN ? bm : 64);
+  err = tensor_map(&omap, out ? out : x, M, out ? N : K, 2,
+                   epi == EPI_RES_LN ? bm : 64);
   if (err != cudaSuccess) return err;
   const K1Args a{static_cast<const uint8_t*>(codes),
                  static_cast<const float*>(scales),
@@ -1500,71 +1326,110 @@ int qmm_launch(const void* x, const void* codes, const void* scales,
                  static_cast<float*>(os),
                  static_cast<float*>(stg),
                  static_cast<float*>(part),
-                 M, N, K, epi, emit, epi == EPI_RES_LN ? cs : 0, eps};
+                 M, N, K, epi, emit, epi == EPI_RES_LN ? cs : 0, eps,
+                 nullptr, nullptr};
+  // (K1 reads no weight map: xmap stands in for it)
+#define K1_ARGS xmap, xmap, omap, a, bm, st
   switch (kind * 2 + (packed ? 1 : 0)) {
-    case Q4_0 * 2: err = dispatch_k1<Q4_0, false>(xmap, omap, a, bm, st); break;
-    case Q4_0 * 2 + 1: err = dispatch_k1<Q4_0, true>(xmap, omap, a, bm, st); break;
-    case Q4_1 * 2: err = dispatch_k1<Q4_1, false>(xmap, omap, a, bm, st); break;
-    case Q4_1 * 2 + 1: err = dispatch_k1<Q4_1, true>(xmap, omap, a, bm, st); break;
-    case Q8_0 * 2: err = dispatch_k1<Q8_0, false>(xmap, omap, a, bm, st); break;
-    case NF4 * 2: err = dispatch_k1<NF4, false>(xmap, omap, a, bm, st); break;
-    case NF4 * 2 + 1: err = dispatch_k1<NF4, true>(xmap, omap, a, bm, st); break;
+    case Q4_0 * 2: err = dispatch_k1<Q4_0, false>(K1_ARGS); break;
+    case Q4_0 * 2 + 1: err = dispatch_k1<Q4_0, true>(K1_ARGS); break;
+    case Q4_1 * 2: err = dispatch_k1<Q4_1, false>(K1_ARGS); break;
+    case Q4_1 * 2 + 1: err = dispatch_k1<Q4_1, true>(K1_ARGS); break;
+    case Q8_0 * 2: err = dispatch_k1<Q8_0, false>(K1_ARGS); break;
+    case NF4 * 2: err = dispatch_k1<NF4, false>(K1_ARGS); break;
+    case NF4 * 2 + 1: err = dispatch_k1<NF4, true>(K1_ARGS); break;
     default: return cudaErrorInvalidValue;
   }
+#undef K1_ARGS
   if (err != cudaSuccess || epi == EPI_RES_LN || emit == EMIT_NO) return err;
   return emit_rows(EmitArgs{o8, os, stg, part, emit}, M, N, st);
 }
 
-// K3, the int8 mode: three launches on `stream` (weight requantization
-// into w8t [N, K] int8 + cs [N] f32, row quantization into q [M, K] int8 +
-// sx [M] f32, then the int8 product with the rescale and the epilogue).
-// Pointers and shapes as qmm_launch; w8t, cs, q, sx are device scratch of
-// those shapes. x_int8 (K3x): q and sx are the caller's pre-quantized rows
-// and row scales, x is not read and the row quantization is skipped.
-// emit, o8, os, stg, part as qmm_launch (K3e). Requires N % 8 == 0,
-// K % 32 == 0 (K % 64 == 0 packed). Returns a cudaError_t.
-int qmm_int8_launch(const void* x, const void* codes, const void* scales,
-                    const void* mins, const void* bias, const void* res,
-                    const void* lns, const void* lnb, void* w8t, void* cs,
-                    void* q, void* sx, void* out, void* o8, void* os,
-                    void* stg, void* part, int M, int N, int K, int kind,
-                    int packed, int epi, int emit, int x_int8, float eps,
-                    void* stream) {
+// K3's weight requantization (once per weight): codes, scales, mins as
+// qmm_launch; w8t [N, K] int8 and cs [N] f32 outputs. Requires K % 32 ==
+// 0 (K % 64 == 0 packed). Returns a cudaError_t.
+int qmm_requant_launch(const void* codes, const void* scales,
+                       const void* mins, void* w8t, void* cs, int N, int K,
+                       int kind, int packed, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const EmitArgs em{o8, os, stg, part, emit};
-  int8_t* w8 = static_cast<int8_t*>(w8t);
-  float* c = static_cast<float*>(cs);
-  cudaError_t err;
-#define RQ_ARGS codes, scales, mins, w8, c, N, K, st
+  if (N < 1 || K % 32 || (packed && K % 64)) return cudaErrorInvalidValue;
+#define RQ_ARGS codes, scales, mins, w8t, cs, N, K, st
   switch (kind * 2 + (packed ? 1 : 0)) {
-    case Q4_0 * 2: err = requant<Q4_0, false>(RQ_ARGS); break;
-    case Q4_0 * 2 + 1: err = requant<Q4_0, true>(RQ_ARGS); break;
-    case Q4_1 * 2: err = requant<Q4_1, false>(RQ_ARGS); break;
-    case Q4_1 * 2 + 1: err = requant<Q4_1, true>(RQ_ARGS); break;
-    case Q8_0 * 2: err = requant<Q8_0, false>(RQ_ARGS); break;
-    case NF4 * 2: err = requant<NF4, false>(RQ_ARGS); break;
-    case NF4 * 2 + 1: err = requant<NF4, true>(RQ_ARGS); break;
+    case Q4_0 * 2: return requant<Q4_0, false>(RQ_ARGS);
+    case Q4_0 * 2 + 1: return requant<Q4_0, true>(RQ_ARGS);
+    case Q4_1 * 2: return requant<Q4_1, false>(RQ_ARGS);
+    case Q4_1 * 2 + 1: return requant<Q4_1, true>(RQ_ARGS);
+    case Q8_0 * 2: return requant<Q8_0, false>(RQ_ARGS);
+    case NF4 * 2: return requant<NF4, false>(RQ_ARGS);
+    case NF4 * 2 + 1: return requant<NF4, true>(RQ_ARGS);
     default: return cudaErrorInvalidValue;
   }
 #undef RQ_ARGS
+}
+
+// K3's row quantization: x [M, K] bf16 -> q [M, K] int8 + sx [M] f32.
+// Requires K % 8 == 0, 16-byte aligned rows. Returns a cudaError_t.
+int qmm_quant_rows_launch(const void* x, void* q, void* sx, int M, int K,
+                          void* stream) {
+  if (M < 1 || K % 8) return cudaErrorInvalidValue;
+  const auto* xb = static_cast<const __nv_bfloat16*>(x);
+  auto* q8 = static_cast<int8_t*>(q);
+  auto* s = static_cast<float*>(sx);
+  const dim3 grid((M + 7) / 8);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int nv = (K + 255) / 256;  // 16-byte loads a lane
+  if (nv <= 4)
+    quant_rows_kernel<4><<<grid, 256, 0, st>>>(xb, q8, s, M, K);
+  else if (nv <= 8)
+    quant_rows_kernel<8><<<grid, 256, 0, st>>>(xb, q8, s, M, K);
+  else if (nv <= 16)
+    quant_rows_kernel<16><<<grid, 256, 0, st>>>(xb, q8, s, M, K);
+  else
+    quant_rows_kernel<0><<<grid, 256, 0, st>>>(xb, q8, s, M, K);
+  return cudaGetLastError();
+}
+
+// K3's product: q [M, K] int8 (16-byte aligned) with its row scales sx
+// [M] f32 against the kept weight w8t [N, K] int8 with its column scales
+// cs [N] f32, rescaled, then the epilogue; bias, res, lns, lnb, out, o8,
+// os, stg, part, epi, emit and bm as qmm_launch (K3e: the emission). One
+// launch of qmm_wgmma_kernel<S8, false, bm, LN> (plus emit_rows_kernel
+// for a tiled epilogue's emission). Requires N % 8 == 0, K % 32 == 0, N
+// <= 16 * 128 with residual + LayerNorm. Returns a cudaError_t.
+int qmm_int8_launch(const void* q, const void* sx, const void* w8t,
+                    const void* cs, const void* bias, const void* res,
+                    const void* lns, const void* lnb, void* out, void* o8,
+                    void* os, void* stg, void* part, int M, int N, int K,
+                    int epi, int emit, int bm, float eps, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int ncs = (N + BN - 1) / BN;
+  if (N % 8 || K % 32 || M < 1) return cudaErrorInvalidValue;
+  if (epi == EPI_RES_LN && ncs > K1_CLUSTER_MAX) return cudaErrorInvalidValue;
+  CUtensorMap xmap, wmap, omap;
+  cudaError_t err = tensor_map(&xmap, q, M, K, 1, bm);
   if (err != cudaSuccess) return err;
-  int8_t* q8 = static_cast<int8_t*>(q);
-  float* s = static_cast<float*>(sx);
-  if (!x_int8) {
-    quant_rows_kernel<<<(M + 7) / 8, 256, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(x), q8, s, M, K);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-  }
-#define I8_ARGS q8, s, w8, c, bias, res, lns, lnb, out, em, M, N, K, epi, \
-                eps, st
-  if (epi != EPI_RES_LN) return launch_int8<128, false>(I8_ARGS);
-  if (int8_smem_bytes<64, true>(N) <= MAX_SMEM)
-    return launch_int8<64, true>(I8_ARGS);
-  if (int8_smem_bytes<32, true>(N) <= MAX_SMEM)
-    return launch_int8<32, true>(I8_ARGS);
-#undef I8_ARGS
-  return cudaErrorInvalidValue;  // row too wide for shared memory
+  err = tensor_map(&wmap, w8t, N, K, 1, BN);
+  if (err != cudaSuccess) return err;
+  // (as qmm_launch: with emission "only" the output map is never used)
+  err = tensor_map(&omap, out ? out : w8t, out ? M : N, out ? N : K,
+                   out ? 2 : 1, epi == EPI_RES_LN ? bm : 64);
+  if (err != cudaSuccess) return err;
+  const K1Args a{nullptr, nullptr, nullptr,
+                 static_cast<const float*>(bias),
+                 static_cast<const __nv_bfloat16*>(res),
+                 static_cast<const float*>(lns),
+                 static_cast<const float*>(lnb),
+                 static_cast<__nv_bfloat16*>(out),
+                 static_cast<int8_t*>(o8),
+                 static_cast<float*>(os),
+                 static_cast<float*>(stg),
+                 static_cast<float*>(part),
+                 M, N, K, epi, emit, epi == EPI_RES_LN ? ncs : 0, eps,
+                 static_cast<const float*>(cs),
+                 static_cast<const float*>(sx)};
+  err = dispatch_k1<S8, false>(xmap, wmap, omap, a, bm, st);
+  if (err != cudaSuccess || epi == EPI_RES_LN || emit == EMIT_NO) return err;
+  return emit_rows(EmitArgs{o8, os, stg, part, emit}, M, N, st);
 }
 
 const char* qmm_error_string(int err) {

@@ -102,6 +102,24 @@ def to_device(params: Params, device) -> Params:
     return map_tree(lambda t: t.to(device), params)
 
 
+def keep_int8_weights(params: Params) -> Params:
+    """Requantize every matmul weight the int8 mode engages on once, and
+    keep the result on the weight (``ops.qmatmul.keep_int8_weight``), so
+    a forward launches no requantization. In place; returns params."""
+    from ..ops.qmatmul import int8_engages, keep_int8_weight
+
+    def visit(tree):
+        if isinstance(tree, QuantizedTensor):
+            if tree.block_axis == -2 and int8_engages(*tree.shape[-2:],
+                                                      tree.packed):
+                keep_int8_weight(tree)
+        elif isinstance(tree, dict):
+            for v in tree.values():
+                visit(v)
+    visit(params)
+    return params
+
+
 def layer(params: Params, i: int) -> Params:
     """Layer ``i`` of the stacked layer tree (views, no copies)."""
     return map_tree(lambda t: t[i], params["layers"])

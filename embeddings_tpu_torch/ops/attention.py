@@ -14,11 +14,12 @@ all-gathered K/V) and its key-streamed variant
 ``fused_attention_cp_stream`` (K8b).
 
 Each wrapper launches its mask mode of a hand-written kernel on a CUDA
-tensor, or raises: K2 (without emission or int8 scores), K6, K6c and K6ca
-run on the Hopper kernel ``csrc/attention_sm90.cu`` (wgmma, a TMA ring),
-every other mode on ``csrc/attention.cu`` (WMMA); ``attention_kernel``
-routes, and ``fused_attention.routes`` / ``fused_attention_stream.routes``
-count the launches by route. On a CPU tensor each wrapper runs
+tensor, or raises: K2 (without emission or int8 scores), K7, K6, K6c and
+K6ca run on the Hopper kernel ``csrc/attention_sm90.cu`` (wgmma, a TMA
+ring), every other mode on ``csrc/attention.cu`` (WMMA);
+``attention_kernel`` routes, and the ``routes`` counters of
+``fused_attention``, ``fused_attention_bias`` and
+``fused_attention_stream`` count the launches by route. On a CPU tensor each wrapper runs
 its plain PyTorch version, which repeats the kernel's arithmetic step by
 step: exp2 of the clamped scores with no max-subtraction, probabilities
 rounded to the compute dtype before both the PV product and the
@@ -288,7 +289,8 @@ def bias_supported(L: int, H: int, D: int) -> bool:
     """``supported`` + the JAX package's cap on its bias tile: [H, Lq, L]
     f32 at most 8 MB. The cap is the TPU's VMEM budget, kept so the port
     routes as the JAX package does (L <= 1280 at H=12); the CUDA kernel
-    reads the bias from device memory and has no such limit."""
+    streams the bias through shared memory in 128 x 128 tiles and has no
+    such limit."""
     return (supported(L, H, D)
             and H * _query_block_bias(L) * L * 4 <= 8 * 1024 * 1024)
 
@@ -327,8 +329,12 @@ def fused_attention_bias(qkv: torch.Tensor, lengths: torch.Tensor,
     """``fused_attention`` + an additive attention-logit bias (MPNet's
     relative-position table, jina-bert-v2's ALiBi on short rows). bias:
     [H, L, L] f32 from ``prepare_attention_bias`` (log2-scaled,
-    batch-independent). A CUDA tensor launches K7 (``csrc/attention.cu``,
-    bias mode); a CPU tensor runs ``fused_attention_bias_ref``."""
+    batch-independent). A CUDA tensor launches K7
+    (``csrc/attention_sm90.cu``, mode 3: the bias by TMA beside the K/V
+    tiles; a bias larger than half of L2 runs the blocks of one (query
+    block, head) together over the batch; counted in ``launches`` and by
+    kernel in ``routes``); a CPU
+    tensor runs ``fused_attention_bias_ref``."""
     _check_prefix("fused_attention_bias", bias_supported(L, H, D), qkv,
                   lengths, B, L, H, D)
     if tuple(bias.shape) != (H, L, L) or bias.dtype != torch.float32:
@@ -345,9 +351,10 @@ def fused_attention_bias(qkv: torch.Tensor, lengths: torch.Tensor,
     out = torch.empty((B * L, H * D), dtype=qkv.dtype, device=qkv.device)
     if B == 0:
         return out
-    _launch("fused_attention_bias", MODE_BIAS, qkv, out, B, L, H, D,
-            _clamp_hi(L), lengths=lengths, bias=bias)
+    route = _launch("fused_attention_bias", MODE_BIAS, qkv, out, B, L, H,
+                    D, _clamp_hi(L), lengths=lengths, bias=bias)
     fused_attention_bias.launches += 1
+    fused_attention_bias.routes[route] += 1
     return out
 
 
@@ -678,7 +685,7 @@ def _launch_cp(wrapper, q, kv, lengths, B, Lc, L, H, D) -> torch.Tensor:
 MODE_PREFIX, MODE_SEGMENT, MODE_WINDOW = 0, 1, 2
 MODE_BIAS, MODE_STREAM, MODE_ALIBI, MODE_BAND, MODE_CAUSAL = 3, 4, 5, 6, 7
 MODE_CAUSAL_ALIBI = 8
-SM90_MODES = (MODE_PREFIX, MODE_STREAM, MODE_ALIBI, MODE_CAUSAL,
+SM90_MODES = (MODE_PREFIX, MODE_BIAS, MODE_STREAM, MODE_ALIBI, MODE_CAUSAL,
               MODE_CAUSAL_ALIBI)
 
 
@@ -687,10 +694,10 @@ def attention_kernel(mode: int, D: int, emit: str = "no", cp: bool = False,
     """The hand-written kernel an attention launch takes: "sm90"
     (``csrc/attention_sm90.cu``: wgmma, a TMA ring, probabilities in
     registers) for the fused-layout modes without emission or int8 scores,
-    0, 4, 5, 7 and 8 (K2, K6 plain and ALiBi, K6c, K6ca); "wmma"
-    (``csrc/attention.cu``) for every other: K4, K5, K6w, K7, the
-    emission modes K2e / K4e, K2i8, and mode 4 in the CP operand layout
-    (K8a, K8b). No fallback: a route's failed build or refused launch
+    0, 3, 4, 5, 7 and 8 (K2, K7, K6 plain and ALiBi, K6c, K6ca); "wmma"
+    (``csrc/attention.cu``) for every other: K4, K5, K6w, the emission
+    modes K2e / K4e, K2i8, and mode 4 in the CP operand layout (K8a,
+    K8b). No fallback: a route's failed build or refused launch
     raises."""
     if mode not in range(9):
         raise ValueError(f"no attention mode {mode}")
@@ -705,8 +712,8 @@ def attention_kernel(mode: int, D: int, emit: str = "no", cp: bool = False,
 
 def sm90_warpgroups(L: int) -> int:
     """Consumer warpgroups of a Hopper-kernel block (64 query rows each):
-    one where a row fits in 64 queries (K2's short rows), else two (the
-    kernel's host code makes the same choice)."""
+    one where a row fits in 64 queries (K2's and K7's short rows), else
+    two (the kernel's host code makes the same choice)."""
     return 1 if L <= 64 else 2
 
 
@@ -724,7 +731,8 @@ def _launch(what, mode, qkv, out, B, L, H, D, hi, *, lengths=None,
         lib = _lib90()
         status = lib.attn90_launch(
             qkv.data_ptr(), lengths.data_ptr(),
-            None if slopes is None else slopes.data_ptr(), out.data_ptr(),
+            None if slopes is None else slopes.data_ptr(),
+            None if bias is None else bias.data_ptr(), out.data_ptr(),
             mode, B, L, H, D, _scale(D), hi, stream)
         check(status, lib.attn90_error_string, what)
         return route
@@ -739,7 +747,7 @@ def _launch(what, mode, qkv, out, B, L, H, D, hi, *, lengths=None,
         q_ptr, kv_ptr, ldq, ldkv = (q.data_ptr(), qkv.data_ptr(),
                                     q.stride(0), 2 * E)
     ptr = [None if t is None else t.data_ptr()
-           for t in (lengths, seg, kbs, kbe, bias, out, o8, os)]
+           for t in (lengths, seg, kbs, kbe, out, o8, os)]
     status = lib.attn_launch(
         q_ptr, kv_ptr, *ptr, mode, EMITS.index(emit), int(i8s), B, L, Lq, H,
         D, W, ldq, ldkv, _scale(D), hi, stream)
@@ -933,9 +941,9 @@ def fused_attention_segmented_blockskip(
 # K8b launch adds one (K6c to fused_attention_stream.causal_launches, K6ca
 # to its causal_alibi_launches); K2 and K4 also count their emitting
 # launches (K2e / K4e) in both_launches and only_launches, K2 its
-# int8-scores launches (K2i8) in i8s_launches; K2's and K6's launches
-# also count by kernel in ``routes`` ("sm90" / "wmma", attention_kernel);
-# callers reset them to 0 around the run they measure
+# int8-scores launches (K2i8) in i8s_launches; K2's, K6's and K7's
+# launches also count by kernel in ``routes`` ("sm90" / "wmma",
+# attention_kernel); callers reset them to 0 around the run they measure
 fused_attention.launches = 0
 fused_attention.routes = collections.Counter()
 fused_attention_stream.routes = collections.Counter()
@@ -944,6 +952,7 @@ fused_attention.i8s_launches = 0
 fused_attention_segmented.both_launches = 0
 fused_attention_segmented.only_launches = 0
 fused_attention_bias.launches = 0
+fused_attention_bias.routes = collections.Counter()
 fused_attention_stream.launches = 0
 fused_attention_stream.causal_launches = 0
 fused_attention_stream.causal_alibi_launches = 0
@@ -959,7 +968,7 @@ def _lib90() -> ctypes.CDLL:
     lib = _cuda.load("attention_sm90")
     if not getattr(lib, "_typed", False):
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.attn90_launch.argtypes = [p] * 4 + [i] * 5 + [f, f, p]
+        lib.attn90_launch.argtypes = [p] * 5 + [i] * 5 + [f, f, p]
         lib.attn90_launch.restype = i
         lib.attn90_error_string.argtypes = [i]
         lib.attn90_error_string.restype = ctypes.c_char_p
@@ -972,7 +981,7 @@ def _lib() -> ctypes.CDLL:
     lib = _cuda.load("attention")
     if not getattr(lib, "_typed", False):
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.attn_launch.argtypes = [p] * 10 + [i] * 11 + [f, f, p]
+        lib.attn_launch.argtypes = [p] * 9 + [i] * 11 + [f, f, p]
         lib.attn_launch.restype = i
         lib.attn_error_string.argtypes = [i]
         lib.attn_error_string.restype = ctypes.c_char_p

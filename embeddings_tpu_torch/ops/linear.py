@@ -5,8 +5,10 @@ int8 activations: ``ActQ`` inputs, emission, the link switch).
 ``linear`` is the single entry point the model code calls. It routes:
 
 - quantized weights (``QuantizedTensor``) with ``use_kernels`` to
-  ``ops.qmatmul.qmatmul``: kernel K1 (K3 with ``int8``) on a CUDA tensor,
-  its plain version on a CPU tensor (the same arithmetic);
+  ``ops.qmatmul.qmatmul``: kernel K1 (K3 with ``int8``, reading the
+  weight's kept int8 requantization ``w.int8`` where the Engine made one)
+  on a CUDA tensor, its plain version on a CPU tensor (the same
+  arithmetic);
 - quantized weights without ``use_kernels`` to the plain f32 reference
   math the JAX package uses off the TPU: dequantize, f32 matmul (with
   ``int8``, ``_int8_emulated_dot``), exact-erf GELU;
@@ -175,7 +177,7 @@ def quantized_matmul(x2d: torch.Tensor | ActQ, w: QuantizedTensor,
                       packed=w.packed, out_dtype=out_dtype,
                       int8_compute=i8 or int8,
                       x_scale=x2d.s.reshape(M) if prequant else None,
-                      emit_quantized=emit)
+                      emit_quantized=emit, int8_weight=w.int8)
         if emit == "no":
             return torch.relu(out) if act == "relu" else out
         if emit == "only":
@@ -259,7 +261,7 @@ def linear_residual_ln(x: torch.Tensor | ActQ, w, b: torch.Tensor,
                       packed=w.packed, out_dtype=out_dtype,
                       int8_compute=i8 or int8,
                       x_scale=x.s.reshape(M) if prequant else None,
-                      emit_quantized=emit)
+                      emit_quantized=emit, int8_weight=w.int8)
         if emit == "both":
             return (out[0].reshape(*lead, N),
                     _reshape_actq(ActQ(out[1], out[2]), *lead))

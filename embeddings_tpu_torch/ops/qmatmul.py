@@ -29,6 +29,14 @@ version ``qmatmul_int8_ref``, the arithmetic of the TPU's ``_qmm_int8``:
 - s8 x s8 -> s32 product, then ``acc * cs``, then ``acc * sx + bias``,
   then K1's epilogues without a second bias add.
 
+On the card K3 is K1's wgmma kernel instantiated for int8 operands
+(``k3_tile`` picks its tile as ``k1_tile`` does K1's), and the
+requantized weight is made once per weight, not once per call
+(``requantize_int8``, kept on the ``QuantizedTensor`` by
+``keep_int8_weight`` when the Engine is built with ``int8_compute``; a
+call on a weight without it requantizes for that call). The JAX package
+requantizes each weight tile on every call; the values are the same.
+
 Emission (``emit_quantized``, K1e / K3e, the TPU's ``_emit``): "both"
 also returns the f32 epilogue output quantized per row, ``so =
 max(max|acc_row|, 1e-12) * (1/127)``, ``o8 = round(acc * (1/so))``, as
@@ -47,6 +55,7 @@ import ctypes
 import functools
 import logging
 
+import numpy as np
 import torch
 
 from .quant import EMITS, NF4_TABLE, PACK4_KINDS, QK, QuantizedTensor, \
@@ -62,16 +71,10 @@ _KIND_ID = {"q4_0": 0, "q4_1": 1, "q8_0": 2, "nf4": 3}
 K1_BN, K1_CLUSTER_MAX, K1_CLUSTER_BM256 = 128, 16, 8
 
 
-def k1_tile(M: int, N: int, epilogue: str, num_sms: int) -> tuple[int, int]:
-    """K1's tile for an [M, K] x [K, N] call on a card of ``num_sms`` SMs:
-    (BM, cluster size). BM = 256 halves the weight dequantization per
-    multiply-add against 128, but where its tiles (row tiles of whole
-    clusters, for the LayerNorm epilogue) make fewer than two waves of
-    the card, BM = 128 fills it instead (context parallelism's shards).
-    The cluster is 1 except with the residual-LayerNorm epilogue, whose
-    rows are one cluster of ceil(N / 128) blocks; clusters of more than 8
-    blocks take 128 rows (a block of 256 would not fit shared memory), and
-    rows wider than 16 blocks are refused."""
+def _wgmma_tile(M: int, N: int, epilogue: str,
+                num_sms: int) -> tuple[int, int]:
+    """(BM, cluster size) of the wgmma kernel (K1 and K3): see
+    ``k1_tile``."""
     n_tiles = -(-N // K1_BN)
     if epilogue == "bias_residual_ln":
         if n_tiles > K1_CLUSTER_MAX:
@@ -88,12 +91,45 @@ def k1_tile(M: int, N: int, epilogue: str, num_sms: int) -> tuple[int, int]:
     return (256 if units >= 2 * slots else 128), cs
 
 
+def _route_name(bm: int, cs: int, epilogue: str) -> str:
+    return f"bm{bm}" + (f"_cluster{cs}" if epilogue == "bias_residual_ln"
+                        else "")
+
+
+def k1_tile(M: int, N: int, epilogue: str, num_sms: int) -> tuple[int, int]:
+    """K1's tile for an [M, K] x [K, N] call on a card of ``num_sms`` SMs:
+    (BM, cluster size). BM = 256 halves the weight dequantization per
+    multiply-add against 128, but where its tiles (row tiles of whole
+    clusters, for the LayerNorm epilogue) make fewer than two waves of
+    the card, BM = 128 fills it instead (context parallelism's shards).
+    The cluster is 1 except with the residual-LayerNorm epilogue, whose
+    rows are one cluster of ceil(N / 128) blocks; clusters of more than 8
+    blocks take 128 rows (a block of 256 would not fit shared memory), and
+    rows wider than 16 blocks are refused."""
+    return _wgmma_tile(M, N, epilogue, num_sms)
+
+
 def k1_route(M: int, N: int, epilogue: str, num_sms: int) -> str:
     """The name of K1's tile configuration for a call (``k1_tile``), as
     counted in ``qmatmul.routes``."""
-    bm, cs = k1_tile(M, N, epilogue, num_sms)
-    return f"bm{bm}" + (f"_cluster{cs}" if epilogue == "bias_residual_ln"
-                        else "")
+    return _route_name(*k1_tile(M, N, epilogue, num_sms), epilogue)
+
+
+def k3_tile(M: int, N: int, epilogue: str, num_sms: int) -> tuple[int, int]:
+    """K3's tile (BM, cluster size): K1's kernel with int8 operands, so
+    K1's shared-memory budget and cluster rules hold unchanged and the
+    same choice of rows follows. BM = 256 halves the weight tile's reads
+    per product against 128 (K1's reason, its dequantization, is gone: the
+    weight arrives requantized), and 128 fills the card where 256 would
+    leave fewer than two waves."""
+    return _wgmma_tile(M, N, epilogue, num_sms)
+
+
+def k3_route(M: int, N: int, epilogue: str, num_sms: int) -> str:
+    """The name of K3's tile configuration for a call (``k3_tile``), as
+    counted in ``qmatmul_int8.routes``: the kernel
+    ``qmm_wgmma_kernel<4, false, BM, LN>``."""
+    return _route_name(*k3_tile(M, N, epilogue, num_sms), epilogue)
 
 log = logging.getLogger("embeddings_tpu_torch.qmatmul")
 
@@ -297,7 +333,7 @@ def qmatmul(x: torch.Tensor, codes: torch.Tensor, scales: torch.Tensor,
             ln_bias: torch.Tensor | None = None, ln_eps: float = 1e-12,
             packed: bool = False, out_dtype=None,
             int8_compute: bool = False, x_scale: torch.Tensor | None = None,
-            emit_quantized: str = "no"):
+            emit_quantized: str = "no", int8_weight=None):
     """x [M, K] @ dequant(codes [K, N] | packed [K/2, N], scales [K//32, N])
     -> epilogue -> [M, N] in out_dtype (x.dtype by default).
 
@@ -316,7 +352,9 @@ def qmatmul(x: torch.Tensor, codes: torch.Tensor, scales: torch.Tensor,
     shapes run the bf16 mode with a warning, as in the JAX package. x may
     then be int8 with its row scales ``x_scale`` [M] (pre-quantized, K3x;
     the output is bf16 unless ``out_dtype`` says otherwise); an int8 x at a
-    shape where int8 does not engage raises.
+    shape where int8 does not engage raises. ``int8_weight``: the weight's
+    kept requantization ``(w8t [N, K] int8, cs [N] f32)`` from
+    ``requantize_int8`` (see ``qmatmul_int8``).
 
     emit_quantized: "no" | "both" | "only" (K1e / K3e, where
     ``emit_fits``): also, or instead, return the epilogue output
@@ -337,7 +375,8 @@ def qmatmul(x: torch.Tensor, codes: torch.Tensor, scales: torch.Tensor,
     if int8_compute:
         if int8_engages(K, N, packed):
             return qmatmul_int8(x, codes, scales, mins, bias,
-                                x_scale=x_scale, **kw)
+                                x_scale=x_scale, int8_weight=int8_weight,
+                                **kw)
         log.warning("int8_compute requested but (K=%d, N=%d) has a ragged "
                     "lane count - falling back to bf16 compute for this "
                     "matmul", K, N)
@@ -372,19 +411,28 @@ def qmatmul_int8(x: torch.Tensor, codes: torch.Tensor, scales: torch.Tensor,
                  ln_bias: torch.Tensor | None = None, ln_eps: float = 1e-12,
                  packed: bool = False, out_dtype=None,
                  x_scale: torch.Tensor | None = None,
-                 emit_quantized: str = "no"):
+                 emit_quantized: str = "no", int8_weight=None):
     """The int8 mode of ``qmatmul`` (same arguments and tensor types).
 
-    A CUDA tensor launches K3 (``csrc/qmatmul.cu``): three kernels on the
-    current stream — the weight's per-column requantization into an int8
-    [N, K] scratch, the rows' quantization into an int8 [M, K] scratch
-    (skipped for an int8 x with ``x_scale``: K3x), and the s8 x s8 -> s32
-    tensor-core product with the rescale and the epilogue (with its
-    emission, K3e: in the LayerNorm walk, or through ``emit_rows_kernel``
-    after the others). A CPU tensor runs ``qmatmul_int8_ref``."""
+    A CUDA tensor launches K3 (``csrc/qmatmul.cu``) on the current
+    stream: the rows' quantization (``quantize_rows_int8``; none for an
+    int8 x with ``x_scale``: K3x), then K1's wgmma kernel instantiated for
+    int8 operands (tile by ``k3_tile``, counted in ``routes``) with the
+    rescale and the epilogue (and its emission, K3e: in the LayerNorm
+    cluster, or through ``emit_rows_kernel`` after the others). The weight
+    is read as ``int8_weight``, its kept requantization ``(w8t [N, K]
+    int8, cs [N] f32)`` (``keep_int8_weight``); without it the call
+    requantizes the weight first (``requantize_int8``, one more launch).
+    A CPU tensor runs ``qmatmul_int8_ref``, which requantizes."""
     M, K, N, epilogue = _resolve(x, codes, scales, mins, bias, kind,
                                  epilogue, residual, ln_scale, ln_bias,
                                  packed, emit_quantized, x_scale)
+    if int8_weight is not None and (
+            tuple(int8_weight[0].shape) != (N, K)
+            or tuple(int8_weight[1].shape) != (N,)):
+        raise ValueError(f"int8_weight must be (w8t [N, K]={(N, K)}, cs "
+                         f"[N]), got {tuple(int8_weight[0].shape)}, "
+                         f"{tuple(int8_weight[1].shape)}")
     kw = dict(kind=kind, epilogue=epilogue, residual=residual,
               ln_scale=ln_scale, ln_bias=ln_bias, ln_eps=ln_eps,
               packed=packed, out_dtype=out_dtype,
@@ -399,8 +447,15 @@ def qmatmul_int8(x: torch.Tensor, codes: torch.Tensor, scales: torch.Tensor,
     if M == 0:
         return _emit_result(out, em, emit_quantized)
     dev = x.device
-    w8t = torch.empty((N, K), dtype=torch.int8, device=dev)
-    cs = torch.empty(N, dtype=torch.float32, device=dev)
+    w8t, cs = (int8_weight if int8_weight is not None
+               else requantize_int8(codes, scales, mins, kind=kind,
+                                    packed=packed))
+    for name, t, dtype in (("w8t", w8t, torch.int8), ("cs", cs,
+                                                       torch.float32)):
+        if t.device != dev or t.dtype != dtype or not t.is_contiguous() \
+                or t.data_ptr() % 16:
+            raise TypeError(f"int8_weight's {name} must be contiguous "
+                            f"{dtype} on {dev}, 16-byte aligned")
     if prequant:
         sx = x_scale.reshape(M)
         if sx.dtype != torch.float32 or sx.device != dev \
@@ -408,22 +463,103 @@ def qmatmul_int8(x: torch.Tensor, codes: torch.Tensor, scales: torch.Tensor,
             raise TypeError("x_scale must be contiguous f32 on x's device")
         q = x
     else:
-        q = torch.empty((M, K), dtype=torch.int8, device=dev)
-        sx = torch.empty(M, dtype=torch.float32, device=dev)
+        q, sx = quantize_rows_int8(x)
+    bm, _ = k3_tile(M, N, epilogue, _sm_count(dev))
     lib = _lib()
     status = lib.qmm_int8_launch(
-        ptr["x"], ptr["codes"], ptr["scales"], ptr.get("mins"), ptr["bias"],
-        ptr.get("residual"), ptr.get("ln_scale"), ptr.get("ln_bias"),
-        w8t.data_ptr(), cs.data_ptr(), q.data_ptr(), sx.data_ptr(),
-        _ptr(out), *_emit_ptrs(em), M, N, K, _KIND_ID[kind], int(packed),
-        EPILOGUES.index(epilogue), EMITS.index(emit_quantized),
-        int(prequant), float(ln_eps), torch.cuda.current_stream(dev).cuda_stream)
+        q.data_ptr(), sx.data_ptr(), w8t.data_ptr(), cs.data_ptr(),
+        ptr["bias"], ptr.get("residual"), ptr.get("ln_scale"),
+        ptr.get("ln_bias"), _ptr(out), *_emit_ptrs(em), M, N, K,
+        EPILOGUES.index(epilogue), EMITS.index(emit_quantized), bm,
+        float(ln_eps), torch.cuda.current_stream(dev).cuda_stream)
     from ._cuda import check
     check(status, lib.qmm_error_string, "qmatmul_int8")
     _count(qmatmul_int8, (K, N, epilogue), emit_quantized, prequant)
+    qmatmul_int8.routes[k3_route(M, N, epilogue, _sm_count(dev))] += 1
     if prequant:
         qmatmul_int8.x8_launches += 1
     return _emit_result(out, em, emit_quantized)
+
+
+def requantize_int8(codes: torch.Tensor, scales: torch.Tensor,
+                    mins: torch.Tensor | None, *, kind: str,
+                    packed: bool):
+    """A quantized weight [K, N] -> K3's operand: (w8t [N, K] int8,
+    contiguous along K, cs [N] f32), ``requantize_weight``'s values
+    transposed. A CUDA tensor launches ``requant_kernel`` (counted in
+    ``launches``); a CPU tensor runs ``requantize_weight``."""
+    K, N = codes.shape
+    K *= 2 if packed else 1
+    if codes.device.type == "cpu":
+        w8, cs = requantize_weight(codes, scales, mins, kind, packed)
+        return w8.t().contiguous(), cs.reshape(N)
+    if K % (64 if packed else QK) or tuple(scales.shape) != (K // QK, N):
+        raise ValueError(f"codes {tuple(codes.shape)} / scales "
+                         f"{tuple(scales.shape)} are no [K, N] weight "
+                         f"(packed={packed})")
+    for name, t in (("codes", codes), ("scales", scales), ("mins", mins)):
+        if t is not None and not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if kind == "q4_1" and mins is None:
+        raise ValueError("q4_1 needs mins [K/32, N]")
+    dev = codes.device
+    w8t = torch.empty((N, K), dtype=torch.int8, device=dev)
+    cs = torch.empty(N, dtype=torch.float32, device=dev)
+    lib = _lib()
+    status = lib.qmm_requant_launch(
+        codes.data_ptr(), scales.data_ptr(), _ptr(mins), w8t.data_ptr(),
+        cs.data_ptr(), N, K, _KIND_ID[kind], int(packed),
+        torch.cuda.current_stream(dev).cuda_stream)
+    from ._cuda import check
+    check(status, lib.qmm_error_string, "requantize_int8")
+    requantize_int8.launches += 1
+    return w8t, cs
+
+
+def quantize_rows_int8(x: torch.Tensor):
+    """x [M, K] -> K3's row operand: (q [M, K] int8, sx [M] f32),
+    ``quantize_rows``' values. A CUDA tensor (bf16) launches
+    ``quant_rows_kernel`` (counted in ``launches``); a CPU tensor runs
+    ``quantize_rows``."""
+    M, K = x.shape
+    if x.device.type == "cpu":
+        q, sx = quantize_rows(x)
+        return q, sx.reshape(M)
+    if x.dtype != torch.bfloat16 or not x.is_contiguous() or x.data_ptr() % 16:
+        raise TypeError(f"the CUDA row quantization takes contiguous bf16 "
+                        f"(16-byte aligned), got {x.dtype}")
+    q = torch.empty((M, K), dtype=torch.int8, device=x.device)
+    sx = torch.empty(M, dtype=torch.float32, device=x.device)
+    if M == 0:
+        return q, sx
+    lib = _lib()
+    status = lib.qmm_quant_rows_launch(
+        x.data_ptr(), q.data_ptr(), sx.data_ptr(), M, K,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    from ._cuda import check
+    check(status, lib.qmm_error_string, "quantize_rows_int8")
+    quantize_rows_int8.launches += 1
+    return q, sx
+
+
+def keep_int8_weight(qt: QuantizedTensor) -> QuantizedTensor:
+    """Requantize a [K, N] (or layer-stacked [..., K, N]) matmul weight
+    for K3 once and keep it on ``qt.int8``: (w8t [..., N, K] int8, cs
+    [..., N] f32), on the weight's device (``requantize_int8`` per
+    layer). Slicing the weight (``qt.map``) slices them along. Returns
+    qt."""
+    if qt.block_axis != -2:
+        raise ValueError("keep_int8_weight takes a [K, N] matmul weight")
+    lead = qt.codes.shape[:-2]
+    parts = []
+    for idx in np.ndindex(*lead):
+        one = qt.map(lambda t, i=idx: t[i])
+        parts.append(requantize_int8(one.codes, one.scales, one.mins,
+                                     kind=qt.kind, packed=qt.packed))
+    K, N = qt.shape[-2:]
+    qt.int8 = (torch.stack([w for w, _ in parts]).reshape(*lead, N, K),
+               torch.stack([c for _, c in parts]).reshape(*lead, N))
+    return qt
 
 
 def _count(fn, shape, emit: str, x8: bool = False) -> None:
@@ -435,10 +571,11 @@ def _count(fn, shape, emit: str, x8: bool = False) -> None:
 # launch counters: every successful K1 (K3) launch adds one, in total,
 # per (K, N, epilogue) in ``shapes`` and per (K, N, epilogue, emit, int8
 # x) in ``modes``, and one to both_launches / only_launches when it emits
-# (K1e / K3e); K1's ``routes`` counts its launches by tile configuration
-# (``k1_route``); K3's x8_launches counts the launches on a pre-quantized
-# int8 x (K3x, no row quantization). Callers reset them to 0 around the
-# run they measure.
+# (K1e / K3e); ``routes`` counts K1's (K3's) launches by tile
+# configuration (``k1_route``, ``k3_route``); K3's x8_launches counts the
+# launches on a pre-quantized int8 x (K3x, no row quantization); K3's
+# weight requantizations and row quantizations count on their wrappers.
+# Callers reset them to 0 around the run they measure.
 qmatmul.launches = 0
 qmatmul.shapes = collections.Counter()
 qmatmul.modes = collections.Counter()
@@ -449,6 +586,9 @@ qmatmul_int8.shapes = collections.Counter()
 qmatmul_int8.modes = collections.Counter()
 qmatmul_int8.both_launches = qmatmul_int8.only_launches = 0
 qmatmul_int8.x8_launches = 0
+qmatmul_int8.routes = collections.Counter()
+requantize_int8.launches = 0
+quantize_rows_int8.launches = 0
 
 
 def _ptr(t):
@@ -534,8 +674,12 @@ def _lib() -> ctypes.CDLL:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.qmm_launch.argtypes = [p] * 13 + [i] * 8 + [f, p]
         lib.qmm_launch.restype = i
-        lib.qmm_int8_launch.argtypes = [p] * 17 + [i] * 8 + [f, p]
+        lib.qmm_int8_launch.argtypes = [p] * 13 + [i] * 6 + [f, p]
         lib.qmm_int8_launch.restype = i
+        lib.qmm_requant_launch.argtypes = [p] * 5 + [i] * 4 + [p]
+        lib.qmm_requant_launch.restype = i
+        lib.qmm_quant_rows_launch.argtypes = [p] * 3 + [i] * 2 + [p]
+        lib.qmm_quant_rows_launch.restype = i
         lib.qmm_error_string.argtypes = [i]
         lib.qmm_error_string.restype = ctypes.c_char_p
         lib._typed = True

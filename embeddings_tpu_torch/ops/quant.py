@@ -40,17 +40,21 @@ class QuantizedTensor:
     matmul weight [K, N] blocked along K; -1: an embedding table [V, E]
     blocked along E. ``packed``: q4 codes stored two per byte as uint8
     [..., K/2, N] (or [..., V, E/2] for a table) in the group-64 layout.
+    ``int8``: None, or the int8 mode's kept requantization of a matmul
+    weight, (w8t [..., N, K] int8, cs [..., N] f32)
+    (``ops.qmatmul.keep_int8_weight``).
     """
 
     def __init__(self, codes: torch.Tensor, scales: torch.Tensor,
                  mins: torch.Tensor | None, kind: str, block_axis: int = -2,
-                 packed: bool = False):
+                 packed: bool = False, int8=None):
         self.codes = codes
         self.scales = scales
         self.mins = mins
         self.kind = kind
         self.block_axis = block_axis
         self.packed = packed
+        self.int8 = int8
 
     @property
     def shape(self) -> tuple[int, ...]:
@@ -62,11 +66,13 @@ class QuantizedTensor:
         return s
 
     def map(self, fn) -> "QuantizedTensor":
-        """Apply ``fn`` to codes, scales and mins (e.g. ``.to(device)`` or
-        a layer index)."""
+        """Apply ``fn`` to codes, scales and mins, and to the kept int8
+        weight (e.g. ``.to(device)`` or a layer index)."""
         return QuantizedTensor(fn(self.codes), fn(self.scales),
                                None if self.mins is None else fn(self.mins),
-                               self.kind, self.block_axis, self.packed)
+                               self.kind, self.block_axis, self.packed,
+                               None if self.int8 is None
+                               else tuple(fn(t) for t in self.int8))
 
     def __repr__(self) -> str:
         return (f"QuantizedTensor(kind={self.kind}, shape={self.shape}, "

@@ -12,7 +12,8 @@ the bucketed and the token-packed batch schedulers — the port of
   bert_n_max_tokens             Engine.max_seq_len
 
 The forward runs eagerly, one Python loop over the layers; on a CUDA device
-every quantized matmul (K1, or K3 with ``EngineConfig.int8_compute``) and
+every quantized matmul (K1, or K3 with ``EngineConfig.int8_compute``,
+whose int8 weights the Engine requantizes once, when it is built) and
 the attention (K2 on padded batches, K7 with MPNet's or short rows' ALiBi
 bias, K6 on long rows and long ALiBi rows, K6w on ModernBERT's local
 layers, K6c on causal Qwen2 rows, K4/K5 on packed rows) launch the port's
@@ -120,6 +121,9 @@ class Engine:
         if mesh is None:
             # single device: merge q/k/v into one matmul
             self.params = P.to_device(P.fuse_qkv(params), self.device)
+            if self._int8 and self._use_kernels:
+                # K3's int8 weights, requantized once here, not per call
+                P.keep_int8_weights(self.params)
             return
         from ..parallel.context import SEQ_AXIS, make_cp_forward
         from ..parallel.mesh import DATA_AXIS

@@ -103,8 +103,9 @@ WRAPPER_LAUNCHES = (
 @pytest.mark.parametrize("mode,emit,cp,i8s", WRAPPER_LAUNCHES)
 def test_attention_kernel_routes(mode, emit, cp, i8s, D):
     """The Hopper kernel takes exactly the fused-layout modes without
-    emission or int8 scores (0, 4, 5, 7, 8); the WMMA kernel the rest."""
-    want = ("sm90" if mode in (0, 4, 5, 7, 8) and emit == "no" and not cp
+    emission or int8 scores (0, 3, 4, 5, 7, 8); the WMMA kernel the
+    rest."""
+    want = ("sm90" if mode in (0, 3, 4, 5, 7, 8) and emit == "no" and not cp
             and not i8s else "wmma")
     assert tattn.attention_kernel(mode, D, emit, cp, i8s) == want
     assert tattn.sm90_warpgroups(64) == 1 and tattn.sm90_warpgroups(72) == 2

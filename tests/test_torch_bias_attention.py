@@ -6,9 +6,11 @@ PyTorch versions the port runs on a CPU tensor) are held against
 ``embeddings_tpu.ops.attention.fused_attention_bias`` and
 ``fused_attention_stream`` in Pallas interpret mode on the same
 numpy-seeded qkv and lengths (an all-pad row, ragged rows, a full row).
-K7 takes an MPNet-like table bias and ALiBi's bias; K6 its plain and ALiBi
-modes at BK 128, 256 and 512, and at L=384 with lengths on the CUDA
-kernel's 128-key tile edges ({0, 1, 63, 64, 65, 127, 128, 129, L}). Each side builds its own bias operand from
+K7 takes an MPNet-like table bias and ALiBi's bias, also at L=200 and
+L=384 with lengths on the Hopper kernel's tile edges (128 queries, 128
+keys); K6 its plain and ALiBi modes at BK 128, 256 and 512, and at L=384
+with lengths on the CUDA kernel's 128-key tile edges ({0, 1, 63, 64, 65,
+127, 128, 129, L}). Each side builds its own bias operand from
 the same [1, H, L, L] array (the port's layout is [H, L, L], the TPU's
 [nQ, H, Lq, L]): the outputs are compared, not the operand.
 
@@ -77,8 +79,11 @@ def _port_bias(qkv, lengths, bias, B, L, H, D, dtype):
     return out.float().numpy()
 
 
+# the last three: 9 rows (lengths EDGES and L) at the Hopper kernel's
+# edges, L=200 (ragged, under two 128-row query blocks) and L=384
 K7_CASES = [(3, 16, 2, 64), (2, 32, 4, 32), (2, 24, 1, 128),
-            (2, 384, 1, 128)]
+            (2, 384, 1, 128), (9, 200, 2, 64), (9, 384, 2, 64),
+            (9, 384, 4, 32)]
 
 
 @pytest.mark.parametrize("kind", ["table", "alibi"])

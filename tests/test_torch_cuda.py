@@ -14,10 +14,13 @@ the bf16 rounding of the output differ. K4-K7, K6w, K6c and K6ca as K2;
 K6c's and K6ca's query rows that see fewer than 64 keys (the first rows
 of every sequence) also allow one bf16 flip of a probability, which
 moves an output by at most 2^-6 of the largest |v| among those keys
-(``_causal_close``). K2, K6, K6c and K6ca run on the Hopper kernel
+(``_causal_close``). K2, K7, K6, K6c and K6ca run on the Hopper kernel
 (``csrc/attention_sm90.cu``): ``test_sm90_attention_matches_plain``
 holds each of its modes at lengths on its tile edges and checks the
-launches' route.
+launches' route. K3 is K1's wgmma kernel on int8 operands:
+``test_int8_operands_bit_for_bit`` holds its kept weight and its row
+quantization to the plain version's bits, ``test_qmatmul_int8_tiles_
+match_plain`` its tile configurations (``k3_tile``) at main-path sizes.
 """
 
 import numpy as np
@@ -107,8 +110,8 @@ def test_qmatmul_int8_kernel_matches_plain(cuda, kind, packed, epilogue, M,
 
 @pytest.mark.parametrize("kind", ["q4_0", "q8_0", "nf4"])
 def test_qmatmul_int8_kernel_k_tail(cuda, kind):
-    """K = 96: the last 64-byte chunk of K is half empty (K % 32 == 0 is
-    all the unpacked int8 mode needs)."""
+    """K = 96: the kernel's one 128-value chunk of K is a quarter empty
+    (K % 32 == 0 is all the unpacked int8 mode needs)."""
     rng = np.random.default_rng(96)
     w = rng.standard_normal((96, 256), dtype=np.float32) * np.float32(0.02)
     qt = quantize(w, kind).map(lambda t: t.to(cuda))
@@ -350,15 +353,17 @@ def test_causal_alibi_attention_kernel_matches_plain(cuda, B, L, H, D, BK):
 # keys), clipped to L, and a full row
 EDGES = (0, 1, 63, 64, 65, 127, 128, 129)
 SM90_CASES = [(0, 16), (0, 72), (0, 200), (0, 512), (4, 384), (5, 384),
-              (7, 384), (8, 384), (4, 512), (7, 512)]
+              (7, 384), (8, 384), (4, 512), (7, 512), (3, 48), (3, 200),
+              (3, 384)]
 
 
 @pytest.mark.parametrize("H,D", [(4, 32), (2, 64), (16, 64), (12, 128)])
 @pytest.mark.parametrize("mode,L", SM90_CASES)
 def test_sm90_attention_matches_plain(cuda, mode, L, H, D):
     """The Hopper kernel (csrc/attention_sm90.cu) in each of its modes, K2
-    (0), K6 plain (4) and ALiBi (5), K6c (7), K6ca (8), against its plain
-    version at lengths on its tile edges, counted on the "sm90" route."""
+    (0), K7 (3, with a table bias), K6 plain (4) and ALiBi (5), K6c (7),
+    K6ca (8), against its plain version at lengths on its tile edges,
+    counted on the "sm90" route."""
     from embeddings_tpu_torch.ops.alibi import alibi_slopes
     rng = np.random.default_rng(L + D + mode)
     lengths = [min(n, L) for n in EDGES] + [L]
@@ -370,16 +375,22 @@ def test_sm90_attention_matches_plain(cuda, mode, L, H, D):
     if mode == 0:
         wrapper, kw = fused_attention, dict(B=B, L=L, H=H, D=D)
         plain = fused_attention_ref
+    elif mode == 3:
+        bias = A.prepare_attention_bias(_bias("table", L, H, rng, cuda), L)
+        wrapper, plain = A.fused_attention_bias, A.fused_attention_bias_ref
+        kw = dict(B=B, L=L, H=H, D=D)
+        qkv = (qkv, lens, bias)
     else:
         wrapper, plain = A.fused_attention_stream, \
             A.fused_attention_stream_ref
         kw = dict(B=B, L=L, H=H, D=D, BK=128, causal=mode in (7, 8),
                   alibi_slopes=alibi_slopes(H) if mode in (5, 8) else None)
+    ops = qkv if mode == 3 else (qkv, lens)
     before = dict(wrapper.routes)
-    got = wrapper(qkv, lens, **kw)
+    got = wrapper(*ops, **kw)
     assert wrapper.routes["sm90"] == before.get("sm90", 0) + 1
     assert wrapper.routes["wmma"] == before.get("wmma", 0)
-    ref = plain(qkv, lens, **kw)
+    ref = plain(*ops, **kw)
     if mode in (7, 8):
         _causal_close(got, ref, qkv, lens, B, L, H, D)
     else:
@@ -424,6 +435,86 @@ def test_qmatmul_tiles_match_plain(cuda, M, K, N, epilogue, emit):
     got = qmatmul(*args, **kw)
     ref = qmatmul_ref(*args, **kw)
     assert qmatmul.routes[route] == before + 1
+    if emit == "no":
+        _close(got, ref, 2 ** -7, 1e-3)
+        return
+    if emit == "both":
+        _close(got[0], ref[0], 2 ** -7, 1e-3)
+    assert (got[-2].int() - ref[-2].int()).abs().max() <= 1
+    assert ((got[-1] - ref[-1]).abs() / ref[-1]).max() <= 1e-4
+
+
+@pytest.mark.parametrize("kind,packed", [
+    ("q4_0", False), ("q4_0", True), ("q4_1", False), ("q4_1", True),
+    ("q8_0", False), ("nf4", False), ("nf4", True)])
+def test_int8_operands_bit_for_bit(cuda, kind, packed):
+    """K3's operands on the card equal the plain version's bit for bit:
+    the kept weight (``requantize_int8``: w8t [N, K], cs [N]) against
+    ``requantize_weight``, the rows (``quantize_rows_int8``) against
+    ``quantize_rows``, at K off the kernel's 128-value chunk (K = 160;
+    192 packed) and a ragged N and M."""
+    from embeddings_tpu_torch.ops.qmatmul import quantize_rows, \
+        quantize_rows_int8, requantize_int8, requantize_weight
+    rng = np.random.default_rng(7)
+    K, N, M = (192 if packed else 160), 136, 257
+    w = rng.standard_normal((K, N), dtype=np.float32) * np.float32(0.02)
+    qt = quantize(w, kind, pack4=packed).map(lambda t: t.to(cuda))
+    w8t, cs = requantize_int8(qt.codes, qt.scales, qt.mins, kind=kind,
+                              packed=packed)
+    w8, rcs = requantize_weight(qt.codes, qt.scales, qt.mins, kind, packed)
+    assert torch.equal(w8t, w8.t()) and torch.equal(cs, rcs.reshape(-1))
+    x = torch.from_numpy(rng.standard_normal(
+        (M, K), dtype=np.float32)).to(cuda, torch.bfloat16)
+    q, sx = quantize_rows_int8(x)
+    rq, rsx = quantize_rows(x)
+    assert torch.equal(q, rq) and torch.equal(sx, rsx.reshape(-1))
+
+
+@pytest.mark.parametrize("M,K,N,epilogue,emit,x8", [
+    (32768, 768, 2304, "bias", "no", False),
+    (32768 + 40, 768, 768, "bias_residual_ln", "no", False),
+    (32768 + 40, 3072, 768, "bias_residual_ln", "both", True),
+    (32768 + 40, 768, 3072, "bias_gelu", "only", True),
+    (4096, 768, 768, "bias_residual_ln", "no", True),
+    (8192, 1024, 2048, "bias_residual_ln", "no", False),
+    (8192, 1024, 1536, "bias_residual_ln", "both", False),
+    (300, 4096, 1024, "bias_silu", "no", False)])
+def test_qmatmul_int8_tiles_match_plain(cuda, M, K, N, epilogue, emit, x8):
+    """K3's tile configurations (``k3_tile``: 256 or 128 rows, LayerNorm
+    clusters of 6, 12 and 16 blocks) at main-path sizes with the weight
+    kept as the Engine keeps it, ragged M, int8 x (K3x) and the emission
+    modes (K3e), against the plain version; one launch, no
+    requantization; codes within one step, scales within 1e-4."""
+    from embeddings_tpu_torch.ops.qmatmul import k3_route, \
+        keep_int8_weight, quantize_rows, requantize_int8
+    rng = np.random.default_rng(M + N + K)
+    w = rng.standard_normal((K, N), dtype=np.float32) * np.float32(0.02)
+    qt = keep_int8_weight(quantize(w, "q4_0", pack4=True).map(
+        lambda t: t.to(cuda)))
+
+    def f32(*shape, scale=1.0):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)
+                                * np.float32(scale)).to(cuda)
+
+    kw = dict(kind="q4_0", epilogue=epilogue, packed=True,
+              emit_quantized=emit)
+    if epilogue == "bias_residual_ln":
+        kw.update(residual=f32(M, N).to(torch.bfloat16),
+                  ln_scale=1 + f32(N, scale=0.1), ln_bias=f32(N, scale=0.1))
+    x = f32(M, K).to(torch.bfloat16)
+    if x8:
+        q, sx = quantize_rows(x)
+        x, kw["x_scale"] = q, sx.reshape(M)
+    args = (x, qt.codes, qt.scales, qt.mins, f32(N, scale=0.1))
+    route = k3_route(M, N, epilogue, torch.cuda.get_device_properties(
+        cuda).multi_processor_count)
+    before = (qmatmul_int8.routes[route], qmatmul_int8.launches,
+              requantize_int8.launches)
+    got = qmatmul(*args, int8_compute=True, int8_weight=qt.int8, **kw)
+    assert (qmatmul_int8.routes[route], qmatmul_int8.launches,
+            requantize_int8.launches) == (before[0] + 1, before[1] + 1,
+                                          before[2])
+    ref = qmatmul_int8_ref(*args, **kw)
     if emit == "no":
         _close(got, ref, 2 ** -7, 1e-3)
         return

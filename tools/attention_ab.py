@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Time variants of the Hopper attention kernel against the checkout's, on
-one card, in turns: K2, K6 (plain and ALiBi), K6c and K6ca at the shapes
-the port's main paths give them (every row full).
+one card, in turns: K2, K7 (MPNet's table bias, jina's ALiBi bias), K6
+(plain and ALiBi), K6c and K6ca at the shapes the port's main paths give
+them (every row full).
 
     python3 tools/attention_ab.py [VARIANT.cu ...]
 
@@ -28,6 +29,8 @@ sys.path.insert(0, str(ROOT))
 
 # name -> (B, L, H, D), mode: the main paths' attention shapes
 SHAPES = {"K2_bge": ((128, 256, 12, 64), 0),
+          "K7_mpnet": ((128, 256, 12, 64), 3),
+          "K7_jina": ((32, 1024, 12, 64), 3),
           "K2_qwen2": ((32, 512, 12, 128), 0),
           "K2_modernbert": ((32, 1024, 12, 64), 0),
           "K6_bert_long": ((2, 2048, 12, 64), 4),
@@ -49,7 +52,7 @@ def build_variant(src: Path) -> ctypes.CDLL:
                    check=True)
     lib = ctypes.CDLL(str(out))
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.attn90_launch.argtypes = [p] * 4 + [i] * 5 + [f, f, p]
+    lib.attn90_launch.argtypes = [p] * 5 + [i] * 5 + [f, f, p]
     lib.attn90_launch.restype = i
     lib.attn90_error_string.argtypes = [i]
     lib.attn90_error_string.restype = ctypes.c_char_p
@@ -62,7 +65,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
         return 1
-    from chip_smoke import cuda_ms
+    from chip_smoke import _family_bias, cuda_ms
     from embeddings_tpu_torch.ops import attention as A
     from embeddings_tpu_torch.ops.alibi import alibi_slopes
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -84,6 +87,13 @@ def main() -> int:
 
                 def fn():
                     return A.fused_attention(qkv, lens, **kw)
+            elif mode == 3:
+                kw = dict(B=B, L=L, H=H, D=D)
+                bias = A.prepare_attention_bias(_family_bias(
+                    "mpnet" if name == "K7_mpnet" else "jina", L, dev), L)
+
+                def fn():
+                    return A.fused_attention_bias(qkv, lens, bias, **kw)
             else:
                 kw = dict(B=B, L=L, H=H, D=D, BK=A.pick_bk(L),
                           causal=mode in (7, 8),
