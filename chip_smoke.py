@@ -1,8 +1,9 @@
 """Smoke test of the PyTorch/CUDA port on one GPU: builds the hand-written
 kernels (K1-K7, K6w, K6c and K6ca, the chained-int8 modes K1e, K3e, K3x,
 K2e, K4e and K2i8, and the context-parallel K8a and K8b; K1 and K3 on the
-wgmma matmul kernel, K2, K7, K6, K6c and K6ca on the Hopper attention
-kernel, the other attention modes on the WMMA one), holds each against its
+wgmma matmul kernel, K2, K2e, K4e, K7, K6, K6c and K6ca on the Hopper
+attention kernel, the other attention modes on the WMMA one), holds each
+against its
 plain PyTorch version on the card, checks each profiled forward's matmul
 and attention launches by kernel, and drives
 the port's paths through Engine -> encode_batch (or encode_batch_packed)
@@ -84,8 +85,8 @@ K1_SHAPES = {"qkv": (E, 3 * E, "bias"),
 K1_REPLACES = "embeddings_tpu/ops/qmatmul.py:153 (_qmm_kernel via qmatmul :446)"
 K2_REPLACES = ("embeddings_tpu/ops/attention.py:73 (_attn_kernel via "
                "fused_attention :1039)")
-# the two attention libraries: K2 (no emission, no int8 scores), K6, K6c
-# and K6ca run on the Hopper kernel, the other modes on the WMMA one
+# the two attention libraries: K2 and K2e (no int8 scores), K4e, K7, K6,
+# K6c and K6ca run on the Hopper kernel, the other modes on the WMMA one
 ATTN_SOURCE = "embeddings_tpu_torch/csrc/attention.cu"
 ATTN90_SOURCE = "embeddings_tpu_torch/csrc/attention_sm90.cu"
 K3_REPLACES = ("embeddings_tpu/ops/qmatmul.py:309 (_qmm_int8 via qmatmul "
@@ -918,9 +919,12 @@ def phase_int8_chain_path():
     norms, cosine >= 0.999 against the unchained int8 path (the JAX
     package's bar for the chain); TCP answers equal Engine.encode with
     every link on; the packed int8 forward with the "attn" link (12 K4e
-    a forward). The defaults stay off: no links, scores "off"."""
+    a forward). Every attention launch takes its route: K2 and K2e the
+    Hopper kernel ("sm90"), K2i8 the WMMA one; K4e "sm90". The defaults
+    stay off: no links, scores "off"."""
     import torch
-    from embeddings_tpu_torch.ops.attention import int8_scores_mode
+    from embeddings_tpu_torch.ops.attention import fused_attention, \
+        int8_scores_mode
     from embeddings_tpu_torch.ops.linear import active_chain_links, \
         chain_links
     from embeddings_tpu_torch.ops.qmatmul import qmatmul_int8
@@ -940,8 +944,8 @@ def phase_int8_chain_path():
                     int8_scores_mode("on" if scores else "off"):
                 reset_counts()
                 t0 = time.perf_counter()
-                emb = eng8.encode_batch(texts)
-                torch.cuda.synchronize()
+                emb, routes = _routed(fused_attention,
+                                      lambda: eng8.encode_batch(texts))
                 wall = time.perf_counter() - t0
                 counts = read_counts()
             cos = _row_cos(emb, base)
@@ -949,7 +953,7 @@ def phase_int8_chain_path():
             key = "+".join(links) or "none"
             key += "/scores_on" if scores else ""
             want = chain_want(links, scores, n)
-            out[key] = dict(launches=counts, wall_s=wall,
+            out[key] = dict(launches=counts, k2_routes=routes, wall_s=wall,
                             vs_unchained_min_cos=float(cos.min()),
                             norm_min=float(norms.min()),
                             norm_max=float(norms.max()))
@@ -957,6 +961,8 @@ def phase_int8_chain_path():
                   f"chain {key}: output not finite / wrong shape")
             check(counts == want, f"chain {key}: launches {counts}, "
                   f"expected {want}")
+            check(routes == {"wmma" if scores else "sm90": NL * n},
+                  f"chain {key}: K2 launches by route {routes}")
             check(np.abs(norms - 1).max() < 1e-3, f"chain {key}: not unit "
                   f"norm")
             check(cos.min() >= 0.999, f"chain {key} vs unchained int8: "
@@ -987,7 +993,7 @@ def _packed_chain(eng8) -> dict:
     link: 48 K3 (12 of them K3x, the o-projection) and 12 K4 emitting
     "only" a forward (bge's 12 layers), against the same forward
     unchained."""
-    import torch
+    from embeddings_tpu_torch.ops.attention import fused_attention_segmented
     from embeddings_tpu_torch.ops.linear import chain_links
     texts = _sts_sentences(2400)
     base = eng8.encode_batch_packed(texts, row_len=PACK_SHORT[1])
@@ -1001,8 +1007,10 @@ def _packed_chain(eng8) -> dict:
     try:
         with chain_links(("attn",)):
             reset_counts()
-            emb = eng8.encode_batch_packed(texts, row_len=PACK_SHORT[1])
-            torch.cuda.synchronize()
+            emb, routes = _routed(
+                fused_attention_segmented,
+                lambda: eng8.encode_batch_packed(texts,
+                                                 row_len=PACK_SHORT[1]))
             counts = read_counts()
     finally:
         del eng8._forward_packed
@@ -1012,10 +1020,12 @@ def _packed_chain(eng8) -> dict:
                 K4e_only=NL * n)
     check(n >= 1 and counts == want, f"packed chain: launches {counts}, "
           f"expected {want}")
+    check(routes == {"sm90": NL * n}, f"packed chain: K4e launches by "
+          f"route {routes}")
     check(np.isfinite(emb).all() and cos.min() >= 0.999,
           f"packed chain vs unchained: {cos.min()}")
     STATE["launches_K4e"] = counts["K4e_only"] // n
-    return dict(packed_forwards=n, launches=counts,
+    return dict(packed_forwards=n, launches=counts, k4_routes=routes,
                 vs_unchained_min_cos=float(cos.min()))
 
 
@@ -1456,8 +1466,14 @@ def attn_emit_compare(got, ref, emit: str) -> dict:
     version: the bf16 context (with "both") at K2's tolerance; the codes
     dequantized (o8 * so) within K2's tolerance of the plain version's
     plus one step of each, since the two contexts already differ by K2's
-    tolerance before they are quantized; the scales at K2's tolerance."""
+    tolerance before they are quantized; the scales at K2's tolerance.
+    Beside it, the emission's own arithmetic: with "both" the codes and
+    scales equal the plain quantization of the kernel's own bf16 context
+    (``self_exact``), and the counts of codes one step off the plain
+    version's and of rows whose scale is off by more than
+    EMIT_SCALE_RTOL."""
     import torch
+    from embeddings_tpu_torch.ops.attention import _emit_int8_rows
     out, o8, so = got if emit == "both" else (None, *got)
     rout, ro8, rso = ref if emit == "both" else (None, *ref)
     deq, rdeq = o8.float() * so, ro8.float() * rso
@@ -1465,26 +1481,49 @@ def attn_emit_compare(got, ref, emit: str) -> dict:
     rms = rdeq.square().mean().sqrt()
     tol = K2_RTOL * rdeq.abs() + K2_ATOL_RMS * rms + so + rso
     d = (o8.int() - ro8.int()).abs()
+    srel = (so - rso).abs() / rso
     r = {"max_code_diff": int(d.max()),
          "codes_off": int((d > 0).sum()), "codes": d.numel(),
          "dequant_max_abs_err": err.max().item(),
-         "scales": compare(so, rso, K2_RTOL, K2_ATOL_RMS)}
-    ok = bool((err <= tol).all()) and r["scales"]["ok"]
+         "scales": compare(so, rso, K2_RTOL, K2_ATOL_RMS),
+         "scale_max_rel_err": srel.max().item(),
+         "rows_scale_rel_over": int((srel > EMIT_SCALE_RTOL).sum()),
+         "rows": int(so.numel())}
+    ok = bool((err <= tol).all()) and r["scales"]["ok"] \
+        and r["max_code_diff"] <= EMIT_CODE_STEPS
     if out is not None:
         r["out"] = compare(out, rout, K2_RTOL, K2_ATOL_RMS)
-        ok = ok and r["out"]["ok"]
+        r["out_at_K1_tolerance"] = compare(out, rout, K1_RTOL,
+                                           K1_ATOL_RMS)["ok"]
+        s8, ss = _emit_int8_rows(out.float())
+        r["self_exact"] = bool(torch.equal(s8, o8) and torch.equal(ss, so))
+        ok = ok and r["out"]["ok"] and r["self_exact"]
     r["max_abs_err"] = (r["out"] if out is not None else r)[
         "max_abs_err" if out is not None else "dequant_max_abs_err"]
     r["ok"] = ok
     return r
 
 
+def _routed(wrapper, call):
+    """call()'s result and the launches it added to ``wrapper.routes``, by
+    route."""
+    import torch
+    before = dict(wrapper.routes)
+    got = call()
+    torch.cuda.synchronize()
+    return got, {k: v - before.get(k, 0) for k, v in wrapper.routes.items()
+                 if v != before.get(k, 0)}
+
+
 def phase_attn_emit():
-    """K2e and K4e (attention emission, "both" and "only") at the main
-    path's shapes (B=128, L=256 with a len-0 and a full row; 256 packed
-    rows of 128), K2i8 (int8 scores) at B=128, L=256 and at B=16,
-    L=1,024, without and with "only" emission, each against its plain
-    version; len-0 rows finite (K2i8 gives them the mean of v)."""
+    """K2e and K4e (attention emission, "both" and "only", on the Hopper
+    kernel) at the main path's shapes (B=128, L=256 with a len-0 and a
+    full row; 256 packed rows of 128) and at a ragged one (B=16, L=200,
+    H=16, D=128: two heads' more, the tile edge inside the row), each one
+    launch on the "sm90" route; K2i8 (int8 scores, on the WMMA kernel) at
+    B=128, L=256 and at B=16, L=1,024, without and with "only" emission,
+    each against its plain version; len-0 rows finite (K2i8 gives them
+    the mean of v)."""
     import torch
     from embeddings_tpu_torch.ops import attention as A
     rng = np.random.default_rng(12)
@@ -1492,24 +1531,35 @@ def phase_attn_emit():
     out = {}
     qkv, lens = _attn_qkv(rng, B, L, dev, Ex=E)
     kw = dict(B=B, L=L, H=H, D=D)
-    for how in ("both", "only"):
-        r = attn_emit_compare(
-            A.fused_attention(qkv, lens, emit_quantized=how, **kw),
-            A.fused_attention_ref(qkv, lens, emit_quantized=how, **kw),
-            how)
-        check(r["ok"], f"K2e {how} disagrees: {r}")
-        out[f"K2e_{how}"] = r
+    rq, rl = _attn_qkv(rng, 16, 200, dev, Ex=16 * 128)
+    rkw = dict(B=16, L=200, H=16, D=128)
+    for name, (q2, l2, k2) in (("", (qkv, lens, kw)),
+                               ("_ragged", (rq, rl, rkw))):
+        for how in ("both", "only"):
+            got, routes = _routed(A.fused_attention, lambda: A.fused_attention(
+                q2, l2, emit_quantized=how, **k2))
+            r = attn_emit_compare(
+                got, A.fused_attention_ref(q2, l2, emit_quantized=how, **k2),
+                how)
+            r["routes"] = routes
+            check(r["ok"] and routes == {"sm90": 1},
+                  f"K2e {how}{name} disagrees: {r}")
+            out[f"K2e_{how}{name}"] = r
     if "K4" not in STATE:
         phase_k4k5()
     pqkv, seg = STATE["K4"][0], STATE["K4"][1]
     pkw = dict(B=PACK_SHORT[0], L=PACK_SHORT[1], H=H, D=D)
     for how in ("both", "only"):
+        got, routes = _routed(
+            A.fused_attention_segmented, lambda: A.fused_attention_segmented(
+                pqkv, seg, emit_quantized=how, **pkw))
         r = attn_emit_compare(
-            A.fused_attention_segmented(pqkv, seg, emit_quantized=how,
-                                        **pkw),
-            A.fused_attention_segmented_ref(pqkv, seg, emit_quantized=how,
-                                            **pkw), how)
-        check(r["ok"], f"K4e {how} disagrees: {r}")
+            got, A.fused_attention_segmented_ref(pqkv, seg,
+                                                 emit_quantized=how, **pkw),
+            how)
+        r["routes"] = routes
+        check(r["ok"] and routes == {"sm90": 1},
+              f"K4e {how} disagrees: {r}")
         out[f"K4e_{how}"] = r
     for name, (Bx, Lx) in (("L256", (B, L)), ("L1024", I8S_LONG)):
         q2, l2 = ((qkv, lens) if Lx == L
@@ -1544,7 +1594,8 @@ def phase_attn_emit():
     STATE["attn_emit_inputs"] = (qkv, lens)
     emit("attn_emit_parity", tolerance=f"|err| <= {K2_RTOL}*|ref| + "
          f"{K2_ATOL_RMS}*rms(ref); codes dequantized within that plus one "
-         f"step of each side", **out)
+         f"step of each side, and within {EMIT_CODE_STEPS} step; \"both\": "
+         f"codes and scales exactly those of the kernel's bf16 context", **out)
 
 
 def phase_k6ca():
@@ -2193,11 +2244,11 @@ def phase_timing():
                 # CP forwards (K8a / K8b are mode 4 of the kernel) and the
                 # single-device forwards at their shapes (K2; K6 plain)
                 "cp_bge": ("cp_bge_engine", CP_BGE, 4 * NL * 4,
-                           {f"attn_kernel<{D}, 4, 0>": NL * 4}, D),
+                           {f"attn_kernel<{D}, 4>": NL * 4}, D),
                 "cp_bge_single": ("cp_bge_single", CP_BGE, 4 * NL, {0: NL},
                                   D),
                 "cp_nomic": ("cp_nomic_engine", CP_NOMIC, 5 * NL * 4,
-                             {f"attn_kernel<{D}, 4, 0>": NL * 4}, D),
+                             {f"attn_kernel<{D}, 4>": NL * 4}, D),
                 "cp_nomic_single": ("cp_nomic_single", CP_NOMIC, 5 * NL,
                                     {4: NL}, D)}
     for name, (key, shape, k1, attn, dh) in families.items():
@@ -2210,7 +2261,8 @@ def phase_timing():
     profiles = {k: device_profile(k, *r) for k, r in runs.items()}
     chain_fwd = {}
     if "int8_chain_path" in RESULTS:
-        chain_fwd, profiles["int8_chain_all"] = chain_timing(ids, mask)
+        chain_fwd, chain_prof = chain_timing(ids, mask)
+        profiles.update(chain_prof)
     packed_fwd = {}
     for name in ("K4", "K5"):
         if name in fwd:
@@ -2365,22 +2417,25 @@ def launches_want(matmuls: int, attn: dict, dh: int = D, Lx: int = L,
     """The launches one forward makes, by the profiler's kernel names:
     ``matmuls`` matmul launches in all (``device_profile`` names their
     kernels from the routes the wrappers counted), of each attention mode
-    (no emission, the fused layout) the count {mode: count} gives, on the
-    kernel its route names (``attention_kernel``):
-    attn_sm90_kernel<dh, mode, warpgroups at row length Lx> or
-    attn_kernel<dh, mode, 0>; a key that is a string names the kernel
-    itself (the CP layout's mode 4: attn_kernel<dh, 4, 0>); ``others``:
-    the counts of the other kernels by name (quant_rows_kernel,
-    emit_rows_kernel)."""
+    in the fused layout the count {mode: count} gives (a key (mode,
+    emit) names an emitting mode, "both" or "only"), on the kernel its
+    route names (``attention_kernel``): attn_sm90_kernel<dh, mode,
+    warpgroups at row length Lx, emit mode> or attn_kernel<dh, mode>; a
+    key that is a string names the kernel itself (the CP layout's mode 4:
+    attn_kernel<dh, 4>); ``others``: the counts of the other kernels by
+    name (quant_rows_kernel, emit_rows_kernel)."""
     from embeddings_tpu_torch.ops.attention import attention_kernel, \
         sm90_warpgroups
+    from embeddings_tpu_torch.ops.quant import EMITS
 
     def name(m):
         if isinstance(m, str):
             return m
-        if attention_kernel(m, dh) == "sm90":
-            return f"attn_sm90_kernel<{dh}, {m}, {sm90_warpgroups(Lx)}>"
-        return f"attn_kernel<{dh}, {m}, 0>"
+        m, how = m if isinstance(m, tuple) else (m, "no")
+        if attention_kernel(m, dh, how) == "sm90":
+            return (f"attn_sm90_kernel<{dh}, {m}, {sm90_warpgroups(Lx)}, "
+                    f"{EMITS.index(how)}>")
+        return f"attn_kernel<{dh}, {m}>"
 
     return {"matmuls": matmuls, **{name(m): n for m, n in attn.items()},
             **others}
@@ -2404,8 +2459,10 @@ def chain_timing(ids, mask, rounds: int = 5):
     in turn (every other round backwards), so slow drift of the card
     lands on all of them; the median of the rounds, and their range. Then
     the device profile of the all-links forward: 48 K3, 12 emit_rows
-    (FFN-up "only"), 12 K2e ("only"), no row quantization and no weight
-    requantization."""
+    (FFN-up "only"), 12 K2e ("only", the Hopper kernel), no row
+    quantization and no weight requantization; and of the packed int8
+    forward (256 rows of 128) with the "attn" link: 48 K3 (36 of them
+    after a row quantization), 12 K4e ("only", the Hopper kernel)."""
     from embeddings_tpu_torch.ops.attention import int8_scores_mode
     from embeddings_tpu_torch.ops.linear import chain_links
     e8 = STATE["engine8"]
@@ -2425,11 +2482,20 @@ def chain_timing(ids, mask, rounds: int = 5):
            for (links, scores), v in samples.items()}
     # every K3 reads int8 rows (no row quantization), FFN-up's "only"
     # emission takes a second launch, the attention emits (K2e "only")
-    want = launches_want(4 * NL, {f"attn_kernel<{D}, 0, 2>": NL},
-                         emit_rows_kernel=NL)
+    want = launches_want(4 * NL, {(0, "only"): NL}, emit_rows_kernel=NL)
     with chain_links(LINK_SUBSETS[-1]):
-        prof = device_profile("int8_chain_all",
-                              lambda: e8._forward(ids, mask), want)
+        prof = {"int8_chain_all": device_profile(
+            "int8_chain_all", lambda: e8._forward(ids, mask), want)}
+    if "K4" in STATE:
+        # the packed forward's attention emits for the o-projection (K4e
+        # "only"); the other three matmuls quantize their rows first
+        arrays, W = STATE["K4"][2], STATE["K4"][3]
+        want = launches_want(4 * NL, {(1, "only"): NL}, Lx=PACK_SHORT[1],
+                             quant_rows_kernel=3 * NL)
+        with chain_links(("attn",)):
+            prof["int8_packed_attn"] = device_profile(
+                "int8_packed_attn",
+                lambda: e8._forward_packed(*arrays, W), want)
     return out, prof
 
 
@@ -2567,7 +2633,7 @@ def chain_rows(rng, dev) -> list:
             "name": f"{fn}[{kname} B{B} L{L} H{H} D{D} "
                     + ("emit only]" if kname == "K2e" else "int8 scores]"),
             "route": "cuda",
-            "source": ATTN_SOURCE,
+            "source": ATTN90_SOURCE if kname == "K2e" else ATTN_SOURCE,
             "replaces": replaces, "launches": launches, "max_abs_err": err,
             "ms": cuda_ms(lambda: A.fused_attention(qkv, lens, **opt, **kw)),
             "plain_ms": cuda_ms(lambda: A.fused_attention_ref(
@@ -2604,7 +2670,7 @@ def chain_rows(rng, dev) -> list:
         out.append({
             "name": f"fused_attention_segmented[K4e B{Bx} L{Lx} H{H} D{D} "
                     f"emit only]", "route": "cuda",
-            "source": ATTN_SOURCE,
+            "source": ATTN90_SOURCE,
             "replaces": K4E_REPLACES,
             "launches": STATE.get("launches_K4e", 0),
             "max_abs_err": apar["K4e_only"]["max_abs_err"],

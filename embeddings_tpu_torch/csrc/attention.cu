@@ -1,17 +1,15 @@
 // Fused multi-head self-attention over the fused QKV projection, for
-// sm_90a: kernels K4, K5 and K6w of the PyTorch port, K2's emission and
-// int8-scores modes (K2e, K2i8), K4's emission (K4e) and the
-// context-parallel K8a and K8b, as mask modes of one WMMA kernel. K2
-// without emission or int8 scores, K7, K6, K6c and K6ca (the
-// fused-layout, no-emission modes 0, 3, 4, 5, 7 and 8) run on the Hopper
-// kernel in attention_sm90.cu (wgmma, a TMA ring);
-// ops/attention.py:attention_kernel routes, and this library refuses
-// those modes.
+// sm_90a: kernels K4, K5 and K6w of the PyTorch port, K2's int8-scores
+// mode (K2i8, with or without emission) and the context-parallel K8a and
+// K8b, as mask modes of one WMMA kernel and the int8 kernel
+// attn_i8_kernel. K2 (with its emission K2e), K4's emission K4e, K7, K6,
+// K6c and K6ca (the fused-layout modes 0, 3, 4, 5, 7 and 8, and mode 1
+// with emission) run on the Hopper kernel in attention_sm90.cu (wgmma, a
+// TMA ring); ops/attention.py:attention_kernel routes, and this library
+// refuses those modes.
 //
 // Replaces (embeddings_tpu/ops/attention.py, the Pallas TPU kernels):
-//   mode 0 with emission, K2e: _attn_kernel with _emit_int8_rows, behind
-//               fused_attention(emit_quantized=);
-//   mode 1, K4 (and K4e): _attn_kernel_segmented, behind
+//   mode 1, K4: _attn_kernel_segmented without emission, behind
 //               fused_attention_segmented();
 //   mode 2, K5: _attn_kernel_seg_window, behind
 //               fused_attention_segmented_blockskip();
@@ -85,17 +83,16 @@
 // wgmma (attention_sm90.cu has both), and skipping key tiles outside a
 // K4 row's segments.
 //
-// K2e / K4e, the emission epilogue of modes 0 and 1 (replaces
-// embeddings_tpu/ops/attention.py:_emit_int8_rows, called from
-// _attn_kernel and _attn_kernel_segmented): the context is also ("both")
-// or instead ("only") written per-row symmetric int8 over all E = H*D
-// columns, so = max(max_e |ctx|, 1e-30) * (1/127), o8 = rint(ctx *
-// (1/so)); "both" quantizes the bf16-rounded context it writes, "only"
-// the f32 one (the TPU's f32 staging). The row absmax spans every head,
-// but a block holds one head: the H blocks of one query tile run as a
-// thread-block cluster (H <= 16, non-portable above 8) and read each
-// other's per-row maxima through distributed shared memory, so the
-// context never makes a round trip through device memory.
+// K2i8's emission (replaces embeddings_tpu/ops/attention.py:
+// _emit_int8_rows, called from _attn_kernel's int8-scores branch): the
+// context is also ("both") or instead ("only") written per-row symmetric
+// int8 over all E = H*D columns, so = max(max_e |ctx|, 1e-30) * (1/127),
+// o8 = rint(ctx * (1/so)); "both" quantizes the bf16-rounded context it
+// writes, "only" the f32 one (the TPU's f32 staging). The row absmax
+// spans every head, but a block holds one head: the H blocks of one query
+// tile run as a thread-block cluster (H <= 16, non-portable above 8) and
+// read each other's per-row maxima through distributed shared memory, so
+// the context never makes a round trip through device memory.
 //
 // K2i8, int8 scores (replaces the int8_scores branch of _attn_kernel;
 // attn_i8_kernel below, prefix mask only): both products run s8 x s8 ->
@@ -129,8 +126,8 @@ constexpr int SP = KT + 4;    // f32 score staging row stride
 constexpr int PP = KT + 8;    // bf16 probability row stride
 constexpr int BQ = 128;       // query/key block of mode 2 (block_ranges)
 
-// modes 3, 5, 7 and 8, and mode 4 and mode 0 without emission in the
-// fused layout, are attention_sm90.cu's
+// modes 3, 5, 7 and 8, mode 4 in the fused layout, mode 0 without int8
+// scores and mode 1 with emission are attention_sm90.cu's
 enum Mode { PREFIX = 0, SEGMENT = 1, WINDOW = 2, STREAM = 4, BAND = 6 };
 constexpr float LOG2_127 = 6.9886846867721655f;
 constexpr int MAX_CLUSTER = 16;  // heads a cluster can hold (H100)
@@ -227,14 +224,13 @@ __device__ __forceinline__ void finish_rows(
   }
 }
 
-template <int D, int MODE, int EMIT>
+template <int D, int MODE>
 __global__ void __launch_bounds__(THREADS) attn_kernel(
     const __nv_bfloat16* __restrict__ qsrc,
     const __nv_bfloat16* __restrict__ kv, const int* __restrict__ lengths,
     const int* __restrict__ seg, const int* __restrict__ kbs,
-    const int* __restrict__ kbe, __nv_bfloat16* __restrict__ out,
-    int8_t* __restrict__ o8, float* __restrict__ os, int L, int Lq, int H,
-    int W, int ldq, int ldkv, float s2, float hi) {
+    const int* __restrict__ kbe, __nv_bfloat16* __restrict__ out, int L,
+    int Lq, int H, int W, int ldq, int ldkv, float s2, float hi) {
   using Lay = Layout<D>;
   constexpr int DP = Lay::DP;
   constexpr int OP = Lay::OP;
@@ -243,7 +239,6 @@ __global__ void __launch_bounds__(THREADS) attn_kernel(
 
   extern __shared__ __align__(128) unsigned char smem[];
   __shared__ int segk[KT];  // the key tile's segment ids (modes 1, 2)
-  __shared__ float crow[QT];  // row absmax posted to the cluster (emission)
   __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem);  // [QT][DP]
   __nv_bfloat16* ks = qs + QT * DP;                              // [KT][DP]
   __nv_bfloat16* vs = ks + KT * DP;                              // [KT][DP]
@@ -395,8 +390,9 @@ __global__ void __launch_bounds__(THREADS) attn_kernel(
   for (int d = 0; d < D / 16; ++d)
     wmma::store_matrix_sync(fsc + d * 16, acc[d], OP, wmma::mem_row_major);
   __syncwarp();
-  finish_rows<D, EMIT>(fsc, 1.0f / fmaxf(rowsum, 1e-30f), qrow, Lq,
-                       (size_t)b * Lq + qrow, h, E, out, o8, os, crow);
+  finish_rows<D, EMIT_NO>(fsc, 1.0f / fmaxf(rowsum, 1e-30f), qrow, Lq,
+                          (size_t)b * Lq + qrow, h, E, out, nullptr, nullptr,
+                          nullptr);
 }
 
 // int8 scores (K2i8): the shared-memory layout of one block (bytes). q8
@@ -653,14 +649,13 @@ cudaError_t launch_cluster(Kern kern, dim3 grid, size_t smem, int H,
   return cudaGetLastError();
 }
 
-template <int D, int MODE, int EMIT>
+template <int D, int MODE>
 cudaError_t launch(const void* qsrc, const void* kvsrc, const void* lengths,
                    const void* seg, const void* kbs, const void* kbe,
-                   void* out, void* o8, void* os, int B,
-                   int L, int Lq, int H, int W, int ldq,
+                   void* out, int B, int L, int Lq, int H, int W, int ldq,
                    int ldkv, float s2, float hi, cudaStream_t stream) {
   const size_t smem = Layout<D>::smem;
-  auto kern = attn_kernel<D, MODE, EMIT>;
+  auto kern = attn_kernel<D, MODE>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -672,13 +667,8 @@ cudaError_t launch(const void* qsrc, const void* kvsrc, const void* lengths,
   const auto* ks = static_cast<const int*>(kbs);
   const auto* ke = static_cast<const int*>(kbe);
   auto* o = static_cast<__nv_bfloat16*>(out);
-  auto* c8 = static_cast<int8_t*>(o8);
-  auto* cs = static_cast<float*>(os);
-  if (EMIT != EMIT_NO)
-    return launch_cluster(kern, grid, smem, H, stream, q, kv, ln, sg, ks, ke,
-                          o, c8, cs, L, Lq, H, W, ldq, ldkv, s2, hi);
-  kern<<<grid, THREADS, smem, stream>>>(q, kv, ln, sg, ks, ke, o, c8, cs, L,
-                                        Lq, H, W, ldq, ldkv, s2, hi);
+  kern<<<grid, THREADS, smem, stream>>>(q, kv, ln, sg, ks, ke, o, L, Lq, H,
+                                        W, ldq, ldkv, s2, hi);
   return cudaGetLastError();
 }
 
@@ -711,8 +701,8 @@ cudaError_t launch_mode(int mode, int emit, int i8s, const void* q,
                         void* out, void* o8, void* os, int B, int L, int Lq,
                         int H, int W, int ldq, int ldkv, float s2, float hi,
                         cudaStream_t stream) {
-#define ATTN_ARGS q, kv, lengths, seg, kbs, kbe, out, o8, os, B, L, Lq, H, \
-                  W, ldq, ldkv, s2, hi, stream
+#define ATTN_ARGS q, kv, lengths, seg, kbs, kbe, out, B, L, Lq, H, W, ldq, \
+                  ldkv, s2, hi, stream
 #define I8_ARGS q, lengths, out, o8, os, B, L, H, s2, stream
   const bool fused = Lq == L && ldq == 3 * H * D && ldkv == ldq &&
                      kv == static_cast<const __nv_bfloat16*>(q) + H * D;
@@ -729,26 +719,19 @@ cudaError_t launch_mode(int mode, int emit, int i8s, const void* q,
       default: return cudaErrorInvalidValue;
     }
   }
-  if (emit != EMIT_NO) {  // K2e / K4e
-    if (mode == PREFIX)
-      return emit == EMIT_BOTH ? launch<D, PREFIX, EMIT_BOTH>(ATTN_ARGS)
-                               : launch<D, PREFIX, EMIT_ONLY>(ATTN_ARGS);
-    if (mode == SEGMENT)
-      return emit == EMIT_BOTH ? launch<D, SEGMENT, EMIT_BOTH>(ATTN_ARGS)
-                               : launch<D, SEGMENT, EMIT_ONLY>(ATTN_ARGS);
-    return cudaErrorInvalidValue;
-  }
+  // K2e and K4e (emission without int8 scores) are attention_sm90.cu's
+  if (emit != EMIT_NO) return cudaErrorInvalidValue;
   switch (mode) {
-    case SEGMENT: return launch<D, SEGMENT, EMIT_NO>(ATTN_ARGS);
+    case SEGMENT: return launch<D, SEGMENT>(ATTN_ARGS);
     case WINDOW:
       if (L % BQ) return cudaErrorInvalidValue;
-      return launch<D, WINDOW, EMIT_NO>(ATTN_ARGS);
+      return launch<D, WINDOW>(ATTN_ARGS);
     case STREAM:  // the CP layout only (K8a, K8b)
       if (fused) return cudaErrorInvalidValue;
-      return launch<D, STREAM, EMIT_NO>(ATTN_ARGS);
+      return launch<D, STREAM>(ATTN_ARGS);
     case BAND:
       if (W < 0) return cudaErrorInvalidValue;
-      return launch<D, BAND, EMIT_NO>(ATTN_ARGS);
+      return launch<D, BAND>(ATTN_ARGS);
     default: return cudaErrorInvalidValue;  // 0, 3, 5, 7, 8: attention_sm90.cu
   }
 #undef I8_ARGS
@@ -761,7 +744,7 @@ extern "C" {
 
 // q, kv and out bf16 (device pointers): q rows [B*Lq] of stride ldq, kv
 // rows [B*L] of stride ldkv (k at column 0, v at H*D), out [B*Lq, H*D].
-// Modes 0 (with emission or i8s), 1, 2 and 6 take the fused layout (q =
+// Modes 0 (with i8s), 1, 2 and 6 take the fused layout (q =
 // qkv [B*L, 3*H*D], kv = qkv + H*D, ldq = ldkv = 3*H*D, Lq = L); mode 4
 // takes only the CP layout (K8a, K8b: any Lq, ldq, ldkv; no emission);
 // the rest is attention_sm90.cu's. Strides are multiples of 8 and
@@ -770,9 +753,9 @@ extern "C" {
 // [B, L/128] int32 and the block cap W (L % 128 == 0); mode 6 takes the
 // half window W = window // 2. Unused pointers may be null. s2 =
 // log2(e)/sqrt(D) as f32; hi = the score clamp bound. D must be 32, 64 or
-// 128. emit (modes 0 and 1, H <= 16): 1 also writes o8 [B*L, E] int8 and
-// os [B*L] f32, 2 writes only those (out may be null). i8s (mode 0): the
-// int8-scores kernel (K2i8). Returns a cudaError_t.
+// 128. i8s (mode 0): the int8-scores kernel (K2i8); emit (with i8s only,
+// H <= 16): 1 also writes o8 [B*L, E] int8 and os [B*L] f32, 2 writes
+// only those (out may be null). Returns a cudaError_t.
 int attn_launch(const void* q, const void* kv, const void* lengths,
                 const void* seg, const void* kbs, const void* kbe,
                 void* out, void* o8, void* os, int mode,

@@ -1,12 +1,16 @@
 // Fused multi-head self-attention over the fused QKV projection, for
 // sm_90a, on Hopper's own instructions (wgmma, TMA, mbarriers, warp
-// specialization): kernel K2, kernel K6 with its causal modes K6c and
-// K6ca, and kernel K7 of the PyTorch port, as six mask modes of one
-// kernel.
+// specialization): kernel K2 with its emission K2e, K4's emission K4e,
+// kernel K6 with its causal modes K6c and K6ca, and kernel K7 of the
+// PyTorch port, as seven mask modes of one kernel.
 //
 // Replaces (embeddings_tpu/ops/attention.py, the Pallas TPU kernels):
-//   mode 0, K2: _attn_kernel (its bf16 branch, no emission), behind
-//               fused_attention();
+//   mode 0, K2: _attn_kernel (its bf16 branch), behind fused_attention();
+//               with emission, K2e: _attn_kernel with _emit_int8_rows,
+//               behind fused_attention(emit_quantized=);
+//   mode 1 with emission, K4e: _attn_kernel_segmented with
+//               _emit_int8_rows, behind fused_attention_segmented(
+//               emit_quantized=);
 //   mode 3, K7: _attn_kernel_bias, behind fused_attention_bias() (MPNet's
 //               relative-position bias, jina's ALiBi on short rows);
 //   modes 4, 5, K6: _attn_kernel_stream in its plain and ALiBi modes,
@@ -15,8 +19,8 @@
 //               fused_attention_stream(causal=True);
 //   mode 8, K6ca: _attn_kernel_stream with causal and ALiBi together,
 //               behind fused_attention_stream(causal=True, alibi_slopes=).
-// The other modes of those TPU kernels (K2's emission K2e and int8 scores
-// K2i8, the CP layout of mode 4: K8a, K8b) and K4, K5 and K6w stay on
+// The other modes of those TPU kernels (K2's int8 scores K2i8, K4 without
+// emission, the CP layout of mode 4: K8a, K8b) and K5 and K6w stay on
 // attention.cu's WMMA kernel; ops/attention.py:attention_kernel routes.
 //
 // For each sequence b, head h and query i, reading q, k and v as column
@@ -24,6 +28,9 @@
 // h*D), with d = q . k_j accumulated in f32:
 //   mode 0: s = clamp(bf16(q * s2) . k_j, -100, hi) (q pre-scaled and
 //           rounded, the TPU's K2 rounding);
+//   mode 1: s = clamp(d * s2, -100, hi), key j valid iff seg[b, i] ==
+//           seg[b, j] and seg[b, j] >= 0 (token-packed rows; a pad query
+//           row, seg -1, sees no key);
 //   mode 3: s = clamp(d * s2 + bias[h, i, j], -100, hi) (bias f32 [H, L,
 //           L], log2-scaled; the clamp after the add);
 //   mode 4: s = clamp(d * s2, -100, hi);
@@ -31,7 +38,7 @@
 //           hi) (jina-bert-v2's ALiBi from positions);
 //   mode 7: mode 4's score, key j also dropped where j > i;
 //   mode 8: mode 5's score with mode 7's mask;
-//   key j valid iff j < len[b] (and j <= i in modes 7, 8);
+//   key j valid iff j < len[b] (and j <= i in modes 7, 8; j < L in mode 1)
 //   p_j = bf16(exp2(s)) if valid else 0
 //   out = (sum_j p_j v_j) * (1 / max(sum_j p_j, 1e-30))  (f32 sums)
 // written as bf16 to out [B*L, E] at column h*D. s2 = log2(e)/sqrt(D);
@@ -45,6 +52,13 @@
 // tiles far from the diagonal add exp2(-100) and are not. A len-0 row
 // gives exactly 0; query rows >= L are never written.
 //
+// Emission (modes 0 and 1, K2e and K4e; the TPU's _emit_int8_rows): each
+// context row is also ("both") or instead ("only") written as symmetric
+// int8 over all E = H*D columns: so = max(max_e |ctx|, 1e-30) * (1/127),
+// o8 = rint(ctx * (1/so)), the reciprocal taken once a row
+// (int8_rows.cuh). "both" quantizes the bf16 context it writes, "only"
+// the f32 context (written to no bf16 output).
+//
 // What bounds it on the H100: K6 at Qwen2's B=4, L=4,096, H=12, D=128
 // does ~206 GFLOP of products on ~201 MB (qkv in, context out): bound by
 // the tensor cores (0.21 ms at 989 TFLOP/s, twice that without the causal
@@ -53,10 +67,11 @@
 // SFUs (16 a clock per SM), close to the products' 0.83 ms: the score
 // pass has to run beside the products, not after them. K2 at bge's B=128,
 // L=256, D=64 moves the same ~201 MB for ~26 GFLOP: bound by bytes
-// (0.06 ms). K7 at jina's B=32, L=1,024 does ~103 GFLOP and 403 M exp2
-// (both ~0.10 ms) on ~201 MB of qkv and context plus the 50.3 MB bias
-// (0.075 ms of bytes): every batch row reads the whole bias again, which
-// is about the size of L2.
+// (0.06 ms); K2e "only" there reads the 151 MB of qkv and writes 25 MB of
+// codes (0.05 ms), K4e at 256 packed rows of 128 the same. K7 at jina's
+// B=32, L=1,024 does ~103 GFLOP and 403 M exp2 (both ~0.10 ms) on ~201 MB
+// of qkv and context plus the 50.3 MB bias (0.075 ms of bytes): every
+// batch row reads the whole bias again, which is about the size of L2.
 //
 // The design:
 // - one block per (128 query rows, head, sequence): a producer
@@ -81,8 +96,9 @@
 //   (K-major), f32 accumulators in registers;
 // - the score pass runs in registers, in place on S: scale or ALiBi,
 //   clamp, exp2 (one MUFU.EX2), the key mask only on tiles that need it
-//   (the tile holding len[b], the diagonal tiles), bf16 rounding and the
-//   row sum of the rounded p per thread (a quad shuffle at the end); with
+//   (the tile holding len[b], the diagonal tiles, every tile of mode 1),
+//   bf16 rounding and the row sum of the rounded p per thread (a quad
+//   shuffle at the end); with
 //   ALiBi at D <= 64, whose score pass bounds the kernel, the tensor
 //   cores take the row sums instead (P times a ones tile, ones_sum).
 //   wgmma's m64nN f32 accumulator layout is its k16 A-fragment layout, so
@@ -104,6 +120,9 @@
 //   from per-kernel bases;
 // - causal blocks are issued longest first (the query-block index runs
 //   backwards), so the short blocks fill the tail;
+// - mode 1's segment ids come with each K tile (a 128-key TMA box of seg
+//   [B, L], counted in the K stage's transaction bytes; keys past L read
+//   as 0 and are masked by position), its query rows' ids once a block;
 // - mode 3's bias comes by TMA too, as a third ring (64-row x 32-key f32
 //   boxes, 128-byte swizzled: 64 KB a 128 x 128 tile, two stages at D <=
 //   64 beside a two-stage K/V ring, one at D=128), each thread reading
@@ -117,19 +136,40 @@
 //   blocks instead (MPNet's 3.1 MB at L=256; both orders timed with
 //   tools/attention_ab.py);
 // - the epilogue scales the f32 output rows by 1 / max(sum, 1e-30) and
-//   stores bf16 pairs straight from registers, guarded by L.
+//   stores bf16 pairs straight from registers, guarded by L;
+// - emission (EMIT != 0) needs each row's absmax over every head, and a
+//   block of the other modes holds one head. So an emitting block owns a
+//   (query tile, sequence) and runs all H heads in turn, as the TPU
+//   kernel does: the producer keeps the ring full across head boundaries
+//   (Q double-buffered: head h + 1's Q lands while head h runs), and after
+//   each head every consumer writes its rows of that head to global
+//   memory (bf16 into out for "both", f32 into a scratch [B*L, E] for
+//   "only", both still in L2 when they are read back) and keeps its two
+//   rows' running absmax in registers (a quad holds a row: a quad
+//   shuffle ends the max). After the last head a warpgroup syncs on its
+//   named barrier, re-reads its 64 x E rows (16-byte loads, a 128-byte
+//   line or 16 bf16 a thread), writes the codes with 16-byte stores and
+//   the scales, and drops each scratch line from L2 unwritten
+//   (discard.global.L2): nothing reads it again, so it never costs a
+//   write to HBM. No thread-block cluster and no H cap: grid B * q-tiles
+//   (256 blocks at bge's B=128, L=256 and at 256 packed rows of 128),
+//   the last sequence's blocks first: the Engine's batches come sorted
+//   by length, ascending (all-pad rows, which have no key tile, last), so
+//   their longest rows start first and the short ones fill the tail, as
+//   the causal modes start their longest blocks first.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "int8_rows.cuh"
 #include "sm90.cuh"
 
 namespace {
 
-enum Mode { PREFIX = 0, BIAS = 3, STREAM = 4, ALIBI = 5, CAUSAL = 7,
-            CAUSAL_ALIBI = 8 };
+enum Mode { PREFIX = 0, SEGMENT = 1, BIAS = 3, STREAM = 4, ALIBI = 5,
+            CAUSAL = 7, CAUSAL_ALIBI = 8 };
 
 __host__ __device__ constexpr bool causal_mode(int mode) {
   return mode == CAUSAL || mode == CAUSAL_ALIBI;
@@ -166,6 +206,8 @@ struct Cfg {
   static constexpr int STAGES = D == 128 || (MODE == BIAS && D == 64) ? 2 : 3;
   static constexpr int BSTAGES = MODE != BIAS ? 0 : D == 128 ? 1 : 2;
   static constexpr uint32_t TILE_BYTES = KT * D * 2;  // one K or V tile
+  // mode 1: a K stage's key segment ids come with it
+  static constexpr uint32_t SEG_BYTES = MODE == SEGMENT ? KT * 4 : 0;
 };
 
 // The row sums of P on the tensor cores (P . a ones tile, an m64n8k16
@@ -178,37 +220,51 @@ __host__ __device__ constexpr bool ones_sum(int D, int mode) {
   return D <= 64 && alibi_mode(mode);
 }
 
-// Shared memory from a 1024-byte aligned base: the Q tile (NC x 64 rows),
-// the K ring, the V ring, 1 KB of bf16 ones (the row sums' B operand),
-// mode 3's bias ring, then the mbarriers: q full, K full[STAGES], V
-// full, K empty, V empty, bias full[BSTAGES], bias empty. A tile of R
-// rows holds column block c at c * R * RB and row r of it at r * RB
-// (swizzled within 8-row groups); a bias tile holds warpgroup w's 64
-// rows at w * 32 KB, key block c (32 keys) of them at c * 8 KB, row r at
-// r * 128 (its 16-byte chunks swizzled within 8-row groups).
-template <int D, int NC, int MODE>
+// Shared memory from a 1024-byte aligned base: the Q tile (NC x 64 rows;
+// two of them, for heads h and h + 1, with emission), the K ring, the V
+// ring, 1 KB of bf16 ones (the row sums' B operand), mode 3's bias ring,
+// mode 1's key segment ids (one 128-key row a K stage), the emission's
+// row absmax (QB f32), then the mbarriers: q full[QBUF], q empty[QBUF], K
+// full[STAGES], V full, K empty, V empty, bias full[BSTAGES], bias
+// empty. A tile of R rows holds column block c at c * R * RB and row r
+// of it at r * RB (swizzled within 8-row groups); a bias tile holds
+// warpgroup w's 64 rows at w * 32 KB, key block c (32 keys) of them at c
+// * 8 KB, row r at r * 128 (its 16-byte chunks swizzled within 8-row
+// groups).
+template <int D, int NC, int MODE, int EMIT>
 struct Smem {
   using C = Cfg<D, MODE>;
   static constexpr int QB = NC * WG_ROWS;
-  static constexpr uint32_t q_bytes = QB * D * 2;
-  static constexpr uint32_t k_off = q_bytes;
+  static constexpr int QBUF = EMIT != EMIT_NO ? 2 : 1;
+  static constexpr uint32_t q_bytes = QB * D * 2;  // one Q tile
+  static constexpr uint32_t k_off = QBUF * q_bytes;
   static constexpr uint32_t v_off = k_off + C::STAGES * C::TILE_BYTES;
   static constexpr uint32_t ones_off = v_off + C::STAGES * C::TILE_BYTES;
   static constexpr uint32_t b_off = ones_off + 1024;
   static constexpr uint32_t b_tile_bytes = QB * KT * 4;
-  static constexpr uint32_t bar_off = b_off + C::BSTAGES * b_tile_bytes;
+  static constexpr uint32_t seg_off = b_off + C::BSTAGES * b_tile_bytes;
+  static constexpr uint32_t rmax_off = seg_off + C::STAGES * C::SEG_BYTES;
+  static constexpr uint32_t bar_off =
+      rmax_off + (EMIT != EMIT_NO ? QB * 4 : 0);
   static constexpr size_t bytes =
-      1024 + bar_off + (1 + 4 * C::STAGES + 2 * C::BSTAGES) * 8;
+      1024 + bar_off + (2 * QBUF + 4 * C::STAGES + 2 * C::BSTAGES) * 8;
 };
-static_assert(Smem<128, 2, STREAM>::bytes <= 232448, "D=128 block");
-static_assert(Smem<64, 2, STREAM>::bytes <= 232448, "D=64 block");
-static_assert(Smem<128, 2, BIAS>::bytes <= 232448, "D=128 bias block");
-static_assert(Smem<64, 2, BIAS>::bytes <= 232448, "D=64 bias block");
+static_assert(Smem<128, 2, STREAM, EMIT_NO>::bytes <= 232448, "D=128 block");
+static_assert(Smem<64, 2, STREAM, EMIT_NO>::bytes <= 232448, "D=64 block");
+static_assert(Smem<128, 2, BIAS, EMIT_NO>::bytes <= 232448,
+              "D=128 bias block");
+static_assert(Smem<64, 2, BIAS, EMIT_NO>::bytes <= 232448, "D=64 bias block");
+static_assert(Smem<128, 2, SEGMENT, EMIT_ONLY>::bytes <= 232448,
+              "D=128 emitting block");
 
 struct Args {
-  const int* lengths;   // [B] int32
+  const int* lengths;   // [B] int32 (modes 0, 3-8)
+  const int* seg;       // [B, L] int32 (mode 1)
   const float* slopes;  // [H] f32 (modes 5, 8)
-  __nv_bfloat16* out;   // [B*L, E]
+  __nv_bfloat16* out;   // [B*L, E] (not with "only" emission)
+  int8_t* o8;           // emission: [B*L, E] codes
+  float* os;            // emission: [B*L] row scales
+  float* scratch;       // "only" emission: [B*L, E] f32 context
   int L, H;
   float s2, hi;
   int batch_fastest;    // mode 3: grid (B, q-blocks, H)
@@ -235,25 +291,37 @@ __device__ __forceinline__ float2 ld_shared_f2(uint32_t addr) {
   return v;
 }
 
+// two int32 from shared memory (8-byte aligned)
+__device__ __forceinline__ int2 ld_shared_i2(uint32_t addr) {
+  int2 v;
+  asm volatile("ld.shared.v2.s32 {%0, %1}, [%2];\n"
+               : "=r"(v.x), "=r"(v.y) : "r"(addr) : "memory");
+  return v;
+}
+
 // One tile's score pass for this thread's two query rows (r0 and r0 + 8)
 // and 64 keys, in place: s[4j + e] is row e < 2 ? r0 : r0 + 8, key k0 + 2
 // * quad + 8j + (e & 1). fq[r]: f32(row - k0 - 2 * quad) (ALiBi's
 // distance, exact in f32); lim[r]: the row's valid keys end, minus k0 + 2
 // * quad. Mode 3: bq, the shared address of row r0's bias pair in key
 // block 0 of the tile's bias stage (row r0 + 8's is 1 KB on), boff[m] the
-// swizzled chunk offset of keys 8m.. within a 32-key block. Leaves the
-// probabilities in s: with ONES_SUM as they are (the A-fragment
-// conversion rounds them and the tensor cores sum them), else rounded to
-// bf16, and adds them to the row sums.
+// swizzled chunk offset of keys 8m.. within a 32-key block. Mode 1: sk,
+// the shared address of key k0 + 2 * quad's segment id in the tile's K
+// stage, sq[r] the row's segment id (-2 for a pad row: no key matches).
+// Leaves the probabilities in s: with ONES_SUM as they are (the
+// A-fragment conversion rounds them and the tensor cores sum them), else
+// rounded to bf16, and adds them to the row sums.
 template <int MODE, bool MASKED, bool ONES_SUM>
 __device__ __forceinline__ void score_pass(float* s, float* sum, float s2,
                                            float hi, float slope,
                                            const float* fq, const int* lim,
-                                           uint32_t bq, const uint32_t* boff) {
+                                           uint32_t bq, const uint32_t* boff,
+                                           uint32_t sk, const int* sq) {
 #pragma unroll
   for (int j = 0; j < KT / 8; ++j) {
     float v[4];
     float bias[4];
+    int2 kseg = make_int2(0, 0);
     if constexpr (MODE == BIAS) {
       const uint32_t at = bq + (j / 4) * (BIAS_COLS * 64 * 4) + boff[j % 4];
       const float2 b0 = ld_shared_f2(at), b1 = ld_shared_f2(at + 8 * 128);
@@ -262,6 +330,7 @@ __device__ __forceinline__ void score_pass(float* s, float* sum, float s2,
       bias[2] = b1.x;
       bias[3] = b1.y;
     }
+    if constexpr (MODE == SEGMENT) kseg = ld_shared_i2(sk + 32 * j);
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int c = 8 * j + (e & 1);
@@ -277,6 +346,8 @@ __device__ __forceinline__ void score_pass(float* s, float* sum, float s2,
       }
       float p = ex2(fminf(fmaxf(raw, -100.0f), hi));
       if constexpr (MASKED) p = c < lim[e >> 1] ? p : 0.0f;
+      if constexpr (MODE == SEGMENT)
+        p = ((e & 1) ? kseg.y : kseg.x) == sq[e >> 1] ? p : 0.0f;
       v[e] = p;
     }
     if constexpr (ONES_SUM) {
@@ -324,18 +395,33 @@ __device__ __forceinline__ void pv_product(float* o, float* rs,
   }
 }
 
-// bmap: mode 3's bias [H, L, L] (unused by the other modes)
-template <int D, int MODE, int NC>
+// 16 bytes of global memory in each of n consecutive vectors
+template <int N>
+__device__ __forceinline__ void ld_vecs(const void* src, uint4* v) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) v[i] = reinterpret_cast<const uint4*>(src)[i];
+}
+
+// bmap: mode 3's bias [H, L, L]; smap: mode 1's seg [B, L] (each unused
+// by the other modes). EMIT: emission (modes 0 and 1): the block runs
+// every head of its (query tile, sequence), see the design notes.
+template <int D, int MODE, int NC, int EMIT>
 __global__ void __launch_bounds__(128 * (NC + 1), 1) attn_sm90_kernel(
     const __grid_constant__ CUtensorMap map,
-    const __grid_constant__ CUtensorMap bmap, const Args a) {
+    const __grid_constant__ CUtensorMap bmap,
+    const __grid_constant__ CUtensorMap smap, const Args a) {
   using C = Cfg<D, MODE>;
-  using S = Smem<D, NC, MODE>;
+  using S = Smem<D, NC, MODE, EMIT>;
   constexpr int QB = S::QB;
   constexpr int STAGES = C::STAGES;
   constexpr int BS = C::BSTAGES > 0 ? C::BSTAGES : 1;  // mode 3's bias ring
   constexpr int RB = C::RB;
   constexpr bool ONES = ones_sum(D, MODE);
+  constexpr bool EMITS = EMIT != EMIT_NO;
+  constexpr int QBUF = S::QBUF;
+  static_assert(!EMITS || MODE == PREFIX || MODE == SEGMENT,
+                "emission is modes 0 and 1");
+  static_assert(MODE != SEGMENT || EMITS, "mode 1 runs with emission");
   const bool batch_fastest = MODE == BIAS && a.batch_fastest;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw_base = smem_u32(smem_raw);
@@ -343,31 +429,48 @@ __global__ void __launch_bounds__(128 * (NC + 1), 1) attn_sm90_kernel(
   unsigned char* sbase = smem_raw + (base - raw_base);
   const uint32_t qs = base;
   const uint32_t bars = base + S::bar_off;
-  const uint32_t q_full = bars;
-  auto k_full = [&](int s) { return bars + 8 * (1 + s); };
-  auto v_full = [&](int s) { return bars + 8 * (1 + STAGES + s); };
-  auto k_empty = [&](int s) { return bars + 8 * (1 + 2 * STAGES + s); };
-  auto v_empty = [&](int s) { return bars + 8 * (1 + 3 * STAGES + s); };
-  auto b_full = [&](int s) { return bars + 8 * (1 + 4 * STAGES + s); };
-  auto b_empty = [&](int s) { return bars + 8 * (1 + 4 * STAGES + BS + s); };
+  auto q_full = [&](int i) { return bars + 8 * i; };
+  auto q_empty = [&](int i) { return bars + 8 * (QBUF + i); };
+  const uint32_t ring = bars + 8 * 2 * QBUF;
+  auto k_full = [&](int s) { return ring + 8 * s; };
+  auto v_full = [&](int s) { return ring + 8 * (STAGES + s); };
+  auto k_empty = [&](int s) { return ring + 8 * (2 * STAGES + s); };
+  auto v_empty = [&](int s) { return ring + 8 * (3 * STAGES + s); };
+  auto b_full = [&](int s) { return ring + 8 * (4 * STAGES + s); };
+  auto b_empty = [&](int s) { return ring + 8 * (4 * STAGES + BS + s); };
 
   const int tid = threadIdx.x;
   // the warpgroup, and below the row length, broadcast from lane 0: values
   // the compiler can see are warp-uniform, so the branches on them are no
   // divergent paths, which would make it serialize the wgmma instructions
   const int role = __shfl_sync(0xffffffffu, tid / 128, 0);
-  // causal blocks run longest first: the last query block first; mode 3
-  // with a large bias runs the sequences of one (query block, head)
-  // together
-  const int qb = batch_fastest ? blockIdx.y
-                 : causal_mode(MODE) ? gridDim.x - 1 - blockIdx.x
-                                     : blockIdx.x;
-  const int q0 = qb * QB;
-  const int h = batch_fastest ? blockIdx.z : blockIdx.y;
-  const int b = batch_fastest ? blockIdx.x : blockIdx.z;
   const int L = a.L;
   const int E = a.H * D;
-  const int len = __shfl_sync(0xffffffffu, min(max(a.lengths[b], 0), L), 0);
+  int qb, h_block, b;
+  if constexpr (EMITS) {
+    // block i: the (i % q-tiles)-th query tile of the (i / q-tiles)-th
+    // sequence from the last
+    const int nqb = (L + QB - 1) / QB;
+    qb = blockIdx.x % nqb;
+    b = gridDim.x / nqb - 1 - blockIdx.x / nqb;
+    h_block = 0;
+  } else {
+    // causal blocks run longest first: the last query block first; mode 3
+    // with a large bias runs the sequences of one (query block, head)
+    // together
+    qb = batch_fastest ? blockIdx.y
+         : causal_mode(MODE) ? gridDim.x - 1 - blockIdx.x
+                             : blockIdx.x;
+    h_block = batch_fastest ? blockIdx.z : blockIdx.y;
+    b = batch_fastest ? blockIdx.x : blockIdx.z;
+  }
+  const int q0 = qb * QB;
+  // the heads this block runs: every one with emission, else its own
+  const int n_heads = EMITS ? a.H : 1;
+  // mode 1 masks keys by segment, not by a prefix: every key below L
+  const int len = __shfl_sync(
+      0xffffffffu,
+      MODE == SEGMENT ? L : min(max(a.lengths[b], 0), L), 0);
   // key tiles past len add exact zeros, and so do those past a causal
   // block's last query row
   int k_end = (len + KT - 1) / KT * KT;
@@ -380,11 +483,14 @@ __global__ void __launch_bounds__(128 * (NC + 1), 1) attn_sm90_kernel(
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
   }
   if (tid == 0) {
-    mbar_init(q_full, 1);
+    for (int i = 0; i < QBUF; ++i) {
+      mbar_init(q_full(i), 1);
+      mbar_init(q_empty(i), 4 * NC);  // one lane per consumer warp
+    }
     for (int s = 0; s < STAGES; ++s) {
       mbar_init(k_full(s), 1);
       mbar_init(v_full(s), 1);
-      mbar_init(k_empty(s), 4 * NC);  // one lane per consumer warp
+      mbar_init(k_empty(s), 4 * NC);
       mbar_init(v_empty(s), 4 * NC);
     }
     for (int s = 0; s < C::BSTAGES; ++s) {
@@ -396,53 +502,68 @@ __global__ void __launch_bounds__(128 * (NC + 1), 1) attn_sm90_kernel(
   __syncthreads();
 
   if (role >= NC) {
-    // ---- producer: Q once, then K and V tiles through the ring ----
+    // ---- producer: each head's Q, then its K and V tiles through the
+    // ring (ring tile g counts on across heads) ----
     if constexpr (NC == 2)
       asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
           PRODUCER_REGS));
     if (tid != 128 * NC) return;
-    mbar_expect_tx(q_full, S::q_bytes);
+    int g = 0;
+    for (int hh = 0; hh < n_heads; ++hh) {
+      const int h = EMITS ? hh : h_block;
+      const int qi = hh % QBUF;
+      // (a fresh barrier's phase "before 0" reads as complete)
+      if constexpr (EMITS) mbar_wait(q_empty(qi), ((hh / QBUF) & 1) ^ 1);
+      mbar_expect_tx(q_full(qi), S::q_bytes);
 #pragma unroll
-    for (int c = 0; c < C::NH; ++c)
+      for (int c = 0; c < C::NH; ++c)
 #pragma unroll
-      for (int rc = 0; rc < QB / BOX_ROWS; ++rc)
-        tma_load_3d(qs + (c * QB + rc * BOX_ROWS) * RB, &map,
-                    h * D + c * C::CW, q0 + rc * BOX_ROWS, b, q_full);
-    for (int t = 0; t < nt; ++t) {
-      const int s = t % STAGES;
-      const uint32_t ph = (t / STAGES) & 1;
-      const int k0 = t * KT;
+        for (int rc = 0; rc < QB / BOX_ROWS; ++rc)
+          tma_load_3d(qs + qi * S::q_bytes + (c * QB + rc * BOX_ROWS) * RB,
+                      &map, h * D + c * C::CW, q0 + rc * BOX_ROWS, b,
+                      q_full(qi));
+      for (int t = 0; t < nt; ++t, ++g) {
+        const int s = g % STAGES;
+        const uint32_t ph = (g / STAGES) & 1;
+        const int k0 = t * KT;
 #pragma unroll
-      for (int kv = 0; kv < 2; ++kv) {  // K, then V
-        const uint32_t full = kv ? v_full(s) : k_full(s);
-        mbar_wait(kv ? v_empty(s) : k_empty(s), ph ^ 1);
-        mbar_expect_tx(full, C::TILE_BYTES);
-        const uint32_t tile =
-            base + (kv ? S::v_off : S::k_off) + s * C::TILE_BYTES;
+        for (int kv = 0; kv < 2; ++kv) {  // K, then V
+          const uint32_t full = kv ? v_full(s) : k_full(s);
+          mbar_wait(kv ? v_empty(s) : k_empty(s), ph ^ 1);
+          mbar_expect_tx(full, C::TILE_BYTES + (kv ? 0 : C::SEG_BYTES));
+          const uint32_t tile =
+              base + (kv ? S::v_off : S::k_off) + s * C::TILE_BYTES;
 #pragma unroll
-        for (int c = 0; c < C::NH; ++c)
+          for (int c = 0; c < C::NH; ++c)
 #pragma unroll
-          for (int rc = 0; rc < KT / BOX_ROWS; ++rc)
-            tma_load_3d(tile + (c * KT + rc * BOX_ROWS) * RB, &map,
-                        (1 + kv) * E + h * D + c * C::CW, k0 + rc * BOX_ROWS,
-                        b, full);
-        if constexpr (MODE == BIAS) {
-          if (kv == 0) {
-            // the tile's bias, needed with its K (V only a tile later):
-            // each warpgroup's 64 rows x 128 keys, in boxes of 32 keys
-            // (rows and keys past L read as zeros)
-            const int bs = t % BS;
-            mbar_wait(b_empty(bs), ((t / BS) & 1) ^ 1);
-            mbar_expect_tx(b_full(bs), S::b_tile_bytes);
-            const uint32_t bt = base + S::b_off + bs * S::b_tile_bytes;
+            for (int rc = 0; rc < KT / BOX_ROWS; ++rc)
+              tma_load_3d(tile + (c * KT + rc * BOX_ROWS) * RB, &map,
+                          (1 + kv) * E + h * D + c * C::CW,
+                          k0 + rc * BOX_ROWS, b, full);
+          if constexpr (MODE == SEGMENT) {
+            // the keys' segment ids, with K (keys past L read as 0)
+            if (kv == 0)
+              tma_load_2d(base + S::seg_off + s * C::SEG_BYTES, &smap, k0,
+                          b, full);
+          }
+          if constexpr (MODE == BIAS) {
+            if (kv == 0) {
+              // the tile's bias, needed with its K (V only a tile later):
+              // each warpgroup's 64 rows x 128 keys, in boxes of 32 keys
+              // (rows and keys past L read as zeros)
+              const int bs = t % BS;
+              mbar_wait(b_empty(bs), ((t / BS) & 1) ^ 1);
+              mbar_expect_tx(b_full(bs), S::b_tile_bytes);
+              const uint32_t bt = base + S::b_off + bs * S::b_tile_bytes;
 #pragma unroll
-            for (int w = 0; w < NC; ++w)
+              for (int w = 0; w < NC; ++w)
 #pragma unroll
-              for (int c = 0; c < KT / BIAS_COLS; ++c)
-                tma_load_3d(
-                    bt + (w * (KT / BIAS_COLS) + c) * (BIAS_COLS * 64 * 4),
-                    &bmap, k0 + c * BIAS_COLS, q0 + w * WG_ROWS, h,
-                    b_full(bs));
+                for (int c = 0; c < KT / BIAS_COLS; ++c)
+                  tma_load_3d(
+                      bt + (w * (KT / BIAS_COLS) + c) * (BIAS_COLS * 64 * 4),
+                      &bmap, k0 + c * BIAS_COLS, q0 + w * WG_ROWS, h,
+                      b_full(bs));
+            }
           }
         }
       }
@@ -460,7 +581,18 @@ __global__ void __launch_bounds__(128 * (NC + 1), 1) attn_sm90_kernel(
   const int qw0 = q0 + wg * WG_ROWS;
   const int rw = ((tid % 128) / 32) * 16 + (lane >> 2);  // row in the wg
   const int row0 = qw0 + rw;
-  const float slope = alibi_mode(MODE) ? a.slopes[h] : 0.0f;
+  // mode 1: the two rows' segment ids (a pad row, or a row past L, -2:
+  // it matches no key), and this thread's first key id in a K stage
+  int sq[2] = {-2, -2};
+  if constexpr (MODE == SEGMENT) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + 8 * r;
+      const int id = row < L ? a.seg[(size_t)b * L + row] : -1;
+      sq[r] = id >= 0 ? id : -2;
+    }
+  }
+  const uint32_t sk0 = base + S::seg_off + 8 * quad;
   // mode 3: this thread's bias pairs in a bias stage (see score_pass)
   const uint32_t bq = base + S::b_off + wg * (WG_ROWS * KT * 4) + rw * 128 +
                       8 * (quad & 1);
@@ -469,178 +601,280 @@ __global__ void __launch_bounds__(128 * (NC + 1), 1) attn_sm90_kernel(
   for (int m = 0; m < 4; ++m)
     boff[m] = ((2 * m + (quad >> 1)) ^ (rw & 7)) << 4;
 
-  mbar_wait(q_full, 0);
-  if constexpr (MODE == PREFIX) {
-    // q * s2 rounded to bf16, in place (elementwise: the swizzle does not
-    // matter), then made visible to wgmma's async proxy
-    constexpr int VECS = WG_ROWS * RB / 16;  // 16-byte vectors a block
-#pragma unroll
-    for (int c = 0; c < C::NH; ++c)
-      for (int i = tid % 128; i < VECS; i += 128) {
-        uint4* ptr = reinterpret_cast<uint4*>(
-            sbase + (c * QB + wg * WG_ROWS) * RB + i * 16);
-        uint4 u = *ptr;
-        uint32_t* w = reinterpret_cast<uint32_t*>(&u);
-#pragma unroll
-        for (int k = 0; k < 4; ++k)
-          w[k] = pack2(lo_bf16(w[k]) * a.s2, hi_bf16(w[k]) * a.s2);
-        *ptr = u;
-      }
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-    named_bar(BAR_WG + wg, 128);
-  }
-
   float o[D / 2];
   float s[KT / 2];
   uint32_t p[KT / 4];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) o[i] = 0.0f;
-#pragma unroll
   for (int i = 0; i < KT / 2; ++i) s[i] = 0.0f;
 #pragma unroll
   for (int i = 0; i < KT / 4; ++i) p[i] = 0u;
-  float sum[2] = {0.0f, 0.0f};
-  float rs[4] = {0.0f, 0.0f, 0.0f, 0.0f};  // ONES: the row sums
+  float amax[2] = {0.0f, 0.0f};  // emission: the two rows' running absmax
 
-  // the descriptors of this warpgroup's Q rows and of ring stage 0's K and
-  // V tiles; a stage, a column block and a k16 step move the start address
-  // (the low 14 bits, in 16-byte units: no carry, shared memory is < 256 KB)
-  const uint64_t dq = smem_desc(qs + wg * WG_ROWS * RB, 16, 8 * RB,
-                                C::LAYOUT);
+  // the descriptors of this warpgroup's rows of Q buffer 0 and of ring
+  // stage 0's K and V tiles; a buffer, a stage, a column block and a k16
+  // step move the start address (the low 14 bits, in 16-byte units: no
+  // carry, shared memory is < 256 KB)
+  const uint64_t dq0 = smem_desc(qs + wg * WG_ROWS * RB, 16, 8 * RB,
+                                 C::LAYOUT);
   const uint64_t dk = smem_desc(base + S::k_off, 16, 8 * RB, C::LAYOUT);
   const uint64_t dv = smem_desc(base + S::v_off, KT * RB, 8 * RB, C::LAYOUT);
   // the ones tile, K-major without swizzle: 8 x 16-byte rows a core
   // matrix, the two of a k16 step 128 bytes apart (all within the 1 KB)
   const uint64_t d1 = smem_desc(base + S::ones_off, 128, 256, 0);
-  // S = Q . K^T for the K tile in ring stage st
-  auto issue_scores = [&](int st) {
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      const int c = kk * 16 / C::CW;
-      const uint32_t off = (kk * 16 % C::CW) * 2;
-      wgmma_m64n128k16(s, dq + ((c * QB * RB + off) >> 4),
-                       dk + ((st * C::TILE_BYTES + c * KT * RB + off) >> 4),
-                       kk > 0);
-    }
-  };
-  // tile t's score pass, once its S is complete: in place, and the sums
-  auto score_tile = [&](int t) {
-    const int k0 = t * KT;
-    const int kq = k0 + 2 * quad;
-    const float fq[2] = {(float)(row0 - kq), (float)(row0 + 8 - kq)};
-    int lim[2] = {len - kq, len - kq};
-    if constexpr (causal_mode(MODE)) {
-      lim[0] = min(len, row0 + 1) - kq;
-      lim[1] = min(len, row0 + 9) - kq;
-    }
-    const uint32_t bt = bq + (t % BS) * S::b_tile_bytes;
-    if (k0 + KT > len || (causal_mode(MODE) && k0 + KT - 1 > qw0))
-      score_pass<MODE, true, ONES>(s, sum, a.s2, a.hi, slope, fq, lim, bt,
-                                   boff);
-    else
-      score_pass<MODE, false, ONES>(s, sum, a.s2, a.hi, slope, fq, lim, bt,
-                                    boff);
-    if constexpr (MODE == BIAS) {
-      // every lane's bias reads are done: the stage goes back
-      __syncwarp();
-      if (lane == 0) mbar_arrive(b_empty(t % BS));
-    }
-  };
-  // mode 3: tile t's bias has landed
-  auto wait_bias = [&](int t) {
-    if constexpr (MODE == BIAS) mbar_wait(b_full(t % BS), (t / BS) & 1);
-  };
   // the warpgroups take turns issuing their products (warpgroup 0 first):
-  // each takes nt + 1 turns, and passes each but warpgroup 1's last
+  // each takes nt + 1 turns a head, and passes each but warpgroup 1's last
+  // of the last head
   auto take_turn = [&]() {
     if constexpr (NC == 2) named_bar(BAR_SCHED + wg, 256);
   };
   auto pass_turn = [&]() {
     if constexpr (NC == 2) named_bar_arrive(BAR_SCHED + 1 - wg, 256);
   };
+  if constexpr (NC == 2)
+    if (nt > 0 && wg == 1) named_bar_arrive(BAR_SCHED, 256);
 
-  if (nt > 0) {
-    if constexpr (NC == 2)
-      if (wg == 1) named_bar_arrive(BAR_SCHED, 256);
-    // tile 0: its scores alone
-    mbar_wait(k_full(0), 0);
-    wait_bias(0);
-    take_turn();
-    fence_regs<KT / 2>(s);
-    wgmma_fence();
-    issue_scores(0);
-    wgmma_commit();
-    pass_turn();
-    wgmma_wait<0>();
-    fence_regs<KT / 2>(s);
-    if (lane == 0) mbar_arrive(k_empty(0));
-    score_tile(0);
-    to_fragments(s, p);
-    // tiles 1 .. nt - 1: the scores of tile t issued with the product of
-    // tile t - 1, and tile t's score pass run while that product runs
-    for (int t = 1; t < nt; ++t) {
-      const int sc = t % STAGES;
-      const int sp = (t - 1) % STAGES;
-      mbar_wait(k_full(sc), (t / STAGES) & 1);
-      mbar_wait(v_full(sp), ((t - 1) / STAGES) & 1);
-      wait_bias(t);
+  int g0 = 0;  // ring tiles of the heads before this one
+  for (int hh = 0; hh < n_heads; ++hh) {
+    const int h = EMITS ? hh : h_block;
+    const int qi = hh % QBUF;
+    const uint64_t dq = dq0 + ((qi * S::q_bytes) >> 4);
+    const float slope = alibi_mode(MODE) ? a.slopes[h] : 0.0f;
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.0f;
+    float sum[2] = {0.0f, 0.0f};
+    float rs[4] = {0.0f, 0.0f, 0.0f, 0.0f};  // ONES: the row sums
+
+    mbar_wait(q_full(qi), (hh / QBUF) & 1);
+    if constexpr (MODE == PREFIX) {
+      // q * s2 rounded to bf16, in place (elementwise: the swizzle does
+      // not matter), then made visible to wgmma's async proxy
+      constexpr int VECS = WG_ROWS * RB / 16;  // 16-byte vectors a block
+#pragma unroll
+      for (int c = 0; c < C::NH; ++c)
+        for (int i = tid % 128; i < VECS; i += 128) {
+          uint4* ptr = reinterpret_cast<uint4*>(
+              sbase + qi * S::q_bytes + (c * QB + wg * WG_ROWS) * RB +
+              i * 16);
+          uint4 u = *ptr;
+          uint32_t* w = reinterpret_cast<uint32_t*>(&u);
+#pragma unroll
+          for (int k = 0; k < 4; ++k)
+            w[k] = pack2(lo_bf16(w[k]) * a.s2, hi_bf16(w[k]) * a.s2);
+          *ptr = u;
+        }
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      named_bar(BAR_WG + wg, 128);
+    }
+
+    // S = Q . K^T for the K tile in ring stage st
+    auto issue_scores = [&](int st) {
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const int c = kk * 16 / C::CW;
+        const uint32_t off = (kk * 16 % C::CW) * 2;
+        wgmma_m64n128k16(s, dq + ((c * QB * RB + off) >> 4),
+                         dk + ((st * C::TILE_BYTES + c * KT * RB + off) >> 4),
+                         kk > 0);
+      }
+    };
+    // tile t's K stage goes back once its scores are done (mode 1: once
+    // the score pass has read its segment ids)
+    auto release_k = [&](int g) {
+      if constexpr (MODE == SEGMENT) __syncwarp();
+      if (lane == 0) mbar_arrive(k_empty(g % STAGES));
+    };
+    // tile t (ring tile g)'s score pass, once its S is complete: in place,
+    // and the sums
+    auto score_tile = [&](int t, int g) {
+      const int k0 = t * KT;
+      const int kq = k0 + 2 * quad;
+      const float fq[2] = {(float)(row0 - kq), (float)(row0 + 8 - kq)};
+      int lim[2] = {len - kq, len - kq};
+      if constexpr (causal_mode(MODE)) {
+        lim[0] = min(len, row0 + 1) - kq;
+        lim[1] = min(len, row0 + 9) - kq;
+      }
+      const uint32_t bt = bq + (t % BS) * S::b_tile_bytes;
+      const uint32_t sk = sk0 + (g % STAGES) * C::SEG_BYTES;
+      if (MODE == SEGMENT || k0 + KT > len ||
+          (causal_mode(MODE) && k0 + KT - 1 > qw0))
+        score_pass<MODE, true, ONES>(s, sum, a.s2, a.hi, slope, fq, lim, bt,
+                                     boff, sk, sq);
+      else
+        score_pass<MODE, false, ONES>(s, sum, a.s2, a.hi, slope, fq, lim,
+                                      bt, boff, sk, sq);
+      if constexpr (MODE == BIAS) {
+        // every lane's bias reads are done: the stage goes back
+        __syncwarp();
+        if (lane == 0) mbar_arrive(b_empty(t % BS));
+      }
+    };
+    // mode 3: tile t's bias has landed
+    auto wait_bias = [&](int t) {
+      if constexpr (MODE == BIAS) mbar_wait(b_full(t % BS), (t / BS) & 1);
+    };
+
+    if (nt > 0) {
+      // tile 0: its scores alone
+      mbar_wait(k_full(g0 % STAGES), (g0 / STAGES) & 1);
+      wait_bias(0);
       take_turn();
       fence_regs<KT / 2>(s);
+      wgmma_fence();
+      issue_scores(g0 % STAGES);
+      wgmma_commit();
+      pass_turn();
+      wgmma_wait<0>();
+      fence_regs<KT / 2>(s);
+      if constexpr (MODE != SEGMENT) release_k(g0);
+      score_tile(0, g0);
+      if constexpr (MODE == SEGMENT) release_k(g0);
+      to_fragments(s, p);
+      // tiles 1 .. nt - 1: the scores of tile t issued with the product
+      // of tile t - 1, and tile t's score pass run while that product runs
+      for (int t = 1; t < nt; ++t) {
+        const int g = g0 + t;
+        const int sc = g % STAGES;
+        const int sp = (g - 1) % STAGES;
+        mbar_wait(k_full(sc), (g / STAGES) & 1);
+        mbar_wait(v_full(sp), ((g - 1) / STAGES) & 1);
+        wait_bias(t);
+        take_turn();
+        fence_regs<KT / 2>(s);
+        fence_regs<D / 2>(o);
+        fence_regs<4>(rs);
+        fence_regs<KT / 4>(p);
+        wgmma_fence();
+        issue_scores(sc);
+        wgmma_commit();
+        pv_product<D, ONES>(o, rs, p, dv + ((sp * C::TILE_BYTES) >> 4), d1);
+        wgmma_commit();
+        pass_turn();
+        wgmma_wait<1>();
+        fence_regs<KT / 2>(s);
+        if constexpr (MODE != SEGMENT) release_k(g);
+        score_tile(t, g);
+        if constexpr (MODE == SEGMENT) release_k(g);
+        wgmma_wait<0>();
+        fence_regs<D / 2>(o);
+        fence_regs<4>(rs);
+        fence_regs<KT / 4>(p);
+        if (lane == 0) mbar_arrive(v_empty(sp));
+        to_fragments(s, p);
+      }
+      // the last tile's product alone
+      const int gl = g0 + nt - 1;
+      const int sp = gl % STAGES;
+      mbar_wait(v_full(sp), (gl / STAGES) & 1);
+      take_turn();
       fence_regs<D / 2>(o);
       fence_regs<4>(rs);
       fence_regs<KT / 4>(p);
       wgmma_fence();
-      issue_scores(sc);
-      wgmma_commit();
       pv_product<D, ONES>(o, rs, p, dv + ((sp * C::TILE_BYTES) >> 4), d1);
       wgmma_commit();
-      pass_turn();
-      wgmma_wait<1>();
-      fence_regs<KT / 2>(s);
-      if (lane == 0) mbar_arrive(k_empty(sc));
-      score_tile(t);
+      if (wg == 0 || hh + 1 < n_heads) pass_turn();
       wgmma_wait<0>();
       fence_regs<D / 2>(o);
       fence_regs<4>(rs);
-      fence_regs<KT / 4>(p);
       if (lane == 0) mbar_arrive(v_empty(sp));
-      to_fragments(s, p);
     }
-    // the last tile's product alone
-    const int sp = (nt - 1) % STAGES;
-    mbar_wait(v_full(sp), ((nt - 1) / STAGES) & 1);
-    take_turn();
-    fence_regs<D / 2>(o);
-    fence_regs<4>(rs);
-    fence_regs<KT / 4>(p);
-    wgmma_fence();
-    pv_product<D, ONES>(o, rs, p, dv + ((sp * C::TILE_BYTES) >> 4), d1);
-    wgmma_commit();
-    if (wg == 0) pass_turn();
-    wgmma_wait<0>();
-    fence_regs<D / 2>(o);
-    fence_regs<4>(rs);
+    // this head's Q buffer goes back (its every product is done)
+    if constexpr (EMITS)
+      if (lane == 0) mbar_arrive(q_empty(qi));
+    g0 += nt;
+
+    if constexpr (ONES) {
+      sum[0] = rs[0];
+      sum[1] = rs[2];
+    } else {
+      sum[0] = quad_sum(sum[0]);
+      sum[1] = quad_sum(sum[1]);
+    }
+    const float inv[2] = {1.0f / fmaxf(sum[0], 1e-30f),
+                          1.0f / fmaxf(sum[1], 1e-30f)};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + 8 * r;
+      if (row >= L) continue;
+      const size_t at = ((size_t)b * L + row) * E + h * D + 2 * quad;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        const float x = o[4 * j + 2 * r] * inv[r];
+        const float y = o[4 * j + 2 * r + 1] * inv[r];
+        if constexpr (EMIT == EMIT_ONLY) {
+          *reinterpret_cast<float2*>(a.scratch + at + 8 * j) =
+              make_float2(x, y);
+          amax[r] = fmaxf(amax[r], fmaxf(fabsf(x), fabsf(y)));
+        } else {
+          const uint32_t w = pack2(x, y);
+          *reinterpret_cast<uint32_t*>(a.out + at + 8 * j) = w;
+          if constexpr (EMIT == EMIT_BOTH)
+            amax[r] = fmaxf(amax[r],
+                            fmaxf(fabsf(lo_bf16(w)), fabsf(hi_bf16(w))));
+        }
+      }
+    }
   }
 
-  if constexpr (ONES) {
-    sum[0] = rs[0];
-    sum[1] = rs[2];
-  } else {
-    sum[0] = quad_sum(sum[0]);
-    sum[1] = quad_sum(sum[1]);
-  }
-  const float inv[2] = {1.0f / fmaxf(sum[0], 1e-30f),
-                        1.0f / fmaxf(sum[1], 1e-30f)};
+  if constexpr (EMITS) {
+    // ---- emission: the warpgroup's 64 rows, every head written ----
+    float* rmax = reinterpret_cast<float*>(sbase + S::rmax_off) + wg * WG_ROWS;
+    amax[0] = quad_max(amax[0]);
+    amax[1] = quad_max(amax[1]);
+    if (quad == 0) {
+      rmax[rw] = amax[0];
+      rmax[rw + 8] = amax[1];
+    }
+    __threadfence_block();
+    named_bar(BAR_WG + wg, 128);
+    const int wt = tid % 128;
+    const int rows = min(WG_ROWS, L - qw0);
+    const size_t row_base = (size_t)b * L + qw0;
+    if (wt < rows) a.os[row_base + wt] = fmaxf(rmax[wt], 1e-30f) * INV127;
+    // a unit: 32 f32 (a 128-byte line) or 16 bf16 a thread, 32 or 16 codes
+    constexpr int U = EMIT == EMIT_ONLY ? 32 : 16;
+    const int per_row = E / U;
+    for (int u = wt; u < rows * per_row; u += 128) {
+      const int r = u / per_row;
+      const size_t at = (row_base + r) * E + (u - r * per_row) * U;
+      const float rcp = 1.0f / (fmaxf(rmax[r], 1e-30f) * INV127);
+      float v[U];
+      if constexpr (EMIT == EMIT_ONLY) {
+        uint4 w[8];
+        ld_vecs<8>(a.scratch + at, w);
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = row0 + 8 * r;
-    if (row >= L) continue;
-    __nv_bfloat16* dst =
-        a.out + ((size_t)b * L + row) * E + h * D + 2 * quad;
+        for (int i = 0; i < 8; ++i) {
+          v[4 * i] = __uint_as_float(w[i].x);
+          v[4 * i + 1] = __uint_as_float(w[i].y);
+          v[4 * i + 2] = __uint_as_float(w[i].z);
+          v[4 * i + 3] = __uint_as_float(w[i].w);
+        }
+      } else {
+        uint4 w[2];
+        ld_vecs<2>(a.out + at, w);
+        const uint32_t* x = reinterpret_cast<const uint32_t*>(w);
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
-      *reinterpret_cast<uint32_t*>(dst + 8 * j) =
-          pack2(o[4 * j + 2 * r] * inv[r], o[4 * j + 2 * r + 1] * inv[r]);
+        for (int i = 0; i < 8; ++i) {
+          v[2 * i] = lo_bf16(x[i]);
+          v[2 * i + 1] = hi_bf16(x[i]);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < U / 16; ++i) {
+        const uint2 c0 = codes8(v + 16 * i, rcp);
+        const uint2 c1 = codes8(v + 16 * i + 8, rcp);
+        *reinterpret_cast<uint4*>(a.o8 + at + 16 * i) =
+            make_uint4(c0.x, c0.y, c1.x, c1.y);
+      }
+      // the scratch line is never read again: dropped from L2 unwritten,
+      // it costs no write to HBM (K2e "only" at bge's shape 0.014-0.017
+      // ms faster than without it, K4e at 256 x 128 0.006-0.008;
+      // tools/attention_ab.py, H100 at 700 W)
+      if constexpr (EMIT == EMIT_ONLY)
+        asm volatile("discard.global.L2 [%0], 128;\n" ::"l"(a.scratch + at)
+                     : "memory");
+    }
   }
 }
 
@@ -682,26 +916,45 @@ cudaError_t bias_map(CUtensorMap* map, const void* bias, int L, int H) {
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-template <int D, int MODE, int NC>
+// mode 1's seg [B, L] int32 as boxes of 128 keys x 1 sequence, unswizzled
+// (keys past L read as zeros)
+cudaError_t seg_map(CUtensorMap* map, const void* seg, int B, int L) {
+  EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {(cuuint64_t)L, (cuuint64_t)B};
+  const cuuint64_t strides[1] = {(cuuint64_t)L * 4};
+  const cuuint32_t box[2] = {KT, 1};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_INT32, 2, const_cast<void*>(seg), dims,
+      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_NONE,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <int D, int MODE, int NC, int EMIT = EMIT_NO>
 cudaError_t launch(const void* qkv, const void* bias, const Args& a, int B,
                    cudaStream_t stream) {
-  using S = Smem<D, NC, MODE>;
-  CUtensorMap map, bmap;
+  using S = Smem<D, NC, MODE, EMIT>;
+  CUtensorMap map, bmap, smap;
   cudaError_t err = qkv_map(&map, qkv, B, a.L, 3 * a.H * D, Cfg<D, MODE>::CW);
   if (err != cudaSuccess) return err;
-  // (the other modes read no bias: the qkv map stands in for it)
-  err = MODE == BIAS ? bias_map(&bmap, bias, a.L, a.H)
-                     : qkv_map(&bmap, qkv, B, a.L, 3 * a.H * D,
-                               Cfg<D, MODE>::CW);
+  // (a mode that reads no bias or segment ids gets the qkv map in their
+  // place)
+  bmap = smap = map;
+  if (MODE == BIAS) err = bias_map(&bmap, bias, a.L, a.H);
+  if (MODE == SEGMENT) err = seg_map(&smap, a.seg, B, a.L);
   if (err != cudaSuccess) return err;
-  auto kern = attn_sm90_kernel<D, MODE, NC>;
+  auto kern = attn_sm90_kernel<D, MODE, NC, EMIT>;
   err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)S::bytes);
   if (err != cudaSuccess) return err;
   const int nqb = (a.L + S::QB - 1) / S::QB;
-  const dim3 grid = MODE == BIAS && a.batch_fastest ? dim3(B, nqb, a.H)
-                                                    : dim3(nqb, a.H, B);
-  kern<<<grid, 128 * (NC + 1), S::bytes, stream>>>(map, bmap, a);
+  const dim3 grid = EMIT != EMIT_NO ? dim3(nqb * B)
+                    : MODE == BIAS && a.batch_fastest ? dim3(B, nqb, a.H)
+                                                      : dim3(nqb, a.H, B);
+  kern<<<grid, 128 * (NC + 1), S::bytes, stream>>>(map, bmap, smap, a);
   return cudaGetLastError();
 }
 
@@ -726,6 +979,25 @@ cudaError_t launch_mode(int mode, const void* qkv, const void* bias,
   }
 }
 
+// K2e / K4e: modes 0 and 1 with emission, one or two consumer warpgroups
+template <int D, int MODE>
+cudaError_t launch_emit(int emit, const void* qkv, const Args& a, int B,
+                        cudaStream_t stream) {
+  const bool one = a.L <= WG_ROWS;
+  if (emit == EMIT_BOTH)
+    return one ? launch<D, MODE, 1, EMIT_BOTH>(qkv, nullptr, a, B, stream)
+               : launch<D, MODE, 2, EMIT_BOTH>(qkv, nullptr, a, B, stream);
+  return one ? launch<D, MODE, 1, EMIT_ONLY>(qkv, nullptr, a, B, stream)
+             : launch<D, MODE, 2, EMIT_ONLY>(qkv, nullptr, a, B, stream);
+}
+
+template <int D>
+cudaError_t launch_emit_mode(int mode, int emit, const void* qkv,
+                             const Args& a, int B, cudaStream_t stream) {
+  return mode == PREFIX ? launch_emit<D, PREFIX>(emit, qkv, a, B, stream)
+                        : launch_emit<D, SEGMENT>(emit, qkv, a, B, stream);
+}
+
 }  // namespace
 
 extern "C" {
@@ -743,15 +1015,62 @@ int attn90_launch(const void* qkv, const void* lengths, const void* slopes,
   if (alibi_mode(mode) && slopes == nullptr) return cudaErrorInvalidValue;
   if (mode == BIAS && bias == nullptr) return cudaErrorInvalidValue;
   if (B == 0) return cudaSuccess;
-  const Args a{static_cast<const int*>(lengths),
-               static_cast<const float*>(slopes),
-               static_cast<__nv_bfloat16*>(out), L, H, s2, hi,
-               mode == BIAS && 4ull * H * L * L > BIAS_L2_BYTES};
+  Args a{};
+  a.lengths = static_cast<const int*>(lengths);
+  a.slopes = static_cast<const float*>(slopes);
+  a.out = static_cast<__nv_bfloat16*>(out);
+  a.L = L;
+  a.H = H;
+  a.s2 = s2;
+  a.hi = hi;
+  a.batch_fastest = mode == BIAS && 4ull * H * L * L > BIAS_L2_BYTES;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 32: return launch_mode<32>(mode, qkv, bias, a, B, st);
     case 64: return launch_mode<64>(mode, qkv, bias, a, B, st);
     case 128: return launch_mode<128>(mode, qkv, bias, a, B, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// K2e (mode 0) and K4e (mode 1): attention with its context quantized per
+// row over all H*D columns. qkv, out as in attn90_launch; mode 0 reads
+// lengths [B] int32, mode 1 seg [B, L] int32 (-1 on pads; 16-byte
+// aligned). emit 1 ("both") writes out, o8 [B*L, H*D] int8
+// and os [B*L] f32; emit 2 ("only") writes o8 and os and takes scratch
+// [B*L, H*D] f32 (its contents are left undefined), out may be null. All
+// 16-byte aligned device pointers; H*D % 32 == 0. Returns a cudaError_t.
+int attn90_emit_launch(const void* qkv, const void* lengths, const void* seg,
+                       void* out, void* o8, void* os, void* scratch,
+                       int mode, int emit, int B, int L, int H, int D,
+                       float s2, float hi, void* stream) {
+  if (B < 0 || L <= 0 || L % 8 || H <= 0 || (H * D) % 32)
+    return cudaErrorInvalidValue;
+  if ((mode != PREFIX && mode != SEGMENT) ||
+      (emit != EMIT_BOTH && emit != EMIT_ONLY))
+    return cudaErrorInvalidValue;
+  if ((mode == PREFIX && lengths == nullptr) ||
+      (mode == SEGMENT && seg == nullptr) || o8 == nullptr ||
+      os == nullptr || (emit == EMIT_BOTH && out == nullptr) ||
+      (emit == EMIT_ONLY && scratch == nullptr))
+    return cudaErrorInvalidValue;
+  if (B == 0) return cudaSuccess;
+  Args a{};
+  a.lengths = static_cast<const int*>(lengths);
+  a.seg = static_cast<const int*>(seg);
+  a.out = static_cast<__nv_bfloat16*>(out);
+  a.o8 = static_cast<int8_t*>(o8);
+  a.os = static_cast<float*>(os);
+  a.scratch = static_cast<float*>(scratch);
+  a.L = L;
+  a.H = H;
+  a.s2 = s2;
+  a.hi = hi;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 32: return launch_emit_mode<32>(mode, emit, qkv, a, B, st);
+    case 64: return launch_emit_mode<64>(mode, emit, qkv, a, B, st);
+    case 128: return launch_emit_mode<128>(mode, emit, qkv, a, B, st);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -14,12 +14,13 @@ all-gathered K/V) and its key-streamed variant
 ``fused_attention_cp_stream`` (K8b).
 
 Each wrapper launches its mask mode of a hand-written kernel on a CUDA
-tensor, or raises: K2 (without emission or int8 scores), K7, K6, K6c and
-K6ca run on the Hopper kernel ``csrc/attention_sm90.cu`` (wgmma, a TMA
-ring), every other mode on ``csrc/attention.cu`` (WMMA);
-``attention_kernel`` routes, and the ``routes`` counters of
-``fused_attention``, ``fused_attention_bias`` and
-``fused_attention_stream`` count the launches by route. On a CPU tensor each wrapper runs
+tensor, or raises: K2 and its emission K2e (without int8 scores), K4's
+emission K4e, K7, K6, K6c and K6ca run on the Hopper kernel
+``csrc/attention_sm90.cu`` (wgmma, a TMA ring), every other mode on
+``csrc/attention.cu`` (WMMA); ``attention_kernel`` routes, and the
+``routes`` counters of ``fused_attention``, ``fused_attention_segmented``,
+``fused_attention_bias`` and ``fused_attention_stream`` count the
+launches by route. On a CPU tensor each wrapper runs
 its plain PyTorch version, which repeats the kernel's arithmetic step by
 step: exp2 of the clamped scores with no max-subtraction, probabilities
 rounded to the compute dtype before both the PV product and the
@@ -102,8 +103,8 @@ def _prefix_probs(s, lengths, k0, hi, dt, causal=False):
                        torch.zeros((), device=s.device)).to(dt).float()
 
 
-# heads one query tile's cluster can hold: the CUDA emission shares the
-# row absmax across the H blocks of a thread-block cluster (H100: 16)
+# heads one query tile's cluster can hold: K2i8's emission shares the row
+# absmax across the H blocks of a thread-block cluster (H100: 16)
 EMIT_MAX_HEADS = 16
 LOG2_127 = 6.9886846867721655
 
@@ -142,9 +143,11 @@ def use_int8_scores(int8: bool) -> bool:
 
 
 def emit_supported(H: int) -> bool:
-    """Can the attention kernels emit at H heads? The port's rule: the
+    """Can the attention kernels emit at H heads? The port's rule: K2i8's
     row absmax crosses the H blocks of one thread-block cluster, at most
-    16 on the H100. (The plain versions follow the same rule.)"""
+    16 on the H100. K2e and K4e run every head in one block and need no
+    cap, but take the same rule, so every emitting path takes the same
+    shapes. (The plain versions follow the same rule.)"""
     return H <= EMIT_MAX_HEADS
 
 
@@ -229,9 +232,10 @@ def fused_attention(qkv: torch.Tensor, lengths: torch.Tensor, *, B: int,
     int8_scores: both products in int8 (K2i8; see ``_int8_scores_ctx``).
 
     A CUDA tensor launches K2 (bf16 qkv, int32 lengths on the same
-    device): ``csrc/attention_sm90.cu``, or ``csrc/attention.cu`` with
-    emission or int8 scores (``attention_kernel``; counted by route in
-    ``routes``); counted in ``launches``, and apart in
+    device): ``csrc/attention_sm90.cu`` (with emission, K2e: every head
+    of a query tile in one block, the last sequence first), or
+    ``csrc/attention.cu`` with int8 scores (``attention_kernel``; counted
+    by route in ``routes``); counted in ``launches``, and apart in
     ``both_launches`` / ``only_launches`` (emission) and ``i8s_launches``
     (int8 scores). A CPU tensor runs ``fused_attention_ref``."""
     _check_prefix("fused_attention", supported(L, H, D), qkv, lengths, B,
@@ -680,25 +684,27 @@ def _launch_cp(wrapper, q, kv, lengths, B, Lc, L, H, D) -> torch.Tensor:
     return out
 
 
-# mask modes of csrc/attention.cu (and of csrc/attention_sm90.cu: 0, 4,
-# 5, 7, 8)
+# mask modes of csrc/attention.cu (and of csrc/attention_sm90.cu: 0, 3,
+# 4, 5, 7, 8, and 1 with emission)
 MODE_PREFIX, MODE_SEGMENT, MODE_WINDOW = 0, 1, 2
 MODE_BIAS, MODE_STREAM, MODE_ALIBI, MODE_BAND, MODE_CAUSAL = 3, 4, 5, 6, 7
 MODE_CAUSAL_ALIBI = 8
 SM90_MODES = (MODE_PREFIX, MODE_BIAS, MODE_STREAM, MODE_ALIBI, MODE_CAUSAL,
               MODE_CAUSAL_ALIBI)
+# the modes the Hopper kernel emits in (K2e, K4e)
+SM90_EMIT_MODES = (MODE_PREFIX, MODE_SEGMENT)
 
 
 def attention_kernel(mode: int, D: int, emit: str = "no", cp: bool = False,
                      i8s: bool = False) -> str:
     """The hand-written kernel an attention launch takes: "sm90"
     (``csrc/attention_sm90.cu``: wgmma, a TMA ring, probabilities in
-    registers) for the fused-layout modes without emission or int8 scores,
-    0, 3, 4, 5, 7 and 8 (K2, K7, K6 plain and ALiBi, K6c, K6ca); "wmma"
-    (``csrc/attention.cu``) for every other: K4, K5, K6w, the emission
-    modes K2e / K4e, K2i8, and mode 4 in the CP operand layout (K8a,
-    K8b). No fallback: a route's failed build or refused launch
-    raises."""
+    registers) for the fused-layout modes without int8 scores 0, 3, 4, 5,
+    7 and 8 (K2, K7, K6 plain and ALiBi, K6c, K6ca) and for modes 0 and 1
+    with emission (K2e, K4e); "wmma" (``csrc/attention.cu``) for every
+    other: K4 without emission, K5, K6w, K2i8 (with or without emission),
+    and mode 4 in the CP operand layout (K8a, K8b). No fallback: a route's
+    failed build or refused launch raises."""
     if mode not in range(9):
         raise ValueError(f"no attention mode {mode}")
     if D not in KERNEL_HEAD_DIMS:
@@ -706,7 +712,9 @@ def attention_kernel(mode: int, D: int, emit: str = "no", cp: bool = False,
                          f"{KERNEL_HEAD_DIMS}, got {D}")
     if emit not in EMITS:
         raise ValueError(f"emit must be one of {EMITS}, got {emit!r}")
-    sm90 = mode in SM90_MODES and emit == "no" and not cp and not i8s
+    if cp or i8s:
+        return "wmma"
+    sm90 = (mode in SM90_EMIT_MODES if emit != "no" else mode in SM90_MODES)
     return "sm90" if sm90 else "wmma"
 
 
@@ -715,6 +723,14 @@ def sm90_warpgroups(L: int) -> int:
     one where a row fits in 64 queries (K2's and K7's short rows), else
     two (the kernel's host code makes the same choice)."""
     return 1 if L <= 64 else 2
+
+
+def emit_scratch_shape(B: int, L: int, H: int, D: int, emit: str):
+    """The f32 scratch an emitting Hopper launch needs: [B*L, H*D] for
+    "only" (each block writes its rows' f32 context there head by head
+    and reads it back to quantize it; the kernel leaves it undefined),
+    none for "both" (it reads back its bf16 output) or "no"."""
+    return (B * L, H * D) if emit == "only" else None
 
 
 def _launch(what, mode, qkv, out, B, L, H, D, hi, *, lengths=None,
@@ -729,11 +745,25 @@ def _launch(what, mode, qkv, out, B, L, H, D, hi, *, lengths=None,
     stream = torch.cuda.current_stream(qkv.device).cuda_stream
     if route == "sm90":
         lib = _lib90()
-        status = lib.attn90_launch(
-            qkv.data_ptr(), lengths.data_ptr(),
-            None if slopes is None else slopes.data_ptr(),
-            None if bias is None else bias.data_ptr(), out.data_ptr(),
-            mode, B, L, H, D, _scale(D), hi, stream)
+        if emit == "no":
+            status = lib.attn90_launch(
+                qkv.data_ptr(), lengths.data_ptr(),
+                None if slopes is None else slopes.data_ptr(),
+                None if bias is None else bias.data_ptr(), out.data_ptr(),
+                mode, B, L, H, D, _scale(D), hi, stream)
+        else:
+            # K2e / K4e; the f32 scratch of "only" is freed after the
+            # launch: the allocator reuses it only for work queued behind
+            # it on this stream
+            shape = emit_scratch_shape(B, L, H, D, emit)
+            scratch = (None if shape is None else
+                       torch.empty(shape, dtype=torch.float32,
+                                   device=qkv.device))
+            ptr = [None if t is None else t.data_ptr()
+                   for t in (lengths, seg, out, o8, os, scratch)]
+            status = lib.attn90_emit_launch(
+                qkv.data_ptr(), *ptr, mode, EMITS.index(emit), B, L, H, D,
+                _scale(D), hi, stream)
         check(status, lib.attn90_error_string, what)
         return route
     lib = _lib()
@@ -827,8 +857,10 @@ def fused_attention_segmented(qkv: torch.Tensor, seg_ids: torch.Tensor, *,
     in ``fused_attention``, seg_ids int32 [B, L] (-1 on pads). Query i
     attends key j iff seg[i] == seg[j] and seg[j] >= 0; a pad query row
     gives 0. ``emit_quantized`` as in ``fused_attention`` (K4e). A CUDA
-    tensor launches K4 (``csrc/attention.cu``, segment mode; counted as
-    K2 is); a CPU tensor runs ``fused_attention_segmented_ref``."""
+    tensor launches K4 (``csrc/attention.cu``, segment mode) or, with
+    emission, K4e (``csrc/attention_sm90.cu``); counted as K2 is, and by
+    route in ``routes``; a CPU tensor runs
+    ``fused_attention_segmented_ref``."""
     _check_segments(qkv, seg_ids, B, L, H, D)
     _check_emit(emit_quantized, H)
     if qkv.device.type == "cpu":
@@ -838,10 +870,11 @@ def fused_attention_segmented(qkv: torch.Tensor, seg_ids: torch.Tensor, *,
     _check_cuda(qkv, seg_ids)
     out, o8, os = _outputs(qkv, B * L, H * D, emit_quantized)
     if B:
-        _launch("fused_attention_segmented", MODE_SEGMENT, qkv, out, B, L,
-                H, D, _clamp_hi(L), seg=seg_ids, o8=o8, os=os,
-                emit=emit_quantized)
+        route = _launch("fused_attention_segmented", MODE_SEGMENT, qkv, out,
+                        B, L, H, D, _clamp_hi(L), seg=seg_ids, o8=o8, os=os,
+                        emit=emit_quantized)
         _count(fused_attention_segmented, emit_quantized)
+        fused_attention_segmented.routes[route] += 1
     return _emit_result(out, o8, os, emit_quantized)
 
 
@@ -941,11 +974,12 @@ def fused_attention_segmented_blockskip(
 # K8b launch adds one (K6c to fused_attention_stream.causal_launches, K6ca
 # to its causal_alibi_launches); K2 and K4 also count their emitting
 # launches (K2e / K4e) in both_launches and only_launches, K2 its
-# int8-scores launches (K2i8) in i8s_launches; K2's, K6's and K7's
+# int8-scores launches (K2i8) in i8s_launches; K2's, K4's, K6's and K7's
 # launches also count by kernel in ``routes`` ("sm90" / "wmma",
 # attention_kernel); callers reset them to 0 around the run they measure
 fused_attention.launches = 0
 fused_attention.routes = collections.Counter()
+fused_attention_segmented.routes = collections.Counter()
 fused_attention_stream.routes = collections.Counter()
 fused_attention.both_launches = fused_attention.only_launches = 0
 fused_attention.i8s_launches = 0
@@ -970,6 +1004,8 @@ def _lib90() -> ctypes.CDLL:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.attn90_launch.argtypes = [p] * 5 + [i] * 5 + [f, f, p]
         lib.attn90_launch.restype = i
+        lib.attn90_emit_launch.argtypes = [p] * 7 + [i] * 6 + [f, f, p]
+        lib.attn90_emit_launch.restype = i
         lib.attn90_error_string.argtypes = [i]
         lib.attn90_error_string.restype = ctypes.c_char_p
         lib._typed = True

@@ -102,13 +102,22 @@ WRAPPER_LAUNCHES = (
 @pytest.mark.parametrize("D", tattn.KERNEL_HEAD_DIMS)
 @pytest.mark.parametrize("mode,emit,cp,i8s", WRAPPER_LAUNCHES)
 def test_attention_kernel_routes(mode, emit, cp, i8s, D):
-    """The Hopper kernel takes exactly the fused-layout modes without
-    emission or int8 scores (0, 3, 4, 5, 7, 8); the WMMA kernel the
-    rest."""
-    want = ("sm90" if mode in (0, 3, 4, 5, 7, 8) and emit == "no" and not cp
-            and not i8s else "wmma")
+    """The Hopper kernel takes exactly the fused-layout modes without int8
+    scores: 0, 3, 4, 5, 7, 8 without emission (K2, K7, K6, K6c, K6ca), 0
+    and 1 with it (K2e, K4e); the WMMA kernel the rest (K4, K5, K6w,
+    K2i8, the CP layout)."""
+    sm90_modes = (0, 3, 4, 5, 7, 8) if emit == "no" else (0, 1)
+    want = ("sm90" if mode in sm90_modes and not cp and not i8s
+            else "wmma")
     assert tattn.attention_kernel(mode, D, emit, cp, i8s) == want
     assert tattn.sm90_warpgroups(64) == 1 and tattn.sm90_warpgroups(72) == 2
+
+
+@pytest.mark.parametrize("emit,shape", [("only", (512, 768)), ("both", None),
+                                        ("no", None)])
+def test_emit_scratch_shape(emit, shape):
+    """Only "only" emission takes an f32 scratch, [B*L, H*D]."""
+    assert tattn.emit_scratch_shape(2, 256, 12, 64, emit) == shape
 
 
 def test_attention_kernel_rejects_what_no_kernel_takes():

@@ -17,7 +17,8 @@ moves an output by at most 2^-6 of the largest |v| among those keys
 (``_causal_close``). K2, K7, K6, K6c and K6ca run on the Hopper kernel
 (``csrc/attention_sm90.cu``): ``test_sm90_attention_matches_plain``
 holds each of its modes at lengths on its tile edges and checks the
-launches' route. K3 is K1's wgmma kernel on int8 operands:
+launches' route; so do the emission tests for K2e and K4e, its emitting
+modes. K3 is K1's wgmma kernel on int8 operands:
 ``test_int8_operands_bit_for_bit`` holds its kept weight and its row
 quantization to the plain version's bits, ``test_qmatmul_int8_tiles_
 match_plain`` its tile configurations (``k3_tile``) at main-path sizes.
@@ -633,9 +634,13 @@ def test_qmatmul_emission_kernels_match_plain(cuda, M, K, N, int8_x,
 
 def _attn_emit_close(got, ref, emit):
     """Attention emission: the context at K2's tolerance; codes
-    dequantized within K2's tolerance plus one step of each side."""
+    dequantized within K2's tolerance plus one step of each side. With
+    "both", the codes and scales are also exactly the plain quantization
+    of the kernel's own bf16 context."""
     if emit == "both":
         _close(got[0], ref[0], 2 ** -6, 1e-2)
+        o8, so = A._emit_int8_rows(got[0].float())
+        assert torch.equal(got[1], o8) and torch.equal(got[2], so)
         got, ref = got[1:], ref[1:]
     deq, rdeq = got[0].float() * got[1], ref[0].float() * ref[1]
     tol = (2 ** -6 * rdeq.abs() + 1e-2 * rdeq.square().mean().sqrt()
@@ -643,39 +648,70 @@ def _attn_emit_close(got, ref, emit):
     assert ((deq - rdeq).abs() <= tol).all()
 
 
+def _sm90_emit_launch(wrapper, emit, call):
+    """call() on the card, checking it made one emitting launch on the
+    Hopper kernel."""
+    before = (getattr(wrapper, f"{emit}_launches"), wrapper.routes["sm90"])
+    got = call()
+    torch.cuda.synchronize()
+    assert (getattr(wrapper, f"{emit}_launches"),
+            wrapper.routes["sm90"]) == (before[0] + 1, before[1] + 1)
+    return got
+
+
 @pytest.mark.parametrize("emit", ["both", "only"])
 @pytest.mark.parametrize("B,L,H,D", [(4, 256, 12, 64), (3, 72, 2, 64),
-                                     (2, 128, 4, 128), (2, 64, 16, 32)])
+                                     (2, 128, 4, 128), (2, 64, 16, 32),
+                                     (3, 48, 12, 32), (4, 200, 12, 128),
+                                     (3, 384, 16, 64)])
 def test_attention_emission_matches_plain(cuda, B, L, H, D, emit):
-    """K2e: the H blocks of a query tile share the row absmax as a
-    cluster (up to 16 heads); a len-0 row gives codes 0."""
+    """K2e on the Hopper kernel (every head of a query tile in one block):
+    one consumer warpgroup (L <= 64) and two, ragged L, D 32 / 64 / 128,
+    H up to 16; ragged lengths with a len-0 row, which gives codes 0 and
+    the scale 1e-30 / 127."""
     rng = np.random.default_rng(L + H)
     qkv = torch.from_numpy(rng.standard_normal(
         (B * L, 3 * H * D), dtype=np.float32)).to(cuda, torch.bfloat16)
-    lens = torch.tensor([0] + [L] * (B - 1), dtype=torch.int32, device=cuda)
+    lens = rng.integers(1, L + 1, B)
+    lens[0], lens[1] = 0, L
+    lens = torch.tensor(lens.tolist(), dtype=torch.int32, device=cuda)
     kw = dict(B=B, L=L, H=H, D=D, emit_quantized=emit)
-    before = getattr(fused_attention, f"{emit}_launches")
-    got = fused_attention(qkv, lens, **kw)
-    assert getattr(fused_attention, f"{emit}_launches") == before + 1
+    got = _sm90_emit_launch(fused_attention, emit,
+                            lambda: fused_attention(qkv, lens, **kw))
     _attn_emit_close(got, fused_attention_ref(qkv, lens, **kw), emit)
     o8 = got[-2].reshape(B, L, H * D)
     assert (o8[0] == 0).all()
+    np.testing.assert_array_equal(got[-1].reshape(B, L)[0].cpu().numpy(),
+                                  np.float32(1e-30) * np.float32(1 / 127))
 
 
 @pytest.mark.parametrize("emit", ["both", "only"])
-def test_segmented_emission_matches_plain(cuda, emit):
-    """K4e on packed rows with pads."""
-    B, L, H, D = 3, 128, 12, 64
-    rng = np.random.default_rng(7)
+@pytest.mark.parametrize("B,L,H,D", [(3, 128, 12, 64), (2, 256, 4, 32),
+                                     (2, 72, 16, 32), (2, 200, 12, 128),
+                                     (3, 48, 2, 64)])
+def test_segmented_emission_matches_plain(cuda, B, L, H, D, emit):
+    """K4e on the Hopper kernel: packed rows whose segments cross the
+    128-key tile edge and end in pads (a pad row gives codes 0), one
+    consumer warpgroup (L <= 64) and two, ragged L, D 32 / 64 / 128."""
+    rng = np.random.default_rng(7 + L)
     qkv = torch.from_numpy(rng.standard_normal(
         (B * L, 3 * H * D), dtype=np.float32)).to(cuda, torch.bfloat16)
     seg = np.full((B, L), -1, np.int32)
-    seg[:, :40], seg[:, 40:100] = 0, 1
+    for b in range(B):
+        pos, s = 0, 0
+        while pos < L - 16:
+            n = int(rng.integers(3, max(4, L // 2)))
+            seg[b, pos:min(pos + n, L - 8)] = s
+            pos, s = pos + n, s + 1
     seg = torch.from_numpy(seg).to(cuda)
     kw = dict(B=B, L=L, H=H, D=D, emit_quantized=emit)
-    got = A.fused_attention_segmented(qkv, seg, **kw)
+    got = _sm90_emit_launch(
+        A.fused_attention_segmented, emit,
+        lambda: A.fused_attention_segmented(qkv, seg, **kw))
     _attn_emit_close(got, A.fused_attention_segmented_ref(qkv, seg, **kw),
                      emit)
+    pad = (seg < 0).reshape(-1)
+    assert (got[-2][pad] == 0).all()
 
 
 @pytest.mark.parametrize("emit", ["no", "only"])

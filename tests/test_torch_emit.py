@@ -252,6 +252,46 @@ def test_segmented_emission_matches_jax(emit):
     assert (got[0].numpy()[pad] == 0).all()
 
 
+@pytest.mark.parametrize("emit", ["both", "only"])
+@pytest.mark.parametrize("H,D", [(2, 64), (4, 32), (1, 128)])
+def test_segmented_emission_tile_edges_match_jax(H, D, emit):
+    """K4e's plain version where the Hopper kernel's 128-key tiles meet
+    the data (bf16, L=256): row 0's second segment runs over keys
+    100..179, across the tile edge at 128; row 1 ends in 24 pads. Codes
+    within one step. The scales of "both" at rtol 1e-6 (both quantize the
+    same bf16 context). Those of "only" quantize the f32 context, whose
+    probabilities each framework rounds to bf16 from its own exp2: one
+    rounding flip moves the context by up to 2^-8 of one key's share, so
+    the row absmax (127 * scale), a maximum of the context, is held at
+    the context's own tolerance."""
+    B, L = 2, 256
+    rng = np.random.default_rng(D + H)
+    qkv = rng.standard_normal((B * L, 3 * H * D), dtype=np.float32)
+    seg = np.full((B, L), -1, np.int32)
+    seg[0, :100], seg[0, 100:180], seg[0, 180:] = 0, 1, 2
+    seg[1, :L // 2], seg[1, L // 2:L - 24] = 0, 1
+    jq, tq = _tensors(qkv, "bf16")
+    kw = dict(B=B, L=L, H=H, D=D, emit_quantized=emit)
+    ref = jattn.fused_attention_segmented(jq, jnp.asarray(seg),
+                                          interpret=True, **kw)
+    got = tattn.fused_attention_segmented(tq, torch.from_numpy(seg), **kw)
+    if emit == "both":
+        _ctx_check(got[0], ref[0], "bf16")
+        assert_codes(got[1].numpy(), got[2], np.asarray(ref[1]), ref[2])
+        got = got[1:]
+    else:
+        d = np.abs(got[0].numpy().astype(np.int32)
+                   - np.asarray(ref[0]).astype(np.int32))
+        assert d.max() <= 1 and (d == 1).sum() <= 0.01 * d.size
+        assert tuple(got[1].shape) == (B * L, 1)
+        _ctx_check(got[1] * 127, np.asarray(ref[1]) * 127, "bf16")
+    pad = (seg < 0).reshape(-1)
+    assert (got[0].numpy()[pad] == 0).all()
+    np.testing.assert_allclose(got[1].numpy().reshape(-1)[pad],
+                               np.float32(1e-30) * np.float32(1 / 127),
+                               rtol=1e-6)
+
+
 def _p8_step_atol(qkv, B, L, H, D):
     """One p8 step of K2i8 moves an output by at most max|v| / 127 (the
     row's largest probability is 127, so the denominator is at least

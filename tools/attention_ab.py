@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Time variants of the Hopper attention kernel against the checkout's, on
-one card, in turns: K2, K7 (MPNet's table bias, jina's ALiBi bias), K6
-(plain and ALiBi), K6c and K6ca at the shapes the port's main paths give
-them (every row full).
+one card, in turns: K2, K2e ("only" and "both"), K4e ("only", on the
+packed rows of the STS fixture), K7 (MPNet's table bias, jina's ALiBi
+bias), K6 (plain and ALiBi), K6c and K6ca at the shapes the port's main
+paths give them (every row full).
 
     python3 tools/attention_ab.py [VARIANT.cu ...]
 
@@ -27,8 +28,12 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
-# name -> (B, L, H, D), mode: the main paths' attention shapes
+# name -> (B, L, H, D), mode[, emission]: the main paths' attention
+# shapes (K4e: 256 packed rows of 128)
 SHAPES = {"K2_bge": ((128, 256, 12, 64), 0),
+          "K2e_bge_only": ((128, 256, 12, 64), 0, "only"),
+          "K2e_bge_both": ((128, 256, 12, 64), 0, "both"),
+          "K4e_packed": ((256, 128, 12, 64), 1, "only"),
           "K7_mpnet": ((128, 256, 12, 64), 3),
           "K7_jina": ((32, 1024, 12, 64), 3),
           "K2_qwen2": ((32, 512, 12, 128), 0),
@@ -54,9 +59,19 @@ def build_variant(src: Path) -> ctypes.CDLL:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.attn90_launch.argtypes = [p] * 5 + [i] * 5 + [f, f, p]
     lib.attn90_launch.restype = i
+    lib.attn90_emit_launch.argtypes = [p] * 7 + [i] * 6 + [f, f, p]
+    lib.attn90_emit_launch.restype = i
     lib.attn90_error_string.argtypes = [i]
     lib.attn90_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def context(got, emit: str):
+    """A call's context as f32: the output, or with "only" emission the
+    codes times their row scales."""
+    if emit == "only":
+        return got[0].float() * got[1]
+    return (got[0] if emit == "both" else got).float()
 
 
 def main() -> int:
@@ -65,7 +80,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
         return 1
-    from chip_smoke import _family_bias, cuda_ms
+    from chip_smoke import _family_bias, cuda_ms, packed_tables
     from embeddings_tpu_torch.ops import attention as A
     from embeddings_tpu_torch.ops.alibi import alibi_slopes
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -78,15 +93,22 @@ def main() -> int:
     dev = torch.device("cuda")
     rng = np.random.default_rng(1)
     try:
-        for name, ((B, L, H, D), mode) in SHAPES.items():
+        for name, ((B, L, H, D), mode, *emit) in SHAPES.items():
             qkv = torch.from_numpy(rng.standard_normal(
                 (B * L, 3 * H * D), dtype=np.float32)).to(dev, torch.bfloat16)
             lens = torch.full((B,), L, dtype=torch.int32, device=dev)
+            how = emit[0] if emit else "no"
             if mode == 0:
-                kw = dict(B=B, L=L, H=H, D=D)
+                kw = dict(B=B, L=L, H=H, D=D, emit_quantized=how)
 
                 def fn():
                     return A.fused_attention(qkv, lens, **kw)
+            elif mode == 1:
+                seg = torch.from_numpy(packed_tables(B, L)[0][1]).to(dev)
+                kw = dict(B=B, L=L, H=H, D=D, emit_quantized=how)
+
+                def fn():
+                    return A.fused_attention_segmented(qkv, seg, **kw)
             elif mode == 3:
                 kw = dict(B=B, L=L, H=H, D=D)
                 bias = A.prepare_attention_bias(_family_bias(
@@ -107,11 +129,11 @@ def main() -> int:
                 for key in order:
                     A._lib90 = lambda key=key: libs[key]
                     ms.setdefault(key, []).append(cuda_ms(fn, iters=10))
-                    outs.setdefault(key, fn().float())
+                    outs.setdefault(key, context(fn(), how))
             diff = {k: (outs[k] - outs["checkout"]).abs().max().item()
                     for k in libs if k != "checkout"}
             print(json.dumps({"shape": name, "B_L_H_D": [B, L, H, D],
-                              "mode": mode, "ms": ms,
+                              "mode": mode, "emit": how, "ms": ms,
                               "max_abs_diff_vs_checkout": diff}), flush=True)
     finally:
         A._lib90 = lib90
