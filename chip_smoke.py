@@ -1,8 +1,8 @@
 """Smoke test of the PyTorch/CUDA port on one GPU: builds the hand-written
 kernels (K1-K7, K6w, K6c and K6ca, the chained-int8 modes K1e, K3e, K3x,
 K2e, K4e and K2i8, and the context-parallel K8a and K8b; K1 and K3 on the
-wgmma matmul kernel, K2, K2e, K4e, K7, K6, K6c and K6ca on the Hopper
-attention kernel, the other attention modes on the WMMA one), holds each
+wgmma matmul kernel, K2, K2e, K4, K4e, K7, K6, K6c, K6ca, K8a and K8b on
+the Hopper attention kernel, K5, K6w and K2i8 on the WMMA one), holds each
 against its
 plain PyTorch version on the card, checks each profiled forward's matmul
 and attention launches by kernel, and drives
@@ -85,8 +85,9 @@ K1_SHAPES = {"qkv": (E, 3 * E, "bias"),
 K1_REPLACES = "embeddings_tpu/ops/qmatmul.py:153 (_qmm_kernel via qmatmul :446)"
 K2_REPLACES = ("embeddings_tpu/ops/attention.py:73 (_attn_kernel via "
                "fused_attention :1039)")
-# the two attention libraries: K2 and K2e (no int8 scores), K4e, K7, K6,
-# K6c and K6ca run on the Hopper kernel, the other modes on the WMMA one
+# the two attention libraries: K2 and K2e (no int8 scores), K4, K4e, K7,
+# K6, K6c, K6ca, K8a and K8b run on the Hopper kernel, K5, K6w and K2i8 on
+# the WMMA one
 ATTN_SOURCE = "embeddings_tpu_torch/csrc/attention.cu"
 ATTN90_SOURCE = "embeddings_tpu_torch/csrc/attention_sm90.cu"
 K3_REPLACES = ("embeddings_tpu/ops/qmatmul.py:309 (_qmm_int8 via qmatmul "
@@ -348,7 +349,9 @@ def reset_counts() -> None:
             f.shapes.clear()
             f.modes.clear()
     Q.qmatmul_int8.routes.clear()
-    A.fused_attention_bias.routes.clear()
+    for f in (A.fused_attention_bias, A.fused_attention_segmented,
+              A.fused_attention_cp, A.fused_attention_cp_stream):
+        f.routes.clear()
 
 
 def set_counts(counts: dict) -> None:
@@ -427,7 +430,9 @@ def phase_build():
     """Build the three libraries; the wgmma ones hold wgmma and no
     mma.sync: bf16 (HGMMA) in both, int8 (IGMMA, K3) in qmatmul's, and
     neither HMMA (bf16 mma.sync / WMMA) nor IMMA (int8 mma.sync, the old
-    K3) in either."""
+    K3) in either. ptxas's C75xx notes (each a kernel whose wgmma it
+    serializes) are counted per library from its -v report; the Hopper
+    attention library has none."""
     from embeddings_tpu_torch.ops import _cuda
     t0 = time.perf_counter()
     seconds = _cuda.build(*SOURCES)  # one nvcc each, all together
@@ -441,8 +446,15 @@ def phase_build():
         for op in ("HMMA", "IMMA"):
             check(hgmma_count(name, op) == 0,
                   f"{name}'s library holds mma.sync ({op}) instructions")
+    c75 = {name: _cuda.BUILD_LOGS[name].count("(C75")
+           for name in SOURCES if name in _cuda.BUILD_LOGS}
+    check(c75.get("attention_sm90", 0) == 0,
+          "ptxas serializes wgmma in the Hopper attention library: "
+          + "; ".join(line for line in _cuda.BUILD_LOGS.get(
+              "attention_sm90", "").splitlines() if "(C75" in line)[:2000])
     emit("build", seconds=time.perf_counter() - t0, per_source=seconds,
-         hgmma_in_sass=hgmma, igmma_in_qmatmul=igmma)
+         hgmma_in_sass=hgmma, igmma_in_qmatmul=igmma,
+         ptxas_c75xx_notes=c75)
 
 
 def hgmma_count(name: str, opcode: str = "HGMMA") -> int:
@@ -685,8 +697,12 @@ def phase_k4k5():
         qkv = torch.from_numpy(rng.standard_normal(
             (Bx * Lx, 3 * E), dtype=np.float32)).to(dev, torch.bfloat16)
         kw = dict(B=Bx, L=Lx, H=H, D=D)
+        routes = None
         if name == "K4":
-            got = A.fused_attention_segmented(qkv, seg, **kw)
+            # K4 runs on the Hopper kernel (mode 1), every head a block
+            got, routes = _routed(A.fused_attention_segmented,
+                                  lambda: A.fused_attention_segmented(
+                                      qkv, seg, **kw))
             ref = A.fused_attention_segmented_ref(qkv, seg, **kw)
         else:
             check(W == 3, f"K5 window {W} at row_len {Lx}, expected 3")
@@ -696,6 +712,9 @@ def phase_k4k5():
                 qkv, seg, window=W, **kw)
         torch.cuda.synchronize()
         r = compare(got, ref, K2_RTOL, K2_ATOL_RMS)
+        if routes is not None:
+            r["routes"] = routes
+            check(routes == {"sm90": 1}, f"K4 launches by route {routes}")
         pad = (seg.reshape(-1) < 0)
         r.update(rows=Bx, row_len=Lx, window=W,
                  pad_rows_exact_zero=bool((got[pad] == 0).all()),
@@ -1030,10 +1049,12 @@ def _packed_chain(eng8) -> dict:
 
 
 def phase_packed_path():
-    """Token-packed encode: K4 at the default row_len 128, K5 (window 3)
-    at row_len 1024, sentences past row_len handed to the bucketed path,
-    and BatchingService(packed=True) over TCP."""
+    """Token-packed encode: K4 at the default row_len 128 (on the Hopper
+    kernel: its launches counted by route), K5 (window 3) at row_len
+    1024, sentences past row_len handed to the bucketed path, and
+    BatchingService(packed=True) over TCP."""
     import torch
+    from embeddings_tpu_torch.ops import attention as A
     eng = STATE.get("engine") or _bge_base_engine()
     short = _sts_sentences(2400)
     # at row_len 128, two texts longer than 128 tokens go to the bucketed
@@ -1062,13 +1083,14 @@ def phase_packed_path():
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             counts = read_counts()
+            routes = dict(A.fused_attention_segmented.routes)
             n = len(windows)
             cos = (emb * ref[:len(txt)]).sum(-1)
             out[name] = dict(
                 sentences=len(txt), packed_forwards=n,
                 shapes=[w[0] for w in windows],
                 windows=[w[1] for w in windows], bucketed_forwards=n_long,
-                launches=counts, wall_s=wall,
+                launches=counts, k4_routes=routes, wall_s=wall,
                 packed_vs_bucketed_min_cos=float(cos.min()))
             kattn = "K4" if row_len == 128 else "K5"
             STATE.setdefault("launches", {})[kattn] = counts[kattn]
@@ -1076,6 +1098,10 @@ def phase_packed_path():
                         **{kattn: 12 * n})
             check(n >= 1 and counts == want,
                   f"packed {name}: launches {counts}, expected {want}")
+            # every K4 launch on the Hopper kernel
+            want_routes = {"sm90": 12 * n} if kattn == "K4" else {}
+            check(routes == want_routes, f"packed {name}: K4 launches by "
+                  f"route {routes}, expected {want_routes}")
             if kattn == "K5":
                 check(all(w[1] == 3 for w in windows),
                       f"packed row1024 windows {windows}, expected 3")
@@ -1114,14 +1140,18 @@ def _packed_tcp(eng, texts, ref) -> dict:
             await server.wait_closed()
             await service.stop()
 
+    from embeddings_tpu_torch.ops.attention import fused_attention_segmented
     reset_counts()
     answers, stats = asyncio.run(run())
     counts = read_counts()
+    routes = dict(fused_attention_segmented.routes)
     cos = (np.stack(answers) * ref).sum(-1)
     r = dict(requests=len(texts), batches=stats["batches"], launches=counts,
-             min_cos_vs_bucketed=float(cos.min()))
-    check(counts["K4"] > 0 and cos.min() >= 0.999,
-          f"packed TCP: {r} (no packed batch ran, or answers differ)")
+             k4_routes=routes, min_cos_vs_bucketed=float(cos.min()))
+    check(counts["K4"] > 0 and cos.min() >= 0.999
+          and routes == {"sm90": counts["K4"]},
+          f"packed TCP: {r} (no packed batch ran, a K4 launch off the "
+          f"Hopper kernel, or answers differ)")
     return r
 
 
@@ -2050,7 +2080,8 @@ def _cp_attn_inputs(rng, Bx: int, Lc: int, Lx: int, dev, ragged: bool = True,
 def phase_k8():
     """K8a and K8b (context parallelism: a shard's Lc local queries against
     the L all-gathered keys, Lc < L) against their plain versions on the
-    card, with K6's tolerance; K8a reads q in place from a [B*Lc, 3E]
+    card, with K6's tolerance, each launch on the Hopper kernel ("sm90");
+    K8a reads q in place from a [B*Lc, 3E]
     projection. The control: the same output held against the plain
     version run on the local K/V chunk alone (no gather) must fail the
     check, or the check could not see a missing gather."""
@@ -2071,10 +2102,11 @@ def phase_k8():
                 kw["BK"] = A.pick_bk(Lx)
                 kernel, plain = (A.fused_attention_cp_stream,
                                  A.fused_attention_cp_stream_ref)
-            got = kernel(q, kv, lens, **kw)
+            got, routes = _routed(kernel, lambda: kernel(q, kv, lens, **kw))
             ref = plain(q, kv, lens, **kw)
             torch.cuda.synchronize()
             r = compare(got, ref, K2_RTOL, K2_ATOL_RMS)
+            r["routes"] = routes
             zero = [b for b, n in enumerate(lens.tolist()) if n == 0]
             r["zero_rows_exact"] = all(bool(
                 (got.reshape(Bx, Lc, E)[b] == 0).all()) for b in zero)
@@ -2090,6 +2122,8 @@ def phase_k8():
     set_counts(saved)
     for key, r in out.items():
         check(r["ok"] and r["zero_rows_exact"], f"{key} disagrees: {r}")
+        check(r["routes"] == {"sm90": 1}, f"{key}: launches by route "
+              f"{r['routes']}")
         check(not r["control_no_gather"]["ok"],
               f"{key}: the control (no gather) passes the check")
     emit("k8_parity", tolerance=f"|err| <= {K2_RTOL}*|ref| + "
@@ -2113,11 +2147,17 @@ def _cp_case(name: str, make, single, shape, mesh_shape, k1_layer: int,
     eng = make(mesh=mesh, **ec)
     check(all(len(eng.tokenize(t)) == Lx for t in texts),
           f"{name}: texts do not fill L={Lx}")
+    from embeddings_tpu_torch.ops import attention as A
     emb, counts, n, wall = _run_counted(eng, texts)
+    wrapper = (A.fused_attention_cp if kernel == "K8a"
+               else A.fused_attention_cp_stream)
+    routes = dict(wrapper.routes)
     nl, shards = eng.config.num_hidden_layers, dp * sp
     want = only(K1=k1_layer * nl * shards, **{kernel: nl * shards})
     check(n == 1 and counts == want,
           f"{name}: launches {counts} over {n} forwards, want {want}")
+    check(routes == {"sm90": nl * shards},
+          f"{name}: {kernel} launches by route {routes}")
     emb_single, counts_single, _, _ = _run_counted(single, texts)
     check(counts_single == single_want,
           f"{name}: single-device launches {counts_single}")
@@ -2136,7 +2176,8 @@ def _cp_case(name: str, make, single, shape, mesh_shape, k1_layer: int,
     STATE[f"launches_{kernel}"] = counts[kernel]
     return dict(batch=[Bx, Lx], mesh={"data": dp, "seq": sp},
                 shard=[Bx // dp, Lx // sp], forwards=n, wall_s=wall,
-                launches=counts, single_device_launches=counts_single,
+                launches=counts, routes=routes,
+                single_device_launches=counts_single,
                 k1_per_layer_per_shard=k1_layer,
                 cp_vs_single_device_min_cos=float(cos_single.min()),
                 cp_vs_plain_f32_cp_min_cos=float(cos_plain.min()),
@@ -2241,14 +2282,16 @@ def phase_timing():
                                       QW_K1, {0: QW_NL}, QW_D),
                 "qwen2_bidir_long": ("qwen2_bidir_engine", QW_LONG,
                                      QW_K1, {4: QW_NL}, QW_D),
-                # CP forwards (K8a / K8b are mode 4 of the kernel) and the
-                # single-device forwards at their shapes (K2; K6 plain)
+                # CP forwards (K8a / K8b are mode 4 of the Hopper kernel
+                # in the CP layout) and the single-device forwards at
+                # their shapes (K2; K6 plain)
                 "cp_bge": ("cp_bge_engine", CP_BGE, 4 * NL * 4,
-                           {f"attn_kernel<{D}, 4>": NL * 4}, D),
+                           {cp_kernel(CP_BGE, CP_BGE_MESH): NL * 4}, D),
                 "cp_bge_single": ("cp_bge_single", CP_BGE, 4 * NL, {0: NL},
                                   D),
                 "cp_nomic": ("cp_nomic_engine", CP_NOMIC, 5 * NL * 4,
-                             {f"attn_kernel<{D}, 4>": NL * 4}, D),
+                             {cp_kernel(CP_NOMIC, CP_NOMIC_MESH): NL * 4},
+                             D),
                 "cp_nomic_single": ("cp_nomic_single", CP_NOMIC, 5 * NL,
                                     {4: NL}, D)}
     for name, (key, shape, k1, attn, dh) in families.items():
@@ -2336,19 +2379,30 @@ def phase_timing():
         same = (seg[:, :, None] == seg[:, None, :]) & (seg >= 0)[:, None, :]
         bms, by = bound_ms(seg_flops(arrays[1]),
                            Bx * Lx * (3 * E * 2 + E * 2 + 4))
-        kernels.append({
+        row = {
             "name": f"{fn}[B{Bx} L{Lx} H{H} D{D}"
                     + (f" W{W}]" if name == "K5" else "]"),
             "route": "cuda",
-            "source": ATTN_SOURCE,
+            "source": ATTN90_SOURCE if name == "K4" else ATTN_SOURCE,
             "replaces": replaces,
             "launches": launches.get(name, 0),
             "max_abs_err": RESULTS["k4k5_parity"][name]["max_abs_err"],
-            "ms": cuda_ms(lambda: kernel(qkv, seg, **kernel_kw)),
             "plain_ms": cuda_ms(lambda: plain(qkv, seg, **kw), iters=3),
             "bound_ms": bms, "bound_by": by,
-            "library_ms": sdpa_ms(qkv, Bx, Lx, same[:, None]),
-            "shape": [Bx, Lx, H, D]})
+            "shape": [Bx, Lx, H, D]}
+        if name == "K4":
+            # K4 and its SDPA yardstick in alternating rounds: the median
+            # of 5 and the range
+            t = alternating_ms({
+                "kernel": lambda: kernel(qkv, seg, **kernel_kw),
+                "library": sdpa_call(qkv, Bx, Lx, same[:, None])})
+            row.update(ms=t["kernel"][0], ms_range=t["kernel"][1],
+                       library_ms=t["library"][0],
+                       library_ms_range=t["library"][1])
+        else:
+            row.update(ms=cuda_ms(lambda: kernel(qkv, seg, **kernel_kw)),
+                       library_ms=sdpa_ms(qkv, Bx, Lx, same[:, None]))
+        kernels.append(row)
     kernels += bias_stream_rows(rng, dev)
     kernels += [k1_row(rng, dev, name, shape,
                        launches.get("qmatmul_modernbert", {}))
@@ -2420,9 +2474,9 @@ def launches_want(matmuls: int, attn: dict, dh: int = D, Lx: int = L,
     in the fused layout the count {mode: count} gives (a key (mode,
     emit) names an emitting mode, "both" or "only"), on the kernel its
     route names (``attention_kernel``): attn_sm90_kernel<dh, mode,
-    warpgroups at row length Lx, emit mode> or attn_kernel<dh, mode>; a
-    key that is a string names the kernel itself (the CP layout's mode 4:
-    attn_kernel<dh, 4>); ``others``: the counts of the other kernels by
+    warpgroups at row length Lx, emit mode, 0> or attn_kernel<dh, mode>;
+    a key that is a string names the kernel itself (the CP layout's mode
+    4: ``cp_kernel``); ``others``: the counts of the other kernels by
     name (quant_rows_kernel, emit_rows_kernel)."""
     from embeddings_tpu_torch.ops.attention import attention_kernel, \
         sm90_warpgroups
@@ -2434,11 +2488,20 @@ def launches_want(matmuls: int, attn: dict, dh: int = D, Lx: int = L,
         m, how = m if isinstance(m, tuple) else (m, "no")
         if attention_kernel(m, dh, how) == "sm90":
             return (f"attn_sm90_kernel<{dh}, {m}, {sm90_warpgroups(Lx)}, "
-                    f"{EMITS.index(how)}>")
+                    f"{EMITS.index(how)}, 0>")
         return f"attn_kernel<{dh}, {m}>"
 
     return {"matmuls": matmuls, **{name(m): n for m, n in attn.items()},
             **others}
+
+
+def cp_kernel(shape, mesh_shape) -> str:
+    """The kernel a CP forward's K8a / K8b launches run, as the profile
+    names it: attn_sm90_kernel<D, 4, warpgroups at Lc, 0, 1> (the CP
+    layout) at the shard's Lc = L / sp."""
+    from embeddings_tpu_torch.ops.attention import sm90_warpgroups
+    Lx, sp = shape[1], mesh_shape[1]
+    return f"attn_sm90_kernel<{D}, 4, {sm90_warpgroups(Lx // sp)}, 0, 1>"
 
 
 def matmul_kernel(route: str, int8: bool) -> str:
@@ -2827,9 +2890,9 @@ def tally(table: dict, key: str, ms: float) -> None:
     t[1] += 1
 
 
-def sdpa_ms(qkv, Bx: int, Lx: int, mask, Hx: int = H, Dx: int = D,
-            is_causal: bool = False) -> float:
-    """The library yardstick for the attention kernels:
+def sdpa_call(qkv, Bx: int, Lx: int, mask, Hx: int = H, Dx: int = D,
+              is_causal: bool = False):
+    """The library yardstick for the attention kernels, as a call:
     F.scaled_dot_product_attention on [B, H, L, D] copies of q, k, v with
     the equivalent mask (boolean for K2/K4/K5; the family bias as a bf16
     float mask for K6/K7, None for K6 plain on full rows, is_causal for
@@ -2837,8 +2900,27 @@ def sdpa_ms(qkv, Bx: int, Lx: int, mask, Hx: int = H, Dx: int = D,
     import torch.nn.functional as Fn
     q, k, v = (qkv.reshape(Bx, Lx, 3, Hx, Dx)[:, :, i].transpose(1, 2)
                .contiguous() for i in range(3))
-    return cuda_ms(lambda: Fn.scaled_dot_product_attention(
-        q, k, v, attn_mask=mask, is_causal=is_causal))
+    return lambda: Fn.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask, is_causal=is_causal)
+
+
+def sdpa_ms(qkv, Bx: int, Lx: int, mask, Hx: int = H, Dx: int = D,
+            is_causal: bool = False) -> float:
+    """``sdpa_call``'s time (CUDA events)."""
+    return cuda_ms(sdpa_call(qkv, Bx, Lx, mask, Hx, Dx, is_causal))
+
+
+def alternating_ms(calls: dict, rounds: int = 5) -> dict:
+    """Each call's time (``cuda_ms``) in ``rounds`` rounds that walk the
+    calls in turn, every other round backwards, so a slow drift of the
+    card lands on all of them: name -> (median of the rounds, [min,
+    max])."""
+    times = {k: [] for k in calls}
+    for i in range(rounds):
+        for k in (list(calls) if i % 2 == 0 else list(calls)[::-1]):
+            times[k].append(cuda_ms(calls[k]))
+    return {k: (float(np.median(t)), [min(t), max(t)])
+            for k, t in times.items()}
 
 
 def qwen2_attention_rows(rng, dev) -> list:
@@ -3005,7 +3087,9 @@ def cp_rows(rng, dev) -> list:
     products at the bf16 peak, or the bytes 2*(2*B*Lc*E + 2*B*L*E) (q in,
     context out, gathered k and v in), whichever is larger. The library
     yardstick: SDPA on [B, H, Lc, D] and [B, H, L, D] copies of q, k, v
-    with the boolean key-prefix mask [B, 1, 1, L]."""
+    with the boolean key-prefix mask [B, 1, 1, L]. The kernel and SDPA
+    run in alternating rounds (``alternating_ms``): the median of 5 and
+    the range."""
     import torch
     import torch.nn.functional as Fn
     from embeddings_tpu_torch.ops import attention as A
@@ -3030,17 +3114,22 @@ def cp_rows(rng, dev) -> list:
                   .contiguous() for i in range(2))
         mask = (torch.arange(Lx, device=dev)[None, :]
                 < lens[:, None])[:, None, None, :]
+        t = alternating_ms({
+            "kernel": kernel,
+            "library": lambda: Fn.scaled_dot_product_attention(
+                qh, kh, vh, attn_mask=mask)})
         out.append({
             "name": f"{fn}[B{Bs} Lc{Lc} L{Lx} H{H} D{D}]", "route": "cuda",
-            "source": ATTN_SOURCE,
+            "source": ATTN90_SOURCE,
             "replaces": replaces,
             "launches": STATE.get(f"launches_{kname}", 0),
             "max_abs_err": RESULTS["k8_parity"][
                 f"{kname}_B{Bs}_Lc{Lc}_L{Lx}"]["max_abs_err"],
-            "ms": cuda_ms(kernel), "plain_ms": cuda_ms(plain, iters=3),
+            "ms": t["kernel"][0], "ms_range": t["kernel"][1],
+            "plain_ms": cuda_ms(plain, iters=3),
             "bound_ms": bms, "bound_by": by,
-            "library_ms": cuda_ms(lambda: Fn.scaled_dot_product_attention(
-                qh, kh, vh, attn_mask=mask)),
+            "library_ms": t["library"][0],
+            "library_ms_range": t["library"][1],
             "shape": [Bs, Lc, Lx, H, D]})
     return out
 

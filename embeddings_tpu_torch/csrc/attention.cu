@@ -1,87 +1,57 @@
 // Fused multi-head self-attention over the fused QKV projection, for
-// sm_90a: kernels K4, K5 and K6w of the PyTorch port, K2's int8-scores
-// mode (K2i8, with or without emission) and the context-parallel K8a and
-// K8b, as mask modes of one WMMA kernel and the int8 kernel
-// attn_i8_kernel. K2 (with its emission K2e), K4's emission K4e, K7, K6,
-// K6c and K6ca (the fused-layout modes 0, 3, 4, 5, 7 and 8, and mode 1
-// with emission) run on the Hopper kernel in attention_sm90.cu (wgmma, a
-// TMA ring); ops/attention.py:attention_kernel routes, and this library
-// refuses those modes.
+// sm_90a: kernels K5 and K6w of the PyTorch port and K2's int8-scores
+// mode (K2i8, with or without emission), as mask modes of one WMMA kernel
+// and the int8 kernel attn_i8_kernel. K2 (with its emission K2e), K4
+// (with its emission K4e), K7, K6, K6c, K6ca and the context-parallel
+// K8a and K8b run on the Hopper kernel in attention_sm90.cu (wgmma, a TMA
+// ring); ops/attention.py:attention_kernel routes, and this library
+// refuses those modes (0 without int8 scores, 1, 3, 4, 5, 7 and 8).
 //
 // Replaces (embeddings_tpu/ops/attention.py, the Pallas TPU kernels):
-//   mode 1, K4: _attn_kernel_segmented without emission, behind
-//               fused_attention_segmented();
 //   mode 2, K5: _attn_kernel_seg_window, behind
 //               fused_attention_segmented_blockskip();
 //   mode 6, K6w: _attn_kernel_stream in its span + window (banded) mode,
 //               behind fused_attention_window() (ModernBERT's local
-//               layers);
-//   mode 4 with the CP operand layout, K8a and K8b: _attn_kernel_cp and
-//               _attn_kernel_cp_stream, behind fused_attention_cp() and
-//               fused_attention_cp_stream() (context parallelism).
-// For each sequence (packed row) b, head h and query i, with q read from
-// rows of stride ldq (q at h*D), k and v from rows of stride ldkv (k at
-// h*D, v at E + h*D), and d = q . k_j accumulated in f32. Every mode but
-// the CP layout reads them as column slices of the fused qkv buffer
-// [B*L, 3E]: q = qkv, kv = qkv + E, ldq = ldkv = 3E, and Lq = L query
-// rows a sequence. The CP operand layout of mode 4 (K8a, K8b: this
-// shard's Lc local queries against the all-gathered keys) reads q [B*Lc,
-// E] with any row stride ldq (a column slice of the local fused
-// projection [B*Lc, 3E] is read in place, ldq = 3E; a rotated q has ldq =
-// E) and the gathered kv [B*L, 2E] (k | v, ldkv = 2E), runs Lq = Lc query
-// rows a sequence against the L gathered keys, and writes out [B*Lc, E].
-// K8a (whole row) and K8b (streamed in BK blocks) compute the same sums:
-// this kernel streams 64-key tiles in both, so one path serves both:
-//   mode 0: s = clamp(bf16(q * s2) . k_j, -100, hi) (q pre-scaled and
-//           rounded, the TPU's K2 rounding), key j valid iff j < len[b];
-//   mode 1: s = clamp(d * s2, -100, hi) (scaled after the dot, in f32, as
-//           the TPU's other kernels do), key j valid iff seg[b,i] ==
-//           seg[b,j] and seg[b,j] >= 0;
-//   mode 2: mode 1, over key blocks kbs .. min(kbs + W - 1, kbe) of the
-//           query's 128-row block only (block_ranges); blocks past the cap
-//           W are dropped, every other key block is skipped unread;
-//   mode 4: s = clamp(d * s2, -100, hi), key j valid iff j < len[b];
+//               layers).
+// For each sequence (packed row) b, head h and query i, reading q, k and
+// v as column slices of the fused qkv [B*L, 3E] (q at h*D, k at E + h*D,
+// v at 2E + h*D), with d = q . k_j accumulated in f32:
+//   mode 2: s = clamp(d * s2, -100, hi) (scaled after the dot, in f32, as
+//           the TPU's kernels do), key j valid iff seg[b,i] == seg[b,j]
+//           and seg[b,j] >= 0, over key blocks kbs .. min(kbs + W - 1,
+//           kbe) of the query's 128-row block only (block_ranges); blocks
+//           past the cap W are dropped, every other key block is skipped
+//           unread;
 //   mode 6: s = clamp(d * s2, -100, hi), key j valid iff j < len[b] and
 //           |i - j| <= W (W = window // 2), over the 64-key tiles that
 //           meet [q0 - W, q_last + W] only: O(L * window) work;
 //   p_j = bf16(exp2(s)) if valid else 0
 //   out = (sum_j p_j v_j) / max(sum_j p_j, 1e-30)           (f32 sums)
-// written as bf16 to ctx [B*Lq, E] at column h*D. s2 = log2(e)/sqrt(D);
-// hi = 127 - ceil(log2 n) for n = L keys (n = min(W*128, L) in mode 2; in
-// mode 6 n is the whole row L, as the TPU's _stream_call sizes it, not
-// the band; in the CP layout n is the gathered row L, not the local Lc).
-// There
-// is no max-subtraction: the clamp keeps exp2 and the sum finite for any
-// row length, as in the TPU kernels, so key tiles only ADD into the
-// output and the denominator; nothing is rescaled. That also makes every
-// mode a streaming kernel: no state beyond one 64-key tile and the
-// running sums, so K6's long rows need nothing K2 does not have. A row
-// with no valid key (len 0, or a pad query) gives exactly 0. Prefix modes
-// stop at the first 64-key tile past len[b] (those tiles add exact
-// zeros). Mode 6 skips the tiles outside the band for the same reason:
-// every p there is an exact zero. The multiply-adds the plain version
-// rounds separately are written __fmul_rn / __fadd_rn, so nvcc's FMA
-// contraction cannot change a score.
+// written as bf16 to ctx [B*L, E] at column h*D. s2 = log2(e)/sqrt(D);
+// hi = 127 - ceil(log2 n) for n = min(W*128, L) keys in mode 2; in mode 6
+// n is the whole row L, as the TPU's _stream_call sizes it, not the band.
+// There is no max-subtraction: the clamp keeps exp2 and the sum finite
+// for any row length, as in the TPU kernels, so key tiles only ADD into
+// the output and the denominator; nothing is rescaled. A row with no
+// valid key (len 0, or a pad query) gives exactly 0. Mode 6 skips the
+// tiles outside the band and those wholly past len[b]: every p there is
+// an exact zero. The multiply-adds the plain version rounds separately
+// are written __fmul_rn / __fadd_rn, so nvcc's FMA contraction cannot
+// change a score.
 //
-// What bounds it on the H100: at B=128, L=256, H=12, D=64 (mode 0), or
-// 32,768 packed tokens (modes 1 and 2), the function moves ~201 MB (qkv
-// in, context out) for ~26 GFLOP (mode 2 at L=1024, W=3: ~19
-// GFLOP), so it is bound by device memory, not by the tensor cores. At
-// K6w's (mode 6) 32,768 tokens and window 128 the same 201 MB carries
-// ~13 GFLOP: bound by bytes; a 64-query block walks 3 key tiles (129
-// keys of the band, at most 192 visited). The CP layout at
-// bge's B=16, Lc=256, L=512 moves ~38 MB for ~6.4 GFLOP (bound by
-// bytes); at nomic's B=4, Lc=512, L=2,048 ~32 MB for ~12.9 GFLOP (bound
-// by operations). The design reads q, k
-// and v in place from the fused projection (no transpose pass through
-// memory; in the CP layout q from the local projection, k and v from the
-// gathered [B*L, 2E]), and keeps scores and
-// probabilities in shared memory and registers: one block per (64-query
-// tile, head, sequence), 4 warps of 16 query rows, 64-key tiles of K and
-// V (and their segment ids) staged in shared memory, both products on the
-// tensor cores (WMMA bf16, f32 accumulators). Not yet used here: cp.async/TMA double buffering of the key tiles and
-// wgmma (attention_sm90.cu has both), and skipping key tiles outside a
-// K4 row's segments.
+// What bounds it on the H100: at 32,768 packed tokens (mode 2 at L=1024,
+// W=3) the function moves ~201 MB (qkv in, context out) for ~19 GFLOP,
+// so it is bound by device memory, not by the tensor cores. At K6w's
+// (mode 6) 32,768 tokens and window 128 the same 201 MB carries ~13
+// GFLOP: bound by bytes; a 64-query block walks 3 key tiles (129 keys of
+// the band, at most 192 visited). The design reads q, k and v in place
+// from the fused projection (no transpose pass through memory), and
+// keeps scores and probabilities in shared memory and registers: one
+// block per (64-query tile, head, sequence), 4 warps of 16 query rows,
+// 64-key tiles of K and V (and their segment ids) staged in shared
+// memory, both products on the tensor cores (WMMA bf16, f32
+// accumulators). Not yet used here: cp.async/TMA double buffering of the
+// key tiles and wgmma (attention_sm90.cu has both).
 //
 // K2i8's emission (replaces embeddings_tpu/ops/attention.py:
 // _emit_int8_rows, called from _attn_kernel's int8-scores branch): the
@@ -126,9 +96,8 @@ constexpr int SP = KT + 4;    // f32 score staging row stride
 constexpr int PP = KT + 8;    // bf16 probability row stride
 constexpr int BQ = 128;       // query/key block of mode 2 (block_ranges)
 
-// modes 3, 5, 7 and 8, mode 4 in the fused layout, mode 0 without int8
-// scores and mode 1 with emission are attention_sm90.cu's
-enum Mode { PREFIX = 0, SEGMENT = 1, WINDOW = 2, STREAM = 4, BAND = 6 };
+// modes 0 without int8 scores, 1, 3, 4, 5, 7 and 8 are attention_sm90.cu's
+enum Mode { PREFIX = 0, WINDOW = 2, BAND = 6 };
 constexpr float LOG2_127 = 6.9886846867721655f;
 constexpr int MAX_CLUSTER = 16;  // heads a cluster can hold (H100)
 constexpr float ABSENT = -3.0e38f;  // K2i8's score of a key past L
@@ -156,10 +125,6 @@ __device__ __forceinline__ float bf16r(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
-// modes whose key mask is the prefix j < len[b]
-__host__ __device__ constexpr bool prefix_masked(int mode) {
-  return mode == PREFIX || mode >= STREAM;
-}
 
 template <int D>
 struct Layout {
@@ -226,11 +191,10 @@ __device__ __forceinline__ void finish_rows(
 
 template <int D, int MODE>
 __global__ void __launch_bounds__(THREADS) attn_kernel(
-    const __nv_bfloat16* __restrict__ qsrc,
-    const __nv_bfloat16* __restrict__ kv, const int* __restrict__ lengths,
+    const __nv_bfloat16* __restrict__ qkv, const int* __restrict__ lengths,
     const int* __restrict__ seg, const int* __restrict__ kbs,
     const int* __restrict__ kbe, __nv_bfloat16* __restrict__ out, int L,
-    int Lq, int H, int W, int ldq, int ldkv, float s2, float hi) {
+    int H, int W, float s2, float hi) {
   using Lay = Layout<D>;
   constexpr int DP = Lay::DP;
   constexpr int OP = Lay::OP;
@@ -238,7 +202,7 @@ __global__ void __launch_bounds__(THREADS) attn_kernel(
   constexpr int DV = D / 8;  // 16-byte vectors per head row
 
   extern __shared__ __align__(128) unsigned char smem[];
-  __shared__ int segk[KT];  // the key tile's segment ids (modes 1, 2)
+  __shared__ int segk[KT];  // the key tile's segment ids (mode 2)
   __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem);  // [QT][DP]
   __nv_bfloat16* ks = qs + QT * DP;                              // [KT][DP]
   __nv_bfloat16* vs = ks + KT * DP;                              // [KT][DP]
@@ -253,36 +217,21 @@ __global__ void __launch_bounds__(THREADS) attn_kernel(
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int E = H * D;
-  const int len = prefix_masked(MODE) ? lengths[b] : 0;
-  const __nv_bfloat16* qrows = qsrc + (size_t)b * Lq * ldq;
-  const __nv_bfloat16* krows = kv + (size_t)b * L * ldkv;
+  const size_t ld = 3 * (size_t)E;
+  const int len = MODE == BAND ? lengths[b] : 0;
+  const __nv_bfloat16* rows = qkv + (size_t)b * L * ld;
   float* fsc = fbase + warp * F;
   __nv_bfloat16* ps = pbase + warp * 16 * PP;
 
-  // q tile; mode 0 pre-scales it by s2 and rounds to bf16 (the TPU's K2
-  // rounding), modes 1 and 2 scale the f32 scores instead
-  const float qscale = MODE == PREFIX ? s2 : 1.0f;
+  // q tile (the scores are scaled after the dot, in f32)
   for (int v = tid; v < QT * DV; v += THREADS) {
     const int r = v / DV;
     const int c = (v % DV) * 8;
-    float f[8] = {0, 0, 0, 0, 0, 0, 0, 0};
-    if (q0 + r < Lq) {
-      const uint4 u = *reinterpret_cast<const uint4*>(
-          qrows + (size_t)(q0 + r) * ldq + h * D + c);
-      const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&u);
-      for (int i = 0; i < 4; ++i) {
-        const float2 t = __bfloat1622float2(p[i]);
-        f[2 * i] = t.x * qscale;
-        f[2 * i + 1] = t.y * qscale;
-      }
-    }
-    uint4 o;
-    __nv_bfloat162 t;
-    t = __floats2bfloat162_rn(f[0], f[1]); o.x = *reinterpret_cast<uint32_t*>(&t);
-    t = __floats2bfloat162_rn(f[2], f[3]); o.y = *reinterpret_cast<uint32_t*>(&t);
-    t = __floats2bfloat162_rn(f[4], f[5]); o.z = *reinterpret_cast<uint32_t*>(&t);
-    t = __floats2bfloat162_rn(f[6], f[7]); o.w = *reinterpret_cast<uint32_t*>(&t);
-    *reinterpret_cast<uint4*>(qs + r * DP + c) = o;
+    uint4 u = make_uint4(0, 0, 0, 0);
+    if (q0 + r < L)
+      u = *reinterpret_cast<const uint4*>(rows + (size_t)(q0 + r) * ld +
+                                          h * D + c);
+    *reinterpret_cast<uint4*>(qs + r * DP + c) = u;
   }
   __syncthreads();
 
@@ -297,13 +246,9 @@ __global__ void __launch_bounds__(THREADS) attn_kernel(
   const int r = lane >> 1;          // this lane's query row in the warp
   const int c0 = (lane & 1) * 32;   // and its half of the key tile
   const int qrow = q0 + warp * 16 + r;
-  const int sq = (!prefix_masked(MODE) && qrow < L)
+  const int sq = (MODE == WINDOW && qrow < L)
                      ? seg[(size_t)b * L + qrow] : -1;
   int k_begin = 0, k_end = L;
-  if (prefix_masked(MODE)) {
-    // key tiles wholly past len[b] would add exact zeros: stop before them
-    k_end = min(L, (len + KT - 1) / KT * KT);
-  }
   if (MODE == WINDOW) {
     // key blocks kbs .. min(kbs + W - 1, kbe) of this 128-query block
     const int nQ = L / BQ;
@@ -315,13 +260,15 @@ __global__ void __launch_bounds__(THREADS) attn_kernel(
   }
   if (MODE == BAND) {
     // the 64-key tiles that meet [q0 - W, q0 + QT - 1 + W] (W = window //
-    // 2); the prefix stop above still applies
+    // 2), short of the first tile wholly past len[b] (tiles past it would
+    // add exact zeros)
     k_begin = max(0, q0 - W) / KT * KT;
-    k_end = min(k_end, (q0 + QT - 1 + W) / KT * KT + KT);
+    k_end = min(min(L, (len + KT - 1) / KT * KT),
+                (q0 + QT - 1 + W) / KT * KT + KT);
   }
   for (int k0 = k_begin; k0 < k_end; k0 += KT) {
     __syncthreads();  // every warp is done with the previous K/V tile
-    if (!prefix_masked(MODE) && tid < KT)
+    if (MODE == WINDOW && tid < KT)
       segk[tid] = k0 + tid < L ? seg[(size_t)b * L + k0 + tid] : -1;
     for (int v = tid; v < KT * DV; v += THREADS) {
       const int kr = v / DV;
@@ -329,7 +276,7 @@ __global__ void __launch_bounds__(THREADS) attn_kernel(
       uint4 kk = make_uint4(0, 0, 0, 0), vv = make_uint4(0, 0, 0, 0);
       if (k0 + kr < L) {
         const __nv_bfloat16* src =
-            krows + (size_t)(k0 + kr) * ldkv + h * D + c;
+            rows + (size_t)(k0 + kr) * ld + E + h * D + c;
         kk = *reinterpret_cast<const uint4*>(src);
         vv = *reinterpret_cast<const uint4*>(src + E);
       }
@@ -355,13 +302,9 @@ __global__ void __launch_bounds__(THREADS) attn_kernel(
       for (int e = 0; e < 4; ++e) {
         const int c = c4 + e;
         const int kj = k0 + c;
-        bool ok = prefix_masked(MODE) ? kj < len
-                                      : segk[c] == sq && segk[c] >= 0;
+        bool ok = MODE == BAND ? kj < len : segk[c] == sq && segk[c] >= 0;
         if constexpr (MODE == BAND) ok = ok && abs(qrow - kj) <= W;
-        float raw = fsc[r * SP + c];
-        if constexpr (MODE != PREFIX) {
-          raw = raw * s2;
-        }
+        const float raw = fsc[r * SP + c] * s2;
         const float sc = fminf(fmaxf(raw, -100.0f), hi);
         const float p = ok ? exp2f(sc) : 0.0f;
         const __nv_bfloat16 pb = __float2bfloat16_rn(p);
@@ -390,8 +333,8 @@ __global__ void __launch_bounds__(THREADS) attn_kernel(
   for (int d = 0; d < D / 16; ++d)
     wmma::store_matrix_sync(fsc + d * 16, acc[d], OP, wmma::mem_row_major);
   __syncwarp();
-  finish_rows<D, EMIT_NO>(fsc, 1.0f / fmaxf(rowsum, 1e-30f), qrow, Lq,
-                          (size_t)b * Lq + qrow, h, E, out, nullptr, nullptr,
+  finish_rows<D, EMIT_NO>(fsc, 1.0f / fmaxf(rowsum, 1e-30f), qrow, L,
+                          (size_t)b * L + qrow, h, E, out, nullptr, nullptr,
                           nullptr);
 }
 
@@ -650,25 +593,20 @@ cudaError_t launch_cluster(Kern kern, dim3 grid, size_t smem, int H,
 }
 
 template <int D, int MODE>
-cudaError_t launch(const void* qsrc, const void* kvsrc, const void* lengths,
-                   const void* seg, const void* kbs, const void* kbe,
-                   void* out, int B, int L, int Lq, int H, int W, int ldq,
-                   int ldkv, float s2, float hi, cudaStream_t stream) {
+cudaError_t launch(const void* qkv, const void* lengths, const void* seg,
+                   const void* kbs, const void* kbe, void* out, int B, int L,
+                   int H, int W, float s2, float hi, cudaStream_t stream) {
   const size_t smem = Layout<D>::smem;
   auto kern = attn_kernel<D, MODE>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  dim3 grid((Lq + QT - 1) / QT, H, B);
-  const auto* q = static_cast<const __nv_bfloat16*>(qsrc);
-  const auto* kv = static_cast<const __nv_bfloat16*>(kvsrc);
-  const auto* ln = static_cast<const int*>(lengths);
-  const auto* sg = static_cast<const int*>(seg);
-  const auto* ks = static_cast<const int*>(kbs);
-  const auto* ke = static_cast<const int*>(kbe);
-  auto* o = static_cast<__nv_bfloat16*>(out);
-  kern<<<grid, THREADS, smem, stream>>>(q, kv, ln, sg, ks, ke, o, L, Lq, H,
-                                        W, ldq, ldkv, s2, hi);
+  dim3 grid((L + QT - 1) / QT, H, B);
+  kern<<<grid, THREADS, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(qkv), static_cast<const int*>(lengths),
+      static_cast<const int*>(seg), static_cast<const int*>(kbs),
+      static_cast<const int*>(kbe), static_cast<__nv_bfloat16*>(out), L, H,
+      W, s2, hi);
   return cudaGetLastError();
 }
 
@@ -695,21 +633,13 @@ cudaError_t launch_i8(const void* qkv, const void* lengths, void* out,
 }
 
 template <int D>
-cudaError_t launch_mode(int mode, int emit, int i8s, const void* q,
-                        const void* kv, const void* lengths, const void* seg,
-                        const void* kbs, const void* kbe,
-                        void* out, void* o8, void* os, int B, int L, int Lq,
-                        int H, int W, int ldq, int ldkv, float s2, float hi,
-                        cudaStream_t stream) {
-#define ATTN_ARGS q, kv, lengths, seg, kbs, kbe, out, B, L, Lq, H, W, ldq, \
-                  ldkv, s2, hi, stream
-#define I8_ARGS q, lengths, out, o8, os, B, L, H, s2, stream
-  const bool fused = Lq == L && ldq == 3 * H * D && ldkv == ldq &&
-                     kv == static_cast<const __nv_bfloat16*>(q) + H * D;
-  // only mode 4 takes the CP operand layout (K8a, K8b)
-  if (!fused && (mode != STREAM || emit != EMIT_NO || i8s))
-    return cudaErrorInvalidValue;
-  if (Lq < 0 || ldq % 8 || ldkv % 8) return cudaErrorInvalidValue;
+cudaError_t launch_mode(int mode, int emit, int i8s, const void* qkv,
+                        const void* lengths, const void* seg,
+                        const void* kbs, const void* kbe, void* out,
+                        void* o8, void* os, int B, int L, int H, int W,
+                        float s2, float hi, cudaStream_t stream) {
+#define ATTN_ARGS qkv, lengths, seg, kbs, kbe, out, B, L, H, W, s2, hi, stream
+#define I8_ARGS qkv, lengths, out, o8, os, B, L, H, s2, stream
   if (i8s) {  // K2i8: prefix mask only
     if (mode != PREFIX) return cudaErrorInvalidValue;
     switch (emit) {
@@ -722,17 +652,14 @@ cudaError_t launch_mode(int mode, int emit, int i8s, const void* q,
   // K2e and K4e (emission without int8 scores) are attention_sm90.cu's
   if (emit != EMIT_NO) return cudaErrorInvalidValue;
   switch (mode) {
-    case SEGMENT: return launch<D, SEGMENT>(ATTN_ARGS);
     case WINDOW:
       if (L % BQ) return cudaErrorInvalidValue;
       return launch<D, WINDOW>(ATTN_ARGS);
-    case STREAM:  // the CP layout only (K8a, K8b)
-      if (fused) return cudaErrorInvalidValue;
-      return launch<D, STREAM>(ATTN_ARGS);
     case BAND:
       if (W < 0) return cudaErrorInvalidValue;
       return launch<D, BAND>(ATTN_ARGS);
-    default: return cudaErrorInvalidValue;  // 0, 3, 5, 7, 8: attention_sm90.cu
+    default:  // 0 without int8 scores, 1, 3, 4, 5, 7, 8: attention_sm90.cu
+      return cudaErrorInvalidValue;
   }
 #undef I8_ARGS
 #undef ATTN_ARGS
@@ -742,29 +669,25 @@ cudaError_t launch_mode(int mode, int emit, int i8s, const void* q,
 
 extern "C" {
 
-// q, kv and out bf16 (device pointers): q rows [B*Lq] of stride ldq, kv
-// rows [B*L] of stride ldkv (k at column 0, v at H*D), out [B*Lq, H*D].
-// Modes 0 (with i8s), 1, 2 and 6 take the fused layout (q =
-// qkv [B*L, 3*H*D], kv = qkv + H*D, ldq = ldkv = 3*H*D, Lq = L); mode 4
-// takes only the CP layout (K8a, K8b: any Lq, ldq, ldkv; no emission);
-// the rest is attention_sm90.cu's. Strides are multiples of 8 and
-// pointers 16-byte aligned. Modes 0, 4 and 6 read lengths [B] int32;
-// modes 1 and 2 read seg [B, L] int32 (-1 on pads); mode 2 also kbs, kbe
-// [B, L/128] int32 and the block cap W (L % 128 == 0); mode 6 takes the
-// half window W = window // 2. Unused pointers may be null. s2 =
+// qkv [B*L, 3*H*D] bf16 (16-byte aligned), out [B*L, H*D] bf16 (device
+// pointers). Mode 0 with i8s (K2i8) and mode 6 read lengths [B] int32;
+// mode 2 reads seg [B, L] int32 (-1 on pads), kbs, kbe [B, L/128] int32
+// and the block cap W (L % 128 == 0); mode 6 takes the half window W =
+// window // 2. Unused pointers may be null. L % 8 == 0. s2 =
 // log2(e)/sqrt(D) as f32; hi = the score clamp bound. D must be 32, 64 or
-// 128. i8s (mode 0): the int8-scores kernel (K2i8); emit (with i8s only,
-// H <= 16): 1 also writes o8 [B*L, E] int8 and os [B*L] f32, 2 writes
-// only those (out may be null). Returns a cudaError_t.
-int attn_launch(const void* q, const void* kv, const void* lengths,
-                const void* seg, const void* kbs, const void* kbe,
-                void* out, void* o8, void* os, int mode,
-                int emit, int i8s, int B, int L, int Lq,
-                int H, int D, int W, int ldq, int ldkv, float s2, float hi,
-                void* stream) {
+// 128. emit (with i8s only, H <= 16): 1 also writes o8 [B*L, E] int8 and
+// os [B*L] f32, 2 writes only those (out may be null). Every other mode,
+// and mode 0 without i8s, is attention_sm90.cu's: refused. Returns a
+// cudaError_t.
+int attn_launch(const void* qkv, const void* lengths, const void* seg,
+                const void* kbs, const void* kbe, void* out, void* o8,
+                void* os, int mode, int emit, int i8s, int B, int L, int H,
+                int D, int W, float s2, float hi, void* stream) {
+  if (B < 0 || L <= 0 || L % 8 || H <= 0) return cudaErrorInvalidValue;
+  if (B == 0) return cudaSuccess;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define ATTN_ARGS mode, emit, i8s, q, kv, lengths, seg, kbs, kbe, out, o8, \
-                  os, B, L, Lq, H, W, ldq, ldkv, s2, hi, st
+#define ATTN_ARGS mode, emit, i8s, qkv, lengths, seg, kbs, kbe, out, o8, os, \
+                  B, L, H, W, s2, hi, st
   switch (D) {
     case 32: return launch_mode<32>(ATTN_ARGS);
     case 64: return launch_mode<64>(ATTN_ARGS);

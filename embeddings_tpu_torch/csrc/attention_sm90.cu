@@ -1,14 +1,16 @@
 // Fused multi-head self-attention over the fused QKV projection, for
 // sm_90a, on Hopper's own instructions (wgmma, TMA, mbarriers, warp
-// specialization): kernel K2 with its emission K2e, K4's emission K4e,
-// kernel K6 with its causal modes K6c and K6ca, and kernel K7 of the
-// PyTorch port, as seven mask modes of one kernel.
+// specialization): kernel K2 with its emission K2e, kernel K4 with its
+// emission K4e, kernel K6 with its causal modes K6c and K6ca, kernel K7,
+// and the context-parallel K8a and K8b of the PyTorch port, as seven mask
+// modes of one kernel and two operand layouts.
 //
 // Replaces (embeddings_tpu/ops/attention.py, the Pallas TPU kernels):
 //   mode 0, K2: _attn_kernel (its bf16 branch), behind fused_attention();
 //               with emission, K2e: _attn_kernel with _emit_int8_rows,
 //               behind fused_attention(emit_quantized=);
-//   mode 1 with emission, K4e: _attn_kernel_segmented with
+//   mode 1, K4: _attn_kernel_segmented, behind fused_attention_segmented();
+//               with emission, K4e: _attn_kernel_segmented with
 //               _emit_int8_rows, behind fused_attention_segmented(
 //               emit_quantized=);
 //   mode 3, K7: _attn_kernel_bias, behind fused_attention_bias() (MPNet's
@@ -18,14 +20,18 @@
 //   mode 7, K6c: _attn_kernel_stream in its causal mode, behind
 //               fused_attention_stream(causal=True);
 //   mode 8, K6ca: _attn_kernel_stream with causal and ALiBi together,
-//               behind fused_attention_stream(causal=True, alibi_slopes=).
-// The other modes of those TPU kernels (K2's int8 scores K2i8, K4 without
-// emission, the CP layout of mode 4: K8a, K8b) and K5 and K6w stay on
-// attention.cu's WMMA kernel; ops/attention.py:attention_kernel routes.
+//               behind fused_attention_stream(causal=True, alibi_slopes=);
+//   mode 4 in the CP layout, K8a and K8b: _attn_kernel_cp and
+//               _attn_kernel_cp_stream, behind fused_attention_cp() and
+//               fused_attention_cp_stream() (context parallelism; the two
+//               TPU kernels compute the same sums, the second over key
+//               blocks, and this kernel streams key tiles in both).
+// K2's int8 scores (K2i8), K5 and K6w stay on attention.cu's WMMA kernel;
+// ops/attention.py:attention_kernel routes.
 //
 // For each sequence b, head h and query i, reading q, k and v as column
 // slices of the fused qkv [B*L, 3E] (q at h*D, k at E + h*D, v at 2E +
-// h*D), with d = q . k_j accumulated in f32:
+// h*D), with d = q . k_j accumulated in f32 (the CP layout: below):
 //   mode 0: s = clamp(bf16(q * s2) . k_j, -100, hi) (q pre-scaled and
 //           rounded, the TPU's K2 rounding);
 //   mode 1: s = clamp(d * s2, -100, hi), key j valid iff seg[b, i] ==
@@ -52,6 +58,13 @@
 // tiles far from the diagonal add exp2(-100) and are not. A len-0 row
 // gives exactly 0; query rows >= L are never written.
 //
+// The CP operand layout (K8a, K8b; mode 4's score and prefix mask): a
+// shard's Lq = Lc local query rows a sequence against the L all-gathered
+// keys. q [B*Lc, E] has any row stride ldq % 8 == 0 (a column slice of the
+// local fused projection [B*Lc, 3E] is read in place, ldq = 3E; a rotated
+// q has ldq = E), kv [B*L, 2E] holds k at h*D and v at E + h*D, out is
+// [B*Lc, E]; hi is sized to the L gathered keys, not to Lc.
+//
 // Emission (modes 0 and 1, K2e and K4e; the TPU's _emit_int8_rows): each
 // context row is also ("both") or instead ("only") written as symmetric
 // int8 over all E = H*D columns: so = max(max_e |ctx|, 1e-30) * (1/127),
@@ -72,6 +85,14 @@
 // B=32, L=1,024 does ~103 GFLOP and 403 M exp2 (both ~0.10 ms) on ~201 MB
 // of qkv and context plus the 50.3 MB bias (0.075 ms of bytes): every
 // batch row reads the whole bias again, which is about the size of L2.
+// K4 at 256 packed rows of 128 moves K2's ~201 MB for ~26 GFLOP: bound
+// by bytes (0.06 ms); a row of 128 is one key tile, so a block of one
+// head does one tile's work between its prologue and its epilogue. K8a
+// at bge's CP shard (B=16, Lc=256, L=512) reads q, the gathered k and v
+// and writes the context, ~38 MB, for ~6.4 GFLOP: bound by bytes (0.011
+// ms). K8b at nomic's shard (B=4, Lc=512, L=2,048) moves ~32 MB for ~12.9
+// GFLOP: bound by the tensor cores (0.013 ms); its 4 x 4 x 12 = 192
+// (query tile, head, sequence) blocks fill 132 SMs in 1.45 waves.
 //
 // The design:
 // - one block per (128 query rows, head, sequence): a producer
@@ -123,6 +144,18 @@
 // - mode 1's segment ids come with each K tile (a 128-key TMA box of seg
 //   [B, L], counted in the K stage's transaction bytes; keys past L read
 //   as 0 and are masked by position), its query rows' ids once a block;
+//   K4 (mode 1 without emission) runs every head of its (query tile,
+//   sequence) in one block, as the emission does (below; SEG_ALL_HEADS),
+//   so a block's prologue, its query rows' ids and its row tail serve 12
+//   heads of one-tile rows, not one;
+// - the CP layout (K8a, K8b) is a template parameter (CP = 1), not a
+//   branch: q comes by TMA from its own 3-D map [B, Lc, E] of row stride
+//   ldq (rows past Lc read as zeros), k and v from a map of kv [B, L, 2E];
+//   the grid's query tiles cover Lc, the key tiles len[b] of L. K8b's
+//   1.45 waves at nomic's shard were not split: each block's key tiles
+//   split over a cluster of two, rank 1 handing its f32 partial sums to
+//   rank 0 through distributed shared memory, took 0.049-0.050 ms against
+//   0.047-0.048 unsplit (tools/attention_ab.py, H100 at 700 W);
 // - mode 3's bias comes by TMA too, as a third ring (64-row x 32-key f32
 //   boxes, 128-byte swizzled: 64 KB a 128 x 128 tile, two stages at D <=
 //   64 beside a two-stage K/V ring, one at D=128), each thread reading
@@ -186,6 +219,10 @@ constexpr int CONSUMER_REGS = 240;
 constexpr int BAR_SCHED = 1;  // named barriers 1, 2: the warpgroups' turns
 constexpr int BAR_WG = 3;     // 3, 4: one warpgroup's threads
 constexpr float LOG2E_F = 1.4426950408889634f;
+// K4 (mode 1 without emission): every head of a (query tile, sequence) in
+// one block (true), or a block per (query tile, head, sequence) (false;
+// both timed with tools/attention_ab.py)
+constexpr bool SEG_ALL_HEADS = true;
 // mode 3's block order: a bias of more bytes than this (half of the
 // H100's 50 MB L2) runs the sequence index fastest, so the blocks that
 // share a (query block, head) tile of it run together; a smaller one the
@@ -220,6 +257,12 @@ __host__ __device__ constexpr bool ones_sum(int D, int mode) {
   return D <= 64 && alibi_mode(mode);
 }
 
+// Does a block run every head of its (query tile, sequence)? With
+// emission (each row's absmax spans the heads) and in K4.
+__host__ __device__ constexpr bool all_heads(int mode, int emit) {
+  return emit != EMIT_NO || (mode == SEGMENT && SEG_ALL_HEADS);
+}
+
 // Shared memory from a 1024-byte aligned base: the Q tile (NC x 64 rows;
 // two of them, for heads h and h + 1, with emission), the K ring, the V
 // ring, 1 KB of bf16 ones (the row sums' B operand), mode 3's bias ring,
@@ -235,7 +278,7 @@ template <int D, int NC, int MODE, int EMIT>
 struct Smem {
   using C = Cfg<D, MODE>;
   static constexpr int QB = NC * WG_ROWS;
-  static constexpr int QBUF = EMIT != EMIT_NO ? 2 : 1;
+  static constexpr int QBUF = all_heads(MODE, EMIT) ? 2 : 1;
   static constexpr uint32_t q_bytes = QB * D * 2;  // one Q tile
   static constexpr uint32_t k_off = QBUF * q_bytes;
   static constexpr uint32_t v_off = k_off + C::STAGES * C::TILE_BYTES;
@@ -256,16 +299,19 @@ static_assert(Smem<128, 2, BIAS, EMIT_NO>::bytes <= 232448,
 static_assert(Smem<64, 2, BIAS, EMIT_NO>::bytes <= 232448, "D=64 bias block");
 static_assert(Smem<128, 2, SEGMENT, EMIT_ONLY>::bytes <= 232448,
               "D=128 emitting block");
+static_assert(Smem<128, 2, SEGMENT, EMIT_NO>::bytes <= 232448,
+              "D=128 segment block");
 
 struct Args {
   const int* lengths;   // [B] int32 (modes 0, 3-8)
   const int* seg;       // [B, L] int32 (mode 1)
   const float* slopes;  // [H] f32 (modes 5, 8)
-  __nv_bfloat16* out;   // [B*L, E] (not with "only" emission)
+  __nv_bfloat16* out;   // [B*Lq, E] (not with "only" emission)
   int8_t* o8;           // emission: [B*L, E] codes
   float* os;            // emission: [B*L] row scales
   float* scratch;       // "only" emission: [B*L, E] f32 context
-  int L, H;
+  int L, H;             // keys a sequence, heads
+  int Lq;               // query rows a sequence (L, or the CP layout's Lc)
   float s2, hi;
   int batch_fastest;    // mode 3: grid (B, q-blocks, H)
 };
@@ -402,12 +448,16 @@ __device__ __forceinline__ void ld_vecs(const void* src, uint4* v) {
   for (int i = 0; i < N; ++i) v[i] = reinterpret_cast<const uint4*>(src)[i];
 }
 
+// qmap: the Q rows (qkv [B, L, 3E], or the CP layout's q [B, Lc, E]);
+// kvmap: the K and V rows (qkv again, or the CP layout's kv [B, L, 2E]);
 // bmap: mode 3's bias [H, L, L]; smap: mode 1's seg [B, L] (each unused
-// by the other modes). EMIT: emission (modes 0 and 1): the block runs
-// every head of its (query tile, sequence), see the design notes.
-template <int D, int MODE, int NC, int EMIT>
+// by the other modes). EMIT: emission (modes 0 and 1); with it, and in
+// K4, the block runs every head of its (query tile, sequence), see the
+// design notes. CP: 1 the CP layout (mode 4), 0 the fused one.
+template <int D, int MODE, int NC, int EMIT, int CP>
 __global__ void __launch_bounds__(128 * (NC + 1), 1) attn_sm90_kernel(
-    const __grid_constant__ CUtensorMap map,
+    const __grid_constant__ CUtensorMap qmap,
+    const __grid_constant__ CUtensorMap kvmap,
     const __grid_constant__ CUtensorMap bmap,
     const __grid_constant__ CUtensorMap smap, const Args a) {
   using C = Cfg<D, MODE>;
@@ -418,10 +468,12 @@ __global__ void __launch_bounds__(128 * (NC + 1), 1) attn_sm90_kernel(
   constexpr int RB = C::RB;
   constexpr bool ONES = ones_sum(D, MODE);
   constexpr bool EMITS = EMIT != EMIT_NO;
+  constexpr bool ALL_HEADS = all_heads(MODE, EMIT);
   constexpr int QBUF = S::QBUF;
   static_assert(!EMITS || MODE == PREFIX || MODE == SEGMENT,
                 "emission is modes 0 and 1");
-  static_assert(MODE != SEGMENT || EMITS, "mode 1 runs with emission");
+  static_assert(CP == 0 || (MODE == STREAM && !EMITS),
+                "the CP layout is mode 4's, without emission");
   const bool batch_fastest = MODE == BIAS && a.batch_fastest;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw_base = smem_u32(smem_raw);
@@ -445,12 +497,13 @@ __global__ void __launch_bounds__(128 * (NC + 1), 1) attn_sm90_kernel(
   // divergent paths, which would make it serialize the wgmma instructions
   const int role = __shfl_sync(0xffffffffu, tid / 128, 0);
   const int L = a.L;
+  const int Lq = a.Lq;
   const int E = a.H * D;
   int qb, h_block, b;
-  if constexpr (EMITS) {
+  if constexpr (ALL_HEADS) {
     // block i: the (i % q-tiles)-th query tile of the (i / q-tiles)-th
     // sequence from the last
-    const int nqb = (L + QB - 1) / QB;
+    const int nqb = (Lq + QB - 1) / QB;
     qb = blockIdx.x % nqb;
     b = gridDim.x / nqb - 1 - blockIdx.x / nqb;
     h_block = 0;
@@ -465,8 +518,9 @@ __global__ void __launch_bounds__(128 * (NC + 1), 1) attn_sm90_kernel(
     b = batch_fastest ? blockIdx.x : blockIdx.z;
   }
   const int q0 = qb * QB;
-  // the heads this block runs: every one with emission, else its own
-  const int n_heads = EMITS ? a.H : 1;
+  // the heads this block runs: every one with emission and in K4, else
+  // its own
+  const int n_heads = ALL_HEADS ? a.H : 1;
   // mode 1 masks keys by segment, not by a prefix: every key below L
   const int len = __shfl_sync(
       0xffffffffu,
@@ -508,19 +562,23 @@ __global__ void __launch_bounds__(128 * (NC + 1), 1) attn_sm90_kernel(
       asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
           PRODUCER_REGS));
     if (tid != 128 * NC) return;
+    // the K and V columns: qkv's k at E + h*D, v at 2E + h*D; the CP
+    // layout's kv [B, L, 2E] k at h*D, v at E + h*D
+    const int kv_col = CP ? 0 : E;
     int g = 0;
     for (int hh = 0; hh < n_heads; ++hh) {
-      const int h = EMITS ? hh : h_block;
+      const int h = ALL_HEADS ? hh : h_block;
       const int qi = hh % QBUF;
       // (a fresh barrier's phase "before 0" reads as complete)
-      if constexpr (EMITS) mbar_wait(q_empty(qi), ((hh / QBUF) & 1) ^ 1);
+      if constexpr (ALL_HEADS)
+        mbar_wait(q_empty(qi), ((hh / QBUF) & 1) ^ 1);
       mbar_expect_tx(q_full(qi), S::q_bytes);
 #pragma unroll
       for (int c = 0; c < C::NH; ++c)
 #pragma unroll
         for (int rc = 0; rc < QB / BOX_ROWS; ++rc)
           tma_load_3d(qs + qi * S::q_bytes + (c * QB + rc * BOX_ROWS) * RB,
-                      &map, h * D + c * C::CW, q0 + rc * BOX_ROWS, b,
+                      &qmap, h * D + c * C::CW, q0 + rc * BOX_ROWS, b,
                       q_full(qi));
       for (int t = 0; t < nt; ++t, ++g) {
         const int s = g % STAGES;
@@ -537,8 +595,8 @@ __global__ void __launch_bounds__(128 * (NC + 1), 1) attn_sm90_kernel(
           for (int c = 0; c < C::NH; ++c)
 #pragma unroll
             for (int rc = 0; rc < KT / BOX_ROWS; ++rc)
-              tma_load_3d(tile + (c * KT + rc * BOX_ROWS) * RB, &map,
-                          (1 + kv) * E + h * D + c * C::CW,
+              tma_load_3d(tile + (c * KT + rc * BOX_ROWS) * RB, &kvmap,
+                          kv_col + kv * E + h * D + c * C::CW,
                           k0 + rc * BOX_ROWS, b, full);
           if constexpr (MODE == SEGMENT) {
             // the keys' segment ids, with K (keys past L read as 0)
@@ -635,7 +693,7 @@ __global__ void __launch_bounds__(128 * (NC + 1), 1) attn_sm90_kernel(
 
   int g0 = 0;  // ring tiles of the heads before this one
   for (int hh = 0; hh < n_heads; ++hh) {
-    const int h = EMITS ? hh : h_block;
+    const int h = ALL_HEADS ? hh : h_block;
     const int qi = hh % QBUF;
     const uint64_t dq = dq0 + ((qi * S::q_bytes) >> 4);
     const float slope = alibi_mode(MODE) ? a.slopes[h] : 0.0f;
@@ -780,7 +838,7 @@ __global__ void __launch_bounds__(128 * (NC + 1), 1) attn_sm90_kernel(
       if (lane == 0) mbar_arrive(v_empty(sp));
     }
     // this head's Q buffer goes back (its every product is done)
-    if constexpr (EMITS)
+    if constexpr (ALL_HEADS)
       if (lane == 0) mbar_arrive(q_empty(qi));
     g0 += nt;
 
@@ -796,8 +854,8 @@ __global__ void __launch_bounds__(128 * (NC + 1), 1) attn_sm90_kernel(
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int row = row0 + 8 * r;
-      if (row >= L) continue;
-      const size_t at = ((size_t)b * L + row) * E + h * D + 2 * quad;
+      if (row >= Lq) continue;
+      const size_t at = ((size_t)b * Lq + row) * E + h * D + 2 * quad;
 #pragma unroll
       for (int j = 0; j < D / 8; ++j) {
         const float x = o[4 * j + 2 * r] * inv[r];
@@ -878,20 +936,21 @@ __global__ void __launch_bounds__(128 * (NC + 1), 1) attn_sm90_kernel(
   }
 }
 
-// qkv [B*L, 3E] bf16 as a 3-D tensor [B, L, 3E], read in boxes of CW
-// columns x 64 rows x 1 sequence, swizzled to the box row's width (rows
-// past L read as zeros)
-cudaError_t qkv_map(CUtensorMap* map, const void* qkv, int B, int L, int E3,
-                    int cw) {
+// rows of bf16 [B*R, ld] (row stride ld, 16-byte aligned) as a 3-D tensor
+// [B, R, cols], read in boxes of CW columns x 64 rows x 1 sequence,
+// swizzled to the box row's width (rows past R read as zeros): qkv [B, L,
+// 3E], or the CP layout's q [B, Lc, E] (ldq) and kv [B, L, 2E]
+cudaError_t rows_map(CUtensorMap* map, const void* ptr, int B, int R,
+                     int cols, int ld, int cw) {
   EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
-  const cuuint64_t dims[3] = {(cuuint64_t)E3, (cuuint64_t)L, (cuuint64_t)B};
-  const cuuint64_t strides[2] = {(cuuint64_t)E3 * 2,
-                                 (cuuint64_t)E3 * 2 * (cuuint64_t)L};
+  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)R, (cuuint64_t)B};
+  const cuuint64_t strides[2] = {(cuuint64_t)ld * 2,
+                                 (cuuint64_t)ld * 2 * (cuuint64_t)R};
   const cuuint32_t box[3] = {(cuuint32_t)cw, (cuuint32_t)BOX_ROWS, 1};
   const cuuint32_t elem[3] = {1, 1, 1};
   const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(qkv), dims,
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
       strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
       cw * 2 == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
       CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
@@ -933,43 +992,61 @@ cudaError_t seg_map(CUtensorMap* map, const void* seg, int B, int L) {
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-template <int D, int MODE, int NC, int EMIT = EMIT_NO>
-cudaError_t launch(const void* qkv, const void* bias, const Args& a, int B,
-                   cudaStream_t stream) {
+// one launch on the Q and K/V maps given: grid (query tiles, H, B), (B,
+// query tiles, H) for mode 3 with a large bias, B x query tiles where a
+// block runs every head
+template <int D, int MODE, int NC, int EMIT = EMIT_NO, int CP = 0>
+cudaError_t launch_maps(const CUtensorMap& qmap, const CUtensorMap& kvmap,
+                        const void* bias, const Args& a, int B,
+                        cudaStream_t stream) {
   using S = Smem<D, NC, MODE, EMIT>;
-  CUtensorMap map, bmap, smap;
-  cudaError_t err = qkv_map(&map, qkv, B, a.L, 3 * a.H * D, Cfg<D, MODE>::CW);
-  if (err != cudaSuccess) return err;
-  // (a mode that reads no bias or segment ids gets the qkv map in their
+  // (a mode that reads no bias or segment ids gets the Q map in their
   // place)
-  bmap = smap = map;
+  CUtensorMap bmap = qmap, smap = qmap;
+  cudaError_t err = cudaSuccess;
   if (MODE == BIAS) err = bias_map(&bmap, bias, a.L, a.H);
   if (MODE == SEGMENT) err = seg_map(&smap, a.seg, B, a.L);
   if (err != cudaSuccess) return err;
-  auto kern = attn_sm90_kernel<D, MODE, NC, EMIT>;
+  auto kern = attn_sm90_kernel<D, MODE, NC, EMIT, CP>;
   err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)S::bytes);
   if (err != cudaSuccess) return err;
-  const int nqb = (a.L + S::QB - 1) / S::QB;
-  const dim3 grid = EMIT != EMIT_NO ? dim3(nqb * B)
+  const int nqb = (a.Lq + S::QB - 1) / S::QB;
+  const dim3 grid = all_heads(MODE, EMIT)            ? dim3(nqb * B)
                     : MODE == BIAS && a.batch_fastest ? dim3(B, nqb, a.H)
                                                       : dim3(nqb, a.H, B);
-  kern<<<grid, 128 * (NC + 1), S::bytes, stream>>>(map, bmap, smap, a);
+  kern<<<grid, 128 * (NC + 1), S::bytes, stream>>>(qmap, kvmap, bmap, smap,
+                                                   a);
   return cudaGetLastError();
+}
+
+// the fused layout: q, k and v from one map of qkv [B, L, 3E]
+template <int D, int MODE, int NC, int EMIT = EMIT_NO>
+cudaError_t launch(const void* qkv, const void* bias, const Args& a, int B,
+                   cudaStream_t stream) {
+  CUtensorMap map;
+  const cudaError_t err = rows_map(&map, qkv, B, a.L, 3 * a.H * D,
+                                   3 * a.H * D, Cfg<D, MODE>::CW);
+  if (err != cudaSuccess) return err;
+  return launch_maps<D, MODE, NC, EMIT>(map, map, bias, a, B, stream);
 }
 
 template <int D>
 cudaError_t launch_mode(int mode, const void* qkv, const void* bias,
                         const Args& a, int B, cudaStream_t stream) {
-  // one consumer warpgroup where a row fits in 64 queries (K2's and K7's
-  // short rows); the streamed modes take L % 128 == 0
-  if (mode == PREFIX)
-    return a.L <= WG_ROWS ? launch<D, PREFIX, 1>(qkv, bias, a, B, stream)
-                          : launch<D, PREFIX, 2>(qkv, bias, a, B, stream);
-  if (mode == BIAS)
-    return a.L <= WG_ROWS ? launch<D, BIAS, 1>(qkv, bias, a, B, stream)
-                          : launch<D, BIAS, 2>(qkv, bias, a, B, stream);
+  // one consumer warpgroup where a row fits in 64 queries (K2's, K4's and
+  // K7's short rows); the streamed modes take L % 128 == 0
+  const bool one = a.L <= WG_ROWS;
   switch (mode) {
+    case PREFIX:
+      return one ? launch<D, PREFIX, 1>(qkv, bias, a, B, stream)
+                 : launch<D, PREFIX, 2>(qkv, bias, a, B, stream);
+    case SEGMENT:
+      return one ? launch<D, SEGMENT, 1>(qkv, bias, a, B, stream)
+                 : launch<D, SEGMENT, 2>(qkv, bias, a, B, stream);
+    case BIAS:
+      return one ? launch<D, BIAS, 1>(qkv, bias, a, B, stream)
+                 : launch<D, BIAS, 2>(qkv, bias, a, B, stream);
     case STREAM: return launch<D, STREAM, 2>(qkv, bias, a, B, stream);
     case ALIBI: return launch<D, ALIBI, 2>(qkv, bias, a, B, stream);
     case CAUSAL: return launch<D, CAUSAL, 2>(qkv, bias, a, B, stream);
@@ -998,28 +1075,51 @@ cudaError_t launch_emit_mode(int mode, int emit, const void* qkv,
                         : launch_emit<D, SEGMENT>(emit, qkv, a, B, stream);
 }
 
+// K8a / K8b: mode 4 in the CP layout, one consumer warpgroup where Lc <=
+// 64, else two
+template <int D>
+cudaError_t launch_cp(const void* q, const void* kv, const Args& a, int B,
+                      int ldq, cudaStream_t stream) {
+  constexpr int CW = Cfg<D, STREAM>::CW;
+  const int E = a.H * D;
+  CUtensorMap qmap, kvmap;
+  cudaError_t err = rows_map(&qmap, q, B, a.Lq, E, ldq, CW);
+  if (err != cudaSuccess) return err;
+  err = rows_map(&kvmap, kv, B, a.L, 2 * E, 2 * E, CW);
+  if (err != cudaSuccess) return err;
+  return a.Lq <= WG_ROWS ? launch_maps<D, STREAM, 1, EMIT_NO, 1>(
+                              qmap, kvmap, nullptr, a, B, stream)
+                        : launch_maps<D, STREAM, 2, EMIT_NO, 1>(
+                              qmap, kvmap, nullptr, a, B, stream);
+}
+
 }  // namespace
 
 extern "C" {
 
-// qkv [B*L, 3*H*D] bf16 (16-byte aligned), lengths [B] int32, slopes [H]
-// f32 (modes 5 and 8; else may be null), bias [H, L, L] f32 (mode 3,
-// log2-scaled, 16-byte aligned; else may be null), out [B*L, H*D] bf16,
-// all device pointers. mode: 0 (K2), 3 (K7), 4, 5 (K6 plain, ALiBi), 7
-// (K6c), 8 (K6ca). D: 32, 64 or 128; L % 8 == 0. s2 = log2(e)/sqrt(D) as
-// f32; hi = the score clamp bound. Returns a cudaError_t.
-int attn90_launch(const void* qkv, const void* lengths, const void* slopes,
-                  const void* bias, void* out, int mode, int B, int L, int H,
-                  int D, float s2, float hi, void* stream) {
+// qkv [B*L, 3*H*D] bf16 (16-byte aligned), lengths [B] int32 (modes 0,
+// 3-8), seg [B, L] int32 (mode 1, -1 on pads), slopes [H] f32 (modes 5
+// and 8), bias [H, L, L] f32 (mode 3, log2-scaled, 16-byte aligned), out
+// [B*L, H*D] bf16, all device pointers (a mode's unused ones may be
+// null). mode: 0 (K2), 1 (K4), 3 (K7), 4, 5 (K6 plain, ALiBi), 7 (K6c), 8
+// (K6ca). D: 32, 64 or 128; L % 8 == 0. s2 = log2(e)/sqrt(D) as f32; hi =
+// the score clamp bound. Returns a cudaError_t.
+int attn90_launch(const void* qkv, const void* lengths, const void* seg,
+                  const void* slopes, const void* bias, void* out, int mode,
+                  int B, int L, int H, int D, float s2, float hi,
+                  void* stream) {
   if (B < 0 || L <= 0 || L % 8 || H <= 0) return cudaErrorInvalidValue;
   if (alibi_mode(mode) && slopes == nullptr) return cudaErrorInvalidValue;
   if (mode == BIAS && bias == nullptr) return cudaErrorInvalidValue;
+  if ((mode == SEGMENT) != (seg != nullptr)) return cudaErrorInvalidValue;
+  if (mode != SEGMENT && lengths == nullptr) return cudaErrorInvalidValue;
   if (B == 0) return cudaSuccess;
   Args a{};
   a.lengths = static_cast<const int*>(lengths);
+  a.seg = static_cast<const int*>(seg);
   a.slopes = static_cast<const float*>(slopes);
   a.out = static_cast<__nv_bfloat16*>(out);
-  a.L = L;
+  a.L = a.Lq = L;
   a.H = H;
   a.s2 = s2;
   a.hi = hi;
@@ -1062,7 +1162,7 @@ int attn90_emit_launch(const void* qkv, const void* lengths, const void* seg,
   a.o8 = static_cast<int8_t*>(o8);
   a.os = static_cast<float*>(os);
   a.scratch = static_cast<float*>(scratch);
-  a.L = L;
+  a.L = a.Lq = L;
   a.H = H;
   a.s2 = s2;
   a.hi = hi;
@@ -1071,6 +1171,39 @@ int attn90_emit_launch(const void* qkv, const void* lengths, const void* seg,
     case 32: return launch_emit_mode<32>(mode, emit, qkv, a, B, st);
     case 64: return launch_emit_mode<64>(mode, emit, qkv, a, B, st);
     case 128: return launch_emit_mode<128>(mode, emit, qkv, a, B, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// K8a / K8b: mode 4 in the CP layout. q [B*Lc, H*D] bf16 with row stride
+// ldq (ldq % 8 == 0, ldq >= H*D, 16-byte aligned: a column slice of a
+// [B*Lc, 3*H*D] projection is taken in place), kv [B*L, 2*H*D] bf16 (k |
+// v, 16-byte aligned), lengths [B] int32 (prefix lengths of the gathered
+// row), out [B*Lc, H*D] bf16; all device pointers. D: 32, 64 or 128; Lc %
+// 8 == 0, L % 8 == 0. s2 = log2(e)/sqrt(D) as f32; hi = the score clamp
+// bound, sized to the L gathered keys. Returns a cudaError_t.
+int attn90_cp_launch(const void* q, const void* kv, const void* lengths,
+                     void* out, int B, int Lc, int L, int H, int D, int ldq,
+                     float s2, float hi, void* stream) {
+  if (B < 0 || Lc <= 0 || Lc % 8 || L <= 0 || L % 8 || H <= 0 ||
+      ldq % 8 || ldq < H * D)
+    return cudaErrorInvalidValue;
+  if (q == nullptr || kv == nullptr || lengths == nullptr || out == nullptr)
+    return cudaErrorInvalidValue;
+  if (B == 0) return cudaSuccess;
+  Args a{};
+  a.lengths = static_cast<const int*>(lengths);
+  a.out = static_cast<__nv_bfloat16*>(out);
+  a.L = L;
+  a.Lq = Lc;
+  a.H = H;
+  a.s2 = s2;
+  a.hi = hi;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 32: return launch_cp<32>(q, kv, a, B, ldq, st);
+    case 64: return launch_cp<64>(q, kv, a, B, ldq, st);
+    case 128: return launch_cp<128>(q, kv, a, B, ldq, st);
     default: return cudaErrorInvalidValue;
   }
 }

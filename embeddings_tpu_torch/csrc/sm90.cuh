@@ -3,7 +3,8 @@
 // fence / commit / wait protocol, the instruction shapes the kernels
 // issue), named barriers and quad reductions, and the driver's
 // cuTensorMapEncodeTiled looked up through the runtime. Used by
-// qmatmul.cu (K1, K3) and attention_sm90.cu (K2, K6, K6c, K6ca, K7).
+// qmatmul.cu (K1, K3) and attention_sm90.cu (K2, K4, K6, K6c, K6ca, K7,
+// K8a, K8b).
 
 #pragma once
 

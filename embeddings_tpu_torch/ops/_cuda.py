@@ -25,6 +25,10 @@ BUILD_DIR = _PKG / "_build"
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+# each source's nvcc output from the build in this process (ptxas's -v
+# report: registers, spills, and its C75xx notes, one for each wgmma
+# serialized)
+BUILD_LOGS: dict[str, str] = {}
 
 
 def _nvcc() -> str:
@@ -48,7 +52,8 @@ def _target(name: str) -> Path:
 def build(*names: str) -> dict[str, float]:
     """Compile the named kernels that are not built yet, one ``nvcc``
     process per source, all started together. Returns each source's
-    build seconds (0.0 when already built)."""
+    build seconds (0.0 when already built); their nvcc output goes to
+    ``BUILD_LOGS``."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs, seconds = {}, {}
     for name in names:
@@ -59,7 +64,7 @@ def build(*names: str) -> dict[str, float]:
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
                "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-               "-o", str(tmp), str(CSRC / f"{name}.cu")]
+               "-Xptxas", "-v", "-o", str(tmp), str(CSRC / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, out, time.perf_counter())
@@ -67,6 +72,7 @@ def build(*names: str) -> dict[str, float]:
     for name, (proc, tmp, out, t0) in procs.items():
         log, _ = proc.communicate()
         seconds[name] = time.perf_counter() - t0
+        BUILD_LOGS[name] = log
         if proc.returncode != 0:
             errors.append(f"nvcc failed for {name}.cu:\n{log}")
             continue

@@ -14,12 +14,13 @@ all-gathered K/V) and its key-streamed variant
 ``fused_attention_cp_stream`` (K8b).
 
 Each wrapper launches its mask mode of a hand-written kernel on a CUDA
-tensor, or raises: K2 and its emission K2e (without int8 scores), K4's
-emission K4e, K7, K6, K6c and K6ca run on the Hopper kernel
-``csrc/attention_sm90.cu`` (wgmma, a TMA ring), every other mode on
+tensor, or raises: K2 and its emission K2e (without int8 scores), K4 and
+its emission K4e, K7, K6, K6c, K6ca, K8a and K8b run on the Hopper kernel
+``csrc/attention_sm90.cu`` (wgmma, a TMA ring), K5, K6w and K2i8 on
 ``csrc/attention.cu`` (WMMA); ``attention_kernel`` routes, and the
 ``routes`` counters of ``fused_attention``, ``fused_attention_segmented``,
-``fused_attention_bias`` and ``fused_attention_stream`` count the
+``fused_attention_bias``, ``fused_attention_stream``,
+``fused_attention_cp`` and ``fused_attention_cp_stream`` count the
 launches by route. On a CPU tensor each wrapper runs
 its plain PyTorch version, which repeats the kernel's arithmetic step by
 step: exp2 of the clamped scores with no max-subtraction, probabilities
@@ -619,9 +620,9 @@ def fused_attention_cp(q: torch.Tensor, kv: torch.Tensor,
     int32 prefix lengths of the gathered row -> context [B*Lc, H*D] in q's
     dtype. Scores scaled after the dot, clamp sized to the L gathered keys
     (the TPU's ``_attn_kernel_cp``). Takes ``supported(L, H, D)`` and Lc %
-    8 == 0. A CUDA tensor launches K8a (``csrc/attention.cu``, mode 4 in
-    its CP operand layout), counted in ``launches``; a CPU tensor runs
-    ``fused_attention_cp_ref``."""
+    8 == 0. A CUDA tensor launches K8a (``csrc/attention_sm90.cu``, mode 4
+    in its CP operand layout), counted in ``launches`` and by kernel in
+    ``routes``; a CPU tensor runs ``fused_attention_cp_ref``."""
     _check_cp("fused_attention_cp", supported(L, H, D) and Lc % 8 == 0, q,
               kv, lengths, B, Lc, L, H, D)
     if q.device.type == "cpu":
@@ -639,8 +640,9 @@ def fused_attention_cp_stream(q: torch.Tensor, kv: torch.Tensor,
     ``_attn_kernel_cp_stream``; BK fixes the shapes taken, as in
     ``fused_attention_stream``). Takes ``stream_supported(L, H, D, BK)``
     and Lc % 128 == 0. A CUDA tensor launches K8b (the same CUDA path as
-    K8a: the kernel streams 64-key tiles at every length), counted in
-    ``launches``; a CPU tensor runs ``fused_attention_cp_stream_ref``."""
+    K8a: the kernel streams 128-key tiles at every length), counted in
+    ``launches`` and by kernel in ``routes``; a CPU tensor runs
+    ``fused_attention_cp_stream_ref``."""
     _check_cp(f"fused_attention_cp_stream (BK={BK})",
               stream_supported(L, H, D, BK) and Lc % BQ == 0, q, kv,
               lengths, B, Lc, L, H, D)
@@ -678,19 +680,21 @@ def _launch_cp(wrapper, q, kv, lengths, B, Lc, L, H, D) -> torch.Tensor:
                          "a multiple of 8 and 16-byte alignment")
     out = torch.empty((B * Lc, H * D), dtype=q.dtype, device=q.device)
     if B and Lc:
-        _launch(wrapper.__name__, MODE_STREAM, kv, out, B, L, H, D,
-                _clamp_hi(L), lengths=lengths, cp=(q, Lc))
+        route = _launch(wrapper.__name__, MODE_STREAM, kv, out, B, L, H, D,
+                        _clamp_hi(L), lengths=lengths, cp=(q, Lc))
         wrapper.launches += 1
+        wrapper.routes[route] += 1
     return out
 
 
-# mask modes of csrc/attention.cu (and of csrc/attention_sm90.cu: 0, 3,
-# 4, 5, 7, 8, and 1 with emission)
+# mask modes of csrc/attention_sm90.cu (0, 1, 3, 4, 5, 7, 8; 0 and 1
+# also with emission, 4 also in the CP layout) and csrc/attention.cu (2,
+# 6, and 0 with int8 scores)
 MODE_PREFIX, MODE_SEGMENT, MODE_WINDOW = 0, 1, 2
 MODE_BIAS, MODE_STREAM, MODE_ALIBI, MODE_BAND, MODE_CAUSAL = 3, 4, 5, 6, 7
 MODE_CAUSAL_ALIBI = 8
-SM90_MODES = (MODE_PREFIX, MODE_BIAS, MODE_STREAM, MODE_ALIBI, MODE_CAUSAL,
-              MODE_CAUSAL_ALIBI)
+SM90_MODES = (MODE_PREFIX, MODE_SEGMENT, MODE_BIAS, MODE_STREAM, MODE_ALIBI,
+              MODE_CAUSAL, MODE_CAUSAL_ALIBI)
 # the modes the Hopper kernel emits in (K2e, K4e)
 SM90_EMIT_MODES = (MODE_PREFIX, MODE_SEGMENT)
 
@@ -699,11 +703,11 @@ def attention_kernel(mode: int, D: int, emit: str = "no", cp: bool = False,
                      i8s: bool = False) -> str:
     """The hand-written kernel an attention launch takes: "sm90"
     (``csrc/attention_sm90.cu``: wgmma, a TMA ring, probabilities in
-    registers) for the fused-layout modes without int8 scores 0, 3, 4, 5,
-    7 and 8 (K2, K7, K6 plain and ALiBi, K6c, K6ca) and for modes 0 and 1
-    with emission (K2e, K4e); "wmma" (``csrc/attention.cu``) for every
-    other: K4 without emission, K5, K6w, K2i8 (with or without emission),
-    and mode 4 in the CP operand layout (K8a, K8b). No fallback: a route's
+    registers) for modes 0, 1, 3, 4, 5, 7 and 8 without int8 scores (K2,
+    K4, K7, K6 plain and ALiBi, K6c, K6ca), for modes 0 and 1 with
+    emission (K2e, K4e) and for mode 4 in the CP operand layout (K8a,
+    K8b); "wmma" (``csrc/attention.cu``) for K5 (mode 2), K6w (mode 6) and
+    K2i8 (int8 scores, with or without emission). No fallback: a route's
     failed build or refused launch raises."""
     if mode not in range(9):
         raise ValueError(f"no attention mode {mode}")
@@ -712,9 +716,13 @@ def attention_kernel(mode: int, D: int, emit: str = "no", cp: bool = False,
                          f"{KERNEL_HEAD_DIMS}, got {D}")
     if emit not in EMITS:
         raise ValueError(f"emit must be one of {EMITS}, got {emit!r}")
-    if cp or i8s:
+    if cp and (mode != MODE_STREAM or emit != "no" or i8s):
+        raise ValueError("the CP layout is mode 4's, without emission or "
+                         "int8 scores")
+    if i8s:
         return "wmma"
-    sm90 = (mode in SM90_EMIT_MODES if emit != "no" else mode in SM90_MODES)
+    sm90 = cp or (mode in SM90_EMIT_MODES if emit != "no"
+                  else mode in SM90_MODES)
     return "sm90" if sm90 else "wmma"
 
 
@@ -743,14 +751,22 @@ def _launch(what, mode, qkv, out, B, L, H, D, hi, *, lengths=None,
     from ._cuda import check
     route = attention_kernel(mode, D, emit, cp is not None, i8s)
     stream = torch.cuda.current_stream(qkv.device).cuda_stream
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
     if route == "sm90":
         lib = _lib90()
-        if emit == "no":
+        if cp is not None:
+            q, Lc = cp
+            status = lib.attn90_cp_launch(
+                q.data_ptr(), qkv.data_ptr(), lengths.data_ptr(),
+                out.data_ptr(), B, Lc, L, H, D, q.stride(0), _scale(D), hi,
+                stream)
+        elif emit == "no":
             status = lib.attn90_launch(
-                qkv.data_ptr(), lengths.data_ptr(),
-                None if slopes is None else slopes.data_ptr(),
-                None if bias is None else bias.data_ptr(), out.data_ptr(),
-                mode, B, L, H, D, _scale(D), hi, stream)
+                qkv.data_ptr(), ptr(lengths), ptr(seg), ptr(slopes),
+                ptr(bias), out.data_ptr(), mode, B, L, H, D, _scale(D), hi,
+                stream)
         else:
             # K2e / K4e; the f32 scratch of "only" is freed after the
             # launch: the allocator reuses it only for work queued behind
@@ -759,28 +775,17 @@ def _launch(what, mode, qkv, out, B, L, H, D, hi, *, lengths=None,
             scratch = (None if shape is None else
                        torch.empty(shape, dtype=torch.float32,
                                    device=qkv.device))
-            ptr = [None if t is None else t.data_ptr()
-                   for t in (lengths, seg, out, o8, os, scratch)]
             status = lib.attn90_emit_launch(
-                qkv.data_ptr(), *ptr, mode, EMITS.index(emit), B, L, H, D,
-                _scale(D), hi, stream)
+                qkv.data_ptr(), *map(ptr, (lengths, seg, out, o8, os,
+                                           scratch)),
+                mode, EMITS.index(emit), B, L, H, D, _scale(D), hi, stream)
         check(status, lib.attn90_error_string, what)
         return route
     lib = _lib()
-    E = H * D
-    if cp is None:
-        src, ld = qkv.data_ptr(), 3 * E
-        q_ptr, kv_ptr, ldq, ldkv, Lq = src, src + E * qkv.element_size(), \
-            ld, ld, L
-    else:
-        q, Lq = cp
-        q_ptr, kv_ptr, ldq, ldkv = (q.data_ptr(), qkv.data_ptr(),
-                                    q.stride(0), 2 * E)
-    ptr = [None if t is None else t.data_ptr()
-           for t in (lengths, seg, kbs, kbe, out, o8, os)]
     status = lib.attn_launch(
-        q_ptr, kv_ptr, *ptr, mode, EMITS.index(emit), int(i8s), B, L, Lq, H,
-        D, W, ldq, ldkv, _scale(D), hi, stream)
+        qkv.data_ptr(), *map(ptr, (lengths, seg, kbs, kbe, out, o8, os)),
+        mode, EMITS.index(emit), int(i8s), B, L, H, D, W, _scale(D), hi,
+        stream)
     check(status, lib.attn_error_string, what)
     return route
 
@@ -857,9 +862,9 @@ def fused_attention_segmented(qkv: torch.Tensor, seg_ids: torch.Tensor, *,
     in ``fused_attention``, seg_ids int32 [B, L] (-1 on pads). Query i
     attends key j iff seg[i] == seg[j] and seg[j] >= 0; a pad query row
     gives 0. ``emit_quantized`` as in ``fused_attention`` (K4e). A CUDA
-    tensor launches K4 (``csrc/attention.cu``, segment mode) or, with
-    emission, K4e (``csrc/attention_sm90.cu``); counted as K2 is, and by
-    route in ``routes``; a CPU tensor runs
+    tensor launches K4 or, with emission, K4e (``csrc/attention_sm90.cu``,
+    mode 1: a block runs every head of its query tile); counted as K2 is,
+    and by route in ``routes``; a CPU tensor runs
     ``fused_attention_segmented_ref``."""
     _check_segments(qkv, seg_ids, B, L, H, D)
     _check_emit(emit_quantized, H)
@@ -974,9 +979,10 @@ def fused_attention_segmented_blockskip(
 # K8b launch adds one (K6c to fused_attention_stream.causal_launches, K6ca
 # to its causal_alibi_launches); K2 and K4 also count their emitting
 # launches (K2e / K4e) in both_launches and only_launches, K2 its
-# int8-scores launches (K2i8) in i8s_launches; K2's, K4's, K6's and K7's
-# launches also count by kernel in ``routes`` ("sm90" / "wmma",
-# attention_kernel); callers reset them to 0 around the run they measure
+# int8-scores launches (K2i8) in i8s_launches; K2's, K4's, K6's, K7's and
+# K8a's / K8b's launches also count by kernel in ``routes`` ("sm90" /
+# "wmma", attention_kernel); callers reset them to 0 around the run they
+# measure
 fused_attention.launches = 0
 fused_attention.routes = collections.Counter()
 fused_attention_segmented.routes = collections.Counter()
@@ -995,21 +1001,31 @@ fused_attention_segmented.launches = 0
 fused_attention_segmented_blockskip.launches = 0
 fused_attention_cp.launches = 0
 fused_attention_cp_stream.launches = 0
+fused_attention_cp.routes = collections.Counter()
+fused_attention_cp_stream.routes = collections.Counter()
 
 
 def _lib90() -> ctypes.CDLL:
     from . import _cuda
     lib = _cuda.load("attention_sm90")
     if not getattr(lib, "_typed", False):
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.attn90_launch.argtypes = [p] * 5 + [i] * 5 + [f, f, p]
-        lib.attn90_launch.restype = i
-        lib.attn90_emit_launch.argtypes = [p] * 7 + [i] * 6 + [f, f, p]
-        lib.attn90_emit_launch.restype = i
-        lib.attn90_error_string.argtypes = [i]
-        lib.attn90_error_string.restype = ctypes.c_char_p
-        lib._typed = True
+        type_lib90(lib)
     return lib
+
+
+def type_lib90(lib: ctypes.CDLL) -> None:
+    """Set the Hopper attention library's C signatures (also those of a
+    variant build, ``tools/attention_ab.py``)."""
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.attn90_launch.argtypes = [p] * 6 + [i] * 5 + [f, f, p]
+    lib.attn90_launch.restype = i
+    lib.attn90_emit_launch.argtypes = [p] * 7 + [i] * 6 + [f, f, p]
+    lib.attn90_emit_launch.restype = i
+    lib.attn90_cp_launch.argtypes = [p] * 4 + [i] * 6 + [f, f, p]
+    lib.attn90_cp_launch.restype = i
+    lib.attn90_error_string.argtypes = [i]
+    lib.attn90_error_string.restype = ctypes.c_char_p
+    lib._typed = True
 
 
 def _lib() -> ctypes.CDLL:
@@ -1017,7 +1033,7 @@ def _lib() -> ctypes.CDLL:
     lib = _cuda.load("attention")
     if not getattr(lib, "_typed", False):
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.attn_launch.argtypes = [p] * 9 + [i] * 11 + [f, f, p]
+        lib.attn_launch.argtypes = [p] * 8 + [i] * 8 + [f, f, p]
         lib.attn_launch.restype = i
         lib.attn_error_string.argtypes = [i]
         lib.attn_error_string.restype = ctypes.c_char_p

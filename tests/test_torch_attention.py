@@ -102,13 +102,12 @@ WRAPPER_LAUNCHES = (
 @pytest.mark.parametrize("D", tattn.KERNEL_HEAD_DIMS)
 @pytest.mark.parametrize("mode,emit,cp,i8s", WRAPPER_LAUNCHES)
 def test_attention_kernel_routes(mode, emit, cp, i8s, D):
-    """The Hopper kernel takes exactly the fused-layout modes without int8
-    scores: 0, 3, 4, 5, 7, 8 without emission (K2, K7, K6, K6c, K6ca), 0
-    and 1 with it (K2e, K4e); the WMMA kernel the rest (K4, K5, K6w,
-    K2i8, the CP layout)."""
-    sm90_modes = (0, 3, 4, 5, 7, 8) if emit == "no" else (0, 1)
-    want = ("sm90" if mode in sm90_modes and not cp and not i8s
-            else "wmma")
+    """The Hopper kernel takes every mode without int8 scores but K5 (2)
+    and K6w (6): 0, 1, 3, 4, 5, 7, 8 without emission (K2, K4, K7, K6,
+    K6c, K6ca), 0 and 1 with it (K2e, K4e), and mode 4 in the CP layout
+    (K8a, K8b); the WMMA kernel K5, K6w and K2i8."""
+    sm90_modes = (0, 1, 3, 4, 5, 7, 8) if emit == "no" else (0, 1)
+    want = "sm90" if mode in sm90_modes and not i8s else "wmma"
     assert tattn.attention_kernel(mode, D, emit, cp, i8s) == want
     assert tattn.sm90_warpgroups(64) == 1 and tattn.sm90_warpgroups(72) == 2
 
@@ -123,6 +122,8 @@ def test_emit_scratch_shape(emit, shape):
 def test_attention_kernel_rejects_what_no_kernel_takes():
     with pytest.raises(ValueError):
         tattn.attention_kernel(9, 64)
+    with pytest.raises(ValueError):  # the CP layout is mode 4's alone
+        tattn.attention_kernel(0, 64, cp=True)
     with pytest.raises(ValueError):
         tattn.attention_kernel(0, 16)
     with pytest.raises(ValueError):

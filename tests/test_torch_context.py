@@ -139,9 +139,14 @@ def _jax_cp_attn(stream, q, kv, lengths, dtype, **kw):
 
 
 # JAX's shapes (tests/test_attention.py): K8a (B, Lc, L, H, D), K8b
-# (Lc, L, BK) at B=2, H=2, D=64
-K8A_CASES = [(2, 16, 64, 2, 64), (1, 64, 64, 2, 64), (3, 8, 32, 4, 32)]
-K8B_CASES = [(128, 256, 128), (128, 512, 256), (256, 256, 128)]
+# (Lc, L, BK) at B=2, H=2, D=64; and around the Hopper kernel's tiles (64
+# query rows, 128 keys): K8a at Lc = 8 and 72 against L = 200 keys (not a
+# multiple of 128; the second row's length 195 ends inside a key tile),
+# K8b over three key tiles of 128
+K8A_CASES = [(2, 16, 64, 2, 64), (1, 64, 64, 2, 64), (3, 8, 32, 4, 32),
+             (2, 8, 200, 2, 64), (2, 72, 200, 2, 64)]
+K8B_CASES = [(128, 256, 128), (128, 512, 256), (256, 256, 128),
+             (128, 384, 128)]
 
 
 @pytest.mark.parametrize("B,Lc,L,H,D", K8A_CASES)
@@ -195,10 +200,12 @@ def test_cp_attention_matches_jax_bf16(stream, case):
     assert np.all(got.float().numpy().reshape(B, Lc, -1)[0] == 0)
 
 
-def test_cp_attention_reads_q_in_place():
+@pytest.mark.parametrize("Lc,L", [(16, 64), (8, 200), (72, 200)])
+def test_cp_attention_reads_q_in_place(Lc, L):
     """q may be a column view of the local fused projection [B*Lc, 3E]
-    (row stride 3E): the result equals that of a contiguous copy."""
-    B, Lc, L, H, D = 2, 16, 64, 2, 64
+    (row stride 3E): the result equals that of a contiguous copy (row
+    stride E), and JAX's on that copy."""
+    B, H, D = 2, 2, 64
     E = H * D
     rng = np.random.default_rng(3)
     qkv = torch.from_numpy(rng.standard_normal((B * Lc, 3 * E),
@@ -209,10 +216,13 @@ def test_cp_attention_reads_q_in_place():
     view = qkv[:, :E]
     assert view.stride() == (3 * E, 1)
     kw = dict(B=B, Lc=Lc, L=L, H=H, D=D)
+    got = tattn.fused_attention_cp(view, kv, lengths, **kw).numpy()
     np.testing.assert_array_equal(
-        tattn.fused_attention_cp(view, kv, lengths, **kw).numpy(),
-        tattn.fused_attention_cp(view.contiguous(), kv, lengths,
-                                 **kw).numpy())
+        got, tattn.fused_attention_cp(view.contiguous(), kv, lengths,
+                                      **kw).numpy())
+    ref = _jax_cp_attn(False, view.contiguous().numpy(), kv.numpy(),
+                       lengths.numpy(), jnp.float32, **kw)
+    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-5)
 
 
 def test_cp_attention_shape_rules():

@@ -14,11 +14,12 @@ the bf16 rounding of the output differ. K4-K7, K6w, K6c and K6ca as K2;
 K6c's and K6ca's query rows that see fewer than 64 keys (the first rows
 of every sequence) also allow one bf16 flip of a probability, which
 moves an output by at most 2^-6 of the largest |v| among those keys
-(``_causal_close``). K2, K7, K6, K6c and K6ca run on the Hopper kernel
-(``csrc/attention_sm90.cu``): ``test_sm90_attention_matches_plain``
-holds each of its modes at lengths on its tile edges and checks the
-launches' route; so do the emission tests for K2e and K4e, its emitting
-modes. K3 is K1's wgmma kernel on int8 operands:
+(``_causal_close``). K2, K4, K7, K6, K6c, K6ca, K8a and K8b run on the
+Hopper kernel (``csrc/attention_sm90.cu``):
+``test_sm90_attention_matches_plain`` holds each of its fused-layout
+modes at lengths on its tile edges and checks the launches' route; so do
+the K4 and CP tests and the emission tests for K2e and K4e, its
+emitting modes. K3 is K1's wgmma kernel on int8 operands:
 ``test_int8_operands_bit_for_bit`` holds its kept weight and its row
 quantization to the plain version's bits, ``test_qmatmul_int8_tiles_
 match_plain`` its tile configurations (``k3_tile``) at main-path sizes.
@@ -157,15 +158,20 @@ def _segments(B, L, rng):
 
 
 @pytest.mark.parametrize("B,L,H,D", [(3, 128, 12, 64), (2, 72, 4, 32),
-                                     (2, 256, 2, 128), (2, 640, 12, 64)])
+                                     (2, 256, 2, 128), (2, 640, 12, 64),
+                                     (3, 64, 12, 64), (2, 640, 4, 128)])
 def test_segmented_attention_kernel_matches_plain(cuda, B, L, H, D):
+    """K4 on the Hopper kernel (mode 1: one consumer warpgroup at L <= 64,
+    five key tiles at L=640), K2's tolerance; pad query rows give 0."""
     rng = np.random.default_rng(L + 1)
     qkv = torch.from_numpy(rng.standard_normal(
         (B * L, 3 * H * D), dtype=np.float32)).to(cuda, torch.bfloat16)
     seg = torch.from_numpy(_segments(B, L, rng)).to(cuda)
-    before = A.fused_attention_segmented.launches
+    before = (A.fused_attention_segmented.launches,
+              dict(A.fused_attention_segmented.routes))
     got = A.fused_attention_segmented(qkv, seg, B=B, L=L, H=H, D=D)
-    assert A.fused_attention_segmented.launches == before + 1
+    assert A.fused_attention_segmented.launches == before[0] + 1
+    _one_sm90_launch(A.fused_attention_segmented, before[1])
     _close(got, A.fused_attention_segmented_ref(qkv, seg, B=B, L=L, H=H,
                                                 D=D), 2 ** -6, 1e-2)
     assert (got[seg.reshape(-1) < 0] == 0).all()
@@ -350,6 +356,13 @@ def test_causal_alibi_attention_kernel_matches_plain(cuda, B, L, H, D, BK):
                   lens, B, L, H, D)
 
 
+def _one_sm90_launch(wrapper, before):
+    """The wrapper's route counts gained one launch, on the Hopper
+    kernel."""
+    assert wrapper.routes["sm90"] == before.get("sm90", 0) + 1
+    assert wrapper.routes["wmma"] == before.get("wmma", 0)
+
+
 # lengths on the Hopper attention kernel's tile edges (64 queries, 128
 # keys), clipped to L, and a full row
 EDGES = (0, 1, 63, 64, 65, 127, 128, 129)
@@ -389,8 +402,7 @@ def test_sm90_attention_matches_plain(cuda, mode, L, H, D):
     ops = qkv if mode == 3 else (qkv, lens)
     before = dict(wrapper.routes)
     got = wrapper(*ops, **kw)
-    assert wrapper.routes["sm90"] == before.get("sm90", 0) + 1
-    assert wrapper.routes["wmma"] == before.get("wmma", 0)
+    _one_sm90_launch(wrapper, before)
     ref = plain(*ops, **kw)
     if mode in (7, 8):
         _causal_close(got, ref, qkv, lens, B, L, H, D)
@@ -767,14 +779,15 @@ def _cp_operands(rng, B, Lc, L, H, D, dev, in_place):
                                         (4, 256, 512, 12, 64),
                                         (2, 72, 144, 2, 128)])
 def test_cp_attention_kernel_matches_plain(cuda, B, Lc, L, H, D, in_place):
-    """K8a: local queries against gathered K/V (Lc < L), K2's tolerance;
-    a len-0 row gives exactly 0."""
+    """K8a: local queries against gathered K/V (Lc < L), K2's tolerance,
+    on the Hopper kernel (the CP layout); a len-0 row gives exactly 0."""
     rng = np.random.default_rng(L + Lc)
     q, kv, lens = _cp_operands(rng, B, Lc, L, H, D, cuda, in_place)
     kw = dict(B=B, Lc=Lc, L=L, H=H, D=D)
-    before = A.fused_attention_cp.launches
+    before = A.fused_attention_cp.launches, dict(A.fused_attention_cp.routes)
     got = A.fused_attention_cp(q, kv, lens, **kw)
-    assert A.fused_attention_cp.launches == before + 1
+    assert A.fused_attention_cp.launches == before[0] + 1
+    _one_sm90_launch(A.fused_attention_cp, before[1])
     _close(got, A.fused_attention_cp_ref(q, kv, lens, **kw), 2 ** -6, 1e-2)
     assert (got.reshape(B, Lc, -1)[0] == 0).all()
 
@@ -788,11 +801,38 @@ def test_cp_stream_attention_kernel_matches_plain(cuda, B, Lc, L, H, D, BK):
     rng = np.random.default_rng(L + BK)
     q, kv, lens = _cp_operands(rng, B, Lc, L, H, D, cuda, False)
     kw = dict(B=B, Lc=Lc, L=L, H=H, D=D, BK=BK)
-    before = A.fused_attention_cp_stream.launches
-    got = A.fused_attention_cp_stream(q, kv, lens, **kw)
-    assert A.fused_attention_cp_stream.launches == before + 1
+    wrapper = A.fused_attention_cp_stream
+    before = wrapper.launches, dict(wrapper.routes)
+    got = wrapper(q, kv, lens, **kw)
+    assert wrapper.launches == before[0] + 1
+    _one_sm90_launch(wrapper, before[1])
     _close(got, A.fused_attention_cp_stream_ref(q, kv, lens, **kw), 2 ** -6,
            1e-2)
+
+
+@pytest.mark.parametrize("stream,B,Lc,L,H,D", [
+    (True, 4, 512, 2048, 12, 64),    # nomic's shard
+    (False, 16, 256, 512, 12, 64),   # bge's shard
+    (False, 3, 256, 640, 4, 128),    # 5 key tiles
+    (False, 2, 72, 200, 4, 32)])
+def test_cp_lengths_end_inside_a_key_tile(cuda, stream, B, Lc, L, H, D):
+    """K8a / K8b with each shard's lengths ending inside a 128-key tile
+    (and a len-0 row): K2's tolerance, the len-0 row exactly 0."""
+    rng = np.random.default_rng(L + B)
+    q, kv, _ = _cp_operands(rng, B, Lc, L, H, D, cuda, not stream)
+    ends = [0] + [min(L - 1, 128 * int(k) + 1 + int(rng.integers(0, 126)))
+                  for k in rng.integers(0, -(-L // 128), B - 1)]
+    lens = torch.tensor(ends, dtype=torch.int32, device=cuda)
+    kw = dict(B=B, Lc=Lc, L=L, H=H, D=D)
+    if stream:
+        kw["BK"] = A.pick_bk(L)
+        wrapper, plain = A.fused_attention_cp_stream, \
+            A.fused_attention_cp_stream_ref
+    else:
+        wrapper, plain = A.fused_attention_cp, A.fused_attention_cp_ref
+    got = wrapper(q, kv, lens, **kw)
+    _close(got, plain(q, kv, lens, **kw), 2 ** -6, 1e-2)
+    assert (got.reshape(B, Lc, -1)[0] == 0).all()
 
 
 def test_cp_attention_kernel_refuses_bad_operands(cuda):

@@ -61,10 +61,32 @@ def _straddling(B=3, L=256, H=2, D=64, seed=0):
     return qkv, seg
 
 
+def _tile_edges(L, seed):
+    """Packed rows at a row length L around the Hopper kernel's tiles (64
+    query rows, 128 keys): a row of segments one of which crosses key 128
+    (where L > 128), a row of short segments ending in pad, and an all-pad
+    row."""
+    rng = np.random.default_rng(seed)
+    qkv = rng.standard_normal((3 * L, 3 * 2 * 64), dtype=np.float32)
+    seg = np.full((3, L), -1, np.int32)
+    cuts = [c for c in (0, 60, 100, 170, 300, 520, 600) if c < L] + [L]
+    for s, (lo, hi) in enumerate(zip(cuts[:-1], cuts[1:])):
+        seg[0, lo:hi] = s
+    for s, lo in enumerate(range(0, L - 20, 24)):
+        seg[1, lo:lo + 24] = s
+    return qkv, seg
+
+
+# the 256-key rows that straddle key blocks, and rows of 64, 192 and 640
+# (one query warpgroup; one key tile and a part; five key tiles)
+SEGMENT_ROWS = [256, 64, 192, 640]
+
+
+@pytest.mark.parametrize("L", SEGMENT_ROWS)
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
-def test_segmented_ref_matches_jax_interpret(dtype):
-    B, L, H, D = 3, 256, 2, 64
-    qkv, seg = _straddling(B, L, H, D)
+def test_segmented_ref_matches_jax_interpret(dtype, L):
+    B, H, D = 3, 2, 64
+    qkv, seg = _straddling(B, L, H, D) if L == 256 else _tile_edges(L, L)
     jdt, tdt = ((jnp.float32, torch.float32) if dtype == "f32"
                 else (jnp.bfloat16, torch.bfloat16))
     ref = np.asarray(jattn.fused_attention_segmented(

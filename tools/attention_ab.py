@@ -1,16 +1,20 @@
 #!/usr/bin/env python3
 """Time variants of the Hopper attention kernel against the checkout's, on
-one card, in turns: K2, K2e ("only" and "both"), K4e ("only", on the
-packed rows of the STS fixture), K7 (MPNet's table bias, jina's ALiBi
-bias), K6 (plain and ALiBi), K6c and K6ca at the shapes the port's main
-paths give them (every row full).
+one card, in turns: K2, K2e ("only" and "both"), K4 and K4e ("only"; on
+the packed rows of the STS fixture), K7 (MPNet's table bias, jina's ALiBi
+bias), K6 (plain and ALiBi), K6c, K6ca, and the CP layout's K8a (bge's
+shard, q read in place at row stride 3E) and K8b (nomic's shard) at the
+shapes the port's main paths give them (every row full).
 
-    python3 tools/attention_ab.py [VARIANT.cu ...]
+    python3 tools/attention_ab.py [--shapes K4_packed,K8b_nomic] \
+        [VARIANT.cu ...]
 
 Each VARIANT.cu is a variant source of
 ``embeddings_tpu_torch/csrc/attention_sm90.cu`` (same C interface); it is
 built with nvcc beside the checkout's build, under
-``embeddings_tpu_torch/_build/``. For each shape every library runs twice
+``embeddings_tpu_torch/_build/``, and its ptxas C75xx notes (each a
+kernel whose wgmma are serialized) are printed. For each shape every
+library runs twice
 (CUDA events over 10 launches after 2 warm-ups), in the order checkout,
 variants, then reversed, and each variant's output is compared with the
 checkout's (max abs difference). Prints the card's name and power limit,
@@ -19,6 +23,7 @@ then one JSON line per shape. Needs one CUDA device.
 
 from __future__ import annotations
 
+import argparse
 import ctypes
 import json
 import subprocess
@@ -29,8 +34,12 @@ ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
 # name -> (B, L, H, D), mode[, emission]: the main paths' attention
-# shapes (K4e: 256 packed rows of 128)
+# shapes (K4, K4e: 256 packed rows of 128); the CP shapes ("cp" in place
+# of the mode) are (B, Lc, L, H, D) of a shard, K8a's q at row stride 3E
+CP_SHAPES = {"K8a_bge": (16, 256, 512, 12, 64),
+             "K8b_nomic": (4, 512, 2048, 12, 64)}
 SHAPES = {"K2_bge": ((128, 256, 12, 64), 0),
+          "K4_packed": ((256, 128, 12, 64), 1),
           "K2e_bge_only": ((128, 256, 12, 64), 0, "only"),
           "K2e_bge_both": ((128, 256, 12, 64), 0, "both"),
           "K4e_packed": ((256, 128, 12, 64), 1, "only"),
@@ -44,25 +53,24 @@ SHAPES = {"K2_bge": ((128, 256, 12, 64), 0),
           "K6_alibi_jina": ((4, 8192, 12, 64), 5),
           "K6c_qwen2_short": ((32, 512, 12, 128), 7),
           "K6c_qwen2": ((4, 4096, 12, 128), 7),
-          "K6ca_jina": ((4, 8192, 12, 64), 8)}
+          "K6ca_jina": ((4, 8192, 12, 64), 8),
+          **{name: (shape, "cp") for name, shape in CP_SHAPES.items()}}
 
 
 def build_variant(src: Path) -> ctypes.CDLL:
     from embeddings_tpu_torch.ops import _cuda
+    from embeddings_tpu_torch.ops.attention import type_lib90
     _cuda.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     out = _cuda.BUILD_DIR / f"ab_{src.parent.name}_{src.stem}.so"
-    subprocess.run([_cuda._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-                    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-                    "-I", str(_cuda.CSRC), "-o", str(out), str(src)],
-                   check=True)
+    log = subprocess.run(
+        [_cuda._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+         "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas",
+         "-v", "-I", str(_cuda.CSRC), "-o", str(out), str(src)],
+        check=True, capture_output=True, text=True)
+    print(json.dumps({"variant": str(src), "ptxas_c75xx_notes":
+                      (log.stdout + log.stderr).count("(C75")}), flush=True)
     lib = ctypes.CDLL(str(out))
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.attn90_launch.argtypes = [p] * 5 + [i] * 5 + [f, f, p]
-    lib.attn90_launch.restype = i
-    lib.attn90_emit_launch.argtypes = [p] * 7 + [i] * 6 + [f, f, p]
-    lib.attn90_emit_launch.restype = i
-    lib.attn90_error_string.argtypes = [i]
-    lib.attn90_error_string.restype = ctypes.c_char_p
+    type_lib90(lib)
     return lib
 
 
@@ -74,56 +82,77 @@ def context(got, emit: str):
     return (got[0] if emit == "both" else got).float()
 
 
+def shape_call(name, shape, mode, how, rng, dev):
+    """The wrapper call that runs ``name``'s shape, on random bf16 inputs
+    (every row full)."""
+    import numpy as np
+    import torch
+    from chip_smoke import _family_bias, packed_tables
+    from embeddings_tpu_torch.ops import attention as A
+    from embeddings_tpu_torch.ops.alibi import alibi_slopes
+
+    def bf16(*dims):
+        return torch.from_numpy(rng.standard_normal(
+            dims, dtype=np.float32)).to(dev, torch.bfloat16)
+    if mode == "cp":
+        B, Lc, L, H, D = shape
+        E = H * D
+        # K8a's q: a column view of the local fused projection [B*Lc, 3E]
+        q = bf16(B * Lc, 3 * E if name.startswith("K8a") else E)[:, :E]
+        kv = bf16(B * L, 2 * E)
+        lens = torch.full((B,), L, dtype=torch.int32, device=dev)
+        kw = dict(B=B, Lc=Lc, L=L, H=H, D=D)
+        if name.startswith("K8a"):
+            return lambda: A.fused_attention_cp(q, kv, lens, **kw)
+        kw["BK"] = A.pick_bk(L)
+        return lambda: A.fused_attention_cp_stream(q, kv, lens, **kw)
+    B, L, H, D = shape
+    qkv = bf16(B * L, 3 * H * D)
+    lens = torch.full((B,), L, dtype=torch.int32, device=dev)
+    if mode == 0:
+        kw = dict(B=B, L=L, H=H, D=D, emit_quantized=how)
+        return lambda: A.fused_attention(qkv, lens, **kw)
+    if mode == 1:
+        seg = torch.from_numpy(packed_tables(B, L)[0][1]).to(dev)
+        kw = dict(B=B, L=L, H=H, D=D, emit_quantized=how)
+        return lambda: A.fused_attention_segmented(qkv, seg, **kw)
+    if mode == 3:
+        kw = dict(B=B, L=L, H=H, D=D)
+        bias = A.prepare_attention_bias(_family_bias(
+            "mpnet" if name == "K7_mpnet" else "jina", L, dev), L)
+        return lambda: A.fused_attention_bias(qkv, lens, bias, **kw)
+    kw = dict(B=B, L=L, H=H, D=D, BK=A.pick_bk(L), causal=mode in (7, 8),
+              alibi_slopes=alibi_slopes(H) if mode in (5, 8) else None)
+    return lambda: A.fused_attention_stream(qkv, lens, **kw)
+
+
 def main() -> int:
     import numpy as np
     import torch
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--shapes", default=",".join(SHAPES),
+                    help="comma-separated subset of " + ",".join(SHAPES))
+    ap.add_argument("variants", nargs="*", help="variant sources")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
         return 1
-    from chip_smoke import _family_bias, cuda_ms, packed_tables
+    from chip_smoke import cuda_ms
     from embeddings_tpu_torch.ops import attention as A
-    from embeddings_tpu_torch.ops.alibi import alibi_slopes
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip(), flush=True)
     lib90 = A._lib90
     libs = {"checkout": lib90()}
-    for src in sys.argv[1:]:
+    for src in args.variants:
         libs[src] = build_variant(Path(src))
     dev = torch.device("cuda")
     rng = np.random.default_rng(1)
     try:
-        for name, ((B, L, H, D), mode, *emit) in SHAPES.items():
-            qkv = torch.from_numpy(rng.standard_normal(
-                (B * L, 3 * H * D), dtype=np.float32)).to(dev, torch.bfloat16)
-            lens = torch.full((B,), L, dtype=torch.int32, device=dev)
+        for name in args.shapes.split(","):
+            (shape, mode, *emit) = SHAPES[name]
             how = emit[0] if emit else "no"
-            if mode == 0:
-                kw = dict(B=B, L=L, H=H, D=D, emit_quantized=how)
-
-                def fn():
-                    return A.fused_attention(qkv, lens, **kw)
-            elif mode == 1:
-                seg = torch.from_numpy(packed_tables(B, L)[0][1]).to(dev)
-                kw = dict(B=B, L=L, H=H, D=D, emit_quantized=how)
-
-                def fn():
-                    return A.fused_attention_segmented(qkv, seg, **kw)
-            elif mode == 3:
-                kw = dict(B=B, L=L, H=H, D=D)
-                bias = A.prepare_attention_bias(_family_bias(
-                    "mpnet" if name == "K7_mpnet" else "jina", L, dev), L)
-
-                def fn():
-                    return A.fused_attention_bias(qkv, lens, bias, **kw)
-            else:
-                kw = dict(B=B, L=L, H=H, D=D, BK=A.pick_bk(L),
-                          causal=mode in (7, 8),
-                          alibi_slopes=alibi_slopes(H) if mode in (5, 8)
-                          else None)
-
-                def fn():
-                    return A.fused_attention_stream(qkv, lens, **kw)
+            fn = shape_call(name, shape, mode, how, rng, dev)
             ms, outs = {}, {}
             for order in (list(libs), list(libs)[::-1]):
                 for key in order:
@@ -132,7 +161,7 @@ def main() -> int:
                     outs.setdefault(key, context(fn(), how))
             diff = {k: (outs[k] - outs["checkout"]).abs().max().item()
                     for k in libs if k != "checkout"}
-            print(json.dumps({"shape": name, "B_L_H_D": [B, L, H, D],
+            print(json.dumps({"shape": name, "dims": list(shape),
                               "mode": mode, "emit": how, "ms": ms,
                               "max_abs_diff_vs_checkout": diff}), flush=True)
     finally:
