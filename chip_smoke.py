@@ -1,11 +1,10 @@
 """Smoke test of the PyTorch/CUDA port on one GPU: builds the hand-written
 kernels (K1-K7, K6w, K6c and K6ca, the chained-int8 modes K1e, K3e, K3x,
 K2e, K4e and K2i8, and the context-parallel K8a and K8b; K1 and K3 on the
-wgmma matmul kernel, K2, K2e, K4, K4e, K7, K6, K6c, K6ca, K8a and K8b on
-the Hopper attention kernel, K5, K6w and K2i8 on the WMMA one), holds each
-against its
-plain PyTorch version on the card, checks each profiled forward's matmul
-and attention launches by kernel, and drives
+wgmma matmul kernel, K2, K2e, K2i8, K4, K4e, K5, K7, K6, K6c, K6ca, K8a
+and K8b on the Hopper attention library, K6w alone on the WMMA one),
+holds each against its plain PyTorch version on the card, checks each
+profiled forward's matmul and attention launches by kernel, and drives
 the port's paths through Engine -> encode_batch (or encode_batch_packed)
 -> BatchingService -> TCP, checking each path's kernel launch counts:
 
@@ -85,9 +84,9 @@ K1_SHAPES = {"qkv": (E, 3 * E, "bias"),
 K1_REPLACES = "embeddings_tpu/ops/qmatmul.py:153 (_qmm_kernel via qmatmul :446)"
 K2_REPLACES = ("embeddings_tpu/ops/attention.py:73 (_attn_kernel via "
                "fused_attention :1039)")
-# the two attention libraries: K2 and K2e (no int8 scores), K4, K4e, K7,
-# K6, K6c, K6ca, K8a and K8b run on the Hopper kernel, K5, K6w and K2i8 on
-# the WMMA one
+# the two attention libraries: K2, K2e, K2i8, K4, K4e, K5, K7, K6, K6c,
+# K6ca, K8a and K8b run on the Hopper one (wgmma), K6w alone on the WMMA
+# one
 ATTN_SOURCE = "embeddings_tpu_torch/csrc/attention.cu"
 ATTN90_SOURCE = "embeddings_tpu_torch/csrc/attention_sm90.cu"
 K3_REPLACES = ("embeddings_tpu/ops/qmatmul.py:309 (_qmm_int8 via qmatmul "
@@ -350,7 +349,8 @@ def reset_counts() -> None:
             f.modes.clear()
     Q.qmatmul_int8.routes.clear()
     for f in (A.fused_attention_bias, A.fused_attention_segmented,
-              A.fused_attention_cp, A.fused_attention_cp_stream):
+              A.fused_attention_segmented_blockskip, A.fused_attention_cp,
+              A.fused_attention_cp_stream):
         f.routes.clear()
 
 
@@ -428,11 +428,11 @@ SOURCES = ("qmatmul", "attention", "attention_sm90")
 
 def phase_build():
     """Build the three libraries; the wgmma ones hold wgmma and no
-    mma.sync: bf16 (HGMMA) in both, int8 (IGMMA, K3) in qmatmul's, and
-    neither HMMA (bf16 mma.sync / WMMA) nor IMMA (int8 mma.sync, the old
-    K3) in either. ptxas's C75xx notes (each a kernel whose wgmma it
-    serializes) are counted per library from its -v report; the Hopper
-    attention library has none."""
+    mma.sync: bf16 (HGMMA) in both, int8 (IGMMA) in both (K3 in
+    qmatmul's, K2i8 in the attention one), and neither HMMA (bf16
+    mma.sync / WMMA) nor IMMA (int8 mma.sync, the old K3 and K2i8) in
+    either. ptxas's C75xx notes (each a kernel whose wgmma it serializes)
+    are counted per library from its -v report; no library has one."""
     from embeddings_tpu_torch.ops import _cuda
     t0 = time.perf_counter()
     seconds = _cuda.build(*SOURCES)  # one nvcc each, all together
@@ -440,21 +440,22 @@ def phase_build():
                                                    "attention_sm90")}
     for name, n in hgmma.items():
         check(n > 0, f"{name}'s library holds no HGMMA (wgmma) instruction")
-    igmma = hgmma_count("qmatmul", "IGMMA")
-    check(igmma > 0, "qmatmul's library holds no IGMMA (int8 wgmma)")
+    igmma = {name: hgmma_count(name, "IGMMA")
+             for name in ("qmatmul", "attention_sm90")}
+    for name, n in igmma.items():
+        check(n > 0, f"{name}'s library holds no IGMMA (int8 wgmma)")
     for name in ("qmatmul", "attention_sm90"):
         for op in ("HMMA", "IMMA"):
             check(hgmma_count(name, op) == 0,
                   f"{name}'s library holds mma.sync ({op}) instructions")
     c75 = {name: _cuda.BUILD_LOGS[name].count("(C75")
            for name in SOURCES if name in _cuda.BUILD_LOGS}
-    check(c75.get("attention_sm90", 0) == 0,
-          "ptxas serializes wgmma in the Hopper attention library: "
-          + "; ".join(line for line in _cuda.BUILD_LOGS.get(
-              "attention_sm90", "").splitlines() if "(C75" in line)[:2000])
+    for name, n in c75.items():
+        check(n == 0, f"ptxas serializes wgmma in {name}'s library: "
+              + "; ".join(line for line in _cuda.BUILD_LOGS[name]
+                          .splitlines() if "(C75" in line)[:2000])
     emit("build", seconds=time.perf_counter() - t0, per_source=seconds,
-         hgmma_in_sass=hgmma, igmma_in_qmatmul=igmma,
-         ptxas_c75xx_notes=c75)
+         hgmma_in_sass=hgmma, igmma_in_sass=igmma, ptxas_c75xx_notes=c75)
 
 
 def hgmma_count(name: str, opcode: str = "HGMMA") -> int:
@@ -705,16 +706,18 @@ def phase_k4k5():
                                       qkv, seg, **kw))
             ref = A.fused_attention_segmented_ref(qkv, seg, **kw)
         else:
+            # K5 on the Hopper kernel (mode 2), every head a block
             check(W == 3, f"K5 window {W} at row_len {Lx}, expected 3")
-            got = A.fused_attention_segmented_blockskip(qkv, seg, window=W,
-                                                        **kw)
+            got, routes = _routed(
+                A.fused_attention_segmented_blockskip,
+                lambda: A.fused_attention_segmented_blockskip(
+                    qkv, seg, window=W, **kw))
             ref = A.fused_attention_segmented_blockskip_ref(
                 qkv, seg, window=W, **kw)
         torch.cuda.synchronize()
         r = compare(got, ref, K2_RTOL, K2_ATOL_RMS)
-        if routes is not None:
-            r["routes"] = routes
-            check(routes == {"sm90": 1}, f"K4 launches by route {routes}")
+        r["routes"] = routes
+        check(routes == {"sm90": 1}, f"{name} launches by route {routes}")
         pad = (seg.reshape(-1) < 0)
         r.update(rows=Bx, row_len=Lx, window=W,
                  pad_rows_exact_zero=bool((got[pad] == 0).all()),
@@ -732,8 +735,49 @@ def phase_k4k5():
               f"{name} disagrees: {r}")
         out[name] = r
         STATE[name] = (qkv, seg, arrays, W)
+    out["K5_dropping"] = _k5_dropping(rng, dev)
     emit("k4k5_parity", tolerance=f"|err| <= {K2_RTOL}*|ref| + "
          f"{K2_ATOL_RMS}*rms(ref); pad query rows exactly 0", **out)
+
+
+def _k5_dropping(rng, dev) -> dict:
+    """K5 at PACK_LONG's shape with a window that really drops key blocks:
+    the fixture's packed rows re-cut into segments of 200-400 tokens
+    (spans of up to 4 key blocks) under W=2, the last 3 rows all pad and
+    every other row's tail past 800 pad (all-pad query blocks, the empty
+    range (nK, -1)); against its plain version, one "sm90" launch."""
+    import torch
+    from embeddings_tpu_torch.ops import attention as A
+    Bx, Lx = PACK_LONG
+    seg = np.full((Bx, Lx), -1, np.int32)
+    for b in range(Bx - 3):
+        end = Lx if b % 2 else 800
+        pos, s = 0, 0
+        while pos < end:
+            n = int(rng.integers(200, 401))
+            seg[b, pos:min(pos + n, end)] = s
+            pos, s = pos + n, s + 1
+    seg = torch.from_numpy(seg).to(dev)
+    qkv = torch.from_numpy(rng.standard_normal(
+        (Bx * Lx, 3 * E), dtype=np.float32)).to(dev, torch.bfloat16)
+    kw = dict(B=Bx, L=Lx, H=H, D=D, window=2)
+    kbs, kbe = A.block_ranges(seg, Lx)
+    spans = (kbe - kbs + 1).clamp_min(0)
+    got, routes = _routed(
+        A.fused_attention_segmented_blockskip,
+        lambda: A.fused_attention_segmented_blockskip(qkv, seg, **kw))
+    r = compare(got, A.fused_attention_segmented_blockskip_ref(qkv, seg,
+                                                                **kw),
+                K2_RTOL, K2_ATOL_RMS)
+    pad = seg.reshape(-1) < 0
+    r.update(routes=routes, window=2,
+             query_blocks_dropping=int((spans > 2).sum()),
+             empty_query_blocks=int((kbe < kbs).sum()),
+             pad_rows_exact_zero=bool((got[pad] == 0).all()))
+    check(r["ok"] and r["pad_rows_exact_zero"] and routes == {"sm90": 1}
+          and r["query_blocks_dropping"] > 0 and r["empty_query_blocks"] > 0,
+          f"K5 with dropped blocks disagrees: {r}")
+    return r
 
 
 def _sts_sentences(n: int) -> list[str]:
@@ -938,9 +982,9 @@ def phase_int8_chain_path():
     norms, cosine >= 0.999 against the unchained int8 path (the JAX
     package's bar for the chain); TCP answers equal Engine.encode with
     every link on; the packed int8 forward with the "attn" link (12 K4e
-    a forward). Every attention launch takes its route: K2 and K2e the
-    Hopper kernel ("sm90"), K2i8 the WMMA one; K4e "sm90". The defaults
-    stay off: no links, scores "off"."""
+    a forward). Every attention launch takes its route: K2, K2e and K2i8
+    the Hopper library ("sm90"); K4e "sm90". The defaults stay off: no
+    links, scores "off"."""
     import torch
     from embeddings_tpu_torch.ops.attention import fused_attention, \
         int8_scores_mode
@@ -980,7 +1024,7 @@ def phase_int8_chain_path():
                   f"chain {key}: output not finite / wrong shape")
             check(counts == want, f"chain {key}: launches {counts}, "
                   f"expected {want}")
-            check(routes == {"wmma" if scores else "sm90": NL * n},
+            check(routes == {"sm90": NL * n},
                   f"chain {key}: K2 launches by route {routes}")
             check(np.abs(norms - 1).max() < 1e-3, f"chain {key}: not unit "
                   f"norm")
@@ -1049,9 +1093,9 @@ def _packed_chain(eng8) -> dict:
 
 
 def phase_packed_path():
-    """Token-packed encode: K4 at the default row_len 128 (on the Hopper
-    kernel: its launches counted by route), K5 (window 3) at row_len
-    1024, sentences past row_len handed to the bucketed path, and
+    """Token-packed encode: K4 at the default row_len 128 and K5 (window
+    3) at row_len 1024 (both on the Hopper kernel: their launches counted
+    by route), sentences past row_len handed to the bucketed path, and
     BatchingService(packed=True) over TCP."""
     import torch
     from embeddings_tpu_torch.ops import attention as A
@@ -1083,25 +1127,25 @@ def phase_packed_path():
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             counts = read_counts()
-            routes = dict(A.fused_attention_segmented.routes)
+            kattn = "K4" if row_len == 128 else "K5"
+            routes = dict((A.fused_attention_segmented if kattn == "K4" else
+                           A.fused_attention_segmented_blockskip).routes)
             n = len(windows)
             cos = (emb * ref[:len(txt)]).sum(-1)
             out[name] = dict(
                 sentences=len(txt), packed_forwards=n,
                 shapes=[w[0] for w in windows],
                 windows=[w[1] for w in windows], bucketed_forwards=n_long,
-                launches=counts, k4_routes=routes, wall_s=wall,
+                launches=counts, attention_routes=routes, wall_s=wall,
                 packed_vs_bucketed_min_cos=float(cos.min()))
-            kattn = "K4" if row_len == 128 else "K5"
             STATE.setdefault("launches", {})[kattn] = counts[kattn]
             want = only(K1=48 * (n + n_long), K2=12 * n_long,
                         **{kattn: 12 * n})
             check(n >= 1 and counts == want,
                   f"packed {name}: launches {counts}, expected {want}")
-            # every K4 launch on the Hopper kernel
-            want_routes = {"sm90": 12 * n} if kattn == "K4" else {}
-            check(routes == want_routes, f"packed {name}: K4 launches by "
-                  f"route {routes}, expected {want_routes}")
+            # every K4 / K5 launch on the Hopper kernel
+            check(routes == {"sm90": 12 * n}, f"packed {name}: {kattn} "
+                  f"launches by route {routes}, expected {12 * n} sm90")
             if kattn == "K5":
                 check(all(w[1] == 3 for w in windows),
                       f"packed row1024 windows {windows}, expected 3")
@@ -1550,9 +1594,10 @@ def phase_attn_emit():
     kernel) at the main path's shapes (B=128, L=256 with a len-0 and a
     full row; 256 packed rows of 128) and at a ragged one (B=16, L=200,
     H=16, D=128: two heads' more, the tile edge inside the row), each one
-    launch on the "sm90" route; K2i8 (int8 scores, on the WMMA kernel) at
-    B=128, L=256 and at B=16, L=1,024, without and with "only" emission,
-    each against its plain version; len-0 rows finite (K2i8 gives them
+    launch on the "sm90" route; K2i8 (int8 scores, its own kernel in the
+    Hopper library) at B=128, L=256 and at B=16, L=1,024, without
+    emission and with "both" and "only", each one launch on the "sm90"
+    route against its plain version; len-0 rows finite (K2i8 gives them
     the mean of v)."""
     import torch
     from embeddings_tpu_torch.ops import attention as A
@@ -1595,10 +1640,12 @@ def phase_attn_emit():
         q2, l2 = ((qkv, lens) if Lx == L
                   else _attn_qkv(rng, Bx, Lx, dev, Ex=E))
         k2 = dict(B=Bx, L=Lx, H=H, D=D, int8_scores=True)
-        got = A.fused_attention(q2, l2, **k2)
+        got, routes = _routed(A.fused_attention,
+                              lambda: A.fused_attention(q2, l2, **k2))
         ref = A.fused_attention_ref(q2, l2, **k2)
         torch.cuda.synchronize()
         r = compare(got, ref, K2_RTOL, K2_ATOL_RMS)
+        r["routes"] = routes
         r["len0_rows_finite"] = bool(torch.isfinite(
             got.reshape(Bx, Lx, E)[0]).all())
         # the control: K2's bf16 softmax on the same rows must fail the
@@ -1610,17 +1657,21 @@ def phase_attn_emit():
                                        K2_ATOL_RMS)
         r["vs_bf16_kernel_min_row_cos"] = compare(got, bf16, 0.0,
                                                   0.0)["min_row_cos"]
-        check(r["ok"] and r["len0_rows_finite"],
+        check(r["ok"] and r["len0_rows_finite"] and routes == {"sm90": 1},
               f"K2i8 {name} disagrees: {r}")
         check(not r["control_bf16_k2"]["ok"], f"K2i8 {name}: the bf16 K2 "
               f"output passes the int8-scores check too: {r}")
         out[f"K2i8_{name}"] = r
-        e = attn_emit_compare(
-            A.fused_attention(q2, l2, emit_quantized="only", **k2),
-            A.fused_attention_ref(q2, l2, emit_quantized="only", **k2),
-            "only")
-        check(e["ok"], f"K2i8 + K2e only {name} disagrees: {e}")
-        out[f"K2i8_K2e_only_{name}"] = e
+        for how in ("both", "only"):
+            got, routes = _routed(A.fused_attention, lambda: A.fused_attention(
+                q2, l2, emit_quantized=how, **k2))
+            e = attn_emit_compare(
+                got, A.fused_attention_ref(q2, l2, emit_quantized=how, **k2),
+                how)
+            e["routes"] = routes
+            check(e["ok"] and routes == {"sm90": 1},
+                  f"K2i8 + K2e {how} {name} disagrees: {e}")
+            out[f"K2i8_K2e_{how}_{name}"] = e
     STATE["attn_emit_inputs"] = (qkv, lens)
     emit("attn_emit_parity", tolerance=f"|err| <= {K2_RTOL}*|ref| + "
          f"{K2_ATOL_RMS}*rms(ref); codes dequantized within that plus one "
@@ -2254,6 +2305,13 @@ def phase_timing():
         runs["int8"] = (lambda: STATE["engine8"]._forward(ids, mask),
                         launches_want(4 * NL, bge,
                                       quant_rows_kernel=4 * NL))
+
+        def scores_on():
+            with A.int8_scores_mode("on"):
+                return STATE["engine8"]._forward(ids, mask)
+        # the same forward with int8 scores (no links): K2i8 in K2's place
+        runs["int8_scores"] = (scores_on, launches_want(
+            4 * NL, {("i8s", "no"): NL}, quant_rows_kernel=4 * NL))
     for name, mode in (("K4", 1), ("K5", 2)):
         if name in STATE:
             arrays, W = STATE[name][2], STATE[name][3]
@@ -2383,25 +2441,21 @@ def phase_timing():
             "name": f"{fn}[B{Bx} L{Lx} H{H} D{D}"
                     + (f" W{W}]" if name == "K5" else "]"),
             "route": "cuda",
-            "source": ATTN90_SOURCE if name == "K4" else ATTN_SOURCE,
+            "source": ATTN90_SOURCE,
             "replaces": replaces,
             "launches": launches.get(name, 0),
             "max_abs_err": RESULTS["k4k5_parity"][name]["max_abs_err"],
             "plain_ms": cuda_ms(lambda: plain(qkv, seg, **kw), iters=3),
             "bound_ms": bms, "bound_by": by,
             "shape": [Bx, Lx, H, D]}
-        if name == "K4":
-            # K4 and its SDPA yardstick in alternating rounds: the median
-            # of 5 and the range
-            t = alternating_ms({
-                "kernel": lambda: kernel(qkv, seg, **kernel_kw),
-                "library": sdpa_call(qkv, Bx, Lx, same[:, None])})
-            row.update(ms=t["kernel"][0], ms_range=t["kernel"][1],
-                       library_ms=t["library"][0],
-                       library_ms_range=t["library"][1])
-        else:
-            row.update(ms=cuda_ms(lambda: kernel(qkv, seg, **kernel_kw)),
-                       library_ms=sdpa_ms(qkv, Bx, Lx, same[:, None]))
+        # the kernel and its SDPA yardstick in alternating rounds: the
+        # median of 5 and the range
+        t = alternating_ms({
+            "kernel": lambda: kernel(qkv, seg, **kernel_kw),
+            "library": sdpa_call(qkv, Bx, Lx, same[:, None])})
+        row.update(ms=t["kernel"][0], ms_range=t["kernel"][1],
+                   library_ms=t["library"][0],
+                   library_ms_range=t["library"][1])
         kernels.append(row)
     kernels += bias_stream_rows(rng, dev)
     kernels += [k1_row(rng, dev, name, shape,
@@ -2430,6 +2484,10 @@ def phase_timing():
          int8_forward_ms=fwd.get("int8"),
          int8_sentences_per_s=(B / fwd["int8"] * 1e3 if "int8" in fwd
                                else None),
+         int8_scores_forward_ms=fwd.get("int8_scores"),
+         int8_scores_sentences_per_s=(
+             B / fwd["int8_scores"] * 1e3 if "int8_scores" in fwd
+             else None),
          packed_forward=packed_fwd, family_forward=family_fwd,
          forward_bound_ms=NL * per_layer_bound,
          kernel_ms_per_forward=NL * sum(kk["ms"] for kk in kernels[:5]),
@@ -2472,12 +2530,13 @@ def launches_want(matmuls: int, attn: dict, dh: int = D, Lx: int = L,
     ``matmuls`` matmul launches in all (``device_profile`` names their
     kernels from the routes the wrappers counted), of each attention mode
     in the fused layout the count {mode: count} gives (a key (mode,
-    emit) names an emitting mode, "both" or "only"), on the kernel its
-    route names (``attention_kernel``): attn_sm90_kernel<dh, mode,
-    warpgroups at row length Lx, emit mode, 0> or attn_kernel<dh, mode>;
-    a key that is a string names the kernel itself (the CP layout's mode
-    4: ``cp_kernel``); ``others``: the counts of the other kernels by
-    name (quant_rows_kernel, emit_rows_kernel)."""
+    emit) names an emitting mode, "both" or "only"; ("i8s", emit) K2i8),
+    on the kernel its route names (``attention_kernel``):
+    attn_sm90_kernel<dh, mode, warpgroups at row length Lx, emit mode, 0>,
+    attn90_i8_kernel<dh, warpgroups, emit mode> or attn_kernel<dh>; a key
+    that is a string names the kernel itself (the CP layout's mode 4:
+    ``cp_kernel``); ``others``: the counts of the other kernels by name
+    (quant_rows_kernel, emit_rows_kernel)."""
     from embeddings_tpu_torch.ops.attention import attention_kernel, \
         sm90_warpgroups
     from embeddings_tpu_torch.ops.quant import EMITS
@@ -2486,10 +2545,15 @@ def launches_want(matmuls: int, attn: dict, dh: int = D, Lx: int = L,
         if isinstance(m, str):
             return m
         m, how = m if isinstance(m, tuple) else (m, "no")
+        if m == "i8s":
+            check(attention_kernel(0, dh, how, i8s=True) == "sm90",
+                  "K2i8 off the Hopper library")
+            return (f"attn90_i8_kernel<{dh}, {sm90_warpgroups(Lx)}, "
+                    f"{EMITS.index(how)}>")
         if attention_kernel(m, dh, how) == "sm90":
             return (f"attn_sm90_kernel<{dh}, {m}, {sm90_warpgroups(Lx)}, "
                     f"{EMITS.index(how)}, 0>")
-        return f"attn_kernel<{dh}, {m}>"
+        return f"attn_kernel<{dh}>"
 
     return {"matmuls": matmuls, **{name(m): n for m, n in attn.items()},
             **others}
@@ -2692,13 +2756,14 @@ def chain_rows(rng, dev) -> list:
              apar["K2i8_L256"]["max_abs_err"])]
     for kname, fn, replaces, opt, nbytes, peak, launches, err in rows:
         bms, by = bound_ms(flops, nbytes, peak=peak)
+        t = alternating_ms({"kernel": lambda: A.fused_attention(
+            qkv, lens, **opt, **kw)})["kernel"]
         out.append({
             "name": f"{fn}[{kname} B{B} L{L} H{H} D{D} "
                     + ("emit only]" if kname == "K2e" else "int8 scores]"),
-            "route": "cuda",
-            "source": ATTN90_SOURCE if kname == "K2e" else ATTN_SOURCE,
+            "route": "cuda", "source": ATTN90_SOURCE,
             "replaces": replaces, "launches": launches, "max_abs_err": err,
-            "ms": cuda_ms(lambda: A.fused_attention(qkv, lens, **opt, **kw)),
+            "ms": t[0], "ms_range": t[1],
             "plain_ms": cuda_ms(lambda: A.fused_attention_ref(
                 qkv, lens, **opt, **kw), iters=3),
             "bound_ms": bms, "bound_by": by,
@@ -2711,12 +2776,14 @@ def chain_rows(rng, dev) -> list:
     bms, by = bound_ms(4.0 * Bx * H * Lx * Lx * D,
                        Bx * Lx * (3 * E * 2 + E * 2) + Bx * 4,
                        peak=PEAK_INT8_OPS)
+    t = alternating_ms({"kernel": lambda: A.fused_attention(q2, l2, **k2)})[
+        "kernel"]
     out.append({
         "name": f"fused_attention[K2i8 B{Bx} L{Lx} H{H} D{D}]",
-        "route": "cuda", "source": ATTN_SOURCE,
+        "route": "cuda", "source": ATTN90_SOURCE,
         "replaces": K2I8_REPLACES, "launches": 0,
         "max_abs_err": apar["K2i8_L1024"]["max_abs_err"],
-        "ms": cuda_ms(lambda: A.fused_attention(q2, l2, **k2), iters=5),
+        "ms": t[0], "ms_range": t[1],
         "plain_ms": cuda_ms(lambda: A.fused_attention_ref(q2, l2, **k2),
                             iters=2, warmup=1),
         "bound_ms": bms, "bound_by": by, "library_ms": None,
@@ -2847,7 +2914,7 @@ def device_profile(name: str, fn, want: dict) -> dict:
     check(sum(n for k, n in want.items() if k.startswith("qmm_")) == n_mm,
           f"profile {name}: matmul routes {want}, want {n_mm} matmuls")
     kinds = ("requant_kernel", "quant_rows_kernel", "emit_rows_kernel",
-             "qmm_wgmma_kernel", "attn_i8_kernel", "attn_sm90_kernel",
+             "qmm_wgmma_kernel", "attn90_i8_kernel", "attn_sm90_kernel",
              "attn_kernel")
     by_kind: dict = {}
     torch_ops: dict = {}  # the library's own kernels, by name
@@ -2857,7 +2924,7 @@ def device_profile(name: str, fn, want: dict) -> dict:
                 or e.name.startswith("ProfilerStep"):  # the step's range
             continue
         kind = next((k for k in kinds if k in e.name), "torch ops")
-        if kind.startswith(("attn_", "qmm_")):  # attn_kernel<D, mode, ...>
+        if kind.startswith(("attn", "qmm_")):  # attn_kernel<D, mode, ...>
             kind += "<" + e.name.split(kind + "<")[-1].split(">")[0] + ">"
         ms = e.time_range.elapsed_us() / 1e3
         tally(by_kind, kind, ms)

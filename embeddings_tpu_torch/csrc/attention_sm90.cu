@@ -1,9 +1,11 @@
 // Fused multi-head self-attention over the fused QKV projection, for
 // sm_90a, on Hopper's own instructions (wgmma, TMA, mbarriers, warp
 // specialization): kernel K2 with its emission K2e, kernel K4 with its
-// emission K4e, kernel K6 with its causal modes K6c and K6ca, kernel K7,
-// and the context-parallel K8a and K8b of the PyTorch port, as seven mask
-// modes of one kernel and two operand layouts.
+// emission K4e, kernel K5, kernel K6 with its causal modes K6c and K6ca,
+// kernel K7, and the context-parallel K8a and K8b of the PyTorch port, as
+// eight mask modes of one kernel and two operand layouts; and K2's int8
+// scores K2i8, with or without emission, as a kernel of its own on the
+// same producer, ring and epilogues (attn90_i8_kernel, below).
 //
 // Replaces (embeddings_tpu/ops/attention.py, the Pallas TPU kernels):
 //   mode 0, K2: _attn_kernel (its bf16 branch), behind fused_attention();
@@ -13,6 +15,8 @@
 //               with emission, K4e: _attn_kernel_segmented with
 //               _emit_int8_rows, behind fused_attention_segmented(
 //               emit_quantized=);
+//   mode 2, K5: _attn_kernel_seg_window, behind
+//               fused_attention_segmented_blockskip();
 //   mode 3, K7: _attn_kernel_bias, behind fused_attention_bias() (MPNet's
 //               relative-position bias, jina's ALiBi on short rows);
 //   modes 4, 5, K6: _attn_kernel_stream in its plain and ALiBi modes,
@@ -25,9 +29,11 @@
 //               _attn_kernel_cp_stream, behind fused_attention_cp() and
 //               fused_attention_cp_stream() (context parallelism; the two
 //               TPU kernels compute the same sums, the second over key
-//               blocks, and this kernel streams key tiles in both).
-// K2's int8 scores (K2i8), K5 and K6w stay on attention.cu's WMMA kernel;
-// ops/attention.py:attention_kernel routes.
+//               blocks, and this kernel streams key tiles in both);
+//   K2i8: _attn_kernel's int8_scores branch (with _emit_int8_rows for
+//               K2i8 with emission), behind fused_attention(int8_scores=).
+// K6w stays on attention.cu's WMMA kernel; ops/attention.py:
+// attention_kernel routes.
 //
 // For each sequence b, head h and query i, reading q, k and v as column
 // slices of the fused qkv [B*L, 3E] (q at h*D, k at E + h*D, v at 2E +
@@ -37,6 +43,12 @@
 //   mode 1: s = clamp(d * s2, -100, hi), key j valid iff seg[b, i] ==
 //           seg[b, j] and seg[b, j] >= 0 (token-packed rows; a pad query
 //           row, seg -1, sees no key);
+//   mode 2: mode 1 over the key tiles kbs[b, qb] .. min(kbs + W - 1,
+//           kbe[b, qb]) of 128-row query block qb only (block_ranges; the
+//           128-key tiles are the TPU's BQ blocks): the others are never
+//           loaded, tiles past the cap W are dropped, and an all-pad
+//           query block (kbe < kbs) sees no key; hi sized to min(W*128,
+//           L) keys;
 //   mode 3: s = clamp(d * s2 + bias[h, i, j], -100, hi) (bias f32 [H, L,
 //           L], log2-scaled; the clamp after the add);
 //   mode 4: s = clamp(d * s2, -100, hi);
@@ -87,7 +99,14 @@
 // batch row reads the whole bias again, which is about the size of L2.
 // K4 at 256 packed rows of 128 moves K2's ~201 MB for ~26 GFLOP: bound
 // by bytes (0.06 ms); a row of 128 is one key tile, so a block of one
-// head does one tile's work between its prologue and its epilogue. K8a
+// head does one tile's work between its prologue and its epilogue. K5 at
+// 32 packed rows of 1,024 (W=3) moves the same ~201 MB for ~19 GFLOP of
+// its same-segment pairs and ~151 M exp2 (0.036 ms on the SFUs): bound by
+// bytes (0.06 ms), at most 3 key tiles a head. K2i8 at bge's shape moves
+// the same ~201 MB for ~26 G int8 operations (0.013 ms at 1,979 TOP/s):
+// bound by bytes (0.06 ms; "only" 0.053), but every q, k and v element is
+// quantized in the kernel and each score takes an exp2 and two roundings,
+// so its arithmetic, not its products, sets its time. K8a
 // at bge's CP shard (B=16, Lc=256, L=512) reads q, the gathered k and v
 // and writes the context, ~38 MB, for ~6.4 GFLOP: bound by bytes (0.011
 // ms). K8b at nomic's shard (B=4, Lc=512, L=2,048) moves ~32 MB for ~12.9
@@ -148,6 +167,14 @@
 //   sequence) in one block, as the emission does (below; SEG_ALL_HEADS),
 //   so a block's prologue, its query rows' ids and its row tail serve 12
 //   heads of one-tile rows, not one;
+// - mode 2 is mode 1 with the block's key-tile range read from kbs / kbe
+//   and broadcast from lane 0 (as len is, so its loop bound stays
+//   provably uniform and the first and last tiles stay peeled); the
+//   producer loads only those tiles, and an empty range (an all-pad query
+//   block) runs no tile and writes zeros. It runs every head of a 128-row
+//   block in one block too (WIN_ALL_HEADS; 0.137-0.140 ms against
+//   0.140-0.142 a block per head at 32 packed rows of 1,024, W=3,
+//   tools/attention_ab.py, H100 at 700 W);
 // - the CP layout (K8a, K8b) is a template parameter (CP = 1), not a
 //   branch: q comes by TMA from its own 3-D map [B, Lc, E] of row stride
 //   ldq (rows past Lc read as zeros), k and v from a map of kv [B, L, 2E];
@@ -190,19 +217,66 @@
 //   by length, ascending (all-pad rows, which have no key tile, last), so
 //   their longest rows start first and the short ones fill the tail, as
 //   the causal modes start their longest blocks first.
+//
+// K2i8 (attn90_i8_kernel; the TPU's int8-scores branch, prefix mask): per
+// head, q and k quantize per row and v per column over all L rows (pads
+// included), floor 1e-30, the reciprocal taken once and then multiplied
+// (quantize_sym's order); s = (f32(s32) * (sq * s2)) * sk, keys j >=
+// len[b] at -1e30; m = the row max; p8 = rint(exp2(s - m + log2 127)) in
+// [0, 127]; out = (f32(p8 . v8) * sv) * (127 / max(f32(127 * sum p8),
+// 1)). A len-0 row has m = -1e30 and p8 = 127 on every key (the mean of
+// v), as on the TPU. m and v's column scales need the whole row before
+// the first p8. The design (times at bge's B=128, L=256 from
+// tools/attention_ab.py, H100 at 700 W):
+// - a block owns a (query tile, sequence) and runs every head, the ring
+//   running on across heads, as the emitting blocks do (no cluster);
+// - the producer brings bf16 Q, K and V tiles by TMA as in the other
+//   modes, and the consumers quantize them into int8 operand tiles in
+//   shared memory (the unswizzled core-matrix layout, cm_off): no
+//   quantize launch and no int8 copy in device memory. The two
+//   warpgroups each quantize half of a K or V tile (0.435-0.450 ms
+//   against 0.515 each warpgroup the whole tile);
+// - pass A scores each K tile (to len; every tile of a len-0 row) on s8
+//   wgmma (m64n128k32) for the row max, and reads every V tile of the row
+//   for v's column absmax; pass B takes p8 from the scores, quantizes V
+//   per column into V8^T (int8 wgmma has no transpose bit: its B operand
+//   is K-major along the keys) and adds o += P8 . V8 on s8 wgmma. Where D
+//   <= 64 and a row has at most two key tiles (L <= 256), the scores stay
+//   in registers from pass A to pass B (0.33 against 0.44 ms scoring the
+//   K tiles again); longer rows score them again;
+// - P8 comes from the S accumulators with no shuffle and no trip through
+//   shared memory: the s32 accumulator layout is not the s8 k32 A
+//   fragment's, so V8^T's keys are permuted instead (quad_key) until each
+//   thread's own scores are its A fragments (a byte permute and quad
+//   shuffle of P8 against V8^T in key order took 0.229-0.230 ms against
+//   0.219-0.221);
+// - the conversions run on the FMA and integer pipes, not the
+//   quarter-rate I2F / F2I (i2f_small, rint_bits), key tiles wholly
+//   inside len skip the masks (0.22 against 0.33 ms), and exp2 is one
+//   MUFU.EX2 (ex2: 0.211 against 0.219-0.221 ms with exp2f);
+// - the epilogues (the rows, and the emission's read-back) are the bf16
+//   kernel's (store_head, emit_rows).
 
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "int8_rows.cuh"
 #include "sm90.cuh"
 
 namespace {
 
-enum Mode { PREFIX = 0, SEGMENT = 1, BIAS = 3, STREAM = 4, ALIBI = 5,
-            CAUSAL = 7, CAUSAL_ALIBI = 8 };
+enum Mode { PREFIX = 0, SEGMENT = 1, WINDOW = 2, BIAS = 3, STREAM = 4,
+            ALIBI = 5, CAUSAL = 7, CAUSAL_ALIBI = 8 };
+
+// the segment-masked modes: K4 (every key of the row) and K5 (a range of
+// key tiles a query tile)
+__host__ __device__ constexpr bool seg_mode(int mode) {
+  return mode == SEGMENT || mode == WINDOW;
+}
 
 __host__ __device__ constexpr bool causal_mode(int mode) {
   return mode == CAUSAL || mode == CAUSAL_ALIBI;
@@ -223,6 +297,9 @@ constexpr float LOG2E_F = 1.4426950408889634f;
 // one block (true), or a block per (query tile, head, sequence) (false;
 // both timed with tools/attention_ab.py)
 constexpr bool SEG_ALL_HEADS = true;
+// K5 (mode 2) the same way: every head in one block (true) or a block per
+// head (false)
+constexpr bool WIN_ALL_HEADS = true;
 // mode 3's block order: a bias of more bytes than this (half of the
 // H100's 50 MB L2) runs the sequence index fastest, so the blocks that
 // share a (query block, head) tile of it run together; a smaller one the
@@ -243,8 +320,8 @@ struct Cfg {
   static constexpr int STAGES = D == 128 || (MODE == BIAS && D == 64) ? 2 : 3;
   static constexpr int BSTAGES = MODE != BIAS ? 0 : D == 128 ? 1 : 2;
   static constexpr uint32_t TILE_BYTES = KT * D * 2;  // one K or V tile
-  // mode 1: a K stage's key segment ids come with it
-  static constexpr uint32_t SEG_BYTES = MODE == SEGMENT ? KT * 4 : 0;
+  // modes 1, 2: a K stage's key segment ids come with it
+  static constexpr uint32_t SEG_BYTES = seg_mode(MODE) ? KT * 4 : 0;
 };
 
 // The row sums of P on the tensor cores (P . a ones tile, an m64n8k16
@@ -258,9 +335,10 @@ __host__ __device__ constexpr bool ones_sum(int D, int mode) {
 }
 
 // Does a block run every head of its (query tile, sequence)? With
-// emission (each row's absmax spans the heads) and in K4.
+// emission (each row's absmax spans the heads), in K4 and in K5.
 __host__ __device__ constexpr bool all_heads(int mode, int emit) {
-  return emit != EMIT_NO || (mode == SEGMENT && SEG_ALL_HEADS);
+  return emit != EMIT_NO || (mode == SEGMENT && SEG_ALL_HEADS) ||
+         (mode == WINDOW && WIN_ALL_HEADS);
 }
 
 // Shared memory from a 1024-byte aligned base: the Q tile (NC x 64 rows;
@@ -304,7 +382,10 @@ static_assert(Smem<128, 2, SEGMENT, EMIT_NO>::bytes <= 232448,
 
 struct Args {
   const int* lengths;   // [B] int32 (modes 0, 3-8)
-  const int* seg;       // [B, L] int32 (mode 1)
+  const int* seg;       // [B, L] int32 (modes 1, 2)
+  const int* kbs;       // [B, L/128] int32 (mode 2): first key tile
+  const int* kbe;       // [B, L/128] int32 (mode 2): last key tile
+  int W;                // mode 2: the key-tile cap
   const float* slopes;  // [H] f32 (modes 5, 8)
   __nv_bfloat16* out;   // [B*Lq, E] (not with "only" emission)
   int8_t* o8;           // emission: [B*L, E] codes
@@ -376,7 +457,7 @@ __device__ __forceinline__ void score_pass(float* s, float* sum, float s2,
       bias[2] = b1.x;
       bias[3] = b1.y;
     }
-    if constexpr (MODE == SEGMENT) kseg = ld_shared_i2(sk + 32 * j);
+    if constexpr (seg_mode(MODE)) kseg = ld_shared_i2(sk + 32 * j);
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int c = 8 * j + (e & 1);
@@ -392,7 +473,7 @@ __device__ __forceinline__ void score_pass(float* s, float* sum, float s2,
       }
       float p = ex2(fminf(fmaxf(raw, -100.0f), hi));
       if constexpr (MASKED) p = c < lim[e >> 1] ? p : 0.0f;
-      if constexpr (MODE == SEGMENT)
+      if constexpr (seg_mode(MODE))
         p = ((e & 1) ? kseg.y : kseg.x) == sq[e >> 1] ? p : 0.0f;
       v[e] = p;
     }
@@ -448,6 +529,109 @@ __device__ __forceinline__ void ld_vecs(const void* src, uint4* v) {
   for (int i = 0; i < N; ++i) v[i] = reinterpret_cast<const uint4*>(src)[i];
 }
 
+// One head's context for this thread's two query rows (row0 and row0 +
+// 8; columns h*D + 8j + 2*quad + e), the f32 value of accumulator i = 4j
+// + 2r + e being ctx(r, i): written as bf16 to out, or with "only" as
+// f32 to the scratch; with emission the rows' running absmax goes on in
+// amax (of the bf16 values with "both"). Rows >= Lq are not written.
+template <int D, int EMIT, typename Ctx>
+__device__ __forceinline__ void store_head(const Args& a, int b, int Lq,
+                                           int row0, int h, int quad,
+                                           float* amax, Ctx ctx) {
+  const int E = a.H * D;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    if (row >= Lq) continue;
+    const size_t at = ((size_t)b * Lq + row) * E + h * D + 2 * quad;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const float x = ctx(r, 4 * j + 2 * r);
+      const float y = ctx(r, 4 * j + 2 * r + 1);
+      if constexpr (EMIT == EMIT_ONLY) {
+        *reinterpret_cast<float2*>(a.scratch + at + 8 * j) =
+            make_float2(x, y);
+        amax[r] = fmaxf(amax[r], fmaxf(fabsf(x), fabsf(y)));
+      } else {
+        const uint32_t w = pack2(x, y);
+        *reinterpret_cast<uint32_t*>(a.out + at + 8 * j) = w;
+        if constexpr (EMIT == EMIT_BOTH)
+          amax[r] = fmaxf(amax[r],
+                          fmaxf(fabsf(lo_bf16(w)), fabsf(hi_bf16(w))));
+      }
+    }
+  }
+}
+
+// The emission of a consumer warpgroup's 64 rows (query rows qw0 ..) once
+// every head is written: each row's absmax (amax: this thread's two rows,
+// rw and rw + 8, reduced over the quad) through rmax (the warpgroup's 64
+// f32 in shared memory), then the rows re-read (16-byte loads, a 128-byte
+// line or 16 bf16 a thread), their codes written with 16-byte stores and
+// their scales; "only" drops each scratch line from L2 unwritten.
+template <int EMIT>
+__device__ __forceinline__ void emit_rows(const Args& a, float* rmax,
+                                          float* amax, int tid, int quad,
+                                          int rw, int L, int qw0, int b,
+                                          int E) {
+  const int wg = tid / 128;
+  amax[0] = quad_max(amax[0]);
+  amax[1] = quad_max(amax[1]);
+  if (quad == 0) {
+    rmax[rw] = amax[0];
+    rmax[rw + 8] = amax[1];
+  }
+  __threadfence_block();
+  named_bar(BAR_WG + wg, 128);
+  const int wt = tid % 128;
+  const int rows = min(WG_ROWS, L - qw0);
+  const size_t row_base = (size_t)b * L + qw0;
+  if (wt < rows) a.os[row_base + wt] = fmaxf(rmax[wt], 1e-30f) * INV127;
+  // a unit: 32 f32 (a 128-byte line) or 16 bf16 a thread, 32 or 16 codes
+  constexpr int U = EMIT == EMIT_ONLY ? 32 : 16;
+  const int per_row = E / U;
+  for (int u = wt; u < rows * per_row; u += 128) {
+    const int r = u / per_row;
+    const size_t at = (row_base + r) * E + (u - r * per_row) * U;
+    const float rcp = 1.0f / (fmaxf(rmax[r], 1e-30f) * INV127);
+    float v[U];
+    if constexpr (EMIT == EMIT_ONLY) {
+      uint4 w[8];
+      ld_vecs<8>(a.scratch + at, w);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        v[4 * i] = __uint_as_float(w[i].x);
+        v[4 * i + 1] = __uint_as_float(w[i].y);
+        v[4 * i + 2] = __uint_as_float(w[i].z);
+        v[4 * i + 3] = __uint_as_float(w[i].w);
+      }
+    } else {
+      uint4 w[2];
+      ld_vecs<2>(a.out + at, w);
+      const uint32_t* x = reinterpret_cast<const uint32_t*>(w);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        v[2 * i] = lo_bf16(x[i]);
+        v[2 * i + 1] = hi_bf16(x[i]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < U / 16; ++i) {
+      const uint2 c0 = codes8(v + 16 * i, rcp);
+      const uint2 c1 = codes8(v + 16 * i + 8, rcp);
+      *reinterpret_cast<uint4*>(a.o8 + at + 16 * i) =
+          make_uint4(c0.x, c0.y, c1.x, c1.y);
+    }
+    // the scratch line is never read again: dropped from L2 unwritten,
+    // it costs no write to HBM (K2e "only" at bge's shape 0.014-0.017
+    // ms faster than without it, K4e at 256 x 128 0.006-0.008;
+    // tools/attention_ab.py, H100 at 700 W)
+    if constexpr (EMIT == EMIT_ONLY)
+      asm volatile("discard.global.L2 [%0], 128;\n" ::"l"(a.scratch + at)
+                   : "memory");
+  }
+}
+
 // qmap: the Q rows (qkv [B, L, 3E], or the CP layout's q [B, Lc, E]);
 // kvmap: the K and V rows (qkv again, or the CP layout's kv [B, L, 2E]);
 // bmap: mode 3's bias [H, L, L]; smap: mode 1's seg [B, L] (each unused
@@ -474,6 +658,8 @@ __global__ void __launch_bounds__(128 * (NC + 1), 1) attn_sm90_kernel(
                 "emission is modes 0 and 1");
   static_assert(CP == 0 || (MODE == STREAM && !EMITS),
                 "the CP layout is mode 4's, without emission");
+  static_assert(MODE != WINDOW || NC == 2,
+                "mode 2's query tiles are its 128-row blocks");
   const bool batch_fastest = MODE == BIAS && a.batch_fastest;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw_base = smem_u32(smem_raw);
@@ -521,15 +707,26 @@ __global__ void __launch_bounds__(128 * (NC + 1), 1) attn_sm90_kernel(
   // the heads this block runs: every one with emission and in K4, else
   // its own
   const int n_heads = ALL_HEADS ? a.H : 1;
-  // mode 1 masks keys by segment, not by a prefix: every key below L
+  // modes 1, 2 mask keys by segment, not by a prefix: every key below L
   const int len = __shfl_sync(
       0xffffffffu,
-      MODE == SEGMENT ? L : min(max(a.lengths[b], 0), L), 0);
+      seg_mode(MODE) ? L : min(max(a.lengths[b], 0), L), 0);
   // key tiles past len add exact zeros, and so do those past a causal
   // block's last query row
   int k_end = (len + KT - 1) / KT * KT;
   if (causal_mode(MODE)) k_end = min(k_end, q0 + QB);
-  const int nt = (k_end + KT - 1) / KT;
+  int nt = (k_end + KT - 1) / KT;
+  // the block's key tiles: t0 .. t0 + nt - 1; mode 2 walks key tiles kbs ..
+  // min(kbs + W - 1, kbe) of its 128-row query block (kbe < kbs, an
+  // all-pad block: none), broadcast from lane 0 as len is
+  int t0 = 0;
+  if constexpr (MODE == WINDOW) {
+    const int at = b * (L / KT) + qb;
+    t0 = __shfl_sync(0xffffffffu, a.kbs[at], 0);
+    const int last =
+        __shfl_sync(0xffffffffu, min(t0 + a.W - 1, a.kbe[at]), 0);
+    nt = max(last - t0 + 1, 0);
+  }
 
   if constexpr (ONES) {
     for (int i = tid; i < 256; i += blockDim.x)
@@ -583,7 +780,7 @@ __global__ void __launch_bounds__(128 * (NC + 1), 1) attn_sm90_kernel(
       for (int t = 0; t < nt; ++t, ++g) {
         const int s = g % STAGES;
         const uint32_t ph = (g / STAGES) & 1;
-        const int k0 = t * KT;
+        const int k0 = (t0 + t) * KT;
 #pragma unroll
         for (int kv = 0; kv < 2; ++kv) {  // K, then V
           const uint32_t full = kv ? v_full(s) : k_full(s);
@@ -598,7 +795,7 @@ __global__ void __launch_bounds__(128 * (NC + 1), 1) attn_sm90_kernel(
               tma_load_3d(tile + (c * KT + rc * BOX_ROWS) * RB, &kvmap,
                           kv_col + kv * E + h * D + c * C::CW,
                           k0 + rc * BOX_ROWS, b, full);
-          if constexpr (MODE == SEGMENT) {
+          if constexpr (seg_mode(MODE)) {
             // the keys' segment ids, with K (keys past L read as 0)
             if (kv == 0)
               tma_load_2d(base + S::seg_off + s * C::SEG_BYTES, &smap, k0,
@@ -639,10 +836,10 @@ __global__ void __launch_bounds__(128 * (NC + 1), 1) attn_sm90_kernel(
   const int qw0 = q0 + wg * WG_ROWS;
   const int rw = ((tid % 128) / 32) * 16 + (lane >> 2);  // row in the wg
   const int row0 = qw0 + rw;
-  // mode 1: the two rows' segment ids (a pad row, or a row past L, -2:
-  // it matches no key), and this thread's first key id in a K stage
+  // modes 1, 2: the two rows' segment ids (a pad row, or a row past L,
+  // -2: it matches no key), and this thread's first key id in a K stage
   int sq[2] = {-2, -2};
-  if constexpr (MODE == SEGMENT) {
+  if constexpr (seg_mode(MODE)) {
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int row = row0 + 8 * r;
@@ -735,16 +932,16 @@ __global__ void __launch_bounds__(128 * (NC + 1), 1) attn_sm90_kernel(
                          kk > 0);
       }
     };
-    // tile t's K stage goes back once its scores are done (mode 1: once
-    // the score pass has read its segment ids)
+    // tile t's K stage goes back once its scores are done (modes 1, 2:
+    // once the score pass has read its segment ids)
     auto release_k = [&](int g) {
-      if constexpr (MODE == SEGMENT) __syncwarp();
+      if constexpr (seg_mode(MODE)) __syncwarp();
       if (lane == 0) mbar_arrive(k_empty(g % STAGES));
     };
     // tile t (ring tile g)'s score pass, once its S is complete: in place,
     // and the sums
     auto score_tile = [&](int t, int g) {
-      const int k0 = t * KT;
+      const int k0 = (t0 + t) * KT;
       const int kq = k0 + 2 * quad;
       const float fq[2] = {(float)(row0 - kq), (float)(row0 + 8 - kq)};
       int lim[2] = {len - kq, len - kq};
@@ -754,7 +951,7 @@ __global__ void __launch_bounds__(128 * (NC + 1), 1) attn_sm90_kernel(
       }
       const uint32_t bt = bq + (t % BS) * S::b_tile_bytes;
       const uint32_t sk = sk0 + (g % STAGES) * C::SEG_BYTES;
-      if (MODE == SEGMENT || k0 + KT > len ||
+      if (seg_mode(MODE) || k0 + KT > len ||
           (causal_mode(MODE) && k0 + KT - 1 > qw0))
         score_pass<MODE, true, ONES>(s, sum, a.s2, a.hi, slope, fq, lim, bt,
                                      boff, sk, sq);
@@ -784,9 +981,9 @@ __global__ void __launch_bounds__(128 * (NC + 1), 1) attn_sm90_kernel(
       pass_turn();
       wgmma_wait<0>();
       fence_regs<KT / 2>(s);
-      if constexpr (MODE != SEGMENT) release_k(g0);
+      if constexpr (!seg_mode(MODE)) release_k(g0);
       score_tile(0, g0);
-      if constexpr (MODE == SEGMENT) release_k(g0);
+      if constexpr (seg_mode(MODE)) release_k(g0);
       to_fragments(s, p);
       // tiles 1 .. nt - 1: the scores of tile t issued with the product
       // of tile t - 1, and tile t's score pass run while that product runs
@@ -810,9 +1007,9 @@ __global__ void __launch_bounds__(128 * (NC + 1), 1) attn_sm90_kernel(
         pass_turn();
         wgmma_wait<1>();
         fence_regs<KT / 2>(s);
-        if constexpr (MODE != SEGMENT) release_k(g);
+        if constexpr (!seg_mode(MODE)) release_k(g);
         score_tile(t, g);
-        if constexpr (MODE == SEGMENT) release_k(g);
+        if constexpr (seg_mode(MODE)) release_k(g);
         wgmma_wait<0>();
         fence_regs<D / 2>(o);
         fence_regs<4>(rs);
@@ -851,89 +1048,627 @@ __global__ void __launch_bounds__(128 * (NC + 1), 1) attn_sm90_kernel(
     }
     const float inv[2] = {1.0f / fmaxf(sum[0], 1e-30f),
                           1.0f / fmaxf(sum[1], 1e-30f)};
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int row = row0 + 8 * r;
-      if (row >= Lq) continue;
-      const size_t at = ((size_t)b * Lq + row) * E + h * D + 2 * quad;
-#pragma unroll
-      for (int j = 0; j < D / 8; ++j) {
-        const float x = o[4 * j + 2 * r] * inv[r];
-        const float y = o[4 * j + 2 * r + 1] * inv[r];
-        if constexpr (EMIT == EMIT_ONLY) {
-          *reinterpret_cast<float2*>(a.scratch + at + 8 * j) =
-              make_float2(x, y);
-          amax[r] = fmaxf(amax[r], fmaxf(fabsf(x), fabsf(y)));
-        } else {
-          const uint32_t w = pack2(x, y);
-          *reinterpret_cast<uint32_t*>(a.out + at + 8 * j) = w;
-          if constexpr (EMIT == EMIT_BOTH)
-            amax[r] = fmaxf(amax[r],
-                            fmaxf(fabsf(lo_bf16(w)), fabsf(hi_bf16(w))));
-        }
-      }
-    }
+    store_head<D, EMIT>(a, b, Lq, row0, h, quad, amax,
+                        [&](int r, int i) { return o[i] * inv[r]; });
   }
 
-  if constexpr (EMITS) {
-    // ---- emission: the warpgroup's 64 rows, every head written ----
-    float* rmax = reinterpret_cast<float*>(sbase + S::rmax_off) + wg * WG_ROWS;
-    amax[0] = quad_max(amax[0]);
-    amax[1] = quad_max(amax[1]);
-    if (quad == 0) {
-      rmax[rw] = amax[0];
-      rmax[rw + 8] = amax[1];
-    }
-    __threadfence_block();
-    named_bar(BAR_WG + wg, 128);
-    const int wt = tid % 128;
-    const int rows = min(WG_ROWS, L - qw0);
-    const size_t row_base = (size_t)b * L + qw0;
-    if (wt < rows) a.os[row_base + wt] = fmaxf(rmax[wt], 1e-30f) * INV127;
-    // a unit: 32 f32 (a 128-byte line) or 16 bf16 a thread, 32 or 16 codes
-    constexpr int U = EMIT == EMIT_ONLY ? 32 : 16;
-    const int per_row = E / U;
-    for (int u = wt; u < rows * per_row; u += 128) {
-      const int r = u / per_row;
-      const size_t at = (row_base + r) * E + (u - r * per_row) * U;
-      const float rcp = 1.0f / (fmaxf(rmax[r], 1e-30f) * INV127);
-      float v[U];
-      if constexpr (EMIT == EMIT_ONLY) {
-        uint4 w[8];
-        ld_vecs<8>(a.scratch + at, w);
+  if constexpr (EMITS)
+    emit_rows<EMIT>(a, reinterpret_cast<float*>(sbase + S::rmax_off) +
+                           wg * WG_ROWS,
+                    amax, tid, quad, rw, L, qw0, b, E);
+}
+
+// ---- K2i8: int8 scores (the prefix mask), with or without emission ----
+
+constexpr float LOG2_127 = 6.9886846867721655f;
+
+// K2i8's tiles per head dim: the bf16 TMA tiles as the bf16 kernel's (row
+// blocks of CW columns, RB bytes, swizzled to RB) and the ring's depth
+// (one stage at D = 128, where the int8 tiles take a second stage's room).
+template <int D>
+struct I8Cfg {
+  static constexpr int CW = D < 64 ? D : 64;
+  static constexpr int RB = CW * 2;
+  static constexpr int NH = D / CW;
+  static constexpr int STAGES = D == 128 ? 1 : 3;
+  static constexpr uint32_t TILE_BYTES = KT * D * 2;
+};
+
+// Shared memory from a 1024-byte aligned base: two bf16 Q tiles (head h +
+// 1's lands while head h runs), the bf16 K ring, the V ring, then the
+// int8 operands: the block's Q8 rows [QB][D], one K8 tile [128 keys][D]
+// and one V8^T tile [D][128 key positions] that both consumer warpgroups
+// fill and read, all in the unswizzled core-matrix layout (8 rows x 16
+// bytes, 128 contiguous bytes, a core matrix; core matrices along K
+// first, cm_off); the f32 below; the emission's row absmax (QB f32); the
+// mbarriers: q full[2], q empty[2], K full[STAGES], V full, K empty, V
+// empty.
+template <int D, int NC, int EMIT>
+struct I8Smem {
+  using C = I8Cfg<D>;
+  static constexpr int QB = NC * WG_ROWS;
+  static constexpr uint32_t q_bytes = QB * D * 2;
+  static constexpr uint32_t k_off = 2 * q_bytes;
+  static constexpr uint32_t v_off = k_off + C::STAGES * C::TILE_BYTES;
+  static constexpr uint32_t q8_off = v_off + C::STAGES * C::TILE_BYTES;
+  static constexpr uint32_t k8_off = q8_off + QB * D;
+  static constexpr uint32_t v8_off = k8_off + KT * D;
+  static constexpr uint32_t f_off = v8_off + D * KT;
+  // q scales [QB], key scales [2][KT], v's column scales and reciprocals
+  // [D] each, the consumer warps' column maxima [4 NC][D]
+  static constexpr int FLOATS = QB + 2 * KT + 2 * D + 4 * NC * D;
+  static constexpr uint32_t rmax_off = f_off + FLOATS * 4;
+  static constexpr uint32_t bar_off =
+      rmax_off + (EMIT != EMIT_NO ? QB * 4 : 0);
+  static constexpr size_t bytes = 1024 + bar_off + (4 + 4 * C::STAGES) * 8;
+};
+static_assert(I8Smem<128, 2, EMIT_ONLY>::bytes <= 232448, "D=128 K2i8 block");
+static_assert(I8Smem<64, 2, EMIT_ONLY>::bytes <= 232448, "D=64 K2i8 block");
+
+// byte offset of 16-byte chunk c16 of row r in a TMA tile of RB-byte rows
+// (the 128-byte swizzle XORs the chunk with r % 8, the 64-byte one with
+// (r / 2) % 4)
+template <int RB>
+__device__ __forceinline__ uint32_t sw_chunk(int r, int c16) {
+  return r * RB + ((c16 ^ (RB == 128 ? (r & 7) : ((r >> 1) & 3))) << 4);
+}
+
+// byte offset of byte c (a multiple of 16 for a 16-byte store, or of 4)
+// of row n in an int8 operand tile of kb bytes a row, the core-matrix
+// layout: wgmma's K-major no-swizzle descriptor with the leading offset
+// 128 (core matrices along K) and the stride offset 8 * kb (8-row groups)
+__device__ __forceinline__ uint32_t cm_off(int n, int c, int kb) {
+  return ((n >> 3) * (kb >> 4) + (c >> 4)) * 128 + (n & 7) * 16 + (c & 15);
+}
+
+// the absmax of the 8 bf16 values in w
+__device__ __forceinline__ float absmax8(uint4 w) {
+  const uint32_t x[4] = {w.x, w.y, w.z, w.w};
+  float m = 0.0f;
 #pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          v[4 * i] = __uint_as_float(w[i].x);
-          v[4 * i + 1] = __uint_as_float(w[i].y);
-          v[4 * i + 2] = __uint_as_float(w[i].z);
-          v[4 * i + 3] = __uint_as_float(w[i].w);
-        }
-      } else {
-        uint4 w[2];
-        ld_vecs<2>(a.out + at, w);
-        const uint32_t* x = reinterpret_cast<const uint32_t*>(w);
+  for (int i = 0; i < 4; ++i)
+    m = fmaxf(m, fmaxf(fabsf(lo_bf16(x[i])), fabsf(hi_bf16(x[i]))));
+  return m;
+}
+
+// Conversions on the FMA and integer pipes, not the quarter-rate I2F and
+// F2I, exact for |n|, |x| < 2^22: the float 1.5 * 2^23 = 12582912, whose
+// low 22 mantissa bits are 0, as a bias. i2f_small: the f32 of the
+// integer n (an s32 score: at most 127 * 127 * 128 in magnitude).
+__device__ __forceinline__ float i2f_small(uint32_t n) {
+  return __fsub_rn(__uint_as_float(n + 0x4B400000u), 12582912.0f);
+}
+// the bits of 12582912 + rint(x), rounded half to even as cvt.rni: their
+// low byte is rint(x) mod 256 (an int8 code, or p8), and less 0x4B400000
+// they are rint(x)
+__device__ __forceinline__ uint32_t rint_bits(float x) {
+  return __float_as_uint(__fadd_rn(x, 12582912.0f));
+}
+// the low bytes of a, b, c and d, packed little-endian
+__device__ __forceinline__ uint32_t pack_bytes(uint32_t a, uint32_t b,
+                                               uint32_t c, uint32_t d) {
+  return __byte_perm(__byte_perm(a, b, 0x0040), __byte_perm(c, d, 0x0040),
+                     0x5410);
+}
+
+// 16 bf16 values (two 16-byte chunks) -> their 16 int8 codes rint(v * rs)
+__device__ __forceinline__ uint4 codes16(uint4 w0, uint4 w1, float rs) {
+  const uint32_t x[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
+  uint32_t c[16];
 #pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          v[2 * i] = lo_bf16(x[i]);
-          v[2 * i + 1] = hi_bf16(x[i]);
-        }
+  for (int i = 0; i < 8; ++i) {
+    c[2 * i] = rint_bits(__fmul_rn(lo_bf16(x[i]), rs));
+    c[2 * i + 1] = rint_bits(__fmul_rn(hi_bf16(x[i]), rs));
+  }
+  return make_uint4(pack_bytes(c[0], c[1], c[2], c[3]),
+                    pack_bytes(c[4], c[5], c[6], c[7]),
+                    pack_bytes(c[8], c[9], c[10], c[11]),
+                    pack_bytes(c[12], c[13], c[14], c[15]));
+}
+
+// Row r of a bf16 TMA tile (R rows a column block) quantized over `cols`
+// of its D columns from column c0 (a multiple of 16), the row's absmax
+// taken over `pair` threads (1, or 2 adjacent lanes holding its halves):
+// codes to row n of the int8 operand tile at dst, the row's scale
+// returned. The reciprocal is taken once, then multiplies (quantize_sym's
+// order).
+template <int D, int R>
+__device__ __forceinline__ float quant_row(const unsigned char* tile, int r,
+                                           int c0, int cols, int pair,
+                                           unsigned char* dst, int n) {
+  using C = I8Cfg<D>;
+  float mx = 0.0f;
+  for (int c = c0; c < c0 + cols; c += 8)
+    mx = fmaxf(mx, absmax8(*reinterpret_cast<const uint4*>(
+                       tile + (c / C::CW) * R * C::RB +
+                       sw_chunk<C::RB>(r, (c % C::CW) / 8))));
+  if (pair == 2) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+  const float sc = fmaxf(mx, 1e-30f) * INV127;
+  const float rs = 1.0f / sc;
+  for (int c = c0; c < c0 + cols; c += 16) {
+    const unsigned char* at = tile + (c / C::CW) * R * C::RB;
+    const int u = (c % C::CW) / 8;
+    *reinterpret_cast<uint4*>(dst + cm_off(n, c, D)) = codes16(
+        *reinterpret_cast<const uint4*>(at + sw_chunk<C::RB>(r, u)),
+        *reinterpret_cast<const uint4*>(at + sw_chunk<C::RB>(r, u + 1)), rs);
+  }
+  return sc;
+}
+
+// The consumer threads' units of a 128-key V tile: unit u (the thread's
+// index, then on by the number of consumer threads, below 4D) is a key
+// quad kq = u / (D/8) and 8 columns 8 * (u % (D/8)) .., the quad's keys
+// quad_key(kq) + {0, 1, 8, 9}: 32(kq/8) + 16((kq/4)%2) + 2(kq%4) + {0, 1,
+// 8, 9}. Those four keys are the four bytes of one A-fragment register of
+// P8 (see the kernel), so in V8^T they sit at positions 4kq .. 4kq + 3.
+__device__ __forceinline__ int quad_key(int kq) {
+  return 32 * (kq >> 3) + 16 * ((kq >> 2) & 1) + 2 * (kq & 3);
+}
+
+// v's column absmax over a V tile (keys past L read as zeros): vmax[i] is
+// this thread's running max of column 8 * (t % (D/8)) + i
+template <int D, int NT>
+__device__ __forceinline__ void vmax_tile(const unsigned char* tile, int t,
+                                          float* vmax) {
+  using C = I8Cfg<D>;
+  constexpr int G = D / 8;
+  for (int u = t; u < 4 * D; u += NT) {
+    const int c = 8 * (u % G);
+    const unsigned char* at = tile + (c / C::CW) * KT * C::RB;
+    const int k = quad_key(u / G);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const int key = k + (kk & 1) + 8 * (kk >> 1);
+      const uint4 w = *reinterpret_cast<const uint4*>(
+          at + sw_chunk<C::RB>(key, (c % C::CW) / 8));
+      const uint32_t x[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        vmax[2 * i] = fmaxf(vmax[2 * i], fabsf(lo_bf16(x[i])));
+        vmax[2 * i + 1] = fmaxf(vmax[2 * i + 1], fabsf(hi_bf16(x[i])));
       }
-#pragma unroll
-      for (int i = 0; i < U / 16; ++i) {
-        const uint2 c0 = codes8(v + 16 * i, rcp);
-        const uint2 c1 = codes8(v + 16 * i + 8, rcp);
-        *reinterpret_cast<uint4*>(a.o8 + at + 16 * i) =
-            make_uint4(c0.x, c0.y, c1.x, c1.y);
-      }
-      // the scratch line is never read again: dropped from L2 unwritten,
-      // it costs no write to HBM (K2e "only" at bge's shape 0.014-0.017
-      // ms faster than without it, K4e at 256 x 128 0.006-0.008;
-      // tools/attention_ab.py, H100 at 700 W)
-      if constexpr (EMIT == EMIT_ONLY)
-        asm volatile("discard.global.L2 [%0], 128;\n" ::"l"(a.scratch + at)
-                     : "memory");
     }
   }
+}
+
+// a V tile quantized per column (rsv: the reciprocals of v's column
+// scales) into V8^T [D][128 positions], each key quad's four codes of a
+// column one 4-byte store at its positions
+template <int D, int NT>
+__device__ __forceinline__ void quant_v(const unsigned char* tile, int t,
+                                        const float* rsv,
+                                        unsigned char* v8) {
+  using C = I8Cfg<D>;
+  constexpr int G = D / 8;
+  for (int u = t; u < 4 * D; u += NT) {
+    const int c = 8 * (u % G);
+    const unsigned char* at = tile + (c / C::CW) * KT * C::RB;
+    const int k = quad_key(u / G), pos = 4 * (u / G);
+    uint32_t x[4][4];  // key kk's 8 values as bf16 pairs
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const int key = k + (kk & 1) + 8 * (kk >> 1);
+      const uint4 w = *reinterpret_cast<const uint4*>(
+          at + sw_chunk<C::RB>(key, (c % C::CW) / 8));
+      x[kk][0] = w.x;
+      x[kk][1] = w.y;
+      x[kk][2] = w.z;
+      x[kk][3] = w.w;
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const float rs = rsv[c + i];
+      uint32_t b[4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        b[kk] = rint_bits(__fmul_rn(
+            (i & 1) ? hi_bf16(x[kk][i >> 1]) : lo_bf16(x[kk][i >> 1]), rs));
+      *reinterpret_cast<uint32_t*>(v8 + cm_off(c + i, pos, KT)) =
+          pack_bytes(b[0], b[1], b[2], b[3]);
+    }
+  }
+}
+
+// K2i8: a block owns a (query tile, sequence) and runs every head in
+// turn, the last sequence first. Per head: each warpgroup quantizes its Q
+// rows; pass A streams the K tiles (to len; to L in a len-0 row), each
+// quantized and scored for the row max m, and every V tile of the row for
+// v's column scales; pass B streams the V tiles (and, unless the scores
+// are held, the K tiles) again and adds p8 . v8 and the row sums. See the
+// K2i8 notes at the top of the file.
+template <int D, int NC, int EMIT>
+__global__ void __launch_bounds__(128 * (NC + 1), 1) attn90_i8_kernel(
+    const __grid_constant__ CUtensorMap map, const Args a) {
+  using C = I8Cfg<D>;
+  using S = I8Smem<D, NC, EMIT>;
+  constexpr int QB = S::QB;
+  constexpr int STAGES = C::STAGES;
+  constexpr int RB = C::RB;
+  constexpr int G = D / 8;
+  constexpr int NT = 128 * NC;  // consumer threads
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw_base = smem_u32(smem_raw);
+  const uint32_t base = (raw_base + 1023) & ~1023u;
+  unsigned char* sbase = smem_raw + (base - raw_base);
+  const uint32_t bars = base + S::bar_off;
+  auto q_full = [&](int i) { return bars + 8 * i; };
+  auto q_empty = [&](int i) { return bars + 8 * (2 + i); };
+  const uint32_t ring = bars + 32;
+  auto k_full = [&](int s) { return ring + 8 * s; };
+  auto v_full = [&](int s) { return ring + 8 * (STAGES + s); };
+  auto k_empty = [&](int s) { return ring + 8 * (2 * STAGES + s); };
+  auto v_empty = [&](int s) { return ring + 8 * (3 * STAGES + s); };
+
+  const int tid = threadIdx.x;
+  const int role = __shfl_sync(0xffffffffu, tid / 128, 0);
+  const int L = a.L;
+  const int H = a.H;
+  const int E = H * D;
+  const int nqb = (L + QB - 1) / QB;
+  const int qb = blockIdx.x % nqb;
+  const int b = gridDim.x / nqb - 1 - blockIdx.x / nqb;
+  const int q0 = qb * QB;
+  const int len =
+      __shfl_sync(0xffffffffu, min(max(a.lengths[b], 0), L), 0);
+  // the row's key tiles (v's column scales span them all), and those the
+  // scores need: to len, or all of them in a len-0 row, whose keys all sit
+  // at -1e30 (p8 = 127 each: the mean of v), as on the TPU
+  const int nta = (L + KT - 1) / KT;
+  const int ntk = len > 0 ? (len + KT - 1) / KT : nta;
+  // where D <= 64, the scores of a row of up to two key tiles stay in
+  // registers from pass A to pass B, which then reads no K tile again
+  const bool hold = D <= 64 && ntk <= 2;
+
+  if (tid == 0) {
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(q_full(i), 1);
+      mbar_init(q_empty(i), 4 * NC);
+    }
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(k_full(s), 1);
+      mbar_init(v_full(s), 1);
+      mbar_init(k_empty(s), 4 * NC);
+      mbar_init(v_empty(s), 4 * NC);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (role >= NC) {
+    // ---- producer: each head's Q, its K and V tiles for pass A (V to L,
+    // K to the scores' end), then again for pass B ----
+    if constexpr (NC == 2)
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
+          PRODUCER_REGS));
+    if (tid != 128 * NC) return;
+    int gk = 0, gv = 0;
+    auto load = [&](int kv, int h, int t, int& g) {
+      const int s = g % STAGES;
+      const uint32_t full = kv ? v_full(s) : k_full(s);
+      mbar_wait(kv ? v_empty(s) : k_empty(s), ((g / STAGES) & 1) ^ 1);
+      mbar_expect_tx(full, C::TILE_BYTES);
+      const uint32_t tile =
+          base + (kv ? S::v_off : S::k_off) + s * C::TILE_BYTES;
+#pragma unroll
+      for (int c = 0; c < C::NH; ++c)
+#pragma unroll
+        for (int rc = 0; rc < KT / BOX_ROWS; ++rc)
+          tma_load_3d(tile + (c * KT + rc * BOX_ROWS) * RB, &map,
+                      (1 + kv) * E + h * D + c * C::CW,
+                      t * KT + rc * BOX_ROWS, b, full);
+      ++g;
+    };
+    for (int h = 0; h < H; ++h) {
+      const int qi = h & 1;
+      mbar_wait(q_empty(qi), ((h >> 1) & 1) ^ 1);
+      mbar_expect_tx(q_full(qi), S::q_bytes);
+#pragma unroll
+      for (int c = 0; c < C::NH; ++c)
+#pragma unroll
+        for (int rc = 0; rc < QB / BOX_ROWS; ++rc)
+          tma_load_3d(base + qi * S::q_bytes + (c * QB + rc * BOX_ROWS) * RB,
+                      &map, h * D + c * C::CW, q0 + rc * BOX_ROWS, b,
+                      q_full(qi));
+      for (int t = 0; t < ntk; ++t) {
+        load(0, h, t, gk);
+        load(1, h, t, gv);
+      }
+      for (int t = ntk; t < nta; ++t) load(1, h, t, gv);
+      for (int t = 0; t < ntk; ++t) {
+        if (!hold) load(0, h, t, gk);
+        load(1, h, t, gv);
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: warpgroup wg holds query rows q0 + 64 wg .. + 63 ----
+  if constexpr (NC == 2)
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
+        CONSUMER_REGS));
+  const int wg = role;
+  const int t128 = tid % 128;
+  const int lane = tid % 32;
+  const int warp = t128 / 32;
+  const int quad = lane & 3;
+  const int qw0 = q0 + wg * WG_ROWS;
+  const int rw = warp * 16 + (lane >> 2);  // row in the wg
+  const int row0 = qw0 + rw;
+  unsigned char* q8 = sbase + S::q8_off + wg * WG_ROWS * D;
+  unsigned char* k8 = sbase + S::k8_off;  // both warpgroups' K8 and V8^T
+  unsigned char* v8 = sbase + S::v8_off;
+  float* fw = reinterpret_cast<float*>(sbase + S::f_off);
+  float* sqs = fw + wg * WG_ROWS;  // [64] this warpgroup's q scales
+  float* ksb = fw + QB;            // [2][128] key scales, by tile parity
+  float* sv = ksb + 2 * KT;        // [D] v's column scales
+  float* rsv = sv + D;             // [D] their reciprocals
+  float* vpart = rsv + D;          // [4 NC][D] the warps' column maxima
+  // the int8 operands' descriptors (unswizzled core matrices, see cm_off);
+  // a k32 step moves the start by two core matrices, 256 bytes
+  const uint64_t dq = smem_desc(base + S::q8_off + wg * WG_ROWS * D, 128,
+                                8 * D, 0);
+  const uint64_t dk = smem_desc(base + S::k8_off, 128, 8 * D, 0);
+  const uint64_t dv = smem_desc(base + S::v8_off, 128, 8 * KT, 0);
+  auto wg_sync = [&]() { named_bar(BAR_WG + wg, 128); };
+  // every consumer thread of the block
+  auto all_sync = [&]() {
+    if constexpr (NC == 2)
+      named_bar(BAR_SCHED, 256);
+    else
+      named_bar(BAR_WG, 128);
+  };
+
+  uint32_t s[KT / 2];   // S (s32) of a key tile, the m64n128 layout
+  uint32_t s1[KT / 2];  // with hold, the second key tile's S
+  uint32_t o[D / 2];    // P8 . V8 (s32)
+  uint32_t p[KT / 8];   // P8 as 8-bit A fragments, 4 a k32 step
+#pragma unroll
+  for (int i = 0; i < KT / 2; ++i) s[i] = s1[i] = 0u;
+#pragma unroll
+  for (int i = 0; i < KT / 8; ++i) p[i] = 0u;
+  float amax[2] = {0.0f, 0.0f};  // emission: the two rows' running absmax
+  int gk = 0, gv = 0;
+
+  // K tile gk: quantized into K8 and its key scales (NC threads a key,
+  // the warpgroups half the keys each), then its ring stage goes back;
+  // returns the key scales. With sync, every warp's scores of the last
+  // tile are done before K8 is rewritten (pass A has no other barrier
+  // between them).
+  auto take_k = [&](bool sync) {
+    if (sync) all_sync();
+    const int st = gk % STAGES;
+    mbar_wait(k_full(st), (gk / STAGES) & 1);
+    float* ks = ksb + (gk & 1) * KT;
+    const int n = wg * (KT / NC) + t128 / NC;
+    const float sc = quant_row<D, KT>(sbase + S::k_off + st * C::TILE_BYTES,
+                                      n, (t128 % NC) * (D / NC), D / NC, NC,
+                                      k8, n);
+    if (t128 % NC == 0) ks[n] = sc;
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    all_sync();
+    if (lane == 0) mbar_arrive(k_empty(st));
+    ++gk;
+    return static_cast<const float*>(ks);
+  };
+  // acc = Q8 . K8^T: D/32 k32 steps, both operands in shared memory
+  auto issue_scores = [&](uint32_t* acc) {
+    fence_regs<KT / 2>(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 32; ++kk)
+      wgmma_s8_m64n128k32(acc, dq + ((kk * 256) >> 4),
+                          dk + ((kk * 256) >> 4), kk > 0);
+    wgmma_commit();
+  };
+  // V tile gv's ring stage, once this warp is done with it
+  auto release_v = [&]() {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(v_empty(gv % STAGES));
+    ++gv;
+  };
+  auto v_tile = [&]() {
+    const int st = gv % STAGES;
+    mbar_wait(v_full(st), (gv / STAGES) & 1);
+    return sbase + S::v_off + st * C::TILE_BYTES;
+  };
+  // the score of accumulator i = 4j + 2r + e (value v) of the key tile at
+  // k0 (key k0 + 8j + 2 quad + e): -1e30 past len where MASKED (the tile
+  // that holds len, and every tile of a len-0 row)
+  auto score = [&](auto masked, const float* ks, const float* qs2, int k0,
+                   int i, uint32_t v) {
+    const int col = 8 * (i >> 2) + 2 * quad + (i & 1);
+    const float sc =
+        __fmul_rn(__fmul_rn(i2f_small(v), qs2[(i >> 1) & 1]), ks[col]);
+    if constexpr (decltype(masked)::value) return k0 + col < len ? sc : -1e30f;
+    return sc;
+  };
+  // is key tile t wholly inside len (so no key of it is masked)?
+  auto inside = [&](int t) { return (t + 1) * KT <= len; };
+  // pass A on K tile t, its scores into acc: the row max goes on in m (two
+  // partial maxima a row), v's column absmax in vmax; returns the tile's
+  // key scales
+  auto tile_a = [&](uint32_t* acc, int t, float* m, float* vmax,
+                    const float* qs2) {
+    const float* ks = take_k(true);
+    issue_scores(acc);
+    vmax_tile<D, NT>(v_tile(), tid, vmax);
+    release_v();
+    wgmma_wait<0>();
+    fence_regs<KT / 2>(acc);
+    auto row_max = [&](auto masked) {
+#pragma unroll
+      for (int i = 0; i < KT / 2; ++i) {
+        const int col = 8 * (i >> 2) + 2 * quad + (i & 1);
+        const int k = ((i >> 1) & 1) + 2 * ((i >> 2) & 1);
+        const float sc = score(masked, ks, qs2, t * KT, i, acc[i]);
+        if (!decltype(masked)::value || t * KT + col < L)
+          m[k] = fmaxf(m[k], sc);
+      }
+    };
+    if (inside(t))
+      row_max(std::false_type{});
+    else
+      row_max(std::true_type{});
+    return ks;
+  };
+  // pass B on K tile t: its scores in acc (HELD: kept from pass A, with
+  // its key scales ks; else computed again here); p8 in place of each
+  // score, their row sums in den, then o += P8 . V8. The keys of V8^T are
+  // permuted so that this thread's own S accumulators are its P8 A
+  // fragments: k32 step kk's register 2c + r (c: its 16-byte half, r: row
+  // r0 or r0 + 8) holds accumulator chunks j = 4kk + 2c and j + 1, their
+  // pairs 2 quad, 2 quad + 1 in bytes 0, 1 and 2, 3: keys 8j + 2 quad +
+  // {0, 1, 8, 9}, which quant_v stores at A positions 32kk + 16c + 4 quad
+  // + {0, 1, 2, 3} of V8^T.
+  auto tile_b = [&](auto held, uint32_t* acc, int t, const float* ks,
+                    const float* m, uint32_t* den, const float* qs2) {
+    if constexpr (decltype(held)::value) {
+      if (t > 0) all_sync();  // every warp's P8 . V8 of tile 0 is done
+    } else {
+      ks = take_k(false);
+      issue_scores(acc);
+    }
+    quant_v<D, NT>(v_tile(), tid, rsv, v8);
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    release_v();
+    if constexpr (!decltype(held)::value) wgmma_wait<0>();
+    fence_regs<KT / 2>(acc);
+    fence_regs<KT / 8>(p);
+    // p8 as rint_bits (p8 in the low byte); keys past L none (the bias)
+    auto probs = [&](auto masked) {
+#pragma unroll
+      for (int i = 0; i < KT / 2; ++i) {
+        const int col = 8 * (i >> 2) + 2 * quad + (i & 1);
+        const float x = __fadd_rn(
+            __fsub_rn(score(masked, ks, qs2, t * KT, i, acc[i]),
+                      m[(i >> 1) & 1]),
+            LOG2_127);
+        acc[i] = rint_bits(ex2(x));
+        if (decltype(masked)::value && t * KT + col >= L) acc[i] = 0x4B400000u;
+        den[((i >> 1) & 1) + 2 * ((i >> 2) & 1)] += acc[i];
+      }
+    };
+    if (inside(t))
+      probs(std::false_type{});
+    else
+      probs(std::true_type{});
+#pragma unroll
+    for (int w = 0; w < KT / 8; ++w) {
+      const int j = 2 * (w >> 1), r = w & 1;
+      p[w] = pack_bytes(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1],
+                        acc[4 * j + 4 + 2 * r], acc[4 * j + 4 + 2 * r + 1]);
+    }
+    all_sync();  // V8^T is complete
+    fence_regs<D / 2>(o);
+    fence_regs<KT / 8>(p);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < KT / 32; ++kk) {
+      const uint64_t db = dv + ((kk * 256) >> 4);
+      if constexpr (D == 128)
+        wgmma_s8_rs_m64n128k32(o, p + 4 * kk, db, 1);
+      else if constexpr (D == 64)
+        wgmma_s8_rs_m64n64k32(o, p + 4 * kk, db, 1);
+      else
+        wgmma_s8_rs_m64n32k32(o, p + 4 * kk, db, 1);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs<D / 2>(o);
+    fence_regs<KT / 8>(p);
+  };
+
+  for (int h = 0; h < H; ++h) {
+    const int qi = h & 1;
+    mbar_wait(q_full(qi), (h >> 1) & 1);
+    // this warpgroup's Q rows quantized per row, two threads a row
+    {
+      const int rr = t128 >> 1, half = t128 & 1;
+      const float sc = quant_row<D, QB>(sbase + qi * S::q_bytes,
+                                        wg * WG_ROWS + rr, half * (D / 2),
+                                        D / 2, 2, q8, rr);
+      if (half == 0) sqs[rr] = sc;
+    }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    wg_sync();
+    if (lane == 0) mbar_arrive(q_empty(qi));
+    const float qs2[2] = {__fmul_rn(sqs[rw], a.s2),
+                          __fmul_rn(sqs[rw + 8], a.s2)};
+
+    // pass A: the row max m over keys < L, and v's column absmax over L
+    float m[4] = {-3.0e38f, -3.0e38f, -3.0e38f, -3.0e38f};
+    float vmax[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) vmax[i] = 0.0f;
+    const float* ks0 = nullptr;
+    const float* ks1 = nullptr;
+    if (hold) {
+      ks0 = tile_a(s, 0, m, vmax, qs2);
+      if (ntk == 2) ks1 = tile_a(s1, 1, m, vmax, qs2);
+    } else {
+      for (int t = 0; t < ntk; ++t) tile_a(s, t, m, vmax, qs2);
+    }
+    for (int t = ntk; t < nta; ++t) {
+      vmax_tile<D, NT>(v_tile(), tid, vmax);
+      release_v();
+    }
+    m[0] = quad_max(fmaxf(m[0], m[2]));
+    m[1] = quad_max(fmaxf(m[1], m[3]));
+    // v's column scales: over the lanes of a column group, the warps, then
+    // the reciprocal once
+#pragma unroll
+    for (int off = G; off < 32; off <<= 1)
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        vmax[i] = fmaxf(vmax[i], __shfl_xor_sync(0xffffffffu, vmax[i], off));
+    if (lane < G)
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        vpart[(tid / 32) * D + 8 * lane + i] = vmax[i];
+    all_sync();
+    if (tid < D) {
+      float mx = 0.0f;
+#pragma unroll
+      for (int w = 0; w < 4 * NC; ++w) mx = fmaxf(mx, vpart[w * D + tid]);
+      sv[tid] = fmaxf(mx, 1e-30f) * INV127;
+      rsv[tid] = 1.0f / sv[tid];
+    }
+    all_sync();
+
+    // pass B: p8 = rint(exp2(s - m + log2 127)) in [0, 127]; o += p8 . v8;
+    // den: the row sums of 12582912 + p8 over 32 keys a tile (two partial
+    // sums a row), modulo 2^32: the bias comes off at the end
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] = 0u;
+    uint32_t den[4] = {0u, 0u, 0u, 0u};
+    if (hold) {
+      tile_b(std::true_type{}, s, 0, ks0, m, den, qs2);
+      if (ntk == 2) tile_b(std::true_type{}, s1, 1, ks1, m, den, qs2);
+    } else {
+      for (int t = 0; t < ntk; ++t)
+        tile_b(std::false_type{}, s, t, nullptr, m, den, qs2);
+    }
+
+    // out = (f32(o) * sv) * (127 / max(f32(127 * den), 1))
+    float r127[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      int d = (int)(den[r] + den[r + 2] -
+                    (uint32_t)(KT / 4 * ntk) * 0x4B400000u);
+      d += __shfl_xor_sync(0xffffffffu, d, 1);
+      d += __shfl_xor_sync(0xffffffffu, d, 2);
+      r127[r] = 127.0f / fmaxf((float)(d * 127), 1.0f);
+    }
+    store_head<D, EMIT>(a, b, L, row0, h, quad, amax, [&](int r, int i) {
+      const int col = 8 * (i >> 2) + 2 * quad + (i & 1);
+      return __fmul_rn(__fmul_rn((float)(int)o[i], sv[col]), r127[r]);
+    });
+  }
+
+  if constexpr (EMIT != EMIT_NO)
+    emit_rows<EMIT>(a, reinterpret_cast<float*>(sbase + S::rmax_off) +
+                           wg * WG_ROWS,
+                    amax, tid, quad, rw, L, qw0, b, E);
 }
 
 // rows of bf16 [B*R, ld] (row stride ld, 16-byte aligned) as a 3-D tensor
@@ -1005,7 +1740,7 @@ cudaError_t launch_maps(const CUtensorMap& qmap, const CUtensorMap& kvmap,
   CUtensorMap bmap = qmap, smap = qmap;
   cudaError_t err = cudaSuccess;
   if (MODE == BIAS) err = bias_map(&bmap, bias, a.L, a.H);
-  if (MODE == SEGMENT) err = seg_map(&smap, a.seg, B, a.L);
+  if (seg_mode(MODE)) err = seg_map(&smap, a.seg, B, a.L);
   if (err != cudaSuccess) return err;
   auto kern = attn_sm90_kernel<D, MODE, NC, EMIT, CP>;
   err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -1044,6 +1779,8 @@ cudaError_t launch_mode(int mode, const void* qkv, const void* bias,
     case SEGMENT:
       return one ? launch<D, SEGMENT, 1>(qkv, bias, a, B, stream)
                  : launch<D, SEGMENT, 2>(qkv, bias, a, B, stream);
+    case WINDOW:  // L % 128 == 0: two warpgroups, one 128-row block
+      return launch<D, WINDOW, 2>(qkv, bias, a, B, stream);
     case BIAS:
       return one ? launch<D, BIAS, 1>(qkv, bias, a, B, stream)
                  : launch<D, BIAS, 2>(qkv, bias, a, B, stream);
@@ -1093,30 +1830,77 @@ cudaError_t launch_cp(const void* q, const void* kv, const Args& a, int B,
                               qmap, kvmap, nullptr, a, B, stream);
 }
 
+
+// K2i8: one consumer warpgroup where L <= 64, else two; a block per
+// (query tile, sequence), the last sequence first
+template <int D, int NC, int EMIT>
+cudaError_t launch_i8(const void* qkv, const Args& a, int B,
+                      cudaStream_t stream) {
+  using S = I8Smem<D, NC, EMIT>;
+  CUtensorMap map;
+  cudaError_t err = rows_map(&map, qkv, B, a.L, 3 * a.H * D, 3 * a.H * D,
+                             I8Cfg<D>::CW);
+  if (err != cudaSuccess) return err;
+  auto kern = attn90_i8_kernel<D, NC, EMIT>;
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)S::bytes);
+  if (err != cudaSuccess) return err;
+  const int nqb = (a.L + S::QB - 1) / S::QB;
+  kern<<<nqb * B, 128 * (NC + 1), S::bytes, stream>>>(map, a);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_i8_emit(int emit, const void* qkv, const Args& a, int B,
+                           cudaStream_t stream) {
+  const bool one = a.L <= WG_ROWS;
+  switch (emit) {
+    case EMIT_NO:
+      return one ? launch_i8<D, 1, EMIT_NO>(qkv, a, B, stream)
+                 : launch_i8<D, 2, EMIT_NO>(qkv, a, B, stream);
+    case EMIT_BOTH:
+      return one ? launch_i8<D, 1, EMIT_BOTH>(qkv, a, B, stream)
+                 : launch_i8<D, 2, EMIT_BOTH>(qkv, a, B, stream);
+    case EMIT_ONLY:
+      return one ? launch_i8<D, 1, EMIT_ONLY>(qkv, a, B, stream)
+                 : launch_i8<D, 2, EMIT_ONLY>(qkv, a, B, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 extern "C" {
 
 // qkv [B*L, 3*H*D] bf16 (16-byte aligned), lengths [B] int32 (modes 0,
-// 3-8), seg [B, L] int32 (mode 1, -1 on pads), slopes [H] f32 (modes 5
-// and 8), bias [H, L, L] f32 (mode 3, log2-scaled, 16-byte aligned), out
-// [B*L, H*D] bf16, all device pointers (a mode's unused ones may be
-// null). mode: 0 (K2), 1 (K4), 3 (K7), 4, 5 (K6 plain, ALiBi), 7 (K6c), 8
-// (K6ca). D: 32, 64 or 128; L % 8 == 0. s2 = log2(e)/sqrt(D) as f32; hi =
-// the score clamp bound. Returns a cudaError_t.
+// 3-8), seg [B, L] int32 (modes 1 and 2, -1 on pads), kbs, kbe [B, L/128]
+// int32 (mode 2: each 128-row query block's first and last key block,
+// block_ranges) and W (mode 2: the key-block cap, >= 1), slopes [H] f32
+// (modes 5 and 8), bias [H, L, L] f32 (mode 3, log2-scaled, 16-byte
+// aligned), out [B*L, H*D] bf16, all device pointers (a mode's unused
+// ones may be null). mode: 0 (K2), 1 (K4), 2 (K5; L % 128 == 0), 3 (K7),
+// 4, 5 (K6 plain, ALiBi), 7 (K6c), 8 (K6ca). D: 32, 64 or 128; L % 8 ==
+// 0. s2 = log2(e)/sqrt(D) as f32; hi = the score clamp bound. Returns a
+// cudaError_t.
 int attn90_launch(const void* qkv, const void* lengths, const void* seg,
-                  const void* slopes, const void* bias, void* out, int mode,
-                  int B, int L, int H, int D, float s2, float hi,
-                  void* stream) {
+                  const void* kbs, const void* kbe, const void* slopes,
+                  const void* bias, void* out, int mode, int B, int L, int H,
+                  int D, int W, float s2, float hi, void* stream) {
   if (B < 0 || L <= 0 || L % 8 || H <= 0) return cudaErrorInvalidValue;
   if (alibi_mode(mode) && slopes == nullptr) return cudaErrorInvalidValue;
   if (mode == BIAS && bias == nullptr) return cudaErrorInvalidValue;
-  if ((mode == SEGMENT) != (seg != nullptr)) return cudaErrorInvalidValue;
-  if (mode != SEGMENT && lengths == nullptr) return cudaErrorInvalidValue;
+  if (seg_mode(mode) != (seg != nullptr)) return cudaErrorInvalidValue;
+  if (!seg_mode(mode) && lengths == nullptr) return cudaErrorInvalidValue;
+  if (mode == WINDOW &&
+      (kbs == nullptr || kbe == nullptr || W < 1 || L % KT))
+    return cudaErrorInvalidValue;
   if (B == 0) return cudaSuccess;
   Args a{};
   a.lengths = static_cast<const int*>(lengths);
   a.seg = static_cast<const int*>(seg);
+  a.kbs = static_cast<const int*>(kbs);
+  a.kbe = static_cast<const int*>(kbe);
+  a.W = W;
   a.slopes = static_cast<const float*>(slopes);
   a.out = static_cast<__nv_bfloat16*>(out);
   a.L = a.Lq = L;
@@ -1204,6 +1988,42 @@ int attn90_cp_launch(const void* q, const void* kv, const void* lengths,
     case 32: return launch_cp<32>(q, kv, a, B, ldq, st);
     case 64: return launch_cp<64>(q, kv, a, B, ldq, st);
     case 128: return launch_cp<128>(q, kv, a, B, ldq, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// K2i8 (mode 0 with int8 scores): qkv [B*L, 3*H*D] bf16, lengths [B]
+// int32; emit 0 writes out [B*L, H*D] bf16, 1 ("both") also o8 [B*L, H*D]
+// int8 and os [B*L] f32, 2 ("only") o8 and os alone through scratch
+// [B*L, H*D] f32 (its contents left undefined; out may be null). All
+// 16-byte aligned device pointers; D: 32, 64 or 128; L % 8 == 0; with
+// emission H*D % 32 == 0. s2 = log2(e)/sqrt(D) as f32. Returns a
+// cudaError_t.
+int attn90_i8_launch(const void* qkv, const void* lengths, void* out,
+                     void* o8, void* os, void* scratch, int emit, int B,
+                     int L, int H, int D, float s2, void* stream) {
+  if (B < 0 || L <= 0 || L % 8 || H <= 0 || lengths == nullptr)
+    return cudaErrorInvalidValue;
+  if ((emit != EMIT_ONLY && out == nullptr) ||
+      (emit != EMIT_NO && (o8 == nullptr || os == nullptr ||
+                           (H * D) % 32)) ||
+      (emit == EMIT_ONLY && scratch == nullptr))
+    return cudaErrorInvalidValue;
+  if (B == 0) return cudaSuccess;
+  Args a{};
+  a.lengths = static_cast<const int*>(lengths);
+  a.out = static_cast<__nv_bfloat16*>(out);
+  a.o8 = static_cast<int8_t*>(o8);
+  a.os = static_cast<float*>(os);
+  a.scratch = static_cast<float*>(scratch);
+  a.L = a.Lq = L;
+  a.H = H;
+  a.s2 = s2;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 32: return launch_i8_emit<32>(emit, qkv, a, B, st);
+    case 64: return launch_i8_emit<64>(emit, qkv, a, B, st);
+    case 128: return launch_i8_emit<128>(emit, qkv, a, B, st);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -1,6 +1,7 @@
-// Per-row int8 emission, shared by qmatmul.cu (K1e/K3e) and attention.cu
-// (K2e/K4e): the emit modes and the packing of eight f32 values into their
-// int8 codes, rint(v * (1/scale)) with the reciprocal taken once a row.
+// Per-row int8 emission, shared by qmatmul.cu (K1e/K3e) and
+// attention_sm90.cu (K2e/K4e, and K2i8's): the emit modes and the packing
+// of eight f32 values into their int8 codes, rint(v * (1/scale)) with the
+// reciprocal taken once a row.
 #pragma once
 
 #include <stdint.h>

@@ -14,14 +14,16 @@ all-gathered K/V) and its key-streamed variant
 ``fused_attention_cp_stream`` (K8b).
 
 Each wrapper launches its mask mode of a hand-written kernel on a CUDA
-tensor, or raises: K2 and its emission K2e (without int8 scores), K4 and
-its emission K4e, K7, K6, K6c, K6ca, K8a and K8b run on the Hopper kernel
-``csrc/attention_sm90.cu`` (wgmma, a TMA ring), K5, K6w and K2i8 on
+tensor, or raises: K2 with its emission K2e and its int8 scores K2i8 (a
+kernel of its own in the same library, with or without emission), K4 and
+its emission K4e, K5, K7, K6, K6c, K6ca, K8a and K8b run on the Hopper
+library ``csrc/attention_sm90.cu`` (wgmma, a TMA ring), K6w alone on
 ``csrc/attention.cu`` (WMMA); ``attention_kernel`` routes, and the
 ``routes`` counters of ``fused_attention``, ``fused_attention_segmented``,
-``fused_attention_bias``, ``fused_attention_stream``,
-``fused_attention_cp`` and ``fused_attention_cp_stream`` count the
-launches by route. On a CPU tensor each wrapper runs
+``fused_attention_segmented_blockskip``, ``fused_attention_bias``,
+``fused_attention_stream``, ``fused_attention_cp`` and
+``fused_attention_cp_stream`` count the launches by route. On a CPU
+tensor each wrapper runs
 its plain PyTorch version, which repeats the kernel's arithmetic step by
 step: exp2 of the clamped scores with no max-subtraction, probabilities
 rounded to the compute dtype before both the PV product and the
@@ -104,8 +106,7 @@ def _prefix_probs(s, lengths, k0, hi, dt, causal=False):
                        torch.zeros((), device=s.device)).to(dt).float()
 
 
-# heads one query tile's cluster can hold: K2i8's emission shares the row
-# absmax across the H blocks of a thread-block cluster (H100: 16)
+# the most heads an emitting launch takes (emit_supported)
 EMIT_MAX_HEADS = 16
 LOG2_127 = 6.9886846867721655
 
@@ -144,11 +145,11 @@ def use_int8_scores(int8: bool) -> bool:
 
 
 def emit_supported(H: int) -> bool:
-    """Can the attention kernels emit at H heads? The port's rule: K2i8's
-    row absmax crosses the H blocks of one thread-block cluster, at most
-    16 on the H100. K2e and K4e run every head in one block and need no
-    cap, but take the same rule, so every emitting path takes the same
-    shapes. (The plain versions follow the same rule.)"""
+    """Can the attention kernels emit at H heads? The port's rule, H <=
+    16: the shapes the emitting paths take (bge's 12 heads, the tests'
+    16). The kernels (K2e, K4e, K2i8) run every head of a query tile in
+    one block and need no cap of their own; the rule keeps every emitting
+    path, and the plain versions, on the same shapes."""
     return H <= EMIT_MAX_HEADS
 
 
@@ -233,12 +234,13 @@ def fused_attention(qkv: torch.Tensor, lengths: torch.Tensor, *, B: int,
     int8_scores: both products in int8 (K2i8; see ``_int8_scores_ctx``).
 
     A CUDA tensor launches K2 (bf16 qkv, int32 lengths on the same
-    device): ``csrc/attention_sm90.cu`` (with emission, K2e: every head
-    of a query tile in one block, the last sequence first), or
-    ``csrc/attention.cu`` with int8 scores (``attention_kernel``; counted
-    by route in ``routes``); counted in ``launches``, and apart in
-    ``both_launches`` / ``only_launches`` (emission) and ``i8s_launches``
-    (int8 scores). A CPU tensor runs ``fused_attention_ref``."""
+    device) on ``csrc/attention_sm90.cu``: mode 0 (with emission, K2e:
+    every head of a query tile in one block, the last sequence first) or,
+    with int8 scores, K2i8 (``attn90_i8_kernel``, every head of a query
+    tile in one block with or without emission); counted by route in
+    ``routes``, in ``launches``, and apart in ``both_launches`` /
+    ``only_launches`` (emission) and ``i8s_launches`` (int8 scores). A CPU
+    tensor runs ``fused_attention_ref``."""
     _check_prefix("fused_attention", supported(L, H, D), qkv, lengths, B,
                   L, H, D)
     _check_emit(emit_quantized, H)
@@ -687,28 +689,26 @@ def _launch_cp(wrapper, q, kv, lengths, B, Lc, L, H, D) -> torch.Tensor:
     return out
 
 
-# mask modes of csrc/attention_sm90.cu (0, 1, 3, 4, 5, 7, 8; 0 and 1
-# also with emission, 4 also in the CP layout) and csrc/attention.cu (2,
-# 6, and 0 with int8 scores)
+# mask modes of csrc/attention_sm90.cu (0, 1, 2, 3, 4, 5, 7, 8; 0 and 1
+# also with emission, 0 also with int8 scores, 4 also in the CP layout)
+# and csrc/attention.cu (6)
 MODE_PREFIX, MODE_SEGMENT, MODE_WINDOW = 0, 1, 2
 MODE_BIAS, MODE_STREAM, MODE_ALIBI, MODE_BAND, MODE_CAUSAL = 3, 4, 5, 6, 7
 MODE_CAUSAL_ALIBI = 8
-SM90_MODES = (MODE_PREFIX, MODE_SEGMENT, MODE_BIAS, MODE_STREAM, MODE_ALIBI,
-              MODE_CAUSAL, MODE_CAUSAL_ALIBI)
-# the modes the Hopper kernel emits in (K2e, K4e)
+# the modes the Hopper library emits in (K2e, K4e; K2i8 with int8 scores)
 SM90_EMIT_MODES = (MODE_PREFIX, MODE_SEGMENT)
 
 
 def attention_kernel(mode: int, D: int, emit: str = "no", cp: bool = False,
                      i8s: bool = False) -> str:
     """The hand-written kernel an attention launch takes: "sm90"
-    (``csrc/attention_sm90.cu``: wgmma, a TMA ring, probabilities in
-    registers) for modes 0, 1, 3, 4, 5, 7 and 8 without int8 scores (K2,
-    K4, K7, K6 plain and ALiBi, K6c, K6ca), for modes 0 and 1 with
-    emission (K2e, K4e) and for mode 4 in the CP operand layout (K8a,
-    K8b); "wmma" (``csrc/attention.cu``) for K5 (mode 2), K6w (mode 6) and
-    K2i8 (int8 scores, with or without emission). No fallback: a route's
-    failed build or refused launch raises."""
+    (``csrc/attention_sm90.cu``: wgmma, a TMA ring) for every mode but 6:
+    modes 0, 1, 2, 3, 4, 5, 7 and 8 (K2, K4, K5, K7, K6 plain and ALiBi,
+    K6c, K6ca), modes 0 and 1 with emission (K2e, K4e), mode 0 with int8
+    scores under every emission (K2i8, its own kernel in that library)
+    and mode 4 in the CP operand layout (K8a, K8b); "wmma"
+    (``csrc/attention.cu``) for K6w (mode 6) alone. No fallback: a
+    route's failed build or refused launch raises."""
     if mode not in range(9):
         raise ValueError(f"no attention mode {mode}")
     if D not in KERNEL_HEAD_DIMS:
@@ -719,11 +719,11 @@ def attention_kernel(mode: int, D: int, emit: str = "no", cp: bool = False,
     if cp and (mode != MODE_STREAM or emit != "no" or i8s):
         raise ValueError("the CP layout is mode 4's, without emission or "
                          "int8 scores")
-    if i8s:
-        return "wmma"
-    sm90 = cp or (mode in SM90_EMIT_MODES if emit != "no"
-                  else mode in SM90_MODES)
-    return "sm90" if sm90 else "wmma"
+    if i8s and mode != MODE_PREFIX:
+        raise ValueError("int8 scores are mode 0's (K2i8)")
+    if emit != "no" and mode not in SM90_EMIT_MODES:
+        raise ValueError(f"mode {mode} does not emit")
+    return "wmma" if mode == MODE_BAND else "sm90"
 
 
 def sm90_warpgroups(L: int) -> int:
@@ -762,30 +762,36 @@ def _launch(what, mode, qkv, out, B, L, H, D, hi, *, lengths=None,
                 q.data_ptr(), qkv.data_ptr(), lengths.data_ptr(),
                 out.data_ptr(), B, Lc, L, H, D, q.stride(0), _scale(D), hi,
                 stream)
-        elif emit == "no":
+        elif emit == "no" and not i8s:
             status = lib.attn90_launch(
-                qkv.data_ptr(), ptr(lengths), ptr(seg), ptr(slopes),
-                ptr(bias), out.data_ptr(), mode, B, L, H, D, _scale(D), hi,
-                stream)
+                qkv.data_ptr(), *map(ptr, (lengths, seg, kbs, kbe, slopes,
+                                           bias, out)),
+                mode, B, L, H, D, W, _scale(D), hi, stream)
         else:
-            # K2e / K4e; the f32 scratch of "only" is freed after the
-            # launch: the allocator reuses it only for work queued behind
-            # it on this stream
+            # K2e / K4e / K2i8; the f32 scratch of "only" is freed after
+            # the launch: the allocator reuses it only for work queued
+            # behind it on this stream
             shape = emit_scratch_shape(B, L, H, D, emit)
             scratch = (None if shape is None else
                        torch.empty(shape, dtype=torch.float32,
                                    device=qkv.device))
-            status = lib.attn90_emit_launch(
-                qkv.data_ptr(), *map(ptr, (lengths, seg, out, o8, os,
-                                           scratch)),
-                mode, EMITS.index(emit), B, L, H, D, _scale(D), hi, stream)
+            if i8s:
+                status = lib.attn90_i8_launch(
+                    qkv.data_ptr(), *map(ptr, (lengths, out, o8, os,
+                                               scratch)),
+                    EMITS.index(emit), B, L, H, D, _scale(D), stream)
+            else:
+                status = lib.attn90_emit_launch(
+                    qkv.data_ptr(), *map(ptr, (lengths, seg, out, o8, os,
+                                               scratch)),
+                    mode, EMITS.index(emit), B, L, H, D, _scale(D), hi,
+                    stream)
         check(status, lib.attn90_error_string, what)
         return route
     lib = _lib()
-    status = lib.attn_launch(
-        qkv.data_ptr(), *map(ptr, (lengths, seg, kbs, kbe, out, o8, os)),
-        mode, EMITS.index(emit), int(i8s), B, L, H, D, W, _scale(D), hi,
-        stream)
+    status = lib.attn_launch(qkv.data_ptr(), lengths.data_ptr(),
+                             out.data_ptr(), mode, B, L, H, D, W, _scale(D),
+                             hi, stream)
     check(status, lib.attn_error_string, what)
     return route
 
@@ -954,7 +960,9 @@ def fused_attention_segmented_blockskip(
     Attention cost is O(L * W*128) instead of O(L^2). ``ranges``: the
     (kbs, kbe) of ``block_ranges(seg_ids, L)`` when the caller already has
     them (a model computes them once for all its layers). A CUDA tensor
-    launches K5 (``csrc/attention.cu``, window mode); a CPU tensor runs
+    launches K5 (``csrc/attention_sm90.cu``, mode 2: every head of a
+    128-row query block in one block, its key tiles kbs .. only); counted
+    in ``launches`` and by route in ``routes``; a CPU tensor runs
     ``fused_attention_segmented_blockskip_ref``."""
     _check_segments(qkv, seg_ids, B, L, H, D)
     if L % BQ:
@@ -968,10 +976,11 @@ def fused_attention_segmented_blockskip(
     if B == 0:
         return out
     W = _window(L, window)
-    _launch("fused_attention_segmented_blockskip", MODE_WINDOW, qkv, out, B,
-            L, H, D, _clamp_hi(min(W * BQ, L)), seg=seg_ids, kbs=kbs,
-            kbe=kbe, W=W)
+    route = _launch("fused_attention_segmented_blockskip", MODE_WINDOW, qkv,
+                    out, B, L, H, D, _clamp_hi(min(W * BQ, L)), seg=seg_ids,
+                    kbs=kbs, kbe=kbe, W=W)
     fused_attention_segmented_blockskip.launches += 1
+    fused_attention_segmented_blockskip.routes[route] += 1
     return out
 
 
@@ -979,10 +988,10 @@ def fused_attention_segmented_blockskip(
 # K8b launch adds one (K6c to fused_attention_stream.causal_launches, K6ca
 # to its causal_alibi_launches); K2 and K4 also count their emitting
 # launches (K2e / K4e) in both_launches and only_launches, K2 its
-# int8-scores launches (K2i8) in i8s_launches; K2's, K4's, K6's, K7's and
-# K8a's / K8b's launches also count by kernel in ``routes`` ("sm90" /
-# "wmma", attention_kernel); callers reset them to 0 around the run they
-# measure
+# int8-scores launches (K2i8) in i8s_launches; K2's, K4's, K5's, K6's,
+# K7's and K8a's / K8b's launches also count by kernel in ``routes``
+# ("sm90" / "wmma", attention_kernel); callers reset them to 0 around the
+# run they measure
 fused_attention.launches = 0
 fused_attention.routes = collections.Counter()
 fused_attention_segmented.routes = collections.Counter()
@@ -999,6 +1008,7 @@ fused_attention_stream.causal_alibi_launches = 0
 fused_attention_window.launches = 0
 fused_attention_segmented.launches = 0
 fused_attention_segmented_blockskip.launches = 0
+fused_attention_segmented_blockskip.routes = collections.Counter()
 fused_attention_cp.launches = 0
 fused_attention_cp_stream.launches = 0
 fused_attention_cp.routes = collections.Counter()
@@ -1017,8 +1027,10 @@ def type_lib90(lib: ctypes.CDLL) -> None:
     """Set the Hopper attention library's C signatures (also those of a
     variant build, ``tools/attention_ab.py``)."""
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.attn90_launch.argtypes = [p] * 6 + [i] * 5 + [f, f, p]
+    lib.attn90_launch.argtypes = [p] * 8 + [i] * 6 + [f, f, p]
     lib.attn90_launch.restype = i
+    lib.attn90_i8_launch.argtypes = [p] * 6 + [i] * 5 + [f, p]
+    lib.attn90_i8_launch.restype = i
     lib.attn90_emit_launch.argtypes = [p] * 7 + [i] * 6 + [f, f, p]
     lib.attn90_emit_launch.restype = i
     lib.attn90_cp_launch.argtypes = [p] * 4 + [i] * 6 + [f, f, p]
@@ -1033,7 +1045,7 @@ def _lib() -> ctypes.CDLL:
     lib = _cuda.load("attention")
     if not getattr(lib, "_typed", False):
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.attn_launch.argtypes = [p] * 8 + [i] * 8 + [f, f, p]
+        lib.attn_launch.argtypes = [p] * 3 + [i] * 6 + [f, f, p]
         lib.attn_launch.restype = i
         lib.attn_error_string.argtypes = [i]
         lib.attn_error_string.restype = ctypes.c_char_p

@@ -102,12 +102,11 @@ WRAPPER_LAUNCHES = (
 @pytest.mark.parametrize("D", tattn.KERNEL_HEAD_DIMS)
 @pytest.mark.parametrize("mode,emit,cp,i8s", WRAPPER_LAUNCHES)
 def test_attention_kernel_routes(mode, emit, cp, i8s, D):
-    """The Hopper kernel takes every mode without int8 scores but K5 (2)
-    and K6w (6): 0, 1, 3, 4, 5, 7, 8 without emission (K2, K4, K7, K6,
-    K6c, K6ca), 0 and 1 with it (K2e, K4e), and mode 4 in the CP layout
-    (K8a, K8b); the WMMA kernel K5, K6w and K2i8."""
-    sm90_modes = (0, 1, 3, 4, 5, 7, 8) if emit == "no" else (0, 1)
-    want = "sm90" if mode in sm90_modes and not i8s else "wmma"
+    """The Hopper library takes every mode but K6w (6): 0, 1, 2, 3, 4, 5,
+    7, 8 without emission (K2, K4, K5, K7, K6, K6c, K6ca), 0 and 1 with it
+    (K2e, K4e), mode 0 with int8 scores under every emission (K2i8), and
+    mode 4 in the CP layout (K8a, K8b); the WMMA kernel K6w alone."""
+    want = "wmma" if mode == 6 else "sm90"
     assert tattn.attention_kernel(mode, D, emit, cp, i8s) == want
     assert tattn.sm90_warpgroups(64) == 1 and tattn.sm90_warpgroups(72) == 2
 
@@ -128,3 +127,7 @@ def test_attention_kernel_rejects_what_no_kernel_takes():
         tattn.attention_kernel(0, 16)
     with pytest.raises(ValueError):
         tattn.attention_kernel(0, 64, "half")
+    with pytest.raises(ValueError):  # int8 scores are mode 0's (K2i8)
+        tattn.attention_kernel(1, 64, i8s=True)
+    with pytest.raises(ValueError):  # only modes 0 and 1 emit
+        tattn.attention_kernel(2, 64, "only")

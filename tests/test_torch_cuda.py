@@ -14,11 +14,11 @@ the bf16 rounding of the output differ. K4-K7, K6w, K6c and K6ca as K2;
 K6c's and K6ca's query rows that see fewer than 64 keys (the first rows
 of every sequence) also allow one bf16 flip of a probability, which
 moves an output by at most 2^-6 of the largest |v| among those keys
-(``_causal_close``). K2, K4, K7, K6, K6c, K6ca, K8a and K8b run on the
-Hopper kernel (``csrc/attention_sm90.cu``):
+(``_causal_close``). K2, K2i8, K4, K5, K7, K6, K6c, K6ca, K8a and K8b
+run on the Hopper library (``csrc/attention_sm90.cu``):
 ``test_sm90_attention_matches_plain`` holds each of its fused-layout
 modes at lengths on its tile edges and checks the launches' route; so do
-the K4 and CP tests and the emission tests for K2e and K4e, its
+the K4, K5, K2i8 and CP tests and the emission tests for K2e and K4e, its
 emitting modes. K3 is K1's wgmma kernel on int8 operands:
 ``test_int8_operands_bit_for_bit`` holds its kept weight and its row
 quantization to the plain version's bits, ``test_qmatmul_int8_tiles_
@@ -181,14 +181,43 @@ def test_segmented_attention_kernel_matches_plain(cuda, B, L, H, D):
 @pytest.mark.parametrize("B,L,H,D", [(3, 256, 2, 64), (2, 640, 12, 64),
                                      (2, 384, 4, 32)])
 def test_blockskip_attention_kernel_matches_plain(cuda, B, L, H, D, window):
+    """K5 on the Hopper kernel (mode 2: every head of a 128-row query
+    block in one block, its key tiles kbs .. min(kbs + W - 1, kbe) only),
+    K2's tolerance; pad query rows give 0."""
     rng = np.random.default_rng(L + window)
     qkv = torch.from_numpy(rng.standard_normal(
         (B * L, 3 * H * D), dtype=np.float32)).to(cuda, torch.bfloat16)
     seg = torch.from_numpy(_segments(B, L, rng)).to(cuda)
     kw = dict(B=B, L=L, H=H, D=D, window=window)
-    before = A.fused_attention_segmented_blockskip.launches
+    wrapper = A.fused_attention_segmented_blockskip
+    before = (wrapper.launches, dict(wrapper.routes))
+    got = wrapper(qkv, seg, **kw)
+    assert wrapper.launches == before[0] + 1
+    _one_sm90_launch(wrapper, before[1])
+    _close(got, A.fused_attention_segmented_blockskip_ref(qkv, seg, **kw),
+           2 ** -6, 1e-2)
+    assert (got[seg.reshape(-1) < 0] == 0).all()
+
+
+@pytest.mark.parametrize("D", [32, 64, 128])
+def test_blockskip_attention_kernel_empty_ranges(cuda, D):
+    """K5 where the window drops key blocks (segments spanning 3 blocks,
+    W=1) and where query blocks are all pad (the empty range (nK, -1)):
+    those give exact zeros, and the ring stays in step across them."""
+    B, L, H = 4, 512, 4
+    rng = np.random.default_rng(D)
+    qkv = torch.from_numpy(rng.standard_normal(
+        (B * L, 3 * H * D), dtype=np.float32)).to(cuda, torch.bfloat16)
+    seg = np.full((B, L), -1, np.int32)
+    for b, edges in [(0, [0, 200, 330, 512]), (1, [0, 40, 256]),
+                     (3, [0, 300, 400])]:
+        for s_, (lo, hi) in enumerate(zip(edges[:-1], edges[1:])):
+            seg[b, lo:hi] = s_
+    seg = torch.from_numpy(seg).to(cuda)
+    kbs, kbe = A.block_ranges(seg, L)
+    assert (kbe < kbs).sum() >= 6
+    kw = dict(B=B, L=L, H=H, D=D, window=1)
     got = A.fused_attention_segmented_blockskip(qkv, seg, **kw)
-    assert A.fused_attention_segmented_blockskip.launches == before + 1
     _close(got, A.fused_attention_segmented_blockskip_ref(qkv, seg, **kw),
            2 ** -6, 1e-2)
     assert (got[seg.reshape(-1) < 0] == 0).all()
@@ -726,12 +755,17 @@ def test_segmented_emission_matches_plain(cuda, B, L, H, D, emit):
     assert (got[-2][pad] == 0).all()
 
 
-@pytest.mark.parametrize("emit", ["no", "only"])
+@pytest.mark.parametrize("emit", ["no", "only", "both"])
 @pytest.mark.parametrize("B,L,H,D", [(4, 256, 12, 64), (2, 1024, 12, 64),
-                                     (3, 72, 4, 32), (2, 192, 4, 128)])
+                                     (3, 72, 4, 32), (2, 192, 4, 128),
+                                     (3, 48, 12, 64), (2, 200, 16, 128),
+                                     (2, 640, 4, 32)])
 def test_int8_scores_match_plain(cuda, B, L, H, D, emit):
-    """K2i8: integer products and the same f32 steps, so it meets K2's
-    tolerance; a len-0 row (every key at p8 = 127) stays finite."""
+    """K2i8 on the Hopper library (its own kernel: one consumer
+    warpgroup at L <= 64, a first score pass over the key tiles): integer
+    products and the same f32 steps, so it meets K2's tolerance; a len-0
+    row (every key at p8 = 127) stays finite; one launch on the "sm90"
+    route."""
     rng = np.random.default_rng(L + D)
     qkv = torch.from_numpy(rng.standard_normal(
         (B * L, 3 * H * D), dtype=np.float32)).to(cuda, torch.bfloat16)
@@ -739,9 +773,10 @@ def test_int8_scores_match_plain(cuda, B, L, H, D, emit):
         cuda)
     lens[0] = 0
     kw = dict(B=B, L=L, H=H, D=D, int8_scores=True, emit_quantized=emit)
-    before = fused_attention.i8s_launches
+    before = (fused_attention.i8s_launches, dict(fused_attention.routes))
     got = fused_attention(qkv, lens, **kw)
-    assert fused_attention.i8s_launches == before + 1
+    assert fused_attention.i8s_launches == before[0] + 1
+    _one_sm90_launch(fused_attention, before[1])
     ref = fused_attention_ref(qkv, lens, **kw)
     if emit == "no":
         _close(got, ref, 2 ** -6, 1e-2)

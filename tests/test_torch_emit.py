@@ -12,7 +12,7 @@
 (b) Attention emission (K2e / K4e) and int8 scores (K2i8):
     ``fused_attention_ref`` / ``fused_attention_segmented_ref`` against
     JAX's kernels in interpret mode, with a len-0 row and pad rows, in
-    f32 and bf16, and K2i8 at L=64 and at L=640 (JAX's blocked-query
+    f32 and bf16, and K2i8 at L=64, 640 and 1,024 (JAX's blocked-query
     route). Emission codes: equal or one step off (bf16 contexts round
     the same f32 values; f32 contexts differ by summation order). K2i8:
     every product is integer, so the outputs differ only where exp2's last
@@ -301,7 +301,7 @@ def _p8_step_atol(qkv, B, L, H, D):
 
 
 @pytest.mark.parametrize("dt,B,L", [("f32", 3, 64), ("bf16", 3, 64),
-                                    ("f32", 2, 640)])
+                                    ("f32", 2, 640), ("bf16", 3, 1024)])
 def test_int8_scores_match_jax(dt, B, L):
     """K2i8's plain version: within one p8 step of JAX's int8 branch
     (max|v|/127, plus one bf16 ulp of the output in bf16), the len-0 row

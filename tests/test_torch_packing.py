@@ -106,12 +106,36 @@ def test_segmented_ref_matches_jax_interpret(dtype, L):
     assert np.all(got[pad] == 0) and np.isfinite(got).all()
 
 
-@pytest.mark.parametrize("window", ["exact", "full", "capped"])
+def _padded_blocks(B=3, L=512, H=2, D=64, seed=2):
+    """Packed rows of 4 query blocks whose segments span up to 3 key
+    blocks, a row whose last two query blocks are all pad, and an all-pad
+    row: a window of 1 drops blocks, and the all-pad blocks have the
+    empty range (nK, -1)."""
+    rng = np.random.default_rng(seed)
+    qkv = rng.standard_normal((B * L, 3 * H * D), dtype=np.float32)
+    seg = np.full((B, L), -1, np.int32)
+    for b, edges in [(0, [0, 200, 330, 512]), (1, [0, 40, 256])]:
+        for s, (lo, hi) in enumerate(zip(edges[:-1], edges[1:])):
+            seg[b, lo:hi] = s
+    return qkv, seg
+
+
+@pytest.mark.parametrize("window", ["exact", "full", "capped",
+                                    "capped_pad"])
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
 def test_blockskip_ref_matches_jax_interpret(dtype, window):
     B, L, H, D = 3, 256, 2, 64
-    qkv, seg = _straddling(B, L, H, D, seed=1)
-    w = {"exact": jpacking.max_block_span(seg), "full": 0, "capped": 1}[window]
+    if window == "capped_pad":
+        L = 512
+        qkv, seg = _padded_blocks(B, L, H, D)
+        kbs, kbe = tattn.block_ranges(torch.from_numpy(seg), L)
+        assert (kbe < kbs).sum() == 6  # row 1's last two blocks, row 2's
+    else:
+        qkv, seg = _straddling(B, L, H, D, seed=1)
+    w = {"exact": jpacking.max_block_span(seg), "full": 0, "capped": 1,
+         "capped_pad": 1}[window]
+    if window == "capped_pad":
+        assert jpacking.max_block_span(seg) > w  # the window drops blocks
     jdt, tdt = ((jnp.float32, torch.float32) if dtype == "f32"
                 else (jnp.bfloat16, torch.bfloat16))
     ref = np.asarray(jattn.fused_attention_segmented_blockskip(
@@ -125,7 +149,7 @@ def test_blockskip_ref_matches_jax_interpret(dtype, window):
     else:
         np.testing.assert_allclose(got, ref, rtol=2 ** -6, atol=2e-3)
     assert np.isfinite(got).all()
-    if window != "capped":
+    if window in ("exact", "full"):
         # an exact or full window computes what the full kernel computes
         full = tattn.fused_attention_segmented_ref(
             torch.from_numpy(qkv).to(tdt), torch.from_numpy(seg), B=B, L=L,

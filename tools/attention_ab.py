@@ -1,10 +1,13 @@
 #!/usr/bin/env python3
-"""Time variants of the Hopper attention kernel against the checkout's, on
-one card, in turns: K2, K2e ("only" and "both"), K4 and K4e ("only"; on
-the packed rows of the STS fixture), K7 (MPNet's table bias, jina's ALiBi
-bias), K6 (plain and ALiBi), K6c, K6ca, and the CP layout's K8a (bge's
-shard, q read in place at row stride 3E) and K8b (nomic's shard) at the
-shapes the port's main paths give them (every row full).
+"""Time variants of the Hopper attention library against the checkout's,
+on one card, in turns: K2, K2e ("only" and "both"), K2i8 (int8 scores,
+without emission and with "only", and at B=16, L=1,024, past the rows
+whose scores stay in registers), K4 and K4e ("only"; on the packed rows
+of the STS fixture), K5 (32 packed rows of 1,024, window 3, the key-block
+ranges computed once as the forward does), K7 (MPNet's table bias, jina's
+ALiBi bias), K6 (plain and ALiBi), K6c, K6ca, and the CP layout's K8a
+(bge's shard, q read in place at row stride 3E) and K8b (nomic's shard)
+at the shapes the port's main paths give them (every row full).
 
     python3 tools/attention_ab.py [--shapes K4_packed,K8b_nomic] \
         [VARIANT.cu ...]
@@ -34,12 +37,17 @@ ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
 # name -> (B, L, H, D), mode[, emission]: the main paths' attention
-# shapes (K4, K4e: 256 packed rows of 128); the CP shapes ("cp" in place
-# of the mode) are (B, Lc, L, H, D) of a shard, K8a's q at row stride 3E
+# shapes (K4, K4e: 256 packed rows of 128; K5: 32 packed rows of 1,024;
+# "i8s" in place of the mode: K2i8); the CP shapes ("cp" in place of the
+# mode) are (B, Lc, L, H, D) of a shard, K8a's q at row stride 3E
 CP_SHAPES = {"K8a_bge": (16, 256, 512, 12, 64),
              "K8b_nomic": (4, 512, 2048, 12, 64)}
 SHAPES = {"K2_bge": ((128, 256, 12, 64), 0),
           "K4_packed": ((256, 128, 12, 64), 1),
+          "K5_packed": ((32, 1024, 12, 64), 2),
+          "K2i8_bge": ((128, 256, 12, 64), "i8s"),
+          "K2i8_bge_only": ((128, 256, 12, 64), "i8s", "only"),
+          "K2i8_long": ((16, 1024, 12, 64), "i8s"),
           "K2e_bge_only": ((128, 256, 12, 64), 0, "only"),
           "K2e_bge_both": ((128, 256, 12, 64), 0, "both"),
           "K4e_packed": ((256, 128, 12, 64), 1, "only"),
@@ -109,9 +117,16 @@ def shape_call(name, shape, mode, how, rng, dev):
     B, L, H, D = shape
     qkv = bf16(B * L, 3 * H * D)
     lens = torch.full((B,), L, dtype=torch.int32, device=dev)
-    if mode == 0:
-        kw = dict(B=B, L=L, H=H, D=D, emit_quantized=how)
+    if mode in (0, "i8s"):
+        kw = dict(B=B, L=L, H=H, D=D, emit_quantized=how,
+                  int8_scores=mode == "i8s")
         return lambda: A.fused_attention(qkv, lens, **kw)
+    if mode == 2:
+        arrays, W = packed_tables(B, L)
+        seg = torch.from_numpy(arrays[1]).to(dev)
+        kw = dict(B=B, L=L, H=H, D=D, window=W,
+                  ranges=A.block_ranges(seg, L))
+        return lambda: A.fused_attention_segmented_blockskip(qkv, seg, **kw)
     if mode == 1:
         seg = torch.from_numpy(packed_tables(B, L)[0][1]).to(dev)
         kw = dict(B=B, L=L, H=H, D=D, emit_quantized=how)
