@@ -1,9 +1,9 @@
 """Smoke test of the PyTorch/CUDA port on one GPU: builds the hand-written
 kernels (K1-K7, K6w, K6c and K6ca, the chained-int8 modes K1e, K3e, K3x,
 K2e, K4e and K2i8, and the context-parallel K8a and K8b; K1 and K3 on the
-wgmma matmul kernel, K2, K2e, K2i8, K4, K4e, K5, K7, K6, K6c, K6ca, K8a
-and K8b on the Hopper attention library, K6w alone on the WMMA one),
-holds each against its plain PyTorch version on the card, checks each
+wgmma matmul kernel, every attention kernel on the Hopper attention
+library), holds each against its plain PyTorch version on the card,
+checks each
 profiled forward's matmul and attention launches by kernel, and drives
 the port's paths through Engine -> encode_batch (or encode_batch_packed)
 -> BatchingService -> TCP, checking each path's kernel launch counts:
@@ -21,7 +21,8 @@ the port's paths through Engine -> encode_batch (or encode_batch_packed)
   tiny ALiBi fixture; its weights in a causal config (K6ca: causal
   attention with in-kernel ALiBi at L=8192);
 - gte-modernbert-base q4_0 (pre-norm, RoPE, GeGLU, 22 layers: 8 global
-  on K2 at L=1024 or K6 plain at L=8192, 14 local on the banded K6w);
+  on K2 at L=1024 or K6 plain at L=8192, 14 local on the banded K6w,
+  mode 6 of the Hopper attention kernel);
 - gte-Qwen2-1.5B-instruct q4_0 (RMSNorm, grouped-query attention, SwiGLU,
   28 layers, last-token pooling; one weight tree for both forms): causal
   on K6c at L=512 and L=4096, bidirectional (as published) on K2 at L=512
@@ -41,6 +42,7 @@ each forward by kernel.
     python3 chip_smoke.py --phases device,build,k1      # K1 alone
     python3 chip_smoke.py --phases device,build,k2,k6k7,k6c,k6ca  # attention
     python3 chip_smoke.py --phases device,build,k8,cp_path
+    python3 chip_smoke.py --phases device,build,k6w,modernbert_path,timing
 
 Each phase prints one JSON line. The last two lines are the kernel table
 and ``{"ok": true, "device": {...}}``; any failure exits non-zero before
@@ -84,10 +86,7 @@ K1_SHAPES = {"qkv": (E, 3 * E, "bias"),
 K1_REPLACES = "embeddings_tpu/ops/qmatmul.py:153 (_qmm_kernel via qmatmul :446)"
 K2_REPLACES = ("embeddings_tpu/ops/attention.py:73 (_attn_kernel via "
                "fused_attention :1039)")
-# the two attention libraries: K2, K2e, K2i8, K4, K4e, K5, K7, K6, K6c,
-# K6ca, K8a and K8b run on the Hopper one (wgmma), K6w alone on the WMMA
-# one
-ATTN_SOURCE = "embeddings_tpu_torch/csrc/attention.cu"
+# the attention library: every attention kernel of the port
 ATTN90_SOURCE = "embeddings_tpu_torch/csrc/attention_sm90.cu"
 K3_REPLACES = ("embeddings_tpu/ops/qmatmul.py:309 (_qmm_int8 via qmatmul "
                ":446, int8_compute)")
@@ -350,7 +349,7 @@ def reset_counts() -> None:
     Q.qmatmul_int8.routes.clear()
     for f in (A.fused_attention_bias, A.fused_attention_segmented,
               A.fused_attention_segmented_blockskip, A.fused_attention_cp,
-              A.fused_attention_cp_stream):
+              A.fused_attention_cp_stream, A.fused_attention_window):
         f.routes.clear()
 
 
@@ -423,31 +422,30 @@ def phase_device():
          python=sys.version.split()[0])
 
 
-SOURCES = ("qmatmul", "attention", "attention_sm90")
+SOURCES = ("qmatmul", "attention_sm90")
 
 
 def phase_build():
-    """Build the three libraries; the wgmma ones hold wgmma and no
-    mma.sync: bf16 (HGMMA) in both, int8 (IGMMA) in both (K3 in
-    qmatmul's, K2i8 in the attention one), and neither HMMA (bf16
-    mma.sync / WMMA) nor IMMA (int8 mma.sync, the old K3 and K2i8) in
-    either. ptxas's C75xx notes (each a kernel whose wgmma it serializes)
-    are counted per library from its -v report; no library has one."""
+    """Build the two libraries; both hold wgmma and no mma.sync: bf16
+    (HGMMA) and int8 (IGMMA: K3 in qmatmul's, K2i8 in the attention one)
+    in each, and neither HMMA (bf16 mma.sync / WMMA) nor IMMA (int8
+    mma.sync) in either, so the port has no mma.sync at all. ptxas's C75xx
+    notes (each a kernel whose wgmma it serializes) are counted per
+    library from its -v report; no library has one."""
     from embeddings_tpu_torch.ops import _cuda
     t0 = time.perf_counter()
     seconds = _cuda.build(*SOURCES)  # one nvcc each, all together
-    hgmma = {name: hgmma_count(name) for name in ("qmatmul",
-                                                   "attention_sm90")}
+    hgmma = {name: hgmma_count(name) for name in SOURCES}
     for name, n in hgmma.items():
         check(n > 0, f"{name}'s library holds no HGMMA (wgmma) instruction")
-    igmma = {name: hgmma_count(name, "IGMMA")
-             for name in ("qmatmul", "attention_sm90")}
+    igmma = {name: hgmma_count(name, "IGMMA") for name in SOURCES}
     for name, n in igmma.items():
         check(n > 0, f"{name}'s library holds no IGMMA (int8 wgmma)")
-    for name in ("qmatmul", "attention_sm90"):
-        for op in ("HMMA", "IMMA"):
-            check(hgmma_count(name, op) == 0,
-                  f"{name}'s library holds mma.sync ({op}) instructions")
+    mma_sync = {name: {op: hgmma_count(name, op) for op in ("HMMA", "IMMA")}
+                for name in SOURCES}
+    for name, ops in mma_sync.items():
+        check(not any(ops.values()),
+              f"{name}'s library holds mma.sync instructions: {ops}")
     c75 = {name: _cuda.BUILD_LOGS[name].count("(C75")
            for name in SOURCES if name in _cuda.BUILD_LOGS}
     for name, n in c75.items():
@@ -455,7 +453,8 @@ def phase_build():
               + "; ".join(line for line in _cuda.BUILD_LOGS[name]
                           .splitlines() if "(C75" in line)[:2000])
     emit("build", seconds=time.perf_counter() - t0, per_source=seconds,
-         hgmma_in_sass=hgmma, igmma_in_sass=igmma, ptxas_c75xx_notes=c75)
+         hgmma_in_sass=hgmma, igmma_in_sass=igmma,
+         mma_sync_in_sass=mma_sync, ptxas_c75xx_notes=c75)
 
 
 def hgmma_count(name: str, opcode: str = "HGMMA") -> int:
@@ -564,11 +563,12 @@ TILE_EDGES = (0, 1, 63, 64, 65, 127, 128, 129)
 
 
 def fused_attention_routes() -> dict:
-    """K2's and K6's launches so far by kernel (``attention_kernel``;
-    K7's: ``bias_routes``)."""
+    """K2's, K6's and K6w's launches so far by kernel
+    (``attention_kernel``; K7's: ``bias_routes``)."""
     from embeddings_tpu_torch.ops import attention as A
     return {"fused_attention": dict(A.fused_attention.routes),
-            "fused_attention_stream": dict(A.fused_attention_stream.routes)}
+            "fused_attention_stream": dict(A.fused_attention_stream.routes),
+            "fused_attention_window": dict(A.fused_attention_window.routes)}
 
 
 def phase_k2():
@@ -1318,13 +1318,23 @@ def band_pairs(lengths, Lx: int, window: int) -> int:
     return total
 
 
+def band_tiles_walked(lengths, Lx: int, window: int) -> int:
+    """128-key tiles K6w's 128-row query blocks walk a head on this data
+    (``ops.attention.band_tiles``, the kernel's arithmetic)."""
+    from embeddings_tpu_torch.ops import attention as A
+    W = A.band_half(window, Lx)
+    return sum(A.band_tiles(q0, 128, W, int(n))[1] for n in lengths
+               for q0 in range(0, Lx, 128))
+
+
 def phase_k6w():
-    """K6w (banded attention, ModernBERT's local layers) at the path's two
-    shapes with window 128, and at small shapes around its walk's edges
-    (a window of 8, the band covering the row, L=384 where the TPU walks
-    every key block): ragged rows with an all-pad row first, against its
-    plain version on the same inputs, at K2's tolerance on the query rows
-    the model reads."""
+    """K6w (banded attention, ModernBERT's local layers; mode 6 of the
+    Hopper attention kernel) at the path's two shapes with window 128,
+    and at small shapes around its walk's edges (a window of 8, the band
+    covering the row, L=384 where the TPU walks every key block): ragged
+    rows with an all-pad row first, against its plain version on the
+    same inputs, at K2's tolerance on the query rows the model reads;
+    each launch on the "sm90" route."""
     import torch
     from embeddings_tpu_torch.ops import attention as A
     rng = np.random.default_rng(9)
@@ -1337,7 +1347,9 @@ def phase_k6w():
                                    ("L256_w1024", (4, 256), 1024)):
         qkv, lens = _attn_qkv(rng, Bx, Lx, dev)
         kw = dict(B=Bx, L=Lx, H=H, D=D, window=window)
-        got = A.fused_attention_window(qkv, lens, **kw)
+        got, routes = _routed(A.fused_attention_window,
+                              lambda: A.fused_attention_window(qkv, lens,
+                                                               **kw))
         ref = A.fused_attention_window_ref(qkv, lens, **kw)
         torch.cuda.synchronize()
         # query rows i < len[b] carry the model; a pad query attends the
@@ -1353,10 +1365,12 @@ def phase_k6w():
                                        - ref[~real].float()).abs().max()
                  .item(),
                  out_of_reach_rows_exact_zero=bool((got[none] == 0).all()),
-                 zero_row_exact=bool((got.reshape(Bx, Lx, E)[0] == 0).all()))
+                 zero_row_exact=bool((got.reshape(Bx, Lx, E)[0] == 0).all()),
+                 tiles_walked=band_tiles_walked(lens.tolist(), Lx, window),
+                 routes=routes)
         check(r["ok"] and r["zero_row_exact"]
               and r["out_of_reach_rows_exact_zero"]
-              and bool(torch.isfinite(got).all()),
+              and bool(torch.isfinite(got).all()) and routes == {"sm90": 1},
               f"K6w {name} disagrees: {r}")
         out[name] = r
         del ref
@@ -1956,8 +1970,9 @@ def phase_jina_causal_path():
 def phase_modernbert_path():
     """gte-modernbert-base q4_0 at full width and depth (22 layers, CLS
     pooling) through Engine.encode_batch: B=32 rows of 1,024 tokens run
-    110 K1 + 8 K2 (global layers) + 14 K6w (local layers) a forward, B=4
-    rows of 8,192 run 110 K1 + 8 K6 plain + 14 K6w; no einsum attention.
+    110 K1 + 8 K2 (global layers) + 14 K6w (local layers, each on the
+    Hopper kernel's mode 6) a forward, B=4 rows of 8,192 run 110 K1 + 8 K6
+    plain + 14 K6w; no einsum attention.
     One or two sequences of each against the plain f32 path; the TCP
     server."""
     eng = _family_engine("modernbert", batch_size=MB_SHORT[0])
@@ -1970,6 +1985,7 @@ def phase_modernbert_path():
     lens = [len(eng.tokenize(t)) for t in short_texts]
     check(MB_SHORT[1] // 2 < min(lens) and max(lens) <= MB_SHORT[1],
           f"short texts outside the L=1024 bucket: {min(lens)}..{max(lens)}")
+    from embeddings_tpu_torch.ops import attention as A
     from embeddings_tpu_torch.ops.qmatmul import qmatmul
     out, k1_shapes = {}, {}
     for name, texts, glob, shape, n_plain in (
@@ -1991,6 +2007,11 @@ def phase_modernbert_path():
         check(n == 1 and counts == want,
               f"modernbert {name}: launches {counts} over {n} forwards, "
               f"expected {want}")
+        k6w_routes = dict(A.fused_attention_window.routes)
+        out[name]["k6w_routes"] = k6w_routes
+        check(k6w_routes == {"sm90": MB_LOCAL},
+              f"modernbert {name}: K6w launches by route {k6w_routes}, "
+              f"expected {MB_LOCAL} on the Hopper kernel (mode 6)")
         check(np.abs(norms - 1).max() < 1e-3,
               f"modernbert {name}: not unit norm")
         check(cos.min() >= 0.999,
@@ -2292,13 +2313,18 @@ def phase_timing():
     rng = np.random.default_rng(3)
     saved = read_counts()  # timing launches are not main-path launches
     launches = STATE.get("launches", {})
-    eng = STATE["engine"]
     ids = rng.integers(1000, 30000, (B, L)).astype(np.int32)
     mask = np.ones((B, L), np.int32)
-    # forward -> (call, the kernels one forward launches)
+    # forward -> (call, the kernels one forward launches): the forwards
+    # and kernel rows of the phases that ran (every one by default; e.g.
+    # --phases device,build,k6w,modernbert_path,timing times ModernBERT's
+    # forwards and K6w's rows alone)
     bge = {0: NL}  # K2 on every layer
-    runs = {"bf16": (lambda: eng._forward(ids, mask),
-                     launches_want(4 * NL, bge))}
+    runs = {}
+    if "engine" in STATE:
+        eng = STATE["engine"]
+        runs["bf16"] = (lambda: eng._forward(ids, mask),
+                        launches_want(4 * NL, bge))
     if "engine8" in STATE:
         # K3 on int8 operands, each matmul's rows quantized first; no
         # requantization (the Engine keeps the int8 weights)
@@ -2379,12 +2405,15 @@ def phase_timing():
                                 "sentences_per_s": Bx / fwd[name] * 1e3,
                                 "tokens_per_s": Bx * Lx / fwd[name] * 1e3}
 
-    kernels = [k1_row(rng, dev, name, shape,
-                      launches.get("qmatmul", {}))
-               for name, shape in K1_SHAPES.items()]
-    kernels.append(k2_row(rng, dev, (B, L), (H, D),
-                          launches.get("fused_attention", 0), "L256"))
-    if "modernbert_path" in RESULTS:  # ModernBERT's global layers at L=1024
+    kernels = []
+    if "k1_parity" in RESULTS and "k2_parity" in RESULTS:
+        kernels += [k1_row(rng, dev, name, shape,
+                           launches.get("qmatmul", {}))
+                    for name, shape in K1_SHAPES.items()]
+        kernels.append(k2_row(rng, dev, (B, L), (H, D),
+                              launches.get("fused_attention", 0), "L256"))
+    # ModernBERT's global layers at L=1024
+    if "modernbert_path" in RESULTS and "k2_parity" in RESULTS:
         kernels.append(k2_row(rng, dev, MB_SHORT, (H, D),
                               STATE.get("launches_K2_modernbert", 0),
                               "L1024"))
@@ -2457,11 +2486,14 @@ def phase_timing():
                    library_ms=t["library"][0],
                    library_ms_range=t["library"][1])
         kernels.append(row)
-    kernels += bias_stream_rows(rng, dev)
-    kernels += [k1_row(rng, dev, name, shape,
-                       launches.get("qmatmul_modernbert", {}))
-                for name, shape in MB_K1_SHAPES.items()]
-    kernels += window_rows(rng, dev)
+    if "k6k7_parity" in RESULTS:
+        kernels += bias_stream_rows(rng, dev)
+    if "k1_parity" in RESULTS:
+        kernels += [k1_row(rng, dev, name, shape,
+                           launches.get("qmatmul_modernbert", {}))
+                    for name, shape in MB_K1_SHAPES.items()]
+    if "k6w_parity" in RESULTS:
+        kernels += window_rows(rng, dev)
     if "qwen2_path" in RESULTS:
         kernels += [k1_row(rng, dev, name, shape,
                            launches.get("qmatmul_qwen2", {}), QW_M)
@@ -2478,9 +2510,10 @@ def phase_timing():
                      "cp_over_single": fwd[name] / fwd[name + "_single"]}
               for name in ("cp_bge", "cp_nomic") if name in fwd}
     set_counts(saved)
-    per_layer_bound = sum(kk["bound_ms"] for kk in kernels[:5])
-    emit("timing", batch=[B, L], forward_ms=fwd["bf16"],
-         sentences_per_s=B / fwd["bf16"] * 1e3,
+    # one bge layer's K1 and K2 rows (the first five), where they ran
+    bge_rows = kernels[:5] if "k1_parity" in RESULTS else []
+    emit("timing", batch=[B, L], forward_ms=fwd.get("bf16"),
+         sentences_per_s=(B / fwd["bf16"] * 1e3 if "bf16" in fwd else None),
          int8_forward_ms=fwd.get("int8"),
          int8_sentences_per_s=(B / fwd["int8"] * 1e3 if "int8" in fwd
                                else None),
@@ -2489,8 +2522,8 @@ def phase_timing():
              B / fwd["int8_scores"] * 1e3 if "int8_scores" in fwd
              else None),
          packed_forward=packed_fwd, family_forward=family_fwd,
-         forward_bound_ms=NL * per_layer_bound,
-         kernel_ms_per_forward=NL * sum(kk["ms"] for kk in kernels[:5]),
+         forward_bound_ms=NL * sum(kk["bound_ms"] for kk in bge_rows),
+         kernel_ms_per_forward=NL * sum(kk["ms"] for kk in bge_rows),
          int8_chain_forward_ms=chain_fwd, cp_forward=cp_fwd,
          profile=profiles)
     RESULTS["kernels"] = kernels
@@ -2532,8 +2565,8 @@ def launches_want(matmuls: int, attn: dict, dh: int = D, Lx: int = L,
     in the fused layout the count {mode: count} gives (a key (mode,
     emit) names an emitting mode, "both" or "only"; ("i8s", emit) K2i8),
     on the kernel its route names (``attention_kernel``):
-    attn_sm90_kernel<dh, mode, warpgroups at row length Lx, emit mode, 0>,
-    attn90_i8_kernel<dh, warpgroups, emit mode> or attn_kernel<dh>; a key
+    attn_sm90_kernel<dh, mode, warpgroups at row length Lx, emit mode, 0>
+    or attn90_i8_kernel<dh, warpgroups, emit mode>; a key
     that is a string names the kernel itself (the CP layout's mode 4:
     ``cp_kernel``); ``others``: the counts of the other kernels by name
     (quant_rows_kernel, emit_rows_kernel)."""
@@ -2550,10 +2583,10 @@ def launches_want(matmuls: int, attn: dict, dh: int = D, Lx: int = L,
                   "K2i8 off the Hopper library")
             return (f"attn90_i8_kernel<{dh}, {sm90_warpgroups(Lx)}, "
                     f"{EMITS.index(how)}>")
-        if attention_kernel(m, dh, how) == "sm90":
-            return (f"attn_sm90_kernel<{dh}, {m}, {sm90_warpgroups(Lx)}, "
-                    f"{EMITS.index(how)}, 0>")
-        return f"attn_kernel<{dh}>"
+        check(attention_kernel(m, dh, how) == "sm90",
+              f"mode {m} off the Hopper library")
+        return (f"attn_sm90_kernel<{dh}, {m}, {sm90_warpgroups(Lx)}, "
+                f"{EMITS.index(how)}, 0>")
 
     return {"matmuls": matmuls, **{name(m): n for m, n in attn.items()},
             **others}
@@ -2842,9 +2875,10 @@ def k1_row(rng, dev, name: str, shape, launches: dict, Mx: int = M) -> dict:
 def window_rows(rng, dev) -> list:
     """K6w's rows of the kernel table at ModernBERT's two shapes, every row
     full. The bound counts the band's (query, key) pairs, not the tiles
-    the kernel walks; the library yardstick is SDPA with the boolean
-    band mask (prefix and band in one [L, L] mask, as the rows are
-    full)."""
+    the kernel walks (``tiles_walked`` a head); the library yardstick is
+    SDPA with the boolean band mask (prefix and band in one [L, L] mask,
+    as the rows are full). Kernel and SDPA in alternating rounds: the
+    median of 5 and the range."""
     import torch
     from embeddings_tpu_torch.ops import attention as A
     out = []
@@ -2856,19 +2890,25 @@ def window_rows(rng, dev) -> list:
                            Bx * Lx * (3 * E * 2 + E * 2) + Bx * 4)
         i = torch.arange(Lx, device=dev)
         band = ((i[:, None] - i[None, :]).abs() <= MB_WINDOW // 2)
+        t = alternating_ms({
+            "kernel": lambda: A.fused_attention_window(qkv, lens, **kw),
+            "library": sdpa_call(qkv, Bx, Lx, band[None, None])})
         out.append({
             "name": f"fused_attention_window[B{Bx} L{Lx} H{H} D{D} "
                     f"w{MB_WINDOW}]", "route": "cuda",
-            "source": ATTN_SOURCE,
+            "source": ATTN90_SOURCE,
             "replaces": K6W_REPLACES,
             "launches": STATE.get(f"launches_K6w_modernbert_{name}", 0),
             "max_abs_err": RESULTS["k6w_parity"][name]["max_abs_err"],
-            "ms": cuda_ms(lambda: A.fused_attention_window(qkv, lens, **kw)),
+            "ms": t["kernel"][0], "ms_range": t["kernel"][1],
             "plain_ms": cuda_ms(lambda: A.fused_attention_window_ref(
                 qkv, lens, **kw), iters=3),
             "bound_ms": bms, "bound_by": by,
-            "library_ms": sdpa_ms(qkv, Bx, Lx, band[None, None]),
-            "band_pairs": pairs, "shape": [Bx, Lx, H, D]})
+            "library_ms": t["library"][0],
+            "library_ms_range": t["library"][1],
+            "band_pairs": pairs,
+            "tiles_walked": band_tiles_walked(lens.tolist(), Lx, MB_WINDOW),
+            "shape": [Bx, Lx, H, D]})
         del band
     return out
 
@@ -2914,8 +2954,7 @@ def device_profile(name: str, fn, want: dict) -> dict:
     check(sum(n for k, n in want.items() if k.startswith("qmm_")) == n_mm,
           f"profile {name}: matmul routes {want}, want {n_mm} matmuls")
     kinds = ("requant_kernel", "quant_rows_kernel", "emit_rows_kernel",
-             "qmm_wgmma_kernel", "attn90_i8_kernel", "attn_sm90_kernel",
-             "attn_kernel")
+             "qmm_wgmma_kernel", "attn90_i8_kernel", "attn_sm90_kernel")
     by_kind: dict = {}
     torch_ops: dict = {}  # the library's own kernels, by name
     spans = []
@@ -2924,7 +2963,7 @@ def device_profile(name: str, fn, want: dict) -> dict:
                 or e.name.startswith("ProfilerStep"):  # the step's range
             continue
         kind = next((k for k in kinds if k in e.name), "torch ops")
-        if kind.startswith(("attn", "qmm_")):  # attn_kernel<D, mode, ...>
+        if kind.startswith(("attn", "qmm_")):  # attn_sm90_kernel<D, ...>
             kind += "<" + e.name.split(kind + "<")[-1].split(">")[0] + ">"
         ms = e.time_range.elapsed_us() / 1e3
         tally(by_kind, kind, ms)

@@ -1,11 +1,12 @@
 // Fused multi-head self-attention over the fused QKV projection, for
 // sm_90a, on Hopper's own instructions (wgmma, TMA, mbarriers, warp
 // specialization): kernel K2 with its emission K2e, kernel K4 with its
-// emission K4e, kernel K5, kernel K6 with its causal modes K6c and K6ca,
-// kernel K7, and the context-parallel K8a and K8b of the PyTorch port, as
-// eight mask modes of one kernel and two operand layouts; and K2's int8
-// scores K2i8, with or without emission, as a kernel of its own on the
-// same producer, ring and epilogues (attn90_i8_kernel, below).
+// emission K4e, kernel K5, kernel K6 with its causal modes K6c and K6ca
+// and its banded mode K6w, kernel K7, and the context-parallel K8a and K8b
+// of the PyTorch port, as nine mask modes of one kernel and two operand
+// layouts; and K2's int8 scores K2i8, with or without emission, as a
+// kernel of its own on the same producer, ring and epilogues
+// (attn90_i8_kernel, below). Every attention kernel of the port is here.
 //
 // Replaces (embeddings_tpu/ops/attention.py, the Pallas TPU kernels):
 //   mode 0, K2: _attn_kernel (its bf16 branch), behind fused_attention();
@@ -21,6 +22,9 @@
 //               relative-position bias, jina's ALiBi on short rows);
 //   modes 4, 5, K6: _attn_kernel_stream in its plain and ALiBi modes,
 //               behind fused_attention_stream();
+//   mode 6, K6w: _attn_kernel_stream in its span + window (banded) mode,
+//               behind fused_attention_window() (ModernBERT's local
+//               layers);
 //   mode 7, K6c: _attn_kernel_stream in its causal mode, behind
 //               fused_attention_stream(causal=True);
 //   mode 8, K6ca: _attn_kernel_stream with causal and ALiBi together,
@@ -32,8 +36,6 @@
 //               blocks, and this kernel streams key tiles in both);
 //   K2i8: _attn_kernel's int8_scores branch (with _emit_int8_rows for
 //               K2i8 with emission), behind fused_attention(int8_scores=).
-// K6w stays on attention.cu's WMMA kernel; ops/attention.py:
-// attention_kernel routes.
 //
 // For each sequence b, head h and query i, reading q, k and v as column
 // slices of the fused qkv [B*L, 3E] (q at h*D, k at E + h*D, v at 2E +
@@ -54,6 +56,9 @@
 //   mode 4: s = clamp(d * s2, -100, hi);
 //   mode 5: s = clamp(d * s2 - slope[h] * (f32(|i - j|) * log2(e)), -100,
 //           hi) (jina-bert-v2's ALiBi from positions);
+//   mode 6: mode 4's score, key j also dropped where |i - j| > W (W =
+//           window // 2), over the 128-key tiles the band of the block's
+//           query rows meets inside len[b] only (band_tiles);
 //   mode 7: mode 4's score, key j also dropped where j > i;
 //   mode 8: mode 5's score with mode 7's mask;
 //   key j valid iff j < len[b] (and j <= i in modes 7, 8; j < L in mode 1)
@@ -102,7 +107,11 @@
 // head does one tile's work between its prologue and its epilogue. K5 at
 // 32 packed rows of 1,024 (W=3) moves the same ~201 MB for ~19 GFLOP of
 // its same-segment pairs and ~151 M exp2 (0.036 ms on the SFUs): bound by
-// bytes (0.06 ms), at most 3 key tiles a head. K2i8 at bge's shape moves
+// bytes (0.06 ms), at most 3 key tiles a head. K6w at ModernBERT's B=32,
+// L=1,024 and B=4, L=8,192 (window 128: W=64) moves the same ~201 MB for
+// ~13 GFLOP of its band's pairs: bound by bytes (0.06 ms); a 128-row query
+// block walks 3 key tiles a head, and every one of them needs the band
+// mask. K2i8 at bge's shape moves
 // the same ~201 MB for ~26 G int8 operations (0.013 ms at 1,979 TOP/s):
 // bound by bytes (0.06 ms; "only" 0.053), but every q, k and v element is
 // quantized in the kernel and each score takes an exp2 and two roundings,
@@ -175,6 +184,10 @@
 //   block in one block too (WIN_ALL_HEADS; 0.137-0.140 ms against
 //   0.140-0.142 a block per head at 32 packed rows of 1,024, W=3,
 //   tools/attention_ab.py, H100 at 700 W);
+// - mode 6 (K6w) takes mode 2's walk with its key-tile range computed from
+//   q0, W and len[b] (band_tiles; no tables), and mode 4's score with a
+//   lower and an upper key limit a row in the score pass. BAND_ALL_HEADS
+//   and BAND_PER_WG choose how its blocks run (see there);
 // - the CP layout (K8a, K8b) is a template parameter (CP = 1), not a
 //   branch: q comes by TMA from its own 3-D map [B, Lc, E] of row stride
 //   ldq (rows past Lc read as zeros), k and v from a map of kv [B, L, 2E];
@@ -270,7 +283,7 @@
 namespace {
 
 enum Mode { PREFIX = 0, SEGMENT = 1, WINDOW = 2, BIAS = 3, STREAM = 4,
-            ALIBI = 5, CAUSAL = 7, CAUSAL_ALIBI = 8 };
+            ALIBI = 5, BAND = 6, CAUSAL = 7, CAUSAL_ALIBI = 8 };
 
 // the segment-masked modes: K4 (every key of the row) and K5 (a range of
 // key tiles a query tile)
@@ -300,6 +313,17 @@ constexpr bool SEG_ALL_HEADS = true;
 // K5 (mode 2) the same way: every head in one block (true) or a block per
 // head (false)
 constexpr bool WIN_ALL_HEADS = true;
+// K6w (mode 6) the same way: every head in one block (true) or a block per
+// head (false; with BAND_PER_WG, 0.100-0.103 ms against 0.133-0.147 at
+// ModernBERT's B=32, L=1,024 and B=4, L=8,192, window 128)
+constexpr bool BAND_ALL_HEADS = true;
+// K6w's key tiles: each consumer warpgroup walks only the tiles its own 64
+// rows' band meets, and waits for and hands back the block's others
+// without a product (true: at window 128 two of the block's three), or
+// both walk the whole block's range (false; every head in one block,
+// 0.100-0.103 ms against 0.132-0.136 at those shapes; both choices timed
+// with tools/attention_ab.py, H100 at 700 W)
+constexpr bool BAND_PER_WG = true;
 // mode 3's block order: a bias of more bytes than this (half of the
 // H100's 50 MB L2) runs the sequence index fastest, so the blocks that
 // share a (query block, head) tile of it run together; a smaller one the
@@ -338,7 +362,20 @@ __host__ __device__ constexpr bool ones_sum(int D, int mode) {
 // emission (each row's absmax spans the heads), in K4 and in K5.
 __host__ __device__ constexpr bool all_heads(int mode, int emit) {
   return emit != EMIT_NO || (mode == SEGMENT && SEG_ALL_HEADS) ||
-         (mode == WINDOW && WIN_ALL_HEADS);
+         (mode == WINDOW && WIN_ALL_HEADS) ||
+         (mode == BAND && BAND_ALL_HEADS);
+}
+
+// Mode 6: the 128-key tiles that hold a key of the band of query rows q0
+// .. q0 + rows - 1 (keys q0 - W .. q0 + rows - 1 + W) below len: the first
+// tile and the count (0: no key; the first then means nothing).
+// ops/attention.py:band_tiles is the same arithmetic.
+__device__ __forceinline__ int2 band_tiles(int q0, int rows, int W,
+                                           int len) {
+  const int lo = max(0, q0 - W);
+  const int hi = min(len, q0 + rows + W);
+  return lo < hi ? make_int2(lo / KT, (hi - 1) / KT - lo / KT + 1)
+                 : make_int2(lo / KT, 0);
 }
 
 // Shared memory from a 1024-byte aligned base: the Q tile (NC x 64 rows;
@@ -379,13 +416,14 @@ static_assert(Smem<128, 2, SEGMENT, EMIT_ONLY>::bytes <= 232448,
               "D=128 emitting block");
 static_assert(Smem<128, 2, SEGMENT, EMIT_NO>::bytes <= 232448,
               "D=128 segment block");
+static_assert(Smem<128, 2, BAND, EMIT_NO>::bytes <= 232448, "D=128 band block");
 
 struct Args {
   const int* lengths;   // [B] int32 (modes 0, 3-8)
   const int* seg;       // [B, L] int32 (modes 1, 2)
   const int* kbs;       // [B, L/128] int32 (mode 2): first key tile
   const int* kbe;       // [B, L/128] int32 (mode 2): last key tile
-  int W;                // mode 2: the key-tile cap
+  int W;                // mode 2: the key-tile cap; mode 6: window // 2
   const float* slopes;  // [H] f32 (modes 5, 8)
   __nv_bfloat16* out;   // [B*Lq, E] (not with "only" emission)
   int8_t* o8;           // emission: [B*L, E] codes
@@ -430,11 +468,13 @@ __device__ __forceinline__ int2 ld_shared_i2(uint32_t addr) {
 // and 64 keys, in place: s[4j + e] is row e < 2 ? r0 : r0 + 8, key k0 + 2
 // * quad + 8j + (e & 1). fq[r]: f32(row - k0 - 2 * quad) (ALiBi's
 // distance, exact in f32); lim[r]: the row's valid keys end, minus k0 + 2
-// * quad. Mode 3: bq, the shared address of row r0's bias pair in key
-// block 0 of the tile's bias stage (row r0 + 8's is 1 KB on), boff[m] the
-// swizzled chunk offset of keys 8m.. within a 32-key block. Mode 1: sk,
-// the shared address of key k0 + 2 * quad's segment id in the tile's K
-// stage, sq[r] the row's segment id (-2 for a pad row: no key matches).
+// * quad; mode 6: lo[r], the row's first valid key, minus k0 + 2 * quad
+// (the band's lower end; its upper end is in lim). Mode 3: bq, the
+// shared address of row r0's bias pair in key block 0 of the tile's bias
+// stage (row r0 + 8's is 1 KB on), boff[m] the swizzled chunk offset of
+// keys 8m.. within a 32-key block. Mode 1: sk, the shared address of key
+// k0 + 2 * quad's segment id in the tile's K stage, sq[r] the row's
+// segment id (-2 for a pad row: no key matches).
 // Leaves the probabilities in s: with ONES_SUM as they are (the
 // A-fragment conversion rounds them and the tensor cores sum them), else
 // rounded to bf16, and adds them to the row sums.
@@ -442,8 +482,9 @@ template <int MODE, bool MASKED, bool ONES_SUM>
 __device__ __forceinline__ void score_pass(float* s, float* sum, float s2,
                                            float hi, float slope,
                                            const float* fq, const int* lim,
-                                           uint32_t bq, const uint32_t* boff,
-                                           uint32_t sk, const int* sq) {
+                                           const int* lo, uint32_t bq,
+                                           const uint32_t* boff, uint32_t sk,
+                                           const int* sq) {
 #pragma unroll
   for (int j = 0; j < KT / 8; ++j) {
     float v[4];
@@ -473,6 +514,7 @@ __device__ __forceinline__ void score_pass(float* s, float* sum, float s2,
       }
       float p = ex2(fminf(fmaxf(raw, -100.0f), hi));
       if constexpr (MASKED) p = c < lim[e >> 1] ? p : 0.0f;
+      if constexpr (MODE == BAND) p = c >= lo[e >> 1] ? p : 0.0f;
       if constexpr (seg_mode(MODE))
         p = ((e & 1) ? kseg.y : kseg.x) == sq[e >> 1] ? p : 0.0f;
       v[e] = p;
@@ -658,8 +700,8 @@ __global__ void __launch_bounds__(128 * (NC + 1), 1) attn_sm90_kernel(
                 "emission is modes 0 and 1");
   static_assert(CP == 0 || (MODE == STREAM && !EMITS),
                 "the CP layout is mode 4's, without emission");
-  static_assert(MODE != WINDOW || NC == 2,
-                "mode 2's query tiles are its 128-row blocks");
+  static_assert((MODE != WINDOW && MODE != BAND) || NC == 2,
+                "modes 2 and 6 take 128-row query blocks");
   const bool batch_fastest = MODE == BIAS && a.batch_fastest;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw_base = smem_u32(smem_raw);
@@ -726,6 +768,13 @@ __global__ void __launch_bounds__(128 * (NC + 1), 1) attn_sm90_kernel(
     const int last =
         __shfl_sync(0xffffffffu, min(t0 + a.W - 1, a.kbe[at]), 0);
     nt = max(last - t0 + 1, 0);
+  }
+  // mode 6 walks the key tiles the band of its 128 rows meets below len
+  // (an empty range: none), broadcast from lane 0 as mode 2's
+  if constexpr (MODE == BAND) {
+    const int2 r = band_tiles(q0, QB, a.W, len);
+    t0 = __shfl_sync(0xffffffffu, r.x, 0);
+    nt = __shfl_sync(0xffffffffu, r.y, 0);
   }
 
   if constexpr (ONES) {
@@ -836,6 +885,17 @@ __global__ void __launch_bounds__(128 * (NC + 1), 1) attn_sm90_kernel(
   const int qw0 = q0 + wg * WG_ROWS;
   const int rw = ((tid % 128) / 32) * 16 + (lane >> 2);  // row in the wg
   const int row0 = qw0 + rw;
+  // this warpgroup's key tiles: lead .. lead + ntw - 1 of the block's t0 ..
+  // t0 + nt - 1. All of them, but in mode 6 with BAND_PER_WG those its own
+  // rows' band meets (a contiguous part: warpgroup 0's rows start the
+  // block's band, warpgroup 1's end it); it waits for the others and hands
+  // them back without a product (skip_turn)
+  int lead = 0, ntw = nt;
+  if constexpr (MODE == BAND && BAND_PER_WG) {
+    const int2 r = band_tiles(qw0, WG_ROWS, a.W, len);
+    ntw = __shfl_sync(0xffffffffu, r.y, 0);
+    lead = __shfl_sync(0xffffffffu, r.y > 0 ? r.x - t0 : nt, 0);
+  }
   // modes 1, 2: the two rows' segment ids (a pad row, or a row past L,
   // -2: it matches no key), and this thread's first key id in a K stage
   int sq[2] = {-2, -2};
@@ -941,23 +1001,33 @@ __global__ void __launch_bounds__(128 * (NC + 1), 1) attn_sm90_kernel(
     // tile t (ring tile g)'s score pass, once its S is complete: in place,
     // and the sums
     auto score_tile = [&](int t, int g) {
-      const int k0 = (t0 + t) * KT;
+      const int k0 = (t0 + lead + t) * KT;
       const int kq = k0 + 2 * quad;
       const float fq[2] = {(float)(row0 - kq), (float)(row0 + 8 - kq)};
       int lim[2] = {len - kq, len - kq};
+      int lo[2] = {0, 0};
       if constexpr (causal_mode(MODE)) {
         lim[0] = min(len, row0 + 1) - kq;
         lim[1] = min(len, row0 + 9) - kq;
       }
+      if constexpr (MODE == BAND) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          lim[r] = min(len, row0 + 8 * r + a.W + 1) - kq;
+          lo[r] = row0 + 8 * r - a.W - kq;
+        }
+      }
       const uint32_t bt = bq + (t % BS) * S::b_tile_bytes;
       const uint32_t sk = sk0 + (g % STAGES) * C::SEG_BYTES;
-      if (seg_mode(MODE) || k0 + KT > len ||
+      // (with W = 64 no 128-key tile lies inside a row's band: mode 6
+      // masks every tile)
+      if (seg_mode(MODE) || MODE == BAND || k0 + KT > len ||
           (causal_mode(MODE) && k0 + KT - 1 > qw0))
-        score_pass<MODE, true, ONES>(s, sum, a.s2, a.hi, slope, fq, lim, bt,
-                                     boff, sk, sq);
+        score_pass<MODE, true, ONES>(s, sum, a.s2, a.hi, slope, fq, lim, lo,
+                                     bt, boff, sk, sq);
       else
         score_pass<MODE, false, ONES>(s, sum, a.s2, a.hi, slope, fq, lim,
-                                      bt, boff, sk, sq);
+                                      lo, bt, boff, sk, sq);
       if constexpr (MODE == BIAS) {
         // every lane's bias reads are done: the stage goes back
         __syncwarp();
@@ -969,26 +1039,52 @@ __global__ void __launch_bounds__(128 * (NC + 1), 1) attn_sm90_kernel(
       if constexpr (MODE == BIAS) mbar_wait(b_full(t % BS), (t / BS) & 1);
     };
 
-    if (nt > 0) {
+    // mode 6 with BAND_PER_WG: a tile of the block's range that this
+    // warpgroup's rows have no key in. It waits for the tile (so its
+    // arrivals count toward that tile's phase of the empty barriers, not an
+    // earlier one's), hands the stage back, and takes a turn without a
+    // product: both warpgroups take nt + 1 turns a head, as the walk of nt
+    // tiles does. last: this warpgroup's last turn of the head.
+    auto skip_turn = [&](int g, bool last) {
+      if (g >= 0) {
+        const int st = g % STAGES;
+        const uint32_t ph = (g / STAGES) & 1;
+        mbar_wait(k_full(st), ph);
+        mbar_wait(v_full(st), ph);
+        if (lane == 0) {
+          mbar_arrive(k_empty(st));
+          mbar_arrive(v_empty(st));
+        }
+      }
+      take_turn();
+      if (!last || wg == 0 || hh + 1 < n_heads) pass_turn();
+    };
+    if constexpr (MODE == BAND && BAND_PER_WG) {
+      for (int i = 0; i < lead; ++i) skip_turn(g0 + i, false);
+      // no tile of its own: one more turn, in place of the walk's last
+      if (nt > 0 && ntw == 0) skip_turn(-1, true);
+    }
+    const int gb = g0 + lead;  // the ring tile of this warpgroup's first
+    if (ntw > 0) {
       // tile 0: its scores alone
-      mbar_wait(k_full(g0 % STAGES), (g0 / STAGES) & 1);
+      mbar_wait(k_full(gb % STAGES), (gb / STAGES) & 1);
       wait_bias(0);
       take_turn();
       fence_regs<KT / 2>(s);
       wgmma_fence();
-      issue_scores(g0 % STAGES);
+      issue_scores(gb % STAGES);
       wgmma_commit();
       pass_turn();
       wgmma_wait<0>();
       fence_regs<KT / 2>(s);
-      if constexpr (!seg_mode(MODE)) release_k(g0);
-      score_tile(0, g0);
-      if constexpr (seg_mode(MODE)) release_k(g0);
+      if constexpr (!seg_mode(MODE)) release_k(gb);
+      score_tile(0, gb);
+      if constexpr (seg_mode(MODE)) release_k(gb);
       to_fragments(s, p);
-      // tiles 1 .. nt - 1: the scores of tile t issued with the product
+      // tiles 1 .. ntw - 1: the scores of tile t issued with the product
       // of tile t - 1, and tile t's score pass run while that product runs
-      for (int t = 1; t < nt; ++t) {
-        const int g = g0 + t;
+      for (int t = 1; t < ntw; ++t) {
+        const int g = gb + t;
         const int sc = g % STAGES;
         const int sp = (g - 1) % STAGES;
         mbar_wait(k_full(sc), (g / STAGES) & 1);
@@ -1018,7 +1114,7 @@ __global__ void __launch_bounds__(128 * (NC + 1), 1) attn_sm90_kernel(
         to_fragments(s, p);
       }
       // the last tile's product alone
-      const int gl = g0 + nt - 1;
+      const int gl = gb + ntw - 1;
       const int sp = gl % STAGES;
       mbar_wait(v_full(sp), (gl / STAGES) & 1);
       take_turn();
@@ -1028,12 +1124,14 @@ __global__ void __launch_bounds__(128 * (NC + 1), 1) attn_sm90_kernel(
       wgmma_fence();
       pv_product<D, ONES>(o, rs, p, dv + ((sp * C::TILE_BYTES) >> 4), d1);
       wgmma_commit();
-      if (wg == 0 || hh + 1 < n_heads) pass_turn();
+      if (wg == 0 || hh + 1 < n_heads || lead + ntw < nt) pass_turn();
       wgmma_wait<0>();
       fence_regs<D / 2>(o);
       fence_regs<4>(rs);
       if (lane == 0) mbar_arrive(v_empty(sp));
     }
+    if constexpr (MODE == BAND && BAND_PER_WG)
+      for (int i = lead + ntw; i < nt; ++i) skip_turn(g0 + i, i == nt - 1);
     // this head's Q buffer goes back (its every product is done)
     if constexpr (ALL_HEADS)
       if (lane == 0) mbar_arrive(q_empty(qi));
@@ -1786,6 +1884,8 @@ cudaError_t launch_mode(int mode, const void* qkv, const void* bias,
                  : launch<D, BIAS, 2>(qkv, bias, a, B, stream);
     case STREAM: return launch<D, STREAM, 2>(qkv, bias, a, B, stream);
     case ALIBI: return launch<D, ALIBI, 2>(qkv, bias, a, B, stream);
+    case BAND:  // L % 128 == 0: two warpgroups, one 128-row block
+      return launch<D, BAND, 2>(qkv, bias, a, B, stream);
     case CAUSAL: return launch<D, CAUSAL, 2>(qkv, bias, a, B, stream);
     case CAUSAL_ALIBI:
       return launch<D, CAUSAL_ALIBI, 2>(qkv, bias, a, B, stream);
@@ -1875,13 +1975,13 @@ extern "C" {
 // qkv [B*L, 3*H*D] bf16 (16-byte aligned), lengths [B] int32 (modes 0,
 // 3-8), seg [B, L] int32 (modes 1 and 2, -1 on pads), kbs, kbe [B, L/128]
 // int32 (mode 2: each 128-row query block's first and last key block,
-// block_ranges) and W (mode 2: the key-block cap, >= 1), slopes [H] f32
-// (modes 5 and 8), bias [H, L, L] f32 (mode 3, log2-scaled, 16-byte
-// aligned), out [B*L, H*D] bf16, all device pointers (a mode's unused
-// ones may be null). mode: 0 (K2), 1 (K4), 2 (K5; L % 128 == 0), 3 (K7),
-// 4, 5 (K6 plain, ALiBi), 7 (K6c), 8 (K6ca). D: 32, 64 or 128; L % 8 ==
-// 0. s2 = log2(e)/sqrt(D) as f32; hi = the score clamp bound. Returns a
-// cudaError_t.
+// block_ranges) and W (mode 2: the key-block cap, >= 1; mode 6: window //
+// 2, >= 0), slopes [H] f32 (modes 5 and 8), bias [H, L, L] f32 (mode 3,
+// log2-scaled, 16-byte aligned), out [B*L, H*D] bf16, all device pointers
+// (a mode's unused ones may be null). mode: 0 (K2), 1 (K4), 2 (K5; L %
+// 128 == 0), 3 (K7), 4, 5 (K6 plain, ALiBi), 6 (K6w; L % 128 == 0), 7
+// (K6c), 8 (K6ca). D: 32, 64 or 128; L % 8 == 0. s2 = log2(e)/sqrt(D) as
+// f32; hi = the score clamp bound. Returns a cudaError_t.
 int attn90_launch(const void* qkv, const void* lengths, const void* seg,
                   const void* kbs, const void* kbe, const void* slopes,
                   const void* bias, void* out, int mode, int B, int L, int H,
@@ -1894,13 +1994,15 @@ int attn90_launch(const void* qkv, const void* lengths, const void* seg,
   if (mode == WINDOW &&
       (kbs == nullptr || kbe == nullptr || W < 1 || L % KT))
     return cudaErrorInvalidValue;
+  if (mode == BAND && (W < 0 || L % KT)) return cudaErrorInvalidValue;
   if (B == 0) return cudaSuccess;
   Args a{};
   a.lengths = static_cast<const int*>(lengths);
   a.seg = static_cast<const int*>(seg);
   a.kbs = static_cast<const int*>(kbs);
   a.kbe = static_cast<const int*>(kbe);
-  a.W = W;
+  // (mode 6: a half window past L keeps every key of the row, |i - j| < L)
+  a.W = mode == BAND && W > L ? L : W;
   a.slopes = static_cast<const float*>(slopes);
   a.out = static_cast<__nv_bfloat16*>(out);
   a.L = a.Lq = L;

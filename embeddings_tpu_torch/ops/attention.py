@@ -16,16 +16,15 @@ all-gathered K/V) and its key-streamed variant
 Each wrapper launches its mask mode of a hand-written kernel on a CUDA
 tensor, or raises: K2 with its emission K2e and its int8 scores K2i8 (a
 kernel of its own in the same library, with or without emission), K4 and
-its emission K4e, K5, K7, K6, K6c, K6ca, K8a and K8b run on the Hopper
-library ``csrc/attention_sm90.cu`` (wgmma, a TMA ring), K6w alone on
-``csrc/attention.cu`` (WMMA); ``attention_kernel`` routes, and the
-``routes`` counters of ``fused_attention``, ``fused_attention_segmented``,
+its emission K4e, K5, K7, K6, K6c, K6ca, K6w, K8a and K8b all run on the
+Hopper library ``csrc/attention_sm90.cu`` (wgmma, a TMA ring);
+``attention_kernel`` names the route, and the ``routes`` counters of
+``fused_attention``, ``fused_attention_segmented``,
 ``fused_attention_segmented_blockskip``, ``fused_attention_bias``,
-``fused_attention_stream``, ``fused_attention_cp`` and
-``fused_attention_cp_stream`` count the launches by route. On a CPU
-tensor each wrapper runs
-its plain PyTorch version, which repeats the kernel's arithmetic step by
-step: exp2 of the clamped scores with no max-subtraction, probabilities
+``fused_attention_stream``, ``fused_attention_window``,
+``fused_attention_cp`` and ``fused_attention_cp_stream`` count the
+launches by route. On a CPU tensor each wrapper runs its plain PyTorch
+version, which repeats the kernel's arithmetic step by step: exp2 of the clamped scores with no max-subtraction, probabilities
 rounded to the compute dtype before both the PV product and the
 denominator, 1e-30 floor on the denominator (pad query rows stay finite).
 K2 pre-scales q by log2(e)/sqrt(D) and rounds it to the compute dtype;
@@ -491,6 +490,26 @@ def window_span(window: int) -> int:
     return -(-(window // 2) // BQ)
 
 
+def band_half(window: int, L: int) -> int:
+    """K6w's W, the band's half width the kernel takes: window // 2,
+    capped at L (|i - j| < L in a row of L, so the band is the same)."""
+    return min(window // 2, L)
+
+
+def band_tiles(q0: int, rows: int, W: int, length: int) -> tuple[int, int]:
+    """The 128-key tiles K6w walks for query rows q0 .. q0 + rows - 1 of a
+    sequence of ``length`` keys, as the kernel computes them
+    (``band_tiles`` in ``csrc/attention_sm90.cu``): (first tile, count),
+    the tiles that hold a key of q0 - W .. q0 + rows - 1 + W below
+    ``length``; count 0 where none does. A 128-row query block walks its
+    range (rows=128); each of its two consumer warpgroups (rows=64) the
+    part its own rows need."""
+    lo, hi = max(0, q0 - W), min(length, q0 + rows + W)
+    if lo >= hi:
+        return lo // BQ, 0
+    return lo // BQ, (hi - 1) // BQ - lo // BQ + 1
+
+
 def fused_attention_window_ref(qkv: torch.Tensor, lengths: torch.Tensor, *,
                                B: int, L: int, H: int, D: int,
                                window: int) -> torch.Tensor:
@@ -545,7 +564,9 @@ def fused_attention_window(qkv: torch.Tensor, lengths: torch.Tensor, *,
     ``fused_attention_stream``). Work is O(L * window), not O(L^2). Takes
     the shapes of the JAX package's ``fused_attention_window``
     (``stream_supported(L, H, D, 128)``). A CUDA tensor launches K6w
-    (``csrc/attention.cu``, band mode); a CPU tensor runs
+    (``csrc/attention_sm90.cu``, mode 6: each 128-row query block walks
+    the key tiles ``band_tiles`` gives, W = ``band_half(window, L)``),
+    counted in ``launches`` and by route in ``routes``; a CPU tensor runs
     ``fused_attention_window_ref``."""
     if window <= 0:
         raise ValueError(f"window must be positive, got {window}")
@@ -558,9 +579,10 @@ def fused_attention_window(qkv: torch.Tensor, lengths: torch.Tensor, *,
     out = torch.empty((B * L, H * D), dtype=qkv.dtype, device=qkv.device)
     if B == 0:
         return out
-    _launch("fused_attention_window", MODE_BAND, qkv, out, B, L, H, D,
-            _clamp_hi(L), lengths=lengths, W=window // 2)
+    route = _launch("fused_attention_window", MODE_BAND, qkv, out, B, L, H,
+                    D, _clamp_hi(L), lengths=lengths, W=band_half(window, L))
     fused_attention_window.launches += 1
+    fused_attention_window.routes[route] += 1
     return out
 
 
@@ -689,9 +711,8 @@ def _launch_cp(wrapper, q, kv, lengths, B, Lc, L, H, D) -> torch.Tensor:
     return out
 
 
-# mask modes of csrc/attention_sm90.cu (0, 1, 2, 3, 4, 5, 7, 8; 0 and 1
-# also with emission, 0 also with int8 scores, 4 also in the CP layout)
-# and csrc/attention.cu (6)
+# mask modes of csrc/attention_sm90.cu (0-8; 0 and 1 also with emission, 0
+# also with int8 scores, 4 also in the CP layout)
 MODE_PREFIX, MODE_SEGMENT, MODE_WINDOW = 0, 1, 2
 MODE_BIAS, MODE_STREAM, MODE_ALIBI, MODE_BAND, MODE_CAUSAL = 3, 4, 5, 6, 7
 MODE_CAUSAL_ALIBI = 8
@@ -702,13 +723,12 @@ SM90_EMIT_MODES = (MODE_PREFIX, MODE_SEGMENT)
 def attention_kernel(mode: int, D: int, emit: str = "no", cp: bool = False,
                      i8s: bool = False) -> str:
     """The hand-written kernel an attention launch takes: "sm90"
-    (``csrc/attention_sm90.cu``: wgmma, a TMA ring) for every mode but 6:
-    modes 0, 1, 2, 3, 4, 5, 7 and 8 (K2, K4, K5, K7, K6 plain and ALiBi,
-    K6c, K6ca), modes 0 and 1 with emission (K2e, K4e), mode 0 with int8
-    scores under every emission (K2i8, its own kernel in that library)
-    and mode 4 in the CP operand layout (K8a, K8b); "wmma"
-    (``csrc/attention.cu``) for K6w (mode 6) alone. No fallback: a
-    route's failed build or refused launch raises."""
+    (``csrc/attention_sm90.cu``: wgmma, a TMA ring) for every mode:
+    modes 0-8 (K2, K4, K5, K7, K6 plain and ALiBi, K6w, K6c, K6ca), modes
+    0 and 1 with emission (K2e, K4e), mode 0 with int8 scores under every
+    emission (K2i8, its own kernel in that library) and mode 4 in the CP
+    operand layout (K8a, K8b). Raises on what no kernel takes. No
+    fallback: a failed build or a refused launch raises."""
     if mode not in range(9):
         raise ValueError(f"no attention mode {mode}")
     if D not in KERNEL_HEAD_DIMS:
@@ -723,7 +743,7 @@ def attention_kernel(mode: int, D: int, emit: str = "no", cp: bool = False,
         raise ValueError("int8 scores are mode 0's (K2i8)")
     if emit != "no" and mode not in SM90_EMIT_MODES:
         raise ValueError(f"mode {mode} does not emit")
-    return "wmma" if mode == MODE_BAND else "sm90"
+    return "sm90"
 
 
 def sm90_warpgroups(L: int) -> int:
@@ -754,45 +774,35 @@ def _launch(what, mode, qkv, out, B, L, H, D, hi, *, lengths=None,
 
     def ptr(t):
         return None if t is None else t.data_ptr()
-    if route == "sm90":
-        lib = _lib90()
-        if cp is not None:
-            q, Lc = cp
-            status = lib.attn90_cp_launch(
-                q.data_ptr(), qkv.data_ptr(), lengths.data_ptr(),
-                out.data_ptr(), B, Lc, L, H, D, q.stride(0), _scale(D), hi,
-                stream)
-        elif emit == "no" and not i8s:
-            status = lib.attn90_launch(
-                qkv.data_ptr(), *map(ptr, (lengths, seg, kbs, kbe, slopes,
-                                           bias, out)),
-                mode, B, L, H, D, W, _scale(D), hi, stream)
+    lib = _lib90()
+    if cp is not None:
+        q, Lc = cp
+        status = lib.attn90_cp_launch(
+            q.data_ptr(), qkv.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+            B, Lc, L, H, D, q.stride(0), _scale(D), hi, stream)
+    elif emit == "no" and not i8s:
+        status = lib.attn90_launch(
+            qkv.data_ptr(), *map(ptr, (lengths, seg, kbs, kbe, slopes, bias,
+                                       out)),
+            mode, B, L, H, D, W, _scale(D), hi, stream)
+    else:
+        # K2e / K4e / K2i8; the f32 scratch of "only" is freed after the
+        # launch: the allocator reuses it only for work queued behind it on
+        # this stream
+        shape = emit_scratch_shape(B, L, H, D, emit)
+        scratch = (None if shape is None else
+                   torch.empty(shape, dtype=torch.float32,
+                               device=qkv.device))
+        if i8s:
+            status = lib.attn90_i8_launch(
+                qkv.data_ptr(), *map(ptr, (lengths, out, o8, os, scratch)),
+                EMITS.index(emit), B, L, H, D, _scale(D), stream)
         else:
-            # K2e / K4e / K2i8; the f32 scratch of "only" is freed after
-            # the launch: the allocator reuses it only for work queued
-            # behind it on this stream
-            shape = emit_scratch_shape(B, L, H, D, emit)
-            scratch = (None if shape is None else
-                       torch.empty(shape, dtype=torch.float32,
-                                   device=qkv.device))
-            if i8s:
-                status = lib.attn90_i8_launch(
-                    qkv.data_ptr(), *map(ptr, (lengths, out, o8, os,
-                                               scratch)),
-                    EMITS.index(emit), B, L, H, D, _scale(D), stream)
-            else:
-                status = lib.attn90_emit_launch(
-                    qkv.data_ptr(), *map(ptr, (lengths, seg, out, o8, os,
-                                               scratch)),
-                    mode, EMITS.index(emit), B, L, H, D, _scale(D), hi,
-                    stream)
-        check(status, lib.attn90_error_string, what)
-        return route
-    lib = _lib()
-    status = lib.attn_launch(qkv.data_ptr(), lengths.data_ptr(),
-                             out.data_ptr(), mode, B, L, H, D, W, _scale(D),
-                             hi, stream)
-    check(status, lib.attn_error_string, what)
+            status = lib.attn90_emit_launch(
+                qkv.data_ptr(), *map(ptr, (lengths, seg, out, o8, os,
+                                           scratch)),
+                mode, EMITS.index(emit), B, L, H, D, _scale(D), hi, stream)
+    check(status, lib.attn90_error_string, what)
     return route
 
 
@@ -988,10 +998,9 @@ def fused_attention_segmented_blockskip(
 # K8b launch adds one (K6c to fused_attention_stream.causal_launches, K6ca
 # to its causal_alibi_launches); K2 and K4 also count their emitting
 # launches (K2e / K4e) in both_launches and only_launches, K2 its
-# int8-scores launches (K2i8) in i8s_launches; K2's, K4's, K5's, K6's,
-# K7's and K8a's / K8b's launches also count by kernel in ``routes``
-# ("sm90" / "wmma", attention_kernel); callers reset them to 0 around the
-# run they measure
+# int8-scores launches (K2i8) in i8s_launches; every wrapper's launches
+# also count by kernel in ``routes`` ("sm90", attention_kernel); callers
+# reset them to 0 around the run they measure
 fused_attention.launches = 0
 fused_attention.routes = collections.Counter()
 fused_attention_segmented.routes = collections.Counter()
@@ -1006,6 +1015,7 @@ fused_attention_stream.launches = 0
 fused_attention_stream.causal_launches = 0
 fused_attention_stream.causal_alibi_launches = 0
 fused_attention_window.launches = 0
+fused_attention_window.routes = collections.Counter()
 fused_attention_segmented.launches = 0
 fused_attention_segmented_blockskip.launches = 0
 fused_attention_segmented_blockskip.routes = collections.Counter()
@@ -1038,16 +1048,3 @@ def type_lib90(lib: ctypes.CDLL) -> None:
     lib.attn90_error_string.argtypes = [i]
     lib.attn90_error_string.restype = ctypes.c_char_p
     lib._typed = True
-
-
-def _lib() -> ctypes.CDLL:
-    from . import _cuda
-    lib = _cuda.load("attention")
-    if not getattr(lib, "_typed", False):
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.attn_launch.argtypes = [p] * 3 + [i] * 6 + [f, f, p]
-        lib.attn_launch.restype = i
-        lib.attn_error_string.argtypes = [i]
-        lib.attn_error_string.restype = ctypes.c_char_p
-        lib._typed = True
-    return lib

@@ -102,12 +102,11 @@ WRAPPER_LAUNCHES = (
 @pytest.mark.parametrize("D", tattn.KERNEL_HEAD_DIMS)
 @pytest.mark.parametrize("mode,emit,cp,i8s", WRAPPER_LAUNCHES)
 def test_attention_kernel_routes(mode, emit, cp, i8s, D):
-    """The Hopper library takes every mode but K6w (6): 0, 1, 2, 3, 4, 5,
-    7, 8 without emission (K2, K4, K5, K7, K6, K6c, K6ca), 0 and 1 with it
-    (K2e, K4e), mode 0 with int8 scores under every emission (K2i8), and
-    mode 4 in the CP layout (K8a, K8b); the WMMA kernel K6w alone."""
-    want = "wmma" if mode == 6 else "sm90"
-    assert tattn.attention_kernel(mode, D, emit, cp, i8s) == want
+    """The Hopper library takes every launch: modes 0-8 without emission
+    (K2, K4, K5, K7, K6, K6w, K6c, K6ca), 0 and 1 with it (K2e, K4e),
+    mode 0 with int8 scores under every emission (K2i8), and mode 4 in
+    the CP layout (K8a, K8b)."""
+    assert tattn.attention_kernel(mode, D, emit, cp, i8s) == "sm90"
     assert tattn.sm90_warpgroups(64) == 1 and tattn.sm90_warpgroups(72) == 2
 
 

@@ -14,15 +14,16 @@ the bf16 rounding of the output differ. K4-K7, K6w, K6c and K6ca as K2;
 K6c's and K6ca's query rows that see fewer than 64 keys (the first rows
 of every sequence) also allow one bf16 flip of a probability, which
 moves an output by at most 2^-6 of the largest |v| among those keys
-(``_causal_close``). K2, K2i8, K4, K5, K7, K6, K6c, K6ca, K8a and K8b
-run on the Hopper library (``csrc/attention_sm90.cu``):
-``test_sm90_attention_matches_plain`` holds each of its fused-layout
-modes at lengths on its tile edges and checks the launches' route; so do
-the K4, K5, K2i8 and CP tests and the emission tests for K2e and K4e, its
-emitting modes. K3 is K1's wgmma kernel on int8 operands:
-``test_int8_operands_bit_for_bit`` holds its kept weight and its row
-quantization to the plain version's bits, ``test_qmatmul_int8_tiles_
-match_plain`` its tile configurations (``k3_tile``) at main-path sizes.
+(``_causal_close``). Every attention kernel (K2, K2i8, K4, K5, K7, K6,
+K6w, K6c, K6ca, K8a and K8b) runs on the Hopper library
+(``csrc/attention_sm90.cu``): ``test_sm90_attention_matches_plain``
+holds each of its prefix-masked modes at lengths on its tile edges and
+checks the launches' route; so do the K4, K5, K6w, K2i8 and CP tests and
+the emission tests for K2e and K4e, its emitting modes. K3 is K1's wgmma
+kernel on int8 operands: ``test_int8_operands_bit_for_bit`` holds its
+kept weight and its row quantization to the plain version's bits,
+``test_qmatmul_int8_tiles_match_plain`` its tile configurations
+(``k3_tile``) at main-path sizes.
 """
 
 import numpy as np
@@ -307,17 +308,82 @@ def test_stream_attention_kernel_matches_plain(cuda, B, L, H, D, BK, alibi):
                                             (4, 1024, 12, 64, 128),
                                             (2, 512, 12, 64, 2048)])
 def test_window_attention_kernel_matches_plain(cuda, B, L, H, D, window):
+    """K6w on the Hopper kernel (mode 6), K2's tolerance, one launch on
+    the "sm90" route; the all-pad row gives 0."""
     rng = np.random.default_rng(L + window)
     qkv = torch.from_numpy(rng.standard_normal(
         (B * L, 3 * H * D), dtype=np.float32)).to(cuda, torch.bfloat16)
     lens = _ragged(rng, B, L, cuda)
     kw = dict(B=B, L=L, H=H, D=D, window=window)
-    before = A.fused_attention_window.launches
-    got = A.fused_attention_window(qkv, lens, **kw)
-    assert A.fused_attention_window.launches == before + 1
+    wrapper = A.fused_attention_window
+    before = (wrapper.launches, dict(wrapper.routes))
+    got = wrapper(qkv, lens, **kw)
+    assert wrapper.launches == before[0] + 1
+    _one_sm90_launch(wrapper, before[1])
     _close(got, A.fused_attention_window_ref(qkv, lens, **kw), 2 ** -6, 1e-2)
     if B > 1:
         assert (got.reshape(B, L, -1)[0] == 0).all()
+
+
+def _window_close(got, ref, qkv, lens, B, L, H, D, window):
+    """K6w against its plain version on the query rows i < len[b] (K2's
+    tolerance); pad query rows finite, those past len[b] + window // 2
+    (which see no key) exactly 0. A pad row that still sees a few keys is
+    never read, and one bf16 flip of a probability there moves it by up
+    to 2^-8 of a key's value: it is not held to K2's tolerance."""
+    i = torch.arange(L, device=got.device)[None, :]
+    real = (i < lens[:, None]).reshape(-1)
+    none = (i >= lens[:, None] + window // 2).reshape(-1)
+    _close(got[real], ref[real], 2 ** -6, 1e-2)
+    assert torch.isfinite(got.float()).all()
+    assert (got[none] == 0).all()
+
+
+@pytest.mark.parametrize("window", [8, 128, 384])
+@pytest.mark.parametrize("L,H,D", [(256, 4, 32), (384, 2, 128),
+                                   (512, 12, 64)])
+def test_window_attention_kernel_tile_edges(cuda, L, H, D, window):
+    """K6w at D = 32, 64 and 128 with lengths on the kernel's tile edges
+    (64-row warpgroups, 128-key tiles) and a full row."""
+    rng = np.random.default_rng(L + D + window)
+    lengths = [min(n, L) for n in EDGES] + [L]
+    B = len(lengths)
+    qkv = torch.from_numpy(rng.standard_normal(
+        (B * L, 3 * H * D), dtype=np.float32)).to(cuda, torch.bfloat16)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    kw = dict(B=B, L=L, H=H, D=D, window=window)
+    before = dict(A.fused_attention_window.routes)
+    got = A.fused_attention_window(qkv, lens, **kw)
+    _one_sm90_launch(A.fused_attention_window, before)
+    _window_close(got, A.fused_attention_window_ref(qkv, lens, **kw), qkv,
+                  lens, B, L, H, D, window)
+    assert (got.reshape(B, L, -1)[0] == 0).all()
+
+
+@pytest.mark.parametrize("D", [32, 64, 128])
+def test_window_attention_kernel_blocks_past_the_band(cuda, D):
+    """Query blocks wholly past len + window // 2 (their key-tile range is
+    empty: no tile is walked) and blocks whose band ends inside their
+    first warpgroup's tiles: those rows are exactly 0, the ring stays in
+    step across them and the rows that see keys match the plain
+    version."""
+    B, L, H, window = 4, 1024, 4, 128
+    rng = np.random.default_rng(D)
+    qkv = torch.from_numpy(rng.standard_normal(
+        (B * L, 3 * H * D), dtype=np.float32)).to(cuda, torch.bfloat16)
+    lens = torch.tensor([100, 300, 0, 700], dtype=torch.int32, device=cuda)
+    W = A.band_half(window, L)
+    empty = [(b, qb) for b, n in enumerate(lens.tolist())
+             for qb in range(L // 128)
+             if A.band_tiles(qb * 128, 128, W, n)[1] == 0]
+    assert len(empty) >= 16
+    kw = dict(B=B, L=L, H=H, D=D, window=window)
+    got = A.fused_attention_window(qkv, lens, **kw)
+    _window_close(got, A.fused_attention_window_ref(qkv, lens, **kw), qkv,
+                  lens, B, L, H, D, window)
+    rows = got.reshape(B, L // 128, 128, H * D)
+    for b, qb in empty:
+        assert (rows[b, qb] == 0).all()
 
 
 def _causal_close(got, ref, qkv, lens, B, L, H, D):
@@ -387,9 +453,9 @@ def test_causal_alibi_attention_kernel_matches_plain(cuda, B, L, H, D, BK):
 
 def _one_sm90_launch(wrapper, before):
     """The wrapper's route counts gained one launch, on the Hopper
-    kernel."""
+    kernel, and no other."""
     assert wrapper.routes["sm90"] == before.get("sm90", 0) + 1
-    assert wrapper.routes["wmma"] == before.get("wmma", 0)
+    assert sum(wrapper.routes.values()) == sum(before.values()) + 1
 
 
 # lengths on the Hopper attention kernel's tile edges (64 queries, 128

@@ -228,6 +228,31 @@ def test_window_wrapper_rejects_bad_operands():
     assert tattn.window_span(8) == 1 and tattn.window_span(512) == 2
 
 
+@pytest.mark.parametrize("length", [0, 1, 63, 64, 65, 127, 128, 129, "L"])
+@pytest.mark.parametrize("L", [128, 384, 1024, 8192])
+@pytest.mark.parametrize("window", [8, 128, 384, 2048])
+def test_band_tiles_are_the_band(window, L, length):
+    """K6w's key-tile range (``band_tiles``, the kernel's arithmetic, at
+    W = ``band_half(window, L)``) for every 128-row query block and every
+    64-row consumer warpgroup, against a brute-force band-and-length mask
+    of the block's rows: every valid (i, j) pair (j < length, |i - j| <=
+    window // 2) lies in a tile of the range, every tile outside it holds
+    none, and so does no tile at the range's ends (the range is exactly
+    the tiles that hold one)."""
+    n = L if length == "L" else min(length, L)
+    W = tattn.band_half(window, L)
+    j = torch.arange(L)
+    for rows in (128, 64):
+        for q0 in range(0, L, rows):
+            i = torch.arange(q0, q0 + rows)
+            ok = ((i[:, None] - j[None, :]).abs() <= window // 2) & (j < n)
+            held = ok.reshape(rows, L // 128, 128).any(2).any(0)
+            first, count = tattn.band_tiles(q0, rows, W, n)
+            assert count >= 0 and first + count <= L // 128
+            assert list(range(first, first + count)) == \
+                held.nonzero().flatten().tolist(), (rows, q0)
+
+
 # ---------------------------------------------------------------------------
 # (c) encode_tokens against the JAX kernels in interpret mode
 # ---------------------------------------------------------------------------

@@ -5,23 +5,24 @@ without emission and with "only", and at B=16, L=1,024, past the rows
 whose scores stay in registers), K4 and K4e ("only"; on the packed rows
 of the STS fixture), K5 (32 packed rows of 1,024, window 3, the key-block
 ranges computed once as the forward does), K7 (MPNet's table bias, jina's
-ALiBi bias), K6 (plain and ALiBi), K6c, K6ca, and the CP layout's K8a
-(bge's shard, q read in place at row stride 3E) and K8b (nomic's shard)
-at the shapes the port's main paths give them (every row full).
+ALiBi bias), K6 (plain and ALiBi), K6w (ModernBERT's banded layers,
+window 128), K6c, K6ca, and the CP layout's K8a (bge's shard, q read in
+place at row stride 3E) and K8b (nomic's shard) at the shapes the port's
+main paths give them (every row full).
 
     python3 tools/attention_ab.py [--shapes K4_packed,K8b_nomic] \
-        [VARIANT.cu ...]
+        [--rounds 2] [VARIANT.cu ...]
 
 Each VARIANT.cu is a variant source of
 ``embeddings_tpu_torch/csrc/attention_sm90.cu`` (same C interface); it is
 built with nvcc beside the checkout's build, under
-``embeddings_tpu_torch/_build/``, and its ptxas C75xx notes (each a
-kernel whose wgmma are serialized) are printed. For each shape every
-library runs twice
-(CUDA events over 10 launches after 2 warm-ups), in the order checkout,
-variants, then reversed, and each variant's output is compared with the
-checkout's (max abs difference). Prints the card's name and power limit,
-then one JSON line per shape. Needs one CUDA device.
+``embeddings_tpu_torch/_build/`` (one nvcc a variant, all started
+together), and its ptxas C75xx notes (each a kernel whose wgmma are
+serialized) are printed. For each shape every library runs ``--rounds``
+times (CUDA events over 10 launches after 2 warm-ups), the rounds in the
+order checkout, variants, then reversed, and so on, and each variant's
+output is compared with the checkout's (max abs difference). Prints the
+card's name and power limit, then one JSON line per shape. Needs one CUDA device.
 """
 
 from __future__ import annotations
@@ -59,27 +60,40 @@ SHAPES = {"K2_bge": ((128, 256, 12, 64), 0),
           "K6_qwen2": ((4, 4096, 12, 128), 4),
           "K6_modernbert": ((4, 8192, 12, 64), 4),
           "K6_alibi_jina": ((4, 8192, 12, 64), 5),
+          "K6w_modernbert_short": ((32, 1024, 12, 64), 6),
+          "K6w_modernbert_long": ((4, 8192, 12, 64), 6),
           "K6c_qwen2_short": ((32, 512, 12, 128), 7),
           "K6c_qwen2": ((4, 4096, 12, 128), 7),
           "K6ca_jina": ((4, 8192, 12, 64), 8),
           **{name: (shape, "cp") for name, shape in CP_SHAPES.items()}}
 
 
-def build_variant(src: Path) -> ctypes.CDLL:
+def build_variants(srcs: list, checkout) -> dict:
+    """Build each variant source (one nvcc each, all started together)
+    and load it, running ``checkout()`` (the checkout's own build and
+    load) meanwhile: {"checkout": its library, source: library, ...}."""
     from embeddings_tpu_torch.ops import _cuda
     from embeddings_tpu_torch.ops.attention import type_lib90
     _cuda.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    out = _cuda.BUILD_DIR / f"ab_{src.parent.name}_{src.stem}.so"
-    log = subprocess.run(
-        [_cuda._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-         "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas",
-         "-v", "-I", str(_cuda.CSRC), "-o", str(out), str(src)],
-        check=True, capture_output=True, text=True)
-    print(json.dumps({"variant": str(src), "ptxas_c75xx_notes":
-                      (log.stdout + log.stderr).count("(C75")}), flush=True)
-    lib = ctypes.CDLL(str(out))
-    type_lib90(lib)
-    return lib
+    procs = {}
+    for src in map(Path, srcs):
+        out = _cuda.BUILD_DIR / f"ab_{src.parent.name}_{src.stem}.so"
+        procs[str(src)] = (out, subprocess.Popen(
+            [_cuda._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+             "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+             "-Xptxas", "-v", "-I", str(_cuda.CSRC), "-o", str(out),
+             str(src)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True))
+    libs = {"checkout": checkout()}
+    for src, (out, proc) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {src}:\n{log}")
+        print(json.dumps({"variant": src, "ptxas_c75xx_notes":
+                          log.count("(C75")}), flush=True)
+        libs[src] = ctypes.CDLL(str(out))
+        type_lib90(libs[src])
+    return libs
 
 
 def context(got, emit: str):
@@ -131,6 +145,9 @@ def shape_call(name, shape, mode, how, rng, dev):
         seg = torch.from_numpy(packed_tables(B, L)[0][1]).to(dev)
         kw = dict(B=B, L=L, H=H, D=D, emit_quantized=how)
         return lambda: A.fused_attention_segmented(qkv, seg, **kw)
+    if mode == 6:
+        kw = dict(B=B, L=L, H=H, D=D, window=128)
+        return lambda: A.fused_attention_window(qkv, lens, **kw)
     if mode == 3:
         kw = dict(B=B, L=L, H=H, D=D)
         bias = A.prepare_attention_bias(_family_bias(
@@ -147,6 +164,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--shapes", default=",".join(SHAPES),
                     help="comma-separated subset of " + ",".join(SHAPES))
+    ap.add_argument("--rounds", type=int, default=2,
+                    help="times each library runs a shape, in turns")
     ap.add_argument("variants", nargs="*", help="variant sources")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -158,9 +177,7 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip(), flush=True)
     lib90 = A._lib90
-    libs = {"checkout": lib90()}
-    for src in args.variants:
-        libs[src] = build_variant(Path(src))
+    libs = build_variants(args.variants, lib90)
     dev = torch.device("cuda")
     rng = np.random.default_rng(1)
     try:
@@ -169,8 +186,8 @@ def main() -> int:
             how = emit[0] if emit else "no"
             fn = shape_call(name, shape, mode, how, rng, dev)
             ms, outs = {}, {}
-            for order in (list(libs), list(libs)[::-1]):
-                for key in order:
+            for r in range(args.rounds):
+                for key in list(libs)[::-1 if r % 2 else 1]:
                     A._lib90 = lambda key=key: libs[key]
                     ms.setdefault(key, []).append(cuda_ms(fn, iters=10))
                     outs.setdefault(key, context(fn(), how))
