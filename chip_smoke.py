@@ -32,6 +32,12 @@ the port's paths through Engine -> encode_batch (or encode_batch_packed)
   the gathered K/V) and nomic-embed-text-v1 on a 1 x 4 mesh (RoPE,
   SwiGLU: K1 + K8b), against the single-device Engine and the plain f32
   CP forward;
+- the encoder families on K1 and K2 alone, each from its published
+  config with HF-named random weights through ``from_hf_state_dict``:
+  distilbert-base-uncased and all-distilroberta-v1 (6 layers; RoBERTa
+  also token-packed on K4), roformer_chinese_base (interleaved RoPE, also
+  at L=1,536) and albert-base-v2 (its 128-wide embeddings projected, one
+  layer applied 12 times; also int8 on K3 and CP on K8a);
 
 then times the kernels and the forwards, with a device-time profile of
 each forward by kernel.
@@ -43,6 +49,8 @@ each forward by kernel.
     python3 chip_smoke.py --phases device,build,k2,k6k7,k6c,k6ca  # attention
     python3 chip_smoke.py --phases device,build,k8,cp_path
     python3 chip_smoke.py --phases device,build,k6w,modernbert_path,timing
+    python3 chip_smoke.py --phases device,build,distilbert_path,\
+        roberta_path,roformer_path,albert_path,timing
 
 Each phase prints one JSON line. The last two lines are the kernel table
 and ``{"ok": true, "device": {...}}``; any failure exits non-zero before
@@ -176,6 +184,17 @@ QW_K1_SHAPES = {"qw_q_o": (QW_E, QW_E, "bias"),
                 "qw_gate": (QW_E, QW_F, "bias_silu"),
                 "qw_up": (QW_E, QW_F, "bias"),
                 "qw_down": (QW_F, QW_E, "bias")}
+
+# the encoder families on K1 and K2 alone (DistilBERT, RoBERTa, RoFormer,
+# ALBERT): their timing shape, RoFormer's whole rows of 1,536 (under the
+# whole-row rule's 1,920 at E=768), ALBERT under CP at B=32, L=512 on
+# data 2 x seq 2 (a shard B=16, Lc=256: K8a on every application of the
+# shared layer), and ALBERT's FFN-up with the tanh-GELU epilogue
+# (gelu_new) for K1 and K3
+ENC_SHAPE = (128, 256)
+ROFORMER_LONG = (16, 1536)
+CP_ALBERT, CP_ALBERT_MESH = (32, 512), (2, 2)
+ALBERT_UP = (E, F, "bias_gelu_tanh")
 
 # tolerances (kernel vs plain version on the same inputs, bf16 outputs):
 # both round the same bf16 operands and accumulate in f32 in different
@@ -472,8 +491,9 @@ def hgmma_count(name: str, opcode: str = "HGMMA") -> int:
 
 # K1's cases beyond the main shapes (name -> M, K, N, epilogue, emit): the
 # LayerNorm cluster at 8 and 16 blocks, ragged M (32,768 + 40) at bge's
-# four shapes, the LayerNorm emission, and context parallelism's shard
-# (M = 4,096, where the tile is 128 rows) at the two LayerNorm shapes
+# four shapes, the LayerNorm emission, context parallelism's shard
+# (M = 4,096, where the tile is 128 rows) at the two LayerNorm shapes, and
+# ALBERT's FFN-up (tanh GELU)
 K1_EXTRA = {
     "ln_N1024": (M, 1024, 1024, "bias_residual_ln", "no"),
     "ln_N2048": (M, 1024, 2048, "bias_residual_ln", "no"),
@@ -482,7 +502,8 @@ K1_EXTRA = {
     "ln_emit_both": (M, E, E, "bias_residual_ln", "both"),
     "ln_emit_only": (M, E, E, "bias_residual_ln", "only"),
     "cp_o_proj": (4096, E, E, "bias_residual_ln", "no"),
-    "cp_ffn_down": (4096, F, E, "bias_residual_ln", "no")}
+    "cp_ffn_down": (4096, F, E, "bias_residual_ln", "no"),
+    "albert_up": (M, *ALBERT_UP, "no")}
 
 
 def phase_k1():
@@ -589,7 +610,12 @@ def phase_k2():
     lensm = rng.integers(1, MB_SHORT[1] + 1, MB_SHORT[0])
     lensm[0], lensm[1] = 0, MB_SHORT[1]
     rm = _k2_case(rng, *MB_SHORT, lensm.tolist(), dev)
-    out = {"L256": r256, "L512": r512, "L512_D128": rq, "L1024": rm}
+    # RoFormer's whole rows at B=16, L=1,536
+    lensr = rng.integers(1, ROFORMER_LONG[1] + 1, ROFORMER_LONG[0])
+    lensr[0], lensr[1] = 0, ROFORMER_LONG[1]
+    rr = _k2_case(rng, *ROFORMER_LONG, lensr.tolist(), dev)
+    out = {"L256": r256, "L512": r512, "L512_D128": rq, "L1024": rm,
+           "L1536": rr}
     # lengths on the Hopper kernel's tile edges (64 queries, 128 keys), at
     # a ragged L=200 and at L=512, D=64 and 128
     for Lx, (Hx, Dx) in ((200, (H, D)), (512, (H, D)), (512, (QW_H, QW_D))):
@@ -618,8 +644,9 @@ def phase_k3():
     bit against the plain version's (the kept weight ``requantize_int8``
     vs ``requantize_weight``, the rows ``quantize_rows_int8`` vs
     ``quantize_rows``, every kind, packed and not); bge's four shapes at
-    full width through qmatmul(int8_compute=True) with the weight kept and
-    without it (a per-call requantization); every kind and epilogue at
+    full width (and ALBERT's FFN-up, tanh GELU) through
+    qmatmul(int8_compute=True) with the weight kept and without it (a
+    per-call requantization); every kind and epilogue at
     the tile edges (K3_EDGES), with emission "no", "both" and "only"."""
     import torch
     from embeddings_tpu_torch.ops import qmatmul as Q
@@ -644,7 +671,7 @@ def phase_k3():
         check(all(bits[key].values()), f"K3 operands of {key} differ from "
               f"the plain version's: {bits[key]}")
     main = {}
-    for name, (K, N, epi) in K1_SHAPES.items():
+    for name, (K, N, epi) in {**K1_SHAPES, "albert_up": ALBERT_UP}.items():
         args, kw, qt = k1_inputs(rng, M, K, N, "q4_0", True, epi, dev)
         kept = Q.keep_int8_weight(qt).int8
         ref = Q.qmatmul_int8_ref(*args.values(), **kw)
@@ -2282,6 +2309,341 @@ def phase_cp_path():
     _check_tcp("cp_server", STATE["cp_bge_engine"])
 
 
+# ---------------------------------------------------------------------------
+# the encoder families on K1 and K2 alone: DistilBERT, RoBERTa, RoFormer,
+# ALBERT (factorized embeddings, one shared layer), from HF-named weights
+# ---------------------------------------------------------------------------
+
+# each family's published config.json (as its HF repository holds it),
+# its checkpoint's backbone prefix, and what a forward launches at
+# ENC_SHAPE: (source, config, prefix, K1 a forward, K2 a forward)
+ENC_CONFIGS = {
+    "distilbert": ("distilbert-base-uncased", {
+        "model_type": "distilbert", "activation": "gelu", "dim": 768,
+        "hidden_dim": 3072, "max_position_embeddings": 512, "n_heads": 12,
+        "n_layers": 6, "pad_token_id": 0, "sinusoidal_pos_embds": False,
+        "vocab_size": 30522}, "distilbert.", 24, 6),
+    "roberta": ("sentence-transformers/all-distilroberta-v1", {
+        "model_type": "roberta", "bos_token_id": 0, "eos_token_id": 2,
+        "hidden_act": "gelu", "hidden_size": 768,
+        "intermediate_size": 3072, "layer_norm_eps": 1e-05,
+        "max_position_embeddings": 514, "num_attention_heads": 12,
+        "num_hidden_layers": 6, "pad_token_id": 1,
+        "position_embedding_type": "absolute", "type_vocab_size": 1,
+        "vocab_size": 50265}, "", 24, 6),
+    "roformer": ("junnyu/roformer_chinese_base", {
+        "model_type": "roformer", "embedding_size": 768,
+        "hidden_act": "gelu", "hidden_size": 768,
+        "intermediate_size": 3072, "layer_norm_eps": 1e-12,
+        "max_position_embeddings": 1536, "num_attention_heads": 12,
+        "num_hidden_layers": 12, "pad_token_id": 0, "rotary_value": False,
+        "type_vocab_size": 2, "vocab_size": 50000}, "roformer.", 48, 12),
+    # vocab 30,000 published; 30,522 here, so the STS fixture's WordPiece
+    # ids (up to 30,521) index the table
+    "albert": ("albert-base-v2", {
+        "model_type": "albert", "bos_token_id": 2, "embedding_size": 128,
+        "eos_token_id": 3, "hidden_act": "gelu_new", "hidden_size": 768,
+        "inner_group_num": 1, "intermediate_size": 3072,
+        "layer_norm_eps": 1e-12, "max_position_embeddings": 512,
+        "num_attention_heads": 12, "num_hidden_groups": 1,
+        "num_hidden_layers": 12, "pad_token_id": 0, "type_vocab_size": 2,
+        "vocab_size": 30522}, "albert.", 48, 12),
+}
+
+
+def hf_state_dict(family: str, d: dict, rng) -> dict:
+    """Random weights under the names and shapes the family's published
+    checkpoint holds (behind its backbone prefix): std 0.02 from ``rng``,
+    zero biases, unit LayerNorms; the pooler and RoFormer's sinusoidal
+    table as the checkpoints carry them (the mapping drops both)."""
+    sd: dict = {}
+
+    def w(*shape):
+        return rng.standard_normal(shape, dtype=np.float32) * np.float32(0.02)
+
+    def lin(name, o, i):
+        sd[name + ".weight"], sd[name + ".bias"] = w(o, i), np.zeros(
+            o, np.float32)
+
+    def ln(name, n):
+        sd[name + ".weight"] = np.ones(n, np.float32)
+        sd[name + ".bias"] = np.zeros(n, np.float32)
+
+    V = d["vocab_size"]
+    if family == "distilbert":
+        E, Fx, NLx = d["dim"], d["hidden_dim"], d["n_layers"]
+    else:
+        E, Fx, NLx = (d["hidden_size"], d["intermediate_size"],
+                      d["num_hidden_layers"])
+    Ee = d.get("embedding_size", E)
+    sd["embeddings.word_embeddings.weight"] = w(V, Ee)
+    if family != "roformer":
+        sd["embeddings.position_embeddings.weight"] = w(
+            d["max_position_embeddings"], Ee)
+    if family != "distilbert":
+        sd["embeddings.token_type_embeddings.weight"] = w(
+            d["type_vocab_size"], Ee)
+    ln("embeddings.LayerNorm", Ee)
+    if family == "distilbert":
+        for i in range(NLx):
+            p = f"transformer.layer.{i}."
+            for n in ("q_lin", "k_lin", "v_lin", "out_lin"):
+                lin(p + "attention." + n, E, E)
+            ln(p + "sa_layer_norm", E)
+            lin(p + "ffn.lin1", Fx, E)
+            lin(p + "ffn.lin2", E, Fx)
+            ln(p + "output_layer_norm", E)
+    elif family == "albert":
+        lin("encoder.embedding_hidden_mapping_in", E, Ee)
+        p = "encoder.albert_layer_groups.0.albert_layers.0."
+        for n in ("query", "key", "value", "dense"):
+            lin(p + "attention." + n, E, E)
+        ln(p + "attention.LayerNorm", E)
+        lin(p + "ffn", Fx, E)
+        lin(p + "ffn_output", E, Fx)
+        ln(p + "full_layer_layer_norm", E)
+        lin("pooler", E, E)
+    else:
+        for i in range(NLx):
+            p = f"encoder.layer.{i}."
+            for n in ("query", "key", "value"):
+                lin(p + "attention.self." + n, E, E)
+            lin(p + "attention.output.dense", E, E)
+            ln(p + "attention.output.LayerNorm", E)
+            lin(p + "intermediate.dense", Fx, E)
+            lin(p + "output.dense", E, Fx)
+            ln(p + "output.LayerNorm", E)
+        if family == "roformer":
+            sd["encoder.embed_positions.weight"] = w(
+                d["max_position_embeddings"], E // d["num_attention_heads"])
+        else:
+            lin("pooler.dense", E, E)
+    return {ENC_CONFIGS[family][2] + k: v for k, v in sd.items()}
+
+
+def _hf_engine(family: str, mesh=None, **ec):
+    """The family at its published width and depth from HF-named random
+    weights (numpy seed 0) through ``BertConfig.from_hf_dict`` and
+    ``params.from_hf_state_dict``, q4_0 packed + fused qkv, mean pooling,
+    the STS fixture's WordPiece tokenizer; on the card (or on a CP
+    ``mesh`` of it). The tree is built once."""
+    import torch
+    from embeddings_tpu_torch import BertConfig, EngineConfig
+    from embeddings_tpu_torch.models import params as P
+    from embeddings_tpu_torch.runtime.engine import Engine
+    from embeddings_tpu_torch.tokenizer import tokenizer_from_dir
+    tok = tokenizer_from_dir(FIXTURE / "model")
+    key = family + "_params"
+    if key not in STATE:
+        d = ENC_CONFIGS[family][1]
+        t0 = time.perf_counter()
+        cfg = BertConfig.from_hf_dict(d)
+        sd = hf_state_dict(family, d, np.random.default_rng(0))
+        params = P.fuse_qkv(P.pack_q4_params(P.quantize_params(
+            P.from_hf_state_dict(sd, cfg), "q4_0")))
+        cfg = dataclasses.replace(
+            cfg, pooling="mean", cls_token_id=tok.cls_id,
+            sep_token_id=tok.sep_id, unk_token_id=tok.unk_id,
+            pad_token_id=tok.pad_id)
+        STATE[key] = (cfg, params, time.perf_counter() - t0)
+    cfg, params, _ = STATE[key]
+    ec = {"batch_size": 128,
+          "max_seq_len": cfg.max_position_embeddings - cfg.position_offset,
+          **ec}
+    return Engine(params, cfg, tok, EngineConfig(**ec),
+                  device=None if mesh else torch.device("cuda"), mesh=mesh)
+
+
+def _encoder_path(family: str) -> dict:
+    """The family through Engine.encode_batch: STS sentences (8 repeated),
+    K1 and K2 alone at the exact counts a forward makes, every K2 on the
+    Hopper kernel; unit norms, identical sentences at cosine 1, cosine
+    >= 0.999 to the plain f32 path; then one forward at ENC_SHAPE."""
+    import torch
+    from embeddings_tpu_torch.ops import attention as A
+    from embeddings_tpu_torch.ops.qmatmul import qmatmul
+    source, _, _, k1, k2 = ENC_CONFIGS[family]
+    eng = _hf_engine(family)
+    texts = _sts_sentences(300)
+    texts += texts[:8]  # identical sentences: cosine 1.0
+    (emb, counts, n, wall), k2_routes = _routed(
+        A.fused_attention, lambda: _run_counted(eng, texts))
+    STATE.setdefault("launches", {})[f"qmatmul_{family}"] = dict(
+        qmatmul.shapes)
+    plain = _hf_engine(family, use_pallas="never", compute_dtype="float32")
+    cos = _row_cos(emb, plain.encode_batch(texts))
+    norms = np.linalg.norm(emb, axis=1)
+    dup = (emb[:8] * emb[-8:]).sum(-1)
+    rng = np.random.default_rng(8)
+    ids = rng.integers(1000, 30000, ENC_SHAPE).astype(np.int32)
+    reset_counts()
+    eng._forward(ids, np.ones(ENC_SHAPE, np.int32))
+    torch.cuda.synchronize()
+    one = read_counts()
+    check(np.isfinite(emb).all() and emb.shape == (len(texts), E),
+          f"{family}: output not finite / wrong shape")
+    check(counts == only(K1=k1 * n, K2=k2 * n)
+          and k2_routes == {"sm90": k2 * n},
+          f"{family}: launches {counts} (K2 {k2_routes}) over {n} forwards")
+    check(one == only(K1=k1, K2=k2), f"{family} at {ENC_SHAPE}: {one}")
+    check(np.abs(norms - 1).max() < 1e-3, f"{family}: not unit norm")
+    check(dup.min() >= 1 - 1e-6, f"{family}: identical sentences differ")
+    check(cos.min() >= 0.999,
+          f"{family}: kernel path vs plain f32 {cos.min()}")
+    STATE[family + "_engine"] = eng
+    return dict(model=f"{source} (HF-named random weights, numpy seed 0, "
+                f"vocab {eng.config.vocab_size}) q4_0 packed + fused qkv",
+                init_quantize_s=STATE[family + "_params"][2],
+                sentences=len(texts), forwards=n, wall_s=wall,
+                launches=counts, k2_routes=k2_routes,
+                k1_per_forward=counts["K1"] / n,
+                k2_per_forward=counts["K2"] / n,
+                launches_at_B128_L256=one, norm_min=float(norms.min()),
+                norm_max=float(norms.max()),
+                identical_min_cos=float(dup.min()),
+                kernel_vs_plain_f32_min_cos=float(cos.min()))
+
+
+def phase_distilbert_path():
+    """distilbert-base-uncased (6 layers): 24 K1 + 6 K2 a forward."""
+    emit("distilbert_path", **_encoder_path("distilbert"))
+
+
+def phase_roberta_path():
+    """all-distilroberta-v1 (RoBERTa, 6 layers, positions offset by 2):
+    24 K1 + 6 K2 a bucketed forward; token-packed rows of 128 (positions
+    restarting at the offset per segment; 2,400 STS sentences in batches
+    of 128 rows) 24 K1 + 6 K4 a packed forward, every K4 on the Hopper
+    kernel, cosine >= 0.999 to bucketed; TCP."""
+    import torch
+    from embeddings_tpu_torch.ops import attention as A
+    out = _encoder_path("roberta")
+    eng = STATE["roberta_engine"]
+    texts = _sts_sentences(2400)
+    ref = eng.encode_batch(texts)
+    # texts past the row go to the bucketed path
+    long_txt = [t for t in texts if len(eng.tokenize(t)) > 128]
+    n_long = n_bucketed_forwards(eng, long_txt) if long_txt else 0
+    shapes = []
+    run = eng._forward_packed
+
+    def spy(ids, seg, pos, pool, attn_window=0):
+        shapes.append(list(ids.shape))
+        return run(ids, seg, pos, pool, attn_window)
+
+    eng._forward_packed = spy
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        emb = eng.encode_batch_packed(texts, row_len=128, batch_rows=128)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        del eng._forward_packed  # back to the class method
+    counts, n = read_counts(), len(shapes)
+    routes = dict(A.fused_attention_segmented.routes)
+    cos = _row_cos(emb, ref)
+    check(n >= 1 and counts == only(K1=24 * (n + n_long), K2=6 * n_long,
+                                    K4=6 * n)
+          and routes == {"sm90": 6 * n},
+          f"roberta packed: launches {counts} (K4 {routes}) over {n} "
+          f"packed forwards")
+    check(np.isfinite(emb).all() and cos.min() >= 0.999,
+          f"roberta packed vs bucketed: {cos.min()}")
+    out["packed_row128"] = dict(sentences=len(texts), packed_forwards=n,
+                                bucketed_forwards=n_long,
+                                shapes=shapes, launches=counts,
+                                k4_routes=routes, wall_s=wall,
+                                packed_vs_bucketed_min_cos=float(cos.min()))
+    emit("roberta_path", **out)
+    _check_tcp("roberta_server", eng)
+
+
+def phase_roformer_path():
+    """roformer_chinese_base (12 layers, interleaved RoPE, 1,536
+    positions): 48 K1 + 12 K2 a forward at B=128, L=256 and at B=16,
+    L=1,536 (whole rows: under the rule's 1,920 at E=768), ragged, against
+    the plain f32 forward on the same ids."""
+    import torch
+    from embeddings_tpu_torch.ops import attention as A
+    out = _encoder_path("roformer")
+    eng = STATE["roformer_engine"]
+    Bx, Lx = ROFORMER_LONG
+    rng = np.random.default_rng(9)
+    ids = rng.integers(1000, 30000, ROFORMER_LONG).astype(np.int32)
+    lens = rng.integers(1, Lx + 1, Bx)
+    lens[0] = Lx
+    mask = (np.arange(Lx)[None] < lens[:, None]).astype(np.int32)
+    reset_counts()
+    got, routes = _routed(A.fused_attention,
+                          lambda: eng.forward(ids, mask))
+    counts = read_counts()
+    plain = _hf_engine("roformer", use_pallas="never",
+                       compute_dtype="float32")
+    cos = _row_cos(got, plain.forward(ids, mask))
+    check(counts == only(K1=48, K2=12) and routes == {"sm90": 12},
+          f"roformer at {ROFORMER_LONG}: {counts} (K2 {routes})")
+    check(np.isfinite(got).all() and cos.min() >= 0.999,
+          f"roformer at L={Lx} vs plain f32: {cos.min()}")
+    STATE.setdefault("launches", {})["K2_roformer_long"] = counts["K2"]
+    out["long"] = dict(batch=list(ROFORMER_LONG), lengths=lens.tolist(),
+                       launches=counts, k2_routes=routes,
+                       kernel_vs_plain_f32_min_cos=float(cos.min()))
+    emit("roformer_path", **out)
+
+
+def phase_albert_path():
+    """albert-base-v2 (E_emb 128 projected to 768, one layer applied 12
+    times, gelu_new): bf16 48 K1 + 12 K2 a forward; int8_compute 48 K3
+    (one kept int8 weight a matmul, for all 12 applications) + 48 row
+    quantizations + 12 K2, cosine >= 0.99 to bf16; CP on data 2 x seq 2
+    at B=32, L=512 (192 K1 + 48 K8a) against the single-device forward
+    and the plain f32 CP forward; TCP."""
+    from embeddings_tpu_torch.ops.qmatmul import qmatmul_int8
+    from embeddings_tpu_torch.ops.quant import QuantizedTensor
+    out = _encoder_path("albert")
+    out["model"] += (" (vocab 30522 in place of the published 30000: the "
+                     "STS fixture's WordPiece ids reach 30521)")
+    eng = STATE["albert_engine"]
+    check(eng.params["layers"]["mlp"]["up"]["w"].codes.shape[0] == 1
+          and "proj" in eng.params["embeddings"],
+          "albert: the tree is not one shared layer with a projection")
+    eng8 = _hf_engine("albert", int8_compute=True)
+    kept = [w.int8 for w in (eng8.params["layers"]["attn"]["qkv"]["w"],
+                             eng8.params["layers"]["attn"]["o"]["w"],
+                             eng8.params["layers"]["mlp"]["up"]["w"],
+                             eng8.params["layers"]["mlp"]["down"]["w"])
+            if isinstance(w, QuantizedTensor)]
+    check(len(kept) == 4 and all(k is not None and k[0].shape[0] == 1
+                                 for k in kept),
+          "albert int8: not one kept int8 weight a matmul")
+    texts = _sts_sentences(300)
+    emb8, counts8, n8, wall8 = _run_counted(eng8, texts)
+    k3_routes = dict(qmatmul_int8.routes)
+    STATE["launches"]["qmatmul_int8_albert"] = dict(qmatmul_int8.shapes)
+    cos8 = _row_cos(emb8, eng.encode_batch(texts))
+    check(counts8 == only(K2=12 * n8, K3=48 * n8, K3_rows=48 * n8)
+          and sum(k3_routes.values()) == 48 * n8,
+          f"albert int8: launches {counts8} (K3 {k3_routes}) over {n8}")
+    check(np.isfinite(emb8).all() and cos8.min() >= 0.99,
+          f"albert int8 vs bf16: {cos8.min()}")
+    STATE["albert_engine8"] = eng8
+    out["int8"] = dict(sentences=len(texts), forwards=n8, wall_s=wall8,
+                       launches=counts8, k3_routes=k3_routes,
+                       int8_vs_bf16_min_cos=float(cos8.min()),
+                       int8_vs_bf16_mean_cos=float(cos8.mean()))
+    saved = STATE.get("launches_K8a")  # the kernel table's: bge's CP
+    out["cp"] = _cp_case(
+        "albert", functools.partial(_hf_engine, "albert"),
+        _hf_engine("albert", batch_size=CP_ALBERT[0]), CP_ALBERT,
+        CP_ALBERT_MESH, 4, "K8a", only(K1=48, K2=12),
+        [_joined(i * 60, 60) for i in range(CP_ALBERT[0])])
+    if saved is not None:
+        STATE["launches_K8a"] = saved
+    emit("albert_path", **out)
+    _check_tcp("albert_server", eng)
+
+
 def _first_positions_cos(engines, text: str) -> float:
     """Min cosine between the causal and the bidirectional hidden states
     of one text's first 64 positions, through the kernels (the row padded
@@ -2377,13 +2739,30 @@ def phase_timing():
                              {cp_kernel(CP_NOMIC, CP_NOMIC_MESH): NL * 4},
                              D),
                 "cp_nomic_single": ("cp_nomic_single", CP_NOMIC, 5 * NL,
-                                    {4: NL}, D)}
+                                    {4: NL}, D),
+                # the encoder families on K1 and K2 alone
+                "distilbert": ("distilbert_engine", ENC_SHAPE, 24, {0: 6},
+                               D),
+                "distilroberta": ("roberta_engine", ENC_SHAPE, 24, {0: 6},
+                                  D),
+                "roformer": ("roformer_engine", ENC_SHAPE, 4 * NL,
+                             {0: NL}, D),
+                "roformer_long": ("roformer_engine", ROFORMER_LONG, 4 * NL,
+                                  {0: NL}, D),
+                "albert": ("albert_engine", ENC_SHAPE, 4 * NL, {0: NL}, D)}
     for name, (key, shape, k1, attn, dh) in families.items():
         if key in STATE:
             fids = rng.integers(1000, 30000, shape).astype(np.int32)
             runs[name] = (lambda e=STATE[key], i=fids: e._forward(
                 i, np.ones_like(i)),
                 launches_want(k1, attn, dh, shape[1]))
+    if "albert_engine8" in STATE:
+        # ALBERT's int8 forward: K3 on its one kept weight a matmul
+        aids = rng.integers(1000, 30000, ENC_SHAPE).astype(np.int32)
+        runs["albert_int8"] = (
+            lambda: STATE["albert_engine8"]._forward(aids,
+                                                     np.ones_like(aids)),
+            launches_want(4 * NL, {0: NL}, quant_rows_kernel=4 * NL))
     fwd = {k: cuda_ms(r[0], iters=5) for k, r in runs.items()}
     profiles = {k: device_profile(k, *r) for k, r in runs.items()}
     chain_fwd = {}
@@ -2399,7 +2778,9 @@ def phase_timing():
                                 "tokens": tokens, "forward_ms": fwd[name],
                                 "tokens_per_s": tokens / fwd[name] * 1e3}
     family_fwd = {}
-    for name, (_, (Bx, Lx), _, _, _) in families.items():
+    fwd_shapes = {**{k: v[1] for k, v in families.items()},
+                  "albert_int8": ENC_SHAPE}
+    for name, (Bx, Lx) in fwd_shapes.items():
         if name in fwd:
             family_fwd[name] = {"shape": [Bx, Lx], "forward_ms": fwd[name],
                                 "sentences_per_s": Bx / fwd[name] * 1e3,
@@ -2417,8 +2798,21 @@ def phase_timing():
         kernels.append(k2_row(rng, dev, MB_SHORT, (H, D),
                               STATE.get("launches_K2_modernbert", 0),
                               "L1024"))
+    # RoFormer's whole rows at L=1,536 and ALBERT's FFN-up (tanh GELU)
+    if "roformer_path" in RESULTS and "k2_parity" in RESULTS:
+        kernels.append(k2_row(rng, dev, ROFORMER_LONG, (H, D),
+                              launches.get("K2_roformer_long", 0), "L1536"))
+    albert = "albert_path" in RESULTS
+    if albert and "k1_parity" in RESULTS:
+        kernels.append(k1_row(rng, dev, "albert_up", ALBERT_UP,
+                              launches.get("qmatmul_albert", {})))
     if "k3_parity" in RESULTS:
-        for name, (K, N, epi) in K1_SHAPES.items():
+        k3_shapes = {name: (shape, launches.get("qmatmul_int8", {}))
+                     for name, shape in K1_SHAPES.items()}
+        if albert:
+            k3_shapes["albert_up"] = (
+                ALBERT_UP, launches.get("qmatmul_int8_albert", {}))
+        for name, ((K, N, epi), k3_launches) in k3_shapes.items():
             args, kw, qt = k1_inputs(rng, M, K, N, "q4_0", True, epi, dev)
             a = list(args.values())
             kept = keep_int8_weight(qt).int8
@@ -2437,8 +2831,7 @@ def phase_timing():
                 "route": "cuda",
                 "source": "embeddings_tpu_torch/csrc/qmatmul.cu",
                 "replaces": K3_REPLACES,
-                "launches": launches.get("qmatmul_int8", {}).get(
-                    (K, N, epi), 0),
+                "launches": k3_launches.get((K, N, epi), 0),
                 "max_abs_err":
                     RESULTS["k3_parity"]["main"][name]["max_abs_err"],
                 "ms": cuda_ms(call),
@@ -2864,7 +3257,9 @@ def k1_row(rng, dev, name: str, shape, launches: dict, Mx: int = M) -> dict:
         "name": f"qmatmul[{name} {K}x{N} {epi}]", "route": "cuda",
         "source": "embeddings_tpu_torch/csrc/qmatmul.cu",
         "replaces": K1_REPLACES, "launches": launches.get(shape, 0),
-        "max_abs_err": RESULTS["k1_parity"]["main"][name]["max_abs_err"],
+        "max_abs_err": (RESULTS["k1_parity"]["main"].get(name)
+                        or RESULTS["k1_parity"]["extra"][name])[
+                            "max_abs_err"],
         "ms": cuda_ms(lambda: qmatmul(*a, **kw)),
         "plain_ms": cuda_ms(lambda: qmatmul_ref(*a, **kw), iters=3),
         "bound_ms": bms, "bound_by": by,
@@ -3255,7 +3650,11 @@ PHASES = {"device": phase_device, "build": phase_build, "k1": phase_k1,
           "jina_causal_path": phase_jina_causal_path,
           "modernbert_path": phase_modernbert_path,
           "qwen2_path": phase_qwen2_path, "k8": phase_k8,
-          "cp_path": phase_cp_path, "timing": phase_timing}
+          "cp_path": phase_cp_path,
+          "distilbert_path": phase_distilbert_path,
+          "roberta_path": phase_roberta_path,
+          "roformer_path": phase_roformer_path,
+          "albert_path": phase_albert_path, "timing": phase_timing}
 
 
 def main() -> int:

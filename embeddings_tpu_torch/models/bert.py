@@ -1,22 +1,25 @@
 """BERT encoder forward of the PyTorch port — the port of
 ``embeddings_tpu/models/bert.py`` for the post-LN BERT families (plain
-BERT, MPNet with its relative-position bias, jina-bert-v2 with ALiBi and
-a GeGLU MLP, nomic-bert with RoPE and SwiGLU): embedding sum + LayerNorm,
-N layers of {prefix-masked multi-head self-attention, residual + LN,
-GELU or gated FFN, residual + LN}; and for the pre-norm ModernBERT stack
-(``encoder_layer_pre``: RoPE with a global and a local theta, global
-attention every n-th layer and a sliding window on the others, GeGLU, a
-final norm) and the Qwen2 decoder embedders on the same pre-norm stack
-(RMSNorm, grouped-query attention, SwiGLU, causal or bidirectional
-attention, last-token pooling); then pooling (cls / mean / max /
-lasttoken), SentenceTransformers Dense layers and the L2 norm.
+BERT, RoBERTa and DistilBERT, ALBERT with its factorized embeddings and
+one shared layer, MPNet with its relative-position bias, jina-bert-v2
+with ALiBi and a GeGLU MLP, nomic-bert with RoPE and SwiGLU, RoFormer
+with interleaved RoPE): embedding sum + LayerNorm (+ ALBERT's
+projection), N layers of {prefix-masked multi-head self-attention,
+residual + LN, GELU or gated FFN, residual + LN}; and for the pre-norm
+ModernBERT stack (``encoder_layer_pre``: RoPE with a global and a local
+theta, global attention every n-th layer and a sliding window on the
+others, GeGLU, a final norm) and the Qwen2 decoder embedders on the same
+pre-norm stack (RMSNorm, grouped-query attention, SwiGLU, causal or
+bidirectional attention, last-token pooling); then pooling (cls / mean /
+max / lasttoken), SentenceTransformers Dense layers and the L2 norm.
 
 ``encode_tokens`` runs right-padded batches; ``encode_packed`` runs
 token-packed rows (``runtime/packing.py``: several sentences per row,
 segment ids, per-segment positions, a pooling matrix).
 
 The JAX package scans one compiled layer body over stacked parameters;
-here a Python loop walks the layers eagerly. ``use_kernels`` picks the
+here a Python loop walks the layers eagerly (``layer_views``: ALBERT's
+one stored layer, num_hidden_layers times). ``use_kernels`` picks the
 path: True runs quantized matmuls through ``ops.qmatmul.qmatmul`` (K1, or
 K3 with ``int8``) and attention through the fused kernels the JAX
 package's route rule picks (``attention_route_name``) — prefix-masked K2
@@ -110,6 +113,27 @@ def embed(params: Params, config: BertConfig, token_ids: torch.Tensor,
         return x
     return layer_norm(x, emb["ln"]["scale"], emb["ln"]["bias"],
                       config.layer_norm_eps)
+
+
+def _project_embeddings(params: Params, x: torch.Tensor) -> torch.Tensor:
+    """ALBERT's factorized embeddings (and RoFormer's): project [B, L, Ee]
+    -> [B, L, E] before the encoder (HF's embedding_hidden_mapping_in), a
+    dense product. No-op for models without a projection."""
+    proj = params["embeddings"].get("proj")
+    if proj is None:
+        return x
+    return linear(x, proj["w"], proj["b"])
+
+
+def layer_views(params: Params, config: BertConfig):
+    """The layers a forward applies, in order (views, no copies): with
+    ``shared_layers`` (ALBERT) the one stored layer num_hidden_layers
+    times, else each stacked layer — the JAX package's ``_scan_layers``."""
+    if config.shared_layers:
+        shared = layer_params(params, 0)
+        return [shared] * config.num_hidden_layers
+    return [layer_params(params, i)
+            for i in range(config.num_hidden_layers)]
 
 
 def _relative_position_bucket(rel: torch.Tensor, num_buckets: int,
@@ -440,14 +464,14 @@ def _post_ln_stack(params: Params, config: BertConfig, x: torch.Tensor,
     returns (x, xq), the first xq ``quantize_act`` of the embedding
     output."""
     if "ln" not in links:
-        for i in range(config.num_hidden_layers):
-            x = encoder_layer(layer_params(params, i), config, x, mask_bias,
-                              lengths, links=links, **kw)
+        for lay in layer_views(params, config):
+            x = encoder_layer(lay, config, x, mask_bias, lengths,
+                              links=links, **kw)
         return x
     xq = quantize_act(x)
-    for i in range(config.num_hidden_layers):
-        x, xq = encoder_layer(layer_params(params, i), config, x, mask_bias,
-                              lengths, xq=xq, links=links, **kw)
+    for lay in layer_views(params, config):
+        x, xq = encoder_layer(lay, config, x, mask_bias, lengths, xq=xq,
+                              links=links, **kw)
     return x
 
 
@@ -552,9 +576,10 @@ def _prenorm_stack(params: Params, config: BertConfig, x: torch.Tensor,
         mb_local = mask_bias + _window_bias(positions.to(x.device), window,
                                             mask_value)
         lengths = None
-    for i, (is_global, ln_apply) in enumerate(flags):
+    for lay, (is_global, ln_apply) in zip(layer_views(params, config),
+                                          flags):
         x = encoder_layer_pre(
-            layer_params(params, i), config, x,
+            lay, config, x,
             mask_bias if is_global else mb_local, lengths,
             ln_apply=ln_apply, rope=rope if is_global else rope_l,
             local_window=(is_global, window) if window_kernel else None,
@@ -603,6 +628,7 @@ def encode_tokens(params: Params, config: BertConfig,
     x = embed(params, config, token_ids, type_ids)
     if compute_dtype is not None:
         x = x.to(compute_dtype)
+    x = _project_embeddings(params, x)  # ALBERT factorized embeddings
     lengths = (attention_mask.sum(1, dtype=torch.int32)
                if prefix_mask else None)
 
@@ -721,6 +747,7 @@ def encode_packed(params: Params, config: BertConfig,
     x = embed(params, config, token_ids, position_ids=position_ids)
     if compute_dtype is not None:
         x = x.to(compute_dtype)
+    x = _project_embeddings(params, x)
     rope = None
     if config.position_embedding_type == "rotary":
         # per-row tables: positions restart at each segment

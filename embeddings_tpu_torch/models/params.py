@@ -1,10 +1,11 @@
 """Parameter trees of the PyTorch port: random init, the numpy handoff from
 the JAX package, quantization, packing, q/k/v fusion, HF import and the
 native ``.npz`` checkpoint — the port of ``embeddings_tpu/models/params.py``
-for the post-LN BERT families: plain BERT (learned positions), MPNet
-(relative-position bias), jina-bert-v2 (ALiBi, GeGLU MLP) and nomic-bert
-(RoPE, SwiGLU); and for the pre-norm ModernBERT and Qwen2 (RMSNorm,
-grouped-query attention).
+for the post-LN BERT families: plain BERT (learned positions), RoBERTa
+(position offset), DistilBERT, ALBERT (factorized embeddings, one shared
+layer), MPNet (relative-position bias), jina-bert-v2 (ALiBi, GeGLU MLP),
+nomic-bert (RoPE, SwiGLU) and RoFormer (interleaved RoPE); and for the
+pre-norm ModernBERT and Qwen2 (RMSNorm, grouped-query attention).
 
 The tree has the JAX package's layout, with torch tensors as leaves and
 every linear stored [in, out] so the forward computes ``x @ w``. Layer
@@ -12,7 +13,8 @@ weights are stacked on a leading axis [num_layers, ...]:
 
   params = {
     "embeddings": {"word": [V,E]|QT, "position": [P,E], "token_type": [T,E],
-                   "ln": {"scale": [E], "bias": [E]}},
+                   "ln": {"scale": [E], "bias": [E]},
+                   "proj": {"w": [Ee,E], "b": [E]}  (factorized only)},
     "layers": {
       "attn": {"q"/"k"/"v"/"o": {"w": [E,E]|QT, "b": [E]}  (or "qkv";
                k/v [E,Ekv] with grouped-query attention),
@@ -35,8 +37,14 @@ identity and its slot holds ones and zeros. Qwen2 (``norm_type``
 embedding norm, and keeps its K/V projections ``num_key_value_heads *
 head_dim`` (Ekv) wide, so ``fuse_qkv`` leaves them apart.
 
+ALBERT (``embedding_size`` set) keeps its embedding tables Ee =
+``embedding_size`` wide and projects them to E with the dense ``proj``
+leaf; with ``shared_layers`` the stacks hold one layer, which the forward
+applies ``num_hidden_layers`` times. RoFormer's ``embeddings_project``
+lands in the same ``proj`` slot.
+
 ``rel_bias`` and ``alibi_slopes`` stay f32 through every cast and are
-never quantized; ``gate`` is quantized like ``up``.
+never quantized; ``gate`` is quantized like ``up``; ``proj`` stays dense.
 """
 
 from __future__ import annotations
@@ -63,16 +71,14 @@ _TORCH_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16,
 def check_supported(config: BertConfig) -> None:
     """Raise for model families the port does not run. It runs the
     post-LN BERT encoder with learned positions, MPNet's relative-position
-    bias, ALiBi or RoPE, a plain or gated MLP, ModernBERT's pre-norm
-    LayerNorm stack with its sliding window, and Qwen2's pre-norm decoder
-    block (RMSNorm, grouped-query attention, causal or bidirectional).
-    Mixture-of-experts layers, shared layers (ALBERT) and factorized
-    embeddings are not ported."""
+    bias, ALiBi or RoPE, a plain or gated MLP, ALBERT's factorized
+    embeddings and shared layer, ModernBERT's pre-norm LayerNorm stack
+    with its sliding window, and Qwen2's pre-norm decoder block (RMSNorm,
+    grouped-query attention, causal or bidirectional). Mixture-of-experts
+    layers are not ported."""
     H = config.num_attention_heads
     kv = config.num_key_value_heads or H
     unsupported = {
-        "embedding_size": config.embedding_size is not None,
-        "shared_layers": config.shared_layers,
         "position_embedding_type": config.position_embedding_type not in (
             "absolute", "alibi", "rotary"),
         "norm_style": config.norm_style not in ("post", "pre"),
@@ -83,8 +89,9 @@ def check_supported(config: BertConfig) -> None:
     bad = [k for k, v in unsupported.items() if v]
     if bad:
         raise NotImplementedError(
-            f"the PyTorch port runs post-LN BERT, MPNet, jina-bert-v2, "
-            f"nomic-bert, ModernBERT and Qwen2 models; this config sets "
+            f"the PyTorch port runs post-LN BERT, RoBERTa, DistilBERT, "
+            f"ALBERT, MPNet, jina-bert-v2, nomic-bert, RoFormer, ModernBERT "
+            f"and Qwen2 models; this config sets "
             f"{', '.join(bad)}")
 
 
@@ -139,12 +146,14 @@ def init_params(config: BertConfig, generator: np.random.Generator | int = 0,
     ALiBi models carry their slopes and no position table, rotary models
     no position table; pre-norm models add the final norm; grouped-query
     attention makes k/v Ekv wide; RMSNorm models have no embedding
-    norm."""
+    norm; a factorized config (ALBERT) has tables ``embedding_size`` wide
+    and a ``proj`` to E, and shared layers store one layer."""
     check_supported(config)
     rng = (np.random.default_rng(generator) if isinstance(generator, int)
            else generator)
     E, F = config.hidden_size, config.intermediate_size
-    NL = config.num_hidden_layers
+    NL = 1 if config.shared_layers else config.num_hidden_layers
+    Ee = config.embedding_size or E
 
     def mat(*shape):
         w = rng.standard_normal(shape, dtype=np.float32) * np.float32(0.02)
@@ -159,12 +168,14 @@ def init_params(config: BertConfig, generator: np.random.Generator | int = 0,
     def ln_stack():
         return {"scale": torch.ones(NL, E), "bias": torch.zeros(NL, E)}
 
-    emb = {"word": mat(config.vocab_size, E)}
+    emb = {"word": mat(config.vocab_size, Ee)}
     if config.position_embedding_type == "absolute":
-        emb["position"] = mat(config.max_position_embeddings, E)
-    emb["token_type"] = mat(config.type_vocab_size, E)
+        emb["position"] = mat(config.max_position_embeddings, Ee)
+    emb["token_type"] = mat(config.type_vocab_size, Ee)
     if config.norm_type != "rmsnorm":  # Qwen2: bare token embedding
-        emb["ln"] = _ln(np.ones(E), np.zeros(E))
+        emb["ln"] = _ln(np.ones(Ee), np.zeros(Ee))
+    if config.embedding_size is not None:
+        emb["proj"] = {"w": mat(Ee, E), "b": zeros(E)}
     Ekv = ((config.num_key_value_heads or config.num_attention_heads)
            * config.head_dim)
     layers = {
@@ -372,41 +383,105 @@ def _read_sd(d: Path) -> dict[str, np.ndarray]:
     raise FileNotFoundError(f"no checkpoint in {d}")
 
 
-# state-dict markers of the families the port cannot map yet: the
-# backbone prefixes of RoBERTa, ALBERT, DistilBERT and RoFormer
-# checkpoints, and DistilBERT's and ALBERT's own layer names
-_UNMAPPED_PREFIXES = {"roberta.": "RoBERTa", "albert.": "ALBERT",
-                      "distilbert.": "DistilBERT", "roformer.": "RoFormer"}
-_UNMAPPED_LAYERS = {"transformer.layer.": "DistilBERT",
-                    "encoder.albert_layer_groups.": "ALBERT"}
-
-
-def _refuse_unmapped(sd: dict[str, np.ndarray]) -> None:
-    """Raise NotImplementedError, naming the family, for a state dict whose
-    tensors the port has no mapping for (the JAX package maps them)."""
-    for marks, where in ((_UNMAPPED_PREFIXES, "prefix"),
-                         (_UNMAPPED_LAYERS, "layer names")):
-        for mark, family in marks.items():
-            if any(k.startswith(mark) or f".{mark}" in k for k in sd):
-                raise NotImplementedError(
-                    f"{family} checkpoints ({where} {mark!r}) are not "
-                    f"ported to the PyTorch package yet")
-
-
 def _strip_prefix(sd: dict[str, np.ndarray]) -> dict[str, np.ndarray]:
-    """Drop the 'bert.' / 'mpnet.' / '0.auto_model.' style prefixes HF
-    checkpoints use, then rewrite MPNet, nomic-bert, jina-bert-v2,
-    ModernBERT and Qwen2 names into BERT naming. A RoBERTa, ALBERT,
-    DistilBERT or RoFormer tree that needs a mapping the port does not
-    have raises NotImplementedError."""
-    _refuse_unmapped(sd)
-    for prefix in ("bert.", "mpnet.", "model.", "0.auto_model."):
+    """Drop the 'bert.' / 'roberta.' / '0.auto_model.' style prefixes HF
+    checkpoints use (a classifier head outside the backbone prefix is
+    carried across), then rewrite DistilBERT, ALBERT, MPNet, nomic-bert,
+    jina-bert-v2, ModernBERT and Qwen2 names into BERT naming — the JAX
+    package's ``_strip_prefix`` key for key."""
+    # RoBERTa and RoFormer tensors use BERT's layer naming under their own
+    # prefix; RoBERTa's position offset and one token-type row live in the
+    # config, RoFormer's embedding projection is renamed by
+    # from_hf_state_dict
+    for prefix in ("bert.", "roberta.", "albert.", "mpnet.", "distilbert.",
+                   "roformer.", "model.", "0.auto_model."):
         if any(k.startswith(prefix + "embeddings") for k in sd):
-            sd = {k[len(prefix):]: v for k, v in sd.items()
-                  if k.startswith(prefix)}
+            # cross-encoder rerankers keep their scoring head outside the
+            # backbone prefix
+            sd = {**{k: v for k, v in sd.items()
+                     if k.startswith("classifier.")},
+                  **{k[len(prefix):]: v for k, v in sd.items()
+                     if k.startswith(prefix)}}
             break
     return _translate_qwen2(_translate_modernbert(_translate_jina(
-        _translate_nomic(_translate_mpnet(sd)))))
+        _translate_nomic(_translate_mpnet(_translate_albert(
+            _translate_distilbert(sd)))))))
+
+
+# DistilBERT layer-tensor names -> BERT names (the same post-LN block,
+# learned positions and erf GELU, without token-type embeddings or pooler)
+_DISTIL_LAYER_MAP = {
+    "attention.q_lin": "attention.self.query",
+    "attention.k_lin": "attention.self.key",
+    "attention.v_lin": "attention.self.value",
+    "attention.out_lin": "attention.output.dense",
+    "sa_layer_norm": "attention.output.LayerNorm",
+    "ffn.lin1": "intermediate.dense",
+    "ffn.lin2": "output.dense",
+    "output_layer_norm": "output.LayerNorm",
+}
+
+
+def _translate_distilbert(sd: dict[str, np.ndarray]
+                          ) -> dict[str, np.ndarray]:
+    """Rewrite a DistilBERT state dict into BERT naming; no-op otherwise.
+    DistilBERT has no token-type table: a zeros row keeps embed() shared."""
+    if not any(k.startswith("transformer.layer.") for k in sd):
+        return sd
+    out: dict[str, np.ndarray] = {}
+    for k, v in sd.items():
+        if k.startswith("transformer.layer."):
+            _, _, i, rest = k.split(".", 3)
+            stem, _, leaf = rest.rpartition(".")
+            mapped = _DISTIL_LAYER_MAP.get(stem)
+            if mapped is not None:
+                out[f"encoder.layer.{i}.{mapped}.{leaf}"] = v
+        else:
+            out[k] = v  # embeddings.* names already match BERT's
+    emb = out.get("embeddings.word_embeddings.weight")
+    if emb is not None:
+        out.setdefault("embeddings.token_type_embeddings.weight",
+                       np.zeros((1, emb.shape[1]), np.float32))
+    return out
+
+
+# ALBERT layer-tensor names -> BERT names (the same post-LN block; the one
+# shared layer lands at index 0 and the forward applies it
+# num_hidden_layers times)
+_ALBERT_LAYER_MAP = {
+    "attention.query": "attention.self.query",
+    "attention.key": "attention.self.key",
+    "attention.value": "attention.self.value",
+    "attention.dense": "attention.output.dense",
+    "attention.LayerNorm": "attention.output.LayerNorm",
+    "ffn": "intermediate.dense",
+    "ffn_output": "output.dense",
+    "full_layer_layer_norm": "output.LayerNorm",
+}
+
+
+def _translate_albert(sd: dict[str, np.ndarray]) -> dict[str, np.ndarray]:
+    """Rewrite an ALBERT state dict into BERT naming, the factorized
+    embedding projection as embeddings.proj.*; no-op otherwise. Further
+    layer groups or inner layers are dropped: ``BertConfig.from_hf_dict``
+    refuses configs that have them."""
+    pref = "encoder.albert_layer_groups.0.albert_layers.0."
+    if not any(k.startswith(pref) for k in sd):
+        return sd
+    out: dict[str, np.ndarray] = {}
+    for k, v in sd.items():
+        if k.startswith(pref):
+            stem, _, leaf = k[len(pref):].rpartition(".")
+            mapped = _ALBERT_LAYER_MAP.get(stem)
+            if mapped is not None:
+                out[f"encoder.layer.0.{mapped}.{leaf}"] = v
+        elif k.startswith("encoder.albert_layer_groups"):
+            continue
+        elif k.startswith("encoder.embedding_hidden_mapping_in."):
+            out["embeddings.proj." + k.rsplit(".", 1)[1]] = v
+        else:
+            out[k] = v  # embeddings.* names already match BERT's
+    return out
 
 
 # MPNet layer-tensor names -> BERT names (same post-LN block; the shared
@@ -645,12 +720,14 @@ def _translate_jina(sd: dict[str, np.ndarray]) -> dict[str, np.ndarray]:
 
 def from_hf_state_dict(sd: dict[str, np.ndarray], config: BertConfig,
                        dtype=torch.float32) -> Params:
-    """Map a HF BERT, MPNet, jina-bert-v2, nomic-bert, ModernBERT or Qwen2
-    state dict to the port's tree (position_ids and the pooler are
-    dropped, as the reference's converter does)."""
+    """Map a HF BERT, RoBERTa, DistilBERT, ALBERT, MPNet, jina-bert-v2,
+    nomic-bert, RoFormer, ModernBERT or Qwen2 state dict to the port's
+    tree (position_ids and the pooler are dropped, as the reference's
+    converter does; a classifier head is not read). ALBERT's shared layer
+    is stored once."""
     check_supported(config)
     sd = _strip_prefix({k: np.asarray(v) for k, v in sd.items()})
-    NL = config.num_hidden_layers
+    NL = 1 if config.shared_layers else config.num_hidden_layers
 
     def t(a, dt=dtype):
         return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dt)
@@ -675,6 +752,14 @@ def from_hf_state_dict(sd: dict[str, np.ndarray], config: BertConfig,
     if "embeddings.LayerNorm.weight" in sd:  # absent for Qwen2
         emb["ln"] = _ln(sd["embeddings.LayerNorm.weight"],
                         sd["embeddings.LayerNorm.bias"])
+    if "embeddings_project.weight" in sd:
+        # RoFormer's factorized-embedding projection name
+        sd = {**sd, "embeddings.proj.weight": sd["embeddings_project.weight"],
+              "embeddings.proj.bias": sd["embeddings_project.bias"]}
+    if "embeddings.proj.weight" in sd:
+        # the factorized-embedding projection [Ee -> E], dense
+        emb["proj"] = {"w": t(sd["embeddings.proj.weight"].T),
+                       "b": t(sd["embeddings.proj.bias"])}
     pre = "encoder.layer.{}."
     layers = {
         "attn": {"q": stack_lin(pre + "attention.self.query"),

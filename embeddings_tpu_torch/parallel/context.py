@@ -8,7 +8,9 @@ its local query chunk against the gathered keys; everything else in the
 layer is local along L. Pooling finishes with one sum (mean, cls) or max
 over the seq axis. Embeddings and RoPE use global positions (shard j
 holds positions j*Lc .. j*Lc + Lc - 1), and q/k are rotated before the
-gather. Weights are replicated.
+gather. ALBERT's factorized embeddings are projected on each shard, and
+its one shared layer is walked num_hidden_layers times. Weights are
+replicated.
 
 One program drives every shard of the mesh, as the JAX package's
 ``shard_map`` does: the forward walks the layers, and within a layer the
@@ -35,7 +37,7 @@ import torch
 
 from ..config import BertConfig
 from ..models import bert
-from ..models.params import check_supported, layer as layer_params
+from ..models.params import check_supported
 from ..ops import attention as attn_ops
 from ..ops.linear import linear, linear_residual_ln
 from ..ops.rotary import apply_rotary, rope_tables
@@ -209,7 +211,7 @@ def _cp_layer(layers: list[Params], config: BertConfig,
 
 def _refuse(config: BertConfig) -> None:
     """The JAX package's refusals, word for word, then the port's own
-    (``check_supported``: shared layers, factorized embeddings, ...)."""
+    (``check_supported``: mixture-of-experts layers)."""
     if (config.relative_attention_num_buckets
             or config.position_embedding_type == "alibi"):
         # the [H, Lc, L] bias would need per-shard global positions in
@@ -264,7 +266,7 @@ def make_cp_forward(config: BertConfig, mesh: Mesh, *,
                            position_ids=pos[None].expand(B, Lc))
             if compute_dtype is not None:
                 x = x.to(compute_dtype)
-            xs.append(x)
+            xs.append(bert._project_embeddings(p, x))  # ALBERT
             rope = None
             if config.position_embedding_type == "rotary":
                 # local-position tables: rotation precedes the k/v gather
@@ -277,9 +279,10 @@ def make_cp_forward(config: BertConfig, mesh: Mesh, *,
         # the engine produces prefix masks only: the CP kernels take the
         # per-sequence lengths of the gathered row
         lengths = [m.sum(1, dtype=torch.int32) for m in mask_full]
-        for i in range(config.num_hidden_layers):
-            xs = _cp_layer([layer_params(p, i) for p in ps], config, xs,
-                           bias, lengths, ropes, use_kernels)
+        # ALBERT's shared layer: the one stored layer, every time
+        for layers in zip(*(bert.layer_views(p, config) for p in ps)):
+            xs = _cp_layer(list(layers), config, xs, bias, lengths, ropes,
+                           use_kernels)
         xf = [x.float() for x in xs]
         maskf = [m.float() for m in masks]
         if pool == "mean":

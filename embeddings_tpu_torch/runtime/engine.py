@@ -44,9 +44,15 @@ import torch
 from ..config import BertConfig, EngineConfig
 from ..models import bert, params as P
 from ..ops.attention import BQ
-from ..tokenizer import WordPieceTokenizer
+from ..tokenizer import ByteLevelBPETokenizer, UnigramTokenizer, \
+    WordPieceTokenizer
 from .batching import extend_buckets, pad_batch, pick_bucket, plan_batches
 from .packing import materialize, max_block_span, plan_packing
+
+
+# the tokenizers an Engine takes (``tokenizer.tokenizer_from_dir`` picks
+# one from a model directory)
+Tokenizer = WordPieceTokenizer | ByteLevelBPETokenizer | UnigramTokenizer
 
 
 def _bucket_window(w: int, row_len: int) -> int:
@@ -83,7 +89,7 @@ def resolve_device(device=None) -> torch.device:
 
 class Engine:
     def __init__(self, params: dict, config: BertConfig,
-                 tokenizer: WordPieceTokenizer,
+                 tokenizer: Tokenizer,
                  engine_config: EngineConfig | None = None, *,
                  device=None, mesh=None):
         if mesh is not None:
@@ -375,7 +381,7 @@ class Engine:
 
 def load_model(path: str | Path, *, dtype: str = "f32",
                engine_config: EngineConfig | None = None,
-               tokenizer: WordPieceTokenizer | None = None,
+               tokenizer: Tokenizer | None = None,
                pooling: str | None = None,
                int8_compute: bool = False, device=None,
                mesh=None) -> Engine:

@@ -52,6 +52,10 @@ SMALL = dict(vocab_size=256, hidden_size=64, num_hidden_layers=2,
              max_position_embeddings=64)
 # E = 128 (2 heads of 64): the shapes the CP kernels take
 WIDE = dict(SMALL, hidden_size=128, num_attention_heads=2)
+# ALBERT: factorized embeddings (32 wide) and one shared layer, at the
+# width the CP kernels take
+ALBERT = dict(WIDE, num_hidden_layers=3, embedding_size=32,
+              shared_layers=True, hidden_act="gelu_tanh")
 ROTARY = dict(vocab_size=128, hidden_size=64, num_hidden_layers=2,
               num_attention_heads=2, intermediate_size=128,
               max_position_embeddings=64, position_embedding_type="rotary",
@@ -427,10 +431,39 @@ def test_cp_refusals_match_jax(change, match):
 
 
 def test_cp_refuses_what_the_port_does_not_map():
-    """Shared layers and factorized embeddings (ALBERT) stay refused."""
-    cfg = BertConfig(**dict(SMALL, shared_layers=True, embedding_size=32))
-    with pytest.raises(NotImplementedError, match="shared_layers"):
+    """Mixture-of-experts layers (the one family the port does not map)
+    stay refused; shared layers and factorized embeddings (ALBERT), once
+    refused here, run (``test_cp_forward_albert_matches_jax``)."""
+    cfg = BertConfig(**dict(SMALL, num_experts=4, moe_every_n_layers=2))
+    with pytest.raises(NotImplementedError, match="num_experts"):
         make_cp_forward(cfg, make_mesh_cp(2, 4, [CPU] * 8))
+    albert = BertConfig(**ALBERT)
+    make_cp_forward(albert, make_mesh_cp(2, 4, [CPU] * 8))
+
+
+@pytest.mark.parametrize("dp,sp,pooling", [(2, 4, "mean"), (1, 8, "cls")])
+def test_cp_forward_albert_matches_jax(jax_devices, jax_kernels, port_calls,
+                                       dp, sp, pooling):
+    """ALBERT (E=128, tables 32 wide and their projection, one shared
+    layer applied 3 times): the port's CP forward against JAX's, both on
+    the CP kernel route (K8a on every application of the layer, on every
+    shard; JAX's in interpret mode), and against the single-device
+    forward."""
+    jcfg, jp, cfg, tp = _models(dict(ALBERT, pooling=pooling))
+    assert tp["layers"]["mlp"]["up"]["w"].shape[0] == 1
+    assert tp["embeddings"]["proj"]["w"].shape == (32, 128)
+    ids, mask = _batch(cfg.vocab_size, np.random.default_rng(6), L=64)
+    fwd = jctx.make_cp_forward(jcfg, jctx.make_mesh_cp(
+        dp=dp, sp=sp, devices=jax_devices[:dp * sp]))
+    ref = np.asarray(fwd(jp, jnp.asarray(ids), jnp.asarray(mask)))
+    got = _port_cp(cfg, tp, ids, mask, dp, sp)
+    assert set(jax_kernels) == {"cp"}
+    assert port_calls == ["cp"] * (cfg.num_hidden_layers * dp * sp)
+    assert got.shape == (8, 128) and np.isfinite(got).all()
+    np.testing.assert_allclose(got, ref, atol=ATOL, rtol=RTOL)
+    single = bert.encode_tokens(tp, cfg, torch.from_numpy(ids),
+                                torch.from_numpy(mask)).numpy()
+    np.testing.assert_allclose(got, single, atol=ATOL, rtol=RTOL)
 
 
 def test_mesh_rules(monkeypatch):

@@ -24,6 +24,8 @@ kernel on int8 operands: ``test_int8_operands_bit_for_bit`` holds its
 kept weight and its row quantization to the plain version's bits,
 ``test_qmatmul_int8_tiles_match_plain`` its tile configurations
 (``k3_tile``) at main-path sizes.
+``test_encoder_family_forward_matches_plain`` runs RoBERTa, DistilBERT,
+RoFormer and ALBERT forwards on K1 and K2 against the plain f32 forward.
 """
 
 import numpy as np
@@ -971,3 +973,45 @@ def test_cp_forward_matches_single_device(cuda):
                              mask.to(cuda), compute_dtype=torch.bfloat16)
     cos = (got * ref).sum(-1)
     assert cos.min() >= 0.999, cos
+
+
+ENCODER_FAMILIES = {
+    "roberta": dict(max_position_embeddings=130, type_vocab_size=1,
+                    position_offset=2),
+    "distilbert": dict(type_vocab_size=1),
+    "roformer": dict(position_embedding_type="rotary",
+                     rotary_interleaved=True),
+    "albert": dict(num_hidden_layers=3, embedding_size=64,
+                   shared_layers=True, hidden_act="gelu_tanh"),
+}
+
+
+@pytest.mark.parametrize("family", list(ENCODER_FAMILIES))
+def test_encoder_family_forward_matches_plain(cuda, family):
+    """RoBERTa, DistilBERT, RoFormer and ALBERT (one shared layer applied
+    three times, its 64-wide embeddings projected): the card's forward
+    (K1 and K2 on every layer application, bf16) against the plain f32
+    forward on the CPU, the same q4_0 tree."""
+    from embeddings_tpu_torch.config import BertConfig
+    from embeddings_tpu_torch.models import bert, params as P
+    cfg = BertConfig(**{"vocab_size": 512, "hidden_size": 256,
+                        "num_hidden_layers": 2, "num_attention_heads": 4,
+                        "intermediate_size": 512,
+                        "max_position_embeddings": 256, "pooling": "mean",
+                        **ENCODER_FAMILIES[family]})
+    tree = P.fuse_qkv(P.pack_q4_params(P.quantize_params(
+        P.init_params(cfg, 0), "q4_0")))
+    rng = np.random.default_rng(2)
+    ids = torch.from_numpy(rng.integers(5, 512, (4, 128)).astype(np.int32))
+    mask = torch.ones(4, 128, dtype=torch.int32)
+    mask[1, 40:] = 0
+    mask[2, 1:] = 0
+    before = (qmatmul.launches, fused_attention.launches)
+    got = bert.encode_tokens(P.to_device(tree, cuda), cfg, ids.to(cuda),
+                             mask.to(cuda), compute_dtype=torch.bfloat16)
+    NL = cfg.num_hidden_layers
+    assert (qmatmul.launches - before[0],
+            fused_attention.launches - before[1]) == (4 * NL, NL)
+    ref = bert.encode_tokens(tree, cfg, ids, mask, use_kernels=False)
+    cos = (got.cpu() * ref).sum(-1)
+    assert torch.isfinite(got).all() and cos.min() >= 0.999, cos

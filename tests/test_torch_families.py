@@ -10,8 +10,10 @@ JAX package, on the CPU.
     (the cap is lowered in both packages to reach that route at a CPU
     size), and a plain BERT whose rows do not fit whole takes K6 plain
     (``whole_row_fits`` patched in the port, ``force_stream_mode`` in
-    JAX). f32: max abs 2e-4 on unit vectors and cosine >= 0.9999 (the same
-    arithmetic, summation-order noise); bf16 activations: cosine >= 0.999.
+    JAX); RoBERTa, DistilBERT, RoFormer and ALBERT (its one layer applied
+    three times) take K2 on every layer application. f32: max abs 2e-4
+    on unit vectors and cosine >= 0.9999 (the same arithmetic,
+    summation-order noise); bf16 activations: cosine >= 0.999.
 (c) ``encode_packed`` for both families against JAX's (both fold the bias
     into the einsum path's mask): cosine >= 0.9999 per segment.
 (d) The route each package dispatches, spied at real widths (E=768) over
@@ -60,7 +62,20 @@ FAMILIES = {
     "jina": dict(TINY, max_position_embeddings=512,
                  position_embedding_type="alibi", gated_mlp=True),
     "bert": dict(TINY, max_position_embeddings=512, num_attention_heads=2),
+    # the encoder families that run on K1 and K2 alone: RoBERTa's position
+    # offset, DistilBERT's one token-type row, RoFormer's interleaved RoPE,
+    # ALBERT's factorized embeddings and one shared layer
+    "roberta": dict(TINY, max_position_embeddings=130, type_vocab_size=1,
+                    position_offset=2),
+    "distilbert": dict(TINY, max_position_embeddings=512, type_vocab_size=1),
+    "roformer": dict(TINY, max_position_embeddings=512,
+                     position_embedding_type="rotary",
+                     rotary_interleaved=True),
+    "albert": dict(TINY, max_position_embeddings=512, num_hidden_layers=3,
+                   embedding_size=64, shared_layers=True,
+                   hidden_act="gelu_tanh"),
 }
+ENCODERS = ["roberta", "distilbert", "roformer", "albert"]
 
 
 # ---------------------------------------------------------------------------
@@ -162,7 +177,8 @@ def _port(tp, cfg, ids, mask, **kw):
     ("mpnet", 64, "fused_attention_bias"),
     ("jina", 64, "fused_attention_bias"),
     ("jina", 128, "fused_attention_stream"),
-    ("bert", 256, "fused_attention_stream")])
+    ("bert", 256, "fused_attention_stream")]
+    + [(family, 64, "fused_attention") for family in ENCODERS])
 def test_encode_tokens_matches_jax_kernels_f32(monkeypatch, family, L, route,
                                                kind):
     jcfg, jp, cfg, tp = _models(family, kind)
@@ -186,7 +202,7 @@ def test_encode_tokens_matches_jax_kernels_f32(monkeypatch, family, L, route,
     assert (got * ref).sum(-1).min() >= 0.9999
 
 
-@pytest.mark.parametrize("family", ["mpnet", "jina"])
+@pytest.mark.parametrize("family", ["mpnet", "jina"] + ENCODERS)
 def test_encode_tokens_matches_jax_kernels_bf16(monkeypatch, family):
     jcfg, jp, cfg, tp = _models(family, "q4_0")
     ids, mask = _batch(3, 64, seed=5)
@@ -196,7 +212,7 @@ def test_encode_tokens_matches_jax_kernels_bf16(monkeypatch, family):
     assert (got * ref).sum(-1).min() >= 0.999
 
 
-@pytest.mark.parametrize("family", ["mpnet", "jina"])
+@pytest.mark.parametrize("family", ["mpnet", "jina"] + ENCODERS)
 def test_encode_tokens_plain_path_matches_jax_default(family):
     """The port's plain path (bias folded into the einsum mask) IS the
     JAX package's XLA fallback arithmetic."""

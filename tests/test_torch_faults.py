@@ -1,12 +1,11 @@
 """Faults found in the port against the reference, each held by a test.
 
-(a) Trees the port cannot map are refused cleanly: a 1-layer DistilBERT
-    state dict (E=32, 2 heads, DistilBERT names, bare or under a
-    ``distilbert.`` prefix) and BERT-named trees under the ``roberta.``,
-    ``albert.`` and ``roformer.`` prefixes raise NotImplementedError
-    naming the family (not a KeyError deep in the mapping). The JAX
-    package maps the same DistilBERT dict; mapping these families in the
-    port is still to come.
+(a) Trees the port once refused by name (before it mapped these
+    families) now map to the JAX package's tree, leaf for leaf: a 1-layer
+    DistilBERT state dict (E=32, 2 heads, DistilBERT names, bare or under
+    a ``distilbert.`` prefix) and BERT-named trees under the
+    ``roberta.``, ``albert.`` and ``roformer.`` prefixes (not a KeyError
+    deep in the mapping, as before the refusal).
 (b) The rotary tables agree with the JAX package's, eager and jitted, at
     positions 0 .. 8,191 for theta 1e4, 1.6e5 and 1e6 at D = 64 and 128,
     to 4 f32 ulp of 1 (2.4e-7).
@@ -80,25 +79,54 @@ def bert_sd(prefix: str) -> dict:
     return {prefix + k: v for k, v in sd.items()}
 
 
+def assert_same_tree(port, ref):
+    """The port's tree equals the JAX package's leaf for leaf (keys,
+    shapes and values; a quantized leaf's codes, scales, mins and
+    layout)."""
+    if hasattr(ref, "codes"):
+        assert (port.kind, port.block_axis, port.packed) == (
+            ref.kind, ref.block_axis, ref.packed)
+        for part in ("codes", "scales", "mins"):
+            if getattr(ref, part) is None:
+                assert getattr(port, part) is None
+            else:
+                assert_same_tree(getattr(port, part), getattr(ref, part))
+        return
+    if isinstance(ref, dict):
+        assert isinstance(port, dict) and set(port) == set(ref), \
+            (sorted(port), sorted(ref))
+        for k in ref:
+            assert_same_tree(port[k], ref[k])
+        return
+    port = port.numpy() if isinstance(port, torch.Tensor) else port
+    np.testing.assert_array_equal(port, np.asarray(ref))
+
+
 @pytest.mark.parametrize("prefix", ["", "distilbert."])
 def test_distilbert_tree_is_refused_by_name(prefix):
+    """Refused by name before DistilBERT was mapped; now the same dict
+    maps to the JAX package's tree (a zeros token-type row included)."""
     sd = distilbert_sd(prefix)
-    with pytest.raises(NotImplementedError, match="DistilBERT"):
-        P.from_hf_state_dict(sd, BertConfig(**CFG))
-    # the reference maps the same dict
-    tree = JP.from_hf_state_dict(sd, JaxConfig(**CFG))
+    tree = P.from_hf_state_dict(sd, BertConfig(**CFG))
+    ref = JP.from_hf_state_dict(sd, JaxConfig(**CFG))
     assert tree["layers"]["attn"]["q"]["w"].shape == (1, E, E)
+    assert_same_tree(tree, ref)
+    np.testing.assert_array_equal(
+        tree["embeddings"]["token_type"].numpy(), np.zeros((1, E)))
 
 
 @pytest.mark.parametrize("prefix,family", [("roberta.", "RoBERTa"),
                                            ("albert.", "ALBERT"),
                                            ("roformer.", "RoFormer")])
 def test_prefixed_trees_are_refused_by_name(prefix, family):
-    with pytest.raises(NotImplementedError, match=family):
-        P.from_hf_state_dict(bert_sd(prefix), BertConfig(**CFG))
-    # the port's own prefixes still map
-    tree = P.from_hf_state_dict(bert_sd("bert."), BertConfig(**CFG))
-    assert tree["layers"]["attn"]["q"]["w"].shape == (1, E, E)
+    """Refused by name before these prefixes were mapped; now each maps
+    to the JAX package's tree, and to the ``bert.`` tree of the same
+    dict."""
+    tree = P.from_hf_state_dict(bert_sd(prefix), BertConfig(**CFG))
+    assert_same_tree(tree, JP.from_hf_state_dict(bert_sd(prefix),
+                                                 JaxConfig(**CFG)))
+    bert = P.from_hf_state_dict(bert_sd("bert."), BertConfig(**CFG))
+    assert_same_tree(tree, P.map_tree(lambda t: t.numpy(), bert))
 
 
 _ROPE_JIT = jax.jit(jrot.rope_tables, static_argnums=(1, 2))
