@@ -38,6 +38,15 @@ the port's paths through Engine -> encode_batch (or encode_batch_packed)
   also token-packed on K4), roformer_chinese_base (interleaved RoPE, also
   at L=1,536) and albert-base-v2 (its 128-wide embeddings projected, one
   layer applied 12 times; also int8 on K3 and CP on K8a);
+- the checkpoint formats on K1 and K2: bge-base written by the port's
+  ``write_ggml`` (q4_0, q4_1) and ``write_gguf`` (q4_0, q8_0, f16, q4_K)
+  and read back by ``load_model``, each quantized file's weights reaching
+  K1 as they were read (int8 codes, or packed for a q4 dtype), dense and
+  K-quant files quantized to q4_0 on load; the reference's own
+  ggml-model-f32.bin against its HF directory;
+- bge-reranker-base (XLM-R, vocab 250,002) q4_0 through
+  ``Engine.rerank`` on 128 STS documents (K1 + K2, then the head's two
+  f32 products on the CLS rows) against the plain f32 path;
 
 then times the kernels and the forwards, with a device-time profile of
 each forward by kernel.
@@ -51,6 +60,8 @@ each forward by kernel.
     python3 chip_smoke.py --phases device,build,k6w,modernbert_path,timing
     python3 chip_smoke.py --phases device,build,distilbert_path,\
         roberta_path,roformer_path,albert_path,timing
+    python3 chip_smoke.py --phases device,build,ggml_path,gguf_path,\
+        rerank_path,timing
 
 Each phase prints one JSON line. The last two lines are the kernel table
 and ``{"ok": true, "device": {...}}``; any failure exits non-zero before
@@ -196,6 +207,41 @@ ROFORMER_LONG = (16, 1536)
 CP_ALBERT, CP_ALBERT_MESH = (32, 512), (2, 2)
 ALBERT_UP = (E, F, "bias_gelu_tanh")
 
+# the checkpoint formats: bge-base's f32 tree (numpy seed 0) written by the
+# port's writers, each file loaded with the dtypes below (file kind ->
+# load dtypes: "f32" keeps a quantized file's weights as they were read,
+# int8 codes; a q4 kind packs them; a dense or K-quant file is quantized
+# to q4_0 on load); the reference's own .bin against its HF directory;
+# and bge-reranker-base through Engine.rerank on 128 STS documents
+GGML_FILES = {"q4_0": ("f32", "q4_0"), "q4_1": ("f32", "q4_1")}
+GGUF_FILES = {"q4_0": ("f32", "q4_0"), "q8_0": ("f32",), "f16": ("q4_0",),
+              "q4_K": ("q4_0",)}
+REF_PARITY = ROOT / "tests" / "fixtures" / "ref_parity"
+RERANK_DOCS = 128
+# the reranker against the plain f32 path of the same tree: the CLS rows
+# the head reads at the embedding paths' cosine (0.999), the logits at
+# Pearson >= 0.99 over the documents (their max abs error reported).
+# Random-init logits vary little across documents (their spread is the
+# signal Pearson sees), so bf16 rounding alone holds Pearson near 0.995
+# (the plain versions in bf16 on the CPU, 2-6 layers at E=768), below the
+# 0.999 an embedding's cosine reaches.
+RERANK_PEARSON = 0.99
+
+
+def file_engine_name(fmt: str, kind: str, dtype: str) -> str:
+    """The file-loaded engine's name: "ggml_q4_0", "gguf_f16_as_q4_0"."""
+    return f"{'ggml' if fmt == 'bin' else 'gguf'}_{kind}" + (
+        f"_as_{dtype}" if dtype != "f32" else "")
+
+
+# the weight layouts a file gives K1 beyond the main path's q4_0 packed
+# codes: layout -> the engine whose forward runs it
+FILE_LAYOUTS = {("q4_0", False): "ggml_q4_0", ("q4_1", True):
+                "ggml_q4_1_as_q4_1", ("q8_0", False): "gguf_q8_0"}
+FILE_ENGINES = [file_engine_name(fmt, kind, dtype)
+                for fmt, files in (("bin", GGML_FILES), ("gguf", GGUF_FILES))
+                for kind, dtypes in files.items() for dtype in dtypes]
+
 # tolerances (kernel vs plain version on the same inputs, bf16 outputs):
 # both round the same bf16 operands and accumulate in f32 in different
 # orders, so outputs differ where an f32 value sits next to a bf16
@@ -309,10 +355,15 @@ def k1_inputs(rng, Mx, K, N, kind, packed, epilogue, device):
     return args, kw, qt
 
 
-def k1_cost(Mx, K, N, epilogue) -> tuple[float, float]:
-    """(flops, bytes) of one main-path K1 call: each input read once, the
-    output written once (q4_0 packed codes, f32 scales and bias)."""
-    nbytes = Mx * K * 2 + K // 2 * N + K // 32 * N * 4 + N * 4 + Mx * N * 2
+def k1_cost(Mx, K, N, epilogue, kind: str = "q4_0",
+            packed: bool = True) -> tuple[float, float]:
+    """(flops, bytes) of one K1 call: each input read once, the output
+    written once (the codes: nibbles when packed, else one byte each; f32
+    scales, q4_1's f32 mins, and the bias)."""
+    codes = K // 2 * N if packed else K * N
+    mins = K // 32 * N * 4 if kind == "q4_1" else 0
+    nbytes = (Mx * K * 2 + codes + K // 32 * N * 4 + mins + N * 4
+              + Mx * N * 2)
     if epilogue == "bias_residual_ln":
         nbytes += Mx * N * 2 + 2 * N * 4
     return 2.0 * Mx * K * N, float(nbytes)
@@ -2348,6 +2399,17 @@ ENC_CONFIGS = {
         "num_attention_heads": 12, "num_hidden_groups": 1,
         "num_hidden_layers": 12, "pad_token_id": 0, "type_vocab_size": 2,
         "vocab_size": 30522}, "albert.", 48, 12),
+    # the cross-encoder: XLM-R backbone, classifier.dense -> out_proj
+    "xlmr_reranker": ("BAAI/bge-reranker-base", {
+        "architectures": ["XLMRobertaForSequenceClassification"],
+        "model_type": "xlm-roberta", "bos_token_id": 0, "eos_token_id": 2,
+        "hidden_act": "gelu", "hidden_size": 768,
+        "id2label": {"0": "LABEL_0"}, "intermediate_size": 3072,
+        "label2id": {"LABEL_0": 0}, "layer_norm_eps": 1e-05,
+        "max_position_embeddings": 514, "num_attention_heads": 12,
+        "num_hidden_layers": 12, "pad_token_id": 1,
+        "position_embedding_type": "absolute", "type_vocab_size": 1,
+        "vocab_size": 250002}, "roberta.", 48, 12),
 }
 
 
@@ -2416,9 +2478,16 @@ def hf_state_dict(family: str, d: dict, rng) -> dict:
         if family == "roformer":
             sd["encoder.embed_positions.weight"] = w(
                 d["max_position_embeddings"], E // d["num_attention_heads"])
-        else:
+        elif family != "xlmr_reranker":  # a classifier has no pooler
             lin("pooler.dense", E, E)
-    return {ENC_CONFIGS[family][2] + k: v for k, v in sd.items()}
+    out = {ENC_CONFIGS[family][2] + k: v for k, v in sd.items()}
+    if family == "xlmr_reranker":
+        # RobertaClassificationHead, outside the backbone prefix
+        sd.clear()
+        lin("classifier.dense", E, E)
+        lin("classifier.out_proj", len(d["id2label"]), E)
+        out.update(sd)
+    return out
 
 
 def _hf_engine(family: str, mesh=None, **ec):
@@ -2644,6 +2713,343 @@ def phase_albert_path():
     _check_tcp("albert_server", eng)
 
 
+def layout_name(layout) -> str:
+    kind, packed = layout
+    return f"{kind} {'packed' if packed else 'int8 codes'}"
+
+
+def _k1_file_layouts() -> dict:
+    """K1 against its plain version at bge's four shapes (M = 32,768) on
+    each weight layout a file gives it beyond q4_0 packed: q4_0 and q8_0
+    int8 codes (a quantized file at the default dtype), q4_1 packed."""
+    import torch
+    from embeddings_tpu_torch.ops.qmatmul import qmatmul, qmatmul_ref
+    rng = np.random.default_rng(5)
+    dev = torch.device("cuda")
+    out = {}
+    for layout in FILE_LAYOUTS:
+        rows = out[layout_name(layout)] = {}
+        for name, (K, N, epi) in K1_SHAPES.items():
+            args, kw, _ = k1_inputs(rng, M, K, N, *layout, epi, dev)
+            got = qmatmul(*args.values(), **kw)
+            ref = qmatmul_ref(*args.values(), **kw)
+            torch.cuda.synchronize()
+            rows[name] = compare(got, ref, K1_RTOL, K1_ATOL_RMS)
+            check(rows[name]["ok"], f"K1 {name} on {layout_name(layout)} "
+                  f"disagrees: {rows[name]}")
+            del got, ref
+    RESULTS["k1_file_layouts"] = out
+    return {k: max(r["max_abs_err"] for r in v.values())
+            for k, v in out.items()}
+
+
+def _bge_f32():
+    """bge-base's f32 tree from numpy seed 0 (the tree ``_bge_base_engine``
+    quantizes), its config and a WordPiece vocabulary of the table's
+    size: the STS fixture's tokens, padded."""
+    from embeddings_tpu_torch import BertConfig, KNOWN_MODELS
+    from embeddings_tpu_torch.models import params as P
+    if "bge_f32" not in STATE:
+        cfg = BertConfig(**{**KNOWN_MODELS["bge-base-en-v1.5"],
+                            "vocab_size": 30528})
+        vocab = (FIXTURE / "model" / "vocab.txt").read_text(
+            encoding="utf-8").splitlines()
+        vocab += [f"[pad{i}]" for i in range(cfg.vocab_size - len(vocab))]
+        STATE["bge_f32"] = (cfg, P.init_params(
+            cfg, np.random.default_rng(0)), vocab)
+    return STATE["bge_f32"]
+
+
+def _file_engine(path, dtype: str = "f32", **ec):
+    """load_model(path) on the card, CLS pooling (bge's), batches of 128."""
+    import torch
+    from embeddings_tpu_torch import EngineConfig, load_model
+    return load_model(path, dtype=dtype, pooling="cls",
+                      device=torch.device("cuda"),
+                      engine_config=EngineConfig(**{"batch_size": 128,
+                                                    **ec}))
+
+
+def _file_case(name: str, path, dtype: str, texts) -> dict:
+    """One file through load_model(path, dtype=) and encode_batch: every
+    matmul a K1 launch on the QuantizedTensor the file (or the load's
+    quantization) gave, every attention a K2 on the Hopper kernel: 48 K1
+    + 12 K2 a forward, and again at B=128, L=256; cosine >= 0.999 to the
+    plain f32 path on the same loaded params. The engine is kept for
+    ``timing``."""
+    import torch
+    from embeddings_tpu_torch import EngineConfig
+    from embeddings_tpu_torch.ops import attention as A
+    from embeddings_tpu_torch.ops.qmatmul import qmatmul
+    from embeddings_tpu_torch.ops.quant import QuantizedTensor
+    from embeddings_tpu_torch.runtime.engine import Engine
+    t0 = time.perf_counter()
+    eng = _file_engine(path, dtype)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    w = eng.params["layers"]["mlp"]["up"]["w"]
+    check(isinstance(w, QuantizedTensor), f"{name}: dense weights")
+    (emb, counts, n, wall), routes = _routed(
+        A.fused_attention, lambda: _run_counted(eng, texts))
+    STATE.setdefault("launches", {})["qmatmul_" + name] = dict(
+        qmatmul.shapes)
+    ids = np.random.default_rng(8).integers(1000, 30000, (B, L)).astype(
+        np.int32)
+    reset_counts()
+    eng._forward(ids, np.ones((B, L), np.int32))
+    torch.cuda.synchronize()
+    one = read_counts()
+    plain = Engine(eng.params, eng.config, eng.tokenizer,
+                   EngineConfig(batch_size=128, use_pallas="never",
+                                compute_dtype="float32"),
+                   device=torch.device("cuda"))
+    cos = _row_cos(emb, plain.encode_batch(texts))
+    check(np.isfinite(emb).all() and emb.shape == (len(texts), E),
+          f"{name}: output not finite / wrong shape")
+    check(counts == only(K1=4 * NL * n, K2=NL * n)
+          and routes == {"sm90": NL * n},
+          f"{name}: launches {counts} (K2 {routes}) over {n} forwards")
+    check(one == only(K1=4 * NL, K2=NL), f"{name} at {(B, L)}: {one}")
+    check(cos.min() >= 0.999, f"{name}: kernel path vs plain f32 "
+          f"{cos.min()}")
+    STATE[name + "_engine"] = eng
+    return dict(load_dtype=dtype, weights=f"{w.kind}"
+                + (" packed" if w.packed else " int8 codes"),
+                load_s=load_s, forwards=n, wall_s=wall,
+                launches=nonzero(counts), k2_routes=routes,
+                launches_at_B128_L256=nonzero(one),
+                kernel_vs_plain_f32_min_cos=float(cos.min()), emb=emb)
+
+
+def _dense_tables_diff(name: str, params, texts, ref) -> float:
+    """The file engine ``name`` with its position and token-type tables
+    (2-D '.weight' tensors, so q4_0 in the file, dequantized on load;
+    ``quantize_params`` keeps them dense) put back to the f32 tree's:
+    max abs difference of its embeddings from ``_bge_base_engine``'s."""
+    import torch
+    from embeddings_tpu_torch import EngineConfig
+    from embeddings_tpu_torch.runtime.engine import Engine
+    eng = STATE[name + "_engine"]
+    tree = {**eng.params, "embeddings": {
+        **eng.params["embeddings"],
+        **{k: params["embeddings"][k].to(eng.device)
+           for k in ("position", "token_type")}}}
+    emb = Engine(tree, eng.config, eng.tokenizer,
+                 EngineConfig(batch_size=128),
+                 device=torch.device("cuda")).encode_batch(texts)
+    return float(np.abs(emb - ref).max())
+
+
+def _file_path(fmt: str, files: dict) -> dict:
+    """bge-base's f32 tree through the port's writer of ``fmt`` in each
+    kind of ``files``, then each file through ``_file_case`` with each of
+    its load dtypes; the q4_0 file loaded q4_0 against
+    ``_bge_base_engine``'s embeddings (the same quantize_q4_0 codes)."""
+    import tempfile
+    from embeddings_tpu_torch.models import ggml_io, gguf_io
+    write = ggml_io.write_ggml if fmt == "bin" else gguf_io.write_gguf
+    cfg, params, vocab = _bge_f32()
+    texts = _sts_sentences(120)
+    texts += texts[:8]  # identical sentences: cosine 1.0
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for kind, dtypes in files.items():
+            path = Path(tmp) / f"bge-base-{kind}.{fmt}"
+            t0 = time.perf_counter()
+            write(path, params, cfg, vocab, dtype=kind)
+            row = {"write_s": time.perf_counter() - t0,
+                   "bytes": path.stat().st_size}
+            for dtype in dtypes:
+                name = file_engine_name(fmt, kind, dtype)
+                row[name] = case = _file_case(name, path, dtype, texts)
+                emb = case.pop("emb")
+                dup = (emb[:8] * emb[-8:]).sum(-1)
+                check(dup.min() >= 1 - 1e-6, f"{name}: identical sentences "
+                      f"differ")
+                if kind == "q4_0" and dtype == "q4_0":
+                    if "bge_q4_0_emb" not in STATE:
+                        STATE["bge_q4_0_emb"] = \
+                            _bge_base_engine().encode_batch(texts)
+                    ref = STATE["bge_q4_0_emb"]
+                    case["vs_bge_base_engine"] = dict(
+                        max_abs_diff=float(np.abs(emb - ref).max()),
+                        min_cos=float(_row_cos(emb, ref).min()),
+                        dense_tables_max_abs_diff=_dense_tables_diff(
+                            name, params, texts, ref))
+            out[kind] = row
+    return out
+
+
+def phase_ggml_path():
+    """bge-base (E=768, 12 layers, CLS) through the port's write_ggml in
+    q4_0 and q4_1 and load_model(.bin): unpacked int8 codes (default
+    dtype) and packed (the file's q4 kind), 48 K1 + 12 K2 a forward,
+    cosine >= 0.999 to the plain f32 path; the q4_0 file against
+    ``_bge_base_engine``; the reference's own ggml-model-f32.bin
+    against its HF directory on the card; K1 at bge's shapes on each
+    weight layout the files give it (``_k1_file_layouts``)."""
+    out = {"k1_layouts_max_abs_err": _k1_file_layouts(),
+           **_file_path("bin", GGML_FILES)}
+    texts = _sts_sentences(64)
+    a = _file_engine(REF_PARITY / "ggml-model-f32.bin").encode_batch(texts)
+    ref = _file_engine(REF_PARITY).encode_batch(texts)
+    diff = float(np.abs(a - ref).max())
+    check(np.isfinite(a).all() and diff <= 1e-6,
+          f"reference .bin vs its HF directory: {diff}")
+    out["reference_f32_bin_vs_hf_dir"] = dict(texts=len(texts),
+                                              max_abs_diff=diff)
+    emit("ggml_path", model="bge-base-en-v1.5 shape (random init, numpy "
+         "seed 0, vocab 30528) via write_ggml -> load_model", **out)
+
+
+def phase_gguf_path():
+    """The same tree through the port's write_gguf in q4_0 (loaded packed
+    and as int8 codes), q8_0 (as it is), f16 and q4_K (both quantized to
+    q4_0 on load; the K-quants decode to f32 first, as in JAX): 48 K1 +
+    12 K2 a forward, cosine >= 0.999 to the plain f32 path; each file's
+    write and load seconds."""
+    emit("gguf_path", model="bge-base-en-v1.5 shape (random init, numpy "
+         "seed 0, vocab 30528) via write_gguf -> load_model, every file "
+         "at full depth", **_file_path("gguf", GGUF_FILES))
+
+
+def _pair_tokenizer():
+    """An XLM-R-style Unigram tokenizer (<s> <pad> </s> <unk> = 0-3, pairs
+    as <s> a </s></s> b </s>, one token type) from (piece, score) pairs,
+    as a GGUF's "t5" vocabulary builds one: the STS fixture's words as
+    pieces scored by their log frequency, and its characters."""
+    import math
+    from collections import Counter
+    from embeddings_tpu_torch.tokenizer import UnigramTokenizer
+    words = Counter(w for t in _sts_sentences(2400) for w in t.split())
+    total = sum(words.values())
+    chars = sorted({c for w in words for c in w})
+    pieces = [("<s>", 0.0), ("<pad>", 0.0), ("</s>", 0.0), ("<unk>", 0.0),
+              ("▁", -8.0)]
+    pieces += [("▁" + w, math.log(n / total))
+               for w, n in words.most_common()]
+    pieces += [(c, -20.0) for c in chars]
+    return UnigramTokenizer(pieces, unk_id=3)
+
+
+def _reranker_engine(**ec):
+    """bge-reranker-base at its published config (XLM-R, vocab 250,002,
+    classifier.dense -> out_proj) from HF-named random weights (numpy seed
+    0) through ``from_hf_state_dict``, q4_0 packed + fused qkv, with
+    ``_pair_tokenizer``; on the card. The tree is built once."""
+    import torch
+    from embeddings_tpu_torch import BertConfig, EngineConfig
+    from embeddings_tpu_torch.models import params as P
+    from embeddings_tpu_torch.runtime.engine import Engine
+    if "reranker_params" not in STATE:
+        d = ENC_CONFIGS["xlmr_reranker"][1]
+        t0 = time.perf_counter()
+        cfg = BertConfig.from_hf_dict(d)
+        tok = _pair_tokenizer()
+        params = P.fuse_qkv(P.pack_q4_params(P.quantize_params(
+            P.from_hf_state_dict(hf_state_dict(
+                "xlmr_reranker", d, np.random.default_rng(0)), cfg),
+            "q4_0")))
+        STATE["reranker_params"] = (cfg, tok, params,
+                                    time.perf_counter() - t0)
+    cfg, tok, params, _ = STATE["reranker_params"]
+    return Engine(params, cfg, tok, EngineConfig(**{
+        "batch_size": 128, "max_seq_len": 512, **ec}),
+        device=torch.device("cuda"))
+
+
+def _cls_rows(eng, pairs):
+    """The CLS rows (the head's input) of the pairs, one padded batch,
+    through the engine's path."""
+    import torch
+    from embeddings_tpu_torch.models import bert
+    from embeddings_tpu_torch.runtime.batching import pad_batch
+    ids, mask = pad_batch([p[0] for p in pairs], len(pairs),
+                          max(len(p[0]) for p in pairs),
+                          eng.tokenizer.pad_id)
+
+    def dev(a):
+        return torch.from_numpy(a).to(eng.device)
+
+    with torch.inference_mode():
+        h = bert.encode_tokens(
+            eng.params, eng.config, dev(ids), dev(mask),
+            type_ids=dev(np.zeros_like(ids)), return_hidden=True,
+            compute_dtype=eng._compute_dtype, use_kernels=eng._use_kernels)
+    return h[:, 0].cpu().numpy()
+
+
+def nonzero(counts: dict) -> dict:
+    return {k: v for k, v in counts.items() if v}
+
+
+def phase_rerank_path():
+    """bge-reranker-base q4_0 through Engine.rerank(query, 128 STS
+    documents): 48 K1 + 12 K2 a forward (every K2 on the Hopper kernel),
+    and again at B=128, L=256; against the plain f32 path of the same
+    tree: the CLS rows at cosine >= 0.999, the logits (score_pairs) at
+    Pearson >= RERANK_PEARSON, their max abs error reported."""
+    import torch
+    from embeddings_tpu_torch.ops import attention as A
+    from embeddings_tpu_torch.runtime.batching import extend_buckets, \
+        plan_batches
+    eng = _reranker_engine()
+    check("dense" in eng.params["cls_head"]
+          and eng.params["layers"]["mlp"]["up"]["w"].packed,
+          "reranker: no RoBERTa-style head or unpacked weights")
+    sts = _sts_sentences(RERANK_DOCS + 1)
+    query, docs = sts[0], sts[1:]
+    pairs = [eng.tokenizer.encode_pair(query, doc, max_len=eng.max_seq_len)
+             for doc in docs]
+    ec = eng.engine_config
+    n = len(plan_batches([len(p[0]) for p in pairs], ec.batch_size,
+                         eng._seq_buckets(),
+                         extend_buckets(ec.batch_buckets, ec.batch_size)))
+    reset_counts()
+    t0 = time.perf_counter()
+    scores, routes = _routed(A.fused_attention,
+                             lambda: eng.rerank(query, docs))
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    ids = np.random.default_rng(8).integers(
+        5, eng.config.vocab_size, (B, L)).astype(np.int32)
+    reset_counts()
+    eng._forward_pairs(ids, np.zeros_like(ids), np.ones_like(ids))
+    torch.cuda.synchronize()
+    one = read_counts()
+    plain = _reranker_engine(use_pallas="never", compute_dtype="float32")
+    ref = plain.rerank(query, docs)
+    cls_cos = _row_cos(_cls_rows(eng, pairs), _cls_rows(plain, pairs))
+    err = float(np.abs(scores - ref).max())
+    std = float(ref.std())
+    pearson = float(np.corrcoef(scores, ref)[0, 1])
+    check(np.isfinite(scores).all() and scores.shape == (RERANK_DOCS,),
+          "reranker: logits not finite / wrong shape")
+    check(counts == only(K1=4 * NL * n, K2=NL * n)
+          and routes == {"sm90": NL * n},
+          f"reranker: launches {counts} (K2 {routes}) over {n} forwards")
+    check(one == only(K1=4 * NL, K2=NL), f"reranker at {(B, L)}: {one}")
+    check(cls_cos.min() >= 0.999,
+          f"reranker CLS rows vs plain f32: {cls_cos.min()}")
+    check(pearson >= RERANK_PEARSON,
+          f"reranker vs plain f32: Pearson {pearson}, max abs {err} "
+          f"(std {std})")
+    STATE["reranker_engine"] = eng
+    emit("rerank_path", model=f"{ENC_CONFIGS['xlmr_reranker'][0]} "
+         "(XLMRobertaForSequenceClassification, HF-named random weights, "
+         "numpy seed 0, vocab 250002) q4_0 packed + fused qkv, Unigram "
+         "pairs from (piece, score)", init_quantize_s=STATE[
+             "reranker_params"][3], documents=len(docs),
+         pair_tokens=[min(len(p[0]) for p in pairs),
+                      max(len(p[0]) for p in pairs)],
+         forwards=n, wall_s=wall, launches=nonzero(counts),
+         k2_routes=routes, launches_at_B128_L256=nonzero(one),
+         cls_rows_min_cos=float(cls_cos.min()), max_abs_err=err,
+         plain_logits_std=std, plain_logits_mean=float(ref.mean()),
+         pearson=pearson, tolerance=f"CLS rows cosine >= 0.999; logits "
+         f"Pearson >= {RERANK_PEARSON} (max abs err reported)")
+
+
 def _first_positions_cos(engines, text: str) -> float:
     """Min cosine between the causal and the bidirectional hidden states
     of one text's first 64 positions, through the kernels (the row padded
@@ -2749,13 +3155,17 @@ def phase_timing():
                              {0: NL}, D),
                 "roformer_long": ("roformer_engine", ROFORMER_LONG, 4 * NL,
                                   {0: NL}, D),
-                "albert": ("albert_engine", ENC_SHAPE, 4 * NL, {0: NL}, D)}
+                "albert": ("albert_engine", ENC_SHAPE, 4 * NL, {0: NL}, D),
+                # bge-base loaded from the port's .bin and .gguf files
+                **{name: (name + "_engine", ENC_SHAPE, 4 * NL, {0: NL}, D)
+                   for name in FILE_ENGINES}}
     for name, (key, shape, k1, attn, dh) in families.items():
         if key in STATE:
             fids = rng.integers(1000, 30000, shape).astype(np.int32)
             runs[name] = (lambda e=STATE[key], i=fids: e._forward(
                 i, np.ones_like(i)),
-                launches_want(k1, attn, dh, shape[1]))
+                launches_want(k1, attn, dh, shape[1],
+                              weights=weights_spec(STATE[key])))
     if "albert_engine8" in STATE:
         # ALBERT's int8 forward: K3 on its one kept weight a matmul
         aids = rng.integers(1000, 30000, ENC_SHAPE).astype(np.int32)
@@ -2763,6 +3173,15 @@ def phase_timing():
             lambda: STATE["albert_engine8"]._forward(aids,
                                                      np.ones_like(aids)),
             launches_want(4 * NL, {0: NL}, quant_rows_kernel=4 * NL))
+    if "reranker_engine" in STATE:
+        # the cross-encoder's forward: the backbone, then the head's two
+        # f32 products on the CLS rows
+        rids = rng.integers(5, STATE["reranker_engine"].config.vocab_size,
+                            ENC_SHAPE).astype(np.int32)
+        runs["rerank"] = (
+            lambda: STATE["reranker_engine"]._forward_pairs(
+                rids, np.zeros_like(rids), np.ones_like(rids)),
+            launches_want(4 * NL, {0: NL}, D, ENC_SHAPE[1]))
     fwd = {k: cuda_ms(r[0], iters=5) for k, r in runs.items()}
     profiles = {k: device_profile(k, *r) for k, r in runs.items()}
     chain_fwd = {}
@@ -2779,7 +3198,7 @@ def phase_timing():
                                 "tokens_per_s": tokens / fwd[name] * 1e3}
     family_fwd = {}
     fwd_shapes = {**{k: v[1] for k, v in families.items()},
-                  "albert_int8": ENC_SHAPE}
+                  "albert_int8": ENC_SHAPE, "rerank": ENC_SHAPE}
     for name, (Bx, Lx) in fwd_shapes.items():
         if name in fwd:
             family_fwd[name] = {"shape": [Bx, Lx], "forward_ms": fwd[name],
@@ -2806,6 +3225,14 @@ def phase_timing():
     if albert and "k1_parity" in RESULTS:
         kernels.append(k1_row(rng, dev, "albert_up", ALBERT_UP,
                               launches.get("qmatmul_albert", {})))
+    if "k1_file_layouts" in RESULTS:
+        # K1 on the weight layouts the files give it, where their
+        # engines ran
+        kernels += [k1_row(rng, dev, name, shape,
+                           launches.get("qmatmul_" + eng_name, {}),
+                           layout=layout)
+                    for layout, eng_name in FILE_LAYOUTS.items()
+                    for name, shape in K1_SHAPES.items()]
     if "k3_parity" in RESULTS:
         k3_shapes = {name: (shape, launches.get("qmatmul_int8", {}))
                      for name, shape in K1_SHAPES.items()}
@@ -2994,15 +3421,24 @@ def cp_kernel(shape, mesh_shape) -> str:
     return f"attn_sm90_kernel<{D}, 4, {sm90_warpgroups(Lx // sp)}, 0, 1>"
 
 
-def matmul_kernel(route: str, int8: bool) -> str:
-    """The kernel a K1 (q4_0 packed: every main path's weights) or K3
-    launch of tile route ``route`` (``k1_route`` / ``k3_route``) runs,
-    as the profile names it: qmm_wgmma_kernel<kind, packed, BM, LN>, K3
-    being kind 4 (S8) on int8 operands."""
+def matmul_kernel(route: str, int8: bool, weights: str = "0, true") -> str:
+    """The kernel a K1 or K3 launch of tile route ``route`` (``k1_route``
+    / ``k3_route``) runs, as the profile names it:
+    qmm_wgmma_kernel<kind, packed, BM, LN>, K3 being kind 4 (S8) on int8
+    operands; K1's ``weights`` "kind, packed" (q4_0 packed, "0, true",
+    on every path but the file-loaded ones: ``weights_spec``)."""
     bm = route.split("_")[0][2:]
     ln = "true" if "cluster" in route else "false"
-    return f"qmm_wgmma_kernel<{'4, false' if int8 else '0, true'}, {bm}, " \
+    return f"qmm_wgmma_kernel<{'4, false' if int8 else weights}, {bm}, " \
         f"{ln}>"
+
+
+def weights_spec(eng) -> str:
+    """"kind, packed" of an engine's matmul weights, as K1's template
+    arguments name them."""
+    from embeddings_tpu_torch.ops.qmatmul import _KIND_ID
+    w = eng.params["layers"]["mlp"]["up"]["w"]
+    return f"{_KIND_ID[w.kind]}, {'true' if w.packed else 'false'}"
 
 
 def chain_timing(ids, mask, rounds: int = 5):
@@ -3240,26 +3676,34 @@ def chain_rows(rng, dev) -> list:
     return out
 
 
-def k1_row(rng, dev, name: str, shape, launches: dict, Mx: int = M) -> dict:
+def k1_row(rng, dev, name: str, shape, launches: dict, Mx: int = M,
+           layout=("q4_0", True)) -> dict:
     """K1's row of the kernel table at Mx tokens (32,768; Qwen2's
-    forwards 16,384) and one (K, N, epilogue) of a main path;
-    ``launches``: that path's counts by shape. The library yardstick is a
-    bf16 matmul on the dequantized weight."""
+    forwards 16,384) and one (K, N, epilogue) of a main path, on weights
+    of ``layout`` (kind, packed; a file's layouts are held in phase
+    ``ggml_path``); ``launches``: that path's counts by shape. The
+    library yardstick is a bf16 matmul on the dequantized weight."""
     import torch
     from embeddings_tpu_torch.ops.qmatmul import dequantize_bf16, qmatmul, \
         qmatmul_ref
     K, N, epi = shape
-    args, kw, qt = k1_inputs(rng, Mx, K, N, "q4_0", True, epi, dev)
+    kind, packed = layout
+    args, kw, qt = k1_inputs(rng, Mx, K, N, kind, packed, epi, dev)
     a = list(args.values())
-    w_bf16 = dequantize_bf16(qt.codes, qt.scales, qt.mins, "q4_0", True)
-    bms, by = bound_ms(*k1_cost(Mx, K, N, epi))
+    w_bf16 = dequantize_bf16(qt.codes, qt.scales, qt.mins, kind, packed)
+    bms, by = bound_ms(*k1_cost(Mx, K, N, epi, kind, packed))
+    if layout == ("q4_0", True):
+        parity = (RESULTS["k1_parity"]["main"].get(name)
+                  or RESULTS["k1_parity"]["extra"][name])
+        label = ""
+    else:
+        label = f" {layout_name(layout)}"
+        parity = RESULTS["k1_file_layouts"][label[1:]][name]
     return {
-        "name": f"qmatmul[{name} {K}x{N} {epi}]", "route": "cuda",
+        "name": f"qmatmul[{name} {K}x{N} {epi}{label}]", "route": "cuda",
         "source": "embeddings_tpu_torch/csrc/qmatmul.cu",
         "replaces": K1_REPLACES, "launches": launches.get(shape, 0),
-        "max_abs_err": (RESULTS["k1_parity"]["main"].get(name)
-                        or RESULTS["k1_parity"]["extra"][name])[
-                            "max_abs_err"],
+        "max_abs_err": parity["max_abs_err"],
         "ms": cuda_ms(lambda: qmatmul(*a, **kw)),
         "plain_ms": cuda_ms(lambda: qmatmul_ref(*a, **kw), iters=3),
         "bound_ms": bms, "bound_by": by,
@@ -3341,10 +3785,11 @@ def device_profile(name: str, fn, want: dict) -> dict:
     # the matmul kernels of one forward (two ran: the warm-up's, the step's)
     want = dict(want)
     n_mm = want.pop("matmuls")
+    weights = want.pop("weights", "0, true")
     for int8, routes in ((False, Q.qmatmul.routes),
                          (True, Q.qmatmul_int8.routes)):
         for route, n in routes.items():
-            k = matmul_kernel(route, int8)
+            k = matmul_kernel(route, int8, weights)
             want[k] = want.get(k, 0) + n // 2
     check(sum(n for k, n in want.items() if k.startswith("qmm_")) == n_mm,
           f"profile {name}: matmul routes {want}, want {n_mm} matmuls")
@@ -3654,7 +4099,9 @@ PHASES = {"device": phase_device, "build": phase_build, "k1": phase_k1,
           "distilbert_path": phase_distilbert_path,
           "roberta_path": phase_roberta_path,
           "roformer_path": phase_roformer_path,
-          "albert_path": phase_albert_path, "timing": phase_timing}
+          "albert_path": phase_albert_path, "ggml_path": phase_ggml_path,
+          "gguf_path": phase_gguf_path, "rerank_path": phase_rerank_path,
+          "timing": phase_timing}
 
 
 def main() -> int:

@@ -15,7 +15,9 @@ max / lasttoken), SentenceTransformers Dense layers and the L2 norm.
 
 ``encode_tokens`` runs right-padded batches; ``encode_packed`` runs
 token-packed rows (``runtime/packing.py``: several sentences per row,
-segment ids, per-segment positions, a pooling matrix).
+segment ids, per-segment positions, a pooling matrix); ``score_pairs``
+puts a cross-encoder's classification head on ``encode_tokens``' CLS
+rows.
 
 The JAX package scans one compiled layer body over stacked parameters;
 here a Python loop walks the layers eagerly (``layer_views``: ALBERT's
@@ -693,6 +695,42 @@ def encode_tokens(params: Params, config: BertConfig,
         raise ValueError(f"unknown pooling: {pooling}")
 
     return _finish(params, config, pooled, normalize)
+
+
+def score_pairs(params: Params, config: BertConfig,
+                token_ids: torch.Tensor, attention_mask: torch.Tensor,
+                type_ids: torch.Tensor | None = None, *,
+                mask_value: float = -1e9,
+                compute_dtype: torch.dtype | None = None,
+                use_kernels: bool = True,
+                int8: bool = False) -> torch.Tensor:
+    """Cross-encoder relevance scoring: (query, document) pair tokens ->
+    logits [B] (single-label heads: bge-reranker, ms-marco
+    cross-encoders) or [B, num_labels].
+
+    The head rides on the CLS position of the same forward the embedding
+    path runs (``encode_tokens(..., return_hidden=True)``): BERT style
+    applies the model pooler (tanh(dense(cls))) then the classifier;
+    RoBERTa style (bge-reranker) classifier.dense (tanh) then
+    classifier.out_proj, as HF's BertForSequenceClassification and
+    RobertaClassificationHead do. The head is two f32 products on the CLS
+    rows, outside the kernels, as in the JAX package. type_ids: [B, L]
+    segment ids (0 = query span, 1 = document span) for BERT-family pair
+    encoding; None for the RoBERTa family (one type)."""
+    head = params.get("cls_head")
+    if head is None:
+        raise ValueError("this checkpoint has no classification head "
+                         "(cls_head) — not a cross-encoder/reranker")
+    x = encode_tokens(params, config, token_ids, attention_mask,
+                      mask_value=mask_value, compute_dtype=compute_dtype,
+                      return_hidden=True, type_ids=type_ids,
+                      use_kernels=use_kernels, int8=int8)
+    cls = x[:, 0].float()
+    mid = head.get("pooler") or head.get("dense")
+    if mid is not None:
+        cls = torch.tanh(cls @ mid["w"].float() + mid["b"].float())
+    logits = cls @ head["out"]["w"].float() + head["out"]["b"].float()
+    return logits[:, 0] if logits.shape[-1] == 1 else logits
 
 
 def encode_packed(params: Params, config: BertConfig,

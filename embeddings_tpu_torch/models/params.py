@@ -723,8 +723,9 @@ def from_hf_state_dict(sd: dict[str, np.ndarray], config: BertConfig,
     """Map a HF BERT, RoBERTa, DistilBERT, ALBERT, MPNet, jina-bert-v2,
     nomic-bert, RoFormer, ModernBERT or Qwen2 state dict to the port's
     tree (position_ids and the pooler are dropped, as the reference's
-    converter does; a classifier head is not read). ALBERT's shared layer
-    is stored once."""
+    converter does, unless a classifier head rides on the pooler: a
+    reranker's head lands in ``cls_head``). ALBERT's shared layer is
+    stored once."""
     check_supported(config)
     sd = _strip_prefix({k: np.asarray(v) for k, v in sd.items()})
     NL = 1 if config.shared_layers else config.num_hidden_layers
@@ -782,6 +783,23 @@ def from_hf_state_dict(sd: dict[str, np.ndarray], config: BertConfig,
         out["alibi_slopes"] = _slopes(config)
     if "final_ln.weight" in sd:  # ModernBERT's and Qwen2's final norm
         out["final_ln"] = _ln(sd["final_ln.weight"], sd["final_ln.bias"])
+    if "classifier.weight" in sd or "classifier.out_proj.weight" in sd:
+        # cross-encoder reranker head (models/bert.score_pairs): BERT style
+        # = pooler (tanh) -> classifier [num_labels, E] (ms-marco
+        # cross-encoders); RoBERTa style = classifier.dense (tanh) ->
+        # classifier.out_proj (bge-reranker). The pooler is kept only
+        # when a classifier rides on it: embedding checkpoints drop it.
+        def lin(name: str) -> Params:
+            return {"w": t(sd[name + ".weight"].T), "b": t(sd[name + ".bias"])}
+
+        if "classifier.out_proj.weight" in sd:
+            head = {"dense": lin("classifier.dense"),
+                    "out": lin("classifier.out_proj")}
+        else:
+            head = ({"pooler": lin("pooler.dense")}
+                    if "pooler.dense.weight" in sd else {})
+            head["out"] = lin("classifier")
+        out["cls_head"] = head
     return out
 
 
@@ -836,6 +854,106 @@ def load_hf_dir(model_dir: str | Path, dtype=torch.float32,
         config = BertConfig.from_json(model_dir / "config.json")
     params = from_hf_state_dict(_read_sd(model_dir), config, dtype)
     return _load_st_modules(model_dir, params, config)
+
+
+def to_hf_state_dict(params: Params) -> dict[str, np.ndarray]:
+    """Inverse of from_hf_state_dict for plain BERT trees: the port's tree
+    -> HF-named f32 numpy arrays (linears transposed back to [out, in]).
+    QuantizedTensors are dequantized. Used by the ggml .bin and GGUF
+    writers."""
+    from ..ops.quant import dequantize
+
+    def dense(x) -> np.ndarray:
+        if isinstance(x, QuantizedTensor):
+            x = dequantize(x)
+        return x.detach().float().cpu().numpy()
+
+    emb = params["embeddings"]
+    if "proj" in emb:
+        raise ValueError(
+            "ALBERT-family params (factorized embeddings / shared layers) "
+            "have no BERT-named state-dict form — the ggml/GGUF export "
+            "formats cannot represent them")
+    if "rel_bias" in params:
+        raise ValueError(
+            "MPNet-family params (relative attention bias) have no "
+            "BERT-named state-dict form — the ggml/GGUF export formats "
+            "cannot represent them")
+    if "alibi_slopes" in params:
+        raise ValueError(
+            "ALiBi-family params (jina-bert-v2) have no BERT-named "
+            "state-dict form — the ggml/GGUF export formats cannot "
+            "represent them")
+    if "st_dense" in params:
+        raise ValueError(
+            "sentence-transformers Dense modules (post-pooling "
+            "projections) have no BERT-named state-dict form — the "
+            "ggml/GGUF export formats cannot represent them")
+    if "position" not in emb or "gate" in params["layers"].get("mlp", {}):
+        raise ValueError(
+            "rotary / gated-MLP params (RoFormer, nomic-bert) have no "
+            "BERT-named state-dict form — the ggml/GGUF export formats "
+            "cannot represent them")
+    sd: dict[str, np.ndarray] = {
+        "embeddings.word_embeddings.weight": dense(emb["word"]),
+        "embeddings.position_embeddings.weight": dense(emb["position"]),
+        "embeddings.token_type_embeddings.weight": dense(emb["token_type"]),
+        "embeddings.LayerNorm.weight": dense(emb["ln"]["scale"]),
+        "embeddings.LayerNorm.bias": dense(emb["ln"]["bias"]),
+    }
+    layers = params["layers"]
+    NL = len(dense(layers["attn"]["ln"]["scale"]))
+
+    def put_lin(fmt: str, v: dict) -> None:
+        w = dense(v["w"])   # [NL, in, out]
+        b = dense(v["b"])
+        for i in range(NL):
+            sd[fmt.format(i) + ".weight"] = np.ascontiguousarray(w[i].T)
+            sd[fmt.format(i) + ".bias"] = b[i]
+
+    def put_ln(fmt: str, v: dict) -> None:
+        s, b = dense(v["scale"]), dense(v["bias"])
+        for i in range(NL):
+            sd[fmt.format(i) + ".weight"] = s[i]
+            sd[fmt.format(i) + ".bias"] = b[i]
+
+    put_lin("encoder.layer.{}.attention.self.query", layers["attn"]["q"])
+    put_lin("encoder.layer.{}.attention.self.key", layers["attn"]["k"])
+    put_lin("encoder.layer.{}.attention.self.value", layers["attn"]["v"])
+    put_lin("encoder.layer.{}.attention.output.dense", layers["attn"]["o"])
+    put_ln("encoder.layer.{}.attention.output.LayerNorm", layers["attn"]["ln"])
+    put_lin("encoder.layer.{}.intermediate.dense", layers["mlp"]["up"])
+    put_lin("encoder.layer.{}.output.dense", layers["mlp"]["down"])
+    put_ln("encoder.layer.{}.output.LayerNorm", layers["mlp"]["ln"])
+    return sd
+
+
+def unpack_q4_params(params: Params) -> Params:
+    """Inverse of pack_q4_params: every packed q4 weight back to int8
+    codes (on the device it was on)."""
+    from ..ops.quant import codes_int8
+    if isinstance(params, QuantizedTensor):
+        if not params.packed:
+            return params
+        return QuantizedTensor(
+            torch.from_numpy(codes_int8(params)).to(params.codes.device),
+            params.scales, params.mins, params.kind, params.block_axis)
+    if isinstance(params, dict):
+        return {k: unpack_q4_params(v) for k, v in params.items()}
+    return params
+
+
+def param_bytes(params: Params) -> int:
+    """Bytes the tree's tensors hold (a kept int8 requantization too)."""
+    total = 0
+
+    def visit(t: torch.Tensor) -> torch.Tensor:
+        nonlocal total
+        total += t.numel() * t.element_size()
+        return t
+
+    map_tree(visit, params)
+    return total
 
 
 # ---------------------------------------------------------------------------

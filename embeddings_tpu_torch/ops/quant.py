@@ -2,8 +2,9 @@
 semantics — the PyTorch port of ``embeddings_tpu/ops/quant.py``.
 
 The numpy codecs are copies of the JAX package's (bit-identical codes and
-scales); ``QuantizedTensor`` holds torch tensors, and ``dequantize`` /
-``gather_rows`` are torch.
+scales), the legacy ggml ``.bin`` block codecs (``pack_ggml_*`` /
+``unpack_ggml_*``) among them; ``QuantizedTensor`` holds torch tensors,
+and ``dequantize`` / ``gather_rows`` are torch.
 
 Layout: for a weight W[K, N] used as ``x @ W`` (K = contraction axis),
 ``codes`` is int8 [K, N] (int4-valued for Q4), ``scales``/``mins`` are
@@ -125,6 +126,17 @@ def pack_q4(qt: QuantizedTensor) -> QuantizedTensor:
     return QuantizedTensor(
         torch.from_numpy(np.ascontiguousarray(packed)).to(qt.codes.device),
         qt.scales, qt.mins, qt.kind, qt.block_axis, packed=True)
+
+
+def codes_int8(qt: QuantizedTensor) -> np.ndarray:
+    """The int8 code array (numpy, on the host) regardless of storage
+    packing."""
+    c = qt.codes.cpu().numpy()
+    if not qt.packed:
+        return c
+    if qt.block_axis == -2:
+        return unpack_codes_g64(c)
+    return np.swapaxes(unpack_codes_g64(np.swapaxes(c, -1, -2)), -1, -2)
 
 
 def _check_shape(w: np.ndarray) -> None:
@@ -309,6 +321,126 @@ def gather_rows(qt: QuantizedTensor, ids: torch.Tensor) -> torch.Tensor:
     if qt.kind == "q4_1":
         w = w + qt.mins[ids].to(torch.float32)[..., None]
     return w.reshape(*w.shape[:-2], E)
+
+
+def dequantize_np(codes: np.ndarray, scales: np.ndarray,
+                  mins: np.ndarray | None, kind: str) -> np.ndarray:
+    """NumPy dequant (for offline tools / parity tests)."""
+    *lead, K, N = codes.shape
+    if kind == "nf4":
+        c = NF4_TABLE[codes.astype(np.int32) + 8]
+    else:
+        c = codes.astype(np.float32)
+    c = c.reshape(*lead, K // QK, QK, N)
+    s = scales[..., :, None, :]
+    w = c * s
+    if kind == "q4_1":
+        w = w + mins[..., :, None, :]
+    return w.reshape(*lead, K, N)
+
+
+# ---------------------------------------------------------------------------
+# ggml bit-level pack/unpack (block structs), for the legacy .bin format.
+# Layout per ggml block_q4_0: {f32 d; uint8 qs[16]} where qs[j] holds
+# values 2j (low nibble) and 2j+1 (high nibble) of the 32-value block.
+# ---------------------------------------------------------------------------
+
+def pack_ggml_q4_0(codes: np.ndarray, scales: np.ndarray) -> bytes:
+    """codes int8 [K, N] in [-8,7] + scales [K//32, N] -> ggml row-major
+    block stream for the *transposed* [N, K] ggml tensor (ggml stores
+    ne[0]=K contiguous per output row)."""
+    K, N = codes.shape
+    q = (codes.astype(np.int16) + 8).astype(np.uint8).T.reshape(N, K // QK, QK)
+    lo, hi = q[..., 0::2], q[..., 1::2]
+    packed = (lo | (hi << 4)).astype(np.uint8)          # [N, K//32, 16]
+    d = scales.T.astype(np.float32)                     # [N, K//32]
+    nb = K // QK
+    rec = np.zeros(N * nb, dtype=np.dtype([("d", "<f4"),
+                                           ("qs", "u1", (QK // 2,))]))
+    rec["d"] = d.reshape(-1)
+    rec["qs"] = packed.reshape(N * nb, QK // 2)
+    return rec.tobytes()
+
+
+def unpack_ggml_q4_0(buf: bytes, K: int, N: int
+                     ) -> tuple[np.ndarray, np.ndarray]:
+    """Inverse of pack_ggml_q4_0: ggml block stream -> (codes [K,N], scales)."""
+    nb = K // QK
+    rec = np.dtype([("d", "<f4"), ("qs", "u1", (QK // 2,))])
+    arr = np.frombuffer(buf, dtype=rec, count=N * nb).reshape(N, nb)
+    d = arr["d"].astype(np.float32)                     # [N, nb]
+    qs = arr["qs"]                                      # [N, nb, 16]
+    q = np.empty((N, nb, QK), dtype=np.int8)
+    q[..., 0::2] = (qs & 0x0F).astype(np.int8) - 8
+    q[..., 1::2] = (qs >> 4).astype(np.int8) - 8
+    return q.reshape(N, K).T.copy(), d.T.copy()
+
+
+def pack_ggml_q4_1(codes_raw: np.ndarray, scales: np.ndarray,
+                   mins_raw: np.ndarray) -> bytes:
+    """ggml block_q4_1: {f32 d; f32 m; uint8 qs[16]}. Takes RAW ggml
+    semantics: codes in [0, 15] and unfolded mins (as quantize_q4_1
+    returns), for a [K, N] weight -> stream for the transposed ggml
+    tensor."""
+    K, N = codes_raw.shape
+    q = codes_raw.astype(np.uint8).T.reshape(N, K // QK, QK)
+    lo, hi = q[..., 0::2], q[..., 1::2]
+    packed = (lo | (hi << 4)).astype(np.uint8)
+    d = scales.T.astype(np.float32)
+    m = mins_raw.T.astype(np.float32)
+    nb = K // QK
+    rec = np.zeros(N * nb, dtype=np.dtype([("d", "<f4"), ("m", "<f4"),
+                                           ("qs", "u1", (QK // 2,))]))
+    rec["d"] = d.reshape(-1)
+    rec["m"] = m.reshape(-1)
+    rec["qs"] = packed.reshape(N * nb, QK // 2)
+    return rec.tobytes()
+
+
+def unpack_ggml_q4_1(buf: bytes, K: int, N: int
+                     ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Inverse of pack_ggml_q4_1, returned in QuantizedTensor convention:
+    CENTERED codes in [-8, 7] and FOLDED mins (m + 8d), so
+    dequant = codes*d + mins."""
+    nb = K // QK
+    rec = np.dtype([("d", "<f4"), ("m", "<f4"), ("qs", "u1", (QK // 2,))])
+    arr = np.frombuffer(buf, dtype=rec, count=N * nb).reshape(N, nb)
+    d = arr["d"].astype(np.float32)
+    m = arr["m"].astype(np.float32) + 8.0 * d   # fold the centering shift
+    qs = arr["qs"]
+    q = np.empty((N, nb, QK), dtype=np.int8)
+    q[..., 0::2] = (qs & 0x0F).astype(np.int8) - 8
+    q[..., 1::2] = (qs >> 4).astype(np.int8) - 8
+    return q.reshape(N, K).T.copy(), d.T.copy(), m.T.copy()
+
+
+def pack_ggml_q8_0(codes: np.ndarray, scales: np.ndarray) -> bytes:
+    """ggml block_q8_0: {f32 d; int8 qs[32]}."""
+    K, N = codes.shape
+    q = codes.T.reshape(N, K // QK, QK).astype(np.int8)
+    d = scales.T.astype(np.float32)
+    nb = K // QK
+    rec = np.zeros(N * nb, dtype=np.dtype([("d", "<f4"),
+                                           ("qs", "i1", (QK,))]))
+    rec["d"] = d.reshape(-1)
+    rec["qs"] = q.reshape(N * nb, QK)
+    return rec.tobytes()
+
+
+def unpack_ggml_q8_0(buf: bytes, K: int, N: int
+                     ) -> tuple[np.ndarray, np.ndarray]:
+    nb = K // QK
+    rec = np.dtype([("d", "<f4"), ("qs", "i1", (QK,))])
+    arr = np.frombuffer(buf, dtype=rec, count=N * nb).reshape(N, nb)
+    return (arr["qs"].reshape(N, K).T.astype(np.int8).copy(),
+            arr["d"].astype(np.float32).T.copy())
+
+
+def nibble_histogram(codes: np.ndarray) -> np.ndarray:
+    """16-bucket histogram of 4-bit codes, matching the reference's
+    quantization stats printout (quantize.cpp:229-261)."""
+    vals = np.asarray(codes).astype(np.int32).ravel() + 8
+    return np.bincount(np.clip(vals, 0, 15), minlength=16)
 
 
 # ---------------------------------------------------------------------------

@@ -247,6 +247,67 @@ class Engine:
         while pending:
             scatter(*pending.popleft())
 
+    # -- cross-encoder rerank -----------------------------------------------
+    def rerank(self, query: str, documents: Sequence[str],
+               batch_size: int | None = None) -> np.ndarray:
+        """Cross-encoder relevance scores [N] for (query, document)
+        pairs (raw logits, the HF convention; apply a sigmoid for [0, 1]
+        scores). Needs a checkpoint with a classification head
+        (bge-reranker family, ms-marco cross-encoders); the loader
+        attaches it as params["cls_head"]."""
+        if "cls_head" not in self.params:
+            raise ValueError(
+                "this model has no classification head — load a "
+                "cross-encoder/reranker checkpoint (e.g. bge-reranker, "
+                "ms-marco cross-encoders) to use rerank()")
+        if self.mesh is not None:
+            raise NotImplementedError(
+                "rerank() runs single-device (reranker backbones are "
+                "small); build the Engine without a mesh")
+        enc = getattr(self.tokenizer, "encode_pair", None)
+        if enc is None:
+            raise ValueError(
+                f"{type(self.tokenizer).__name__} has no pair encoding")
+        pairs = [enc(query, d, max_len=self.max_seq_len) for d in documents]
+        ec = self.engine_config
+        batch_size = batch_size or ec.batch_size
+        out = np.empty(len(pairs), np.float32)
+        bb = extend_buckets(ec.batch_buckets, batch_size)
+        plans = plan_batches([len(p[0]) for p in pairs], batch_size,
+                             self._seq_buckets(), bb)
+
+        def dispatch():
+            for plan in plans:
+                ids, mask = pad_batch([pairs[i][0] for i in plan.indices],
+                                      plan.batch, plan.seq,
+                                      self.tokenizer.pad_id)
+                types = np.zeros_like(ids)
+                for r, i in enumerate(plan.indices):
+                    t = pairs[i][1]
+                    types[r, : len(t)] = t
+                yield plan, self._forward_pairs(ids, types, mask)
+
+        def scatter(plan, scores):
+            out[list(plan.indices)] = scores.cpu().numpy()[
+                : len(plan.indices)]
+
+        self._windowed_drain(dispatch(), scatter)
+        return out
+
+    def _forward_pairs(self, ids: np.ndarray, types: np.ndarray,
+                       mask: np.ndarray) -> torch.Tensor:
+        """Enqueue one padded batch of pairs; returns the logits on the
+        device."""
+        def dev(a):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+        with torch.inference_mode():
+            return bert.score_pairs(
+                self.params, self.config, dev(ids), dev(mask), dev(types),
+                mask_value=self.engine_config.mask_value,
+                compute_dtype=self._compute_dtype,
+                use_kernels=self._use_kernels, int8=self._int8)
+
     # -- token-packed encode ------------------------------------------------
     def encode_batch_packed(self, texts: Sequence[str],
                             row_len: int | None = None,
@@ -385,12 +446,15 @@ def load_model(path: str | Path, *, dtype: str = "f32",
                pooling: str | None = None,
                int8_compute: bool = False, device=None,
                mesh=None) -> Engine:
-    """Load an HF model directory or a native ``.npz`` checkpoint into an
-    Engine on ``device`` (None = cuda), or on a context-parallel ``mesh``
+    """Load an HF model directory, a native ``.npz`` checkpoint, a
+    reference-format ggml ``.bin`` or a GGUF file into an Engine on
+    ``device`` (None = cuda), or on a context-parallel ``mesh``
     (``parallel.make_mesh_cp``; the device is then the mesh's).
 
     dtype: f32 | bf16 | f16 | q4_0 | q4_1 | q8_0 | nf4 — quantize or cast
-    on load; the q4 kinds are then packed to the 4-bit layout.
+    on load; the q4 kinds are then packed to the 4-bit layout. A file
+    that is already quantized keeps its weights (and their kind) and is
+    only packed, when dtype is a q4 kind.
     int8_compute: run the quantized matmuls in the int8 tensor-core mode
     (K3) while keeping the model-aware EngineConfig defaults."""
     if mesh is None:
@@ -406,10 +470,16 @@ def load_model(path: str | Path, *, dtype: str = "f32",
         if tokenizer is None:
             from ..tokenizer import tokenizer_from_dir
             tokenizer = tokenizer_from_dir(path)
-    elif path.suffix in (".bin", ".gguf"):
-        raise NotImplementedError(
-            f"{path.suffix} model files are not read by the PyTorch port "
-            f"yet (HF directories and native .npz are)")
+    elif path.suffix == ".bin":
+        # reference-format ggml model file (vocab embedded)
+        from ..models.ggml_io import load_ggml_model
+        params, config, file_tok = load_ggml_model(path)
+        tokenizer = tokenizer or file_tok
+    elif path.suffix == ".gguf":
+        # llama.cpp-era container (vocab embedded)
+        from ..models.gguf_io import load_gguf_model
+        params, config, file_tok = load_gguf_model(path)
+        tokenizer = tokenizer or file_tok
     else:
         params, config = P.load_native(path)
         if tokenizer is None:

@@ -12,7 +12,8 @@ and the reference-compatible (v1) TCP front-end — the port of
   the server greets with int32 n_embd, then answers each received text
   (one recv == one message, up to 32 KiB) with n_embd float32s.
 
-The v2 length-prefixed framing, HTTP and rerank are not ported yet.
+The v2 length-prefixed framing and HTTP (with its ``/rerank`` route)
+are not ported yet; ``Engine.rerank`` is.
 """
 
 from __future__ import annotations

@@ -1015,3 +1015,88 @@ def test_encoder_family_forward_matches_plain(cuda, family):
     ref = bert.encode_tokens(tree, cfg, ids, mask, use_kernels=False)
     cos = (got.cpu() * ref).sum(-1)
     assert torch.isfinite(got).all() and cos.min() >= 0.999, cos
+
+
+def _file_tree(cfg):
+    from embeddings_tpu_torch.models import params as P
+    return P.init_params(cfg, 0)
+
+
+@pytest.mark.parametrize("fmt,file_dtype,load_dtype", [
+    ("gguf", "q4_0", "q4_0"), ("gguf", "q4_0", "f32"), ("gguf", "q8_0", "f32"),
+    ("bin", "q4_1", "f32")])
+def test_file_loaded_engine_matches_plain(cuda, tmp_path, fmt, file_dtype,
+                                          load_dtype):
+    """An engine loaded from the port's own .bin / .gguf file: each
+    quantized weight reaches K1 as the file gave it (packed for a q4
+    dtype, int8 codes otherwise), 4 K1 + 1 K2 a layer, against the plain
+    f32 forward of the same loaded tree."""
+    from embeddings_tpu_torch.config import BertConfig, EngineConfig
+    from embeddings_tpu_torch.models import ggml_io, gguf_io
+    from embeddings_tpu_torch.ops.quant import PACK4_KINDS
+    from embeddings_tpu_torch.runtime.engine import Engine, load_model
+    cfg = BertConfig(vocab_size=512, hidden_size=256, num_hidden_layers=2,
+                     num_attention_heads=4, intermediate_size=512,
+                     max_position_embeddings=128, pooling="cls")
+    vocab = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"] + [
+        f"w{i}" for i in range(507)]
+    path = tmp_path / f"m.{fmt}"
+    (ggml_io.write_ggml if fmt == "bin" else gguf_io.write_gguf)(
+        path, _file_tree(cfg), cfg, vocab, dtype=file_dtype)
+    eng = load_model(path, dtype=load_dtype, pooling="cls", device=cuda)
+    w = eng.params["layers"]["attn"]["qkv"]["w"]
+    assert w.kind == file_dtype and w.packed == (load_dtype in PACK4_KINDS)
+    rng = np.random.default_rng(3)
+    ids = rng.integers(5, 512, (4, 128)).astype(np.int32)
+    mask = np.ones((4, 128), np.int32)
+    mask[1, 40:] = 0
+    before = (qmatmul.launches, fused_attention.launches)
+    got = eng.forward(ids, mask)
+    assert (qmatmul.launches - before[0],
+            fused_attention.launches - before[1]) == (8, 2)
+    plain = Engine(eng.params, eng.config, eng.tokenizer,
+                   EngineConfig(use_pallas="never", compute_dtype="float32"),
+                   device=cuda)
+    cos = (got * plain.forward(ids, mask)).sum(-1)
+    assert np.isfinite(got).all() and cos.min() >= 0.999, cos
+
+
+def test_reranker_matches_plain(cuda):
+    """A q4_0 cross-encoder (RoBERTa-style head) through Engine.rerank:
+    4 K1 + 1 K2 a layer; its logits against the plain f32 path's at
+    Pearson >= 0.99 (random-init logits vary little across documents:
+    see chip_smoke.RERANK_PEARSON)."""
+    from embeddings_tpu_torch.config import BertConfig, EngineConfig
+    from embeddings_tpu_torch.models import params as P
+    from embeddings_tpu_torch.runtime.engine import Engine
+    from embeddings_tpu_torch.tokenizer import WordPieceTokenizer, \
+        WordPieceVocab
+    cfg = BertConfig(vocab_size=512, hidden_size=256, num_hidden_layers=2,
+                     num_attention_heads=4, intermediate_size=512,
+                     max_position_embeddings=128)
+    tree = P.init_params(cfg, 0)
+    rng = np.random.default_rng(4)
+
+    def lin(n):
+        return {"w": torch.from_numpy(rng.standard_normal(
+            (256, n), dtype=np.float32) * np.float32(0.05)),
+            "b": torch.zeros(n)}
+
+    tree["cls_head"] = {"dense": lin(256), "out": lin(1)}
+    tree = P.fuse_qkv(P.pack_q4_params(P.quantize_params(tree, "q4_0")))
+    tok = WordPieceTokenizer(WordPieceVocab.from_tokens(
+        ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"]
+        + [f"w{i}" for i in range(507)]))
+    docs = [" ".join(f"w{j}" for j in rng.integers(0, 507, int(k)))
+            for k in rng.integers(3, 60, 64)]
+    eng = Engine(tree, cfg, tok, EngineConfig(batch_size=64), device=cuda)
+    plain = Engine(tree, cfg, tok, EngineConfig(
+        batch_size=64, use_pallas="never", compute_dtype="float32"),
+        device=cuda)
+    before = (qmatmul.launches, fused_attention.launches)
+    got = eng.rerank("w1 w2 w3", docs)
+    n = (fused_attention.launches - before[1]) // 2
+    assert n >= 1 and (qmatmul.launches - before[0]) == 8 * n
+    ref = plain.rerank("w1 w2 w3", docs)
+    assert np.isfinite(got).all() and got.shape == (64,)
+    assert np.corrcoef(got, ref)[0, 1] >= 0.99

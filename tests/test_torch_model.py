@@ -284,6 +284,13 @@ def test_port_source_imports_no_jax(path):
                 f"{path}:{node.lineno} imports {args}"
 
 
+def test_port_files_hold_the_format_modules():
+    """The checks above walk the checkpoint formats' modules too."""
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    assert {"embeddings_tpu_torch/models/ggml_io.py",
+            "embeddings_tpu_torch/models/gguf_io.py"} <= names
+
+
 def test_port_import_adds_no_jax_module():
     """Importing every module of the port (in a fresh interpreter) loads
     no jax and no embeddings_tpu module."""
