@@ -49,7 +49,12 @@ the port's paths through Engine -> encode_batch (or encode_batch_packed)
   f32 products on the CLS rows) against the plain f32 path;
 
 then times the kernels and the forwards, with a device-time profile of
-each forward by kernel.
+each forward by kernel; then the serving surface: the port's native
+tokenizer against the Python one, bge-base (and the reranker) behind
+the TCP (v1, v2) and HTTP front-ends on every route, 2,000 sentences
+from 64 connections (requests/s, latency percentiles, the device's busy
+share), and the CLI in subprocesses (convert, quantize, encode,
+tokenize, bench).
 
     python3 chip_smoke.py              # every phase, needs one CUDA device
     python3 chip_smoke.py --phases device,build,k1,k2,k3,k4k5,k6k7,k6w,k6c,\
@@ -62,6 +67,8 @@ each forward by kernel.
         roberta_path,roformer_path,albert_path,timing
     python3 chip_smoke.py --phases device,build,ggml_path,gguf_path,\
         rerank_path,timing
+    python3 chip_smoke.py --phases device,build,main,timing,native_tok,\
+        http_path,serve_latency,cli_path
 
 Each phase prints one JSON line. The last two lines are the kernel table
 and ``{"ok": true, "device": {...}}``; any failure exits non-zero before
@@ -74,6 +81,7 @@ from __future__ import annotations
 
 import argparse
 import asyncio
+import contextlib
 import dataclasses
 import functools
 import json
@@ -478,6 +486,7 @@ def phase_device():
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip().splitlines()
     print(smi[0] if smi else "nvidia-smi: no output", flush=True)
+    STATE["nvidia_smi"] = smi[0] if smi else None
     clock = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.max.sm",
          "--format=csv,noheader,nounits"], capture_output=True, text=True,
@@ -501,10 +510,27 @@ def phase_build():
     in each, and neither HMMA (bf16 mma.sync / WMMA) nor IMMA (int8
     mma.sync) in either, so the port has no mma.sync at all. ptxas's C75xx
     notes (each a kernel whose wgmma it serializes) are counted per
-    library from its -v report; no library has one."""
+    library from its -v report; no library has one. The native tokenizer
+    (g++) builds beside them, in a thread."""
+    import threading
     from embeddings_tpu_torch.ops import _cuda
+    from embeddings_tpu_torch.tokenizer import native
+    native_err = []
+
+    def build_native():
+        t0 = time.perf_counter()
+        try:
+            native.build()
+        except RuntimeError as exc:
+            native_err.append(str(exc))
+        STATE["native_build_s"] = time.perf_counter() - t0
+
+    tok = threading.Thread(target=build_native)
+    tok.start()
     t0 = time.perf_counter()
     seconds = _cuda.build(*SOURCES)  # one nvcc each, all together
+    tok.join()
+    check(not native_err, f"native tokenizer build failed: {native_err}")
     hgmma = {name: hgmma_count(name) for name in SOURCES}
     for name, n in hgmma.items():
         check(n > 0, f"{name}'s library holds no HGMMA (wgmma) instruction")
@@ -523,6 +549,7 @@ def phase_build():
               + "; ".join(line for line in _cuda.BUILD_LOGS[name]
                           .splitlines() if "(C75" in line)[:2000])
     emit("build", seconds=time.perf_counter() - t0, per_source=seconds,
+         native_tokenizer_s=STATE["native_build_s"],
          hgmma_in_sass=hgmma, igmma_in_sass=igmma,
          mma_sync_in_sass=mma_sync, ptxas_c75xx_notes=c75)
 
@@ -4080,6 +4107,571 @@ def cp_rows(rng, dev) -> list:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the serving surface: the native tokenizer, HTTP and TCP, the CLI
+# ---------------------------------------------------------------------------
+
+# accented, CJK and mixed-script text for the native tokenizer's check
+NATIVE_EXTRA = ["café naïve Ünïcödé ÀÉÎÕÜ façade", "你好世界，欢迎光临",
+                "東京タワー テキスト", "ΛΟΓΟΣ σοφία", "Привет, мир!",
+                "emoji 🤖 test\ttab\nnewline", "\xa0nbsp\x85nel ls",
+                "don't 'LL 123 abc under_score-dash.dot"]
+
+
+def phase_native_tok():
+    """The port's native WordPiece (built in phase ``build``, or here) on
+    the bge engine's tokenizer: its ids equal the Python tokenizer's on
+    the STS sentences plus accented and CJK text; the Engine tokenizes
+    through it; tokens/s both ways on the host."""
+    from embeddings_tpu_torch.tokenizer import native, tokenizer_from_dir
+    t0 = time.perf_counter()
+    path = native.build()  # raises if the compiler fails
+    build_s = time.perf_counter() - t0
+    check(native.available(), f"native tokenizer: {native._lib_error}")
+    py = tokenizer_from_dir(FIXTURE / "model")
+    fast = native.wrap_fast(py)
+    check(isinstance(fast, native.NativeWordPieceTokenizer),
+          f"native tokenizer not taken for WordPiece: {fast}")
+    texts = _sts_sentences(2400) + NATIVE_EXTRA * 4
+    rates = {}
+    for name, tok in (("python", py), ("native", fast)):
+        t0 = time.perf_counter()
+        ids = [tok.encode(t, max_len=512) for t in texts]
+        s = time.perf_counter() - t0
+        rates[name] = (ids, sum(len(i) for i in ids) / s)
+    bad = [t for t, a, b in zip(texts, rates["python"][0],
+                                rates["native"][0]) if a != b]
+    check(not bad, f"native ids differ from Python's on {bad[:3]}")
+    eng = STATE.get("engine")
+    check(eng is None or isinstance(eng._fast_tokenizer,
+                                    native.NativeWordPieceTokenizer),
+          "the bge engine does not tokenize natively")
+    emit("native_tok", card=STATE.get("nvidia_smi"),
+         library=str(path.relative_to(ROOT)), build_s=build_s,
+         phase_build_s=STATE.get("native_build_s"), texts=len(texts),
+         tokens=sum(len(i) for i in rates["native"][0]),
+         ids_equal=True, python_tokens_per_s=rates["python"][1],
+         native_tokens_per_s=rates["native"][1],
+         speedup=rates["native"][1] / rates["python"][1],
+         engine_tokenizes_natively=eng is not None)
+
+
+def _http(base: str, path: str, body=None):
+    """(status, JSON) of one request through urllib."""
+    import urllib.error
+    import urllib.request
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(base + path, data=data,
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=120) as resp:
+            return resp.status, json.loads(resp.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+@contextlib.contextmanager
+def plain_calls():
+    """Count the calls of K1's and K2's plain versions inside the block
+    (the wrappers call them only for CPU tensors); yields the counts."""
+    from embeddings_tpu_torch.ops import attention as A, qmatmul as Q
+    calls, saved = {}, []
+    for mod, name in ((Q, "qmatmul_ref"), (Q, "qmatmul_int8_ref"),
+                      (A, "fused_attention_ref")):
+        fn = getattr(mod, name)
+        calls[name] = 0
+
+        def counted(*a, _fn=fn, _name=name, **kw):
+            calls[_name] += 1
+            return _fn(*a, **kw)
+        setattr(mod, name, counted)
+        saved.append((mod, name, fn))
+    try:
+        yield calls
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def phase_http_path():
+    """One BatchingService over the bge engine behind serve_tcp and
+    serve_http on ephemeral ports (``start_serving``, as serve_forever
+    composes them), and serve_http over the reranker; through the port's
+    clients and urllib: TCP v1 and v2 (one text above 32 KiB), /embed in
+    float32 then int8 and binary, /v1/embeddings in float then base64
+    with dimensions=256, /healthz, /stats, /rerank. One-text requests
+    equal Engine.encode within _check_tcp's bound; batched ones at
+    cosine >= 0.999; the quantized precisions are quantize_embeddings of
+    the same request's floats; /rerank's order is Engine.rerank's. K1 and
+    K2 launch (48 : 12), on the Hopper routes, and no plain version
+    runs."""
+    from embeddings_tpu_torch.ops import attention as A
+    from embeddings_tpu_torch.runtime.client import HttpClient, TcpClient
+    from embeddings_tpu_torch.runtime.server import serve_http, \
+        start_serving
+    from embeddings_tpu_torch.utils.embedding_quant import \
+        quantize_embeddings
+    eng = STATE.get("engine") or _bge_base_engine()
+    rer = STATE.get("reranker_engine") or _reranker_engine()
+    texts = _sts_sentences(40)
+    one, batch = texts[:4], texts[8:24]
+    big = " ".join(_sts_sentences(800))
+    check(len(big.encode()) > 32 * 1024, "the big text is not > 32 KiB")
+    query, docs = texts[0], texts[1:33]
+
+    async def run():
+        service, servers = await start_serving(
+            eng, host="127.0.0.1", tcp_port=0, http_port=0, max_batch=128)
+        rsrv, rsvc = await serve_http(rer, "127.0.0.1", 0)
+        tcp = servers[0].sockets[0].getsockname()[1]
+        url = f"http://127.0.0.1:{servers[1].sockets[0].getsockname()[1]}"
+        rurl = f"http://127.0.0.1:{rsrv.sockets[0].getsockname()[1]}"
+
+        def client():
+            out = {}
+            with TcpClient("127.0.0.1", tcp, timeout=120) as c:
+                out["tcp_v1"] = [c.embed(t) for t in one]
+            with TcpClient("127.0.0.1", tcp, timeout=120,
+                           framing="v2") as c:
+                out["tcp_v2"] = [c.embed(t) for t in one + [big]]
+            h = HttpClient(url, timeout=120)
+            out["healthz"] = h.healthz()
+            out["embed_one"] = [h.embed(t) for t in one]
+            out["embed_batch"] = _http(url, "/embed", {"texts": batch})
+            for p in ("int8", "binary"):
+                out[p] = _http(url, "/embed", {"texts": batch,
+                                               "precision": p})
+            out["v1_one"] = [_http(url, "/v1/embeddings", {"input": t})
+                             for t in one]
+            out["v1_b64"] = _http(url, "/v1/embeddings", {
+                "input": batch, "encoding_format": "base64",
+                "dimensions": 256})
+            out["stats"] = _http(url, "/stats")
+            out["rerank"] = _http(rurl, "/rerank", {
+                "query": query, "documents": docs, "top_n": 10,
+                "return_documents": True})
+            out["rerank_no_head"] = _http(url, "/rerank", {
+                "query": query, "documents": docs[:2]})
+            return out
+
+        try:
+            return await asyncio.to_thread(client)
+        finally:
+            for s in (*servers, rsrv):
+                s.close()
+            await service.stop()
+            await rsvc.stop()
+
+    reset_counts()
+    with plain_calls() as plain:
+        t0 = time.perf_counter()
+        out, routes = _routed(A.fused_attention, lambda: asyncio.run(run()))
+        wall = time.perf_counter() - t0
+    counts = read_counts()
+    diffs = {}
+    for key, sent in (("tcp_v1", one), ("tcp_v2", one + [big]),
+                      ("embed_one", one)):
+        diffs[key] = max(float(np.abs(a - eng.encode(t)).max())
+                         for a, t in zip(out[key], sent))
+    diffs["v1_one"] = max(float(np.abs(np.asarray(
+        r[1]["data"][0]["embedding"], np.float32) - eng.encode(t)).max())
+        for r, t in zip(out["v1_one"], one))
+    direct = eng.encode(batch)
+    st, body = out["embed_batch"]
+    floats = np.asarray(body["embeddings"], np.float32)
+    batch_cos = float(_row_cos(floats, direct).min())
+    quant_equal = {}
+    for p in ("int8", "binary"):
+        qst, qbody = out[p]
+        quant_equal[p] = bool(qst == 200 and qbody["precision"] == p
+                              and np.array_equal(
+                                  np.asarray(qbody["embeddings"]),
+                                  quantize_embeddings(floats, p)))
+    vst, vbody = out["v1_b64"]
+    import base64
+    v = np.stack([np.frombuffer(base64.b64decode(d["embedding"]), "<f4")
+                  for d in vbody["data"]])
+    trunc = direct[:, :256] / np.linalg.norm(direct[:, :256], axis=-1,
+                                             keepdims=True)
+    b64_cos = float(_row_cos(v, trunc).min())
+    usage = vbody["usage"]["prompt_tokens"]
+    rst, rbody = out["rerank"]
+    scores = rer.rerank(query, docs)
+    want_order = sorted(range(len(docs)), key=lambda i: -scores[i])[:10]
+    got_order = [r["index"] for r in rbody["results"]]
+    stats = out["stats"][1]
+    bound = 1e-6  # _check_tcp's
+    check(max(diffs.values()) <= bound,
+          f"http_path: one-text answers differ from Engine.encode: {diffs}")
+    check(st == 200 and floats.shape == (len(batch), E)
+          and batch_cos >= 0.999, f"http_path: /embed batch cos {batch_cos}")
+    check(all(quant_equal.values()), f"http_path: precisions {quant_equal}")
+    check(vst == 200 and v.shape == (len(batch), 256) and b64_cos >= 0.999
+          and usage == sum(len(eng.tokenize(t)) for t in batch),
+          f"http_path: /v1/embeddings base64 cos {b64_cos}, usage {usage}")
+    check(out["healthz"] == {"status": "ok", "n_embd": E},
+          f"http_path: healthz {out['healthz']}")
+    check(rst == 200 and got_order == want_order
+          and all(r["document"] == docs[r["index"]]
+                  for r in rbody["results"]),
+          f"http_path: rerank order {got_order}, want {want_order}")
+    check(out["rerank_no_head"][0] == 400, "http_path: /rerank on an "
+          "embedding model is not refused")
+    check(counts["K1"] > 0 and counts["K2"] > 0
+          and counts["K1"] == 4 * counts["K2"]
+          and counts == only(K1=counts["K1"], K2=counts["K2"])
+          and routes == {"sm90": counts["K2"]}
+          and not any(plain.values()),
+          f"http_path: launches {counts}, K2 routes {routes}, plain "
+          f"calls {plain}")
+    emit("http_path", card=STATE.get("nvidia_smi"),
+         model="bge-base-en-v1.5 (as phase main) and bge-reranker-base "
+         "(as phase rerank_path), q4_0 packed + fused qkv", wall_s=wall,
+         max_abs_diff_vs_encode=diffs, bound=bound,
+         embed_batch_min_cos=batch_cos, precisions_equal=quant_equal,
+         v1_base64_dims256_min_cos=b64_cos, usage_tokens=usage,
+         big_text_bytes=len(big.encode()), rerank_top10=got_order,
+         stats={k: stats[k] for k in ("requests", "batches", "errors",
+                                      "avg_batch")},
+         launches=nonzero(counts), k2_routes=routes, plain_calls=plain,
+         tolerance="one-text requests <= 1e-6 of Engine.encode; batched "
+         "cosine >= 0.999; precisions exact; rerank order equal")
+
+
+def load_client(tcp_port: str, http_port: str, texts_file: str,
+                conns: str = "64") -> None:
+    """The load of phase ``serve_latency``, in a process of its own: conns
+    connections at once, half TCP v2 (the port's TcpClient), half HTTP
+    keep-alive to /v1/embeddings (http.client), each sending its share of
+    the texts one request at a time. Prints one JSON line."""
+    import http.client
+    import threading
+    from embeddings_tpu_torch.runtime.client import TcpClient
+    texts = json.loads(Path(texts_file).read_text())
+    n = int(conns)
+    half = len(texts) // 2
+    shares = ([texts[i:half:n // 2] for i in range(n // 2)]
+              + [texts[half + i::n - n // 2] for i in range(n - n // 2)])
+    lat = [[] for _ in range(n)]
+    errors = [0] * n
+    go = threading.Barrier(n + 1)
+
+    def tcp(i):
+        with TcpClient("127.0.0.1", int(tcp_port), timeout=300,
+                       framing="v2") as c:
+            go.wait()
+            for t in shares[i]:
+                t0 = time.perf_counter()
+                e = c.embed(t)
+                lat[i].append(time.perf_counter() - t0)
+                errors[i] += not (e.shape == (c.n_embd,)
+                                  and np.isfinite(e).all())
+
+    def web(i):
+        conn = http.client.HTTPConnection("127.0.0.1", int(http_port),
+                                          timeout=300)
+        go.wait()
+        for t in shares[i]:
+            t0 = time.perf_counter()
+            conn.request("POST", "/v1/embeddings",
+                         json.dumps({"input": t}),
+                         {"Content-Type": "application/json"})
+            resp = conn.getresponse()
+            body = resp.read()
+            lat[i].append(time.perf_counter() - t0)
+            errors[i] += resp.status != 200 or len(json.loads(body)[
+                "data"][0]["embedding"]) == 0
+        conn.close()
+
+    threads = [threading.Thread(target=tcp if i < n // 2 else web, args=(i,))
+               for i in range(n)]
+    for t in threads:
+        t.start()
+    go.wait()
+    t0 = time.perf_counter()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    xs = np.sort(np.concatenate([np.asarray(x) for x in lat]))
+    print(json.dumps({
+        "requests": int(xs.size), "errors": int(sum(errors)),
+        "wall_s": wall, "requests_per_s": xs.size / wall,
+        "client_ms": {p: float(np.percentile(xs, q) * 1e3)
+                      for p, q in (("p50", 50), ("p90", 90), ("p99", 99))},
+        "tcp_requests": sum(len(x) for x in lat[:n // 2]),
+        "http_requests": sum(len(x) for x in lat[n // 2:])}))
+
+
+SERVE_TEXTS, SERVE_CONNS, SERVE_MAX_BATCH = 2000, 64, 128
+
+
+def _serve_load(eng, texts_file: str, profiled: bool) -> dict:
+    """One service (max_batch 128) behind TCP and HTTP, loaded by
+    ``load_client`` in a child process, each device step's host time
+    recorded; with ``profiled`` the device's kernels are traced over the
+    load (torch.profiler, CUDA activity)."""
+    import torch
+    from embeddings_tpu_torch.runtime.server import start_serving
+
+    steps = []  # host seconds of each device step (worker thread)
+
+    async def run():
+        service, servers = await start_serving(
+            eng, host="127.0.0.1", tcp_port=0, http_port=0,
+            max_batch=SERVE_MAX_BATCH)
+        step = service._encode_batch_counted
+
+        def timed(texts):
+            t0 = time.perf_counter()
+            try:
+                return step(texts)
+            finally:
+                steps.append(time.perf_counter() - t0)
+        service._encode_batch_counted = timed
+        ports = [str(s.sockets[0].getsockname()[1]) for s in servers]
+        try:
+            proc = await asyncio.create_subprocess_exec(
+                sys.executable, "-c", "import sys, chip_smoke; "
+                "chip_smoke.load_client(*sys.argv[1:])", *ports, texts_file,
+                str(SERVE_CONNS), cwd=ROOT, stdout=asyncio.subprocess.PIPE,
+                stderr=asyncio.subprocess.PIPE)
+            out, err = await asyncio.wait_for(proc.communicate(), 600)
+            check(proc.returncode == 0, f"serve_latency client failed: "
+                  f"{err.decode()[-2000:]}")
+            return json.loads(out.decode().strip().splitlines()[-1]), \
+                service.stats.as_dict()
+        finally:
+            for s in servers:
+                s.close()
+            await service.stop()
+
+    if profiled:
+        from torch.profiler import ProfilerActivity, profile
+        trace = profile(activities=[ProfilerActivity.CUDA])
+    else:
+        trace = contextlib.nullcontext()
+    with trace as prof:
+        (client, stats) = asyncio.run(run())
+        torch.cuda.synchronize()
+    row = {"client": client, "service": stats,
+           # the worker thread's tokenize + forward + read-back, whose
+           # Python holds the GIL the event loop needs
+           "step_ms_mean": float(np.mean(steps)) * 1e3,
+           "step_ms_p90": float(np.percentile(steps, 90)) * 1e3,
+           "step_share_of_wall": sum(steps) / client["wall_s"]}
+    if profiled:
+        spans = [(e.time_range.start, e.time_range.end) for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy = sum(b - a for a, b in spans) / 1e3
+        row.update(device_busy_ms=busy, kernels=len(spans),
+                   busy_share_of_load_wall=busy / (client["wall_s"] * 1e3),
+                   busy_share_of_kernel_span=busy / (
+                       (max(b for _, b in spans) - min(a for a, _ in spans))
+                       / 1e3) if spans else 0.0)
+    return row
+
+
+def phase_serve_latency():
+    """2,000 STS sentences from 64 connections at once (a child process:
+    32 TCP v2, 32 HTTP keep-alive to /v1/embeddings) through one service
+    with max_batch=128 over the bge engine: requests/s, ServiceStats'
+    p50 / p90 / p99 and average batch, the clients' own latencies, each
+    device step's host time under the load and alone (a batch of 16);
+    then the same load again under torch.profiler for the device's busy
+    share over the load's wall time. Recorded, not held to a limit."""
+    import tempfile
+    eng = STATE.get("engine") or _bge_base_engine()
+    texts = _sts_sentences(SERVE_TEXTS)
+    check(len(texts) == SERVE_TEXTS, "not enough STS sentences")
+    eng.encode(texts[:8])  # warm
+    # one device step (tokenize, forward, read-back) of a batch of 16 STS
+    # sentences, the load's average batch, with nothing else running
+    from embeddings_tpu_torch.runtime.server import BatchingService
+    probe = BatchingService(eng)
+    alone = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        probe._encode_batch_counted(texts[:16])
+        alone.append(time.perf_counter() - t0)
+    with tempfile.NamedTemporaryFile("w", suffix=".json",
+                                     delete=False) as f:
+        json.dump(texts, f)
+    try:
+        reset_counts()
+        plain = _serve_load(eng, f.name, profiled=False)
+        counts = read_counts()
+        traced = _serve_load(eng, f.name, profiled=True)
+    finally:
+        Path(f.name).unlink()
+    for r in (plain, traced):
+        check(r["client"]["requests"] == SERVE_TEXTS
+              and r["client"]["errors"] == 0
+              and r["service"]["errors"] == 0
+              and r["service"]["requests"] == SERVE_TEXTS,
+              f"serve_latency: {r['client']}, {r['service']}")
+    check(counts["K1"] == 4 * counts["K2"] > 0
+          and counts == only(K1=counts["K1"], K2=counts["K2"]),
+          f"serve_latency: launches {counts}")
+    lat = plain["service"]["latency_ms"]
+    emit("serve_latency", card=STATE.get("nvidia_smi"),
+         model="bge-base-en-v1.5 q4_0 packed + fused qkv (phase main's "
+         "engine)", texts=SERVE_TEXTS, connections=SERVE_CONNS,
+         max_batch=SERVE_MAX_BATCH, max_wait_ms=2.0,
+         requests_per_s=plain["client"]["requests_per_s"],
+         wall_s=plain["client"]["wall_s"], p50_ms=lat["p50"],
+         p90_ms=lat["p90"], p99_ms=lat["p99"], mean_ms=lat["mean"],
+         avg_batch=plain["service"]["avg_batch"],
+         batches=plain["service"]["batches"],
+         client_ms=plain["client"]["client_ms"],
+         step_ms_alone_b16=float(np.median(alone)) * 1e3,
+         step_ms_mean=plain["step_ms_mean"],
+         step_ms_p90=plain["step_ms_p90"],
+         step_share_of_wall=plain["step_share_of_wall"],
+         launches=nonzero(counts),
+         device_busy_share=traced["busy_share_of_load_wall"],
+         profiled_run=traced)
+
+
+def _cli(*args) -> subprocess.Popen:
+    """``python -m embeddings_tpu_torch.cli args`` from the checkout."""
+    return subprocess.Popen(
+        [sys.executable, "-m", "embeddings_tpu_torch.cli", *map(str, args)],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def _cli_wait(procs: dict, timeout: float = 600) -> dict:
+    """Each process's stdout (and its seconds); fails on any exit code."""
+    out = {}
+    for name, (proc, t0) in procs.items():
+        so, se = proc.communicate(timeout=timeout)
+        check(proc.returncode == 0, f"cli {name} exited {proc.returncode}: "
+              f"{se[-2000:]}")
+        out[name] = (so, time.perf_counter() - t0)
+    return out
+
+
+def phase_cli_path():
+    """bge-base's f32 tree (numpy seed 0) saved as a native .npz with a
+    vocab.txt of the table's size; then ``python -m
+    embeddings_tpu_torch.cli``: convert to .bin and .gguf (q4_0) and
+    quantize to q4_0, together; encode from each file (q4_0 packed on
+    the card), each equal to Engine.encode of the same file within
+    _check_tcp's bound; tokenize; bench --batch 128 --seq 256, whose
+    sentences/s must come within 5% of device_time_us of the bge engine's
+    forward at the same shape in this process (both the slope method);
+    phase ``timing``'s bge bf16 rate (a wall time per forward, host idle
+    included) is printed beside them."""
+    import tempfile
+    import torch
+    from embeddings_tpu_torch import EngineConfig, load_model
+    from embeddings_tpu_torch.models import params as P
+    from embeddings_tpu_torch.tokenizer import tokenizer_from_dir
+    cfg, params, vocab = _bge_f32()
+    texts = _sts_sentences(6)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        src = tmp / "bge-base.npz"
+        t0 = time.perf_counter()
+        P.save_native(src, params, cfg)
+        (tmp / "vocab.txt").write_text("\n".join(vocab) + "\n",
+                                       encoding="utf-8")
+        save_s = time.perf_counter() - t0
+        files = {"bin": tmp / "bge-q4_0.bin", "gguf": tmp / "bge-q4_0.gguf",
+                 "npz": tmp / "bge-q4_0.npz"}
+        t0 = time.perf_counter()
+        made = _cli_wait({
+            "convert_bin": (_cli("convert", src, files["bin"], "--dtype",
+                                 "q4_0"), t0),
+            "convert_gguf": (_cli("convert", src, files["gguf"], "--dtype",
+                                  "q4_0"), t0),
+            "quantize": (_cli("quantize", src, files["npz"], "--dtype",
+                              "q4_0"), t0)})
+        hist = made["quantize"][0].splitlines()[0]
+        check(hist.startswith("nibble histogram:"), f"quantize: {hist}")
+        prompts = [a for t in texts for a in ("-p", t)]
+        t0 = time.perf_counter()
+        enc = _cli_wait({name: (_cli("encode", "-m", path, "--dtype", "q4_0",
+                                     "--format", "json", *prompts), t0)
+                         for name, path in files.items()})
+        diffs = {}
+        for name, path in files.items():
+            got = np.asarray(json.loads(enc[name][0])["embeddings"],
+                             np.float32)
+            eng = load_model(path, dtype="q4_0", device=torch.device("cuda"),
+                             engine_config=EngineConfig(max_seq_len=512,
+                                                        batch_size=32))
+            want = eng.encode(texts)
+            check(got.shape == want.shape == (len(texts), E),
+                  f"cli encode {name}: shape {got.shape}")
+            diffs[name] = float(np.abs(got - want).max())
+            del eng
+        t0 = time.perf_counter()
+        tok = _cli_wait({
+            "tokenize": (_cli("tokenize", "-m", files["npz"], "-p",
+                              texts[0]), t0),
+            # a short profiled bench: Engine.profile's Chrome trace
+            "bench_profile": (_cli("bench", "-m", files["npz"], "--dtype",
+                                   "q4_0", "--batch", 8, "--seq", 64,
+                                   "--profile", tmp / "trace"), t0)})
+        traces = list((tmp / "trace").glob("*.pt.trace.json"))
+        check(len(traces) == 1, f"cli bench --profile wrote {traces}")
+        trace_kernels = sorted({
+            k for e in json.loads(traces[0].read_text())["traceEvents"]
+            if e.get("cat", "").lower() == "kernel"
+            for k in ("qmm_wgmma_kernel", "attn_sm90_kernel")
+            if k in e.get("name", "")})
+        ids = json.loads(tok["tokenize"][0].splitlines()[0])
+        py_ids = tokenizer_from_dir(tmp).encode(texts[0], max_len=512)
+        bench = _cli_wait({"bench": (_cli(
+            "bench", "-m", files["npz"], "--dtype", "q4_0", "--batch", B,
+            "--seq", L), time.perf_counter())})
+        line = json.loads(bench["bench"][0].strip().splitlines()[-1])
+    timing = RESULTS.get("timing", {}).get("sentences_per_s")
+    # the timing utilities in this process, on the bge engine's forward:
+    # the slope on CUDA events, and K1's device time from a profile
+    from embeddings_tpu_torch.utils.benchmarking import device_time_us, \
+        profiled_device_time_us
+    eng = STATE.get("engine") or _bge_base_engine()
+    fids = torch.from_numpy(np.random.default_rng(0).integers(
+        1000, 30000, (B, L)).astype(np.int32)).cuda()
+    fmask = torch.ones_like(fids)
+    fwd_us = device_time_us(lambda i, m: eng._forward(i, m), (fids, fmask),
+                            lo=5, hi=20)
+    k1_us = profiled_device_time_us(lambda i, m: eng._forward(i, m),
+                                    (fids, fmask), reps=3,
+                                    name_prefix="qmm_wgmma_kernel")
+    in_process = B / (fwd_us * 1e-6)
+    ratio = line["value"] / in_process
+    bound = 1e-6  # _check_tcp's
+    check(max(diffs.values()) <= bound,
+          f"cli encode vs Engine.encode on the same file: {diffs}")
+    check(ids == py_ids, f"cli tokenize {ids} != {py_ids}")
+    check(line["unit"] == "sentences/s" and line["value"] > 0,
+          f"cli bench: {line}")
+    check(abs(ratio - 1) <= 0.05,
+          f"cli bench {line['value']} sentences/s vs {in_process} in "
+          f"process")
+    check(trace_kernels == ["attn_sm90_kernel", "qmm_wgmma_kernel"],
+          f"cli bench --profile: the trace's kernels {trace_kernels}")
+    check(0 < k1_us < fwd_us, f"device_time_us {fwd_us} us a forward, "
+          f"of it K1 {k1_us} us")
+    emit("cli_path", card=STATE.get("nvidia_smi"),
+         model="bge-base-en-v1.5 shape (random init, numpy seed 0, vocab "
+         "30528) saved f32 .npz, converted / quantized to q4_0",
+         save_npz_s=save_s,
+         seconds={k: v[1] for k, v in {**made, **enc, **tok,
+                                       **bench}.items()},
+         nibble_histogram=hist, encode_max_abs_diff_vs_engine=diffs,
+         bound=bound, tokenize_ids=ids, bench=line,
+         in_process_sentences_per_s=in_process,
+         bench_over_in_process=ratio,
+         timing_bf16_sentences_per_s=timing,
+         bench_over_timing=line["value"] / timing if timing else None,
+         profile_trace_kernels=trace_kernels,
+         device_time_us_forward=fwd_us,
+         profiled_k1_us_per_forward=k1_us)
+
+
 PHASES = {"device": phase_device, "build": phase_build, "k1": phase_k1,
           "k2": phase_k2, "k3": phase_k3, "k4k5": phase_k4k5,
           "k6k7": phase_k6k7, "k6w": phase_k6w, "k6c": phase_k6c,
@@ -4101,7 +4693,9 @@ PHASES = {"device": phase_device, "build": phase_build, "k1": phase_k1,
           "roformer_path": phase_roformer_path,
           "albert_path": phase_albert_path, "ggml_path": phase_ggml_path,
           "gguf_path": phase_gguf_path, "rerank_path": phase_rerank_path,
-          "timing": phase_timing}
+          "timing": phase_timing, "native_tok": phase_native_tok,
+          "http_path": phase_http_path, "serve_latency": phase_serve_latency,
+          "cli_path": phase_cli_path}
 
 
 def main() -> int:

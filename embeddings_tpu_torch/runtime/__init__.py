@@ -1,6 +1,6 @@
 """Runtime of the PyTorch port: batch planning and token packing, the
-Engine, the batching service with its TCP front-end, and the TCP
-client."""
+Engine, the batching service with its TCP and HTTP front-ends, and the
+clients."""
 
 from .batching import BatchPlan, pad_batch, pick_bucket, plan_batches
 from .engine import Engine, load_model

@@ -11,6 +11,10 @@ the bucketed and the token-packed batch schedulers — the port of
   bert_n_embd                   Engine.n_embd
   bert_n_max_tokens             Engine.max_seq_len
 
+``Engine.tokenize`` runs the native C++ tokenizer (``tokenizer.native``,
+built at first use) where it can represent the tokenizer, else the
+Python one; ``Engine.profile`` writes a ``torch.profiler`` trace.
+
 The forward runs eagerly, one Python loop over the layers; on a CUDA device
 every quantized matmul (K1, or K3 with ``EngineConfig.int8_compute``,
 whose int8 weights the Engine requantizes once, when it is built) and
@@ -32,6 +36,7 @@ a CP mesh.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import logging
 from collections import deque
@@ -87,6 +92,11 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+# the refusal of a mesh with no "seq" axis (the CLI gives it too)
+MESH_REFUSAL = ("the PyTorch port runs (data, seq) meshes (context "
+                "parallelism) only; data x model meshes are not ported")
+
+
 class Engine:
     def __init__(self, params: dict, config: BertConfig,
                  tokenizer: Tokenizer,
@@ -103,6 +113,11 @@ class Engine:
         self.config = config
         self.tokenizer = tokenizer
         self.mesh = mesh
+        # the native C++ tokenizer (built at first use), where it can
+        # represent this one; the Python tokenizer stays the API surface
+        # (id_to_token, vocab, encode_pair, ...)
+        from ..tokenizer import native
+        self._fast_tokenizer = native.wrap_fast(tokenizer)
         # private copy: the mesh branch adjusts batch fields, and a
         # caller-shared EngineConfig must not drift
         self.engine_config = ec = dataclasses.replace(
@@ -134,9 +149,7 @@ class Engine:
         from ..parallel.context import SEQ_AXIS, make_cp_forward
         from ..parallel.mesh import DATA_AXIS
         if SEQ_AXIS not in mesh.shape:
-            raise NotImplementedError(
-                "the PyTorch port runs (data, seq) meshes (context "
-                "parallelism) only; data x model meshes are not ported")
+            raise NotImplementedError(MESH_REFUSAL)
         # sharded batches must divide by the data-axis size
         self._dp = dp = mesh.shape.get(DATA_AXIS, 1)
         ec.batch_size = -(-ec.batch_size // dp) * dp
@@ -167,19 +180,24 @@ class Engine:
 
     # -- tokenize -----------------------------------------------------------
     def tokenize(self, text: str) -> list[int]:
-        return self.tokenizer.encode(text, max_len=self.max_seq_len)
+        tok = self._fast_tokenizer or self.tokenizer
+        return tok.encode(text, max_len=self.max_seq_len)
 
     # -- forward on pre-tokenized, padded arrays ----------------------------
-    def _forward(self, ids: np.ndarray, mask: np.ndarray) -> torch.Tensor:
-        """Enqueue one padded batch; returns the pooled embeddings on the
-        device (the caller reads them back)."""
+    def _dev(self, a) -> torch.Tensor:
+        """A host array (or a tensor) on the engine's device."""
+        if isinstance(a, torch.Tensor):
+            return a.to(self.device)
+        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+    def _forward(self, ids, mask) -> torch.Tensor:
+        """Enqueue one padded batch (numpy arrays or tensors); returns the
+        pooled embeddings on the device (the caller reads them back)."""
         with torch.inference_mode():
             if self.mesh is not None:
                 return self._cp_forward(self.params, ids, mask)
             return bert.encode_tokens(
-                self.params, self.config,
-                torch.from_numpy(np.ascontiguousarray(ids)).to(self.device),
-                torch.from_numpy(np.ascontiguousarray(mask)).to(self.device),
+                self.params, self.config, self._dev(ids), self._dev(mask),
                 mask_value=self.engine_config.mask_value,
                 compute_dtype=self._compute_dtype,
                 use_kernels=self._use_kernels, int8=self._int8)
@@ -298,9 +316,7 @@ class Engine:
                        mask: np.ndarray) -> torch.Tensor:
         """Enqueue one padded batch of pairs; returns the logits on the
         device."""
-        def dev(a):
-            return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
-
+        dev = self._dev
         with torch.inference_mode():
             return bert.score_pairs(
                 self.params, self.config, dev(ids), dev(mask), dev(types),
@@ -376,9 +392,7 @@ class Engine:
                         attn_window: int = 0) -> torch.Tensor:
         """Enqueue one packed batch; returns the pooled [B, S, E'] on the
         device."""
-        def dev(a):
-            return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
-
+        dev = self._dev
         with torch.inference_mode():
             return bert.encode_packed(
                 self.params, self.config, dev(ids), dev(seg), dev(pos),
@@ -429,6 +443,26 @@ class Engine:
             self.encode_toks_packed(sents, row_len, rb)
             n += 1
         return n
+
+    @contextlib.contextmanager
+    def profile(self, out_dir):
+        """Context manager: a ``torch.profiler`` trace of everything run
+        inside (host ops, and the device's kernels on a CUDA engine),
+        written into ``out_dir`` as a Chrome trace
+        (``<host>_<pid>.<ms>.pt.trace.json``, for Perfetto or TensorBoard)
+        — the counterpart of the JAX Engine's xprof trace and of the
+        reference's GGML_PERF per-op dumps."""
+        from torch.profiler import (ProfilerActivity, profile,
+                                    tensorboard_trace_handler)
+        cuda = self.device.type == "cuda"
+        acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
+                                         if cuda else [])
+        with profile(activities=acts,
+                     on_trace_ready=tensorboard_trace_handler(
+                         str(out_dir))) as prof:
+            yield prof
+            if cuda:
+                torch.cuda.synchronize(self.device)
 
     def _seq_buckets(self) -> tuple[int, ...]:
         """Configured seq buckets clipped to max_seq_len, always covering

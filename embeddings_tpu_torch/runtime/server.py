@@ -1,7 +1,7 @@
 """Embedding service of the PyTorch port: cross-connection micro-batching
-and the reference-compatible (v1) TCP front-end — the port of
-``embeddings_tpu/runtime/server.py`` (``ServiceStats``,
-``BatchingService``, ``serve_tcp``). Only asyncio is needed.
+and its TCP and HTTP front-ends — the port of
+``embeddings_tpu/runtime/server.py``. Only asyncio and the standard
+library are needed (no aiohttp).
 
 - ``BatchingService``: requests from any number of connections land in one
   queue; a scheduler drains up to ``max_batch`` requests (waiting at most
@@ -10,22 +10,31 @@ and the reference-compatible (v1) TCP front-end — the port of
   batch holds 8 or more texts), and resolves their futures.
 - ``serve_tcp``: the reference's wire protocol (its server.cpp:100-118):
   the server greets with int32 n_embd, then answers each received text
-  (one recv == one message, up to 32 KiB) with n_embd float32s.
-
-The v2 length-prefixed framing and HTTP (with its ``/rerank`` route)
-are not ported yet; ``Engine.rerank`` is.
+  (one recv == one message, up to 32 KiB) with n_embd float32s; a client
+  that opens with ``ETF2`` gets length-prefixed (v2) framing instead.
+- ``serve_http``: JSON over HTTP/1.1 (keep-alive, ``Content-Length``
+  bodies up to 1 MiB) on asyncio streams: ``POST /embed``, ``POST
+  /v1/embeddings`` (OpenAI-compatible), ``POST /rerank``, ``GET
+  /healthz``, ``GET /stats``, with the JAX package's status codes and JSON
+  bodies. It returns ``(asyncio.Server, service)`` where the JAX package
+  returns an aiohttp ``AppRunner``.
+- ``serve_forever``: both front-ends over one service.
 """
 
 from __future__ import annotations
 
 import asyncio
+import base64
+import json
 import logging
 import struct
 from collections import deque
 from dataclasses import dataclass, field
+from http import HTTPStatus
 
 import numpy as np
 
+from ..utils.embedding_quant import PRECISIONS, quantize_embeddings
 from .engine import Engine
 
 log = logging.getLogger("embeddings_tpu_torch.server")
@@ -140,11 +149,18 @@ class BatchingService:
         return out
 
     async def embed_many(self, texts: list[str]) -> np.ndarray:
+        embs, _ = await self.embed_many_with_usage(texts)
+        return embs
+
+    async def embed_many_with_usage(self, texts: list[str]
+                                    ) -> tuple[np.ndarray, int]:
+        """(embeddings, total token count): the counts ride along with
+        the batch results instead of re-tokenizing."""
         if not texts:
-            return np.empty((0, self.engine.n_embd), np.float32)
+            return np.empty((0, self.engine.n_embd), np.float32), 0
         outs = await asyncio.gather(*(self.embed_with_count(t)
                                       for t in texts))
-        return np.stack([e for e, _ in outs])
+        return np.stack([e for e, _ in outs]), sum(n for _, n in outs)
 
     async def _scheduler(self) -> None:
         runs = self._runs
@@ -215,7 +231,7 @@ class BatchingService:
 
 
 # ---------------------------------------------------------------------------
-# TCP front-end (reference-compatible protocol, v1)
+# TCP front-end (the reference's protocol, v1, and length-prefixed v2)
 # ---------------------------------------------------------------------------
 
 def _utf8_incomplete_tail(data: bytes) -> bool:
@@ -230,18 +246,65 @@ def _utf8_incomplete_tail(data: bytes) -> bool:
     return False
 
 
+V2_MAGIC = b"ETF2"  # length-prefixed framing opt-in (first client bytes)
+
+
 async def _handle_tcp(service: BatchingService, reader: asyncio.StreamReader,
                       writer: asyncio.StreamWriter) -> None:
-    """The reference wire protocol: greet with int32 n_embd, then one
-    recv == one message. A multi-byte UTF-8 sequence split at a read
-    boundary is reassembled before decoding (bounded by a short timeout,
-    so a truncated tail cannot wedge the connection)."""
+    """The reference wire protocol (server.cpp:100-118), plus an opt-in
+    length-prefixed v2 mode behind the same greeting.
+
+    v1 (reference clients, e.g. sample_client.py): one recv == one
+    message. A multi-byte UTF-8 sequence split at a read boundary is
+    reassembled before decoding (bounded by a short timeout, so a
+    truncated tail cannot wedge the connection).
+
+    v2: a client whose first bytes after the greeting are ``ETF2``
+    switches the connection to robust framing — each request is
+    ``<u32 LE byte-length><utf-8 payload>``, each response the usual
+    n_embd float32s, up to 16 MiB a message. Classification: a sane
+    length prefix within the 1 s handshake window (or the bare magic
+    followed by silence — older v2 clients idle after connect) commits to
+    v2; an insane prefix is a v1 text that merely starts with "ETF2". The
+    exact 4-byte v1 text ``ETF2`` is reserved (it classifies as a v2
+    handshake)."""
     peer = writer.get_extra_info("peername")
     log.info("client connected: %s", peer)
     try:
         writer.write(struct.pack("<i", service.engine.n_embd))
         await writer.drain()
-        data = await reader.read(RECV_MAX)
+        first = await reader.read(RECV_MAX)
+        # the magic may arrive fragmented: while what we have is a strict
+        # prefix of it, keep reading (briefly: a v1 client whose whole
+        # message is "E", "ET" or "ETF" must still get its v1 reply)
+        while first and len(first) < len(V2_MAGIC) and \
+                V2_MAGIC.startswith(first):
+            try:
+                more = await asyncio.wait_for(
+                    reader.read(RECV_MAX - len(first)), timeout=0.25)
+            except asyncio.TimeoutError:
+                break
+            if not more:
+                break
+            first += more
+        if first.startswith(V2_MAGIC):
+            # wait up to the handshake window for the first length prefix
+            rest = bytearray(first[len(V2_MAGIC):])
+            while len(rest) < 4:
+                try:
+                    more = await asyncio.wait_for(reader.read(RECV_MAX),
+                                                  timeout=1.0)
+                except asyncio.TimeoutError:
+                    break
+                if not more:
+                    break
+                rest.extend(more)
+            if not rest or (len(rest) >= 4 and struct.unpack(
+                    "<I", bytes(rest[:4]))[0] <= _V2_MAX):
+                await _serve_v2(service, reader, writer, bytes(rest))
+                return
+            first = V2_MAGIC + bytes(rest)  # a v1 text that starts ETF2
+        data = first
         while data:
             while _utf8_incomplete_tail(data) and len(data) < RECV_MAX:
                 try:
@@ -264,6 +327,37 @@ async def _handle_tcp(service: BatchingService, reader: asyncio.StreamReader,
         log.info("client disconnected: %s", peer)
 
 
+_V2_MAX = 16 * 1024 * 1024  # sanity cap per framed message
+
+
+async def _serve_v2(service: BatchingService, reader: asyncio.StreamReader,
+                    writer: asyncio.StreamWriter, leftover: bytes) -> None:
+    """Length-prefixed request loop. ``leftover`` is any bytes that arrived
+    with the magic (the start of the first frame)."""
+    buf = bytearray(leftover)
+
+    async def need(n: int) -> bool:
+        while len(buf) < n:
+            chunk = await reader.read(RECV_MAX)
+            if not chunk:
+                return False
+            buf.extend(chunk)
+        return True
+
+    while await need(4):
+        (length,) = struct.unpack("<I", buf[:4])
+        if length > _V2_MAX:
+            log.warning("v2 frame too large (%d bytes); closing", length)
+            return
+        if not await need(4 + length):
+            return
+        text = bytes(buf[4:4 + length]).decode("utf-8", errors="replace")
+        del buf[:4 + length]
+        emb = await service.embed(text)
+        writer.write(np.asarray(emb, np.float32).tobytes())
+        await writer.drain()
+
+
 async def serve_tcp(engine_or_service, host: str = "0.0.0.0",
                     port: int = 8080, *, packed: bool = False):
     """Start the reference-protocol TCP server; returns (server, service).
@@ -279,3 +373,341 @@ async def serve_tcp(engine_or_service, host: str = "0.0.0.0",
     log.info("TCP server on %s:%d (n_embd=%d)", host, port,
              service.engine.n_embd)
     return server, service
+
+
+# ---------------------------------------------------------------------------
+# HTTP front-end (HTTP/1.1 on asyncio streams)
+# ---------------------------------------------------------------------------
+
+HTTP_MAX_BODY = 1024 * 1024   # aiohttp's default client_max_size
+HTTP_IDLE_S = 75.0            # keep-alive: wait this long for a request
+HTTP_READ_TIMEOUT_S = 30.0    # the rest of a request once it has begun
+_HTTP_MAX_HEADERS = 100
+_HTTP_DISCARD_MAX = 64 * HTTP_MAX_BODY  # read away a refused body up to this
+
+
+def _json_body(body: bytes):
+    """The request's JSON object (raises ValueError otherwise, as
+    aiohttp's ``request.json()`` plus the handlers' check do)."""
+    obj = json.loads(body.decode("utf-8"))
+    if not isinstance(obj, dict):
+        raise ValueError("body must be a JSON object")
+    return obj
+
+
+def make_http_app(service: BatchingService) -> dict:
+    """The routes: {path: {method: handler}}, each handler
+    ``async (body: bytes) -> (status, JSON-able dict)``. POST /embed
+    {"texts": [...]} -> {"embeddings": [...]}, POST /v1/embeddings,
+    POST /rerank, GET /healthz, GET /stats."""
+
+    async def embed(body: bytes):
+        try:
+            req = _json_body(body)
+            texts = req["texts"] if "texts" in req else [req["text"]]
+            if not isinstance(texts, list) or not all(
+                    isinstance(t, str) for t in texts):
+                raise ValueError("texts must be a list of strings")
+            precision = req.get("precision", "float32")
+            if precision not in PRECISIONS:
+                raise ValueError(f"precision must be one of {PRECISIONS}")
+        except (KeyError, ValueError, TypeError) as e:
+            return 400, {"error": str(e) or "bad request"}
+        try:
+            embs = await service.embed_many(texts)
+        except TimeoutError as e:
+            return 504, {"error": str(e)}
+        except Exception as e:  # the JSON error contract for engine faults
+            log.exception("embed failed")
+            return 500, {"error": f"{type(e).__name__}: {e}"}
+        if precision != "float32" and len(embs):
+            # vector-DB storage precisions; int8 ranges are calibrated per
+            # batch (utils/embedding_quant)
+            embs = quantize_embeddings(embs, precision)
+        return 200, {
+            "embeddings": [e.tolist() for e in embs],
+            "n_embd": service.engine.n_embd,
+            **({"precision": precision} if precision != "float32" else {}),
+        }
+
+    async def healthz(body: bytes):
+        return 200, {"status": "ok", "n_embd": service.engine.n_embd}
+
+    async def stats(body: bytes):
+        return 200, service.stats.as_dict()
+
+    async def openai_embeddings(body: bytes):
+        """OpenAI-compatible POST /v1/embeddings: {"input": str|[str]} ->
+        {"object": "list", "data": [{"embedding", "index"}], "usage"}.
+        "encoding_format": "base64" (the OpenAI SDK's default: base64 of
+        little-endian f32) and "dimensions" (truncate, then renormalize)."""
+        def bad(msg: str):
+            return 400, {"error": {"message": msg,
+                                   "type": "invalid_request_error"}}
+        try:
+            req = _json_body(body)
+            inp = req["input"]
+            texts = [inp] if isinstance(inp, str) else list(inp)
+            if not all(isinstance(t, str) for t in texts):
+                raise ValueError("input must be a string or list of strings")
+            enc_fmt = req.get("encoding_format", "float")
+            if enc_fmt not in ("float", "base64"):
+                raise ValueError("encoding_format must be 'float' or "
+                                 "'base64'")
+            dims = req.get("dimensions")
+            if dims is not None:
+                dims = int(dims)
+                if not 0 < dims <= service.engine.n_embd:
+                    raise ValueError(f"dimensions must be in [1, "
+                                     f"{service.engine.n_embd}]")
+        except (KeyError, ValueError, TypeError) as e:
+            return bad(str(e) or "bad request")
+        try:
+            embs, n_tokens = await service.embed_many_with_usage(texts)
+        except TimeoutError as e:
+            return 504, {"error": {"message": str(e), "type": "timeout"}}
+        except Exception as e:
+            log.exception("v1/embeddings failed")
+            return 500, {"error": {"message": f"{type(e).__name__}: {e}",
+                                   "type": "server_error"}}
+        if dims is not None and dims < embs.shape[-1]:
+            embs = embs[:, :dims]
+            norms = np.linalg.norm(embs, axis=-1, keepdims=True)
+            embs = embs / np.maximum(norms, 1e-12)
+        if enc_fmt == "base64":
+            payload = [base64.b64encode(np.asarray(e, "<f4").tobytes())
+                       .decode("ascii") for e in embs]
+        else:
+            payload = [e.tolist() for e in embs]
+        return 200, {
+            "object": "list",
+            "data": [{"object": "embedding", "embedding": e, "index": i}
+                     for i, e in enumerate(payload)],
+            "model": str(req.get("model", "embeddings-tpu")),
+            "usage": {"prompt_tokens": n_tokens, "total_tokens": n_tokens},
+        }
+
+    async def rerank(body: bytes):
+        """Cross-encoder reranking, Jina/Cohere-style: {"query": str,
+        "documents": [str], "top_n"?: int, "return_documents"?: bool} ->
+        {"results": [{"index", "relevance_score"(, "document")}]} by score,
+        descending. Needs a reranker checkpoint (a classification head)."""
+        try:
+            req = _json_body(body)
+            query, docs = req["query"], req["documents"]
+            if not isinstance(query, str) or not isinstance(docs, list) \
+                    or not all(isinstance(d, str) for d in docs):
+                raise ValueError("query must be a string and documents "
+                                 "a list of strings")
+            top_n = req.get("top_n")
+            top_n = len(docs) if top_n is None else int(top_n)
+            return_docs = bool(req.get("return_documents", False))
+        except (KeyError, ValueError, TypeError) as e:
+            return 400, {"error": str(e) or "bad request"}
+        if "cls_head" not in service.engine.params:
+            return 400, {"error": "this model has no classification head — "
+                                  "load a cross-encoder/reranker checkpoint"}
+        try:
+            scores = await asyncio.to_thread(service.engine.rerank, query,
+                                             docs)
+        except Exception as e:
+            log.exception("rerank failed")
+            return 500, {"error": f"{type(e).__name__}: {e}"}
+        order = sorted(range(len(docs)), key=lambda i: -scores[i])[:top_n]
+        return 200, {"results": [
+            {"index": i, "relevance_score": float(scores[i]),
+             **({"document": docs[i]} if return_docs else {})}
+            for i in order]}
+
+    return {"/embed": {"POST": embed},
+            "/v1/embeddings": {"POST": openai_embeddings},
+            "/rerank": {"POST": rerank},
+            "/healthz": {"GET": healthz},
+            "/stats": {"GET": stats}}
+
+
+async def _http_respond(writer: asyncio.StreamWriter, status: int,
+                        payload, *, keep_alive: bool,
+                        headers: dict | None = None) -> None:
+    body = json.dumps(payload).encode()
+    head = [f"HTTP/1.1 {status} {HTTPStatus(status).phrase}",
+            "Content-Type: application/json; charset=utf-8",
+            f"Content-Length: {len(body)}",
+            f"Connection: {'keep-alive' if keep_alive else 'close'}"]
+    head += [f"{k}: {v}" for k, v in (headers or {}).items()]
+    writer.write(("\r\n".join(head) + "\r\n\r\n").encode("latin-1") + body)
+    await writer.drain()
+
+
+class _BadRequest(Exception):
+    pass
+
+
+async def _read_head(reader: asyncio.StreamReader
+                     ) -> tuple[str, str, str, dict] | None:
+    """(method, path, version, lower-cased headers) of the next request,
+    or None when the client closed (or idled out) between requests.
+    Raises _BadRequest on a malformed head."""
+    try:
+        line = await asyncio.wait_for(reader.readline(), HTTP_IDLE_S)
+    except asyncio.TimeoutError:
+        return None
+    except ValueError:  # a line over the stream's limit
+        raise _BadRequest("request line too long") from None
+    if not line:
+        return None
+    parts = line.decode("latin-1").rstrip("\r\n").split(" ")
+    if len(parts) != 3 or not parts[0].isalpha() \
+            or not parts[1].startswith("/") \
+            or parts[2] not in ("HTTP/1.0", "HTTP/1.1"):
+        raise _BadRequest(f"malformed request line {line[:80]!r}")
+    headers: dict[str, str] = {}
+    for _ in range(_HTTP_MAX_HEADERS + 1):
+        try:
+            raw = await asyncio.wait_for(reader.readline(),
+                                         HTTP_READ_TIMEOUT_S)
+        except ValueError:
+            raise _BadRequest("header line too long") from None
+        if not raw.endswith(b"\n"):
+            return None  # closed (or timed out) mid-head
+        if raw in (b"\r\n", b"\n"):
+            return parts[0], parts[1].split("?", 1)[0], parts[2], headers
+        name, sep, value = raw.decode("latin-1").partition(":")
+        if not sep or not name or name != name.strip() or " " in name:
+            raise _BadRequest(f"malformed header {raw[:80]!r}")
+        headers[name.lower()] = value.strip()
+    raise _BadRequest("too many headers")
+
+
+async def _handle_http(routes: dict, reader: asyncio.StreamReader,
+                       writer: asyncio.StreamWriter) -> None:
+    """Serve requests on one connection until the client closes, asks
+    to close, idles out or sends a request that cannot be framed."""
+    try:
+        while True:
+            try:
+                head = await _read_head(reader)
+            except _BadRequest as e:
+                await _http_respond(writer, 400, {"error": str(e)},
+                                    keep_alive=False)
+                return
+            if head is None:
+                return
+            method, path, version, headers = head
+            conn = headers.get("connection", "").lower()
+            keep_alive = ("close" not in conn if version == "HTTP/1.1"
+                          else "keep-alive" in conn)
+            if "transfer-encoding" in headers:
+                await _http_respond(
+                    writer, 411, {"error": "send the body with "
+                                           "Content-Length"},
+                    keep_alive=False)
+                return
+            try:
+                length = int(headers.get("content-length", "0"))
+                if length < 0:
+                    raise ValueError
+            except ValueError:
+                await _http_respond(writer, 400,
+                                    {"error": "bad Content-Length"},
+                                    keep_alive=False)
+                return
+            expect = headers.get("expect", "").lower() == "100-continue"
+            if length > HTTP_MAX_BODY:
+                left = length if not expect and \
+                    length <= _HTTP_DISCARD_MAX else 0
+                while left > 0:
+                    # read the body away, so the client gets to read the
+                    # answer instead of a reset
+                    chunk = await asyncio.wait_for(
+                        reader.read(min(left, RECV_MAX)),
+                        HTTP_READ_TIMEOUT_S)
+                    if not chunk:
+                        return
+                    left -= len(chunk)
+                await _http_respond(
+                    writer, 413, {"error": f"Maximum request body size "
+                                           f"{HTTP_MAX_BODY} exceeded, actual "
+                                           f"body size {length}"},
+                    keep_alive=False)
+                return
+            if expect:
+                writer.write(b"HTTP/1.1 100 Continue\r\n\r\n")
+            # a body shorter than its Content-Length times out (or ends
+            # with the connection): the request is dropped unserved
+            body = await asyncio.wait_for(reader.readexactly(length),
+                                          HTTP_READ_TIMEOUT_S)
+            handlers = routes.get(path)
+            extra = None
+            if handlers is None:
+                status, payload = 404, {"error": f"not found: {path}"}
+            elif method not in handlers:
+                status = 405
+                payload = {"error": f"method {method} not allowed on {path}"}
+                extra = {"Allow": ", ".join(handlers)}
+            else:
+                try:
+                    status, payload = await handlers[method](body)
+                except Exception as e:
+                    log.exception("%s %s failed", method, path)
+                    status = 500
+                    payload = {"error": f"{type(e).__name__}: {e}"}
+            await _http_respond(writer, status, payload,
+                                keep_alive=keep_alive, headers=extra)
+            if not keep_alive:
+                return
+    except (ConnectionError, asyncio.IncompleteReadError,
+            asyncio.TimeoutError):
+        pass
+    finally:
+        writer.close()
+
+
+async def serve_http(engine_or_service, host: str = "0.0.0.0",
+                     port: int = 8081):
+    """Start the HTTP front-end; returns (server, service), server an
+    ``asyncio.Server`` (port=0: an ephemeral port, in server.sockets)."""
+    service = (engine_or_service
+               if isinstance(engine_or_service, BatchingService)
+               else BatchingService(engine_or_service))
+    await service.start()
+    routes = make_http_app(service)
+    server = await asyncio.start_server(
+        lambda r, w: _handle_http(routes, r, w), host, port)
+    log.info("HTTP server on %s:%d", host, port)
+    return server, service
+
+
+async def start_serving(engine: Engine, *, host: str = "0.0.0.0",
+                        tcp_port: int | None = 8080,
+                        http_port: int | None = 8081,
+                        max_batch: int | None = None,
+                        max_wait_ms: float = 2.0,
+                        request_timeout_s: float | None = None,
+                        packed: bool = False
+                        ) -> tuple[BatchingService, list[asyncio.Server]]:
+    """Start the TCP and/or HTTP front-ends over one shared batching
+    service; returns (service, servers)."""
+    service = BatchingService(engine, max_batch=max_batch,
+                              max_wait_ms=max_wait_ms,
+                              request_timeout_s=request_timeout_s,
+                              packed=packed)
+    await service.start()
+    servers = []
+    if tcp_port is not None:
+        servers.append((await serve_tcp(service, host, tcp_port))[0])
+    if http_port is not None:
+        servers.append((await serve_http(service, host, http_port))[0])
+    return service, servers
+
+
+async def serve_forever(engine: Engine, **kw) -> None:
+    """Run ``start_serving``'s front-ends until cancelled (keywords as
+    there), then close them and stop the service."""
+    service, servers = await start_serving(engine, **kw)
+    try:
+        await asyncio.Event().wait()
+    finally:
+        for server in servers:
+            server.close()
+        await service.stop()

@@ -2,8 +2,9 @@
 WordPiece (``embeddings_tpu.tokenizer.wordpiece``), byte-level BPE
 (``embeddings_tpu.tokenizer.bpe``, which needs the ``regex`` package) and
 Unigram with its sentencepiece ``.model`` reader and precompiled
-charsmap (``unigram``, ``spm``, ``charsmap``). The native C++ fast
-tokenizer is not ported yet."""
+charsmap (``unigram``, ``spm``, ``charsmap``); ``native``, the ctypes
+binding to the C++ tokenizers in ``native/``, which it builds at first
+use."""
 
 import json
 from pathlib import Path

@@ -256,8 +256,10 @@ PORT_FILES = sorted((ROOT / "embeddings_tpu_torch").rglob("*.py")) + [
 
 
 def _forbidden(name: str) -> bool:
+    # aiohttp too: the card's machine has none, the port's HTTP server
+    # is its own
     top = name.split(".")[0]
-    return top in ("jax", "jaxlib", "embeddings_tpu")
+    return top in ("jax", "jaxlib", "embeddings_tpu", "aiohttp")
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
@@ -291,9 +293,22 @@ def test_port_files_hold_the_format_modules():
             "embeddings_tpu_torch/models/gguf_io.py"} <= names
 
 
+def test_port_files_hold_the_serving_surface():
+    """The checks above walk the CLI, the utilities and the native
+    tokenizer's binding too."""
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    assert {"embeddings_tpu_torch/cli.py",
+            "embeddings_tpu_torch/utils/benchmarking.py",
+            "embeddings_tpu_torch/utils/embedding_quant.py",
+            "embeddings_tpu_torch/tokenizer/native.py",
+            "embeddings_tpu_torch/runtime/server.py",
+            "embeddings_tpu_torch/runtime/client.py"} <= names
+
+
 def test_port_import_adds_no_jax_module():
     """Importing every module of the port (in a fresh interpreter) loads
-    no jax and no embeddings_tpu module."""
+    no jax, no embeddings_tpu and no aiohttp module, and has no side
+    effect: no CUDA call, no native tokenizer build or load."""
     mods = [".".join(p.relative_to(ROOT).with_suffix("").parts)
             for p in PORT_FILES[:-1]]
     mods = [m[: -len(".__init__")] if m.endswith(".__init__") else m
@@ -302,7 +317,12 @@ def test_port_import_adds_no_jax_module():
             f"import importlib\nfor m in {mods!r}: importlib.import_module(m)\n"
             "new = set(sys.modules) - before\n"
             "bad = sorted(m for m in new if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'embeddings_tpu'))\n"
+            "('jax', 'jaxlib', 'embeddings_tpu', 'aiohttp'))\n"
+            "import torch\n"
+            "from embeddings_tpu_torch.tokenizer import native\n"
+            "bad += ['cuda'] * torch.cuda.is_initialized()\n"
+            "bad += ['native'] * (native._lib is not None\n"
+            "                     or native._lib_error is not None)\n"
             "print(bad); sys.exit(1 if bad else 0)\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
