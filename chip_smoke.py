@@ -47,6 +47,12 @@ the port's paths through Engine -> encode_batch (or encode_batch_packed)
 - bge-reranker-base (XLM-R, vocab 250,002) q4_0 through
   ``Engine.rerank`` on 128 STS documents (K1 + K2, then the head's two
   f32 products on the CLS rows) against the plain f32 path;
+- nomic-embed-text-v2-moe (12 layers, an MoE FFN of 8 experts routed
+  top-2 at the 6 odd ones) q4_0 from HF-named weights through
+  ``from_hf_state_dict``: 36 K1 + 12 K2 (K6 at L=2,048, K4 packed; the
+  int8 mode 36 K3) a forward, the experts' products torch's, against the
+  plain f32 path, dense dispatch, bucketed rows and the trained
+  ``tiny_trained_moe`` on the CPU;
 
 then times the kernels and the forwards, with a device-time profile of
 each forward by kernel; then the serving surface: the port's native
@@ -67,6 +73,7 @@ tokenize, bench).
         roberta_path,roformer_path,albert_path,timing
     python3 chip_smoke.py --phases device,build,ggml_path,gguf_path,\
         rerank_path,timing
+    python3 chip_smoke.py --phases device,build,moe_path,timing
     python3 chip_smoke.py --phases device,build,main,timing,native_tok,\
         http_path,serve_latency,cli_path
 
@@ -214,6 +221,14 @@ ENC_SHAPE = (128, 256)
 ROFORMER_LONG = (16, 1536)
 CP_ALBERT, CP_ALBERT_MESH = (32, 512), (2, 2)
 ALBERT_UP = (E, F, "bias_gelu_tanh")
+
+# nomic-embed-text-v2-moe: 12 layers, an MoE FFN of 8 experts (top-2) at
+# the 6 odd ones; 36 K1 a forward (qkv and o in every layer, up and down
+# in the 6 dense ones); bucketed at B=128, L=256 (K2) and B=4, L=2,048
+# (K6: past the whole-row rule at E=768), packed 256 rows of 128 (K4)
+MOE_SHORT, MOE_LONG, MOE_PACK = (128, 256), (4, 2048), (256, 128)
+MOE_NL, MOE_EXPERTS, MOE_K1 = 12, 8, 36
+MOE_FIXTURE = ROOT / "benchmarks" / "fixtures" / "tiny_trained_moe"
 
 # the checkpoint formats: bge-base's f32 tree (numpy seed 0) written by the
 # port's writers, each file loaded with the dtypes below (file kind ->
@@ -2437,6 +2452,17 @@ ENC_CONFIGS = {
         "num_hidden_layers": 12, "pad_token_id": 1,
         "position_embedding_type": "absolute", "type_vocab_size": 1,
         "vocab_size": 250002}, "roberta.", 48, 12),
+    # the mixture-of-experts encoder: the repo preset's values
+    # (KNOWN_MODELS["nomic-embed-text-v2-moe"]) under nomic_bert's
+    # config.json keys; its weights under nomic_bert's names
+    "nomic_moe": ("nomic-ai/nomic-embed-text-v2-moe", {
+        "model_type": "nomic_bert", "activation_function": "gelu",
+        "n_embd": 768, "n_head": 12, "n_inner": 3072, "n_layer": 12,
+        "n_positions": 2048, "num_experts": 8, "moe_top_k": 2,
+        "moe_every_n_layers": 2, "moe_normalize_expert_weights": None,
+        "prenorm": False, "rotary_emb_base": 1000.0,
+        "rotary_emb_fraction": 1.0, "rotary_emb_interleaved": False,
+        "type_vocab_size": 2, "vocab_size": 250048}, "", MOE_K1, MOE_NL),
 }
 
 
@@ -2459,6 +2485,31 @@ def hf_state_dict(family: str, d: dict, rng) -> dict:
         sd[name + ".bias"] = np.zeros(n, np.float32)
 
     V = d["vocab_size"]
+    if family == "nomic_moe":
+        # nomic_bert's names: a fused Wqkv, fc1 / fc2 at even layers, a
+        # router [Ex, E] and the experts' w1 / w2 [Ex*I, E] with their
+        # shared output bias at odd ones
+        E, Fx, NLx, Ex = d["n_embd"], d["n_inner"], d["n_layer"], \
+            d["num_experts"]
+        sd["embeddings.word_embeddings.weight"] = w(V, E)
+        sd["embeddings.token_type_embeddings.weight"] = w(
+            d["type_vocab_size"], E)
+        ln("emb_ln", E)
+        for i in range(NLx):
+            p = f"encoder.layers.{i}."
+            lin(p + "attn.Wqkv", 3 * E, E)
+            lin(p + "attn.out_proj", E, E)
+            ln(p + "norm1", E)
+            ln(p + "norm2", E)
+            if i % 2 == 0:
+                lin(p + "mlp.fc1", Fx, E)
+                lin(p + "mlp.fc2", E, Fx)
+            else:
+                sd[p + "mlp.router.layer.weight"] = w(Ex, E)
+                sd[p + "mlp.experts.mlp.w1"] = w(Ex * Fx, E)
+                sd[p + "mlp.experts.mlp.w2"] = w(Ex * Fx, E)
+                sd[p + "mlp.experts.bias"] = np.zeros(E, np.float32)
+        return sd
     if family == "distilbert":
         E, Fx, NLx = d["dim"], d["hidden_dim"], d["n_layers"]
     else:
@@ -2738,6 +2789,271 @@ def phase_albert_path():
         STATE["launches_K8a"] = saved
     emit("albert_path", **out)
     _check_tcp("albert_server", eng)
+
+
+# ---------------------------------------------------------------------------
+# nomic-embed-text-v2-moe: the mixture-of-experts interleave
+# ---------------------------------------------------------------------------
+
+def _moe_engine(dispatch: str = "auto", **ec):
+    """nomic-embed-text-v2-moe at full width and depth from HF-named
+    random weights (numpy seed 0, ``hf_state_dict``) through
+    ``from_hf_state_dict`` and ``_build_moe_layers``: q4_0 packed + fused
+    qkv on the attention and the dense half, the router and the experts
+    dense (f32, as loaded), mean pooling, the STS fixture's WordPiece
+    tokenizer. The tree is built once, moved to the card once and shared
+    by every engine (bf16, int8, the plain f32 path, dense dispatch);
+    ``dispatch`` sets ``moe_dispatch``."""
+    import torch
+    from embeddings_tpu_torch import BertConfig, EngineConfig
+    from embeddings_tpu_torch.models import params as P
+    from embeddings_tpu_torch.runtime.engine import Engine
+    from embeddings_tpu_torch.tokenizer import tokenizer_from_dir
+    dev = torch.device("cuda")
+    tok = tokenizer_from_dir(FIXTURE / "model")
+    if "moe_params" not in STATE:
+        d = ENC_CONFIGS["nomic_moe"][1]
+        t0 = time.perf_counter()
+        cfg = BertConfig.from_hf_dict(d)
+        sd = hf_state_dict("nomic_moe", d, np.random.default_rng(0))
+        params = P.to_device(P.fuse_qkv(P.pack_q4_params(P.quantize_params(
+            P.from_hf_state_dict(sd, cfg), "q4_0"))), dev)
+        torch.cuda.synchronize()
+        cfg = dataclasses.replace(
+            cfg, pooling="mean", cls_token_id=tok.cls_id,
+            sep_token_id=tok.sep_id, unk_token_id=tok.unk_id,
+            pad_token_id=tok.pad_id)
+        STATE["moe_params"] = (cfg, params, time.perf_counter() - t0)
+    cfg, params, _ = STATE["moe_params"]
+    ec = {"batch_size": MOE_SHORT[0], "max_seq_len": MOE_LONG[1], **ec}
+    return Engine(params, dataclasses.replace(cfg, moe_dispatch=dispatch),
+                  tok, EngineConfig(**ec), device=dev)
+
+
+@contextlib.contextmanager
+def routed_experts():
+    """The top-k expert indices each MoE layer's ragged route picks inside
+    the block, in call order ([T, k] tensors); yields the list."""
+    from embeddings_tpu_torch.ops import moe as Mo
+    seen, orig = [], Mo.topk_lower_first
+
+    def spy(probs, k):
+        out = orig(probs, k)
+        seen.append(out[1])
+        return out
+    Mo.topk_lower_first = spy
+    try:
+        yield seen
+    finally:
+        Mo.topk_lower_first = orig
+
+
+def moe_counts() -> tuple[int, int]:
+    """(host reads, expert products) the ragged MoE route has made."""
+    from embeddings_tpu_torch.ops.moe import moe_ffn_ragged
+    return moe_ffn_ragged.host_reads, moe_ffn_ragged.expert_gemms
+
+
+def _moe_forward(eng, ids, mask):
+    """One forward's embeddings, launch counts, MoE host reads and expert
+    products, the experts it routed to and its plain-version calls."""
+    import torch
+    reads, gemms = moe_counts()
+    with plain_calls() as calls, routed_experts() as experts:
+        reset_counts()
+        emb = eng.forward(ids, mask)
+        torch.cuda.synchronize()
+    r2, g2 = moe_counts()
+    return emb, read_counts(), r2 - reads, g2 - gemms, experts, dict(calls)
+
+
+def _moe_counted(eng, texts):
+    """encode_batch with its launch counts, MoE host reads and expert
+    products, and its plain-version calls."""
+    reads, gemms = moe_counts()
+    with plain_calls() as calls:
+        emb, counts, n, wall = _run_counted(eng, texts)
+    r2, g2 = moe_counts()
+    return emb, counts, n, wall, r2 - reads, g2 - gemms, dict(calls)
+
+
+def phase_moe_path():
+    """nomic-embed-text-v2-moe (12 layers, the 6 odd ones an MoE FFN of 8
+    experts routed top-2) q4_0 packed + fused qkv through Engine: a
+    bucketed forward runs 36 K1 (qkv and o everywhere, up and down on the
+    dense half) + 12 K2 (K6 at B=4, L=2,048, past the whole-row rule; the
+    int8 mode 36 K3 + 36 row quantizations), packed rows of 128 36 K1 +
+    12 K4; every attention launch on "sm90", no plain-version call, one
+    host read and at most 16 expert products (2 a non-empty expert) a
+    MoE layer. Cosine >= 0.999 to the plain f32 path on the card (the
+    same tree dequantized, experts in f32), of ragged to dense dispatch
+    and of packed to bucketed; >= 0.99 of int8 to bf16; the trained
+    ``tiny_trained_moe`` on the card against the port on the CPU; TCP."""
+    import torch
+    from embeddings_tpu_torch import KNOWN_MODELS, load_model
+    from embeddings_tpu_torch.ops import attention as A
+    t0 = time.perf_counter()
+    eng = _moe_engine()
+    cfg = eng.config
+    preset = KNOWN_MODELS["nomic-embed-text-v2-moe"]
+    check(all(getattr(cfg, k) == v for k, v in preset.items()),
+          "nomic_moe config differs from the repo preset: "
+          + str({k: getattr(cfg, k) for k in preset}))
+    plain = _moe_engine(use_pallas="never", compute_dtype="float32")
+    dense = _moe_engine("dense")
+    eng8 = _moe_engine(int8_compute=True)
+    n_moe = MOE_NL // 2
+    out = {"model": f"{ENC_CONFIGS['nomic_moe'][0]} (HF-named random "
+           f"weights, numpy seed 0, vocab {cfg.vocab_size}) q4_0 packed + "
+           f"fused qkv, experts and router dense",
+           "init_quantize_s": STATE["moe_params"][2]}
+
+    # (a) STS sentences through encode_batch
+    texts = _sts_sentences(300)
+    texts += texts[:8]  # identical sentences: cosine 1.0
+    (emb, counts, n, wall, reads, gemms, calls), k2_routes = _routed(
+        A.fused_attention, lambda: _moe_counted(eng, texts))
+    ref = plain.encode_batch(texts)
+    cos = _row_cos(emb, ref)
+    cos_dense = _row_cos(emb, dense.encode_batch(texts))
+    norms = np.linalg.norm(emb, axis=1)
+    dup = (emb[:8] * emb[-8:]).sum(-1)
+    check(np.isfinite(emb).all() and emb.shape == (len(texts), E),
+          "moe: output not finite / wrong shape")
+    check(counts == only(K1=MOE_K1 * n, K2=MOE_NL * n)
+          and k2_routes == {"sm90": MOE_NL * n},
+          f"moe: launches {counts} (K2 {k2_routes}) over {n} forwards")
+    check(not any(calls.values()), f"moe: plain-version calls {calls}")
+    check(reads == n_moe * n and 2 * n_moe * n <= gemms <= 16 * n_moe * n,
+          f"moe: {reads} host reads, {gemms} expert products over {n} "
+          f"forwards")
+    check(np.abs(norms - 1).max() < 1e-3, "moe: not unit norm")
+    # not bit for bit: a batch's routing (its pad slots too) sets each
+    # expert's row count, and the library's product may take another
+    # algorithm (another summation order) at another count
+    check(dup.min() >= 0.999, f"moe: identical sentences at {dup.min()}")
+    check(cos.min() >= 0.999, f"moe vs plain f32: {cos.min()}")
+    check(cos_dense.min() >= 0.999, f"moe ragged vs dense: {cos_dense.min()}")
+    out["sts"] = dict(sentences=len(texts), forwards=n, wall_s=wall,
+                      launches=counts, k2_routes=k2_routes,
+                      host_reads=reads, expert_gemms=gemms,
+                      norm_min=float(norms.min()),
+                      identical_min_cos=float(dup.min()),
+                      kernel_vs_plain_f32_min_cos=float(cos.min()),
+                      ragged_vs_dense_min_cos=float(cos_dense.min()))
+
+    # (b) one forward at B=128, L=256: exact counts, routing against the
+    # plain f32 path's
+    rng = np.random.default_rng(8)
+    ids = rng.integers(1000, 30000, MOE_SHORT).astype(np.int32)
+    mask = np.ones(MOE_SHORT, np.int32)
+    emb, one, reads, gemms, experts, calls = _moe_forward(eng, ids, mask)
+    pemb, _, _, _, pexperts, _ = _moe_forward(plain, ids, mask)
+    demb = dense.forward(ids, mask)
+    check(one == only(K1=MOE_K1, K2=MOE_NL) and not any(calls.values()),
+          f"moe at {MOE_SHORT}: {one}, plain calls {calls}")
+    check(reads == n_moe and len(experts) == n_moe
+          and 2 * n_moe <= gemms <= 16 * n_moe,
+          f"moe at {MOE_SHORT}: {reads} host reads, {gemms} products")
+    same = [float((a.sort(-1).values == b.sort(-1).values).all(-1)
+                  .float().mean()) for a, b in zip(experts, pexperts)]
+    hist = [torch.bincount(a.reshape(-1), minlength=MOE_EXPERTS).tolist()
+            for a in experts]
+    cos = _row_cos(emb, pemb)
+    cos_dense = _row_cos(emb, demb)
+    check(cos.min() >= 0.999 and cos_dense.min() >= 0.999,
+          f"moe at {MOE_SHORT}: vs plain f32 {cos.min()}, vs dense "
+          f"{cos_dense.min()}")
+    out["forward"] = dict(batch=list(MOE_SHORT), launches=one,
+                          host_reads_per_forward=reads,
+                          expert_gemms_per_forward=gemms,
+                          top2_same_as_f32_share=same,
+                          tokens_per_expert=hist,
+                          kernel_vs_plain_f32_min_cos=float(cos.min()),
+                          ragged_vs_dense_min_cos=float(cos_dense.min()))
+
+    # (c) the int8 mode at that shape: K3 on the kept int8 weights
+    emb8, c8, reads8, _, _, calls8 = _moe_forward(eng8, ids, mask)
+    cos8 = _row_cos(emb8, emb)
+    check(c8 == only(K3=MOE_K1, K3_rows=MOE_K1, K2=MOE_NL)
+          and not any(calls8.values()) and reads8 == n_moe,
+          f"moe int8: {c8}, plain calls {calls8}, {reads8} host reads")
+    check(cos8.min() >= 0.99, f"moe int8 vs bf16: {cos8.min()}")
+    out["int8"] = dict(batch=list(MOE_SHORT), launches=c8,
+                       int8_vs_bf16_min_cos=float(cos8.min()),
+                       int8_vs_bf16_mean_cos=float(cos8.mean()))
+
+    # (d) rows of 2,048: K6 past the whole-row rule
+    long_eng = _moe_engine(batch_size=MOE_LONG[0])
+    long_plain = _moe_engine(batch_size=MOE_LONG[0], use_pallas="never",
+                             compute_dtype="float32")
+    long_txt = [_joined(i * 250, 250) for i in range(MOE_LONG[0])]
+    check(all(len(long_eng.tokenize(t)) == MOE_LONG[1] for t in long_txt),
+          f"long texts do not fill L={MOE_LONG[1]}")
+    (lemb, lc, ln_, lwall, lreads, lgemms, lcalls), k6_routes = _routed(
+        A.fused_attention_stream, lambda: _moe_counted(long_eng, long_txt))
+    lcos = _row_cos(lemb, long_plain.encode_batch(long_txt))
+    check(ln_ == 1 and lc == only(K1=MOE_K1, K6=MOE_NL)
+          and k6_routes == {"sm90": MOE_NL} and not any(lcalls.values()),
+          f"moe long: {lc} (K6 {k6_routes}) over {ln_} forwards, plain "
+          f"calls {lcalls}")
+    check(lcos.min() >= 0.999, f"moe long vs plain f32: {lcos.min()}")
+    out["long"] = dict(batch=list(MOE_LONG), launches=lc,
+                       k6_routes=k6_routes, wall_s=lwall, host_reads=lreads,
+                       expert_gemms=lgemms,
+                       kernel_vs_plain_f32_min_cos=float(lcos.min()))
+
+    # (e) token-packed rows of 128, 256 rows a batch (pad slots routed too)
+    ptexts = _sts_sentences(2400)
+    pref = eng.encode_batch(ptexts)
+    over = [t for t in ptexts if len(eng.tokenize(t)) > MOE_PACK[1]]
+    n_over = n_bucketed_forwards(eng, over) if over else 0
+    shapes, run = [], eng._forward_packed
+
+    def spy(pids, seg, pos, pool, attn_window=0):
+        shapes.append(list(pids.shape))
+        return run(pids, seg, pos, pool, attn_window)
+
+    eng._forward_packed = spy
+    try:
+        with plain_calls() as pcalls:
+            reset_counts()
+            pemb = eng.encode_batch_packed(ptexts, row_len=MOE_PACK[1],
+                                           batch_rows=MOE_PACK[0])
+            torch.cuda.synchronize()
+        pc = read_counts()
+    finally:
+        del eng._forward_packed  # back to the class method
+    k4_routes = dict(A.fused_attention_segmented.routes)
+    np_ = len(shapes)
+    pcos = _row_cos(pemb, pref)
+    check(np_ >= 1 and pc == only(K1=MOE_K1 * (np_ + n_over),
+                                  K2=MOE_NL * n_over, K4=MOE_NL * np_)
+          and k4_routes == {"sm90": MOE_NL * np_}
+          and not any(pcalls.values()),
+          f"moe packed: {pc} (K4 {k4_routes}) over {np_} packed forwards, "
+          f"plain calls {dict(pcalls)}")
+    check(np.isfinite(pemb).all() and pcos.min() >= 0.999,
+          f"moe packed vs bucketed: {pcos.min()}")
+    out["packed"] = dict(sentences=len(ptexts), packed_forwards=np_,
+                         bucketed_forwards=n_over, shapes=shapes,
+                         launches=pc, k4_routes=k4_routes,
+                         packed_vs_bucketed_min_cos=float(pcos.min()))
+
+    # (f) the trained fixture: the card against the port on the CPU
+    ttexts = _sts_sentences(200)
+    card = load_model(MOE_FIXTURE / "model", dtype="q4_0",
+                      device=torch.device("cuda"))
+    cpu = load_model(MOE_FIXTURE / "model", dtype="q4_0", device="cpu")
+    tcos = _row_cos(card.encode_batch(ttexts), cpu.encode_batch(ttexts))
+    check(tcos.min() >= 0.999, f"tiny_trained_moe card vs CPU: {tcos.min()}")
+    out["trained"] = dict(model=str(MOE_FIXTURE.relative_to(ROOT) / "model"),
+                          sentences=len(ttexts),
+                          card_vs_cpu_min_cos=float(tcos.min()))
+    out["phase_s"] = time.perf_counter() - t0
+    STATE.update(moe_engine=eng, moe_engine8=eng8, moe_long_engine=long_eng)
+    emit("moe_path", **out)
+    _check_tcp("moe_server", eng)
 
 
 def layout_name(layout) -> str:
@@ -3183,6 +3499,12 @@ def phase_timing():
                 "roformer_long": ("roformer_engine", ROFORMER_LONG, 4 * NL,
                                   {0: NL}, D),
                 "albert": ("albert_engine", ENC_SHAPE, 4 * NL, {0: NL}, D),
+                # nomic-embed-text-v2-moe: K2 at B=128, L=256, K6 at
+                # B=4, L=2,048; the experts' products torch's
+                "nomic_moe": ("moe_engine", MOE_SHORT, MOE_K1, {0: MOE_NL},
+                              D),
+                "nomic_moe_long": ("moe_long_engine", MOE_LONG, MOE_K1,
+                                   {4: MOE_NL}, D),
                 # bge-base loaded from the port's .bin and .gguf files
                 **{name: (name + "_engine", ENC_SHAPE, 4 * NL, {0: NL}, D)
                    for name in FILE_ENGINES}}
@@ -3200,6 +3522,13 @@ def phase_timing():
             lambda: STATE["albert_engine8"]._forward(aids,
                                                      np.ones_like(aids)),
             launches_want(4 * NL, {0: NL}, quant_rows_kernel=4 * NL))
+    if "moe_engine8" in STATE:
+        # the MoE model's int8 forward: K3 on the attention and the
+        # dense half, the experts in bf16
+        mids = rng.integers(1000, 30000, MOE_SHORT).astype(np.int32)
+        runs["nomic_moe_int8"] = (
+            lambda: STATE["moe_engine8"]._forward(mids, np.ones_like(mids)),
+            launches_want(MOE_K1, {0: MOE_NL}, quant_rows_kernel=MOE_K1))
     if "reranker_engine" in STATE:
         # the cross-encoder's forward: the backbone, then the head's two
         # f32 products on the CLS rows
@@ -3225,7 +3554,8 @@ def phase_timing():
                                 "tokens_per_s": tokens / fwd[name] * 1e3}
     family_fwd = {}
     fwd_shapes = {**{k: v[1] for k, v in families.items()},
-                  "albert_int8": ENC_SHAPE, "rerank": ENC_SHAPE}
+                  "albert_int8": ENC_SHAPE, "rerank": ENC_SHAPE,
+                  "nomic_moe_int8": MOE_SHORT}
     for name, (Bx, Lx) in fwd_shapes.items():
         if name in fwd:
             family_fwd[name] = {"shape": [Bx, Lx], "forward_ms": fwd[name],
@@ -3372,6 +3702,8 @@ def phase_timing():
          forward_bound_ms=NL * sum(kk["bound_ms"] for kk in bge_rows),
          kernel_ms_per_forward=NL * sum(kk["ms"] for kk in bge_rows),
          int8_chain_forward_ms=chain_fwd, cp_forward=cp_fwd,
+         moe_breakdown={k: moe_breakdown(profiles[k]) for k in profiles
+                        if k.startswith("nomic_moe")},
          profile=profiles)
     RESULTS["kernels"] = kernels
 
@@ -3464,7 +3796,8 @@ def weights_spec(eng) -> str:
     """"kind, packed" of an engine's matmul weights, as K1's template
     arguments name them."""
     from embeddings_tpu_torch.ops.qmatmul import _KIND_ID
-    w = eng.params["layers"]["mlp"]["up"]["w"]
+    layers = eng.params["layers"]
+    w = layers.get("dense", layers)["mlp"]["up"]["w"]  # an MoE tree's
     return f"{_KIND_ID[w.kind]}, {'true' if w.packed else 'false'}"
 
 
@@ -3787,10 +4120,25 @@ def device_profile(name: str, fn, want: dict) -> dict:
     launches ``want`` names (``launches_want``): its matmul kernels are
     the ones the routes counted during the profiled calls name
     (``matmul_kernel``), ``want["matmuls"]`` of them; and no matmul,
-    attention, requantization or row kernel it does not name."""
+    attention, requantization or row kernel it does not name. The torch
+    ops' kernels are also split by the span (``record_function``) that
+    launched them: ``ops.moe``'s ``moe_dispatch``, ``moe_expert_gemm``
+    and ``moe_expert_ops``, and "rotation" (``apply_rotary_qkv``, wrapped
+    here); each expert product (``moe_ffn_ragged.expert_gemms``) must
+    show as one GEMM kernel under ``moe_expert_gemm`` (a split-K one with
+    its reduction beside it)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile, schedule
+    from torch.profiler import ProfilerActivity, profile, record_function, \
+        schedule
+    from embeddings_tpu_torch.models import bert as Bm
     from embeddings_tpu_torch.ops import qmatmul as Q
+    rotate = Bm.apply_rotary_qkv
+
+    def rotation(*a, **kw):
+        with record_function("rotation"):
+            return rotate(*a, **kw)
+    Bm.apply_rotary_qkv = rotation
+    gemms = moe_counts()[1]
     Q.qmatmul.routes.clear()
     Q.qmatmul_int8.routes.clear()
     # one warm-up step: without it the tracer can miss the first kernels.
@@ -3800,15 +4148,20 @@ def device_profile(name: str, fn, want: dict) -> dict:
     # after the window opens were then dropped (a prefix of the forward).
     # Idle gaps at both edges keep every kernel of the step inside it.
     gap_s = 0.02
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=1,
-                                   repeat=1)) as prof:
-        for _ in range(2):
-            time.sleep(gap_s)
-            fn()
-            torch.cuda.synchronize()
-            time.sleep(gap_s)
-            prof.step()
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            for _ in range(2):
+                time.sleep(gap_s)
+                fn()
+                torch.cuda.synchronize()
+                time.sleep(gap_s)
+                prof.step()
+    finally:
+        Bm.apply_rotary_qkv = rotate
+    gemm_calls = (moe_counts()[1] - gemms) // 2  # of one forward
     # the matmul kernels of one forward (two ran: the warm-up's, the step's)
     want = dict(want)
     n_mm = want.pop("matmuls")
@@ -3824,11 +4177,20 @@ def device_profile(name: str, fn, want: dict) -> dict:
              "qmm_wgmma_kernel", "attn90_i8_kernel", "attn_sm90_kernel")
     by_kind: dict = {}
     torch_ops: dict = {}  # the library's own kernels, by name
+    by_span: dict = {}    # ... by the span that launched them
+    gemm_names: dict = {}
     spans = []
-    for e in prof.events():
+    events = prof.events()
+    # a device event shares its id (the CUDA correlation id) with the
+    # runtime call that launched it (cudaLaunchKernel, cuLaunchKernelEx,
+    # cudaMemcpyAsync, ...), whose parent on the host is the torch op
+    runtime = {e.id: e for e in events
+               if e.device_type == torch.autograd.DeviceType.CPU
+               and e.name.startswith("cu")}
+    for e in events:
         if e.device_type != torch.autograd.DeviceType.CUDA \
-                or e.name.startswith("ProfilerStep"):  # the step's range
-            continue
+                or e.name.startswith("ProfilerStep") or e.name in SPANS:
+            continue  # the step's range, a span's range on the device
         kind = next((k for k in kinds if k in e.name), "torch ops")
         if kind.startswith(("attn", "qmm_")):  # attn_sm90_kernel<D, ...>
             kind += "<" + e.name.split(kind + "<")[-1].split(">")[0] + ">"
@@ -3836,6 +4198,13 @@ def device_profile(name: str, fn, want: dict) -> dict:
         tally(by_kind, kind, ms)
         if kind == "torch ops":
             tally(torch_ops, e.name[:80], ms)
+            launch = runtime.get(e.id)
+            span = launching_span(launch.cpu_parent if launch else None)
+            if span:
+                tally(by_span, span, ms)
+                if span == "moe_expert_gemm" and not e.name.startswith(
+                        ("Memcpy", "Memset")):
+                    tally(gemm_names, e.name[:120], ms)
         spans.append((e.time_range.start, e.time_range.end))
     busy = sum(v[0] for v in by_kind.values())
     span = (max(b for _, b in spans) - min(a for a, _ in spans)) / 1e3 \
@@ -3846,6 +4215,13 @@ def device_profile(name: str, fn, want: dict) -> dict:
     check(busy > 0 and not stray
           and all(seen.get(k) == n for k, n in want.items()),
           f"profile {name}: launches {seen}, want {want}")
+    # a split-K product adds a reduction kernel (cuBLASLt's
+    # splitKreduce_kernel) to its GEMM kernel
+    n_gemm = sum(v[1] for k, v in gemm_names.items()
+                 if "splitKreduce" not in k)
+    check(n_gemm == gemm_calls, f"profile {name}: {n_gemm} GEMM kernels "
+          f"under moe_expert_gemm for {gemm_calls} expert products: "
+          f"{gemm_names}")
     return {
         "device_busy_ms": busy, "device_span_ms": span,
         "idle_share": 1 - busy / span,
@@ -3853,7 +4229,45 @@ def device_profile(name: str, fn, want: dict) -> dict:
                       for k, v in sorted(by_kind.items(),
                                          key=lambda kv: -kv[1][0])},
         "torch_ops_top": [[k, v[0], v[1]] for k, v in sorted(
-            torch_ops.items(), key=lambda kv: -kv[1][0])[:6]]}
+            torch_ops.items(), key=lambda kv: -kv[1][0])[:6]],
+        "torch_ops_by_span": {k: {"ms": v[0], "launches": v[1]}
+                              for k, v in by_span.items()},
+        "expert_gemm_kernels": {k: {"ms": v[0], "launches": v[1]}
+                                for k, v in gemm_names.items()}}
+
+
+SPANS = ("moe_dispatch", "moe_expert_gemm", "moe_expert_ops", "rotation")
+
+
+def launching_span(op) -> str | None:
+    """The innermost span of ``SPANS`` around the torch op that launched a
+    kernel (the op's parents on the host), or None."""
+    while op is not None:
+        if op.name in SPANS:
+            return op.name
+        op = op.cpu_parent
+    return None
+
+
+def moe_breakdown(prof: dict) -> dict:
+    """An MoE forward's device ms by column: K1 / K3, attention, the
+    experts' products, dispatch (router, top-k, sort, gather, the weighted
+    index_add_), the experts' casts, bias and activation, rotation, the
+    other torch ops; and the idle share."""
+    col = {"matmul_K1_K3": 0.0, "attention": 0.0}
+    for k, v in prof["by_kernel"].items():
+        if k.startswith("qmm_") or k.startswith("quant_rows"):
+            col["matmul_K1_K3"] += v["ms"]
+        elif k.startswith("attn"):
+            col["attention"] += v["ms"]
+    span = {k: v["ms"] for k, v in prof["torch_ops_by_span"].items()}
+    for k in SPANS:
+        col[k] = span.get(k, 0.0)
+    torch_ms = prof["by_kernel"].get("torch ops", {"ms": 0.0})["ms"]
+    col["other_torch_ops"] = torch_ms - sum(span.values())
+    col["busy"] = prof["device_busy_ms"]
+    col["idle_share"] = prof["idle_share"]
+    return col
 
 
 def tally(table: dict, key: str, ms: float) -> None:
@@ -4691,7 +5105,8 @@ PHASES = {"device": phase_device, "build": phase_build, "k1": phase_k1,
           "distilbert_path": phase_distilbert_path,
           "roberta_path": phase_roberta_path,
           "roformer_path": phase_roformer_path,
-          "albert_path": phase_albert_path, "ggml_path": phase_ggml_path,
+          "albert_path": phase_albert_path, "moe_path": phase_moe_path,
+          "ggml_path": phase_ggml_path,
           "gguf_path": phase_gguf_path, "rerank_path": phase_rerank_path,
           "timing": phase_timing, "native_tok": phase_native_tok,
           "http_path": phase_http_path, "serve_latency": phase_serve_latency,

@@ -2,8 +2,9 @@
 ``embeddings_tpu/models/bert.py`` for the post-LN BERT families (plain
 BERT, RoBERTa and DistilBERT, ALBERT with its factorized embeddings and
 one shared layer, MPNet with its relative-position bias, jina-bert-v2
-with ALiBi and a GeGLU MLP, nomic-bert with RoPE and SwiGLU, RoFormer
-with interleaved RoPE): embedding sum + LayerNorm (+ ALBERT's
+with ALiBi and a GeGLU MLP, nomic-bert with RoPE and SwiGLU or, in
+nomic-embed-text-v2-moe, a mixture-of-experts FFN at every odd layer,
+RoFormer with interleaved RoPE): embedding sum + LayerNorm (+ ALBERT's
 projection), N layers of {prefix-masked multi-head self-attention,
 residual + LN, GELU or gated FFN, residual + LN}; and for the pre-norm
 ModernBERT stack (``encoder_layer_pre``: RoPE with a global and a local
@@ -130,7 +131,9 @@ def _project_embeddings(params: Params, x: torch.Tensor) -> torch.Tensor:
 def layer_views(params: Params, config: BertConfig):
     """The layers a forward applies, in order (views, no copies): with
     ``shared_layers`` (ALBERT) the one stored layer num_hidden_layers
-    times, else each stacked layer — the JAX package's ``_scan_layers``."""
+    times, in a mixture-of-experts tree dense[0], moe[0], dense[1], ...
+    (``params.layer``), else each stacked layer — the JAX package's
+    ``_scan_layers``."""
     if config.shared_layers:
         shared = layer_params(params, 0)
         return [shared] * config.num_hidden_layers
@@ -375,6 +378,13 @@ def attention_context(layer: Params, config: BertConfig, x: torch.Tensor,
     return ctx.to(x.dtype).reshape(B, L, El)
 
 
+def _act(config: BertConfig) -> str:
+    """The config's hidden activation as ``ops.linear`` names it (exact
+    GELU unless the config says otherwise)."""
+    return {"gelu_tanh": "gelu_tanh", "silu": "silu", "relu": "relu"}.get(
+        config.hidden_act, "gelu")
+
+
 def _ffn_hidden(m: Params, x: torch.Tensor | ActQ, config: BertConfig, *,
                 use_kernels: bool = True, int8: bool = False,
                 emit: str = "no"):
@@ -383,8 +393,7 @@ def _ffn_hidden(m: Params, x: torch.Tensor | ActQ, config: BertConfig, *,
     epilogue, the product a torch multiply in the compute dtype. x may be
     an ActQ; emit="only" returns the hidden as an ActQ quantized in the up
     projection's epilogue (plain MLPs only)."""
-    act = {"gelu_tanh": "gelu_tanh", "silu": "silu", "relu": "relu"}.get(
-        config.hidden_act, "gelu")
+    act = _act(config)
     mode = dict(use_kernels=use_kernels, int8=int8)
     if "gate" in m:
         if emit != "no":
@@ -416,7 +425,8 @@ def encoder_layer(layer: Params, config: BertConfig, x: torch.Tensor,
     qkv and up projections, and the block returns (x, xq); "ffn" — FFN-up
     emits int8-only for FFN-down. ``rope``: the rotary families' (cos,
     sin) tables (nomic-bert, RoFormer). ``causal``: attention attends j <=
-    i in the kernel (K6c, or K6ca with ``alibi``)."""
+    i in the kernel (K6c, or K6ca with ``alibi``). A layer whose MLP has a
+    router (nomic-v2-moe's odd layers) ends in ``_moe_half``."""
     a, m = layer["attn"], layer["mlp"]
     eps = config.layer_norm_eps
     mode = dict(use_kernels=use_kernels, int8=int8)
@@ -430,11 +440,31 @@ def encoder_layer(layer: Params, config: BertConfig, x: torch.Tensor,
                              a["ln"]["scale"], a["ln"]["bias"], eps,
                              emit=ln_emit, **mode)
     x, xq = out if ln_emit == "both" else (out, None)
+    if "router" in m:  # the MoE FFN half (nomic-v2-moe's odd layers)
+        return _moe_half(m, config, x, eps)
     h = _ffn_hidden(m, xq if xq is not None else x, config,
                     emit="only" if "ffn" in links else "no", **mode)
     return linear_residual_ln(h, m["down"]["w"], m["down"]["b"], x,
                               m["ln"]["scale"], m["ln"]["bias"], eps,
                               emit=ln_emit, **mode)
+
+
+def _moe_half(m: Params, config: BertConfig, x: torch.Tensor,
+              eps: float) -> torch.Tensor:
+    """The post-LN MoE FFN half: LayerNorm(x + moe(x)) over every slot of
+    [B, L, E], padding included, as the JAX package routes them. The
+    experts are dense torch products (``ops.moe``), never a kernel of the
+    port: ``moe_dispatch`` "ragged" or "auto" (one device) runs the
+    sorted, grouped products; "dense" every expert on every token."""
+    from ..ops.moe import moe_ffn, moe_ffn_ragged
+    B, L, E = x.shape
+    act = _act(config)
+    ffn = (moe_ffn_ragged if config.moe_dispatch in ("ragged", "auto")
+           else moe_ffn)
+    y = ffn(x.reshape(B * L, E), m, top_k=config.moe_top_k, act=act,
+            normalize_topk=config.moe_normalize_topk)
+    return layer_norm(x + y.reshape(B, L, E), m["ln"]["scale"],
+                      m["ln"]["bias"], eps)
 
 
 def _int8_chain_ok(params: Params, config: BertConfig, *,
@@ -443,10 +473,12 @@ def _int8_chain_ok(params: Params, config: BertConfig, *,
     with the kernels, a post-LN encoder with fused qkv and a plain MLP
     (no gate, no experts), and all four matmul weights quantized. Shapes
     are not checked here: the linear ops dequantize an ActQ where int8
-    does not engage."""
+    does not engage. The (dense, moe) tree of an MoE model never
+    chains."""
     if not (int8 and use_kernels) or config.norm_style == "pre":
         return False
-    if not isinstance(params.get("layers"), dict) \
+    layers = params.get("layers")
+    if not isinstance(layers, dict) or "dense" in layers \
             or config.num_hidden_layers < 1:
         return False
     lay = layer_params(params, 0)

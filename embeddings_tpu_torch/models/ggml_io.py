@@ -193,9 +193,9 @@ def build_params_from_sd(sd: dict, config: BertConfig) -> dict:
     for name, v in sd.items():
         if isinstance(v, Q.QuantizedTensor):
             if config.num_experts:
-                # the MoE layer tree is not modelled by the quantized
-                # installer: load dense (from_hf_state_dict then refuses
-                # MoE configs, see params.check_supported)
+                # the (dense, moe) layer tree is not modelled by the
+                # quantized installer: load dense (load_model(dtype=...)
+                # quantizes the attention and dense-half matmuls)
                 dense_sd[name] = Q.dequantize(v).numpy().T
                 continue
             quants[name] = v

@@ -29,6 +29,22 @@ weights are stacked on a leading axis [num_layers, ...]:
     "st_dense": {"0": {"w", "b"}, ...}   (SentenceTransformers Dense, opt.)
   }
 
+A mixture-of-experts model (nomic-embed-text-v2-moe: ``num_experts``,
+an MoE FFN at every odd layer) splits the layers into two half-stacks of
+NL/2, applied in pairs (``layer``: layer i is ``dense[i // 2]`` for even
+i, ``moe[i // 2]`` for odd i):
+
+  "layers": {"dense": {"attn": {...}, "mlp": {...}},     (as above)
+             "moe": {"attn": {...},
+                     "mlp": {"router": {"w": [D, Ex] f32},
+                             "up": {"w": [Ex, D, I], "b": [Ex, I]},
+                             "down": {"w": [Ex, I, D], "b": [Ex, D]},
+                             "bias": [D]  (the shared output bias, opt.),
+                             "ln": {"scale", "bias"}}}}
+
+each leaf with the NL/2 axis first. The experts and the router are never
+quantized, and the router stays f32 through every cast.
+
 Rotary models (nomic-bert, ModernBERT, Qwen2) have no "position" table.
 In a pre-norm tree the layer norms are the pre-attention ("attn/ln") and
 pre-MLP ("mlp/ln") norms; ModernBERT's layer-0 attention norm is an
@@ -74,8 +90,10 @@ def check_supported(config: BertConfig) -> None:
     bias, ALiBi or RoPE, a plain or gated MLP, ALBERT's factorized
     embeddings and shared layer, ModernBERT's pre-norm LayerNorm stack
     with its sliding window, and Qwen2's pre-norm decoder block (RMSNorm,
-    grouped-query attention, causal or bidirectional). Mixture-of-experts
-    layers are not ported."""
+    grouped-query attention, causal or bidirectional), and the
+    mixture-of-experts interleave of nomic-embed-text-v2-moe: an MoE FFN
+    at every second layer of an even, unshared post-LN stack (the JAX
+    package's layout rule)."""
     H = config.num_attention_heads
     kv = config.num_key_value_heads or H
     unsupported = {
@@ -84,15 +102,19 @@ def check_supported(config: BertConfig) -> None:
         "norm_style": config.norm_style not in ("post", "pre"),
         "norm_type": config.norm_type not in ("layernorm", "rmsnorm"),
         "num_key_value_heads": H % kv != 0,
-        "num_experts": bool(config.num_experts),
+        "num_experts": bool(config.num_experts) and (
+            config.moe_every_n_layers != 2 or config.shared_layers
+            or config.num_hidden_layers % 2 != 0
+            or config.norm_style != "post"),
     }
     bad = [k for k, v in unsupported.items() if v]
     if bad:
         raise NotImplementedError(
             f"the PyTorch port runs post-LN BERT, RoBERTa, DistilBERT, "
             f"ALBERT, MPNet, jina-bert-v2, nomic-bert, RoFormer, ModernBERT "
-            f"and Qwen2 models; this config sets "
-            f"{', '.join(bad)}")
+            f"and Qwen2 models, and nomic-bert mixture-of-experts models "
+            f"with an MoE FFN at every second layer of an even, unshared "
+            f"post-LN stack; this config sets {', '.join(bad)}")
 
 
 def map_tree(fn: Callable, tree):
@@ -128,8 +150,14 @@ def keep_int8_weights(params: Params) -> Params:
 
 
 def layer(params: Params, i: int) -> Params:
-    """Layer ``i`` of the stacked layer tree (views, no copies)."""
-    return map_tree(lambda t: t[i], params["layers"])
+    """Layer ``i`` of the stacked layer tree (views, no copies); in a
+    mixture-of-experts tree ``dense[i // 2]`` for even i, ``moe[i // 2]``
+    for odd i — the JAX package's (dense, moe) pair scan."""
+    layers = params["layers"]
+    if "dense" in layers:
+        layers = layers["moe" if i % 2 else "dense"]
+        i //= 2
+    return map_tree(lambda t: t[i], layers)
 
 
 def _ln(scale, bias) -> Params:
@@ -147,7 +175,10 @@ def init_params(config: BertConfig, generator: np.random.Generator | int = 0,
     no position table; pre-norm models add the final norm; grouped-query
     attention makes k/v Ekv wide; RMSNorm models have no embedding
     norm; a factorized config (ALBERT) has tables ``embedding_size`` wide
-    and a ``proj`` to E, and shared layers store one layer."""
+    and a ``proj`` to E, and shared layers store one layer; a
+    mixture-of-experts config takes the (dense, moe) layout (a router and
+    ``num_experts`` expert stacks at odd layers, zero expert biases, a
+    zero shared output bias)."""
     check_supported(config)
     rng = (np.random.default_rng(generator) if isinstance(generator, int)
            else generator)
@@ -185,6 +216,20 @@ def init_params(config: BertConfig, generator: np.random.Generator | int = 0,
     }
     if config.gated_mlp:
         layers["mlp"]["gate"] = lin(E, F)
+    if config.num_experts:
+        NLh, Ex = NL // 2, config.num_experts
+        layers = {
+            "dense": map_tree(lambda t: t[0::2].contiguous(), layers),
+            "moe": {"attn": map_tree(lambda t: t[1::2].contiguous(),
+                                     layers["attn"]),
+                    "mlp": {"router": {"w": mat(NLh, E, Ex).float()},
+                            "up": {"w": mat(NLh, Ex, E, F),
+                                   "b": zeros(NLh, Ex, F)},
+                            "down": {"w": mat(NLh, Ex, F, E),
+                                     "b": zeros(NLh, Ex, E)},
+                            "bias": zeros(NLh, E),
+                            "ln": {"scale": torch.ones(NLh, E),
+                                   "bias": torch.zeros(NLh, E)}}}}
     out: Params = {"embeddings": emb, "layers": layers}
     if config.relative_attention_num_buckets:
         out["rel_bias"] = mat(config.relative_attention_num_buckets,
@@ -250,8 +295,8 @@ def pack_q4_params(params: Params) -> Params:
 
 def cast_params(params: Params, kind: str) -> Params:
     """Matmul weights and embedding tables (tensors of 2+ dims outside
-    LayerNorms) to f32/bf16/f16; LayerNorms, biases and the relative-bias
-    table stay f32."""
+    LayerNorms) to f32/bf16/f16; LayerNorms, biases, the relative-bias
+    table and an MoE router stay f32."""
     from ..ops.quant import dequantize
     target = _TORCH_DTYPES[kind]
 
@@ -261,7 +306,7 @@ def cast_params(params: Params, kind: str) -> Params:
         if isinstance(x, dict):
             return {k: cast(f"{path}/{k}", v) for k, v in x.items()}
         parts = path.split("/")
-        if x.ndim >= 2 and "ln" not in parts and "rel_bias" not in parts:
+        if x.ndim >= 2 and not {"ln", "rel_bias", "router"} & set(parts):
             return x.to(target)
         return x
 
@@ -273,7 +318,9 @@ def quantize_params(params: Params, kind: str, *,
                     pack4: bool = False) -> Params:
     """Quantize every layer matmul weight (and the word-embedding table,
     blocked along E); biases, LayerNorms and the position / token-type
-    tables stay dense. Same selection and codes as the JAX package."""
+    tables stay dense, and so do an MoE tree's router and experts (only
+    its attention and dense-half FFN are quantized). Same selection and
+    codes as the JAX package."""
     from ..ops.quant import dequantize
     if kind in DENSE_KINDS:
         return cast_params(params, kind)
@@ -298,8 +345,16 @@ def quantize_params(params: Params, kind: str, *,
                     if isinstance(v, dict) and "w" in v else v)
                 for k, v in d.items()}
 
-    out["layers"] = {"attn": quantize_linears(params["layers"]["attn"]),
-                     "mlp": quantize_linears(params["layers"]["mlp"])}
+    layers = params["layers"]
+    if "dense" in layers:
+        out["layers"] = {
+            "dense": {"attn": quantize_linears(layers["dense"]["attn"]),
+                      "mlp": quantize_linears(layers["dense"]["mlp"])},
+            "moe": {"attn": quantize_linears(layers["moe"]["attn"]),
+                    "mlp": layers["moe"]["mlp"]}}
+        return out
+    out["layers"] = {"attn": quantize_linears(layers["attn"]),
+                     "mlp": quantize_linears(layers["mlp"])}
     return out
 
 
@@ -308,7 +363,15 @@ def fuse_qkv(params: Params) -> Params:
     columns are [q | k | v] (each E wide, heads contiguous). A
     grouped-query tree (k/v narrower than q) is returned unchanged, as
     the JAX package does: the forward splits a fused projection in
-    thirds."""
+    thirds. An MoE tree fuses each half-stack's attention apart."""
+    if "dense" in params["layers"]:
+        out = dict(params)
+        out["layers"] = {
+            h: {**params["layers"][h],
+                "attn": fuse_qkv({"layers": params["layers"][h]}
+                                 )["layers"]["attn"]}
+            for h in ("dense", "moe")}
+        return out
     attn = params["layers"]["attn"]
     if "qkv" in attn:
         return params
@@ -540,8 +603,9 @@ _NOMIC_LAYER_MAP = {
 def _translate_nomic(sd: dict[str, np.ndarray]) -> dict[str, np.ndarray]:
     """Rewrite a nomic-bert-2048 state dict into BERT naming; no-op
     otherwise. The fused [3E, in] Wqkv splits row-wise into query | key |
-    value. (The MoE variant's router and expert tensors are not carried:
-    ``check_supported`` refuses MoE configs.)"""
+    value. The MoE variant's router (``encoder.layer.{i}.moe.router.*``)
+    and its expert stacks and shared output bias (``...moe.w1`` / ``w2``
+    / ``bias``, HF layout) are carried for ``_build_moe_layers``."""
     if not any(".attn.Wqkv." in k for k in sd):
         return sd
     out: dict[str, np.ndarray] = {}
@@ -554,6 +618,14 @@ def _translate_nomic(sd: dict[str, np.ndarray]) -> dict[str, np.ndarray]:
                 for j, name in enumerate(("query", "key", "value")):
                     out[f"encoder.layer.{i}.attention.self.{name}.{leaf}"] \
                         = v[j * E3 // 3:(j + 1) * E3 // 3]
+                continue
+            if stem == "mlp.router.layer":
+                # nomic-v2-moe's NomicRouter.layer (no bias)
+                out[f"encoder.layer.{i}.moe.router.{leaf}"] = v
+                continue
+            if stem in ("mlp.experts.mlp", "mlp.experts"):
+                # NomicExpertMLP w1 / w2 [Ex*I, D] and NomicExperts' bias
+                out[f"encoder.layer.{i}.moe.{leaf}"] = v
                 continue
             mapped = _NOMIC_LAYER_MAP.get(stem)
             if mapped is not None:
@@ -718,6 +790,49 @@ def _translate_jina(sd: dict[str, np.ndarray]) -> dict[str, np.ndarray]:
     return out
 
 
+def _build_moe_layers(sd: dict[str, np.ndarray], config: BertConfig,
+                      layers: Params, stack_ln, dtype) -> Params:
+    """Split an HF-named layer stack into the (dense, moe) half-stacks of
+    the nomic-v2-moe interleave (``init_params``' MoE layout). ``layers``
+    holds the attention of every layer and the dense FFN of the even
+    ones. Per odd layer i the state dict holds
+    ``encoder.layer.{i}.moe.router.weight`` [Ex, D], ``...moe.w1`` /
+    ``...moe.w2`` [Ex*I, D] (HF NomicExpertMLP: x @ w1_e.T, then h @
+    w2_e) and optionally the shared ``...moe.bias`` [D]."""
+    NL = config.num_hidden_layers
+    moe_idx = list(range(1, NL, 2))
+    NLh, Ex = len(moe_idx), config.num_experts
+
+    def stack(name: str) -> np.ndarray:
+        return np.stack([np.asarray(sd[f"encoder.layer.{i}.moe.{name}"],
+                                    np.float32) for i in moe_idx])
+
+    def t(a, dt=dtype):
+        return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dt)
+
+    w1, w2 = stack("w1"), stack("w2")                     # [NLh, Ex*I, D]
+    D = w1.shape[-1]
+    I = w1.shape[1] // Ex
+    moe_mlp: Params = {
+        "router": {"w": t(stack("router.weight").transpose(0, 2, 1),
+                          torch.float32)},                 # [NLh, D, Ex]
+        # the tree's [in, out]: up = w1_e.T, down = w2_e
+        "up": {"w": t(w1.reshape(NLh, Ex, I, D).transpose(0, 1, 3, 2)),
+               "b": torch.zeros(NLh, Ex, I, dtype=dtype)},
+        "down": {"w": t(w2.reshape(NLh, Ex, I, D)),
+                 "b": torch.zeros(NLh, Ex, D, dtype=dtype)},
+        "ln": stack_ln("encoder.layer.{}.output.LayerNorm", moe_idx),
+    }
+    if f"encoder.layer.{moe_idx[0]}.moe.bias" in sd:
+        moe_mlp["bias"] = t(stack("bias"))
+    return {"dense": {"attn": map_tree(lambda a: a[0::2].contiguous(),
+                                       layers["attn"]),
+                      "mlp": layers["mlp"]},
+            "moe": {"attn": map_tree(lambda a: a[1::2].contiguous(),
+                                     layers["attn"]),
+                    "mlp": moe_mlp}}
+
+
 def from_hf_state_dict(sd: dict[str, np.ndarray], config: BertConfig,
                        dtype=torch.float32) -> Params:
     """Map a HF BERT, RoBERTa, DistilBERT, ALBERT, MPNet, jina-bert-v2,
@@ -725,7 +840,9 @@ def from_hf_state_dict(sd: dict[str, np.ndarray], config: BertConfig,
     tree (position_ids and the pooler are dropped, as the reference's
     converter does, unless a classifier head rides on the pooler: a
     reranker's head lands in ``cls_head``). ALBERT's shared layer is
-    stored once."""
+    stored once; a mixture-of-experts model (nomic-v2-moe) takes the
+    dense FFN tensors of its even layers only, then the (dense, moe)
+    layout (``_build_moe_layers``)."""
     check_supported(config)
     sd = _strip_prefix({k: np.asarray(v) for k, v in sd.items()})
     NL = 1 if config.shared_layers else config.num_hidden_layers
@@ -733,18 +850,20 @@ def from_hf_state_dict(sd: dict[str, np.ndarray], config: BertConfig,
     def t(a, dt=dtype):
         return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dt)
 
-    def stack_lin(fmt: str) -> Params:
+    def stack_lin(fmt: str, idx=None) -> Params:
         # HF Linear stores [out, in]; the tree stores [in, out]
+        idx = range(NL) if idx is None else idx
         return {"w": t(np.stack([sd[fmt.format(i) + ".weight"].T
-                                 for i in range(NL)])),
+                                 for i in idx])),
                 "b": t(np.stack([sd[fmt.format(i) + ".bias"]
-                                 for i in range(NL)]))}
+                                 for i in idx]))}
 
-    def stack_ln(fmt: str) -> Params:
+    def stack_ln(fmt: str, idx=None) -> Params:
+        idx = range(NL) if idx is None else idx
         return {"scale": t(np.stack([sd[fmt.format(i) + ".weight"]
-                                     for i in range(NL)]), torch.float32),
+                                     for i in idx]), torch.float32),
                 "bias": t(np.stack([sd[fmt.format(i) + ".bias"]
-                                    for i in range(NL)]), torch.float32)}
+                                    for i in idx]), torch.float32)}
 
     emb = {"word": t(sd["embeddings.word_embeddings.weight"])}
     if config.position_embedding_type == "absolute":
@@ -762,19 +881,24 @@ def from_hf_state_dict(sd: dict[str, np.ndarray], config: BertConfig,
         emb["proj"] = {"w": t(sd["embeddings.proj.weight"].T),
                        "b": t(sd["embeddings.proj.bias"])}
     pre = "encoder.layer.{}."
+    # the MoE interleave: dense FFN tensors at even layers only
+    dense_idx = range(0, NL, 2) if config.num_experts else None
     layers = {
         "attn": {"q": stack_lin(pre + "attention.self.query"),
                  "k": stack_lin(pre + "attention.self.key"),
                  "v": stack_lin(pre + "attention.self.value"),
                  "o": stack_lin(pre + "attention.output.dense"),
                  "ln": stack_ln(pre + "attention.output.LayerNorm")},
-        "mlp": {"up": stack_lin(pre + "intermediate.dense"),
-                "down": stack_lin(pre + "output.dense"),
-                "ln": stack_ln(pre + "output.LayerNorm")},
+        "mlp": {"up": stack_lin(pre + "intermediate.dense", dense_idx),
+                "down": stack_lin(pre + "output.dense", dense_idx),
+                "ln": stack_ln(pre + "output.LayerNorm", dense_idx)},
     }
     if "encoder.layer.0.intermediate.gate.weight" in sd:
         # gated MLP: down(act(gate(x)) * up(x))
-        layers["mlp"]["gate"] = stack_lin(pre + "intermediate.gate")
+        layers["mlp"]["gate"] = stack_lin(pre + "intermediate.gate",
+                                          dense_idx)
+    if config.num_experts:
+        layers = _build_moe_layers(sd, config, layers, stack_ln, dtype)
     out: Params = {"embeddings": emb, "layers": layers}
     if "rel_bias" in sd:
         # MPNet's shared [buckets, heads] table: f32, added to f32 logits
@@ -869,6 +993,11 @@ def to_hf_state_dict(params: Params) -> dict[str, np.ndarray]:
         return x.detach().float().cpu().numpy()
 
     emb = params["embeddings"]
+    if "dense" in params["layers"]:
+        raise ValueError(
+            "mixture-of-experts params (nomic-embed-text-v2-moe: router "
+            "and expert stacks) have no BERT-named state-dict form — the "
+            "ggml/GGUF export formats cannot represent them")
     if "proj" in emb:
         raise ValueError(
             "ALBERT-family params (factorized embeddings / shared layers) "

@@ -1,0 +1,163 @@
+"""Mixture-of-experts FFN of the PyTorch port (nomic-embed-text-v2-moe) —
+the port of ``embeddings_tpu/ops/moe.py`` on one device.
+
+  router logits = x @ Wr            -> softmax over all experts (f32)
+  top-k expert probabilities        (k = moe_top_k, no renormalization
+                                     unless moe_normalize_topk)
+  y = sum_e  p_e * down_e(act(up_e(x)))   [+ shared output bias]
+
+Two evaluations, as in the JAX package:
+
+* ``moe_ffn``: every expert on every token, the top-k weights (zero for
+  the others) masking an f32 combine; ``route_topk`` keeps every expert
+  whose probability reaches the k-th largest, so a tie can keep more
+  than k.
+* ``moe_ffn_ragged``: only the selected experts. The T*k (token, expert)
+  pairs are sorted by expert (stable), the rows gathered, each non-empty
+  expert's contiguous slice multiplied by its weights in the activation
+  dtype (``torch.mm``: f32 accumulation in bf16 on the card), and the
+  rows weighted and added back to their tokens at f32 (``index_add_``).
+  The JAX package's ``lax.ragged_dot`` is an XLA op, not a Pallas
+  kernel: its port is the library product. Top-k keeps JAX's tie rule
+  (``lax.top_k``: the lower expert index first), which ``torch.topk``
+  does not: a stable descending sort gives it.
+
+The per-expert loop needs each expert's row count on the host: one
+device-to-host read per MoE layer (``moe_ffn_ragged.host_reads``). The
+expert products are counted in ``moe_ffn_ragged.expert_gemms`` (two per
+non-empty expert). The profiler sees three spans: ``moe_dispatch``
+(router, top-k, sort, gather, the weighted ``index_add_``),
+``moe_expert_gemm`` (the products) and ``moe_expert_ops`` (the weight
+casts, the up bias and the activation).
+
+Expert weights are never quantized (``models.params.quantize_params``
+keeps them dense); the router stays f32. Expert parallelism (the JAX
+package's ``ep_axis``) is not ported: ``moe_ffn`` raises if asked.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch.profiler import record_function
+
+from .linear import _activate, linear
+
+Params = dict
+
+
+def route_probs(x: torch.Tensor, router_w: torch.Tensor,
+                router_b: torch.Tensor | None) -> torch.Tensor:
+    """Router softmax over all experts, in f32: [T, D] -> [T, E]."""
+    logits = x.float() @ router_w.float()
+    if router_b is not None:
+        logits = logits + router_b.float()
+    return torch.softmax(logits, dim=-1)
+
+
+def route_topk(x: torch.Tensor, router_w: torch.Tensor,
+               router_b: torch.Tensor | None, *, top_k: int,
+               normalize: bool = False) -> torch.Tensor:
+    """Per-token expert weights [T, E]: the softmax probabilities that
+    reach the k-th largest (ties keep more than k), zeros elsewhere;
+    ``normalize`` rescales the kept weights to sum to 1."""
+    probs = route_probs(x, router_w, router_b)
+    kth = torch.topk(probs, top_k, dim=-1).values[..., -1:]
+    weights = torch.where(probs >= kth, probs, torch.zeros_like(probs))
+    if normalize:
+        weights = weights / weights.sum(-1, keepdim=True).clamp_min(1e-9)
+    return weights
+
+
+def topk_lower_first(probs: torch.Tensor, k: int
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(values, indices) of the k largest per row, ties broken by the
+    lower index first (``lax.top_k``'s rule)."""
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def moe_ffn(x: torch.Tensor, moe: Params, *, top_k: int, act: str,
+            normalize_topk: bool = False, ep_axis=None) -> torch.Tensor:
+    """Dense-evaluation MoE FFN on [T, D] tokens -> [T, D]: every expert
+    on every token (``linear``'s f32 product), combined at f32 with the
+    ``route_topk`` weights, the shared ``bias`` added after the combine.
+
+    moe: router {w [D, E], b [E]?}, up {w [E, D, I], b [E, I]}, down {w
+    [E, I, D], b [E, D]}, optional bias [D]."""
+    if ep_axis is not None:
+        raise NotImplementedError(
+            "expert parallelism (ep_axis) is not ported: the PyTorch "
+            "port runs every expert on one device")
+    weights = route_topk(x, moe["router"]["w"], moe["router"].get("b"),
+                         top_k=top_k, normalize=normalize_topk)
+    out = torch.zeros(x.shape[0], moe["down"]["w"].shape[-1],
+                      dtype=torch.float32, device=x.device)
+    for e in range(moe["up"]["w"].shape[0]):
+        h = linear(x, moe["up"]["w"][e], moe["up"]["b"][e], act=act)
+        y = linear(h, moe["down"]["w"][e], moe["down"]["b"][e])
+        out = out + weights[:, e:e + 1] * y.float()
+    if "bias" in moe:
+        out = out + moe["bias"].float()
+    return out.to(x.dtype)
+
+
+def moe_ffn_ragged(x: torch.Tensor, moe: Params, *, top_k: int, act: str,
+                   normalize_topk: bool = False) -> torch.Tensor:
+    """Sparse-dispatch MoE FFN on [T, D] tokens -> [T, D]: only the
+    selected experts' products run (k/E of ``moe_ffn``'s). Numerics
+    match ``moe_ffn`` up to f32 summation order (and, in bf16, the
+    expert products' rounding)."""
+    T, D = x.shape
+    E = moe["router"]["w"].shape[-1]
+    with record_function("moe_dispatch"):
+        probs = route_probs(x, moe["router"]["w"], moe["router"].get("b"))
+        top_w, top_e = topk_lower_first(probs, top_k)        # [T, k]
+        if normalize_topk:
+            top_w = top_w / top_w.sum(-1, keepdim=True).clamp_min(1e-9)
+        flat_e = top_e.reshape(-1)                             # [T*k]
+        order = torch.argsort(flat_e, stable=True)             # by expert
+        t_sorted = order // top_k                              # its token
+        e_sorted = flat_e[order]
+        counts = torch.bincount(flat_e, minlength=E).tolist()  # host read
+        moe_ffn_ragged.host_reads += 1
+        xs = x[t_sorted]                                       # [T*k, D]
+    y = _ragged_mlp(xs, counts, moe, act, x.dtype)
+    with record_function("moe_dispatch"):
+        y = y.float() + moe["down"]["b"].float()[e_sorted]
+        y = y * top_w.reshape(-1)[order][:, None]
+        out = torch.zeros(T, D, dtype=torch.float32, device=x.device)
+        out.index_add_(0, t_sorted, y)
+        if "bias" in moe:
+            out = out + moe["bias"].float()
+    return out.to(x.dtype)
+
+
+moe_ffn_ragged.host_reads = 0
+moe_ffn_ragged.expert_gemms = 0
+
+
+def _ragged_mlp(xs: torch.Tensor, counts: list[int], moe: Params,
+                act: str, dtype) -> torch.Tensor:
+    """down_e(act(xs_e @ up_e + up_b[e])) over expert-sorted rows (in
+    ``dtype``), one pair of products per non-empty expert on its
+    contiguous slice, the weights cast to ``dtype`` (the JAX package's
+    ``astype(dtype)``), the up bias added in the product's dtype."""
+    out = torch.empty(xs.shape[0], moe["down"]["w"].shape[-1], dtype=dtype,
+                      device=xs.device)
+    start = 0
+    for e, n in enumerate(counts):
+        if n == 0:
+            continue
+        rows = slice(start, start + n)
+        start += n
+        with record_function("moe_expert_ops"):
+            up_w = moe["up"]["w"][e].to(dtype)
+            down_w = moe["down"]["w"][e].to(dtype)
+        with record_function("moe_expert_gemm"):
+            h = torch.mm(xs[rows], up_w)
+        with record_function("moe_expert_ops"):
+            h = _activate(h + moe["up"]["b"][e].to(h.dtype), act)
+        with record_function("moe_expert_gemm"):
+            torch.mm(h, down_w, out=out[rows])
+        moe_ffn_ragged.expert_gemms += 2
+    return out

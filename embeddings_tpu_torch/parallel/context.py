@@ -210,8 +210,10 @@ def _cp_layer(layers: list[Params], config: BertConfig,
 # ---------------------------------------------------------------------------
 
 def _refuse(config: BertConfig) -> None:
-    """The JAX package's refusals, word for word, then the port's own
-    (``check_supported``: mixture-of-experts layers)."""
+    """The JAX package's refusals, word for word, then the port's own:
+    mixture-of-experts layers (the JAX package's CP layer has no router
+    branch, so its CP forward cannot run them either), then
+    ``check_supported``."""
     if (config.relative_attention_num_buckets
             or config.position_embedding_type == "alibi"):
         # the [H, Lc, L] bias would need per-shard global positions in
@@ -228,6 +230,12 @@ def _refuse(config: BertConfig) -> None:
         raise ValueError("context parallelism supports post-LN "
                          "bidirectional encoders only (ModernBERT/"
                          "Qwen2-family models: use dp/tp instead)")
+    if config.num_experts:
+        raise NotImplementedError(
+            f"context parallelism does not run mixture-of-experts layers "
+            f"(num_experts={config.num_experts}): the CP layer is the "
+            f"dense post-LN block, with no router; run the model without "
+            f"a mesh")
     check_supported(config)
 
 

@@ -532,7 +532,9 @@ def load_model(path: str | Path, *, dtype: str = "f32",
         # <s> ... </s> wrap
         tokenizer.special_style = "eos_only"
     from ..ops.quant import PACK4_KINDS, QuantizedTensor
-    already_quant = isinstance(params["layers"]["mlp"]["up"]["w"],
+    layers = params["layers"]
+    # an MoE tree's dense half says (its experts are never quantized)
+    already_quant = isinstance(layers.get("dense", layers)["mlp"]["up"]["w"],
                                QuantizedTensor)
     if dtype != "f32" and not already_quant:
         params = P.quantize_params(params, dtype)

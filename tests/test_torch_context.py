@@ -431,9 +431,10 @@ def test_cp_refusals_match_jax(change, match):
 
 
 def test_cp_refuses_what_the_port_does_not_map():
-    """Mixture-of-experts layers (the one family the port does not map)
-    stay refused; shared layers and factorized embeddings (ALBERT), once
-    refused here, run (``test_cp_forward_albert_matches_jax``)."""
+    """Mixture-of-experts layers stay refused (the JAX package's CP layer
+    has no router branch, so it cannot run them either); shared layers
+    and factorized embeddings (ALBERT), once refused here, run
+    (``test_cp_forward_albert_matches_jax``)."""
     cfg = BertConfig(**dict(SMALL, num_experts=4, moe_every_n_layers=2))
     with pytest.raises(NotImplementedError, match="num_experts"):
         make_cp_forward(cfg, make_mesh_cp(2, 4, [CPU] * 8))

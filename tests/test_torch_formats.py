@@ -15,8 +15,9 @@ codecs of ``ops/quant.py``).
     not), q4_1, q8_0 and K-quant files re-quantized on load; a quantized
     file keeps its kind and is packed only for a q4 dtype.
 (d) Other archs and tokenizers: nomic-bert and jina-bert-v2 GGUFs agree
-    across the packages; a nomic-bert-moe GGUF reads, then stops at the
-    port's MoE refusal; ``_tokenizer_from_gguf`` (bert, t5 with a
+    across the packages; a nomic-bert-moe GGUF reads and loads to JAX's
+    tree and forward, and the writers refuse its MoE tree (the GGUF
+    export has no form for it); ``_tokenizer_from_gguf`` (bert, t5 with a
     charsmap, gpt2) gives JAX's ids; malformed files raise JAX's errors.
 """
 
@@ -27,17 +28,18 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 from embeddings_tpu.config import BertConfig as JaxConfig, \
     EngineConfig as JaxEngineConfig
-from embeddings_tpu.models import ggml_io as JG, gguf_io as JF, \
-    params as JP
+from embeddings_tpu.models import bert as jbert, ggml_io as JG, \
+    gguf_io as JF, params as JP
 from embeddings_tpu.ops import quant as JQ
 from embeddings_tpu.runtime.engine import load_model as jax_load
 
 from embeddings_tpu_torch.config import BertConfig
-from embeddings_tpu_torch.models import ggml_io as TG, gguf_io as TF, \
-    params as P
+from embeddings_tpu_torch.models import bert as tbert, ggml_io as TG, \
+    gguf_io as TF, params as P
 from embeddings_tpu_torch.ops import quant as TQ
 from embeddings_tpu_torch.ops.quant import QuantizedTensor
 from embeddings_tpu_torch.runtime.engine import load_model
@@ -299,10 +301,22 @@ def test_moe_gguf_reads_then_refused(tmp_path):
     assert set(got) == set(ref)
     for k in ref:
         np.testing.assert_array_equal(got[k], np.asarray(ref[k]), err_msg=k)
-    with pytest.raises(NotImplementedError, match="num_experts"):
-        TF.load_gguf_model(path)
-    with pytest.raises(NotImplementedError, match="num_experts"):
-        load_model(path, device="cpu")
+    params, tcfg, _ = TF.load_gguf_model(path)
+    jparams, _, _ = JF.load_gguf_model(path)
+    assert set(params["layers"]) == {"dense", "moe"}
+    ids = np.random.default_rng(1).integers(5, 96, (2, 16)).astype(np.int32)
+    mask = np.ones_like(ids)
+    got = tbert.encode_tokens(params, tcfg, torch.from_numpy(ids),
+                              torch.from_numpy(mask)).numpy()
+    ref = np.asarray(jbert.encode_tokens(jparams, rcfg, ids, mask))
+    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-5)
+    eng = load_model(path, dtype="q4_0", device="cpu")
+    assert eng.config.num_experts == 4
+    # the export formats have no form for an MoE tree
+    with pytest.raises(ValueError, match="mixture-of-experts"):
+        TF.write_gguf(tmp_path / "back.gguf", params, tcfg, tokens)
+    with pytest.raises(ValueError, match="mixture-of-experts"):
+        TG.write_ggml(tmp_path / "back.bin", params, tcfg, tokens)
 
 
 def _charsmap_meta():
