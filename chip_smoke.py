@@ -163,6 +163,18 @@ K8B_CASES = [(4, 512, 2048), (1, 2048, 8192)]
 # Lc=256: K8a), nomic-embed-text-v1 at B=4, L=2,048 on dp=1 x sp=4 (a
 # shard: B=4, Lc=512: K8b, past the whole-row rule)
 CP_BGE, CP_BGE_MESH = (32, 512), (2, 2)
+# data x model meshes of the card (tp_path): bge at B=32, L=512, MPNet
+# at B=32, L=256, nomic-embed-text-v2-moe at B=4, L=256; a shard's
+# matmuls at tp=2 and tp=4: name -> (K, N, epilogue)
+TP_SHAPE, TP_MESHES = (32, 512), ((1, 2), (2, 2), (1, 4))
+TP_MPNET, TP_MOE = (32, 256), (4, 256)
+TP_M = TP_SHAPE[0] * TP_SHAPE[1]
+TP_K1_SHAPES = {"tp2_qkv": (E, E // 2, "bias"),
+                "tp2_o_proj": (E // 2, E, "none"),
+                "tp2_ffn_up": (E, F // 2, "bias_gelu"),
+                "tp2_ffn_down": (F // 2, E, "none"),
+                "tp4_qkv": (E, E // 4, "bias"),
+                "tp4_o_proj": (E // 4, E, "none")}
 CP_NOMIC, CP_NOMIC_MESH = (4, 2048), (1, 4)
 # the chained links' emitting calls at bge's shapes (K1e / K3e): name ->
 # (K, N, epilogue, emit), and one N = 4,096 case (bge-large's FFN)
@@ -596,7 +608,12 @@ K1_EXTRA = {
     "ln_emit_only": (M, E, E, "bias_residual_ln", "only"),
     "cp_o_proj": (4096, E, E, "bias_residual_ln", "no"),
     "cp_ffn_down": (4096, F, E, "bias_residual_ln", "no"),
-    "albert_up": (M, *ALBERT_UP, "no")}
+    "albert_up": (M, *ALBERT_UP, "no"),
+    # a tensor-parallel shard's (tp_path, B=32 L=512: 16,384 rows):
+    # column slices with their bias, row slices with no epilogue (the sum
+    # and the LayerNorm follow); at tp=4 q/k/v are 192 wide (1.5 tiles)
+    **{name: (TP_M, K, N, epi, "no") for name, (K, N, epi)
+       in TP_K1_SHAPES.items()}}
 
 
 def phase_k1():
@@ -919,6 +936,9 @@ def n_bucketed_forwards(eng, texts) -> int:
 
 
 def _bge_base_engine(mesh=None, **ec):
+    """bge-base q4_0 packed on the card, from one random tree (numpy seed
+    0) built once: fused qkv on one device and on a CP mesh, q/k/v apart
+    on a ("data", "model") mesh (tensor parallelism shards them)."""
     import torch
     from embeddings_tpu_torch import BertConfig, EngineConfig, KNOWN_MODELS
     from embeddings_tpu_torch.models import params as P
@@ -928,10 +948,13 @@ def _bge_base_engine(mesh=None, **ec):
         cfg = BertConfig(**{**KNOWN_MODELS["bge-base-en-v1.5"],
                             "vocab_size": 30528})
         t0 = time.perf_counter()
-        params = P.fuse_qkv(P.pack_q4_params(P.quantize_params(
-            P.init_params(cfg, np.random.default_rng(0)), "q4_0")))
-        STATE["params"] = (cfg, params, time.perf_counter() - t0)
+        unfused = P.pack_q4_params(P.quantize_params(
+            P.init_params(cfg, np.random.default_rng(0)), "q4_0"))
+        STATE["params"] = (cfg, P.fuse_qkv(unfused), time.perf_counter() - t0)
+        STATE["params_unfused"] = unfused
     cfg, params, _ = STATE["params"]
+    if mesh is not None and "model" in mesh.shape:
+        params = STATE["params_unfused"]
     tok = tokenizer_from_dir(FIXTURE / "model")
     return Engine(params, cfg, tok, EngineConfig(**{"batch_size": 128, **ec}),
                   device=None if mesh else torch.device("cuda"), mesh=mesh)
@@ -1426,6 +1449,78 @@ def phase_k6k7():
          k7_routes=bias_routes(), **out)
 
 
+def phase_attn_tp():
+    """The attention kernels at the shard shapes ``tp_path`` launches
+    (H/tp local heads, q, k and v of the shard concatenated), each against
+    its plain version on the same inputs: K2 on 6 heads (tp = 2) and 3
+    heads (tp = 4, rows 192 wide) at B=32, L=512 (bge, int8), and on 6
+    heads at B=4, L=256 (nomic-embed-text-v2-moe); K4 on 6 heads at 64
+    packed rows of 128 (packed at 2 x 2); K7 on 6 heads at B=32, L=256
+    with each shard's [6, L, L] half of MPNet's bias. Every case has
+    lengths on the Hopper tiles' edges and an all-pad row (exactly 0)."""
+    import torch
+    from embeddings_tpu_torch.ops import attention as A
+    rng = np.random.default_rng(19)
+    dev = torch.device("cuda")
+    out = {}
+
+    def lengths(Bx: int, Lx: int) -> list:
+        lens = rng.integers(1, Lx + 1, Bx)
+        edges = [min(n, Lx) for n in TILE_EDGES] + [Lx]
+        lens[:len(edges)] = edges
+        return lens.tolist()
+
+    (Bt, Lt), (Bo, Lo) = TP_SHAPE, TP_MOE
+    for name, (Bx, Lx), Hx in (("K2_6heads", (Bt, Lt), H // 2),
+                               ("K2_3heads", (Bt, Lt), H // 4),
+                               ("K2_6heads_moe", (Bo, Lo), H // 2)):
+        lens = lengths(Bx, Lx) if Bx > len(TILE_EDGES) else \
+            [0, 1, 129, Lx][:Bx]
+        r, routes = _routed(A.fused_attention, lambda: _k2_case(
+            rng, Bx, Lx, lens, dev, Hx=Hx))
+        check(r["ok"] and r["zero_rows_exact"] and routes == {"sm90": 1},
+              f"{name} disagrees: {r}, routes {routes}")
+        out[name] = dict(r, shape=[Bx, Lx, Hx, D], routes=routes)
+    # K4: the packed forward's rows, every shard's 6 heads
+    arrays, _ = packed_tables(64, 128)
+    seg = torch.from_numpy(arrays[1]).to(dev)
+    Hx = H // 2
+    qkv = torch.from_numpy(rng.standard_normal(
+        (64 * 128, 3 * Hx * D), dtype=np.float32)).to(dev, torch.bfloat16)
+    kw = dict(B=64, L=128, H=Hx, D=D)
+    got, routes = _routed(A.fused_attention_segmented,
+                          lambda: A.fused_attention_segmented(qkv, seg, **kw))
+    ref = A.fused_attention_segmented_ref(qkv, seg, **kw)
+    r = compare(got, ref, K2_RTOL, K2_ATOL_RMS)
+    pad = seg.reshape(-1) < 0
+    r.update(shape=[64, 128, Hx, D], routes=routes,
+             pad_rows_exact_zero=bool((got[pad] == 0).all()),
+             all_pad_rows=int((seg < 0).all(1).sum()))
+    check(r["ok"] and r["pad_rows_exact_zero"] and r["all_pad_rows"]
+          and routes == {"sm90": 1}, f"K4_6heads disagrees: {r}")
+    out["K4_6heads"] = r
+    # K7: MPNet's bias, each shard's half of the heads
+    Bm, Lm = TP_MPNET
+    full = _family_bias("mpnet", Lm, dev)
+    for j in range(2):
+        bias = A.prepare_attention_bias(full[:, j * Hx:(j + 1) * Hx], Lm)
+        qkv, _ = _attn_qkv(rng, Bm, Lm, dev, Ex=Hx * D)
+        lens = torch.tensor(lengths(Bm, Lm), dtype=torch.int32, device=dev)
+        kw = dict(B=Bm, L=Lm, H=Hx, D=D)
+        got, routes = _routed(A.fused_attention_bias, lambda: (
+            A.fused_attention_bias(qkv, lens, bias, **kw)))
+        ref = A.fused_attention_bias_ref(qkv, lens, bias, **kw)
+        r = dict(compare(got, ref, K2_RTOL, K2_ATOL_RMS),
+                 shape=[Bm, Lm, Hx, D], bias=list(bias.shape), routes=routes)
+        r["zero_rows_exact"] = bool((got.reshape(Bm, Lm, -1)[0] == 0).all())
+        check(r["ok"] and r["zero_rows_exact"] and routes == {"sm90": 1},
+              f"K7_6heads_shard{j} disagrees: {r}")
+        out[f"K7_6heads_shard{j}"] = r
+    emit("attn_tp_parity", tolerance=f"|err| <= {K2_RTOL}*|ref| + "
+         f"{K2_ATOL_RMS}*rms(ref); len-0 rows and pad query rows exactly "
+         f"0", **out)
+
+
 def band_pairs(lengths, Lx: int, window: int) -> int:
     """(query, key) pairs banded attention needs on this data: both
     inside the row's length and |i - j| <= window // 2."""
@@ -1856,7 +1951,8 @@ def _family_engine(family: str, mesh=None, **ec):
     its weights in a causal config), gte-modernbert-base,
     nomic-embed-text-v1 or a bge-base-shaped BERT with 2,048 positions
     ("bert_long") at full width and depth, q4_0 packed + fused qkv, random
-    weights from numpy seed 0, on the card (or on a CP ``mesh`` of it)."""
+    weights from numpy seed 0, on the card (or on a ``mesh`` of it: q/k/v
+    apart on a ("data", "model") one)."""
     import torch
     from embeddings_tpu_torch import BertConfig, EngineConfig, KNOWN_MODELS
     from embeddings_tpu_torch.models import params as P
@@ -1877,10 +1973,13 @@ def _family_engine(family: str, mesh=None, **ec):
                                 max_position_embeddings=2048)}[family]
         cfg = BertConfig(**{"pooling": "mean", **kw})
         t0 = time.perf_counter()
-        params = P.fuse_qkv(P.pack_q4_params(P.quantize_params(
-            P.init_params(cfg, np.random.default_rng(0)), "q4_0")))
-        STATE[key] = (cfg, params, time.perf_counter() - t0)
+        unfused = P.pack_q4_params(P.quantize_params(
+            P.init_params(cfg, np.random.default_rng(0)), "q4_0"))
+        STATE[key] = (cfg, P.fuse_qkv(unfused), time.perf_counter() - t0)
+        STATE[key + "_unfused"] = unfused
     cfg, params, _ = STATE[key]
+    if mesh is not None and "model" in mesh.shape:
+        params = STATE[key + "_unfused"]  # TP shards q, k, v apart
     if causal:
         cfg = dataclasses.replace(cfg, causal=True)
     tok = tokenizer_from_dir(FIXTURE / "model")
@@ -2795,7 +2894,7 @@ def phase_albert_path():
 # nomic-embed-text-v2-moe: the mixture-of-experts interleave
 # ---------------------------------------------------------------------------
 
-def _moe_engine(dispatch: str = "auto", **ec):
+def _moe_engine(dispatch: str = "auto", mesh=None, **ec):
     """nomic-embed-text-v2-moe at full width and depth from HF-named
     random weights (numpy seed 0, ``hf_state_dict``) through
     ``from_hf_state_dict`` and ``_build_moe_layers``: q4_0 packed + fused
@@ -2803,7 +2902,8 @@ def _moe_engine(dispatch: str = "auto", **ec):
     dense (f32, as loaded), mean pooling, the STS fixture's WordPiece
     tokenizer. The tree is built once, moved to the card once and shared
     by every engine (bf16, int8, the plain f32 path, dense dispatch);
-    ``dispatch`` sets ``moe_dispatch``."""
+    ``dispatch`` sets ``moe_dispatch``; on a ("data", "model") ``mesh``
+    the Engine shards the host tree (q/k/v apart, experts split)."""
     import torch
     from embeddings_tpu_torch import BertConfig, EngineConfig
     from embeddings_tpu_torch.models import params as P
@@ -2816,8 +2916,10 @@ def _moe_engine(dispatch: str = "auto", **ec):
         t0 = time.perf_counter()
         cfg = BertConfig.from_hf_dict(d)
         sd = hf_state_dict("nomic_moe", d, np.random.default_rng(0))
-        params = P.to_device(P.fuse_qkv(P.pack_q4_params(P.quantize_params(
-            P.from_hf_state_dict(sd, cfg), "q4_0"))), dev)
+        unfused = P.pack_q4_params(P.quantize_params(
+            P.from_hf_state_dict(sd, cfg), "q4_0"))
+        STATE["moe_params_unfused"] = unfused  # on the host, for TP
+        params = P.to_device(P.fuse_qkv(unfused), dev)
         torch.cuda.synchronize()
         cfg = dataclasses.replace(
             cfg, pooling="mean", cls_token_id=tok.cls_id,
@@ -2826,8 +2928,10 @@ def _moe_engine(dispatch: str = "auto", **ec):
         STATE["moe_params"] = (cfg, params, time.perf_counter() - t0)
     cfg, params, _ = STATE["moe_params"]
     ec = {"batch_size": MOE_SHORT[0], "max_seq_len": MOE_LONG[1], **ec}
+    if mesh is not None:
+        params, dev = STATE["moe_params_unfused"], None
     return Engine(params, dataclasses.replace(cfg, moe_dispatch=dispatch),
-                  tok, EngineConfig(**ec), device=dev)
+                  tok, EngineConfig(**ec), device=dev, mesh=mesh)
 
 
 @contextlib.contextmanager
@@ -3489,6 +3593,15 @@ def phase_timing():
                              D),
                 "cp_nomic_single": ("cp_nomic_single", CP_NOMIC, 5 * NL,
                                     {4: NL}, D),
+                # data x model meshes (q, k, v, o, up, down a layer a
+                # shard; K2 on the shard's heads) and the single-device
+                # forward at their shape
+                **{f"tp_bge_{dp}x{tp}": (f"tp_bge_{dp}x{tp}_engine",
+                                         TP_SHAPE, 6 * NL * dp * tp,
+                                         {0: NL * dp * tp}, D)
+                   for dp, tp in TP_MESHES},
+                "tp_bge_single": ("tp_bge_single", TP_SHAPE, 4 * NL,
+                                  {0: NL}, D),
                 # the encoder families on K1 and K2 alone
                 "distilbert": ("distilbert_engine", ENC_SHAPE, 24, {0: 6},
                                D),
@@ -3539,6 +3652,10 @@ def phase_timing():
                 rids, np.zeros_like(rids), np.ones_like(rids)),
             launches_want(4 * NL, {0: NL}, D, ENC_SHAPE[1]))
     fwd = {k: cuda_ms(r[0], iters=5) for k, r in runs.items()}
+    # the mesh forwards against the single-device one at their shape, in
+    # alternating rounds (host-bound forwards drift between calls)
+    tp_alt = alternating_ms({k: r[0] for k, r in runs.items()
+                             if k.startswith("tp_bge_")}, rounds=3)
     profiles = {k: device_profile(k, *r) for k, r in runs.items()}
     chain_fwd = {}
     if "int8_chain_path" in RESULTS:
@@ -3682,6 +3799,13 @@ def phase_timing():
         kernels += cp_rows(rng, dev)
     if "k6ca_parity" in RESULTS:
         kernels.append(causal_alibi_row(rng, dev))
+    if "k1_parity" in RESULTS:
+        # K1 at a TP shard's shapes, with the launches of the 1 x 2 and
+        # 1 x 4 forwards (tp_path)
+        for name, shape in TP_K1_SHAPES.items():
+            tp = name[2]
+            kernels.append(k1_row(rng, dev, name, shape, launches.get(
+                f"qmatmul_tp_1x{tp}", {}), TP_M))
     cp_fwd = {name: {"forward_ms": fwd[name],
                      "single_device_ms": fwd[name + "_single"],
                      "cp_over_single": fwd[name] / fwd[name + "_single"]}
@@ -3702,6 +3826,13 @@ def phase_timing():
          forward_bound_ms=NL * sum(kk["bound_ms"] for kk in bge_rows),
          kernel_ms_per_forward=NL * sum(kk["ms"] for kk in bge_rows),
          int8_chain_forward_ms=chain_fwd, cp_forward=cp_fwd,
+         tp_forward={name: {"forward_ms": fwd[name],
+                            "alternating_median_ms": tp_alt[name][0],
+                            "alternating_range_ms": tp_alt[name][1],
+                            "tp_over_single": tp_alt[name][0]
+                            / tp_alt["tp_bge_single"][0]}
+                     for name in tp_alt},
+         c_abi_sentences_per_s=STATE.get("capi_rates"),
          moe_breakdown={k: moe_breakdown(profiles[k]) for k in profiles
                         if k.startswith("nomic_moe")},
          profile=profiles)
@@ -5086,10 +5217,350 @@ def phase_cli_path():
          profiled_k1_us_per_forward=k1_us)
 
 
+# ---------------------------------------------------------------------------
+# the C ABI host: the reference's bert.h surface served by the port
+# ---------------------------------------------------------------------------
+
+CAPI_SENTENCES = 256
+
+
+def _capi_bind(lib):
+    import ctypes as C
+    f32p, i32p = C.POINTER(C.c_float), C.POINTER(C.c_int32)
+    sig = {"et_load_from_file": (C.c_void_p, [C.c_char_p, C.c_char_p]),
+           "et_last_error": (C.c_char_p, []),
+           "et_free": (None, [C.c_void_p]),
+           "et_n_embd": (C.c_int32, [C.c_void_p]),
+           "et_encode": (C.c_int, [C.c_void_p, C.c_char_p, f32p]),
+           "et_encode_batch": (C.c_int, [C.c_void_p, C.c_int32, C.c_int32,
+                                         C.POINTER(C.c_char_p),
+                                         C.POINTER(f32p)]),
+           "et_tokenize": (C.c_int, [C.c_void_p, C.c_char_p, i32p, i32p,
+                                     C.c_int32]),
+           "et_forward": (C.c_int, [C.c_void_p, i32p, C.c_int32, f32p])}
+    for name, (res, args) in sig.items():
+        fn = getattr(lib, name)
+        fn.restype, fn.argtypes = res, args
+    return lib
+
+
+def _capi_encode_batch(lib, ctx, texts, n_embd: int, batch: int):
+    import ctypes as C
+    out = np.zeros((len(texts), n_embd), np.float32)
+    arr = (C.c_char_p * len(texts))(*[t.encode() for t in texts])
+    rows = (C.POINTER(C.c_float) * len(texts))(
+        *[out[i].ctypes.data_as(C.POINTER(C.c_float))
+          for i in range(len(texts))])
+    check(lib.et_encode_batch(ctx, batch, len(texts), arr, rows) == 0,
+          f"et_encode_batch: {lib.et_last_error()}")
+    return out
+
+
+def phase_capi_path():
+    """The C ABI host (``csrc/capi.cpp``: the ABI of
+    ``native/embeddings_c.h``, the reference's ``bert.h`` surface): build
+    it and the reference's dlopen demo (``examples/capi_demo.cpp``) with
+    g++; write bge-base q4_0 packed at full width and depth with the
+    port's ``save_native`` beside the STS fixture's vocab; load it in this
+    process through ctypes (``et_load_from_file``, the card by default)
+    and run ``et_encode_batch`` over 256 STS sentences: equal to
+    ``Engine.encode_batch`` on the same engine configuration, 48 K1 + 12
+    K2 a forward and nothing else (this process's counters); the same
+    from a thread that did not load the model; ``et_forward`` on
+    ``et_tokenize``'s ids equal to ``Engine.forward`` on the same ids and
+    mask made in Python (max abs 0), and against ``et_encode`` (cosine >=
+    0.999: bf16 forwards at the text's own length, the einsum path, and
+    at its bucket, K2); the tokenize capacity edges of
+    ``tests/test_capi.py``; then the demo binary in a subprocess (exit 0,
+    unit norms). Prints sentences/s through the ABI beside
+    ``Engine.encode_batch``'s."""
+    import ctypes as C
+    import os
+    import shutil
+    import tempfile
+    import threading
+    import torch
+    from embeddings_tpu_torch import capi, load_model
+    from embeddings_tpu_torch.models import params as P
+    t0 = time.perf_counter()
+    lib_path, demo = capi.build(), capi.build_demo()
+    build_s = time.perf_counter() - t0
+    _bge_base_engine()  # the tree, built once
+    cfg, unfused = STATE["params"][0], STATE["params_unfused"]
+    tmp = Path(tempfile.mkdtemp(prefix="capi_"))
+    try:
+        model = tmp / "bge-base-q4_0.npz"
+        t0 = time.perf_counter()
+        P.save_native(model, unfused, cfg)
+        shutil.copyfile(FIXTURE / "model" / "vocab.txt", tmp / "vocab.txt")
+        write_s = time.perf_counter() - t0
+        os.environ.pop(capi.DEVICE_VAR, None)  # the default: cuda
+        lib = _capi_bind(C.CDLL(str(lib_path)))
+        ctx = lib.et_load_from_file(str(model).encode(), b"q4_0")
+        check(bool(ctx), f"et_load_from_file: {lib.et_last_error()}")
+        n_embd = lib.et_n_embd(ctx)
+        texts = _sts_sentences(CAPI_SENTENCES)
+        eng = load_model(model, dtype="q4_0", device=torch.device("cuda"))
+        bs = eng.engine_config.batch_size
+        n = n_bucketed_forwards(eng, texts)
+        ref = eng.encode_batch(texts, batch_size=bs)
+        with plain_calls() as calls:
+            reset_counts()
+            got = _capi_encode_batch(lib, ctx, texts, n_embd, bs)
+            counts = read_counts()
+        err = float(np.abs(got - ref).max())
+        check(got.shape == (CAPI_SENTENCES, E) and err <= 1e-6,
+              f"C ABI vs Engine.encode_batch: max abs {err}")
+        check(counts == only(K1=48 * n, K2=12 * n)
+              and not any(calls.values()),
+              f"C ABI launches {counts} over {n} forwards, plain {calls}")
+        box = {}
+        th = threading.Thread(target=lambda: box.setdefault(
+            "emb", _capi_encode_batch(lib, ctx, texts[:8], n_embd, 8)))
+        th.start()
+        th.join()
+        one = eng.encode_batch(texts[:8], batch_size=8)
+        thread_err = float(np.abs(box["emb"] - one).max())
+        check(thread_err <= 1e-6, f"C ABI from another thread: {thread_err}")
+        # et_forward on et_tokenize's ids against et_encode
+        ids = (C.c_int32 * 512)()
+        n_ids = C.c_int32(0)
+        check(lib.et_tokenize(ctx, texts[0].encode(), ids, C.byref(n_ids),
+                              512) == 0, "et_tokenize failed")
+        e_enc = np.zeros(n_embd, np.float32)
+        e_fwd = np.zeros(n_embd, np.float32)
+        fp = C.POINTER(C.c_float)
+        check(lib.et_encode(ctx, texts[0].encode(),
+                            e_enc.ctypes.data_as(fp)) == 0, "et_encode")
+        check(lib.et_forward(ctx, ids, n_ids, e_fwd.ctypes.data_as(fp)) == 0,
+              "et_forward")
+        # et_forward against Engine.forward on the same ids and mask made
+        # here: the ABI's marshalling (ids, order, mask) bit for bit
+        ids_np = np.frombuffer(ids, np.int32)[:n_ids.value][None].copy()
+        e_py = eng.forward(ids_np, np.ones_like(ids_np))[0]
+        fwd_py_err = float(np.abs(e_fwd - e_py).max())
+        # et_forward runs at the text's own length (not a multiple of 8:
+        # the einsum path), et_encode at its bucket (K2): bf16 paths apart
+        fwd_err = float(np.abs(e_fwd - e_enc).max())
+        fwd_cos = float(_row_cos(e_fwd[None], e_enc[None])[0])
+        check(fwd_py_err == 0.0, f"et_forward vs Engine.forward on the "
+              f"same ids and mask: max abs {fwd_py_err}")
+        tiny = (C.c_int32 * 4)(-9, -9, -9, -9)
+        n_tiny = C.c_int32(0)
+        rc0 = lib.et_tokenize(ctx, texts[0].encode(), tiny, C.byref(n_tiny),
+                              0)
+        rc4 = lib.et_tokenize(ctx, texts[0].encode(), tiny, C.byref(n_tiny),
+                              4)
+        check(fwd_cos >= 0.999 and rc0 == -1 and rc4 == 0
+              and 0 < n_tiny.value <= 4,
+              f"et_forward vs et_encode cos {fwd_cos}, tokenize caps rc "
+              f"{rc0}/{rc4} n={n_tiny.value}")
+        # sentences/s: the ABI against Engine.encode_batch, one warm pass
+        # each, then the median of 3
+        rates = {}
+        for name, fn in (("c_abi", lambda: _capi_encode_batch(
+                lib, ctx, texts, n_embd, bs)),
+                ("engine", lambda: eng.encode_batch(texts, batch_size=bs))):
+            fn()
+            walls = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+            rates[name] = CAPI_SENTENCES / float(np.median(walls))
+        lib.et_free(ctx)
+        # the reference's dlopen demo, in its own process, on the card
+        env = {k: v for k, v in os.environ.items() if k != capi.DEVICE_VAR}
+        t0 = time.perf_counter()
+        proc = subprocess.run([str(demo), str(lib_path), str(model), "q4_0",
+                               "hello world", "the quick brown fox"],
+                              capture_output=True, text=True, timeout=300,
+                              env=env)
+        demo_s = time.perf_counter() - t0
+        check(proc.returncode == 0 and proc.stdout.count("|x|=1.0000") == 2,
+              f"capi_demo: rc {proc.returncode}\n{proc.stdout[-1500:]}\n"
+              f"{proc.stderr[-1500:]}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    STATE["capi_rates"] = rates
+    emit("capi_path", model="bge-base-en-v1.5 (random init, numpy seed 0, "
+         "vocab 30528) q4_0 packed, save_native", library=str(
+             lib_path.relative_to(ROOT)), build_s=build_s, write_s=write_s,
+         sentences=CAPI_SENTENCES, forwards=n, batch_size=bs,
+         launches=counts, plain_calls=calls,
+         c_abi_vs_engine_max_abs=err, other_thread_max_abs=thread_err,
+         forward_vs_engine_forward_max_abs=fwd_py_err,
+         forward_tokens=n_ids.value,
+         forward_vs_encode_max_abs=fwd_err, forward_vs_encode_cos=fwd_cos,
+         tokenize_caps={"rc_cap0": rc0, "rc_cap4": rc4,
+                        "n_cap4": n_tiny.value},
+         sentences_per_s_c_abi=rates["c_abi"],
+         sentences_per_s_engine=rates["engine"], demo_s=demo_s,
+         demo_stdout=proc.stdout.splitlines()[:3])
+
+
+# ---------------------------------------------------------------------------
+# data x model meshes: Megatron TP (and MoE's expert split) on the card
+# ---------------------------------------------------------------------------
+
+def _tp_check(name: str, eng, single, texts, want: dict,
+              attn: str) -> dict:
+    """One TP engine: encode_batch with exact launch counts, every
+    attention launch on "sm90", no plain-version call; cosine >= 0.999
+    to the single-device Engine on the same weights."""
+    import torch
+    from embeddings_tpu_torch.ops import attention as A
+    wrappers = {"K2": A.fused_attention, "K7": A.fused_attention_bias}
+    reset_counts()  # clears K7's routes (not K2's): count the difference
+    with plain_calls() as calls:
+        (emb, counts, n, wall), routes = _routed(
+            wrappers[attn], lambda: _run_counted(eng, texts))
+    check(n == 1 and counts == want and not any(calls.values()),
+          f"tp {name}: launches {counts} over {n} forwards, want {want}, "
+          f"plain {calls}")
+    check(routes == {"sm90": want[attn]},
+          f"tp {name}: {attn} launches by route {routes}")
+    ref = single.encode_batch(texts)
+    cos = _row_cos(emb, ref)
+    norms = np.linalg.norm(emb, axis=1)
+    check(np.isfinite(emb).all() and np.abs(norms - 1).max() < 1e-3
+          and cos.min() >= 0.999,
+          f"tp {name}: vs the single-device Engine min cos {cos.min()}")
+    torch.cuda.synchronize()
+    return dict(launches={k: v for k, v in counts.items() if v},
+                attention_routes=routes, forwards=n, wall_s=wall,
+                tp_vs_single_device_min_cos=float(cos.min()),
+                norm_min=float(norms.min()), norm_max=float(norms.max()))
+
+
+def phase_tp_path():
+    """Data x model meshes through Engine(mesh=make_mesh(dp, tp, [cuda] *
+    dp*tp)).encode_batch, q4_0 packed, random weights from numpy seed 0,
+    q/k/v apart (shard_params cuts each weight once): bge-base at B=32,
+    L=512 on (1, 2), (2, 2) and (1, 4): 6 K1 a layer a shard (q, k, v, o,
+    up, down; o and down with no epilogue on K/tp rows, then the sum, the
+    bias, the residual and the LayerNorm) and one K2 on the shard's H/tp
+    heads (3 at tp = 4), all on "sm90"; int8 at (1, 2) (every matmul on
+    K3, each shard's own requantized slices) and at (1, 4) (q, k and v at
+    N = 192 stay on K1 with the JAX package's warning, the rest K3);
+    packed rows at (2, 2) (K4); all-mpnet-base-v2 at (1, 2) (K7 on 6
+    local heads with its half of the table) at B=32, L=256;
+    nomic-embed-text-v2-moe at (1, 2) at B=4, L=256 (the MoE halves'
+    experts split 4 a shard, every local expert on every token, one sum);
+    each against the single-device Engine, cosine >= 0.999. Then a mesh
+    that cannot shard (tp = 5) raises the JAX package's message."""
+    import torch
+    from embeddings_tpu_torch.ops import attention as A
+    from embeddings_tpu_torch.ops.qmatmul import qmatmul
+    from embeddings_tpu_torch.parallel import make_mesh
+    cuda = torch.device("cuda")
+    Bx, Lx = TP_SHAPE
+    texts = [_joined(i * 60, 60) for i in range(Bx)]
+    ec = dict(batch_size=Bx, max_seq_len=Lx)
+    single = _bge_base_engine(**ec)
+    single8 = _bge_base_engine(int8_compute=True, **ec)
+    out = {"model": "bge-base-en-v1.5 (random init, numpy seed 0, vocab "
+                    "30528) q4_0 packed, q/k/v apart", "batch": [Bx, Lx]}
+    for dp, tp in TP_MESHES:
+        mesh = make_mesh(dp, tp, [cuda] * (dp * tp))
+        t0 = time.perf_counter()
+        eng = _bge_base_engine(mesh=mesh, **ec)
+        build_s = time.perf_counter() - t0
+        check(all(len(eng.tokenize(t)) == Lx for t in texts),
+              f"tp texts do not fill L={Lx}")
+        shards = dp * tp
+        row = _tp_check(f"bge {dp}x{tp}", eng, single, texts,
+                        only(K1=6 * NL * shards, K2=NL * shards), "K2")
+        STATE.setdefault("launches", {})[f"qmatmul_tp_{dp}x{tp}"] = dict(
+            qmatmul.shapes)
+        out[f"bge_{dp}x{tp}"] = dict(row, engine_build_s=build_s,
+                                     local_heads=H // tp)
+        STATE[f"tp_bge_{dp}x{tp}_engine"] = eng
+    STATE["tp_bge_single"] = single
+    for tp, want in ((2, only(K3=6 * NL * 2, K3_rows=6 * NL * 2,
+                              K2=NL * 2)),
+                     (4, only(K1=3 * NL * 4, K3=3 * NL * 4,
+                              K3_rows=3 * NL * 4, K2=NL * 4))):
+        eng8 = _bge_base_engine(mesh=make_mesh(1, tp, [cuda] * tp),
+                                int8_compute=True, **ec)
+        out[f"bge_int8_1x{tp}"] = _tp_check(f"bge int8 1x{tp}", eng8,
+                                            single8, texts, want, "K2")
+    # token-packed rows on (2, 2): K4 on every shard's 6 heads
+    eng = STATE["tp_bge_2x2_engine"]
+    short = _sts_sentences(600)
+    seen = []
+    run = eng._forward_packed
+
+    def spy(*a, **kw):
+        seen.append(a[0].shape)
+        return run(*a, **kw)
+    eng._forward_packed = spy
+    try:
+        reset_counts()
+        with plain_calls() as calls:
+            emb = eng.encode_batch_packed(short, row_len=128)
+        torch.cuda.synchronize()
+        counts = read_counts()
+    finally:
+        del eng._forward_packed
+    n = len(seen)
+    want = only(K1=6 * NL * 4 * n, K4=NL * 4 * n)
+    routes = dict(A.fused_attention_segmented.routes)
+    check(n >= 1 and counts == want and not any(calls.values())
+          and routes == {"sm90": NL * 4 * n},
+          f"tp packed 2x2: launches {counts} over {n} packed forwards, "
+          f"want {want}, routes {routes}, plain {calls}")
+    cos = _row_cos(emb, single.encode_batch_packed(short, row_len=128))
+    check(cos.min() >= 0.999, f"tp packed 2x2 vs single: {cos.min()}")
+    out["bge_packed_2x2"] = dict(packed_forwards=n, shapes=[list(s) for s
+                                                             in seen],
+                                 launches={k: v for k, v in counts.items()
+                                           if v}, attention_routes=routes,
+                                 tp_vs_single_device_min_cos=float(cos.min()))
+    # MPNet: K7 with each shard's half of the relative-position table
+    Bm, Lm = TP_MPNET
+    mtexts = [_joined(i * 60, 60) for i in range(Bm)]
+    mec = dict(batch_size=Bm, max_seq_len=Lm)
+    meng = _family_engine("mpnet", mesh=make_mesh(1, 2, [cuda] * 2), **mec)
+    check(all(len(meng.tokenize(t)) == Lm for t in mtexts),
+          f"mpnet texts do not fill L={Lm}")
+    out["mpnet_1x2"] = dict(_tp_check(
+        "mpnet 1x2", meng, _family_engine("mpnet", **mec), mtexts,
+        only(K1=6 * NL * 2, K7=NL * 2), "K7"), batch=[Bm, Lm],
+        model="all-mpnet-base-v2 (random init, numpy seed 0) q4_0 packed",
+        local_heads=H // 2)
+    # nomic-embed-text-v2-moe: the MoE halves' experts split over "model"
+    Bo, Lo = TP_MOE
+    otexts = [_joined(i * 60, 60) for i in range(Bo)]
+    oec = dict(batch_size=Bo, max_seq_len=Lo)
+    oeng = _moe_engine(mesh=make_mesh(1, 2, [cuda] * 2), **oec)
+    dense_k1 = 6 * (MOE_NL // 2) + 4 * (MOE_NL // 2)
+    out["nomic_moe_1x2"] = dict(_tp_check(
+        "nomic_moe 1x2", oeng, _moe_engine(**oec), otexts,
+        only(K1=dense_k1 * 2, K2=MOE_NL * 2), "K2"), batch=[Bo, Lo],
+        experts_per_shard=MOE_EXPERTS // 2,
+        model="nomic-embed-text-v2-moe (HF-named random weights, numpy "
+              "seed 0) q4_0 packed, experts dense")
+    # a mesh that cannot shard: the JAX package's words
+    bad = _bge_base_engine(mesh=make_mesh(1, 5, [cuda] * 5), **ec)
+    try:
+        bad.encode_batch(texts[:5])
+        fail("tp=5 ran: bge's 768 columns do not split in 5")
+    except ValueError as exc:
+        msg = str(exc)
+    check(msg == "tp=5 cannot shard attn.q for this model (dimension not "
+                 "divisible); lower tp or use spmd='gspmd'",
+          f"tp=5 refusal: {msg}")
+    out["refusal_tp5"] = msg
+    emit("tp_path", **out)
+
+
 PHASES = {"device": phase_device, "build": phase_build, "k1": phase_k1,
           "k2": phase_k2, "k3": phase_k3, "k4k5": phase_k4k5,
-          "k6k7": phase_k6k7, "k6w": phase_k6w, "k6c": phase_k6c,
-          "k6ca": phase_k6ca,
+          "k6k7": phase_k6k7, "attn_tp": phase_attn_tp, "k6w": phase_k6w,
+          "k6c": phase_k6c, "k6ca": phase_k6ca,
           "main": phase_main_path,
           "trained": phase_trained, "server": phase_server,
           "emit": phase_emit, "attn_emit": phase_attn_emit,
@@ -5101,7 +5572,8 @@ PHASES = {"device": phase_device, "build": phase_build, "k1": phase_k1,
           "jina_causal_path": phase_jina_causal_path,
           "modernbert_path": phase_modernbert_path,
           "qwen2_path": phase_qwen2_path, "k8": phase_k8,
-          "cp_path": phase_cp_path,
+          "cp_path": phase_cp_path, "capi_path": phase_capi_path,
+          "tp_path": phase_tp_path,
           "distilbert_path": phase_distilbert_path,
           "roberta_path": phase_roberta_path,
           "roformer_path": phase_roformer_path,

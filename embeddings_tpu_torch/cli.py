@@ -45,13 +45,14 @@ def _add_model_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--max-seq", type=int, default=512)
     p.add_argument("--batch-size", type=int, default=32)
     p.add_argument("--dp", type=int, default=None,
-                   help="data-parallel size of a context-parallel mesh "
-                        "(with --sp; default 1)")
+                   help="data-parallel mesh size (default 1); the mesh "
+                        "names --device dp*tp (or dp*sp) times")
     p.add_argument("--tp", type=int, default=1,
-                   help="tensor-parallel size (not ported: refused)")
+                   help="tensor-parallel (Megatron) mesh size "
+                        "(exclusive with --sp)")
     p.add_argument("--sp", type=int, default=1,
                    help="sequence/context-parallel mesh size; the mesh "
-                        "names --device dp*sp times")
+                        "names --device dp*sp times (exclusive with --tp)")
     p.add_argument("--int8", action="store_true",
                    help="int8 tensor-core compute for the quantized "
                         "matmuls (K3; adds ~2^-7-relative error on top of "
@@ -63,7 +64,7 @@ def _add_model_args(p: argparse.ArgumentParser) -> None:
 
 def _load_engine(args):
     from .config import EngineConfig
-    from .runtime.engine import MESH_REFUSAL, load_model, resolve_device
+    from .runtime.engine import load_model, resolve_device
     try:
         device = resolve_device(args.device)
     except (RuntimeError, ValueError) as exc:
@@ -77,7 +78,8 @@ def _load_engine(args):
         from .parallel.context import make_mesh_cp
         mesh = make_mesh_cp(dp, sp, devices=[device] * (dp * sp))
     elif args.tp > 1 or dp > 1:
-        raise SystemExit(f"error: {MESH_REFUSAL}")
+        from .parallel.mesh import make_mesh
+        mesh = make_mesh(dp, args.tp, devices=[device] * (dp * args.tp))
     ec = EngineConfig(max_seq_len=args.max_seq, batch_size=args.batch_size,
                       int8_compute=getattr(args, "int8", False))
     return load_model(args.model, dtype=args.dtype, engine_config=ec,

@@ -288,21 +288,24 @@ def _fused_attn_dispatch(qkv2d, lengths, segments, B, L, H, D,
 
 def fused_attention_ok(L: int, H: int, D: int, use_kernels: bool,
                        lengths, segments, alibi=None,
-                       local_window=None, causal: bool = False) -> bool:
+                       local_window=None, causal: bool = False,
+                       lane: int = attn_ops.LANE) -> bool:
     """Does attention take a fused kernel (else the einsum path)? The
     JAX package's ``_attn_kernels_ok`` for the port's routes; with a
     ``local_window`` both of its kernels must take the shape (the banded
-    one's rule, 128-key blocks, covers the global route's)."""
+    one's rule, 128-key blocks, covers the global route's). ``lane``: the
+    rule on H*D — the JAX package's 128 lanes, or under tensor
+    parallelism the kernels' own (``attn_ops.KERNEL_LANE``)."""
     if not use_kernels or (lengths is None and segments is None):
         return False
     if segments is not None:
-        return attn_ops.supported(L, H, D)
+        return attn_ops.supported(L, H, D, lane)
     if local_window is not None:
-        return attn_ops.stream_supported(L, H, D, attn_ops.BQ)
+        return attn_ops.stream_supported(L, H, D, attn_ops.BQ, lane)
     if (alibi is not None or causal
             or not attn_ops.whole_row_fits(L, H * D)):
-        return attn_ops.stream_supported(L, H, D, attn_ops.pick_bk(L))
-    return attn_ops.supported(L, H, D)
+        return attn_ops.stream_supported(L, H, D, attn_ops.pick_bk(L), lane)
+    return attn_ops.supported(L, H, D, lane)
 
 
 def attention_context(layer: Params, config: BertConfig, x: torch.Tensor,
@@ -318,9 +321,12 @@ def attention_context(layer: Params, config: BertConfig, x: torch.Tensor,
                       use_kernels: bool = True,
                       int8: bool = False, xq: ActQ | None = None,
                       emit_int8: bool = False,
-                      int8_scores: bool = False) -> torch.Tensor | ActQ:
+                      int8_scores: bool = False,
+                      lane: int = attn_ops.LANE) -> torch.Tensor | ActQ:
     """Masked multi-head self-attention up to (not including) the output
-    projection: [B, L, E] -> [B, L, E] context. With prefix ``lengths``
+    projection: [B, L, E] -> [B, L, E] context (under tensor parallelism
+    [B, L, E/tp]: the head count comes from the projection's width, and
+    ``lane`` is ``fused_attention_ok``'s). With prefix ``lengths``
     (or packed ``segments``), ``use_kernels`` and a shape the fused
     kernels take, attention reads the fused qkv projection in place (the
     kernel ``attention_route_name`` picks: ``bias`` is K7's
@@ -360,7 +366,7 @@ def attention_context(layer: Params, config: BertConfig, x: torch.Tensor,
         qkv = apply_rotary_qkv(qkv, *rope, H=H, D=D,
                                interleaved=config.rotary_interleaved)
     if fused_attention_ok(L, H, D, use_kernels, lengths, segments, alibi,
-                          local_window, causal):
+                          local_window, causal, lane):
         ctx = _fused_attn_dispatch(qkv.reshape(B * L, 3 * El), lengths,
                                    segments, B, L, H, D, attn_window, ranges,
                                    bias, alibi, local_window, causal,
@@ -414,7 +420,8 @@ def encoder_layer(layer: Params, config: BertConfig, x: torch.Tensor,
                   use_kernels: bool = True,
                   int8: bool = False, xq: ActQ | None = None,
                   links: frozenset = frozenset(),
-                  int8_scores: bool = False, causal: bool = False):
+                  int8_scores: bool = False, causal: bool = False,
+                  tp_axis=None):
     """One post-LN encoder block. The two residual + LayerNorm steps run
     in the o-proj and FFN-down matmuls' epilogue (``linear_residual_ln``).
     ``int8``: every quantized matmul in the int8 mode; with no ``links``
@@ -426,10 +433,41 @@ def encoder_layer(layer: Params, config: BertConfig, x: torch.Tensor,
     emits int8-only for FFN-down. ``rope``: the rotary families' (cos,
     sin) tables (nomic-bert, RoFormer). ``causal``: attention attends j <=
     i in the kernel (K6c, or K6ca with ``alibi``). A layer whose MLP has a
-    router (nomic-v2-moe's odd layers) ends in ``_moe_half``."""
-    a, m = layer["attn"], layer["mlp"]
+    router (nomic-v2-moe's odd layers) ends in ``_moe_half``.
+
+    Under Megatron tensor parallelism (``tp_axis``, a
+    ``parallel.sharding.ModelAxis``; no links) ``layer`` is the list of
+    the model-axis shards' layers, and ``mask_bias``, ``lengths``,
+    ``segments``, ``ranges``, ``bias`` and ``rope`` are lists of the
+    shards' own (on their devices; ``bias`` the shard's heads); x is
+    replicated, on the axis's first device. Each shard attends over its
+    H/tp heads (q, k and v apart, concatenated), then the o-proj and
+    FFN-down matmuls are row-parallel (``_row_parallel_residual_ln``)."""
     eps = config.layer_norm_eps
     mode = dict(use_kernels=use_kernels, int8=int8)
+    if tp_axis is not None:
+        kw = dict(attn_window=attn_window, alibi=alibi,
+                  int8_scores=int8_scores, causal=causal,
+                  lane=attn_ops.KERNEL_LANE, **mode)
+        ctxs = [attention_context(
+            lay, config, tp_axis.on(j, x), mask_bias[j], lengths[j],
+            segments=segments[j], ranges=ranges[j], bias=bias[j],
+            rope=rope[j], **kw) for j, lay in enumerate(layer)]
+        a0, m0 = layer[0]["attn"], layer[0]["mlp"]
+        x = _row_parallel_residual_ln(
+            ctxs, [lay["attn"]["o"]["w"] for lay in layer], a0["o"]["b"],
+            x, a0["ln"], eps, tp_axis, **mode)
+        if "router" in m0:
+            # expert parallelism on the model axis: x is replicated, each
+            # shard holds Ex/tp experts, one sum joins them
+            return _moe_half([lay["mlp"] for lay in layer], config, x, eps,
+                             ep_axis=tp_axis, ep_tokens="replicated")
+        hs = [_ffn_hidden(lay["mlp"], tp_axis.on(j, x), config, **mode)
+              for j, lay in enumerate(layer)]
+        return _row_parallel_residual_ln(
+            hs, [lay["mlp"]["down"]["w"] for lay in layer], m0["down"]["b"],
+            x, m0["ln"], eps, tp_axis, **mode)
+    a, m = layer["attn"], layer["mlp"]
     ln_emit = "both" if "ln" in links else "no"
     ctx = attention_context(layer, config, x, mask_bias, lengths,
                             segments=segments, attn_window=attn_window,
@@ -449,33 +487,64 @@ def encoder_layer(layer: Params, config: BertConfig, x: torch.Tensor,
                               emit=ln_emit, **mode)
 
 
-def _moe_half(m: Params, config: BertConfig, x: torch.Tensor,
-              eps: float) -> torch.Tensor:
+def _row_parallel_residual_ln(hs: list, ws: list, b: torch.Tensor,
+                              residual: torch.Tensor, ln: Params, eps: float,
+                              tp_axis, *, use_kernels: bool = True,
+                              int8: bool = False) -> torch.Tensor:
+    """Megatron row-parallel linear + residual + LayerNorm: shard j's
+    input hs[j] [..., K/tp] times its K/tp rows ws[j] (K1 / K3 with no
+    epilogue), the partial products summed over the model axis in their
+    dtype, then bias, residual and LayerNorm as torch ops on the
+    replicated result. The fused residual-LN epilogue cannot run here:
+    the sum comes between the matmul and the LayerNorm."""
+    mode = dict(use_kernels=use_kernels, int8=int8)
+    y = tp_axis.psum([linear(h, w, None, **mode) for h, w in zip(hs, ws)])
+    y = y + b.to(y.dtype)
+    return layer_norm(residual + y, ln["scale"], ln["bias"], eps)
+
+
+def _moe_half(m: Params | list, config: BertConfig, x: torch.Tensor,
+              eps: float, ep_axis=None,
+              ep_tokens: str = "sharded") -> torch.Tensor:
     """The post-LN MoE FFN half: LayerNorm(x + moe(x)) over every slot of
     [B, L, E], padding included, as the JAX package routes them. The
     experts are dense torch products (``ops.moe``), never a kernel of the
     port: ``moe_dispatch`` "ragged" or "auto" (one device) runs the
-    sorted, grouped products; "dense" every expert on every token."""
+    sorted, grouped products; "dense" every expert on every token.
+    Expert parallelism (``ep_axis``; ``m`` the list of the axis's shards'
+    MoE params) always runs the dense schedule (``moe_ffn``), as the JAX
+    package's "auto" does; stacks that already hold every expert (the
+    replicated fallback) run once, on one device, with no sum."""
     from ..ops.moe import moe_ffn, moe_ffn_ragged
+    if ep_axis is not None and m[0]["up"]["w"].shape[0] == \
+            config.num_experts:
+        m, ep_axis = m[0], None  # every expert local: nothing to sum
     B, L, E = x.shape
     act = _act(config)
-    ffn = (moe_ffn_ragged if config.moe_dispatch in ("ragged", "auto")
-           else moe_ffn)
-    y = ffn(x.reshape(B * L, E), m, top_k=config.moe_top_k, act=act,
-            normalize_topk=config.moe_normalize_topk)
+    kw = dict(top_k=config.moe_top_k, act=act,
+              normalize_topk=config.moe_normalize_topk)
+    if ep_axis is not None:
+        y = moe_ffn(x.reshape(B * L, E), m, ep_axis=ep_axis,
+                    ep_tokens=ep_tokens, **kw)
+        m = m[0]  # the LayerNorm is replicated
+    else:
+        ffn = (moe_ffn_ragged if config.moe_dispatch in ("ragged", "auto")
+               else moe_ffn)
+        y = ffn(x.reshape(B * L, E), m, **kw)
     return layer_norm(x + y.reshape(B, L, E), m["ln"]["scale"],
                       m["ln"]["bias"], eps)
 
 
 def _int8_chain_ok(params: Params, config: BertConfig, *,
-                   use_kernels: bool, int8: bool) -> bool:
+                   use_kernels: bool, int8: bool, tp_axis=None) -> bool:
     """The JAX package's gate for the chained int8 path: the int8 mode
-    with the kernels, a post-LN encoder with fused qkv and a plain MLP
-    (no gate, no experts), and all four matmul weights quantized. Shapes
-    are not checked here: the linear ops dequantize an ActQ where int8
-    does not engage. The (dense, moe) tree of an MoE model never
-    chains."""
-    if not (int8 and use_kernels) or config.norm_style == "pre":
+    with the kernels, no tensor parallelism, a post-LN encoder with fused
+    qkv and a plain MLP (no gate, no experts), and all four matmul
+    weights quantized. Shapes are not checked here: the linear ops
+    dequantize an ActQ where int8 does not engage. The (dense, moe) tree
+    of an MoE model never chains."""
+    if not (int8 and use_kernels) or config.norm_style == "pre" \
+            or tp_axis is not None:
         return False
     layers = params.get("layers")
     if not isinstance(layers, dict) or "dense" in layers \
@@ -492,11 +561,26 @@ def _int8_chain_ok(params: Params, config: BertConfig, *,
     return all(isinstance(w, QuantizedTensor) for w in ws)
 
 
+def _shard_layers(params, config: BertConfig, tp_axis) -> list:
+    """``layer_views``; under tensor parallelism (params the list of the
+    shards' trees) each layer as the list of its shards' layers."""
+    if tp_axis is None:
+        return layer_views(params, config)
+    return [list(lays) for lays in zip(*(layer_views(p, config)
+                                         for p in params))]
+
+
 def _post_ln_stack(params: Params, config: BertConfig, x: torch.Tensor,
-                   mask_bias, lengths, links: frozenset, **kw) -> torch.Tensor:
+                   mask_bias, lengths, links: frozenset, tp_axis=None,
+                   **kw) -> torch.Tensor:
     """The post-LN layers; with the "ln" link each layer reads and
     returns (x, xq), the first xq ``quantize_act`` of the embedding
     output."""
+    if tp_axis is not None:
+        for lays in _shard_layers(params, config, tp_axis):
+            x = encoder_layer(lays, config, x, mask_bias, lengths,
+                              tp_axis=tp_axis, **kw)
+        return x
     if "ln" not in links:
         for lay in layer_views(params, config):
             x = encoder_layer(lay, config, x, mask_bias, lengths,
@@ -566,7 +650,8 @@ def encoder_layer_pre(layer: Params, config: BertConfig, x: torch.Tensor,
                       local_window: tuple[bool, int] | None = None,
                       use_kernels: bool = True,
                       int8: bool = False,
-                      int8_scores: bool = False) -> torch.Tensor:
+                      int8_scores: bool = False,
+                      tp_axis=None) -> torch.Tensor:
     """One pre-norm block (ModernBERT, Qwen2): x += Wo attn(norm(x));
     x += Wdown glu(norm(x)), the norms RMSNorm for Qwen2. ``ln_apply``
     False skips ModernBERT's layer-0 identity attention norm;
@@ -576,9 +661,27 @@ def encoder_layer_pre(layer: Params, config: BertConfig, x: torch.Tensor,
     einsum path with the triangle in ``mask_bias``. The residual adds stay
     outside the matmuls, in the activation dtype, as in the JAX package
     (no post-LN to fuse into an epilogue): o-proj and down run K1 with its
-    plain ``bias`` epilogue."""
-    a, m = layer["attn"], layer["mlp"]
+    plain ``bias`` epilogue. Under tensor parallelism (``tp_axis``: the
+    layer, ``mask_bias``, ``lengths`` and ``rope`` as in
+    ``encoder_layer``) o-proj and down are row-parallel, their bias
+    added after the sum (``_row_parallel_add``)."""
     mode = dict(use_kernels=use_kernels, int8=int8)
+    if tp_axis is not None:
+        a0, m0 = layer[0]["attn"], layer[0]["mlp"]
+        xn = _norm(config, x, a0["ln"]) if ln_apply else x
+        ctxs = [attention_context(
+            lay, config, tp_axis.on(j, xn), mask_bias[j], lengths[j],
+            rope=rope[j], local_window=local_window, causal=config.causal,
+            int8_scores=int8_scores, lane=attn_ops.KERNEL_LANE, **mode)
+            for j, lay in enumerate(layer)]
+        x = _row_parallel_add(ctxs, [lay["attn"]["o"] for lay in layer],
+                              x, tp_axis, **mode)
+        hn = _norm(config, x, m0["ln"])
+        hs = [_ffn_hidden(lay["mlp"], tp_axis.on(j, hn), config, **mode)
+              for j, lay in enumerate(layer)]
+        return _row_parallel_add(hs, [lay["mlp"]["down"] for lay in layer],
+                                 x, tp_axis, **mode)
+    a, m = layer["attn"], layer["mlp"]
     xn = _norm(config, x, a["ln"]) if ln_apply else x
     ctx = attention_context(layer, config, xn, mask_bias, lengths, rope=rope,
                             local_window=local_window, causal=config.causal,
@@ -589,35 +692,55 @@ def encoder_layer_pre(layer: Params, config: BertConfig, x: torch.Tensor,
                       m["down"]["b"], **mode)
 
 
+def _row_parallel_add(hs: list, lins: list, res: torch.Tensor, tp_axis, *,
+                      use_kernels: bool = True,
+                      int8: bool = False) -> torch.Tensor:
+    """The pre-norm block's row-parallel residual add: the shards'
+    partial products (no epilogue) summed over the model axis, then the
+    bias at f32 and the residual add in the activation dtype, as the JAX
+    package's ``residual_add``."""
+    y = tp_axis.psum([linear(h, lin["w"], None, use_kernels=use_kernels,
+                             int8=int8) for h, lin in zip(hs, lins)])
+    y = y.float() + lins[0]["b"].float()
+    return res + y.to(res.dtype)
+
+
 def _prenorm_stack(params: Params, config: BertConfig, x: torch.Tensor,
-                   mask_bias: torch.Tensor, lengths, rope, positions,
+                   mask_bias, lengths, rope, positions,
                    mask_value: float, int8_scores: bool = False,
-                   **mode) -> torch.Tensor:
+                   tp_axis=None, **mode) -> torch.Tensor:
     """The pre-norm layers: with prefix ``lengths`` and a shape the
     kernels take, each local layer runs K6w and each global one the
-    global route (the JAX package's ``window_kernel`` gate); otherwise
-    every layer, global ones too, takes the einsum path with the window
-    folded into a local layer's mask."""
+    global route (the JAX package's ``window_kernel`` gate, closed under
+    tensor parallelism as there); otherwise every layer, global ones too,
+    takes the einsum path with the window folded into a local layer's
+    mask. Under tensor parallelism ``mask_bias``, ``lengths`` and
+    ``rope`` are the shards' lists (``encoder_layer``)."""
     flags, rope_l, windowed = _prenorm_scan_args(config, positions)
     rope_l = rope if rope_l is None else rope_l
     L = x.shape[1]
     window = config.local_attention_window
-    window_kernel = windowed and fused_attention_ok(
+    window_kernel = windowed and tp_axis is None and fused_attention_ok(
         L, config.num_attention_heads, config.head_dim,
         mode["use_kernels"], lengths, None, local_window=(True, window))
     mb_local = mask_bias
     if windowed and not window_kernel:
-        mb_local = mask_bias + _window_bias(positions.to(x.device), window,
-                                            mask_value)
-        lengths = None
-    for lay, (is_global, ln_apply) in zip(layer_views(params, config),
-                                          flags):
+        wb = _window_bias(positions.to(x.device), window, mask_value)
+        if tp_axis is None:
+            mb_local, lengths = mask_bias + wb, None
+        else:
+            mb_local = [mb + wb.to(mb.device) for mb in mask_bias]
+            lengths = [None] * tp_axis.size
+    if tp_axis is not None and rope_l is not rope:
+        rope_l = tp_axis.place(rope_l)
+    for lay, (is_global, ln_apply) in zip(
+            _shard_layers(params, config, tp_axis), flags):
         x = encoder_layer_pre(
             lay, config, x,
             mask_bias if is_global else mb_local, lengths,
             ln_apply=ln_apply, rope=rope if is_global else rope_l,
             local_window=(is_global, window) if window_kernel else None,
-            int8_scores=int8_scores, **mode)
+            int8_scores=int8_scores, tp_axis=tp_axis, **mode)
     return x
 
 
@@ -631,7 +754,7 @@ def encode_tokens(params: Params, config: BertConfig,
                   return_hidden: bool = False,
                   type_ids: torch.Tensor | None = None,
                   use_kernels: bool = True,
-                  int8: bool = False) -> torch.Tensor:
+                  int8: bool = False, tp_axis=None) -> torch.Tensor:
     """Full forward: token ids + mask -> pooled, normalized embeddings.
 
     token_ids, attention_mask: integer [B, L] on the parameters' device
@@ -651,46 +774,67 @@ def encode_tokens(params: Params, config: BertConfig,
     does not: its kernel route would drop the triangle that its einsum
     path applies. The chained-int8 links and the int8-scores mode are read
     here, once (see the module docstring).
+
+    tp_axis (a ``parallel.sharding.ModelAxis``): Megatron tensor
+    parallelism over one data row; ``params`` is then the list of the
+    axis's shards' trees (``parallel.sharding.shard_params``), ids and
+    mask on the axis's first device, where the replicated activations and
+    the result live. The JAX package's gates: no in-kernel ALiBi (the
+    bias of each shard's heads, as K7's operand or in the mask), no
+    chained int8, no K6w window route.
     Returns [B, E'] float32 (or the [B, L, E] hidden states)."""
     check_supported(config)
+    shards = params if tp_axis is not None else [params]
+    p0 = shards[0]  # its replicated leaves: embeddings, norms, heads
     pooling = pooling or config.pooling
     normalize = (config.normalize_embeddings if normalize is None
                  else normalize)
     mask = attention_mask.float()
     mask_bias = ((1.0 - mask) * mask_value)[:, None, None, :]  # [B,1,1,L]
 
-    x = embed(params, config, token_ids, type_ids)
+    x = embed(p0, config, token_ids, type_ids)
     if compute_dtype is not None:
         x = x.to(compute_dtype)
-    x = _project_embeddings(params, x)  # ALBERT factorized embeddings
+    x = _project_embeddings(p0, x)  # ALBERT factorized embeddings
     lengths = (attention_mask.sum(1, dtype=torch.int32)
                if prefix_mask else None)
 
+    tp = 1 if tp_axis is None else tp_axis.size
+    lane = attn_ops.LANE if tp_axis is None else attn_ops.KERNEL_LANE
     bias = alibi = None
+    masks = None  # under TP: each shard's mask with its heads' bias
     L = token_ids.shape[1]
-    if "alibi_slopes" in params or params.get("rel_bias") is not None:
-        H, D = config.num_attention_heads, config.head_dim
-        if ("alibi_slopes" in params and prefix_mask and use_kernels
+    H, D = config.num_attention_heads // tp, config.head_dim
+    if "alibi_slopes" in p0 or p0.get("rel_bias") is not None:
+        if ("alibi_slopes" in p0 and prefix_mask and use_kernels
+                and tp_axis is None
                 and (config.causal or not attn_ops.bias_supported(L, H, D))
                 and attn_ops.stream_supported(L, H, D, attn_ops.pick_bk(L))):
             # ALiBi past K7's cap, and causal ALiBi at every length (K7
             # has no causal mode): K6 / K6ca compute the penalty from
             # positions, so no O(L^2) bias array exists
-            alibi = params["alibi_slopes"]
+            alibi = p0["alibi_slopes"]
         else:
-            fb = _logit_bias(params, config,
-                             torch.arange(L, device=token_ids.device)[None])
+            pos0 = torch.arange(L, device=token_ids.device)[None]
+            fbs = [_logit_bias(p, config, pos0) for p in shards]
             if (prefix_mask and use_kernels and not config.causal
-                    and attn_ops.bias_supported(L, H, D)):
-                bias = attn_ops.prepare_attention_bias(fb, L)
+                    and attn_ops.bias_supported(L, fbs[0].shape[1], D,
+                                                lane)):
+                bias = [attn_ops.prepare_attention_bias(fb, L)
+                        for fb in fbs]
             else:
-                mask_bias = mask_bias + fb  # [B, H, L, L], einsum path
-                lengths = None
+                masks = [mask_bias.to(fb.device) + fb for fb in fbs]
+                lengths = None  # [B, H, L, L], einsum path
+            if tp_axis is None:
+                bias, mask_bias = (None if bias is None else bias[0],
+                                   mask_bias if masks is None else masks[0])
     if config.causal and not fused_attention_ok(
-            L, config.num_attention_heads, config.head_dim, use_kernels,
-            lengths, None, causal=True):
+            L, H, D, use_kernels, lengths, None, causal=True, lane=lane):
         # the einsum path's triangle (K6c masks in-kernel)
-        mask_bias = mask_bias + _causal_bias(L, mask_value, token_ids.device)
+        cb = _causal_bias(L, mask_value, token_ids.device)
+        mask_bias = mask_bias + cb
+        if masks is not None:
+            masks = [mb + cb.to(mb.device) for mb in masks]
     positions = torch.arange(L, device=token_ids.device)
     rope = None
     if config.position_embedding_type == "rotary":
@@ -698,16 +842,28 @@ def encode_tokens(params: Params, config: BertConfig,
         rope = _rope(positions, config.head_dim, config.rotary_base)
     mode = dict(use_kernels=use_kernels, int8=int8)
     i8s = attn_ops.use_int8_scores(int8)
+    if tp_axis is not None:
+        # each shard's own per-position arguments, on its device
+        place = tp_axis.place
+        mask_bias = masks if masks is not None else place(mask_bias)
+        bias = bias if bias is not None else [None] * tp
+        lengths, rope = place(lengths), place(rope)
     if config.norm_style == "pre":
-        x = _prenorm_stack(params, config, x, mask_bias, lengths, rope,
-                           positions, mask_value, int8_scores=i8s, **mode)
+        x = _prenorm_stack(shards if tp_axis is not None else params,
+                           config, x, mask_bias, lengths, rope, positions,
+                           mask_value, int8_scores=i8s, tp_axis=tp_axis,
+                           **mode)
     else:
-        x = _post_ln_stack(params, config, x, mask_bias, lengths,
-                           _links(params, config, mode), bias=bias,
+        extra = {} if tp_axis is None else dict(
+            segments=[None] * tp, ranges=[None] * tp)
+        x = _post_ln_stack(shards if tp_axis is not None else params,
+                           config, x, mask_bias, lengths,
+                           _links(params, config, mode, tp_axis), bias=bias,
                            alibi=alibi, rope=rope, int8_scores=i8s,
-                           causal=config.causal, **mode)
-    if "final_ln" in params:  # ModernBERT's and Qwen2's final norm
-        x = _norm(config, x, params["final_ln"])
+                           causal=config.causal, tp_axis=tp_axis, **extra,
+                           **mode)
+    if "final_ln" in p0:  # ModernBERT's and Qwen2's final norm
+        x = _norm(config, x, p0["final_ln"])
     if return_hidden:
         return x.float()
 
@@ -726,7 +882,7 @@ def encode_tokens(params: Params, config: BertConfig,
     else:
         raise ValueError(f"unknown pooling: {pooling}")
 
-    return _finish(params, config, pooled, normalize)
+    return _finish(p0, config, pooled, normalize)
 
 
 def score_pairs(params: Params, config: BertConfig,
@@ -771,7 +927,7 @@ def encode_packed(params: Params, config: BertConfig,
                   normalize: bool | None = None, mask_value: float = -1e9,
                   compute_dtype: torch.dtype | None = None,
                   attn_window: int = 0, use_kernels: bool = True,
-                  int8: bool = False) -> torch.Tensor:
+                  int8: bool = False, tp_axis=None) -> torch.Tensor:
     """Forward over token-packed rows (``runtime/packing.py``).
 
     token_ids:    int [B, L], several sentences back to back per row.
@@ -781,6 +937,9 @@ def encode_packed(params: Params, config: BertConfig,
                   pooling row per segment slot; all-zero for empty slots.
     attn_window:  the static key-block window for K5
                   (``packing.max_block_span``); 0 means the full row.
+    tp_axis:      Megatron tensor parallelism, as in ``encode_tokens``
+                  (``params`` the list of the shards' trees; each shard
+                  runs K4 / K5 on its heads).
     A family logit bias (MPNet, ALiBi) comes from the per-segment
     positions and is folded into the einsum path's mask, as the JAX
     package does: the segmented kernels have no bias operand. Causal rows
@@ -789,58 +948,78 @@ def encode_packed(params: Params, config: BertConfig,
     Returns [B, S, E'] float32, one embedding per (row, segment slot);
     empty slots stay zero vectors."""
     check_supported(config)
+    shards = params if tp_axis is not None else [params]
+    p0 = shards[0]
     normalize = (config.normalize_embeddings if normalize is None
                  else normalize)
     B, L = token_ids.shape
+    tp = 1 if tp_axis is None else tp_axis.size
+    lane = attn_ops.LANE if tp_axis is None else attn_ops.KERNEL_LANE
     seg = seg_ids.to(torch.int32).contiguous()
-    bias = _logit_bias(params, config, position_ids)
+    biases = [_logit_bias(p, config, position_ids) for p in shards]
     prenorm = config.norm_style == "pre"
     # the pre-norm stack and causal rows run packed rows on the einsum
     # path, as in JAX (the segmented kernels have no causal mode)
-    segments = (seg if bias is None and not prenorm and not config.causal
-                else None)
+    segments = (seg if biases[0] is None and not prenorm
+                and not config.causal else None)
     mask_bias = ranges = None
-    if not fused_attention_ok(L, config.num_attention_heads,
-                              config.head_dim, use_kernels, None, segments):
+    if not fused_attention_ok(L, config.num_attention_heads // tp,
+                              config.head_dim, use_kernels, None, segments,
+                              lane=lane):
         # within-segment attention for the einsum path: [B, 1, L, L]
         same = seg[:, :, None] == seg[:, None, :]
         mask_bias = torch.where(same & (seg >= 0)[:, None, :], 0.0,
                                 mask_value).float()[:, None]
-        if bias is not None:  # cross-segment pairs are masked anyway
-            mask_bias = mask_bias + bias
+        # cross-segment pairs are masked anyway
+        mask_bias = [mask_bias if b is None else mask_bias.to(b.device) + b
+                     for b in biases]
         if config.causal:
-            mask_bias = mask_bias + _causal_bias(L, mask_value, seg.device)
+            mask_bias = [mb + _causal_bias(L, mask_value, mb.device)
+                         for mb in mask_bias]
     elif attention_route_name(L, config.hidden_size, segmented=True,
                               attn_window=attn_window) \
             == "segmented_blockskip":
         ranges = attn_ops.block_ranges(seg, L)  # the same for every layer
-    x = embed(params, config, token_ids, position_ids=position_ids)
+    x = embed(p0, config, token_ids, position_ids=position_ids)
     if compute_dtype is not None:
         x = x.to(compute_dtype)
-    x = _project_embeddings(params, x)
+    x = _project_embeddings(p0, x)
     rope = None
     if config.position_embedding_type == "rotary":
         # per-row tables: positions restart at each segment
         rope = _rope(position_ids, config.head_dim, config.rotary_base)
     mode = dict(use_kernels=use_kernels, int8=int8)
-    if prenorm:
-        x = _prenorm_stack(params, config, x, mask_bias, None, rope,
-                           position_ids, mask_value, **mode)
+    if tp_axis is None:
+        mask_bias = None if mask_bias is None else mask_bias[0]
+        layers = params
     else:
-        x = _post_ln_stack(params, config, x, mask_bias, None,
-                           _links(params, config, mode), segments=segments,
-                           attn_window=attn_window, ranges=ranges, rope=rope,
-                           **mode)
-    if "final_ln" in params:
-        x = _norm(config, x, params["final_ln"])
+        place = tp_axis.place
+        mask_bias = [None] * tp if mask_bias is None else mask_bias
+        segments, ranges, rope = place(segments), place(ranges), place(rope)
+        layers = shards
+    if prenorm:
+        x = _prenorm_stack(layers, config, x, mask_bias,
+                           None if tp_axis is None else [None] * tp, rope,
+                           position_ids, mask_value, tp_axis=tp_axis, **mode)
+    else:
+        x = _post_ln_stack(layers, config, x, mask_bias,
+                           None if tp_axis is None else [None] * tp,
+                           _links(params, config, mode, tp_axis),
+                           segments=segments, attn_window=attn_window,
+                           ranges=ranges, rope=rope, tp_axis=tp_axis,
+                           **({} if tp_axis is None
+                              else dict(bias=[None] * tp)), **mode)
+    if "final_ln" in p0:
+        x = _norm(config, x, p0["final_ln"])
     pooled = torch.einsum("bsl,ble->bse", pool_weights.float(), x.float())
-    return _finish(params, config, pooled, normalize)
+    return _finish(p0, config, pooled, normalize)
 
 
-def _links(params: Params, config: BertConfig, mode: dict) -> frozenset:
+def _links(params: Params, config: BertConfig, mode: dict,
+           tp_axis=None) -> frozenset:
     """The chained-int8 links this forward runs: the switch's set where
     ``_int8_chain_ok``, else none."""
-    if not _int8_chain_ok(params, config, **mode):
+    if not _int8_chain_ok(params, config, tp_axis=tp_axis, **mode):
         return frozenset()
     return active_chain_links()
 

@@ -50,7 +50,14 @@ import torch
 from .quant import EMITS, count_launch as _count, emit_result as \
     _emit_result, quantize_sym
 
+# the JAX package's lane rule on a row's width H*D (the TPU's 128 lanes),
+# kept in the routes so the port picks the JAX package's kernels; the
+# Hopper kernels' own rule is any whole number of heads (every width in
+# KERNEL_HEAD_DIMS is a multiple of 32): the wrappers check that one, and
+# a tensor-parallel shard's route too (bge's 3 local heads at tp=4 are 192
+# wide)
 LANE = 128
+KERNEL_LANE = 32
 LOG2E = 1.4426950408889634
 # query rows per block of the JAX kernel past 512 (shape rule), and the
 # query/key block of the block-skipping kernel K5
@@ -66,10 +73,11 @@ def _clamp_hi(n_keys: int) -> float:
     return float(127 - math.ceil(math.log2(max(n_keys, 2))))
 
 
-def supported(L: int, H: int, D: int) -> bool:
+def supported(L: int, H: int, D: int, lane: int = LANE) -> bool:
     """Shapes the fused kernel takes (the JAX package's rule, restricted
-    to the head dims the CUDA kernel is built for)."""
-    return (D in KERNEL_HEAD_DIMS and L % 8 == 0 and (H * D) % LANE == 0
+    to the head dims the CUDA kernel is built for); ``lane``: the rule on
+    H*D (``LANE``, or the kernels' own ``KERNEL_LANE``)."""
+    return (D in KERNEL_HEAD_DIMS and L % 8 == 0 and (H * D) % lane == 0
             and (L <= 512 or L % BQ == 0))
 
 
@@ -240,8 +248,8 @@ def fused_attention(qkv: torch.Tensor, lengths: torch.Tensor, *, B: int,
     ``routes``, in ``launches``, and apart in ``both_launches`` /
     ``only_launches`` (emission) and ``i8s_launches`` (int8 scores). A CPU
     tensor runs ``fused_attention_ref``."""
-    _check_prefix("fused_attention", supported(L, H, D), qkv, lengths, B,
-                  L, H, D)
+    _check_prefix("fused_attention", supported(L, H, D, KERNEL_LANE), qkv,
+                  lengths, B, L, H, D)
     _check_emit(emit_quantized, H)
     kw = dict(B=B, L=L, H=H, D=D, emit_quantized=emit_quantized,
               int8_scores=int8_scores)
@@ -291,13 +299,13 @@ def _query_block_bias(L: int) -> int:
     return L if L <= 256 else BQ
 
 
-def bias_supported(L: int, H: int, D: int) -> bool:
+def bias_supported(L: int, H: int, D: int, lane: int = LANE) -> bool:
     """``supported`` + the JAX package's cap on its bias tile: [H, Lq, L]
     f32 at most 8 MB. The cap is the TPU's VMEM budget, kept so the port
     routes as the JAX package does (L <= 1280 at H=12); the CUDA kernel
     streams the bias through shared memory in 128 x 128 tiles and has no
     such limit."""
-    return (supported(L, H, D)
+    return (supported(L, H, D, lane)
             and H * _query_block_bias(L) * L * 4 <= 8 * 1024 * 1024)
 
 
@@ -341,8 +349,9 @@ def fused_attention_bias(qkv: torch.Tensor, lengths: torch.Tensor,
     block, head) together over the batch; counted in ``launches`` and by
     kernel in ``routes``); a CPU
     tensor runs ``fused_attention_bias_ref``."""
-    _check_prefix("fused_attention_bias", bias_supported(L, H, D), qkv,
-                  lengths, B, L, H, D)
+    _check_prefix("fused_attention_bias",
+                  bias_supported(L, H, D, KERNEL_LANE), qkv, lengths, B, L,
+                  H, D)
     if tuple(bias.shape) != (H, L, L) or bias.dtype != torch.float32:
         raise ValueError(f"bias must be f32 [H, L, L]={(H, L, L)}, got "
                          f"{bias.dtype} {tuple(bias.shape)}")
@@ -368,11 +377,12 @@ def fused_attention_bias(qkv: torch.Tensor, lengths: torch.Tensor,
 # K6: prefix-masked attention streamed over key blocks (plain and ALiBi)
 # ---------------------------------------------------------------------------
 
-def stream_supported(L: int, H: int, D: int, BK: int = 512) -> bool:
+def stream_supported(L: int, H: int, D: int, BK: int = 512,
+                     lane: int = LANE) -> bool:
     """Shapes the streaming kernel carries (the JAX package's rule:
     128-row query blocks, key blocks of BK, lane-tiled E; restricted to
     the head dims the CUDA kernel is built for)."""
-    return (D in KERNEL_HEAD_DIMS and (H * D) % LANE == 0
+    return (D in KERNEL_HEAD_DIMS and (H * D) % lane == 0
             and L % BQ == 0 and L % BK == 0)
 
 
@@ -449,7 +459,8 @@ def fused_attention_stream(qkv: torch.Tensor, lengths: torch.Tensor, *,
     counted in ``causal_alibi_launches``; a CPU tensor runs
     ``fused_attention_stream_ref``."""
     _check_prefix(f"fused_attention_stream (BK={BK})",
-                  stream_supported(L, H, D, BK), qkv, lengths, B, L, H, D)
+                  stream_supported(L, H, D, BK, KERNEL_LANE), qkv, lengths,
+                  B, L, H, D)
     if alibi_slopes is not None and len(alibi_slopes) != H:
         raise ValueError(f"{len(alibi_slopes)} ALiBi slopes for {H} heads")
     if qkv.device.type == "cpu":
@@ -570,8 +581,9 @@ def fused_attention_window(qkv: torch.Tensor, lengths: torch.Tensor, *,
     ``fused_attention_window_ref``."""
     if window <= 0:
         raise ValueError(f"window must be positive, got {window}")
-    _check_prefix("fused_attention_window", stream_supported(L, H, D, BQ),
-                  qkv, lengths, B, L, H, D)
+    _check_prefix("fused_attention_window",
+                  stream_supported(L, H, D, BQ, KERNEL_LANE), qkv, lengths,
+                  B, L, H, D)
     if qkv.device.type == "cpu":
         return fused_attention_window_ref(qkv, lengths, B=B, L=L, H=H, D=D,
                                           window=window)
@@ -826,7 +838,7 @@ def _check_segments(qkv, seg_ids, B, L, H, D) -> None:
     if tuple(seg_ids.shape) != (B, L):
         raise ValueError(f"seg_ids must be [B, L]={(B, L)}, got "
                          f"{tuple(seg_ids.shape)}")
-    if not supported(L, H, D):
+    if not supported(L, H, D, KERNEL_LANE):
         raise ValueError(f"segmented attention does not take L={L} H={H} "
                          f"D={D}")
 

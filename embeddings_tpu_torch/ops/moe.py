@@ -1,5 +1,5 @@
 """Mixture-of-experts FFN of the PyTorch port (nomic-embed-text-v2-moe) —
-the port of ``embeddings_tpu/ops/moe.py`` on one device.
+the port of ``embeddings_tpu/ops/moe.py``.
 
   router logits = x @ Wr            -> softmax over all experts (f32)
   top-k expert probabilities        (k = moe_top_k, no renormalization
@@ -31,8 +31,16 @@ non-empty expert). The profiler sees three spans: ``moe_dispatch``
 casts, the up bias and the activation).
 
 Expert weights are never quantized (``models.params.quantize_params``
-keeps them dense); the router stays f32. Expert parallelism (the JAX
-package's ``ep_axis``) is not ported: ``moe_ffn`` raises if asked.
+keeps them dense); the router stays f32.
+
+Expert parallelism (``moe_ffn``'s ``ep_axis``, a
+``parallel.sharding.ModelAxis``): shard r holds experts r*e .. r*e + e - 1
+and runs them densely on every token it sees, weighted by its slice of
+the routing; one program drives every shard, as the JAX package's
+``shard_map`` does. Two token layouts, the JAX package's schedules:
+"sharded" (each shard's own tokens: all-gather, then the summed
+contributions scattered back) and "replicated" (every shard sees every
+token, as under Megatron TP: one sum, ``models.bert._moe_half``).
 """
 
 from __future__ import annotations
@@ -76,29 +84,70 @@ def topk_lower_first(probs: torch.Tensor, k: int
     return vals[..., :k], idx[..., :k]
 
 
-def moe_ffn(x: torch.Tensor, moe: Params, *, top_k: int, act: str,
-            normalize_topk: bool = False, ep_axis=None) -> torch.Tensor:
+def moe_ffn(x, moe, *, top_k: int, act: str, normalize_topk: bool = False,
+            ep_axis=None, ep_tokens: str = "sharded"):
     """Dense-evaluation MoE FFN on [T, D] tokens -> [T, D]: every expert
     on every token (``linear``'s f32 product), combined at f32 with the
     ``route_topk`` weights, the shared ``bias`` added after the combine.
 
     moe: router {w [D, E], b [E]?}, up {w [E, D, I], b [E, I]}, down {w
-    [E, I, D], b [E, D]}, optional bias [D]."""
-    if ep_axis is not None:
-        raise NotImplementedError(
-            "expert parallelism (ep_axis) is not ported: the PyTorch "
-            "port runs every expert on one device")
-    weights = route_topk(x, moe["router"]["w"], moe["router"].get("b"),
-                         top_k=top_k, normalize=normalize_topk)
+    [E, I, D], b [E, D]}, optional bias [D].
+
+    With ``ep_axis`` (expert parallelism), ``moe`` is the list of the
+    axis's shards' params, shard r's up / down holding its e experts on
+    their leading axis (router and bias replicated), and each shard runs
+    its experts on every token with its slice of the routing weights:
+
+    * ep_tokens="sharded": x is the list of the shards' tokens [T_r, D];
+      they are all-gathered, and the summed contributions scattered back:
+      returns the list of the shards' outputs [T_r, D];
+    * ep_tokens="replicated": x holds every token, on the axis's first
+      device (the Megatron-TP layout); one sum joins the contributions:
+      returns [T, D] there.
+
+    Either way the result is the one-device evaluation's up to the f32
+    order of the sum."""
+    if ep_axis is None:
+        weights = route_topk(x, moe["router"]["w"], moe["router"].get("b"),
+                             top_k=top_k, normalize=normalize_topk)
+        out = _dense_experts(x, moe, weights, act)
+        if "bias" in moe:
+            out = out + moe["bias"].float()
+        return out.to(x.dtype)
+    if ep_tokens not in ("sharded", "replicated"):
+        raise ValueError(f"ep_tokens must be 'sharded' or 'replicated', "
+                         f"got {ep_tokens!r}")
+    x_all = ep_axis.all_gather(x, 0) if ep_tokens == "sharded" else x
+    m0 = moe[0]  # the replicated router and bias
+    weights = route_topk(x_all, m0["router"]["w"], m0["router"].get("b"),
+                         top_k=top_k, normalize=normalize_topk)  # [T, E]
+    parts = []
+    for r, m in enumerate(moe):
+        e = m["up"]["w"].shape[0]
+        parts.append(_dense_experts(ep_axis.on(r, x_all), m, ep_axis.on(
+            r, weights[:, r * e:(r + 1) * e]), act))
+    if ep_tokens == "replicated":
+        out = ep_axis.psum(parts)
+        if "bias" in m0:
+            out = out + m0["bias"].float()
+        return out.to(x_all.dtype)
+    outs = ep_axis.psum_scatter(parts, 0)
+    if "bias" in m0:
+        outs = [o + m0["bias"].float().to(o.device) for o in outs]
+    return [o.to(x_all.dtype) for o in outs]
+
+
+def _dense_experts(x: torch.Tensor, moe: Params, weights: torch.Tensor,
+                   act: str) -> torch.Tensor:
+    """sum_e weights[:, e] * down_e(act(up_e(x))) over the stack's experts,
+    at f32 ([T, D] f32)."""
     out = torch.zeros(x.shape[0], moe["down"]["w"].shape[-1],
                       dtype=torch.float32, device=x.device)
     for e in range(moe["up"]["w"].shape[0]):
         h = linear(x, moe["up"]["w"][e], moe["up"]["b"][e], act=act)
         y = linear(h, moe["down"]["w"][e], moe["down"]["b"][e])
         out = out + weights[:, e:e + 1] * y.float()
-    if "bias" in moe:
-        out = out + moe["bias"].float()
-    return out.to(x.dtype)
+    return out
 
 
 def moe_ffn_ragged(x: torch.Tensor, moe: Params, *, top_k: int, act: str,

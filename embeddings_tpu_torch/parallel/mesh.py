@@ -1,5 +1,6 @@
 """Device meshes of the PyTorch port — the counterpart of
-``embeddings_tpu/parallel/mesh.py``'s axis names and of the JAX
+``embeddings_tpu/parallel/mesh.py`` (its axis names and ``make_mesh``, the
+("data", "model") mesh of data and tensor parallelism) and of the JAX
 ``Mesh`` the Engine reads.
 
 A ``Mesh`` is a 2-D array of ``torch.device`` with one name per axis.
@@ -7,8 +8,8 @@ One program drives every shard of it (the JAX package's single-controller
 ``shard_map``), so a mesh may name one device more than once: the shards
 on that device then run one after another, and a collective between them
 is a copy on the device. One H100 can thus run a ``dp x sp`` mesh with
-the real sharded numerics. Weights are replicated once per distinct
-device (``replicate``), not once per shard.
+the real sharded numerics. Replicated weights are held once per
+distinct device (``replicate``), not once per shard.
 """
 
 from __future__ import annotations
@@ -65,3 +66,23 @@ class Mesh:
         device (a tree already on a device is not copied there)."""
         from ..models.params import to_device
         return {d: to_device(params, d) for d in self.distinct_devices()}
+
+
+def make_mesh(dp: int | None = None, tp: int = 1,
+              devices: Sequence | None = None) -> Mesh:
+    """A ("data", "model") mesh: the batch over "data", Megatron tensor
+    parallelism over "model" (``parallel.sharding``). ``dp`` defaults to
+    the device count // tp. ``devices=None`` means the visible CUDA
+    devices (and raises without one); one card runs a dp x tp mesh as
+    ``devices=[torch.device("cuda")] * (dp * tp)``."""
+    if devices is None:
+        devices = [torch.device("cuda", i)
+                   for i in range(torch.cuda.device_count())] or ["cuda"]
+    devices = [resolve_mesh_device(d) for d in devices]  # raises off the card
+    n = len(devices)
+    if dp is None:
+        dp = n // tp
+    if dp * tp != n:
+        raise ValueError(f"dp({dp}) x tp({tp}) != device count {n}")
+    return Mesh([devices[i * tp:(i + 1) * tp] for i in range(dp)],
+                (DATA_AXIS, MODEL_AXIS))

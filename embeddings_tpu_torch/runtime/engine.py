@@ -1,6 +1,6 @@
 """The Engine of the PyTorch port: tokenizer + parameters on one device +
 the bucketed and the token-packed batch schedulers — the port of
-``embeddings_tpu/runtime/engine.py`` (single device).
+``embeddings_tpu/runtime/engine.py``.
 
   reference                      engine
   ---------------------------   -------------------------------------
@@ -24,14 +24,20 @@ layers, K6c on causal Qwen2 rows, K4/K5 on packed rows) launch the port's
 hand-written kernels. ``device=None`` means "cuda", and a missing
 CUDA device raises: the engine never carries on on the CPU unless asked to.
 
-With ``mesh=`` (a ("data", "seq") mesh from ``parallel.make_mesh_cp``) the
-Engine runs context parallelism, as the JAX Engine's mesh branch does:
-batch sizes and buckets round to multiples of the data-axis size, seq
-buckets that the seq-axis size does not divide are dropped, the parameter
-tree is kept as given (not fused), the device is the mesh's first, and
+With ``mesh=`` the Engine runs the JAX Engine's mesh branch: batch sizes
+and buckets round to multiples of the data-axis size, the parameter tree
+is not fused, and the device is the mesh's first. A ("data", "seq") mesh
+(``parallel.make_mesh_cp``) runs context parallelism: seq buckets that the
+seq-axis size does not divide are dropped, the tree is kept as given, and
 each forward is ``parallel.make_cp_forward``'s (K8a / K8b attention, K1
-matmuls: no int8 mode). Token packing falls back to bucketed encode under
-a CP mesh.
+matmuls: no int8 mode); token packing falls back to bucketed encode. A
+("data", "model") mesh (``parallel.make_mesh``) runs data and Megatron
+tensor parallelism: the tree is cut into its shards once, here
+(``parallel.shard_params``; with ``int8_compute`` each shard keeps K3's
+weights of its own slices), each bucketed forward is
+``parallel.make_sharded_forward``'s and each packed one
+``make_sharded_packed_forward``'s; a weight that cannot shard raises at
+the first forward, in the JAX package's words.
 """
 
 from __future__ import annotations
@@ -92,11 +98,6 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-# the refusal of a mesh with no "seq" axis (the CLI gives it too)
-MESH_REFUSAL = ("the PyTorch port runs (data, seq) meshes (context "
-                "parallelism) only; data x model meshes are not ported")
-
-
 class Engine:
     def __init__(self, params: dict, config: BertConfig,
                  tokenizer: Tokenizer,
@@ -139,6 +140,7 @@ class Engine:
                 "'bfloat16' or use_pallas='never' for the plain f32 path")
         P.check_supported(config)
         self._dp = 1
+        self._cp = False  # a context-parallel mesh
         if mesh is None:
             # single device: merge q/k/v into one matmul
             self.params = P.to_device(P.fuse_qkv(params), self.device)
@@ -148,21 +150,36 @@ class Engine:
             return
         from ..parallel.context import SEQ_AXIS, make_cp_forward
         from ..parallel.mesh import DATA_AXIS
-        if SEQ_AXIS not in mesh.shape:
-            raise NotImplementedError(MESH_REFUSAL)
+        self._cp = SEQ_AXIS in mesh.shape
         # sharded batches must divide by the data-axis size
         self._dp = dp = mesh.shape.get(DATA_AXIS, 1)
         ec.batch_size = -(-ec.batch_size // dp) * dp
         ec.batch_buckets = tuple(b for b in ec.batch_buckets
                                  if b % dp == 0) or (dp,)
-        sp = mesh.shape[SEQ_AXIS]
-        ec.seq_buckets = tuple(b for b in ec.seq_buckets
-                               if b % sp == 0) or (sp,)
-        # the tree as given (the JAX CP branch does not fuse q/k/v)
-        self.params = P.to_device(params, self.device)
-        self._cp_forward = make_cp_forward(
-            config, mesh, compute_dtype=self._compute_dtype,
-            mask_value=ec.mask_value, use_kernels=self._use_kernels)
+        kw = dict(compute_dtype=self._compute_dtype,
+                  mask_value=ec.mask_value, use_kernels=self._use_kernels)
+        if self._cp:
+            sp = mesh.shape[SEQ_AXIS]
+            ec.seq_buckets = tuple(b for b in ec.seq_buckets
+                                   if b % sp == 0) or (sp,)
+            # the tree as given (the JAX CP branch does not fuse q/k/v)
+            self.params = self._mesh_params = P.to_device(params,
+                                                          self.device)
+            self._mesh_forward = make_cp_forward(config, mesh, **kw)
+            return
+        from ..parallel.sharding import (make_sharded_forward,
+                                         make_sharded_packed_forward,
+                                         shard_params)
+        # one tree per shard, cut once here; ``params`` is shard (0, 0)'s
+        # (the replicated leaves and the first slices)
+        sharded = shard_params(params, config, mesh)
+        if self._int8 and self._use_kernels:
+            for tree in sharded.distinct_trees():
+                P.keep_int8_weights(tree)  # K3's weights of each slice
+        self._mesh_params, self.params = sharded, sharded.tree(0, 0)
+        kw["int8"] = self._int8
+        self._mesh_forward = make_sharded_forward(config, mesh, **kw)
+        self._mesh_packed = make_sharded_packed_forward(config, mesh, **kw)
 
     # -- introspection ------------------------------------------------------
     @property
@@ -195,7 +212,7 @@ class Engine:
         pooled embeddings on the device (the caller reads them back)."""
         with torch.inference_mode():
             if self.mesh is not None:
-                return self._cp_forward(self.params, ids, mask)
+                return self._mesh_forward(self._mesh_params, ids, mask)
             return bert.encode_tokens(
                 self.params, self.config, self._dev(ids), self._dev(mask),
                 mask_value=self.engine_config.mask_value,
@@ -342,9 +359,10 @@ class Engine:
         across calls (default 128, one stable shape family); sentences
         longer than row_len take the bucketed path (``encode_toks``).
         batch_rows defaults to the larger of batch_size and 32768/row_len
-        rows (about 32K tokens a forward). A CP mesh falls back to
-        bucketed encode, as the JAX Engine does."""
-        if self.mesh is not None:
+        rows (about 32K tokens a forward), rounded up to the data-axis
+        size under a mesh. A CP mesh falls back to bucketed encode, as the
+        JAX Engine does."""
+        if self._cp:
             # context parallelism shards L itself — packed rows mix
             # segments across the seq shards; out of scope
             logging.getLogger("embeddings_tpu_torch.engine").warning(
@@ -356,6 +374,8 @@ class Engine:
         ec = self.engine_config
         row_len = row_len or min(128, self.max_seq_len)
         batch_rows = batch_rows or max(ec.batch_size, 32768 // row_len)
+        # mesh: the rows split over "data", so row buckets must divide
+        batch_rows = -(-batch_rows // self._dp) * self._dp
         out = np.empty((len(toks), self.n_embd), np.float32)
         short = [i for i, t in enumerate(toks) if len(t) <= row_len]
         long_idx = [i for i, t in enumerate(toks) if len(t) > row_len]
@@ -394,6 +414,9 @@ class Engine:
         device."""
         dev = self._dev
         with torch.inference_mode():
+            if self.mesh is not None:
+                return self._mesh_packed(self._mesh_params, ids, seg, pos,
+                                         pool, attn_window)
             return bert.encode_packed(
                 self.params, self.config, dev(ids), dev(seg), dev(pos),
                 dev(pool), mask_value=self.engine_config.mask_value,
@@ -482,8 +505,10 @@ def load_model(path: str | Path, *, dtype: str = "f32",
                mesh=None) -> Engine:
     """Load an HF model directory, a native ``.npz`` checkpoint, a
     reference-format ggml ``.bin`` or a GGUF file into an Engine on
-    ``device`` (None = cuda), or on a context-parallel ``mesh``
-    (``parallel.make_mesh_cp``; the device is then the mesh's).
+    ``device`` (None = cuda), or on a ``mesh`` (``parallel.make_mesh``
+    or ``parallel.make_mesh_cp``; the device is then the mesh's). Under
+    a ("data", "model") mesh packed q4 weights stay packed where their
+    shards hold whole group-64 packs (``parallel.adapt_packed_params``).
 
     dtype: f32 | bf16 | f16 | q4_0 | q4_1 | q8_0 | nf4 — quantize or cast
     on load; the q4 kinds are then packed to the 4-bit layout. A file
@@ -541,6 +566,11 @@ def load_model(path: str | Path, *, dtype: str = "f32",
     if dtype in PACK4_KINDS:
         # q4 weights truly 4-bit: two codes per byte
         params = P.pack_q4_params(params)
+        if mesh is not None:
+            # under TP only the row-parallel weights whose shards would
+            # split group-64 packs fall back to int8 codes
+            from ..parallel.sharding import adapt_packed_params
+            params = adapt_packed_params(params, mesh)
     config = dataclasses.replace(
         config, cls_token_id=tokenizer.cls_id, sep_token_id=tokenizer.sep_id,
         unk_token_id=tokenizer.unk_id, pad_token_id=tokenizer.pad_id)

@@ -22,13 +22,12 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import logging
-import os
 import shutil
-import subprocess
-import tempfile
 import threading
 import unicodedata
 from pathlib import Path
+
+from ..utils.gxx import build_once
 
 _PKG = Path(__file__).resolve().parent.parent
 NATIVE_DIR = _PKG.parent / "native"
@@ -157,37 +156,15 @@ def build() -> Path:
     """Build the library if it is not built yet (one process at a time:
     others wait on a file lock and then load the result); returns its
     path. Raises RuntimeError when the compiler fails or is missing."""
-    import fcntl
-    out = target()
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cxx = shutil.which(os.environ.get("CXX", "g++"))
-    if cxx is None:
-        raise RuntimeError("no C++ compiler (g++) for the native tokenizer")
-    with open(BUILD_DIR / "etok.lock", "w") as lock:
-        fcntl.flock(lock, fcntl.LOCK_EX)
-        if out.exists():
-            return out
-        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
-            tmp = Path(tmp)
-            for name in SOURCES:
-                shutil.copyfile(NATIVE_DIR / name, tmp / name)
-            write_unicode_tables(tmp / "unicode_tables.h")
-            proc = subprocess.run(
-                [cxx, "-O2", "-std=c++17", "-fPIC", "-shared",
-                 *(str(tmp / n) for n in SOURCES), "-o",
-                 str(tmp / "libetok.so")],
-                capture_output=True, text=True)
-            if proc.returncode != 0:
-                raise RuntimeError(f"building the native tokenizer failed:"
-                                   f"\n{proc.stdout}{proc.stderr}")
-            out.parent.mkdir(exist_ok=True)
-            # the tables beside the library they were compiled into
-            os.replace(tmp / "unicode_tables.h",
-                       out.parent / "unicode_tables.h")
-            os.replace(tmp / "libetok.so", out)
-    return out
+    def stage(tmp: Path) -> list[str]:
+        for name in SOURCES:
+            shutil.copyfile(NATIVE_DIR / name, tmp / name)
+        write_unicode_tables(tmp / "unicode_tables.h")
+        return ["-O2", "-std=c++17", "-fPIC", "-shared",
+                *(str(tmp / n) for n in SOURCES)]
+    # the tables stay beside the library they were compiled into
+    return build_once(target(), stage, "native tokenizer",
+                      keep=("unicode_tables.h",))
 
 
 def _bind(lib) -> None:

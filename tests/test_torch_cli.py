@@ -4,7 +4,7 @@ the JAX CLI's files for the same source (``.bin`` / ``.gguf`` the same
 bytes, ``.npz`` the same arrays: a zip holds its write time); ``rerank``
 against the JAX CLI on the same checkpoint (the same order, scores within
 1e-4); ``bench``'s JSON line; the refusals (no CUDA device without
-``--device cpu``, a mesh with no "seq" axis); and ``serve`` answering
+``--device cpu``, --sp with --tp); and ``serve`` answering
 over TCP v2 and HTTP."""
 
 from __future__ import annotations
@@ -179,16 +179,21 @@ def test_bench_prints_its_json_line(model_npz, tmp_path, capsys):
     assert list((tmp_path / "trace").glob("*.pt.trace.json"))
 
 
-def test_refusals(model_npz):
+def test_refusals(model_npz, capsys):
     """Without a CUDA device the CLI fails with resolve_device's error
-    (no CPU fallback); a mesh with no "seq" axis is refused."""
+    (no CPU fallback); a ("data", "model") mesh runs (``--tp 2``: the
+    single-device embeddings); --sp and --tp together are refused."""
     if torch.cuda.is_available():
         pytest.skip("this machine has a CUDA device")
     with pytest.raises(SystemExit, match="no CUDA device"):
         main(["encode", "-m", model_npz, "-p", "hello"])
-    with pytest.raises(SystemExit, match=r"\(data, seq\) meshes"):
-        main(["encode", "-m", model_npz, "-p", "x", "--device", "cpu",
-              "--tp", "2"])
+    outs = []
+    for extra in ([], ["--tp", "2"]):
+        assert main(["encode", "-m", model_npz, "-p", "x", "--format",
+                     "json", "--device", "cpu", *extra]) == 0
+        outs.append(np.asarray(json.loads(capsys.readouterr().out)[
+            "embeddings"]))
+    np.testing.assert_allclose(outs[1], outs[0], atol=1e-5)
     with pytest.raises(SystemExit, match="mutually exclusive"):
         main(["encode", "-m", model_npz, "-p", "x", "--device", "cpu",
               "--tp", "2", "--sp", "2"])

@@ -975,6 +975,37 @@ def test_cp_forward_matches_single_device(cuda):
     assert cos.min() >= 0.999, cos
 
 
+@pytest.mark.parametrize("dp,tp", [(1, 2), (2, 2), (1, 4)])
+def test_tp_forward_matches_single_device(cuda, dp, tp):
+    """A small Megatron TP forward on a dp x tp mesh of the card (every
+    shard: K1 on its column and row slices, the row-parallel ones with no
+    epilogue, and K2 on its H/tp heads) against the single-device
+    forward, bf16."""
+    from embeddings_tpu_torch.config import BertConfig
+    from embeddings_tpu_torch.models import bert, params as P
+    from embeddings_tpu_torch.parallel import make_mesh, make_sharded_forward
+    cfg = BertConfig(vocab_size=512, hidden_size=512, num_hidden_layers=2,
+                     num_attention_heads=8, intermediate_size=1024,
+                     max_position_embeddings=128, pooling="mean")
+    tree = P.pack_q4_params(P.quantize_params(P.init_params(cfg, 0),
+                                              "q4_0"))
+    rng = np.random.default_rng(1)
+    ids = torch.from_numpy(rng.integers(5, 512, (4, 128)).astype(np.int32))
+    mask = torch.ones(4, 128, dtype=torch.int32)
+    mask[1, 40:] = 0
+    fwd = make_sharded_forward(cfg, make_mesh(dp, tp, [cuda] * (dp * tp)),
+                               compute_dtype=torch.bfloat16)
+    k1, k2 = qmatmul.launches, fused_attention.launches
+    got = fwd(tree, ids, mask)
+    assert qmatmul.launches == k1 + 2 * 6 * dp * tp
+    assert fused_attention.launches == k2 + 2 * dp * tp
+    ref = bert.encode_tokens(P.to_device(P.fuse_qkv(tree), cuda), cfg,
+                             ids.to(cuda), mask.to(cuda),
+                             compute_dtype=torch.bfloat16)
+    cos = (got * ref).sum(-1)
+    assert cos.min() >= 0.999, cos
+
+
 ENCODER_FAMILIES = {
     "roberta": dict(max_position_embeddings=130, type_vocab_size=1,
                     position_offset=2),

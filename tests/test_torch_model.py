@@ -286,6 +286,25 @@ def test_port_source_imports_no_jax(path):
                 f"{path}:{node.lineno} imports {args}"
 
 
+def test_capi_embedded_python_imports_no_jax():
+    """The Python source the C ABI host embeds (``csrc/capi.cpp``'s
+    helper string) parses, imports the port's engine and nothing of JAX:
+    the import check above, on it."""
+    src = (ROOT / "embeddings_tpu_torch" / "csrc" / "capi.cpp").read_text()
+    helper = src.split('R"PY(', 1)[1].split(')PY"', 1)[0]
+    tree = ast.parse(helper)
+    mods = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            mods += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            mods.append(node.module or "")
+    assert "embeddings_tpu_torch.runtime.engine" in mods, mods
+    assert not [m for m in mods if _forbidden(m)], mods
+    assert "embeddings_tpu." not in helper.replace("embeddings_tpu_torch",
+                                                   "")
+
+
 def test_port_files_hold_the_format_modules():
     """The checks above walk the checkpoint formats' modules too."""
     names = {str(p.relative_to(ROOT)) for p in PORT_FILES}

@@ -484,9 +484,21 @@ def test_moe_refusals(moe_trees, tmp_path):
         P.to_hf_state_dict(tp)
     with pytest.raises(ValueError, match="mixture-of-experts"):
         TF.write_gguf(tmp_path / "x.gguf", tp, cfg, ["a"] * 96)
-    with pytest.raises(NotImplementedError, match="ep_axis"):
-        tmoe.moe_ffn(torch.zeros(2, 64), tp["layers"]["moe"]["mlp"],
-                     top_k=2, act="gelu", ep_axis="model")
+    # expert parallelism is ported: a layer's experts split over a
+    # two-shard axis give the one-device result
+    from embeddings_tpu_torch.parallel import ModelAxis
+    m = P.layer(tp, 1)["mlp"]
+    halves = [{**m, "up": {k: v[r * 2:(r + 1) * 2]
+                           for k, v in m["up"].items()},
+               "down": {k: v[r * 2:(r + 1) * 2]
+                        for k, v in m["down"].items()}} for r in range(2)]
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (6, 64)).astype(np.float32))
+    ref = tmoe.moe_ffn(x, m, top_k=2, act="gelu")
+    got = tmoe.moe_ffn(x, halves, top_k=2, act="gelu",
+                       ep_axis=ModelAxis([torch.device("cpu")] * 2),
+                       ep_tokens="replicated")
+    np.testing.assert_allclose(got.numpy(), ref.numpy(), atol=1e-6)
     for over in (dict(moe_every_n_layers=3), dict(num_hidden_layers=3),
                  dict(shared_layers=True)):
         with pytest.raises(NotImplementedError, match="num_experts"):
