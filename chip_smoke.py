@@ -54,6 +54,12 @@ the port's paths through Engine -> encode_batch (or encode_batch_packed)
   plain f32 path, dense dispatch, bucketed rows and the trained
   ``tiny_trained_moe`` on the CPU;
 
+- two processes on torch.distributed sharing the card (gloo, the CUDA
+  tensors staged through host memory): bge-base's distributed encode
+  (K1 + K2 in each process), a global (data=2, model=2) mesh with data
+  across the processes, and a model axis and a seq axis (K8a) across
+  them, against the single-device Engine;
+
 then times the kernels and the forwards, with a device-time profile of
 each forward by kernel; then the serving surface: the port's native
 tokenizer against the Python one, bge-base (and the reranker) behind
@@ -74,6 +80,7 @@ tokenize, bench).
     python3 chip_smoke.py --phases device,build,ggml_path,gguf_path,\
         rerank_path,timing
     python3 chip_smoke.py --phases device,build,moe_path,timing
+    python3 chip_smoke.py --phases device,build,multihost_path
     python3 chip_smoke.py --phases device,build,main,timing,native_tok,\
         http_path,serve_latency,cli_path
 
@@ -5557,6 +5564,246 @@ def phase_tp_path():
     emit("tp_path", **out)
 
 
+
+# ---------------------------------------------------------------------------
+# two processes on torch.distributed, both on the one card
+# ---------------------------------------------------------------------------
+
+MH_PROCS, MH_SENTENCES = 2, 256
+MH_TIMEOUT_S = 600   # the two workers together, spawn to exit
+
+
+@contextlib.contextmanager
+def collective_ms():
+    """The host ms of every ``mesh.Collective`` call inside the block, one
+    entry a call; yields the list."""
+    from embeddings_tpu_torch.parallel import mesh as Me
+    calls, saved = [], {n: getattr(Me.Collective, n)
+                        for n in ("all_reduce", "all_gather")}
+
+    def timed(fn):
+        def call(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                calls.append((time.perf_counter() - t0) * 1e3)
+        return call
+    for n, fn in saved.items():
+        setattr(Me.Collective, n, timed(fn))
+    try:
+        yield calls
+    finally:
+        for n, fn in saved.items():
+            setattr(Me.Collective, n, fn)
+
+
+def _mh_forward_ms(eng, shape, rounds: int = 3) -> dict:
+    """Engine._forward on random ids of ``shape`` (every process the
+    same): ms a forward (CUDA events over ``rounds`` forwards after one
+    warm-up), and the host ms spent in the mesh's collectives a
+    forward."""
+    rng = np.random.default_rng(1)
+    ids = rng.integers(1000, 30000, shape).astype(np.int32)
+    mask = np.ones_like(ids)
+    with collective_ms() as calls:
+        ms = cuda_ms(lambda: eng._forward(ids, mask), iters=rounds, warmup=1)
+    per = len(calls) // (rounds + 1)
+    return dict(forward_ms=ms, collectives_a_forward=per,
+                collective_ms_a_forward=sum(calls[-per * rounds:]) / rounds
+                if per else 0.0)
+
+
+def _one_at_a_time(fn):
+    """fn() in each process in turn (the others wait at a barrier), so a
+    single-device timing has the card to itself."""
+    import torch.distributed as dist
+    got = None
+    for r in range(dist.get_world_size()):
+        if r == dist.get_rank():
+            got = fn()
+        dist.barrier()
+    return got
+
+
+def multihost_worker(rank: str, nproc: str, port: str, out: str) -> None:
+    """One of phase ``multihost_path``'s processes: torch.distributed over
+    a localhost coordinator (``auto_initialize`` with explicit settings),
+    every process on the card (cuda:0), bge-base-en-v1.5 q4_0 packed from
+    numpy seed 0 at full width and depth. (a) ``distributed_encode_batch``
+    on 256 STS sentences: 48 K1 + 12 K2 a forward on "sm90", no plain
+    call, both processes' halves bit for bit each Engine's encode of that
+    half; (b) a global (data=2, model=2) mesh, data across the processes
+    (each runs its one data row at B=16: 144 K1 + 24 K2); (c) a (data=1,
+    model=2) mesh, one shard a process (72 K1 + 12 K2), then a (data=1,
+    seq=2) mesh (48 K1 + 12 K8a); each mesh cosine >= 0.999 to the
+    single-device Engine, and timed against it. Writes one JSON line to
+    ``out``."""
+    import hashlib
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT))
+    from embeddings_tpu_torch.ops import _cuda, attention as A
+    from embeddings_tpu_torch.parallel import (auto_initialize,
+                                               distributed_encode_batch,
+                                               global_devices, make_mesh,
+                                               make_mesh_cp, process_shard)
+    rank, nproc = int(rank), int(nproc)
+    check(auto_initialize(f"127.0.0.1:{port}", nproc, rank)
+          and dist.get_rank() == rank, "torch.distributed is not up")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cuda = torch.device("cuda", 0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()
+    res = {"rank": rank, "nvidia_smi": smi[0] if smi else None,
+           "loaded_prebuilt": all(_cuda._target(n).exists()
+                                  for n in SOURCES)}
+    # (a) the distributed encode
+    eng = _bge_base_engine()
+    texts = _sts_sentences(MH_SENTENCES)
+    mine = texts[process_shard(len(texts))]
+    n = n_bucketed_forwards(eng, mine)
+    reset_counts()
+    with plain_calls() as calls:
+        t0 = time.perf_counter()
+        emb, routes = _routed(A.fused_attention,
+                              lambda: distributed_encode_batch(eng, texts))
+        wall = time.perf_counter() - t0
+    counts = read_counts()
+    check(counts == only(K1=48 * n, K2=12 * n) and not any(calls.values())
+          and routes == {"sm90": 12 * n},
+          f"rank {rank} distributed encode: launches {counts} over {n} "
+          f"forwards, K2 routes {routes}, plain {calls}")
+    halves = np.concatenate([eng.encode_batch(texts[process_shard(
+        len(texts), count=nproc, index=p)]) for p in range(nproc)])
+    whole = eng.encode_batch(texts)
+    check(emb.shape == (len(texts), E) and np.array_equal(emb, halves),
+          f"rank {rank}: the gathered halves differ from this process's "
+          f"encode of them (max abs {np.abs(emb - halves).max()})")
+    cos = _row_cos(emb, whole)
+    check(cos.min() >= 0.99999, f"rank {rank}: distributed vs one "
+          f"Engine's encode_batch, min cos {cos.min()}")
+    res["encode"] = dict(
+        sentences=len(texts), own=len(mine), forwards=n,
+        launches={k: v for k, v in counts.items() if v},
+        k2_routes=routes, wall_s=wall,
+        max_abs_vs_local_halves=float(np.abs(emb - halves).max()),
+        max_abs_vs_local_encode_batch=float(np.abs(emb - whole).max()),
+        min_cos_vs_local_encode_batch=float(cos.min()),
+        sha256=hashlib.sha256(emb.tobytes()).hexdigest())
+    # (b), (c): meshes whose axes cross the processes
+    Bx, Lx = TP_SHAPE
+    mtexts = [_joined(i * 60, 60) for i in range(Bx)]
+    ec = dict(batch_size=Bx, max_seq_len=Lx)
+    single = _bge_base_engine(**ec)
+    single_ms = _one_at_a_time(lambda: _mh_forward_ms(single, TP_SHAPE))
+    res["single_device"] = single_ms
+    cases = {"global_2x2": (make_mesh, (2, 2), [cuda, cuda],
+                            only(K1=6 * NL * 2, K2=NL * 2), "K2"),
+             "model_1x2": (make_mesh, (1, 2), [cuda],
+                           only(K1=6 * NL, K2=NL), "K2"),
+             "seq_1x2": (make_mesh_cp, (1, 2), [cuda],
+                         only(K1=4 * NL, K8a=NL), "K8a")}
+    for name, (make, (dp, ax), local, want, attn) in cases.items():
+        mesh = make(dp, ax, global_devices(local))
+        eng = _bge_base_engine(mesh=mesh, **ec)
+        check(all(len(eng.tokenize(t)) == Lx for t in mtexts),
+              f"{name}: texts do not fill L={Lx}")
+        if attn == "K2":
+            row = _tp_check(f"{name} rank {rank}", eng, single, mtexts,
+                            want, "K2")
+        else:
+            reset_counts()
+            with plain_calls() as calls:
+                emb, counts, nf, wall = _run_counted(eng, mtexts)
+            routes = dict(A.fused_attention_cp.routes)
+            check(nf == 1 and counts == want and not any(calls.values())
+                  and routes == {"sm90": want["K8a"]},
+                  f"{name} rank {rank}: launches {counts} over {nf} "
+                  f"forwards, want {want}, K8a routes {routes}, plain "
+                  f"{calls}")
+            cos = _row_cos(emb, single.encode_batch(mtexts))
+            check(cos.min() >= 0.999, f"{name} rank {rank}: vs the "
+                  f"single-device Engine min cos {cos.min()}")
+            row = dict(launches={k: v for k, v in counts.items() if v},
+                       attention_routes=routes, forwards=nf, wall_s=wall,
+                       mesh_vs_single_device_min_cos=float(cos.min()))
+        res[name] = dict(row, mesh=dict(mesh.shape),
+                         ranks=mesh.ranks.tolist(), backend=mesh.backend,
+                         **_mh_forward_ms(eng, TP_SHAPE))
+    Path(out).write_text(json.dumps(res))
+    print(json.dumps({"multihost_worker": res}), flush=True)
+    dist.destroy_process_group()
+
+
+def phase_multihost_path():
+    """Two processes on the one card (``multihost_worker``), spawned in
+    fresh interpreters after the kernels and the native tokenizer are
+    built here (the workers only load them), on a localhost coordinator;
+    each worker's output goes to a file, and a worker that fails or does
+    not end in ``MH_TIMEOUT_S`` fails the phase (both are killed). Both
+    must return the same distributed encode, and print their backend
+    ("gloo+host": two processes on one card)."""
+    import socket
+    from embeddings_tpu_torch.ops import _cuda
+    from embeddings_tpu_torch.tokenizer import native
+    _cuda.build(*SOURCES)
+    native.build()
+    OUT_DIR.mkdir(exist_ok=True)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    outs = [OUT_DIR / f"multihost_{r}.json" for r in range(MH_PROCS)]
+    logs = [OUT_DIR / f"multihost_{r}.log" for r in range(MH_PROCS)]
+    for f in outs:
+        f.unlink(missing_ok=True)
+    procs = []
+    t0 = time.perf_counter()
+    try:
+        for r in range(MH_PROCS):
+            with open(logs[r], "w") as log:
+                procs.append(subprocess.Popen(
+                    [sys.executable, "-c", "import sys, chip_smoke; "
+                     "chip_smoke.multihost_worker(*sys.argv[1:])", str(r),
+                     str(MH_PROCS), str(port), str(outs[r])], cwd=ROOT,
+                    stdout=log, stderr=subprocess.STDOUT))
+        while True:
+            codes = [p.poll() for p in procs]
+            if None not in codes or any(codes) or \
+                    time.perf_counter() - t0 > MH_TIMEOUT_S:
+                break  # all ended, one failed, or too long: kill the rest
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    wall = time.perf_counter() - t0
+    tails = {r: logs[r].read_text()[-3000:] for r in range(MH_PROCS)}
+    check(len(procs) == MH_PROCS
+          and all(p.returncode == 0 for p in procs),
+          f"multihost workers exited {[p.returncode for p in procs]} "
+          f"after {wall:.1f} s: {tails}")
+    res = [json.loads(f.read_text()) for f in outs]
+    check(len({r["encode"]["sha256"] for r in res}) == 1,
+          "the processes' distributed encodes differ")
+    for r in res:
+        print(json.dumps({"multihost_worker": r["rank"],
+                          "nvidia_smi": r["nvidia_smi"],
+                          **{k: {"backend": r[k]["backend"],
+                                 "forward_ms": r[k]["forward_ms"]}
+                             for k in ("global_2x2", "model_1x2",
+                                       "seq_1x2")},
+                          "single_device_ms":
+                              r["single_device"]["forward_ms"]}),
+              flush=True)
+    emit("multihost_path", processes=MH_PROCS,
+         coordinator=f"tcp://127.0.0.1:{port}", wall_s=wall,
+         model="bge-base-en-v1.5 (random init, numpy seed 0, vocab 30528) "
+               "q4_0 packed", workers=res)
+
 PHASES = {"device": phase_device, "build": phase_build, "k1": phase_k1,
           "k2": phase_k2, "k3": phase_k3, "k4k5": phase_k4k5,
           "k6k7": phase_k6k7, "attn_tp": phase_attn_tp, "k6w": phase_k6w,
@@ -5573,7 +5820,7 @@ PHASES = {"device": phase_device, "build": phase_build, "k1": phase_k1,
           "modernbert_path": phase_modernbert_path,
           "qwen2_path": phase_qwen2_path, "k8": phase_k8,
           "cp_path": phase_cp_path, "capi_path": phase_capi_path,
-          "tp_path": phase_tp_path,
+          "tp_path": phase_tp_path, "multihost_path": phase_multihost_path,
           "distilbert_path": phase_distilbert_path,
           "roberta_path": phase_roberta_path,
           "roformer_path": phase_roformer_path,

@@ -730,7 +730,7 @@ def _prenorm_stack(params: Params, config: BertConfig, x: torch.Tensor,
             mb_local, lengths = mask_bias + wb, None
         else:
             mb_local = [mb + wb.to(mb.device) for mb in mask_bias]
-            lengths = [None] * tp_axis.size
+            lengths = [None] * len(tp_axis.devices)
     if tp_axis is not None and rope_l is not rope:
         rope_l = tp_axis.place(rope_l)
     for lay, (is_global, ln_apply) in zip(
@@ -776,12 +776,12 @@ def encode_tokens(params: Params, config: BertConfig,
     here, once (see the module docstring).
 
     tp_axis (a ``parallel.sharding.ModelAxis``): Megatron tensor
-    parallelism over one data row; ``params`` is then the list of the
-    axis's shards' trees (``parallel.sharding.shard_params``), ids and
-    mask on the axis's first device, where the replicated activations and
-    the result live. The JAX package's gates: no in-kernel ALiBi (the
-    bias of each shard's heads, as K7's operand or in the mask), no
-    chained int8, no K6w window route.
+    parallelism over one data row; ``params`` is then the list of this
+    process's shards' trees of the axis (``parallel.sharding.
+    shard_params``), ids and mask on the first one's device, where the
+    replicated activations and the result live. The JAX package's gates:
+    no in-kernel ALiBi (the bias of each shard's heads, as K7's operand
+    or in the mask), no chained int8, no K6w window route.
     Returns [B, E'] float32 (or the [B, L, E] hidden states)."""
     check_supported(config)
     shards = params if tp_axis is not None else [params]
@@ -800,6 +800,7 @@ def encode_tokens(params: Params, config: BertConfig,
                if prefix_mask else None)
 
     tp = 1 if tp_axis is None else tp_axis.size
+    n_local = len(shards)  # this process's shards of the axis
     lane = attn_ops.LANE if tp_axis is None else attn_ops.KERNEL_LANE
     bias = alibi = None
     masks = None  # under TP: each shard's mask with its heads' bias
@@ -846,7 +847,7 @@ def encode_tokens(params: Params, config: BertConfig,
         # each shard's own per-position arguments, on its device
         place = tp_axis.place
         mask_bias = masks if masks is not None else place(mask_bias)
-        bias = bias if bias is not None else [None] * tp
+        bias = bias if bias is not None else [None] * n_local
         lengths, rope = place(lengths), place(rope)
     if config.norm_style == "pre":
         x = _prenorm_stack(shards if tp_axis is not None else params,
@@ -855,7 +856,7 @@ def encode_tokens(params: Params, config: BertConfig,
                            **mode)
     else:
         extra = {} if tp_axis is None else dict(
-            segments=[None] * tp, ranges=[None] * tp)
+            segments=[None] * n_local, ranges=[None] * n_local)
         x = _post_ln_stack(shards if tp_axis is not None else params,
                            config, x, mask_bias, lengths,
                            _links(params, config, mode, tp_axis), bias=bias,
@@ -954,6 +955,7 @@ def encode_packed(params: Params, config: BertConfig,
                  else normalize)
     B, L = token_ids.shape
     tp = 1 if tp_axis is None else tp_axis.size
+    n_local = len(shards)  # this process's shards of the axis
     lane = attn_ops.LANE if tp_axis is None else attn_ops.KERNEL_LANE
     seg = seg_ids.to(torch.int32).contiguous()
     biases = [_logit_bias(p, config, position_ids) for p in shards]
@@ -994,21 +996,22 @@ def encode_packed(params: Params, config: BertConfig,
         layers = params
     else:
         place = tp_axis.place
-        mask_bias = [None] * tp if mask_bias is None else mask_bias
+        mask_bias = [None] * n_local if mask_bias is None else mask_bias
         segments, ranges, rope = place(segments), place(ranges), place(rope)
         layers = shards
     if prenorm:
         x = _prenorm_stack(layers, config, x, mask_bias,
-                           None if tp_axis is None else [None] * tp, rope,
+                           None if tp_axis is None else [None] * n_local,
+                           rope,
                            position_ids, mask_value, tp_axis=tp_axis, **mode)
     else:
         x = _post_ln_stack(layers, config, x, mask_bias,
-                           None if tp_axis is None else [None] * tp,
+                           None if tp_axis is None else [None] * n_local,
                            _links(params, config, mode, tp_axis),
                            segments=segments, attn_window=attn_window,
                            ranges=ranges, rope=rope, tp_axis=tp_axis,
                            **({} if tp_axis is None
-                              else dict(bias=[None] * tp)), **mode)
+                              else dict(bias=[None] * n_local)), **mode)
     if "final_ln" in p0:
         x = _norm(config, x, p0["final_ln"])
     pooled = torch.einsum("bsl,ble->bse", pool_weights.float(), x.float())

@@ -36,8 +36,9 @@ keeps them dense); the router stays f32.
 Expert parallelism (``moe_ffn``'s ``ep_axis``, a
 ``parallel.sharding.ModelAxis``): shard r holds experts r*e .. r*e + e - 1
 and runs them densely on every token it sees, weighted by its slice of
-the routing; one program drives every shard, as the JAX package's
-``shard_map`` does. Two token layouts, the JAX package's schedules:
+the routing; one program drives every shard of a process, as the JAX
+package's ``shard_map`` does, and the axis's group joins the processes
+where it crosses them. Two token layouts, the JAX package's schedules:
 "sharded" (each shard's own tokens: all-gather, then the summed
 contributions scattered back) and "replicated" (every shard sees every
 token, as under Megatron TP: one sum, ``models.bert._moe_half``).
@@ -93,15 +94,16 @@ def moe_ffn(x, moe, *, top_k: int, act: str, normalize_topk: bool = False,
     moe: router {w [D, E], b [E]?}, up {w [E, D, I], b [E, I]}, down {w
     [E, I, D], b [E, D]}, optional bias [D].
 
-    With ``ep_axis`` (expert parallelism), ``moe`` is the list of the
-    axis's shards' params, shard r's up / down holding its e experts on
-    their leading axis (router and bias replicated), and each shard runs
-    its experts on every token with its slice of the routing weights:
+    With ``ep_axis`` (expert parallelism), ``moe`` is the list of this
+    process's shards' params of the axis, local shard r (axis index
+    ``ep_axis.first + r``) with up / down holding its e experts on their
+    leading axis (router and bias replicated), and each shard runs its
+    experts on every token with its slice of the routing weights:
 
-    * ep_tokens="sharded": x is the list of the shards' tokens [T_r, D];
-      they are all-gathered, and the summed contributions scattered back:
-      returns the list of the shards' outputs [T_r, D];
-    * ep_tokens="replicated": x holds every token, on the axis's first
+    * ep_tokens="sharded": x is the list of the local shards' tokens
+      [T_r, D]; they are all-gathered, and the summed contributions
+      scattered back: returns the list of the local shards' outputs;
+    * ep_tokens="replicated": x holds every token, on the axis's home
       device (the Megatron-TP layout); one sum joins the contributions:
       returns [T, D] there.
 
@@ -123,9 +125,9 @@ def moe_ffn(x, moe, *, top_k: int, act: str, normalize_topk: bool = False,
                          top_k=top_k, normalize=normalize_topk)  # [T, E]
     parts = []
     for r, m in enumerate(moe):
-        e = m["up"]["w"].shape[0]
+        e, g = m["up"]["w"].shape[0], ep_axis.first + r  # g: axis index
         parts.append(_dense_experts(ep_axis.on(r, x_all), m, ep_axis.on(
-            r, weights[:, r * e:(r + 1) * e]), act))
+            r, weights[:, g * e:(g + 1) * e]), act))
     if ep_tokens == "replicated":
         out = ep_axis.psum(parts)
         if "bias" in m0:

@@ -12,13 +12,15 @@ gather. ALBERT's factorized embeddings are projected on each shard, and
 its one shared layer is walked num_hidden_layers times. Weights are
 replicated.
 
-One program drives every shard of the mesh, as the JAX package's
-``shard_map`` does: the forward walks the layers, and within a layer the
-shards of one data row, so the gather and the pooling reductions
-(``all_gather``, ``all_reduce``) see every shard's part. They are the
-only places shards meet: a backend with one process per GPU replaces
-those two. A mesh may name one device more than once (one H100 runs a
-dp x sp mesh); the shards on it then run in turn.
+Within a process one program drives every shard it owns, as the JAX
+package's ``shard_map`` does: the forward walks the layers, and within a
+layer this process's shards of one data row, so the gather and the
+pooling reductions (``all_gather``, ``all_reduce``) see every local
+shard's part; where the seq axis crosses processes they then run over the
+row's process group (``mesh.Collective``). They are the only places
+shards meet. The rows' results are exchanged at the end
+(``Mesh.gather_rows``). A mesh may name one device more than once (one
+H100 runs a dp x sp mesh); the shards on it then run in turn.
 
 Attention per shard runs the hand-written CP kernel the JAX package's
 route rule picks: ``fused_attention_cp`` (K8a) for rows within the
@@ -41,7 +43,7 @@ from ..models.params import check_supported
 from ..ops import attention as attn_ops
 from ..ops.linear import linear, linear_residual_ln
 from ..ops.rotary import apply_rotary, rope_tables
-from .mesh import DATA_AXIS, Mesh, resolve_mesh_device
+from .mesh import DATA_AXIS, Collective, Mesh, mesh_devices
 
 SEQ_AXIS = "seq"
 
@@ -51,13 +53,12 @@ Params = dict[str, Any]
 def make_mesh_cp(dp: int | None = None, sp: int = 1,
                  devices: Sequence | None = None) -> Mesh:
     """A ("data", "seq") mesh for DP x CP serving. ``devices=None`` means
-    the visible CUDA devices (and raises without one); dp * sp must equal
-    the number of devices, so one card runs a dp x sp mesh as
-    ``devices=[torch.device("cuda")] * (dp * sp)``."""
-    if devices is None:
-        devices = [torch.device("cuda", i)
-                   for i in range(torch.cuda.device_count())] or ["cuda"]
-    devices = [resolve_mesh_device(d) for d in devices]  # raises off the card
+    the visible CUDA devices (raising without one), or after
+    ``initialize_distributed`` every process's default card
+    (``mesh.mesh_devices``); dp * sp must equal the number of devices, so
+    one card runs a dp x sp mesh as ``devices=[torch.device("cuda")] *
+    (dp * sp)``."""
+    devices = mesh_devices(devices)
     n = len(devices)
     if dp is None:
         dp = n // sp
@@ -68,34 +69,44 @@ def make_mesh_cp(dp: int | None = None, sp: int = 1,
 
 
 # ---------------------------------------------------------------------------
-# the collectives over one data row's shards: parts[j] is shard j's value,
-# on shard j's device
+# the collectives over one data row's shards: parts[k] is this process's
+# k-th shard's value, on its device; ``group`` joins the row's other
+# processes where the seq axis crosses them
 # ---------------------------------------------------------------------------
 
-def all_gather(parts: list[torch.Tensor], dim: int) -> list[torch.Tensor]:
+def _per_device(parts: list[torch.Tensor], value: torch.Tensor) -> list:
+    """value on each part's device, one copy per device."""
+    by_dev = {value.device: value}
+    for p in parts:
+        if p.device not in by_dev:
+            by_dev[p.device] = value.to(p.device)
+    return [by_dev[p.device] for p in parts]
+
+
+def all_gather(parts: list[torch.Tensor], dim: int,
+               group: Collective | None = None) -> list[torch.Tensor]:
     """``lax.all_gather(..., tiled=True)`` over the seq axis: every shard
-    gets the parts concatenated along ``dim``, on its own device. Shards
-    on one device share one copy."""
-    by_dev: dict = {}
-    for p in parts:
-        if p.device not in by_dev:
-            by_dev[p.device] = torch.cat([q.to(p.device) for q in parts],
-                                         dim)
-    return [by_dev[p.device] for p in parts]
+    gets all shards' parts concatenated along ``dim`` in axis order, on
+    its own device (this process's parts, then the group's gather in
+    process order). Shards on one device share one copy."""
+    whole = torch.cat([q.to(parts[0].device) for q in parts], dim)
+    if group is not None:
+        whole = group.all_gather(whole, dim)
+    return _per_device(parts, whole)
 
 
-def all_reduce(parts: list[torch.Tensor], op: str) -> list[torch.Tensor]:
+def all_reduce(parts: list[torch.Tensor], op: str,
+               group: Collective | None = None) -> list[torch.Tensor]:
     """``lax.psum`` (op "sum") or ``lax.pmax`` ("max") over the seq axis:
-    every shard gets the reduction of all parts, on its own device."""
+    every shard gets the reduction of all parts, on its own device (this
+    process's parts in shard order, then the group's reduction)."""
     fn = {"sum": torch.add, "max": torch.maximum}[op]
-    by_dev: dict = {}
-    for p in parts:
-        if p.device not in by_dev:
-            acc = parts[0].to(p.device)
-            for q in parts[1:]:
-                acc = fn(acc, q.to(p.device))
-            by_dev[p.device] = acc
-    return [by_dev[p.device] for p in parts]
+    acc = parts[0]
+    for q in parts[1:]:
+        acc = fn(acc, q.to(acc.device))
+    if group is not None:
+        acc = group.all_reduce(acc, op)
+    return _per_device(parts, acc)
 
 
 # ---------------------------------------------------------------------------
@@ -145,7 +156,8 @@ def _local_qkv(layer: Params, config: BertConfig, x: torch.Tensor,
 def _cp_attention(layers: list[Params], config: BertConfig,
                   xs: list[torch.Tensor], mask_bias: list[torch.Tensor],
                   lengths: list[torch.Tensor], ropes: list,
-                  use_kernels: bool) -> list[torch.Tensor]:
+                  use_kernels: bool, group: Collective | None = None
+                  ) -> list[torch.Tensor]:
     """Local-query attention for each shard of a data row: q from the
     local [B, Lc, E] chunk, k/v all-gathered to the full row. Returns each
     shard's context [B, Lc, E]. With ``use_kernels`` and a shape the
@@ -155,7 +167,7 @@ def _cp_attention(layers: list[Params], config: BertConfig,
     D = config.head_dim
     parts = [_local_qkv(lay, config, x, rope, use_kernels)
              for lay, x, rope in zip(layers, xs, ropes)]
-    kvs = all_gather([kv for _, kv in parts], 1)              # [B, L, 2E]
+    kvs = all_gather([kv for _, kv in parts], 1, group)       # [B, L, 2E]
     out = []
     for j, ((q, _), kv) in enumerate(zip(parts, kvs)):
         B, Lc, E = q.shape
@@ -185,13 +197,14 @@ def _cp_attention(layers: list[Params], config: BertConfig,
 
 def _cp_layer(layers: list[Params], config: BertConfig,
               xs: list[torch.Tensor], mask_bias, lengths, ropes,
-              use_kernels: bool) -> list[torch.Tensor]:
+              use_kernels: bool, group: Collective | None = None
+              ) -> list[torch.Tensor]:
     """One post-LN encoder block with CP attention; everything after the
     attention context is local along L (``bert.encoder_layer``'s
     numerics, bf16 K1 matmuls: no int8 mode)."""
     eps = config.layer_norm_eps
     ctxs = _cp_attention(layers, config, xs, mask_bias, lengths, ropes,
-                         use_kernels)
+                         use_kernels, group)
     out = []
     for layer, x, ctx in zip(layers, xs, ctxs):
         a, m = layer["attn"], layer["mlp"]
@@ -244,7 +257,9 @@ def make_cp_forward(config: BertConfig, mesh: Mesh, *,
                     compute_dtype: torch.dtype | None = None,
                     mask_value: float = -1e9, use_kernels: bool = True):
     """(params, ids [B, L], mask [B, L]) -> [B, E'] f32 embeddings on the
-    mesh's first device, with B sharded over "data" and L over "seq": B
+    mesh's ``home`` (every process of a mesh that spans processes passes
+    the whole batch and gets the whole result), with B sharded over
+    "data" and L over "seq": B
     must divide by the data-axis size and L by the seq-axis size. ids and
     mask are integer numpy arrays or tensors (mask: right-padded, 1s then
     0s); params is the tree on any device, replicated once per distinct
@@ -263,11 +278,14 @@ def make_cp_forward(config: BertConfig, mesh: Mesh, *,
     cache: list = [None, None]  # (params, its replicas)
 
     def local_row(ps: list[Params], ids: list[torch.Tensor],
-                  masks: list[torch.Tensor]) -> torch.Tensor:
-        """One data row's shards -> its pooled [B/dp, E'] (shard 0's)."""
+                  masks: list[torch.Tensor], first: int,
+                  group: Collective | None) -> torch.Tensor:
+        """This process's shards of one data row (seq shards first,
+        first + 1, ...) -> the row's pooled [B/dp, E'] (its first local
+        shard's)."""
         B, Lc = ids[0].shape
         xs, ropes = [], []
-        for j, (p, ids_j) in enumerate(zip(ps, ids)):
+        for j, (p, ids_j) in enumerate(zip(ps, ids), start=first):
             dev = ids_j.device
             pos = j * Lc + torch.arange(Lc, device=dev)       # global
             x = bert.embed(p, config, ids_j,
@@ -281,7 +299,7 @@ def make_cp_forward(config: BertConfig, mesh: Mesh, *,
                 rope = tuple(t.to(dev) for t in rope_tables(
                     pos, D, config.rotary_base))
             ropes.append(rope)
-        mask_full = all_gather(masks, 1)                       # [B, L]
+        mask_full = all_gather(masks, 1, group)                # [B, L]
         bias = [((1.0 - m.float()) * mask_value)[:, None, None, :]
                 for m in mask_full]
         # the engine produces prefix masks only: the CP kernels take the
@@ -290,24 +308,26 @@ def make_cp_forward(config: BertConfig, mesh: Mesh, *,
         # ALBERT's shared layer: the one stored layer, every time
         for layers in zip(*(bert.layer_views(p, config) for p in ps)):
             xs = _cp_layer(list(layers), config, xs, bias, lengths, ropes,
-                           use_kernels)
+                           use_kernels, group)
         xf = [x.float() for x in xs]
         maskf = [m.float() for m in masks]
         if pool == "mean":
             s = all_reduce([torch.einsum("ble,bl->be", x, m)
-                            for x, m in zip(xf, maskf)], "sum")
+                            for x, m in zip(xf, maskf)], "sum", group)
             denom = all_reduce([m.sum(1, keepdim=True) for m in maskf],
-                               "sum")
+                               "sum", group)
             pooled = s[0] / denom[0].clamp_min(1.0)
         elif pool == "cls":
             # the CLS token lives on the first seq shard
             pooled = all_reduce([x[:, 0] if j == 0 else
                                  torch.zeros_like(x[:, 0])
-                                 for j, x in enumerate(xf)], "sum")[0]
+                                 for j, x in enumerate(xf, start=first)],
+                                "sum", group)[0]
         else:
             pooled = all_reduce([torch.where(m[..., None] > 0, x,
                                              -1e30).amax(1)
-                                 for x, m in zip(xf, maskf)], "max")[0]
+                                 for x, m in zip(xf, maskf)], "max",
+                                group)[0]
         return bert._finish(ps[0], config, pooled,
                             config.normalize_embeddings)
 
@@ -321,16 +341,17 @@ def make_cp_forward(config: BertConfig, mesh: Mesh, *,
             cache[:] = [params, mesh.replicate(params)]
         reps = cache[1]
         Bd, Lc = B // dp, L // sp
-        out = []
-        for i in range(dp):
-            devs = list(mesh.devices[i])
+        out = {}
+        for i in mesh.local_rows():
+            devs, first, group = mesh.row(i)
             rows = slice(i * Bd, (i + 1) * Bd)
-            cols = [slice(j * Lc, (j + 1) * Lc) for j in range(sp)]
-            out.append(local_row(
+            cols = [slice(j * Lc, (j + 1) * Lc)
+                    for j in range(first, first + len(devs))]
+            out[i] = local_row(
                 [reps[d] for d in devs],
                 [ids[rows, c].to(d) for c, d in zip(cols, devs)],
-                [mask[rows, c].to(d) for c, d in zip(cols, devs)]))
-        dev0 = mesh.devices[0, 0]
-        return torch.cat([o.to(dev0) for o in out], 0)
+                [mask[rows, c].to(d) for c, d in zip(cols, devs)],
+                first, group)
+        return mesh.gather_rows(out)
 
     return forward

@@ -20,15 +20,19 @@ same logical axis, all or none of them (``param_pspecs``); a packed
 weight's shard must hold whole group-64 packs (``adapt_packed_params``
 unpacks the row-parallel weights whose shards would not).
 
-One program drives every shard, as the JAX package's ``shard_map`` does,
-and as context parallelism does here (``parallel/context.py``): the
-forward walks the data rows, and within a layer the model-axis shards of
-a row in turn; a collective is a plain function over the list of the
-shards' parts (``ModelAxis``). A mesh may name one device more than once:
-one H100 runs a dp x tp mesh with the real sharded numerics. ``shard_params``
-cuts each sharded leaf into its contiguous slices once (at Engine build),
-and shares the replicated leaves among the shards on one device, so a tp
-mesh on one card holds about one tree's bytes.
+Within a process one program drives every shard it owns, as the JAX
+package's ``shard_map`` does, and as context parallelism does here
+(``parallel/context.py``): the forward walks this process's data rows,
+and within a layer its model-axis shards of a row in turn; a collective
+is a plain function over the list of those shards' parts (``ModelAxis``),
+joined with the row's other processes by ``torch.distributed`` where the
+model axis crosses processes (``mesh.Collective``); the rows' results are
+then exchanged (``Mesh.gather_rows``), so every process returns the whole
+batch. A mesh may name one device more than once: one H100 runs a dp x tp
+mesh with the real sharded numerics. ``shard_params`` cuts each sharded
+leaf into its contiguous slices once (at Engine build), and shares the
+replicated leaves among the shards on one device, so a tp mesh on one
+card holds about one tree's bytes.
 
 The shard forward is ``models.bert``'s with ``tp_axis``: on a CUDA device
 the quantized matmuls run K1 (K3 in the int8 mode) at shard shapes — the
@@ -47,7 +51,7 @@ import torch
 from ..config import BertConfig
 from ..models import bert
 from ..ops.quant import QuantizedTensor, codes_int8
-from .mesh import MODEL_AXIS, Mesh
+from .mesh import MODEL_AXIS, Collective, Mesh
 
 Params = dict[str, Any]
 
@@ -216,10 +220,11 @@ def _slice(t: torch.Tensor, spec: Spec, j: int, tp: int) -> torch.Tensor:
 
 class ShardedParams:
     """``shard_params``' result: ``specs`` (``param_pspecs``) and one
-    parameter tree per mesh shard, ``tree(i, j)`` on ``mesh.devices[i,
-    j]``. Sharded leaves are contiguous slices; the shards of one device
-    share its replicated leaves, and shards (i, j) and (i', j) on one
-    device share their tree."""
+    parameter tree per mesh shard of this process, ``tree(i, j)`` on
+    ``mesh.devices[i, j]`` (None for another process's shard). Sharded
+    leaves are contiguous slices; the shards of one device share its
+    replicated leaves, and shards (i, j) and (i', j) on one device share
+    their tree."""
 
     def __init__(self, specs: Params, trees: np.ndarray, mesh: Mesh):
         self.specs, self.trees, self.mesh = specs, trees, mesh
@@ -228,11 +233,13 @@ class ShardedParams:
         return self.trees[i, j]
 
     def row(self, i: int) -> list[Params]:
-        """Data row i's trees, one per model-axis shard."""
-        return list(self.trees[i])
+        """Data row i's trees of this process, one per model-axis shard
+        it owns, in axis order."""
+        return [t for t in self.trees[i] if t is not None]
 
     def distinct_trees(self) -> list[Params]:
-        return list({id(t): t for t in self.trees.flat}.values())
+        return list({id(t): t for t in self.trees.flat
+                     if t is not None}.values())
 
 
 def _map_specs(fn, specs, tree):
@@ -245,12 +252,13 @@ def _map_specs(fn, specs, tree):
 
 def shard_params(params: Params, config: BertConfig, mesh: Mesh
                  ) -> ShardedParams:
-    """One tree per mesh shard, by ``param_pspecs``: shard j of the model
-    axis holds the j-th contiguous slice of every sharded leaf (made here,
-    once), on its device; replicated leaves are moved once per distinct
-    device and shared. A kept int8 weight is not carried over: the Engine
-    requantizes each shard's slice (``params.keep_int8_weights``), as the
-    JAX kernel requantizes the weight it is given."""
+    """One tree per mesh shard of this process, by ``param_pspecs``:
+    shard j of the model axis holds the j-th contiguous slice of every
+    sharded leaf (made here, once), on its device; replicated leaves are
+    moved once per distinct device and shared. A kept int8 weight is not
+    carried over: the Engine requantizes each shard's slice
+    (``params.keep_int8_weights``), as the JAX kernel requantizes the
+    weight it is given."""
     specs = param_pspecs(params, mesh)
     tp = _tp(mesh)
     shared: dict = {}   # (id(replicated leaf), device) -> its copy there
@@ -286,6 +294,8 @@ def shard_params(params: Params, config: BertConfig, mesh: Mesh
     trees = np.empty((dp, tp), dtype=object)
     for i in range(dp):
         for j in range(tp):
+            if mesh.ranks[i, j] != mesh.rank:
+                continue  # another process's shard
             dev = mesh.devices[i, j]
             if (dev, j) not in made:
                 made[(dev, j)] = build(dev, j)
@@ -332,61 +342,69 @@ def _check_tp_shardable(pspecs: Params, tp: int) -> None:
 class ModelAxis:
     """The "model" axis of one data row, as the layer code sees it
     (``tp_axis`` in ``models.bert``, ``ep_axis`` in ``ops.moe``): the
-    shards' devices, and the collectives as plain functions over the list
-    of the shards' parts (shard j's part on shard j's device). A value
-    replicated over the axis lives once, on the first shard's device
-    (``home``); a shard reads it through ``on``."""
+    devices of this process's shards, in axis order (``first`` the axis
+    index of the first, ``size`` the whole axis), and the collectives as
+    plain functions over the list of those shards' parts (part k on
+    ``devices[k]``), joined over ``group`` (a ``mesh.Collective``) where
+    the axis crosses processes. A value replicated over the axis lives
+    once, on this process's first shard's device (``home``); a shard
+    reads it through ``on``."""
 
-    def __init__(self, devices):
+    def __init__(self, devices, *, first: int = 0, size: int | None = None,
+                 group: Collective | None = None):
         self.devices = list(devices)
-
-    @property
-    def size(self) -> int:
-        return len(self.devices)
+        self.first = first
+        self.size = len(self.devices) if size is None else size
+        self.group = group
 
     @property
     def home(self) -> torch.device:
         return self.devices[0]
 
-    def on(self, j: int, t):
-        """t (a tensor, a tuple of them or None) on shard j's device."""
+    def on(self, k: int, t):
+        """t (a tensor, a tuple of them or None) on local shard k's
+        device."""
         if t is None:
             return None
         if isinstance(t, tuple):
-            return tuple(self.on(j, u) for u in t)
-        return t.to(self.devices[j])
+            return tuple(self.on(k, u) for u in t)
+        return t.to(self.devices[k])
 
     def place(self, t) -> list:
-        """t on every shard's device, one entry per shard (shards on one
-        device share one copy)."""
+        """t on every local shard's device, one entry per shard (shards
+        on one device share one copy)."""
         by_dev: dict = {}
-        for j, d in enumerate(self.devices):
+        for k, d in enumerate(self.devices):
             if d not in by_dev:
-                by_dev[d] = self.on(j, t)
+                by_dev[d] = self.on(k, t)
         return [by_dev[d] for d in self.devices]
 
     def psum(self, parts: list[torch.Tensor]) -> torch.Tensor:
-        """``lax.psum`` over the axis: the parts' sum, in their dtype, in
-        shard order, on the home device."""
+        """``lax.psum`` over the axis, on the home device, in the parts'
+        dtype: this process's parts summed in shard order, then the
+        processes' sums added by the group (for two processes, one part
+        each, the same bits as the shard-order sum: a + b == b + a)."""
         acc = parts[0].to(self.home)
         for p in parts[1:]:
             acc = acc + p.to(self.home)
-        return acc
+        return acc if self.group is None else self.group.all_reduce(acc)
 
     def all_gather(self, parts: list[torch.Tensor], dim: int = 0
                    ) -> torch.Tensor:
-        """``lax.all_gather(..., tiled=True)``: the parts concatenated
-        along ``dim`` on the home device."""
-        return torch.cat([p.to(self.home) for p in parts], dim)
+        """``lax.all_gather(..., tiled=True)``: every shard's part
+        concatenated along ``dim`` in axis order, on the home device."""
+        whole = torch.cat([p.to(self.home) for p in parts], dim)
+        return whole if self.group is None else \
+            self.group.all_gather(whole, dim)
 
     def psum_scatter(self, parts: list[torch.Tensor], dim: int = 0
                      ) -> list[torch.Tensor]:
         """``lax.psum_scatter(..., tiled=True)``: the sum split into
-        ``size`` equal chunks along ``dim``, chunk j on shard j's
-        device."""
-        total = self.psum(parts)
-        return [c.to(d) for c, d in zip(total.chunk(self.size, dim),
-                                        self.devices)]
+        ``size`` equal chunks along ``dim``, chunk ``first + k`` on local
+        shard k's device."""
+        chunks = self.psum(parts).chunk(self.size, dim)
+        return [chunks[self.first + k].to(d)
+                for k, d in enumerate(self.devices)]
 
 
 # ---------------------------------------------------------------------------
@@ -416,21 +434,22 @@ def _sharded_of(config: BertConfig, mesh: Mesh):
 
 
 def _run_rows(mesh: Mesh, sp: ShardedParams, arrays, fn) -> torch.Tensor:
-    """fn(trees of data row i, tp_axis or None, row i's arrays on its
-    first device) for each data row; the results concatenated on the
-    mesh's first device."""
-    dp, tp = mesh.devices.shape
+    """fn(this process's trees of data row i, tp_axis or None, row i's
+    arrays on its first local device) for each data row this process
+    holds a shard of; every row's result, in order, on the mesh's
+    ``home`` (``Mesh.gather_rows``)."""
+    tp = mesh.devices.shape[1]
     arrays = [torch.as_tensor(a) for a in arrays]
     Bd = _data_rows(mesh, arrays[0].shape[0], "batch size")
-    out = []
-    for i in range(dp):
-        axis = ModelAxis(mesh.devices[i]) if tp > 1 else None
-        home = mesh.devices[i, 0]
-        rows = [a[i * Bd:(i + 1) * Bd].to(home) for a in arrays]
+    out = {}
+    for i in mesh.local_rows():
+        devices, first, group = mesh.row(i)
+        axis = (ModelAxis(devices, first=first, size=tp, group=group)
+                if tp > 1 else None)
+        rows = [a[i * Bd:(i + 1) * Bd].to(devices[0]) for a in arrays]
         trees = sp.row(i)
-        out.append(fn(trees if axis is not None else trees[0], axis, rows))
-    dev0 = mesh.devices[0, 0]
-    return torch.cat([o.to(dev0) for o in out], 0)
+        out[i] = fn(trees if axis is not None else trees[0], axis, rows)
+    return mesh.gather_rows(out)
 
 
 def make_sharded_forward(config: BertConfig, mesh: Mesh, *,
@@ -440,10 +459,11 @@ def make_sharded_forward(config: BertConfig, mesh: Mesh, *,
                          use_kernels: bool = True, int8: bool = False,
                          spmd: str = "shard_map"):
     """(params, ids [B, L], mask [B, L]) -> [B, E'] f32 embeddings on the
-    mesh's first device, the batch over "data" (B must divide by its
-    size) and Megatron TP over "model". params: a ``ShardedParams``, or a
-    tree (sharded at the first call and kept while the same tree is
-    passed).
+    mesh's ``home``, the batch over "data" (B must divide by its size)
+    and Megatron TP over "model"; every process of a mesh that spans
+    processes passes the whole batch and gets the whole result. params:
+    a ``ShardedParams``, or a tree (sharded at the first call and kept
+    while the same tree is passed).
 
     spmd="shard_map" (default): every shard runs ``bert.encode_tokens``
     on its own weights with ``tp_axis``: the quantized matmuls through K1

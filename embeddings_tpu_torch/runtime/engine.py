@@ -26,7 +26,9 @@ CUDA device raises: the engine never carries on on the CPU unless asked to.
 
 With ``mesh=`` the Engine runs the JAX Engine's mesh branch: batch sizes
 and buckets round to multiples of the data-axis size, the parameter tree
-is not fused, and the device is the mesh's first. A ("data", "seq") mesh
+is not fused, and the device is the mesh's first of this process (on a
+mesh that spans processes, every process calls with the same texts and
+gets every embedding). A ("data", "seq") mesh
 (``parallel.make_mesh_cp``) runs context parallelism: seq buckets that the
 seq-axis size does not divide are dropped, the tree is kept as given, and
 each forward is ``parallel.make_cp_forward``'s (K8a / K8b attention, K1
@@ -45,6 +47,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import logging
+import os
 from collections import deque
 from pathlib import Path
 from typing import Sequence
@@ -86,13 +89,25 @@ def _bucket_window(w: int, row_len: int) -> int:
 
 
 def resolve_device(device=None) -> torch.device:
-    """``None`` -> cuda. Raises when a CUDA device is asked for and there
-    is none; the CPU runs only when the caller names it."""
-    dev = torch.device("cuda" if device is None else device)
+    """``None`` -> cuda: under torchrun (LOCAL_RANK set) the process's own
+    card, cuda:LOCAL_RANK. Raises when a CUDA device is asked for and
+    there is none, or when its index is past the card count (a local rank
+    never wraps around onto another process's card); the CPU runs only
+    when the caller names it."""
+    local_rank = os.environ.get("LOCAL_RANK")
+    if device is None:
+        dev = (torch.device("cuda") if local_rank is None
+               else torch.device("cuda", int(local_rank)))
+    else:
+        dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "no CUDA device: the PyTorch port runs on the GPU; pass "
             "device='cpu' to run its plain PyTorch path on the CPU")
+    if dev.type == "cuda" and dev.index is not None \
+            and dev.index >= torch.cuda.device_count():
+        raise RuntimeError(f"{dev} does not exist: this process sees "
+                           f"{torch.cuda.device_count()} CUDA device(s)")
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
@@ -104,8 +119,8 @@ class Engine:
                  engine_config: EngineConfig | None = None, *,
                  device=None, mesh=None):
         if mesh is not None:
-            # the device is the mesh's (its first shard's)
-            first = mesh.devices[0, 0]
+            # the device is the mesh's (this process's first shard's)
+            first = mesh.home
             if device is not None and resolve_device(device) != first:
                 raise ValueError(f"device {device} is not the mesh's "
                                  f"first device {first}")
@@ -170,13 +185,14 @@ class Engine:
         from ..parallel.sharding import (make_sharded_forward,
                                          make_sharded_packed_forward,
                                          shard_params)
-        # one tree per shard, cut once here; ``params`` is shard (0, 0)'s
-        # (the replicated leaves and the first slices)
+        # one tree per shard of this process, cut once here; ``params``
+        # is its first shard's (the replicated leaves and its slices)
         sharded = shard_params(params, config, mesh)
         if self._int8 and self._use_kernels:
             for tree in sharded.distinct_trees():
                 P.keep_int8_weights(tree)  # K3's weights of each slice
-        self._mesh_params, self.params = sharded, sharded.tree(0, 0)
+        self._mesh_params = sharded
+        self.params = sharded.tree(*mesh.home_index)
         kw["int8"] = self._int8
         self._mesh_forward = make_sharded_forward(config, mesh, **kw)
         self._mesh_packed = make_sharded_packed_forward(config, mesh, **kw)
