@@ -59,6 +59,12 @@ the port's paths through Engine -> encode_batch (or encode_batch_packed)
   (K1 + K2 in each process), a global (data=2, model=2) mesh with data
   across the processes, and a model axis and a seq axis (K8a) across
   them, against the single-device Engine;
+- four cards of one host (only where four are visible; one "not run"
+  line each otherwise): one process driving them (each card's kernels
+  while cuda:0 is current, an Engine on cuda:3, DP, TP, int8 TP and CP
+  meshes over ``devices=None`` with each card's kernels counted), and
+  four processes, one card each, over NCCL (the distributed encode and
+  meshes whose axes cross them, under torchrun's and JAX's variables);
 
 then times the kernels and the forwards, with a device-time profile of
 each forward by kernel; then the serving surface: the port's native
@@ -81,6 +87,7 @@ tokenize, bench).
         rerank_path,timing
     python3 chip_smoke.py --phases device,build,moe_path,timing
     python3 chip_smoke.py --phases device,build,multihost_path
+    python3 chip_smoke.py --phases device,build,multicard_path,nccl_path
     python3 chip_smoke.py --phases device,build,main,timing,native_tok,\
         http_path,serve_latency,cli_path
 
@@ -942,10 +949,11 @@ def n_bucketed_forwards(eng, texts) -> int:
         extend_buckets(eng.engine_config.batch_buckets, bs)))
 
 
-def _bge_base_engine(mesh=None, **ec):
-    """bge-base q4_0 packed on the card, from one random tree (numpy seed
-    0) built once: fused qkv on one device and on a CP mesh, q/k/v apart
-    on a ("data", "model") mesh (tensor parallelism shards them)."""
+def _bge_base_engine(mesh=None, device=None, **ec):
+    """bge-base q4_0 packed on the card (``device``, default the current
+    one), from one random tree (numpy seed 0) built once: fused qkv on
+    one device and on a CP mesh, q/k/v apart on a ("data", "model") mesh
+    (tensor parallelism shards them; a model axis of 1 fuses them)."""
     import torch
     from embeddings_tpu_torch import BertConfig, EngineConfig, KNOWN_MODELS
     from embeddings_tpu_torch.models import params as P
@@ -964,7 +972,8 @@ def _bge_base_engine(mesh=None, **ec):
         params = STATE["params_unfused"]
     tok = tokenizer_from_dir(FIXTURE / "model")
     return Engine(params, cfg, tok, EngineConfig(**{"batch_size": 128, **ec}),
-                  device=None if mesh else torch.device("cuda"), mesh=mesh)
+                  device=None if mesh else (device or torch.device("cuda")),
+                  mesh=mesh)
 
 
 def phase_main_path():
@@ -4724,12 +4733,15 @@ def _http(base: str, path: str, body=None):
 
 @contextlib.contextmanager
 def plain_calls():
-    """Count the calls of K1's and K2's plain versions inside the block
-    (the wrappers call them only for CPU tensors); yields the counts."""
+    """Count the calls of K1's, K3's, K2's, K8a's and K8b's plain versions
+    inside the block (the wrappers call them only for CPU tensors);
+    yields the counts."""
     from embeddings_tpu_torch.ops import attention as A, qmatmul as Q
     calls, saved = {}, []
     for mod, name in ((Q, "qmatmul_ref"), (Q, "qmatmul_int8_ref"),
-                      (A, "fused_attention_ref")):
+                      (A, "fused_attention_ref"),
+                      (A, "fused_attention_cp_ref"),
+                      (A, "fused_attention_cp_stream_ref")):
         fn = getattr(mod, name)
         calls[name] = 0
 
@@ -5603,9 +5615,7 @@ def _mh_forward_ms(eng, shape, rounds: int = 3) -> dict:
     same): ms a forward (CUDA events over ``rounds`` forwards after one
     warm-up), and the host ms spent in the mesh's collectives a
     forward."""
-    rng = np.random.default_rng(1)
-    ids = rng.integers(1000, 30000, shape).astype(np.int32)
-    mask = np.ones_like(ids)
+    ids, mask = _random_batch(shape)
     with collective_ms() as calls:
         ms = cuda_ms(lambda: eng._forward(ids, mask), iters=rounds, warmup=1)
     per = len(calls) // (rounds + 1)
@@ -5738,41 +5748,34 @@ def multihost_worker(rank: str, nproc: str, port: str, out: str) -> None:
     dist.destroy_process_group()
 
 
-def phase_multihost_path():
-    """Two processes on the one card (``multihost_worker``), spawned in
-    fresh interpreters after the kernels and the native tokenizer are
-    built here (the workers only load them), on a localhost coordinator;
-    each worker's output goes to a file, and a worker that fails or does
-    not end in ``MH_TIMEOUT_S`` fails the phase (both are killed). Both
-    must return the same distributed encode, and print their backend
-    ("gloo+host": two processes on one card)."""
-    import socket
-    from embeddings_tpu_torch.ops import _cuda
-    from embeddings_tpu_torch.tokenizer import native
-    _cuda.build(*SOURCES)
-    native.build()
+def _spawn_workers(tag: str, n: int, call: str, args_of, env_of=None,
+                   timeout: float = MH_TIMEOUT_S) -> tuple[list, float]:
+    """Run ``n`` workers in fresh interpreters (``chip_smoke.<call>(*
+    args_of(rank))``, with ``env_of(rank)`` as their environment), each
+    log in ``OUT_DIR/<tag>_<rank>.log``; a worker that fails, or not
+    ending in ``timeout`` seconds, fails the phase (all are killed).
+    Returns their JSON outputs (``OUT_DIR/<tag>_<rank>.json``, the
+    last of each worker's arguments) and the wall seconds."""
     OUT_DIR.mkdir(exist_ok=True)
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        port = sock.getsockname()[1]
-    outs = [OUT_DIR / f"multihost_{r}.json" for r in range(MH_PROCS)]
-    logs = [OUT_DIR / f"multihost_{r}.log" for r in range(MH_PROCS)]
+    outs = [OUT_DIR / f"{tag}_{r}.json" for r in range(n)]
+    logs = [OUT_DIR / f"{tag}_{r}.log" for r in range(n)]
     for f in outs:
         f.unlink(missing_ok=True)
     procs = []
     t0 = time.perf_counter()
     try:
-        for r in range(MH_PROCS):
+        for r in range(n):
             with open(logs[r], "w") as log:
                 procs.append(subprocess.Popen(
                     [sys.executable, "-c", "import sys, chip_smoke; "
-                     "chip_smoke.multihost_worker(*sys.argv[1:])", str(r),
-                     str(MH_PROCS), str(port), str(outs[r])], cwd=ROOT,
-                    stdout=log, stderr=subprocess.STDOUT))
+                     f"chip_smoke.{call}(*sys.argv[1:])",
+                     *map(str, args_of(r)), str(outs[r])], cwd=ROOT,
+                    stdout=log, stderr=subprocess.STDOUT,
+                    env=None if env_of is None else env_of(r)))
         while True:
             codes = [p.poll() for p in procs]
             if None not in codes or any(codes) or \
-                    time.perf_counter() - t0 > MH_TIMEOUT_S:
+                    time.perf_counter() - t0 > timeout:
                 break  # all ended, one failed, or too long: kill the rest
             time.sleep(0.5)
     finally:
@@ -5781,12 +5784,41 @@ def phase_multihost_path():
                 p.kill()
             p.wait()
     wall = time.perf_counter() - t0
-    tails = {r: logs[r].read_text()[-3000:] for r in range(MH_PROCS)}
-    check(len(procs) == MH_PROCS
-          and all(p.returncode == 0 for p in procs),
-          f"multihost workers exited {[p.returncode for p in procs]} "
-          f"after {wall:.1f} s: {tails}")
-    res = [json.loads(f.read_text()) for f in outs]
+    tails = {r: logs[r].read_text()[-3000:] for r in range(n)}
+    check(len(procs) == n and all(p.returncode == 0 for p in procs),
+          f"{tag} workers exited {[p.returncode for p in procs]} after "
+          f"{wall:.1f} s: {tails}")
+    return [json.loads(f.read_text()) for f in outs], wall
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _prebuild() -> None:
+    """Build the kernels and the native tokenizer here, so that the
+    workers only load them."""
+    from embeddings_tpu_torch.ops import _cuda
+    from embeddings_tpu_torch.tokenizer import native
+    _cuda.build(*SOURCES)
+    native.build()
+
+
+def phase_multihost_path():
+    """Two processes on the one card (``multihost_worker``), spawned in
+    fresh interpreters after the kernels and the native tokenizer are
+    built here (the workers only load them), on a localhost coordinator;
+    each worker's output goes to a file, and a worker that fails or does
+    not end in ``MH_TIMEOUT_S`` fails the phase (both are killed). Both
+    must return the same distributed encode, and print their backend
+    ("gloo+host": two processes on one card)."""
+    _prebuild()
+    port = _free_port()
+    res, wall = _spawn_workers("multihost", MH_PROCS, "multihost_worker",
+                               lambda r: (r, MH_PROCS, port))
     check(len({r["encode"]["sha256"] for r in res}) == 1,
           "the processes' distributed encodes differ")
     for r in res:
@@ -5803,6 +5835,539 @@ def phase_multihost_path():
          coordinator=f"tcp://127.0.0.1:{port}", wall_s=wall,
          model="bge-base-en-v1.5 (random init, numpy seed 0, vocab 30528) "
                "q4_0 packed", workers=res)
+
+
+# ---------------------------------------------------------------------------
+# four cards of one host: one process driving all four (multicard_path,
+# the JAX package's single-host mesh over every device) and four processes
+# over NCCL, one card each (nccl_path)
+# ---------------------------------------------------------------------------
+
+MC_CARDS = 4
+EXPLICIT_PHASES: set = set()  # the phases --phases named
+# data parallelism over the four cards at the timing shape (a card: B=32)
+MC_DP_SHAPE = (B, L)
+MC_ROUNDS = 3  # alternating timing rounds a mesh
+
+
+def _four_cards(phase: str) -> bool:
+    """True where four cards are visible. With fewer, a phase of the
+    default list prints one "not run" line and the script goes on; one
+    that --phases named fails."""
+    import torch
+    n = torch.cuda.device_count()
+    if n >= MC_CARDS:
+        return True
+    check(phase not in EXPLICIT_PHASES,
+          f"{phase} needs {MC_CARDS} cards; {n} visible")
+    note = f"not run: {n} card{'' if n == 1 else 's'} visible"
+    RESULTS[phase] = {"phase": phase, "not_run": note}
+    print(json.dumps({phase: note}), flush=True)
+    return False
+
+
+def _smi_lines() -> list:
+    """nvidia-smi's name and power limit, one line a card."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()
+
+
+def _card_kernels(dev, rng) -> dict:
+    """K1 and K3 at bge's four shapes, K2 at B=128, L=256 (ragged) and
+    K8a at bge's CP shard, launched on ``dev`` while cuda:0 is current,
+    each against its plain version on ``dev`` at its tolerance; every one
+    launched (its counter rose)."""
+    import torch
+    from embeddings_tpu_torch.ops import attention as A, qmatmul as Q
+    before = read_counts()
+    out = {}
+    for name, (K, N, epi) in K1_SHAPES.items():
+        args, kw, qt = k1_inputs(rng, M, K, N, "q4_0", True, epi, dev)
+        out[f"K1_{name}"] = compare(Q.qmatmul(*args.values(), **kw),
+                                    Q.qmatmul_ref(*args.values(), **kw),
+                                    K1_RTOL, K1_ATOL_RMS)
+        kept = Q.keep_int8_weight(qt).int8
+        out[f"K3_{name}"] = compare(
+            Q.qmatmul(*args.values(), int8_compute=True, int8_weight=kept,
+                      **kw),
+            Q.qmatmul_int8_ref(*args.values(), **kw), K3_RTOL, K3_ATOL_RMS)
+        del args, kw, qt, kept
+    lens = rng.integers(1, L + 1, B)
+    lens[0], lens[1] = 0, L
+    out["K2"] = _k2_case(rng, B, L, lens.tolist(), dev)
+    Bx, Lc, Lx = K8A_CASES[0]
+    q, kv, lens = _cp_attn_inputs(rng, Bx, Lc, Lx, dev, fused_q=True)
+    kw = dict(B=Bx, Lc=Lc, L=Lx, H=H, D=D)
+    out["K8a"] = compare(A.fused_attention_cp(q, kv, lens, **kw),
+                         A.fused_attention_cp_ref(q, kv, lens, **kw),
+                         K2_RTOL, K2_ATOL_RMS)
+    torch.cuda.synchronize(dev)
+    added = {k: read_counts()[k] - n for k, n in before.items()}
+    for key, r in out.items():
+        check(r["ok"] and r.get("zero_rows_exact", True),
+              f"{key} on {dev} disagrees: {r}")
+    check(added == only(K1=4, K3=4, K3_rows=4, K3_requant=4, K2=1, K8a=1)
+          and torch.cuda.current_device() == 0,
+          f"the kernels on {dev}: launches {added}, current device "
+          f"{torch.cuda.current_device()}")
+    return {k: dict(max_abs_err=r["max_abs_err"], ok=r["ok"])
+            for k, r in out.items()}
+
+
+def _covered_ms(edges) -> float:
+    """The ms that at least one of the (start, end) us intervals
+    covers."""
+    total, reach = 0.0, None
+    for a, b in sorted(edges):
+        if reach is None or a > reach:
+            total, reach = total + (b - a), b
+        elif b > reach:
+            total, reach = total + (b - reach), b
+    return total / 1e3
+
+
+def card_profile(fn, devices) -> dict:
+    """One call of fn's device events by card (torch.profiler, one
+    warm-up step, 20 ms gaps at both edges as in ``device_profile``): on
+    each of ``devices`` (and any other card the call touched), its matmul
+    (``qmm_wgmma_kernel``), attention (``attn_sm90_kernel``),
+    row-quantization and NCCL kernels and its copies; its busy ms, the
+    time at least one of them runs (NCCL's own stream overlaps the
+    compute stream, and an NCCL kernel's time includes its wait for the
+    other processes), the NCCL kernels' share of it, and its idle share
+    over the call's span (the first start to the last end on any card)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+    gap_s = 0.02
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        for _ in range(2):
+            time.sleep(gap_s)
+            fn()
+            for d in devices:
+                torch.cuda.synchronize(d)
+            time.sleep(gap_s)
+            prof.step()
+    kinds = {"qmm_wgmma_kernel": "matmuls", "attn_sm90_kernel": "attention",
+             "quant_rows_kernel": "row_quant", "nccl": "collectives",
+             "Memcpy": "copies"}
+
+    def card():
+        return {"matmuls": 0, "attention": 0, "row_quant": 0,
+                "collectives": 0, "copies": 0, "other": 0, "edges": [],
+                "nccl_edges": []}
+    per = {torch.device(d).index: card() for d in devices}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA \
+                or e.name.startswith("ProfilerStep"):
+            continue
+        c = per.setdefault(e.device_index, card())
+        kind = next((v for k, v in kinds.items() if k in e.name), "other")
+        c[kind] += 1
+        edge = (e.time_range.start, e.time_range.end)
+        c["edges"].append(edge)
+        if kind == "collectives":
+            c["nccl_edges"].append(edge)
+    edges = [x for c in per.values() for x in c["edges"]]
+    span = ((max(b for _, b in edges) - min(a for a, _ in edges)) / 1e3
+            if edges else 0.0)
+    for c in per.values():
+        c["busy_ms"] = _covered_ms(c.pop("edges"))
+        c["collective_ms"] = _covered_ms(c.pop("nccl_edges"))
+        c["idle_share"] = 1 - c["busy_ms"] / span if span else 1.0
+    return {"span_ms": span, "cards": per}
+
+
+def _random_batch(shape):
+    """Random bge ids of ``shape`` (numpy seed 1) and an all-ones mask:
+    the timed forwards' input, the same in every process."""
+    rng = np.random.default_rng(1)
+    ids = rng.integers(1000, 30000, shape).astype(np.int32)
+    return ids, np.ones_like(ids)
+
+
+def _mc_case(name: str, eng, single, one_card, texts, want: dict,
+             per_card: dict, shape) -> dict:
+    """One mesh over the four cards: encode_batch with exact launch
+    counts and no plain-version call, cosine >= 0.999 to the
+    single-device Engine; the profile's kernels on every card, ``per_card``
+    of each on each; then the forward timed (CUDA events, MC_ROUNDS
+    alternating rounds) beside the single-device forward and the same mesh
+    on one card (``one_card``)."""
+    import torch
+    with plain_calls() as calls:
+        emb, counts, n, wall = _run_counted(eng, texts)
+    check(n == 1 and counts == want and not any(calls.values()),
+          f"{name}: launches {counts} over {n} forwards, want {want}, "
+          f"plain {calls}")
+    cos = _row_cos(emb, single.encode_batch(texts))
+    norms = np.linalg.norm(emb, axis=1)
+    check(np.isfinite(emb).all() and np.abs(norms - 1).max() < 1e-3
+          and cos.min() >= 0.999,
+          f"{name}: vs the single-device Engine min cos {cos.min()}")
+    ids, mask = _random_batch(shape)
+    prof = card_profile(lambda: eng._forward(ids, mask),
+                        [torch.device("cuda", c) for c in range(MC_CARDS)])
+    per_card = {"row_quant": 0, "collectives": 0, **per_card}
+    for c in range(MC_CARDS):
+        got = {k: prof["cards"][c][k] for k in per_card}
+        check(got == per_card, f"{name}: card {c} ran {got}, want "
+              f"{per_card} ({prof['cards']})")
+    times = alternating_ms(
+        {"four_cards": lambda: eng._forward(ids, mask),
+         "one_card": lambda: one_card._forward(ids, mask),
+         "single_device": lambda: single._forward(ids, mask)},
+        rounds=MC_ROUNDS)
+    torch.cuda.synchronize()
+    return dict(mesh=dict(eng.mesh.shape),
+                devices=[str(d) for d in eng.mesh.devices.flat],
+                launches={k: v for k, v in counts.items() if v},
+                forwards=n, wall_s=wall,
+                mesh_vs_single_device_min_cos=float(cos.min()),
+                per_card=per_card, profile=prof,
+                forward_ms={k: v[0] for k, v in times.items()},
+                forward_ms_range={k: v[1] for k, v in times.items()})
+
+
+def phase_multicard_path():
+    """One process drives four cards (needs four; "not run" otherwise):
+    bge-base-en-v1.5 q4_0 packed, random weights from numpy seed 0, full
+    width and depth. (a) Each card alone: K1 and K3 at bge's four shapes,
+    K2 and K8a launched on cuda:1-3 while cuda:0 is current, against their
+    plain versions; an Engine on cuda:3 bit-equal to cuda:0's on 256 STS
+    sentences (48 K1 + 12 K2 a forward). (b) Meshes over the four cards
+    (``devices=None``, the JAX package's rule): DP 4 x 1 at B=128, L=256
+    (48 K1 + 12 K2 a card: a model axis of 1 runs the fused tree); DP x
+    TP 2 x 2 and TP 1 x 4 at B=32, L=512 (72 K1 + 12 K2 a card); int8 TP
+    1 x 4 (q, k, v on K1, the rest K3); CP 2 x 2 (bge, 48 K1 + 12 K8a a
+    card) and CP 1 x 4 (nomic-embed-text-v1 at B=4, L=2,048: 60 K1 + 12
+    K8b a card). Each against the single-device Engine (cosine >= 0.999),
+    its kernels counted on every card in the profile, and timed beside the
+    single-device forward and the same mesh on cuda:0 alone."""
+    import torch
+    from embeddings_tpu_torch.parallel import make_mesh, make_mesh_cp
+    if not _four_cards("multicard_path"):
+        return
+    torch.cuda.set_device(0)
+    cards = [torch.device("cuda", c) for c in range(MC_CARDS)]
+    cuda0 = cards[0]
+    host = {"nvidia_smi": _smi_lines(), "peer_access": {
+        f"{a}->{b}": torch.cuda.can_device_access_peer(a, b)
+        for a in range(MC_CARDS) for b in range(MC_CARDS) if a != b}}
+    for key, args in (("topo", ["topo", "-m"]),
+                      ("nvlink", ["nvlink", "--status"])):
+        run = subprocess.run(["nvidia-smi", *args], capture_output=True,
+                             text=True, timeout=60)
+        host[key] = (run.stdout + run.stderr).splitlines()
+    print(json.dumps({"multicard_host": host}), flush=True)
+    saved = read_counts()  # comparison launches are not path launches
+    rng = np.random.default_rng(21)
+    alone = {str(d): _card_kernels(d, rng) for d in cards[1:]}
+    set_counts(saved)
+    texts = _sts_sentences(MH_SENTENCES)
+    e0 = _bge_base_engine()
+    e3 = _bge_base_engine(device=cards[3])
+    check(e3.device == cards[3] and e3.params["layers"]["attn"]["qkv"]["w"]
+          .codes.device == cards[3], f"the cuda:3 Engine is on {e3.device}")
+    n = n_bucketed_forwards(e3, texts)
+    with plain_calls() as calls:
+        reset_counts()
+        emb3 = e3.encode_batch(texts)
+        counts = read_counts()
+    emb0 = e0.encode_batch(texts)
+    check(counts == only(K1=48 * n, K2=12 * n) and not any(calls.values()),
+          f"the cuda:3 Engine: launches {counts} over {n} forwards, plain "
+          f"{calls}")
+    check(np.array_equal(emb3, emb0), f"the cuda:3 Engine differs from "
+          f"cuda:0's: max abs {np.abs(emb3 - emb0).max()}")
+    out = {"host": host, "cards_alone": alone,
+           "engine_cuda3": dict(sentences=len(texts), forwards=n,
+                                launches={k: v for k, v in counts.items()
+                                          if v},
+                                bit_equal_to_cuda0=True),
+           "model": "bge-base-en-v1.5 (random init, numpy seed 0, vocab "
+                    "30528) q4_0 packed; nomic-embed-text-v1 for CP 1 x 4"}
+    del e3, e0
+    Bd, Ld = MC_DP_SHAPE
+    Bt, Lt = TP_SHAPE
+    bge = dict(batch_size=Bt, max_seq_len=Lt)
+    singles = {"dp": _bge_base_engine(batch_size=Bd, max_seq_len=Ld),
+               "bge": _bge_base_engine(**bge),
+               "bge8": _bge_base_engine(int8_compute=True, **bge),
+               "nomic": _family_engine("nomic", batch_size=CP_NOMIC[0])}
+    texts_of = {"dp": [_joined(i * 18, 40) for i in range(Bd)],
+                "bge": [_joined(i * 60, 60) for i in range(Bt)],
+                "nomic": [_joined(i * 250, 250) for i in range(CP_NOMIC[0])]}
+    nomic = functools.partial(_family_engine, "nomic")
+    cases = {
+        # name: (make, mesh shape, engine, its settings, single, texts,
+        #        counts of the forward, per card)
+        "dp_4x1": (make_mesh, (4, 1), _bge_base_engine,
+                   dict(batch_size=Bd, max_seq_len=Ld), "dp", "dp",
+                   only(K1=48 * 4, K2=NL * 4),
+                   dict(matmuls=48, attention=NL)),
+        "dp_tp_2x2": (make_mesh, (2, 2), _bge_base_engine, bge, "bge",
+                      "bge", only(K1=6 * NL * 4, K2=NL * 4),
+                      dict(matmuls=6 * NL, attention=NL)),
+        "tp_1x4": (make_mesh, (1, 4), _bge_base_engine, bge, "bge", "bge",
+                   only(K1=6 * NL * 4, K2=NL * 4),
+                   dict(matmuls=6 * NL, attention=NL)),
+        "int8_tp_1x4": (make_mesh, (1, 4), _bge_base_engine,
+                        dict(int8_compute=True, **bge), "bge8", "bge",
+                        only(K1=3 * NL * 4, K3=3 * NL * 4,
+                             K3_rows=3 * NL * 4, K2=NL * 4),
+                        dict(matmuls=6 * NL, attention=NL,
+                             row_quant=3 * NL)),
+        "cp_2x2": (make_mesh_cp, (2, 2), _bge_base_engine, bge, "bge",
+                   "bge", only(K1=4 * NL * 4, K8a=NL * 4),
+                   dict(matmuls=4 * NL, attention=NL)),
+        "cp_1x4": (make_mesh_cp, (1, 4), nomic,
+                   dict(batch_size=CP_NOMIC[0]), "nomic", "nomic",
+                   only(K1=5 * NL * 4, K8b=NL * 4),
+                   dict(matmuls=5 * NL, attention=NL))}
+    for name, (make, (dp, ax), build, ec, single, tk, want,
+               per_card) in cases.items():
+        eng = build(mesh=make(dp, ax), **ec)
+        one = build(mesh=make(dp, ax, [cuda0] * (dp * ax)), **ec)
+        check(sorted(map(str, eng.mesh.devices.flat)) ==
+              sorted(map(str, cards)),
+              f"{name}: the mesh names {eng.mesh.devices.tolist()}")
+        Lx = TP_SHAPE[1] if tk == "bge" else (
+            Ld if tk == "dp" else CP_NOMIC[1])
+        check(all(len(eng.tokenize(t)) == Lx for t in texts_of[tk]),
+              f"{name}: texts do not fill L={Lx}")
+        out[name] = _mc_case(
+            name, eng, singles[single], one, texts_of[tk], want, per_card,
+            (len(texts_of[tk]), Lx))
+        line = out[name]
+        print(json.dumps({"multicard": name,
+                          "forward_ms": line["forward_ms"],
+                          "idle_share": [line["profile"]["cards"][c][
+                              "idle_share"] for c in range(MC_CARDS)]}),
+              flush=True)
+        del eng, one
+    emit("multicard_path", **out)
+
+
+NC_PROCS = 4
+NC_TIMEOUT_S = 300   # each spawn of four workers, start to exit
+NC_LAUNCHERS = ("torchrun", "jax")
+# the variables each launcher sets; a worker sees one set only
+NC_ENV = ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK", "LOCAL_RANK",
+          "LOCAL_WORLD_SIZE", "JAX_COORDINATOR_ADDRESS",
+          "JAX_NUM_PROCESSES", "JAX_PROCESS_ID")
+
+
+def _nc_env(launcher: str, rank: int, port: int) -> dict:
+    """A worker's environment as ``launcher`` would set it: torchrun's
+    (MASTER_ADDR / MASTER_PORT / WORLD_SIZE / RANK / LOCAL_RANK) or the
+    JAX package's (JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES /
+    JAX_PROCESS_ID), NCCL's warnings in the worker's log."""
+    import os
+    env = {k: v for k, v in os.environ.items() if k not in NC_ENV}
+    env.setdefault("NCCL_DEBUG", "WARN")
+    if launcher == "torchrun":
+        env.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                   WORLD_SIZE=str(NC_PROCS), RANK=str(rank),
+                   LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(NC_PROCS))
+    else:
+        env.update(JAX_COORDINATOR_ADDRESS=f"127.0.0.1:{port}",
+                   JAX_NUM_PROCESSES=str(NC_PROCS),
+                   JAX_PROCESS_ID=str(rank))
+    return env
+
+
+def nccl_worker(launcher: str, out: str) -> None:
+    """One of phase ``nccl_path``'s four processes: ``auto_initialize()``
+    from the launcher's variables alone, then the card of the port's card
+    rule (cuda:LOCAL_RANK under torchrun; its index among the processes of
+    its host under the JAX package's variables), never a hard-coded one;
+    ``global_devices()`` names four distinct cards. Under torchrun's
+    variables: (a) ``distributed_encode_batch`` of 256 STS sentences, 48
+    K1 + 12 K2 a forward, the gathered matrix bit-equal to this process's
+    encode of each quarter, cosine >= 0.99999 to one Engine's encode of
+    all; (b) meshes over the four processes at B=32, L=512, each
+    ``backend == "nccl"``: global (data=2, model=2) and (data=1, model=4),
+    72 K1 + 12 K2 a process, and (data=1, seq=4), 48 K1 + 12 K8a; cosine
+    >= 0.999 to the single-device Engine, each timed beside it with the
+    host ms in collectives, and its card's busy ms and idle share in one
+    profiled forward (``card_profile``). Under the JAX package's
+    variables: the card and the (data=1, model=4) mesh. Writes one JSON
+    line to ``out``."""
+    import hashlib
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT))
+    from embeddings_tpu_torch.ops import _cuda, attention as A
+    from embeddings_tpu_torch.parallel import (auto_initialize,
+                                               distributed_encode_batch,
+                                               global_devices, make_mesh,
+                                               make_mesh_cp, process_shard)
+    from embeddings_tpu_torch.runtime.engine import resolve_device
+    check(auto_initialize(), "torch.distributed is not up")
+    rank, nproc = dist.get_rank(), dist.get_world_size()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card = resolve_device(None)
+    # one host: a process's local index is its rank
+    check(card == torch.device("cuda", rank)
+          and torch.cuda.current_device() == rank,
+          f"rank {rank} ({launcher}): card {card}, current "
+          f"{torch.cuda.current_device()}")
+    every = global_devices()
+    check([str(e.device) for e in every] ==
+          [f"cuda:{r}" for r in range(nproc)]
+          and len({e.key for e in every}) == nproc,
+          f"rank {rank}: global devices {every}")
+    smi = _smi_lines()
+    res = {"rank": rank, "launcher": launcher, "card": str(card),
+           "nvidia_smi": smi[rank] if rank < len(smi) else None,
+           "global_devices": [(e.rank, str(e.device), e.key)
+                              for e in every],
+           "loaded_prebuilt": all(_cuda._target(n).exists()
+                                  for n in SOURCES)}
+    Bx, Lx = TP_SHAPE
+    mtexts = [_joined(i * 60, 60) for i in range(Bx)]
+    ec = dict(batch_size=Bx, max_seq_len=Lx)
+    single = _bge_base_engine(**ec)
+    on = single.params["layers"]["attn"]["qkv"]["w"].codes.device
+    check(on == card, f"rank {rank}: the Engine's weights on {on}")
+    res["single_device"] = _mh_forward_ms(single, TP_SHAPE)
+    cases = {"model_1x4": (make_mesh, (1, 4), only(K1=6 * NL, K2=NL),
+                           "K2")}
+    if launcher == "torchrun":
+        # (a) the distributed encode
+        eng = _bge_base_engine()
+        texts = _sts_sentences(MH_SENTENCES)
+        mine = texts[process_shard(len(texts))]
+        n = n_bucketed_forwards(eng, mine)
+        reset_counts()
+        with plain_calls() as calls:
+            t0 = time.perf_counter()
+            emb, routes = _routed(A.fused_attention,
+                                  lambda: distributed_encode_batch(eng,
+                                                                   texts))
+            wall = time.perf_counter() - t0
+        counts = read_counts()
+        check(counts == only(K1=48 * n, K2=12 * n)
+              and not any(calls.values()) and routes == {"sm90": 12 * n},
+              f"rank {rank} distributed encode: launches {counts} over {n} "
+              f"forwards, K2 routes {routes}, plain {calls}")
+        quarters = np.concatenate([eng.encode_batch(texts[process_shard(
+            len(texts), count=nproc, index=p)]) for p in range(nproc)])
+        whole = eng.encode_batch(texts)
+        check(emb.shape == (len(texts), E)
+              and np.array_equal(emb, quarters),
+              f"rank {rank}: the gathered quarters differ from this "
+              f"process's encode of them (max abs "
+              f"{np.abs(emb - quarters).max()})")
+        cos = _row_cos(emb, whole)
+        check(cos.min() >= 0.99999, f"rank {rank}: distributed vs one "
+              f"Engine's encode_batch, min cos {cos.min()}")
+        res["encode"] = dict(
+            sentences=len(texts), own=len(mine), forwards=n,
+            launches={k: v for k, v in counts.items() if v},
+            k2_routes=routes, wall_s=wall,
+            max_abs_vs_local_encode_batch=float(np.abs(emb - whole).max()),
+            min_cos_vs_local_encode_batch=float(cos.min()),
+            sha256=hashlib.sha256(emb.tobytes()).hexdigest())
+        cases = {"global_2x2": (make_mesh, (2, 2),
+                                only(K1=6 * NL, K2=NL), "K2"),
+                 **cases,
+                 "seq_1x4": (make_mesh_cp, (1, 4), only(K1=4 * NL, K8a=NL),
+                             "K8a")}
+    for name, (make, (dp, ax), want, attn) in cases.items():
+        mesh = make(dp, ax)
+        check(mesh.backend == "nccl", f"{name} rank {rank}: backend "
+              f"{mesh.backend}")
+        eng = _bge_base_engine(mesh=mesh, **ec)
+        check(all(len(eng.tokenize(t)) == Lx for t in mtexts),
+              f"{name}: texts do not fill L={Lx}")
+        if attn == "K2":
+            row = _tp_check(f"{name} rank {rank}", eng, single, mtexts,
+                            want, "K2")
+        else:
+            with plain_calls() as calls:
+                emb, counts, nf, wall = _run_counted(eng, mtexts)
+            routes = dict(A.fused_attention_cp.routes)
+            check(nf == 1 and counts == want and not any(calls.values())
+                  and routes == {"sm90": want["K8a"]},
+                  f"{name} rank {rank}: launches {counts} over {nf} "
+                  f"forwards, want {want}, K8a routes {routes}, plain "
+                  f"{calls}")
+            cos = _row_cos(emb, single.encode_batch(mtexts))
+            check(cos.min() >= 0.999, f"{name} rank {rank}: vs the "
+                  f"single-device Engine min cos {cos.min()}")
+            row = dict(launches={k: v for k, v in counts.items() if v},
+                       attention_routes=routes, forwards=nf, wall_s=wall,
+                       mesh_vs_single_device_min_cos=float(cos.min()))
+        ids, mask = _random_batch(TP_SHAPE)
+        prof = card_profile(lambda: eng._forward(ids, mask), [card])
+        res[name] = dict(row, mesh=dict(mesh.shape),
+                         ranks=mesh.ranks.tolist(), backend=mesh.backend,
+                         **_mh_forward_ms(eng, TP_SHAPE),
+                         profile=prof["cards"][card.index],
+                         profile_span_ms=prof["span_ms"])
+    Path(out).write_text(json.dumps(res))
+    print(json.dumps({"nccl_worker": res}), flush=True)
+    dist.destroy_process_group()
+
+
+def phase_nccl_path():
+    """Four processes, one card each, over NCCL (needs four cards; "not
+    run" otherwise): ``nccl_worker`` spawned four at a time in fresh
+    interpreters after the kernels are built here, once with torchrun's
+    variables (the distributed encode and three meshes) and once with the
+    JAX package's (the card rule and one mesh); each worker's log in
+    ``OUT_DIR/nccl_<launcher>_<rank>.log``. Every process must name
+    its own card, read "nccl" for each mesh, and the four must return the
+    same distributed encode."""
+    import torch
+    if not _four_cards("nccl_path"):
+        return
+    _prebuild()
+    out = {"processes": NC_PROCS, "nvidia_smi": _smi_lines(),
+           "torch": torch.__version__,
+           "nccl": str(torch.cuda.nccl.version()),
+           "model": "bge-base-en-v1.5 (random init, numpy seed 0, vocab "
+                    "30528) q4_0 packed"}
+    for launcher in NC_LAUNCHERS:
+        port = _free_port()
+        res, wall = _spawn_workers(
+            f"nccl_{launcher}", NC_PROCS, "nccl_worker",
+            lambda r: (launcher,),
+            lambda r, lc=launcher, pt=port: _nc_env(lc, r, pt),
+            timeout=NC_TIMEOUT_S)
+        check([r["card"] for r in res] ==
+              [f"cuda:{r}" for r in range(NC_PROCS)],
+              f"{launcher}: cards {[r['card'] for r in res]}")
+        if launcher == "torchrun":
+            check(len({r["encode"]["sha256"] for r in res}) == 1,
+                  "the processes' distributed encodes differ")
+        meshes = [k for k in res[0] if isinstance(res[0][k], dict)
+                  and "backend" in res[0][k]]
+        for r in res:
+            print(json.dumps({"nccl_worker": r["rank"],
+                              "launcher": launcher, "card": r["card"],
+                              "nvidia_smi": r["nvidia_smi"],
+                              **{k: {"backend": r[k]["backend"],
+                                     "forward_ms": r[k]["forward_ms"],
+                                     "collective_ms_a_forward":
+                                         r[k]["collective_ms_a_forward"],
+                                     "busy_ms": r[k]["profile"]["busy_ms"],
+                                     "nccl_kernel_ms":
+                                         r[k]["profile"]["collective_ms"],
+                                     "idle_share":
+                                         r[k]["profile"]["idle_share"]}
+                                 for k in meshes},
+                              "single_device_ms":
+                                  r["single_device"]["forward_ms"]}),
+                  flush=True)
+        out[launcher] = dict(coordinator=f"tcp://127.0.0.1:{port}",
+                             wall_s=wall, workers=res)
+    emit("nccl_path", **out)
 
 PHASES = {"device": phase_device, "build": phase_build, "k1": phase_k1,
           "k2": phase_k2, "k3": phase_k3, "k4k5": phase_k4k5,
@@ -5821,6 +6386,8 @@ PHASES = {"device": phase_device, "build": phase_build, "k1": phase_k1,
           "qwen2_path": phase_qwen2_path, "k8": phase_k8,
           "cp_path": phase_cp_path, "capi_path": phase_capi_path,
           "tp_path": phase_tp_path, "multihost_path": phase_multihost_path,
+          "multicard_path": phase_multicard_path,
+          "nccl_path": phase_nccl_path,
           "distilbert_path": phase_distilbert_path,
           "roberta_path": phase_roberta_path,
           "roformer_path": phase_roformer_path,
@@ -5834,10 +6401,14 @@ PHASES = {"device": phase_device, "build": phase_build, "k1": phase_k1,
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", default=",".join(PHASES),
+    ap.add_argument("--phases", default=None,
                     help="comma-separated subset of " + ",".join(PHASES)
-                    + " (default: all)")
-    phases = ap.parse_args().phases.split(",")
+                    + " (default: all; multicard_path and nccl_path need "
+                    "four cards: in the default list they print \"not "
+                    "run\" on fewer, named here they fail)")
+    named = ap.parse_args().phases
+    phases = named.split(",") if named else list(PHASES)
+    EXPLICIT_PHASES.update(phases if named else ())
     import torch
     if not torch.cuda.is_available():
         fail("no CUDA device: this script runs the port on the GPU")

@@ -31,6 +31,7 @@ import os
 import sys
 import time
 from pathlib import Path
+from typing import Sequence
 
 
 def _add_model_args(p: argparse.ArgumentParser) -> None:
@@ -45,21 +46,46 @@ def _add_model_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--max-seq", type=int, default=512)
     p.add_argument("--batch-size", type=int, default=32)
     p.add_argument("--dp", type=int, default=None,
-                   help="data-parallel mesh size (default 1); the mesh "
-                        "names --device dp*tp (or dp*sp) times")
+                   help="data-parallel mesh size (default: every visible "
+                        "card // tp, or 1 with an explicit --device)")
     p.add_argument("--tp", type=int, default=1,
                    help="tensor-parallel (Megatron) mesh size "
                         "(exclusive with --sp)")
     p.add_argument("--sp", type=int, default=1,
-                   help="sequence/context-parallel mesh size; the mesh "
-                        "names --device dp*sp times (exclusive with --tp)")
+                   help="sequence/context-parallel mesh size (exclusive "
+                        "with --tp)")
     p.add_argument("--int8", action="store_true",
                    help="int8 tensor-core compute for the quantized "
                         "matmuls (K3; adds ~2^-7-relative error on top of "
                         "the weight quantization)")
     p.add_argument("--device", default="cuda",
-                   help="cuda (default) or cpu (the kernels' plain "
-                        "PyTorch versions)")
+                   help="cuda (default: a mesh spreads over every visible "
+                        "card), cuda:N or cpu (the kernels' plain PyTorch "
+                        "versions); a mesh names an explicit device dp * "
+                        "tp (or dp * sp) times")
+
+
+def mesh_layout(device: str, dp: int | None, width: int,
+                visible: Sequence = ()) -> tuple[int, list]:
+    """(dp, devices) of the --dp x --tp (or --sp) mesh for --device
+    ``device``. The default unindexed "cuda" follows the JAX package's
+    device rule: the mesh spreads over ``visible`` (the caller passes
+    ``parallel.mesh.mesh_devices(None)``: the visible cards, or every
+    process's card after ``initialize_distributed``), dp defaults to
+    their count // width and dp * width must equal it. An explicit device
+    ("cpu", "cuda:N") is named dp * width times (dp default 1): the
+    port's way to run a mesh on one card."""
+    if device != "cuda":
+        import torch
+        dp = dp or 1
+        return dp, [torch.device(device)] * (dp * width)
+    visible = list(visible)
+    if dp is None:
+        dp = len(visible) // width
+    if dp * width != len(visible):
+        raise ValueError(f"dp({dp}) x {width} != device count "
+                         f"{len(visible)}")
+    return dp, visible
 
 
 def _load_engine(args):
@@ -73,13 +99,17 @@ def _load_engine(args):
     sp = getattr(args, "sp", 1)
     if sp > 1 and args.tp > 1:
         raise SystemExit("--sp and --tp are mutually exclusive")
-    dp = args.dp or 1
-    if sp > 1:
+    if sp > 1 or args.tp > 1 or (args.dp or 0) > 1:
         from .parallel.context import make_mesh_cp
-        mesh = make_mesh_cp(dp, sp, devices=[device] * (dp * sp))
-    elif args.tp > 1 or dp > 1:
-        from .parallel.mesh import make_mesh
-        mesh = make_mesh(dp, args.tp, devices=[device] * (dp * args.tp))
+        from .parallel.mesh import make_mesh, mesh_devices
+        width = max(sp, args.tp)
+        try:
+            dp, devices = mesh_layout(
+                args.device, args.dp, width,
+                mesh_devices(None) if args.device == "cuda" else ())
+        except ValueError as exc:
+            raise SystemExit(f"error: {exc}") from None
+        mesh = (make_mesh_cp if sp > 1 else make_mesh)(dp, width, devices)
     ec = EngineConfig(max_seq_len=args.max_seq, batch_size=args.batch_size,
                       int8_compute=getattr(args, "int8", False))
     return load_model(args.model, dtype=args.dtype, engine_config=ec,

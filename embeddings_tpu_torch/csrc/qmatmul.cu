@@ -1028,14 +1028,16 @@ cudaError_t tensor_map(CUtensorMap* map, const void* p, int rows, int cols,
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-int sm_count() {
-  static int n = 0;
-  if (n == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
-  }
-  return n;
+// the caches below are per device, indexed by the current one, which the
+// caller sets to the operands' card before each launch (a launch on a
+// device past MAX_DEVICES is refused)
+constexpr int MAX_DEVICES = 64;
+
+int sm_count(int dev) {
+  static int n[MAX_DEVICES] = {};
+  if (n[dev] == 0)
+    cudaDeviceGetAttribute(&n[dev], cudaDevAttrMultiProcessorCount, dev);
+  return n[dev];
 }
 
 template <int KIND, bool PACKED, int BM, bool LN>
@@ -1043,8 +1045,12 @@ cudaError_t launch_k1(const CUtensorMap& xmap, const CUtensorMap& wmap,
                       const CUtensorMap& omap, const K1Args& a,
                       cudaStream_t stream) {
   auto kern = qmm_wgmma_kernel<KIND, PACKED, BM, LN>;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
   const size_t smem = k1_smem_bytes(BM, LN, LN ? a.cs : 0);
-  cudaError_t err = cudaFuncSetAttribute(
+  err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const int ntm = (a.M + BM - 1) / BM;
@@ -1067,16 +1073,19 @@ cudaError_t launch_k1(const CUtensorMap& xmap, const CUtensorMap& wmap,
     cfg.attrs = attr;
     cfg.numAttrs = 1;
     cfg.gridDim = dim3(a.cs, ntm);
-    static int fits[K1_CLUSTER_MAX + 1] = {};  // clusters at once, by cs
-    if (fits[a.cs] == 0) {
-      err = cudaOccupancyMaxActiveClusters(&fits[a.cs], kern, &cfg);
+    // clusters at once, by device and cs
+    static int fits[MAX_DEVICES][K1_CLUSTER_MAX + 1] = {};
+    int& fit = fits[dev][a.cs];
+    if (fit == 0) {
+      err = cudaOccupancyMaxActiveClusters(&fit, kern, &cfg);
       if (err != cudaSuccess) return err;
-      if (fits[a.cs] < 1) return cudaErrorInvalidConfiguration;
+      if (fit < 1) return cudaErrorInvalidConfiguration;
     }
-    cfg.gridDim = dim3(a.cs, ntm < fits[a.cs] ? ntm : fits[a.cs]);
+    cfg.gridDim = dim3(a.cs, ntm < fit ? ntm : fit);
   } else {
     const int tiles = ntm * ntn;
-    cfg.gridDim = dim3(tiles < sm_count() ? tiles : sm_count());
+    const int sms = sm_count(dev);
+    cfg.gridDim = dim3(tiles < sms ? tiles : sms);
   }
   void* args[] = {const_cast<CUtensorMap*>(&xmap),
                   const_cast<CUtensorMap*>(&wmap),

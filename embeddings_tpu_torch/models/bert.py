@@ -817,7 +817,10 @@ def encode_tokens(params: Params, config: BertConfig,
             alibi = p0["alibi_slopes"]
         else:
             pos0 = torch.arange(L, device=token_ids.device)[None]
-            fbs = [_logit_bias(p, config, pos0) for p in shards]
+            # each shard's heads' bias on its own device
+            fbs = [_logit_bias(p, config, pos0 if tp_axis is None
+                               else tp_axis.on(j, pos0))
+                   for j, p in enumerate(shards)]
             if (prefix_mask and use_kernels and not config.causal
                     and attn_ops.bias_supported(L, fbs[0].shape[1], D,
                                                 lane)):
@@ -958,7 +961,10 @@ def encode_packed(params: Params, config: BertConfig,
     n_local = len(shards)  # this process's shards of the axis
     lane = attn_ops.LANE if tp_axis is None else attn_ops.KERNEL_LANE
     seg = seg_ids.to(torch.int32).contiguous()
-    biases = [_logit_bias(p, config, position_ids) for p in shards]
+    # each shard's heads' bias on its own device
+    biases = [_logit_bias(p, config, position_ids if tp_axis is None
+                          else tp_axis.on(j, position_ids))
+              for j, p in enumerate(shards)]
     prenorm = config.norm_style == "pre"
     # the pre-norm stack and causal rows run packed rows on the einsum
     # path, as in JAX (the segmented kernels have no causal mode)
@@ -996,7 +1002,8 @@ def encode_packed(params: Params, config: BertConfig,
         layers = params
     else:
         place = tp_axis.place
-        mask_bias = [None] * n_local if mask_bias is None else mask_bias
+        mask_bias = ([None] * n_local if mask_bias is None else
+                     [tp_axis.on(j, mb) for j, mb in enumerate(mask_bias)])
         segments, ranges, rope = place(segments), place(ranges), place(rope)
         layers = shards
     if prenorm:

@@ -19,6 +19,8 @@ import threading
 import time
 from pathlib import Path
 
+import torch
+
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
@@ -91,6 +93,20 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(_target(name)))
             _libs[name] = lib
         return lib
+
+
+def on_device(what: str, device: torch.device, **operands):
+    """The guard of one kernel launch on ``device``: raises a
+    ``ValueError`` naming the first operand (a tensor, or None for an
+    absent one) that lies elsewhere, since the kernel would read a
+    foreign pointer; else returns the context that makes ``device`` the
+    CUDA runtime's current one for the launch (the libraries' per-device
+    attributes and caches read it). On one card it changes nothing."""
+    for name, t in operands.items():
+        if t is not None and t.device != device:
+            raise ValueError(f"{what}: operand {name} is on {t.device}, "
+                             f"the launch on {device}")
+    return torch.cuda.device(device)
 
 
 def check(status: int, error_string, what: str) -> None:

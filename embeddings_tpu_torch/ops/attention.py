@@ -359,10 +359,8 @@ def fused_attention_bias(qkv: torch.Tensor, lengths: torch.Tensor,
         return fused_attention_bias_ref(qkv, lengths, bias, B=B, L=L, H=H,
                                         D=D)
     _check_cuda(qkv, lengths)
-    if bias.device != qkv.device or not bias.is_contiguous() \
-            or bias.data_ptr() % 16:
-        raise ValueError("bias must be contiguous on qkv's device (16-byte "
-                         "aligned)")
+    if not bias.is_contiguous() or bias.data_ptr() % 16:
+        raise ValueError("bias must be contiguous (16-byte aligned)")
     out = torch.empty((B * L, H * D), dtype=qkv.dtype, device=qkv.device)
     if B == 0:
         return out
@@ -709,8 +707,8 @@ def _launch_cp(wrapper, q, kv, lengths, B, Lc, L, H, D) -> torch.Tensor:
     multiple of 8, 16-byte aligned) and kv (contiguous), int32 lengths,
     all on one device; counted on ``wrapper``."""
     _check_cuda(kv, lengths)
-    if q.device != kv.device or q.dtype != kv.dtype:
-        raise TypeError("q and kv must be bf16 on one device")
+    if q.dtype != kv.dtype:
+        raise TypeError("q and kv must both be bf16")
     if q.stride(1) != 1 or q.stride(0) % 8 or q.data_ptr() % 16:
         raise ValueError("q needs unit column stride, a row stride that is "
                          "a multiple of 8 and 16-byte alignment")
@@ -780,40 +778,46 @@ def _launch(what, mode, qkv, out, B, L, H, D, hi, *, lengths=None,
     returns the route. The fused layout reads q, k and v as column slices
     of qkv [B*L, 3E]; with ``cp`` = (q, Lc) mode 4 reads the CP layout
     instead: q rows of q's stride and qkv as the gathered kv [B*L, 2E]."""
-    from ._cuda import check
+    from ._cuda import check, on_device
     route = attention_kernel(mode, D, emit, cp is not None, i8s)
     stream = torch.cuda.current_stream(qkv.device).cuda_stream
 
     def ptr(t):
         return None if t is None else t.data_ptr()
     lib = _lib90()
-    if cp is not None:
-        q, Lc = cp
-        status = lib.attn90_cp_launch(
-            q.data_ptr(), qkv.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-            B, Lc, L, H, D, q.stride(0), _scale(D), hi, stream)
-    elif emit == "no" and not i8s:
-        status = lib.attn90_launch(
-            qkv.data_ptr(), *map(ptr, (lengths, seg, kbs, kbe, slopes, bias,
-                                       out)),
-            mode, B, L, H, D, W, _scale(D), hi, stream)
-    else:
-        # K2e / K4e / K2i8; the f32 scratch of "only" is freed after the
-        # launch: the allocator reuses it only for work queued behind it on
-        # this stream
-        shape = emit_scratch_shape(B, L, H, D, emit)
-        scratch = (None if shape is None else
-                   torch.empty(shape, dtype=torch.float32,
-                               device=qkv.device))
-        if i8s:
-            status = lib.attn90_i8_launch(
-                qkv.data_ptr(), *map(ptr, (lengths, out, o8, os, scratch)),
-                EMITS.index(emit), B, L, H, D, _scale(D), stream)
+    with on_device(what, qkv.device, lengths=lengths, seg=seg, kbs=kbs,
+                   kbe=kbe, bias=bias, slopes=slopes, out=out, o8=o8, os=os,
+                   q=None if cp is None else cp[0]):
+        if cp is not None:
+            q, Lc = cp
+            status = lib.attn90_cp_launch(
+                q.data_ptr(), qkv.data_ptr(), lengths.data_ptr(),
+                out.data_ptr(), B, Lc, L, H, D, q.stride(0), _scale(D), hi,
+                stream)
+        elif emit == "no" and not i8s:
+            status = lib.attn90_launch(
+                qkv.data_ptr(), *map(ptr, (lengths, seg, kbs, kbe, slopes,
+                                           bias, out)),
+                mode, B, L, H, D, W, _scale(D), hi, stream)
         else:
-            status = lib.attn90_emit_launch(
-                qkv.data_ptr(), *map(ptr, (lengths, seg, out, o8, os,
-                                           scratch)),
-                mode, EMITS.index(emit), B, L, H, D, _scale(D), hi, stream)
+            # K2e / K4e / K2i8; the f32 scratch of "only" is freed after
+            # the launch: the allocator reuses it only for work queued
+            # behind it on this stream
+            shape = emit_scratch_shape(B, L, H, D, emit)
+            scratch = (None if shape is None else
+                       torch.empty(shape, dtype=torch.float32,
+                                   device=qkv.device))
+            if i8s:
+                status = lib.attn90_i8_launch(
+                    qkv.data_ptr(), *map(ptr, (lengths, out, o8, os,
+                                               scratch)),
+                    EMITS.index(emit), B, L, H, D, _scale(D), stream)
+            else:
+                status = lib.attn90_emit_launch(
+                    qkv.data_ptr(), *map(ptr, (lengths, seg, out, o8, os,
+                                               scratch)),
+                    mode, EMITS.index(emit), B, L, H, D, _scale(D), hi,
+                    stream)
     check(status, lib.attn90_error_string, what)
     return route
 
@@ -844,15 +848,16 @@ def _check_segments(qkv, seg_ids, B, L, H, D) -> None:
 
 
 def _check_cuda(qkv, *ints) -> None:
-    """The CUDA wrappers' operand rules: bf16 qkv, int32 tables on the
-    same device, all contiguous (qkv 16-byte aligned)."""
+    """The CUDA wrappers' operand rules: bf16 qkv, int32 tables, all
+    contiguous (qkv 16-byte aligned); the devices are checked at the
+    launch (``_cuda.on_device``)."""
     if qkv.device.type != "cuda":
         raise ValueError(f"attention runs on cuda or cpu, not {qkv.device}")
     if qkv.dtype != torch.bfloat16:
         raise TypeError(f"the CUDA attention takes bf16, got {qkv.dtype}")
     for t in ints:
-        if t.dtype != torch.int32 or t.device != qkv.device:
-            raise TypeError("index tables must be int32 on qkv's device")
+        if t.dtype != torch.int32:
+            raise TypeError(f"index tables must be int32, got {t.dtype}")
     if not all(t.is_contiguous() for t in (qkv, *ints)) \
             or qkv.data_ptr() % 16:
         raise ValueError("qkv and the index tables must be contiguous "

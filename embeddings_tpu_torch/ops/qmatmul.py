@@ -382,20 +382,21 @@ def qmatmul(x: torch.Tensor, codes: torch.Tensor, scales: torch.Tensor,
                     "matmul", K, N)
     if x.device.type == "cpu":
         return qmatmul_ref(x, codes, scales, mins, bias, **kw)
-    ptr, out = _cuda_operands("qmatmul", x, codes, scales, mins, bias, M, N,
-                              **kw)
+    held, out = _cuda_operands("qmatmul", x, codes, scales, mins, bias, M,
+                               N, **kw)
     bm, _ = k1_tile(M, N, epilogue, _sm_count(x.device))
     em = _emit_operands(x.device, M, N, epilogue, emit_quantized)
     if M == 0:
         return _emit_result(out, em, emit_quantized)
     lib = _lib()
-    status = lib.qmm_launch(
-        ptr["x"], ptr["codes"], ptr["scales"], ptr.get("mins"), ptr["bias"],
-        ptr.get("residual"), ptr.get("ln_scale"), ptr.get("ln_bias"),
-        _ptr(out), *_emit_ptrs(em), M, N, K, _KIND_ID[kind], int(packed),
-        EPILOGUES.index(epilogue), EMITS.index(emit_quantized), bm,
-        float(ln_eps), torch.cuda.current_stream(x.device).cuda_stream)
-    from ._cuda import check
+    from ._cuda import check, on_device
+    with on_device("qmatmul", x.device, out=out, **held, **em):
+        status = lib.qmm_launch(
+            *(_ptr(held.get(k)) for k in ("x", "codes", "scales", "mins")),
+            *_epilogue_ptrs(held), _ptr(out), *_emit_ptrs(em), M, N, K,
+            _KIND_ID[kind], int(packed), EPILOGUES.index(epilogue),
+            EMITS.index(emit_quantized), bm, float(ln_eps),
+            torch.cuda.current_stream(x.device).cuda_stream)
     check(status, lib.qmm_error_string, "qmatmul")
     _count(qmatmul, (K, N, epilogue), emit_quantized)
     qmatmul.routes[k1_route(M, N, epilogue, _sm_count(x.device))] += 1
@@ -441,8 +442,8 @@ def qmatmul_int8(x: torch.Tensor, codes: torch.Tensor, scales: torch.Tensor,
         return qmatmul_int8_ref(x, codes, scales, mins, bias,
                                 x_scale=x_scale, **kw)
     prequant = x_scale is not None
-    ptr, out = _cuda_operands("qmatmul_int8", x, codes, scales, mins, bias,
-                              M, N, **kw)
+    held, out = _cuda_operands("qmatmul_int8", x, codes, scales, mins,
+                               bias, M, N, **kw)
     em = _emit_operands(x.device, M, N, epilogue, emit_quantized)
     if M == 0:
         return _emit_result(out, em, emit_quantized)
@@ -452,27 +453,27 @@ def qmatmul_int8(x: torch.Tensor, codes: torch.Tensor, scales: torch.Tensor,
                                     packed=packed))
     for name, t, dtype in (("w8t", w8t, torch.int8), ("cs", cs,
                                                        torch.float32)):
-        if t.device != dev or t.dtype != dtype or not t.is_contiguous() \
-                or t.data_ptr() % 16:
+        if t.dtype != dtype or not t.is_contiguous() or t.data_ptr() % 16:
             raise TypeError(f"int8_weight's {name} must be contiguous "
-                            f"{dtype} on {dev}, 16-byte aligned")
+                            f"{dtype}, 16-byte aligned")
     if prequant:
         sx = x_scale.reshape(M)
-        if sx.dtype != torch.float32 or sx.device != dev \
-                or not sx.is_contiguous():
-            raise TypeError("x_scale must be contiguous f32 on x's device")
+        if sx.dtype != torch.float32 or not sx.is_contiguous():
+            raise TypeError("x_scale must be contiguous f32")
         q = x
     else:
         q, sx = quantize_rows_int8(x)
     bm, _ = k3_tile(M, N, epilogue, _sm_count(dev))
     lib = _lib()
-    status = lib.qmm_int8_launch(
-        q.data_ptr(), sx.data_ptr(), w8t.data_ptr(), cs.data_ptr(),
-        ptr["bias"], ptr.get("residual"), ptr.get("ln_scale"),
-        ptr.get("ln_bias"), _ptr(out), *_emit_ptrs(em), M, N, K,
-        EPILOGUES.index(epilogue), EMITS.index(emit_quantized), bm,
-        float(ln_eps), torch.cuda.current_stream(dev).cuda_stream)
-    from ._cuda import check
+    from ._cuda import check, on_device
+    epi = {k: held.get(k) for k in _EPILOGUE_OPERANDS}
+    with on_device("qmatmul_int8", dev, q=q, sx=sx, w8t=w8t, cs=cs, out=out,
+                   **epi, **em):
+        status = lib.qmm_int8_launch(
+            q.data_ptr(), sx.data_ptr(), w8t.data_ptr(), cs.data_ptr(),
+            *_epilogue_ptrs(held), _ptr(out), *_emit_ptrs(em), M, N, K,
+            EPILOGUES.index(epilogue), EMITS.index(emit_quantized), bm,
+            float(ln_eps), torch.cuda.current_stream(dev).cuda_stream)
     check(status, lib.qmm_error_string, "qmatmul_int8")
     _count(qmatmul_int8, (K, N, epilogue), emit_quantized, prequant)
     qmatmul_int8.routes[k3_route(M, N, epilogue, _sm_count(dev))] += 1
@@ -506,11 +507,12 @@ def requantize_int8(codes: torch.Tensor, scales: torch.Tensor,
     w8t = torch.empty((N, K), dtype=torch.int8, device=dev)
     cs = torch.empty(N, dtype=torch.float32, device=dev)
     lib = _lib()
-    status = lib.qmm_requant_launch(
-        codes.data_ptr(), scales.data_ptr(), _ptr(mins), w8t.data_ptr(),
-        cs.data_ptr(), N, K, _KIND_ID[kind], int(packed),
-        torch.cuda.current_stream(dev).cuda_stream)
-    from ._cuda import check
+    from ._cuda import check, on_device
+    with on_device("requantize_int8", dev, scales=scales, mins=mins):
+        status = lib.qmm_requant_launch(
+            codes.data_ptr(), scales.data_ptr(), _ptr(mins), w8t.data_ptr(),
+            cs.data_ptr(), N, K, _KIND_ID[kind], int(packed),
+            torch.cuda.current_stream(dev).cuda_stream)
     check(status, lib.qmm_error_string, "requantize_int8")
     requantize_int8.launches += 1
     return w8t, cs
@@ -533,10 +535,11 @@ def quantize_rows_int8(x: torch.Tensor):
     if M == 0:
         return q, sx
     lib = _lib()
-    status = lib.qmm_quant_rows_launch(
-        x.data_ptr(), q.data_ptr(), sx.data_ptr(), M, K,
-        torch.cuda.current_stream(x.device).cuda_stream)
-    from ._cuda import check
+    from ._cuda import check, on_device
+    with on_device("quantize_rows_int8", x.device):
+        status = lib.qmm_quant_rows_launch(
+            x.data_ptr(), q.data_ptr(), sx.data_ptr(), M, K,
+            torch.cuda.current_stream(x.device).cuda_stream)
     check(status, lib.qmm_error_string, "quantize_rows_int8")
     quantize_rows_int8.launches += 1
     return q, sx
@@ -610,6 +613,14 @@ def _emit_operands(dev, M, N, epilogue, emit) -> dict:
     return em
 
 
+# the epilogue's operands of both launches, in their argument order
+_EPILOGUE_OPERANDS = ("bias", "residual", "ln_scale", "ln_bias")
+
+
+def _epilogue_ptrs(held: dict) -> list:
+    return [_ptr(held.get(k)) for k in _EPILOGUE_OPERANDS]
+
+
 def _emit_ptrs(em: dict) -> list:
     return [_ptr(em.get(k)) for k in ("o8", "os", "stg", "part")]
 
@@ -621,9 +632,10 @@ def _emit_result(out, em: dict, emit: str):
 def _cuda_operands(what, x, codes, scales, mins, bias, M, N, *, kind,
                    epilogue, residual, ln_scale, ln_bias, ln_eps, packed,
                    out_dtype, emit_quantized):
-    """Check a CUDA call's tensors (device, dtype, shape, contiguity,
+    """Check a CUDA call's tensors (dtype, shape, contiguity,
     alignment) and allocate its bf16 output (none with emission "only").
-    Returns (pointers, out)."""
+    Returns (the tensors by name, out); their devices are checked at the
+    launch (``_cuda.on_device``)."""
     if x.device.type != "cuda":
         raise ValueError(f"{what} runs on cuda or cpu, not {x.device}")
     prequant = x.dtype == torch.int8
@@ -651,15 +663,13 @@ def _cuda_operands(what, x, codes, scales, mins, bias, M, N, *, kind,
     if tuple(bias.shape) != (N,):
         raise ValueError(f"bias must be [N]={N}, got {tuple(bias.shape)}")
     for name, (t, dtype) in tensors.items():
-        if t.device != x.device or t.dtype != dtype:
-            raise TypeError(f"{name} must be {dtype} on {x.device}, got "
-                            f"{t.dtype} on {t.device}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
-    ptr = {name: t.data_ptr() for name, (t, _) in tensors.items()}
     out = (None if emit_quantized == "only" else
            torch.empty((M, N), dtype=torch.bfloat16, device=x.device))
-    return ptr, out
+    return {name: t for name, (t, _) in tensors.items()}, out
 
 
 @functools.lru_cache(maxsize=None)

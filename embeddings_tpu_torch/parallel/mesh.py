@@ -54,24 +54,58 @@ def world() -> tuple[int, int]:
     return 1, 0
 
 
+# this process's card by the card rule (``initialize_distributed``), or
+# None: no card assigned (one process, torchrun's LOCAL_RANK, or more
+# processes on the host than cards)
+_process_card: int | None = None
+
+
+def process_card() -> int | None:
+    """The card ``initialize_distributed`` gave this process outside
+    torchrun, or None."""
+    return _process_card
+
+
+def card_rule(hosts: Sequence[str], rank: int, n_cards: int) -> int | None:
+    """The card of process ``rank`` given every process's host name
+    (``hosts``, in rank order) and the card count of its host: its index
+    among the processes of its host, where the host has a card for each
+    of them (JAX's GPU rule: one chip per local process); None where
+    they are more than the cards, and so share one."""
+    mine = [r for r, h in enumerate(hosts) if h == hosts[rank]]
+    return mine.index(rank) if len(mine) <= n_cards else None
+
+
 def initialize_distributed(coordinator: str | None = None,
                            num_processes: int | None = None,
                            process_id: int | None = None) -> None:
     """Multi-process bring-up: ``torch.distributed`` over gloo, with the
     coordinator's "host:port" as a ``tcp://`` rendezvous (``env://``,
     torchrun's MASTER_ADDR / MASTER_PORT, when it is None). No-op when
-    single-process. Under torchrun (LOCAL_RANK set, a card present) the
-    process's current card becomes cuda:LOCAL_RANK, as
-    ``runtime.engine.resolve_device`` names it."""
+    single-process. With a card present, the process's current card
+    becomes its own, as ``runtime.engine.resolve_device`` names it: under
+    torchrun (LOCAL_RANK set) cuda:LOCAL_RANK; else the card of
+    ``card_rule`` (one ``all_gather_object`` of the host names), none
+    where the processes of the host outnumber its cards (they then share
+    the default card, and a mesh over them stages through the host)."""
+    global _process_card
     if num_processes is None or num_processes <= 1:
         return
     dist.init_process_group(
         "gloo", init_method=(f"tcp://{coordinator}" if coordinator
                              else "env://"),
         world_size=num_processes, rank=process_id)
-    if torch.cuda.is_available() and "LOCAL_RANK" in os.environ:
-        from ..runtime.engine import resolve_device
-        torch.cuda.set_device(resolve_device(None))
+    if not torch.cuda.is_available():
+        return
+    if "LOCAL_RANK" not in os.environ:
+        hosts = [None] * num_processes
+        dist.all_gather_object(hosts, socket.gethostname())
+        _process_card = card_rule(hosts, dist.get_rank(),
+                                  torch.cuda.device_count())
+        if _process_card is None:
+            return
+    from ..runtime.engine import resolve_device
+    torch.cuda.set_device(resolve_device(None))
 
 
 def resolve_mesh_device(device) -> torch.device:
@@ -167,6 +201,20 @@ class Collective:
         return torch.cat(parts, dim).to(t.device)
 
 
+def mesh_backend(entries) -> str:
+    """The backend rule over a mesh's ``ProcessDevice`` entries: gloo for
+    a mesh of CPUs, NCCL where every card belongs to one process, else
+    gloo through host memory."""
+    owners: dict[str, set] = {}
+    for e in entries:
+        if e.device.type == "cuda":
+            owners.setdefault(e.key or device_key(e.device),
+                              set()).add(e.rank)
+    if not owners:
+        return GLOO
+    return GLOO_HOST if any(len(r) > 1 for r in owners.values()) else NCCL
+
+
 class Mesh:
     """``devices``: a 2-D grid of devices (anything ``torch.device``
     takes, all this process's, or ``ProcessDevice`` entries of any
@@ -220,7 +268,7 @@ class Mesh:
                     f"data row {i} of the mesh: each process holds the "
                     f"same number of consecutive entries, in process "
                     f"order; its ranks are {r.tolist()}")
-        self.backend = self._backend(rows)
+        self.backend = mesh_backend(e for row in rows for e in row)
         # made once, here, in the same order on every process
         self._host = Collective(dist.new_group(procs, backend="gloo"),
                                 procs, staged=True)
@@ -232,21 +280,6 @@ class Mesh:
                     else "gloo")
                 self._groups[tuple(rk)] = Collective(
                     group, rk, staged=self.backend != NCCL)
-
-    def _backend(self, rows) -> str:
-        """The backend rule: gloo for a mesh of CPUs, NCCL where every
-        card belongs to one process, else gloo through host memory."""
-        owners: dict[str, set] = {}
-        for row in rows:
-            for e in row:
-                if e.device.type != "cuda":
-                    continue
-                owners.setdefault(e.key or device_key(e.device),
-                                  set()).add(e.rank)
-        if not owners:
-            return GLOO
-        return GLOO_HOST if any(len(r) > 1 for r in owners.values()) \
-            else NCCL
 
     @property
     def shape(self) -> OrderedDict:

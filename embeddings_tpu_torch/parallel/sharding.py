@@ -100,7 +100,7 @@ def param_pspecs(params: Params, mesh: Mesh) -> Params:
     tables replicated. Leaves the JAX package has no rule for are
     replicated."""
     tp = _tp(mesh)
-    if "qkv" in _first_stack(params)["attn"]:
+    if tp > 1 and "qkv" in _first_stack(params)["attn"]:
         raise ValueError("tensor parallelism shards q, k and v apart; pass "
                          "the tree before params.fuse_qkv")
 
@@ -129,7 +129,8 @@ def param_pspecs(params: Params, mesh: Mesh) -> Params:
         s = _replicated_tree(lyr)
         a = lyr["attn"]
         for n in ("q", "k", "v"):
-            s["attn"][n] = for_linear(a[n], COLUMN, COLUMN_BIAS)
+            if n in a:  # else fused (tp == 1): replicated as it is
+                s["attn"][n] = for_linear(a[n], COLUMN, COLUMN_BIAS)
         s["attn"]["o"] = for_linear(a["o"], ROW, REPLICATED)
         m = lyr["mlp"]
         if "router" in m:
@@ -381,9 +382,11 @@ class ModelAxis:
 
     def psum(self, parts: list[torch.Tensor]) -> torch.Tensor:
         """``lax.psum`` over the axis, on the home device, in the parts'
-        dtype: this process's parts summed in shard order, then the
-        processes' sums added by the group (for two processes, one part
-        each, the same bits as the shard-order sum: a + b == b + a)."""
+        dtype: this process's parts summed in shard order (a part on
+        another card first copied to home), then the processes' sums
+        added by the group (for two processes, one part each, the same
+        bits as the shard-order sum: a + b == b + a; for more, in the
+        group's order: four parts reassociate)."""
         acc = parts[0].to(self.home)
         for p in parts[1:]:
             acc = acc + p.to(self.home)

@@ -26,9 +26,10 @@ CUDA device raises: the engine never carries on on the CPU unless asked to.
 
 With ``mesh=`` the Engine runs the JAX Engine's mesh branch: batch sizes
 and buckets round to multiples of the data-axis size, the parameter tree
-is not fused, and the device is the mesh's first of this process (on a
-mesh that spans processes, every process calls with the same texts and
-gets every embedding). A ("data", "seq") mesh
+is not fused (but for a model axis of 1, where each shard runs the
+single-device tree), and the device is the mesh's first of this process
+(on a mesh that spans processes, every process calls with the same texts
+and gets every embedding). A ("data", "seq") mesh
 (``parallel.make_mesh_cp``) runs context parallelism: seq buckets that the
 seq-axis size does not divide are dropped, the tree is kept as given, and
 each forward is ``parallel.make_cp_forward``'s (K8a / K8b attention, K1
@@ -89,15 +90,19 @@ def _bucket_window(w: int, row_len: int) -> int:
 
 
 def resolve_device(device=None) -> torch.device:
-    """``None`` -> cuda: under torchrun (LOCAL_RANK set) the process's own
-    card, cuda:LOCAL_RANK. Raises when a CUDA device is asked for and
-    there is none, or when its index is past the card count (a local rank
-    never wraps around onto another process's card); the CPU runs only
-    when the caller names it."""
+    """``None`` -> cuda: the process's own card where it has one, under
+    torchrun (LOCAL_RANK set) cuda:LOCAL_RANK, else the card that
+    ``parallel.mesh.initialize_distributed`` gave it
+    (``parallel.mesh.process_card``). Raises when a CUDA device is asked
+    for and there is none, or when its index is past the card count (a
+    local rank never wraps around onto another process's card); the CPU
+    runs only when the caller names it."""
+    from ..parallel.mesh import process_card
     local_rank = os.environ.get("LOCAL_RANK")
     if device is None:
-        dev = (torch.device("cuda") if local_rank is None
-               else torch.device("cuda", int(local_rank)))
+        own = int(local_rank) if local_rank is not None else process_card()
+        dev = (torch.device("cuda") if own is None
+               else torch.device("cuda", own))
     else:
         dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
@@ -164,7 +169,7 @@ class Engine:
                 P.keep_int8_weights(self.params)
             return
         from ..parallel.context import SEQ_AXIS, make_cp_forward
-        from ..parallel.mesh import DATA_AXIS
+        from ..parallel.mesh import DATA_AXIS, MODEL_AXIS
         self._cp = SEQ_AXIS in mesh.shape
         # sharded batches must divide by the data-axis size
         self._dp = dp = mesh.shape.get(DATA_AXIS, 1)
@@ -185,6 +190,10 @@ class Engine:
         from ..parallel.sharding import (make_sharded_forward,
                                          make_sharded_packed_forward,
                                          shard_params)
+        if mesh.shape.get(MODEL_AXIS, 1) == 1:
+            # data parallelism alone: each shard runs the single-device
+            # forward, q/k/v merged into one matmul
+            params = P.fuse_qkv(params)
         # one tree per shard of this process, cut once here; ``params``
         # is its first shard's (the replicated leaves and its slices)
         sharded = shard_params(params, config, mesh)

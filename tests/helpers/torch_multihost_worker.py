@@ -1,16 +1,19 @@
-"""Worker for the port's two-process tests (spawned by
-tests/test_torch_multihost.py): brings up torch.distributed over gloo on a
-localhost coordinator and runs, on the CPU,
+"""Worker for the port's two- and four-process tests (spawned by
+tests/test_torch_multihost.py with NPROC 2, tests/test_torch_multicard.py
+with NPROC 4): brings up torch.distributed over gloo on a localhost
+coordinator and runs, on the CPU,
 
 (1) distributed_encode_batch at the JAX package's worker shapes
     (tests/helpers/multihost_worker.py), beside this process's local
-    encode_batch;
-(2) a global (data=2, model=2) mesh, data across the processes and the
-    model axis within each, at the JAX package's mesh-worker shapes
-    (tests/helpers/multihost_mesh_worker.py), in bf16, and the same mesh
-    through Engine.forward;
-(3) a (data=1, model=2) mesh and (4) a (data=1, seq=2) mesh, one shard a
-    process, in f32, each beside the one-process mesh of the same shape.
+    encode_batch of all the texts and of each process's share;
+(2) a global (data=2, model=2) mesh at the JAX package's mesh-worker
+    shapes (tests/helpers/multihost_mesh_worker.py), in bf16, and the
+    same mesh through Engine.forward: with two processes the data axis
+    across them and the model axis within each, with four both axes
+    across them (one shard a process);
+(3) a (data=1, model=NPROC) mesh and (4) a (data=1, seq=NPROC) mesh, one
+    shard a process, in f32, each beside the one-process mesh of the same
+    shape.
 
     python torch_multihost_worker.py RANK NPROC PORT DIR
 
@@ -35,7 +38,8 @@ from embeddings_tpu_torch.parallel import (auto_initialize,
                                            distributed_encode_batch,
                                            global_devices, make_cp_forward,
                                            make_mesh, make_mesh_cp,
-                                           make_sharded_forward)
+                                           make_sharded_forward,
+                                           process_shard)
 from embeddings_tpu_torch.runtime.engine import Engine
 from embeddings_tpu_torch.tokenizer import WordPieceTokenizer, WordPieceVocab
 
@@ -61,6 +65,10 @@ texts = ["hello world", "the quick brown fox", "fox fox fox", "hello",
          "world the fox", "quick brown", "the the the"]
 out["encode"] = distributed_encode_batch(eng, texts)
 out["encode_local"] = eng.encode_batch(texts)
+# this process's encode of each process's share, batched as that process
+# batched it
+out["encode_shares"] = np.concatenate([eng.encode_batch(texts[
+    process_shard(len(texts), count=nproc, index=p)]) for p in range(nproc)])
 
 # (2)-(4) the meshes, on the parent's tree (the JAX package's init)
 mcfg = BertConfig(**json.loads((work / "config.json").read_text()))
@@ -68,7 +76,7 @@ tree = torch.load(work / "tree.pt", weights_only=True)
 batch = np.load(work / "batch.npz")
 ids, mask = batch["ids"], batch["mask"]
 
-mesh = make_mesh(2, 2, global_devices([cpu, cpu]))
+mesh = make_mesh(2, 2, global_devices([cpu] * (4 // nproc)))
 backends["global_mesh"] = mesh.backend
 out["global_mesh"] = make_sharded_forward(
     mcfg, mesh, compute_dtype=torch.bfloat16)(tree, ids, mask).numpy()
@@ -77,10 +85,10 @@ out["global_mesh_engine"] = Engine(
     mesh=mesh).forward(ids, mask)
 
 for name, across, local in (
-        ("model", make_mesh(1, 2, global_devices([cpu])),
-         make_mesh(1, 2, [cpu, cpu])),
-        ("seq", make_mesh_cp(1, 2, global_devices([cpu])),
-         make_mesh_cp(1, 2, [cpu, cpu]))):
+        ("model", make_mesh(1, nproc, global_devices([cpu])),
+         make_mesh(1, nproc, [cpu] * nproc)),
+        ("seq", make_mesh_cp(1, nproc, global_devices([cpu])),
+         make_mesh_cp(1, nproc, [cpu] * nproc))):
     fwd = make_sharded_forward if name == "model" else make_cp_forward
     backends[name] = across.backend
     out[name] = fwd(mcfg, across)(tree, ids, mask).numpy()

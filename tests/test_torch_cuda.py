@@ -1131,3 +1131,61 @@ def test_reranker_matches_plain(cuda):
     ref = plain.rerank("w1 w2 w3", docs)
     assert np.isfinite(got).all() and got.shape == (64,)
     assert np.corrcoef(got, ref)[0, 1] >= 0.99
+
+
+# ---------------------------------------------------------------------------
+# a launch on its operands' card, another than the current one
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def cuda1(cuda):
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    torch.cuda.set_device(0)
+    return torch.device("cuda", 1)
+
+
+@pytest.mark.parametrize("epilogue", ["bias", "bias_residual_ln"])
+def test_k1_on_another_card(cuda1, epilogue):
+    """K1 on cuda:1 while cuda:0 is current: it launches there (its
+    device guard) and matches its plain version; an operand left on
+    cuda:0 is refused by name."""
+    rng = np.random.default_rng(21)
+    M, K, N = 300, 768, 768
+    w = rng.standard_normal((K, N), dtype=np.float32) * np.float32(0.02)
+    qt = quantize(w, "q4_0", pack4=True).map(lambda t: t.to(cuda1))
+
+    def f32(*shape, scale=1.0):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)
+                                * np.float32(scale)).to(cuda1)
+
+    kw = dict(kind="q4_0", epilogue=epilogue, packed=True)
+    if epilogue == "bias_residual_ln":
+        kw.update(residual=f32(M, N).to(torch.bfloat16),
+                  ln_scale=1 + f32(N, scale=0.1), ln_bias=f32(N, scale=0.1))
+    args = (f32(M, K).to(torch.bfloat16), qt.codes, qt.scales, None,
+            f32(N, scale=0.1))
+    before = qmatmul.launches
+    got = qmatmul(*args, **kw)
+    assert qmatmul.launches == before + 1 and got.device == cuda1
+    assert torch.cuda.current_device() == 0
+    _close(got, qmatmul_ref(*args, **kw), 2 ** -7, 1e-3)
+    with pytest.raises(ValueError, match="operand bias is on cuda:0"):
+        qmatmul(*args[:4], args[4].to("cuda:0"), **kw)
+
+
+def test_k2_on_another_card(cuda1):
+    """K2 on cuda:1 while cuda:0 is current, against its plain version;
+    lengths on cuda:0 are refused by name."""
+    rng = np.random.default_rng(22)
+    B, L, H, D = 8, 256, 12, 64
+    qkv = torch.from_numpy(rng.standard_normal(
+        (B * L, 3 * H * D), dtype=np.float32)).to(cuda1, torch.bfloat16)
+    lens = torch.tensor([0, 1, 63, 64, 129, 200, 255, 256],
+                        dtype=torch.int32, device=cuda1)
+    got = fused_attention(qkv, lens, B=B, L=L, H=H, D=D)
+    assert got.device == cuda1 and torch.cuda.current_device() == 0
+    _close(got, fused_attention_ref(qkv, lens, B=B, L=L, H=H, D=D),
+           2 ** -6, 1e-2)
+    with pytest.raises(ValueError, match="operand lengths is on cuda:0"):
+        fused_attention(qkv, lens.to("cuda:0"), B=B, L=L, H=H, D=D)

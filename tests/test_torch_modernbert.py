@@ -241,16 +241,32 @@ def test_band_tiles_are_the_band(window, L, length):
     the tiles that hold one)."""
     n = L if length == "L" else min(length, L)
     W = tattn.band_half(window, L)
-    j = torch.arange(L)
+    half = window // 2
+    tiles = torch.arange(L // 128)
+    # each row i's valid keys are one interval, max(0, i - half) ..
+    # min(n, i + half + 1) - 1, so the tiles it touches are one range
+    i = torch.arange(L)
+    lo, hi = (i - half).clamp_min(0), (i + half + 1).clamp_max(n)
+    row_tiles = ((tiles >= lo[:, None] // 128)
+                 & (tiles <= (hi[:, None] - 1) // 128) & (lo < hi)[:, None])
+    if L <= 1024:
+        # that closed form against the brute-force pair mask [L, L]
+        j = torch.arange(L)
+        ok = ((i[:, None] - j[None, :]).abs() <= half) & (j < n)
+        assert torch.equal(row_tiles, ok.reshape(L, L // 128, 128).any(2))
     for rows in (128, 64):
-        for q0 in range(0, L, rows):
-            i = torch.arange(q0, q0 + rows)
-            ok = ((i[:, None] - j[None, :]).abs() <= window // 2) & (j < n)
-            held = ok.reshape(rows, L // 128, 128).any(2).any(0)
-            first, count = tattn.band_tiles(q0, rows, W, n)
+        # every query block at once: [blocks, rows, tiles] -> [blocks, tiles]
+        q0s = range(0, L, rows)
+        held = row_tiles.reshape(len(q0s), rows, L // 128).any(1)
+        ranges = [tattn.band_tiles(q0, rows, W, n) for q0 in q0s]
+        for first, count in ranges:
             assert count >= 0 and first + count <= L // 128
-            assert list(range(first, first + count)) == \
-                held.nonzero().flatten().tolist(), (rows, q0)
+        walked = torch.stack([(tiles >= first) & (tiles < first + count)
+                              for first, count in ranges])
+        bad = (walked != held).any(1).nonzero().flatten().tolist()
+        assert not bad, [(rows, q0s[b], ranges[b],
+                          held[b].nonzero().flatten().tolist())
+                         for b in bad[:3]]
 
 
 # ---------------------------------------------------------------------------
