@@ -1,0 +1,6 @@
+"""moe.engine.pad_share: engine.pad_share in the MoE cell, whose end-to-end metrics
+have names and bounds of their own."""
+
+from perfbench.readers import same_as
+
+read = same_as("engine.pad_share")

@@ -1,0 +1,6 @@
+"""moe.kernels.attention_roofline: kernels.attention_roofline in the MoE cell, whose end-to-end metrics
+have names and bounds of their own."""
+
+from perfbench.readers import same_as
+
+read = same_as("kernels.attention_roofline")

@@ -1,0 +1,6 @@
+"""queries.device.mfu: device.mfu in the query cell, whose end-to-end metrics
+have names and bounds of their own."""
+
+from perfbench.readers import same_as
+
+read = same_as("device.mfu")
