@@ -25,10 +25,10 @@ Two evaluations, as in the JAX package:
 The per-expert loop needs each expert's row count on the host: one
 device-to-host read per MoE layer (``moe_ffn_ragged.host_reads``). The
 expert products are counted in ``moe_ffn_ragged.expert_gemms`` (two per
-non-empty expert). The profiler sees three spans: ``moe_dispatch``
-(router, top-k, sort, gather, the weighted ``index_add_``),
-``moe_expert_gemm`` (the products) and ``moe_expert_ops`` (the weight
-casts, the up bias and the activation).
+non-empty expert). The profiler sees three spans (``utils.spans``):
+``moe_dispatch`` (router, top-k, sort, gather, the weighted
+``index_add_``), ``moe_expert_gemm`` (the products) and
+``moe_expert_ops`` (the weight casts, the up bias and the activation).
 
 Expert weights are never quantized (``models.params.quantize_params``
 keeps them dense); the router stays f32.
@@ -47,8 +47,7 @@ token, as under Megatron TP: one sum, ``models.bert._moe_half``).
 from __future__ import annotations
 
 import torch
-from torch.profiler import record_function
-
+from ..utils.spans import span
 from .linear import _activate, linear
 
 Params = dict
@@ -160,7 +159,7 @@ def moe_ffn_ragged(x: torch.Tensor, moe: Params, *, top_k: int, act: str,
     expert products' rounding)."""
     T, D = x.shape
     E = moe["router"]["w"].shape[-1]
-    with record_function("moe_dispatch"):
+    with span("moe_dispatch"):
         probs = route_probs(x, moe["router"]["w"], moe["router"].get("b"))
         top_w, top_e = topk_lower_first(probs, top_k)        # [T, k]
         if normalize_topk:
@@ -173,7 +172,7 @@ def moe_ffn_ragged(x: torch.Tensor, moe: Params, *, top_k: int, act: str,
         moe_ffn_ragged.host_reads += 1
         xs = x[t_sorted]                                       # [T*k, D]
     y = _ragged_mlp(xs, counts, moe, act, x.dtype)
-    with record_function("moe_dispatch"):
+    with span("moe_dispatch"):
         y = y.float() + moe["down"]["b"].float()[e_sorted]
         y = y * top_w.reshape(-1)[order][:, None]
         out = torch.zeros(T, D, dtype=torch.float32, device=x.device)
@@ -201,14 +200,14 @@ def _ragged_mlp(xs: torch.Tensor, counts: list[int], moe: Params,
             continue
         rows = slice(start, start + n)
         start += n
-        with record_function("moe_expert_ops"):
+        with span("moe_expert_ops"):
             up_w = moe["up"]["w"][e].to(dtype)
             down_w = moe["down"]["w"][e].to(dtype)
-        with record_function("moe_expert_gemm"):
+        with span("moe_expert_gemm"):
             h = torch.mm(xs[rows], up_w)
-        with record_function("moe_expert_ops"):
+        with span("moe_expert_ops"):
             h = _activate(h + moe["up"]["b"][e].to(h.dtype), act)
-        with record_function("moe_expert_gemm"):
+        with span("moe_expert_gemm"):
             torch.mm(h, down_w, out=out[rows])
         moe_ffn_ragged.expert_gemms += 2
     return out

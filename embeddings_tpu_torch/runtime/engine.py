@@ -13,7 +13,11 @@ the bucketed and the token-packed batch schedulers — the port of
 
 ``Engine.tokenize`` runs the native C++ tokenizer (``tokenizer.native``,
 built at first use) where it can represent the tokenizer, else the
-Python one; ``Engine.profile`` writes a ``torch.profiler`` trace.
+Python one; ``Engine.profile`` writes a ``torch.profiler`` trace, in
+which each call's host phases show as the spans of ``utils.spans``
+(``engine.call`` around plan, pad or pack, upload, ``model.forward``,
+read-back and scatter; under a mesh the forward makes its shards' copies
+itself, inside ``model.forward``).
 
 The forward runs eagerly, one Python loop over the layers; on a CUDA device
 every quantized matmul (K1, or K3 with ``EngineConfig.int8_compute``,
@@ -47,6 +51,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import logging
 import os
 from collections import deque
@@ -61,6 +66,7 @@ from ..models import bert, params as P
 from ..ops.attention import BQ
 from ..tokenizer import ByteLevelBPETokenizer, UnigramTokenizer, \
     WordPieceTokenizer
+from ..utils.spans import profiling, span
 from .batching import extend_buckets, pad_batch, pick_bucket, plan_batches
 from .packing import materialize, max_block_span, plan_packing
 
@@ -87,6 +93,31 @@ def _bucket_window(w: int, row_len: int) -> int:
     # between the largest fitting bucket and the dispatch threshold:
     # widen to the threshold (still block-skip)
     return nk - 2 if w <= nk - 2 else nk
+
+
+def _call_span(entry):
+    """An Engine entry under the span ``engine.call``, the root of the
+    call's phase spans."""
+    @functools.wraps(entry)
+    def call(*args, **kwargs):
+        with span("engine.call"):
+            return entry(*args, **kwargs)
+    return call
+
+
+def _forward_args(ids, real, packed: bool) -> dict | None:
+    """``model.forward``'s args while a profiler runs (else None): the
+    batch's rows and row length, whether it is packed, and its real
+    tokens (the mask's ones, or the packed rows' segment slots), counted
+    before the upload and only where ``real`` is on the host: a caller's
+    device tensor is not read back."""
+    if not profiling():
+        return None
+    args = {"rows": int(ids.shape[0]), "row_len": int(ids.shape[1]),
+            "packed": packed}
+    if not isinstance(real, torch.Tensor) or real.device.type == "cpu":
+        args["tokens"] = int(((real >= 0) if packed else (real != 0)).sum())
+    return args
 
 
 def resolve_device(device=None) -> torch.device:
@@ -235,22 +266,30 @@ class Engine:
     def _forward(self, ids, mask) -> torch.Tensor:
         """Enqueue one padded batch (numpy arrays or tensors); returns the
         pooled embeddings on the device (the caller reads them back)."""
+        args = _forward_args(ids, mask, False)
         with torch.inference_mode():
             if self.mesh is not None:
-                return self._mesh_forward(self._mesh_params, ids, mask)
-            return bert.encode_tokens(
-                self.params, self.config, self._dev(ids), self._dev(mask),
-                mask_value=self.engine_config.mask_value,
-                compute_dtype=self._compute_dtype,
-                use_kernels=self._use_kernels, int8=self._int8)
+                with span("model.forward", args):
+                    return self._mesh_forward(self._mesh_params, ids, mask)
+            with span("engine.upload"):
+                ids, mask = self._dev(ids), self._dev(mask)
+            with span("model.forward", args):
+                return bert.encode_tokens(
+                    self.params, self.config, ids, mask,
+                    mask_value=self.engine_config.mask_value,
+                    compute_dtype=self._compute_dtype,
+                    use_kernels=self._use_kernels, int8=self._int8)
 
+    @_call_span
     def forward(self, ids: np.ndarray, mask: np.ndarray) -> np.ndarray:
         if self._dp > 1 and ids.shape[0] % self._dp:
             raise ValueError(
                 f"batch size {ids.shape[0]} not divisible by the data-axis "
                 f"size {self._dp}; pad the batch (encode_batch does this "
                 f"automatically) or use a divisible batch")
-        return self._forward(ids, mask).cpu().numpy()
+        emb = self._forward(ids, mask)
+        with span("engine.readback"):
+            return emb.cpu().numpy()
 
     # -- encode (the primary API) -------------------------------------------
     def encode(self, text: str | Sequence[str]) -> np.ndarray:
@@ -264,9 +303,11 @@ class Engine:
                      batch_size: int | None = None) -> np.ndarray:
         """Tokenize, length-sort into bucketed chunks, run, scatter back
         (bert_encode_batch semantics, bert.cpp:1374-1444)."""
-        return self.encode_toks([self.tokenize(t) for t in texts],
-                                batch_size)
+        with span("engine.tokenize"):
+            toks = [self.tokenize(t) for t in texts]
+        return self.encode_toks(toks, batch_size)
 
+    @_call_span
     def encode_toks(self, toks: list[list[int]],
                     batch_size: int | None = None) -> np.ndarray:
         """Bucketed encode of pre-tokenized inputs."""
@@ -277,18 +318,23 @@ class Engine:
         out = np.empty((len(toks), self.n_embd), np.float32)
         # a caller-supplied batch_size may exceed the configured buckets
         bb = extend_buckets(ec.batch_buckets, batch_size)
-        plans = plan_batches([len(t) for t in toks], batch_size,
-                             self._seq_buckets(), bb)
+        with span("engine.plan"):
+            plans = plan_batches([len(t) for t in toks], batch_size,
+                                 self._seq_buckets(), bb)
 
         def dispatch():
             for plan in plans:
-                ids, mask = pad_batch([toks[i] for i in plan.indices],
-                                      plan.batch, plan.seq,
-                                      self.tokenizer.pad_id)
+                with span("engine.pad"):
+                    ids, mask = pad_batch([toks[i] for i in plan.indices],
+                                          plan.batch, plan.seq,
+                                          self.tokenizer.pad_id)
                 yield plan, self._forward(ids, mask)
 
         def scatter(plan, emb):
-            out[list(plan.indices)] = emb.cpu().numpy()[: len(plan.indices)]
+            with span("engine.readback"):
+                emb = emb.cpu().numpy()
+            with span("engine.scatter"):
+                out[list(plan.indices)] = emb[: len(plan.indices)]
 
         self._windowed_drain(dispatch(), scatter)
         return out
@@ -308,6 +354,7 @@ class Engine:
             scatter(*pending.popleft())
 
     # -- cross-encoder rerank -----------------------------------------------
+    @_call_span
     def rerank(self, query: str, documents: Sequence[str],
                batch_size: int | None = None) -> np.ndarray:
         """Cross-encoder relevance scores [N] for (query, document)
@@ -328,28 +375,34 @@ class Engine:
         if enc is None:
             raise ValueError(
                 f"{type(self.tokenizer).__name__} has no pair encoding")
-        pairs = [enc(query, d, max_len=self.max_seq_len) for d in documents]
+        with span("engine.tokenize"):
+            pairs = [enc(query, d, max_len=self.max_seq_len)
+                     for d in documents]
         ec = self.engine_config
         batch_size = batch_size or ec.batch_size
         out = np.empty(len(pairs), np.float32)
         bb = extend_buckets(ec.batch_buckets, batch_size)
-        plans = plan_batches([len(p[0]) for p in pairs], batch_size,
-                             self._seq_buckets(), bb)
+        with span("engine.plan"):
+            plans = plan_batches([len(p[0]) for p in pairs], batch_size,
+                                 self._seq_buckets(), bb)
 
         def dispatch():
             for plan in plans:
-                ids, mask = pad_batch([pairs[i][0] for i in plan.indices],
-                                      plan.batch, plan.seq,
-                                      self.tokenizer.pad_id)
-                types = np.zeros_like(ids)
-                for r, i in enumerate(plan.indices):
-                    t = pairs[i][1]
-                    types[r, : len(t)] = t
+                with span("engine.pad"):
+                    ids, mask = pad_batch(
+                        [pairs[i][0] for i in plan.indices], plan.batch,
+                        plan.seq, self.tokenizer.pad_id)
+                    types = np.zeros_like(ids)
+                    for r, i in enumerate(plan.indices):
+                        t = pairs[i][1]
+                        types[r, : len(t)] = t
                 yield plan, self._forward_pairs(ids, types, mask)
 
         def scatter(plan, scores):
-            out[list(plan.indices)] = scores.cpu().numpy()[
-                : len(plan.indices)]
+            with span("engine.readback"):
+                scores = scores.cpu().numpy()
+            with span("engine.scatter"):
+                out[list(plan.indices)] = scores[: len(plan.indices)]
 
         self._windowed_drain(dispatch(), scatter)
         return out
@@ -358,13 +411,17 @@ class Engine:
                        mask: np.ndarray) -> torch.Tensor:
         """Enqueue one padded batch of pairs; returns the logits on the
         device."""
+        args = _forward_args(ids, mask, False)
         dev = self._dev
         with torch.inference_mode():
-            return bert.score_pairs(
-                self.params, self.config, dev(ids), dev(mask), dev(types),
-                mask_value=self.engine_config.mask_value,
-                compute_dtype=self._compute_dtype,
-                use_kernels=self._use_kernels, int8=self._int8)
+            with span("engine.upload"):
+                ids, mask, types = dev(ids), dev(mask), dev(types)
+            with span("model.forward", args):
+                return bert.score_pairs(
+                    self.params, self.config, ids, mask, types,
+                    mask_value=self.engine_config.mask_value,
+                    compute_dtype=self._compute_dtype,
+                    use_kernels=self._use_kernels, int8=self._int8)
 
     # -- token-packed encode ------------------------------------------------
     def encode_batch_packed(self, texts: Sequence[str],
@@ -374,9 +431,11 @@ class Engine:
         (``runtime/packing.py``). Faster than bucketed padding when
         sentences are short against the row. Needs mean, cls or lasttoken
         pooling."""
-        return self.encode_toks_packed([self.tokenize(t) for t in texts],
-                                       row_len, batch_rows)
+        with span("engine.tokenize"):
+            toks = [self.tokenize(t) for t in texts]
+        return self.encode_toks_packed(toks, row_len, batch_rows)
 
+    @_call_span
     def encode_toks_packed(self, toks: list[list[int]],
                            row_len: int | None = None,
                            batch_rows: int | None = None) -> np.ndarray:
@@ -402,33 +461,38 @@ class Engine:
         # mesh: the rows split over "data", so row buckets must divide
         batch_rows = -(-batch_rows // self._dp) * self._dp
         out = np.empty((len(toks), self.n_embd), np.float32)
-        short = [i for i, t in enumerate(toks) if len(t) <= row_len]
-        long_idx = [i for i, t in enumerate(toks) if len(t) > row_len]
+        with span("engine.plan"):
+            short = [i for i, t in enumerate(toks) if len(t) <= row_len]
+            long_idx = [i for i, t in enumerate(toks) if len(t) > row_len]
+            stoks = [toks[i] for i in short]
+            # a fixed segments-per-row cap keeps one stable shape family
+            batches = plan_packing([len(t) for t in stoks], row_len,
+                                   batch_rows, max_segs=max(2, row_len // 8))
         if long_idx:
             out[long_idx] = self.encode_toks([toks[i] for i in long_idx])
         if not short:
             return out
-        stoks = [toks[i] for i in short]
-        # a fixed segments-per-row cap keeps one stable shape family
-        batches = plan_packing([len(t) for t in stoks], row_len, batch_rows,
-                               max_segs=max(2, row_len // 8))
         bb = extend_buckets(ec.batch_buckets, batch_rows)
 
         def dispatch():
             for b in batches:
-                b.batch = pick_bucket(len(b.rows), bb)  # pad the row count
-                ids, seg, pos, pool, mapping = materialize(
-                    b, stoks, self.tokenizer.pad_id, self.config.pooling)
-                # the block-skip window (host-side; only rows longer than
-                # one 128-block can skip), bucketed
-                w = max_block_span(seg) if row_len > 128 else 0
-                yield mapping, self._forward_packed(
-                    ids, seg, pos, pool, _bucket_window(w, row_len))
+                with span("engine.pack"):
+                    b.batch = pick_bucket(len(b.rows), bb)  # pad row count
+                    ids, seg, pos, pool, mapping = materialize(
+                        b, stoks, self.tokenizer.pad_id, self.config.pooling)
+                    # the block-skip window (host-side; only rows longer
+                    # than one 128-block can skip), bucketed
+                    w = max_block_span(seg) if row_len > 128 else 0
+                    window = _bucket_window(w, row_len)
+                yield mapping, self._forward_packed(ids, seg, pos, pool,
+                                                    window)
 
         def scatter(mapping, pooled):
-            pooled = pooled.cpu().numpy()
-            for r, s, i in mapping:
-                out[short[i]] = pooled[r, s]
+            with span("engine.readback"):
+                pooled = pooled.cpu().numpy()
+            with span("engine.scatter"):
+                for r, s, i in mapping:
+                    out[short[i]] = pooled[r, s]
 
         self._windowed_drain(dispatch(), scatter)
         return out
@@ -437,16 +501,22 @@ class Engine:
                         attn_window: int = 0) -> torch.Tensor:
         """Enqueue one packed batch; returns the pooled [B, S, E'] on the
         device."""
+        args = _forward_args(ids, seg, True)
         dev = self._dev
         with torch.inference_mode():
             if self.mesh is not None:
-                return self._mesh_packed(self._mesh_params, ids, seg, pos,
-                                         pool, attn_window)
-            return bert.encode_packed(
-                self.params, self.config, dev(ids), dev(seg), dev(pos),
-                dev(pool), mask_value=self.engine_config.mask_value,
-                compute_dtype=self._compute_dtype, attn_window=attn_window,
-                use_kernels=self._use_kernels, int8=self._int8)
+                with span("model.forward", args):
+                    return self._mesh_packed(self._mesh_params, ids, seg,
+                                             pos, pool, attn_window)
+            with span("engine.upload"):
+                ids, seg, pos, pool = dev(ids), dev(seg), dev(pos), dev(pool)
+            with span("model.forward", args):
+                return bert.encode_packed(
+                    self.params, self.config, ids, seg, pos, pool,
+                    mask_value=self.engine_config.mask_value,
+                    compute_dtype=self._compute_dtype,
+                    attn_window=attn_window, use_kernels=self._use_kernels,
+                    int8=self._int8)
 
     # -- shape warmup -------------------------------------------------------
     def warmup(self, batch_sizes: Sequence[int] | None = None,
@@ -495,8 +565,9 @@ class Engine:
     @contextlib.contextmanager
     def profile(self, out_dir):
         """Context manager: a ``torch.profiler`` trace of everything run
-        inside (host ops, and the device's kernels on a CUDA engine),
-        written into ``out_dir`` as a Chrome trace
+        inside (host ops with their input shapes, the Engine's spans with
+        ``model.forward``'s args, and the device's kernels on a CUDA
+        engine), written into ``out_dir`` as a Chrome trace
         (``<host>_<pid>.<ms>.pt.trace.json``, for Perfetto or TensorBoard)
         — the counterpart of the JAX Engine's xprof trace and of the
         reference's GGML_PERF per-op dumps."""
@@ -505,7 +576,7 @@ class Engine:
         cuda = self.device.type == "cuda"
         acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
                                          if cuda else [])
-        with profile(activities=acts,
+        with profile(activities=acts, record_shapes=True,
                      on_trace_ready=tensorboard_trace_handler(
                          str(out_dir))) as prof:
             yield prof

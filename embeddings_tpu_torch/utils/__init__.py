@@ -1,6 +1,7 @@
 """Utilities of the PyTorch port: device timing on CUDA events
-(``benchmarking``) and output-embedding quantization for vector stores
-(``embedding_quant``)."""
+(``benchmarking``), output-embedding quantization for vector stores
+(``embedding_quant``) and the profiler spans at the port's layer
+boundaries (``spans``)."""
 
 from .benchmarking import device_time_us, wallclock_throughput
 
