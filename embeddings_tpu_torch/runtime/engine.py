@@ -462,22 +462,24 @@ class Engine:
         batch_rows = -(-batch_rows // self._dp) * self._dp
         out = np.empty((len(toks), self.n_embd), np.float32)
         with span("engine.plan"):
-            short = [i for i, t in enumerate(toks) if len(t) <= row_len]
-            long_idx = [i for i, t in enumerate(toks) if len(t) > row_len]
-            stoks = [toks[i] for i in short]
+            lengths = np.fromiter(map(len, toks), np.int64, len(toks))
+            fits = lengths <= row_len
+            short = np.flatnonzero(fits)
+            long_idx = np.flatnonzero(~fits)
+            stoks = [toks[i] for i in short] if len(long_idx) else toks
             # a fixed segments-per-row cap keeps one stable shape family
-            batches = plan_packing([len(t) for t in stoks], row_len,
-                                   batch_rows, max_segs=max(2, row_len // 8))
-        if long_idx:
+            batches = plan_packing(lengths[short], row_len, batch_rows,
+                                   max_segs=max(2, row_len // 8))
+        if len(long_idx):
             out[long_idx] = self.encode_toks([toks[i] for i in long_idx])
-        if not short:
+        if not len(short):
             return out
         bb = extend_buckets(ec.batch_buckets, batch_rows)
 
         def dispatch():
             for b in batches:
                 with span("engine.pack"):
-                    b.batch = pick_bucket(len(b.rows), bb)  # pad row count
+                    b.batch = pick_bucket(b.n_rows, bb)  # pad row count
                     ids, seg, pos, pool, mapping = materialize(
                         b, stoks, self.tokenizer.pad_id, self.config.pooling)
                     # the block-skip window (host-side; only rows longer
@@ -491,8 +493,8 @@ class Engine:
             with span("engine.readback"):
                 pooled = pooled.cpu().numpy()
             with span("engine.scatter"):
-                for r, s, i in mapping:
-                    out[short[i]] = pooled[r, s]
+                out[short[mapping[:, 2]]] = pooled[mapping[:, 0],
+                                                   mapping[:, 1]]
 
         self._windowed_drain(dispatch(), scatter)
         return out

@@ -157,37 +157,71 @@ def test_blockskip_ref_matches_jax_interpret(dtype, window):
         np.testing.assert_allclose(got, full, rtol=2 ** -6, atol=2e-3)
 
 
-def test_planner_matches_jax():
-    rng = np.random.default_rng(2)
-    lengths = [int(n) for n in rng.integers(1, 120, 300)]
-    toks = [list(rng.integers(5, 250, n)) for n in lengths]
-    for row_len, rows, segs in [(128, 8, 16), (640, 4, 80), (16, 64, 2),
-                                (640, 4, 1)]:
-        short = [i for i, n in enumerate(lengths) if n <= row_len]
-        ls = [lengths[i] for i in short]
-        tb = tpacking.plan_packing(ls, row_len, rows, max_segs=segs)
-        jb = jpacking.plan_packing(ls, row_len, rows, max_segs=segs)
-        assert len(tb) == len(jb)
-        for t, j in zip(tb, jb):
-            assert (t.batch, t.seq, t.n_seg) == (j.batch, j.seq, j.n_seg)
-            assert [[dataclasses.astuple(s) for s in r] for r in t.rows] == \
-                [[dataclasses.astuple(s) for s in r] for r in j.rows]
-            st = [toks[i] for i in short]
-            for pooling in ("mean", "cls", "lasttoken"):
-                a = tpacking.materialize(t, st, 0, pooling)
-                b = jpacking.materialize(j, st, 0, pooling)
-                for x, y in zip(a[:4], b[:4]):
-                    np.testing.assert_array_equal(x, y)
-                assert a[4] == b[4]
-            seg = a[1]
-            assert tpacking.max_block_span(seg) == \
-                jpacking.max_block_span(seg)
-            if row_len % tattn.BQ == 0:
-                kbs, kbe = jattn.block_ranges(jnp.asarray(seg), row_len)
-                tkbs, tkbe = tattn.block_ranges(torch.from_numpy(seg),
-                                                row_len)
-                np.testing.assert_array_equal(tkbs.numpy(), np.asarray(kbs))
-                np.testing.assert_array_equal(tkbe.numpy(), np.asarray(kbe))
+def _lengths_mix(seed=2, n=300):
+    rng = np.random.default_rng(seed)
+    return [int(n) for n in rng.integers(1, 120, n)]
+
+
+def _query_law(seed=5, n=8192):
+    """The query log's law: log-normal, median 10, sigma 0.45, 4-64."""
+    rng = np.random.default_rng(seed)
+    raw = 10 * np.exp(0.45 * rng.standard_normal(n))
+    return [int(k) for k in np.clip(np.rint(raw), 4, 64)]
+
+
+def _fitting(lengths, row_len):
+    return [n for n in lengths if n <= row_len]
+
+
+PLANNER_CASES = {
+    # (lengths, row_len, rows a batch, segments a row)
+    "mix-128": (_fitting(_lengths_mix(), 128), 128, 8, 16),
+    "mix-640": (_lengths_mix(), 640, 4, 80),
+    "mix-16-segs2": (_fitting(_lengths_mix(), 16), 16, 64, 2),
+    "mix-640-segs1": (_lengths_mix(), 640, 4, 1),
+    "query-law": (_query_law(), 128, 256, 16),
+    "row-len-each": ([128] * 40 + [5, 128, 64, 128], 128, 8, 16),
+    "ties": ([7] * 300 + [9] * 200 + [3] * 500 + [7] * 50, 128, 16, 16),
+    "single": ([11], 128, 4, 16),
+    "segs1": (_lengths_mix(6, 200), 128, 16, 1),
+    "segs2": (_lengths_mix(7, 200), 128, 16, 2),
+    # longer than the row: the planner cuts the segment, materialize the
+    # sentence's tokens
+    "cut-to-row": (_lengths_mix(8, 200), 64, 16, 8),
+}
+
+
+@pytest.mark.parametrize("case", list(PLANNER_CASES))
+def test_planner_matches_jax(case):
+    """The plan segment for segment, each pooling's arrays bit for bit
+    and the mapping entry for entry, against the JAX package's loops."""
+    ls, row_len, rows, segs = PLANNER_CASES[case]
+    rng = np.random.default_rng(len(ls))
+    st = [list(rng.integers(5, 250, n)) for n in ls]
+    tb = tpacking.plan_packing(ls, row_len, rows, max_segs=segs)
+    jb = jpacking.plan_packing(ls, row_len, rows, max_segs=segs)
+    assert len(tb) == len(jb) > 0
+    for t, j in zip(tb, jb):
+        assert (t.batch, t.seq, t.n_seg) == (j.batch, j.seq, j.n_seg)
+        assert [[dataclasses.astuple(s) for s in r] for r in t.rows] == \
+            [[dataclasses.astuple(s) for s in r] for r in j.rows]
+        for pooling in ("mean", "cls", "lasttoken"):
+            a = tpacking.materialize(t, st, 0, pooling)
+            b = jpacking.materialize(j, st, 0, pooling)
+            for x, y in zip(a[:4], b[:4]):
+                assert x.dtype == y.dtype
+                np.testing.assert_array_equal(x, y)
+            assert a[4].tolist() == [list(m) for m in b[4]]
+        seg = a[1]
+        assert tpacking.max_block_span(seg) == jpacking.max_block_span(seg)
+        if row_len % tattn.BQ == 0:
+            kbs, kbe = jattn.block_ranges(jnp.asarray(seg), row_len)
+            tkbs, tkbe = tattn.block_ranges(torch.from_numpy(seg), row_len)
+            np.testing.assert_array_equal(tkbs.numpy(), np.asarray(kbs))
+            np.testing.assert_array_equal(tkbe.numpy(), np.asarray(kbe))
+
+
+def test_bucket_window_matches_jax():
     from embeddings_tpu.runtime.engine import _bucket_window as jbw
     for row_len in (128, 256, 640, 1024, 4096):
         for w in range(0, row_len // 128 + 2):
@@ -333,6 +367,36 @@ def test_engine_packed_matches_jax_engine(engines):
     assert (got * bucketed).sum(-1).min() >= 0.9999
     assert eng.warmup_packed(row_len=16, batch_rows=4,
                              segs_per_row=(2,)) >= 1
+
+
+@pytest.mark.parametrize("row_len,batch_rows", [(16, 2), (32, 4)])
+def test_engine_packed_rows_land_at_their_index(engines, row_len,
+                                                batch_rows):
+    """A call mixing sentences longer than the row (the bucketed path)
+    with short ones and with duplicates of both, over several packed
+    batches: every output row is its own input's embedding, as the JAX
+    Engine and the port's bucketed path give it."""
+    jeng, eng = engines
+    rng = np.random.default_rng(row_len)
+    toks = [[2] + [int(t) for t in rng.integers(5, 256, int(n))] + [3]
+            for n in rng.integers(1, row_len + 24, 40)]
+    toks += [toks[3], toks[7], toks[3]]
+    toks = [toks[i] for i in rng.permutation(len(toks))]
+    lengths = np.array([len(t) for t in toks])
+    assert (lengths > row_len).sum() >= 4 and (lengths <= row_len).sum() >= 8
+    got = eng.encode_toks_packed(toks, row_len, batch_rows)
+    ref = jeng.encode_toks_packed(toks, row_len, batch_rows)
+    assert got.shape == ref.shape == (len(toks), 128)
+    assert (got * ref).sum(-1).min() >= 0.999
+    bucketed = eng.encode_toks(toks)
+    assert (got * bucketed).sum(-1).min() >= 0.9999
+    # each row is nearest its own input's, among distinct inputs
+    sim = got @ bucketed.T
+    for i, t in enumerate(toks):
+        same = [k for k, u in enumerate(toks) if u == t]
+        assert int(np.argmax(sim[i])) in same, i
+        for k in same:
+            np.testing.assert_allclose(got[k], got[i], atol=1e-5)
 
 
 def test_service_packed_matches_engine(engines):
