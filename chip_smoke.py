@@ -86,6 +86,7 @@ tokenize, bench).
     python3 chip_smoke.py --phases device,build,ggml_path,gguf_path,\
         rerank_path,timing
     python3 chip_smoke.py --phases device,build,moe_path,timing
+    python3 chip_smoke.py --phases device,build,mla_path,timing  # DeepSeek-V2
     python3 chip_smoke.py --phases device,build,multihost_path
     python3 chip_smoke.py --phases device,build,multicard_path,nccl_path
     python3 chip_smoke.py --phases device,build,main,timing,native_tok,\
@@ -252,6 +253,24 @@ ALBERT_UP = (E, F, "bias_gelu_tanh")
 # the 6 odd ones; 36 K1 a forward (qkv and o in every layer, up and down
 # in the 6 dense ones); bucketed at B=128, L=256 (K2) and B=4, L=2,048
 # (K6: past the whole-row rule at E=768), packed 256 rows of 128 (K4)
+# DeepSeek-V2-Lite (the benchmark's configuration file): MLA's K6c at
+# the cell's buckets (B=8; 16 heads, q and k 192 wide, v 128), a forward
+# of the main path at full width cut to the leading dense layer and one
+# MoE layer, its routed experts' grouped products at a 1,024 bucket
+DSV2_CONFIG = ROOT / "perfbench" / "configs" / "deepseek-v2-lite.json"
+MLA_SHAPES = ((8, 1024), (8, 2048), (8, 4096))
+MLA_H, MLA_D, MLA_DV = 16, 192, 128
+DSV2_LAYERS = 2
+# a forward at each bucket of the cell (8 rows a forward): 1,024, 2,048,
+# 4,096
+DSV2_LENGTHS = (129, 300, 512, 700, 900, 1000, 1024, 1024,
+                1100, 1300, 1500, 1700, 1800, 1900, 2000, 2048,
+                2500, 3001, 4096)
+DSV2_EXPERTS, DSV2_HIDDEN, DSV2_I = 64, 2048, 1408
+DSV2_ROWS = 8 * 1024 * 6  # (token, expert) pairs of a 1,024 bucket, top-6
+MLA_REPLACES = ("none: the port's own mode (K6c at MLA's widths, q and k "
+                "192 wide, v 128, the scale passed in); the JAX package "
+                "has no MLA")
 MOE_SHORT, MOE_LONG, MOE_PACK = (128, 256), (4, 2048), (256, 128)
 MOE_NL, MOE_EXPERTS, MOE_K1 = 12, 8, 36
 MOE_FIXTURE = ROOT / "benchmarks" / "fixtures" / "tiny_trained_moe"
@@ -1610,7 +1629,7 @@ def phase_k6w():
          f"finite, exactly 0 past len + window/2 and on len-0 rows", **out)
 
 
-def causal_compare(got, ref, qkv, lens, Bx, Lx, Hx, Dx) -> dict:
+def causal_compare(got, ref, qkv, lens, Bx, Lx, Hx, Dx, dv=None) -> dict:
     """K6c against its plain version. Query row i of sequence b sees
     min(i + 1, len[b]) keys. Rows that see 64 keys or more: K2's
     tolerance. Rows that see 1-63 (the first rows of every sequence, read
@@ -1619,14 +1638,15 @@ def causal_compare(got, ref, qkv, lens, Bx, Lx, Hx, Dx) -> dict:
     * |v_j - out| <= 2^-6 * max|v| over those keys (an output near a
     bf16 rounding boundary of exp2 in one version and not the other; the
     two sum the scores in other orders). Rows that see no key: exactly
-    0."""
+    0. ``dv``: the value heads' width where it is not q's and k's (MLA)."""
     import torch
+    dv = dv or Dx
     i = torch.arange(Lx, device=got.device)
     nkeys = torch.minimum(i[None, :] + 1, lens[:, None].long()).reshape(-1)
-    vmax = qkv.float().reshape(Bx, Lx, 3, Hx, Dx)[:, :64, 2].abs().amax(
-        dim=(1, 3))                                              # [B, H]
+    v = qkv.float().reshape(Bx, Lx, -1)[:, :64, 2 * Hx * Dx:]
+    vmax = v.reshape(Bx, -1, Hx, dv).abs().amax(dim=(1, 3))      # [B, H]
     flip = (2.0 ** -6 * vmax)[:, None, :, None].expand(
-        Bx, Lx, Hx, Dx).reshape(Bx * Lx, Hx * Dx)
+        Bx, Lx, Hx, dv).reshape(Bx * Lx, Hx * dv)
     g, r = got.float(), ref.float()
     err = (g - r).abs()
     tol = K2_RTOL * r.abs() + K2_ATOL_RMS * r.square().mean().sqrt()
@@ -1960,6 +1980,181 @@ def phase_k6ca():
          f"{K2_ATOL_RMS}*rms(ref) on query rows that see >= 64 keys; "
          f"+ 2^-6 * max|v| of the keys on rows that see 1-63; rows that "
          f"see none exactly 0", **out)
+
+
+def _dsv2_engine():
+    """DeepSeek-V2-Lite at full width from the benchmark's configuration
+    file, cut to ``DSV2_LAYERS`` layers, built as the cell builds it
+    (``perfbench.program.build_engine``: q4_0 projections, the routed
+    experts held in bf16) from its reference's HF-named random weights
+    (seed 0, made on the card and copied to the host). Returns (engine,
+    model block, the f32 weights on the card for the reference)."""
+    import torch
+    from perfbench import program, weights
+    from perfbench.reference import deepseek_v2 as ref
+    model = json.loads(DSV2_CONFIG.read_text())["model"]
+    model["hf_config"]["num_hidden_layers"] = DSV2_LAYERS
+    dev = torch.device("cuda")
+    sd = weights.make(ref.checkpoint_spec(model["hf_config"]), 0, dev)
+    eng = program.build_engine(
+        model, {k: v.cpu().numpy() for k, v in sd.items()}, dev)
+    return eng, model, sd
+
+
+def phase_mla_path():
+    """DeepSeek-V2-Lite on the card. K6c at MLA's widths against its
+    plain version at the cell's buckets (``causal_compare``'s tolerance,
+    ragged rows with an empty and a one-key row); the routed experts'
+    grouped product (``ops.moe._grouped``) against one ``torch.mm`` an
+    expert at a 1,024 bucket's rows (64 experts, two empty); then one
+    main-path ``encode_toks`` of rows in every bucket, the launch
+    counters zeroed just before it: every layer's attention through the
+    MLA kernel (``mla_launches``), no plain version, no MoE host read,
+    three grouped products a MoE layer, and the embeddings against the
+    plain reference in f32 within the cell's limits."""
+    import torch
+    from embeddings_tpu_torch.ops import attention as A, moe as Mo
+    from perfbench import compare as bench_compare, program
+    from perfbench.reference import deepseek_v2 as ref
+    rng = np.random.default_rng(26)
+    dev = torch.device("cuda")
+    out, stream = {}, A.fused_attention_stream
+    E = MLA_H * (2 * MLA_D + MLA_DV)
+    scale = ref.softmax_scale(json.loads(DSV2_CONFIG.read_text())
+                              ["model"]["hf_config"])
+    for Bx, Lx in MLA_SHAPES:
+        qkv = torch.from_numpy(rng.standard_normal(
+            (Bx * Lx, E), dtype=np.float32)).to(dev, torch.bfloat16)
+        lens = torch.tensor([Lx, Lx - 37, 1, 0, Lx // 2, 129, Lx - 1, 64],
+                            dtype=torch.int32, device=dev)[:Bx]
+        kw = dict(B=Bx, L=Lx, H=MLA_H, D=MLA_D, BK=A.pick_bk(Lx),
+                  causal=True, dv=MLA_DV, scale=scale)
+        got = stream(qkv, lens, **kw)
+        want = A.fused_attention_stream_ref(qkv, lens, **kw)
+        torch.cuda.synchronize()
+        r = dict(causal_compare(got, want, qkv, lens, Bx, Lx, MLA_H, MLA_D,
+                                MLA_DV), shape=[Bx, Lx, MLA_H, MLA_D, MLA_DV],
+                 BK=kw["BK"])
+        check(r["ok"] and r["zero_rows_exact"], f"MLA L={Lx} disagrees: {r}")
+        out[f"L{Lx}"] = r
+        del want
+    # the grouped expert product at a 1,024 bucket's rows (B=8, top-6)
+    counts = torch.from_numpy(rng.multinomial(
+        DSV2_ROWS, np.full(DSV2_EXPERTS, 1 / DSV2_EXPERTS)))
+    counts[[5, 40]] = 0
+    a = torch.randn(int(counts.sum()), DSV2_HIDDEN, device=dev,
+                    dtype=torch.bfloat16)
+    w = torch.randn(DSV2_EXPERTS, DSV2_HIDDEN, DSV2_I, device=dev,
+                    dtype=torch.bfloat16) * 0.02
+    counts = counts.to(dev)
+    grouped = Mo._grouped(counts, torch.bfloat16)
+    rows = counts.tolist()
+
+    def looped():
+        return torch.cat([torch.mm(x, w[e])
+                          for e, x in enumerate(a.split(rows))])
+    gm = compare(grouped(a, w), looped(), 2.0 ** -7, 1e-3)
+    check(gm["ok"], f"grouped expert product disagrees: {gm}")
+    gm.update(rows=int(counts.sum()), experts=DSV2_EXPERTS,
+              K=DSV2_HIDDEN, N=DSV2_I, **{k: v[0] for k, v in alternating_ms(
+                  {"grouped_ms": lambda: grouped(a, w),
+                   "per_expert_mm_ms": looped}).items()})
+    del a, w
+    # one main-path forward set, counted from zero
+    eng, model, sd = _dsv2_engine()
+    lo, hi = model["tokens"]["draw"]
+    tok = model["tokens"]
+    seqs = [[tok["cls"], *rng.integers(lo, hi, n - 2).tolist(), tok["sep"]]
+            for n in DSV2_LENGTHS]
+    eng.encode_toks(seqs[:2])  # the first call's set-up, not counted
+    torch.cuda.synchronize()
+    rec = program.ForwardRecorder(eng)
+    stream.mla_launches = stream.causal_launches = stream.launches = 0
+    reads, gemms = moe_counts()
+    with plain_calls() as calls, rec.active():
+        emb = eng.encode_toks(seqs)
+        torch.cuda.synchronize()
+    r2, g2 = moe_counts()
+    launches = {"mla": stream.mla_launches, "K6c": stream.causal_launches,
+                "K6": stream.launches, "moe_host_reads": r2 - reads,
+                "expert_products": g2 - gemms}
+    n_fwd = len(rec.forwards)
+    want = {"mla": n_fwd * DSV2_LAYERS, "K6c": n_fwd * DSV2_LAYERS,
+            "K6": 0, "moe_host_reads": 0,
+            "expert_products": 3 * n_fwd * (DSV2_LAYERS - 1)}
+    check(launches == want and not any(calls.values()),
+          f"DeepSeek-V2 forward launched {launches}, want {want}; plain "
+          f"calls {dict(calls)}")
+    STATE["launches_mla"] = {f"L{f['L']}": DSV2_LAYERS
+                             for f in rec.forwards}
+    hf = model["hf_config"]
+    ref_emb = ref.encode(sd, hf, {"pooling": model["pooling"],
+                                  "normalize": model["normalize"]},
+                         seqs, dev).cpu().numpy()
+    gaps = bench_compare.numbers(emb, ref_emb)
+    limits = json.loads((ROOT / "perfbench" / "limits" /
+                         "dsv2-lite.long-docs.json").read_text())
+    check(bench_compare.passed(bench_compare.judge(gaps, limits)),
+          f"DeepSeek-V2 forward against the reference: {gaps}")
+    del eng, sd
+    emit("mla_path", routes=fused_attention_routes(),
+         tolerance=f"|err| <= {K2_RTOL}*|ref| + "
+         f"{K2_ATOL_RMS}*rms(ref) on query rows that see >= 64 keys; "
+         f"+ 2^-6 * max|v| of the keys on rows that see 1-63; rows that "
+         f"see none exactly 0", softmax_scale=scale, parity=out,
+         grouped_expert_product=gm, layers=DSV2_LAYERS,
+         forwards=[[f["B"], f["L"]] for f in rec.forwards],
+         launches=launches, reference=gaps, limits=limits["compare"])
+
+
+def mla_rows(rng, dev) -> list:
+    """MLA's rows of the kernel table (K6c at 192/128, every row full) at
+    the cell's buckets. The bound counts the causal pairs (L(L+1)/2 a
+    row) through q.k at 192 and p.v at 128 against q, k, v read and the
+    context written once; the library yardstick is SDPA with
+    is_causal=True on [B, H, L, D] copies (v 128 wide), in alternating
+    rounds with the kernel."""
+    import torch
+    import torch.nn.functional as Fn
+    from embeddings_tpu_torch.ops import attention as A
+    scale = RESULTS["mla_path"]["softmax_scale"]
+    out = []
+    for Bx, Lx in MLA_SHAPES:
+        qkv = torch.from_numpy(rng.standard_normal(
+            (Bx * Lx, MLA_H * (2 * MLA_D + MLA_DV)),
+            dtype=np.float32)).to(dev, torch.bfloat16)
+        lens = torch.full((Bx,), Lx, dtype=torch.int32, device=dev)
+        kw = dict(B=Bx, L=Lx, H=MLA_H, D=MLA_D, BK=A.pick_bk(Lx),
+                  causal=True, dv=MLA_DV, scale=scale)
+        q, k, v = (t.reshape(Bx, Lx, MLA_H, -1).transpose(1, 2).contiguous()
+                   for t in qkv.split([MLA_H * MLA_D] * 2
+                                      + [MLA_H * MLA_DV], -1))
+        pairs = Bx * Lx * (Lx + 1) // 2
+        bms, by = bound_ms(2.0 * MLA_H * (MLA_D + MLA_DV) * pairs,
+                           Bx * Lx * MLA_H * (2 * MLA_D + 2 * MLA_DV) * 2
+                           + Bx * 4)
+        t = alternating_ms({
+            "kernel": functools.partial(A.fused_attention_stream, qkv, lens,
+                                        **kw),
+            "library": lambda: Fn.scaled_dot_product_attention(
+                q, k, v, is_causal=True, scale=scale)})
+        out.append({
+            "name": f"fused_attention_stream causal mla[B{Bx} L{Lx} "
+                    f"H{MLA_H} D{MLA_D} DV{MLA_DV}]", "route": "cuda",
+            "source": ATTN90_SOURCE, "replaces": MLA_REPLACES,
+            "launches": STATE.get("launches_mla", {}).get(f"L{Lx}", 0),
+            "max_abs_err": RESULTS["mla_path"]["parity"][f"L{Lx}"][
+                "max_abs_err"],
+            "ms": t["kernel"][0], "ms_range": t["kernel"][1],
+            "plain_ms": cuda_ms(functools.partial(
+                A.fused_attention_stream_ref, qkv, lens, **kw), iters=2,
+                warmup=1),
+            "bound_ms": bms, "bound_by": by, "roofline_pct": 100 * bms
+            / t["kernel"][0], "library_ms": t["library"][0],
+            "library_ms_range": t["library"][1], "causal_pairs": pairs,
+            "shape": [Bx, Lx, MLA_H, MLA_D, MLA_DV]})
+        del qkv, q, k, v
+    return out
 
 
 def _family_engine(family: str, mesh=None, **ec):
@@ -3815,6 +4010,8 @@ def phase_timing():
         kernels += cp_rows(rng, dev)
     if "k6ca_parity" in RESULTS:
         kernels.append(causal_alibi_row(rng, dev))
+    if "mla_path" in RESULTS:
+        kernels += mla_rows(rng, dev)
     if "k1_parity" in RESULTS:
         # K1 at a TP shard's shapes, with the launches of the 1 x 2 and
         # 1 x 4 forwards (tp_path)
@@ -6392,6 +6589,7 @@ PHASES = {"device": phase_device, "build": phase_build, "k1": phase_k1,
           "roberta_path": phase_roberta_path,
           "roformer_path": phase_roformer_path,
           "albert_path": phase_albert_path, "moe_path": phase_moe_path,
+          "mla_path": phase_mla_path,
           "ggml_path": phase_ggml_path,
           "gguf_path": phase_gguf_path, "rerank_path": phase_rerank_path,
           "timing": phase_timing, "native_tok": phase_native_tok,

@@ -98,6 +98,27 @@ class BertConfig:
     global_attn_every_n_layers: int = 1
     local_attention_window: int = 0
     local_rotary_base: float | None = None
+    # DeepSeek-V2 (the port's own fields; ``to_dict`` leaves them out at
+    # their defaults, so every other config keeps the JAX package's keys).
+    # MoE layout: the first first_k_dense_replace layers keep a dense FFN,
+    # every later one is MoE (moe_every_n_layers 1); experts
+    # moe_intermediate_size wide (0 = intermediate_size), gated like the
+    # dense MLP, n_shared_experts of them fused into one shared SwiGLU
+    # added for every token, routed weights times routed_scaling_factor.
+    first_k_dense_replace: int = 0
+    moe_intermediate_size: int = 0
+    n_shared_experts: int = 0
+    routed_scaling_factor: float = 1.0
+    # Multi-head latent attention (MLA) where kv_lora_rank > 0: q per head
+    # [nope | rope] (qk_nope_head_dim + qk_rope_head_dim), k and v from a
+    # kv_lora_rank-wide RMS-normed latent, one rotated key part shared by
+    # every head, v_head_dim-wide values; rope_scaling holds HF's YaRN
+    # dict as sorted (key, value) pairs (hashable), () = plain RoPE.
+    kv_lora_rank: int = 0
+    qk_nope_head_dim: int = 0
+    qk_rope_head_dim: int = 0
+    v_head_dim: int = 0
+    rope_scaling: tuple = ()
 
     # Sentence-embedding head (SentenceTransformers semantics).
     # "lasttoken" = the last non-pad position (decoder-based embedders).
@@ -127,10 +148,33 @@ class BertConfig:
                 f"(one per Dense module), got string {self.st_dense_acts!r}"
                 " — wrap it in a tuple/list")
         object.__setattr__(self, "st_dense_acts", tuple(self.st_dense_acts))
+        # HF's rope_scaling dict, or its JSON round trip (a list of pairs)
+        rs = self.rope_scaling
+        items = rs.items() if isinstance(rs, dict) else (rs or ())
+        object.__setattr__(self, "rope_scaling",
+                           tuple(sorted((str(k), v) for k, v in items)))
 
     @property
     def head_dim(self) -> int:
         return self.hidden_size // self.num_attention_heads
+
+    @property
+    def mla(self) -> bool:
+        """Multi-head latent attention (DeepSeek-V2)."""
+        return self.kv_lora_rank > 0
+
+    @property
+    def qk_head_dim(self) -> int:
+        """A query or key head's width: MLA's nope + rope parts, else
+        head_dim."""
+        if self.mla:
+            return self.qk_nope_head_dim + self.qk_rope_head_dim
+        return self.head_dim
+
+    @property
+    def expert_width(self) -> int:
+        """A routed expert's hidden width."""
+        return self.moe_intermediate_size or self.intermediate_size
 
     @classmethod
     def from_hf_dict(cls, d: dict[str, Any], **overrides: Any) -> "BertConfig":
@@ -265,6 +309,67 @@ class BertConfig:
                  "layer_norm_eps": d.get("rms_norm_eps", 1e-6),
                  "pad_token_id": d.get("pad_token_id") or int(eos),
                  "type_vocab_size": 1}  # synthesized zeros row
+        if d.get("model_type") == "deepseek_v2":
+            # DeepSeek-V2(-Lite) run as a decoder embedder (causal, an
+            # appended EOS, last-token pooling), on Qwen2's pre-norm
+            # RMSNorm stack: MLA attention (no q compression), YaRN on the
+            # rotated parts, leading dense SwiGLU layers, then MoE layers
+            # of SwiGLU experts with softmax greedy top-k routing and a
+            # shared expert.
+            refused = {
+                "q_lora_rank": d.get("q_lora_rank") is not None,
+                "topk_method": d.get("topk_method", "greedy") != "greedy",
+                "scoring_func": d.get("scoring_func", "softmax")
+                != "softmax",
+                "moe_layer_freq": int(d.get("moe_layer_freq", 1)) != 1,
+                "attention_bias": bool(d.get("attention_bias")),
+            }
+            bad = [k for k, v in refused.items() if v]
+            if bad:
+                raise ValueError(f"unsupported DeepSeek-V2 settings: "
+                                 f"{', '.join(bad)}")
+            rs = d.get("rope_scaling") or {}
+            if rs and rs.get("type", rs.get("rope_type")) != "yarn":
+                raise ValueError(f"only YaRN rope_scaling is supported, "
+                                 f"got {rs!r}")
+            overrides.setdefault("norm_style", "pre")
+            overrides.setdefault("norm_type", "rmsnorm")
+            overrides.setdefault("causal", bool(d.get("is_causal", True)))
+            overrides.setdefault("position_embedding_type", "rotary")
+            overrides.setdefault("rotary_base",
+                                 float(d.get("rope_theta", 10000.0)))
+            overrides.setdefault("rope_scaling", rs)
+            overrides.setdefault("gated_mlp", True)
+            overrides.setdefault("pooling", "lasttoken")
+            overrides.setdefault("kv_lora_rank", int(d["kv_lora_rank"]))
+            for k in ("qk_nope_head_dim", "qk_rope_head_dim", "v_head_dim"):
+                overrides.setdefault(k, int(d[k]))
+            if d.get("n_routed_experts"):
+                overrides.setdefault("num_experts",
+                                     int(d["n_routed_experts"]))
+                overrides.setdefault("moe_top_k",
+                                     int(d["num_experts_per_tok"]))
+                overrides.setdefault("moe_every_n_layers", 1)
+                overrides.setdefault("moe_normalize_topk",
+                                     bool(d.get("norm_topk_prob")))
+                overrides.setdefault("first_k_dense_replace",
+                                     int(d.get("first_k_dense_replace", 0)))
+                overrides.setdefault("moe_intermediate_size",
+                                     int(d["moe_intermediate_size"]))
+                overrides.setdefault("n_shared_experts",
+                                     int(d.get("n_shared_experts") or 0))
+                overrides.setdefault(
+                    "routed_scaling_factor",
+                    float(d.get("routed_scaling_factor", 1.0)))
+            eos = int(d.get("eos_token_id", 100001))
+            overrides.setdefault("cls_token_id",
+                                 int(d.get("bos_token_id", 100000)))
+            overrides.setdefault("sep_token_id", eos)
+            d = {**d,
+                 "hidden_act": d.get("hidden_act", "silu"),
+                 "layer_norm_eps": d.get("rms_norm_eps", 1e-6),
+                 "pad_token_id": d.get("pad_token_id") or eos,
+                 "type_vocab_size": 1}  # synthesized zeros row
         if d.get("model_type") == "modernbert":
             # ModernBERT (gte-modernbert-base, nomic modernbert-embed):
             # pre-norm biasless blocks, RoPE with separate global/local
@@ -339,7 +444,20 @@ class BertConfig:
             return cls.from_hf_dict(json.load(f), **overrides)
 
     def to_dict(self) -> dict[str, Any]:
-        return dataclasses.asdict(self)
+        """The fields as a dict; the port's own DeepSeek-V2 fields only
+        where they are set, so other configs round-trip through the JAX
+        package's ``BertConfig``."""
+        out = dataclasses.asdict(self)
+        for f in dataclasses.fields(self):
+            if f.name in PORT_ONLY_FIELDS and out[f.name] == f.default:
+                del out[f.name]
+        return out
+
+
+PORT_ONLY_FIELDS = frozenset((
+    "first_k_dense_replace", "moe_intermediate_size", "n_shared_experts",
+    "routed_scaling_factor", "kv_lora_rank", "qk_nope_head_dim",
+    "qk_rope_head_dim", "v_head_dim", "rope_scaling"))
 
 
 @dataclasses.dataclass

@@ -35,7 +35,10 @@
 //               TPU kernels compute the same sums, the second over key
 //               blocks, and this kernel streams key tiles in both);
 //   K2i8: _attn_kernel's int8_scores branch (with _emit_int8_rows for
-//               K2i8 with emission), behind fused_attention(int8_scores=).
+//               K2i8 with emission), behind fused_attention(int8_scores=);
+//   mode 7 at MLA's widths (attn_sm90_kernel_mla): no TPU kernel, the
+//               port's own, behind fused_attention_stream(causal=True,
+//               dv=) (DeepSeek-V2's multi-head latent attention).
 //
 // For each sequence b, head h and query i, reading q, k and v as column
 // slices of the fused qkv [B*L, 3E] (q at h*D, k at E + h*D, v at 2E +
@@ -81,6 +84,16 @@
 // local fused projection [B*Lc, 3E] is read in place, ldq = 3E; a rotated
 // q has ldq = E), kv [B*L, 2E] holds k at h*D and v at E + h*D, out is
 // [B*Lc, E]; hi is sized to the L gathered keys, not to Lc.
+//
+// The MLA layout (mode 7 only): q and k heads D = 192 wide (128 without
+// position, 64 rotated), v heads DV = 128 wide, read from one qkv [B*L,
+// H*(2D + DV)] (q at h*D, k at H*D + h*D, v at 2H*D + h*DV), the context
+// written [B*L, H*DV]; s2 is the softmax scale (DeepSeek-V2-Lite's
+// 192^-0.5 * mscale^2) times log2(e), passed in. A Q or K tile row is
+// three 64-column boxes, a V tile row two; the ring is two stages deep
+// (210 KB of shared memory a block). At B=8, L=4,096, H=16 the causal
+// half's products are ~687 GFLOP on ~671 MB (qkv in, context out): bound
+// by the tensor cores (0.69 ms at 989 TFLOP/s).
 //
 // Emission (modes 0 and 1, K2e and K4e; the TPU's _emit_int8_rows): each
 // context row is also ("both") or instead ("only") written as symmetric
@@ -335,15 +348,19 @@ constexpr int BIAS_COLS = 32;  // keys per bias box (128 bytes of f32)
 // bytes, the swizzle width: 128 bytes at D >= 64, 64 at D=32), each block
 // a TMA box column; wgmma's layout type for that swizzle; the K/V ring's
 // depth and mode 3's bias ring's (shared memory: the bias tile is 64 KB).
-template <int D, int MODE>
+// DV: the V heads' width (MLA's 128 beside q and k heads of D = 192; D
+// everywhere else), a V tile NHV blocks of CW columns.
+template <int D, int MODE, int DV = D>
 struct Cfg {
   static constexpr int CW = D < 64 ? D : 64;
   static constexpr int RB = CW * 2;
   static constexpr int NH = D / CW;
+  static constexpr int NHV = DV / CW;
   static constexpr uint32_t LAYOUT = RB == 128 ? 1 : 2;
-  static constexpr int STAGES = D == 128 || (MODE == BIAS && D == 64) ? 2 : 3;
+  static constexpr int STAGES = D >= 128 || (MODE == BIAS && D == 64) ? 2 : 3;
   static constexpr int BSTAGES = MODE != BIAS ? 0 : D == 128 ? 1 : 2;
-  static constexpr uint32_t TILE_BYTES = KT * D * 2;  // one K or V tile
+  static constexpr uint32_t TILE_BYTES = KT * D * 2;  // one K tile
+  static constexpr uint32_t VTILE_BYTES = KT * DV * 2;  // one V tile
   // modes 1, 2: a K stage's key segment ids come with it
   static constexpr uint32_t SEG_BYTES = seg_mode(MODE) ? KT * 4 : 0;
 };
@@ -389,15 +406,15 @@ __device__ __forceinline__ int2 band_tiles(int q0, int rows, int W,
 // warpgroup w's 64 rows at w * 32 KB, key block c (32 keys) of them at c
 // * 8 KB, row r at r * 128 (its 16-byte chunks swizzled within 8-row
 // groups).
-template <int D, int NC, int MODE, int EMIT>
+template <int D, int NC, int MODE, int EMIT, int DV = D>
 struct Smem {
-  using C = Cfg<D, MODE>;
+  using C = Cfg<D, MODE, DV>;
   static constexpr int QB = NC * WG_ROWS;
   static constexpr int QBUF = all_heads(MODE, EMIT) ? 2 : 1;
   static constexpr uint32_t q_bytes = QB * D * 2;  // one Q tile
   static constexpr uint32_t k_off = QBUF * q_bytes;
   static constexpr uint32_t v_off = k_off + C::STAGES * C::TILE_BYTES;
-  static constexpr uint32_t ones_off = v_off + C::STAGES * C::TILE_BYTES;
+  static constexpr uint32_t ones_off = v_off + C::STAGES * C::VTILE_BYTES;
   static constexpr uint32_t b_off = ones_off + 1024;
   static constexpr uint32_t b_tile_bytes = QB * KT * 4;
   static constexpr uint32_t seg_off = b_off + C::BSTAGES * b_tile_bytes;
@@ -417,6 +434,8 @@ static_assert(Smem<128, 2, SEGMENT, EMIT_ONLY>::bytes <= 232448,
 static_assert(Smem<128, 2, SEGMENT, EMIT_NO>::bytes <= 232448,
               "D=128 segment block");
 static_assert(Smem<128, 2, BAND, EMIT_NO>::bytes <= 232448, "D=128 band block");
+static_assert(Smem<192, 2, CAUSAL, EMIT_NO, 128>::bytes <= 232448,
+              "MLA block");
 
 struct Args {
   const int* lengths;   // [B] int32 (modes 0, 3-8)
@@ -679,15 +698,18 @@ __device__ __forceinline__ void emit_rows(const Args& a, float* rmax,
 // bmap: mode 3's bias [H, L, L]; smap: mode 1's seg [B, L] (each unused
 // by the other modes). EMIT: emission (modes 0 and 1); with it, and in
 // K4, the block runs every head of its (query tile, sequence), see the
-// design notes. CP: 1 the CP layout (mode 4), 0 the fused one.
-template <int D, int MODE, int NC, int EMIT, int CP>
-__global__ void __launch_bounds__(128 * (NC + 1), 1) attn_sm90_kernel(
-    const __grid_constant__ CUtensorMap qmap,
-    const __grid_constant__ CUtensorMap kvmap,
-    const __grid_constant__ CUtensorMap bmap,
-    const __grid_constant__ CUtensorMap smap, const Args a) {
-  using C = Cfg<D, MODE>;
-  using S = Smem<D, NC, MODE, EMIT>;
+// design notes. CP: 1 the CP layout (mode 4), 0 the fused one. DV: the V
+// heads' width, D but in MLA (mode 7 alone: qkv [B, L, H*(2D + DV)], q at
+// h*D, k at H*D + h*D, v at 2H*D + h*DV, out [B*L, H*DV]). The kernels
+// below are this body under their own names.
+template <int D, int MODE, int NC, int EMIT, int CP, int DV>
+__device__ __forceinline__ void attn_sm90_body(const CUtensorMap& qmap,
+                                               const CUtensorMap& kvmap,
+                                               const CUtensorMap& bmap,
+                                               const CUtensorMap& smap,
+                                               const Args& a) {
+  using C = Cfg<D, MODE, DV>;
+  using S = Smem<D, NC, MODE, EMIT, DV>;
   constexpr int QB = S::QB;
   constexpr int STAGES = C::STAGES;
   constexpr int BS = C::BSTAGES > 0 ? C::BSTAGES : 1;  // mode 3's bias ring
@@ -702,6 +724,8 @@ __global__ void __launch_bounds__(128 * (NC + 1), 1) attn_sm90_kernel(
                 "the CP layout is mode 4's, without emission");
   static_assert((MODE != WINDOW && MODE != BAND) || NC == 2,
                 "modes 2 and 6 take 128-row query blocks");
+  static_assert(DV == D || (MODE == CAUSAL && !EMITS && CP == 0 && NC == 2),
+                "another V width is MLA's, in mode 7");
   const bool batch_fastest = MODE == BIAS && a.batch_fastest;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw_base = smem_u32(smem_raw);
@@ -808,7 +832,7 @@ __global__ void __launch_bounds__(128 * (NC + 1), 1) attn_sm90_kernel(
       asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
           PRODUCER_REGS));
     if (tid != 128 * NC) return;
-    // the K and V columns: qkv's k at E + h*D, v at 2E + h*D; the CP
+    // the K and V columns: qkv's k at E + h*D, v at 2E + h*DV; the CP
     // layout's kv [B, L, 2E] k at h*D, v at E + h*D
     const int kv_col = CP ? 0 : E;
     int g = 0;
@@ -834,16 +858,18 @@ __global__ void __launch_bounds__(128 * (NC + 1), 1) attn_sm90_kernel(
         for (int kv = 0; kv < 2; ++kv) {  // K, then V
           const uint32_t full = kv ? v_full(s) : k_full(s);
           mbar_wait(kv ? v_empty(s) : k_empty(s), ph ^ 1);
-          mbar_expect_tx(full, C::TILE_BYTES + (kv ? 0 : C::SEG_BYTES));
+          mbar_expect_tx(full,
+                         kv ? C::VTILE_BYTES : C::TILE_BYTES + C::SEG_BYTES);
           const uint32_t tile =
-              base + (kv ? S::v_off : S::k_off) + s * C::TILE_BYTES;
+              base + (kv ? S::v_off + s * C::VTILE_BYTES
+                         : S::k_off + s * C::TILE_BYTES);
+          const int col = kv ? kv_col + E + h * DV : kv_col + h * D;
 #pragma unroll
-          for (int c = 0; c < C::NH; ++c)
+          for (int c = 0; c < (kv ? C::NHV : C::NH); ++c)
 #pragma unroll
             for (int rc = 0; rc < KT / BOX_ROWS; ++rc)
               tma_load_3d(tile + (c * KT + rc * BOX_ROWS) * RB, &kvmap,
-                          kv_col + kv * E + h * D + c * C::CW,
-                          k0 + rc * BOX_ROWS, b, full);
+                          col + c * C::CW, k0 + rc * BOX_ROWS, b, full);
           if constexpr (seg_mode(MODE)) {
             // the keys' segment ids, with K (keys past L read as 0)
             if (kv == 0)
@@ -916,7 +942,7 @@ __global__ void __launch_bounds__(128 * (NC + 1), 1) attn_sm90_kernel(
   for (int m = 0; m < 4; ++m)
     boff[m] = ((2 * m + (quad >> 1)) ^ (rw & 7)) << 4;
 
-  float o[D / 2];
+  float o[DV / 2];
   float s[KT / 2];
   uint32_t p[KT / 4];
 #pragma unroll
@@ -955,7 +981,7 @@ __global__ void __launch_bounds__(128 * (NC + 1), 1) attn_sm90_kernel(
     const uint64_t dq = dq0 + ((qi * S::q_bytes) >> 4);
     const float slope = alibi_mode(MODE) ? a.slopes[h] : 0.0f;
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) o[i] = 0.0f;
+    for (int i = 0; i < DV / 2; ++i) o[i] = 0.0f;
     float sum[2] = {0.0f, 0.0f};
     float rs[4] = {0.0f, 0.0f, 0.0f, 0.0f};  // ONES: the row sums
 
@@ -1092,13 +1118,13 @@ __global__ void __launch_bounds__(128 * (NC + 1), 1) attn_sm90_kernel(
         wait_bias(t);
         take_turn();
         fence_regs<KT / 2>(s);
-        fence_regs<D / 2>(o);
+        fence_regs<DV / 2>(o);
         fence_regs<4>(rs);
         fence_regs<KT / 4>(p);
         wgmma_fence();
         issue_scores(sc);
         wgmma_commit();
-        pv_product<D, ONES>(o, rs, p, dv + ((sp * C::TILE_BYTES) >> 4), d1);
+        pv_product<DV, ONES>(o, rs, p, dv + ((sp * C::VTILE_BYTES) >> 4), d1);
         wgmma_commit();
         pass_turn();
         wgmma_wait<1>();
@@ -1107,7 +1133,7 @@ __global__ void __launch_bounds__(128 * (NC + 1), 1) attn_sm90_kernel(
         score_tile(t, g);
         if constexpr (seg_mode(MODE)) release_k(g);
         wgmma_wait<0>();
-        fence_regs<D / 2>(o);
+        fence_regs<DV / 2>(o);
         fence_regs<4>(rs);
         fence_regs<KT / 4>(p);
         if (lane == 0) mbar_arrive(v_empty(sp));
@@ -1118,15 +1144,15 @@ __global__ void __launch_bounds__(128 * (NC + 1), 1) attn_sm90_kernel(
       const int sp = gl % STAGES;
       mbar_wait(v_full(sp), (gl / STAGES) & 1);
       take_turn();
-      fence_regs<D / 2>(o);
+      fence_regs<DV / 2>(o);
       fence_regs<4>(rs);
       fence_regs<KT / 4>(p);
       wgmma_fence();
-      pv_product<D, ONES>(o, rs, p, dv + ((sp * C::TILE_BYTES) >> 4), d1);
+      pv_product<DV, ONES>(o, rs, p, dv + ((sp * C::VTILE_BYTES) >> 4), d1);
       wgmma_commit();
       if (wg == 0 || hh + 1 < n_heads || lead + ntw < nt) pass_turn();
       wgmma_wait<0>();
-      fence_regs<D / 2>(o);
+      fence_regs<DV / 2>(o);
       fence_regs<4>(rs);
       if (lane == 0) mbar_arrive(v_empty(sp));
     }
@@ -1146,14 +1172,36 @@ __global__ void __launch_bounds__(128 * (NC + 1), 1) attn_sm90_kernel(
     }
     const float inv[2] = {1.0f / fmaxf(sum[0], 1e-30f),
                           1.0f / fmaxf(sum[1], 1e-30f)};
-    store_head<D, EMIT>(a, b, Lq, row0, h, quad, amax,
-                        [&](int r, int i) { return o[i] * inv[r]; });
+    store_head<DV, EMIT>(a, b, Lq, row0, h, quad, amax,
+                         [&](int r, int i) { return o[i] * inv[r]; });
   }
 
   if constexpr (EMITS)
     emit_rows<EMIT>(a, reinterpret_cast<float*>(sbase + S::rmax_off) +
                            wg * WG_ROWS,
                     amax, tid, quad, rw, L, qw0, b, E);
+}
+
+// The body's launches: attn_sm90_kernel<D, mode, NC, emit, cp> for every
+// mode at one head width, and attn_sm90_kernel_mla<D, DV> for mode 7 at
+// MLA's widths.
+template <int D, int MODE, int NC, int EMIT, int CP>
+__global__ void __launch_bounds__(128 * (NC + 1), 1) attn_sm90_kernel(
+    const __grid_constant__ CUtensorMap qmap,
+    const __grid_constant__ CUtensorMap kvmap,
+    const __grid_constant__ CUtensorMap bmap,
+    const __grid_constant__ CUtensorMap smap, const Args a) {
+  attn_sm90_body<D, MODE, NC, EMIT, CP, D>(qmap, kvmap, bmap, smap, a);
+}
+
+// MLA (K6c at DeepSeek-V2's widths): mode 7 with q and k heads D wide and
+// v heads DV wide, all from one map of qkv [B, L, H*(2D + DV)]; the
+// rotated key part, shared by every head, is in each head's K columns
+// (the MLA half writes it H times). Two consumer warpgroups, as mode 7.
+template <int D, int DV>
+__global__ void __launch_bounds__(384, 1) attn_sm90_kernel_mla(
+    const __grid_constant__ CUtensorMap map, const Args a) {
+  attn_sm90_body<D, CAUSAL, 2, EMIT_NO, 0, DV>(map, map, map, map, a);
 }
 
 // ---- K2i8: int8 scores (the prefix mask), with or without emission ----
@@ -1931,6 +1979,26 @@ cudaError_t launch_cp(const void* q, const void* kv, const Args& a, int B,
 }
 
 
+// MLA: mode 7 at q / k heads D and v heads DV wide, from one map of qkv
+// [B, L, H*(2D + DV)]; grid (query tiles, H, B), the last query tile first
+template <int D, int DV>
+cudaError_t launch_mla(const void* qkv, const Args& a, int B,
+                       cudaStream_t stream) {
+  using S = Smem<D, 2, CAUSAL, EMIT_NO, DV>;
+  const int W = a.H * (2 * D + DV);
+  CUtensorMap map;
+  cudaError_t err =
+      rows_map(&map, qkv, B, a.L, W, W, Cfg<D, CAUSAL, DV>::CW);
+  if (err != cudaSuccess) return err;
+  auto kern = attn_sm90_kernel_mla<D, DV>;
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)S::bytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.L + S::QB - 1) / S::QB, a.H, B);
+  kern<<<grid, 384, S::bytes, stream>>>(map, a);
+  return cudaGetLastError();
+}
+
 // K2i8: one consumer warpgroup where L <= 64, else two; a block per
 // (query tile, sequence), the last sequence first
 template <int D, int NC, int EMIT>
@@ -2128,6 +2196,29 @@ int attn90_i8_launch(const void* qkv, const void* lengths, void* out,
     case 128: return launch_i8_emit<128>(emit, qkv, a, B, st);
     default: return cudaErrorInvalidValue;
   }
+}
+
+// MLA (K6c at DeepSeek-V2's widths): qkv [B*L, H*(2D + DV)] bf16 (16-byte
+// aligned) holding q | k | v (q at h*D, k at H*D + h*D, v at 2H*D +
+// h*DV), lengths [B] int32, out [B*L, H*DV] bf16, device pointers; mode 7's
+// causal prefix mask; (D, DV) = (192, 128); L % 128 == 0; s2 = the softmax
+// scale times log2(e) as f32; hi = the score clamp bound. Returns a
+// cudaError_t.
+int attn90_mla_launch(const void* qkv, const void* lengths, void* out, int B,
+                      int L, int H, int D, int DV, float s2, float hi,
+                      void* stream) {
+  if (B < 0 || L <= 0 || L % KT || H <= 0 || lengths == nullptr)
+    return cudaErrorInvalidValue;
+  if (D != 192 || DV != 128) return cudaErrorInvalidValue;
+  if (B == 0) return cudaSuccess;
+  Args a{};
+  a.lengths = static_cast<const int*>(lengths);
+  a.out = static_cast<__nv_bfloat16*>(out);
+  a.L = a.Lq = L;
+  a.H = H;
+  a.s2 = s2;
+  a.hi = hi;
+  return launch_mla<192, 128>(qkv, a, B, static_cast<cudaStream_t>(stream));
 }
 
 const char* attn90_error_string(int err) {

@@ -11,8 +11,11 @@ ModernBERT stack (``encoder_layer_pre``: RoPE with a global and a local
 theta, global attention every n-th layer and a sliding window on the
 others, GeGLU, a final norm) and the Qwen2 decoder embedders on the same
 pre-norm stack (RMSNorm, grouped-query attention, SwiGLU, causal or
-bidirectional attention, last-token pooling); then pooling (cls / mean /
-max / lasttoken), SentenceTransformers Dense layers and the L2 norm.
+bidirectional attention, last-token pooling), and DeepSeek-V2 there too
+(the port's own: MLA, ``mla_context``; a leading dense layer, then MoE
+layers of gated experts with a shared expert, ``_moe_half_pre``); then
+pooling (cls / mean / max / lasttoken), SentenceTransformers Dense layers
+and the L2 norm.
 
 ``encode_tokens`` runs right-padded batches; ``encode_packed`` runs
 token-packed rows (``runtime/packing.py``: several sentences per row,
@@ -61,7 +64,9 @@ from ..ops import attention as attn_ops
 from ..ops.linear import ActQ, _reshape_actq, active_chain_links, linear, \
     linear_residual_ln, quantize_act
 from ..ops.quant import QuantizedTensor, gather_rows
-from ..ops.rotary import apply_rotary_qkv, rope_tables, rope_tables_for
+from ..ops.rotary import apply_rotary, apply_rotary_qkv, rope_tables, \
+    rope_tables_for, yarn_mscale, yarn_tables, yarn_tables_for
+from ..utils.spans import span
 from .params import check_supported, layer as layer_params
 
 Params = dict[str, Any]
@@ -137,7 +142,7 @@ def layer_views(params: Params, config: BertConfig):
     if config.shared_layers:
         shared = layer_params(params, 0)
         return [shared] * config.num_hidden_layers
-    return [layer_params(params, i)
+    return [layer_params(params, i, config.first_k_dense_replace)
             for i in range(config.num_hidden_layers)]
 
 
@@ -210,7 +215,7 @@ def _logit_bias(params: Params, config: BertConfig,
 def attention_route_name(L: int, E: int, *, segmented: bool = False,
                          attn_window: int = 0, bias: bool = False,
                          alibi: bool = False, local_window: bool = False,
-                         causal: bool = False) -> str:
+                         causal: bool = False, mla: bool = False) -> str:
     """The fused kernel ``_fused_attn_dispatch`` picks — the JAX
     package's ``attention_route_name`` for the routes the port has:
     "cond(stream|windowed)" for ModernBERT's alternating layers (a local
@@ -218,9 +223,14 @@ def attention_route_name(L: int, E: int, *, segmented: bool = False,
     with a logit-bias operand; for packed rows "segmented_blockskip" (K5)
     when the window skips at least two key blocks, else "segmented" (K4);
     "stream_alibi" (K6, in-kernel ALiBi); "stream_causal" (K6c, at every
-    length); "stream" (K6) for rows whose whole K/V would not fit the
-    TPU's VMEM (``whole_row_fits``: L >= 1920 at E=768, L >= 1024 at
-    E=1536); else "whole_row" (K2)."""
+    length; "stream_causal_mla" at MLA's head widths, the port's own);
+    "stream" (K6) for rows whose whole K/V would not fit the TPU's VMEM
+    (``whole_row_fits``: L >= 1920 at E=768, L >= 1024 at E=1536); else
+    "whole_row" (K2)."""
+    if mla:
+        if not causal:
+            raise ValueError("MLA's kernel route is the causal one")
+        return "stream_causal_mla"
     if local_window:
         return "cond(stream|windowed)"
     if bias:
@@ -289,15 +299,23 @@ def _fused_attn_dispatch(qkv2d, lengths, segments, B, L, H, D,
 def fused_attention_ok(L: int, H: int, D: int, use_kernels: bool,
                        lengths, segments, alibi=None,
                        local_window=None, causal: bool = False,
-                       lane: int = attn_ops.LANE) -> bool:
+                       lane: int = attn_ops.LANE,
+                       dv: int | None = None) -> bool:
     """Does attention take a fused kernel (else the einsum path)? The
     JAX package's ``_attn_kernels_ok`` for the port's routes; with a
     ``local_window`` both of its kernels must take the shape (the banded
     one's rule, 128-key blocks, covers the global route's). ``lane``: the
     rule on H*D — the JAX package's 128 lanes, or under tensor
-    parallelism the kernels' own (``attn_ops.KERNEL_LANE``)."""
+    parallelism the kernels' own (``attn_ops.KERNEL_LANE``). ``dv``: MLA's
+    value width beside q and k heads D wide, which only the causal
+    streaming kernel takes (prefix lengths, no family bias)."""
     if not use_kernels or (lengths is None and segments is None):
         return False
+    if dv is not None and dv != D:
+        return (causal and segments is None and alibi is None
+                and local_window is None
+                and attn_ops.stream_supported(L, H, D, attn_ops.pick_bk(L),
+                                              lane, dv))
     if segments is not None:
         return attn_ops.supported(L, H, D, lane)
     if local_window is not None:
@@ -407,6 +425,119 @@ def _ffn_hidden(m: Params, x: torch.Tensor | ActQ, config: BertConfig, *,
         return (linear(x, m["gate"]["w"], m["gate"]["b"], act=act, **mode)
                 * linear(x, m["up"]["w"], m["up"]["b"], **mode))
     return linear(x, m["up"]["w"], m["up"]["b"], act=act, emit=emit, **mode)
+
+
+def mla_softmax_scale(config: BertConfig) -> float:
+    """MLA's softmax scale: qk_head_dim^-0.5, times mscale(factor,
+    mscale_all_dim)^2 under YaRN (DeepSeek-V2's ``softmax_scale``)."""
+    scale = config.qk_head_dim ** -0.5
+    rs = dict(config.rope_scaling)
+    if rs.get("mscale_all_dim"):
+        m = yarn_mscale(float(rs["factor"]), float(rs["mscale_all_dim"]))
+        scale = scale * m * m
+    return scale
+
+
+def mla_rope(config: BertConfig, positions: torch.Tensor):
+    """MLA's (cos, sin) over the rotated qk_rope_head_dim: YaRN's tables
+    where the config scales RoPE, else plain RoPE; positions [L] (cached
+    per L) or [B, L] (packed rows)."""
+    dim, base = config.qk_rope_head_dim, config.rotary_base
+    if not config.rope_scaling:
+        return _rope(positions, dim, base)
+    if positions.dim() == 1:
+        return yarn_tables_for(positions.shape[0], dim, base,
+                               config.rope_scaling, positions.device)
+    return tuple(t.to(positions.device) for t in yarn_tables(
+        positions, dim, base, config.rope_scaling))
+
+
+def mla_qkv(a: Params, config: BertConfig, xn: torch.Tensor,
+            rope: tuple[torch.Tensor, torch.Tensor], *,
+            use_kernels: bool = True, int8: bool = False) -> torch.Tensor:
+    """Multi-head latent attention's rows, [B, L, H*(2*Dq + dv)]: q | k |
+    v with q and k heads Dq = nope + rope wide and v heads dv wide (the
+    layout the MLA kernel reads). q = xn Wq per head [q_n | q_r];
+    [c | k_r] = xn Wkva, c RMS-normed, [k_n | v] = c Wkvb per head; q_r
+    and k_r rotated by ``rope`` over interleaved pairs (HF's view(d/2,
+    2).transpose and rotate_half give the same dot products), the one
+    k_r written into every head's K. The projections run as ``linear``
+    (K1 on the card); the rest under the span ``mla_latent``."""
+    B, L, _ = xn.shape
+    H, r = config.num_attention_heads, config.kv_lora_rank
+    dn, dv = config.qk_nope_head_dim, config.v_head_dim
+    Dq = config.qk_head_dim
+    mode = dict(use_kernels=use_kernels, int8=int8)
+    q = linear(xn, a["q"]["w"], a["q"]["b"], **mode).reshape(B, L, H, Dq)
+    kva = linear(xn, a["kv_a"]["w"], a["kv_a"]["b"], **mode)
+    with span("mla_latent"):
+        c = rms_norm(kva[..., :r], a["latent"]["ln"]["scale"],
+                     config.layer_norm_eps)
+        kv = linear(c, a["kv_b"]["w"], a["kv_b"]["b"], **mode).reshape(
+            B, L, H, dn + dv)
+        qkv = torch.empty(B, L, H * (2 * Dq + dv), dtype=xn.dtype,
+                          device=xn.device)
+        qh = qkv[..., :H * Dq].view(B, L, H, Dq)
+        kh = qkv[..., H * Dq:2 * H * Dq].view(B, L, H, Dq)
+        qh[..., :dn] = q[..., :dn]
+        qh[..., dn:] = apply_rotary(q[..., dn:], *rope, interleaved=True)
+        kh[..., :dn] = kv[..., :dn]
+        kh[..., dn:] = apply_rotary(kva[..., None, r:], *rope,
+                                    interleaved=True)
+        qkv[..., 2 * H * Dq:].view(B, L, H, dv).copy_(kv[..., dn:])
+    return qkv
+
+
+def mla_context(layer: Params, config: BertConfig, xn: torch.Tensor,
+                mask_bias: torch.Tensor | None,
+                lengths: torch.Tensor | None,
+                rope: tuple[torch.Tensor, torch.Tensor], *,
+                use_kernels: bool = True,
+                int8: bool = False) -> torch.Tensor:
+    """MLA up to (not including) the output projection: [B, L, E] ->
+    [B, L, H*dv]. Causal rows with prefix ``lengths`` at a shape the
+    kernel takes run the MLA kernel (``fused_attention_stream`` with
+    ``dv``: K6c at MLA's widths, route "stream_causal_mla"); otherwise the
+    einsum path, ``mask_bias`` carrying the pads (and the causal triangle)
+    and the softmax at ``mla_softmax_scale``."""
+    B, L, _ = xn.shape
+    H, Dq, dv = (config.num_attention_heads, config.qk_head_dim,
+                 config.v_head_dim)
+    qkv = mla_qkv(layer["attn"], config, xn, rope, use_kernels=use_kernels,
+                  int8=int8)
+    scale = mla_softmax_scale(config)
+    if fused_attention_ok(L, H, Dq, use_kernels, lengths, None,
+                          causal=config.causal, dv=dv):
+        return attn_ops.fused_attention_stream(
+            qkv.reshape(B * L, -1), lengths, B=B, L=L, H=H, D=Dq,
+            BK=attn_ops.pick_bk(L), causal=True, dv=dv,
+            scale=scale).reshape(B, L, H * dv)
+    q, k, v = qkv.split([H * Dq, H * Dq, H * dv], -1)
+    scores = torch.einsum("blhd,bmhd->bhlm",
+                          q.reshape(B, L, H, Dq).float(),
+                          k.reshape(B, L, H, Dq).float())
+    probs = torch.softmax(scores * scale + mask_bias, dim=-1).to(xn.dtype)
+    ctx = torch.einsum("bhlm,bmhd->blhd", probs.float(),
+                       v.reshape(B, L, H, dv).float())
+    return ctx.to(xn.dtype).reshape(B, L, H * dv)
+
+
+def _moe_half_pre(m: Params, config: BertConfig, x: torch.Tensor, *,
+                  use_kernels: bool = True,
+                  int8: bool = False) -> torch.Tensor:
+    """The pre-norm MoE FFN half (DeepSeek-V2): x + moe(RMSNorm(x)), the
+    routed experts through ``ops.moe.moe_ffn_ragged`` (sorted, grouped
+    products, one host read) with the shared expert added there, over
+    every slot of [B, L, E], padding included, as the post-LN half."""
+    from ..ops.moe import moe_ffn_ragged
+    B, L, E = x.shape
+    hn = _norm(config, x, m["ln"])
+    y = moe_ffn_ragged(hn.reshape(B * L, E), m, top_k=config.moe_top_k,
+                       act=_act(config),
+                       normalize_topk=config.moe_normalize_topk,
+                       scaling=config.routed_scaling_factor,
+                       use_kernels=use_kernels, int8=int8)
+    return x + y.reshape(B, L, E)
 
 
 def encoder_layer(layer: Params, config: BertConfig, x: torch.Tensor,
@@ -652,8 +783,11 @@ def encoder_layer_pre(layer: Params, config: BertConfig, x: torch.Tensor,
                       int8: bool = False,
                       int8_scores: bool = False,
                       tp_axis=None) -> torch.Tensor:
-    """One pre-norm block (ModernBERT, Qwen2): x += Wo attn(norm(x));
-    x += Wdown glu(norm(x)), the norms RMSNorm for Qwen2. ``ln_apply``
+    """One pre-norm block (ModernBERT, Qwen2, DeepSeek-V2): x += Wo
+    attn(norm(x)); x += Wdown glu(norm(x)), the norms RMSNorm for Qwen2
+    and DeepSeek-V2, whose attention is MLA (``mla_context``; ``rope``
+    then MLA's tables) and whose MoE layers end in ``_moe_half_pre``.
+    ``ln_apply``
     False skips ModernBERT's layer-0 identity attention norm;
     ``local_window`` = (is_global, window) routes the attention (K6w on a
     local layer) when the kernels take the shape, else ``mask_bias``
@@ -683,10 +817,17 @@ def encoder_layer_pre(layer: Params, config: BertConfig, x: torch.Tensor,
                                  x, tp_axis, **mode)
     a, m = layer["attn"], layer["mlp"]
     xn = _norm(config, x, a["ln"]) if ln_apply else x
-    ctx = attention_context(layer, config, xn, mask_bias, lengths, rope=rope,
-                            local_window=local_window, causal=config.causal,
-                            int8_scores=int8_scores, **mode)
+    if config.mla:
+        ctx = mla_context(layer, config, xn, mask_bias, lengths, rope,
+                          **mode)
+    else:
+        ctx = attention_context(layer, config, xn, mask_bias, lengths,
+                                rope=rope, local_window=local_window,
+                                causal=config.causal,
+                                int8_scores=int8_scores, **mode)
     x = x + linear(ctx, a["o"]["w"], a["o"]["b"], **mode)
+    if "router" in m:  # DeepSeek-V2's MoE layers
+        return _moe_half_pre(m, config, x, **mode)
     hn = _norm(config, x, m["ln"])
     return x + linear(_ffn_hidden(m, hn, config, **mode), m["down"]["w"],
                       m["down"]["b"], **mode)
@@ -716,6 +857,9 @@ def _prenorm_stack(params: Params, config: BertConfig, x: torch.Tensor,
     takes the einsum path with the window folded into a local layer's
     mask. Under tensor parallelism ``mask_bias``, ``lengths`` and
     ``rope`` are the shards' lists (``encoder_layer``)."""
+    if tp_axis is not None and config.mla:
+        raise NotImplementedError("MLA runs on one device (no tensor "
+                                  "parallelism)")
     flags, rope_l, windowed = _prenorm_scan_args(config, positions)
     rope_l = rope if rope_l is None else rope_l
     L = x.shape[1]
@@ -832,8 +976,13 @@ def encode_tokens(params: Params, config: BertConfig,
             if tp_axis is None:
                 bias, mask_bias = (None if bias is None else bias[0],
                                    mask_bias if masks is None else masks[0])
+    if config.mla:
+        D, dv = config.qk_head_dim, config.v_head_dim
+    else:
+        dv = None
     if config.causal and not fused_attention_ok(
-            L, H, D, use_kernels, lengths, None, causal=True, lane=lane):
+            L, H, D, use_kernels, lengths, None, causal=True, lane=lane,
+            dv=dv):
         # the einsum path's triangle (K6c masks in-kernel)
         cb = _causal_bias(L, mask_value, token_ids.device)
         mask_bias = mask_bias + cb
@@ -841,7 +990,9 @@ def encode_tokens(params: Params, config: BertConfig,
             masks = [mb + cb.to(mb.device) for mb in masks]
     positions = torch.arange(L, device=token_ids.device)
     rope = None
-    if config.position_embedding_type == "rotary":
+    if config.mla:
+        rope = mla_rope(config, positions)
+    elif config.position_embedding_type == "rotary":
         # position-only: computed once, shared by every layer
         rope = _rope(positions, config.head_dim, config.rotary_base)
     mode = dict(use_kernels=use_kernels, int8=int8)
@@ -993,7 +1144,9 @@ def encode_packed(params: Params, config: BertConfig,
         x = x.to(compute_dtype)
     x = _project_embeddings(p0, x)
     rope = None
-    if config.position_embedding_type == "rotary":
+    if config.mla:
+        rope = mla_rope(config, position_ids)
+    elif config.position_embedding_type == "rotary":
         # per-row tables: positions restart at each segment
         rope = _rope(position_ids, config.head_dim, config.rotary_base)
     mode = dict(use_kernels=use_kernels, int8=int8)

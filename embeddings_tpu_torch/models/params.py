@@ -45,6 +45,20 @@ i, ``moe[i // 2]`` for odd i):
 each leaf with the NL/2 axis first. The experts and the router are never
 quantized, and the router stays f32 through every cast.
 
+DeepSeek-V2 (``kv_lora_rank`` > 0: MLA; ``_translate_deepseek_v2``) keeps
+the (dense, moe) halves with the ``first_k_dense_replace`` leading layers
+in "dense" and every later one in "moe" (``layer(params, i,
+first_dense)``), RMSNorm scales with zero biases, zero linear biases:
+
+  "attn": {"ln", "q": [E, H*(dn+dr)], "kv_a": [E, r+dr],
+           "latent": {"ln": [r]}, "kv_b": [r, H*(dn+dv)], "o": [H*dv, E]}
+  "moe"/"mlp": {"router": {"w": [D, Ex] f32},
+                "gate"/"up": {"w": [Ex, D, I]}, "down": {"w": [Ex, I, D]},
+                "shared": {"gate", "up", "down"}  (one gated MLP), "ln"}
+
+The routed experts have no biases; the shared expert is quantized like a
+dense MLP.
+
 Rotary models (nomic-bert, ModernBERT, Qwen2) have no "position" table.
 In a pre-norm tree the layer norms are the pre-attention ("attn/ln") and
 pre-MLP ("mlp/ln") norms; ModernBERT's layer-0 attention norm is an
@@ -93,7 +107,8 @@ def check_supported(config: BertConfig) -> None:
     grouped-query attention, causal or bidirectional), and the
     mixture-of-experts interleave of nomic-embed-text-v2-moe: an MoE FFN
     at every second layer of an even, unshared post-LN stack (the JAX
-    package's layout rule)."""
+    package's layout rule); and DeepSeek-V2's pre-norm stack: MLA
+    attention, leading dense layers, then an MoE FFN at every layer."""
     H = config.num_attention_heads
     kv = config.num_key_value_heads or H
     unsupported = {
@@ -103,18 +118,35 @@ def check_supported(config: BertConfig) -> None:
         "norm_type": config.norm_type not in ("layernorm", "rmsnorm"),
         "num_key_value_heads": H % kv != 0,
         "num_experts": bool(config.num_experts) and (
-            config.moe_every_n_layers != 2 or config.shared_layers
-            or config.num_hidden_layers % 2 != 0
-            or config.norm_style != "post"),
+            config.shared_layers or not (_nomic_moe(config)
+                                         or _leading_dense_moe(config))),
+        "kv_lora_rank": config.mla and (config.norm_style != "pre"
+                                        or config.shared_layers),
     }
     bad = [k for k, v in unsupported.items() if v]
     if bad:
         raise NotImplementedError(
             f"the PyTorch port runs post-LN BERT, RoBERTa, DistilBERT, "
             f"ALBERT, MPNet, jina-bert-v2, nomic-bert, RoFormer, ModernBERT "
-            f"and Qwen2 models, and nomic-bert mixture-of-experts models "
+            f"and Qwen2 models, nomic-bert mixture-of-experts models "
             f"with an MoE FFN at every second layer of an even, unshared "
-            f"post-LN stack; this config sets {', '.join(bad)}")
+            f"post-LN stack, and DeepSeek-V2 (MLA, leading dense layers "
+            f"then MoE, pre-norm); this config sets {', '.join(bad)}")
+
+
+def _nomic_moe(config: BertConfig) -> bool:
+    """nomic-v2-moe's layout: an MoE FFN at every odd layer of an even
+    post-LN stack."""
+    return (config.moe_every_n_layers == 2 and config.norm_style == "post"
+            and config.num_hidden_layers % 2 == 0
+            and not config.first_k_dense_replace)
+
+
+def _leading_dense_moe(config: BertConfig) -> bool:
+    """DeepSeek-V2's layout: first_k_dense_replace dense layers, then an
+    MoE FFN at every layer, in a pre-norm stack."""
+    return (config.moe_every_n_layers == 1 and config.norm_style == "pre"
+            and 0 < config.first_k_dense_replace < config.num_hidden_layers)
 
 
 def map_tree(fn: Callable, tree):
@@ -129,6 +161,19 @@ def map_tree(fn: Callable, tree):
 def to_device(params: Params, device) -> Params:
     """The tree with every tensor moved to ``device`` (dtypes kept)."""
     return map_tree(lambda t: t.to(device), params)
+
+
+def hold_gated_experts(params: Params, dtype) -> Params:
+    """DeepSeek-V2's routed experts (a gated expert stack) in ``dtype``,
+    leaf by leaf where they lie: the compute dtype on the card, so the
+    expert products read them as held, where nomic's f32 experts are cast
+    for each product (the same bf16 values either way). In place; returns
+    params."""
+    moe = params["layers"].get("moe", {}).get("mlp", {})
+    if "gate" in moe:
+        for name in ("gate", "up", "down"):
+            moe[name]["w"] = moe[name]["w"].to(dtype)
+    return params
 
 
 def keep_int8_weights(params: Params) -> Params:
@@ -149,14 +194,20 @@ def keep_int8_weights(params: Params) -> Params:
     return params
 
 
-def layer(params: Params, i: int) -> Params:
+def layer(params: Params, i: int, first_dense: int = 0) -> Params:
     """Layer ``i`` of the stacked layer tree (views, no copies); in a
     mixture-of-experts tree ``dense[i // 2]`` for even i, ``moe[i // 2]``
-    for odd i — the JAX package's (dense, moe) pair scan."""
+    for odd i — the JAX package's (dense, moe) pair scan — or, with
+    ``first_dense`` (DeepSeek-V2's first_k_dense_replace), ``dense[i]``
+    for the leading layers and ``moe[i - first_dense]`` after them."""
     layers = params["layers"]
     if "dense" in layers:
-        layers = layers["moe" if i % 2 else "dense"]
-        i //= 2
+        if first_dense:
+            half, i = (("dense", i) if i < first_dense
+                       else ("moe", i - first_dense))
+        else:
+            half, i = "moe" if i % 2 else "dense", i // 2
+        layers = layers[half]
     return map_tree(lambda t: t[i], layers)
 
 
@@ -180,6 +231,10 @@ def init_params(config: BertConfig, generator: np.random.Generator | int = 0,
     ``num_experts`` expert stacks at odd layers, zero expert biases, a
     zero shared output bias)."""
     check_supported(config)
+    if config.mla:
+        raise NotImplementedError(
+            "init_params does not build MLA trees; map an HF state dict "
+            "with from_hf_state_dict")
     rng = (np.random.default_rng(generator) if isinstance(generator, int)
            else generator)
     E, F = config.hidden_size, config.intermediate_size
@@ -319,8 +374,8 @@ def quantize_params(params: Params, kind: str, *,
     """Quantize every layer matmul weight (and the word-embedding table,
     blocked along E); biases, LayerNorms and the position / token-type
     tables stay dense, and so do an MoE tree's router and experts (only
-    its attention and dense-half FFN are quantized). Same selection and
-    codes as the JAX package."""
+    its attention, its dense-half FFN and DeepSeek-V2's shared expert are
+    quantized). Same selection and codes as the JAX package."""
     from ..ops.quant import dequantize
     if kind in DENSE_KINDS:
         return cast_params(params, kind)
@@ -347,11 +402,15 @@ def quantize_params(params: Params, kind: str, *,
 
     layers = params["layers"]
     if "dense" in layers:
+        moe_mlp = layers["moe"]["mlp"]
+        if "shared" in moe_mlp:  # DeepSeek-V2's shared expert: quantized
+            moe_mlp = {**moe_mlp,
+                       "shared": quantize_linears(moe_mlp["shared"])}
         out["layers"] = {
             "dense": {"attn": quantize_linears(layers["dense"]["attn"]),
                       "mlp": quantize_linears(layers["dense"]["mlp"])},
             "moe": {"attn": quantize_linears(layers["moe"]["attn"]),
-                    "mlp": layers["moe"]["mlp"]}}
+                    "mlp": moe_mlp}}
         return out
     out["layers"] = {"attn": quantize_linears(layers["attn"]),
                      "mlp": quantize_linears(layers["mlp"])}
@@ -373,7 +432,7 @@ def fuse_qkv(params: Params) -> Params:
             for h in ("dense", "moe")}
         return out
     attn = params["layers"]["attn"]
-    if "qkv" in attn:
+    if "qkv" in attn or "kv_a" in attn:  # fused already, or MLA
         return params
     q, k, v = attn["q"], attn["k"], attn["v"]
     if k["b"].shape[-1] != q["b"].shape[-1]:
@@ -833,6 +892,95 @@ def _build_moe_layers(sd: dict[str, np.ndarray], config: BertConfig,
                     "mlp": moe_mlp}}
 
 
+def _translate_deepseek_v2(sd: dict[str, np.ndarray], config: BertConfig,
+                           dtype=torch.float32) -> Params:
+    """A DeepSeek-V2 state dict (``DeepseekV2Model``, or the ``model.``-
+    prefixed ``DeepseekV2ForCausalLM`` dump; lm_head dropped) as the
+    port's tree, linears [in, out] with zero biases (the checkpoint has
+    none), a zeros token-type row, no embedding norm:
+
+      layers.{i}.input_layernorm          -> attn/ln (RMSNorm)
+      self_attn.q_proj                    -> attn/q   [E, H*(dn+dr)]
+      self_attn.kv_a_proj_with_mqa        -> attn/kv_a [E, r+dr]
+      self_attn.kv_a_layernorm            -> attn/latent/ln [r]
+      self_attn.kv_b_proj                 -> attn/kv_b [r, H*(dn+dv)]
+      self_attn.o_proj                    -> attn/o   [H*dv, E]
+      post_attention_layernorm            -> mlp/ln
+      mlp.{gate,up,down}_proj             -> mlp/{gate,up,down} (dense)
+      mlp.gate                            -> mlp/router [E, Ex] f32
+      mlp.experts.{e}.{gate,up,down}_proj -> mlp/{gate,up,down}/w [Ex, ...]
+      mlp.shared_experts.*                -> mlp/shared/{gate,up,down}
+      norm                                -> final_ln
+
+    in the (dense, moe) halves of ``layer``'s leading-dense layout. The
+    routed experts are dense and have no biases (``ops.moe`` adds none);
+    each layer's are written into one preallocated stack, so the host
+    holds them once."""
+    sd = {k.removeprefix("model."): v for k, v in sd.items()
+          if not k.startswith("lm_head.")}
+    NL, k = config.num_hidden_layers, config.first_k_dense_replace
+    dense_idx = range(k) if config.num_experts else range(NL)
+    moe_idx = range(k, NL) if config.num_experts else range(0)
+
+    def t(a, dt=dtype):
+        return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dt)
+
+    def lin(fmt: str, idx) -> Params:
+        w = t(np.stack([np.asarray(sd[fmt.format(i)]).T for i in idx]))
+        return {"w": w, "b": torch.zeros(w.shape[0], w.shape[-1],
+                                         dtype=dtype)}
+
+    def norm(fmt: str, idx) -> Params:
+        s = t(np.stack([sd[fmt.format(i)] for i in idx]), torch.float32)
+        return {"scale": s, "bias": torch.zeros_like(s)}
+
+    def attn(idx) -> Params:
+        p = "layers.{}.self_attn."
+        return {"ln": norm("layers.{}.input_layernorm.weight", idx),
+                "q": lin(p + "q_proj.weight", idx),
+                "kv_a": lin(p + "kv_a_proj_with_mqa.weight", idx),
+                "latent": {"ln": norm(p + "kv_a_layernorm.weight", idx)},
+                "kv_b": lin(p + "kv_b_proj.weight", idx),
+                "o": lin(p + "o_proj.weight", idx)}
+
+    def mlp(fmt: str, idx) -> Params:
+        return {n: lin(fmt + n + "_proj.weight", idx)
+                for n in ("gate", "up", "down")}
+
+    dense = {"attn": attn(dense_idx),
+             "mlp": {**mlp("layers.{}.mlp.", dense_idx),
+                     "ln": norm("layers.{}.post_attention_layernorm.weight",
+                                dense_idx)}}
+    E = config.hidden_size
+    out: Params = {
+        "embeddings": {"word": t(sd["embed_tokens.weight"]),
+                       "token_type": torch.zeros(1, E, dtype=dtype)},
+        "final_ln": _ln(sd["norm.weight"], np.zeros(E, np.float32))}
+    if not config.num_experts:
+        out["layers"] = dense
+        return out
+    Ex, I, n = config.num_experts, config.expert_width, len(moe_idx)
+    experts = {"gate": torch.empty(n, Ex, E, I, dtype=dtype),
+               "up": torch.empty(n, Ex, E, I, dtype=dtype),
+               "down": torch.empty(n, Ex, I, E, dtype=dtype)}
+    for j, i in enumerate(moe_idx):
+        for e in range(Ex):
+            for name, stack in experts.items():
+                w = sd[f"layers.{i}.mlp.experts.{e}.{name}_proj.weight"]
+                stack[j, e].copy_(torch.from_numpy(np.asarray(w).T))
+    moe_mlp: Params = {
+        "router": {"w": t(np.stack([np.asarray(
+            sd[f"layers.{i}.mlp.gate.weight"]).T for i in moe_idx]),
+            torch.float32)},
+        **{name: {"w": w} for name, w in experts.items()},
+        "ln": norm("layers.{}.post_attention_layernorm.weight", moe_idx)}
+    if config.n_shared_experts:
+        moe_mlp["shared"] = mlp("layers.{}.mlp.shared_experts.", moe_idx)
+    out["layers"] = {"dense": dense,
+                     "moe": {"attn": attn(moe_idx), "mlp": moe_mlp}}
+    return out
+
+
 def from_hf_state_dict(sd: dict[str, np.ndarray], config: BertConfig,
                        dtype=torch.float32) -> Params:
     """Map a HF BERT, RoBERTa, DistilBERT, ALBERT, MPNet, jina-bert-v2,
@@ -844,6 +992,8 @@ def from_hf_state_dict(sd: dict[str, np.ndarray], config: BertConfig,
     dense FFN tensors of its even layers only, then the (dense, moe)
     layout (``_build_moe_layers``)."""
     check_supported(config)
+    if config.mla:
+        return _translate_deepseek_v2(sd, config, dtype)
     sd = _strip_prefix({k: np.asarray(v) for k, v in sd.items()})
     NL = 1 if config.shared_layers else config.num_hidden_layers
 

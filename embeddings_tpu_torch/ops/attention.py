@@ -17,7 +17,9 @@ Each wrapper launches its mask mode of a hand-written kernel on a CUDA
 tensor, or raises: K2 with its emission K2e and its int8 scores K2i8 (a
 kernel of its own in the same library, with or without emission), K4 and
 its emission K4e, K5, K7, K6, K6c, K6ca, K6w, K8a and K8b all run on the
-Hopper library ``csrc/attention_sm90.cu`` (wgmma, a TMA ring);
+Hopper library ``csrc/attention_sm90.cu`` (wgmma, a TMA ring), and so does
+K6c at DeepSeek-V2's MLA widths (``fused_attention_stream(dv=, scale=)``:
+q and k heads 192 wide, v 128, the port's own);
 ``attention_kernel`` names the route, and the ``routes`` counters of
 ``fused_attention``, ``fused_attention_segmented``,
 ``fused_attention_segmented_blockskip``, ``fused_attention_bias``,
@@ -65,6 +67,10 @@ BQ = 128
 _CLAMP_LO = -100.0
 # head dims the CUDA kernel is instantiated for
 KERNEL_HEAD_DIMS = (32, 64, 128)
+# (q and k, v) head widths of multi-head latent attention (DeepSeek-V2's
+# MLA: 128 + 64 rotated, 128) the causal streaming mode is instantiated
+# for
+MLA_HEAD_DIMS = ((192, 128),)
 
 
 def _clamp_hi(n_keys: int) -> float:
@@ -86,8 +92,13 @@ def _scale(D: int) -> float:
     return (1.0 / (D ** 0.5)) * LOG2E
 
 
-def _split_heads(qkv, B, L, H, D):
-    """qkv [B*L, 3*H*D] -> q, k, v views [B, H, L, D]."""
+def _split_heads(qkv, B, L, H, D, dv=None):
+    """qkv [B*L, 3*H*D] -> q, k, v views [B, H, L, D]; with ``dv`` (MLA)
+    qkv [B*L, H*(2D + dv)] -> q, k [B, H, L, D] and v [B, H, L, dv]."""
+    if dv is not None:
+        q, k, v = qkv.reshape(B, L, -1).split([H * D, H * D, H * dv], -1)
+        return tuple(t.reshape(B, L, H, -1).transpose(1, 2)
+                     for t in (q, k, v))
     x = qkv.reshape(B, L, 3, H, D).permute(2, 0, 3, 1, 4)  # 3,B,H,L,D
     return x[0], x[1], x[2]
 
@@ -376,10 +387,14 @@ def fused_attention_bias(qkv: torch.Tensor, lengths: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def stream_supported(L: int, H: int, D: int, BK: int = 512,
-                     lane: int = LANE) -> bool:
+                     lane: int = LANE, dv: int | None = None) -> bool:
     """Shapes the streaming kernel carries (the JAX package's rule:
     128-row query blocks, key blocks of BK, lane-tiled E; restricted to
-    the head dims the CUDA kernel is built for)."""
+    the head dims the CUDA kernel is built for). With ``dv`` (MLA, value
+    heads of another width than D) the (D, dv) pairs of
+    ``MLA_HEAD_DIMS``."""
+    if dv is not None and dv != D:
+        return ((D, dv) in MLA_HEAD_DIMS and L % BQ == 0 and L % BK == 0)
     return (D in KERNEL_HEAD_DIMS and (H * D) % lane == 0
             and L % BQ == 0 and L % BK == 0)
 
@@ -406,7 +421,8 @@ def whole_row_fits(L: int, E: int) -> bool:
 def fused_attention_stream_ref(qkv: torch.Tensor, lengths: torch.Tensor,
                                *, B: int, L: int, H: int, D: int,
                                BK: int = 512, alibi_slopes=None,
-                               causal: bool = False) -> torch.Tensor:
+                               causal: bool = False, dv: int | None = None,
+                               scale: float | None = None) -> torch.Tensor:
     """The plain PyTorch version of K6, K6c and K6ca (same arguments as
     ``fused_attention_stream``). It walks every key block of BK as the TPU
     grid does (the causal walk too), so its scores take O(L * BK) memory,
@@ -415,7 +431,9 @@ def fused_attention_stream_ref(qkv: torch.Tensor, lengths: torch.Tensor,
     ``causal`` keys j > i add exact zeros; block sums add up with no
     rescaling."""
     dt = qkv.dtype
-    q, k, v = _split_heads(qkv, B, L, H, D)
+    q, k, v = _split_heads(qkv, B, L, H, D, dv)
+    Dv = v.shape[-1]
+    s2 = _scale(D) if scale is None else _s2(scale)
     dev = qkv.device
     hi = _clamp_hi(L)
     slopes = None
@@ -424,24 +442,30 @@ def fused_attention_stream_ref(qkv: torch.Tensor, lengths: torch.Tensor,
                                  device=dev)[None, :, None, None]
     qf = q.float()
     pos = torch.arange(L, device=dev)
-    o = torch.zeros(B, H, L, D, device=dev)
+    o = torch.zeros(B, H, L, Dv, device=dev)
     den = torch.zeros(B, H, L, 1, device=dev)
     for k0 in range(0, L, BK):
         ks = slice(k0, k0 + BK)
-        s = (qf @ k[:, :, ks].float().transpose(-1, -2)) * _scale(D)
+        s = (qf @ k[:, :, ks].float().transpose(-1, -2)) * s2
         if slopes is not None:
             dist = (pos[:, None] - pos[None, ks]).abs().float() * LOG2E
             s = s - slopes * dist
         p = _prefix_probs(s, lengths, k0, hi, dt, causal)
         o += p @ v[:, :, ks].float()
         den += p.sum(-1, keepdim=True)
-    return _merge_heads(o, den, dt, B, L, H, D)
+    return _merge_heads(o, den, dt, B, L, H, Dv)
+
+
+def _s2(scale: float) -> float:
+    """A softmax scale as the kernels' log2-domain factor (f32)."""
+    return float(torch.tensor(scale * LOG2E, dtype=torch.float32))
 
 
 def fused_attention_stream(qkv: torch.Tensor, lengths: torch.Tensor, *,
                            B: int, L: int, H: int, D: int, BK: int = 512,
-                           alibi_slopes=None,
-                           causal: bool = False) -> torch.Tensor:
+                           alibi_slopes=None, causal: bool = False,
+                           dv: int | None = None,
+                           scale: float | None = None) -> torch.Tensor:
     """Prefix-masked attention for long rows, as ``fused_attention`` but
     with the scores scaled after the dot (q not pre-rounded) and the
     clamp sized to L keys; ``alibi_slopes`` ([H] f32 tensor or floats)
@@ -455,7 +479,19 @@ def fused_attention_stream(qkv: torch.Tensor, lengths: torch.Tensor, *,
     K6c (causal mode), counted apart in ``causal_launches``, or with
     ``causal`` and ``alibi_slopes`` together K6ca (causal ALiBi mode),
     counted in ``causal_alibi_launches``; a CPU tensor runs
-    ``fused_attention_stream_ref``."""
+    ``fused_attention_stream_ref``.
+
+    Multi-head latent attention (DeepSeek-V2's MLA): ``dv`` value heads of
+    another width than the D of q and k, qkv [B*L, H*(2D + dv)] holding
+    q | k | v (q at h*D, k at H*D + h*D, v at 2H*D + h*dv) and the context
+    [B*L, H*dv]; ``scale`` the softmax scale (default 1/sqrt(D)). Only
+    the causal mode takes it (K6c at the (D, dv) of ``MLA_HEAD_DIMS``),
+    counted in ``causal_launches`` and in ``mla_launches``."""
+    if dv is not None and dv != D:
+        return _stream_mla(qkv, lengths, B, L, H, D, dv, BK, alibi_slopes,
+                           causal, scale)
+    if scale is not None:
+        raise ValueError("a softmax scale other than 1/sqrt(D) is MLA's")
     _check_prefix(f"fused_attention_stream (BK={BK})",
                   stream_supported(L, H, D, BK, KERNEL_LANE), qkv, lengths,
                   B, L, H, D)
@@ -486,6 +522,38 @@ def fused_attention_stream(qkv: torch.Tensor, lengths: torch.Tensor, *,
         fused_attention_stream.causal_launches += 1
     else:
         fused_attention_stream.launches += 1
+    return out
+
+
+def _stream_mla(qkv, lengths, B, L, H, D, dv, BK, alibi_slopes, causal,
+                scale) -> torch.Tensor:
+    """``fused_attention_stream`` with value heads dv wide (MLA)."""
+    if not causal or alibi_slopes is not None:
+        raise ValueError("MLA's value width takes the causal mode alone")
+    if tuple(qkv.shape) != (B * L, H * (2 * D + dv)):
+        raise ValueError(f"qkv {tuple(qkv.shape)} != "
+                         f"{(B * L, H * (2 * D + dv))}")
+    if not stream_supported(L, H, D, BK, KERNEL_LANE, dv):
+        raise ValueError(f"fused_attention_stream (BK={BK}) does not take "
+                         f"L={L} H={H} D={D} dv={dv}")
+    if tuple(lengths.shape) != (B,):
+        raise ValueError(f"lengths must be [B]={B}, got "
+                         f"{tuple(lengths.shape)}")
+    scale = 1.0 / math.sqrt(D) if scale is None else scale
+    if qkv.device.type == "cpu":
+        return fused_attention_stream_ref(qkv, lengths, B=B, L=L, H=H, D=D,
+                                          BK=BK, causal=True, dv=dv,
+                                          scale=scale)
+    _check_cuda(qkv, lengths)
+    out = torch.empty((B * L, H * dv), dtype=qkv.dtype, device=qkv.device)
+    if B == 0:
+        return out
+    route = _launch("fused_attention_stream", MODE_CAUSAL, qkv, out, B, L,
+                    H, D, _clamp_hi(L), lengths=lengths, dv=dv,
+                    s2=_s2(scale))
+    fused_attention_stream.routes[route] += 1
+    fused_attention_stream.causal_launches += 1
+    fused_attention_stream.mla_launches += 1
     return out
 
 
@@ -731,16 +799,23 @@ SM90_EMIT_MODES = (MODE_PREFIX, MODE_SEGMENT)
 
 
 def attention_kernel(mode: int, D: int, emit: str = "no", cp: bool = False,
-                     i8s: bool = False) -> str:
+                     i8s: bool = False, dv: int | None = None) -> str:
     """The hand-written kernel an attention launch takes: "sm90"
     (``csrc/attention_sm90.cu``: wgmma, a TMA ring) for every mode:
     modes 0-8 (K2, K4, K5, K7, K6 plain and ALiBi, K6w, K6c, K6ca), modes
     0 and 1 with emission (K2e, K4e), mode 0 with int8 scores under every
-    emission (K2i8, its own kernel in that library) and mode 4 in the CP
-    operand layout (K8a, K8b). Raises on what no kernel takes. No
-    fallback: a failed build or a refused launch raises."""
+    emission (K2i8, its own kernel in that library), mode 4 in the CP
+    operand layout (K8a, K8b) and mode 7 with MLA's value width ``dv``.
+    Raises on what no kernel takes. No fallback: a failed build or a
+    refused launch raises."""
     if mode not in range(9):
         raise ValueError(f"no attention mode {mode}")
+    if dv is not None and dv != D:
+        if (D, dv) not in MLA_HEAD_DIMS or mode != MODE_CAUSAL \
+                or emit != "no" or cp or i8s:
+            raise ValueError(f"MLA's widths (D={D}, dv={dv}) take mode "
+                             f"{MODE_CAUSAL} alone, at {MLA_HEAD_DIMS}")
+        return "sm90"
     if D not in KERNEL_HEAD_DIMS:
         raise ValueError(f"the attention kernels take D in "
                          f"{KERNEL_HEAD_DIMS}, got {D}")
@@ -773,13 +848,16 @@ def emit_scratch_shape(B: int, L: int, H: int, D: int, emit: str):
 
 def _launch(what, mode, qkv, out, B, L, H, D, hi, *, lengths=None,
             seg=None, kbs=None, kbe=None, bias=None, slopes=None,
-            W=0, o8=None, os=None, emit="no", i8s=False, cp=None) -> str:
+            W=0, o8=None, os=None, emit="no", i8s=False, cp=None, dv=None,
+            s2=None) -> str:
     """One attention launch on the route ``attention_kernel`` picks;
     returns the route. The fused layout reads q, k and v as column slices
     of qkv [B*L, 3E]; with ``cp`` = (q, Lc) mode 4 reads the CP layout
-    instead: q rows of q's stride and qkv as the gathered kv [B*L, 2E]."""
+    instead: q rows of q's stride and qkv as the gathered kv [B*L, 2E];
+    with ``dv`` (MLA, mode 7) qkv [B*L, H*(2D + dv)] and the log2-domain
+    scale ``s2``."""
     from ._cuda import check, on_device
-    route = attention_kernel(mode, D, emit, cp is not None, i8s)
+    route = attention_kernel(mode, D, emit, cp is not None, i8s, dv)
     stream = torch.cuda.current_stream(qkv.device).cuda_stream
 
     def ptr(t):
@@ -788,7 +866,11 @@ def _launch(what, mode, qkv, out, B, L, H, D, hi, *, lengths=None,
     with on_device(what, qkv.device, lengths=lengths, seg=seg, kbs=kbs,
                    kbe=kbe, bias=bias, slopes=slopes, out=out, o8=o8, os=os,
                    q=None if cp is None else cp[0]):
-        if cp is not None:
+        if dv is not None:
+            status = lib.attn90_mla_launch(
+                qkv.data_ptr(), lengths.data_ptr(), out.data_ptr(), B, L, H,
+                D, dv, s2, hi, stream)
+        elif cp is not None:
             q, Lc = cp
             status = lib.attn90_cp_launch(
                 q.data_ptr(), qkv.data_ptr(), lengths.data_ptr(),
@@ -1031,6 +1113,7 @@ fused_attention_bias.routes = collections.Counter()
 fused_attention_stream.launches = 0
 fused_attention_stream.causal_launches = 0
 fused_attention_stream.causal_alibi_launches = 0
+fused_attention_stream.mla_launches = 0
 fused_attention_window.launches = 0
 fused_attention_window.routes = collections.Counter()
 fused_attention_segmented.launches = 0
@@ -1062,6 +1145,8 @@ def type_lib90(lib: ctypes.CDLL) -> None:
     lib.attn90_emit_launch.restype = i
     lib.attn90_cp_launch.argtypes = [p] * 4 + [i] * 6 + [f, f, p]
     lib.attn90_cp_launch.restype = i
+    lib.attn90_mla_launch.argtypes = [p] * 3 + [i] * 5 + [f, f, p]
+    lib.attn90_mla_launch.restype = i
     lib.attn90_error_string.argtypes = [i]
     lib.attn90_error_string.restype = ctypes.c_char_p
     lib._typed = True

@@ -1,10 +1,17 @@
-"""Mixture-of-experts FFN of the PyTorch port (nomic-embed-text-v2-moe) —
-the port of ``embeddings_tpu/ops/moe.py``.
+"""Mixture-of-experts FFN of the PyTorch port (nomic-embed-text-v2-moe,
+and DeepSeek-V2's, the port's own) — the port of
+``embeddings_tpu/ops/moe.py``.
 
   router logits = x @ Wr            -> softmax over all experts (f32)
   top-k expert probabilities        (k = moe_top_k, no renormalization
                                      unless moe_normalize_topk)
   y = sum_e  p_e * down_e(act(up_e(x)))   [+ shared output bias]
+
+DeepSeek-V2 (``moe_ffn_ragged`` only): gated experts, down_e(act(gate_e
+x) * up_e x) with no biases, the probabilities times
+``routed_scaling_factor``, and a shared expert (``moe["shared"]``: one
+gated MLP of quantized linears, the published shared experts side by
+side) added for every token.
 
 Two evaluations, as in the JAX package:
 
@@ -23,15 +30,20 @@ Two evaluations, as in the JAX package:
   does not: a stable descending sort gives it.
 
 The per-expert loop needs each expert's row count on the host: one
-device-to-host read per MoE layer (``moe_ffn_ragged.host_reads``). The
-expert products are counted in ``moe_ffn_ragged.expert_gemms`` (two per
-non-empty expert). The profiler sees three spans (``utils.spans``):
-``moe_dispatch`` (router, top-k, sort, gather, the weighted
-``index_add_``), ``moe_expert_gemm`` (the products) and
-``moe_expert_ops`` (the weight casts, the up bias and the activation).
+device-to-host read per MoE layer (``moe_ffn_ragged.host_reads``).
+Gated experts in bf16 take no loop and no read: each of their three
+products is one grouped product over every expert (``_grouped``), the
+row counts kept on the card as offsets. The expert product launches are
+counted in ``moe_ffn_ragged.expert_gemms`` (two per non-empty expert;
+three a layer for grouped gated experts). The profiler sees three spans
+(``utils.spans``): ``moe_dispatch`` (router, top-k, sort, gather, the
+weighted ``index_add_``), ``moe_expert_gemm`` (the products, and the
+shared expert whole) and ``moe_expert_ops`` (the weight casts, the up
+bias and the activation).
 
 Expert weights are never quantized (``models.params.quantize_params``
-keeps them dense); the router stays f32.
+keeps them dense; a shared expert is quantized like a dense MLP); the
+router stays f32.
 
 Expert parallelism (``moe_ffn``'s ``ep_axis``, a
 ``parallel.sharding.ModelAxis``): shard r holds experts r*e .. r*e + e - 1
@@ -152,11 +164,16 @@ def _dense_experts(x: torch.Tensor, moe: Params, weights: torch.Tensor,
 
 
 def moe_ffn_ragged(x: torch.Tensor, moe: Params, *, top_k: int, act: str,
-                   normalize_topk: bool = False) -> torch.Tensor:
+                   normalize_topk: bool = False, scaling: float = 1.0,
+                   use_kernels: bool = True,
+                   int8: bool = False) -> torch.Tensor:
     """Sparse-dispatch MoE FFN on [T, D] tokens -> [T, D]: only the
     selected experts' products run (k/E of ``moe_ffn``'s). Numerics
     match ``moe_ffn`` up to f32 summation order (and, in bf16, the
-    expert products' rounding)."""
+    expert products' rounding). ``scaling``: DeepSeek-V2's
+    routed_scaling_factor on the kept probabilities; a ``shared`` expert
+    runs on every token through ``linear`` (``use_kernels`` and ``int8``
+    as there) and adds at f32 before the cast."""
     T, D = x.shape
     E = moe["router"]["w"].shape[-1]
     with span("moe_dispatch"):
@@ -164,22 +181,43 @@ def moe_ffn_ragged(x: torch.Tensor, moe: Params, *, top_k: int, act: str,
         top_w, top_e = topk_lower_first(probs, top_k)        # [T, k]
         if normalize_topk:
             top_w = top_w / top_w.sum(-1, keepdim=True).clamp_min(1e-9)
+        if scaling != 1.0:
+            top_w = top_w * scaling
         flat_e = top_e.reshape(-1)                             # [T*k]
         order = torch.argsort(flat_e, stable=True)             # by expert
         t_sorted = order // top_k                              # its token
         e_sorted = flat_e[order]
-        counts = torch.bincount(flat_e, minlength=E).tolist()  # host read
-        moe_ffn_ragged.host_reads += 1
+        counts = torch.bincount(flat_e, minlength=E)
+        if "gate" not in moe:
+            counts = counts.tolist()                           # host read
+            moe_ffn_ragged.host_reads += 1
         xs = x[t_sorted]                                       # [T*k, D]
-    y = _ragged_mlp(xs, counts, moe, act, x.dtype)
+    y = (_ragged_gated(xs, counts, moe, act) if "gate" in moe
+         else _ragged_mlp(xs, counts, moe, act, x.dtype))
     with span("moe_dispatch"):
-        y = y.float() + moe["down"]["b"].float()[e_sorted]
+        y = y.float()
+        if "b" in moe["down"]:
+            y = y + moe["down"]["b"].float()[e_sorted]
         y = y * top_w.reshape(-1)[order][:, None]
         out = torch.zeros(T, D, dtype=torch.float32, device=x.device)
         out.index_add_(0, t_sorted, y)
         if "bias" in moe:
             out = out + moe["bias"].float()
+    if "shared" in moe:
+        with span("moe_expert_gemm"):
+            out += _shared_expert(x, moe["shared"], act, use_kernels,
+                                  int8).float()
     return out.to(x.dtype)
+
+
+def _shared_expert(x: torch.Tensor, m: Params, act: str, use_kernels: bool,
+                   int8: bool) -> torch.Tensor:
+    """DeepSeek-V2's shared expert on every token: down(act(gate x) * up
+    x), quantized linears (K1 on the card), the product in x's dtype."""
+    mode = dict(use_kernels=use_kernels, int8=int8)
+    h = (linear(x, m["gate"]["w"], m["gate"]["b"], act=act, **mode)
+         * linear(x, m["up"]["w"], m["up"]["b"], **mode))
+    return linear(h, m["down"]["w"], m["down"]["b"], **mode)
 
 
 moe_ffn_ragged.host_reads = 0
@@ -211,3 +249,48 @@ def _ragged_mlp(xs: torch.Tensor, counts: list[int], moe: Params,
             torch.mm(h, down_w, out=out[rows])
         moe_ffn_ragged.expert_gemms += 2
     return out
+
+
+def _ragged_gated(xs: torch.Tensor, counts: torch.Tensor, moe: Params,
+                  act: str) -> torch.Tensor:
+    """down_e(act(xs_e @ gate_e) * (xs_e @ up_e)) over expert-sorted rows,
+    for gated experts without biases (DeepSeek-V2's), ``counts`` [E] the
+    rows of each expert, on the device. The stacks must be held in xs's
+    dtype (``models.params.hold_gated_experts``): a cast here would copy
+    every expert of the layer on every call."""
+    ws = [moe[k]["w"] for k in ("gate", "up", "down")]
+    if any(w.dtype != xs.dtype for w in ws):
+        raise TypeError(f"gated experts held in {[w.dtype for w in ws]}, "
+                        f"rows in {xs.dtype}: hold them in the compute "
+                        "dtype (models.params.hold_gated_experts)")
+    mm = _grouped(counts, xs.dtype)
+    with span("moe_expert_gemm"):
+        g, u = mm(xs, ws[0]), mm(xs, ws[1])
+    with span("moe_expert_ops"):
+        h = _activate(g, act).mul_(u)
+    with span("moe_expert_gemm"):
+        return mm(h, ws[2])
+
+
+def _grouped(counts: torch.Tensor, dtype):
+    """The product of expert-sorted rows [M, K] with an expert stack [E,
+    K, N], expert e's rows the e-th slice of ``counts``: in bf16 one
+    grouped product (``torch._grouped_mm``, the slices' ends as int32
+    offsets on the device: no host read, one launch); in another dtype
+    one ``torch.mm`` a non-empty expert after one host read of the
+    counts."""
+    if dtype == torch.bfloat16:
+        ends = counts.cumsum(0).to(torch.int32)
+
+        def mm(a, w):
+            moe_ffn_ragged.expert_gemms += 1
+            return torch._grouped_mm(a, w, offs=ends)
+        return mm
+    rows = counts.tolist()
+    moe_ffn_ragged.host_reads += 1
+
+    def mm(a, w):
+        moe_ffn_ragged.expert_gemms += sum(n > 0 for n in rows)
+        return torch.cat([torch.mm(p, w[e])
+                          for e, p in enumerate(a.split(rows))])
+    return mm

@@ -1,5 +1,6 @@
 """Rotary position embeddings (RoPE) — the port of
-``embeddings_tpu/ops/rotary.py`` (ModernBERT, nomic-bert, RoFormer).
+``embeddings_tpu/ops/rotary.py`` (ModernBERT, nomic-bert, RoFormer) —
+and YaRN's scaled frequencies (DeepSeek-V2's MLA, the port's own).
 
 Each head's query and key vectors are rotated pairwise by angles that
 depend on the position, so there is no position table. Two pairing
@@ -21,6 +22,7 @@ are likewise taken in f64 and rounded once.
 from __future__ import annotations
 
 import functools
+import math
 
 import torch
 
@@ -58,6 +60,64 @@ def rope_tables_for(L: int, dim: int, base: float, device
     """The tables of positions 0 .. L-1, computed once per (L, dim, base)
     on the CPU and moved to ``device``."""
     return tuple(t.to(device) for t in _cached_tables(L, dim, float(base)))
+
+
+def yarn_inv_freq(dim: int, base: float, scaling: dict) -> torch.Tensor:
+    """YaRN's frequencies (DeepSeek-V2's ``DeepseekV2YarnRotaryEmbedding``)
+    for a rotated width ``dim``, f64 [dim // 2]: with f_extra_i =
+    base^(-2i/dim) and f_inter_i = f_extra_i / factor, pair i takes
+    f_inter_i * ramp_i + f_extra_i * (1 - ramp_i), ramp_i = clamp((i -
+    low) / (high - low), 0, 1), where low = floor(corr(beta_fast)) and
+    high = ceil(corr(beta_slow)), clamped to [0, dim - 1], and corr(r) =
+    dim * ln(original_max_position_embeddings / (2 pi r)) / (2 ln base)."""
+    factor = float(scaling["factor"])
+    orig = float(scaling["original_max_position_embeddings"])
+
+    def corr(rot: float) -> float:
+        return dim * math.log(orig / (rot * 2 * math.pi)) / (
+            2 * math.log(base))
+    low = max(math.floor(corr(float(scaling.get("beta_fast", 32)))), 0)
+    high = min(math.ceil(corr(float(scaling.get("beta_slow", 1)))), dim - 1)
+    if low == high:
+        high += 0.001  # HF's guard against a zero-width ramp
+    i = torch.arange(dim // 2, dtype=torch.float64)
+    extra = float(base) ** (-2 * i / dim)
+    ramp = ((i - low) / (high - low)).clamp(0.0, 1.0)
+    return extra / factor * ramp + extra * (1 - ramp)
+
+
+def yarn_mscale(scale: float, mscale: float = 1.0) -> float:
+    """YaRN's magnitude factor: 0.1 * mscale * ln(scale) + 1 (1 at scale
+    <= 1)."""
+    return 1.0 if scale <= 1 else 0.1 * mscale * math.log(scale) + 1.0
+
+
+def yarn_tables(positions: torch.Tensor, dim: int, base: float,
+                scaling: tuple) -> tuple[torch.Tensor, torch.Tensor]:
+    """YaRN's (cos, sin) for integer ``positions`` [...] ([L], or [B, L]
+    for packed rows), each f32 [..., dim // 2] on the CPU: the angle and
+    its cos / sin taken in f64 and rounded once, both scaled by
+    mscale(factor, mscale) / mscale(factor, mscale_all_dim).
+    ``scaling``: the config's ``rope_scaling`` pairs."""
+    sc = dict(scaling)
+    ang = positions.cpu().double()[..., None] * yarn_inv_freq(dim, base, sc)
+    f = float(sc["factor"])
+    m = yarn_mscale(f, float(sc.get("mscale", 1))) / yarn_mscale(
+        f, float(sc.get("mscale_all_dim", 0)))
+    return (torch.cos(ang) * m).float(), (torch.sin(ang) * m).float()
+
+
+@functools.lru_cache(maxsize=32)
+def _yarn_cached(L: int, dim: int, base: float, scaling: tuple):
+    return yarn_tables(torch.arange(L), dim, base, scaling)
+
+
+def yarn_tables_for(L: int, dim: int, base: float, scaling: tuple, device
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``yarn_tables`` of positions 0 .. L-1, computed once per (L, dim,
+    base, scaling) on the CPU and moved to ``device``."""
+    return tuple(t.to(device)
+                 for t in _yarn_cached(L, dim, float(base), scaling))
 
 
 def apply_rotary(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,

@@ -190,11 +190,14 @@ class Engine:
                 "the CUDA kernels compute in bf16; use compute_dtype="
                 "'bfloat16' or use_pallas='never' for the plain f32 path")
         P.check_supported(config)
+        if mesh is not None and config.mla:
+            raise NotImplementedError("MLA models run on one device")
         self._dp = 1
         self._cp = False  # a context-parallel mesh
         if mesh is None:
             # single device: merge q/k/v into one matmul
             self.params = P.to_device(P.fuse_qkv(params), self.device)
+            P.hold_gated_experts(self.params, self._compute_dtype)
             if self._int8 and self._use_kernels:
                 # K3's int8 weights, requantized once here, not per call
                 P.keep_int8_weights(self.params)

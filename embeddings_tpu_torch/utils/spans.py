@@ -30,7 +30,11 @@ Chrome trace's ``args``.
   engine.scatter    the writes into the call's output
   moe_dispatch, moe_expert_gemm, moe_expert_ops   ``ops.moe``'s ragged
                     MoE FFN (router to index_add_, the expert products,
-                    their casts and activation)
+                    their casts and activation; a shared expert's products
+                    and activation under moe_expert_gemm)
+  mla_latent        ``models.bert``'s MLA half between its projections and
+                    attention: the latent's RMSNorm, the kv_b product, the
+                    rotation and the building of q | k | v
 """
 
 from __future__ import annotations
@@ -43,7 +47,7 @@ from torch._C._profiler import _RecordFunctionFast
 NAMES = ("engine.call", "engine.tokenize", "engine.plan", "engine.pad",
          "engine.pack", "engine.upload", "model.forward", "engine.readback",
          "engine.scatter", "moe_dispatch", "moe_expert_gemm",
-         "moe_expert_ops")
+         "moe_expert_ops", "mla_latent")
 
 _OFF = contextlib.nullcontext()
 

@@ -14,7 +14,9 @@ the bf16 rounding of the output differ. K4-K7, K6w, K6c and K6ca as K2;
 K6c's and K6ca's query rows that see fewer than 64 keys (the first rows
 of every sequence) also allow one bf16 flip of a probability, which
 moves an output by at most 2^-6 of the largest |v| among those keys
-(``_causal_close``). Every attention kernel (K2, K2i8, K4, K5, K7, K6,
+(``_causal_close``); K6c at MLA's widths (DeepSeek-V2's q and k heads
+192 wide, v 128) the same against the plain f32 attention. Every
+attention kernel (K2, K2i8, K4, K5, K7, K6,
 K6w, K6c, K6ca, K8a and K8b) runs on the Hopper library
 (``csrc/attention_sm90.cu``): ``test_sm90_attention_matches_plain``
 holds each of its prefix-masked modes at lengths on its tile edges and
@@ -404,6 +406,75 @@ def _causal_close(got, ref, qkv, lens, B, L, H, D):
     assert ((g - r).abs() <= 2 ** -6 * r.abs() + 1e-2 * rms
             + 2 ** -6 * extra).all(), (g - r).abs().max().item()
     assert (got[(nkeys == 0).reshape(-1)] == 0).all()
+
+
+@pytest.mark.parametrize("B,L", [(8, 128), (8, 1024), (8, 4096)])
+def test_mla_attention_kernel_matches_plain(cuda, B, L):
+    """K6c at MLA's widths (DeepSeek-V2-Lite: 16 heads, q and k 192 wide,
+    v 128, softmax scale 0.1147) against the plain f32 attention at the
+    cell's bucket shapes: the reference's masked softmax, not the
+    kernel's plain version, so the tolerance is K2's plus one bf16
+    probability flip on rows that see few keys, as ``_causal_close``."""
+    H, D, dv, scale = 16, 192, 128, 0.11472
+    rng = np.random.default_rng(L)
+    qkv = torch.from_numpy(rng.standard_normal(
+        (B * L, H * (2 * D + dv)), dtype=np.float32)).to(cuda,
+                                                          torch.bfloat16)
+    lens = torch.tensor([L, L - 37, 1, 0, L // 2, 129, L - 1, 64][:B],
+                        dtype=torch.int32, device=cuda).clamp_max(L)
+    before = (A.fused_attention_stream.mla_launches,
+              A.fused_attention_stream.causal_launches)
+    got = A.fused_attention_stream(qkv, lens, B=B, L=L, H=H, D=D,
+                                   BK=A.pick_bk(L), causal=True, dv=dv,
+                                   scale=scale)
+    assert (A.fused_attention_stream.mla_launches,
+            A.fused_attention_stream.causal_launches) == (before[0] + 1,
+                                                          before[1] + 1)
+    x = qkv.float().reshape(B, L, -1)
+    q, k, v = (t.reshape(B, L, H, -1).transpose(1, 2)
+               for t in x.split([H * D, H * D, H * dv], -1))
+    i = torch.arange(L, device=cuda)
+    ok = (i[None, :] <= i[:, None])[None, None] \
+        & (i[None, :] < lens[:, None])[:, None, None, :]
+    want = torch.zeros(B, H, L, dv, device=cuda)
+    for q0 in range(0, L, 512):  # [B, H, 512, L] f32 scores a step
+        s = (q[:, :, q0:q0 + 512] @ k.transpose(-1, -2)) * scale
+        s = s.masked_fill(~ok[:, :, q0:q0 + 512], float("-inf"))
+        p = torch.softmax(s, -1).nan_to_num(0.0)
+        want[:, :, q0:q0 + 512] = p @ v
+    want = want.transpose(1, 2).reshape(B * L, H * dv)
+    nkeys = torch.minimum(i[None, :] + 1, lens[:, None].long())  # [B, L]
+    vmax = v[:, :, :64].abs().amax(dim=(2, 3))                   # [B, H]
+    few = ((nkeys > 0) & (nkeys < 64)).float()
+    extra = (few[:, :, None] * vmax[:, None, :])[..., None].expand(
+        B, L, H, dv).reshape(B * L, H * dv)
+    g = got.float()
+    rms = want.square().mean().sqrt()
+    assert torch.isfinite(g).all()
+    assert ((g - want).abs() <= 2 ** -6 * want.abs() + 1e-2 * rms
+            + 2 ** -6 * extra).all(), (g - want).abs().max().item()
+    assert (got[(nkeys == 0).reshape(-1)] == 0).all()
+
+
+@pytest.mark.parametrize("rows", [8 * 1024 * 6, 8 * 4096 * 6])
+def test_grouped_expert_product_matches_per_expert(cuda, rows):
+    """DeepSeek-V2's routed-expert product on the card (``ops.moe``'s
+    grouped product: 64 experts 2,048 x 1,408, bf16) against one
+    ``torch.mm`` an expert, at the (token, expert) pairs of a 1,024 and a
+    4,096 bucket (B=8, top-6), two experts empty and one with one row.
+    Both sum in f32 and round once to bf16: one bf16 step apart."""
+    from embeddings_tpu_torch.ops.moe import _grouped
+    rng = np.random.default_rng(rows)
+    counts = torch.from_numpy(rng.multinomial(rows, np.full(64, 1 / 64)))
+    counts[[5, 40]] = 0
+    counts[7] = 1
+    a = torch.randn(int(counts.sum()), 2048, device=cuda,
+                    dtype=torch.bfloat16)
+    w = torch.randn(64, 2048, 1408, device=cuda, dtype=torch.bfloat16) * 0.02
+    got = _grouped(counts.to(cuda), torch.bfloat16)(a, w)
+    want = torch.cat([x.float() @ w[e].float()
+                      for e, x in enumerate(a.split(counts.tolist()))])
+    _close(got, want, 2 ** -7, 1e-3)
 
 
 @pytest.mark.parametrize("B,L,H,D,BK", [(4, 256, 4, 32, 256),

@@ -314,7 +314,7 @@ def test_init_params_gqa_tree():
     assert tuple(attn["v"]["b"].shape) == (2, kv * D)
     assert "ln" not in tp["embeddings"] and "position" not in tp["embeddings"]
     assert "final_ln" in tp
-    jtp = JP.init_params(JaxConfig(**dataclasses.asdict(small)), 0)
+    jtp = JP.init_params(JaxConfig(**small.to_dict()), 0)
     assert _shapes(tp) == _shapes(jtp)
 
 

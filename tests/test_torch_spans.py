@@ -17,9 +17,13 @@ classification head for rerank, and the MoE model).
 (d) The benchmark's trace reduction (``perfbench.tracing``) names the
     device's idle gaps by the port's spans and counts none of them as
     device time.
+(e) A DeepSeek-V2 forward (a tiny random one) opens ``mla_latent`` inside
+    ``model.forward`` once a layer, and its shared expert's products run
+    under ``moe_expert_gemm``.
 """
 
 import collections
+import json
 import types
 from pathlib import Path
 
@@ -58,6 +62,32 @@ def engine():
 def moe_engine():
     return load_model(FIXTURES / "tiny_trained_moe" / "model",
                       dtype="q4_0", device="cpu")
+
+
+@pytest.fixture(scope="module")
+def dsv2_engine():
+    """DeepSeek-V2 at a tiny width (MLA, one dense and two MoE layers
+    with a shared expert) from the benchmark reference's random weights."""
+    from embeddings_tpu_torch import BertConfig, EngineConfig
+    from embeddings_tpu_torch.models import params as P
+    from perfbench import weights
+    from perfbench.reference import deepseek_v2 as ref
+    from perfbench.conftest import TINY_DEEPSEEK_V2
+    hf = json.loads((ROOT / "perfbench" / "configs" /
+                     "deepseek-v2-lite.json").read_text())["model"][
+        "hf_config"]
+    hf = {**hf, **TINY_DEEPSEEK_V2, "vocab_size": DSV2_EOS + 1}
+    sd = weights.make(ref.checkpoint_spec(hf), 7, torch.device("cpu"))
+    cfg = BertConfig.from_hf_dict(hf)
+    tree = P.from_hf_state_dict({k: v.numpy() for k, v in sd.items()}, cfg)
+    ids = types.SimpleNamespace(cls_id=DSV2_EOS - 1, sep_id=DSV2_EOS,
+                                pad_id=DSV2_EOS, unk_id=DSV2_EOS)
+    return Engine(P.quantize_params(tree, "q4_0"), cfg, ids,
+                  EngineConfig(batch_size=4, max_seq_len=64), device="cpu")
+
+
+DSV2_EOS = 100001
+DSV2_TOKS = [[DSV2_EOS - 1, 5, 6, 7, DSV2_EOS], [DSV2_EOS - 1, 9, DSV2_EOS]]
 
 
 @pytest.fixture(scope="module")
@@ -200,16 +230,40 @@ def test_embeddings_equal_with_spans_on_and_off(engine, moe_engine, toks):
         assert a.dtype == b.dtype and np.array_equal(a, b)
 
 
-def test_names_list_every_span(engine, moe_engine, toks):
-    _, events = _profiled(lambda: _every_entry(engine, moe_engine, toks))
+def test_names_list_every_span(engine, moe_engine, toks, dsv2_engine):
+    _, events = _profiled(lambda: (_every_entry(engine, moe_engine, toks),
+                                   dsv2_engine.encode_toks(DSV2_TOKS)))
     port = {e.name for e in events
-            if e.name.startswith(("engine.", "model.", "moe_"))}
+            if e.name.startswith(("engine.", "model.", "moe_", "mla_"))}
     assert port == set(NAMES)
     for e in events:
-        if e.name.startswith("moe_"):
+        if e.name.startswith(("moe_", "mla_")):
             assert _ancestor(e, "model.forward") is not None
         if e.name == "engine.tokenize":  # encode_batch tokenizes first
             assert _ancestor(e, "model.forward") is None
+
+
+def test_deepseek_v2_span_tree(dsv2_engine, monkeypatch):
+    """``mla_latent`` once a layer inside each ``model.forward``; every
+    product of the shared expert under ``moe_expert_gemm``."""
+    from embeddings_tpu_torch.ops import moe
+    linear = moe.linear
+
+    def marked(*args, **kw):
+        with record_function("test.shared_linear"):
+            return linear(*args, **kw)
+    monkeypatch.setattr(moe, "linear", marked)
+    _, events = _profiled(lambda: dsv2_engine.encode_toks(DSV2_TOKS,
+                                                          batch_size=1))
+    forwards = [e for e in events if e.name == "model.forward"]
+    latent = [e for e in events if e.name == "mla_latent"]
+    NL = dsv2_engine.config.num_hidden_layers
+    assert len(forwards) == 2 and len(latent) == 2 * NL
+    assert all(_ancestor(e, "model.forward") in forwards for e in latent)
+    shared = [e for e in events if e.name == "test.shared_linear"]
+    # gate, up and down a MoE layer a forward
+    assert len(shared) == 3 * 2 * (NL - 1)
+    assert all(_ancestor(e, "moe_expert_gemm") is not None for e in shared)
 
 
 def test_spans_are_host_ops_not_user_annotations(engine, toks):
