@@ -87,6 +87,7 @@ tokenize, bench).
         rerank_path,timing
     python3 chip_smoke.py --phases device,build,moe_path,timing
     python3 chip_smoke.py --phases device,build,mla_path,timing  # DeepSeek-V2
+    python3 chip_smoke.py --phases device,build,moe_combine,timing  # combine
     python3 chip_smoke.py --phases device,build,multihost_path
     python3 chip_smoke.py --phases device,build,multicard_path,nccl_path
     python3 chip_smoke.py --phases device,build,main,timing,native_tok,\
@@ -255,12 +256,13 @@ ALBERT_UP = (E, F, "bias_gelu_tanh")
 # (K6: past the whole-row rule at E=768), packed 256 rows of 128 (K4)
 # DeepSeek-V2-Lite (the benchmark's configuration file): MLA's K6c at
 # the cell's buckets (B=8; 16 heads, q and k 192 wide, v 128), a forward
-# of the main path at full width cut to the leading dense layer and one
-# MoE layer, its routed experts' grouped products at a 1,024 bucket
+# of the main path at full width and the cell's depth (the leading dense
+# layer and 11 MoE layers), its routed experts' grouped products at a
+# 1,024 bucket
 DSV2_CONFIG = ROOT / "perfbench" / "configs" / "deepseek-v2-lite.json"
 MLA_SHAPES = ((8, 1024), (8, 2048), (8, 4096))
 MLA_H, MLA_D, MLA_DV = 16, 192, 128
-DSV2_LAYERS = 2
+DSV2_LAYERS = 12
 # a forward at each bucket of the cell (8 rows a forward): 1,024, 2,048,
 # 4,096
 DSV2_LENGTHS = (129, 300, 512, 700, 900, 1000, 1024, 1024,
@@ -273,6 +275,22 @@ MLA_REPLACES = ("none: the port's own mode (K6c at MLA's widths, q and k "
                 "has no MLA")
 MOE_SHORT, MOE_LONG, MOE_PACK = (128, 256), (4, 2048), (256, 128)
 MOE_NL, MOE_EXPERTS, MOE_K1 = 12, 8, 36
+# the MoE combine's two kernels, one each a MoE layer (nomic: 6 a forward)
+MOE_COMBINE_WANT = {"moe_combine_kernel": MOE_NL // 2,
+                    "moe_positions_kernel": MOE_NL // 2}
+# the MoE combine (ops.moe.combine_experts, csrc/moe_combine.cu) at the
+# main paths' shapes: name -> (tokens T, k, D, experts, optional
+# operands): DeepSeek-V2's 4,096 and 1,024 buckets (B=8; the shared
+# expert), nomic's B=128 L=256 (the down and output biases), and a width
+# off the 16-byte rows (the scalar instantiation; parity only)
+COMBINE_SHAPES = {"dsv2_L4096": (32768, 6, 2048, 64, ("shared",)),
+                  "dsv2_L1024": (8192, 6, 2048, 64, ("shared",)),
+                  "nomic": (32768, 2, 768, 8, ("down_b", "bias")),
+                  "odd_D100": (1000, 3, 100, 8,
+                               ("down_b", "bias", "shared"))}
+COMBINE_SOURCE = "embeddings_tpu_torch/csrc/moe_combine.cu"
+COMBINE_REPLACES = ("none: the port's own (ops/moe.py combine_experts); "
+                    "the JAX package combines with XLA's segment sum")
 MOE_FIXTURE = ROOT / "benchmarks" / "fixtures" / "tiny_trained_moe"
 
 # the checkpoint formats: bge-base's f32 tree (numpy seed 0) written by the
@@ -562,16 +580,19 @@ def phase_device():
 
 
 SOURCES = ("qmatmul", "attention_sm90")
+# the libraries without tensor-core products (built beside SOURCES)
+PLAIN_SOURCES = ("moe_combine",)
 
 
 def phase_build():
-    """Build the two libraries; both hold wgmma and no mma.sync: bf16
-    (HGMMA) and int8 (IGMMA: K3 in qmatmul's, K2i8 in the attention one)
-    in each, and neither HMMA (bf16 mma.sync / WMMA) nor IMMA (int8
-    mma.sync) in either, so the port has no mma.sync at all. ptxas's C75xx
-    notes (each a kernel whose wgmma it serializes) are counted per
-    library from its -v report; no library has one. The native tokenizer
-    (g++) builds beside them, in a thread."""
+    """Build the libraries; the two of SOURCES hold wgmma and no
+    mma.sync: bf16 (HGMMA) and int8 (IGMMA: K3 in qmatmul's, K2i8 in the
+    attention one) in each, and no library holds HMMA (bf16 mma.sync /
+    WMMA) or IMMA (int8 mma.sync), so the port has no mma.sync at all.
+    ptxas's C75xx notes (each a kernel whose wgmma it serializes) are
+    counted per library from its -v report; no library has one. The MoE
+    combine's registers and spills are printed from that report. The
+    native tokenizer (g++) builds beside them, in a thread."""
     import threading
     from embeddings_tpu_torch.ops import _cuda
     from embeddings_tpu_torch.tokenizer import native
@@ -588,7 +609,7 @@ def phase_build():
     tok = threading.Thread(target=build_native)
     tok.start()
     t0 = time.perf_counter()
-    seconds = _cuda.build(*SOURCES)  # one nvcc each, all together
+    seconds = _cuda.build(*SOURCES, *PLAIN_SOURCES)  # one nvcc each
     tok.join()
     check(not native_err, f"native tokenizer build failed: {native_err}")
     hgmma = {name: hgmma_count(name) for name in SOURCES}
@@ -598,7 +619,7 @@ def phase_build():
     for name, n in igmma.items():
         check(n > 0, f"{name}'s library holds no IGMMA (int8 wgmma)")
     mma_sync = {name: {op: hgmma_count(name, op) for op in ("HMMA", "IMMA")}
-                for name in SOURCES}
+                for name in SOURCES + PLAIN_SOURCES}
     for name, ops in mma_sync.items():
         check(not any(ops.values()),
               f"{name}'s library holds mma.sync instructions: {ops}")
@@ -611,7 +632,10 @@ def phase_build():
     emit("build", seconds=time.perf_counter() - t0, per_source=seconds,
          native_tokenizer_s=STATE["native_build_s"],
          hgmma_in_sass=hgmma, igmma_in_sass=igmma,
-         mma_sync_in_sass=mma_sync, ptxas_c75xx_notes=c75)
+         mma_sync_in_sass=mma_sync, ptxas_c75xx_notes=c75,
+         ptxas={name: [line.strip() for line in _cuda.BUILD_LOGS.get(
+             name, "").splitlines() if "registers" in line or "spill" in line]
+             for name in PLAIN_SOURCES})
 
 
 def hgmma_count(name: str, opcode: str = "HGMMA") -> int:
@@ -1982,6 +2006,134 @@ def phase_k6ca():
          f"see none exactly 0", **out)
 
 
+def combine_inputs(dev, T: int, k: int, Dx: int, Ex: int, extras,
+                   seed: int = 0):
+    """A combine's bf16 inputs on the card: each token routed to k
+    distinct experts of Ex (experts 2 and 5 never: no rows), weights on a
+    1/8 grid (ties), rows [T*k, Dx] in expert order; ``extras`` names the
+    optional operands to pass (down_b, bias, shared). Returns (y, top_w,
+    experts, order, operands)."""
+    import torch
+    rng = np.random.default_rng(seed)
+    live = torch.tensor([e for e in range(Ex) if e not in (2, 5)],
+                        device=dev)
+    pick = torch.from_numpy(np.argsort(rng.random((T, len(live)),
+                                                  dtype=np.float32), -1)
+                            [:, :k]).to(dev)
+    flat_e = live[pick].reshape(-1)
+    top_w = torch.from_numpy(rng.integers(1, 8, (T, k)).astype(np.float32)
+                             / 8).to(dev)
+    order = torch.argsort(flat_e, stable=True)
+    y = torch.randn(T * k, Dx, device=dev, dtype=torch.bfloat16)
+    ops = {"down_b": torch.randn(Ex, Dx, device=dev) * 0.1,
+           "bias": torch.randn(Dx, device=dev) * 0.1,
+           "shared": torch.randn(T, Dx, device=dev, dtype=torch.bfloat16)}
+    return y, top_w, flat_e, order, {n: ops[n] for n in extras}
+
+
+def index_add_combine(y, top_w, experts, order, down_b=None, bias=None,
+                      shared=None):
+    """The chain of library ops ``ops.moe`` combined with before the
+    hand-written combine (the kernel table's library yardstick): f32
+    rows, the bias and the weights gathered through the sort, an atomic
+    ``index_add_``, the bias, the shared expert, the cast."""
+    import torch
+    T, k = top_w.shape
+    r = y.float()
+    if down_b is not None:
+        r = r + down_b.float()[experts[order]]
+    r = r * top_w.reshape(-1)[order][:, None]
+    out = torch.zeros(T, y.shape[1], dtype=torch.float32, device=y.device)
+    out.index_add_(0, order // k, r)
+    if bias is not None:
+        out = out + bias.float()
+    if shared is not None:
+        out += shared.float()
+    return out.to(y.dtype)
+
+
+def phase_moe_combine():
+    """The MoE combine (``ops.moe.combine_experts``,
+    ``csrc/moe_combine.cu``) against its plain version at
+    ``COMBINE_SHAPES``: within one bf16 step (the same rounded f32
+    operations in the same order: bit for bit as written), two launches
+    bit for bit (no atomics), one count a call; against the index_add_
+    chain it replaced within 2^-7 relative + 2^-7 of the output's RMS
+    (the atomics' f32 order)."""
+    import torch
+    from embeddings_tpu_torch.ops import moe as Mo
+    dev = torch.device("cuda")
+    out = {}
+    for name, (T, k, Dx, Ex, extras) in COMBINE_SHAPES.items():
+        y, w, e, order, kw = combine_inputs(dev, T, k, Dx, Ex, extras, T)
+        n0 = Mo.moe_ffn_ragged.combines
+        got = Mo.combine_experts(y, w, e, order, **kw)
+        again = Mo.combine_experts(y, w, e, order, **kw)
+        want = Mo._combine_plain(y, w, e, order, **kw)
+        chain = index_add_combine(y, w, e, order, **kw)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs()
+        r = {"shape": [T, k, Dx], "experts": Ex, "operands": list(extras),
+             "max_abs_err": err.max().item(),
+             "within_one_step": bool(
+                 (err <= 2 ** -7 * want.float().abs()).all()),
+             "bit_equal_plain": bool(torch.equal(got, want)),
+             "repeat_bit_equal": bool(torch.equal(got, again)),
+             "launches": Mo.moe_ffn_ragged.combines - n0,
+             "vs_index_add": compare(got, chain, 2 ** -7, 2 ** -7)}
+        check(r["within_one_step"] and r["repeat_bit_equal"]
+              and r["launches"] == 2 and r["vs_index_add"]["ok"],
+              f"MoE combine {name} disagrees: {r}")
+        out[name] = r
+        del y, got, again, want, chain
+    emit("moe_combine", parity=out, source=COMBINE_SOURCE)
+
+
+def combine_rows(rng, dev) -> list:
+    """The MoE combine's rows of the kernel table at ``COMBINE_SHAPES``'
+    main-path shapes: the kernel and the index_add_ chain it replaced
+    (the library yardstick) in alternating rounds, the plain version
+    (f32, k gathers) by itself; the bound is bytes at 3.35 TB/s: the k
+    rows, the shared row and the output of each token, the weights, the
+    sort and (with the down bias) the experts, and the biases, each read
+    or written once."""
+    from embeddings_tpu_torch.ops import moe as Mo
+    out = []
+    for name, (T, k, Dx, Ex, extras) in COMBINE_SHAPES.items():
+        if name.startswith("odd"):
+            continue
+        y, w, e, order, kw = combine_inputs(dev, T, k, Dx, Ex, extras,
+                                            int(rng.integers(1 << 30)))
+        s = y.element_size()
+        nbytes = (T * k * Dx * s + T * Dx * s + T * k * (4 + 8)
+                  + ("shared" in kw) * T * Dx * s
+                  + ("down_b" in kw) * (T * k * 8 + Ex * Dx * 4)
+                  + ("bias" in kw) * Dx * 4)
+        bms, by = bound_ms(0.0, nbytes)
+        t = alternating_ms({
+            "kernel": lambda: Mo.combine_experts(y, w, e, order, **kw),
+            "library": lambda: index_add_combine(y, w, e, order, **kw)})
+        launches = STATE.get("combines_dsv2" if name.startswith("dsv2")
+                             else "combines_nomic", 0)
+        out.append({
+            "name": f"combine_experts[T{T} k{k} D{Dx} "
+                    f"{'+'.join(extras)}]", "route": "cuda",
+            "source": COMBINE_SOURCE, "replaces": COMBINE_REPLACES,
+            "launches": launches,
+            "max_abs_err": RESULTS["moe_combine"]["parity"][name][
+                "max_abs_err"],
+            "ms": t["kernel"][0], "ms_range": t["kernel"][1],
+            "plain_ms": cuda_ms(lambda: Mo._combine_plain(
+                y, w, e, order, **kw), iters=3, warmup=1),
+            "bound_ms": bms, "bound_by": by,
+            "roofline_pct": 100 * bms / t["kernel"][0],
+            "library_ms": t["library"][0],
+            "library_ms_range": t["library"][1], "bytes": nbytes,
+            "shape": [T, k, Dx]})
+        del y, w, e, order, kw
+    return out
+
+
 def _dsv2_engine():
     """DeepSeek-V2-Lite at full width from the benchmark's configuration
     file, cut to ``DSV2_LAYERS`` layers, built as the cell builds it
@@ -2007,11 +2159,14 @@ def phase_mla_path():
     ragged rows with an empty and a one-key row); the routed experts'
     grouped product (``ops.moe._grouped``) against one ``torch.mm`` an
     expert at a 1,024 bucket's rows (64 experts, two empty); then one
-    main-path ``encode_toks`` of rows in every bucket, the launch
-    counters zeroed just before it: every layer's attention through the
-    MLA kernel (``mla_launches``), no plain version, no MoE host read,
-    three grouped products a MoE layer, and the embeddings against the
-    plain reference in f32 within the cell's limits."""
+    main-path ``encode_toks`` of rows in every bucket at the cell's depth,
+    the launch counters zeroed just before it: every layer's attention
+    through the MLA kernel (``mla_launches``), no plain version, no MoE
+    host read, three grouped products and one combine a MoE layer (11 a
+    forward), and the embeddings against the plain reference in f32
+    within the cell's limits; one forward's profile: the combine's two
+    kernels 11 times each under ``moe_dispatch``, and no
+    ``index_add_`` (``indexFuncLargeIndex``) there."""
     import torch
     from embeddings_tpu_torch.ops import attention as A, moe as Mo
     from perfbench import compare as bench_compare, program
@@ -2071,22 +2226,35 @@ def phase_mla_path():
     rec = program.ForwardRecorder(eng)
     stream.mla_launches = stream.causal_launches = stream.launches = 0
     reads, gemms = moe_counts()
+    combines = Mo.moe_ffn_ragged.combines
     with plain_calls() as calls, rec.active():
         emb = eng.encode_toks(seqs)
         torch.cuda.synchronize()
     r2, g2 = moe_counts()
     launches = {"mla": stream.mla_launches, "K6c": stream.causal_launches,
                 "K6": stream.launches, "moe_host_reads": r2 - reads,
-                "expert_products": g2 - gemms}
+                "expert_products": g2 - gemms,
+                "combines": Mo.moe_ffn_ragged.combines - combines}
     n_fwd = len(rec.forwards)
     want = {"mla": n_fwd * DSV2_LAYERS, "K6c": n_fwd * DSV2_LAYERS,
             "K6": 0, "moe_host_reads": 0,
-            "expert_products": 3 * n_fwd * (DSV2_LAYERS - 1)}
+            "expert_products": 3 * n_fwd * (DSV2_LAYERS - 1),
+            "combines": n_fwd * (DSV2_LAYERS - 1)}
     check(launches == want and not any(calls.values()),
           f"DeepSeek-V2 forward launched {launches}, want {want}; plain "
           f"calls {dict(calls)}")
     STATE["launches_mla"] = {f"L{f['L']}": DSV2_LAYERS
                              for f in rec.forwards}
+    STATE["combines_dsv2"] = DSV2_LAYERS - 1
+    # one forward (the 1,024 bucket's 8 rows) by the span of each kernel
+    dispatch = moe_span_kernels(lambda: eng.encode_toks(seqs[:8])).get(
+        "moe_dispatch", {})
+    n_comb = {k: sum(v[1] for name, v in dispatch.items() if k in name)
+              for k in MOE_COMBINE_WANT}
+    check(n_comb == dict.fromkeys(MOE_COMBINE_WANT, DSV2_LAYERS - 1)
+          and not any("indexFuncLargeIndex" in k for k in dispatch),
+          f"DeepSeek-V2 forward under moe_dispatch: {n_comb}, kernels "
+          f"{sorted(dispatch)}")
     hf = model["hf_config"]
     ref_emb = ref.encode(sd, hf, {"pooling": model["pooling"],
                                   "normalize": model["normalize"]},
@@ -2104,7 +2272,9 @@ def phase_mla_path():
          f"see none exactly 0", softmax_scale=scale, parity=out,
          grouped_expert_product=gm, layers=DSV2_LAYERS,
          forwards=[[f["B"], f["L"]] for f in rec.forwards],
-         launches=launches, reference=gaps, limits=limits["compare"])
+         launches=launches, reference=gaps, limits=limits["compare"],
+         moe_dispatch_kernels={k: {"ms": v[0], "launches": v[1]}
+                               for k, v in dispatch.items()})
 
 
 def mla_rows(rng, dev) -> list:
@@ -3199,14 +3369,16 @@ def phase_moe_path():
     dense half) + 12 K2 (K6 at B=4, L=2,048, past the whole-row rule; the
     int8 mode 36 K3 + 36 row quantizations), packed rows of 128 36 K1 +
     12 K4; every attention launch on "sm90", no plain-version call, one
-    host read and at most 16 expert products (2 a non-empty expert) a
-    MoE layer. Cosine >= 0.999 to the plain f32 path on the card (the
-    same tree dequantized, experts in f32), of ragged to dense dispatch
+    host read, at most 16 expert products (2 a non-empty expert) and one
+    combine (``csrc/moe_combine.cu``) a MoE layer. Cosine >= 0.999 to
+    the plain f32 path on the card (the same tree dequantized, experts in
+    f32; its combine the kernel too: the card's tensors take it), of
+    ragged to dense dispatch
     and of packed to bucketed; >= 0.99 of int8 to bf16; the trained
     ``tiny_trained_moe`` on the card against the port on the CPU; TCP."""
     import torch
     from embeddings_tpu_torch import KNOWN_MODELS, load_model
-    from embeddings_tpu_torch.ops import attention as A
+    from embeddings_tpu_torch.ops import attention as A, moe as Mo
     t0 = time.perf_counter()
     eng = _moe_engine()
     cfg = eng.config
@@ -3262,7 +3434,12 @@ def phase_moe_path():
     rng = np.random.default_rng(8)
     ids = rng.integers(1000, 30000, MOE_SHORT).astype(np.int32)
     mask = np.ones(MOE_SHORT, np.int32)
+    combines = Mo.moe_ffn_ragged.combines
     emb, one, reads, gemms, experts, calls = _moe_forward(eng, ids, mask)
+    combines = Mo.moe_ffn_ragged.combines - combines
+    check(combines == n_moe, f"moe at {MOE_SHORT}: {combines} combines, "
+          f"want {n_moe}")
+    STATE["combines_nomic"] = combines
     pemb, _, _, _, pexperts, _ = _moe_forward(plain, ids, mask)
     demb = dense.forward(ids, mask)
     check(one == only(K1=MOE_K1, K2=MOE_NL) and not any(calls.values()),
@@ -3280,6 +3457,7 @@ def phase_moe_path():
           f"moe at {MOE_SHORT}: vs plain f32 {cos.min()}, vs dense "
           f"{cos_dense.min()}")
     out["forward"] = dict(batch=list(MOE_SHORT), launches=one,
+                          combines_per_forward=combines,
                           host_reads_per_forward=reads,
                           expert_gemms_per_forward=gemms,
                           top2_same_as_f32_share=same,
@@ -3838,7 +4016,9 @@ def phase_timing():
             runs[name] = (lambda e=STATE[key], i=fids: e._forward(
                 i, np.ones_like(i)),
                 launches_want(k1, attn, dh, shape[1],
-                              weights=weights_spec(STATE[key])))
+                              weights=weights_spec(STATE[key]),
+                              **(MOE_COMBINE_WANT
+                                 if name.startswith("nomic_moe") else {})))
     if "albert_engine8" in STATE:
         # ALBERT's int8 forward: K3 on its one kept weight a matmul
         aids = rng.integers(1000, 30000, ENC_SHAPE).astype(np.int32)
@@ -3852,7 +4032,8 @@ def phase_timing():
         mids = rng.integers(1000, 30000, MOE_SHORT).astype(np.int32)
         runs["nomic_moe_int8"] = (
             lambda: STATE["moe_engine8"]._forward(mids, np.ones_like(mids)),
-            launches_want(MOE_K1, {0: MOE_NL}, quant_rows_kernel=MOE_K1))
+            launches_want(MOE_K1, {0: MOE_NL}, quant_rows_kernel=MOE_K1,
+                          **MOE_COMBINE_WANT))
     if "reranker_engine" in STATE:
         # the cross-encoder's forward: the backbone, then the head's two
         # f32 products on the CLS rows
@@ -4012,6 +4193,8 @@ def phase_timing():
         kernels.append(causal_alibi_row(rng, dev))
     if "mla_path" in RESULTS:
         kernels += mla_rows(rng, dev)
+    if "moe_combine" in RESULTS:
+        kernels += combine_rows(rng, dev)
     if "k1_parity" in RESULTS:
         # K1 at a TP shard's shapes, with the launches of the 1 x 2 and
         # 1 x 4 forwards (tp_path)
@@ -4464,7 +4647,8 @@ def device_profile(name: str, fn, want: dict) -> dict:
     launches ``want`` names (``launches_want``): its matmul kernels are
     the ones the routes counted during the profiled calls name
     (``matmul_kernel``), ``want["matmuls"]`` of them; and no matmul,
-    attention, requantization or row kernel it does not name. The torch
+    attention, requantization, row or MoE combine kernel it does not
+    name, and no ``index_add_`` under ``moe_dispatch``. The torch
     ops' kernels are also split by the span (``record_function``) that
     launched them: ``ops.moe``'s ``moe_dispatch``, ``moe_expert_gemm``
     and ``moe_expert_ops``, and "rotation" (``apply_rotary_qkv``, wrapped
@@ -4518,7 +4702,8 @@ def device_profile(name: str, fn, want: dict) -> dict:
     check(sum(n for k, n in want.items() if k.startswith("qmm_")) == n_mm,
           f"profile {name}: matmul routes {want}, want {n_mm} matmuls")
     kinds = ("requant_kernel", "quant_rows_kernel", "emit_rows_kernel",
-             "qmm_wgmma_kernel", "attn90_i8_kernel", "attn_sm90_kernel")
+             "qmm_wgmma_kernel", "attn90_i8_kernel", "attn_sm90_kernel",
+             *MOE_COMBINE_WANT)
     by_kind: dict = {}
     torch_ops: dict = {}  # the library's own kernels, by name
     by_span: dict = {}    # ... by the span that launched them
@@ -4546,6 +4731,9 @@ def device_profile(name: str, fn, want: dict) -> dict:
             span = launching_span(launch.cpu_parent if launch else None)
             if span:
                 tally(by_span, span, ms)
+                check(not (span == "moe_dispatch"
+                           and "indexFuncLargeIndex" in e.name),
+                      f"profile {name}: an index_add_ under moe_dispatch")
                 if span == "moe_expert_gemm" and not e.name.startswith(
                         ("Memcpy", "Memset")):
                     tally(gemm_names, e.name[:120], ms)
@@ -4593,17 +4781,53 @@ def launching_span(op) -> str | None:
     return None
 
 
+def moe_span_kernels(fn) -> dict:
+    """The device kernels one call of fn launches, by the span of
+    ``SPANS`` that launched them ("none" outside them): span -> {kernel
+    name: [ms, launches]}. Recorded as ``device_profile`` records: one
+    warm-up step, idle gaps at both edges."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        for _ in range(2):
+            time.sleep(0.02)
+            fn()
+            torch.cuda.synchronize()
+            time.sleep(0.02)
+            prof.step()
+    events = prof.events()
+    runtime = {e.id: e for e in events
+               if e.device_type == torch.autograd.DeviceType.CPU
+               and e.name.startswith("cu")}
+    out: dict = {}
+    for e in events:
+        if e.device_type != torch.autograd.DeviceType.CUDA \
+                or e.name.startswith("ProfilerStep") or e.name in SPANS:
+            continue
+        launch = runtime.get(e.id)
+        span = launching_span(launch.cpu_parent if launch else None)
+        name = e.name.replace("(anonymous namespace)::", "")
+        tally(out.setdefault(span or "none", {}),
+              name.split("(")[0].removeprefix("void ")[:100],
+              e.time_range.elapsed_us() / 1e3)
+    return out
+
+
 def moe_breakdown(prof: dict) -> dict:
     """An MoE forward's device ms by column: K1 / K3, attention, the
-    experts' products, dispatch (router, top-k, sort, gather, the weighted
-    index_add_), the experts' casts, bias and activation, rotation, the
-    other torch ops; and the idle share."""
-    col = {"matmul_K1_K3": 0.0, "attention": 0.0}
+    combine's two kernels, the experts' products, dispatch's torch ops
+    (router, top-k, sort, gather), the experts' casts, bias and
+    activation, rotation, the other torch ops; and the idle share."""
+    col = {"matmul_K1_K3": 0.0, "attention": 0.0, "combine": 0.0}
     for k, v in prof["by_kernel"].items():
         if k.startswith("qmm_") or k.startswith("quant_rows"):
             col["matmul_K1_K3"] += v["ms"]
         elif k.startswith("attn"):
             col["attention"] += v["ms"]
+        elif k in MOE_COMBINE_WANT:
+            col["combine"] += v["ms"]
     span = {k: v["ms"] for k, v in prof["torch_ops_by_span"].items()}
     for k in SPANS:
         col[k] = span.get(k, 0.0)
@@ -4930,15 +5154,17 @@ def _http(base: str, path: str, body=None):
 
 @contextlib.contextmanager
 def plain_calls():
-    """Count the calls of K1's, K3's, K2's, K8a's and K8b's plain versions
-    inside the block (the wrappers call them only for CPU tensors);
-    yields the counts."""
-    from embeddings_tpu_torch.ops import attention as A, qmatmul as Q
+    """Count the calls of K1's, K3's, K2's, K8a's, K8b's and the MoE
+    combine's plain versions inside the block (the wrappers call them
+    only for CPU tensors); yields the counts."""
+    from embeddings_tpu_torch.ops import attention as A, moe as Mo, \
+        qmatmul as Q
     calls, saved = {}, []
     for mod, name in ((Q, "qmatmul_ref"), (Q, "qmatmul_int8_ref"),
                       (A, "fused_attention_ref"),
                       (A, "fused_attention_cp_ref"),
-                      (A, "fused_attention_cp_stream_ref")):
+                      (A, "fused_attention_cp_stream_ref"),
+                      (Mo, "_combine_plain")):
         fn = getattr(mod, name)
         calls[name] = 0
 
@@ -6589,7 +6815,7 @@ PHASES = {"device": phase_device, "build": phase_build, "k1": phase_k1,
           "roberta_path": phase_roberta_path,
           "roformer_path": phase_roformer_path,
           "albert_path": phase_albert_path, "moe_path": phase_moe_path,
-          "mla_path": phase_mla_path,
+          "mla_path": phase_mla_path, "moe_combine": phase_moe_combine,
           "ggml_path": phase_ggml_path,
           "gguf_path": phase_gguf_path, "rerank_path": phase_rerank_path,
           "timing": phase_timing, "native_tok": phase_native_tok,

@@ -23,11 +23,14 @@ Two evaluations, as in the JAX package:
   pairs are sorted by expert (stable), the rows gathered, each non-empty
   expert's contiguous slice multiplied by its weights in the activation
   dtype (``torch.mm``: f32 accumulation in bf16 on the card), and the
-  rows weighted and added back to their tokens at f32 (``index_add_``).
-  The JAX package's ``lax.ragged_dot`` is an XLA op, not a Pallas
-  kernel: its port is the library product. Top-k keeps JAX's tie rule
-  (``lax.top_k``: the lower expert index first), which ``torch.topk``
-  does not: a stable descending sort gives it.
+  rows weighted and added back to their tokens at f32 in one pass
+  (``combine_experts``: on the card the hand-written
+  ``csrc/moe_combine.cu``, with the down bias, the output bias and the
+  shared expert, no atomics). The JAX package's ``lax.ragged_dot`` is an
+  XLA op, not a Pallas kernel: its port is the library product; its
+  segment-sum combine has no Pallas kernel either. Top-k keeps JAX's tie
+  rule (``lax.top_k``: the lower expert index first), which
+  ``torch.topk`` does not: a stable descending sort gives it.
 
 The per-expert loop needs each expert's row count on the host: one
 device-to-host read per MoE layer (``moe_ffn_ragged.host_reads``).
@@ -35,11 +38,12 @@ Gated experts in bf16 take no loop and no read: each of their three
 products is one grouped product over every expert (``_grouped``), the
 row counts kept on the card as offsets. The expert product launches are
 counted in ``moe_ffn_ragged.expert_gemms`` (two per non-empty expert;
-three a layer for grouped gated experts). The profiler sees three spans
-(``utils.spans``): ``moe_dispatch`` (router, top-k, sort, gather, the
-weighted ``index_add_``), ``moe_expert_gemm`` (the products, and the
-shared expert whole) and ``moe_expert_ops`` (the weight casts, the up
-bias and the activation).
+three a layer for grouped gated experts), the combine's launches in
+``moe_ffn_ragged.combines`` (one a MoE layer on the card, none on the
+CPU). The profiler sees three spans (``utils.spans``): ``moe_dispatch``
+(router, top-k, sort, gather, the combine), ``moe_expert_gemm`` (the
+products, and the shared expert whole) and ``moe_expert_ops`` (the
+weight casts, the up bias and the activation).
 
 Expert weights are never quantized (``models.params.quantize_params``
 keeps them dense; a shared expert is quantized like a dense MLP); the
@@ -173,7 +177,7 @@ def moe_ffn_ragged(x: torch.Tensor, moe: Params, *, top_k: int, act: str,
     expert products' rounding). ``scaling``: DeepSeek-V2's
     routed_scaling_factor on the kept probabilities; a ``shared`` expert
     runs on every token through ``linear`` (``use_kernels`` and ``int8``
-    as there) and adds at f32 before the cast."""
+    as there) and adds at f32 in the combine, before the cast."""
     T, D = x.shape
     E = moe["router"]["w"].shape[-1]
     with span("moe_dispatch"):
@@ -186,7 +190,6 @@ def moe_ffn_ragged(x: torch.Tensor, moe: Params, *, top_k: int, act: str,
         flat_e = top_e.reshape(-1)                             # [T*k]
         order = torch.argsort(flat_e, stable=True)             # by expert
         t_sorted = order // top_k                              # its token
-        e_sorted = flat_e[order]
         counts = torch.bincount(flat_e, minlength=E)
         if "gate" not in moe:
             counts = counts.tolist()                           # host read
@@ -194,20 +197,14 @@ def moe_ffn_ragged(x: torch.Tensor, moe: Params, *, top_k: int, act: str,
         xs = x[t_sorted]                                       # [T*k, D]
     y = (_ragged_gated(xs, counts, moe, act) if "gate" in moe
          else _ragged_mlp(xs, counts, moe, act, x.dtype))
-    with span("moe_dispatch"):
-        y = y.float()
-        if "b" in moe["down"]:
-            y = y + moe["down"]["b"].float()[e_sorted]
-        y = y * top_w.reshape(-1)[order][:, None]
-        out = torch.zeros(T, D, dtype=torch.float32, device=x.device)
-        out.index_add_(0, t_sorted, y)
-        if "bias" in moe:
-            out = out + moe["bias"].float()
+    shared = None
     if "shared" in moe:
         with span("moe_expert_gemm"):
-            out += _shared_expert(x, moe["shared"], act, use_kernels,
-                                  int8).float()
-    return out.to(x.dtype)
+            shared = _shared_expert(x, moe["shared"], act, use_kernels, int8)
+    with span("moe_dispatch"):
+        return combine_experts(y, top_w, flat_e, order,
+                               down_b=moe["down"].get("b"),
+                               bias=moe.get("bias"), shared=shared)
 
 
 def _shared_expert(x: torch.Tensor, m: Params, act: str, use_kernels: bool,
@@ -222,6 +219,119 @@ def _shared_expert(x: torch.Tensor, m: Params, act: str, use_kernels: bool,
 
 moe_ffn_ragged.host_reads = 0
 moe_ffn_ragged.expert_gemms = 0
+moe_ffn_ragged.combines = 0
+
+
+_DTYPE_ID = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
+
+
+def combine_experts(y: torch.Tensor, top_w: torch.Tensor,
+                    experts: torch.Tensor, order: torch.Tensor, *,
+                    down_b: torch.Tensor | None = None,
+                    bias: torch.Tensor | None = None,
+                    shared: torch.Tensor | None = None) -> torch.Tensor:
+    """The routed experts' rows back on their tokens: out[t] = sum_j
+    top_w[t, j] * (y[row of (t, j)] + down_b[experts[t*k + j]]) + bias +
+    shared[t], at f32, cast to y's dtype. y [T*k, D] holds the rows in
+    expert order (sorted row i is pair ``order[i]`` = t*k + j), top_w [T,
+    k] the f32 weights and experts [T*k] the experts in top-k order;
+    down_b [E, D], bias [D] and shared [T, D] are optional. A CUDA tensor
+    launches ``csrc/moe_combine.cu`` (counted in
+    ``moe_ffn_ragged.combines``); a CPU tensor runs ``_combine_plain``,
+    the same operations in the same order."""
+    if y.device.type == "cpu":
+        return _combine_plain(y, top_w, experts, order, down_b=down_b,
+                              bias=bias, shared=shared)
+    T, k = top_w.shape
+    n, D = y.shape
+    if y.dtype not in _DTYPE_ID:
+        raise TypeError(f"the CUDA combine takes bf16, f16 or f32 rows, "
+                        f"got {y.dtype}")
+    if n != T * k:
+        raise ValueError(f"y holds {n} rows for {T} tokens of {k} experts")
+    if n >= 2 ** 31:
+        raise ValueError(f"{n} (token, expert) pairs: the combine indexes "
+                         f"rows in 32 bits")
+    if top_w.dtype != torch.float32 or top_w.stride(1) != 1:
+        raise TypeError("top_w must be f32 with unit column stride")
+    for name, t in (("experts", experts), ("order", order)):
+        if t.dtype != torch.int64 or t.shape != (n,) or not t.is_contiguous():
+            raise TypeError(f"{name} must be contiguous int64 [{n}]")
+    if shared is not None and (shared.dtype != y.dtype
+                               or shared.shape != (T, D)):
+        raise TypeError(f"shared must be {y.dtype} [{T}, {D}], got "
+                        f"{shared.dtype} {tuple(shared.shape)}")
+    if down_b is not None and down_b.shape[-1] != D:
+        raise ValueError(f"down_b must be [E, {D}]")
+    if bias is not None and bias.shape != (D,):
+        raise ValueError(f"bias must be [{D}]")
+    if not y.is_contiguous() or (shared is not None
+                                 and not shared.is_contiguous()):
+        raise ValueError("y and shared must be contiguous")
+    down_b, bias = (None if b is None else b.float().contiguous()
+                    for b in (down_b, bias))
+    out = torch.empty(T, D, dtype=y.dtype, device=y.device)
+    if T == 0 or D == 0:
+        return out
+    pos = torch.empty(n, dtype=torch.int32, device=y.device)
+    lib = _lib()
+    from ._cuda import check, on_device
+    from .qmatmul import _ptr
+    with on_device("combine_experts", y.device, top_w=top_w,
+                   experts=experts, order=order, down_b=down_b, bias=bias,
+                   shared=shared):
+        status = lib.moe_combine_launch(
+            y.data_ptr(), order.data_ptr(), pos.data_ptr(), top_w.data_ptr(),
+            top_w.stride(0), experts.data_ptr(), _ptr(down_b), _ptr(bias),
+            _ptr(shared), out.data_ptr(), T, k, D, _DTYPE_ID[y.dtype],
+            torch.cuda.current_stream(y.device).cuda_stream)
+    check(status, lib.moe_error_string, "combine_experts")
+    moe_ffn_ragged.combines += 1
+    return out
+
+
+def expert_positions(order: torch.Tensor) -> torch.Tensor:
+    """The inverse of the expert sort: pos[order[i]] = i, so pair t*k + j
+    sits in sorted row pos[t*k + j] (the CUDA combine's first kernel)."""
+    pos = torch.empty_like(order)
+    pos[order] = torch.arange(order.numel(), device=order.device)
+    return pos
+
+
+def _combine_plain(y, top_w, experts, order, *, down_b=None, bias=None,
+                   shared=None) -> torch.Tensor:
+    """``combine_experts`` in torch ops: each token's k rows gathered
+    through ``expert_positions`` and added at f32 in top-k order, then
+    the bias and the shared expert."""
+    T, k = top_w.shape
+    pos = expert_positions(order).reshape(T, k)
+    e = experts.reshape(T, k)
+    acc = torch.zeros(T, y.shape[1], dtype=torch.float32, device=y.device)
+    for j in range(k):
+        r = y[pos[:, j]].float()
+        if down_b is not None:
+            r = r + down_b.float()[e[:, j]]
+        acc = acc + top_w[:, j:j + 1] * r
+    if bias is not None:
+        acc = acc + bias.float()
+    if shared is not None:
+        acc = acc + shared.float()
+    return acc.to(y.dtype)
+
+
+def _lib():
+    import ctypes
+    from . import _cuda
+    lib = _cuda.load("moe_combine")
+    if not getattr(lib, "_typed", False):
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.moe_combine_launch.argtypes = ([p] * 4 + [i] + [p] * 5 + [i] * 4
+                                           + [p])
+        lib.moe_combine_launch.restype = i
+        lib.moe_error_string.argtypes = [i]
+        lib.moe_error_string.restype = ctypes.c_char_p
+        lib._typed = True
+    return lib
 
 
 def _ragged_mlp(xs: torch.Tensor, counts: list[int], moe: Params,

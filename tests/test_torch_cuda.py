@@ -25,7 +25,9 @@ the emission tests for K2e and K4e, its emitting modes. K3 is K1's wgmma
 kernel on int8 operands: ``test_int8_operands_bit_for_bit`` holds its
 kept weight and its row quantization to the plain version's bits,
 ``test_qmatmul_int8_tiles_match_plain`` its tile configurations
-(``k3_tile``) at main-path sizes.
+(``k3_tile``) at main-path sizes. The MoE combine
+(``csrc/moe_combine.cu``) repeats its plain version's rounded f32
+operations in the same order: within one step of the output dtype.
 ``test_encoder_family_forward_matches_plain`` runs RoBERTa, DistilBERT,
 RoFormer and ALBERT forwards on K1 and K2 against the plain f32 forward.
 """
@@ -475,6 +477,78 @@ def test_grouped_expert_product_matches_per_expert(cuda, rows):
     want = torch.cat([x.float() @ w[e].float()
                       for e, x in enumerate(a.split(counts.tolist()))])
     _close(got, want, 2 ** -7, 1e-3)
+
+
+def _combine_inputs(dev, T, k, D, E, dtype, extras, seed=0):
+    """A combine's inputs on the card: each token routed to k distinct
+    experts of E (experts 2 and 5 never: no rows), weights on a 1/8 grid
+    (ties), y [T*k, D] in expert order; ``extras`` names the optional
+    operands to pass (down_b, bias, shared)."""
+    rng = np.random.default_rng(seed)
+    live = np.array([e for e in range(E) if e not in (2, 5)])
+    top_e = torch.from_numpy(np.argsort(rng.random((T, len(live))), -1)
+                             [:, :k]).to(dev)
+    top_e = torch.from_numpy(live).to(dev)[top_e]
+    top_w = torch.from_numpy(rng.integers(1, 8, (T, k)).astype(np.float32)
+                             / 8).to(dev)
+    flat_e = top_e.reshape(-1)
+    order = torch.argsort(flat_e, stable=True)
+    y = torch.randn(T * k, D, device=dev).to(dtype)
+    ops = {"down_b": torch.randn(E, D, device=dev) * 0.1,
+           "bias": torch.randn(D, device=dev) * 0.1,
+           "shared": torch.randn(T, D, device=dev).to(dtype)}
+    return y, top_w, flat_e, order, {n: ops[n] for n in extras}
+
+
+@pytest.mark.parametrize("T,k,D,E,dtype,extras", [
+    (8192, 6, 2048, 64, torch.bfloat16, ("shared",)),      # DeepSeek-V2
+    (32768, 2, 768, 8, torch.bfloat16, ("down_b", "bias")),  # nomic
+    (1000, 3, 100, 8, torch.bfloat16, ("down_b", "bias", "shared")),
+    (513, 2, 768, 8, torch.float32, ("down_b", "bias")),   # the f32 path
+    (300, 9, 64, 12, torch.float16, ("shared",))])
+def test_moe_combine_matches_plain(cuda, T, k, D, E, dtype, extras):
+    """The hand-written combine (``csrc/moe_combine.cu``) against its
+    plain version on the card: the same rounded f32 products and adds in
+    the same order, so within one step of the output dtype (bit for bit
+    as written); two launches bit for bit (no atomics); one count a
+    launch. D = 100 takes the scalar path, k = 9 two chunks of loads."""
+    from embeddings_tpu_torch.ops.moe import _combine_plain, \
+        combine_experts, moe_ffn_ragged
+    y, top_w, flat_e, order, kw = _combine_inputs(cuda, T, k, D, E, dtype,
+                                                  extras, seed=T)
+    n0 = moe_ffn_ragged.combines
+    got = combine_experts(y, top_w, flat_e, order, **kw)
+    again = combine_experts(y, top_w, flat_e, order, **kw)
+    want = _combine_plain(y, top_w, flat_e, order, **kw)
+    torch.cuda.synchronize()
+    assert moe_ffn_ragged.combines == n0 + 2
+    assert got.dtype == dtype and torch.equal(got, again)
+    step = torch.finfo(dtype).eps
+    g, r = got.float(), want.float()
+    assert ((g - r).abs() <= step * r.abs() + 1e-30).all(), \
+        (g - r).abs().max().item()
+
+
+def test_moe_combine_counts_a_launch_per_moe_layer(cuda):
+    """A forward of the trained nomic-style fixture on the card launches
+    one combine a MoE layer and embeds as the CPU does."""
+    from pathlib import Path
+    from embeddings_tpu_torch.ops.moe import moe_ffn_ragged
+    from embeddings_tpu_torch.runtime.engine import load_model
+    path = (Path(__file__).resolve().parent.parent / "benchmarks"
+            / "fixtures" / "tiny_trained_moe" / "model")
+    eng = load_model(path, dtype="q4_0", device=cuda)
+    n_moe = eng.params["layers"]["moe"]["mlp"]["router"]["w"].shape[0]
+    rng = np.random.default_rng(1)
+    ids = rng.integers(5, eng.config.vocab_size, (4, 32)).astype(np.int32)
+    mask = np.ones_like(ids)
+    n0 = moe_ffn_ragged.combines
+    emb = eng.forward(ids, mask)
+    torch.cuda.synchronize()
+    assert moe_ffn_ragged.combines == n0 + n_moe
+    cpu = load_model(path, dtype="q4_0", device="cpu").forward(ids, mask)
+    assert ((emb * cpu).sum(-1) / np.linalg.norm(emb, axis=-1)
+            / np.linalg.norm(cpu, axis=-1)).min() >= 0.999
 
 
 @pytest.mark.parametrize("B,L,H,D,BK", [(4, 256, 4, 32, 256),

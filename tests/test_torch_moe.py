@@ -11,7 +11,11 @@ on the CPU.
 (b) The FFN: ``moe_ffn`` and ``moe_ffn_ragged`` against JAX's for E in
     {4, 8} and k in {1, 2} (1e-5); ragged equals dense over (k, act,
     normalize) (1e-5); a one-expert MoE model equals the dense model built
-    from the same weights (1e-5).
+    from the same weights (1e-5). The combine's plain version (the CUDA
+    kernel's arithmetic) equals the index_add_ formula it replaced to f32
+    order (bit for bit at k = 1), at k in {1, 2, 6} with and without each
+    optional operand; ``expert_positions`` inverts the sort; the launch
+    counter stays 0 on the CPU.
 (c) The tree: ``from_hf_state_dict``'s (dense, moe) tree equals JAX's
     leaf for leaf, ``init_params``' has its layout; ``quantize_params`` quantizes the same leaves (the
     attention and the dense half; experts and router dense), ``fuse_qkv``
@@ -222,6 +226,107 @@ def test_single_expert_equals_dense_model():
     ref = tbert.encode_tokens(dp, dense_cfg, ids, mask)
     got = tbert.encode_tokens(mp, moe_cfg, ids, mask)
     np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=0, atol=1e-5)
+
+
+def _combine_case(k, T=61, D=24, E=8, seed=0):
+    """A combine's inputs: each token routed to k distinct experts of E,
+    experts 2 and 5 never (no rows), weights on a 1/8 grid (ties);
+    y [T*k, D] in expert order."""
+    rng = np.random.default_rng(seed + k)
+    live = [e for e in range(E) if e not in (2, 5)]
+    top_e = torch.from_numpy(np.stack([rng.permutation(live)[:k]
+                                       for _ in range(T)]))
+    top_w = torch.from_numpy(
+        rng.integers(1, 8, (T, k)).astype(np.float32) / 8)
+    flat_e = top_e.reshape(-1)
+    order = torch.argsort(flat_e, stable=True)
+    y = torch.from_numpy(_w(rng, T * k, D, std=1.0))
+    extras = {"down_b": torch.from_numpy(_w(rng, E, D)),
+              "bias": torch.from_numpy(_w(rng, D)),
+              "shared": torch.from_numpy(_w(rng, T, D, std=1.0))}
+    return y, top_w, flat_e, order, extras
+
+
+def _combine_index_add(y, top_w, experts, order, down_b=None, bias=None,
+                       shared=None):
+    """The combine as ``moe_ffn_ragged`` wrote it before the one-pass
+    version: f32 rows, the bias and the weights gathered through the
+    sort, an ``index_add_`` onto the tokens."""
+    T, k = top_w.shape
+    r = y.float()
+    if down_b is not None:
+        r = r + down_b.float()[experts[order]]
+    r = r * top_w.reshape(-1)[order][:, None]
+    out = torch.zeros(T, y.shape[1], dtype=torch.float32)
+    out.index_add_(0, order // k, r)
+    if bias is not None:
+        out = out + bias.float()
+    if shared is not None:
+        out += shared.float()
+    return out.to(y.dtype)
+
+
+@pytest.mark.parametrize("shared", [False, True])
+@pytest.mark.parametrize("bias", [False, True])
+@pytest.mark.parametrize("down_b", [False, True])
+@pytest.mark.parametrize("k", [1, 2, 6])
+def test_combine_plain_equals_index_add(k, down_b, bias, shared):
+    """``_combine_plain`` (the CUDA combine's plain version: k gathered
+    rows added in top-k order) against the index_add_ formula: equal to
+    f32 summation order, and bit for bit at k = 1 (one term a token)."""
+    y, top_w, flat_e, order, extras = _combine_case(k)
+    kw = {name: t for name, t in extras.items()
+          if {"down_b": down_b, "bias": bias, "shared": shared}[name]}
+    got = tmoe._combine_plain(y, top_w, flat_e, order, **kw)
+    ref = _combine_index_add(y, top_w, flat_e, order, **kw)
+    assert got.dtype == torch.float32 and got.shape == ref.shape
+    if k == 1:
+        assert torch.equal(got, ref)
+    else:
+        torch.testing.assert_close(got, ref, rtol=1e-6, atol=1e-6)
+    # the CPU entry is the plain version; bf16 rows come back in bf16
+    assert torch.equal(tmoe.combine_experts(y, top_w, flat_e, order, **kw),
+                       got)
+    bf = {n: t.to(torch.bfloat16) if n == "shared" else t
+          for n, t in kw.items()}
+    got16 = tmoe.combine_experts(y.to(torch.bfloat16), top_w, flat_e, order,
+                                 **bf)
+    ref16 = _combine_index_add(y.to(torch.bfloat16), top_w, flat_e, order,
+                               **bf)
+    assert got16.dtype == torch.bfloat16
+    assert ((got16.float() - ref16.float()).abs()
+            <= 2 ** -7 * ref16.float().abs() + 1e-6).all()
+
+
+@pytest.mark.parametrize("k", [1, 2, 6])
+def test_expert_positions_invert_the_sort(k):
+    """pos = ``expert_positions(order)`` sends pair (t, j) to its sorted
+    row: order[pos] is the identity, the row there carries token t and
+    expert top_e[t, j], and every expert's rows are contiguous."""
+    y, top_w, flat_e, order, _ = _combine_case(k)
+    T = top_w.shape[0]
+    pos = tmoe.expert_positions(order)
+    n = T * k
+    assert torch.equal(order[pos], torch.arange(n))
+    assert torch.equal((order // k)[pos].reshape(T, k),
+                       torch.arange(T)[:, None].expand(T, k))
+    assert torch.equal(flat_e[order][pos], flat_e)
+    assert (flat_e[order].diff() >= 0).all()
+
+
+def test_combine_counts_no_launch_on_the_cpu():
+    """On the CPU ``moe_ffn_ragged`` runs the plain combine: the launch
+    counter stays 0, for nomic's layout (down bias, output bias) and a
+    shared expert's."""
+    rng = np.random.default_rng(7)
+    moe = _as(_single_moe(rng, 32, 48, 8), torch.from_numpy)
+    x = torch.from_numpy(_w(rng, 97, 32, std=1.0))
+    tmoe.moe_ffn_ragged(x, moe, top_k=2, act="gelu")
+    shared = {n: {"w": torch.from_numpy(_w(rng, *s)), "b": None}
+              for n, s in (("gate", (32, 16)), ("up", (32, 16)),
+                           ("down", (16, 32)))}
+    tmoe.moe_ffn_ragged(x, {**moe, "shared": shared}, top_k=2, act="silu")
+    assert tmoe.moe_ffn_ragged.combines == 0
 
 
 # ---------------------------------------------------------------------------
